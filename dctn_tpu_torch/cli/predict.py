@@ -1,0 +1,205 @@
+"""Inference entry point of the port: load an npz checkpoint, emit
+predictions and latency statistics (port of ``dctn_tpu/cli/predict.py``).
+
+The checkpoint is the JAX package's reference-layout npz; the model runs
+the fast (cmt) forward, whose EPS layers are the hand-written CUDA kernel
+on ``--device cuda`` and its plain PyTorch version on ``--device cpu``.
+Exported artifacts, ``--quantize int8`` and ``--mesh-devices > 1`` are not
+ported yet and are refused.
+
+Usage:
+  python -m dctn_tpu_torch.cli.predict CKPT.npz --ds-type fashionmnist \
+      --ds-path synthetic --epses-specs "(4,4),(3,6)" --split test \
+      --out preds.npy --latency-bench
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+import zipfile
+
+import click
+import numpy as np
+import torch
+
+from ..data import load_dataset
+from ..interop import params_from_numpy
+from ..models import EPSesPlusLinear, EPSesPlusLinearConfig, fast_layer_plans
+from ..train import load_params_npz
+from .specs import parse_epses_specs
+
+
+def _is_artifact(path: str) -> bool:
+    """True iff ``path`` is an exported deployment artifact (a zip with
+    meta.json) rather than an npz checkpoint."""
+    if not zipfile.is_zipfile(path):
+        return False
+    with zipfile.ZipFile(path) as zf:
+        return "meta.json" in zf.namelist()
+
+
+def _check_params(params, cfg: EPSesPlusLinearConfig, channels: int) -> None:
+    """Every leaf has the shape ``cfg`` implies (the JAX loader checks the
+    same against its template)."""
+    want = {f"epses/{i}": p["core_shape"] for i, p in enumerate(fast_layer_plans(cfg, channels))}
+    want["linear/w"] = (cfg.linear_in_features, cfg.num_classes)
+    want["linear/b"] = (cfg.num_classes,)
+    got = {f"epses/{i}": tuple(c.shape) for i, c in enumerate(params["epses"])}
+    got.update({f"linear/{k}": tuple(v.shape) for k, v in params["linear"].items()})
+    for key, shape in want.items():
+        if got.get(key) != tuple(shape):
+            raise ValueError(f"checkpoint leaf {key}: shape {got.get(key)} != model {tuple(shape)}")
+
+
+def predict_split(forward, x: torch.Tensor, batch_size: int) -> np.ndarray:
+    """Argmax predictions of ``forward`` over a (C, N, H, W, Q) split in
+    batches; the last batch may be short (nothing is compiled per shape)."""
+    preds = [
+        forward(x[:, start : start + batch_size]).argmax(dim=1).cpu()
+        for start in range(0, x.shape[1], batch_size)
+    ]
+    return torch.cat(preds).numpy()
+
+
+def latency_stats(forward, x: torch.Tensor, batch_size: int, iters: int = 30) -> dict:
+    """Per-call latency of ``forward``, each call fenced with
+    ``torch.cuda.synchronize()``, and the pipelined throughput of a window of
+    calls with one fence at its end, timed with CUDA events (host clock on a
+    CPU device)."""
+    cuda = x.device.type == "cuda"
+
+    def fence():
+        if cuda:
+            torch.cuda.synchronize(x.device)
+
+    xb = x[:, :batch_size]
+    forward(xb)
+    fence()  # warm: the first call builds and loads the kernel
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        forward(xb)
+        fence()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    # the steady-state rate under a full request queue; a long window
+    # amortizes the one fence at its end
+    window = min(2048, max(iters, 49152 // batch_size))
+    best = float("inf")
+    for _ in range(3):
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(window):
+                forward(xb)
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(window):
+                forward(xb)
+            best = min(best, time.perf_counter() - t0)
+    return {
+        "batch_size": batch_size,
+        "device": torch.cuda.get_device_name(x.device) if cuda else "cpu",
+        "p50_ms": 1e3 * times[len(times) // 2],
+        "p90_ms": 1e3 * times[int(len(times) * 0.9)],
+        "min_ms": 1e3 * times[0],
+        "throughput_img_per_s": batch_size / times[len(times) // 2],
+        "pipelined_throughput_img_per_s": batch_size * window / best,
+        "calls": 1 + iters + 3 * window,
+    }
+
+
+@dataclasses.dataclass
+class PredictRun:
+    preds: np.ndarray
+    accuracy: float
+    latency: list  # one latency_stats dict per batch size
+    forward_calls: int  # model forwards, prediction and latency together
+    model: EPSesPlusLinear  # the model that served
+    x: torch.Tensor  # the split it served, (C, N, H, W, Q) on its device
+
+
+@click.command()
+@click.argument("checkpoint", type=click.Path(exists=True, dir_okay=False))
+@click.option("--ds-type", required=True)
+@click.option("--ds-path", required=True)
+@click.option("--epses-specs", type=parse_epses_specs, default=None,
+              help="the model's EPS layers, e.g. '(4,4),(3,6)'")
+@click.option("--phi-multiplier", type=float, default=None)
+@click.option("--split", type=click.Choice(("train", "val", "test")), default="test")
+@click.option("--batch-size", type=int, default=128)
+@click.option("--out", type=click.Path(dir_okay=False), default=None,
+              help="write predictions (int64 npy) here")
+@click.option("--latency-bench", is_flag=True,
+              help="print a JSON latency line for batch sizes 1 and --batch-size")
+@click.option("--mesh-devices", type=int, default=1,
+              help="not ported yet: only 1 is accepted")
+@click.option("--quantize", type=click.Choice(("none", "int8")), default="none",
+              help="not ported yet: only 'none' is accepted")
+@click.option("--device", default="cuda",
+              help="torch device to run on: cuda (the kernels) or cpu (their plain versions)")
+def main(checkpoint, ds_type, ds_path, epses_specs, phi_multiplier, split,
+         batch_size, out, latency_bench, mesh_devices, quantize, device):
+    run(checkpoint=checkpoint, ds_type=ds_type, ds_path=ds_path,
+        epses_specs=epses_specs, phi_multiplier=phi_multiplier, split=split,
+        batch_size=batch_size, out=out, latency_bench=latency_bench,
+        mesh_devices=mesh_devices, quantize=quantize, device=device)
+
+
+def run(*, checkpoint, ds_type, ds_path, epses_specs=None, phi_multiplier=None,
+        split="test", batch_size=128, out=None, latency_bench=False,
+        mesh_devices=1, quantize="none", synthetic_sizes=(8192, 2048, 2048),
+        device="cuda") -> PredictRun:
+    if _is_artifact(checkpoint):
+        raise click.UsageError("exported artifacts are not ported yet; pass an npz checkpoint")
+    if quantize not in (None, "none"):
+        raise click.UsageError(f"--quantize {quantize} is not ported yet")
+    if mesh_devices > 1:
+        raise click.UsageError("--mesh-devices > 1 is not ported yet")
+    if not epses_specs:
+        raise click.UsageError("--epses-specs is required for npz checkpoints")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise click.UsageError(f"--device {device}: no CUDA device is available")
+    splits = load_dataset(
+        ds_type, ds_path, phi_multiplier=phi_multiplier,
+        autoscale_kernel_size=None if phi_multiplier else epses_specs[0][0],
+        synthetic_sizes=synthetic_sizes,
+    )
+    sp = getattr(splits, split)
+    channels, _, image_size, _, q0 = sp.x.shape
+    cfg = EPSesPlusLinearConfig(epses_specs=epses_specs, image_size=image_size, q0=q0)
+    params = params_from_numpy(load_params_npz(checkpoint), device, cfg.dtype)
+    _check_params(params, cfg, channels)
+    model = EPSesPlusLinear.from_reference(params, cfg)
+    forward_calls = 0
+
+    def forward(xb):
+        nonlocal forward_calls
+        forward_calls += 1
+        return model(xb)
+
+    x = torch.as_tensor(sp.x, device=device)
+    latency = []
+    with torch.inference_mode():
+        preds = predict_split(forward, x, batch_size)
+        acc = float(np.mean(preds == np.asarray(sp.y)))
+        print(f"{split}: n={len(preds)} accuracy={acc:.2%}")
+        if out:
+            np.save(out, preds)
+            print(f"predictions written to {out}")
+        if latency_bench:
+            for bs in sorted({1, batch_size}):
+                stats = latency_stats(forward, x, bs)
+                print(json.dumps({"metric": "forward_latency", **stats}))
+                latency.append(stats)
+    return PredictRun(preds, acc, latency, forward_calls, model, x)
+
+
+if __name__ == "__main__":
+    main()

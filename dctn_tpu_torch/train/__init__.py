@@ -1,0 +1,1 @@
+from .checkpoint import load_params_npz, save_params_npz
