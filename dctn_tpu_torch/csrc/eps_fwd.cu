@@ -1,8 +1,10 @@
-// EPS forward for Hopper (sm_90a): the serving forward of one EPS layer in
-// the fast (cmt) parameter layout.
+// EPS forward for Hopper (sm_90a): the forward of one EPS layer in the fast
+// (cmt) parameter layout, for serving and for training.
 //
-// Replaces the TPU kernel _fwd_kernel_factory (dctn_tpu/pallas/eps_pallas.py:227)
-// in its save_t=False form. For one output channel o and pixel p:
+// Replaces the TPU kernel _fwd_kernel_factory (dctn_tpu/pallas/eps_pallas.py:227),
+// both forms: without t (serving) and with save_t (training: the backward's
+// d_views pass reads t instead of recomputing it). For one output channel o
+// and pixel p:
 //   u[a, p]   = prod_{k < n1}  views[k, digit_k(a), p]     (A  = q^n1 rows)
 //   t[b, p]   = sum_a cmt[o*B2 + b, a] * u[a, p]            (B2 = q^(n-n1))
 //   v[b, p]   = prod_{k >= n1} views[k, digit_k(b), p]
@@ -24,8 +26,12 @@
 // epilogue forms v from the staged factors, contracts each thread's tile over
 // its b rows, and sums the per-thread partials across the CTA in shared
 // memory in a fixed order. No atomics and no cross-CTA sums: the result is
-// deterministic. t never leaves registers (the TPU kernel's optional t output
-// belongs to the training backward and is not built here).
+// deterministic. Without t, t never leaves registers. With t (the save_t
+// launch) each thread also stores its 8 x 8 register tile to t[o*B2 + b, p]
+// (float4 stores where the row is 16-byte aligned), masking b >= B2 and the
+// ragged last pixel tile: Z*npix*4 bytes more to write (416 MB for the
+// flagship's second layer at batch 128, about 0.12 ms at 3.35 TB/s, small
+// next to that layer's 3.18 ms f32 bound).
 //
 // Limits (checked by the Python wrapper, again here): B2 <= 512 (one 8-row
 // register tile per thread, at most 512 threads); n*q <= 256 staged factor
@@ -55,10 +61,11 @@ constexpr size_t kMaxSmemBytes =
 static_assert(kMaxSmemBytes <= 227 * 1024, "over a Hopper block's shared memory");
 constexpr int kMaxDevices = 64;
 
+template <bool kSaveT>
 __global__ void __launch_bounds__(kMaxThreads)
 eps_fwd_kernel(const float* __restrict__ views, const float* __restrict__ cmt,
-               float* __restrict__ out, int n, int q, int n1, int a_dim,
-               int b2, long long npix) {
+               float* __restrict__ out, float* __restrict__ t, int n, int q,
+               int n1, int a_dim, int b2, long long npix) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int nthreads = blockDim.x;
@@ -136,6 +143,27 @@ eps_fwd_kernel(const float* __restrict__ views, const float* __restrict__ cmt,
     }
   }
 
+  if (kSaveT) {
+    const long long pb = p0 + tp * kPixPerThread;
+    const bool vec = npix % 4 == 0 && pb + kPixPerThread <= npix;
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int b = tb * kRowsPerThread + i;
+      if (b >= b2) continue;
+      float* row = t + (static_cast<long long>(o) * b2 + b) * npix;
+      if (vec) {
+        *reinterpret_cast<float4*>(row + pb) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        *reinterpret_cast<float4*>(row + pb + 4) =
+            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPixPerThread; ++j)
+          if (pb + j < npix) row[pb + j] = acc[i][j];
+      }
+    }
+  }
+
   // epilogue: contract this thread's t rows with v, then sum across the CTA
   float part[kPixPerThread];
 #pragma unroll
@@ -173,7 +201,8 @@ eps_fwd_kernel(const float* __restrict__ views, const float* __restrict__ cmt,
 }
 
 // Raises the kernel's dynamic shared memory cap to kMaxSmemBytes, once per
-// device, so the launch path makes no attribute call.
+// device and variant, so the launch path makes no attribute call.
+template <bool kSaveT>
 cudaError_t ensure_smem_cap() {
   static std::atomic<bool> done[kMaxDevices];
   int dev = 0;
@@ -181,7 +210,7 @@ cudaError_t ensure_smem_cap() {
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(eps_fwd_kernel,
+  err = cudaFuncSetAttribute(eps_fwd_kernel<kSaveT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kMaxSmemBytes));
   if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
@@ -196,11 +225,12 @@ long long ipow(long long base, int exp) {
 
 }  // namespace
 
-// views (n, q, npix) f32, cmt (O*B2, A) f32, out (O, npix) f32, all
-// contiguous on the current device; launches on `stream` and does not
-// synchronise. Returns cudaGetLastError() (0 on success).
+// views (n, q, npix) f32, cmt (O*B2, A) f32, out (O, npix) f32 and, unless
+// null, t (O*B2, npix) f32, all contiguous on the current device; launches
+// on `stream` and does not synchronise. Returns cudaGetLastError() (0 on
+// success).
 extern "C" int dctn_eps_fwd(const void* views, const void* cmt, void* out,
-                            int n, int q, int n1, int out_size,
+                            void* t, int n, int q, int n1, int out_size,
                             long long npix, void* stream) {
   if (n < 1 || q < 1 || n1 < 1 || n1 > n || out_size < 1 ||
       out_size > 65535 || npix < 1 || n * q > kMaxFactorRows)
@@ -217,14 +247,15 @@ extern "C" int dctn_eps_fwd(const void* views, const void* cmt, void* out,
       sizeof(float) * (static_cast<size_t>(n) * q * kTilePix +
                        kChunkA * kTilePix + static_cast<size_t>(rows) * kCmtStride +
                        static_cast<size_t>(row_groups) * kTilePix);
-  const cudaError_t err = ensure_smem_cap();
+  const cudaError_t err =
+      t != nullptr ? ensure_smem_cap<true>() : ensure_smem_cap<false>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((npix + kTilePix - 1) / kTilePix),
                   static_cast<unsigned>(out_size));
-  eps_fwd_kernel<<<grid, nthreads, smem_bytes,
-                   static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = t != nullptr ? eps_fwd_kernel<true> : eps_fwd_kernel<false>;
+  kernel<<<grid, nthreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(views), static_cast<const float*>(cmt),
-      static_cast<float*>(out), n, q, n1, static_cast<int>(a_dim),
-      static_cast<int>(b2), npix);
+      static_cast<float*>(out), static_cast<float*>(t), n, q, n1,
+      static_cast<int>(a_dim), static_cast<int>(b2), npix);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,7 @@
   colored CIFAR.
 
 Host-side numpy; the same arguments give the same arrays as the JAX
-package. Its training ``Batcher`` is not ported: serving batches by slicing.
+package, and ``Batcher`` the same batches in the same order.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import random
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -271,3 +271,56 @@ def load_dataset(
                 raise ValueError("ν-scaled FashionMNIST statistics differ from the reference's")
     logger.info("ν applied: %s", splits.nu)
     return splits
+
+
+# ---------------------------------------------------------------------------
+# batching
+
+
+class Batcher:
+    """Index-based batch iterator (replaces the reference's DataLoader).
+
+    Yields (x, y, indices) numpy batches with x stacked on dim 1 like
+    ``collate_quantum`` (dataset_loading.py:282-286): x is (C, B, H, W, Q).
+    Train mode reshuffles every epoch with a seeded generator and drops the
+    last incomplete batch (dataset_loading.py:325). The same split, batch
+    size and seed give the JAX package's batches in its order.
+    """
+
+    def __init__(
+        self,
+        split: QuantumSplit,
+        batch_size: int,
+        shuffle: bool,
+        drop_last: bool,
+        seed: int = 0,
+    ):
+        self.split = split
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        n = len(self.split)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def epoch_order(self) -> np.ndarray:
+        n = len(self.split)
+        return self._rng.permutation(n) if self.shuffle else np.arange(n)
+
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        for sel in self.iter_indices():
+            yield self.split.x[:, sel], self.split.y[sel], self.split.indices[sel]
+
+    def iter_indices(self) -> Iterator[np.ndarray]:
+        """One epoch of POSITION index batches (for device-resident gathers)."""
+        order = self.epoch_order()
+        n = len(order)
+        stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        for start in range(0, stop, self.batch_size):
+            yield order[start : start + self.batch_size]
+
+    def indices_forever(self) -> Iterator[np.ndarray]:
+        while True:
+            yield from self.iter_indices()

@@ -1,38 +1,67 @@
-"""Host side of the EPS forward kernel (port of the forward half of
-``dctn_tpu/pallas/eps_pallas.py``).
+"""Host side of the EPS kernels (port of ``dctn_tpu/pallas/eps_pallas.py``):
+the forward, and the backward of the fast training step.
 
 The layer works in the transposed batch-minor layout: ``xT`` (C, Q, H, W, B)
 in, ``outT`` (O, H', W', B) out, the flat pixel index ``(h·W' + w)·B + b``.
 The host builds the (n, q, npix) stack of window factors (merging q=2
 factor pairs into q=4 ones, as the JAX plan does) and hands it, with the
-core in its matricized (Z, A) "cmt" layout, to ``eps_fwd``:
+core in its matricized (Z, A) "cmt" layout, to three contractions:
 
-- on a CPU tensor ``eps_fwd`` runs ``eps_fwd_reference``, the plain PyTorch
-  version;
-- on a CUDA tensor it launches the hand-written kernel
-  ``csrc/eps_fwd.cu`` (which replaces ``_fwd_kernel_factory``,
-  eps_pallas.py:227) or raises. There is no fallback.
+- ``eps_fwd``: the layer's output and, for training, its t = cmt·u
+  (``csrc/eps_fwd.cu``, replacing ``_fwd_kernel_factory``, eps_pallas.py:227);
+- ``eps_dcore``: d_cmt (``csrc/eps_dcore.cu``, replacing
+  ``_dcore_kernel_factory``, :348, and the d_cmt half of
+  ``_bwd_fused_t_kernel_factory``, :303);
+- ``eps_dviews_t``: the factors' cotangents from the saved t
+  (``csrc/eps_dviews_t.cu``, replacing the d_views half of
+  ``_bwd_fused_t_kernel_factory``).
+
+On a CPU tensor each wrapper runs its plain PyTorch version (``*_reference``);
+on a CUDA tensor it launches its hand-written kernel or raises. There is no
+fallback. ``KERNELS`` and ``PLAIN`` bundle the three for the callers that
+choose between them. ``EPSApplyTCmt`` is the layer's
+``torch.autograd.Function``; ``plan_backward`` picks its backward arm, whose
+recompute form (K4/K6) is not ported to CUDA yet.
 
 Unlike the JAX host glue, the factor stack is not padded to a tile
-multiple: the kernel masks its ragged last pixel tile itself. The TPU VMEM
-planners (``pallas_forward_fits``, ``_largest_bn``, ``_*_bytes``) have no
-counterpart; the wrapper checks the kernel's own limits instead.
+multiple: the kernels mask their ragged last pixel tile themselves. The TPU
+VMEM planners (``pallas_forward_fits``, ``_largest_bn``, ``_dcore_plan``,
+``_*_bytes``) have no counterpart; each wrapper checks its kernel's own
+limits instead.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Tuple
+import math
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from . import build
 
-# the kernel's limits (csrc/eps_fwd.cu)
+# the kernels' limits (csrc/eps_fwd.cu, eps_dcore.cu, eps_dviews_t.cu)
 _MAX_B2 = 512
 _MAX_FACTOR_ROWS = 256
 _MAX_OUT_SIZE = 65535
+_MAX_SMEM_BYTES = 227 * 1024
+_DCORE_TILE = 64
+_DCORE_MAX_SLICES = 64
+# eps_dcore splits the pixels of a layer whose (Z, A) tiles are too few to
+# fill the card: enough slices for about two CTAs on each of an H100's 132
+# SMs, each slice at least 4096 pixels long
+_DCORE_TARGET_CTAS = 264
+_DCORE_MIN_SLICE_PIXELS = 4096
+# The backward reads a forward-saved t when A = q_k^n1_k is at least this:
+# the JAX package's default (DCTN_TPU_SAVE_T_MIN_A, eps_pallas.py:810), set
+# for the TPU's bf16 rate against its HBM. In float32 on an H100 the saved t
+# (8·Z bytes per pixel, written and read) costs less than its recompute
+# (2·Z·A flops per pixel) already from A ≈ 80 (67 TFLOP/s against
+# 3.35 TB/s); the port keeps 512 so that both packages take the same arm,
+# until the Hopper break-even is measured.
+SAVE_T_MIN_A = 512
 
 
 def _slice_specs(kernel_size: int, num_channels: int):
@@ -52,7 +81,9 @@ def _stack_views_from_xT(
     """The (n, q, npix) factor stack from ``xT`` (C, Q, H, W, B), and npix.
     ``merge_pairs``: Khatri-Rao adjacent view pairs, the first one slowest,
     so a q=2 chain runs as a q²=4 one (eps_pallas.py:633-666, without the
-    padding)."""
+    padding). Plain torch ops: under autograd their backward is the
+    unmerge and sum of window cotangents of ``_dxT_from_dviews_t``
+    (eps_pallas.py:669-701)."""
     c, q, h, w, b = xT.shape
     hp, wp = h - kernel_size + 1, w - kernel_size + 1
     npix = b * hp * wp
@@ -100,89 +131,410 @@ def plan_call(c: int, q: int, kernel_size: int, n1: int):
     return n1, merge_pairs
 
 
-def _suffix_chain(views_t: torch.Tensor, start: int, stop: int) -> torch.Tensor:
-    """f_start ⊗ … ⊗ f_{stop-1} over the (q, npix) factors, f_start slowest,
-    built from the back as the TPU kernel's ``_suffix_chain`` does."""
-    s = views_t[stop - 1]
+def plan_backward(layer_index: int, n_k: int, n1_k: int, q_k: int) -> str:
+    """The backward arm of one layer (``_save_t_plan`` and ``_bwd_dispatch``,
+    eps_pallas.py:794-894, without the VMEM planning):
+
+    - ``"dcore_only"``: the model's first layer, whose input needs no
+      gradient (the JAX ``force_two_pass``, whose d_views pass XLA drops):
+      ``eps_dcore`` alone;
+    - ``"saved_t"``: n2 > 0 and A = q_k^n1_k ≥ ``SAVE_T_MIN_A``: the forward
+      writes t, the backward runs ``eps_dcore`` and ``eps_dviews_t``;
+    - ``"recompute"``: anything else; its d_views (K4/K6) is not ported to
+      CUDA yet, only its plain version runs.
+    """
+    if layer_index == 0:
+        return "dcore_only"
+    if n_k > n1_k and q_k**n1_k >= SAVE_T_MIN_A:
+        return "saved_t"
+    return "recompute"
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions of the kernels
+
+
+def _suffix_chain(views_t: torch.Tensor, start: int, stop: int) -> List[torch.Tensor]:
+    """Suffix Khatri-Rao products over the (q, npix) factors: entry k-start
+    is f_k ⊗ … ⊗ f_{stop-1} (f_k slowest), built from the back as the TPU
+    kernel's ``_suffix_chain`` does; entry 0 is the whole product."""
+    sufs = [views_t[stop - 1]]
     for k in range(stop - 2, start - 1, -1):
-        s = (views_t[k][:, None, :] * s[None, :, :]).reshape(-1, s.shape[-1])
-    return s
+        s = sufs[0]
+        sufs.insert(0, (views_t[k][:, None, :] * s[None, :, :]).reshape(-1, s.shape[-1]))
+    return sufs
+
+
+def _kr2(views_t: torch.Tensor, g: torch.Tensor, n1: int) -> torch.Tensor:
+    """kr2[(o, b), p] = g[o, p]·v[b, p], o slowest like cmt's rows (g when
+    every factor is in u)."""
+    n, _, npix = views_t.shape
+    if n1 == n:
+        return g
+    v = _suffix_chain(views_t, n1, n)[0]
+    return (g[:, None, :] * v[None, :, :]).reshape(-1, npix)
+
+
+def _chain_bwd(views_t, sufs, d, start: int, stop: int) -> List[torch.Tensor]:
+    """The front-peel sweep of the TPU kernel's ``_chain_bwd``
+    (eps_pallas.py:206-224): the cotangent of each factor f_start … f_{stop-1}
+    from that of their Khatri-Rao product. No division, so zero factors
+    are fine."""
+    out = []
+    for k in range(start, stop - 1):
+        f = views_t[k]
+        d3 = d.reshape(f.shape[0], -1, d.shape[-1])
+        out.append(torch.sum(d3 * sufs[k - start + 1][None], dim=1))
+        d = torch.sum(d3 * f[:, None, :], dim=0)
+    out.append(d)
+    return out
 
 
 def eps_fwd_reference(
-    views_t: torch.Tensor, cmt: torch.Tensor, n1: int, out_size: int
-) -> torch.Tensor:
-    """The kernel's plain PyTorch version: u from the first n1 factors,
-    t = cmt @ u, then out[o, p] = Σ_b t[(o, b), p]·v[b, p] (out = t when
-    every factor is in u). (n, q, npix), (Z, A) → (O, npix)."""
+    views_t: torch.Tensor, cmt: torch.Tensor, n1: int, out_size: int,
+    save_t: bool = False,
+):
+    """The forward kernel's plain PyTorch version: u from the first n1
+    factors, t = cmt @ u, then out[o, p] = Σ_b t[(o, b), p]·v[b, p] (out = t
+    when every factor is in u). (n, q, npix), (Z, A) → (O, npix), and t
+    (Z, npix) too when ``save_t``."""
     n, q, npix = views_t.shape
-    t = cmt @ _suffix_chain(views_t, 0, n1)
+    t = cmt @ _suffix_chain(views_t, 0, n1)[0]
     if n1 == n:
-        return t
-    v = _suffix_chain(views_t, n1, n)
-    return torch.sum(t.reshape(out_size, q ** (n - n1), npix) * v[None], dim=1)
+        out = t
+    else:
+        v = _suffix_chain(views_t, n1, n)[0]
+        out = torch.sum(t.reshape(out_size, q ** (n - n1), npix) * v[None], dim=1)
+    return (out, t) if save_t else out
+
+
+def eps_dcore_reference(
+    views_t: torch.Tensor, g: torch.Tensor, n1: int, out_size: int
+) -> torch.Tensor:
+    """The d_cmt kernel's plain version: d_cmt[z, a] = Σ_p kr2[z, p]·u[a, p].
+    (n, q, npix), (O, npix) → (Z, A)."""
+    del out_size  # rows follow g
+    return _kr2(views_t, g, n1) @ _suffix_chain(views_t, 0, n1)[0].T
+
+
+def eps_dviews_t_reference(
+    views_t: torch.Tensor, cmt: torch.Tensor, g: torch.Tensor,
+    t: Optional[torch.Tensor], n1: int, out_size: int,
+) -> torch.Tensor:
+    """The d_views kernel's plain version: d_u = cmtᵀ·kr2 and
+    d_v[b, p] = Σ_o t[(o, b), p]·g[o, p], each through ``_chain_bwd`` to its
+    factors. ``t`` is None when n2 = 0. → (n, q, npix)."""
+    n, _, npix = views_t.shape
+    d_u = cmt.T @ _kr2(views_t, g, n1)
+    dviews = _chain_bwd(views_t, _suffix_chain(views_t, 0, n1), d_u, 0, n1)
+    if n1 < n:
+        d_v = torch.sum(t.reshape(out_size, -1, npix) * g[:, None, :], dim=0)
+        dviews += _chain_bwd(views_t, _suffix_chain(views_t, n1, n), d_v, n1, n)
+    return torch.stack(dviews, dim=0)
+
+
+def eps_dviews_recompute_reference(
+    views_t: torch.Tensor, cmt: torch.Tensor, g: torch.Tensor, n1: int, out_size: int
+) -> torch.Tensor:
+    """The recompute arm's d_views (K4 ``_bwd_fused_kernel_factory``'s half,
+    K6 ``_dviews_kernel_factory`` without t), plain: t recomputed."""
+    t = None
+    if n1 < views_t.shape[0]:
+        t = eps_fwd_reference(views_t, cmt, n1, out_size, save_t=True)[1]
+    return eps_dviews_t_reference(views_t, cmt, g, t, n1, out_size)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = build.load_library("eps_fwd")
-    lib.dctn_eps_fwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    lib.dctn_eps_fwd.restype = ctypes.c_int
+def _library(name: str) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<name>.cu``, with its C entry's
+    signature: pointers and the stream as ``c_void_p``."""
+    lib = build.load_library(name)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    entry = getattr(lib, f"dctn_{name}")
+    entry.argtypes = {
+        "eps_fwd": [p, p, p, p, i, i, i, i, ll, p],
+        "eps_dcore": [p, p, p, p, i, i, i, i, ll, i, p],
+        "eps_dviews_t": [p, p, p, p, p, i, i, i, i, ll, p],
+    }[name]
+    entry.restype = ctypes.c_int
     return lib
+
+
+def _check_tensors(name: str, shape: str, device, **tensors) -> None:
+    """float32, contiguous, all on ``device``."""
+    for key, x in tensors.items():
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} kernel takes float32, got {key} {x.dtype} ({shape})")
+        if x.device != device:
+            raise ValueError(f"{name}: {key} on {x.device}, views on {device} ({shape})")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} kernel takes contiguous tensors, {key} is not ({shape})")
+
+
+def _check_split(name: str, shape: str, n: int, q: int, n1: int) -> None:
+    if not 1 <= n1 <= n:
+        raise ValueError(f"{name}: split n1 outside [1, n] ({shape})")
+    if n * q > _MAX_FACTOR_ROWS:
+        raise ValueError(
+            f"{name} kernel limits exceeded ({shape}): needs n·q={n * q} "
+            f"<= {_MAX_FACTOR_ROWS}"
+        )
 
 
 def _check_kernel_args(views_t, cmt, n1, out_size):
     n, q, npix = views_t.shape
     shape = f"views {tuple(views_t.shape)}, cmt {tuple(cmt.shape)}, n1={n1}, O={out_size}"
-    if views_t.dtype != torch.float32 or cmt.dtype != torch.float32:
-        raise ValueError(f"eps_fwd kernel takes float32, got {views_t.dtype}/{cmt.dtype}")
-    if cmt.device != views_t.device:
-        raise ValueError(f"eps_fwd: views on {views_t.device}, cmt on {cmt.device}")
-    if not (views_t.is_contiguous() and cmt.is_contiguous()):
-        raise ValueError(f"eps_fwd kernel takes contiguous tensors ({shape})")
-    if not 1 <= n1 <= n:
-        raise ValueError(f"eps_fwd: split n1 outside [1, n] ({shape})")
+    _check_tensors("eps_fwd", shape, views_t.device, views=views_t, cmt=cmt)
+    _check_split("eps_fwd", shape, n, q, n1)
     b2 = q ** (n - n1)
-    if b2 > _MAX_B2 or n * q > _MAX_FACTOR_ROWS or out_size > _MAX_OUT_SIZE:
+    if b2 > _MAX_B2 or out_size > _MAX_OUT_SIZE:
         raise ValueError(
             f"eps_fwd kernel limits exceeded ({shape}): needs q^(n-n1)={b2} "
-            f"<= {_MAX_B2}, n·q={n * q} <= {_MAX_FACTOR_ROWS}, "
-            f"O <= {_MAX_OUT_SIZE}"
+            f"<= {_MAX_B2}, O <= {_MAX_OUT_SIZE}"
         )
     if tuple(cmt.shape) != (out_size * b2, q**n1):
         raise ValueError(f"eps_fwd: cmt is not (O·q^(n-n1), q^n1) ({shape})")
 
 
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on_error(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+def _check_device(name: str, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+
+
 def eps_fwd(
-    views_t: torch.Tensor, cmt: torch.Tensor, n1: int, out_size: int
-) -> torch.Tensor:
+    views_t: torch.Tensor, cmt: torch.Tensor, n1: int, out_size: int,
+    save_t: bool = False,
+):
     """One EPS layer's forward on the factor stack: (n, q, npix) views and
-    the (Z, A) cmt → (O, npix). CPU tensors run ``eps_fwd_reference``; CUDA
-    tensors run the kernel, and ``eps_fwd.launches`` counts its launches."""
+    the (Z, A) cmt → (O, npix), and t (Z, npix) too when ``save_t``. CPU
+    tensors run ``eps_fwd_reference``; CUDA tensors run the kernel:
+    ``eps_fwd.launches`` counts its launches and ``eps_fwd.t_launches``
+    those that wrote t."""
     if views_t.device.type == "cpu":
-        return eps_fwd_reference(views_t, cmt, n1, out_size)
-    if views_t.device.type != "cuda":
-        raise ValueError(f"eps_fwd runs on cpu or cuda, not {views_t.device}")
+        return eps_fwd_reference(views_t, cmt, n1, out_size, save_t)
+    _check_device("eps_fwd", views_t)
     _check_kernel_args(views_t, cmt, n1, out_size)
     n, q, npix = views_t.shape
-    out = torch.empty((out_size, npix), dtype=torch.float32, device=views_t.device)
-    stream = torch.cuda.current_stream(views_t.device).cuda_stream
-    with torch.cuda.device(views_t.device):
-        err = _library().dctn_eps_fwd(
+    dev = views_t.device
+    out = torch.empty((out_size, npix), dtype=torch.float32, device=dev)
+    t = torch.empty((cmt.shape[0], npix), dtype=torch.float32, device=dev) if save_t else None
+    with torch.cuda.device(dev):
+        err = _library("eps_fwd").dctn_eps_fwd(
             views_t.data_ptr(), cmt.data_ptr(), out.data_ptr(),
-            n, q, n1, out_size, npix, stream,
+            None if t is None else t.data_ptr(), n, q, n1, out_size, npix, _stream(dev),
         )
-    if err != 0:
-        raise RuntimeError(f"eps_fwd kernel launch failed with CUDA error {err}")
+    _raise_on_error("eps_fwd", err)
     eps_fwd.launches += 1
+    if save_t:
+        eps_fwd.t_launches += 1
+        return out, t
     return out
 
 
 eps_fwd.launches = 0
+eps_fwd.t_launches = 0
+
+
+def _dcore_slices(z: int, a: int, npix: int) -> int:
+    """How many pixel ranges ``eps_dcore`` sums apart (then adds in a fixed
+    order): 1 when the (Z, A) tiles alone fill the card."""
+    tiles = math.ceil(z / _DCORE_TILE) * math.ceil(a / _DCORE_TILE)
+    return max(1, min(
+        math.ceil(_DCORE_TARGET_CTAS / tiles),
+        npix // _DCORE_MIN_SLICE_PIXELS,
+        _DCORE_MAX_SLICES,
+    ))
+
+
+def _check_dcore_args(views_t, g, n1, out_size):
+    n, q, npix = views_t.shape
+    shape = f"views {tuple(views_t.shape)}, g {tuple(g.shape)}, n1={n1}, O={out_size}"
+    _check_tensors("eps_dcore", shape, views_t.device, views=views_t, g=g)
+    _check_split("eps_dcore", shape, n, q, n1)
+    if tuple(g.shape) != (out_size, npix):
+        raise ValueError(f"eps_dcore: g is not (O, npix) ({shape})")
+    if math.ceil(out_size * q ** (n - n1) / _DCORE_TILE) > 65535:
+        raise ValueError(f"eps_dcore kernel limits exceeded ({shape}): Z/64 > 65535")
+
+
+def eps_dcore(
+    views_t: torch.Tensor, g: torch.Tensor, n1: int, out_size: int
+) -> torch.Tensor:
+    """d_cmt (Z, A) of one EPS layer from the (n, q, npix) views and the
+    (O, npix) output cotangent. CPU tensors run ``eps_dcore_reference``;
+    CUDA tensors run the kernel: ``eps_dcore.launches`` counts its calls,
+    ``eps_dcore.sum_launches`` those that also ran the fixed-order sum of
+    pixel slices (a second device kernel of the same call)."""
+    if views_t.device.type == "cpu":
+        return eps_dcore_reference(views_t, g, n1, out_size)
+    _check_device("eps_dcore", views_t)
+    _check_dcore_args(views_t, g, n1, out_size)
+    n, q, npix = views_t.shape
+    dev = views_t.device
+    z, a = out_size * q ** (n - n1), q**n1
+    slices = _dcore_slices(z, a, npix)
+    d_cmt = torch.empty((z, a), dtype=torch.float32, device=dev)
+    scratch = (
+        torch.empty((slices, z, a), dtype=torch.float32, device=dev) if slices > 1 else None
+    )
+    with torch.cuda.device(dev):
+        err = _library("eps_dcore").dctn_eps_dcore(
+            views_t.data_ptr(), g.data_ptr(), d_cmt.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            n, q, n1, out_size, npix, slices, _stream(dev),
+        )
+    _raise_on_error("eps_dcore", err)
+    eps_dcore.launches += 1
+    eps_dcore.sum_launches += slices > 1
+    return d_cmt
+
+
+eps_dcore.launches = 0
+eps_dcore.sum_launches = 0
+
+
+def _dviews_t_smem_bytes(n: int, q: int, n1: int, out_size: int) -> int:
+    """Shared memory of one ``eps_dviews_t`` launch (``smem_bytes`` in
+    csrc/eps_dviews_t.cu): staged factors and their cotangents, v rounded up
+    to 32 rows, g, a 32 x 64 cmt chunk and a 64 x 64 d_u chunk, for 64
+    pixels; and the u digit table."""
+    rows_v = -(-q ** (n - n1) // 32) * 32
+    return 4 * (64 * (2 * n * q + rows_v + out_size) + 32 * 64 + 64 * 64) + 4 * n1 * 64
+
+
+def _check_dviews_t_args(views_t, cmt, g, t, n1, out_size):
+    n, q, npix = views_t.shape
+    shape = (
+        f"views {tuple(views_t.shape)}, cmt {tuple(cmt.shape)}, g {tuple(g.shape)}, "
+        f"t {None if t is None else tuple(t.shape)}, n1={n1}, O={out_size}"
+    )
+    tensors = {"views": views_t, "cmt": cmt, "g": g}
+    if t is not None:
+        tensors["t"] = t
+    _check_tensors("eps_dviews_t", shape, views_t.device, **tensors)
+    _check_split("eps_dviews_t", shape, n, q, n1)
+    z = out_size * q ** (n - n1)
+    if tuple(cmt.shape) != (z, q**n1) or tuple(g.shape) != (out_size, npix):
+        raise ValueError(f"eps_dviews_t: cmt is not (O·q^(n-n1), q^n1) or g not (O, npix) ({shape})")
+    if (t is None) != (n1 == n) or (t is not None and tuple(t.shape) != (z, npix)):
+        raise ValueError(f"eps_dviews_t: t must be (Z, npix) when n2 > 0, None when n2 = 0 ({shape})")
+    smem = _dviews_t_smem_bytes(n, q, n1, out_size)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(
+            f"eps_dviews_t kernel limits exceeded ({shape}): needs {smem} B of "
+            f"shared memory > {_MAX_SMEM_BYTES}"
+        )
+
+
+def eps_dviews_t(
+    views_t: torch.Tensor, cmt: torch.Tensor, g: torch.Tensor,
+    t: Optional[torch.Tensor], n1: int, out_size: int,
+) -> torch.Tensor:
+    """The (n, q, npix) cotangent of the factor stack, from the (Z, A) cmt,
+    the (O, npix) output cotangent and the forward-saved (Z, npix) t (None
+    when n2 = 0). CPU tensors run ``eps_dviews_t_reference``; CUDA tensors
+    run the kernel, and ``eps_dviews_t.launches`` counts its launches."""
+    if views_t.device.type == "cpu":
+        return eps_dviews_t_reference(views_t, cmt, g, t, n1, out_size)
+    _check_device("eps_dviews_t", views_t)
+    _check_dviews_t_args(views_t, cmt, g, t, n1, out_size)
+    n, q, npix = views_t.shape
+    dev = views_t.device
+    dviews = torch.empty((n, q, npix), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _library("eps_dviews_t").dctn_eps_dviews_t(
+            views_t.data_ptr(), cmt.data_ptr(), g.data_ptr(),
+            None if t is None else t.data_ptr(), dviews.data_ptr(),
+            n, q, n1, out_size, npix, _stream(dev),
+        )
+    _raise_on_error("eps_dviews_t", err)
+    eps_dviews_t.launches += 1
+    return dviews
+
+
+eps_dviews_t.launches = 0
+
+
+def eps_dviews_recompute(
+    views_t: torch.Tensor, cmt: torch.Tensor, g: torch.Tensor, n1: int, out_size: int
+) -> torch.Tensor:
+    """The recompute arm's d_views: ``eps_dviews_recompute_reference`` on CPU
+    tensors. Its kernels are not ported to CUDA yet."""
+    if views_t.device.type == "cpu":
+        return eps_dviews_recompute_reference(views_t, cmt, g, n1, out_size)
+    raise NotImplementedError(
+        "the recompute backward's d_views (K4 _bwd_fused_kernel_factory, "
+        "eps_pallas.py:254, and K6 _dviews_kernel_factory without t, :391) is "
+        f"not ported to CUDA yet (views {tuple(views_t.shape)}, n1={n1}, "
+        f"O={out_size}); on CUDA only the saved-t arm computes d_views"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class EPSKernels:
+    """The contractions of one EPS layer's forward and backward, with the
+    signatures of ``eps_fwd``, ``eps_dcore`` and ``eps_dviews_t``."""
+
+    fwd: Callable
+    dcore: Callable
+    dviews_t: Callable
+
+
+KERNELS = EPSKernels(eps_fwd, eps_dcore, eps_dviews_t)
+PLAIN = EPSKernels(eps_fwd_reference, eps_dcore_reference, eps_dviews_t_reference)
+
+
+# ---------------------------------------------------------------------------
+# the layer
+
+
+class EPSApplyTCmt(torch.autograd.Function):
+    """One EPS layer on the factor stack, with its gradient
+    (``eps_pallas_apply_t_cmt``'s custom_vjp, eps_pallas.py:923-980, on the
+    stack): (views (n, q, npix), cmt (Z, A)) → (O, npix).
+
+    The forward writes t when ``save_t``; the backward computes d_cmt with
+    ``dcore`` when cmt needs a gradient, and the views' cotangent when they
+    need one: from t with ``dviews_t``, or, without a saved t, with
+    ``eps_dviews_recompute`` (plain on the CPU, not ported to CUDA)."""
+
+    @staticmethod
+    def forward(ctx, views_t, cmt, n1: int, out_size: int, save_t: bool, kernels: EPSKernels):
+        if save_t:
+            out, t = kernels.fwd(views_t, cmt, n1, out_size, save_t=True)
+        else:
+            out, t = kernels.fwd(views_t, cmt, n1, out_size), None
+        ctx.save_for_backward(views_t, cmt, t)
+        ctx.n1, ctx.out_size, ctx.kernels = n1, out_size, kernels
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        views_t, cmt, t = ctx.saved_tensors
+        g = g.contiguous()
+        k, n1, o = ctx.kernels, ctx.n1, ctx.out_size
+        d_views = d_cmt = None
+        if ctx.needs_input_grad[1]:
+            d_cmt = k.dcore(views_t, g, n1, o)
+        if ctx.needs_input_grad[0]:
+            if t is None:
+                d_views = eps_dviews_recompute(views_t, cmt, g, n1, o)
+            else:
+                d_views = k.dviews_t(views_t, cmt, g, t, n1, o)
+        return d_views, d_cmt, None, None, None, None
 
 
 def eps_apply_t_cmt(
@@ -192,14 +544,24 @@ def eps_apply_t_cmt(
     kernel_size: int,
     n1: int,
     merge_pairs: bool,
-    fwd=eps_fwd,
+    *,
+    layer_index: int,
+    kernels: EPSKernels = KERNELS,
 ) -> torch.Tensor:
-    """One EPS layer on the matricized core (eps_pallas.py:924-963, the
-    forward only, with no t output): ``xT`` (C, Q, H, W, B) → ``outT``
-    (O, H', W', B). ``fwd`` is the layer's contraction, ``eps_fwd`` unless a
-    caller checks the kernel against ``eps_fwd_reference``."""
+    """One EPS layer on the matricized core (eps_pallas.py:924-980):
+    ``xT`` (C, Q, H, W, B) → ``outT`` (O, H', W', B), differentiable in
+    both. The forward writes t only when grad is on, ``xT`` needs a gradient
+    and ``plan_backward`` picks the saved-t arm for this layer, so serving
+    (under ``inference_mode``) writes none. ``kernels`` is ``KERNELS`` unless
+    a caller runs the plain versions on purpose."""
     c, q, h, w, b = xT.shape
     hp, wp = h - kernel_size + 1, w - kernel_size + 1
-    _, _, n1_k = _kernel_dims(c, q, kernel_size, n1, merge_pairs)
+    n_k, q_k, n1_k = _kernel_dims(c, q, kernel_size, n1, merge_pairs)
     views_t, _ = _stack_views_from_xT(xT, kernel_size, merge_pairs)
-    return fwd(views_t, cmt, n1_k, out_size).reshape(out_size, hp, wp, b)
+    save_t = (
+        torch.is_grad_enabled()
+        and xT.requires_grad
+        and plan_backward(layer_index, n_k, n1_k, q_k) == "saved_t"
+    )
+    out = EPSApplyTCmt.apply(views_t, cmt, n1_k, out_size, save_t, kernels)
+    return out.reshape(out_size, hp, wp, b)

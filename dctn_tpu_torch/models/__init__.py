@@ -3,6 +3,7 @@ from .eps_plus_linear import (
     EPSesPlusLinearConfig,
     eps_plus_linear_forward,
     eps_plus_linear_forward_fast,
+    epswise_l2_regularizer_fast,
     fast_layer_plans,
     fast_params_from_reference,
     init_eps_plus_linear,

@@ -1,5 +1,6 @@
 """EPSesPlusLinear — N EPS layers followed by a linear classifier (port of
-``dctn_tpu/models/eps_plus_linear.py``, the serving forward).
+``dctn_tpu/models/eps_plus_linear.py``: the forward for serving and
+training, and the fast epswise regularizer).
 
 Parameters come in two layouts, as in the JAX package:
 
@@ -9,8 +10,10 @@ Parameters come in two layouts, as in the JAX package:
   (``fast_params_from_reference``), which the serving forward runs on.
 
 ``EPSesPlusLinear`` is the ``nn.Module`` that holds the fast layout on one
-device. Only the "unit_theoretical_output_std" init is ported; the other
-two, parameter dropout and the regularizers come with training.
+device; its parameters require gradients, and serving runs it under
+``torch.inference_mode``. Only the "unit_theoretical_output_std" init and
+the epswise regularizer are ported; the other two inits, parameter dropout
+and the composition regularizer come with a later slice.
 """
 
 from __future__ import annotations
@@ -23,10 +26,11 @@ import torch
 from torch import nn
 
 from ..kernels.eps_kernels import (
+    KERNELS,
+    EPSKernels,
     _core_to_cmt_k,
     _kernel_dims,
     eps_apply_t_cmt,
-    eps_fwd,
     plan_call,
 )
 from ..ops import composition
@@ -172,37 +176,51 @@ def reference_params_from_fast(fast, cfg: EPSesPlusLinearConfig, plans) -> Param
 
 
 def eps_plus_linear_forward_fast(
-    fast, x: torch.Tensor, cfg: EPSesPlusLinearConfig, plans, fwd=eps_fwd
+    fast, x: torch.Tensor, cfg: EPSesPlusLinearConfig, plans,
+    kernels: EPSKernels = KERNELS,
 ) -> torch.Tensor:
-    """The serving forward over fast parameters, all in the transposed
-    batch-minor layout: one input relayout, then each layer's ``outT[None]``
-    is the next layer's ``xT``. ``x`` (C, B, H, W, Q₀) → (B, num_classes).
-    ``fwd`` is each layer's contraction (see ``eps_apply_t_cmt``)."""
+    """The forward over fast parameters (eps_plus_linear.py:455-503, without
+    dropout), all in the transposed batch-minor layout: one input relayout,
+    then each layer's ``outT[None]`` is the next layer's ``xT``. ``x``
+    (C, B, H, W, Q₀) → (B, num_classes); differentiable in the parameters.
+    ``kernels`` runs each layer's contractions (see ``eps_apply_t_cmt``)."""
     del cfg
     xT = x.permute(0, 4, 2, 3, 1)  # the only input relayout
     outT = None
-    for cmt, p in zip(fast["epses_cmt"], plans):
+    for i, (cmt, p) in enumerate(zip(fast["epses_cmt"], plans)):
         outT = eps_apply_t_cmt(
             cmt, xT, p["out_size"], p["kernel_size"], p["n1"], p["merge_pairs"],
-            fwd=fwd,
+            layer_index=i, kernels=kernels,
         )
         xT = outT[None]
     return _transposed_classifier(outT, fast["linear"])
 
 
+def epswise_l2_regularizer_fast(fast) -> torch.Tensor:
+    """Σ w² + Σ_cores Σ cmt²: the epswise L2 (eps_plus_linear.py:510-513)
+    on the fast layout, exact since it does not depend on the order of a
+    core's entries (train/step.py:41-45)."""
+    return torch.sum(fast["linear"]["w"] ** 2) + sum(
+        torch.sum(c**2) for c in fast["epses_cmt"]
+    )
+
+
 class EPSesPlusLinear(nn.Module):
-    """The model in the fast layout on one device, for serving. Its tensors
-    are parameters without gradients: the kernels have no backward yet."""
+    """The model in the fast layout on one device, for training and (under
+    ``torch.inference_mode``) serving. It owns copies of the tensors it is
+    given, so training it leaves them as they were."""
 
     def __init__(self, fast, plans, cfg: EPSesPlusLinearConfig):
         super().__init__()
         self.cfg = cfg
         self.plans = plans
-        self.cmts = nn.ParameterList(
-            nn.Parameter(c, requires_grad=False) for c in fast["epses_cmt"]
-        )
-        self.linear_w = nn.Parameter(fast["linear"]["w"], requires_grad=False)
-        self.linear_b = nn.Parameter(fast["linear"]["b"], requires_grad=False)
+
+        def param(t):
+            return nn.Parameter(t.detach().clone())
+
+        self.cmts = nn.ParameterList(param(c) for c in fast["epses_cmt"])
+        self.linear_w = param(fast["linear"]["w"])
+        self.linear_b = param(fast["linear"]["b"])
 
     @classmethod
     def from_reference(
@@ -219,7 +237,7 @@ class EPSesPlusLinear(nn.Module):
             "linear": {"w": self.linear_w, "b": self.linear_b},
         }
 
-    def forward(self, x: torch.Tensor, fwd=eps_fwd) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kernels: EPSKernels = KERNELS) -> torch.Tensor:
         return eps_plus_linear_forward_fast(
-            self.fast_params(), x, self.cfg, self.plans, fwd=fwd
+            self.fast_params(), x, self.cfg, self.plans, kernels=kernels
         )

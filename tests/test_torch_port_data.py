@@ -121,3 +121,25 @@ def test_bad_idx_magic_and_missing_files_are_refused(tmp_path):
 def test_bad_options_are_refused(ds_type, kwargs):
     with pytest.raises(ValueError):
         load_dataset(ds_type, "synthetic", synthetic_sizes=SIZES, **kwargs)
+
+
+@pytest.mark.parametrize(
+    "shuffle,drop_last,batch_size", [(True, True, 5), (True, False, 5), (False, False, 5), (False, True, 4)]
+)
+def test_batcher_matches_jax(shuffle, drop_last, batch_size):
+    """The same batches in the same order over two epochs, the same length,
+    and the same device-gather index batches."""
+    split = load_dataset("fashionmnist", "synthetic", synthetic_sizes=(23, 4, 4)).train
+    jsplit = jax_load_dataset("fashionmnist", "synthetic", synthetic_sizes=(23, 4, 4)).train
+    got = pipeline.Batcher(split, batch_size, shuffle, drop_last, seed=3)
+    want = jax_pipeline.Batcher(jsplit, batch_size, shuffle, drop_last, seed=3)
+    assert len(got) == len(want) == (23 // batch_size if drop_last else -(-23 // batch_size))
+    for _ in range(2):
+        batches, jbatches = list(got), list(want)
+        assert len(batches) == len(jbatches) == len(got)
+        for b, jb in zip(batches, jbatches):
+            for a, w in zip(b, jb):
+                np.testing.assert_array_equal(a, w)
+    gi, wi = got.indices_forever(), want.indices_forever()
+    for _ in range(3 * len(got)):
+        np.testing.assert_array_equal(next(gi), next(wi))

@@ -30,7 +30,8 @@ def test_port_imports_no_jax():
     """Neither jax nor the JAX package: the port runs where only PyTorch is."""
     code = (
         "import sys, dctn_tpu_torch, dctn_tpu_torch.cli.predict, "
-        "dctn_tpu_torch.kernels.eps_kernels, dctn_tpu_torch.data, dctn_tpu_torch.interop\n"
+        "dctn_tpu_torch.kernels.eps_kernels, dctn_tpu_torch.data, dctn_tpu_torch.interop, "
+        "dctn_tpu_torch.bench, dctn_tpu_torch.train.step, dctn_tpu_torch.train.optimizers\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dctn_tpu'))\n"
         "assert not bad, bad"
     )
