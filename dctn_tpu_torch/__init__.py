@@ -1,5 +1,5 @@
-"""dctn-tpu's PyTorch port: the EPS model's serving forward and training
-step on CUDA.
+"""dctn-tpu's PyTorch port: the EPS model's serving forward (f32 and int8)
+and training step (f32 and quantization-aware) on CUDA.
 
 A second package beside ``dctn_tpu`` (the JAX reference, which it never
 imports: it runs where only PyTorch is). Module names mirror the JAX
@@ -12,8 +12,9 @@ package so each counterpart is easy to find:
   models/    EPSesPlusLinear in the fast (cmt) parameter layout
   train/     the fast training step, optimizers, and npz checkpoints shared
              with the JAX package
-  cli/       the predict entry point
-  bench      the training-throughput benchmark (python -m dctn_tpu_torch.bench)
+  cli/       the predict entry point (f32 or --quantize int8)
+  bench      the training-throughput benchmark (python -m dctn_tpu_torch.bench,
+             --qat int8 for the quantization-aware step)
   interop    the JAX package's parameters (as numpy) <-> the port's tensors
 
 Every layout at the public functions is the JAX package's: the transposed

@@ -11,15 +11,19 @@ draws the shuffled index batches up front and ``make_gather_batch`` gathers
 each batch on the device, so the host stays out of the timed loop. Steps
 after the warm-up are timed with CUDA events.
 
+``--qat int8`` times the quantization-aware step instead (the JAX runner's
+``--qat int8``): each EPS layer's forward in int8 W8A8 (``eps_fwd_q8``),
+the straight-through f32 backward.
+
 Prints one JSON line per path: images/s, step ms p50, the first and last
 loss, kernel launches per step, the step's GFLOP (computed from the layer
-shapes) and their share of the H100's 67 TFLOP/s float32 peak, and the
-extra device memory of one step. ``--compare-plain`` adds the same line for
-the plain path (the kernels' plain PyTorch versions through the same
-``autograd.Function``), measured in the same process.
+shapes) and, for the f32 step, their share of the H100's 67 TFLOP/s float32
+peak, and the extra device memory of one step. ``--compare-plain`` adds the
+same line for the plain path (the kernels' plain PyTorch versions through
+the same ``autograd.Function``), measured in the same process.
 
 Usage:
-  python -m dctn_tpu_torch.bench [--steps 30] [--batch-size 128] [--compare-plain]
+  python -m dctn_tpu_torch.bench [--steps 30] [--batch-size 128] [--compare-plain] [--qat int8]
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 from .cli.specs import parse_epses_specs
 from .data import Batcher, load_dataset
 from .kernels import eps_kernels as K
+from .kernels import eps_q8_kernels as Q8
 from .models import EPSesPlusLinear, EPSesPlusLinearConfig, fast_layer_plans, init_eps_plus_linear
 from .train import make_fast_train_step, make_gather_batch, make_optimizer
 
@@ -52,7 +57,14 @@ COUNTERS = (
     ("eps_dcore", K.eps_dcore, "launches"),
     ("eps_dcore_sum", K.eps_dcore, "sum_launches"),
     ("eps_dviews_t", K.eps_dviews_t, "launches"),
+    ("eps_fwd_q8", Q8.eps_fwd_q8, "launches"),
+    ("eps_fwd_q8_t", Q8.eps_fwd_q8, "t_launches"),
 )
+# the kernel and the plain path of each step, by qat mode
+PATHS = {
+    None: (("kernel", K.KERNELS), ("plain", K.PLAIN)),
+    "int8": (("kernel", Q8.QAT_KERNELS), ("plain", Q8.QAT_PLAIN)),
+}
 
 
 def read_counters() -> dict:
@@ -70,7 +82,8 @@ def step_gflop(cfg: EPSesPlusLinearConfig, batch_size: int, in_channels: int = 1
     per layer 2·Z·A·npix for the forward, the same for d_cmt, and the same
     again for d_views in every layer but the first (whose input needs no
     gradient). The factor products, the classifier and the optimizer are
-    left out."""
+    left out. The count is the same with ``qat="int8"``, whose forward
+    GEMMs are int8 operations."""
     total, h = 0.0, cfg.image_size
     for i, p in enumerate(fast_layer_plans(cfg, in_channels)):
         n_k, q_k, n1_k = K._kernel_dims(p["c"], p["q"], p["kernel_size"], p["n1"], p["merge_pairs"])
@@ -107,7 +120,7 @@ def _timed_steps(step, gather, idx, cuda: bool):
     return marks, time.perf_counter() - t0, [float(x) for x in losses]
 
 
-def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device):
+def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device, qat=None):
     """One path's JSON record: a fresh model from ``params`` and a fresh
     Adam, ``warmup`` untimed steps (the first builds and loads the kernels),
     one step for peak memory, then the timed steps."""
@@ -134,7 +147,7 @@ def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device):
     p50 = statistics.median(per_step_ms)
     gflop = step_gflop(cfg, idx.shape[1], x.shape[0])
     return {
-        "metric": "train_step", "path": name,
+        "metric": "train_step", "path": name, "qat": qat,
         "device": torch.cuda.get_device_name(device) if cuda else "cpu",
         "timer": "cuda_events" if cuda else "host_clock",
         "batch_size": int(idx.shape[1]), "timed_steps": len(timed),
@@ -143,16 +156,20 @@ def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device):
         "first_loss": first, "last_loss": losses[-1],
         "launches_per_step": {k: (after[k] - before[k]) / len(timed) for k in after},
         "step_gflop": gflop,
-        "f32_peak_share": gflop / (p50 / 1e3) / H100_F32_PEAK_FLOPS * 1e9 if cuda else None,
+        "f32_peak_share": (
+            gflop / (p50 / 1e3) / H100_F32_PEAK_FLOPS * 1e9 if cuda and qat is None else None
+        ),
         "peak_extra_mib": extra_mib,
     }
 
 
 def run(*, device="cuda", steps=30, warmup=3, batch_size=128, compare_plain=False,
-        epses_specs=FLAGSHIP, synthetic_sizes=(8192, 2048, 2048)):
-    """Benchmarks the training step on ``device``, printing and returning
-    one record per path (the kernel path, then the plain one with
-    ``compare_plain``)."""
+        epses_specs=FLAGSHIP, synthetic_sizes=(8192, 2048, 2048), qat=None):
+    """Benchmarks the training step (the int8 QAT step with
+    ``qat="int8"``) on ``device``, printing and returning one record per
+    path (the kernel path, then the plain one with ``compare_plain``)."""
+    if qat not in PATHS:
+        raise click.UsageError(f"--qat {qat}: none or int8")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise click.UsageError(f"--device {device}: no CUDA device is available")
@@ -171,12 +188,11 @@ def run(*, device="cuda", steps=30, warmup=3, batch_size=128, compare_plain=Fals
     idx = torch.as_tensor(order, device=device)
     x = torch.as_tensor(train.x, device=device)
     y = torch.as_tensor(train.y.astype(np.int64), device=device)
-    paths = [("kernel", K.KERNELS)] + ([("plain", K.PLAIN)] if compare_plain else [])
     records = []
-    for name, kernels in paths:
+    for name, kernels in PATHS[qat][: 2 if compare_plain else 1]:
         rec = measure_path(
             name=name, params=params, cfg=cfg, kernels=kernels, x=x, y=y, idx=idx,
-            warmup=warmup, device=device,
+            warmup=warmup, device=device, qat=qat,
         )
         print(json.dumps(rec))
         records.append(rec)
@@ -191,9 +207,12 @@ def run(*, device="cuda", steps=30, warmup=3, batch_size=128, compare_plain=Fals
 @click.option("--compare-plain", is_flag=True, help="also time the plain path")
 @click.option("--device", default="cuda",
               help="torch device: cuda (the kernels) or cpu (their plain versions)")
-def main(steps, warmup, batch_size, epses_specs, compare_plain, device):
+@click.option("--qat", type=click.Choice(("none", "int8")), default="none",
+              help="int8: the quantization-aware step (int8 W8A8 forward, STE backward)")
+def main(steps, warmup, batch_size, epses_specs, compare_plain, device, qat):
     run(device=device, steps=steps, warmup=warmup, batch_size=batch_size,
-        compare_plain=compare_plain, epses_specs=epses_specs)
+        compare_plain=compare_plain, epses_specs=epses_specs,
+        qat=None if qat == "none" else qat)
 
 
 if __name__ == "__main__":

@@ -2,15 +2,16 @@
 predictions and latency statistics (port of ``dctn_tpu/cli/predict.py``).
 
 The checkpoint is the JAX package's reference-layout npz; the model runs
-the fast (cmt) forward, whose EPS layers are the hand-written CUDA kernel
-on ``--device cuda`` and its plain PyTorch version on ``--device cpu``.
-Exported artifacts, ``--quantize int8`` and ``--mesh-devices > 1`` are not
-ported yet and are refused.
+the fast (cmt) forward, whose EPS layers are the hand-written CUDA kernels
+on ``--device cuda`` and their plain PyTorch versions on ``--device cpu``.
+``--quantize int8`` serves the int8 W8A8 model (cores quantized once at
+load, ``EPSesPlusLinearQ8``). Exported artifacts and ``--mesh-devices > 1``
+are not ported yet and are refused.
 
 Usage:
   python -m dctn_tpu_torch.cli.predict CKPT.npz --ds-type fashionmnist \
       --ds-path synthetic --epses-specs "(4,4),(3,6)" --split test \
-      --out preds.npy --latency-bench
+      --out preds.npy --latency-bench [--quantize int8]
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import dataclasses
 import json
 import time
 import zipfile
+from typing import Union
 
 import click
 import numpy as np
@@ -26,7 +28,7 @@ import torch
 
 from ..data import load_dataset
 from ..interop import params_from_numpy
-from ..models import EPSesPlusLinear, EPSesPlusLinearConfig, fast_layer_plans
+from ..models import EPSesPlusLinear, EPSesPlusLinearConfig, EPSesPlusLinearQ8, fast_layer_plans
 from ..train import load_params_npz
 from .specs import parse_epses_specs
 
@@ -120,7 +122,7 @@ class PredictRun:
     accuracy: float
     latency: list  # one latency_stats dict per batch size
     forward_calls: int  # model forwards, prediction and latency together
-    model: EPSesPlusLinear  # the model that served
+    model: Union[EPSesPlusLinear, EPSesPlusLinearQ8]  # the model that served
     x: torch.Tensor  # the split it served, (C, N, H, W, Q) on its device
 
 
@@ -140,7 +142,7 @@ class PredictRun:
 @click.option("--mesh-devices", type=int, default=1,
               help="not ported yet: only 1 is accepted")
 @click.option("--quantize", type=click.Choice(("none", "int8")), default="none",
-              help="not ported yet: only 'none' is accepted")
+              help="int8: W8A8 dynamic quantization of the EPS layers")
 @click.option("--device", default="cuda",
               help="torch device to run on: cuda (the kernels) or cpu (their plain versions)")
 def main(checkpoint, ds_type, ds_path, epses_specs, phi_multiplier, split,
@@ -157,8 +159,8 @@ def run(*, checkpoint, ds_type, ds_path, epses_specs=None, phi_multiplier=None,
         device="cuda") -> PredictRun:
     if _is_artifact(checkpoint):
         raise click.UsageError("exported artifacts are not ported yet; pass an npz checkpoint")
-    if quantize not in (None, "none"):
-        raise click.UsageError(f"--quantize {quantize} is not ported yet")
+    if quantize not in (None, "none", "int8"):
+        raise click.UsageError(f"--quantize {quantize} is not supported: none or int8")
     if mesh_devices > 1:
         raise click.UsageError("--mesh-devices > 1 is not ported yet")
     if not epses_specs:
@@ -176,7 +178,7 @@ def run(*, checkpoint, ds_type, ds_path, epses_specs=None, phi_multiplier=None,
     cfg = EPSesPlusLinearConfig(epses_specs=epses_specs, image_size=image_size, q0=q0)
     params = params_from_numpy(load_params_npz(checkpoint), device, cfg.dtype)
     _check_params(params, cfg, channels)
-    model = EPSesPlusLinear.from_reference(params, cfg)
+    model = (EPSesPlusLinearQ8 if quantize == "int8" else EPSesPlusLinear).from_reference(params, cfg)
     forward_calls = 0
 
     def forward(xb):

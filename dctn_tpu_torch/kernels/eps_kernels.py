@@ -19,7 +19,8 @@ core in its matricized (Z, A) "cmt" layout, to three contractions:
 On a CPU tensor each wrapper runs its plain PyTorch version (``*_reference``);
 on a CUDA tensor it launches its hand-written kernel or raises. There is no
 fallback. ``KERNELS`` and ``PLAIN`` bundle the three for the callers that
-choose between them. ``EPSApplyTCmt`` is the layer's
+choose between them; ``eps_q8_kernels`` adds the int8 forward and its QAT
+bundles. ``EPSApplyTCmt`` is the layer's
 ``torch.autograd.Function``; ``plan_backward`` picks its backward arm, whose
 recompute form (K4/K6) is not ported to CUDA yet.
 
@@ -62,6 +63,10 @@ _DCORE_MIN_SLICE_PIXELS = 4096
 # 3.35 TB/s); the port keeps 512 so that both packages take the same arm,
 # until the Hopper break-even is measured.
 SAVE_T_MIN_A = 512
+# ... and only while the saved t, Z·npix float32 entries, stays within this
+# footprint: the JAX package's cap (DCTN_TPU_SAVE_T_MAX_BYTES, 4 GiB,
+# eps_pallas.py:814); beyond it the layer takes the recompute arm
+SAVE_T_MAX_BYTES = 4 << 30
 
 
 def _slice_specs(kernel_size: int, num_channels: int):
@@ -131,21 +136,30 @@ def plan_call(c: int, q: int, kernel_size: int, n1: int):
     return n1, merge_pairs
 
 
-def plan_backward(layer_index: int, n_k: int, n1_k: int, q_k: int) -> str:
+def plan_backward(
+    layer_index: int, n_k: int, n1_k: int, q_k: int, out_size: int, npix: int
+) -> str:
     """The backward arm of one layer (``_save_t_plan`` and ``_bwd_dispatch``,
-    eps_pallas.py:794-894, without the VMEM planning):
+    eps_pallas.py:794-894, without the VMEM planning and without padding
+    npix to a tile: the port's kernels mask their last tile):
 
     - ``"dcore_only"``: the model's first layer, whose input needs no
       gradient (the JAX ``force_two_pass``, whose d_views pass XLA drops):
       ``eps_dcore`` alone;
-    - ``"saved_t"``: n2 > 0 and A = q_k^n1_k ≥ ``SAVE_T_MIN_A``: the forward
-      writes t, the backward runs ``eps_dcore`` and ``eps_dviews_t``;
+    - ``"saved_t"``: n2 > 0, A = q_k^n1_k ≥ ``SAVE_T_MIN_A`` and t's float32
+      footprint Z·npix·4 ≤ ``SAVE_T_MAX_BYTES``: the forward writes t, the
+      backward runs ``eps_dcore`` and ``eps_dviews_t``;
     - ``"recompute"``: anything else; its d_views (K4/K6) is not ported to
       CUDA yet, only its plain version runs.
+
+    The f32 and the int8 (QAT) forward take the same arm: the JAX
+    package's ``qat_save_decision`` (eps_pallas_q8.py:228) is this rule.
     """
     if layer_index == 0:
         return "dcore_only"
-    if n_k > n1_k and q_k**n1_k >= SAVE_T_MIN_A:
+    n2 = n_k - n1_k
+    z = out_size * q_k**n2
+    if n2 > 0 and q_k**n1_k >= SAVE_T_MIN_A and z * npix * 4 <= SAVE_T_MAX_BYTES:
         return "saved_t"
     return "recompute"
 
@@ -259,16 +273,17 @@ def _library(name: str) -> ctypes.CDLL:
         "eps_fwd": [p, p, p, p, i, i, i, i, ll, p],
         "eps_dcore": [p, p, p, p, i, i, i, i, ll, i, p],
         "eps_dviews_t": [p, p, p, p, p, i, i, i, i, ll, p],
+        "eps_fwd_q8": [p, p, p, p, p, p, i, i, i, i, ll, p],
     }[name]
     entry.restype = ctypes.c_int
     return lib
 
 
-def _check_tensors(name: str, shape: str, device, **tensors) -> None:
-    """float32, contiguous, all on ``device``."""
+def _check_tensors(name: str, shape: str, device, dtype=torch.float32, **tensors) -> None:
+    """``dtype``, contiguous, all on ``device``."""
     for key, x in tensors.items():
-        if x.dtype != torch.float32:
-            raise ValueError(f"{name} kernel takes float32, got {key} {x.dtype} ({shape})")
+        if x.dtype != dtype:
+            raise ValueError(f"{name} kernel takes {dtype}, got {key} {x.dtype} ({shape})")
         if x.device != device:
             raise ValueError(f"{name}: {key} on {x.device}, views on {device} ({shape})")
         if not x.is_contiguous():
@@ -552,16 +567,17 @@ def eps_apply_t_cmt(
     ``xT`` (C, Q, H, W, B) → ``outT`` (O, H', W', B), differentiable in
     both. The forward writes t only when grad is on, ``xT`` needs a gradient
     and ``plan_backward`` picks the saved-t arm for this layer, so serving
-    (under ``inference_mode``) writes none. ``kernels`` is ``KERNELS`` unless
-    a caller runs the plain versions on purpose."""
+    (under ``inference_mode``) writes none. ``kernels`` is ``KERNELS``
+    unless a caller runs the plain versions or the int8 forward
+    (``eps_q8_kernels.QAT_KERNELS``)."""
     c, q, h, w, b = xT.shape
     hp, wp = h - kernel_size + 1, w - kernel_size + 1
     n_k, q_k, n1_k = _kernel_dims(c, q, kernel_size, n1, merge_pairs)
-    views_t, _ = _stack_views_from_xT(xT, kernel_size, merge_pairs)
+    views_t, npix = _stack_views_from_xT(xT, kernel_size, merge_pairs)
     save_t = (
         torch.is_grad_enabled()
         and xT.requires_grad
-        and plan_backward(layer_index, n_k, n1_k, q_k) == "saved_t"
+        and plan_backward(layer_index, n_k, n1_k, q_k, out_size, npix) == "saved_t"
     )
     out = EPSApplyTCmt.apply(views_t, cmt, n1_k, out_size, save_t, kernels)
     return out.reshape(out_size, hp, wp, b)

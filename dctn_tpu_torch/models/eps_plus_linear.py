@@ -11,9 +11,12 @@ Parameters come in two layouts, as in the JAX package:
 
 ``EPSesPlusLinear`` is the ``nn.Module`` that holds the fast layout on one
 device; its parameters require gradients, and serving runs it under
-``torch.inference_mode``. Only the "unit_theoretical_output_std" init and
-the epswise regularizer are ported; the other two inits, parameter dropout
-and the composition regularizer come with a later slice.
+``torch.inference_mode``; with ``eps_q8_kernels.QAT_KERNELS`` it is the
+quantization-aware training forward. ``EPSesPlusLinearQ8`` holds the int8
+serving parameters (``forward_fast_q8``). Only the
+"unit_theoretical_output_std" init and the epswise regularizer are ported;
+the other two inits, parameter dropout and the composition regularizer come
+with a later slice.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ..kernels.eps_kernels import (
     eps_apply_t_cmt,
     plan_call,
 )
+from ..kernels.eps_q8_kernels import eps_apply_t_q8, eps_fwd_q8, quantize_reference_params
 from ..ops import composition
 from ..ops import eps as eps_mod
 
@@ -46,6 +50,9 @@ class EPSesPlusLinearConfig:
     q0: int = 2
     num_classes: int = 10
     dtype: torch.dtype = torch.float32
+    # parameter dropout's keep probability (eps_plus_linear.py's dropout_p);
+    # make_fast_train_step refuses p < 1 until _dropout_cmts is ported
+    dropout_p: float = 1.0
 
     @property
     def pre_linear_image_size(self) -> int:
@@ -196,6 +203,25 @@ def eps_plus_linear_forward_fast(
     return _transposed_classifier(outT, fast["linear"])
 
 
+def forward_fast_q8(
+    qparams, x: torch.Tensor, cfg: EPSesPlusLinearConfig, plans, fwd=eps_fwd_q8
+) -> torch.Tensor:
+    """The int8 (W8A8) serving forward (``forward_fast_q8``,
+    eps_pallas_q8.py:425) over ``quantize_fast_params``' output, in the
+    transposed batch-minor layout of ``eps_plus_linear_forward_fast``, whose
+    plans it shares: ``x`` (C, B, H, W, Q₀) → (B, num_classes). Inference
+    only. ``fwd`` runs each layer (``eps_fwd_q8``, or its plain version)."""
+    del cfg
+    xT = x.permute(0, 4, 2, 3, 1)
+    outT = None
+    for wq, sw, p in zip(qparams["epses_q"], qparams["epses_scale"], plans):
+        outT = eps_apply_t_q8(
+            wq, sw, xT, p["out_size"], p["kernel_size"], p["n1"], p["merge_pairs"], fwd=fwd
+        )
+        xT = outT[None]
+    return _transposed_classifier(outT, qparams["linear"])
+
+
 def epswise_l2_regularizer_fast(fast) -> torch.Tensor:
     """Σ w² + Σ_cores Σ cmt²: the epswise L2 (eps_plus_linear.py:510-513)
     on the fast layout, exact since it does not depend on the order of a
@@ -241,3 +267,40 @@ class EPSesPlusLinear(nn.Module):
         return eps_plus_linear_forward_fast(
             self.fast_params(), x, self.cfg, self.plans, kernels=kernels
         )
+
+
+class EPSesPlusLinearQ8(nn.Module):
+    """The int8 serving model on one device: each core quantized once, at
+    construction, to int8 ``wq_i`` and its f32 per-row scales ``sw_i``
+    (buffers, ``quantize_fast_params``); the classifier stays f32. Inference
+    only: run it under ``torch.inference_mode``."""
+
+    def __init__(self, qparams, plans, cfg: EPSesPlusLinearConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.plans = plans
+        self.layers = len(plans)
+        for i, (wq, sw) in enumerate(zip(qparams["epses_q"], qparams["epses_scale"])):
+            self.register_buffer(f"wq_{i}", wq.detach().clone())
+            self.register_buffer(f"sw_{i}", sw.detach().clone())
+        self.register_buffer("linear_w", qparams["linear"]["w"].detach().clone())
+        self.register_buffer("linear_b", qparams["linear"]["b"].detach().clone())
+
+    @classmethod
+    def from_reference(
+        cls, params: Params, cfg: EPSesPlusLinearConfig, device=None
+    ) -> "EPSesPlusLinearQ8":
+        """Matricize and quantize reference-layout ``params`` where they lie,
+        then place the model on ``device`` (default: there)."""
+        model = cls(*quantize_reference_params(params, cfg), cfg)
+        return model if device is None else model.to(device)
+
+    def qparams(self):
+        return {
+            "epses_q": tuple(getattr(self, f"wq_{i}") for i in range(self.layers)),
+            "epses_scale": tuple(getattr(self, f"sw_{i}") for i in range(self.layers)),
+            "linear": {"w": self.linear_w, "b": self.linear_b},
+        }
+
+    def forward(self, x: torch.Tensor, fwd=eps_fwd_q8) -> torch.Tensor:
+        return forward_fast_q8(self.qparams(), x, self.cfg, self.plans, fwd=fwd)

@@ -3,9 +3,10 @@
 
 The JAX step is one jitted function of (params, optimizer state, batch);
 here the model and the optimizer hold that state, and the step runs
-eagerly: forward through the EPS kernels, cross-entropy plus the epswise
-regularizer, backward through the kernels' ``autograd.Function``, optimizer
-update. Batches are gathered on the device from the resident split.
+eagerly: forward through the EPS kernels (in int8 with ``qat="int8"``),
+cross-entropy plus the epswise regularizer, backward through the kernels'
+``autograd.Function``, optimizer update. Batches are gathered on the device
+from the resident split.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.eps_kernels import KERNELS, EPSKernels
+from ..kernels.eps_q8_kernels import QAT_KERNELS
 from ..models.eps_plus_linear import EPSesPlusLinear, epswise_l2_regularizer_fast
 
 
@@ -25,7 +27,7 @@ def make_fast_train_step(
     reg_type: str = "epswise",
     reg_coeff: float = 0.0,
     *,
-    kernels: EPSKernels = KERNELS,
+    kernels: Optional[EPSKernels] = None,
     frozen_eps_indices: Sequence[int] = (),
     with_probs: bool = False,
     grad_accum_steps: int = 1,
@@ -36,7 +38,14 @@ def make_fast_train_step(
     with ``optimizer`` (built over ``model.parameters()``): loss = mean
     cross-entropy + ``reg_coeff``·epswise L2 (train/step.py:208-310, the
     ``grad_accum_steps == 1`` branch). ``xb`` is (C, B, H, W, Q₀), ``yb``
-    (B,) class indices. ``kernels`` runs the EPS layers' contractions.
+    (B,) class indices.
+
+    ``kernels`` runs the EPS layers' contractions, ``KERNELS`` by default.
+    ``qat="int8"`` picks ``QAT_KERNELS`` instead (the JAX step's
+    ``forward_fast_q8train``): each EPS layer's forward in int8 W8A8 on the
+    live f32 cores, with straight-through gradients, so the numerics of int8
+    serving, not the f32 trajectory. A caller that passes its own bundle
+    (``eps_q8_kernels.QAT_PLAIN`` for the plain QAT path) passes no ``qat``.
 
     The options of the JAX step that belong to later slices are refused."""
     later = {
@@ -44,6 +53,7 @@ def make_fast_train_step(
         "frozen_eps_indices": bool(frozen_eps_indices),
         "with_probs": with_probs,
         "grad_accum_steps > 1": grad_accum_steps != 1,
+        "parameter dropout (dropout_p < 1)": model.cfg.dropout_p < 1.0,
     }
     for option, given in later.items():
         if given:
@@ -51,10 +61,14 @@ def make_fast_train_step(
                 f"{option} is not ported yet: it comes with the runner and the "
                 "rest of the training stack (ROADMAP slice 3)"
             )
-    if qat is not None:
-        raise ValueError(f"qat={qat!r} is not ported yet: it comes with int8 and QAT (ROADMAP slice 5)")
+    if qat not in (None, "int8"):
+        raise ValueError(f"unsupported qat mode {qat!r}")
     if reg_type != "epswise":
         raise ValueError(f"unknown reg_type {reg_type!r}")
+    if kernels is None:
+        kernels = KERNELS if qat is None else QAT_KERNELS
+    elif qat is not None:
+        raise ValueError("qat picks the kernel bundle: pass qat or kernels, not both")
 
     def step(xb: torch.Tensor, yb: torch.Tensor):
         optimizer.zero_grad(set_to_none=True)

@@ -9,13 +9,16 @@ machine run it without the conftest:
 On a host without a CUDA device every test skips itself.
 
 Tolerance 1e-4·max|ref| throughout: kernel and plain version are both
-float32 and differ only in the order of their sums.
+float32 and differ only in the order of their sums. The int8 forward's
+quantized operands and int32 sums are exact on both sides, so its saved t
+and its column scales are held bit for bit.
 """
 
 import pytest
 import torch
 
 from dctn_tpu_torch.kernels import eps_kernels as K
+from dctn_tpu_torch.kernels import eps_q8_kernels as Q8
 
 REL_TOL = 1e-4
 
@@ -224,3 +227,125 @@ def test_backward_kernels_refuse_shapes_outside_their_limits(cuda_device):
                        torch.zeros((2**11, 64), device=cuda_device), 1, 1)
     with pytest.raises(NotImplementedError, match="K4"):
         K.eps_dviews_recompute(v, c, torch.zeros((1, 64), device=cuda_device), 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the int8 forward (K8, and K9 with t)
+
+_Q8_SHAPES = [
+    (8, 4, 4, 4, 2 * 625),  # flagship layer 0 (merged), batch 2
+    (9, 4, 5, 6, 2 * 529),  # flagship layer 1, batch 2
+    (8, 4, 4, 4, 128 * 625),  # flagship layer 0 at batch 128
+    (9, 4, 5, 6, 128 * 529),  # flagship layer 1 at batch 128
+    (4, 3, 4, 5, 1000),  # n2 = 0: out = t; A = 81: unaligned wq rows, ragged K step
+    (6, 2, 3, 3, 777),  # ragged last pixel tile; B2 = 8: rows staged one by one
+    (3, 5, 1, 2, 130),  # B2 = 25, A = 5
+    (6, 3, 1, 2, 200),  # B2 = 243: a channel carried across blocks of 128 rows
+    (10, 2, 1, 2, 300),  # B2 = 512, the most the kernel takes
+    (2, 128, 1, 2, 300),  # n·q = 256 staged factor rows, the most it takes
+    (3, 4, 1, 7, 999),  # B2 = 16: warp sums, 7 channels in one block; odd npix
+    (11, 2, 11, 1, 300),  # A = 2048 in shared memory, n2 = 0
+]
+
+
+def _q8_inputs(dev, n, q, n1, o, npix, seed=0):
+    views, cmt, _ = _inputs(dev, n, q, n1, o, npix, seed)
+    return (views, *Q8.quantize_cmt(cmt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,n1,o,npix", _Q8_SHAPES)
+def test_q8_kernel_matches_plain(cuda_device, n, q, n1, o, npix):
+    views, wq, sw = _q8_inputs(cuda_device, n, q, n1, o, npix)
+    before = (Q8.eps_fwd_q8.launches, Q8.eps_fwd_q8.t_launches)
+    out = Q8.eps_fwd_q8(views, wq, sw, n1, o)
+    out_t, t = Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True)
+    torch.cuda.synchronize()
+    assert (Q8.eps_fwd_q8.launches, Q8.eps_fwd_q8.t_launches) == (before[0] + 2, before[1] + 1)
+    ref_out, ref_t = Q8.eps_fwd_q8_reference(views, wq, sw, n1, o, save_t=True)
+    assert out.shape == ref_out.shape == (o, npix)
+    _assert_close(out, ref_out)
+    assert torch.equal(t, ref_t)  # K9's t, bit for bit
+    assert torch.equal(out_t, out)
+
+
+def _max_abs_u_scales(views, n1):
+    return Q8._quantize_columns(K._suffix_chain(views, 0, n1)[0])[1][0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,n1,o,npix", [(9, 4, 5, 6, 2 * 529), (8, 4, 4, 4, 700), (4, 3, 4, 5, 333)])
+def test_q8_column_scales_equal_max_abs_u(cuda_device, n, q, n1, o, npix):
+    """The kernel's closed-form su (the product of the factors' largest
+    |entries|) is max|u| / 127 of the plain version, bit for bit."""
+    views, wq, sw = _q8_inputs(cuda_device, n, q, n1, o, npix)
+    views -= 0.5  # signed factors
+    su = torch.empty(npix, device=cuda_device)
+    Q8._launch_q8(views, wq, sw, n1, o, su=su)
+    assert torch.equal(su, _max_abs_u_scales(views, n1))
+
+
+@pytest.mark.cuda
+def test_q8_with_zero_factors(cuda_device):
+    """Black pixels are exact zeros after φ: a column of u that is all 0
+    takes the 1e-30 guard scale and gives exact zeros, and partly zero
+    factors quantize as in the plain version."""
+    n, q, n1, o, npix = 9, 4, 5, 6, 700
+    views, wq, sw = _q8_inputs(cuda_device, n, q, n1, o, npix)
+    views[:, :, ::7] = 0.0  # every factor 0: u, v, out all 0
+    views[2, :, 3::5] = 0.0  # one u factor 0: its u column is 0
+    views[7, :, 4::5] = 0.0  # one v factor 0: t stays, out is 0
+    views[0, 0, ::3] = 0.0  # partly zero
+    su = torch.empty(npix, device=cuda_device)
+    out = Q8._launch_q8(views, wq, sw, n1, o, su=su)
+    out_t, t = Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True)
+    ref_out, ref_t = Q8.eps_fwd_q8_reference(views, wq, sw, n1, o, save_t=True)
+    assert torch.equal(su, _max_abs_u_scales(views, n1))
+    assert float(su[0]) == float(torch.tensor(1e-30)) and float(su[3]) == float(su[0])
+    assert torch.equal(out[:, ::7], torch.zeros_like(out[:, ::7]))
+    assert torch.equal(t, ref_t)
+    _assert_close(out, ref_out)
+
+
+@pytest.mark.cuda
+def test_qat_layer_gradients_match_the_plain_path(cuda_device):
+    """EPSApplyTCmt with the int8 forward (QAT_KERNELS) against the same
+    Function on the plain versions: the saved-t arm of the flagship's layer
+    1 and the d_cmt-only arm of layer 0."""
+    xT = torch.rand((1, 4, 9, 9, 3), device=cuda_device, requires_grad=True)
+    cmt = (torch.randn((6 * 256, 1024), device=cuda_device) * 4**-4.5).requires_grad_(True)
+    res = []
+    for kernels in (Q8.QAT_KERNELS, Q8.QAT_PLAIN):
+        out = K.eps_apply_t_cmt(cmt, xT, 6, 3, 5, False, layer_index=1, kernels=kernels)
+        res.append((out, *torch.autograd.grad(torch.sum(out * torch.cos(out)), (xT, cmt))))
+    for a, b in zip(*res):
+        _assert_close(a, b)
+    x0 = torch.rand((1, 2, 8, 8, 3), device=cuda_device)
+    c0 = (torch.randn((4 * 256, 256), device=cuda_device) * 2.0**-8).requires_grad_(True)
+    before = Q8.eps_fwd_q8.t_launches
+    d = [torch.autograd.grad(K.eps_apply_t_cmt(c0, x0, 4, 4, 8, True, layer_index=0,
+                                               kernels=k).sum(), c0)[0]
+         for k in (Q8.QAT_KERNELS, Q8.QAT_PLAIN)]
+    _assert_close(*d)
+    assert Q8.eps_fwd_q8.t_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,q,n1,o",
+    [
+        (11, 2, 1, 1),  # B2 = 1024 > 512
+        (33, 8, 32, 1),  # n·q = 264 > 256
+        (12, 2, 12, 1),  # A = 4096: uq over a block's shared memory
+    ],
+)
+def test_q8_kernel_refuses_shapes_outside_its_limits(cuda_device, n, q, n1, o):
+    views = torch.zeros((n, q, 64), device=cuda_device)
+    wq = torch.zeros((o * min(q ** (n - n1), 2048), min(q**n1, 4096)), dtype=torch.int8,
+                     device=cuda_device)
+    sw = torch.ones((wq.shape[0], 1), device=cuda_device)
+    with pytest.raises(ValueError, match="limits"):
+        Q8.eps_fwd_q8(views, wq, sw, n1, o)
+    with pytest.raises(ValueError, match="int8"):
+        Q8.eps_fwd_q8(torch.zeros((2, 2, 64), device=cuda_device),
+                      torch.zeros((2, 2), device=cuda_device), sw[:2], 1, 1)

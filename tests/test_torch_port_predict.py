@@ -64,7 +64,7 @@ def test_cli_main_runs_on_cpu(jax_checkpoint):
 @pytest.mark.parametrize(
     "kwargs,match",
     [
-        ({"quantize": "int8"}, "--quantize int8 is not ported"),
+        ({"quantize": "int4"}, "--quantize int4 is not supported"),
         ({"mesh_devices": 2}, "--mesh-devices > 1 is not ported"),
         ({"epses_specs": None}, "--epses-specs is required"),
     ],

@@ -1,0 +1,509 @@
+"""The port's int8 (W8A8) serving forward and quantization-aware training
+against the JAX package (``dctn_tpu/pallas/eps_pallas_q8.py``), on the CPU.
+
+Inputs and parameters are made with numpy (or by the JAX init) and handed to
+both packages as numpy arrays. The JAX side runs its Pallas kernels in
+interpret mode, as its own tests do; the port's CPU tensors run the plain
+versions. The CUDA kernel is held against the plain version on the card
+(``test_torch_port_cuda.py``, ``chip_smoke.py``).
+
+Tolerances. The port quantizes as the JAX source reads, ``max / 127`` by a
+true division, and so does the JAX package's ``quantize_cmt`` called
+eagerly: there the two agree bit for bit. Inside a jitted function (the
+interpret-mode kernel, the QAT step) XLA computes ``/ 127`` as
+``× f32(1/127)``, so JAX's in-kernel su differs from the port's in the last
+bit for some pixel columns, and t with it. The bounds: rtol 1e-6 on one
+layer's forward (the JAX package's own kernel-vs-oracle bound,
+tests/test_quantized.py:113), with atol 1e-6 of the largest entry, since
+out's sum over b cancels terms of up to ±16 to outputs near 0.5; 1e-5 on
+gradients (the f32 layer test's bound). Across layers a last-bit
+difference in a layer's output can move one of the next layer's u/su over
+a rounding boundary, and its uq by one step; the multi-layer tests state
+what their seed shows.
+"""
+
+import importlib.util
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dctn_tpu import models as jm
+from dctn_tpu.models import eps_plus_linear as jmodel
+from dctn_tpu.ops import eps as jeps
+from dctn_tpu.pallas import eps_pallas as jp
+from dctn_tpu.pallas import eps_pallas_q8 as jq
+from dctn_tpu.train import make_optimizer as jax_make_optimizer
+from dctn_tpu.train import save_pytree
+from dctn_tpu.train.step import make_fast_train_step as jax_make_fast_train_step
+from dctn_tpu_torch import bench
+from dctn_tpu_torch.cli import predict
+from dctn_tpu_torch.data import load_dataset
+from dctn_tpu_torch.interop import params_from_numpy, params_to_numpy
+from dctn_tpu_torch.kernels import eps_kernels as K
+from dctn_tpu_torch.kernels import eps_q8_kernels as Q8
+from dctn_tpu_torch.models import (
+    EPSesPlusLinear,
+    EPSesPlusLinearConfig,
+    EPSesPlusLinearQ8,
+    eps_plus_linear_forward_fast,
+    fast_layer_plans,
+    fast_params_from_reference,
+    forward_fast_q8,
+    init_eps_plus_linear,
+)
+from dctn_tpu_torch.train import make_fast_train_step, make_optimizer
+
+FLAGSHIP = ((4, 4), (3, 6))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """Several test workers share the host: two torch threads each."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def _jax_setup(specs, image_size, seed=0):
+    jcfg = jm.EPSesPlusLinearConfig(
+        epses_specs=specs, image_size=image_size, q0=2,
+        train_backend="pallas_interpret", eval_backend="pallas_interpret",
+    )
+    jparams = jm.init_eps_plus_linear(jax.random.PRNGKey(seed), jcfg)
+    np_params = jax.tree_util.tree_map(np.asarray, jparams)
+    cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=image_size, q0=2)
+    return jcfg, jparams, np_params, cfg
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+# ---------------------------------------------------------------------------
+# quantizers and one layer's forward
+
+
+@pytest.mark.parametrize("scale", [1.0, 3e-4])
+def test_quantize_cmt_is_bit_equal_to_jax(scale):
+    rng = np.random.default_rng(0)
+    cmt = (rng.normal(size=(24, 80)) * scale).astype(np.float32)
+    cmt[5] = 0.0  # an all-zero row: wq 0, sw the 1e-30 guard
+    cmt[7, :3] = [0.5, -0.5, 1.5]  # exact halves round to even
+    wq, sw = Q8.quantize_cmt(torch.tensor(cmt))
+    jwq, jsw = jq.quantize_cmt(jnp.asarray(cmt))
+    assert wq.dtype == torch.int8 and tuple(sw.shape) == (24, 1)
+    np.testing.assert_array_equal(wq.numpy(), np.asarray(jwq))
+    np.testing.assert_array_equal(sw.numpy(), np.asarray(jsw))
+    assert (wq[5] == 0).all() and float(sw[5, 0]) == np.float32(1e-30)
+
+    u = np.abs(rng.normal(size=(16, 50))).astype(np.float32)
+    u[:, 3] = 0.0  # a black pixel's column
+    uq, su = Q8._quantize_columns(torch.tensor(u))
+    juq, jsu = jq._quantize_columns(jnp.asarray(u))
+    np.testing.assert_array_equal(uq.numpy(), np.asarray(juq))
+    np.testing.assert_array_equal(su.numpy(), np.asarray(jsu))
+
+
+def test_int_matmul_is_exact_where_int8_mm_wraps():
+    wq = torch.full((2, 1024), 127, dtype=torch.int8)
+    uq = torch.full((1024, 3), -127, dtype=torch.int8)
+    got = Q8._int_matmul(wq, uq)
+    assert got.dtype == torch.int32 and (got == -1024 * 127 * 127).all()
+
+
+# (C, K, Q, O, H, W, B): tests/test_quantized.py:78-86
+_LAYER_CASES = [
+    (1, 2, 2, 3, 4, 4, 2),
+    (1, 3, 2, 4, 6, 5, 3),
+    (2, 2, 2, 3, 4, 4, 2),
+    (1, 2, 3, 5, 5, 5, 2),
+]
+
+
+@pytest.mark.parametrize("C,K_,Q,O,H,W,B", _LAYER_CASES)
+def test_q8_layer_matches_pallas_interpret(C, K_, Q, O, H, W, B):
+    """eps_apply_t_q8 (the plain int8 forward on the port's factor stack)
+    against eps_pallas_apply_t_q8 in interpret mode, and the save_t form's
+    t against _run_fwd_q8(save_t=True)'s: rtol 1e-6, atol 1e-6 of the
+    largest entry (measured: at most 9.3e-8 of it)."""
+    rng = np.random.default_rng(C * 1000 + K_ * 100 + Q * 10 + O)
+    core = rng.normal(size=jeps.eps_shape(K_, C, Q, O)).astype(np.float32)
+    x = rng.normal(size=(C, B, H, W, Q)).astype(np.float32)
+    npix = B * (H - K_ + 1) * (W - K_ + 1)
+    n1, _, merge, _ = jp.plan_pallas_call(C, Q, K_, jeps._balanced_split(K_ * K_ * C, Q, O), O,
+                                          npix, None, True)
+    assert K.plan_call(C, Q, K_, n1) == (n1, merge)
+    n_k, q_k, n1_k = jp._kernel_dims(C, Q, K_, n1, merge)
+    jwq, jsw = jq.quantize_cmt(jp._core_to_cmt_k(jnp.asarray(core), n1_k, q_k))
+    bn = jq.plan_q8_bn(n_k, n1_k, q_k, O, max(128, -(-npix // 128) * 128))
+    xT = np.ascontiguousarray(np.transpose(x, (0, 4, 2, 3, 1)))
+    want = np.asarray(jq.eps_pallas_apply_t_q8(jwq, jsw, jnp.asarray(xT), O, K_, n1, bn, True, merge))
+    views, jnpix = jp._stack_views_from_xT(jnp.asarray(xT), K_, bn, merge)
+    _, want_t = jq._run_fwd_q8(views, jwq, jsw, n1_k, O, bn, True, save_t=True, t_dtype=jnp.float32)
+
+    wq, sw = torch.tensor(np.asarray(jwq)), torch.tensor(np.asarray(jsw))
+    got = Q8.eps_apply_t_q8(wq, sw, torch.tensor(xT), O, K_, n1, merge).numpy()
+    assert got.shape == want.shape == (O, H - K_ + 1, W - K_ + 1, B)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    tviews, tnpix = K._stack_views_from_xT(torch.tensor(xT), K_, merge)
+    assert tnpix == jnpix == npix
+    _, got_t = Q8.eps_fwd_q8_reference(tviews, wq, sw, n1_k, O, save_t=True)
+    want_t = np.asarray(want_t)[:, :npix]
+    np.testing.assert_allclose(got_t.numpy(), want_t, rtol=1e-6, atol=1e-6 * np.abs(want_t).max())
+
+
+def test_wrapper_runs_the_plain_version_on_cpu_without_counting():
+    rng = np.random.default_rng(4)
+    views = torch.tensor(rng.uniform(size=(3, 2, 10)).astype(np.float32))
+    wq, sw = Q8.quantize_cmt(torch.tensor(rng.normal(size=(4, 4)).astype(np.float32)))
+    before = (Q8.eps_fwd_q8.launches, Q8.eps_fwd_q8.t_launches)
+    out, t = Q8.eps_fwd_q8(views, wq, sw, 2, 2, save_t=True)
+    ref_out, ref_t = Q8.eps_fwd_q8_reference(views, wq, sw, 2, 2, save_t=True)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=0)
+    torch.testing.assert_close(t, ref_t, rtol=0, atol=0)
+    assert (Q8.eps_fwd_q8.launches, Q8.eps_fwd_q8.t_launches) == before
+
+
+@pytest.mark.parametrize(
+    "shape,n1,o,wq_shape,match",
+    [
+        ((11, 2, 8), 1, 1, (1024, 2), "limits"),  # B2 = 1024 > 512
+        ((33, 8, 8), 32, 1, (8, 1), "limits"),  # n·q = 264 > 256
+        ((12, 2, 8), 12, 1, (1, 4096), "limits"),  # A = 4096: uq over shared memory
+        ((3, 2, 8), 2, 2, (4, 2), "not \\(O"),  # wrong wq shape
+    ],
+)
+def test_kernel_limits_raise_naming_the_shape(shape, n1, o, wq_shape, match):
+    with pytest.raises(ValueError, match=match) as err:
+        Q8._check_q8_args(torch.zeros(shape), torch.zeros(wq_shape, dtype=torch.int8),
+                          torch.ones((wq_shape[0], 1)), n1, o)
+    assert str(tuple(shape)) in str(err.value)
+
+
+def test_flagship_layers_fit_the_kernel():
+    """Both flagship layers pass the wrapper's checks: layer 1 with one
+    staged row per warp (B2 = 256) in 87,040 B of shared memory."""
+    for n, q, n1, o in ((8, 4, 4, 4), (9, 4, 5, 6)):
+        wq = torch.zeros((o * q ** (n - n1), q**n1), dtype=torch.int8)
+        Q8._check_q8_args(torch.zeros((n, q, 8)), wq, torch.ones((wq.shape[0], 1)), n1, o)
+    assert Q8._q8_smem_bytes(9, 4, 5) == 87_040
+
+
+# ---------------------------------------------------------------------------
+# the serving model
+
+
+def _serving_inputs(seed=0):
+    specs = ((2, 4), (2, 6))
+    jcfg, jparams, np_params, cfg = _jax_setup(specs, 8, seed)
+    # tests/test_quantized.py:134's inputs: uniform on [0, 2)
+    x = np.random.default_rng(seed).uniform(0.0, 2.0, size=(1, 16, 8, 8, 2)).astype(np.float32)
+    return jcfg, jparams, np_params, cfg, x
+
+
+def test_forward_fast_q8_matches_jax():
+    """The port's int8 serving forward against the JAX package's
+    forward_fast_q8 in interpret mode on (2,4),(2,6) at image 8, batch 16.
+    The logits agree to rel L2 2.3e-7 at this seed (the su last bits above;
+    no uq of layer 1 moves a step), bound 2e-6, 1/25,000 of the
+    quantization budget below. Both stay within that budget (rel L2 < 0.05,
+    tests/test_quantized.py:142) of the f32 forward: 0.0177 each."""
+    jcfg, jparams, np_params, cfg, x = _serving_inputs()
+    jfast, jplans = jmodel.fast_params_from_reference(jparams, jcfg)
+    want = np.asarray(jq.forward_fast_q8(jq.quantize_fast_params(jfast, jplans), jnp.asarray(x),
+                                         jcfg, jplans, interpret=True))
+    params = params_from_numpy(np_params)
+    fast, plans = fast_params_from_reference(params, cfg)
+    assert plans == jplans
+    qparams = Q8.quantize_fast_params(fast)
+    for wq, jwq in zip(qparams["epses_q"], jq.quantize_fast_params(jfast, jplans)["epses_q"]):
+        np.testing.assert_array_equal(wq.numpy(), np.asarray(jwq))
+    got = forward_fast_q8(qparams, torch.tensor(x), cfg, plans).numpy()
+    assert got.shape == want.shape == (16, 10) and np.isfinite(got).all()
+    assert _rel_l2(got, want) < 2e-6
+    f32 = eps_plus_linear_forward_fast(fast, torch.tensor(x), cfg, plans).detach().numpy()
+    assert _rel_l2(got, f32) < 0.05 and _rel_l2(want, f32) < 0.05
+
+
+def test_flagship_int8_noise_is_the_references():
+    """The flagship at full width (28×28, seeded port init), on 4 images of
+    the synthetic FashionMNIST test split (ν-scaled φ-features, as served):
+    the port's int8 logits agree with the JAX package's (rel L2 4.9e-7,
+    bound 2e-6), so their distance from the f32 logits is the reference's
+    own (0.0472 here, against the 0.05 that the JAX test holds on its
+    uniform inputs)."""
+    cfg = EPSesPlusLinearConfig(epses_specs=FLAGSHIP, image_size=28, q0=2)
+    params = init_eps_plus_linear(torch.Generator().manual_seed(0), cfg)
+    x = load_dataset("fashionmnist", "synthetic", autoscale_kernel_size=4,
+                     synthetic_sizes=(16, 4, 4)).test.x
+    fast, plans = fast_params_from_reference(params, cfg)
+    with torch.no_grad():
+        f32 = eps_plus_linear_forward_fast(fast, torch.tensor(x), cfg, plans).numpy()
+        got = forward_fast_q8(Q8.quantize_fast_params(fast), torch.tensor(x), cfg, plans).numpy()
+    jcfg = jm.EPSesPlusLinearConfig(epses_specs=FLAGSHIP, image_size=28, q0=2)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params_to_numpy(params))
+    jfast, jplans = jmodel.fast_params_from_reference(jparams, jcfg)
+    want = np.asarray(jq.forward_fast_q8(jq.quantize_fast_params(jfast, jplans), jnp.asarray(x),
+                                         jcfg, jplans, interpret=True))
+    assert _rel_l2(got, want) < 2e-6
+    assert abs(_rel_l2(got, f32) - _rel_l2(want, f32)) < 1e-5
+
+
+def _chip_smoke():
+    """chip_smoke.py at the root of the repo, as a module (it reads no card
+    until its main runs)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_served_int8_noise_limit_is_the_jax_reading():
+    """The int8-vs-f32 distance that chip_smoke.py holds on the card is the
+    JAX package's own on the same model and images: the seeded flagship
+    (port init, seed 0) on the first 128 images that the smoke's
+    predict.run serves (synthetic FashionMNIST test split of 1024, as
+    served). JAX's int8 forward (interpret mode) against its f32 forward
+    reads 0.051360 (in rel L2, above the 0.05 that the JAX test holds on
+    uniform inputs); the smoke's Q8_SERVED_REF is that reading to 6
+    digits, and the port's plain int8 forward reads it within 1e-5
+    (measured: 8e-7; a few uq of layer 1 move a step, see the module
+    docstring). Images run in 4 chunks of 32: each pixel column quantizes
+    alone, so the logits do not depend on the chunking."""
+    smoke = _chip_smoke()
+    cfg = EPSesPlusLinearConfig(epses_specs=FLAGSHIP, image_size=28, q0=2)
+    params = init_eps_plus_linear(torch.Generator().manual_seed(smoke.SEED), cfg)
+    x = load_dataset("fashionmnist", "synthetic", autoscale_kernel_size=4,
+                     synthetic_sizes=(1024, 256, 1024)).test.x[:, :smoke.BATCH]
+    fast, plans = fast_params_from_reference(params, cfg)
+    qparams = Q8.quantize_fast_params(fast)
+    jcfg = jm.EPSesPlusLinearConfig(epses_specs=FLAGSHIP, image_size=28, q0=2,
+                                    eval_backend="pallas_interpret")
+    jparams = jax.tree_util.tree_map(jnp.asarray, params_to_numpy(params))
+    jfast, jplans = jmodel.fast_params_from_reference(jparams, jcfg)
+    jqparams = jq.quantize_fast_params(jfast, jplans)
+    parts = {"f32": [], "q8": [], "jax f32": [], "jax q8": []}
+    for i in range(0, x.shape[1], 32):
+        xs = x[:, i : i + 32]
+        with torch.no_grad():
+            parts["f32"].append(eps_plus_linear_forward_fast(fast, torch.tensor(xs), cfg, plans))
+            parts["q8"].append(forward_fast_q8(qparams, torch.tensor(xs), cfg, plans))
+        parts["jax f32"].append(jmodel.eps_plus_linear_forward_fast(jfast, jnp.asarray(xs), jcfg, jplans))
+        parts["jax q8"].append(jq.forward_fast_q8(jqparams, jnp.asarray(xs), jcfg, jplans, interpret=True))
+    r = {k: np.concatenate([np.asarray(p) for p in v]) for k, v in parts.items()}
+    jax_rel = _rel_l2(r["jax q8"], r["jax f32"])
+    assert abs(jax_rel - smoke.Q8_SERVED_REF) <= 5e-7
+    assert abs(_rel_l2(r["q8"], r["f32"]) - jax_rel) < 1e-5
+
+
+def test_q8_module_holds_int8_buffers_and_equals_the_functional_forward():
+    _, _, np_params, cfg, x = _serving_inputs()
+    params = params_from_numpy(np_params)
+    model = EPSesPlusLinearQ8.from_reference(params, cfg)
+    assert [b.dtype for b in model.buffers()][:2] == [torch.int8, torch.float32]
+    assert not any(True for _ in model.parameters())
+    fast, plans = fast_params_from_reference(params, cfg)
+    with torch.inference_mode():
+        want = forward_fast_q8(Q8.quantize_fast_params(fast), torch.tensor(x), cfg, plans)
+        torch.testing.assert_close(model(torch.tensor(x)), want, rtol=0, atol=0)
+        torch.testing.assert_close(model(torch.tensor(x), fwd=Q8.eps_fwd_q8_reference), want,
+                                   rtol=0, atol=0)
+
+
+def test_predict_int8_writes_the_argmax_of_the_jax_q8_logits(tmp_path):
+    specs, sizes = ((3, 3), (2, 4)), (16, 8, 6)
+    jcfg = jm.EPSesPlusLinearConfig(epses_specs=specs, image_size=28, q0=2)
+    jparams = jm.init_eps_plus_linear(jax.random.PRNGKey(0), jcfg)
+    path, out = str(tmp_path / "model.npz"), str(tmp_path / "preds.npy")
+    save_pytree(jparams, path)
+    result = predict.run(
+        checkpoint=path, ds_type="fashionmnist", ds_path="synthetic", epses_specs=specs,
+        batch_size=4, out=out, device="cpu", synthetic_sizes=sizes, quantize="int8",
+    )
+    assert isinstance(result.model, EPSesPlusLinearQ8) and result.forward_calls == 2
+    jfast, jplans = jmodel.fast_params_from_reference(jparams, jcfg)
+    logits = jq.forward_fast_q8(jq.quantize_fast_params(jfast, jplans),
+                                jnp.asarray(result.x.numpy()), jcfg, jplans, interpret=True)
+    np.testing.assert_array_equal(result.preds, np.asarray(logits).argmax(axis=1))
+    np.testing.assert_array_equal(np.load(out), result.preds)
+
+
+# ---------------------------------------------------------------------------
+# QAT
+
+
+@pytest.mark.parametrize("layer,saves", [(1, True), (0, False)])
+def test_qat_layer_value_and_grads_match_jax_vjp(layer, saves):
+    """One QAT layer (EPSApplyTCmt with QAT_KERNELS, plain on the CPU)
+    against jax.vjp of eps_pallas_apply_t_cmt_q8train in interpret mode at
+    the flagship's layer shapes on an 8×8 image, batch 16: layer 1 saves its
+    dequantized t, layer 0 (the first) saves none; both sides return d_xT,
+    which a step never asks of layer 0. Forward rtol 1e-6, gradients
+    rtol 1e-5, each with atol 1e-6 of the largest entry."""
+    cfg = EPSesPlusLinearConfig(epses_specs=FLAGSHIP, image_size=8, q0=2)
+    p = fast_layer_plans(cfg)[layer]
+    c, q, k, o = p["c"], p["q"], p["kernel_size"], p["out_size"]
+    h = 8 if layer == 0 else 5
+    npix = 16 * (h - k + 1) ** 2
+    rng = np.random.default_rng(10 + layer)
+    xT = rng.uniform(size=(c, q, h, h, 16)).astype(np.float32)
+    n = k * k * c
+    core = (rng.normal(size=(q,) * n + (o,)) * q ** (-n / 2)).astype(np.float32)
+    n1, bn, merge, mm = jp.plan_pallas_call(c, q, k, p["n1"], o, npix, None, True)
+    n_k, q_k, n1_k = jp._kernel_dims(c, q, k, n1, merge)
+    save = jq.qat_save_decision(c, q, k, p["n1"], o, npix, None, True, layer == 0)
+    assert save == saves == _port_saves_t(c, q, k, p["n1"], o, npix, layer == 0)
+    bn_q8 = jq.plan_q8_train_bn(n_k, n1_k, q_k, o, max(128, -(-npix // 128) * 128), save, 4)
+    cmt = np.asarray(jp._core_to_cmt_k(jnp.asarray(core), n1_k, q_k))
+    out_j, vjp = jax.vjp(
+        lambda c_, x_: jq.eps_pallas_apply_t_cmt_q8train(
+            c_, x_, o, k, n1, bn, bn_q8, True, mm, merge, layer == 0, save),
+        jnp.asarray(cmt), jnp.asarray(xT),
+    )
+    g = rng.normal(size=out_j.shape).astype(np.float32)
+    d_cmt_j, d_xT_j = vjp(jnp.asarray(g))
+
+    calls = []
+
+    def spy_dviews_t(*args):
+        calls.append(args[3] is not None)
+        return K.eps_dviews_t_reference(*args)
+
+    kernels = K.EPSKernels(Q8.QAT_PLAIN.fwd, Q8.QAT_PLAIN.dcore, spy_dviews_t)
+    cmt_t = torch.tensor(cmt, requires_grad=True)
+    xT_t = torch.tensor(xT, requires_grad=True)
+    out = K.eps_apply_t_cmt(cmt_t, xT_t, o, k, n1, merge, layer_index=layer, kernels=kernels)
+    d_cmt, d_xT = torch.autograd.grad(out, (cmt_t, xT_t), torch.tensor(g))
+    assert calls == ([True] if saves else [])  # the d_v half read the saved t
+    out_j = np.asarray(out_j)
+    np.testing.assert_allclose(out.detach().numpy(), out_j, rtol=1e-6, atol=1e-6 * np.abs(out_j).max())
+    for got, want in ((d_cmt, d_cmt_j), (d_xT, d_xT_j)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
+
+
+def _port_saves_t(c, q, k, n1_plan, out_size, npix, first):
+    """Whether the port's layer saves t: the shared rule, plan_backward, on
+    the layer's kernel dims."""
+    n1, merge = K.plan_call(c, q, k, n1_plan)
+    n_k, q_k, n1_k = K._kernel_dims(c, q, k, n1, merge)
+    return K.plan_backward(0 if first else 1, n_k, n1_k, q_k, out_size, npix) == "saved_t"
+
+
+def _save_cases():
+    """(c, q, k, n1_plan, out_size, npix, first): the flagship's layers at
+    batch 128, a small layer (A < 512), the deep config's middle layer, and
+    the flagship's layer 1 at one JAX tile either side of the 4 GiB cap on
+    its float32 t (npix a multiple of the JAX tile, so that padding moves
+    nothing)."""
+    cases = [(1, 2, 4, 8, 4, 128 * 625, True), (1, 4, 3, 5, 6, 128 * 529, False),
+             (1, 4, 3, 5, 6, 128 * 529, True), (1, 4, 2, 2, 6, 128 * 49, False),
+             (1, 4, 3, 5, 12, 128 * 529, False)]
+    _, bn, _, _ = jp.plan_pallas_call(1, 4, 3, 5, 6, 1 << 20, None, True)
+    below = (4 << 30) // (1536 * 4 * bn) * bn
+    return cases + [(1, 4, 3, 5, 6, below, False), (1, 4, 3, 5, 6, below + bn, False)]
+
+
+def test_qat_save_decision_matches_jax():
+    """The JAX package's qat_save_decision against the port's one save-t
+    rule, which the f32 and the QAT forward share."""
+    got = [_port_saves_t(*case) for case in _save_cases()]
+    want = [jq.qat_save_decision(*case[:6], None, True, case[6]) for case in _save_cases()]
+    assert got == want
+    assert got[:2] == [False, True] and got[-2:] == [True, False]
+
+
+def test_qat_step_matches_jax_pallas_interpret():
+    """3 Adam steps of make_fast_train_step(qat="int8") against the JAX
+    package's fast step with qat="int8" on pallas_interpret: the flagship on
+    an 8×8 image, batch 16, lr 0.05, epswise 1e-3 (the f32 step test's
+    setup). Losses rtol 2e-5 and parameters rtol 2e-5 / atol 1e-7, the f32
+    step test's bound. With the suite's JAX settings (float64 enabled) the
+    losses agree to 2.7e-7 and the parameters to 0.09 of that bound: at
+    this seed no uq of a later layer or step moves a step."""
+    specs = FLAGSHIP
+    jcfg, jparams, np_params, cfg = _jax_setup(specs, 8)
+    x = np.random.default_rng(0).uniform(size=(1, 16, 8, 8, 2)).astype(np.float32)
+    y = np.arange(16) % 10
+    jfast, jplans = jmodel.fast_params_from_reference(jparams, jcfg)
+    jopt = jax_make_optimizer("adam", 0.05)
+    jstep = jax_make_fast_train_step(jcfg, jopt, jplans, "epswise", 1e-3, donate=False, qat="int8")
+    f, o = jfast, jopt.init(jfast)
+    jmetrics = []
+    for i in range(3):
+        f, o, m = jstep(f, o, jax.random.PRNGKey(5 + i), jnp.asarray(x), jnp.asarray(y))
+        jmetrics.append(m)
+    model = EPSesPlusLinear.from_reference(params_from_numpy(np_params), cfg)
+    step = make_fast_train_step(model, make_optimizer("adam", model.parameters(), 0.05),
+                                "epswise", 1e-3, qat="int8")
+    metrics = [step(torch.tensor(x), torch.tensor(y)) for _ in range(3)]
+    for m, jm_ in zip(metrics, jmetrics):
+        for key in ("loss", "ce", "reg_term"):
+            np.testing.assert_allclose(float(m[key]), float(jm_[key]), rtol=2e-5)
+    for got, want in zip(model.cmts, f["epses_cmt"]):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=2e-5, atol=1e-7)
+    for got, want in ((model.linear_w, f["linear"]["w"]), (model.linear_b, f["linear"]["b"])):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=2e-5, atol=1e-7)
+
+
+def test_qat_step_runs_the_int8_forward_and_the_f32_backward():
+    """The flagship's QAT step asks the int8 forward for t in layer 1 only,
+    and its backward runs d_cmt twice and the saved-t d_views once, on the
+    live f32 cores."""
+    _, _, np_params, cfg = _jax_setup(FLAGSHIP, 8)
+    calls = []
+
+    def fwd(views, cmt, n1, out_size, save_t=False):
+        calls.append(("fwd", save_t, cmt.dtype))
+        return Q8.QAT_PLAIN.fwd(views, cmt, n1, out_size, save_t)
+
+    def dcore(*args):
+        calls.append(("dcore",))
+        return K.eps_dcore_reference(*args)
+
+    def dviews_t(views, cmt, g, t, n1, out_size):
+        calls.append(("dviews_t", t is not None))
+        return K.eps_dviews_t_reference(views, cmt, g, t, n1, out_size)
+
+    model = EPSesPlusLinear.from_reference(params_from_numpy(np_params), cfg)
+    step = make_fast_train_step(model, make_optimizer("sgd", model.parameters(), 0.0), "epswise",
+                                0.0, kernels=K.EPSKernels(fwd, dcore, dviews_t))
+    x = np.random.default_rng(1).uniform(size=(1, 4, 8, 8, 2)).astype(np.float32)
+    m = step(torch.tensor(x), torch.tensor([0, 1, 2, 3]))
+    assert np.isfinite(float(m["loss"]))
+    assert calls[:2] == [("fwd", False, torch.float32), ("fwd", True, torch.float32)]
+    assert sorted(calls[2:]) == [("dcore",), ("dcore",), ("dviews_t", True)]
+
+
+def test_qat_refuses_unsupported_modes_and_dropout():
+    _, _, np_params, cfg = _jax_setup(((3, 3), (2, 4)), 8)
+    model = EPSesPlusLinear.from_reference(params_from_numpy(np_params), cfg)
+    opt = make_optimizer("adam", model.parameters(), 1e-3)
+    with pytest.raises(ValueError, match="unsupported qat"):
+        make_fast_train_step(model, opt, qat="int4")
+    with pytest.raises(ValueError, match="not both"):
+        make_fast_train_step(model, opt, qat="int8", kernels=K.KERNELS)
+    model.cfg = EPSesPlusLinearConfig(epses_specs=((3, 3), (2, 4)), image_size=8, dropout_p=0.8)
+    with pytest.raises(ValueError, match="dropout"):
+        make_fast_train_step(model, opt, qat="int8")
+
+
+def test_bench_qat_runs_on_cpu_and_reports_its_fields(capsys):
+    recs = bench.run(device="cpu", steps=2, warmup=1, batch_size=8, compare_plain=True,
+                     epses_specs=((3, 3), (2, 4)), synthetic_sizes=(32, 4, 4), qat="int8")
+    assert [(r["path"], r["qat"]) for r in recs] == [("kernel", "int8"), ("plain", "int8")]
+    for r in recs:
+        assert np.isfinite([r["first_loss"], r["last_loss"], r["images_per_s"]]).all()
+        assert r["f32_peak_share"] is None
+        assert set(r["launches_per_step"]) == {
+            "eps_fwd", "eps_fwd_t", "eps_dcore", "eps_dcore_sum", "eps_dviews_t",
+            "eps_fwd_q8", "eps_fwd_q8_t",
+        }
+    assert recs[0]["first_loss"] == pytest.approx(recs[1]["first_loss"], rel=1e-6)
+    assert len(capsys.readouterr().out.strip().splitlines()) == 2

@@ -146,7 +146,9 @@ def test_layer_value_and_grads_match_jax_vjp(layer, want_plan):
     npad = -(-16 * (h - k + 1) ** 2 // bn) * bn
     plan = jp._save_t_plan(n_k, n1_k, q_k, o, bn, mm, npad, layer == 0)
     assert (plan[0] if plan else None) == want_plan
-    assert K.plan_backward(layer, n_k, n1_k, q_k) == ("saved_t" if want_plan else "dcore_only")
+    npix = 16 * (h - k + 1) ** 2
+    want_arm = "saved_t" if want_plan else "dcore_only"
+    assert K.plan_backward(layer, n_k, n1_k, q_k, o, npix) == want_arm
 
     cmt = np.asarray(jp._core_to_cmt_k(jnp.asarray(core), n1_k, q_k))
     out_j, vjp = jax.vjp(
@@ -213,7 +215,7 @@ def test_layer_recompute_arm_runs_plain_on_cpu():
     calls = []
     xT = torch.rand((1, 4, 5, 5, 2), dtype=torch.float64, requires_grad=True)
     cmt = torch.randn((2 * 4**7, 4**2), dtype=torch.float64, requires_grad=True)
-    assert K.plan_backward(1, 9, 2, 4) == "recompute"
+    assert K.plan_backward(1, 9, 2, 4, 2, 18) == "recompute"
     out = K.eps_apply_t_cmt(cmt, xT, 2, 3, 2, False, layer_index=1, kernels=_spy_kernels(calls))
     got = torch.autograd.grad(out.sum(), xT)[0]
     assert calls == [("fwd", False), ("dcore",)]
@@ -241,7 +243,7 @@ def test_plan_backward_matches_jax(specs, image_size):
         n_k, q_k, n1_k = jp._kernel_dims(p["c"], p["q"], p["kernel_size"], n1, merge)
         npad = -(-npix // bn) * bn
         saves = jp._save_t_plan(n_k, n1_k, q_k, p["out_size"], bn, mm, npad, i == 0) is not None
-        arm = K.plan_backward(i, n_k, n1_k, q_k)
+        arm = K.plan_backward(i, n_k, n1_k, q_k, p["out_size"], npix)
         assert (arm == "dcore_only") == (i == 0)
         assert (arm == "saved_t") == saves, (i, n_k, n1_k, q_k)
         arms.append(arm)
@@ -332,7 +334,7 @@ def test_step_leaves_the_callers_tensors_alone():
         ({"frozen_eps_indices": (0,)}, "slice 3"),
         ({"with_probs": True}, "slice 3"),
         ({"grad_accum_steps": 2}, "slice 3"),
-        ({"qat": "int8"}, "slice 5"),
+        ({"qat": "int4"}, "unsupported qat"),
         ({"reg_type": "nosuchreg"}, "unknown reg_type"),
     ],
 )
@@ -392,7 +394,8 @@ def test_bench_runs_on_cpu_and_reports_its_fields(capsys):
         assert np.isfinite([r["first_loss"], r["last_loss"], r["images_per_s"], r["step_ms_p50"]]).all()
         assert r["f32_peak_share"] is None and r["peak_extra_mib"] is None
         assert set(r["launches_per_step"]) == {
-            "eps_fwd", "eps_fwd_t", "eps_dcore", "eps_dcore_sum", "eps_dviews_t"
+            "eps_fwd", "eps_fwd_t", "eps_dcore", "eps_dcore_sum", "eps_dviews_t",
+            "eps_fwd_q8", "eps_fwd_q8_t",
         }
         assert r["step_gflop"] > 0
     # both paths start from the same parameters and batch
