@@ -9,13 +9,16 @@ Run from the root of a checkout, with no arguments:
    versions, and builds every kernel of the serving, int8 serving, training
    and QAT paths from ``dctn_tpu_torch/csrc`` (one ``nvcc`` per source, all
    at once), printing each build time and the compiler's register report.
-2. Holds each kernel against its plain PyTorch version at the flagship
-   model's layer shapes at batch 128 and at small shapes (every factor in
-   the matmul half; a ragged pixel count), with median CUDA-event times of
-   the kernel, the plain version and one library call of the same product
-   on materialized operands (cuBLAS ``torch.matmul`` in f32, ``torch._int_mm``
-   in int8; the product alone, which the port never calls). The int8
-   forward's saved t must equal the plain version's bit for bit.
+2. Holds each kernel against its plain PyTorch version at the layer shapes
+   of the flagship, the three-EPS ``(2,4),(2,6),(2,12)`` and the deep
+   ``(4,4),(3,12),(2,24)`` models at batch 128 and at small shapes (every
+   factor in the matmul half; a ragged pixel count), and the recompute
+   kernel also at the deep model's layer 1 at batch 2048, with median CUDA-event
+   times of the kernel, the plain version and one library call of the same
+   products on materialized operands (cuBLAS ``torch.matmul`` in f32,
+   ``torch._int_mm`` in int8; the products alone, which the port never
+   calls). The int8 forward's saved t must equal the plain version's bit
+   for bit.
 3. Drives the serving path: saves a seeded flagship ``(4,4),(3,6)`` model,
    runs ``dctn_tpu_torch.cli.predict.run`` on 1024 synthetic FashionMNIST
    images with the latency benchmark, checks that the forward kernel ran
@@ -33,12 +36,21 @@ Run from the root of a checkout, with no arguments:
    float64 step on the CPU, and that the losses are finite. Then the same
    bench with ``qat="int8"`` (int8 forward, straight-through f32 backward):
    launches per step, one step's gradients against the plain QAT path's,
-   finite losses.
+   finite losses. Then the three-EPS model at batch 128, f32 and QAT, whose
+   later layers take the recompute backward (2 launches of
+   ``eps_dviews_recompute`` per step, no t saved), launches and gradients
+   against the plain path. Then the deep model's published step (Adam
+   1e-3, composition regularizer 1e-1) at batch 2048, on the kernels only,
+   at ``grad_accum_steps`` 1 (its middle layer's t is over the saved-t cap:
+   the recompute arm) and 4 (what ``"auto"`` resolves to: every later layer
+   saves t), launches per step against the arms, and one step's gradients
+   at 1 against those at 4 for the weights of two seeds.
 5. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
    of the serving forward (f32 and int8) at batch 1 and 128 and of the
-   training step (f32 and QAT) at batch 128, on the kernel and on the plain
-   path, with the device's busy share and extra memory; the full profiler
-   tables go to DIR.
+   flagship training step (f32 and QAT) at batch 128, on the kernel and on
+   the plain path, and of the deep model's step at batch 2048 (accumulation
+   1 and 4) on the kernels, with the device's busy share and extra memory;
+   the full profiler tables go to DIR.
 6. Prints one JSON line describing the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before a path is driven and
@@ -84,6 +96,27 @@ TRAJ_RTOL = 1e-3
 TRAJ_NORM_TOL = 1e-2
 TRAJ_LR = 1e-4
 TRAIN_STEPS = 20
+# the repo's three-EPS QAT family (experiments/qat_value.py:35-37) and the
+# deep three-EPS model of experiments/three_epses_benchmark.py, whose step
+# is Adam 1e-3 with the composition regularizer at 1e-1
+THREE = ((2, 4), (2, 6), (2, 12))
+DEEP = ((4, 4), (3, 12), (2, 24))
+DEEP_BATCH = 2048
+DEEP_LR = 1e-3
+DEEP_REG = ("epses_composition", 1e-1)
+DEEP_STEPS = 3
+# one step's gradients of the deep model at accum 1 against accum 4 (the
+# same weights and batch; the sums over pixels in other orders, and layer
+# 1's d_views from a recomputed rather than a saved t), for the weights of
+# each seed in DEEP_ACCUM_SEEDS. The limit comes from readings of the
+# largest max|Δ|/max|ref| over the gradients on an H100 (PERF.md §6): 5.604e-6
+# for seed 0 and 4.134e-6 for seed 1, both at the classifier's bias (a mean
+# over 2,048 images summed in another order; the EPS cores' gradients
+# 6.7e-8 to 2.3e-7), so 3e-5, 5.4 times the largest. The recompute kernel
+# itself is held at this shape within REL_TOL in phase 2
+# (recompute_at_deep_batch).
+DEEP_ACCUM_SEEDS = (0, 1)
+DEEP_ACCUM_TOL = 3e-5
 # the int8 path against the plain int8 path: a last-bit difference in layer
 # 0's f32 sums can move one of layer 1's u/su over a rounding boundary and
 # its uq by one step (1/127 of that pixel's scale), so logits are held to
@@ -130,6 +163,11 @@ KERNELS = {
         "route": "cuda", "source": "dctn_tpu_torch/csrc/eps_fwd_q8.cu",
         "replaces": "dctn_tpu/pallas/eps_pallas_q8.py:116",
     },
+    # K4's d_views half; K6 without t (eps_pallas.py:391) is the same kernel
+    "eps_dviews_recompute": {
+        "route": "cuda", "source": "dctn_tpu_torch/csrc/eps_dviews_t.cu",
+        "replaces": "dctn_tpu/pallas/eps_pallas.py:254",
+    },
 }
 SOURCES = ("eps_fwd", "eps_dcore", "eps_dviews_t", "eps_fwd_q8")
 
@@ -169,19 +207,31 @@ def build_all(build) -> None:
                 print(log.read_text().strip())
 
 
-def kernel_shapes(cfg, K, plans):
-    """(label, n, q, n1, O, npix): the flagship layers at batch 128, then
-    every factor in u (n2 = 0), a ragged pixel count, and the deep config's
-    middle layer."""
-    shapes, h = [], cfg.image_size
-    for i, p in enumerate(plans):
+def layer_dims(specs):
+    """(n_k, q_k, n1_k, O, h') of each layer of a model at 28×28."""
+    from dctn_tpu_torch.kernels import eps_kernels as K
+    from dctn_tpu_torch.models import EPSesPlusLinearConfig, fast_layer_plans
+
+    cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=28, q0=2)
+    dims, h = [], cfg.image_size
+    for p in fast_layer_plans(cfg):
         n_k, q_k, n1_k = K._kernel_dims(p["c"], p["q"], p["kernel_size"], p["n1"], p["merge_pairs"])
         h = h - p["kernel_size"] + 1
-        shapes.append((f"flagship layer {i}", n_k, q_k, n1_k, p["out_size"], BATCH * h * h))
-    # the deep (4,4),(3,12),(2,24) config's middle layer at batch 128, whose
-    # d_cmt the TPU runs o-tiled (K5): eps_dcore only, not on the paths
-    return shapes + [("n2=0", 4, 3, 4, 5, 1000), ("ragged npix", 6, 2, 3, 3, 777),
-                     ("deep layer 1", 9, 4, 5, 12, BATCH * 23 * 23)]
+        dims.append((n_k, q_k, n1_k, p["out_size"], h))
+    return dims
+
+
+def kernel_shapes():
+    """(label, n, q, n1, O, npix): the layers of the flagship, the
+    three-EPS and the deep model at batch 128 (the deep model's layer 0 is
+    the flagship's; its layer 1 is where the TPU runs d_cmt o-tiled, K5),
+    then every factor in u (n2 = 0) and a ragged pixel count."""
+    shapes = []
+    for model, specs, first in (("flagship", FLAGSHIP, 0), ("three-EPS", THREE, 0), ("deep", DEEP, 1)):
+        for i, (n, q, n1, o, h) in enumerate(layer_dims(specs)):
+            if i >= first:
+                shapes.append((f"{model} layer {i}", n, q, n1, o, BATCH * h * h))
+    return shapes + [("n2=0", 4, 3, 4, 5, 1000), ("ragged npix", 6, 2, 3, 3, 777)]
 
 
 def bound_ms(nbytes: float, flops: float = 0.0, int8_ops: float = 0.0):
@@ -194,14 +244,17 @@ def bound_ms(nbytes: float, flops: float = 0.0, int8_ops: float = 0.0):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def kernel_vs_plain(cfg, K, Q8, plans, dev):
+def kernel_vs_plain(K, Q8, dev):
     """Phase 2: each kernel against its plain version. Returns, per kernel,
     the JSON numbers: max |Δ| over every shape it ran at, and its kernel,
-    plain, library and bound times summed over the flagship layers it runs
-    at on its path (eps_fwd: the serving forward, both layers without t;
-    eps_fwd_t: layer 1, which saves t for training; eps_dcore: both layers;
-    eps_dviews_t: layer 1; eps_fwd_q8: the int8 serving forward, both
-    layers; eps_fwd_q8_t: layer 1, which saves t in a QAT step)."""
+    plain, library and bound times summed over the layers it runs at on its
+    path at batch 128 (eps_fwd: the flagship's serving forward, both layers
+    without t; eps_fwd_t: flagship layer 1, which saves t for training;
+    eps_dcore: both flagship layers; eps_dviews_t: flagship layer 1;
+    eps_fwd_q8: the flagship's int8 serving forward, both layers;
+    eps_fwd_q8_t: flagship layer 1, which saves t in a QAT step;
+    eps_dviews_recompute: the three-EPS model's layers 1 and 2, and the deep
+    model's layer 1, whose t is over the cap at batch 2048)."""
     on_path = {
         "eps_fwd": ("flagship layer 0", "flagship layer 1"),
         "eps_fwd_t": ("flagship layer 1",),
@@ -209,20 +262,27 @@ def kernel_vs_plain(cfg, K, Q8, plans, dev):
         "eps_dviews_t": ("flagship layer 1",),
         "eps_fwd_q8": ("flagship layer 0", "flagship layer 1"),
         "eps_fwd_q8_t": ("flagship layer 1",),
+        "eps_dviews_recompute": ("three-EPS layer 1", "three-EPS layer 2", "deep layer 1"),
     }
+    three = ("three-EPS layer 0", "three-EPS layer 1", "three-EPS layer 2")
     runs = {
-        "eps_fwd": ("flagship layer 0", "flagship layer 1", "n2=0", "ragged npix"),
-        "eps_fwd_t": ("flagship layer 0", "flagship layer 1", "ragged npix"),
-        "eps_dcore": ("flagship layer 0", "flagship layer 1", "n2=0", "ragged npix",
-                      "deep layer 1"),
-        "eps_dviews_t": ("flagship layer 0", "flagship layer 1", "n2=0", "ragged npix"),
-        "eps_fwd_q8": ("flagship layer 0", "flagship layer 1", "n2=0", "ragged npix"),
+        "eps_fwd": ("flagship layer 0", "flagship layer 1", "n2=0", "ragged npix", *three,
+                    "deep layer 1", "deep layer 2"),
+        "eps_fwd_t": ("flagship layer 0", "flagship layer 1", "ragged npix", "deep layer 1",
+                      "deep layer 2"),
+        "eps_dcore": ("flagship layer 0", "flagship layer 1", "n2=0", "ragged npix", *three,
+                      "deep layer 1", "deep layer 2"),
+        "eps_dviews_t": ("flagship layer 0", "flagship layer 1", "n2=0", "ragged npix",
+                         "deep layer 1", "deep layer 2"),
+        "eps_fwd_q8": ("flagship layer 0", "flagship layer 1", "n2=0", "ragged npix", *three),
         "eps_fwd_q8_t": ("flagship layer 0", "flagship layer 1", "n2=0", "ragged npix"),
+        "eps_dviews_recompute": ("flagship layer 1", "n2=0", "ragged npix", *three[1:],
+                                 "deep layer 1"),
     }
     res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bound_ms": 0.0, "flops": 0.0, "int8_ops": 0.0, "bytes": 0.0} for k in KERNELS}
     g_ = torch.Generator(device=dev).manual_seed(SEED)
-    for label, n, q, n1, o, npix in kernel_shapes(cfg, K, plans):
+    for label, n, q, n1, o, npix in kernel_shapes():
         views = torch.rand((n, q, npix), generator=g_, device=dev)
         cmt = torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev) * q ** (-n / 2)
         g = torch.randn((o, npix), generator=g_, device=dev)
@@ -232,8 +292,10 @@ def kernel_vs_plain(cfg, K, Q8, plans, dev):
         kr2 = K._kr2(views, g, n1)
         wq, sw = Q8.quantize_cmt(cmt)
         uq = Q8._quantize_columns(u)[0]
-        # torch._int_mm takes more than 16 rows and multiples of 8 otherwise
-        int_mm = (lambda: torch._int_mm(wq, uq)) if z > 16 and a % 8 == 0 and npix % 8 == 0 else None
+        # torch._int_mm takes more than 16 rows and multiples of 8 otherwise,
+        # and cuBLAS refuses Z = 24 (three-EPS layer 1): 32-multiples only
+        int_mm = ((lambda: torch._int_mm(wq, uq))
+                  if z % 32 == 0 and a % 32 == 0 and npix % 8 == 0 else None)
         f4 = 4.0  # bytes per float32
         gemm = 2.0 * z * a * npix
         q8_bytes = f4 * (views.numel() + z + o * npix) + wq.numel()
@@ -257,6 +319,12 @@ def kernel_vs_plain(cfg, K, Q8, plans, dev):
                              gemm + 2.0 * z * npix,
                              f4 * (2 * views.numel() + cmt.numel() + g.numel()
                                    + (0 if t is None else t.numel()))),
+            # d_u and t = cmt·u, then the sum over o (2 per t entry)
+            "eps_dviews_recompute": (lambda: K.eps_dviews_recompute(views, cmt, g, n1, o),
+                                     lambda: K.eps_dviews_recompute_reference(views, cmt, g, n1, o),
+                                     lambda: (torch.matmul(cmt.T, kr2), torch.matmul(cmt, u)),
+                                     2 * gemm + (2.0 * z * npix if n1 < n else 0.0),
+                                     f4 * (2 * views.numel() + cmt.numel() + g.numel())),
             # int8: the product's operations in int8, dequantizing (2 per t
             # entry) and the sum over b (2) in f32
             "eps_fwd_q8": (lambda: Q8.eps_fwd_q8(views, wq, sw, n1, o),
@@ -287,10 +355,11 @@ def kernel_vs_plain(cfg, K, Q8, plans, dev):
             t_k, t_p, *t_l = median_ms([kern, plain] + ([lib] if lib else []), reps=10)
             ops = {"flops": flops, "int8_ops": int8_ops[0] if int8_ops else 0.0}
             b_ms, _ = bound_ms(nbytes, **ops)
+            products = 2 if name == "eps_dviews_recompute" else 1
             print(
                 f"{name} vs plain [{label}] n={n} q={q} n1={n1} O={o} npix={npix}: "
                 f"{'; '.join(errs)} (1e-4*max|ref|{'; t bit-equal' if name == 'eps_fwd_q8_t' else ''}); "
-                f"kernel {t_k:.4f} ms ({gemm / t_k / 1e9:.2f} T(FL)OP/s of the product), "
+                f"kernel {t_k:.4f} ms ({products * gemm / t_k / 1e9:.2f} T(FL)OP/s of the products), "
                 f"plain {t_p:.4f} ms, library product alone "
                 f"{f'{t_l[0]:.4f} ms' if t_l else 'n/a'}, bound {b_ms:.4f} ms"
             )
@@ -306,6 +375,47 @@ def kernel_vs_plain(cfg, K, Q8, plans, dev):
     for r in res.values():
         r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"), r.pop("int8_ops"))
     return res
+
+
+def recompute_at_deep_batch(K, dev, res) -> None:
+    """Phase 2, the recompute kernel at the largest shape it runs at: the
+    deep model's layer 1 at batch 2048 (1,083,392 pixels), against its plain
+    version, which materializes u, t, kr2 and d_u there (~36 GB of the
+    card's 80). Its max |Δ| joins the kernel's in ``res``; its times are
+    printed, not summed into the JSON line (that sums batch 128)."""
+    n, q, n1, o, h = layer_dims(DEEP)[1]
+    npix = DEEP_BATCH * h * h
+    g_ = torch.Generator(device=dev).manual_seed(SEED)
+    views = torch.rand((n, q, npix), generator=g_, device=dev)
+    cmt = torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev) * q ** (-n / 2)
+    g = torch.randn((o, npix), generator=g_, device=dev)
+    z, a = cmt.shape
+
+    def kern():
+        return K.eps_dviews_recompute(views, cmt, g, n1, o)
+
+    def plain():
+        return K.eps_dviews_recompute_reference(views, cmt, g, n1, o)
+
+    got = kern()
+    ref = plain()
+    torch.cuda.synchronize()
+    label = f"eps_dviews_recompute [deep layer 1 at batch {DEEP_BATCH}]"
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(got.shape == ref.shape, f"{label}: shape {tuple(got.shape)}")
+    check(torch.isfinite(got).all().item(), f"{label}: non-finite out")
+    check(err <= REL_TOL * scale, f"{label}: differs from plain by {err} (max|ref| {scale})")
+    res["eps_dviews_recompute"]["max_abs_err"] = max(res["eps_dviews_recompute"]["max_abs_err"], err)
+    del got, ref
+    t_k, t_p = median_ms([kern, plain], reps=2)
+    b_ms, _ = bound_ms(4.0 * (2 * views.numel() + cmt.numel() + g.numel()),
+                       4.0 * z * a * npix + 2.0 * z * npix)
+    print(f"{label} n={n} q={q} n1={n1} O={o} npix={npix}: max|d|={err:.3e} "
+          f"tol={REL_TOL * scale:.3e} (1e-4*max|ref|); kernel {t_k:.4f} ms "
+          f"({4.0 * z * a * npix / t_k / 1e9:.2f} TFLOP/s of the products), plain {t_p:.4f} ms, "
+          f"bound {b_ms:.4f} ms; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    del views, cmt, g
+    torch.cuda.empty_cache()
 
 
 def device_ms_per_call(fn, calls: int, out_path: str) -> tuple:
@@ -368,21 +478,38 @@ def profile_serving(paths, x, latency_stats, out_dir: str, tag: str) -> None:
             }))
 
 
-def flagship_trainer(params, cfg, kernels, dev, lr):
-    """A model on ``dev`` from ``params`` and the bench's Adam step (epswise
-    L2 1e-6) at learning rate ``lr`` through ``kernels`` (a QAT bundle for
-    the QAT step)."""
+def make_trainer(params, cfg, kernels, dev, lr, reg=None, grad_accum_steps=1):
+    """A model on ``dev`` from ``params`` and an Adam step at learning rate
+    ``lr`` through ``kernels`` (a QAT bundle for the QAT step): the bench's
+    (epswise L2 1e-6) unless ``reg`` gives (reg_type, reg_coeff)."""
     from dctn_tpu_torch import bench
     from dctn_tpu_torch.models import EPSesPlusLinear
     from dctn_tpu_torch.train import make_fast_train_step, make_optimizer
 
     model = EPSesPlusLinear.from_reference(params, cfg, device=dev)
     opt = make_optimizer("adam", model.parameters(), lr)
-    step = make_fast_train_step(model, opt, "epswise", bench.REG_COEFF, kernels=kernels)
+    reg_type, reg_coeff = reg or ("epswise", bench.REG_COEFF)
+    step = make_fast_train_step(model, opt, reg_type, reg_coeff, kernels=kernels,
+                                grad_accum_steps=grad_accum_steps)
     return model, step
 
 
-def check_step_gradients(params, cfg, paths, x, y, dev, qat=None) -> None:
+def compare_gradients(grads, tol: float, what: str) -> float:
+    """Each gradient of ``grads[0]`` against ``grads[1]``'s within ``tol``
+    of the latter's largest entry. Returns the largest max|Δ|/max|ref|."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (gk, gp) in enumerate(zip(*grads)):
+        err, scale = float((gk - gp).abs().max()), float(gp.abs().max())
+        print(f"{what}: gradient {i} {tuple(gk.shape)} max|d|={err:.3e} tol={tol * scale:.3e} "
+              f"({tol:g}*max|ref|)")
+        check(torch.isfinite(gk).all().item(), f"{what}: gradient {i} non-finite")
+        check(err <= tol * scale, f"{what}: gradient {i} differs")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def check_step_gradients(params, cfg, paths, x, y, dev, qat=None, model_name="flagship") -> None:
     """One step's gradients at batch 128 on the kernel path against the
     plain path's (``paths``: the two ``EPSKernels`` bundles), within
     1e-4 of the largest."""
@@ -391,16 +518,41 @@ def check_step_gradients(params, cfg, paths, x, y, dev, qat=None) -> None:
     xb, yb = x[:, :BATCH], y[:BATCH]
     grads = []
     for kernels in paths:
-        model, step = flagship_trainer(params, cfg, kernels, dev, bench.LR)
+        model, step = make_trainer(params, cfg, kernels, dev, bench.LR)
         step(xb, yb)
         grads.append([p.grad for p in model.parameters()])
-    torch.cuda.synchronize()
-    for i, (gk, gp) in enumerate(zip(*grads)):
-        err, scale = float((gk - gp).abs().max()), float(gp.abs().max())
-        print(f"{'QAT ' if qat else ''}gradient {i} {tuple(gk.shape)} kernel vs plain: "
-              f"max|d|={err:.3e} tol={REL_TOL * scale:.3e} (1e-4*max|ref|)")
-        check(torch.isfinite(gk).all().item(), f"gradient {i}: non-finite")
-        check(err <= REL_TOL * scale, f"gradient {i} differs from the plain path's")
+    compare_gradients(grads, REL_TOL, f"{model_name} {'QAT ' if qat else ''}kernel vs plain")
+
+
+def launches_per_step(specs, batch, accum, qat, keys):
+    """The kernel launches of one training step, from each layer's backward
+    arm (``plan_backward``) at the microbatch: its forward (writing t on the
+    saved-t arm), ``eps_dcore`` (and its slice sum where its tiles are few),
+    and the arm's d_views kernel (none for layer 0); ``accum``
+    microbatches."""
+    from dctn_tpu_torch.kernels import eps_kernels as K
+
+    fwd = "eps_fwd" if qat is None else "eps_fwd_q8"
+    counts = dict.fromkeys(keys, 0)
+    for i, (n, q, n1, o, h) in enumerate(layer_dims(specs)):
+        npix = batch // accum * h * h
+        arm = K.plan_backward(i, n, n1, q, o, npix)
+        counts[fwd] += 1
+        counts[f"{fwd}_t"] += arm == "saved_t"
+        counts["eps_dcore"] += 1
+        counts["eps_dcore_sum"] += K._dcore_slices(o * q ** (n - n1), q**n1, npix) > 1
+        counts["eps_dviews_t"] += arm == "saved_t"
+        counts["eps_dviews_recompute"] += arm == "recompute"
+    return {k: v * accum for k, v in counts.items()}
+
+
+def print_train_record(rec, tag: str) -> None:
+    share = rec["f32_peak_share"]
+    print(f"train step {tag} [{rec['path']}]: p50 {rec['step_ms_p50']:.4f} ms, "
+          f"{rec['images_per_s']:.1f} img/s"
+          f"{'' if share is None else f', {share:.4f} of the f32 peak'}, "
+          f"peak extra memory {rec['peak_extra_mib']:.1f} MiB, "
+          f"loss {rec['first_loss']:.6f} -> {rec['last_loss']:.6f}")
 
 
 def check_training(params, cfg, K, x, y, dev) -> None:
@@ -411,8 +563,8 @@ def check_training(params, cfg, K, x, y, dev) -> None:
 
     check_step_gradients(params, cfg, (K.KERNELS, K.PLAIN), x, y, dev)
     p64 = params_from_numpy(params_to_numpy(params), "cpu", torch.float64)
-    model_k, step_k = flagship_trainer(params, cfg, K.KERNELS, dev, TRAJ_LR)
-    model_64, step_64 = flagship_trainer(p64, cfg, K.PLAIN, torch.device("cpu"), TRAJ_LR)
+    model_k, step_k = make_trainer(params, cfg, K.KERNELS, dev, TRAJ_LR)
+    model_64, step_64 = make_trainer(p64, cfg, K.PLAIN, torch.device("cpu"), TRAJ_LR)
     start = [p.detach().clone() for p in model_64.parameters()]
     for i in range(3):
         sl = slice(4 * i, 4 * i + 4)
@@ -432,32 +584,40 @@ def check_training(params, cfg, K, x, y, dev) -> None:
         check(diff <= TRAJ_NORM_TOL * moved, f"parameter {i} after 3 steps differs from float64")
 
 
-def profile_training(params, cfg, x, y, dev, out_dir: str, qat=None) -> None:
-    """Phase 5 (opt-in): where the training step's time goes at batch 128
-    (the QAT step with ``qat="int8"``)."""
+def profile_training(params, cfg, x, y, dev, out_dir: str, qat=None, paths=None,
+                     batch=BATCH, lr=None, reg=None, grad_accum_steps=1, tag=None,
+                     warmup=3, calls=5) -> None:
+    """Phase 5 (opt-in): where the training step's time goes, by default
+    the bench's step at batch 128 on the kernel and the plain path (the QAT
+    step with ``qat="int8"``), after ``warmup`` steps, over ``calls`` steps;
+    ``paths``, ``batch``, ``lr``, ``reg`` and ``grad_accum_steps`` set
+    another step (the deep model's)."""
     from dctn_tpu_torch import bench
 
     os.makedirs(out_dir, exist_ok=True)
-    xb, yb = x[:, :BATCH], y[:BATCH]
-    tag = "qat" if qat else "train"
-    for name, kernels in bench.PATHS[qat]:
-        _, step = flagship_trainer(params, cfg, kernels, dev, bench.LR)
-        for _ in range(3):
+    xb, yb = x[:, :batch], y[:batch]
+    tag = tag or ("qat" if qat else "train")
+    for name, kernels in paths or bench.PATHS[qat]:
+        _, step = make_trainer(params, cfg, kernels, dev, lr or bench.LR, reg, grad_accum_steps)
+        for _ in range(warmup):
             step(xb, yb)
         torch.cuda.synchronize()
-        calls = 5
         t0 = time.perf_counter()
         for _ in range(calls):
             step(xb, yb)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
         busy_ms, top = device_ms_per_call(
             lambda: step(xb, yb), calls, os.path.join(out_dir, f"profile_{tag}_{name}.txt")
         )
         print(json.dumps({
-            "metric": "train_profile", "qat": qat, "path": name, "batch_size": BATCH,
-            "step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1 - busy_ms / wall_ms, "top_device_ops_ms": top,
+            "metric": "train_profile", "model": tag, "qat": qat, "path": name, "batch_size": batch,
+            "grad_accum_steps": grad_accum_steps, "step_wall_ms": wall_ms,
+            "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+            "extra_device_mib": (torch.cuda.max_memory_allocated(dev) - base) / 2**20,
+            "top_device_ops_ms": top,
         }))
 
 
@@ -481,7 +641,7 @@ def main(argv=None) -> int:
         fast_layer_plans,
         init_eps_plus_linear,
     )
-    from dctn_tpu_torch.train import save_params_npz
+    from dctn_tpu_torch.train import resolve_auto_grad_accum, save_params_npz
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -498,8 +658,8 @@ def main(argv=None) -> int:
 
     # phase 2: each kernel against its plain version
     cfg = EPSesPlusLinearConfig(epses_specs=FLAGSHIP, image_size=28, q0=2)
-    plans = fast_layer_plans(cfg)
-    numbers = kernel_vs_plain(cfg, K, Q8, plans, dev)
+    numbers = kernel_vs_plain(K, Q8, dev)
+    recompute_at_deep_batch(K, dev, numbers)
 
     # phase 3: the serving paths, f32 then int8, through the entry point a
     # user calls
@@ -634,12 +794,7 @@ def main(argv=None) -> int:
               f"launches over the run {counts}")
         for rec in (rec_k, rec_p):
             check(all(math.isfinite(rec[k]) for k in ("first_loss", "last_loss")), "non-finite loss")
-            share = rec["f32_peak_share"]
-            print(f"train step qat={qat} [{rec['path']}]: p50 {rec['step_ms_p50']:.4f} ms, "
-                  f"{rec['images_per_s']:.1f} img/s"
-                  f"{'' if share is None else f', {share:.4f} of the f32 peak'}, "
-                  f"peak extra memory {rec['peak_extra_mib']:.1f} MiB, "
-                  f"loss {rec['first_loss']:.6f} -> {rec['last_loss']:.6f}")
+            print_train_record(rec, f"qat={qat}")
         if qat is None:
             check_training(params, cfg, K, tx, ty, dev)
         else:
@@ -647,15 +802,94 @@ def main(argv=None) -> int:
         if args.profile:
             profile_training(params, cfg, tx, ty, dev, args.profile, qat)
 
-    training, qat_counts = trained[None], trained["int8"]
-    launches = {
-        "eps_fwd": serving["eps_fwd"] + training["eps_fwd"],
-        "eps_fwd_t": training["eps_fwd_t"],
-        "eps_dcore": training["eps_dcore"] + qat_counts["eps_dcore"],
-        "eps_dviews_t": training["eps_dviews_t"] + qat_counts["eps_dviews_t"],
-        "eps_fwd_q8": serving_q8["eps_fwd_q8"] + qat_counts["eps_fwd_q8"],
-        "eps_fwd_q8_t": qat_counts["eps_fwd_q8_t"],
-    }
+    # the three-EPS model, f32 then QAT: its layers 1 and 2 (A = 64, 216)
+    # take the recompute backward
+    keys = tuple(bench.read_counters())
+    train3 = load_dataset("fashionmnist", "synthetic", autoscale_kernel_size=THREE[0][0],
+                          synthetic_sizes=(BATCH, 4, 4)).train
+    tx3 = torch.as_tensor(train3.x, device=dev)
+    ty3 = torch.as_tensor(train3.y.astype("int64"), device=dev)
+    cfg3 = EPSesPlusLinearConfig(epses_specs=THREE, image_size=28, q0=2)
+    params3 = init_eps_plus_linear(torch.Generator().manual_seed(SEED), cfg3)
+    for qat in (None, "int8"):
+        want = launches_per_step(THREE, BATCH, 1, qat, keys)
+        check(want["eps_dviews_recompute"] == 2 and want["eps_dviews_t"] == 0
+              and want["eps_fwd_t"] == 0 and want["eps_fwd_q8_t"] == 0,
+              f"three-EPS arms {want}: not both later layers on the recompute arm")
+        bench.zero_counters()
+        t0 = time.perf_counter()
+        rec_k, rec_p = bench.run(device="cuda", steps=TRAIN_STEPS, compare_plain=True, qat=qat,
+                                 epses_specs=THREE)
+        counts = trained[("three", qat)] = bench.read_counters()
+        print(f"bench.run three-EPS qat={qat}: {time.perf_counter() - t0:.1f} s, launches {counts}")
+        check(rec_k["launches_per_step"] == {k: float(v) for k, v in want.items()},
+              f"three-EPS launches per step {rec_k['launches_per_step']} != {want}")
+        check(counts == {k: v * steps_run for k, v in want.items()},
+              f"three-EPS launches over the run {counts}")
+        for rec in (rec_k, rec_p):
+            check(all(math.isfinite(rec[k]) for k in ("first_loss", "last_loss")), "non-finite loss")
+            print_train_record(rec, f"three-EPS qat={qat}")
+        paths = (K.KERNELS, K.PLAIN) if qat is None else (Q8.QAT_KERNELS, Q8.QAT_PLAIN)
+        check_step_gradients(params3, cfg3, paths, tx3, ty3, dev, qat, "three-EPS")
+    del tx3, ty3
+
+    # the deep model's step at batch 2048, on the kernels: accum 1 (layer 1
+    # over the saved-t cap: recompute) and "auto" (4: every later layer
+    # saves t); the plain path would materialize ~35 GB at this batch
+    cfg_d = EPSesPlusLinearConfig(epses_specs=DEEP, image_size=28, q0=2)
+    auto = resolve_auto_grad_accum(cfg_d, fast_layer_plans(cfg_d), DEEP_BATCH)
+    print(f"deep model at batch {DEEP_BATCH}: grad_accum_steps auto -> {auto}")
+    check(auto == 4, f"auto resolved to {auto}, not 4")
+    arms = {1: {"eps_dviews_recompute": 1, "eps_dviews_t": 1, "eps_fwd_t": 1},
+            4: {"eps_dviews_recompute": 0, "eps_dviews_t": 8, "eps_fwd_t": 8}}
+    deep_steps_run = 1 + 1 + DEEP_STEPS
+    for accum in (1, "auto"):
+        bench.zero_counters()
+        t0 = time.perf_counter()
+        (rec,) = bench.run(device="cuda", steps=DEEP_STEPS, warmup=1, batch_size=DEEP_BATCH,
+                           epses_specs=DEEP, lr=DEEP_LR, reg_type=DEEP_REG[0],
+                           reg_coeff=DEEP_REG[1], grad_accum_steps=accum)
+        got = rec["grad_accum_steps"]
+        counts = trained[("deep", got)] = bench.read_counters()
+        print(f"bench.run deep batch {DEEP_BATCH} grad_accum_steps={accum} ({got}): "
+              f"{time.perf_counter() - t0:.1f} s, launches {counts}")
+        want = launches_per_step(DEEP, DEEP_BATCH, got, None, keys)
+        check(all(want[k] == v for k, v in arms[got].items()), f"deep arms {want} at accum {got}")
+        check(rec["launches_per_step"] == {k: float(v) for k, v in want.items()},
+              f"deep launches per step {rec['launches_per_step']} != {want}")
+        check(counts == {k: v * deep_steps_run for k, v in want.items()},
+              f"deep launches over the run {counts}")
+        check(all(math.isfinite(rec[k]) for k in ("first_loss", "last_loss")), "non-finite loss")
+        print_train_record(rec, f"deep batch {DEEP_BATCH} grad_accum_steps={got}")
+    train_d = load_dataset("fashionmnist", "synthetic", autoscale_kernel_size=DEEP[0][0],
+                           synthetic_sizes=(DEEP_BATCH, 4, 4)).train
+    xd = torch.as_tensor(train_d.x, device=dev)
+    yd = torch.as_tensor(train_d.y.astype("int64"), device=dev)
+    for seed in DEEP_ACCUM_SEEDS:
+        params_d = init_eps_plus_linear(torch.Generator().manual_seed(seed), cfg_d)
+        grads, metrics = [], []
+        for accum in (1, 4):
+            model_d, step_d = make_trainer(params_d, cfg_d, K.KERNELS, dev, DEEP_LR, DEEP_REG, accum)
+            metrics.append({k: float(v) for k, v in step_d(xd, yd).items()})
+            grads.append([p.grad for p in model_d.parameters()])
+            del model_d, step_d
+        print(f"deep step metrics (weights seed {seed}) at accum 1 {metrics[0]} and 4 {metrics[1]}")
+        check(all(math.isfinite(v) for m in metrics for v in m.values()),
+              "deep step: non-finite metrics")
+        gap = compare_gradients(grads, DEEP_ACCUM_TOL,
+                                f"deep batch {DEEP_BATCH} seed {seed} accum 1 vs accum 4")
+        print(f"deep batch {DEEP_BATCH} accum 1 vs accum 4, weights seed {seed}: largest "
+              f"max|d|/max|ref| {gap:.3e} (limit {DEEP_ACCUM_TOL:g})")
+        del grads
+    if args.profile:
+        for accum in (1, 4):
+            profile_training(params_d, cfg_d, xd, yd, dev, args.profile, paths=(("kernel", K.KERNELS),),
+                             batch=DEEP_BATCH, lr=DEEP_LR, reg=DEEP_REG, grad_accum_steps=accum,
+                             tag=f"deep_accum{accum}", warmup=2, calls=2)
+    del xd, yd
+
+    driven = [serving, serving_q8, *trained.values()]
+    launches = {name: sum(c[name] for c in driven) for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name], **numbers[name]}
         for name, meta in KERNELS.items()

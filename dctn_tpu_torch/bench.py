@@ -3,9 +3,15 @@ two-EPS ``(4,4),(3,6)`` + linear FashionMNIST training step on one CUDA card
 (the port's counterpart of the root ``bench.py``'s pallas branch,
 ``bench.py:65-113``).
 
-The step is the one the JAX bench times: the fast (cmt) layout at the
-default split, Adam 3e-3, epswise L2 1e-6, batch 128, no dropout, no
-gradient accumulation. The synthetic FashionMNIST train split (the port's
+The step is by default the one the JAX bench times: the fast (cmt) layout
+at the default split, Adam 3e-3, epswise L2 1e-6, batch 128, no dropout, no
+gradient accumulation. ``--lr``, ``--reg-type``, ``--reg-coeff`` and
+``--grad-accum-steps n|auto`` change it: the deep three-EPS step of
+``experiments/three_epses_benchmark.py`` is ``--epses-specs
+"(4,4),(3,12),(2,24)" --lr 1e-3 --reg-type epses_composition --reg-coeff
+0.1``, and at ``--batch-size 2048`` its middle layer's t is over the saved-t
+cap unless ``--grad-accum-steps auto`` (4 there: ``resolve_auto_grad_accum``)
+splits the batch. The synthetic FashionMNIST train split (the port's
 ``load_dataset``, ν-scaled for K = 4) stays on the device; ``Batcher``
 draws the shuffled index batches up front and ``make_gather_batch`` gathers
 each batch on the device, so the host stays out of the timed loop. Steps
@@ -24,6 +30,8 @@ the same ``autograd.Function``), measured in the same process.
 
 Usage:
   python -m dctn_tpu_torch.bench [--steps 30] [--batch-size 128] [--compare-plain] [--qat int8]
+      [--epses-specs "(4,4),(3,6)"] [--lr 3e-3] [--reg-type epswise] [--reg-coeff 1e-6]
+      [--grad-accum-steps 1|n|auto]
 """
 
 from __future__ import annotations
@@ -41,7 +49,8 @@ from .data import Batcher, load_dataset
 from .kernels import eps_kernels as K
 from .kernels import eps_q8_kernels as Q8
 from .models import EPSesPlusLinear, EPSesPlusLinearConfig, fast_layer_plans, init_eps_plus_linear
-from .train import make_fast_train_step, make_gather_batch, make_optimizer
+from .train import make_fast_train_step, make_gather_batch, make_optimizer, resolve_auto_grad_accum
+from .train.step import REG_TYPES
 
 FLAGSHIP = ((4, 4), (3, 6))
 # the step bench.py times (bench.py:85-113): Adam 3e-3, epswise L2 1e-6
@@ -57,6 +66,7 @@ COUNTERS = (
     ("eps_dcore", K.eps_dcore, "launches"),
     ("eps_dcore_sum", K.eps_dcore, "sum_launches"),
     ("eps_dviews_t", K.eps_dviews_t, "launches"),
+    ("eps_dviews_recompute", K.eps_dviews_recompute, "launches"),
     ("eps_fwd_q8", Q8.eps_fwd_q8, "launches"),
     ("eps_fwd_q8_t", Q8.eps_fwd_q8, "t_launches"),
 )
@@ -81,9 +91,13 @@ def step_gflop(cfg: EPSesPlusLinearConfig, batch_size: int, in_channels: int = 1
     """GFLOP of the EPS contractions of one training step, from the shapes:
     per layer 2·Z·A·npix for the forward, the same for d_cmt, and the same
     again for d_views in every layer but the first (whose input needs no
-    gradient). The factor products, the classifier and the optimizer are
-    left out. The count is the same with ``qat="int8"``, whose forward
-    GEMMs are int8 operations."""
+    gradient). The count is algorithmic, as the JAX package's ``algo_flops``
+    (experiments/three_epses_benchmark.py): the t that a layer on the
+    recompute arm computes again in its backward (another 2·Z·A·npix) is
+    not counted, so the count does not depend on the batch's arms or on
+    gradient accumulation. The factor products, the classifier, the
+    regularizer and the optimizer are left out. The count is the same with
+    ``qat="int8"``, whose forward GEMMs are int8 operations."""
     total, h = 0.0, cfg.image_size
     for i, p in enumerate(fast_layer_plans(cfg, in_channels)):
         n_k, q_k, n1_k = K._kernel_dims(p["c"], p["q"], p["kernel_size"], p["n1"], p["merge_pairs"])
@@ -120,14 +134,16 @@ def _timed_steps(step, gather, idx, cuda: bool):
     return marks, time.perf_counter() - t0, [float(x) for x in losses]
 
 
-def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device, qat=None):
+def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device, qat=None,
+                 lr=LR, reg_type="epswise", reg_coeff=REG_COEFF, grad_accum_steps=1):
     """One path's JSON record: a fresh model from ``params`` and a fresh
     Adam, ``warmup`` untimed steps (the first builds and loads the kernels),
     one step for peak memory, then the timed steps."""
     cuda = device.type == "cuda"
     model = EPSesPlusLinear.from_reference(params, cfg, device=device)
-    opt = make_optimizer("adam", model.parameters(), LR)
-    step = make_fast_train_step(model, opt, "epswise", REG_COEFF, kernels=kernels)
+    opt = make_optimizer("adam", model.parameters(), lr)
+    step = make_fast_train_step(model, opt, reg_type, reg_coeff, kernels=kernels,
+                                grad_accum_steps=grad_accum_steps)
     gather = make_gather_batch(x, y)
     first = float(step(*gather(idx[0]))["loss"])
     for row in idx[1:warmup]:
@@ -150,7 +166,9 @@ def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device, qat=N
         "metric": "train_step", "path": name, "qat": qat,
         "device": torch.cuda.get_device_name(device) if cuda else "cpu",
         "timer": "cuda_events" if cuda else "host_clock",
-        "batch_size": int(idx.shape[1]), "timed_steps": len(timed),
+        "epses_specs": [list(s) for s in cfg.epses_specs], "batch_size": int(idx.shape[1]),
+        "grad_accum_steps": grad_accum_steps, "lr": lr, "reg_type": reg_type,
+        "reg_coeff": reg_coeff, "timed_steps": len(timed),
         "images_per_s": idx.shape[1] * len(timed) / window_s,
         "step_ms_p50": p50,
         "first_loss": first, "last_loss": losses[-1],
@@ -164,12 +182,17 @@ def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device, qat=N
 
 
 def run(*, device="cuda", steps=30, warmup=3, batch_size=128, compare_plain=False,
-        epses_specs=FLAGSHIP, synthetic_sizes=(8192, 2048, 2048), qat=None):
+        epses_specs=FLAGSHIP, synthetic_sizes=(8192, 2048, 2048), qat=None, lr=LR,
+        reg_type="epswise", reg_coeff=REG_COEFF, grad_accum_steps=1):
     """Benchmarks the training step (the int8 QAT step with
     ``qat="int8"``) on ``device``, printing and returning one record per
-    path (the kernel path, then the plain one with ``compare_plain``)."""
+    path (the kernel path, then the plain one with ``compare_plain``).
+    ``grad_accum_steps`` is a count or ``"auto"``, resolved for
+    ``batch_size`` by ``resolve_auto_grad_accum``."""
     if qat not in PATHS:
         raise click.UsageError(f"--qat {qat}: none or int8")
+    if reg_type not in REG_TYPES:
+        raise click.UsageError(f"--reg-type {reg_type}: one of {', '.join(REG_TYPES)}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise click.UsageError(f"--device {device}: no CUDA device is available")
@@ -182,6 +205,15 @@ def run(*, device="cuda", steps=30, warmup=3, batch_size=128, compare_plain=Fals
     train = splits.train
     channels, _, image_size, _, q0 = train.x.shape
     cfg = EPSesPlusLinearConfig(epses_specs=epses_specs, image_size=image_size, q0=q0)
+    if grad_accum_steps == "auto":
+        grad_accum_steps = resolve_auto_grad_accum(
+            cfg, fast_layer_plans(cfg, channels), batch_size
+        )
+    if not isinstance(grad_accum_steps, int) or grad_accum_steps < 1 or batch_size % grad_accum_steps:
+        raise click.UsageError(
+            f"--grad-accum-steps {grad_accum_steps}: a count that divides the batch size "
+            f"{batch_size}, or auto"
+        )
     params = init_eps_plus_linear(torch.Generator().manual_seed(SEED), cfg)
     batches = Batcher(train, batch_size, shuffle=True, drop_last=True, seed=SEED).indices_forever()
     order = np.stack([next(batches) for _ in range(warmup + 1 + steps)])
@@ -192,7 +224,8 @@ def run(*, device="cuda", steps=30, warmup=3, batch_size=128, compare_plain=Fals
     for name, kernels in PATHS[qat][: 2 if compare_plain else 1]:
         rec = measure_path(
             name=name, params=params, cfg=cfg, kernels=kernels, x=x, y=y, idx=idx,
-            warmup=warmup, device=device, qat=qat,
+            warmup=warmup, device=device, qat=qat, lr=lr, reg_type=reg_type,
+            reg_coeff=reg_coeff, grad_accum_steps=grad_accum_steps,
         )
         print(json.dumps(rec))
         records.append(rec)
@@ -209,10 +242,24 @@ def run(*, device="cuda", steps=30, warmup=3, batch_size=128, compare_plain=Fals
               help="torch device: cuda (the kernels) or cpu (their plain versions)")
 @click.option("--qat", type=click.Choice(("none", "int8")), default="none",
               help="int8: the quantization-aware step (int8 W8A8 forward, STE backward)")
-def main(steps, warmup, batch_size, epses_specs, compare_plain, device, qat):
+@click.option("--lr", type=float, default=LR, help="Adam's learning rate")
+@click.option("--reg-type", type=click.Choice(REG_TYPES), default="epswise")
+@click.option("--reg-coeff", type=float, default=REG_COEFF)
+@click.option("--grad-accum-steps", default="1",
+              help="microbatches per step: a count that divides the batch size, or auto")
+def main(steps, warmup, batch_size, epses_specs, compare_plain, device, qat, lr, reg_type,
+         reg_coeff, grad_accum_steps):
     run(device=device, steps=steps, warmup=warmup, batch_size=batch_size,
         compare_plain=compare_plain, epses_specs=epses_specs,
-        qat=None if qat == "none" else qat)
+        qat=None if qat == "none" else qat, lr=lr, reg_type=reg_type, reg_coeff=reg_coeff,
+        grad_accum_steps=grad_accum_steps if grad_accum_steps == "auto" else _count(grad_accum_steps))
+
+
+def _count(text: str) -> int:
+    try:
+        return int(text)
+    except ValueError:
+        raise click.UsageError(f"--grad-accum-steps {text}: a count or auto") from None
 
 
 if __name__ == "__main__":

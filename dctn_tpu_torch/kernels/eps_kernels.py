@@ -14,15 +14,18 @@ core in its matricized (Z, A) "cmt" layout, to three contractions:
   ``_bwd_fused_t_kernel_factory``, :303);
 - ``eps_dviews_t``: the factors' cotangents from the saved t
   (``csrc/eps_dviews_t.cu``, replacing the d_views half of
-  ``_bwd_fused_t_kernel_factory``).
+  ``_bwd_fused_t_kernel_factory``);
+- ``eps_dviews_recompute``: the same cotangents with t recomputed in the
+  kernel (the same source's recompute form, replacing the d_views half of
+  ``_bwd_fused_kernel_factory``, K4, :254, and ``_dviews_kernel_factory``
+  without t, K6, :391).
 
 On a CPU tensor each wrapper runs its plain PyTorch version (``*_reference``);
 on a CUDA tensor it launches its hand-written kernel or raises. There is no
-fallback. ``KERNELS`` and ``PLAIN`` bundle the three for the callers that
+fallback. ``KERNELS`` and ``PLAIN`` bundle the four for the callers that
 choose between them; ``eps_q8_kernels`` adds the int8 forward and its QAT
 bundles. ``EPSApplyTCmt`` is the layer's
-``torch.autograd.Function``; ``plan_backward`` picks its backward arm, whose
-recompute form (K4/K6) is not ported to CUDA yet.
+``torch.autograd.Function``; ``plan_backward`` picks its backward arm.
 
 Unlike the JAX host glue, the factor stack is not padded to a tile
 multiple: the kernels mask their ragged last pixel tile themselves. The TPU
@@ -149,8 +152,8 @@ def plan_backward(
     - ``"saved_t"``: n2 > 0, A = q_k^n1_k ≥ ``SAVE_T_MIN_A`` and t's float32
       footprint Z·npix·4 ≤ ``SAVE_T_MAX_BYTES``: the forward writes t, the
       backward runs ``eps_dcore`` and ``eps_dviews_t``;
-    - ``"recompute"``: anything else; its d_views (K4/K6) is not ported to
-      CUDA yet, only its plain version runs.
+    - ``"recompute"``: anything else (K4/K6): the forward writes no t, the
+      backward runs ``eps_dcore`` and ``eps_dviews_recompute``.
 
     The f32 and the int8 (QAT) forward take the same arm: the JAX
     package's ``qat_save_decision`` (eps_pallas_q8.py:228) is this rule.
@@ -262,20 +265,29 @@ def eps_dviews_recompute_reference(
 # the kernels' wrappers
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the C entries of each source, with their signatures: pointers and the
+# stream as c_void_p
+_ENTRIES = {
+    "eps_fwd": {"dctn_eps_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]},
+    "eps_dcore": {"dctn_eps_dcore": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P]},
+    "eps_dviews_t": {
+        "dctn_eps_dviews_t": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
+        "dctn_eps_dviews_recompute": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
+    },
+    "eps_fwd_q8": {"dctn_eps_fwd_q8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]},
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/<name>.cu``, with its C entry's
-    signature: pointers and the stream as ``c_void_p``."""
+    """Build (at first use) and load ``csrc/<name>.cu``, with its C
+    entries' signatures."""
     lib = build.load_library(name)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    entry = getattr(lib, f"dctn_{name}")
-    entry.argtypes = {
-        "eps_fwd": [p, p, p, p, i, i, i, i, ll, p],
-        "eps_dcore": [p, p, p, p, i, i, i, i, ll, i, p],
-        "eps_dviews_t": [p, p, p, p, p, i, i, i, i, ll, p],
-        "eps_fwd_q8": [p, p, p, p, p, p, i, i, i, i, ll, p],
-    }[name]
-    entry.restype = ctypes.c_int
+    for entry, argtypes in _ENTRIES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -430,7 +442,10 @@ def _dviews_t_smem_bytes(n: int, q: int, n1: int, out_size: int) -> int:
     return 4 * (64 * (2 * n * q + rows_v + out_size) + 32 * 64 + 64 * 64) + 4 * n1 * 64
 
 
-def _check_dviews_t_args(views_t, cmt, g, t, n1, out_size):
+def _check_dviews_args(name, views_t, cmt, g, t, n1, out_size):
+    """The arguments of ``eps_dviews_t`` (with its saved ``t``) or of
+    ``eps_dviews_recompute`` (``t`` None): both forms of the kernel take the
+    same shapes and shared memory."""
     n, q, npix = views_t.shape
     shape = (
         f"views {tuple(views_t.shape)}, cmt {tuple(cmt.shape)}, g {tuple(g.shape)}, "
@@ -439,17 +454,15 @@ def _check_dviews_t_args(views_t, cmt, g, t, n1, out_size):
     tensors = {"views": views_t, "cmt": cmt, "g": g}
     if t is not None:
         tensors["t"] = t
-    _check_tensors("eps_dviews_t", shape, views_t.device, **tensors)
-    _check_split("eps_dviews_t", shape, n, q, n1)
+    _check_tensors(name, shape, views_t.device, **tensors)
+    _check_split(name, shape, n, q, n1)
     z = out_size * q ** (n - n1)
     if tuple(cmt.shape) != (z, q**n1) or tuple(g.shape) != (out_size, npix):
-        raise ValueError(f"eps_dviews_t: cmt is not (O·q^(n-n1), q^n1) or g not (O, npix) ({shape})")
-    if (t is None) != (n1 == n) or (t is not None and tuple(t.shape) != (z, npix)):
-        raise ValueError(f"eps_dviews_t: t must be (Z, npix) when n2 > 0, None when n2 = 0 ({shape})")
+        raise ValueError(f"{name}: cmt is not (O·q^(n-n1), q^n1) or g not (O, npix) ({shape})")
     smem = _dviews_t_smem_bytes(n, q, n1, out_size)
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(
-            f"eps_dviews_t kernel limits exceeded ({shape}): needs {smem} B of "
+            f"{name} kernel limits exceeded ({shape}): needs {smem} B of "
             f"shared memory > {_MAX_SMEM_BYTES}"
         )
 
@@ -465,8 +478,13 @@ def eps_dviews_t(
     if views_t.device.type == "cpu":
         return eps_dviews_t_reference(views_t, cmt, g, t, n1, out_size)
     _check_device("eps_dviews_t", views_t)
-    _check_dviews_t_args(views_t, cmt, g, t, n1, out_size)
+    _check_dviews_args("eps_dviews_t", views_t, cmt, g, t, n1, out_size)
     n, q, npix = views_t.shape
+    if (t is None) != (n1 == n) or (t is not None and tuple(t.shape) != (cmt.shape[0], npix)):
+        raise ValueError(
+            f"eps_dviews_t: t must be (Z, npix) when n2 > 0, None when n2 = 0 "
+            f"(t {None if t is None else tuple(t.shape)}, cmt {tuple(cmt.shape)}, n1={n1})"
+        )
     dev = views_t.device
     dviews = torch.empty((n, q, npix), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -486,30 +504,48 @@ eps_dviews_t.launches = 0
 def eps_dviews_recompute(
     views_t: torch.Tensor, cmt: torch.Tensor, g: torch.Tensor, n1: int, out_size: int
 ) -> torch.Tensor:
-    """The recompute arm's d_views: ``eps_dviews_recompute_reference`` on CPU
-    tensors. Its kernels are not ported to CUDA yet."""
+    """The recompute arm's d_views: the (n, q, npix) cotangent of the
+    factor stack from the (Z, A) cmt and the (O, npix) output cotangent,
+    with t recomputed in the kernel and never written. CPU tensors run
+    ``eps_dviews_recompute_reference``; CUDA tensors run the kernel, and
+    ``eps_dviews_recompute.launches`` counts its launches."""
     if views_t.device.type == "cpu":
         return eps_dviews_recompute_reference(views_t, cmt, g, n1, out_size)
-    raise NotImplementedError(
-        "the recompute backward's d_views (K4 _bwd_fused_kernel_factory, "
-        "eps_pallas.py:254, and K6 _dviews_kernel_factory without t, :391) is "
-        f"not ported to CUDA yet (views {tuple(views_t.shape)}, n1={n1}, "
-        f"O={out_size}); on CUDA only the saved-t arm computes d_views"
-    )
+    _check_device("eps_dviews_recompute", views_t)
+    _check_dviews_args("eps_dviews_recompute", views_t, cmt, g, None, n1, out_size)
+    n, q, npix = views_t.shape
+    dev = views_t.device
+    dviews = torch.empty((n, q, npix), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _library("eps_dviews_t").dctn_eps_dviews_recompute(
+            views_t.data_ptr(), cmt.data_ptr(), g.data_ptr(), dviews.data_ptr(),
+            n, q, n1, out_size, npix, _stream(dev),
+        )
+    _raise_on_error("eps_dviews_recompute", err)
+    eps_dviews_recompute.launches += 1
+    return dviews
+
+
+eps_dviews_recompute.launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class EPSKernels:
     """The contractions of one EPS layer's forward and backward, with the
-    signatures of ``eps_fwd``, ``eps_dcore`` and ``eps_dviews_t``."""
+    signatures of ``eps_fwd``, ``eps_dcore``, ``eps_dviews_t`` and
+    ``eps_dviews_recompute``."""
 
     fwd: Callable
     dcore: Callable
     dviews_t: Callable
+    dviews_recompute: Callable
 
 
-KERNELS = EPSKernels(eps_fwd, eps_dcore, eps_dviews_t)
-PLAIN = EPSKernels(eps_fwd_reference, eps_dcore_reference, eps_dviews_t_reference)
+KERNELS = EPSKernels(eps_fwd, eps_dcore, eps_dviews_t, eps_dviews_recompute)
+PLAIN = EPSKernels(
+    eps_fwd_reference, eps_dcore_reference, eps_dviews_t_reference,
+    eps_dviews_recompute_reference,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -524,7 +560,7 @@ class EPSApplyTCmt(torch.autograd.Function):
     The forward writes t when ``save_t``; the backward computes d_cmt with
     ``dcore`` when cmt needs a gradient, and the views' cotangent when they
     need one: from t with ``dviews_t``, or, without a saved t, with
-    ``eps_dviews_recompute`` (plain on the CPU, not ported to CUDA)."""
+    ``dviews_recompute``."""
 
     @staticmethod
     def forward(ctx, views_t, cmt, n1: int, out_size: int, save_t: bool, kernels: EPSKernels):
@@ -546,7 +582,7 @@ class EPSApplyTCmt(torch.autograd.Function):
             d_cmt = k.dcore(views_t, g, n1, o)
         if ctx.needs_input_grad[0]:
             if t is None:
-                d_views = eps_dviews_recompute(views_t, cmt, g, n1, o)
+                d_views = k.dviews_recompute(views_t, cmt, g, n1, o)
             else:
                 d_views = k.dviews_t(views_t, cmt, g, t, n1, o)
         return d_views, d_cmt, None, None, None, None

@@ -28,7 +28,9 @@ on the CPU than an int32 matmul).
 QAT: ``QAT_KERNELS`` and ``QAT_PLAIN`` are ``EPSKernels`` bundles whose
 forward quantizes the live f32 cmt and runs the int8 forward; their backward
 is the f32 one (``eps_dcore``, ``eps_dviews_t``) on the f32 cmt, fed the
-dequantized t when one was saved, so ``EPSApplyTCmt`` gives the
+dequantized t when one was saved, or recomputing t in f32 from the f32 cmt
+when none was (``eps_dviews_recompute``, as the JAX STE backward does,
+eps_pallas_q8.py:262-268), so ``EPSApplyTCmt`` gives the
 straight-through backward unchanged, and ``plan_backward`` picks each
 layer's arm as it does for the f32 forward (the JAX package's
 ``qat_save_decision`` is the same rule).
@@ -53,6 +55,8 @@ from .eps_kernels import (
     _suffix_chain,
     eps_dcore,
     eps_dcore_reference,
+    eps_dviews_recompute,
+    eps_dviews_recompute_reference,
     eps_dviews_t,
     eps_dviews_t_reference,
 )
@@ -250,8 +254,11 @@ def _quantized_fwd(q8_fwd):
     return fwd
 
 
-QAT_KERNELS = EPSKernels(_quantized_fwd(eps_fwd_q8), eps_dcore, eps_dviews_t)
+QAT_KERNELS = EPSKernels(
+    _quantized_fwd(eps_fwd_q8), eps_dcore, eps_dviews_t, eps_dviews_recompute
+)
 QAT_PLAIN = EPSKernels(
-    _quantized_fwd(eps_fwd_q8_reference), eps_dcore_reference, eps_dviews_t_reference
+    _quantized_fwd(eps_fwd_q8_reference), eps_dcore_reference, eps_dviews_t_reference,
+    eps_dviews_recompute_reference,
 )
 

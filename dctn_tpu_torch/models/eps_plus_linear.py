@@ -1,6 +1,7 @@
 """EPSesPlusLinear — N EPS layers followed by a linear classifier (port of
 ``dctn_tpu/models/eps_plus_linear.py``: the forward for serving and
-training, and the fast epswise regularizer).
+training, the epswise and composition regularizers, and which layers the
+saved-t cap holds back at a batch size).
 
 Parameters come in two layouts, as in the JAX package:
 
@@ -14,9 +15,8 @@ device; its parameters require gradients, and serving runs it under
 ``torch.inference_mode``; with ``eps_q8_kernels.QAT_KERNELS`` it is the
 quantization-aware training forward. ``EPSesPlusLinearQ8`` holds the int8
 serving parameters (``forward_fast_q8``). Only the
-"unit_theoretical_output_std" init and the epswise regularizer are ported;
-the other two inits, parameter dropout and the composition regularizer come
-with a later slice.
+"unit_theoretical_output_std" init is ported; the other two inits and
+parameter dropout come with a later slice.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from ..kernels.eps_kernels import (
     _core_to_cmt_k,
     _kernel_dims,
     eps_apply_t_cmt,
+    plan_backward,
     plan_call,
 )
 from ..kernels.eps_q8_kernels import eps_apply_t_q8, eps_fwd_q8, quantize_reference_params
@@ -157,6 +158,25 @@ def _plan_dims(p):
     return _kernel_dims(p["c"], p["q"], p["kernel_size"], p["n1"], p["merge_pairs"])
 
 
+def saved_t_capped_layers(cfg: EPSesPlusLinearConfig, plans, microbatch: int):
+    """Indices of the EPS layers whose saved-t backward is held back only
+    by the cap on t's size (``plan_backward``'s ``SAVE_T_MAX_BYTES``) at
+    this microbatch: they would save t at a smaller one
+    (eps_plus_linear.py:364-383, on the port's rule, whose t is float32;
+    the JAX package counts t in its matmul dtype, bf16 on the TPU). Layer 0
+    never saves t. Non-empty means gradient accumulation would bring the
+    saved-t backward back (the large-batch recipe, docs/performance.md)."""
+    h = cfg.image_size
+    capped = []
+    for i, p in enumerate(plans):
+        h = h - p["kernel_size"] + 1
+        n_k, q_k, n1_k = _plan_dims(p)
+        arm = plan_backward(i, n_k, n1_k, q_k, p["out_size"], microbatch * h * h)
+        if arm == "recompute" and plan_backward(i, n_k, n1_k, q_k, p["out_size"], 1) == "saved_t":
+            capped.append(i)
+    return capped
+
+
 def fast_params_from_reference(params: Params, cfg: EPSesPlusLinearConfig):
     """Reference parameters → (fast parameters, plans): each core matricized
     to the kernel's (Z, A) layout."""
@@ -220,6 +240,23 @@ def forward_fast_q8(
         )
         xT = outT[None]
     return _transposed_classifier(outT, qparams["linear"])
+
+
+def epses_composition_l2_regularizer(params: Params) -> torch.Tensor:
+    """Σ w² + ‖e_1 ∘ … ∘ e_L‖², the composition L2 on the reference layout
+    (eps_plus_linear.py:516-519)."""
+    return torch.sum(params["linear"]["w"] ** 2) + composition.inner_product(
+        params["epses"], params["epses"]
+    )
+
+
+def epses_composition_l2_regularizer_fast(fast, plans) -> torch.Tensor:
+    """The same on the fast layout, through ``composition.inner_product_cmt``
+    (the ``epses_composition`` branch of ``make_fast_reg_fn``,
+    train/step.py:32-50): no N-D core is formed."""
+    return torch.sum(fast["linear"]["w"] ** 2) + composition.inner_product_cmt(
+        fast["epses_cmt"], plans
+    )
 
 
 def epswise_l2_regularizer_fast(fast) -> torch.Tensor:

@@ -106,6 +106,52 @@ def eps(core: torch.Tensor, x: torch.Tensor, split: Optional[int] = None) -> tor
     return torch.sum(v[..., :, None] * t, dim=-2)
 
 
+# ---------------------------------------------------------------------------
+# EPS algebra (the composition inner product and its regularizer)
+
+
+def contract_on_input_dims(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Matricized AᵀB over the shared input dims: (O_a, O_b) (eps.py:394-397)."""
+    return a.reshape(-1, a.shape[-1]).T @ b.reshape(-1, b.shape[-1])
+
+
+def inner_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Flattened dot product of two equal-shape EPS cores (eps.py:400-403)."""
+    if a.shape != b.shape:
+        raise ValueError(f"inner_product of cores shaped {tuple(a.shape)} and {tuple(b.shape)}")
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def kron_power(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k-fold Kronecker power of a matrix, row-major index pairing:
+    result[(i₁…i_k), (j₁…j_k)] = ∏ x[i_m, j_m] (eps.py:406-416)."""
+    s, t = x.shape
+    out = torch.ones((1, 1), dtype=x.dtype, device=x.device)
+    for _ in range(k):
+        out = (out[:, None, :, None] * x[None, :, None, :]).reshape(
+            out.shape[0] * s, out.shape[1] * t
+        )
+    return out
+
+
+def absorb_on_input_dims(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Contract the matrix ``x`` (old_in, new_in) into every input dim of
+    the EPS core ``b``: result[j₁…jₙ, o] = Σ_{i₁…iₙ} b[i₁…iₙ, o] ∏ₖ x[iₖ, jₖ]
+    (eps.py:419-451): the input dims in two halves, each half's Kronecker
+    power of ``x`` applied as one matrix product, as the JAX package does."""
+    n = b.ndim - 1
+    s, t = x.shape
+    o = b.shape[-1]
+    n1 = (n + 1) // 2
+    n2 = n - n1
+    step1 = kron_power(x, n1).T @ b.reshape(s**n1, s**n2 * o)  # (t^n1, s^n2·o)
+    if n2 == 0:
+        return step1.reshape((t,) * n + (o,))
+    step1 = step1.reshape(t**n1, s**n2, o)
+    out = torch.einsum("abo,bc->aco", step1, kron_power(x, n2))
+    return out.reshape((t,) * n + (o,))
+
+
 def make_eps_unit_theoretical_output_std(
     generator: torch.Generator,
     kernel_size: int,

@@ -164,6 +164,69 @@ def test_dviews_t_with_zero_factors(cuda_device):
     _assert_close(got, K.eps_dviews_t_reference(views, cmt, g, t, 5, 6))
 
 
+_RECOMPUTE_SHAPES = [
+    (9, 4, 5, 6, 128 * 529),  # flagship layer 1 at batch 128, forced onto the arm
+    (9, 4, 5, 12, 128 * 529),  # the deep model's layer 1 at batch 128: Z = 3072
+    (4, 6, 3, 12, 128 * 625),  # three-EPS layer 2: A = 216, not a chunk multiple
+    (4, 4, 3, 6, 2 * 676),  # three-EPS layer 1: A = 64, B2 = 4
+    (4, 12, 3, 24, 2 * 484),  # the deep model's layer 2: q = 12, Z = 288
+    (4, 3, 4, 5, 1000),  # n2 = 0: no t to recompute
+    (6, 2, 3, 3, 777),  # ragged last pixel tile
+    (3, 5, 1, 2, 130),  # B2 = 25, Z = 50: a ragged Z chunk
+    (9, 2, 2, 2, 300),  # B2 = 128: two Z chunks per channel
+    (5, 3, 2, 7, 900),  # B2 = 27: a channel split across Z chunks
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,n1,o,npix", _RECOMPUTE_SHAPES)
+def test_dviews_recompute_matches_plain(cuda_device, n, q, n1, o, npix):
+    views, cmt, g = _inputs(cuda_device, n, q, n1, o, npix)
+    before = K.eps_dviews_recompute.launches
+    got = K.eps_dviews_recompute(views, cmt, g, n1, o)
+    torch.cuda.synchronize()
+    assert K.eps_dviews_recompute.launches == before + 1
+    _assert_close(got, K.eps_dviews_recompute_reference(views, cmt, g, n1, o))
+
+
+@pytest.mark.cuda
+def test_dviews_recompute_with_zero_factors(cuda_device):
+    views, cmt, g = _inputs(cuda_device, 9, 4, 5, 6, 700)
+    views[:, 0, ::3] = 0.0
+    views[2, :, ::5] = 0.0
+    views[7, :, 1::4] = 0.0  # a v factor: t stays, d_v's chain sees zeros
+    got = K.eps_dviews_recompute(views, cmt, g, 5, 6)
+    _assert_close(got, K.eps_dviews_recompute_reference(views, cmt, g, 5, 6))
+
+
+@pytest.mark.cuda
+def test_dviews_recompute_is_the_same_from_run_to_run(cuda_device):
+    views, cmt, g = _inputs(cuda_device, 9, 4, 5, 12, 20_000)
+    torch.testing.assert_close(
+        K.eps_dviews_recompute(views, cmt, g, 5, 12),
+        K.eps_dviews_recompute(views, cmt, g, 5, 12), rtol=0, atol=0,
+    )
+
+
+@pytest.mark.cuda
+def test_recompute_arm_runs_the_bundles_member(cuda_device):
+    """A layer on the recompute arm (A = 64) takes its d_views from the
+    bundle's recompute member: the kernel on KERNELS, the plain version on
+    PLAIN, which runs on the card too; both agree."""
+    xT = torch.rand((1, 4, 9, 9, 3), device=cuda_device, requires_grad=True)
+    cmt = (torch.randn((6 * 4, 64), device=cuda_device) * 0.125).requires_grad_(True)
+    grads = []
+    for kernels in (K.KERNELS, K.PLAIN):
+        before = (K.eps_dviews_recompute.launches, K.eps_fwd.t_launches)
+        out = K.eps_apply_t_cmt(cmt, xT, 6, 2, 3, False, layer_index=1, kernels=kernels)
+        grads.append(torch.autograd.grad(torch.sum(out * torch.cos(out)), (xT, cmt)))
+        launched = K.eps_dviews_recompute.launches - before[0]
+        assert launched == (1 if kernels is K.KERNELS else 0)
+        assert K.eps_fwd.t_launches == before[1]
+    for a, b in zip(*grads):
+        _assert_close(a, b)
+
+
 @pytest.mark.cuda
 def test_kernels_and_plain_versions_hold_to_a_float64_oracle(cuda_device):
     n, q, n1, o, npix = 6, 3, 3, 4, 2000
@@ -177,6 +240,9 @@ def test_kernels_and_plain_versions_hold_to_a_float64_oracle(cuda_device):
          K.eps_dcore_reference(v64, g64, n1, o)),
         (K.eps_dviews_t(views, cmt, g, t, n1, o), K.eps_dviews_t_reference(views, cmt, g, t, n1, o),
          K.eps_dviews_t_reference(v64, c64, g64, t64, n1, o)),
+        (K.eps_dviews_recompute(views, cmt, g, n1, o),
+         K.eps_dviews_recompute_reference(views, cmt, g, n1, o),
+         K.eps_dviews_recompute_reference(v64, c64, g64, n1, o)),
     ]
     for got, plain, oracle in cases:
         _assert_close(got.double().cpu(), oracle)
@@ -225,7 +291,7 @@ def test_backward_kernels_refuse_shapes_outside_their_limits(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         K.eps_dviews_t(v, c, torch.zeros((1, 64), device=cuda_device),
                        torch.zeros((2**11, 64), device=cuda_device), 1, 1)
-    with pytest.raises(NotImplementedError, match="K4"):
+    with pytest.raises(ValueError, match="eps_dviews_recompute kernel limits exceeded"):
         K.eps_dviews_recompute(v, c, torch.zeros((1, 64), device=cuda_device), 1, 1)
 
 
@@ -328,6 +394,23 @@ def test_qat_layer_gradients_match_the_plain_path(cuda_device):
          for k in (Q8.QAT_KERNELS, Q8.QAT_PLAIN)]
     _assert_close(*d)
     assert Q8.eps_fwd_q8.t_launches == before
+
+
+@pytest.mark.cuda
+def test_qat_recompute_arm_matches_the_plain_path(cuda_device):
+    """The QAT bundles on a layer without a saved t (A = 216): the int8
+    forward, then d_views recomputed in f32 from the f32 cmt, kernel
+    against plain."""
+    xT = torch.rand((1, 6, 9, 9, 3), device=cuda_device, requires_grad=True)
+    cmt = (torch.randn((12 * 6, 216), device=cuda_device) * 6**-2).requires_grad_(True)
+    res = []
+    for kernels in (Q8.QAT_KERNELS, Q8.QAT_PLAIN):
+        before = K.eps_dviews_recompute.launches
+        out = K.eps_apply_t_cmt(cmt, xT, 12, 2, 3, False, layer_index=1, kernels=kernels)
+        res.append((out, *torch.autograd.grad(torch.sum(out * torch.cos(out)), (xT, cmt))))
+        assert K.eps_dviews_recompute.launches - before == (1 if kernels is Q8.QAT_KERNELS else 0)
+    for a, b in zip(*res):
+        _assert_close(a, b)
 
 
 @pytest.mark.cuda

@@ -375,7 +375,8 @@ def test_qat_layer_value_and_grads_match_jax_vjp(layer, saves):
         calls.append(args[3] is not None)
         return K.eps_dviews_t_reference(*args)
 
-    kernels = K.EPSKernels(Q8.QAT_PLAIN.fwd, Q8.QAT_PLAIN.dcore, spy_dviews_t)
+    kernels = K.EPSKernels(Q8.QAT_PLAIN.fwd, Q8.QAT_PLAIN.dcore, spy_dviews_t,
+                           Q8.QAT_PLAIN.dviews_recompute)
     cmt_t = torch.tensor(cmt, requires_grad=True)
     xT_t = torch.tensor(xT, requires_grad=True)
     out = K.eps_apply_t_cmt(cmt_t, xT_t, o, k, n1, merge, layer_index=layer, kernels=kernels)
@@ -473,7 +474,8 @@ def test_qat_step_runs_the_int8_forward_and_the_f32_backward():
 
     model = EPSesPlusLinear.from_reference(params_from_numpy(np_params), cfg)
     step = make_fast_train_step(model, make_optimizer("sgd", model.parameters(), 0.0), "epswise",
-                                0.0, kernels=K.EPSKernels(fwd, dcore, dviews_t))
+                                0.0, kernels=K.EPSKernels(fwd, dcore, dviews_t,
+                                                          K.eps_dviews_recompute_reference))
     x = np.random.default_rng(1).uniform(size=(1, 4, 8, 8, 2)).astype(np.float32)
     m = step(torch.tensor(x), torch.tensor([0, 1, 2, 3]))
     assert np.isfinite(float(m["loss"]))
@@ -503,7 +505,7 @@ def test_bench_qat_runs_on_cpu_and_reports_its_fields(capsys):
         assert r["f32_peak_share"] is None
         assert set(r["launches_per_step"]) == {
             "eps_fwd", "eps_fwd_t", "eps_dcore", "eps_dcore_sum", "eps_dviews_t",
-            "eps_fwd_q8", "eps_fwd_q8_t",
+            "eps_dviews_recompute", "eps_fwd_q8", "eps_fwd_q8_t",
         }
     assert recs[0]["first_loss"] == pytest.approx(recs[1]["first_loss"], rel=1e-6)
     assert len(capsys.readouterr().out.strip().splitlines()) == 2

@@ -182,7 +182,11 @@ def _spy_kernels(calls):
         calls.append(("dviews_t",))
         return K.eps_dviews_t_reference(*args)
 
-    return K.EPSKernels(fwd, dcore, dviews_t)
+    def dviews_recompute(*args):
+        calls.append(("dviews_recompute",))
+        return K.eps_dviews_recompute_reference(*args)
+
+    return K.EPSKernels(fwd, dcore, dviews_t, dviews_recompute)
 
 
 def test_training_saves_t_and_serving_does_not():
@@ -210,15 +214,15 @@ def test_training_saves_t_and_serving_does_not():
 
 def test_layer_recompute_arm_runs_plain_on_cpu():
     """A later layer below the saved-t threshold (A = 16) takes the
-    recompute arm: no t, and on the CPU the plain recompute gives the views'
-    gradient."""
+    recompute arm: no t, and the bundle's recompute member (here the plain
+    version) gives the views' gradient."""
     calls = []
     xT = torch.rand((1, 4, 5, 5, 2), dtype=torch.float64, requires_grad=True)
     cmt = torch.randn((2 * 4**7, 4**2), dtype=torch.float64, requires_grad=True)
     assert K.plan_backward(1, 9, 2, 4, 2, 18) == "recompute"
     out = K.eps_apply_t_cmt(cmt, xT, 2, 3, 2, False, layer_index=1, kernels=_spy_kernels(calls))
     got = torch.autograd.grad(out.sum(), xT)[0]
-    assert calls == [("fwd", False), ("dcore",)]
+    assert calls == [("fwd", False), ("dcore",), ("dviews_recompute",)]
     views, _ = K._stack_views_from_xT(xT, 3, False)
     want = torch.autograd.grad(K.eps_fwd_reference(views, cmt, 2, 2).sum(), xT)[0]
     torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
@@ -330,17 +334,23 @@ def test_step_leaves_the_callers_tensors_alone():
 @pytest.mark.parametrize(
     "kwargs,match",
     [
-        ({"reg_type": "epses_composition"}, "slice 3"),
-        ({"frozen_eps_indices": (0,)}, "slice 3"),
-        ({"with_probs": True}, "slice 3"),
-        ({"grad_accum_steps": 2}, "slice 3"),
+        ({"grad_accum_steps": 0}, "at least 1"),
+        ({"frozen_eps_indices": (0,)}, "rest of the EPS family"),
+        ({"with_probs": True}, "rest of the EPS family"),
+        ({"dropout_p": 0.5}, "parameter dropout .* rest of the EPS family"),
         ({"qat": "int4"}, "unsupported qat"),
         ({"reg_type": "nosuchreg"}, "unknown reg_type"),
     ],
 )
 def test_step_refuses_unported_options(kwargs, match):
-    _, _, np_params, cfg, _, _ = _setup(specs=((3, 3), (2, 4)))
+    """What the port does not run yet is refused with a message that says
+    when it comes (accumulation that does not divide the batch is refused
+    at the step: tests/test_torch_port_recompute.py)."""
+    specs = ((3, 3), (2, 4))
+    _, _, np_params, cfg, _, _ = _setup(specs=specs)
     model = EPSesPlusLinear.from_reference(params_from_numpy(np_params), cfg)
+    if "dropout_p" in kwargs:
+        model.cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=8, dropout_p=kwargs.pop("dropout_p"))
     opt = make_optimizer("adam", model.parameters(), 1e-3)
     with pytest.raises(ValueError, match=match):
         make_fast_train_step(model, opt, **kwargs)
@@ -395,7 +405,7 @@ def test_bench_runs_on_cpu_and_reports_its_fields(capsys):
         assert r["f32_peak_share"] is None and r["peak_extra_mib"] is None
         assert set(r["launches_per_step"]) == {
             "eps_fwd", "eps_fwd_t", "eps_dcore", "eps_dcore_sum", "eps_dviews_t",
-            "eps_fwd_q8", "eps_fwd_q8_t",
+            "eps_dviews_recompute", "eps_fwd_q8", "eps_fwd_q8_t",
         }
         assert r["step_gflop"] > 0
     # both paths start from the same parameters and batch
