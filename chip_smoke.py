@@ -6,9 +6,10 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
-   versions, and builds every kernel of the serving, int8 serving, training
-   and QAT paths from ``dctn_tpu_torch/csrc`` (one ``nvcc`` per source, all
-   at once), printing each build time and the compiler's register report.
+   versions, and builds every kernel of the serving, int8 serving, training,
+   QAT and legacy ConvSBS paths from ``dctn_tpu_torch/csrc`` (one ``nvcc``
+   per source, all at once), printing each build time and the compiler's
+   register report.
 2. Holds each kernel against its plain PyTorch version at the layer shapes
    of the flagship, the three-EPS ``(2,4),(2,6),(2,12)`` and the deep
    ``(4,4),(3,12),(2,24)`` models at batch 128 and at small shapes (every
@@ -45,13 +46,36 @@ Run from the root of a checkout, with no arguments:
    the recompute arm) and 4 (what ``"auto"`` resolves to: every later layer
    saves t), launches per step against the arms, and one step's gradients
    at 1 against those at 4 for the weights of two seeds.
-5. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
+   Then the ConvSBS kernels (phase 2b, before phase 3): the forward and
+   the backward (d_views both ways) of the meet-in-the-middle fold (K10,
+   K11) and of the sequential fold (K12) against their plain versions at
+   both layer shapes of the legacy 2-layer bond-4 model, open strings and
+   rings, batch 100 and 512, and every merge position at one shape, with
+   kernel, plain and bound times (no single library call folds a tensor
+   train: the library column is null).
+6. Drives the legacy ConvSBS family: ``dctn_tpu_torch.cli.legacy_runner.run``
+   on synthetic data (2 layers, bond 4, batch 100, 2 epochs; SGD and RMSprop
+   with momentum; open strings and ``--trace-edge`` rings), checking its
+   launches (per step three forwards, three backwards of which layer 1's
+   writes d_views, three d_core sums) and its best checkpoint; one step's
+   gradients (cores and pixels) on the kernels against the plain path at
+   batch 100, and 3 SGD steps at batch 4 against the float64 CPU step.
+7. ``dctn_tpu_torch.bench.run_conv_sbs``, the step of
+   experiments/conv_sbs_benchmark.py, at batch 100 and 512, open and ring,
+   on the kernels and the plain path: launches per step and over the run,
+   finite losses. Then the sequential fold's path (K12): the model's layers
+   with every string through ``kernels.sbs_kernels.conv_sbs_t(mim=False)``,
+   SGD steps at batch 100 on the runner's recipe, open and ring: launches per step, one step's
+   gradients against the plain path's, the logits against the model's own
+   (meet-in-the-middle) forward.
+8. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
    of the serving forward (f32 and int8) at batch 1 and 128 and of the
    flagship training step (f32 and QAT) at batch 128, on the kernel and on
    the plain path, and of the deep model's step at batch 2048 (accumulation
-   1 and 4) on the kernels, with the device's busy share and extra memory;
-   the full profiler tables go to DIR.
-6. Prints one JSON line describing the kernels, then the result line.
+   1 and 4) on the kernels, and of the ConvSBS step at batch 100 (open, ring)
+   and 512 (open) on the kernel and the plain path, with the device's busy
+   share and extra memory; the full profiler tables go to DIR.
+9. Prints one JSON line describing the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before a path is driven and
 read just after it.
@@ -169,7 +193,56 @@ KERNELS = {
         "replaces": "dctn_tpu/pallas/eps_pallas.py:254",
     },
 }
-SOURCES = ("eps_fwd", "eps_dcore", "eps_dviews_t", "eps_fwd_q8")
+# the legacy ConvSBS family: the 2-layer bond-4 model of
+# experiments/conv_sbs_benchmark.py, whose six strings all fold
+# meet-in-the-middle at core 4 (_mim_cut); the sequential fold (K12) is
+# conv_sbs_t(mim=False) on the same strings
+SBS_LAYERS = 2
+SBS_BOND = 4
+SBS_BATCHES = (100, 512)
+SBS_MCUT = 4
+SBS_KERNELS = {
+    "sbs_fwd_mim": {
+        "route": "cuda", "source": "dctn_tpu_torch/csrc/sbs_fwd.cu",
+        "replaces": "dctn_tpu/pallas/sbs_pallas.py:430",
+    },
+    "sbs_fwd_seq": {
+        "route": "cuda", "source": "dctn_tpu_torch/csrc/sbs_fwd.cu",
+        "replaces": "dctn_tpu/pallas/sbs_pallas.py:256",
+    },
+    "sbs_bwd_mim": {
+        "route": "cuda", "source": "dctn_tpu_torch/csrc/sbs_bwd.cu",
+        "replaces": "dctn_tpu/pallas/sbs_pallas.py:471",
+    },
+    "sbs_bwd_seq": {
+        "route": "cuda", "source": "dctn_tpu_torch/csrc/sbs_bwd.cu",
+        "replaces": "dctn_tpu/pallas/sbs_pallas.py:281",
+    },
+}
+KERNELS = {**KERNELS, **SBS_KERNELS}
+# ConvSBS kernel against plain: both float32, the sums in other orders (per
+# pixel over ≤ 160 bond and output terms, through 9 fold steps; in d_cores
+# over up to 346,112 pixels). The largest max|Δ|/max|ref| read on an H100
+# (PERF.md §6): 3.51e-7 forward, 3.105e-6 backward (a d_core of layer
+# 1's ring at batch 512, sequential fold), so 1e-5, 3.2 times the largest
+SBS_TOL = 1e-5
+# one step's gradients, kernel path against plain path (the d_cores of the
+# three strings and the pixels' gradient through layer 0's d_views): largest
+# reading 3.04e-6 (open) and 2.55e-6 (ring), so 1e-5
+SBS_GRAD_TOL = 1e-5
+# 3 SGD steps (momentum 0.9, lr 1e-2) of the float32 kernel path against
+# the float64 plain step on the CPU at batch 4, the runner's recipe
+# (sin²/cos², window-std multiplier, layers scaled to unit std): losses and
+# every core within this share of the float64 value (of max|p| for a core).
+# float32 rounds each state to ~6e-8; the losses read on an H100 agree to
+# 1e-7 (PERF.md §6), and plain SGD carries no step-size amplification (unlike
+# Adam's 1/√v), so 1e-4 leaves room for the 9-step folds' cancellations
+SBS_TRAJ_LR = 1e-2
+SBS_TRAJ_RTOL = 1e-4
+# the runner phase: synthetic train/val sizes and epochs at batch 100
+SBS_RUN_SIZES = (1000, 200)
+SBS_RUN_EPOCHS = 2
+SOURCES = ("eps_fwd", "eps_dcore", "eps_dviews_t", "eps_fwd_q8", "sbs_fwd", "sbs_bwd")
 
 
 def check(ok: bool, what: str) -> None:
@@ -280,7 +353,7 @@ def kernel_vs_plain(K, Q8, dev):
                                  "deep layer 1"),
     }
     res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0, "flops": 0.0, "int8_ops": 0.0, "bytes": 0.0} for k in KERNELS}
+               "bound_ms": 0.0, "flops": 0.0, "int8_ops": 0.0, "bytes": 0.0} for k in runs}
     g_ = torch.Generator(device=dev).manual_seed(SEED)
     for label, n, q, n1, o, npix in kernel_shapes():
         views = torch.rand((n, q, npix), generator=g_, device=dev)
@@ -621,6 +694,411 @@ def profile_training(params, cfg, x, y, dev, out_dir: str, qat=None, paths=None,
         }))
 
 
+# ---------------------------------------------------------------------------
+# the legacy ConvSBS family (phases 2b, 6 and 7)
+
+
+def sbs_case(S, CSM, dev, layer, trace_edge, batch, seed=SEED):
+    """One string of the legacy 2-layer bond-4 model at ``batch`` (layer 0:
+    q^C = 2, o = 2 on the middle core, 26×26 windows; layer 1: q^C = 4,
+    o = 10, 24×24): factors uniform in [0, 1), cores scaled so every m
+    element is of order 1/bond, a normal output cotangent."""
+    spec = CSM.ConvSBSModelConfig(SBS_LAYERS, SBS_BOND, trace_edge=trace_edge).layer_specs()[layer][0]
+    olr, qc, ok = S.sbs_supported(spec)
+    check(ok, f"legacy layer {layer} outside the kernels' support")
+    side = 28 - 2 * (layer + 1)
+    npix = batch * side * side
+    g_ = torch.Generator(device=dev).manual_seed(seed)
+    views = torch.rand((len(olr), qc, npix), generator=g_, device=dev)
+    scale = 1.0 / (SBS_BOND * (qc / 3) ** 0.5)
+    cores = [torch.randn((l * r * o, qc), generator=g_, device=dev) * scale for o, l, r in olr]
+    g = torch.randn((math.prod(o for o, _, _ in olr), npix), generator=g_, device=dev)
+    return olr, views, cores, g
+
+
+def sbs_fold_fmas(olr, mcut):
+    """FMAs per pixel of one string's forward: every m element once
+    (Σ l·r·o·q^C, with q^C folded in by the caller), the prefix and suffix
+    folds, and the merge (for the sequential fold, mcut None: the fold of
+    every core and the ring trace)."""
+    P, b0 = len(olr), olr[0][1]
+    cut = P if mcut is None else mcut
+    fmas, o_pre = 0, olr[0][0]
+    for i in range(1, cut):
+        o, l, r = olr[i]
+        fmas += b0 * l * r * o_pre * o
+        o_pre *= o
+    o_suf = 1
+    for i in range(P - 1, cut - 1, -1):
+        o, l, r = olr[i]
+        fmas += l * b0 * r * o * o_suf
+        o_suf *= o
+    rm = olr[cut][1] if cut < P else b0
+    return fmas + b0 * rm * o_pre * o_suf
+
+
+def sbs_work(olr, qc, npix, mcut, backward, need_dviews):
+    """(bytes, flops) of one call: each input read once and each output
+    written once; the forward's FMAs (m, fold, merge), and for the backward
+    the forward's again (the states it reverses), twice the fold and merge
+    (the two transposes of each step) and the d_core (and d_view) FMAs."""
+    rows = sum(o * l * r for o, l, r in olr)
+    m_fmas = rows * qc
+    fold = sbs_fold_fmas(olr, mcut)
+    o_total = math.prod(o for o, _, _ in olr)
+    views, cores = len(olr) * qc * npix, rows * qc
+    if not backward:
+        return 4.0 * (views + cores + o_total * npix), 2.0 * npix * (m_fmas + fold)
+    nbytes = 4.0 * (views + 2 * cores + o_total * npix + (views if need_dviews else 0))
+    return nbytes, 2.0 * npix * (m_fmas * (2 + need_dviews) + 3 * fold)
+
+
+def sbs_kernels_vs_plain(S, CSM, dev):
+    """Phase 2b: the ConvSBS kernels against their plain versions at both
+    legacy layer shapes, open and ring, batch 100 and 512: the forward and
+    the backward (with and without d_views) of the meet-in-the-middle fold
+    at the model's merge position (K10, K11) and of the sequential fold
+    (K12); then every merge position at layer 1, ring, batch 100. Returns
+    the JSON numbers of each kernel: max |Δ| over every shape, and its
+    kernel, plain and bound times summed over one training step of the
+    model at batch 100 with open strings (each of layer 0's two strings
+    without d_views, layer 1's with them; the sequential fold's step is
+    phase 7's sequential path)."""
+    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+               "bytes": 0.0, "flops": 0.0} for k in SBS_KERNELS}
+    worst = {}
+
+    def held(name, label, got, ref):
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        check(got.shape == ref.shape, f"{name} [{label}]: shape {tuple(got.shape)}")
+        check(torch.isfinite(got).all().item(), f"{name} [{label}]: non-finite")
+        check(err <= SBS_TOL * scale, f"{name} [{label}]: differs from plain by {err} "
+                                      f"(max|ref| {scale})")
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        worst[name] = max(worst.get(name, 0.0), err / scale)
+        return f"{err:.3e}/{scale:.3e}"
+
+    for layer in (0, 1):
+        for trace_edge in (False, True):
+            for batch in SBS_BATCHES:
+                olr, views, cores, g = sbs_case(S, CSM, dev, layer, trace_edge, batch)
+                qc, npix = views.shape[1], views.shape[2]
+                on_path = batch == 100 and not trace_edge
+                for fam, mcut in (("mim", SBS_MCUT), ("seq", None)):
+                    label = (f"layer {layer} {'ring' if trace_edge else 'open'} batch {batch} "
+                             f"{fam} npix={npix}")
+                    name = f"sbs_fwd_{fam}"
+
+                    def kern():
+                        return S.sbs_fwd(views, cores, olr, mcut)
+
+                    def plain():
+                        return S.sbs_fwd_reference(views, cores, olr, mcut)
+
+                    errs = held(name, label, kern(), plain())
+                    t_k, t_p = median_ms([kern, plain], reps=10)
+                    nbytes, flops = sbs_work(olr, qc, npix, mcut, False, False)
+                    print(f"{name} vs plain [{label}]: max|d|/max|ref| {errs} "
+                          f"(tol {SBS_TOL:g}*max|ref|); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                          f"bound {bound_ms(nbytes, flops)[0]:.4f} ms")
+                    if on_path:
+                        for _ in range(2 if layer == 0 else 1):
+                            r = res[name]
+                            r["ms"] += t_k
+                            r["plain_ms"] += t_p
+                            r["bytes"] += nbytes
+                            r["flops"] += flops
+                    name = f"sbs_bwd_{fam}"
+                    for need in (True, False):
+
+                        def kern():
+                            return S.sbs_bwd(views, cores, g, olr, mcut, need)
+
+                        def plain():
+                            return S.sbs_bwd_reference(views, cores, g, olr, mcut, need)
+
+                        (dv, dc), (rdv, rdc) = kern(), plain()
+                        errs = [held(name, f"{label} d_core {i}", a, b)
+                                for i, (a, b) in enumerate(zip(dc, rdc))]
+                        check((dv is None) != need, f"{name} [{label}]: d_views with need={need}")
+                        if need:
+                            errs.append(held(name, f"{label} d_views", dv, rdv))
+                        del dv, dc, rdv, rdc
+                        t_k, t_p = median_ms([kern, plain], reps=10)
+                        nbytes, flops = sbs_work(olr, qc, npix, mcut, True, need)
+                        print(f"{name} vs plain [{label} need_dviews={need}]: max|d|/max|ref| "
+                              f"worst {max(errs, key=lambda e: float(e.split('/')[0]))} "
+                              f"(tol {SBS_TOL:g}*max|ref|); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                              f"bound {bound_ms(nbytes, flops)[0]:.4f} ms")
+                        if on_path and need == (layer == 1):
+                            for _ in range(2 if layer == 0 else 1):
+                                r = res[name]
+                                r["ms"] += t_k
+                                r["plain_ms"] += t_p
+                                r["bytes"] += nbytes
+                                r["flops"] += flops
+                del views, cores, g
+    olr, views, cores, g = sbs_case(S, CSM, dev, 1, True, 100)
+    for mcut in range(1, len(olr)):
+        label = f"layer 1 ring batch 100 mcut={mcut}"
+        held("sbs_fwd_mim", label, S.sbs_fwd(views, cores, olr, mcut),
+             S.sbs_fwd_reference(views, cores, olr, mcut))
+        (dv, dc), (rdv, rdc) = (S.sbs_bwd(views, cores, g, olr, mcut, True),
+                                S.sbs_bwd_reference(views, cores, g, olr, mcut, True))
+        held("sbs_bwd_mim", f"{label} d_views", dv, rdv)
+        for i, (a, b) in enumerate(zip(dc, rdc)):
+            held("sbs_bwd_mim", f"{label} d_core {i}", a, b)
+        print(f"sbs every merge position [{label}]: forward and backward held")
+    del views, cores, g, dv, dc, rdv, rdc
+    print(f"ConvSBS kernels vs plain, largest max|d|/max|ref| per kernel: {worst} "
+          f"(tolerance {SBS_TOL:g})")
+    for r in res.values():
+        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"))
+    return res
+
+
+def sbs_recipe_params(CSM, cfg, x, dev):
+    """The legacy runner's recipe on ``x``: Khrulkov-normal cores from the
+    seed, each layer scaled to unit output std on the batch (the input
+    multiplier already in ``cfg``)."""
+    params = CSM.init_conv_sbs_model(torch.Generator().manual_seed(SEED), cfg)
+    params = tuple(tuple(tuple(c.to(dev) for c in s) for s in layer) for layer in params)
+    return CSM.scale_layers_using_batch(params, cfg, x)
+
+
+def sbs_model_cfg(CSM, x, trace_edge):
+    """The recipe's config: sin²/cos² features and the window-std input
+    multiplier from ``x``."""
+    std = float(CSM.calc_std_of_coordinates_of_windows(x, 3, True, 1.0))
+    return CSM.ConvSBSModelConfig(SBS_LAYERS, SBS_BOND, trace_edge=trace_edge, cos_sin_squared=True,
+                                  input_multiplier=std ** (-1.0 / 9.0))
+
+
+def check_sbs_training(S, CSM, x, y, dev) -> None:
+    """Phase 6's output checks: one step's gradients (cores and pixels) on
+    the kernels against the plain path's at batch 100, and 3 SGD steps with
+    momentum at batch 4 against the float64 plain step on the CPU, open and
+    ring."""
+    for trace_edge in (False, True):
+        xb, yb = x[:100], y[:100]
+        cfg = sbs_model_cfg(CSM, xb, trace_edge)
+        params = sbs_recipe_params(CSM, cfg, xb, dev)
+        grads = []
+        for kernels in (S.KERNELS, S.PLAIN):
+            model = CSM.ConvSBSModel(params, cfg)
+            xg = xb.clone().requires_grad_(True)
+            loss = torch.nn.functional.cross_entropy(model(xg, kernels=kernels), yb)
+            grads.append([t.detach() for t in torch.autograd.grad(loss, [xg, *model.parameters()])])
+        compare_gradients(grads, SBS_GRAD_TOL,
+                          f"ConvSBS {'ring' if trace_edge else 'open'} kernel vs plain, batch 100 "
+                          "(gradient 0 is the pixels')")
+        models = [CSM.ConvSBSModel(params, cfg),
+                  CSM.ConvSBSModel(params, cfg, device="cpu", dtype=torch.float64)]
+        opts = [torch.optim.SGD(m.parameters(), lr=SBS_TRAJ_LR, momentum=0.9) for m in models]
+        start = [p.detach().clone() for p in models[1].parameters()]
+        for i in range(3):
+            losses = []
+            for m, opt, xx, yy in zip(models, opts, (x, x.cpu().double()), (y, y.cpu())):
+                opt.zero_grad()
+                loss = torch.nn.functional.cross_entropy(m(xx[4 * i : 4 * i + 4]), yy[4 * i : 4 * i + 4])
+                loss.backward()
+                opt.step()
+                losses.append(float(loss))
+            print(f"ConvSBS {'ring' if trace_edge else 'open'} trajectory step {i}: loss kernel "
+                  f"{losses[0]:.9g} float64 {losses[1]:.9g}")
+            check(math.isfinite(losses[0]) and abs(losses[0] - losses[1]) <= SBS_TRAJ_RTOL * abs(losses[1]),
+                  f"ConvSBS step {i} loss differs from the float64 step")
+        worst = 0.0
+        for i, (pk, p64, p0) in enumerate(zip(models[0].parameters(), models[1].parameters(), start)):
+            diff = float((pk.detach().cpu().double() - p64.detach()).abs().max())
+            moved = float((p64.detach() - p0).abs().max())
+            scale = float(p64.detach().abs().max())
+            check(moved > 0, f"ConvSBS trajectory: core {i} did not move")
+            check(diff <= SBS_TRAJ_RTOL * scale,
+                  f"ConvSBS trajectory: core {i} after 3 steps differs from float64 by {diff} "
+                  f"(max|p| {scale}, moved {moved})")
+            worst = max(worst, diff / scale)
+        print(f"ConvSBS {'ring' if trace_edge else 'open'} trajectory: 3 steps within "
+              f"{SBS_TRAJ_RTOL:g} of the float64 CPU step (losses, and every core of max|p|: "
+              f"largest max|d|/max|p| {worst:.3e})")
+
+
+def sbs_runner_phase(legacy_runner, bench, dev):
+    """Phase 6: ``legacy_runner.run`` on the card, 2 layers, bond 4, batch
+    100, SBS_RUN_EPOCHS epochs of synthetic data, SGD and RMSprop with
+    momentum, open and ``--trace-edge``. Checks the launches (per step: the
+    three strings' forward and backward, layer 0's two without d_views,
+    layer 1's with them, and a d_core sum each; besides, a forward of each
+    string per evaluation and two per string while scaling the layers)
+    and the best checkpoint. Returns each run's counts."""
+    n_tr, n_val = SBS_RUN_SIZES
+    steps = SBS_RUN_EPOCHS * (n_tr // 100)
+    runs = []
+    for trace_edge in (False, True):
+        for opt in ("sgd", "rmsprop"):
+            bench.zero_counters()
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as tmp:
+                _, best = legacy_runner.run(
+                    ds_path="synthetic", models_dir=tmp, num_sbs_layers=SBS_LAYERS,
+                    bond_dim_size=SBS_BOND, trace_edge=trace_edge, batch_size=100,
+                    epochs=SBS_RUN_EPOCHS, synthetic_sizes=SBS_RUN_SIZES, optimizer_type=opt,
+                    momentum=0.9, learning_rate=1e-3, warmup_num_epochs=1,
+                    warmup_initial_multiplier=1e-2, cos_sin_squared=True,
+                    make_input_window_std_one=True, scale_layers_using_batch=100, seed=SEED,
+                    device="cuda",
+                )
+                ckpts = [f for f in os.listdir(tmp) if f.startswith("dctn_epoch=")]
+            counts = bench.read_sbs_counters()
+            label = f"legacy_runner {'--trace-edge ' if trace_edge else ''}{opt}"
+            print(f"{label}: {time.perf_counter() - t0:.1f} s, best val acc {best:.4f} "
+                  f"(synthetic, {SBS_RUN_EPOCHS} epochs), checkpoint {ckpts}, launches {counts}")
+            check(len(ckpts) == 1 and ckpts[0].endswith(".npz"), f"{label}: no best checkpoint")
+            evals, scaling = SBS_RUN_EPOCHS, 2
+            want = dict.fromkeys(counts, 0)
+            want.update(sbs_fwd_mim=3 * (steps + evals + scaling), sbs_bwd_mim=3 * steps,
+                        sbs_bwd_dviews=steps, sbs_bwd_sum=3 * steps)
+            check(counts == want, f"{label}: launches {counts} != {want}")
+            print(f"{label}: per step sbs_fwd_mim 3, sbs_bwd_mim 3 (d_views 1), sum 3, over "
+                  f"{steps} steps")
+            runs.append(counts)
+    return runs
+
+
+def sbs_bench_phase(bench, dev):
+    """Phase 7: ``bench.run_conv_sbs``, the step of
+    experiments/conv_sbs_benchmark.py, at batch 100 and 512, open and ring,
+    kernel and plain path. Launches per step and over the run. Returns the
+    counts and the records."""
+    steps_run = 3 + 1 + TRAIN_STEPS
+    per_step = {"sbs_fwd_mim": 3, "sbs_bwd_mim": 3, "sbs_bwd_dviews": 1, "sbs_bwd_sum": 3}
+    counts, records = [], []
+    for batch in SBS_BATCHES:
+        for trace_edge in (False, True):
+            bench.zero_counters()
+            t0 = time.perf_counter()
+            recs = bench.run_conv_sbs(device="cuda", steps=TRAIN_STEPS, batch_size=batch,
+                                      trace_edge=trace_edge, compare_plain=True)
+            got = bench.read_sbs_counters()
+            label = f"conv_sbs bench batch {batch} {'ring' if trace_edge else 'open'}"
+            print(f"{label}: {time.perf_counter() - t0:.1f} s, launches {got}")
+            want = {k: per_step.get(k, 0) for k in got}
+            check(recs[0]["launches_per_step"] == {k: float(v) for k, v in want.items()},
+                  f"{label}: launches per step {recs[0]['launches_per_step']} != {want}")
+            check(got == {k: v * steps_run for k, v in want.items()}, f"{label}: launches {got}")
+            for rec in recs:
+                check(all(math.isfinite(rec[k]) for k in ("first_loss", "last_loss")),
+                      f"{label}: non-finite loss")
+                print(f"train step {label} [{rec['path']}]: p50 {rec['step_ms_p50']:.4f} ms, "
+                      f"{rec['images_per_s']:.1f} img/s, peak extra memory "
+                      f"{rec['peak_extra_mib']:.1f} MiB, loss {rec['first_loss']:.6f} -> "
+                      f"{rec['last_loss']:.6f}")
+            counts.append(got)
+            records.extend(recs)
+    return counts, records
+
+
+def sequential_forward(S, CSM, params, cfg, x, kernels):
+    """The model's batch-minor forward with every string on the sequential
+    fold: ``conv_sbs_t(mim=False)``, K12."""
+    xT = CSM.batch_to_quantum(x, cfg.cos_sin_squared, cfg.input_multiplier).permute(0, 4, 2, 3, 1)
+    for layer_spec, layer_params in zip(cfg.layer_specs(), params):
+        outs = [S.conv_sbs_t(s, c, xT, mim=False, kernels=kernels)
+                for s, c in zip(layer_spec, layer_params)]
+        xT = torch.stack(outs, dim=0)
+    return outs[0].mean(dim=(1, 2)).T
+
+
+def sbs_sequential_phase(S, CSM, bench, x, y, dev):
+    """Phase 7, the sequential fold's path: the runner's recipe on 100
+    synthetic images (``sbs_model_cfg``, ``sbs_recipe_params``), every
+    string through ``conv_sbs_t(mim=False)``, SGD 1e-3 steps, open and
+    ring. The counts
+    are zeroed before the steps and read after them; then, outside that
+    window, one step's gradients (cores and pixels) against the plain
+    path's and the logits against the model's own forward. Returns the
+    counts."""
+    steps = 5
+    per_step = {"sbs_fwd_seq": 3, "sbs_bwd_seq": 3, "sbs_bwd_dviews": 1, "sbs_bwd_sum": 3}
+    counts = []
+    for trace_edge in (False, True):
+        label = f"sequential path {'ring' if trace_edge else 'open'} batch 100"
+        cfg = sbs_model_cfg(CSM, x, trace_edge)
+        model = CSM.ConvSBSModel(sbs_recipe_params(CSM, cfg, x, dev), cfg)
+        opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+        bench.zero_counters()
+        losses = []
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            loss = torch.nn.functional.cross_entropy(
+                sequential_forward(S, CSM, model.params(), cfg, x, S.KERNELS), y)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss))
+        got = bench.read_sbs_counters()
+        want = {k: per_step.get(k, 0) * steps for k in got}
+        print(f"{label}: {steps} SGD steps, losses {losses}, launches {got}")
+        check(got == want, f"{label}: launches {got} != {want}")
+        check(all(math.isfinite(v) for v in losses), f"{label}: non-finite loss")
+        counts.append(got)
+        grads = []
+        for kernels in (S.KERNELS, S.PLAIN):
+            xg = x.clone().requires_grad_(True)
+            loss = torch.nn.functional.cross_entropy(
+                sequential_forward(S, CSM, model.params(), cfg, xg, kernels), y)
+            grads.append([t.detach() for t in torch.autograd.grad(loss, [xg, *model.parameters()])])
+        compare_gradients(grads, SBS_GRAD_TOL, f"{label} kernel vs plain (gradient 0 is the pixels')")
+        with torch.no_grad():
+            seq, mim = sequential_forward(S, CSM, model.params(), cfg, x, S.KERNELS), model(x)
+        err, scale = float((seq - mim).abs().max()), float(mim.abs().max())
+        print(f"{label}: logits vs the model's meet-in-the-middle forward max|d| {err:.3e} "
+              f"(max|ref| {scale:.3e}, tol {SBS_TOL:g}*max|ref|)")
+        check(err <= SBS_TOL * scale, f"{label}: logits differ from the model's forward")
+    return counts
+
+
+def profile_conv_sbs(S, CSM, out_dir, dev) -> None:
+    """Phase 8 (opt-in): where the ConvSBS step's time goes, on the kernel
+    and the plain path, at batch 100 open and ring and batch 512 open: the
+    bench's step (SGD 1e-3) after 3 warm-up steps, over 5."""
+    os.makedirs(out_dir, exist_ok=True)
+    for batch, trace_edge in ((100, False), (100, True), (512, False)):
+        cfg = CSM.ConvSBSModelConfig(SBS_LAYERS, SBS_BOND, trace_edge=trace_edge)
+        gen = torch.Generator().manual_seed(SEED)
+        params = CSM.init_conv_sbs_model(gen, cfg)
+        x = torch.rand((batch, 28, 28), generator=gen).to(dev)
+        y = torch.randint(0, 10, (batch,), generator=gen).to(dev)
+        for name, kernels in (("kernel", S.KERNELS), ("plain", S.PLAIN)):
+            model = CSM.ConvSBSModel(params, cfg, device=dev)
+            opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+
+            def step():
+                opt.zero_grad(set_to_none=True)
+                torch.nn.functional.cross_entropy(model(x, kernels=kernels), y).backward()
+                opt.step()
+
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            calls = 5
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            tag = f"conv_sbs_bs{batch}_{'ring' if trace_edge else 'open'}"
+            busy_ms, top = device_ms_per_call(step, calls, os.path.join(out_dir, f"profile_{tag}_{name}.txt"))
+            print(json.dumps({
+                "metric": "train_profile", "model": tag, "path": name, "batch_size": batch,
+                "step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "device_idle_share": 1 - busy_ms / wall_ms,
+                "extra_device_mib": (torch.cuda.max_memory_allocated(dev) - base) / 2**20,
+                "top_device_ops_ms": top,
+            }))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -642,6 +1120,10 @@ def main(argv=None) -> int:
         init_eps_plus_linear,
     )
     from dctn_tpu_torch.train import resolve_auto_grad_accum, save_params_npz
+    from dctn_tpu_torch.cli import legacy_runner
+    from dctn_tpu_torch.data import io as data_io
+    from dctn_tpu_torch.kernels import sbs_kernels as S
+    from dctn_tpu_torch.models import conv_sbs_model as CSM
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -660,6 +1142,7 @@ def main(argv=None) -> int:
     cfg = EPSesPlusLinearConfig(epses_specs=FLAGSHIP, image_size=28, q0=2)
     numbers = kernel_vs_plain(K, Q8, dev)
     recompute_at_deep_batch(K, dev, numbers)
+    numbers.update(sbs_kernels_vs_plain(S, CSM, dev))
 
     # phase 3: the serving paths, f32 then int8, through the entry point a
     # user calls
@@ -888,8 +1371,22 @@ def main(argv=None) -> int:
                              tag=f"deep_accum{accum}", warmup=2, calls=2)
     del xd, yd
 
-    driven = [serving, serving_q8, *trained.values()]
-    launches = {name: sum(c[name] for c in driven) for name in KERNELS}
+    # phase 6: the legacy ConvSBS runner, then its step's gradients and a
+    # trajectory against the float64 CPU step
+    sbs_runs = sbs_runner_phase(legacy_runner, bench, dev)
+    images, labels = data_io.synthetic_mnist_like(100, seed=1234)
+    check_sbs_training(S, CSM, torch.as_tensor(images, device=dev),
+                       torch.as_tensor(labels, device=dev), dev)
+
+    # phase 7: the ConvSBS bench entry, then the sequential fold's path
+    sbs_bench_counts, _ = sbs_bench_phase(bench, dev)
+    sbs_bench_counts += sbs_sequential_phase(S, CSM, bench, torch.as_tensor(images, device=dev),
+                                             torch.as_tensor(labels, device=dev), dev)
+    if args.profile:
+        profile_conv_sbs(S, CSM, args.profile, dev)
+
+    driven = [serving, serving_q8, *trained.values(), *sbs_runs, *sbs_bench_counts]
+    launches = {name: sum(c.get(name, 0) for c in driven) for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name], **numbers[name]}
         for name, meta in KERNELS.items()

@@ -3,8 +3,8 @@ a plain C interface and load it with ``ctypes``.
 
 ``nvcc`` compiles each source at first use into ``build/dctn_tpu_torch/``
 at the root of the checkout (listed in ``.gitignore``), named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. Sources include only the CUDA runtime's headers, so
+the source, the headers beside it and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. Sources include only the CUDA runtime's headers, so
 a build takes seconds; nothing is fetched or taken prebuilt.
 """
 
@@ -35,8 +35,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives, keyed by content."""
+    """Where the build of ``csrc/<name>.cu`` lives, keyed by its content, the
+    content of the headers beside it (``*.cuh``) and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

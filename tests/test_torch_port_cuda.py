@@ -9,16 +9,22 @@ machine run it without the conftest:
 On a host without a CUDA device every test skips itself.
 
 Tolerance 1e-4·max|ref| throughout: kernel and plain version are both
-float32 and differ only in the order of their sums. The int8 forward's
+float32 and differ only in the order of their sums (the ConvSBS folds'
+sums over ≤ 160 bond and output terms per pixel and, in d_cores, over up
+to 57,600 pixels). The int8 forward's
 quantized operands and int32 sums are exact on both sides, so its saved t
 and its column scales are held bit for bit.
 """
+
+import math
 
 import pytest
 import torch
 
 from dctn_tpu_torch.kernels import eps_kernels as K
 from dctn_tpu_torch.kernels import eps_q8_kernels as Q8
+from dctn_tpu_torch.kernels import sbs_kernels as S
+from dctn_tpu_torch.models import conv_sbs_model as CSM
 
 REL_TOL = 1e-4
 
@@ -432,3 +438,146 @@ def test_q8_kernel_refuses_shapes_outside_its_limits(cuda_device, n, q, n1, o):
     with pytest.raises(ValueError, match="int8"):
         Q8.eps_fwd_q8(torch.zeros((2, 2, 64), device=cuda_device),
                       torch.zeros((2, 2), device=cuda_device), sw[:2], 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the ConvSBS fold (K10, K11, K12 forward and backward)
+
+
+def _sbs_case(dev, layer, trace_edge, batch, seed=0, bond=4):
+    """One string of the legacy 2-layer model (layer 0: q^C = 2, o = 2 on
+    the middle core, 26×26 windows; layer 1: q^C = 4, o = 10, 24×24),
+    random factors in [0, 1) and cores scaled so every m element is of
+    order 1/bond, and a random output cotangent."""
+    cfg = CSM.ConvSBSModelConfig(2, bond, trace_edge=trace_edge)
+    spec = cfg.layer_specs()[layer][0]
+    olr, qc, ok = S.sbs_supported(spec)
+    assert ok
+    side = 26 if layer == 0 else 24
+    npix = batch * side * side
+    g_ = torch.Generator(device=dev).manual_seed(seed)
+    views = torch.rand((len(olr), qc, npix), generator=g_, device=dev)
+    scale = 1.0 / (bond * (qc / 3) ** 0.5)
+    cores = [torch.randn((l * r * o, qc), generator=g_, device=dev) * scale for o, l, r in olr]
+    g = torch.randn((math.prod(o for o, _, _ in olr), npix), generator=g_, device=dev)
+    return olr, views, cores, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [3, 100])
+@pytest.mark.parametrize("mcut", [4, None])
+@pytest.mark.parametrize("trace_edge", [False, True])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_sbs_kernels_match_plain(cuda_device, layer, trace_edge, mcut, batch):
+    """The forward and the backward (with and without d_views) of both
+    families at the legacy layer shapes, against the plain versions."""
+    olr, views, cores, g = _sbs_case(cuda_device, layer, trace_edge, batch)
+    before = (S.sbs_fwd.mim_launches, S.sbs_fwd.seq_launches)
+    out = S.sbs_fwd(views, cores, olr, mcut)
+    torch.cuda.synchronize()
+    assert (S.sbs_fwd.mim_launches - before[0], S.sbs_fwd.seq_launches - before[1]) == (
+        (1, 0) if mcut else (0, 1))
+    _assert_close(out, S.sbs_fwd_reference(views, cores, olr, mcut))
+    for need in (True, False):
+        dv, dc = S.sbs_bwd(views, cores, g, olr, mcut, need)
+        rdv, rdc = S.sbs_bwd_reference(views, cores, g, olr, mcut, need)
+        torch.cuda.synchronize()
+        assert (dv is None) == (not need)
+        if need:
+            _assert_close(dv, rdv)
+        for a, b in zip(dc, rdc):
+            _assert_close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trace_edge", [False, True])
+def test_sbs_every_merge_position(cuda_device, trace_edge):
+    olr, views, cores, g = _sbs_case(cuda_device, 1, trace_edge, 2)
+    for mcut in range(1, len(olr)):
+        _assert_close(S.sbs_fwd(views, cores, olr, mcut), S.sbs_fwd_reference(views, cores, olr, mcut))
+        dv, dc = S.sbs_bwd(views, cores, g, olr, mcut, True)
+        rdv, rdc = S.sbs_bwd_reference(views, cores, g, olr, mcut, True)
+        _assert_close(dv, rdv)
+        for a, b in zip(dc, rdc):
+            _assert_close(a, b)
+
+
+@pytest.mark.cuda
+def test_sbs_dcore_partial_sums_are_the_same_from_run_to_run(cuda_device):
+    olr, views, cores, g = _sbs_case(cuda_device, 1, True, 100)
+    runs = [S.sbs_bwd(views, cores, g, olr, 4, True) for _ in range(2)]
+    torch.testing.assert_close(runs[0][0], runs[1][0], rtol=0, atol=0)
+    for a, b in zip(runs[0][1], runs[1][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_sbs_kernels_hold_to_a_float64_oracle(cuda_device):
+    olr, views, cores, g = _sbs_case(cuda_device, 1, True, 2)
+    v64, c64, g64 = views.double().cpu(), [c.double().cpu() for c in cores], g.double().cpu()
+    _assert_close(S.sbs_fwd(views, cores, olr, 4).double().cpu(),
+                  S.sbs_fwd_reference(v64, c64, olr, 4))
+    dv, dc = S.sbs_bwd(views, cores, g, olr, None, True)
+    rdv, rdc = S.sbs_bwd_reference(v64, c64, g64, olr, None, True)
+    _assert_close(dv.double().cpu(), rdv)
+    for a, b in zip(dc, rdc):
+        _assert_close(a.double().cpu(), b)
+
+
+def _sequential_forward(params, cfg, x, kernels):
+    """The model's batch-minor forward with every string on the sequential
+    fold (``conv_sbs_t(mim=False)``, K12)."""
+    xT = CSM.batch_to_quantum(x, cfg.cos_sin_squared, cfg.input_multiplier).permute(0, 4, 2, 3, 1)
+    for layer_spec, layer_params in zip(cfg.layer_specs(), params):
+        outs = [S.conv_sbs_t(s, c, xT, mim=False, kernels=kernels)
+                for s, c in zip(layer_spec, layer_params)]
+        xT = torch.stack(outs, dim=0)
+    return outs[0].mean(dim=(1, 2)).T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", ["auto", "sequential"])
+def test_conv_sbs_model_gradients_match_the_plain_path(cuda_device, fold):
+    """The legacy model's CE gradients, in the cores and in the pixels (layer
+    0's d_views), on the kernels against the plain versions; d_views only
+    where the input needs a gradient. ``auto`` is the model's own forward
+    (meet-in-the-middle, K10/K11), ``sequential`` the same layers with every
+    string through ``conv_sbs_t(mim=False)`` (K12)."""
+    cfg = CSM.ConvSBSModelConfig(2, 4, trace_edge=True, cos_sin_squared=True)
+    params = CSM.init_conv_sbs_model(torch.Generator().manual_seed(0), cfg)
+    x = torch.rand((5, 28, 28), device=cuda_device)
+    y = torch.arange(5, device=cuda_device)
+    x = x.requires_grad_(True)
+    params = CSM.scale_layers_using_batch(
+        tuple(tuple(tuple(c.to(cuda_device) for c in s) for s in layer) for layer in params), cfg,
+        x.detach(),
+    )
+    grads = []
+    for kernels in (S.KERNELS, S.PLAIN):
+        model = CSM.ConvSBSModel(params, cfg)
+        before = (S.sbs_bwd.dviews_launches, S.sbs_bwd.mim_launches, S.sbs_bwd.seq_launches)
+        logits = (model(x, kernels=kernels) if fold == "auto"
+                  else _sequential_forward(model.params(), cfg, x, kernels))
+        loss = torch.nn.functional.cross_entropy(logits, y)
+        grads.append(torch.autograd.grad(loss, [x, *model.parameters()]))
+        # layer 1's string, and layer 0's two strings, whose pixels need a gradient
+        after = (S.sbs_bwd.dviews_launches, S.sbs_bwd.mim_launches, S.sbs_bwd.seq_launches)
+        launched = [a - b for a, b in zip(after, before)]
+        if kernels is S.PLAIN:
+            assert launched == [0, 0, 0]
+        else:
+            assert launched == ([3, 3, 0] if fold == "auto" else [3, 0, 3])
+    assert float(grads[0][0].abs().max()) > 0.0
+    for a, b in zip(*grads):
+        _assert_close(a, b)
+
+
+@pytest.mark.cuda
+def test_sbs_kernels_refuse_what_they_do_not_take(cuda_device):
+    olr, views, cores, g = _sbs_case(cuda_device, 0, False, 1)
+    with pytest.raises(ValueError, match="float32"):
+        S.sbs_fwd(views.double(), [c.double() for c in cores], olr, 4)
+    with pytest.raises(ValueError, match="not .l·r·o"):
+        S.sbs_fwd(views, [cores[0][:-1]] + cores[1:], olr, 4)
+    with pytest.raises(ValueError, match="merge cut"):
+        S.sbs_bwd(views, cores, g, olr, 9, True)

@@ -32,7 +32,10 @@ def test_port_imports_no_jax():
         "import sys, dctn_tpu_torch, dctn_tpu_torch.cli.predict, "
         "dctn_tpu_torch.kernels.eps_kernels, dctn_tpu_torch.kernels.eps_q8_kernels, "
         "dctn_tpu_torch.models, dctn_tpu_torch.data, dctn_tpu_torch.interop, "
-        "dctn_tpu_torch.bench, dctn_tpu_torch.train.step, dctn_tpu_torch.train.optimizers\n"
+        "dctn_tpu_torch.bench, dctn_tpu_torch.train.step, dctn_tpu_torch.train.optimizers, "
+        "dctn_tpu_torch.kernels.sbs_kernels, dctn_tpu_torch.ops.sbs, dctn_tpu_torch.ops.rank_one, "
+        "dctn_tpu_torch.utils.pos2d, dctn_tpu_torch.models.conv_sbs_model, "
+        "dctn_tpu_torch.cli.legacy_runner, dctn_tpu_torch.train.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dctn_tpu'))\n"
         "assert not bad, bad"
     )
