@@ -68,14 +68,37 @@ Run from the root of a checkout, with no arguments:
    SGD steps at batch 100 on the runner's recipe, open and ring: launches per step, one step's
    gradients against the plain path's, the logits against the model's own
    (meet-in-the-middle) forward.
-8. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
+   Then K13, the fused log-space product (phase 2c, before phase 3),
+   against its plain version: a link of the log-matmul chain (256³), the
+   log-space classifier's step on its real operands ((256, 98) features ×
+   the (98, 490) block-diagonal weights, −inf off the blocks), the large-R
+   regime (256, 32768, 256), ragged edges (100, 60, 37), offsets of ±80,
+   and rows, columns and entries of −inf (the outputs there exactly −inf,
+   no NaN anywhere, the same bits on a second run), with kernel, plain,
+   library (``torch.matmul`` of the materialized exponentials) and bound
+   times.
+8. ``dctn_tpu_torch.bench.run_logmatmulexp``, the chain of
+   experiments/logmatmulexp_benchmark.py (6 × 256×256 f32, plain matmul and
+   three log-space forms, forward and the gradients of all six): K13
+   launched 5 times per forward and per forward+backward of the kernel
+   form; the chain's output and six gradients against the plain max-shift
+   form.
+9. ``dctn_tpu_torch.bench.run_log_space``, the log-space classifier of
+   experiments/log_space_classifier.py at its defaults (600 Adam 3e-2 steps
+   at batch 256): K13 launched once per ``fused_kernel`` step and once for
+   its accuracy forward; the three forms within 0.02 in accuracy, finite
+   weights; one step's gradient against ``fused_plain``.
+10. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
    of the serving forward (f32 and int8) at batch 1 and 128 and of the
    flagship training step (f32 and QAT) at batch 128, on the kernel and on
    the plain path, and of the deep model's step at batch 2048 (accumulation
    1 and 4) on the kernels, and of the ConvSBS step at batch 100 (open, ring)
    and 512 (open) on the kernel and the plain path, with the device's busy
-   share and extra memory; the full profiler tables go to DIR.
-9. Prints one JSON line describing the kernels, then the result line.
+   share and extra memory; and of the log-matmul chain's forward+backward
+   (kernel form, ops form, matmul) and one log-space classifier step
+   (fused_kernel, fused_plain, scan), with the device's busy share; the
+   full profiler tables go to DIR.
+11. Prints one JSON line describing the kernels, then the result line.
 
 Every count of kernel launches is set to 0 just before a path is driven and
 read just after it.
@@ -97,6 +120,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 FLAGSHIP = ((4, 4), (3, 6))
@@ -242,7 +266,52 @@ SBS_TRAJ_RTOL = 1e-4
 # the runner phase: synthetic train/val sizes and epochs at batch 100
 SBS_RUN_SIZES = (1000, 200)
 SBS_RUN_EPOCHS = 2
-SOURCES = ("eps_fwd", "eps_dcore", "eps_dviews_t", "eps_fwd_q8", "sbs_fwd", "sbs_bwd")
+# K13, the fused log-space product of the log-matmul chain bench and the
+# log-space classifier (experiments/logmatmulexp_benchmark.py,
+# experiments/log_space_classifier.py)
+LME_KERNELS = {
+    "logmatmulexp": {
+        "route": "cuda", "source": "dctn_tpu_torch/csrc/logmatmulexp.cu",
+        "replaces": "dctn_tpu/pallas/logmatmulexp_pallas.py:32",
+    },
+}
+KERNELS = {**KERNELS, **LME_KERNELS}
+# (label, Θ, R, I, offset of A (B gets its negative), −inf rows, columns and
+# entries): a chain link (5 per chain forward), the classifier's step (its
+# real operands: features and the block-diagonal weights, −inf off the
+# blocks), the large-R regime the JAX kernel was validated at, ragged edges,
+# and the extremes
+LME_SHAPES = (
+    ("chain link", 256, 256, 256, 0.0, False),
+    ("classifier step", 256, 98, 490, None, None),
+    ("large R", 256, 32768, 256, 0.0, False),
+    ("ragged", 100, 60, 37, 0.0, False),
+    ("offsets +-80", 256, 256, 256, 80.0, False),
+    ("-inf rows, columns, entries", 100, 60, 37, 0.0, True),
+    ("-inf and offsets +-80", 256, 98, 490, 80.0, True),
+)
+# K13 against its plain version, per entry of the log: both float32, the sum
+# over R in other orders (the kernel's 32-wide chunks and its split of R
+# against cuBLAS's blocking), so log(sum) differs by about √R·2⁻²⁴ (a random
+# walk of R roundings, each a relative 2⁻²⁴), and adding the shifts rounds
+# at an ulp of log(sum) + amax and of the output, whose magnitudes |amax| +
+# |bmax| and |ref| bound: |Δ| ≤ 16·2⁻²⁴·√R + 8·2⁻²⁴·max(|ref|, |amax| +
+# |bmax|), 16 times the walk and 8 half-ulps. −inf only where the plain
+# version has it, no NaN.
+LME_WALK = 16
+LME_ULPS = 8
+# gradients, kernel path against the plain max-shift path: both run the same
+# torch ops in the backward; only the forward's sums differ, which the chain
+# carries through 5 products and the square of its output (and the
+# classifier through its 49-factor sum), so 1e-4 of the largest
+LME_GRAD_TOL = 1e-4
+# K13's calls take a few µs of device time at the entries' shapes, less
+# than the host takes to launch them: its times are the device time per call
+# over this many calls under torch.profiler (the CUDA-event time of one call,
+# the host's launch included, is printed beside them)
+LME_PROFILE_CALLS = 20
+SOURCES = ("eps_fwd", "eps_dcore", "eps_dviews_t", "eps_fwd_q8", "sbs_fwd", "sbs_bwd",
+           "logmatmulexp")
 
 
 def check(ok: bool, what: str) -> None:
@@ -857,6 +926,174 @@ def sbs_kernels_vs_plain(S, CSM, dev):
     return res
 
 
+def lme_operands(LSC, dev, theta, r, i, offset, neg_inf):
+    """One case's (log_a, log_b): normal · 3 with the offsets, and with
+    ``neg_inf`` a −inf row of A, a −inf column of B and a tenth of the other
+    entries −inf; for the classifier's step (offset None) its real
+    operands, the features of 256 synthetic images and the block-diagonal
+    weights of the seeded init."""
+    g_ = torch.Generator(device=dev).manual_seed(SEED)
+    if offset is None:
+        from dctn_tpu_torch.data import io as data_io
+
+        x = torch.as_tensor(data_io.synthetic_mnist_like(theta, seed=1234)[0], device=dev)
+        log_w = LSC.init_log_w(torch.Generator().manual_seed(SEED)).to(dev)
+        return LSC.features(x).reshape(theta, r), LSC.block_diagonal(log_w)
+    la = torch.randn((theta, r), generator=g_, device=dev) * 3 + offset
+    lb = torch.randn((r, i), generator=g_, device=dev) * 3 - offset
+    if neg_inf:
+        la[3] = -math.inf
+        lb[:, 5] = -math.inf
+        la[torch.rand((theta, r), generator=g_, device=dev) < 0.1] = -math.inf
+        lb[torch.rand((r, i), generator=g_, device=dev) < 0.1] = -math.inf
+    return la, lb
+
+
+def lme_kernel_vs_plain(L, LSC, max_shifts, dev):
+    """Phase 2c: K13 against its plain version at every case of LME_SHAPES,
+    with the −inf outputs exact, no NaN, and the same bits on a second run;
+    device times per call (``device_ms_per_call``) and median CUDA-event
+    times of one call, of the kernel, the plain version and the library call
+    (``torch.matmul`` of the materialized exponentials, cuBLAS f32), beside
+    the bound. Returns the JSON numbers: max |Δ| over every
+    finite output, and times summed over one chain forward (5 links) and
+    one classifier step (1 call), K13's work in one iteration of each
+    entry."""
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bytes": 0.0, "flops": 0.0}
+    on_path = {"chain link": 5, "classifier step": 1}
+    for label, theta, r, i, offset, neg_inf in LME_SHAPES:
+        la, lb = lme_operands(LSC, dev, theta, r, i, offset, neg_inf)
+        theta, r, i = la.shape[0], la.shape[1], lb.shape[1]
+        amax, bmax = max_shifts(la, lb)
+        ea, eb = torch.exp(la - amax), torch.exp(lb - bmax)
+
+        def kern():
+            return L.logmatmulexp_fwd(la, lb, amax, bmax)
+
+        def plain():
+            return L.logmatmulexp_fwd_reference(la, lb, amax, bmax)
+
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        tag = f"logmatmulexp [{label}] ({theta}, {r}, {i})"
+        check(got.shape == ref.shape, f"{tag}: shape {tuple(got.shape)}")
+        check(not torch.isnan(got).any().item(), f"{tag}: NaN in the output")
+        check(torch.equal(torch.isneginf(got), torch.isneginf(ref)),
+              f"{tag}: -inf outputs differ from the plain version's")
+        fin = torch.isfinite(ref)
+        shift = (amax.abs() + bmax.abs()).expand_as(ref)[fin]
+        tol = 2.0**-24 * (LME_WALK * math.sqrt(r)
+                          + LME_ULPS * torch.maximum(ref[fin].abs(), shift))
+        diff = (got[fin] - ref[fin]).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        check(bool((diff <= tol).all()), f"{tag}: differs from plain by {err}")
+        check(torch.equal(kern(), got), f"{tag}: a second run gave other bits")
+        n_inf = int((~fin).sum())
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        fns = [kern, plain, lambda: torch.matmul(ea, eb)]
+        call_ms = median_ms(fns, reps=10)
+        t_k, t_p, t_l = (device_ms_per_call(fn, LME_PROFILE_CALLS, os.devnull)[0] for fn in fns)
+        nbytes, flops = 4.0 * (theta * r + r * i + theta * i), 2.0 * theta * r * i
+        b_ms, by = bound_ms(nbytes, flops)
+        print(f"{tag}: max|d| {err:.3e} (tol {LME_WALK}*2^-24*sqrt(R) + "
+              f"{LME_ULPS}*2^-24*max(|ref|, |amax|+|bmax|) "
+              f"per entry, {float(tol.max()) if tol.numel() else 0.0:.3e} at most), {n_inf} "
+              f"outputs exactly -inf as plain, no NaN, same bits twice; device time per call: "
+              f"kernel {t_k:.4f} ms ({flops / t_k / 1e9:.2f} TFLOP/s), plain {t_p:.4f} ms, "
+              f"library torch.matmul of the exponentials {t_l:.4f} ms; one call between CUDA "
+              f"events (the host's launch included): kernel {call_ms[0]:.4f} ms, plain "
+              f"{call_ms[1]:.4f} ms, library {call_ms[2]:.4f} ms; bound {b_ms:.4f} ms ({by}), "
+              f"splits of R {L._splits(theta, r, i)}")
+        for _ in range(on_path.get(label, 0)):
+            res["ms"] += t_k
+            res["plain_ms"] += t_p
+            res["library_ms"] += t_l
+            res["bytes"] += nbytes
+            res["flops"] += flops
+        del la, lb, amax, bmax, ea, eb, got, ref
+    res["bound_ms"], res["bound_by"] = bound_ms(res.pop("bytes"), res.pop("flops"))
+    return {"logmatmulexp": res}
+
+
+def lme_chain_phase(bench, dev):
+    """Phase 8: ``bench.run_logmatmulexp``, the chain of
+    experiments/logmatmulexp_benchmark.py (6 × 256×256 f32): K13 launched 5
+    times per forward and per forward+backward of the kernel form, by no
+    other form. Then, outside the counted run, the chain's output and its
+    six gradients (of sum(out²)) on the kernel form against the plain
+    max-shift form. Returns K13's launches in the run."""
+    bench.zero_counters()
+    t0 = time.perf_counter()
+    recs = bench.run_logmatmulexp(device="cuda")
+    launches = bench.read_lme_launches()
+    print(f"logmatmulexp chain bench: {time.perf_counter() - t0:.1f} s, K13 launches {launches}")
+    links = bench.CHAIN - 1
+    runs = 0
+    for rec in recs:
+        want = links if rec["function"] == "logmatmulexp_kernel" else 0
+        check(rec["launches_per_forward"] == want and rec["launches_per_forward_backward"] == want,
+              f"chain {rec['function']}: K13 launches per forward / forward+backward "
+              f"{rec['launches_per_forward']} / {rec['launches_per_forward_backward']} != {want}")
+        runs += want * 2 * (rec["warmup"] + rec["num_iterations"])
+        print(f"chain {rec['function']}: forward {1e3 * rec['forward_seconds_per_iteration']:.4f} "
+              f"ms, forward+backward {1e3 * rec['forward_backward_seconds_per_iteration']:.4f} ms, "
+              f"K13 launches {rec['launches_per_forward']} / {rec['launches_per_forward_backward']}")
+    check(launches == runs, f"chain bench: K13 launches {launches} != {runs}")
+    mats = bench.chain_inputs(dev)
+    outs, grads = [], []
+    for name in ("logmatmulexp_kernel", "logmatmulexp"):
+        leaves = [m.clone().requires_grad_(True) for m in mats]
+        out = bench.CHAIN_VARIANTS[name](*leaves)
+        grads.append([g.detach() for g in torch.autograd.grad(torch.sum(out**2), leaves)])
+        outs.append(out.detach())
+    err, scale = float((outs[0] - outs[1]).abs().max()), float(outs[1].abs().max())
+    print(f"chain output, kernel vs plain max-shift form: max|d| {err:.3e} (max|ref| {scale:.3e})")
+    check(err <= LME_GRAD_TOL * scale, "chain output differs from the plain form's")
+    gap = compare_gradients(grads, LME_GRAD_TOL, "chain of 6, kernel vs plain max-shift form")
+    print(f"chain gradients: largest max|d|/max|ref| {gap:.3e} (limit {LME_GRAD_TOL:g})")
+    return launches
+
+
+def log_space_phase(bench, LSC, dev):
+    """Phase 9: ``bench.run_log_space`` at its defaults (600 Adam 3e-2
+    steps at batch 256, 4096/1024 synthetic images): K13 launched once per
+    step of the ``fused_kernel`` form and once for its accuracy forward, by
+    no other form; the forms agree within 0.02 in accuracy with finite
+    weights (the bench raises otherwise). Then, outside the counted run,
+    one step's log_w gradient on the kernel form against ``fused_plain``.
+    Returns K13's launches in the run."""
+    bench.zero_counters()
+    t0 = time.perf_counter()
+    recs = bench.run_log_space(device="cuda")
+    launches = bench.read_lme_launches()
+    print(f"log-space classifier bench: {time.perf_counter() - t0:.1f} s, K13 launches {launches}")
+    for rec in recs:
+        want = 1 if rec["variant"] == "fused_kernel" else 0
+        check(rec["logmatmulexp_launches_per_step"] == want
+              and rec["logmatmulexp_launches_accuracy"] == want,
+              f"log_space {rec['variant']}: K13 launches per step / accuracy "
+              f"{rec['logmatmulexp_launches_per_step']} / {rec['logmatmulexp_launches_accuracy']}")
+        check(all(math.isfinite(rec[k]) for k in ("first_loss", "last_loss", "step_ms")),
+              f"log_space {rec['variant']}: non-finite metrics")
+        print(f"log_space {rec['variant']}: val acc {rec['val_acc']:.4f}, {rec['step_ms']:.4f} "
+              f"ms/step, loss {rec['first_loss']:.6f} -> {rec['last_loss']:.6f}")
+    check(launches == bench.LOG_SPACE_STEPS + 1,
+          f"log_space: K13 launches {launches} != {bench.LOG_SPACE_STEPS + 1}")
+    lf, y, _, _ = bench.log_space_data(dev)
+    rows = torch.as_tensor(
+        np.random.default_rng(0).integers(0, lf.shape[0], bench.LOG_SPACE_BATCH), device=dev)
+    grads = []
+    for name in ("fused_kernel", "fused_plain"):
+        log_w = LSC.init_log_w(torch.Generator().manual_seed(SEED)).to(dev).requires_grad_(True)
+        loss = torch.nn.functional.cross_entropy(
+            bench.LOG_SPACE_VARIANTS[name](log_w, lf[rows]), y[rows])
+        grads.append(list(torch.autograd.grad(loss, [log_w])))
+    gap = compare_gradients(grads, LME_GRAD_TOL, "log_space first step, fused_kernel vs fused_plain")
+    print(f"log_space gradient: max|d|/max|ref| {gap:.3e} (limit {LME_GRAD_TOL:g})")
+    return launches
+
+
 def sbs_recipe_params(CSM, cfg, x, dev):
     """The legacy runner's recipe on ``x``: Khrulkov-normal cores from the
     seed, each layer scaled to unit output std on the batch (the input
@@ -1058,7 +1295,7 @@ def sbs_sequential_phase(S, CSM, bench, x, y, dev):
 
 
 def profile_conv_sbs(S, CSM, out_dir, dev) -> None:
-    """Phase 8 (opt-in): where the ConvSBS step's time goes, on the kernel
+    """Phase 10 (opt-in): where the ConvSBS step's time goes, on the kernel
     and the plain path, at batch 100 open and ring and batch 512 open: the
     bench's step (SGD 1e-3) after 3 warm-up steps, over 5."""
     os.makedirs(out_dir, exist_ok=True)
@@ -1099,6 +1336,56 @@ def profile_conv_sbs(S, CSM, out_dir, dev) -> None:
             }))
 
 
+def profile_lme(bench, LSC, out_dir, dev) -> None:
+    """Phase 10 (opt-in), the log-space entries: where the time of the
+    chain's forward+backward (the kernel form, the ops form and plain
+    matmul) and of one classifier step at batch 256 (fused_kernel,
+    fused_plain, scan) goes, over 5 calls after 3 warm-up calls."""
+    from dctn_tpu_torch.train import make_optimizer
+
+    os.makedirs(out_dir, exist_ok=True)
+    mats = bench.chain_inputs(dev)
+
+    def chain_step(fn):
+        leaves = [m.clone().requires_grad_(True) for m in mats]
+        return lambda: torch.autograd.grad(torch.sum(fn(*leaves) ** 2), leaves)
+
+    lf, y, _, _ = bench.log_space_data(dev)
+    rows = torch.as_tensor(np.random.default_rng(0).integers(0, lf.shape[0], bench.LOG_SPACE_BATCH),
+                           device=dev)
+
+    def classifier_step(joint):
+        log_w = LSC.init_log_w(torch.Generator().manual_seed(SEED)).to(dev).requires_grad_(True)
+        opt = make_optimizer("adam", [log_w], LSC.LR)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            torch.nn.functional.cross_entropy(joint(log_w, lf[rows]), y[rows]).backward()
+            opt.step()
+
+        return step
+
+    cases = [(f"chain_fwd_bwd_{name}", chain_step(bench.CHAIN_VARIANTS[name]))
+             for name in ("logmatmulexp_kernel", "logmatmulexp", "matmul")]
+    cases += [(f"log_space_step_{name}", classifier_step(bench.LOG_SPACE_VARIANTS[name]))
+              for name in ("fused_kernel", "fused_plain", "scan")]
+    for tag, fn in cases:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        calls = 5
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / calls
+        busy_ms, top = device_ms_per_call(fn, calls, os.path.join(out_dir, f"profile_{tag}.txt"))
+        print(json.dumps({
+            "metric": "lme_profile", "case": tag, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms, "top_device_ops_ms": top,
+        }))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -1124,6 +1411,9 @@ def main(argv=None) -> int:
     from dctn_tpu_torch.data import io as data_io
     from dctn_tpu_torch.kernels import sbs_kernels as S
     from dctn_tpu_torch.models import conv_sbs_model as CSM
+    from dctn_tpu_torch.kernels import logmatmulexp_kernels as L
+    from dctn_tpu_torch.models import log_space_classifier as LSC
+    from dctn_tpu_torch.ops.logmatmulexp import max_shifts
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1143,6 +1433,7 @@ def main(argv=None) -> int:
     numbers = kernel_vs_plain(K, Q8, dev)
     recompute_at_deep_batch(K, dev, numbers)
     numbers.update(sbs_kernels_vs_plain(S, CSM, dev))
+    numbers.update(lme_kernel_vs_plain(L, LSC, max_shifts, dev))
 
     # phase 3: the serving paths, f32 then int8, through the entry point a
     # user calls
@@ -1385,7 +1676,14 @@ def main(argv=None) -> int:
     if args.profile:
         profile_conv_sbs(S, CSM, args.profile, dev)
 
-    driven = [serving, serving_q8, *trained.values(), *sbs_runs, *sbs_bench_counts]
+    # phases 8 and 9: the log-space product's entries, the chain bench and
+    # the log-space classifier's training
+    lme_launches = lme_chain_phase(bench, dev) + log_space_phase(bench, LSC, dev)
+    if args.profile:
+        profile_lme(bench, LSC, args.profile, dev)
+
+    driven = [serving, serving_q8, *trained.values(), *sbs_runs, *sbs_bench_counts,
+              {"logmatmulexp": lme_launches}]
     launches = {name: sum(c.get(name, 0) for c in driven) for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name], **numbers[name]}

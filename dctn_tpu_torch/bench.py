@@ -36,12 +36,30 @@ folded meet-in-the-middle (K10/K11) at ``_mim_cut``'s merge position. Its
 record has images/s, step ms p50, the losses, the ConvSBS kernels' launches
 per step and the extra device memory.
 
+``--model-family logmatmulexp`` is the chain benchmark of
+``experiments/logmatmulexp_benchmark.py``: a chain of 6 random 256×256 f32
+log-matrices reduced left to right by plain ``torch.matmul`` and by three
+log-space forms (``ops.logmatmulexp``, its checkpointed
+``logmatmulexp_lowmem``, and K13 through ``logmatmulexp_kernel``), the
+forward and the gradients of all six (``utils.benchmark.benchmark_torch``);
+one JSON line per form, then the log-space/matmul forward ratios.
+
+``--model-family log_space`` trains the log-space classifier of
+``experiments/log_space_classifier.py`` (Adam 3e-2, batch 256, 600 steps,
+4096/1024 synthetic images) in three forms: ``scan`` (49 per-pixel
+products), ``fused_plain`` (one block-diagonal product, the plain max-shift
+form) and ``fused_kernel`` (the same through K13). One JSON line per form
+with its validation accuracy and step ms; the forms must agree within 0.02
+in accuracy, with finite weights.
+
 Usage:
   python -m dctn_tpu_torch.bench [--steps 30] [--batch-size 128] [--compare-plain] [--qat int8]
       [--epses-specs "(4,4),(3,6)"] [--lr 3e-3] [--reg-type epswise] [--reg-coeff 1e-6]
       [--grad-accum-steps 1|n|auto]
   python -m dctn_tpu_torch.bench --model-family conv_sbs [--batch-size 100] [--trace-edge]
       [--compare-plain]
+  python -m dctn_tpu_torch.bench --model-family logmatmulexp [--steps 20]
+  python -m dctn_tpu_torch.bench --model-family log_space [--steps 600] [--batch-size 256]
 """
 
 from __future__ import annotations
@@ -49,6 +67,7 @@ from __future__ import annotations
 import json
 import statistics
 import time
+from functools import reduce
 
 import click
 import numpy as np
@@ -56,9 +75,12 @@ import torch
 
 from .cli.specs import parse_epses_specs
 from .data import Batcher, load_dataset
+from .data.io import synthetic_mnist_like
 from .kernels import eps_kernels as K
 from .kernels import eps_q8_kernels as Q8
+from .kernels import logmatmulexp_kernels as L
 from .kernels import sbs_kernels as S
+from .models import log_space_classifier as LSC
 from .models import (
     ConvSBSModel,
     ConvSBSModelConfig,
@@ -68,8 +90,10 @@ from .models import (
     init_conv_sbs_model,
     init_eps_plus_linear,
 )
+from .ops.logmatmulexp import logmatmulexp, logmatmulexp_lowmem
 from .train import make_fast_train_step, make_gather_batch, make_optimizer, resolve_auto_grad_accum
 from .train.step import REG_TYPES
+from .utils.benchmark import benchmark_torch
 
 FLAGSHIP = ((4, 4), (3, 6))
 # the step bench.py times (bench.py:85-113): Adam 3e-3, epswise L2 1e-6
@@ -116,9 +140,15 @@ def read_sbs_counters() -> dict:
 
 
 def zero_counters() -> None:
-    """Every kernel wrapper's counts, EPS and ConvSBS, to 0."""
+    """Every kernel wrapper's counts, EPS, ConvSBS and K13, to 0."""
     for _, fn, attr in COUNTERS + SBS_COUNTERS:
         setattr(fn, attr, 0)
+    L.logmatmulexp_fwd.launches = 0
+
+
+def read_lme_launches() -> int:
+    """K13's launch count."""
+    return L.logmatmulexp_fwd.launches
 
 
 def step_gflop(cfg: EPSesPlusLinearConfig, batch_size: int, in_channels: int = 1) -> float:
@@ -139,6 +169,17 @@ def step_gflop(cfg: EPSesPlusLinearConfig, batch_size: int, in_channels: int = 1
         gemm = 2 * p["out_size"] * q_k**n_k * batch_size * h * h
         total += gemm * (2 if i == 0 else 3)
     return total / 1e9
+
+
+def _device(device: str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise click.UsageError(f"--device {device}: no CUDA device is available")
+    return device
+
+
+def _device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
 def _timed_steps(step_loss, rows, cuda: bool):
@@ -204,7 +245,7 @@ def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device, qat=N
     gflop = step_gflop(cfg, idx.shape[1], x.shape[0])
     return {
         "metric": "train_step", "path": name, "qat": qat,
-        "device": torch.cuda.get_device_name(device) if cuda else "cpu",
+        "device": _device_name(device),
         "timer": "cuda_events" if cuda else "host_clock",
         "epses_specs": [list(s) for s in cfg.epses_specs], "batch_size": int(idx.shape[1]),
         "grad_accum_steps": grad_accum_steps, "lr": lr, "reg_type": reg_type,
@@ -233,9 +274,7 @@ def run(*, device="cuda", steps=30, warmup=3, batch_size=128, compare_plain=Fals
         raise click.UsageError(f"--qat {qat}: none or int8")
     if reg_type not in REG_TYPES:
         raise click.UsageError(f"--reg-type {reg_type}: one of {', '.join(REG_TYPES)}")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise click.UsageError(f"--device {device}: no CUDA device is available")
+    device = _device(device)
     if steps < 1 or warmup < 1:
         raise click.UsageError("--steps and --warmup must be at least 1")
     splits = load_dataset(
@@ -303,7 +342,7 @@ def measure_conv_sbs_path(*, name, params, cfg, kernels, x, y, warmup, steps, de
     after = read_sbs_counters()
     return {
         "metric": "train_step", "model_family": "conv_sbs", "path": name,
-        "device": torch.cuda.get_device_name(device) if cuda else "cpu",
+        "device": _device_name(device),
         "timer": "cuda_events" if cuda else "host_clock",
         "num_sbs_layers": cfg.num_sbs_layers, "bond_dim_size": cfg.bond_dim_size,
         "trace_edge": cfg.trace_edge, "batch_size": int(x.shape[0]),
@@ -323,9 +362,7 @@ def run_conv_sbs(*, device="cuda", steps=30, warmup=3, batch_size=100, trace_edg
     kernel path, then the plain one with ``compare_plain``; prints and
     returns one record per path. The weights (Khrulkov normal) and the
     uniform batch come from seed 0."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise click.UsageError(f"--device {device}: no CUDA device is available")
+    device = _device(device)
     if steps < 1 or warmup < 1:
         raise click.UsageError("--steps and --warmup must be at least 1")
     cfg = ConvSBSModelConfig(num_sbs_layers=num_sbs_layers, bond_dim_size=bond_dim_size,
@@ -343,14 +380,155 @@ def run_conv_sbs(*, device="cuda", steps=30, warmup=3, batch_size=100, trace_edg
     return records
 
 
+# the chain of experiments/logmatmulexp_benchmark.py: 6 random 256×256 f32
+# log-matrices, 20 timed iterations of each form
+CHAIN = 6
+CHAIN_SIZE = 256
+CHAIN_ITERATIONS = 20
+CHAIN_VARIANTS = {
+    "matmul": lambda *ms: reduce(torch.matmul, ms),
+    "logmatmulexp": lambda *ms: reduce(logmatmulexp, ms),
+    "logmatmulexp_lowmem": lambda *ms: reduce(logmatmulexp_lowmem, ms),
+    "logmatmulexp_kernel": lambda *ms: reduce(L.logmatmulexp_kernel, ms),
+}
+
+
+def chain_inputs(device):
+    """The chain's log-matrices, standard normal in f32 from seed 0."""
+    mats = np.random.default_rng(SEED).standard_normal((CHAIN, CHAIN_SIZE, CHAIN_SIZE))
+    mats = mats.astype(np.float32)
+    return [torch.as_tensor(m, device=device) for m in mats]
+
+
+def run_logmatmulexp(*, device="cuda", num_iterations=CHAIN_ITERATIONS):
+    """Benchmarks each form of the chain on ``device``: forward, and the
+    gradients of sum(out²) in all CHAIN matrices. Prints one JSON line per
+    form (with K13's launches per forward and per forward+backward), then
+    the log-space/matmul forward ratios; returns the records."""
+    device = _device(device)
+    if num_iterations < 1:
+        raise click.UsageError("--steps must be at least 1")
+    mats = chain_inputs(device)
+    records = []
+    for name, fn in CHAIN_VARIANTS.items():
+        rec = benchmark_torch(fn, mats, num_iterations=num_iterations,
+                              grad_argnums=tuple(range(CHAIN)), counter=read_lme_launches)
+        rec.update(function=name, size=CHAIN_SIZE, chain=CHAIN, device=_device_name(device))
+        print(json.dumps(rec))
+        records.append(rec)
+    fwd = {r["function"]: r["forward_seconds_per_iteration"] for r in records}
+    print(f"log-space / matmul forward: ops {fwd['logmatmulexp'] / fwd['matmul']:.1f}x, "
+          f"kernel {fwd['logmatmulexp_kernel'] / fwd['matmul']:.1f}x "
+          "(reference GPU baseline: ~165x)")
+    return records
+
+
+# the classifier of experiments/log_space_classifier.py
+LOG_SPACE_STEPS = 600
+LOG_SPACE_BATCH = 256
+LOG_SPACE_SIZES = (4096, 1024)
+LOG_SPACE_ACC_SPREAD = 0.02
+LOG_SPACE_VARIANTS = {
+    "scan": lambda w, f: LSC.log_joint(w, f),
+    "fused_plain": lambda w, f: LSC.log_joint_fused(w, f, logmatmulexp),
+    "fused_kernel": lambda w, f: LSC.log_joint_fused(w, f, L.logmatmulexp_kernel),
+}
+
+
+def log_space_data(device):
+    """(train log-features, labels, validation log-features, labels) of the
+    synthetic images (seed 1234; validation the next slice) on ``device``."""
+    n_train, n_val = LOG_SPACE_SIZES
+    x, y = synthetic_mnist_like(n_train, seed=1234)
+    xv, yv = synthetic_mnist_like(n_val, seed=1234, offset=n_train)
+    return (LSC.features(torch.as_tensor(x, device=device)), torch.as_tensor(y, device=device),
+            LSC.features(torch.as_tensor(xv, device=device)), torch.as_tensor(yv, device=device))
+
+
+def train_log_space(name, joint_fn, data, idx, device):
+    """One form's training run (the experiment's ``run_variant``): the
+    weights from seed 0, Adam 3e-2, one step per row of ``idx``; the steps
+    after the warm-up (min(20, steps // 3)) are timed as one window. Returns
+    the record and the trained weights."""
+    lf, y, lfv, yv = data
+    log_w = LSC.init_log_w(torch.Generator().manual_seed(SEED)).to(device).requires_grad_(True)
+    opt = make_optimizer("adam", [log_w], LSC.LR)
+    steps = idx.shape[0]
+    warmup = min(20, steps // 3)
+    cuda = device.type == "cuda"
+    before = read_lme_launches()
+    losses = []
+    for i in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(joint_fn(log_w, lf[idx[i]]), y[idx[i]])
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        if i == warmup:
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+    if cuda:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        window_ms = start.elapsed_time(end)
+    else:
+        window_ms = 1e3 * (time.perf_counter() - t0)
+    step_launches = read_lme_launches() - before
+    with torch.no_grad():
+        val_acc = LSC.accuracy(joint_fn(log_w, lfv), yv)
+    if not bool(torch.isfinite(log_w).all()):
+        raise RuntimeError(f"log_space {name}: the log-weights did not stay finite")
+    return {
+        "metric": "train_run", "model_family": "log_space", "variant": name,
+        "device": _device_name(device), "timer": "cuda_events" if cuda else "host_clock",
+        "steps": steps, "batch_size": int(idx.shape[1]), "lr": LSC.LR,
+        "val_acc": val_acc, "step_ms": window_ms / max(1, steps - 1 - warmup),
+        "first_loss": float(losses[0]), "last_loss": float(losses[-1]),
+        "logmatmulexp_launches_per_step": step_launches / steps,
+        "logmatmulexp_launches_accuracy": read_lme_launches() - before - step_launches,
+    }, log_w.detach()
+
+
+def run_log_space(*, device="cuda", steps=LOG_SPACE_STEPS, batch_size=LOG_SPACE_BATCH):
+    """Trains the classifier in each form on ``device`` from the same
+    weights on the same batches (indices from ``np.random.default_rng(0)``);
+    prints and returns one record per form. Raises unless the forms agree
+    within 0.02 in validation accuracy."""
+    device = _device(device)
+    if steps < 1 or batch_size < 1:
+        raise click.UsageError("--steps and --batch-size must be at least 1")
+    data = log_space_data(device)
+    rng = np.random.default_rng(0)
+    n_train = LOG_SPACE_SIZES[0]
+    idx = torch.as_tensor(np.stack([rng.integers(0, n_train, batch_size) for _ in range(steps)]),
+                          device=device)
+    records = []
+    for name, fn in LOG_SPACE_VARIANTS.items():
+        rec, _ = train_log_space(name, fn, data, idx, device)
+        print(json.dumps(rec))
+        records.append(rec)
+    accs = [r["val_acc"] for r in records]
+    if max(accs) - min(accs) >= LOG_SPACE_ACC_SPREAD:
+        raise RuntimeError(f"log_space: the forms disagree on accuracy: {accs}")
+    return records
+
+
 @click.command()
-@click.option("--model-family", type=click.Choice(("eps", "conv_sbs")), default="eps",
+@click.option("--model-family", type=click.Choice(("eps", "conv_sbs", "logmatmulexp", "log_space")),
+              default="eps",
               help="eps: the flagship EPS step; conv_sbs: the legacy ConvSBS step "
-                   "(2 layers, bond 4, SGD 1e-3)")
+                   "(2 layers, bond 4, SGD 1e-3); logmatmulexp: the log-space matmul chain; "
+                   "log_space: the log-space classifier's training")
 @click.option("--trace-edge", is_flag=True, help="conv_sbs: tensor rings instead of open strings")
-@click.option("--steps", type=int, default=30, help="timed steps")
+@click.option("--steps", type=int, default=None,
+              help="timed steps: default 30; logmatmulexp: timed iterations (20); "
+                   "log_space: training steps (600)")
 @click.option("--warmup", type=int, default=3, help="untimed steps first")
-@click.option("--batch-size", type=int, default=None, help="default 128 (eps), 100 (conv_sbs)")
+@click.option("--batch-size", type=int, default=None,
+              help="default 128 (eps), 100 (conv_sbs), 256 (log_space)")
 @click.option("--epses-specs", type=parse_epses_specs, default="(4,4),(3,6)")
 @click.option("--compare-plain", is_flag=True, help="also time the plain path")
 @click.option("--device", default="cuda",
@@ -365,6 +543,15 @@ def run_conv_sbs(*, device="cuda", steps=30, warmup=3, batch_size=100, trace_edg
               help="microbatches per step: a count that divides the batch size, or auto")
 def main(model_family, trace_edge, steps, warmup, batch_size, epses_specs, compare_plain,
          device, qat, lr, reg_type, reg_coeff, grad_accum_steps):
+    if model_family == "logmatmulexp":
+        run_logmatmulexp(device=device,
+                         num_iterations=CHAIN_ITERATIONS if steps is None else steps)
+        return
+    if model_family == "log_space":
+        run_log_space(device=device, steps=LOG_SPACE_STEPS if steps is None else steps,
+                      batch_size=batch_size or LOG_SPACE_BATCH)
+        return
+    steps = 30 if steps is None else steps
     if model_family == "conv_sbs":
         run_conv_sbs(device=device, steps=steps, warmup=warmup, batch_size=batch_size or 100,
                      trace_edge=trace_edge, compare_plain=compare_plain,

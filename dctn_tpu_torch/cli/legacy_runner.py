@@ -13,7 +13,9 @@ and accuracy, the best-checkpoint npz (``dctn_epoch=…_vacc=….npz``, keys
 ``{layer}/{string}/{core}``, readable by the JAX package's ``load_pytree``)
 and epoch-patience early stopping. Every string runs through the ConvSBS
 kernels on ``--device cuda`` (the default) and their plain versions on
-``--device cpu``.
+``--device cpu``. On the CPU any bond size and ring bond trains, as in the
+JAX runner; on CUDA a string outside the kernels' scope (a ring bond over
+4, a bond over 8) is refused before training (ROADMAP item 16).
 
 Refused until their slices land (ROADMAP names each): ``--mesh-devices`` > 1
 and ``--distributed`` (multi-GPU DP), ``--autotune-kernels`` and
@@ -265,7 +267,7 @@ def run(**kw):
         trace_edge=kw["trace_edge"], cos_sin_squared=kw["cos_sin_squared"],
         input_multiplier=multiplier,
     )
-    check_kernel_scope(cfg)
+    check_kernel_scope(cfg, device.type == "cuda")
     init_kwargs = {}
     if kw["initialization_std"] is not None:
         init_kwargs = {

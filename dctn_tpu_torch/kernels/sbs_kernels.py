@@ -505,11 +505,12 @@ class ConvSBSApply(torch.autograd.Function):
 
 
 @functools.lru_cache(maxsize=None)
-def _string_plan(spec, mim: Optional[bool], mcut: Optional[int]):
+def _string_plan(spec, mim: Optional[bool], mcut: Optional[int], on_cuda: bool):
     """(olr, q^C, merge position or None) of one string and fold family,
-    resolved once per spec; raises for a spec outside the kernels' support."""
+    resolved once per spec and device type. On CUDA it raises for a spec
+    outside the kernels' support; on the CPU the plain folds take any spec."""
     olr, qc, supported = sbs_supported(spec)
-    if not supported:
+    if on_cuda and not supported:
         raise ValueError(
             f"ConvSBS string with {spec.in_num_channels} channels, q^C = {qc}, bonds "
             f"{spec.bond_sizes}: outside the kernels' scope ({_SCOPE_ITEM})"
@@ -533,8 +534,9 @@ def conv_sbs_t(
     meet-in-the-middle fold at ``mcut`` (by default ``_mim_cut``'s position,
     or the sequential fold where that is cheaper), False the sequential
     fold. ``kernels`` is ``KERNELS`` unless a caller runs the plain versions
-    on the card. Raises for a spec outside the kernels' support."""
-    olr, qc, mcut = _string_plan(spec, mim, mcut)
+    on the card. On a CUDA ``xT`` it raises for a spec outside the kernels'
+    support; on the CPU it takes any spec."""
+    olr, qc, mcut = _string_plan(spec, mim, mcut, xT.device.type == "cuda")
     views_t, npix, hp, wp = _merge_channel_views(xT, spec.positions, qc)
     cores_lro = tuple(_core_to_lro(c, o, l, r, qc) for c, (o, l, r) in zip(cores, olr))
     out = ConvSBSApply.apply(views_t, olr, mcut, kernels, *cores_lro)

@@ -113,11 +113,14 @@ def calc_std_of_coordinates_of_windows(
 
 
 @functools.lru_cache(maxsize=None)
-def check_kernel_scope(cfg: ConvSBSModelConfig) -> Tuple[Tuple[sbs.SBSSpecString, ...], ...]:
-    """The model's layer specs, once per config; raises unless the kernels
-    take every string."""
+def check_kernel_scope(
+    cfg: ConvSBSModelConfig, on_cuda: bool = True
+) -> Tuple[Tuple[sbs.SBSSpecString, ...], ...]:
+    """The model's layer specs, once per config and device type. On CUDA it
+    raises unless the kernels take every string; on the CPU the kernels'
+    plain versions take any spec, as the JAX package's XLA fold does."""
     specs = cfg.layer_specs()
-    for li, layer in enumerate(specs):
+    for li, layer in enumerate(specs if on_cuda else ()):
         for spec in layer:
             if not sbs_supported(spec)[2]:
                 raise ValueError(
@@ -151,7 +154,7 @@ def conv_sbs_model_forward_t(
     through ``conv_sbs_t``, the strings' outputs stacked as the next layer's
     channels, the mean over the (10, H', W', B) map's spatial dims."""
     xT = _quantum_t(x, cfg)
-    for layer_spec, layer_params in zip(check_kernel_scope(cfg), params):
+    for layer_spec, layer_params in zip(check_kernel_scope(cfg, xT.is_cuda), params):
         outsT = _layer_t(layer_spec, layer_params, xT, kernels)
         xT = torch.stack(outsT, dim=0)
     return outsT[0].mean(dim=(1, 2)).T
@@ -182,7 +185,7 @@ def scale_layers_using_batch(
     batch-minor pipeline; returns new params."""
     xT = _quantum_t(x, cfg)
     new_params = []
-    for layer_spec, layer_params in zip(check_kernel_scope(cfg), params):
+    for layer_spec, layer_params in zip(check_kernel_scope(cfg, xT.is_cuda), params):
         scaled = []
         for spec, cores, out in zip(layer_spec, layer_params,
                                     _layer_t(layer_spec, layer_params, xT, kernels)):

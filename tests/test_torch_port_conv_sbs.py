@@ -134,6 +134,31 @@ def test_gradients_and_layer0_input_gradient_match_jax_xla_f64(trace_edge):
         _close_to_order_one(a.grad, b, what=f"core {i}, no d_views")
 
 
+@pytest.mark.parametrize("bond,trace_edge", [(5, True), (9, False)])
+def test_strings_outside_the_kernels_scope_match_jax_xla_f64_on_cpu(bond, trace_edge):
+    """A ring of bond 5 and open strings of bond 9 are outside the CUDA
+    kernels' scope (ROADMAP item 16), which the card refuses; on the CPU the
+    plain folds take them, as the JAX package's XLA fold does. Logits and
+    the cores' gradients on the runner's recipe (the layers scaled by the
+    port's ``scale_layers_using_batch``, which takes these strings too)."""
+    jcfg, tcfg, np_params, x = _setup(2, trace_edge, bond=bond)
+    assert not all(
+        tm.sbs_supported(spec)[2] for layer in tcfg.layer_specs() for spec in layer
+    )
+    y = np.array([1, 4, 9])
+    jp = jax.tree_util.tree_map(jnp.asarray, np_params)
+    want = jax.jit(lambda p, xx: jm.conv_sbs_model_forward(p, jcfg, xx))(jp, jnp.asarray(x))
+    gp_j = jax.jit(jax.grad(lambda p, xx: _jax_ce(jcfg, p, xx, jnp.asarray(y))))(
+        jp, jnp.asarray(x)
+    )
+    model = tm.ConvSBSModel(interop.conv_sbs_params_from_numpy(np_params), tcfg)
+    logits = model(torch.from_numpy(x))
+    _close_to_order_one(logits, want, what="logits")
+    torch.nn.functional.cross_entropy(logits, torch.from_numpy(y)).backward()
+    for i, (a, b) in enumerate(zip(model.parameters(), jax.tree_util.tree_leaves(gp_j))):
+        _close_to_order_one(a.grad, b, what=f"core {i}")
+
+
 @pytest.mark.parametrize("trace_edge", [False, True])
 def test_scale_layers_using_batch_matches_jax_f64(trace_edge):
     jcfg, tcfg, np_params, x = _setup(2, trace_edge, batch=4, scaled=False)

@@ -8,12 +8,15 @@ machine run it without the conftest:
 
 On a host without a CUDA device every test skips itself.
 
-Tolerance 1e-4·max|ref| throughout: kernel and plain version are both
+Tolerance 1e-4·max|ref| unless said: kernel and plain version are both
 float32 and differ only in the order of their sums (the ConvSBS folds'
 sums over ≤ 160 bond and output terms per pixel and, in d_cores, over up
 to 57,600 pixels). The int8 forward's
 quantized operands and int32 sums are exact on both sides, so its saved t
-and its column scales are held bit for bit.
+and its column scales are held bit for bit. K13, the log-space product, is
+held per entry of its log output (``_assert_lme_close``: a random walk of R
+roundings plus ulps of the larger of the output and the summed shifts), with
+−inf where the plain version has it and no NaN.
 """
 
 import math
@@ -25,6 +28,8 @@ from dctn_tpu_torch.kernels import eps_kernels as K
 from dctn_tpu_torch.kernels import eps_q8_kernels as Q8
 from dctn_tpu_torch.kernels import sbs_kernels as S
 from dctn_tpu_torch.models import conv_sbs_model as CSM
+from dctn_tpu_torch.ops import sbs as SBS
+from dctn_tpu_torch.utils.pos2d import Pos2D
 
 REL_TOL = 1e-4
 
@@ -581,3 +586,153 @@ def test_sbs_kernels_refuse_what_they_do_not_take(cuda_device):
         S.sbs_fwd(views, [cores[0][:-1]] + cores[1:], olr, 4)
     with pytest.raises(ValueError, match="merge cut"):
         S.sbs_bwd(views, cores, g, olr, 9, True)
+
+
+def _wide_string(bonds, channels):
+    """A two-core string outside the kernels' scope (the specs of
+    test_torch_port_sbs.py::test_support_rule_and_kernel_plan)."""
+    cores = tuple(SBS.SBSSpecCore(Pos2D(0, w), 1) for w in (0, 1))
+    return SBS.SBSSpecString(cores, bonds, channels, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bonds,channels", [((5, 5), 1), ((1, 9), 1), ((1, 2), 4)], ids=["ring5", "bond9", "four_ch"]
+)
+def test_repaired_sbs_scope_still_refuses_wide_strings_on_cuda(cuda_device, bonds, channels):
+    """Strings outside the kernels' scope (a ring of bond 5, a bond of 9, 4
+    channels): on the CPU the plain folds take them (test_torch_port_sbs.py,
+    test_torch_port_conv_sbs.py); on the card ``conv_sbs_t`` refuses them,
+    naming the ROADMAP item that lifts the scope."""
+    spec = _wide_string(bonds, channels)
+    assert not S.sbs_supported(spec)[2]
+    xT = torch.rand((channels, 2, 6, 6, 2), device=cuda_device)
+    cores = [torch.randn(s.as_tuple(), device=cuda_device) for s in spec.shapes]
+    with pytest.raises(ValueError, match="item 16"):
+        S.conv_sbs_t(spec, cores, xT)
+
+
+@pytest.mark.cuda
+def test_repaired_model_scope_still_refuses_ring_bond_5_on_cuda(cuda_device):
+    """The model with ring bond 5 trains on the CPU (test_torch_port_conv_sbs.py)
+    and is refused on the card, naming ROADMAP item 16."""
+    cfg = CSM.ConvSBSModelConfig(2, 5, trace_edge=True)
+    params = CSM.init_conv_sbs_model(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(ValueError, match="item 16"):
+        CSM.ConvSBSModel(params, cfg, device=cuda_device)(torch.rand((2, 28, 28), device=cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# K13, the fused log-space product
+
+
+def _lme_inputs(dev, theta, r, i, offset=0.0, neg_inf=False, seed=0):
+    g_ = torch.Generator(device=dev).manual_seed(seed)
+    la = torch.randn((theta, r), generator=g_, device=dev) * 3 + offset
+    lb = torch.randn((r, i), generator=g_, device=dev) * 3 - offset
+    if neg_inf:
+        la[min(3, theta - 1)] = -math.inf
+        lb[:, min(5, i - 1)] = -math.inf
+        la[torch.rand((theta, r), generator=g_, device=dev) < 0.1] = -math.inf
+        lb[torch.rand((r, i), generator=g_, device=dev) < 0.1] = -math.inf
+    return la, lb
+
+
+def _assert_lme_close(got, ref, r, amax, bmax):
+    """K13 against its plain version: both float32, the sum over R in other
+    orders (the kernel's chunks and splits of R, cuBLAS's blocking), so
+    log(sum) differs by about √R·2⁻²⁴ (a random walk of R roundings), and
+    adding the shifts rounds at an ulp of log(sum) + amax and of the output,
+    whose magnitudes |amax| + |bmax| and |ref| bound: per entry 16·2⁻²⁴·√R +
+    8·2⁻²⁴·max(|ref|, |amax| + |bmax|). −inf only where the plain version
+    has it, and no NaN."""
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert not bool(torch.isnan(got).any())
+    assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
+    fin = torch.isfinite(ref)
+    shift = (amax.abs() + bmax.abs()).expand_as(ref)[fin]
+    tol = 2.0**-24 * (16 * math.sqrt(r) + 8 * torch.maximum(ref[fin].abs(), shift))
+    assert bool(((got[fin] - ref[fin]).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "theta,r,i,offset,neg_inf",
+    [
+        (256, 256, 256, 0.0, False),  # a chain link: R split 4 ways
+        (256, 98, 490, 0.0, True),  # the classifier's step shape, R split 2 ways
+        (100, 60, 37, 0.0, False),  # ragged edges, R not split
+        (100, 60, 37, 80.0, True),  # offsets of ±80, −inf rows, columns and entries
+        (256, 32768, 256, 0.0, False),  # the large-R regime, R split 17 ways
+        (1, 1, 1, 0.0, False),
+    ],
+)
+def test_lme_kernel_matches_plain(cuda_device, theta, r, i, offset, neg_inf):
+    from dctn_tpu_torch.kernels import logmatmulexp_kernels as L
+    from dctn_tpu_torch.ops.logmatmulexp import max_shifts
+
+    la, lb = _lme_inputs(cuda_device, theta, r, i, offset, neg_inf)
+    amax, bmax = max_shifts(la, lb)
+    before = L.logmatmulexp_fwd.launches
+    got = L.logmatmulexp_fwd(la, lb, amax, bmax)
+    torch.cuda.synchronize()
+    assert L.logmatmulexp_fwd.launches == before + 1
+    ref = L.logmatmulexp_fwd_reference(la, lb, amax, bmax)
+    _assert_lme_close(got, ref, r, amax, bmax)
+    if neg_inf:
+        assert bool((got[min(3, theta - 1)] == -math.inf).all())
+        assert bool((got[:, min(5, i - 1)] == -math.inf).all())
+    # a fixed split of R and no atomics: the same bits on every run
+    assert torch.equal(L.logmatmulexp_fwd(la, lb, amax, bmax), got)
+
+
+@pytest.mark.cuda
+def test_lme_kernel_on_the_classifiers_block_diagonal(cuda_device):
+    """The classifier's operands: features (256, 98) and the block-diagonal
+    weights (98, 490), −inf off the blocks."""
+    from dctn_tpu_torch.kernels import logmatmulexp_kernels as L
+    from dctn_tpu_torch.models import log_space_classifier as LSC
+    from dctn_tpu_torch.ops.logmatmulexp import max_shifts
+
+    x = torch.rand((256, 28, 28), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    la = LSC.features(x).reshape(256, 98)
+    lb = LSC.block_diagonal(LSC.init_log_w(torch.Generator().manual_seed(0)).to(cuda_device))
+    amax, bmax = max_shifts(la, lb)
+    _assert_lme_close(L.logmatmulexp_fwd(la, lb, amax, bmax),
+                      L.logmatmulexp_fwd_reference(la, lb, amax, bmax), 98, amax, bmax)
+
+
+@pytest.mark.cuda
+def test_lme_gradients_match_the_plain_path(cuda_device):
+    from dctn_tpu_torch.kernels import logmatmulexp_kernels as L
+
+    la, lb = _lme_inputs(cuda_device, 100, 300, 70, neg_inf=True)
+    g = torch.randn((100, 70), generator=torch.Generator(device=cuda_device).manual_seed(1),
+                    device=cuda_device)
+    grads = []
+    for fwd in (L.KERNEL, L.PLAIN):
+        a, b = la.clone().requires_grad_(True), lb.clone().requires_grad_(True)
+        out = L.logmatmulexp_kernel(a, b, fwd)
+        grads.append(torch.autograd.grad(out, (a, b), torch.where(torch.isfinite(out), g, 0.0)))
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all())
+        _assert_close(a, b)
+
+
+@pytest.mark.cuda
+def test_lme_kernel_refuses_what_it_does_not_take(cuda_device):
+    from dctn_tpu_torch.kernels import logmatmulexp_kernels as L
+    from dctn_tpu_torch.ops.logmatmulexp import max_shifts
+
+    la, lb = _lme_inputs(cuda_device, 8, 16, 4)
+    amax, bmax = max_shifts(la, lb)
+    with pytest.raises(ValueError, match="float32"):
+        L.logmatmulexp_fwd(la.double(), lb.double(), amax.double(), bmax.double())
+    with pytest.raises(ValueError, match="float32"):
+        L.logmatmulexp_kernel(la.half(), lb.half())
+    with pytest.raises(ValueError, match="on cpu"):
+        L.logmatmulexp_fwd(la, lb.cpu(), amax, bmax)
+    with pytest.raises(ValueError, match="not .Θ, R. and .R, I."):
+        L.logmatmulexp_fwd(la, lb[:-1], amax, bmax)
+    with pytest.raises(ValueError, match="shifts"):
+        L.logmatmulexp_fwd(la, lb, amax.T, bmax)

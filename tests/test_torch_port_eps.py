@@ -35,7 +35,9 @@ def test_port_imports_no_jax():
         "dctn_tpu_torch.bench, dctn_tpu_torch.train.step, dctn_tpu_torch.train.optimizers, "
         "dctn_tpu_torch.kernels.sbs_kernels, dctn_tpu_torch.ops.sbs, dctn_tpu_torch.ops.rank_one, "
         "dctn_tpu_torch.utils.pos2d, dctn_tpu_torch.models.conv_sbs_model, "
-        "dctn_tpu_torch.cli.legacy_runner, dctn_tpu_torch.train.checkpoint\n"
+        "dctn_tpu_torch.cli.legacy_runner, dctn_tpu_torch.train.checkpoint, "
+        "dctn_tpu_torch.ops.logmatmulexp, dctn_tpu_torch.kernels.logmatmulexp_kernels, "
+        "dctn_tpu_torch.models.log_space_classifier, dctn_tpu_torch.utils.benchmark\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dctn_tpu'))\n"
         "assert not bad, bad"
     )

@@ -57,6 +57,29 @@ def test_end_to_end_run_writes_a_checkpoint_jax_reads(tmp_path):
     assert all(bool(jnp.all(jnp.isfinite(a))) for a in leaves)
 
 
+def test_ring_bond_5_outside_the_kernels_scope_trains_on_cpu(tmp_path):
+    """``--trace-edge --bond-dim-size 5`` (outside the CUDA kernels' scope,
+    refused on the card) trains on the CPU on the plain folds, as the JAX
+    runner trains it on its XLA fold; its checkpoint loads in the JAX
+    package."""
+    kw = _common(tmp_path)
+    kw["bond_dim_size"] = 5
+    params, best_acc = trunner.run(
+        **kw, device="cpu", trace_edge=True, optimizer_type="sgd", learning_rate=1e-3,
+        epochs=1, warmup_num_epochs=0, make_input_window_std_one=True,
+        scale_layers_using_batch=64,
+    )
+    best = [f for f in os.listdir(tmp_path) if f.startswith("dctn_epoch=")]
+    assert len(best) == 1 and 0.0 <= best_acc <= 1.0
+    template = jm.init_conv_sbs_model(
+        jax.random.PRNGKey(0), jm.ConvSBSModelConfig(2, 5, trace_edge=True)
+    )
+    leaves = jax.tree_util.tree_leaves(load_pytree(template, str(tmp_path / best[0])))
+    assert [a.shape for a in leaves] == [tuple(c.shape) for layer in params for s in layer
+                                         for c in s]
+    assert all(bool(jnp.all(jnp.isfinite(a))) for a in leaves)
+
+
 def _split():
     """The runners' train pixels and validation split of the synthetic data
     (seed 0)."""

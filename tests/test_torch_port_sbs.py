@@ -239,16 +239,20 @@ def test_merge_and_core_layout_match_jax():
 
 def test_support_rule_and_kernel_plan():
     """The support rule refuses what ``sbs_plan`` refuses outside its VMEM
-    clause; the launch plan of every legacy string, both families, forward
-    and backward, fits the shared memory with at least 32 threads."""
+    clause; on the CPU the plain folds still take those strings (the card
+    refuses them: ``test_torch_port_cuda.py``) and equal the reference-layout
+    fold in float64; the launch plan of every legacy string, both families,
+    forward and backward, fits the shared memory with at least 32 threads."""
     _, ring5 = _specs(([(0, 0), (0, 1)], (1, 1), (5, 5), 1))
     _, bond9 = _specs(([(0, 0), (0, 1)], (1, 1), (1, 9), 1))
     _, four_ch = _specs(([(0, 0), (0, 1)], (1, 1), (1, 2), 4))
     for spec in (ring5, bond9, four_ch):
         assert not K.sbs_supported(spec)[2]
-        with pytest.raises(ValueError, match="ROADMAP"):
-            K.conv_sbs_t(spec, [torch.zeros(s.as_tuple()) for s in spec.shapes],
-                         torch.zeros((spec.in_num_channels, 2, 4, 4, 1)))
+        cores, x = _inputs(spec, np.float64, size=4)
+        cores = [torch.from_numpy(c) for c in cores]
+        got = K.conv_sbs_t(spec, cores, torch.from_numpy(_xT(x)))
+        want = tsbs.conv_sbs(spec, cores, torch.from_numpy(x))
+        _close(got.permute(3, 1, 2, 0), want, 1e-10)
     from dctn_tpu_torch.models.conv_sbs_model import ConvSBSModelConfig
 
     for trace_edge in (False, True):
