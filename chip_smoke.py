@@ -8,13 +8,16 @@ Run from the root of a checkout, with no arguments:
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and builds every kernel of the serving, int8 serving, training,
    QAT and legacy ConvSBS paths from ``dctn_tpu_torch/csrc`` (one ``nvcc``
-   per source, all at once), printing each build time and the compiler's
-   register report.
+   per source, all at once), printing each build time, the compiler's
+   register report and the count of tensor-core instructions (HMMA, HGMMA,
+   IMMA; ``cuobjdump -sass``) in each library; it fails if the 3xTF32
+   sources (``eps_dcore``, ``eps_dviews_t``) have no HMMA or HGMMA.
 2. Holds each kernel against its plain PyTorch version at the layer shapes
    of the flagship, the three-EPS ``(2,4),(2,6),(2,12)`` and the deep
    ``(4,4),(3,12),(2,24)`` models at batch 128 and at small shapes (every
-   factor in the matmul half; a ragged pixel count), and the recompute
-   kernel also at the deep model's layer 1 at batch 2048, with median CUDA-event
+   factor in the matmul half; a ragged pixel count), and at the batches
+   the deep model's step runs (``eps_dcore`` at each layer at 512 and 2048
+   images, the recompute kernel at layer 1 at 2048), with median CUDA-event
    times of the kernel, the plain version and one library call of the same
    products on materialized operands (cuBLAS ``torch.matmul`` in f32,
    ``torch._int_mm`` in int8; the products alone, which the port never
@@ -114,6 +117,7 @@ import concurrent.futures
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -128,7 +132,9 @@ BATCH = 128
 SEED = 0
 # kernel against plain: both sides are float32 and only the summation order
 # differs (sums of 256-1536 terms in the forward and d_views, of up to 80,000
-# pixels in d_cmt), far inside 1e-4 of the largest entry
+# pixels in d_cmt; eps_dcore and the d_views kernel multiply in 3xTF32 on
+# the tensor cores, which keeps float32 accuracy), far inside 1e-4 of the
+# largest entry
 REL_TOL = 1e-4
 # the float32 kernel path against the float64 CPU step, 3 Adam steps at
 # batch 4 and lr 1e-4 (at the bench's 3e-3 the randomly initialized
@@ -162,7 +168,7 @@ DEEP_STEPS = 3
 # over 2,048 images summed in another order; the EPS cores' gradients
 # 6.7e-8 to 2.3e-7), so 3e-5, 5.4 times the largest. The recompute kernel
 # itself is held at this shape within REL_TOL in phase 2
-# (recompute_at_deep_batch).
+# (kernels_at_deep_batch).
 DEEP_ACCUM_SEEDS = (0, 1)
 DEEP_ACCUM_TOL = 3e-5
 # the int8 path against the plain int8 path: a last-bit difference in layer
@@ -182,8 +188,13 @@ Q8_SERVED_REF = 0.051360
 Q8_SERVED_TOL = 1e-3
 Q8_BUDGET = 0.05
 # an H100 SXM at its 700 W limit (NVIDIA's data sheet): float32 outside the
-# tensor cores, dense int8 on the tensor cores, and HBM3
+# tensor cores, dense int8 on the tensor cores, and HBM3. The f32 kernels'
+# matrix products are counted at the card's fastest float32-accurate rate,
+# 3xTF32 on the tensor cores (three TF32 products per hi/lo split pair,
+# csrc/tf32x3.cuh): a third of the 495 TFLOP/s dense TF32 peak. Their
+# elementwise float32 work stays at the CUDA cores' 67.
 F32_PEAK_FLOPS = 67e12
+TF32X3_PEAK_FLOPS = 495e12 / 3
 INT8_PEAK_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 KERNELS = {
@@ -336,8 +347,26 @@ def median_ms(fns, reps: int):
     return [statistics.median(ts) for ts in times]
 
 
+def tensor_core_instructions(path) -> dict:
+    """The tensor-core instructions in a built library's SASS (``cuobjdump
+    -sass`` of the toolkit that built it): counts of HMMA (mma.sync on
+    f16/bf16/tf32), HGMMA (wgmma) and IMMA (int8 mma.sync)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    ops = re.findall(r"\b(HMMA|HGMMA|IMMA)\b", sass)
+    return {op: ops.count(op) for op in ("HMMA", "HGMMA", "IMMA")}
+
+
+# the sources whose f32 products run on the tensor cores in 3xTF32
+TF32X3_SOURCES = ("eps_dcore", "eps_dviews_t")
+
+
 def build_all(build) -> None:
-    """Phase 1: one nvcc per source, all started together."""
+    """Phase 1: one nvcc per source, all started together; the compiler's
+    register report and the tensor-core instructions of each library."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
         done = {name: pool.submit(lambda n=name: (build.load_library(n), time.perf_counter() - t0))
@@ -347,6 +376,11 @@ def build_all(build) -> None:
             log = build.library_path(name).with_suffix(".log")
             if log.exists():
                 print(log.read_text().strip())
+            counts = tensor_core_instructions(build.library_path(name))
+            print(f"{name}: tensor-core instructions in its SASS {counts}")
+            if name in TF32X3_SOURCES:
+                check(counts["HMMA"] + counts["HGMMA"] > 0,
+                      f"{name}: no HMMA or HGMMA instruction in its SASS")
 
 
 def layer_dims(specs):
@@ -376,12 +410,15 @@ def kernel_shapes():
     return shapes + [("n2=0", 4, 3, 4, 5, 1000), ("ragged npix", 6, 2, 3, 3, 777)]
 
 
-def bound_ms(nbytes: float, flops: float = 0.0, int8_ops: float = 0.0):
+def bound_ms(nbytes: float, flops: float = 0.0, int8_ops: float = 0.0, mm_flops: float = 0.0):
     """The least time of the work on the card: (ms, what bounds it), the
-    operations of each type at that type's peak. The f32 and the int8
-    operations run on separate pipes (CUDA cores, tensor cores), which can
-    overlap, so the slower of the two bounds the operations."""
-    t_ops = max(flops / F32_PEAK_FLOPS, int8_ops / INT8_PEAK_OPS)
+    operations of each type at that type's peak: ``flops`` elementwise
+    float32 on the CUDA cores, ``mm_flops`` float32 matrix products at the
+    3xTF32 rate and ``int8_ops`` at the int8 rate, both on the tensor cores.
+    The CUDA cores and the tensor cores can overlap, so the slower of the
+    two bounds the operations."""
+    t_ops = max(flops / F32_PEAK_FLOPS,
+                mm_flops / TF32X3_PEAK_FLOPS + int8_ops / INT8_PEAK_OPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -422,7 +459,8 @@ def kernel_vs_plain(K, Q8, dev):
                                  "deep layer 1"),
     }
     res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0, "flops": 0.0, "int8_ops": 0.0, "bytes": 0.0} for k in runs}
+               "bound_ms": 0.0, "flops": 0.0, "int8_ops": 0.0, "mm_flops": 0.0, "bytes": 0.0}
+           for k in runs}
     g_ = torch.Generator(device=dev).manual_seed(SEED)
     for label, n, q, n1, o, npix in kernel_shapes():
         views = torch.rand((n, q, npix), generator=g_, device=dev)
@@ -445,38 +483,38 @@ def kernel_vs_plain(K, Q8, dev):
             "eps_fwd": (lambda: K.eps_fwd(views, cmt, n1, o),
                         lambda: K.eps_fwd_reference(views, cmt, n1, o),
                         lambda: torch.matmul(cmt, u),
-                        gemm + 2.0 * z * npix, f4 * (views.numel() + cmt.numel() + o * npix)),
+                        (gemm, 2.0 * z * npix), f4 * (views.numel() + cmt.numel() + o * npix)),
             "eps_fwd_t": (lambda: K.eps_fwd(views, cmt, n1, o, save_t=True),
                           lambda: K.eps_fwd_reference(views, cmt, n1, o, save_t=True),
                           lambda: torch.matmul(cmt, u),
-                          gemm + 2.0 * z * npix,
+                          (gemm, 2.0 * z * npix),
                           f4 * (views.numel() + cmt.numel() + o * npix + z * npix)),
             "eps_dcore": (lambda: K.eps_dcore(views, g, n1, o),
                           lambda: K.eps_dcore_reference(views, g, n1, o),
                           lambda: torch.matmul(kr2, u.T),
-                          gemm, f4 * (views.numel() + g.numel() + z * a)),
+                          (gemm, 0.0), f4 * (views.numel() + g.numel() + z * a)),
             "eps_dviews_t": (lambda: K.eps_dviews_t(views, cmt, g, t, n1, o),
                              lambda: K.eps_dviews_t_reference(views, cmt, g, t, n1, o),
                              lambda: torch.matmul(cmt.T, kr2),
-                             gemm + 2.0 * z * npix,
+                             (gemm, 2.0 * z * npix),
                              f4 * (2 * views.numel() + cmt.numel() + g.numel()
                                    + (0 if t is None else t.numel()))),
             # d_u and t = cmt·u, then the sum over o (2 per t entry)
             "eps_dviews_recompute": (lambda: K.eps_dviews_recompute(views, cmt, g, n1, o),
                                      lambda: K.eps_dviews_recompute_reference(views, cmt, g, n1, o),
                                      lambda: (torch.matmul(cmt.T, kr2), torch.matmul(cmt, u)),
-                                     2 * gemm + (2.0 * z * npix if n1 < n else 0.0),
+                                     (2 * gemm, 2.0 * z * npix if n1 < n else 0.0),
                                      f4 * (2 * views.numel() + cmt.numel() + g.numel())),
             # int8: the product's operations in int8, dequantizing (2 per t
             # entry) and the sum over b (2) in f32
             "eps_fwd_q8": (lambda: Q8.eps_fwd_q8(views, wq, sw, n1, o),
                            lambda: Q8.eps_fwd_q8_reference(views, wq, sw, n1, o),
-                           int_mm, 4.0 * z * npix, q8_bytes, gemm),
+                           int_mm, (0.0, 4.0 * z * npix), q8_bytes, gemm),
             "eps_fwd_q8_t": (lambda: Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True),
                              lambda: Q8.eps_fwd_q8_reference(views, wq, sw, n1, o, save_t=True),
-                             int_mm, 4.0 * z * npix, q8_bytes + f4 * z * npix, gemm),
+                             int_mm, (0.0, 4.0 * z * npix), q8_bytes + f4 * z * npix, gemm),
         }
-        for name, (kern, plain, lib, flops, nbytes, *int8_ops) in cases.items():
+        for name, (kern, plain, lib, (mm_flops, flops), nbytes, *int8_ops) in cases.items():
             if label not in runs[name]:
                 continue
             got, ref = kern(), plain()
@@ -495,7 +533,8 @@ def kernel_vs_plain(K, Q8, dev):
                 errs.append(f"{which} max|d|={err:.3e} tol={REL_TOL * scale:.3e}")
                 res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
             t_k, t_p, *t_l = median_ms([kern, plain] + ([lib] if lib else []), reps=10)
-            ops = {"flops": flops, "int8_ops": int8_ops[0] if int8_ops else 0.0}
+            ops = {"flops": flops, "int8_ops": int8_ops[0] if int8_ops else 0.0,
+                   "mm_flops": mm_flops}
             b_ms, _ = bound_ms(nbytes, **ops)
             products = 2 if name == "eps_dviews_recompute" else 1
             print(
@@ -515,49 +554,70 @@ def kernel_vs_plain(K, Q8, dev):
                     r[key] += v
         del views, cmt, g, t, u, kr2, wq, sw, uq
     for r in res.values():
-        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"), r.pop("int8_ops"))
+        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"), r.pop("int8_ops"),
+                                                r.pop("mm_flops"))
     return res
 
 
-def recompute_at_deep_batch(K, dev, res) -> None:
-    """Phase 2, the recompute kernel at the largest shape it runs at: the
-    deep model's layer 1 at batch 2048 (1,083,392 pixels), against its plain
-    version, which materializes u, t, kr2 and d_u there (~36 GB of the
-    card's 80). Its max |Δ| joins the kernel's in ``res``; its times are
+def kernels_at_deep_batch(K, dev, res) -> None:
+    """Phase 2 at the largest shapes the deep step runs, each kernel
+    against its plain version: ``eps_dcore`` at each of the deep model's
+    layers at 512 images (a microbatch at accumulation 4) and at 2048 (up
+    to 1,280,000 pixels), and the recompute kernel at layer 1 at 2048 (the
+    arm that batch takes). The plain versions materialize u, kr2 (and t and
+    d_u) there (up to ~36 GB of the card's 80). The tensor cores truncate
+    their sums, so a longer sum over pixels is the harder case for
+    ``eps_dcore``. Max |Δ| joins the kernel's in ``res``; the times are
     printed, not summed into the JSON line (that sums batch 128)."""
-    n, q, n1, o, h = layer_dims(DEEP)[1]
-    npix = DEEP_BATCH * h * h
-    g_ = torch.Generator(device=dev).manual_seed(SEED)
-    views = torch.rand((n, q, npix), generator=g_, device=dev)
-    cmt = torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev) * q ** (-n / 2)
-    g = torch.randn((o, npix), generator=g_, device=dev)
-    z, a = cmt.shape
+    dims = layer_dims(DEEP)
+    cases = [("eps_dcore", layer, batch) for batch in (DEEP_BATCH // 4, DEEP_BATCH)
+             for layer in range(len(dims))] + [("eps_dviews_recompute", 1, DEEP_BATCH)]
+    for name, layer, batch in cases:
+        n, q, n1, o, h = dims[layer]
+        npix = batch * h * h
+        g_ = torch.Generator(device=dev).manual_seed(SEED)
+        views = torch.rand((n, q, npix), generator=g_, device=dev)
+        cmt = torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev) * q ** (-n / 2)
+        g = torch.randn((o, npix), generator=g_, device=dev)
+        z, a = cmt.shape
+        if name == "eps_dcore":
+            def kern():
+                return K.eps_dcore(views, g, n1, o)
 
-    def kern():
-        return K.eps_dviews_recompute(views, cmt, g, n1, o)
+            def plain():
+                return K.eps_dcore_reference(views, g, n1, o)
 
-    def plain():
-        return K.eps_dviews_recompute_reference(views, cmt, g, n1, o)
+            ops = {"nbytes": 4.0 * (views.numel() + g.numel() + z * a),
+                   "mm_flops": 2.0 * z * a * npix}
+        else:
+            def kern():
+                return K.eps_dviews_recompute(views, cmt, g, n1, o)
 
-    got = kern()
-    ref = plain()
-    torch.cuda.synchronize()
-    label = f"eps_dviews_recompute [deep layer 1 at batch {DEEP_BATCH}]"
-    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
-    check(got.shape == ref.shape, f"{label}: shape {tuple(got.shape)}")
-    check(torch.isfinite(got).all().item(), f"{label}: non-finite out")
-    check(err <= REL_TOL * scale, f"{label}: differs from plain by {err} (max|ref| {scale})")
-    res["eps_dviews_recompute"]["max_abs_err"] = max(res["eps_dviews_recompute"]["max_abs_err"], err)
-    del got, ref
-    t_k, t_p = median_ms([kern, plain], reps=2)
-    b_ms, _ = bound_ms(4.0 * (2 * views.numel() + cmt.numel() + g.numel()),
-                       4.0 * z * a * npix + 2.0 * z * npix)
-    print(f"{label} n={n} q={q} n1={n1} O={o} npix={npix}: max|d|={err:.3e} "
-          f"tol={REL_TOL * scale:.3e} (1e-4*max|ref|); kernel {t_k:.4f} ms "
-          f"({4.0 * z * a * npix / t_k / 1e9:.2f} TFLOP/s of the products), plain {t_p:.4f} ms, "
-          f"bound {b_ms:.4f} ms; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
-    del views, cmt, g
-    torch.cuda.empty_cache()
+            def plain():
+                return K.eps_dviews_recompute_reference(views, cmt, g, n1, o)
+
+            ops = {"nbytes": 4.0 * (2 * views.numel() + cmt.numel() + g.numel()),
+                   "flops": 2.0 * z * npix, "mm_flops": 4.0 * z * a * npix}
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = kern()
+        ref = plain()
+        torch.cuda.synchronize()
+        label = f"{name} [deep layer {layer} at batch {batch}]"
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        check(got.shape == ref.shape, f"{label}: shape {tuple(got.shape)}")
+        check(torch.isfinite(got).all().item(), f"{label}: non-finite out")
+        check(err <= REL_TOL * scale, f"{label}: differs from plain by {err} (max|ref| {scale})")
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        del got, ref
+        t_k, t_p = median_ms([kern, plain], reps=2)
+        b_ms, _ = bound_ms(**ops)
+        print(f"{label} n={n} q={q} n1={n1} O={o} npix={npix}: max|d|={err:.3e} "
+              f"tol={REL_TOL * scale:.3e} (1e-4*max|ref|; {err / (REL_TOL * scale):.1%} of it); "
+              f"kernel {t_k:.4f} ms ({ops['mm_flops'] / t_k / 1e9:.2f} TFLOP/s of the products), "
+              f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+        del views, cmt, g
+        torch.cuda.empty_cache()
 
 
 def device_ms_per_call(fn, calls: int, out_path: str) -> tuple:
@@ -682,7 +742,8 @@ def launches_per_step(specs, batch, accum, qat, keys):
         counts[fwd] += 1
         counts[f"{fwd}_t"] += arm == "saved_t"
         counts["eps_dcore"] += 1
-        counts["eps_dcore_sum"] += K._dcore_slices(o * q ** (n - n1), q**n1, npix) > 1
+        counts["eps_dcore_sum"] += K._dcore_slices(o * q ** (n - n1), q**n1, npix,
+                                                   K._sm_count(torch.device("cuda", 0))) > 1
         counts["eps_dviews_t"] += arm == "saved_t"
         counts["eps_dviews_recompute"] += arm == "recompute"
     return {k: v * accum for k, v in counts.items()}
@@ -995,7 +1056,7 @@ def lme_kernel_vs_plain(L, LSC, max_shifts, dev):
         call_ms = median_ms(fns, reps=10)
         t_k, t_p, t_l = (device_ms_per_call(fn, LME_PROFILE_CALLS, os.devnull)[0] for fn in fns)
         nbytes, flops = 4.0 * (theta * r + r * i + theta * i), 2.0 * theta * r * i
-        b_ms, by = bound_ms(nbytes, flops)
+        b_ms, by = bound_ms(nbytes, mm_flops=flops)
         print(f"{tag}: max|d| {err:.3e} (tol {LME_WALK}*2^-24*sqrt(R) + "
               f"{LME_ULPS}*2^-24*max(|ref|, |amax|+|bmax|) "
               f"per entry, {float(tol.max()) if tol.numel() else 0.0:.3e} at most), {n_inf} "
@@ -1012,7 +1073,7 @@ def lme_kernel_vs_plain(L, LSC, max_shifts, dev):
             res["bytes"] += nbytes
             res["flops"] += flops
         del la, lb, amax, bmax, ea, eb, got, ref
-    res["bound_ms"], res["bound_by"] = bound_ms(res.pop("bytes"), res.pop("flops"))
+    res["bound_ms"], res["bound_by"] = bound_ms(res.pop("bytes"), mm_flops=res.pop("flops"))
     return {"logmatmulexp": res}
 
 
@@ -1431,7 +1492,7 @@ def main(argv=None) -> int:
     # phase 2: each kernel against its plain version
     cfg = EPSesPlusLinearConfig(epses_specs=FLAGSHIP, image_size=28, q0=2)
     numbers = kernel_vs_plain(K, Q8, dev)
-    recompute_at_deep_batch(K, dev, numbers)
+    kernels_at_deep_batch(K, dev, numbers)
     numbers.update(sbs_kernels_vs_plain(S, CSM, dev))
     numbers.update(lme_kernel_vs_plain(L, LSC, max_shifts, dev))
 

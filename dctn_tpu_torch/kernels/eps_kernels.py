@@ -51,13 +51,18 @@ _MAX_B2 = 512
 _MAX_FACTOR_ROWS = 256
 _MAX_OUT_SIZE = 65535
 _MAX_SMEM_BYTES = 227 * 1024
-_DCORE_TILE = 64
+_DCORE_TILE = 128
 _DCORE_MAX_SLICES = 64
-# eps_dcore splits the pixels of a layer whose (Z, A) tiles are too few to
-# fill the card: enough slices for about two CTAs on each of an H100's 132
-# SMs, each slice at least 4096 pixels long
-_DCORE_TARGET_CTAS = 264
-_DCORE_MIN_SLICE_PIXELS = 4096
+# eps_dcore splits the pixels of a layer whose 128 x 128 (Z, A) tiles would
+# leave more than half of the card's SMs idle (an H100 SXM has 132): into as
+# many slices as make about two CTAs per SM (two fit beside each other, so
+# one's operand build runs beside the other's product), each slice at least
+# 1024 pixels long. A layer with more tiles (the flagship's layer 1: 96)
+# takes one slice and no sum.
+_DCORE_MIN_SLICE_PIXELS = 1024
+# X rows of eps_dcore's Kronecker build split off trailing digits up to this
+# many values (csrc/eps_dcore.cu, kMaxKron)
+_DCORE_MAX_KRON = 16
 # The backward reads a forward-saved t when A = q_k^n1_k is at least this:
 # the JAX package's default (DCTN_TPU_SAVE_T_MIN_A, eps_pallas.py:810), set
 # for the TPU's bf16 rate against its HBM. In float32 on an H100 the saved t
@@ -270,7 +275,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # stream as c_void_p
 _ENTRIES = {
     "eps_fwd": {"dctn_eps_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]},
-    "eps_dcore": {"dctn_eps_dcore": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P]},
+    "eps_dcore": {"dctn_eps_dcore": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _P]},
     "eps_dviews_t": {
         "dctn_eps_dviews_t": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
         "dctn_eps_dviews_recompute": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
@@ -375,15 +380,47 @@ eps_fwd.launches = 0
 eps_fwd.t_launches = 0
 
 
-def _dcore_slices(z: int, a: int, npix: int) -> int:
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    """The SMs of the card ``dev``; ``eps_dcore`` plans its slices and its
+    CTAs per SM by them."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _dcore_slices(z: int, a: int, npix: int, sms: int) -> int:
     """How many pixel ranges ``eps_dcore`` sums apart (then adds in a fixed
-    order): 1 when the (Z, A) tiles alone fill the card."""
+    order) on a card of ``sms`` SMs: 1 when the (Z, A) tiles fill more than
+    half of them."""
     tiles = math.ceil(z / _DCORE_TILE) * math.ceil(a / _DCORE_TILE)
+    if 2 * tiles > sms:
+        return 1
     return max(1, min(
-        math.ceil(_DCORE_TARGET_CTAS / tiles),
+        2 * sms // tiles,
         npix // _DCORE_MIN_SLICE_PIXELS,
         _DCORE_MAX_SLICES,
     ))
+
+
+def _dcore_smem_bytes(n: int, q: int, n1: int, out_size: int) -> int:
+    """Shared memory of one ``eps_dcore`` launch (``make_plan`` in
+    csrc/eps_dcore.cu): each of the 256 threads' 64 f32 totals; two stages
+    of the staged factor rows, the g rows a Z tile touches, a row of ones
+    and one of zeros (32 pixels each); two buffers of the Kronecker build's
+    X and Y rows of both operands and a zero row (40 floats apart); and the
+    staged rows each X, Y row multiplies."""
+
+    def split(factors):  # (trailing digits lv, s = q^lv, X rows a tile spans)
+        lv = 0
+        while lv < factors and q ** (lv + 1) <= _DCORE_MAX_KRON:
+            lv += 1
+        return lv, q**lv, (_DCORE_TILE - 1) // q**lv + 2
+
+    n2 = n - n1
+    (lv_u, s_u, cx_u), (lv_k, s_k, cx_k) = split(n1), split(n2)
+    g_rows = min(out_size, (_DCORE_TILE - 1) // q**n2 + 2)
+    xy_rows = cx_u + s_u + cx_k + s_k
+    floats = 256 * 64 + 2 * (n * q + g_rows + 2) * 32 + 2 * (xy_rows + 1) * 40
+    return 4 * (floats + xy_rows * max(n1 - lv_u, lv_u, n2 - lv_k + 1, lv_k))
 
 
 def _check_dcore_args(views_t, g, n1, out_size):
@@ -394,7 +431,13 @@ def _check_dcore_args(views_t, g, n1, out_size):
     if tuple(g.shape) != (out_size, npix):
         raise ValueError(f"eps_dcore: g is not (O, npix) ({shape})")
     if math.ceil(out_size * q ** (n - n1) / _DCORE_TILE) > 65535:
-        raise ValueError(f"eps_dcore kernel limits exceeded ({shape}): Z/64 > 65535")
+        raise ValueError(f"eps_dcore kernel limits exceeded ({shape}): Z/128 > 65535")
+    smem = _dcore_smem_bytes(n, q, n1, out_size)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(
+            f"eps_dcore kernel limits exceeded ({shape}): needs {smem} B of "
+            f"shared memory > {_MAX_SMEM_BYTES}"
+        )
 
 
 def eps_dcore(
@@ -412,7 +455,8 @@ def eps_dcore(
     n, q, npix = views_t.shape
     dev = views_t.device
     z, a = out_size * q ** (n - n1), q**n1
-    slices = _dcore_slices(z, a, npix)
+    sms = _sm_count(dev)
+    slices = _dcore_slices(z, a, npix, sms)
     d_cmt = torch.empty((z, a), dtype=torch.float32, device=dev)
     scratch = (
         torch.empty((slices, z, a), dtype=torch.float32, device=dev) if slices > 1 else None
@@ -421,7 +465,7 @@ def eps_dcore(
         err = _library("eps_dcore").dctn_eps_dcore(
             views_t.data_ptr(), g.data_ptr(), d_cmt.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
-            n, q, n1, out_size, npix, slices, _stream(dev),
+            n, q, n1, out_size, npix, slices, sms, _stream(dev),
         )
     _raise_on_error("eps_dcore", err)
     eps_dcore.launches += 1
@@ -433,19 +477,32 @@ eps_dcore.launches = 0
 eps_dcore.sum_launches = 0
 
 
-def _dviews_t_smem_bytes(n: int, q: int, n1: int, out_size: int) -> int:
-    """Shared memory of one ``eps_dviews_t`` launch (``smem_bytes`` in
-    csrc/eps_dviews_t.cu): staged factors and their cotangents, v rounded up
-    to 32 rows, g, a 32 x 64 cmt chunk and a 64 x 64 d_u chunk, for 64
-    pixels; and the u digit table."""
-    rows_v = -(-q ** (n - n1) // 32) * 32
-    return 4 * (64 * (2 * n * q + rows_v + out_size) + 32 * 64 + 64 * 64) + 4 * n1 * 64
+def _dviews_smem_bytes(n: int, q: int, n1: int, out_size: int, recompute: bool) -> int:
+    """The least shared memory a launch of the d_views kernel can take, for
+    64 pixels (``smem_bytes`` in csrc/eps_dviews_t.cu, over the four
+    configurations of its ``choose_config``, which launches the first that
+    fits): the wrapper refuses a shape over the card's limit. Staged factors
+    and their cotangents, v (then d_v), g and a zero row, two cmt stages for
+    MA rows of A, u's Kronecker factors X and Y (q^(n1-lv) + q^lv rows, lv =
+    n1 // 2, and a zero row) and either their cotangents (the Kronecker
+    fold) or the u digit table (the leave-one-out fold, n1 x MA ints); v, g,
+    X and Y rows 72 floats apart."""
+    lv = n1 // 2
+    xy_rows = q ** (n1 - lv) + q**lv
+
+    def at(ma, kron):
+        stage = max(32 * (ma + 8), ma * 36)
+        uxy = (xy_rows + 1) * 72 if kron or (recompute and n1 < n) else 0
+        return (4 * (64 * 2 * n * q + 72 * (q ** (n - n1) + 1 + out_size) + 2 * stage + uxy
+                     + (xy_rows * 64 if kron else 0)) + (0 if kron else 4 * n1 * ma))
+
+    return min(at(ma, kron) for kron in (True, False) for ma in (128, 64))
 
 
 def _check_dviews_args(name, views_t, cmt, g, t, n1, out_size):
     """The arguments of ``eps_dviews_t`` (with its saved ``t``) or of
-    ``eps_dviews_recompute`` (``t`` None): both forms of the kernel take the
-    same shapes and shared memory."""
+    ``eps_dviews_recompute`` (``t`` None), each within its form's shared
+    memory (``_dviews_smem_bytes``)."""
     n, q, npix = views_t.shape
     shape = (
         f"views {tuple(views_t.shape)}, cmt {tuple(cmt.shape)}, g {tuple(g.shape)}, "
@@ -459,7 +516,7 @@ def _check_dviews_args(name, views_t, cmt, g, t, n1, out_size):
     z = out_size * q ** (n - n1)
     if tuple(cmt.shape) != (z, q**n1) or tuple(g.shape) != (out_size, npix):
         raise ValueError(f"{name}: cmt is not (O·q^(n-n1), q^n1) or g not (O, npix) ({shape})")
-    smem = _dviews_t_smem_bytes(n, q, n1, out_size)
+    smem = _dviews_smem_bytes(n, q, n1, out_size, name == "eps_dviews_recompute")
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(
             f"{name} kernel limits exceeded ({shape}): needs {smem} B of "

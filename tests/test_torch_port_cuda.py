@@ -138,7 +138,7 @@ def test_dcore_matches_plain(cuda_device, n, q, n1, o, npix):
 @pytest.mark.cuda
 def test_dcore_is_the_same_from_run_to_run(cuda_device):
     views, _, g = _inputs(cuda_device, 8, 4, 4, 4, 40_000)
-    assert K._dcore_slices(1024, 256, 40_000) > 1
+    assert K._dcore_slices(1024, 256, 40_000, K._sm_count(cuda_device)) > 1
     torch.testing.assert_close(
         K.eps_dcore(views, g, 4, 4), K.eps_dcore(views, g, 4, 4), rtol=0, atol=0
     )
@@ -304,6 +304,114 @@ def test_backward_kernels_refuse_shapes_outside_their_limits(cuda_device):
                        torch.zeros((2**11, 64), device=cuda_device), 1, 1)
     with pytest.raises(ValueError, match="eps_dviews_recompute kernel limits exceeded"):
         K.eps_dviews_recompute(v, c, torch.zeros((1, 64), device=cuda_device), 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the 3xTF32 tensor-core kernels' tiling: eps_dcore's 128 x 128 (Z, A) tiles
+# over 32-pixel steps, the d_views kernel's 64-pixel tiles with MA = 128 (or
+# 64) rows of A or Z per product and 32 K rows per step
+
+# (n, q, n1, O, npix): Z = O·q^(n-n1), A = q^n1 and npix below 16, between 16
+# and 128, and just over 128; n2 = 0; pixel slices
+_TILING_SHAPES = [
+    (3, 3, 2, 4, 15),  # Z 12, A 9, npix 15: all below 16
+    (3, 3, 2, 20, 100),  # Z 60, A 9, npix 100
+    (3, 3, 2, 43, 129),  # Z 129, A 9, npix 129: just over 128
+    (3, 12, 2, 2, 129),  # Z 24, A 144: just over 128 (two tiles, 16 rows in the second)
+    (2, 12, 2, 129, 40),  # n2 = 0: Z = O = 129, A 144; kr2 = g
+    (4, 2, 4, 3, 20),  # n2 = 0: Z 3, A 16
+    (3, 5, 2, 26, 9000),  # Z 130, A 25: two Z tiles, eight pixel slices
+    (6, 3, 3, 1, 20_000),  # Z 27, A 27: one tile, 19 pixel slices, A % 4 != 0
+    # n·q = 256: d_views' leave-one-out fold (dX, dY do not fit), and MA = 64
+    # rows of A per product in the recompute form
+    (2, 128, 1, 2, 300),
+]
+
+
+def _tiling_case(dev, n, q, n1, o, npix, zero=False):
+    views, cmt, g = _inputs(dev, n, q, n1, o, npix)
+    if zero:  # black pixels: whole factors 0, in u and in v
+        views[:, 0, ::3] = 0.0
+        views[0, :, ::5] = 0.0
+        views[n - 1, :, 1::4] = 0.0
+    t = K.eps_fwd_reference(views, cmt, n1, o, save_t=True)[1] if n1 < n else None
+    return views, cmt, g, t
+
+
+_REDESIGNED = {
+    "eps_dcore": (lambda M, v, c, g, t, n1, o: M.eps_dcore(v, g, n1, o),
+                  lambda v, c, g, t, n1, o: K.eps_dcore_reference(v, g, n1, o)),
+    "eps_dviews_t": (lambda M, v, c, g, t, n1, o: M.eps_dviews_t(v, c, g, t, n1, o),
+                     K.eps_dviews_t_reference),
+    "eps_dviews_recompute": (lambda M, v, c, g, t, n1, o: M.eps_dviews_recompute(v, c, g, n1, o),
+                             lambda v, c, g, t, n1, o: K.eps_dviews_recompute_reference(v, c, g, n1, o)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(_REDESIGNED))
+@pytest.mark.parametrize("n,q,n1,o,npix", _TILING_SHAPES)
+def test_tensor_core_tiling_matches_plain(cuda_device, kernel, n, q, n1, o, npix):
+    views, cmt, g, t = _tiling_case(cuda_device, n, q, n1, o, npix)
+    run, plain = _REDESIGNED[kernel]
+    got = run(K, views, cmt, g, t, n1, o)
+    torch.cuda.synchronize()
+    _assert_close(got, plain(views, cmt, g, t, n1, o))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,n1,o,npix,slices", [
+    (3, 3, 2, 43, 129, 1),
+    (3, 5, 2, 26, 9000, 8),
+    (6, 3, 3, 1, 20_000, 19),
+    (8, 4, 4, 4, 128 * 625, 16),  # flagship layer 0 at batch 128
+    (9, 4, 5, 6, 128 * 529, 1),  # flagship layer 1 at batch 128: 96 tiles, no sum
+])
+def test_dcore_slices_as_planned(cuda_device, n, q, n1, o, npix, slices):
+    """The pixel slices of the launch plan on an H100 SXM (132 SMs), and
+    the slice sum launched where the card's own plan has more than one."""
+    z, a = o * q ** (n - n1), q**n1
+    assert K._dcore_slices(z, a, npix, 132) == slices
+    slices = K._dcore_slices(z, a, npix, K._sm_count(cuda_device))
+    views, _, g = _inputs(cuda_device, n, q, n1, o, npix)
+    before = (K.eps_dcore.launches, K.eps_dcore.sum_launches)
+    got = K.eps_dcore(views, g, n1, o)
+    torch.cuda.synchronize()
+    assert (K.eps_dcore.launches, K.eps_dcore.sum_launches) == (before[0] + 1, before[1] + (slices > 1))
+    _assert_close(got, K.eps_dcore_reference(views, g, n1, o))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(_REDESIGNED))
+@pytest.mark.parametrize("n,q,n1,o,npix", [(9, 4, 5, 6, 700), (6, 3, 3, 4, 9000), (3, 3, 2, 43, 129)])
+def test_tensor_core_kernels_with_zero_factors(cuda_device, kernel, n, q, n1, o, npix):
+    views, cmt, g, t = _tiling_case(cuda_device, n, q, n1, o, npix, zero=True)
+    run, plain = _REDESIGNED[kernel]
+    _assert_close(run(K, views, cmt, g, t, n1, o), plain(views, cmt, g, t, n1, o))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(_REDESIGNED))
+@pytest.mark.parametrize("n,q,n1,o,npix", [(8, 4, 4, 4, 40_000), (9, 4, 5, 6, 20_000), (3, 5, 2, 26, 9000)])
+def test_tensor_core_kernels_give_the_same_bits_twice(cuda_device, kernel, n, q, n1, o, npix):
+    """No float atomics: the same inputs give the same bits."""
+    views, cmt, g, t = _tiling_case(cuda_device, n, q, n1, o, npix)
+    run = _REDESIGNED[kernel][0]
+    torch.testing.assert_close(run(K, views, cmt, g, t, n1, o), run(K, views, cmt, g, t, n1, o),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(_REDESIGNED))
+def test_tensor_core_kernels_hold_to_a_float64_oracle_at_flagship_layer_1(cuda_device, kernel):
+    """3xTF32 at float32 accuracy: kernel within REL_TOL of the float64
+    plain version at the flagship's layer 1 (batch 8: sums over 4,232
+    pixels in d_cmt, 1,536 rows of Z in d_u and 1,024 columns of A in t)."""
+    views, cmt, g, t = _tiling_case(cuda_device, 9, 4, 5, 6, 8 * 529)
+    run, plain = _REDESIGNED[kernel]
+    got = run(K, views, cmt, g, t, 5, 6).double().cpu()
+    oracle = plain(*(None if x is None else x.double().cpu() for x in (views, cmt, g, t)), 5, 6)
+    _assert_close(got, oracle)
 
 
 # ---------------------------------------------------------------------------
