@@ -11,14 +11,16 @@ Run from the root of a checkout, with no arguments:
    per source, all at once), printing each build time, the compiler's
    register report and the count of tensor-core instructions (HMMA, HGMMA,
    IMMA; ``cuobjdump -sass``) in each library; it fails if the 3xTF32
-   sources (``eps_dcore``, ``eps_dviews_t``) have no HMMA or HGMMA.
+   sources (``eps_fwd``, ``eps_dcore``, ``eps_dviews_t``) have no HMMA or
+   HGMMA.
 2. Holds each kernel against its plain PyTorch version at the layer shapes
    of the flagship, the three-EPS ``(2,4),(2,6),(2,12)`` and the deep
    ``(4,4),(3,12),(2,24)`` models at batch 128 and at small shapes (every
    factor in the matmul half; a ragged pixel count), and at the batches
-   the deep model's step runs (``eps_dcore`` at each layer at 512 and 2048
-   images, the recompute kernel at layer 1 at 2048), with median CUDA-event
-   times of the kernel, the plain version and one library call of the same
+   the deep model's step runs (the forward with and without t and
+   ``eps_dcore`` at each layer at 512 and 2048 images, the recompute kernel
+   at layer 1 at 2048), with median CUDA-event times of the kernel, the
+   plain version and one library call of the same
    products on materialized operands (cuBLAS ``torch.matmul`` in f32,
    ``torch._int_mm`` in int8; the products alone, which the port never
    calls). The int8 forward's saved t must equal the plain version's bit
@@ -132,9 +134,9 @@ BATCH = 128
 SEED = 0
 # kernel against plain: both sides are float32 and only the summation order
 # differs (sums of 256-1536 terms in the forward and d_views, of up to 80,000
-# pixels in d_cmt; eps_dcore and the d_views kernel multiply in 3xTF32 on
-# the tensor cores, which keeps float32 accuracy), far inside 1e-4 of the
-# largest entry
+# pixels in d_cmt; the forward, eps_dcore and the d_views kernel multiply in
+# 3xTF32 on the tensor cores, which keeps float32 accuracy), far inside 1e-4
+# of the largest entry
 REL_TOL = 1e-4
 # the float32 kernel path against the float64 CPU step, 3 Adam steps at
 # batch 4 and lr 1e-4 (at the bench's 3e-3 the randomly initialized
@@ -361,7 +363,7 @@ def tensor_core_instructions(path) -> dict:
 
 
 # the sources whose f32 products run on the tensor cores in 3xTF32
-TF32X3_SOURCES = ("eps_dcore", "eps_dviews_t")
+TF32X3_SOURCES = ("eps_fwd", "eps_dcore", "eps_dviews_t")
 
 
 def build_all(build) -> None:
@@ -561,17 +563,21 @@ def kernel_vs_plain(K, Q8, dev):
 
 def kernels_at_deep_batch(K, dev, res) -> None:
     """Phase 2 at the largest shapes the deep step runs, each kernel
-    against its plain version: ``eps_dcore`` at each of the deep model's
-    layers at 512 images (a microbatch at accumulation 4) and at 2048 (up
-    to 1,280,000 pixels), and the recompute kernel at layer 1 at 2048 (the
-    arm that batch takes). The plain versions materialize u, kr2 (and t and
+    against its plain version: the forward without t (``eps_fwd``) and with
+    it (``eps_fwd_t``) and ``eps_dcore`` at each of the deep model's layers
+    at 512 images (a microbatch at accumulation 4) and at 2048 (up to
+    1,280,000 pixels), and the recompute kernel at layer 1 at 2048 (the arm
+    that batch takes). The plain versions materialize u, kr2 (and t and
     d_u) there (up to ~36 GB of the card's 80). The tensor cores truncate
     their sums, so a longer sum over pixels is the harder case for
-    ``eps_dcore``. Max |Δ| joins the kernel's in ``res``; the times are
-    printed, not summed into the JSON line (that sums batch 128)."""
+    ``eps_dcore``; the forward's sums run over A (up to 1,728 at layer 2)
+    and its t (13.3 GB at layer 1 at 2048) is the largest it writes. Max |Δ|
+    joins the kernel's in ``res``; the times are printed, not summed into
+    the JSON line (that sums batch 128)."""
     dims = layer_dims(DEEP)
-    cases = [("eps_dcore", layer, batch) for batch in (DEEP_BATCH // 4, DEEP_BATCH)
-             for layer in range(len(dims))] + [("eps_dviews_recompute", 1, DEEP_BATCH)]
+    cases = [(name, layer, batch) for batch in (DEEP_BATCH // 4, DEEP_BATCH)
+             for layer in range(len(dims)) for name in ("eps_fwd", "eps_fwd_t", "eps_dcore")]
+    cases.append(("eps_dviews_recompute", 1, DEEP_BATCH))
     for name, layer, batch in cases:
         n, q, n1, o, h = dims[layer]
         npix = batch * h * h
@@ -580,7 +586,19 @@ def kernels_at_deep_batch(K, dev, res) -> None:
         cmt = torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev) * q ** (-n / 2)
         g = torch.randn((o, npix), generator=g_, device=dev)
         z, a = cmt.shape
-        if name == "eps_dcore":
+        if name in ("eps_fwd", "eps_fwd_t"):
+            save_t = name == "eps_fwd_t"
+
+            def kern():
+                return K.eps_fwd(views, cmt, n1, o, save_t=save_t)
+
+            def plain():
+                return K.eps_fwd_reference(views, cmt, n1, o, save_t=save_t)
+
+            ops = {"nbytes": 4.0 * (views.numel() + cmt.numel() + o * npix
+                                    + (z * npix if save_t else 0)),
+                   "flops": 2.0 * z * npix, "mm_flops": 2.0 * z * a * npix}
+        elif name == "eps_dcore":
             def kern():
                 return K.eps_dcore(views, g, n1, o)
 
@@ -599,20 +617,26 @@ def kernels_at_deep_batch(K, dev, res) -> None:
             ops = {"nbytes": 4.0 * (2 * views.numel() + cmt.numel() + g.numel()),
                    "flops": 2.0 * z * npix, "mm_flops": 4.0 * z * a * npix}
         torch.cuda.reset_peak_memory_stats(dev)
-        got = kern()
-        ref = plain()
-        torch.cuda.synchronize()
         label = f"{name} [deep layer {layer} at batch {batch}]"
-        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
-        check(got.shape == ref.shape, f"{label}: shape {tuple(got.shape)}")
-        check(torch.isfinite(got).all().item(), f"{label}: non-finite out")
-        check(err <= REL_TOL * scale, f"{label}: differs from plain by {err} (max|ref| {scale})")
-        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        errs, shares = [], []
+        for which, x, r in zip(("out", "t"), got, ref):
+            err, scale = float((x - r).abs().max()), float(r.abs().max())
+            check(x.shape == r.shape, f"{label}: {which} shape {tuple(x.shape)}")
+            check(torch.isfinite(x).all().item(), f"{label}: non-finite {which}")
+            check(err <= REL_TOL * scale,
+                  f"{label}: {which} differs from plain by {err} (max|ref| {scale})")
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+            errs.append(f"{which} max|d|={err:.3e} tol={REL_TOL * scale:.3e}")
+            shares.append(err / (REL_TOL * scale))
         del got, ref
         t_k, t_p = median_ms([kern, plain], reps=2)
         b_ms, _ = bound_ms(**ops)
-        print(f"{label} n={n} q={q} n1={n1} O={o} npix={npix}: max|d|={err:.3e} "
-              f"tol={REL_TOL * scale:.3e} (1e-4*max|ref|; {err / (REL_TOL * scale):.1%} of it); "
+        print(f"{label} n={n} q={q} n1={n1} O={o} npix={npix}: {'; '.join(errs)} "
+              f"(1e-4*max|ref|; {max(shares):.1%} of it); "
               f"kernel {t_k:.4f} ms ({ops['mm_flops'] / t_k / 1e9:.2f} TFLOP/s of the products), "
               f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms; peak memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")

@@ -3,232 +3,684 @@
 //
 // Replaces the TPU kernel _fwd_kernel_factory (dctn_tpu/pallas/eps_pallas.py:227),
 // both forms: without t (serving) and with save_t (training: the backward's
-// d_views pass reads t instead of recomputing it). For one output channel o
-// and pixel p:
+// d_views pass reads t instead of recomputing it). With the digits row-major
+// (factor 0, resp. n1, the slowest) and rows z = o*B2 + b:
 //   u[a, p]   = prod_{k < n1}  views[k, digit_k(a), p]     (A  = q^n1 rows)
-//   t[b, p]   = sum_a cmt[o*B2 + b, a] * u[a, p]            (B2 = q^(n-n1))
+//   t[z, p]   = sum_a cmt[z, a] * u[a, p]                   (B2 = q^(n-n1))
 //   v[b, p]   = prod_{k >= n1} views[k, digit_k(b), p]
-//   out[o, p] = sum_b t[b, p] * v[b, p]                     (out = t if n2 == 0)
-// Digits are row-major: factor 0 (resp. n1) is the slowest-varying digit.
+//   out[o, p] = sum_b t[o*B2 + b, p] * v[b, p]              (out = t if n2 == 0)
 //
-// What bounds it on this card: the t = cmt.u product, 2*Z*A flops per pixel
-// (about 255 GFLOP for the flagship forward at batch 128), run in float32 on
-// the CUDA cores (67 TFLOP/s peak on an H100 SXM at 700 W). The TPU kernel
-// keeps the whole (Z, A) core resident in VMEM; here the flagship's second
-// layer core is 1536 x 1024 f32 (6.3 MB), far above the 227 KB a block may
-// hold, so the core is streamed in column chunks.
+// What bounds it on this card: the t = cmt.u product, 2*Z*A flops per pixel,
+// at the fastest float32-accurate rate of an H100 SXM (700 W), 3xTF32 on the
+// tensor cores at 495/3 = 165 TFLOP/s (tf32x3.cuh): 41.9 GFLOP (0.254 ms)
+// for the flagship's first layer and 213.0 GFLOP (1.29 ms) for its second at
+// batch 128, 61.7 GFLOP (0.374 ms) at the deep (4,4),(3,12),(2,24) model's
+// last layer. The bytes are few: the factors read once, cmt once per pixel
+// tile (mostly from L2), out written once; with save_t also t, Z*npix*4
+// bytes (416 MB at the flagship's second layer, about 0.12 ms at 3.35 TB/s).
 //
-// Design: one CTA per (64-pixel tile, output channel o). The CTA stages its
-// tile of every factor in shared memory once, then loops over A in chunks of
-// 32 columns: it stages the chunk of cmt rows [o*B2, (o+1)*B2) and builds the
-// matching 32 x 64 block of u from the staged factors, then every thread
-// accumulates an 8 (b) x 8 (pixel) register tile of t in f32 FMA. The
-// epilogue forms v from the staged factors, contracts each thread's tile over
-// its b rows, and sums the per-thread partials across the CTA in shared
-// memory in a fixed order. No atomics and no cross-CTA sums: the result is
-// deterministic. Without t, t never leaves registers. With t (the save_t
-// launch) each thread also stores its 8 x 8 register tile to t[o*B2 + b, p]
-// (float4 stores where the row is 16-byte aligned), masking b >= B2 and the
-// ragged last pixel tile: Z*npix*4 bytes more to write (416 MB for the
-// flagship's second layer at batch 128, about 0.12 ms at 3.35 TB/s, small
-// next to that layer's 3.18 ms f32 bound).
+// Design: a GEMM with M = Z, N = pixels and K = A. cmt is a real matrix in
+// memory; u exists only on chip. Each CTA of 8 warps owns one 128-pixel tile
+// and a Z tile of whole outputs: G = floor(128 / B2) outputs where B2 <= 128
+// (the rows past G*B2 are masked), else one output, whose B2 rows it walks
+// in passes of 128 rows. So the sum over b never crosses CTAs, and u is
+// built once per pixel tile for all the outputs of the Z tile, not once per
+// output channel. The CTA stages its tile of every factor row (n*q rows of
+// 128 pixels) in shared memory once, and u's Kronecker factor Y (the product
+// of u's lv trailing factors, the most with s = q^lv <= 16); a step of 32
+// columns of A forms u = X[a / s] * Y[a % s] (X: the n1 - lv leading
+// factors), one multiply per entry. The product order differs from the JAX
+// suffix chain's, within the float32 rounding the tests and chip_smoke.py
+// allow (1e-4 of max|ref|). Both operands are split into TF32 hi and lo and
+// multiplied in 3xTF32 (tf32x3.cuh); the sums of 128 values of A at most stay
+// in the tensor cores' accumulators (which truncate), then go into f32
+// totals in registers. Two kernels run the product:
+// - wgmma (s % 4 == 0 and its plan fits: every layer of the flagship and
+//   deep models, and the three-EPS model's first two). cmt streams in with
+//   cp.async (16-byte, three raw stages, up to three steps ahead); per step
+//   the CTA writes both operands as hi and lo planes in shared memory (cmt's
+//   128 rows and u's 128 pixels x 32 columns, K-major, without swizzle), and
+//   each warpgroup issues 12 asynchronous wgmma.m64n128k8 on its 64 rows
+//   (lo*hi, hi*lo, hi*hi per k8) while the CTA writes the next step's
+//   planes. Each entry is split once per CTA.
+// - mma.sync (any other shape, n*q up to 256): cmt's tile streams in with
+//   cp.async, double-buffered; each warp owns 64 (z) x 32 (pixels) of the
+//   pass, 4 x 4 fragments of mma.sync.m16n8k8, three mma per fragment pair,
+//   its cmt entries read as float2 and its u entries formed as X times Y
+//   (X per step, one warp per row), both split in registers.
+// Epilogue, per pass: t = totals + accumulators; with save_t each thread
+// stores its t entries (float2 rows of two pixels). Each entry times v[b, p]
+// (the v factors' product, from the staged rows) goes to a 128 x 128 tile in
+// shared memory; then one thread per (output, pixel) adds the output's rows
+// in order, and, where B2 > 128, onto the sum of the earlier passes. The
+// serving form and the save_t form run the same sums: their outputs are the
+// same bits. No atomics and no cross-CTA sums: the result is the same from
+// run to run.
 //
-// Limits (checked by the Python wrapper, again here): B2 <= 512 (one 8-row
-// register tile per thread, at most 512 threads); n*q <= 256 staged factor
-// rows; O <= 65535 (grid.y).
+// Limits (checked by the Python wrapper, again here): B2 <= 512; n*q <= 256
+// staged factor rows; O <= 65535 (the Z tiles along grid.y). The mma.sync
+// kernel's shared memory is at most 218 KB at those limits (n*q = 256),
+// within the 227 KB a block may use; the wgmma kernel's (210-218 KB at the
+// flagship's and the deep model's layers) fits up to n*q of about 60.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <atomic>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kTilePix = 64;                      // pixels per CTA
-constexpr int kRowsPerThread = 8;                 // b rows per thread
-constexpr int kPixPerThread = 8;                  // pixels per thread
-constexpr int kThreadsPerRowGroup = kTilePix / kPixPerThread;  // 8
-constexpr int kChunkA = 32;                       // A columns per chunk
-constexpr int kCmtStride = kChunkA + 1;           // pad: no bank conflicts
-constexpr int kMaxThreads = 512;
-constexpr int kMaxB2 = kMaxThreads / kThreadsPerRowGroup * kRowsPerThread;
-constexpr int kMaxFactorRows = 256;               // n * q
-// dynamic shared memory at the limits above: staged factors, the u chunk,
-// the cmt chunk and the reduction rows (157,696 B of the 227 KB a block has)
-constexpr size_t kMaxSmemBytes =
-    sizeof(float) * (kMaxFactorRows * kTilePix + kChunkA * kTilePix +
-                     kMaxB2 * kCmtStride +
-                     kMaxThreads / kThreadsPerRowGroup * kTilePix);
-static_assert(kMaxSmemBytes <= 227 * 1024, "over a Hopper block's shared memory");
+constexpr int kThreads = 256;             // 8 warps
+constexpr int kTileZ = 128;               // rows of Z per pass
+constexpr int kTileP = 128;               // pixels per CTA
+constexpr int kChunkA = 32;               // columns of A per step
+constexpr int kFlush = 128 / kChunkA;     // steps summed in the accumulators
+constexpr int kRowStride = kTileP + 4;    // factor, X and Y rows: 4*row + pixel banks
+constexpr int kEpiStride = kTileP + 8;    // epilogue rows: float2 stores without conflict
+constexpr int kMaxKron = 16;              // the largest s = q^lv
+constexpr int kMaxB2 = 512;
+constexpr int kMaxFactorRows = 256;       // n * q
+constexpr long long kMaxSmemBytes = 227 * 1024;
 constexpr int kMaxDevices = 64;
 
-template <bool kSaveT>
-__global__ void __launch_bounds__(kMaxThreads)
-eps_fwd_kernel(const float* __restrict__ views, const float* __restrict__ cmt,
-               float* __restrict__ out, float* __restrict__ t, int n, int q,
-               int n1, int a_dim, int b2, long long npix) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int nthreads = blockDim.x;
-  const int row_groups = nthreads / kThreadsPerRowGroup;
-  const int rows = row_groups * kRowsPerThread;   // b2 rounded up
-  float* vs = smem;                               // (n*q, kTilePix)
-  float* us = vs + n * q * kTilePix;              // (kChunkA, kTilePix)
-  float* cs = us + kChunkA * kTilePix;            // (rows, kCmtStride)
-  float* red = cs + rows * kCmtStride;            // (row_groups, kTilePix)
+// mma.sync: 8 warps of 64 (z) x 32 (pixels), cmt stage rows 40 floats apart
+// (8*row + 2*tig banks: no conflict)
+constexpr int kWarpZ = 64;
+constexpr int kWarpP = 32;
+constexpr int kMI = kWarpZ / 16;          // m16 fragments per warp
+constexpr int kNJ = kWarpP / 8;           // n8 fragments per warp
+constexpr int kCmtStride = kChunkA + 8;
+static_assert(kThreads == (kTileZ / kWarpZ) * (kTileP / kWarpP) * 32, "8 warps cover the tile");
 
-  const int tid = threadIdx.x;
-  const int tp = tid % kThreadsPerRowGroup;
-  const int tb = tid / kThreadsPerRowGroup;
-  const long long p0 = static_cast<long long>(blockIdx.x) * kTilePix;
-  const int o = blockIdx.y;
+// wgmma: a step's four operand planes (cmt hi, cmt lo, u hi, u lo), each 128
+// rows x 32 columns, K-major without swizzle: row r, column a at float
+// (r / 8) * kGroupFloats + (a / 4) * 32 + (r % 8) * 4, so the two core
+// matrices of a k8 step are 128 bytes apart and row groups 1024 bytes
+constexpr int kPlaneFloats = kTileZ * kChunkA;
+constexpr int kStepFloats = 4 * kPlaneFloats;  // 64 KB
+constexpr int kGroupFloats = 8 * kChunkA;
+// cmt's raw stages, rows 36 floats apart (a quarter warp's 16-byte reads of
+// 8 rows fall in 8 bank groups); the latest two in flight
+constexpr int kRawStride = kChunkA + 4;
+constexpr int kRawFloats = kTileZ * kRawStride;
+constexpr int kRawStages = 3;
+static_assert(kTileZ == kTileP && kThreads == 2 * 128, "two warpgroups, one layout for both planes");
 
-  for (int i = tid; i < n * q * kTilePix; i += nthreads) {
-    const int p = i % kTilePix;
-    const long long gp = p0 + p;
-    vs[i] = gp < npix ? views[static_cast<long long>(i / kTilePix) * npix + gp]
-                      : 0.f;
+__host__ __device__ constexpr long long ipow(long long base, int exp) {
+  long long r = 1;
+  for (int i = 0; i < exp; ++i) r *= base;
+  return r;
+}
+
+// the wgmma kernel's Y is pixel-major, Y[p][y], so a 16-byte read gives a
+// column quad's 4 values; rows s + 4 or s + 8 floats apart (4 mod 8: a
+// quarter warp's reads of 8 pixels fall in 8 bank groups)
+__host__ __device__ constexpr int y_stride(int s) { return s + (s % 8 == 0 ? 4 : 8); }
+
+// The launch plan and the shared memory of each kernel. Both hold the staged
+// factor rows (n*q rows of kRowStride), Y, the int table of each pass row's
+// v factors (n2 staged row offsets a row) and a region that the epilogue's
+// 128 x 128 tile of t*v entries (kEpiStride apart) takes over: the mma.sync
+// kernel's two cmt stages and two X buffers (x_rows rows each), the wgmma
+// kernel's two steps of planes (its raw cmt stages lie beside them).
+struct Plan {
+  int lv, s, lead, x_rows, g, passes, n2;
+  long long region_floats, mma_bytes, wgmma_bytes;
+};
+
+__host__ __device__ inline Plan make_plan(int n, int q, int n1, long long b2, int out_size) {
+  Plan p;
+  p.lv = 0;
+  long long s = 1;
+  while (p.lv < n1 && s * q <= kMaxKron) {
+    s *= q;
+    ++p.lv;
   }
+  p.s = static_cast<int>(s);
+  p.lead = n1 - p.lv;
+  // X rows a step spans, starting at any a0 % s
+  p.x_rows = (p.s - 1 + kChunkA - 1) / p.s + 1;
+  const long long g = b2 <= kTileZ ? kTileZ / b2 : 1;
+  p.g = static_cast<int>(g < out_size ? g : out_size);
+  p.passes = static_cast<int>((p.g * b2 + kTileZ - 1) / kTileZ);
+  p.n2 = n - n1;
+  const long long epi = static_cast<long long>(kTileZ) * kEpiStride;
+  const long long stages = 2LL * kTileZ * kCmtStride + 2LL * p.x_rows * kRowStride;
+  p.region_floats = stages > epi ? stages : epi;
+  const long long common = static_cast<long long>(n) * q * kRowStride + static_cast<long long>(kTileZ) * p.n2;
+  p.mma_bytes = 4 * (common + static_cast<long long>(p.s) * kRowStride + p.region_floats);
+  const long long planes = 2LL * kStepFloats;
+  p.wgmma_bytes = 4 * (common + static_cast<long long>(kTileP) * y_stride(p.s) +
+                       (planes > epi ? planes : epi) + kRawStages * kRawFloats);
+  return p;
+}
 
-  float acc[kRowsPerThread][kPixPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-    for (int j = 0; j < kPixPerThread; ++j) acc[i][j] = 0.f;
+// x / d for 0 <= x < 2^31 by a multiply and a shift (Granlund-Montgomery, as
+// CUTLASS's FastDivmod): the digit loops divide by q once per digit
+struct FastDiv {
+  unsigned d, mul, shift;
+};
 
-  const float* cmt_o = cmt + static_cast<long long>(o) * b2 * a_dim;
-  for (int a0 = 0; a0 < a_dim; a0 += kChunkA) {
-    __syncthreads();  // the previous chunk is consumed; vs is staged
-    for (int i = tid; i < rows * kChunkA; i += nthreads) {
-      const int a = i % kChunkA;
-      const int b = i / kChunkA;
-      cs[b * kCmtStride + a] =
-          (b < b2 && a0 + a < a_dim)
-              ? cmt_o[static_cast<long long>(b) * a_dim + a0 + a]
-              : 0.f;
-    }
-    for (int i = tid; i < kChunkA * kTilePix; i += nthreads) {
-      const int p = i % kTilePix;
-      const int a = a0 + i / kTilePix;
-      float prod = 0.f;
-      if (a < a_dim) {
-        // the JAX suffix chain's order: f_{n1-1} first, f_0 last
-        prod = 1.f;
-        int rem = a;
-        for (int k = n1 - 1; k >= 0; --k) {
-          const int d = rem % q;
-          rem /= q;
-          prod *= vs[(k * q + d) * kTilePix + p];
-        }
-      }
-      us[i] = prod;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int a = 0; a < kChunkA; ++a) {
-      float cv[kRowsPerThread];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        cv[i] = cs[(tb * kRowsPerThread + i) * kCmtStride + a];
-      const float4 u0 =
-          *reinterpret_cast<const float4*>(&us[a * kTilePix + tp * kPixPerThread]);
-      const float4 u1 = *reinterpret_cast<const float4*>(
-          &us[a * kTilePix + tp * kPixPerThread + 4]);
-      const float uv[kPixPerThread] = {u0.x, u0.y, u0.z, u0.w,
-                                       u1.x, u1.y, u1.z, u1.w};
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int j = 0; j < kPixPerThread; ++j)
-          acc[i][j] = fmaf(cv[i], uv[j], acc[i][j]);
-    }
+__host__ __device__ inline FastDiv make_fastdiv(unsigned d) {
+  FastDiv f{d, 0u, 0u};
+  if (d == 1) return f;
+  unsigned l = 0;
+  while ((1u << l) < d) ++l;  // ceil(log2 d)
+  f.mul = static_cast<unsigned>(((1ULL << (31 + l)) + d - 1) / d);
+  f.shift = l - 1;
+  return f;
+}
+
+__device__ __forceinline__ unsigned fast_div(unsigned x, const FastDiv& f) {
+  return f.d == 1 ? x : __umulhi(x, f.mul) >> f.shift;
+}
+
+// the product of `count` staged factor rows, starting at factor `first`, at
+// the digits of `value` (most significant first), for the 4 pixels at `px`;
+// the empty product is 1
+__device__ __forceinline__ float4 row_product(const float* f, unsigned value, int first,
+                                              int count, const FastDiv& q, int px) {
+  float4 r = make_float4(1.f, 1.f, 1.f, 1.f);
+  for (int k = count - 1; k >= 0; --k) {
+    const unsigned next = fast_div(value, q);
+    const int d = static_cast<int>(value - next * q.d);
+    value = next;
+    const float4 x = *reinterpret_cast<const float4*>(
+        f + ((first + k) * static_cast<int>(q.d) + d) * kRowStride + px);
+    r.x *= x.x;
+    r.y *= x.y;
+    r.z *= x.z;
+    r.w *= x.w;
   }
+  return r;
+}
 
-  if (kSaveT) {
-    const long long pb = p0 + tp * kPixPerThread;
-    const bool vec = npix % 4 == 0 && pb + kPixPerThread <= npix;
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int b = tb * kRowsPerThread + i;
-      if (b >= b2) continue;
-      float* row = t + (static_cast<long long>(o) * b2 + b) * npix;
-      if (vec) {
-        *reinterpret_cast<float4*>(row + pb) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        *reinterpret_cast<float4*>(row + pb + 4) =
-            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kPixPerThread; ++j)
-          if (pb + j < npix) row[pb + j] = acc[i][j];
-      }
+// the CTA's tile of every factor row, zero past npix
+__device__ __forceinline__ void stage_factors(float* fs, const float* __restrict__ views, int nq,
+                                              long long p0, long long npix, bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < nq * (kTileP / 4); i += kThreads) {
+      const int r = i / (kTileP / 4);
+      const int px = (i % (kTileP / 4)) * 4;
+      const long long gp = p0 + px;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gp < npix) v = *reinterpret_cast<const float4*>(views + r * npix + gp);
+      *reinterpret_cast<float4*>(fs + r * kRowStride + px) = v;
     }
-  }
-
-  // epilogue: contract this thread's t rows with v, then sum across the CTA
-  float part[kPixPerThread];
-#pragma unroll
-  for (int j = 0; j < kPixPerThread; ++j) part[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int b = tb * kRowsPerThread + i;
-    if (b < b2) {
-      float v[kPixPerThread];
-#pragma unroll
-      for (int j = 0; j < kPixPerThread; ++j) v[j] = 1.f;
-      int rem = b;
-      for (int k = n - 1; k >= n1; --k) {
-        const int d = rem % q;
-        rem /= q;
-        const float* f = &vs[(k * q + d) * kTilePix + tp * kPixPerThread];
-#pragma unroll
-        for (int j = 0; j < kPixPerThread; ++j) v[j] *= f[j];
-      }
-#pragma unroll
-      for (int j = 0; j < kPixPerThread; ++j)
-        part[j] = fmaf(acc[i][j], v[j], part[j]);
+  } else {
+    for (int i = threadIdx.x; i < nq * kTileP; i += kThreads) {
+      const int r = i / kTileP;
+      const long long gp = p0 + i % kTileP;
+      fs[r * kRowStride + i % kTileP] = gp < npix ? views[r * npix + gp] : 0.f;
     }
-  }
-#pragma unroll
-  for (int j = 0; j < kPixPerThread; ++j)
-    red[tb * kTilePix + tp * kPixPerThread + j] = part[j];
-  __syncthreads();
-  for (int p = tid; p < kTilePix; p += nthreads) {
-    float s = 0.f;
-    for (int g = 0; g < row_groups; ++g) s += red[g * kTilePix + p];
-    const long long gp = p0 + p;
-    if (gp < npix) out[static_cast<long long>(o) * npix + gp] = s;
   }
 }
 
-// Raises the kernel's dynamic shared memory cap to kMaxSmemBytes, once per
-// device and variant, so the launch path makes no attribute call.
+// the v factors of each pass row's b (rows zp .. zp + 127 of the CTA), as
+// offsets into the staged rows
+__device__ __forceinline__ void fill_vtab(int* vtab, int zp, int b2, int n1, int n2, int q) {
+  const int r = threadIdx.x;
+  if (r >= kTileZ) return;
+  int b = (zp + r) % b2;
+  for (int k = n2 - 1; k >= 0; --k) {
+    vtab[r * n2 + k] = ((n1 + k) * q + b % q) * kRowStride;
+    b /= q;
+  }
+}
+
+// cmt's tile of one step: rows z_first .. z_first + 127 (zero at and past
+// row `rows` of the pass), columns a0 .. a0 + 31 (zero past A), rows kStride
+// floats apart
+template <int kStride>
+__device__ __forceinline__ void stage_cmt(float* dst, const float* __restrict__ cmt,
+                                          long long z_first, int rows, int a_dim, int a0,
+                                          bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < kTileZ * (kChunkA / 4); i += kThreads) {
+      const int r = i / (kChunkA / 4);
+      const int seg = (i % (kChunkA / 4)) * 4;
+      const int left = a_dim - a0 - seg;
+      const int bytes = r >= rows || left <= 0 ? 0 : left >= 4 ? 16 : 4 * left;
+      const float* src = bytes > 0 ? cmt + (z_first + r) * a_dim + a0 + seg : cmt;
+      tf32x3::cp_async16(dst + r * kStride + seg, src, bytes);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTileZ * kChunkA; i += kThreads) {
+      const int r = i / kChunkA;
+      const int a = i % kChunkA;
+      const bool ok = r < rows && a0 + a < a_dim;
+      tf32x3::cp_async4(dst + r * kStride + a, ok ? cmt + (z_first + r) * a_dim + a0 + a : cmt,
+                        ok ? 4 : 0);
+    }
+  }
+}
+
+// The epilogue of one t entry pair, at row r of the pass and pixels px and px
+// + 1 of the tile: with save_t, t0 and t1 go to t's row `t_row`; times v,
+// to the epilogue tile
 template <bool kSaveT>
-cudaError_t ensure_smem_cap() {
+__device__ __forceinline__ void emit_pair(float* __restrict__ t, float* epi, const float* fs,
+                                          const int* vtab, int n2, long long t_row, long long p0,
+                                          long long npix, int r, int px, float t0, float t1) {
+  if (kSaveT) {
+    const long long gp = p0 + px;
+    float* row = t + t_row * npix + gp;
+    if (npix % 2 == 0) {
+      if (gp < npix) *reinterpret_cast<float2*>(row) = make_float2(t0, t1);
+    } else {
+      if (gp < npix) row[0] = t0;
+      if (gp + 1 < npix) row[1] = t1;
+    }
+  }
+  float2 v = make_float2(1.f, 1.f);
+  for (int k = 0; k < n2; ++k) {
+    const float2 f = *reinterpret_cast<const float2*>(fs + vtab[r * n2 + k] + px);
+    v.x *= f.x;
+    v.y *= f.y;
+  }
+  *reinterpret_cast<float2*>(epi + r * kEpiStride + px) = make_float2(t0 * v.x, t1 * v.y);
+}
+
+// out[o, p] from the epilogue tile: the rows of each of the CTA's outputs in
+// order, onto the earlier passes' sum (B2 > 128: one output, so at most one
+// (output, pixel) a thread, whose sum `carry` holds); written after the
+// last pass
+__device__ __forceinline__ void sum_outputs(float* __restrict__ out, const float* epi,
+                                            const Plan& pl, int pass, int outs, int b2, int zp,
+                                            int rows, int o0, long long p0, long long npix,
+                                            float& carry) {
+  const int outs_here = pl.passes > 1 ? 1 : outs;
+  for (int pair = threadIdx.x; pair < outs_here * kTileP; pair += kThreads) {
+    const int ol = pair / kTileP;
+    const int px = pair % kTileP;
+    const int r_begin = max(ol * b2 - zp, 0);
+    const int r_end = min((ol + 1) * b2 - zp, rows);
+    float s = pass > 0 ? carry : 0.f;
+    for (int r = r_begin; r < r_end; ++r) s += epi[r * kEpiStride + px];
+    carry = s;
+    if (pass == pl.passes - 1 && p0 + px < npix) out[(o0 + ol) * npix + p0 + px] = s;
+  }
+}
+
+// --- the mma.sync kernel
+
+// X rows x0 .. x0 + count - 1 (zero from x_end on), one warp per row, 4
+// pixels a lane
+__device__ __forceinline__ void build_x(float* xb, const float* fs, const Plan& pl,
+                                        const FastDiv& q, int x0, int count, int x_end) {
+  const int warp = threadIdx.x / 32;
+  const int px = (threadIdx.x % 32) * 4;
+  for (int r = warp; r < count; r += kThreads / 32) {
+    const int x = x0 + r;
+    const float4 v = x < x_end ? row_product(fs, x, 0, pl.lead, q, px)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(xb + r * kRowStride + px) = v;
+  }
+}
+
+template <bool kSaveT>
+__global__ void __launch_bounds__(kThreads, 1)
+eps_fwd_mma_kernel(const float* __restrict__ views, const float* __restrict__ cmt,
+                   float* __restrict__ out, float* __restrict__ t, int n, int q, int n1,
+                   int a_dim, int b2, int out_size, long long npix, bool vec_views,
+                   bool vec_cmt) {
+  extern __shared__ float4 smem4[];
+  const Plan pl = make_plan(n, q, n1, b2, out_size);
+  const int nq = n * q;
+  float* fs = reinterpret_cast<float*>(smem4);          // (n*q, kRowStride)
+  float* ys = fs + nq * kRowStride;                     // (s, kRowStride)
+  float* region = ys + pl.s * kRowStride;
+  float* cbuf = region;                                 // 2 x (kTileZ, kCmtStride)
+  float* xbuf = region + 2 * kTileZ * kCmtStride;       // 2 x (x_rows, kRowStride)
+  float* epi = region;                                  // (kTileZ, kEpiStride)
+  int* vtab = reinterpret_cast<int*>(region + pl.region_floats);  // (kTileZ, n2)
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane / 4;
+  const int tig = lane % 4;
+  const int wz = (warp / (kTileP / kWarpP)) * kWarpZ;
+  const int wp = (warp % (kTileP / kWarpP)) * kWarpP;
+  const long long p0 = static_cast<long long>(blockIdx.x) * kTileP;
+  const int o0 = blockIdx.y * pl.g;
+  const int outs = min(pl.g, out_size - o0);            // outputs of this CTA
+  const int cta_rows = outs * b2;
+  const long long z_cta = static_cast<long long>(o0) * b2;
+  const int x_end = a_dim / pl.s;                       // X rows of u
+  const FastDiv qd = make_fastdiv(q);
+  const int chunks = (a_dim + kChunkA - 1) / kChunkA;
+  // a / s for a < s + 31 by a multiply and a shift (exact there for s <= 16)
+  const int inv_s = (65536 + pl.s - 1) / pl.s;
+
+  stage_factors(fs, views, nq, p0, npix, vec_views);
+  __syncthreads();
+  for (int r = warp; r < pl.s; r += kThreads / 32) {
+    const int px = lane * 4;
+    *reinterpret_cast<float4*>(ys + r * kRowStride + px) =
+        row_product(fs, r, pl.lead, pl.lv, qd, px);
+  }
+
+  float carry = 0.f;
+  for (int pass = 0; pass < pl.passes; ++pass) {
+    const int zp = pass * kTileZ;                       // first CTA row of the pass
+    const int rows = min(kTileZ, cta_rows - zp);        // rows of the pass
+    fill_vtab(vtab, zp, b2, n1, pl.n2, q);
+    float acc[kMI][kNJ][4], tot[kMI][kNJ][4];
+#pragma unroll
+    for (int i = 0; i < kMI; ++i)
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = tot[i][j][e] = 0.f;
+
+    stage_cmt<kCmtStride>(cbuf, cmt, z_cta + zp, rows, a_dim, 0, vec_cmt);
+    tf32x3::cp_async_commit();
+    build_x(xbuf, fs, pl, qd, 0, pl.x_rows, x_end);
+    for (int c = 0; c < chunks; ++c) {
+      tf32x3::cp_async_wait_all();  // this thread's copies of step c
+      __syncthreads();  // step c's cmt and X are in; step c - 1's buffers are free
+      const int a0 = c * kChunkA;
+      if (c + 1 < chunks) {
+        const int a1 = a0 + kChunkA;
+        stage_cmt<kCmtStride>(cbuf + ((c + 1) % 2) * kTileZ * kCmtStride, cmt, z_cta + zp, rows,
+                              a_dim, a1, vec_cmt);
+        tf32x3::cp_async_commit();
+        const int x1 = a1 / pl.s;
+        build_x(xbuf + ((c + 1) % 2) * pl.x_rows * kRowStride, fs, pl, qd, x1,
+                (a1 - x1 * pl.s + kChunkA - 1) / pl.s + 1, x_end);
+      }
+      if (wz < rows) {  // else the warp's 64 rows all lie past the pass
+        const float* cs = cbuf + (c % 2) * kTileZ * kCmtStride;
+        const float* xb = xbuf + (c % 2) * pl.x_rows * kRowStride;
+        const int m = a0 - (a0 / pl.s) * pl.s;            // a0 % s
+#pragma unroll
+        for (int k = 0; k < kChunkA / 8; ++k) {
+          // b0: K column 2 tig of the step (k = tig), b1: 2 tig + 1 (k = tig + 4)
+          int xo[2], yo[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int tt = m + 8 * k + 2 * tig + h;
+            const int xq = (tt * inv_s) >> 16;
+            xo[h] = xq * kRowStride;
+            yo[h] = (tt - xq * pl.s) * kRowStride;
+          }
+          uint32_t bh[kNJ][2], bl[kNJ][2];
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j) {
+            const int px = wp + 8 * j + gq;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              tf32x3::split_frag(xb[xo[h] + px] * ys[yo[h] + px], bh[j][h], bl[j][h]);
+          }
+          uint32_t ah[kMI][4], al[kMI][4];
+#pragma unroll
+          for (int i = 0; i < kMI; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              // a0/a1: row gq / gq + 8 at column 2 tig, a2/a3 at 2 tig + 1
+              const float2 v = *reinterpret_cast<const float2*>(
+                  cs + (wz + 16 * i + gq + 8 * h) * kCmtStride + 8 * k + 2 * tig);
+              tf32x3::split_frag(v.x, ah[i][h], al[i][h]);
+              tf32x3::split_frag(v.y, ah[i][h + 2], al[i][h + 2]);
+            }
+          // the three products of one fragment 16 mma apart
+          tf32x3::mma3_tiles(acc, ah, al, bh, bl);
+        }
+      }
+      if (c % kFlush == kFlush - 1) {
+#pragma unroll
+        for (int i = 0; i < kMI; ++i)
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              tot[i][j][e] += acc[i][j][e];
+              acc[i][j][e] = 0.f;
+            }
+      }
+    }
+    __syncthreads();  // every warp is done with the stages: the region takes the epilogue
+
+    // fragment element e: row gq (+8 for e >= 2), pixel 2 tig (+1 for odd e)
+#pragma unroll
+    for (int i = 0; i < kMI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wz + 16 * i + gq + 8 * h;
+        if (r >= rows) continue;
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j)
+          emit_pair<kSaveT>(t, epi, fs, vtab, pl.n2, z_cta + zp + r, p0, npix, r,
+                            wp + 8 * j + 2 * tig, tot[i][j][2 * h] + acc[i][j][2 * h],
+                            tot[i][j][2 * h + 1] + acc[i][j][2 * h + 1]);
+      }
+    __syncthreads();
+    sum_outputs(out, epi, pl, pass, outs, b2, zp, rows, o0, p0, npix, carry);
+    __syncthreads();  // the region and the table are free for the next pass
+  }
+}
+
+// --- the wgmma kernel
+
+// x split into TF32 hi and lo, stored as float4s at offset o of both planes
+__device__ __forceinline__ void store_split(float* hi, float* lo, int o, float4 x) {
+  const float4 h = make_float4(tf32x3::round_tf32(x.x), tf32x3::round_tf32(x.y),
+                               tf32x3::round_tf32(x.z), tf32x3::round_tf32(x.w));
+  *reinterpret_cast<float4*>(hi + o) = h;
+  *reinterpret_cast<float4*>(lo + o) = make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
+}
+
+// One step's planes, columns a0 .. a0 + 31 of A: cmt's from its raw stage
+// (zero past the pass's rows and past A) and u at the CTA's 128 pixels. Each
+// thread writes 16-byte units of 4 columns: cmt's in 8 rows x 4 column quads
+// a warp, u's in one column quad x 32 pixels a warp (s % 4 == 0, so a quad
+// lies in one X row: u = X[a / s] * Y[a % s + e]).
+__device__ __forceinline__ void build_step(float* buf, const float* raw, int a0, const float* fs,
+                                           const float* ys, const Plan& pl, const FastDiv& qd,
+                                           int x_end) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int m = 0; m < kTileZ * kChunkA / 4 / kThreads; ++m) {
+    const int unit = tid + kThreads * m;
+    const int zl = unit % 8, aq = (unit / 8) % 8, zg = unit / 64;
+    const float4 v = *reinterpret_cast<const float4*>(raw + (8 * zg + zl) * kRawStride + 4 * aq);
+    store_split(buf, buf + kPlaneFloats, zg * kGroupFloats + aq * 32 + zl * 4, v);
+  }
+  const int aq = tid / 32;
+  const int a = a0 + 4 * aq;
+  const int x = a / pl.s;
+  const int y = a - x * pl.s;
+  float xv[kTileP / 32];
+#pragma unroll
+  for (int m = 0; m < kTileP / 32; ++m) xv[m] = x < x_end ? 1.f : 0.f;
+  unsigned rest = x;
+  for (int k = pl.lead - 1; k >= 0; --k) {  // the X factors at the digits of x
+    const unsigned next = fast_div(rest, qd);
+    const float* f =
+        fs + (k * static_cast<int>(qd.d) + static_cast<int>(rest - next * qd.d)) * kRowStride;
+    rest = next;
+#pragma unroll
+    for (int m = 0; m < kTileP / 32; ++m) xv[m] *= f[tid % 32 + 32 * m];
+  }
+  const int ys_stride = y_stride(pl.s);
+#pragma unroll
+  for (int m = 0; m < kTileP / 32; ++m) {
+    const int px = tid % 32 + 32 * m;
+    const float4 yq = *reinterpret_cast<const float4*>(ys + px * ys_stride + y);
+    const float4 u = make_float4(xv[m] * yq.x, xv[m] * yq.y, xv[m] * yq.z, xv[m] * yq.w);
+    store_split(buf + 2 * kPlaneFloats, buf + 3 * kPlaneFloats,
+                (px / 8) * kGroupFloats + aq * 32 + (px % 8) * 4, u);
+  }
+}
+
+template <bool kSaveT>
+__global__ void __launch_bounds__(kThreads, 1)
+eps_fwd_wgmma_kernel(const float* __restrict__ views, const float* __restrict__ cmt,
+                     float* __restrict__ out, float* __restrict__ t, int n, int q, int n1,
+                     int a_dim, int b2, int out_size, long long npix, bool vec_views,
+                     bool vec_cmt) {
+  extern __shared__ float4 smem4[];
+  const Plan pl = make_plan(n, q, n1, b2, out_size);
+  const int nq = n * q;
+  float* planes = reinterpret_cast<float*>(smem4);      // 2 steps x kStepFloats
+  float* epi = planes;                                   // (kTileZ, kEpiStride)
+  float* raws = planes + max(2 * kStepFloats, kTileZ * kEpiStride);  // kRawStages x kRawFloats
+  float* fs = raws + kRawStages * kRawFloats;            // (n*q, kRowStride)
+  float* ys = fs + nq * kRowStride;                      // (kTileP, y_stride(s))
+  int* vtab = reinterpret_cast<int*>(ys + kTileP * y_stride(pl.s));  // (kTileZ, n2)
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane / 4;
+  const int tig = lane % 4;
+  const int wg = warp / 4;                               // warpgroup: rows 64 wg ..
+  const long long p0 = static_cast<long long>(blockIdx.x) * kTileP;
+  const int o0 = blockIdx.y * pl.g;
+  const int outs = min(pl.g, out_size - o0);
+  const int cta_rows = outs * b2;
+  const long long z_cta = static_cast<long long>(o0) * b2;
+  const int x_end = a_dim / pl.s;
+  const int chunks = (a_dim + kChunkA - 1) / kChunkA;
+  const FastDiv qd = make_fastdiv(q);
+
+  stage_factors(fs, views, nq, p0, npix, vec_views);
+  __syncthreads();
+  for (int r = warp; r < pl.s; r += kThreads / 32) {
+    const int px = lane * 4;
+    const float4 v = row_product(fs, r, pl.lead, pl.lv, qd, px);
+    const int st = y_stride(pl.s);
+    ys[px * st + r] = v.x;
+    ys[(px + 1) * st + r] = v.y;
+    ys[(px + 2) * st + r] = v.z;
+    ys[(px + 3) * st + r] = v.w;
+  }
+
+  float carry = 0.f;
+  for (int pass = 0; pass < pl.passes; ++pass) {
+    const int zp = pass * kTileZ;
+    const int rows = min(kTileZ, cta_rows - zp);
+    fill_vtab(vtab, zp, b2, n1, pl.n2, q);
+    float acc[64], tot[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
+    // cmt's raw stages run up to three steps ahead of the products
+    for (int c = 0; c < kRawStages; ++c) {
+      if (c < chunks)
+        stage_cmt<kRawStride>(raws + c * kRawFloats, cmt, z_cta + zp, rows, a_dim, c * kChunkA,
+                              vec_cmt);
+      tf32x3::cp_async_commit();  // an empty group past the last step keeps the count
+    }
+    tf32x3::cp_async_wait_group<kRawStages - 2>();  // steps 0 and 1
+    __syncthreads();
+    build_step(planes, raws, 0, fs, ys, pl, qd, x_end);
+    tf32x3::fence_async_smem();
+    __syncthreads();
+    for (int c = 0; c < chunks; ++c) {
+      const float* buf = planes + (c % 2) * kStepFloats;
+      // both warpgroups multiply, also one whose rows lie past the pass (its
+      // planes are zero there): a branch around wgmma serializes them
+      tf32x3::wgmma_fence();
+      tf32x3::wgmma_pin(acc);
+#pragma unroll
+      for (int kk = 0; kk < kChunkA / 8; ++kk) {
+        const int ao = 8 * wg * kGroupFloats + 2 * kk * 32;  // rows 64 wg .., K groups 2 kk, 2 kk + 1
+        const uint64_t ah = tf32x3::smem_desc<128, 1024>(buf + ao);
+        const uint64_t al = tf32x3::smem_desc<128, 1024>(buf + kPlaneFloats + ao);
+        const uint64_t bh = tf32x3::smem_desc<128, 1024>(buf + 2 * kPlaneFloats + 2 * kk * 32);
+        const uint64_t bl = tf32x3::smem_desc<128, 1024>(buf + 3 * kPlaneFloats + 2 * kk * 32);
+        tf32x3::wgmma_m64n128k8(acc, al, bh);
+        tf32x3::wgmma_m64n128k8(acc, ah, bl);
+        tf32x3::wgmma_m64n128k8(acc, ah, bh);
+      }
+      tf32x3::wgmma_commit();
+      if (c + kRawStages < chunks)  // step c's raw stage was read in step c - 1
+        stage_cmt<kRawStride>(raws + (c % kRawStages) * kRawFloats, cmt, z_cta + zp, rows, a_dim,
+                              (c + kRawStages) * kChunkA, vec_cmt);
+      tf32x3::cp_async_commit();  // an empty group past the last step keeps the count
+      if (c + 1 < chunks) {  // the next step's planes, beside the products
+        build_step(planes + ((c + 1) % 2) * kStepFloats, raws + ((c + 1) % kRawStages) * kRawFloats,
+                   (c + 1) * kChunkA, fs, ys, pl, qd, x_end);
+        tf32x3::fence_async_smem();
+      }
+      tf32x3::wgmma_wait_all();
+      tf32x3::wgmma_pin(acc);
+      if (c % kFlush == kFlush - 1) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          tot[i] += acc[i];
+          acc[i] = 0.f;
+        }
+      }
+      tf32x3::cp_async_wait_group<kRawStages - 2>();  // this thread's copies of step c + 2
+      __syncthreads();  // step c's planes are free; step c + 1's planes and c + 2's stage are in
+    }
+    tf32x3::cp_async_wait_all();
+
+    // accumulator element 4 j + e: row 16 (warp % 4) + gq (+8 for e >= 2) of
+    // the warpgroup's 64, pixel 8 j + 2 tig (+1 for odd e)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * wg + 16 * (warp % 4) + gq + 8 * h;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < kTileP / 8; ++j)
+        emit_pair<kSaveT>(t, epi, fs, vtab, pl.n2, z_cta + zp + r, p0, npix, r, 8 * j + 2 * tig,
+                          tot[4 * j + 2 * h] + acc[4 * j + 2 * h],
+                          tot[4 * j + 2 * h + 1] + acc[4 * j + 2 * h + 1]);
+    }
+    __syncthreads();
+    sum_outputs(out, epi, pl, pass, outs, b2, zp, rows, o0, p0, npix, carry);
+    __syncthreads();  // the region and the table are free for the next pass
+  }
+}
+
+// Raises a kernel's dynamic shared memory cap to kMaxSmemBytes, once per
+// device and kernel (`Tag`), so the launch path makes no attribute call.
+template <class Tag, class Kernel>
+cudaError_t ensure_smem_cap(Kernel kernel) {
   static std::atomic<bool> done[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(eps_fwd_kernel<kSaveT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kMaxSmemBytes));
   if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
   return err;
 }
 
-long long ipow(long long base, int exp) {
-  long long r = 1;
-  for (int i = 0; i < exp; ++i) r *= base;
-  return r;
+template <bool kWgmma, bool kSaveT>
+struct KernelTag {};
+
+template <bool kWgmma, bool kSaveT>
+int launch(const Plan& pl, const void* views, const void* cmt, void* out, void* t, int n, int q,
+           int n1, long long a_dim, long long b2, int out_size, long long npix, void* stream) {
+  const auto kernel = kWgmma ? eps_fwd_wgmma_kernel<kSaveT> : eps_fwd_mma_kernel<kSaveT>;
+  const cudaError_t err = ensure_smem_cap<KernelTag<kWgmma, kSaveT>>(kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((npix + kTileP - 1) / kTileP),
+                  static_cast<unsigned>((out_size + pl.g - 1) / pl.g));
+  const size_t bytes = static_cast<size_t>(kWgmma ? pl.wgmma_bytes : pl.mma_bytes);
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(views), static_cast<const float*>(cmt), static_cast<float*>(out),
+      static_cast<float*>(t), n, q, n1, static_cast<int>(a_dim), static_cast<int>(b2), out_size,
+      npix, npix % 4 == 0 && reinterpret_cast<uintptr_t>(views) % 16 == 0,
+      a_dim % 4 == 0 && reinterpret_cast<uintptr_t>(cmt) % 16 == 0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // views (n, q, npix) f32, cmt (O*B2, A) f32, out (O, npix) f32 and, unless
 // null, t (O*B2, npix) f32, all contiguous on the current device; launches
-// on `stream` and does not synchronise. Returns cudaGetLastError() (0 on
-// success).
+// the wgmma kernel where s % 4 == 0 and its plan fits, else the mma.sync
+// kernel, on `stream`, and does not synchronise. Returns cudaGetLastError()
+// (0 on success).
 extern "C" int dctn_eps_fwd(const void* views, const void* cmt, void* out,
                             void* t, int n, int q, int n1, int out_size,
                             long long npix, void* stream) {
@@ -239,23 +691,10 @@ extern "C" int dctn_eps_fwd(const void* views, const void* cmt, void* out,
   const long long b2 = ipow(q, n - n1);
   if (b2 > kMaxB2 || a_dim > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  int row_groups = static_cast<int>((b2 + kRowsPerThread - 1) / kRowsPerThread);
-  row_groups = (row_groups + 3) / 4 * 4;  // whole warps: 4 row groups each
-  const int nthreads = row_groups * kThreadsPerRowGroup;
-  const int rows = row_groups * kRowsPerThread;
-  const size_t smem_bytes =
-      sizeof(float) * (static_cast<size_t>(n) * q * kTilePix +
-                       kChunkA * kTilePix + static_cast<size_t>(rows) * kCmtStride +
-                       static_cast<size_t>(row_groups) * kTilePix);
-  const cudaError_t err =
-      t != nullptr ? ensure_smem_cap<true>() : ensure_smem_cap<false>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((npix + kTilePix - 1) / kTilePix),
-                  static_cast<unsigned>(out_size));
-  const auto kernel = t != nullptr ? eps_fwd_kernel<true> : eps_fwd_kernel<false>;
-  kernel<<<grid, nthreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(views), static_cast<const float*>(cmt),
-      static_cast<float*>(out), static_cast<float*>(t), n, q, n1,
-      static_cast<int>(a_dim), static_cast<int>(b2), npix);
-  return static_cast<int>(cudaGetLastError());
+  const Plan pl = make_plan(n, q, n1, b2, out_size);
+  const bool wgmma = pl.s % 4 == 0 && pl.wgmma_bytes <= kMaxSmemBytes;
+  if (!wgmma && pl.mma_bytes > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const auto go = t != nullptr ? (wgmma ? launch<true, true> : launch<false, true>)
+                               : (wgmma ? launch<true, false> : launch<false, false>);
+  return go(pl, views, cmt, out, t, n, q, n1, a_dim, b2, out_size, npix, stream);
 }

@@ -1,5 +1,5 @@
 // Shared pieces of the float32-accurate tensor-core kernels for Hopper
-// (sm_90a): eps_dcore.cu and eps_dviews_t.cu.
+// (sm_90a): eps_fwd.cu, eps_dcore.cu and eps_dviews_t.cu.
 //
 // 3xTF32. A TF32 operand keeps 10 explicit mantissa bits, so one TF32
 // product of float32 data is good to about 1e-3. Split each value x into
@@ -118,6 +118,68 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// waits until at most kPending of this thread's latest cp.async groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// --- wgmma (sm_90a): warpgroup products with both operands in shared memory
+
+// The descriptor of a K-major operand tile without swizzle: core matrices of
+// 8 rows x 16 bytes (4 TF32 values), the two of a k8 step `kLbo` bytes apart
+// along K, row groups of 8 `kSbo` bytes apart. The tile starts at p.
+template <int kLbo, int kSbo>
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint64_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return ((a & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(kLbo >> 4) << 16) |
+         (static_cast<uint64_t>(kSbo >> 4) << 32);
+}
+
+// d (64 x 128 over the warpgroup, f32) += a (64 x 8) * b (8 x 128, stored
+// as 128 rows of K), TF32 in. Thread (warp w of the warpgroup, g = lane / 4,
+// tig = lane % 4) holds d[4 j + e] at row 16 w + g (+8 for e >= 2), column
+// 8 j + 2 tig (+1 for odd e), as mma.sync's fragments side by side.
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], uint64_t a_desc, uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a_desc), "l"(b_desc), "r"(1));
+}
+
+// before a warpgroup's first wgmma after its registers were touched
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits for every wgmma this warpgroup committed
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of d across the
+// asynchronous products
+__device__ __forceinline__ void wgmma_pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// makes this thread's shared-memory writes visible to the wgmma that read them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace tf32x3

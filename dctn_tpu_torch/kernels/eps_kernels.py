@@ -8,7 +8,8 @@ factor pairs into q=4 ones, as the JAX plan does) and hands it, with the
 core in its matricized (Z, A) "cmt" layout, to three contractions:
 
 - ``eps_fwd``: the layer's output and, for training, its t = cmt·u
-  (``csrc/eps_fwd.cu``, replacing ``_fwd_kernel_factory``, eps_pallas.py:227);
+  (``csrc/eps_fwd.cu``, replacing ``_fwd_kernel_factory``, eps_pallas.py:227;
+  its product in 3xTF32 on the tensor cores);
 - ``eps_dcore``: d_cmt (``csrc/eps_dcore.cu``, replacing
   ``_dcore_kernel_factory``, :348, and the d_cmt half of
   ``_bwd_fused_t_kernel_factory``, :303);
@@ -53,6 +54,12 @@ _MAX_OUT_SIZE = 65535
 _MAX_SMEM_BYTES = 227 * 1024
 _DCORE_TILE = 128
 _DCORE_MAX_SLICES = 64
+# eps_fwd's tiles (csrc/eps_fwd.cu): a CTA takes 128 pixels and the rows of
+# whole outputs, 128 rows of Z per pass, 32 columns of A per step; u's
+# Kronecker split takes trailing digits up to 16 values, as eps_dcore's
+_FWD_TILE_Z = 128
+_FWD_TILE_P = 128
+_FWD_CHUNK_A = 32
 # eps_dcore splits the pixels of a layer whose 128 x 128 (Z, A) tiles would
 # leave more than half of the card's SMs idle (an H100 SXM has 132): into as
 # many slices as make about two CTAs per SM (two fit beside each other, so
@@ -317,6 +324,42 @@ def _check_split(name: str, shape: str, n: int, q: int, n1: int) -> None:
         )
 
 
+def _fwd_plan(n: int, q: int, n1: int, out_size: int, npix: int) -> dict:
+    """One ``eps_fwd`` launch (``make_plan`` in csrc/eps_fwd.cu): each CTA
+    owns 128 pixels and ``outputs`` whole outputs (⌊128 / B2⌋ where B2 ≤ 128,
+    else one, whose B2 rows it walks in ``passes`` of 128); ``grid`` is
+    (pixel tiles, Z tiles). u = X·Y with Y the product of u's lv trailing
+    factors (s = q^lv ≤ 16 values). ``kernel`` is "wgmma" where s % 4 == 0
+    and its shared memory fits, else "mma.sync". Shared memory of both: the
+    staged factor rows, 132 floats apart, and each pass row's v digits (n2
+    ints); the mma.sync kernel's Y (s rows) and the larger of its two cmt
+    stages (128 × 40) with two buffers of the X rows a step of 32 columns
+    spans and the 128 × 136 epilogue tile; the wgmma kernel's pixel-major Y
+    (128 × (s + 4 or s + 8)), the larger of two steps' operand planes (4 ×
+    128 × 32 each) and the epilogue tile, and three raw cmt stages (128 ×
+    36)."""
+    b2 = q ** (n - n1)
+    lv = 0
+    while lv < n1 and q ** (lv + 1) <= _DCORE_MAX_KRON:
+        lv += 1
+    s = q**lv
+    x_rows = (s - 1 + _FWD_CHUNK_A - 1) // s + 1
+    outputs = min(_FWD_TILE_Z // b2, out_size) if b2 <= _FWD_TILE_Z else 1
+    epi = _FWD_TILE_Z * 136
+    common = n * q * 132 + _FWD_TILE_Z * (n - n1)
+    mma = 4 * (common + s * 132 + max(2 * _FWD_TILE_Z * 40 + 2 * x_rows * 132, epi))
+    wgmma = 4 * (common + _FWD_TILE_P * (s + (4 if s % 8 == 0 else 8))
+                 + max(2 * 4 * _FWD_TILE_Z * _FWD_CHUNK_A, epi) + 3 * _FWD_TILE_Z * 36)
+    kernel = "wgmma" if s % 4 == 0 and wgmma <= _MAX_SMEM_BYTES else "mma.sync"
+    return {
+        "outputs": outputs,
+        "passes": math.ceil(outputs * b2 / _FWD_TILE_Z),
+        "grid": (math.ceil(npix / _FWD_TILE_P), math.ceil(out_size / outputs)),
+        "kernel": kernel,
+        "smem_bytes": wgmma if kernel == "wgmma" else mma,
+    }
+
+
 def _check_kernel_args(views_t, cmt, n1, out_size):
     n, q, npix = views_t.shape
     shape = f"views {tuple(views_t.shape)}, cmt {tuple(cmt.shape)}, n1={n1}, O={out_size}"
@@ -330,6 +373,12 @@ def _check_kernel_args(views_t, cmt, n1, out_size):
         )
     if tuple(cmt.shape) != (out_size * b2, q**n1):
         raise ValueError(f"eps_fwd: cmt is not (O·q^(n-n1), q^n1) ({shape})")
+    smem = _fwd_plan(n, q, n1, out_size, npix)["smem_bytes"]
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(
+            f"eps_fwd kernel limits exceeded ({shape}): needs {smem} B of "
+            f"shared memory > {_MAX_SMEM_BYTES}"
+        )
 
 
 def _stream(device) -> int:

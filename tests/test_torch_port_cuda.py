@@ -88,10 +88,21 @@ def test_kernel_matches_plain_on_cuda(cuda_device, n, q, n1, o, npix):
         (9, 4, 5, 6, 128 * 529),  # the same at batch 128
         (6, 2, 3, 3, 777),  # ragged: the scalar stores of the last tile
         (3, 5, 1, 2, 130),  # B2 = 25; npix not a multiple of 4
-        (10, 2, 1, 2, 300),  # B2 = 512
+        (10, 2, 1, 2, 300),  # B2 = 512, the most the kernel takes: four passes
+        # the other layers the port's paths run (kernel dims after the pair
+        # merge), at 2 images
+        (8, 4, 4, 4, 2 * 625),  # flagship and deep layer 0: B2 = 256, two passes of 128 rows
+        (9, 4, 5, 12, 2 * 529),  # deep layer 1: Z = 3072
+        (4, 12, 3, 24, 2 * 484),  # deep layer 2: B2 = 12, Z tiles of 10, 10 and 4 outputs
+        (2, 4, 2, 4, 2 * 729),  # three-EPS layer 0: n2 = 0, out = t
+        (4, 4, 3, 6, 2 * 676),  # three-EPS layer 1: A = 64, B2 = 4
+        (4, 6, 3, 12, 2 * 625),  # three-EPS layer 2: s = 6, the mma.sync kernel
     ],
 )
 def test_forward_with_t_matches_plain(cuda_device, n, q, n1, o, npix):
+    """Both outputs against the plain version and against float64 (3xTF32
+    keeps float32 accuracy); the serving form's out is the save_t form's,
+    bit for bit (the two share their sums)."""
     views, cmt, _ = _inputs(cuda_device, n, q, n1, o, npix)
     before = (K.eps_fwd.launches, K.eps_fwd.t_launches)
     out, t = K.eps_fwd(views, cmt, n1, o, save_t=True)
@@ -100,6 +111,9 @@ def test_forward_with_t_matches_plain(cuda_device, n, q, n1, o, npix):
     ref_out, ref_t = K.eps_fwd_reference(views, cmt, n1, o, save_t=True)
     _assert_close(out, ref_out)
     _assert_close(t, ref_t)
+    out64, t64 = K.eps_fwd_reference(views.double().cpu(), cmt.double().cpu(), n1, o, save_t=True)
+    _assert_close(out.double().cpu(), out64)
+    _assert_close(t.double().cpu(), t64)
     # the same launch without t gives the same output
     torch.testing.assert_close(K.eps_fwd(views, cmt, n1, o), out, rtol=0, atol=0)
 
@@ -307,9 +321,10 @@ def test_backward_kernels_refuse_shapes_outside_their_limits(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# the 3xTF32 tensor-core kernels' tiling: eps_dcore's 128 x 128 (Z, A) tiles
-# over 32-pixel steps, the d_views kernel's 64-pixel tiles with MA = 128 (or
-# 64) rows of A or Z per product and 32 K rows per step
+# the 3xTF32 tensor-core kernels' tiling: eps_fwd's 128-pixel tiles of whole
+# outputs over 32-column steps of A (t for eps_fwd_t), eps_dcore's 128 x 128
+# (Z, A) tiles over 32-pixel steps, the d_views kernel's 64-pixel tiles with
+# MA = 128 (or 64) rows of A or Z per product and 32 K rows per step
 
 # (n, q, n1, O, npix): Z = O·q^(n-n1), A = q^n1 and npix below 16, between 16
 # and 128, and just over 128; n2 = 0; pixel slices
@@ -339,6 +354,10 @@ def _tiling_case(dev, n, q, n1, o, npix, zero=False):
 
 
 _REDESIGNED = {
+    "eps_fwd": (lambda M, v, c, g, t, n1, o: M.eps_fwd(v, c, n1, o),
+                lambda v, c, g, t, n1, o: K.eps_fwd_reference(v, c, n1, o)),
+    "eps_fwd_t": (lambda M, v, c, g, t, n1, o: M.eps_fwd(v, c, n1, o, save_t=True)[1],
+                  lambda v, c, g, t, n1, o: K.eps_fwd_reference(v, c, n1, o, save_t=True)[1]),
     "eps_dcore": (lambda M, v, c, g, t, n1, o: M.eps_dcore(v, g, n1, o),
                   lambda v, c, g, t, n1, o: K.eps_dcore_reference(v, g, n1, o)),
     "eps_dviews_t": (lambda M, v, c, g, t, n1, o: M.eps_dviews_t(v, c, g, t, n1, o),

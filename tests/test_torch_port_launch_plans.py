@@ -1,5 +1,8 @@
 """The launch plans of the 3xTF32 tensor-core kernels, on the CPU.
 
+``eps_fwd`` (csrc/eps_fwd.cu) gives each CTA 128 pixels and a Z tile of
+whole outputs (or all B2 rows of one, in passes of 128 rows), so its sum
+over b never crosses CTAs; its shared memory grows with n*q.
 ``eps_dcore`` runs 128 x 128 (Z, A) tiles over `_dcore_slices` pixel ranges
 (csrc/eps_dcore.cu); the d_views kernel (csrc/eps_dviews_t.cu) one CTA per
 64 pixels; the shared memory of both grows with n*q, B2 and O. At every layer
@@ -97,3 +100,60 @@ def test_dcore_slices_follow_the_card_sm_count(sms, slices):
     of the card it runs on: an H100 SXM's 132, or an H100 PCIe's 114."""
     n, q, n1, o, h = chip_smoke.layer_dims(chip_smoke.FLAGSHIP)[0]
     assert K._dcore_slices(o * q ** (n - n1), q**n1, chip_smoke.BATCH * h * h, sms) == slices
+
+
+# (label, n, q, n1, O, npix, kernel): the layers eps_fwd runs on the port's
+# paths (kernel dims after the pair merge) at batch 128 and the deep
+# model's at 2048, then every factor in u, a ragged pixel count, B2 = 512,
+# n*q = 256 and O at its limit; with the kernel that takes each (wgmma where
+# s = q^lv is a multiple of 4 and its shared memory fits)
+_FWD_SHAPES = [
+    ("flagship and deep layer 0", 8, 4, 4, 4, 128 * 625, "wgmma"),
+    ("flagship layer 1", 9, 4, 5, 6, 128 * 529, "wgmma"),
+    ("deep layer 1", 9, 4, 5, 12, 128 * 529, "wgmma"),
+    ("deep layer 2", 4, 12, 3, 24, 128 * 484, "wgmma"),
+    ("three-EPS layer 0", 2, 4, 2, 4, 128 * 729, "wgmma"),
+    ("three-EPS layer 1", 4, 4, 3, 6, 128 * 676, "wgmma"),
+    ("three-EPS layer 2", 4, 6, 3, 12, 128 * 625, "mma.sync"),
+    ("deep layer 1 at batch 2048", 9, 4, 5, 12, 2048 * 529, "wgmma"),
+    ("deep layer 2 at batch 2048", 4, 12, 3, 24, 2048 * 484, "wgmma"),
+    ("n2=0", 4, 3, 4, 5, 1000, "mma.sync"),
+    ("ragged npix", 6, 2, 3, 3, 777, "wgmma"),
+    ("B2=512", 10, 2, 1, 2, 300, "mma.sync"),
+    ("n*q=256", 2, 128, 1, 2, 300, "mma.sync"),
+    ("n*q=76 with s=16", 19, 4, 15, 1, 300, "mma.sync"),  # the wgmma plan is over 227 KB
+    ("O at its limit", 3, 5, 2, 65535, 300, "mma.sync"),
+]
+
+
+@pytest.mark.parametrize("label,n,q,n1,o,npix,kernel", _FWD_SHAPES, ids=[s[0] for s in _FWD_SHAPES])
+def test_fwd_launch_plan_fits_the_card(label, n, q, n1, o, npix, kernel):
+    b2 = q ** (n - n1)
+    plan = K._fwd_plan(n, q, n1, o, npix)
+    assert plan["kernel"] == kernel
+    outputs, passes = plan["outputs"], plan["passes"]
+    # the Z tile holds whole outputs, or all B2 rows of one in passes
+    assert 1 <= outputs <= o
+    if b2 <= K._FWD_TILE_Z:
+        assert passes == 1
+        assert outputs * b2 <= K._FWD_TILE_Z < (outputs + 1) * b2 or outputs == o
+    else:
+        assert outputs == 1 and passes == math.ceil(b2 / K._FWD_TILE_Z)
+    # every output in exactly one Z tile, every pixel in one pixel tile
+    grid_x, grid_y = plan["grid"]
+    assert grid_y == math.ceil(o / outputs) and (grid_y - 1) * outputs < o
+    assert grid_x * K._FWD_TILE_P >= npix > (grid_x - 1) * K._FWD_TILE_P
+    assert grid_x <= _GRID_X and grid_y <= _GRID_YZ
+    assert plan["smem_bytes"] <= K._MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("layer,outputs,tiles", [(0, 1, 4), (1, 1, 6)])
+def test_fwd_flagship_tiles_take_whole_outputs(layer, outputs, tiles):
+    """The flagship's layers (B2 = 256): one output per CTA in two passes of
+    128 rows; the deep model's layer 2 (B2 = 12): 10 outputs, 3 Z tiles."""
+    n, q, n1, o, h = chip_smoke.layer_dims(chip_smoke.FLAGSHIP)[layer]
+    plan = K._fwd_plan(n, q, n1, o, chip_smoke.BATCH * h * h)
+    assert (plan["outputs"], plan["passes"], plan["grid"][1]) == (outputs, 2, tiles)
+    n, q, n1, o, h = chip_smoke.layer_dims(chip_smoke.DEEP)[2]
+    plan = K._fwd_plan(n, q, n1, o, chip_smoke.BATCH * h * h)
+    assert (plan["outputs"], plan["passes"], plan["grid"][1]) == (10, 1, 3)
