@@ -11,8 +11,8 @@ Run from the root of a checkout, with no arguments:
    per source, all at once), printing each build time, the compiler's
    register report and the count of tensor-core instructions (HMMA, HGMMA,
    IMMA; ``cuobjdump -sass``) in each library; it fails if the 3xTF32
-   sources (``eps_fwd``, ``eps_dcore``, ``eps_dviews_t``) have no HMMA or
-   HGMMA.
+   sources (``eps_fwd``, ``eps_dcore``, ``eps_dviews_t``, ``logmatmulexp``)
+   have no HMMA or HGMMA.
 2. Holds each kernel against its plain PyTorch version at the layer shapes
    of the flagship, the three-EPS ``(2,4),(2,6),(2,12)`` and the deep
    ``(4,4),(3,12),(2,24)`` models at batch 128 and at small shapes (every
@@ -57,7 +57,8 @@ Run from the root of a checkout, with no arguments:
    both layer shapes of the legacy 2-layer bond-4 model, open strings and
    rings, batch 100 and 512, and every merge position at one shape, with
    kernel, plain and bound times (no single library call folds a tensor
-   train: the library column is null).
+   train: the library column is null); at batch 512 the backward gives the
+   same bits on a second run.
 6. Drives the legacy ConvSBS family: ``dctn_tpu_torch.cli.legacy_runner.run``
    on synthetic data (2 layers, bond 4, batch 100, 2 epochs; SGD and RMSprop
    with momentum; open strings and ``--trace-edge`` rings), checking its
@@ -79,20 +80,24 @@ Run from the root of a checkout, with no arguments:
    the (98, 490) block-diagonal weights, −inf off the blocks), the large-R
    regime (256, 32768, 256), ragged edges (100, 60, 37), offsets of ±80,
    and rows, columns and entries of −inf (the outputs there exactly −inf,
-   no NaN anywhere, the same bits on a second run), with kernel, plain,
-   library (``torch.matmul`` of the materialized exponentials) and bound
-   times.
+   no NaN anywhere, the same bits on a second run, the largest share of the
+   per-entry limit printed), with kernel, plain, library (``torch.matmul``
+   of the materialized exponentials) and bound times; K13's shifts kernel
+   equal to ``max_shifts`` bit for bit at every case, and one forward of
+   ``logmatmulexp_kernel`` two launches (shifts, product) and two device
+   kernels.
 8. ``dctn_tpu_torch.bench.run_logmatmulexp``, the chain of
    experiments/logmatmulexp_benchmark.py (6 × 256×256 f32, plain matmul and
-   three log-space forms, forward and the gradients of all six): K13
-   launched 5 times per forward and per forward+backward of the kernel
-   form; the chain's output and six gradients against the plain max-shift
-   form.
+   three log-space forms, forward and the gradients of all six): K13 and
+   its shifts kernel launched 5 times each per forward and per
+   forward+backward of the kernel form; the chain's output and six
+   gradients against the plain max-shift form.
 9. ``dctn_tpu_torch.bench.run_log_space``, the log-space classifier of
    experiments/log_space_classifier.py at its defaults (600 Adam 3e-2 steps
-   at batch 256): K13 launched once per ``fused_kernel`` step and once for
-   its accuracy forward; the three forms within 0.02 in accuracy, finite
-   weights; one step's gradient against ``fused_plain``.
+   at batch 256): K13 and its shifts kernel launched once each per
+   ``fused_kernel`` step and once for its accuracy forward; the three forms
+   within 0.02 in accuracy, finite weights; one step's gradient against
+   ``fused_plain``.
 10. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
    of the serving forward (f32 and int8) at batch 1 and 128 and of the
    flagship training step (f32 and QAT) at batch 128, on the kernel and on
@@ -287,6 +292,11 @@ LME_KERNELS = {
         "route": "cuda", "source": "dctn_tpu_torch/csrc/logmatmulexp.cu",
         "replaces": "dctn_tpu/pallas/logmatmulexp_pallas.py:32",
     },
+    # the shifts `_forward` computes around K13's pallas_call (:53-57)
+    "logmatmulexp_shifts": {
+        "route": "cuda", "source": "dctn_tpu_torch/csrc/logmatmulexp.cu",
+        "replaces": "dctn_tpu/pallas/logmatmulexp_pallas.py:53",
+    },
 }
 KERNELS = {**KERNELS, **LME_KERNELS}
 # (label, Θ, R, I, offset of A (B gets its negative), −inf rows, columns and
@@ -306,7 +316,9 @@ LME_SHAPES = (
 # K13 against its plain version, per entry of the log: both float32, the sum
 # over R in other orders (the kernel's 32-wide chunks and its split of R
 # against cuBLAS's blocking), so log(sum) differs by about √R·2⁻²⁴ (a random
-# walk of R roundings, each a relative 2⁻²⁴), and adding the shifts rounds
+# walk of R roundings, each a relative 2⁻²⁴; the kernel's 3xTF32 products,
+# good to about 2⁻²² each, are all ≥ 0 and cancel nothing, so they stay
+# inside the walk term at every R ≥ 1), and adding the shifts rounds
 # at an ulp of log(sum) + amax and of the output, whose magnitudes |amax| +
 # |bmax| and |ref| bound: |Δ| ≤ 16·2⁻²⁴·√R + 8·2⁻²⁴·max(|ref|, |amax| +
 # |bmax|), 16 times the walk and 8 half-ulps. −inf only where the plain
@@ -363,7 +375,7 @@ def tensor_core_instructions(path) -> dict:
 
 
 # the sources whose f32 products run on the tensor cores in 3xTF32
-TF32X3_SOURCES = ("eps_fwd", "eps_dcore", "eps_dviews_t")
+TF32X3_SOURCES = ("eps_fwd", "eps_dcore", "eps_dviews_t", "logmatmulexp")
 
 
 def build_all(build) -> None:
@@ -644,28 +656,39 @@ def kernels_at_deep_batch(K, dev, res) -> None:
         torch.cuda.empty_cache()
 
 
+# torch.profiler on the card now and then hands back a window without any
+# device event; a window that shows none is taken again, at most this many
+# times
+PROFILE_TRIES = 3
+
+
 def device_ms_per_call(fn, calls: int, out_path: str) -> tuple:
     """torch.profiler over ``calls`` calls of ``fn``: (device ms per call,
     the top device kernels as (name, ms per call)). Writes the whole table
     to ``out_path``. Only the kernels' own rows are summed: a host op's row,
     and a user annotation's such as ``Optimizer.step#Adam.step``, repeat
-    the device time of the kernels they launched."""
+    the device time of the kernels they launched. Raises if no window shows
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        per_kernel = sorted(
+            ((e.key, e.self_device_time_total / 1e3 / calls) for e in events
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+             and not getattr(e, "is_user_annotation", False)),
+            key=lambda kv: -kv[1],
+        )
+        if per_kernel:
+            break
+    check(bool(per_kernel), f"torch.profiler showed no device time in {PROFILE_TRIES} windows")
     with open(out_path, "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=40))
-    per_kernel = sorted(
-        ((e.key, e.self_device_time_total / 1e3 / calls) for e in events
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-         and not getattr(e, "is_user_annotation", False)),
-        key=lambda kv: -kv[1],
-    )
     return sum(ms for _, ms in per_kernel), per_kernel[:8]
 
 
@@ -974,6 +997,14 @@ def sbs_kernels_vs_plain(S, CSM, dev):
                         (dv, dc), (rdv, rdc) = kern(), plain()
                         errs = [held(name, f"{label} d_core {i}", a, b)
                                 for i, (a, b) in enumerate(zip(dc, rdc))]
+                        if batch == max(SBS_BATCHES):
+                            # a fixed number of CTAs, partials added in order
+                            dv2, dc2 = kern()
+                            check(all(torch.equal(a, b) for a, b in zip(dc2, dc))
+                                  and (not need or torch.equal(dv2, dv)),
+                                  f"{name} [{label} need_dviews={need}]: a second run gave "
+                                  f"other bits")
+                            del dv2, dc2
                         check((dv is None) != need, f"{name} [{label}]: d_views with need={need}")
                         if need:
                             errs.append(held(name, f"{label} d_views", dv, rdv))
@@ -1034,24 +1065,84 @@ def lme_operands(LSC, dev, theta, r, i, offset, neg_inf):
     return la, lb
 
 
+def lme_limit_share(got, ref, r, amax, bmax):
+    """K13's output against its plain version's, on the entries where the
+    plain version is finite: (max |Δ|, the largest share of the per-entry
+    limit LME_WALK·2⁻²⁴·√R + LME_ULPS·2⁻²⁴·max(|ref|, |amax| + |bmax|))."""
+    fin = torch.isfinite(ref)
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    shift = (amax.abs() + bmax.abs()).expand_as(ref)[fin]
+    tol = 2.0**-24 * (LME_WALK * math.sqrt(r) + LME_ULPS * torch.maximum(ref[fin].abs(), shift))
+    diff = (got[fin] - ref[fin]).abs()
+    return float(diff.max()), float((diff / tol).max())
+
+
+def lme_forward_kernels(L, la, lb) -> tuple:
+    """The device kernels of one forward of ``logmatmulexp_kernel`` (no
+    gradient), by name, from torch.profiler (a window without any device
+    event is taken again, at most PROFILE_TRIES times), and the forwards
+    run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                L.logmatmulexp_kernel(la, lb)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        if names:
+            break
+    return names, tries
+
+
 def lme_kernel_vs_plain(L, LSC, max_shifts, dev):
     """Phase 2c: K13 against its plain version at every case of LME_SHAPES,
     with the −inf outputs exact, no NaN, and the same bits on a second run;
-    device times per call (``device_ms_per_call``) and median CUDA-event
-    times of one call, of the kernel, the plain version and the library call
-    (``torch.matmul`` of the materialized exponentials, cuBLAS f32), beside
-    the bound. Returns the JSON numbers: max |Δ| over every
-    finite output, and times summed over one chain forward (5 links) and
-    one classifier step (1 call), K13's work in one iteration of each
-    entry."""
+    the shifts kernel against ``max_shifts`` bit for bit; one forward of
+    ``logmatmulexp_kernel`` is two launches (the shifts and the product) and
+    two device kernels. Device times per call (``device_ms_per_call``) and
+    median CUDA-event times of one call, of the kernels, their plain versions
+    and the product's library call (``torch.matmul`` of the materialized
+    exponentials, cuBLAS f32), beside the bound. Returns the JSON numbers of
+    both kernels: max |Δ| over every finite output (the shifts: over every
+    shift), and times summed over one chain forward (5 links) and one
+    classifier step (1 call), K13's work in one iteration of each entry."""
     res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "bytes": 0.0, "flops": 0.0}
+    res_s = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bytes": 0.0}
     on_path = {"chain link": 5, "classifier step": 1}
+    worst = {}
     for label, theta, r, i, offset, neg_inf in LME_SHAPES:
         la, lb = lme_operands(LSC, dev, theta, r, i, offset, neg_inf)
         theta, r, i = la.shape[0], la.shape[1], lb.shape[1]
         amax, bmax = max_shifts(la, lb)
         ea, eb = torch.exp(la - amax), torch.exp(lb - bmax)
+        tag = f"logmatmulexp [{label}] ({theta}, {r}, {i})"
+        # the shifts kernel: the same bits as max_shifts, −inf rows and
+        # columns included (their shift is 0)
+        got_a, got_b = L.logmatmulexp_shifts(la, lb)
+        torch.cuda.synchronize()
+        check(torch.equal(got_a, amax) and torch.equal(got_b, bmax),
+              f"{tag}: the shifts kernel differs from max_shifts")
+        res_s["max_abs_err"] = max(res_s["max_abs_err"], float((got_a - amax).abs().max()),
+                                   float((got_b - bmax).abs().max()))
+        # one forward: the shifts kernel and the product, two launches and
+        # two device kernels (no torch op around them), after a first forward
+        # (the first on a device also allocates the kernels' persistent zeroed
+        # arrival counters, once)
+        with torch.no_grad():
+            L.logmatmulexp_kernel(la, lb)
+        before = (L.logmatmulexp_shifts.launches, L.logmatmulexp_fwd.launches)
+        names, forwards = lme_forward_kernels(L, la, lb)
+        launched = (L.logmatmulexp_shifts.launches - before[0],
+                    L.logmatmulexp_fwd.launches - before[1])
+        check(launched == (forwards, forwards) and len(names) == 2,
+              f"{tag}: {forwards} forwards launched {launched} (shifts, product), device "
+              f"kernels {names}")
 
         def kern():
             return L.logmatmulexp_fwd(la, lb, amax, bmax)
@@ -1061,32 +1152,31 @@ def lme_kernel_vs_plain(L, LSC, max_shifts, dev):
 
         got, ref = kern(), plain()
         torch.cuda.synchronize()
-        tag = f"logmatmulexp [{label}] ({theta}, {r}, {i})"
         check(got.shape == ref.shape, f"{tag}: shape {tuple(got.shape)}")
         check(not torch.isnan(got).any().item(), f"{tag}: NaN in the output")
         check(torch.equal(torch.isneginf(got), torch.isneginf(ref)),
               f"{tag}: -inf outputs differ from the plain version's")
-        fin = torch.isfinite(ref)
-        shift = (amax.abs() + bmax.abs()).expand_as(ref)[fin]
-        tol = 2.0**-24 * (LME_WALK * math.sqrt(r)
-                          + LME_ULPS * torch.maximum(ref[fin].abs(), shift))
-        diff = (got[fin] - ref[fin]).abs()
-        err = float(diff.max()) if diff.numel() else 0.0
-        check(bool((diff <= tol).all()), f"{tag}: differs from plain by {err}")
+        err, share = lme_limit_share(got, ref, r, amax, bmax)
+        check(share <= 1.0, f"{tag}: differs from plain by {err} ({share:.3f} of its limit)")
         check(torch.equal(kern(), got), f"{tag}: a second run gave other bits")
-        n_inf = int((~fin).sum())
+        worst[label] = share
+        n_inf = int((~torch.isfinite(ref)).sum())
         res["max_abs_err"] = max(res["max_abs_err"], err)
         fns = [kern, plain, lambda: torch.matmul(ea, eb)]
         call_ms = median_ms(fns, reps=10)
         t_k, t_p, t_l = (device_ms_per_call(fn, LME_PROFILE_CALLS, os.devnull)[0] for fn in fns)
+        s_k, s_p = (device_ms_per_call(fn, LME_PROFILE_CALLS, os.devnull)[0]
+                    for fn in (lambda: L.logmatmulexp_shifts(la, lb), lambda: max_shifts(la, lb)))
         nbytes, flops = 4.0 * (theta * r + r * i + theta * i), 2.0 * theta * r * i
+        s_bytes = 4.0 * (theta * r + r * i + theta + i)
         b_ms, by = bound_ms(nbytes, mm_flops=flops)
-        print(f"{tag}: max|d| {err:.3e} (tol {LME_WALK}*2^-24*sqrt(R) + "
-              f"{LME_ULPS}*2^-24*max(|ref|, |amax|+|bmax|) "
-              f"per entry, {float(tol.max()) if tol.numel() else 0.0:.3e} at most), {n_inf} "
-              f"outputs exactly -inf as plain, no NaN, same bits twice; device time per call: "
+        print(f"{tag}: max|d| {err:.3e}, {share:.4f} of the limit ({LME_WALK}*2^-24*sqrt(R) + "
+              f"{LME_ULPS}*2^-24*max(|ref|, |amax|+|bmax|) per entry), {n_inf} "
+              f"outputs exactly -inf as plain, no NaN, same bits twice; shifts kernel equal to "
+              f"max_shifts; a forward: device kernels {names}; device time per call: "
               f"kernel {t_k:.4f} ms ({flops / t_k / 1e9:.2f} TFLOP/s), plain {t_p:.4f} ms, "
-              f"library torch.matmul of the exponentials {t_l:.4f} ms; one call between CUDA "
+              f"library torch.matmul of the exponentials {t_l:.4f} ms, shifts kernel {s_k:.4f} "
+              f"ms, max_shifts {s_p:.4f} ms; one call between CUDA "
               f"events (the host's launch included): kernel {call_ms[0]:.4f} ms, plain "
               f"{call_ms[1]:.4f} ms, library {call_ms[2]:.4f} ms; bound {b_ms:.4f} ms ({by}), "
               f"splits of R {L._splits(theta, r, i)}")
@@ -1096,9 +1186,14 @@ def lme_kernel_vs_plain(L, LSC, max_shifts, dev):
             res["library_ms"] += t_l
             res["bytes"] += nbytes
             res["flops"] += flops
+            res_s["ms"] += s_k
+            res_s["plain_ms"] += s_p
+            res_s["bytes"] += s_bytes
         del la, lb, amax, bmax, ea, eb, got, ref
+    print(f"K13 vs plain, largest share of the per-entry limit by case: {worst}")
     res["bound_ms"], res["bound_by"] = bound_ms(res.pop("bytes"), mm_flops=res.pop("flops"))
-    return {"logmatmulexp": res}
+    res_s["bound_ms"], res_s["bound_by"] = bound_ms(res_s.pop("bytes"))
+    return {"logmatmulexp": res, "logmatmulexp_shifts": res_s}
 
 
 def lme_chain_phase(bench, dev):
@@ -1107,12 +1202,14 @@ def lme_chain_phase(bench, dev):
     times per forward and per forward+backward of the kernel form, by no
     other form. Then, outside the counted run, the chain's output and its
     six gradients (of sum(out²)) on the kernel form against the plain
-    max-shift form. Returns K13's launches in the run."""
+    max-shift form. Returns the launches of K13 and of its shifts kernel
+    (one per forward) in the run."""
     bench.zero_counters()
     t0 = time.perf_counter()
     recs = bench.run_logmatmulexp(device="cuda")
-    launches = bench.read_lme_launches()
-    print(f"logmatmulexp chain bench: {time.perf_counter() - t0:.1f} s, K13 launches {launches}")
+    launches, shifts = bench.read_lme_launches(), bench.read_lme_shift_launches()
+    print(f"logmatmulexp chain bench: {time.perf_counter() - t0:.1f} s, K13 launches {launches}, "
+          f"its shifts kernel's {shifts}")
     links = bench.CHAIN - 1
     runs = 0
     for rec in recs:
@@ -1124,7 +1221,8 @@ def lme_chain_phase(bench, dev):
         print(f"chain {rec['function']}: forward {1e3 * rec['forward_seconds_per_iteration']:.4f} "
               f"ms, forward+backward {1e3 * rec['forward_backward_seconds_per_iteration']:.4f} ms, "
               f"K13 launches {rec['launches_per_forward']} / {rec['launches_per_forward_backward']}")
-    check(launches == runs, f"chain bench: K13 launches {launches} != {runs}")
+    check(launches == runs and shifts == runs,
+          f"chain bench: K13 launches {launches}, shifts {shifts} != {runs}")
     mats = bench.chain_inputs(dev)
     outs, grads = [], []
     for name in ("logmatmulexp_kernel", "logmatmulexp"):
@@ -1137,7 +1235,7 @@ def lme_chain_phase(bench, dev):
     check(err <= LME_GRAD_TOL * scale, "chain output differs from the plain form's")
     gap = compare_gradients(grads, LME_GRAD_TOL, "chain of 6, kernel vs plain max-shift form")
     print(f"chain gradients: largest max|d|/max|ref| {gap:.3e} (limit {LME_GRAD_TOL:g})")
-    return launches
+    return {"logmatmulexp": launches, "logmatmulexp_shifts": shifts}
 
 
 def log_space_phase(bench, LSC, dev):
@@ -1147,12 +1245,14 @@ def log_space_phase(bench, LSC, dev):
     no other form; the forms agree within 0.02 in accuracy with finite
     weights (the bench raises otherwise). Then, outside the counted run,
     one step's log_w gradient on the kernel form against ``fused_plain``.
-    Returns K13's launches in the run."""
+    Returns the launches of K13 and of its shifts kernel (one per forward)
+    in the run."""
     bench.zero_counters()
     t0 = time.perf_counter()
     recs = bench.run_log_space(device="cuda")
-    launches = bench.read_lme_launches()
-    print(f"log-space classifier bench: {time.perf_counter() - t0:.1f} s, K13 launches {launches}")
+    launches, shifts = bench.read_lme_launches(), bench.read_lme_shift_launches()
+    print(f"log-space classifier bench: {time.perf_counter() - t0:.1f} s, K13 launches {launches}, "
+          f"its shifts kernel's {shifts}")
     for rec in recs:
         want = 1 if rec["variant"] == "fused_kernel" else 0
         check(rec["logmatmulexp_launches_per_step"] == want
@@ -1163,8 +1263,8 @@ def log_space_phase(bench, LSC, dev):
               f"log_space {rec['variant']}: non-finite metrics")
         print(f"log_space {rec['variant']}: val acc {rec['val_acc']:.4f}, {rec['step_ms']:.4f} "
               f"ms/step, loss {rec['first_loss']:.6f} -> {rec['last_loss']:.6f}")
-    check(launches == bench.LOG_SPACE_STEPS + 1,
-          f"log_space: K13 launches {launches} != {bench.LOG_SPACE_STEPS + 1}")
+    check(launches == bench.LOG_SPACE_STEPS + 1 and shifts == launches,
+          f"log_space: K13 launches {launches}, shifts {shifts} != {bench.LOG_SPACE_STEPS + 1}")
     lf, y, _, _ = bench.log_space_data(dev)
     rows = torch.as_tensor(
         np.random.default_rng(0).integers(0, lf.shape[0], bench.LOG_SPACE_BATCH), device=dev)
@@ -1176,7 +1276,7 @@ def log_space_phase(bench, LSC, dev):
         grads.append(list(torch.autograd.grad(loss, [log_w])))
     gap = compare_gradients(grads, LME_GRAD_TOL, "log_space first step, fused_kernel vs fused_plain")
     print(f"log_space gradient: max|d|/max|ref| {gap:.3e} (limit {LME_GRAD_TOL:g})")
-    return launches
+    return {"logmatmulexp": launches, "logmatmulexp_shifts": shifts}
 
 
 def sbs_recipe_params(CSM, cfg, x, dev):
@@ -1763,12 +1863,12 @@ def main(argv=None) -> int:
 
     # phases 8 and 9: the log-space product's entries, the chain bench and
     # the log-space classifier's training
-    lme_launches = lme_chain_phase(bench, dev) + log_space_phase(bench, LSC, dev)
+    lme_launches = [lme_chain_phase(bench, dev), log_space_phase(bench, LSC, dev)]
     if args.profile:
         profile_lme(bench, LSC, args.profile, dev)
 
     driven = [serving, serving_q8, *trained.values(), *sbs_runs, *sbs_bench_counts,
-              {"logmatmulexp": lme_launches}]
+              *lme_launches]
     launches = {name: sum(c.get(name, 0) for c in driven) for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name], **numbers[name]}

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's EPS kernels and training steps of this checkout against
+"""Time the port's kernels and training steps of this checkout against
 those of another checkout (a ``git archive`` of the parent commit), in
 turns, on one CUDA card.
 
@@ -8,17 +8,32 @@ directory that ``.gitignore`` lists (here HEAD, the parent of uncommitted
 changes):
 
     mkdir -p build/parent && git archive HEAD | tar -x -C build/parent
-    python3 compare_parent.py build/parent [--steps]
+    python3 compare_parent.py build/parent [--steps] [--families eps,sbs,lme]
 
-For every layer of the training paths in ``PATHS`` (the flagship, the
-three-EPS and the deep model at batch 128, and the deep model at 512 and
-2048 images per microbatch), each kernel that layer's step runs (its
-forward, ``eps_dcore`` and its backward arm's d_views kernel; both d_views
-forms where the layer has a v half, below batch 2048) is called from both
-checkouts on the same inputs: this checkout's result is held within
-``chip_smoke.REL_TOL`` of the other's, then both are timed in turns (median
-CUDA-event ms). With ``--steps``, ``python -m dctn_tpu_torch.bench`` then
-runs each config of ``STEPS`` in both checkouts, in the order other, this,
+Each family's kernels are called from both checkouts on the same inputs and
+timed in turns:
+
+- ``eps``: for every layer of the training paths in ``PATHS`` (the
+  flagship, the three-EPS and the deep model at batch 128, and the deep
+  model at 512 and 2048 images per microbatch), each kernel that layer's
+  step runs (its forward, ``eps_dcore`` and its backward arm's d_views
+  kernel; both d_views forms where the layer has a v half, below batch
+  2048), this checkout's result held within ``chip_smoke.REL_TOL`` of the
+  other's (median CUDA-event ms);
+- ``sbs``: the ConvSBS backward (K11 at the model's merge position, K12's
+  with ``mcut=None``, d_views both ways) at chip_smoke's phase-2b shapes
+  (both legacy layers, open and ring, batch 100 and 512) and K11 at every
+  merge position of layer 1's ring at batch 100, held within
+  ``chip_smoke.SBS_TOL`` of the other's (device time per call, and the
+  median CUDA-event time of one call, the host's work included);
+- ``lme``: K13 at every case of ``chip_smoke.LME_SHAPES``, both held to the
+  plain version within chip_smoke's per-entry limit: the product's device
+  time per call (torch.profiler), and the whole forward of
+  ``logmatmulexp_kernel`` (the shifts and the product: device time per
+  call, and the CUDA-event time of one call, the host's launches included).
+
+With ``--steps``, ``python -m dctn_tpu_torch.bench`` then runs each config
+of ``STEPS`` of those families in both checkouts, in the order other, this,
 this, other. One JSON line per reading; exits nonzero at the first failed
 check, and at once without a CUDA device.
 """
@@ -42,13 +57,23 @@ from chip_smoke import (
     DEEP_LR,
     DEEP_REG,
     FLAGSHIP,
+    LME_PROFILE_CALLS,
+    LME_SHAPES,
     REL_TOL,
+    SBS_BATCHES,
+    SBS_MCUT,
+    SBS_TOL,
     SEED,
     THREE,
     bound_ms,
     check,
+    device_ms_per_call,
     layer_dims,
+    lme_limit_share,
+    lme_operands,
     median_ms,
+    sbs_case,
+    sbs_work,
 )
 
 # (label, model, images per microbatch); each layer's d_views kernel is its
@@ -60,21 +85,38 @@ PATHS = (
     ("deep at accum 4", DEEP, DEEP_BATCH // 4),
     ("deep at accum 1", DEEP, DEEP_BATCH),
 )
-# python -m dctn_tpu_torch.bench, each run in both checkouts
-STEPS = (
-    ("flagship f32", ()),
-    ("flagship QAT", ("--qat", "int8")),
-    *((f"deep batch {DEEP_BATCH} grad_accum_steps={acc}",
-       ("--epses-specs", ",".join(f"({k},{o})" for k, o in DEEP), "--batch-size", str(DEEP_BATCH),
-        "--lr", str(DEEP_LR), "--reg-type", DEEP_REG[0], "--reg-coeff", str(DEEP_REG[1]),
-        "--grad-accum-steps", acc, "--steps", "3", "--warmup", "1")) for acc in ("1", "auto")),
-)
+# python -m dctn_tpu_torch.bench, each run in both checkouts, by family
+STEPS = {
+    "eps": (
+        ("flagship f32", ()),
+        ("flagship QAT", ("--qat", "int8")),
+        *((f"deep batch {DEEP_BATCH} grad_accum_steps={acc}",
+           ("--epses-specs", ",".join(f"({k},{o})" for k, o in DEEP), "--batch-size",
+            str(DEEP_BATCH), "--lr", str(DEEP_LR), "--reg-type", DEEP_REG[0], "--reg-coeff",
+            str(DEEP_REG[1]), "--grad-accum-steps", acc, "--steps", "3", "--warmup", "1"))
+          for acc in ("1", "auto")),
+    ),
+    "sbs": tuple(
+        (f"conv_sbs batch {b} {'ring' if ring else 'open'}",
+         ("--model-family", "conv_sbs", "--batch-size", str(b)) + (("--trace-edge",) if ring else ()))
+        for b in SBS_BATCHES for ring in (False, True)),
+    "lme": (
+        ("logmatmulexp chain", ("--model-family", "logmatmulexp")),
+        ("log_space classifier", ("--model-family", "log_space")),
+    ),
+}
+# the numbers of a bench record that a step reading keeps, where present
+STEP_KEYS = ("step_ms_p50", "images_per_s", "peak_extra_mib", "launches_per_step",
+             "forward_seconds_per_iteration", "forward_backward_seconds_per_iteration",
+             "launches_per_forward", "launches_per_forward_backward", "step_ms", "val_acc",
+             "logmatmulexp_launches_per_step")
+FAMILIES = ("eps", "sbs", "lme")
 
 
-def load_eps_kernels(root_dir: str):
-    """``kernels/eps_kernels.py`` of the checkout in ``root_dir``, as the
-    package ``other_dctn_tpu_torch``: its own sources, built into its own
-    ``build/``."""
+def load_other(root_dir: str) -> str:
+    """The ``dctn_tpu_torch`` package of the checkout in ``root_dir``, as the
+    package ``other_dctn_tpu_torch`` (its own sources, built into its own
+    ``build/``); returns its name, for importing its modules."""
     root = os.path.join(os.path.abspath(root_dir), "dctn_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         "other_dctn_tpu_torch", os.path.join(root, "__init__.py"),
@@ -82,7 +124,7 @@ def load_eps_kernels(root_dir: str):
     pkg = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = pkg
     spec.loader.exec_module(pkg)
-    return importlib.import_module("other_dctn_tpu_torch.kernels.eps_kernels")
+    return spec.name
 
 
 def layer_cases(K, i, n, q, n1, o, npix, batch, views, cmt, g):
@@ -136,36 +178,149 @@ def compare_kernels(K, OK, dev) -> None:
             torch.cuda.empty_cache()
 
 
-def compare_steps(other_dir: str) -> None:
+def compare_sbs(S, OS, dev) -> None:
+    """K11 and K12's backward of both checkouts at phase 2b's shapes, and K11
+    at every merge position of layer 1's ring at batch 100."""
+    from dctn_tpu_torch.models import conv_sbs_model as CSM
+
+    def reading(label, olr, views, cores, g, mcut, need):
+        def call(M):
+            return M.sbs_bwd(views, cores, g, olr, mcut, need)
+
+        (dv, dc), (rdv, rdc) = call(S), call(OS)
+        torch.cuda.synchronize()
+        pairs = list(zip(dc, rdc)) + ([(dv, rdv)] if need else [])
+        worst = 0.0
+        for got, ref in pairs:
+            err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+            check(err <= SBS_TOL * scale, f"sbs_bwd [{label}]: differs from the other "
+                  f"checkout's by {err} (max|ref| {scale})")
+            worst = max(worst, err / scale)
+        del dv, dc, rdv, rdc, pairs
+        # device time per call (torch.profiler: the wrapper's kernels, its
+        # host work left out), parent, change, change, parent; and one
+        # call between CUDA events, the host's work included
+        dev_ms = {"parent": 0.0, "change": 0.0}
+        for tree in ("parent", "change", "change", "parent"):
+            dev_ms[tree] += device_ms_per_call(lambda: call(OS if tree == "parent" else S), 5,
+                                               os.devnull)[0] / 2
+        t_other, t_this = dev_ms["parent"], dev_ms["change"]
+        call_ms = median_ms([lambda: call(OS), lambda: call(S)], reps=10)
+        qc, npix = views.shape[1], views.shape[2]
+        b_ms, by = bound_ms(*sbs_work(olr, qc, npix, mcut, True, need))
+        print(json.dumps({
+            "metric": "kernel_vs_parent", "kernel": "sbs_bwd_seq" if mcut is None else "sbs_bwd_mim",
+            "path": label, "mcut": mcut, "need_dviews": need, "npix": npix,
+            "threads": S._bwd_launch(S._launch_plan(tuple(olr), qc, mcut, True), npix,
+                                     torch.cuda.get_device_properties(dev).multi_processor_count)[0],
+            "parent_ms": t_other, "ms": t_this, "parent_over_change": t_other / t_this,
+            "call_ms": {"parent": call_ms[0], "change": call_ms[1]},
+            "bound_ms": b_ms, "bound_by": by, "max_rel_diff_vs_parent": worst,
+            "tol": SBS_TOL}), flush=True)
+
+    for layer in (0, 1):
+        for ring in (False, True):
+            for batch in SBS_BATCHES:
+                olr, views, cores, g = sbs_case(S, CSM, dev, layer, ring, batch)
+                label = f"layer {layer} {'ring' if ring else 'open'} batch {batch}"
+                for mcut in (SBS_MCUT, None):
+                    for need in (True, False):
+                        reading(label, olr, views, cores, g, mcut, need)
+                del views, cores, g
+    olr, views, cores, g = sbs_case(S, CSM, dev, 1, True, 100)
+    for mcut in range(1, len(olr)):
+        reading("layer 1 ring batch 100", olr, views, cores, g, mcut, True)
+
+
+def compare_lme(L, OL, dev) -> None:
+    """K13 of both checkouts at every case of LME_SHAPES: the product alone,
+    and the whole forward (shifts and product)."""
+    from dctn_tpu_torch.models import log_space_classifier as LSC
+    from dctn_tpu_torch.ops.logmatmulexp import max_shifts
+
+    for label, theta, r, i, offset, neg_inf in LME_SHAPES:
+        la, lb = lme_operands(LSC, dev, theta, r, i, offset, neg_inf)
+        theta, r, i = la.shape[0], la.shape[1], lb.shape[1]
+        amax, bmax = max_shifts(la, lb)
+        ref = L.logmatmulexp_fwd_reference(la, lb, amax, bmax)
+        shares = {}
+        for tree, M in (("change", L), ("parent", OL)):
+            err, share = lme_limit_share(M.logmatmulexp_fwd(la, lb, amax, bmax), ref, r, amax, bmax)
+            check(share <= 1.0, f"logmatmulexp [{label}] of the {tree} tree: max|d| {err} over "
+                  f"its limit ({share:.3f} of it)")
+            shares[tree] = share
+
+        def product(M):
+            return lambda: M.logmatmulexp_fwd(la, lb, amax, bmax)
+
+        def forward(M):
+            def fn():
+                with torch.no_grad():
+                    return M.logmatmulexp_kernel(la, lb)
+            return fn
+
+        dev_ms = {}
+        for what, make in (("product", product), ("forward", forward)):
+            ts = {"parent": [], "change": []}
+            for tree in ("parent", "change", "change", "parent"):
+                fn = make(OL if tree == "parent" else L)
+                fn()
+                ts[tree].append(device_ms_per_call(fn, LME_PROFILE_CALLS, os.devnull)[0])
+            dev_ms[what] = {k: sum(v) / 2 for k, v in ts.items()}
+        call_other, call_this = median_ms([forward(OL), forward(L)], reps=20)
+        flops = 2.0 * theta * r * i
+        print(json.dumps({
+            "metric": "kernel_vs_parent", "kernel": "logmatmulexp", "path": label,
+            "shape": [theta, r, i], "splits": L._splits(theta, r, i),
+            "parent_ms": dev_ms["product"]["parent"], "ms": dev_ms["product"]["change"],
+            "parent_over_change": dev_ms["product"]["parent"] / dev_ms["product"]["change"],
+            "tflops": flops / dev_ms["product"]["change"] / 1e9,
+            "forward_device_ms": dev_ms["forward"], "forward_call_ms": {
+                "parent": call_other, "change": call_this},
+            "bound_ms": bound_ms(4.0 * (theta * r + r * i + theta * i), mm_flops=flops)[0],
+            "share_of_limit": shares}), flush=True)
+        del la, lb, amax, bmax, ref
+
+
+def compare_steps(other_dir: str, families) -> None:
     trees = {"parent": os.path.abspath(other_dir), "change": os.path.dirname(os.path.abspath(__file__))}
-    for label, extra in STEPS:
-        for which in ("parent", "change", "change", "parent"):
-            proc = subprocess.run([sys.executable, "-m", "dctn_tpu_torch.bench", *extra],
-                                  cwd=trees[which], capture_output=True, text=True, timeout=900)
-            check(proc.returncode == 0, f"bench {label} in the {which} tree: {proc.stderr[-2000:]}")
-            rec = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
-            print(json.dumps({"metric": "step_vs_parent", "config": label, "tree": which,
-                              "step_ms_p50": rec["step_ms_p50"], "images_per_s": rec["images_per_s"],
-                              "peak_extra_mib": rec["peak_extra_mib"],
-                              "launches_per_step": rec["launches_per_step"]}), flush=True)
+    for family in families:
+        for label, extra in STEPS[family]:
+            for which in ("parent", "change", "change", "parent"):
+                proc = subprocess.run([sys.executable, "-m", "dctn_tpu_torch.bench", *extra],
+                                      cwd=trees[which], capture_output=True, text=True, timeout=900)
+                check(proc.returncode == 0, f"bench {label} in the {which} tree: {proc.stderr[-2000:]}")
+                rec = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
+                print(json.dumps({"metric": "step_vs_parent", "config": label, "tree": which,
+                                  **{k: rec[k] for k in STEP_KEYS if k in rec}}), flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", metavar="DIR", help="root of the checkout to compare with")
     ap.add_argument("--steps", action="store_true", help="also the bench's steps in both checkouts")
+    ap.add_argument("--families", default=",".join(FAMILIES),
+                    help="comma-separated kernel families: eps, sbs, lme (default all)")
     args = ap.parse_args(argv)
+    families = [f for f in args.families.split(",") if f]
+    if not families or any(f not in FAMILIES for f in families):
+        ap.error(f"--families takes some of {FAMILIES}, got {args.families!r}")
     if not torch.cuda.is_available():
         print("compare_parent: no CUDA device", file=sys.stderr)
         return 1
-    from dctn_tpu_torch.kernels import eps_kernels as K
-
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
-    compare_kernels(K, load_eps_kernels(args.other), torch.device("cuda", 0))
+    other = load_other(args.other)
+    dev = torch.device("cuda", 0)
+    mods = {"eps": "eps_kernels", "sbs": "sbs_kernels", "lme": "logmatmulexp_kernels"}
+    runs = {"eps": compare_kernels, "sbs": compare_sbs, "lme": compare_lme}
+    for family in families:
+        this = importlib.import_module(f"dctn_tpu_torch.kernels.{mods[family]}")
+        that = importlib.import_module(f"{other}.kernels.{mods[family]}")
+        runs[family](this, that, dev)
     if args.steps:
-        compare_steps(args.other)
+        compare_steps(args.other, families)
     return 0
 
 

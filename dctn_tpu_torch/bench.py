@@ -144,11 +144,17 @@ def zero_counters() -> None:
     for _, fn, attr in COUNTERS + SBS_COUNTERS:
         setattr(fn, attr, 0)
     L.logmatmulexp_fwd.launches = 0
+    L.logmatmulexp_shifts.launches = 0
 
 
 def read_lme_launches() -> int:
-    """K13's launch count."""
+    """K13's launch count (the product)."""
     return L.logmatmulexp_fwd.launches
+
+
+def read_lme_shift_launches() -> int:
+    """The launch count of K13's shifts kernel (one per forward on the card)."""
+    return L.logmatmulexp_shifts.launches
 
 
 def step_gflop(cfg: EPSesPlusLinearConfig, batch_size: int, in_channels: int = 1) -> float:

@@ -32,6 +32,10 @@ struct Plan {
   int lstate[kMaxCores];  // prefix after core i, i < mcut
   int tnext[kMaxCores];   // suffix that core i folds into, i >= mcut
   int suf, da_a, da_b, dt_a, dt_b;
+  // backward: 1 where the d_core contraction's tiles and the staged g go to
+  // a per-CTA scratch in device memory (the string's states leave no room
+  // for them in shared memory), else 0
+  int spill;
 };
 
 constexpr int kPlanInts = sizeof(Plan) / sizeof(int);
@@ -58,31 +62,35 @@ struct Lane {
   __device__ __forceinline__ float& operator[](int k) const { return base[k * stride]; }
 };
 
+// the functions below take a pixel's views in an array of N >= qc floats
+template <int N>
 __device__ __forceinline__ void load_views(const float* __restrict__ views, int core,
                                            int qc, long long npix, long long pix,
-                                           bool active, float (&v)[kMaxQc]) {
+                                           bool active, float (&v)[N]) {
 #pragma unroll
-  for (int j = 0; j < kMaxQc; ++j)
+  for (int j = 0; j < N; ++j)
     v[j] = (j < qc && active) ? views[(static_cast<long long>(core) * qc + j) * npix + pix]
                               : 0.f;
 }
 
 // m[row] = sum_j core[row, j] * v[j]: one element of core i's TT matrix at
 // this pixel (the cores in shared memory, read alike by every thread)
+template <int N>
 __device__ __forceinline__ float core_row_dot(const float* core, int row, int qc,
-                                              const float (&v)[kMaxQc]) {
+                                              const float (&v)[N]) {
   const float* c = core + row * qc;
   float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < kMaxQc; ++j)
+  for (int j = 0; j < N; ++j)
     if (j < qc) s = fmaf(c[j], v[j], s);
   return s;
 }
 
 // prefix fold: dst[(b, s, O, o)] = sum_rp src[(b, rp, O)] * m[(rp, s, o)],
 // src rows (b0, l, opre), dst rows (b0, r, opre*o)
+template <int N>
 __device__ __forceinline__ void fold_left(const Plan& p, const float* core, int o, int l,
-                                          int r, int opre, const float (&v)[kMaxQc],
+                                          int r, int opre, const float (&v)[N],
                                           const Lane& src, const Lane& dst) {
   const int n = p.b0 * r * opre * o;
   for (int k = 0; k < n; ++k) dst[k] = 0.f;
@@ -98,8 +106,9 @@ __device__ __forceinline__ void fold_left(const Plan& p, const float* core, int 
 
 // suffix fold: dst[(b1, b, o, Q)] = sum_s m[(b1, s, o)] * src[(s, b, Q)],
 // src rows (r, b0, osuf), dst rows (l, b0, o*osuf)
+template <int N>
 __device__ __forceinline__ void fold_right(const Plan& p, const float* core, int o, int l,
-                                           int r, int osuf, const float (&v)[kMaxQc],
+                                           int r, int osuf, const float (&v)[N],
                                            const Lane& src, const Lane& dst) {
   const int n = l * p.b0 * o * osuf;
   for (int k = 0; k < n; ++k) dst[k] = 0.f;

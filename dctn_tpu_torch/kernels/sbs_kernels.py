@@ -65,7 +65,13 @@ _MAX_SMEM_BYTES = 227 * 1024
 _SM_SMEM_BYTES = 228 * 1024
 _BLOCK_RESERVED_SMEM = 1024
 _FWD_MAX_THREADS = 256
-_BWD_MAX_THREADS = 128
+_BWD_MAX_THREADS = 256
+# the backward's d_core contraction (csrc/sbs_bwd.cu): dm rows per tile
+_BWD_DM_ROWS = 16
+# the backward kernel's registers a thread at most (its __launch_bounds__:
+# two CTAs of 256 threads on an SM's 65,536)
+_BWD_REGISTERS = 128
+_SM_REGISTERS = 65536
 _SCOPE_ITEM = "ROADMAP Queue 1 item 16 (ConvSBS kernel scope)"
 
 
@@ -256,11 +262,32 @@ def _layout(olr, mcut_k: int, backward: bool):
     return lay, s + 2 * max(pre) + 2 * max_t
 
 
-def _smem_bytes(nelem: int, threads: int, state: int, backward: bool) -> int:
-    """Shared memory of one launch: the cores, the fold states of every
-    thread and, in the backward, each warp's d_core accumulators."""
-    warps = threads // 32 if backward else 0
-    return 4 * (nelem + warps * nelem + threads * state)
+def _bwd_segments(threads: int, qc: int) -> int:
+    """The backward's pixel segments per d_core element: the threads of a
+    tile over the elements of 16 dm rows (``tile_segments``)."""
+    return max(1, threads // (_BWD_DM_ROWS * qc))
+
+
+def _bwd_tile_floats(threads: int, qc: int, o_total: int) -> int:
+    """Floats of the backward's d_core contraction tiles (16 dm rows and
+    the q^C views of each pixel, in rows of threads + 4·segments floats, and
+    one partial per thread) and of the pixels' staged output cotangent
+    (``tile_floats``)."""
+    tp = threads + 4 * _bwd_segments(threads, qc)
+    return (_BWD_DM_ROWS + qc) * tp + threads + o_total * threads
+
+
+def _smem_bytes(nelem: int, threads: int, state: int, backward: bool, qc: int = 1,
+                o_total: int = 1, spill: bool = False) -> int:
+    """Shared memory of one launch: the cores and the fold states of every
+    thread and, in the backward, the CTA's d_core sums and, unless they
+    spill to device memory, the contraction's tiles and the staged output
+    cotangent from a 16-byte boundary (``bwd_smem_bytes``)."""
+    if not backward:
+        return 4 * (nelem + threads * state)
+    if spill:
+        return 4 * (2 * nelem + threads * state)
+    return 4 * (-(-2 * nelem // 4) * 4 + _bwd_tile_floats(threads, qc, o_total) + threads * state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,14 +297,26 @@ class LaunchPlan:
     nelem: int
     smem_bytes: int
     array: ctypes.Array = dataclasses.field(compare=False)  # ``ints`` as the C int[]
+    # backward: the contraction's tiles and the staged g in device memory
+    spill: bool = False
+    o_total: int = 1
+
+    def bwd_smem_bytes(self, threads: int) -> int:
+        """The backward's shared memory at ``threads`` threads."""
+        return _smem_bytes(self.nelem, threads, self.ints[4], True, self.ints[1], self.o_total,
+                           self.spill)
 
 
 @functools.lru_cache(maxsize=None)
 def _launch_plan(olr, qc: int, mcut: Optional[int], backward: bool) -> LaunchPlan:
     """The Plan struct of ``csrc/sbs_plan.cuh`` as ints, and the most
-    threads per block (a multiple of 32, at most 256 forward and 128
-    backward) whose states fit the shared memory; raises where not even 32
-    do, or where the string is outside the kernels' limits."""
+    threads per block (a multiple of 32, at most 256) whose states fit the
+    shared memory; raises where not even 32 do, or where the string is
+    outside the kernels' limits. The backward keeps its d_core contraction's
+    tiles and the staged g in shared memory where 32 threads fit with them,
+    and else spills them to device memory (``spill``): its shared memory is
+    then the cores, one d_core sum and the states, what the backward needed
+    before the contraction, so it takes every string it took."""
     P = len(olr)
     b0 = olr[0][1]
     if not 1 <= P <= _MAX_CORES or not 1 <= qc <= _MAX_QC:
@@ -293,16 +332,21 @@ def _launch_plan(olr, qc: int, mcut: Optional[int], backward: bool) -> LaunchPla
     sizes = [o * l * r * qc for o, l, r in olr]
     nelem = sum(sizes)
     offs = [sum(sizes[:i]) for i in range(P)] + [0] * (_MAX_CORES - P)
-    threads = 0
-    for t in range(_BWD_MAX_THREADS if backward else _FWD_MAX_THREADS, 0, -32):
-        if _smem_bytes(nelem, t, state, backward) <= _MAX_SMEM_BYTES:
-            threads = t
+    o_total = math.prod(o for o, _, _ in olr)
+    threads, spill = 0, False
+    for spill in ((False, True) if backward else (False,)):
+        for t in range(_BWD_MAX_THREADS if backward else _FWD_MAX_THREADS, 0, -32):
+            if _smem_bytes(nelem, t, state, backward, qc, o_total, spill) <= _MAX_SMEM_BYTES:
+                threads = t
+                break
+        if threads:
             break
     if not threads:
         raise ValueError(
             f"ConvSBS string {olr} with q^C = {qc}: its fold needs "
-            f"{_smem_bytes(nelem, 32, state, backward)} B of shared memory at 32 "
-            f"threads, over {_MAX_SMEM_BYTES}: outside the kernels' scope ({_SCOPE_ITEM})"
+            f"{_smem_bytes(nelem, 32, state, backward, qc, o_total, backward)} B of shared "
+            f"memory at 32 threads, over {_MAX_SMEM_BYTES}: outside the kernels' scope "
+            f"({_SCOPE_ITEM})"
         )
     pad = [0] * (_MAX_CORES - P)
     ints = (
@@ -311,16 +355,17 @@ def _launch_plan(olr, qc: int, mcut: Optional[int], backward: bool) -> LaunchPla
         + tuple([r for _, _, r in olr] + pad) + tuple(offs)
         + (lay["pre_a"], lay["pre_b"], lay["suf_a"], lay["suf_b"])
         + tuple(lay["lstate"]) + tuple(lay["tnext"])
-        + (lay["suf"], lay["da_a"], lay["da_b"], lay["dt_a"], lay["dt_b"])
+        + (lay["suf"], lay["da_a"], lay["da_b"], lay["dt_a"], lay["dt_b"], int(spill))
     )
-    return LaunchPlan(ints, threads, nelem, _smem_bytes(nelem, threads, state, backward),
-                      (ctypes.c_int * len(ints))(*ints))
+    return LaunchPlan(ints, threads, nelem,
+                      _smem_bytes(nelem, threads, state, backward, qc, o_total, spill),
+                      (ctypes.c_int * len(ints))(*ints), spill, o_total)
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
     "sbs_fwd": {"dctn_sbs_fwd": [_P, _P, _P, _P, _I, _LL, _I, _P]},
-    "sbs_bwd": {"dctn_sbs_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P]},
+    "sbs_bwd": {"dctn_sbs_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P]},
 }
 
 
@@ -405,15 +450,28 @@ sbs_fwd.mim_launches = 0
 sbs_fwd.seq_launches = 0
 
 
-def _bwd_blocks(dev, plan: LaunchPlan, npix: int) -> int:
-    """CTAs of the backward: as many as are resident on the card at once
-    (each walks over pixel tiles and keeps one partial d_core), at most one
-    per tile. Fixed for a device and shape, so the partial sums, and the
-    fixed-order sum over them, are the same from run to run."""
-    tiles = -(-npix // plan.threads)
-    per_sm = max(1, min(2048 // plan.threads,
-                        _SM_SMEM_BYTES // (plan.smem_bytes + _BLOCK_RESERVED_SMEM)))
-    return min(tiles, per_sm * torch.cuda.get_device_properties(dev).multi_processor_count)
+@functools.lru_cache(maxsize=None)
+def _bwd_launch(plan: LaunchPlan, npix: int, sms: int) -> Tuple[int, int]:
+    """(threads, CTAs) of the backward on a card of ``sms`` SMs. The CTAs
+    are as many as are resident at once (by shared memory and by the
+    kernel's at most ``_BWD_REGISTERS`` registers a thread), at most one per
+    tile of pixels; each takes an equal share of the pixels and keeps one
+    partial d_core. The threads (a multiple of 32, at most the plan's) are
+    those that keep the most warps resident on an SM (a pixel's fold is a
+    chain of dependent shared-memory steps, which more warps hide), the
+    most of them on a tie: fewer contraction rounds per pixel. Fixed for a
+    card and shape, so the partial sums, and the fixed-order sum over them,
+    are the same from run to run."""
+    best = None
+    for threads in range(plan.threads, 0, -32):
+        smem = plan.bwd_smem_bytes(threads)
+        per_sm = max(1, min(2048 // threads, _SM_REGISTERS // (_BWD_REGISTERS * threads),
+                            _SM_SMEM_BYTES // (smem + _BLOCK_RESERVED_SMEM)))
+        blocks = min(-(-npix // threads), per_sm * sms)
+        warps = min(per_sm, -(-blocks // sms)) * threads // 32
+        if best is None or warps > best[0]:
+            best = (warps, threads, blocks)
+    return best[1], best[2]
 
 
 def sbs_bwd(
@@ -439,16 +497,19 @@ def sbs_bwd(
     dev = views_t.device
     views_t, g = views_t.contiguous(), g.contiguous()
     cores = _flat_cores(cores_lro)
-    blocks = _bwd_blocks(dev, plan, npix)
+    threads, blocks = _bwd_launch(plan, npix, torch.cuda.get_device_properties(dev).multi_processor_count)
     partial = torch.empty((blocks, plan.nelem), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((blocks, _bwd_tile_floats(threads, qc, plan.o_total)),
+                           dtype=torch.float32, device=dev) if plan.spill else None)
     d_cores = torch.empty((plan.nelem,), dtype=torch.float32, device=dev)
     d_views = torch.empty_like(views_t) if need_dviews else None
     with torch.cuda.device(dev):
         err = _library("sbs_bwd").dctn_sbs_bwd(
             views_t.data_ptr(), cores.data_ptr(), g.data_ptr(),
             None if d_views is None else d_views.data_ptr(), partial.data_ptr(),
-            d_cores.data_ptr(), plan.array, len(plan.ints), npix, plan.threads,
-            blocks, _stream(dev),
+            None if scratch is None else scratch.data_ptr(), d_cores.data_ptr(), plan.array,
+            len(plan.ints), npix, threads, blocks,
+            _stream(dev),
         )
     _raise_on_error("sbs_bwd", err)
     if mcut is None:

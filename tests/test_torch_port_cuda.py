@@ -715,6 +715,43 @@ def test_sbs_kernels_refuse_what_they_do_not_take(cuda_device):
         S.sbs_bwd(views, cores, g, olr, 9, True)
 
 
+# strings at the kernels' scope edge, as per-core (o, l, r) and q^C: a ring
+# of bond 4 with q^C = 16 (two channels of q = 4), three channels (q^C = 8)
+# with inner bonds of 8, a 9-core ring of bond 4 with bonds of 8, and one
+# whose states leave no room for the d_core contraction's tiles in shared
+# memory (they spill to device memory)
+_SBS_EDGE = [
+    (((1, 4, 4), (2, 4, 4), (1, 4, 4), (1, 4, 4)), 16),
+    (((1, 1, 8), (1, 8, 8), (3, 8, 8), (1, 8, 8), (1, 8, 1)), 8),
+    (tuple(((2 if i == 4 else 1), 4 if i == 0 else 8, 4 if i == 8 else 8) for i in range(9)), 9),
+    (((1, 1, 8), (20, 8, 8), (1, 8, 1)), 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("olr,qc", _SBS_EDGE, ids=["ring4_qc16", "bond8_3ch", "ring4_bond8_9cores",
+                                                    "spills"])
+def test_sbs_bwd_at_the_scope_edge_matches_plain(cuda_device, olr, qc):
+    """K11 (the model's merge position) and K12's backward at the strings of
+    the scope's edge against the plain folds, d_views both ways."""
+    g_ = torch.Generator(device=cuda_device).manual_seed(3)
+    npix = 3001
+    views = torch.rand((len(olr), qc, npix), generator=g_, device=cuda_device)
+    cores = [torch.randn((l * r * o, qc), generator=g_, device=cuda_device) / (max(l, r) * qc**0.5)
+             for o, l, r in olr]
+    g = torch.randn((math.prod(o for o, _, _ in olr), npix), generator=g_, device=cuda_device)
+    assert S._launch_plan(olr, qc, None, True).spill == (qc == 16 and len(olr) == 3)
+    for mcut in (S._mim_cut(olr), None):
+        for need in (True, False):
+            dv, dc = S.sbs_bwd(views, cores, g, olr, mcut, need)
+            rdv, rdc = S.sbs_bwd_reference(views, cores, g, olr, mcut, need)
+            torch.cuda.synchronize()
+            if need:
+                _assert_close(dv, rdv)
+            for a, b in zip(dc, rdc):
+                _assert_close(a, b)
+
+
 def _wide_string(bonds, channels):
     """A two-core string outside the kernels' scope (the specs of
     test_torch_port_sbs.py::test_support_rule_and_kernel_plan)."""
@@ -863,3 +900,64 @@ def test_lme_kernel_refuses_what_it_does_not_take(cuda_device):
         L.logmatmulexp_fwd(la, lb[:-1], amax, bmax)
     with pytest.raises(ValueError, match="shifts"):
         L.logmatmulexp_fwd(la, lb, amax.T, bmax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta,r,i,neg_inf", [
+    (256, 98, 490, True),  # the classifier's shape
+    (100, 61, 37, True),  # ragged, −inf rows, columns and entries
+    (7, 5000, 300, True),  # three slices of R, combined by the last block
+    (256, 32768, 256, False),  # the large-R regime
+    (1, 1, 1, False),
+])
+def test_lme_shifts_kernel_equals_max_shifts(cuda_device, theta, r, i, neg_inf):
+    """The shifts kernel against ``max_shifts``, bit for bit: a maximum is
+    exact in any order, and a non-finite one (an all −inf row or column)
+    becomes 0."""
+    from dctn_tpu_torch.kernels import logmatmulexp_kernels as L
+    from dctn_tpu_torch.ops.logmatmulexp import max_shifts
+
+    la, lb = _lme_inputs(cuda_device, theta, r, i, neg_inf=neg_inf)
+    before = L.logmatmulexp_shifts.launches
+    amax, bmax = L.logmatmulexp_shifts(la, lb)
+    torch.cuda.synchronize()
+    assert L.logmatmulexp_shifts.launches == before + 1
+    ref_a, ref_b = max_shifts(la, lb)
+    assert torch.equal(amax, ref_a) and torch.equal(bmax, ref_b)
+    if neg_inf:
+        assert float(amax[min(3, theta - 1), 0]) == 0.0 and float(bmax[0, min(5, i - 1)]) == 0.0
+    # the slices' arrival counters are left at 0: a second call agrees
+    assert torch.equal(L.logmatmulexp_shifts(la, lb)[0], amax)
+
+
+@pytest.mark.cuda
+def test_lme_through_the_autograd_function_on_the_classifiers_operands(cuda_device):
+    """K13 through ``LogMatMulExp`` on the card against the plain path, on
+    the classifier's operands at a ragged R (98, not a multiple of 8) and Θ
+    (37 images): features and the block-diagonal weights, −inf off the
+    blocks. A forward is one launch of the shifts kernel and one of the
+    product; the outputs and both gradients agree with the plain path's."""
+    from dctn_tpu_torch.kernels import logmatmulexp_kernels as L
+    from dctn_tpu_torch.models import log_space_classifier as LSC
+    from dctn_tpu_torch.ops.logmatmulexp import max_shifts
+
+    x = torch.rand((37, 28, 28), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    la = LSC.features(x).reshape(37, 98)
+    lb = LSC.block_diagonal(LSC.init_log_w(torch.Generator().manual_seed(1)).to(cuda_device))
+    assert bool(torch.isneginf(lb).any())
+    g = torch.randn((37, 490), generator=torch.Generator(device=cuda_device).manual_seed(2),
+                    device=cuda_device)
+    outs, grads = [], []
+    for kernels in (L.KERNEL, L.PLAIN):
+        a, b = la.clone().requires_grad_(True), lb.clone().requires_grad_(True)
+        before = (L.logmatmulexp_shifts.launches, L.logmatmulexp_fwd.launches)
+        out = L.logmatmulexp_kernel(a, b, kernels)
+        launched = (L.logmatmulexp_shifts.launches - before[0], L.logmatmulexp_fwd.launches - before[1])
+        assert launched == ((1, 1) if kernels is L.KERNEL else (0, 0))
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, (a, b), torch.where(torch.isfinite(out), g, 0.0)))
+    amax, bmax = max_shifts(la, lb)
+    _assert_lme_close(outs[0], outs[1], 98, amax, bmax)
+    for got, ref in zip(*grads):
+        assert bool(torch.isfinite(got).all())
+        _assert_close(got, ref)

@@ -1,4 +1,4 @@
-"""The launch plans of the 3xTF32 tensor-core kernels, on the CPU.
+"""The launch plans of the port's CUDA kernels, on the CPU.
 
 ``eps_fwd`` (csrc/eps_fwd.cu) gives each CTA 128 pixels and a Z tile of
 whole outputs (or all B2 rows of one, in passes of 128 rows), so its sum
@@ -11,8 +11,13 @@ layers at the batches its step runs (2048, and 512 per microbatch at
 accumulation 4), the plans stay within the card's limits: at most 227 KB of
 shared memory per block, 65,535 CTAs along a grid's y and z, 2^31 - 1
 along x, and at most 64 slices, only where the tiles leave more than half of
-an H100's 132 SMs idle, and then within two CTAs per SM. No kernel runs
-here; this file imports neither jax nor the JAX package.
+an H100's 132 SMs idle, and then within two CTAs per SM. K13
+(csrc/logmatmulexp.cu) splits R by the shape alone and fits three CTAs on
+an SM at every case of ``chip_smoke.LME_SHAPES``; the ConvSBS backward
+(csrc/sbs_bwd.cu) plans threads, CTAs and shared memory within the card's
+limits for the legacy strings and the scope's edge, and takes every string
+it took before its d_core contraction. No kernel runs here; this file
+imports neither jax nor the JAX package.
 """
 
 import importlib.util
@@ -22,6 +27,8 @@ from pathlib import Path
 import pytest
 
 from dctn_tpu_torch.kernels import eps_kernels as K
+from dctn_tpu_torch.kernels import logmatmulexp_kernels as L
+from dctn_tpu_torch.kernels import sbs_kernels as S
 
 _ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("chip_smoke", _ROOT / "chip_smoke.py")
@@ -157,3 +164,132 @@ def test_fwd_flagship_tiles_take_whole_outputs(layer, outputs, tiles):
     n, q, n1, o, h = chip_smoke.layer_dims(chip_smoke.DEEP)[2]
     plan = K._fwd_plan(n, q, n1, o, chip_smoke.BATCH * h * h)
     assert (plan["outputs"], plan["passes"], plan["grid"][1]) == (10, 1, 3)
+
+
+# ---------------------------------------------------------------------------
+# K13 (csrc/logmatmulexp.cu): a 64×64 tile per CTA, R in chunks of 32,
+# split by the shape alone; its shifts kernel in slices of R
+
+_SM_SMEM = 228 * 1024  # an H100 SM's shared memory; each CTA reserves 1 KB of it
+_LME = [(c[0], c[1], c[2], c[3]) for c in chip_smoke.LME_SHAPES]
+
+
+@pytest.mark.parametrize("label,theta,r,n_i", _LME, ids=[c[0] for c in _LME])
+def test_lme_plan_fits_the_card(label, theta, r, n_i):
+    plan = L._plan(theta, r, n_i)
+    assert plan["tile"] == (64, 64, 32) and plan["threads"] == 64 * plan["warps_n"]
+    grid_x, grid_y, splits = plan["grid"]
+    assert (grid_x, grid_y) == (math.ceil(n_i / 64), math.ceil(theta / 64))
+    assert splits == plan["splits"] == L._splits(theta, r, n_i)
+    # every split has at least two chunks of R, and no CTA goes without one
+    assert splits == 1 or plan["chunks"] // splits >= 2
+    assert grid_x <= _GRID_X and grid_y <= _GRID_YZ and splits <= _GRID_YZ
+    # 8 warps where the grid fits at two CTAs per SM, else 4 warps, three
+    # CTAs per SM
+    ctas = grid_x * grid_y * splits
+    assert plan["warps_n"] == (4 if ctas <= 2 * _SMS else 2)
+    assert plan["smem_bytes"] <= K._MAX_SMEM_BYTES
+    assert 3 * (plan["smem_bytes"] + 1024) <= _SM_SMEM
+    shifts = L._shift_plan(theta, r, n_i)
+    assert shifts["slices"] == max(1, math.ceil(r / 2048))
+    assert shifts["groups"] == math.ceil(theta / 8) + math.ceil(n_i / 32) <= _GRID_X
+    # the split count, and with it the order of the sums, is the shape's alone
+    assert L._plan(theta, r, n_i) == plan
+
+
+def test_lme_large_r_runs_in_one_wave():
+    """R = 32768: 16 tiles × 17 splits = 272 CTAs, within the 3 × 132 an H100
+    holds at once (264 at two CTAs per SM would leave 8 for a second
+    wave)."""
+    plan = L._plan(256, 32768, 256)
+    ctas = plan["grid"][0] * plan["grid"][1] * plan["grid"][2]
+    assert ctas == 272 and 2 * _SMS < ctas <= 3 * _SMS and plan["threads"] == 128
+
+
+# ---------------------------------------------------------------------------
+# K11 and K12's backward (csrc/sbs_bwd.cu): threads and CTAs per string and
+# pixel count
+
+
+def _legacy_strings():
+    from dctn_tpu_torch.models.conv_sbs_model import ConvSBSModelConfig
+
+    out = []
+    for ring in (False, True):
+        for layer, specs in enumerate(ConvSBSModelConfig(2, 4, trace_edge=ring).layer_specs()):
+            olr, qc, ok = S.sbs_supported(specs[0])
+            assert ok
+            side = 28 - 2 * (layer + 1)
+            out.append((f"layer {layer} {'ring' if ring else 'open'}", olr, qc,
+                        [b * side * side for b in chip_smoke.SBS_BATCHES]))
+    return out
+
+
+def _edge(P, b0, bond, qc, o=1):
+    """A string at the scope's edge: P cores, ring bond b0, inner bonds
+    ``bond``, output o on the middle core."""
+    return tuple(((o if i == P // 2 else 1), b0 if i == 0 else bond, b0 if i == P - 1 else bond)
+                 for i in range(P))
+
+
+_SBS_STRINGS = _legacy_strings() + [
+    ("ring bond 4, q^C 16", _edge(4, 4, 4, 16, 2), 16, [1000, 60_000]),
+    ("bond 8, three channels", _edge(5, 1, 8, 8, 3), 8, [1000, 60_000]),
+    ("ring 4, bond 8, q^C 9", _edge(9, 4, 8, 9), 9, [1000, 60_000]),
+    ("spills: bond 8, o 20, q^C 16", _edge(3, 1, 8, 16, 20), 16, [1000, 60_000]),
+]
+
+
+@pytest.mark.parametrize("label,olr,qc,npixes", _SBS_STRINGS, ids=[s[0] for s in _SBS_STRINGS])
+def test_sbs_bwd_launch_fits_the_card(label, olr, qc, npixes):
+    for mcut in (None, S._mim_cut(olr), 1, len(olr) - 1):
+        plan = S._launch_plan(olr, qc, mcut, True)
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+        assert plan.smem_bytes == plan.bwd_smem_bytes(plan.threads) <= K._MAX_SMEM_BYTES
+        assert plan.spill == (label.startswith("spills"))
+        for npix in npixes:
+            threads, blocks = S._bwd_launch(plan, npix, _SMS)
+            smem = plan.bwd_smem_bytes(threads)
+            per_sm = min(2048 // threads, 65536 // (128 * threads), _SM_SMEM // (smem + 1024))
+            assert threads % 32 == 0 and 32 <= threads <= plan.threads
+            assert smem <= K._MAX_SMEM_BYTES and per_sm >= 1
+            assert 1 <= blocks <= min(math.ceil(npix / threads), per_sm * _SMS)
+
+
+def test_sbs_bwd_layer0_batch100_shares_pixels_evenly():
+    """Layer 0's strings at batch 100 (67,600 pixels): two CTAs of 256
+    threads per SM (128 registers a thread), 264 in all, each with 256 or
+    257 pixels; whole tiles of 256 would have left one CTA two tiles."""
+    label, olr, qc, npixes = _legacy_strings()[0]
+    plan = S._launch_plan(olr, qc, 4, True)
+    threads, blocks = S._bwd_launch(plan, npixes[0], _SMS)
+    assert (threads, blocks) == (256, 2 * _SMS)
+    shares = {npixes[0] * (b + 1) // blocks - npixes[0] * b // blocks for b in range(blocks)}
+    assert shares == {256, 257}
+
+
+def _parent_takes(olr, qc, mcut):
+    """The rule the backward had before its d_core contraction: the cores,
+    one d_core sum per warp and the states at 32 threads within 227 KB."""
+    state = S._layout(olr, len(olr) if mcut is None else mcut, True)[1]
+    nelem = sum(o * l * r * qc for o, l, r in olr)
+    return 4 * (2 * nelem + 32 * state) <= K._MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("P", [3, 9, 16])
+def test_sbs_bwd_takes_every_string_it_took(P):
+    """Bonds 1–8, ring bonds 1–4, q^C up to 16, an output of up to 20 on the
+    middle core: every string the backward took before still plans, on the
+    contraction's tiles in shared memory or, where they do not fit, in
+    device memory."""
+    took = spilled = 0
+    for bond in range(1, 9):
+        for b0 in range(1, 5):
+            for qc in (1, 2, 4, 9, 16):
+                for o in (1, 10, 20):
+                    olr = _edge(P, b0, bond, qc, o)
+                    for mcut in {None, S._mim_cut(olr)}:
+                        if _parent_takes(olr, qc, mcut):
+                            took += 1
+                            spilled += S._launch_plan(olr, qc, mcut, True).spill
+    assert took > 0 and spilled < took
