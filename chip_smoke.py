@@ -10,9 +10,10 @@ Run from the root of a checkout, with no arguments:
    QAT and legacy ConvSBS paths from ``dctn_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once), printing each build time, the compiler's
    register report and the count of tensor-core instructions (HMMA, HGMMA,
-   IMMA; ``cuobjdump -sass``) in each library; it fails if the 3xTF32
+   IMMA, IGMMA; ``cuobjdump -sass``) in each library; it fails if the 3xTF32
    sources (``eps_fwd``, ``eps_dcore``, ``eps_dviews_t``, ``logmatmulexp``)
-   have no HMMA or HGMMA.
+   have no HMMA or HGMMA, or the int8 forward (``eps_fwd_q8``) no IGMMA
+   (``wgmma`` on int8).
 2. Holds each kernel against its plain PyTorch version at the layer shapes
    of the flagship, the three-EPS ``(2,4),(2,6),(2,12)`` and the deep
    ``(4,4),(3,12),(2,24)`` models at batch 128 and at small shapes (every
@@ -364,14 +365,15 @@ def median_ms(fns, reps: int):
 def tensor_core_instructions(path) -> dict:
     """The tensor-core instructions in a built library's SASS (``cuobjdump
     -sass`` of the toolkit that built it): counts of HMMA (mma.sync on
-    f16/bf16/tf32), HGMMA (wgmma) and IMMA (int8 mma.sync)."""
+    f16/bf16/tf32), HGMMA (wgmma on them), IMMA (int8 mma.sync) and IGMMA
+    (int8 wgmma)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    ops = re.findall(r"\b(HMMA|HGMMA|IMMA)\b", sass)
-    return {op: ops.count(op) for op in ("HMMA", "HGMMA", "IMMA")}
+    ops = re.findall(r"\b(HMMA|HGMMA|IMMA|IGMMA)\b", sass)
+    return {op: ops.count(op) for op in ("HMMA", "HGMMA", "IMMA", "IGMMA")}
 
 
 # the sources whose f32 products run on the tensor cores in 3xTF32
@@ -395,6 +397,8 @@ def build_all(build) -> None:
             if name in TF32X3_SOURCES:
                 check(counts["HMMA"] + counts["HGMMA"] > 0,
                       f"{name}: no HMMA or HGMMA instruction in its SASS")
+            if name == "eps_fwd_q8":
+                check(counts["IGMMA"] > 0, f"{name}: no IGMMA (int8 wgmma) instruction in its SASS")
 
 
 def layer_dims(specs):

@@ -8,7 +8,7 @@ directory that ``.gitignore`` lists (here HEAD, the parent of uncommitted
 changes):
 
     mkdir -p build/parent && git archive HEAD | tar -x -C build/parent
-    python3 compare_parent.py build/parent [--steps] [--families eps,sbs,lme]
+    python3 compare_parent.py build/parent [--steps] [--families eps,q8,sbs,lme]
 
 Each family's kernels are called from both checkouts on the same inputs and
 timed in turns:
@@ -20,6 +20,13 @@ timed in turns:
   kernel; both d_views forms where the layer has a v half, below batch
   2048), this checkout's result held within ``chip_smoke.REL_TOL`` of the
   other's (median CUDA-event ms);
+- ``q8``: the int8 forward without t (K8) and with it (K9) at every layer
+  the int8 paths run at batch 128 (the flagship's serving and QAT layers,
+  the three-EPS QAT layers) and at one shape of its mma.sync kernel
+  (``Q8_MMA_SHAPE``), this checkout's t equal to the other's bit for bit and
+  its output within ``chip_smoke.REL_TOL`` of the other's (device time per
+  call, torch.profiler, in turns; and the median CUDA-event time of one call,
+  the host's work included);
 - ``sbs``: the ConvSBS backward (K11 at the model's merge position, K12's
   with ``mcut=None``, d_views both ways) at chip_smoke's phase-2b shapes
   (both legacy layers, open and ring, batch 100 and 512) and K11 at every
@@ -96,6 +103,7 @@ STEPS = {
             str(DEEP_REG[1]), "--grad-accum-steps", acc, "--steps", "3", "--warmup", "1"))
           for acc in ("1", "auto")),
     ),
+    "q8": (("flagship QAT", ("--qat", "int8")),),
     "sbs": tuple(
         (f"conv_sbs batch {b} {'ring' if ring else 'open'}",
          ("--model-family", "conv_sbs", "--batch-size", str(b)) + (("--trace-edge",) if ring else ()))
@@ -110,7 +118,9 @@ STEP_KEYS = ("step_ms_p50", "images_per_s", "peak_extra_mib", "launches_per_step
              "forward_seconds_per_iteration", "forward_backward_seconds_per_iteration",
              "launches_per_forward", "launches_per_forward_backward", "step_ms", "val_acc",
              "logmatmulexp_launches_per_step")
-FAMILIES = ("eps", "sbs", "lme")
+FAMILIES = ("eps", "q8", "sbs", "lme")
+# a shape of the int8 forward's mma.sync kernel: A = 81 is not a multiple of 4
+Q8_MMA_SHAPE = ("mma.sync: A = 81, n2 = 0", 4, 3, 4, 5, BATCH * 625)
 
 
 def load_other(root_dir: str) -> str:
@@ -176,6 +186,56 @@ def compare_kernels(K, OK, dev) -> None:
                     "max_abs_diff_vs_parent": err, "tol": REL_TOL * scale}), flush=True)
             del views, cmt, g
             torch.cuda.empty_cache()
+
+
+def compare_q8(Q, OQ, dev) -> None:
+    """K8 and K9 of both checkouts at the int8 paths' layers at batch 128
+    and at one shape of the mma.sync kernel."""
+    cases = [(f"{model} layer {i}", n, q, n1, o, BATCH * h * h)
+             for model, specs in (("flagship", FLAGSHIP), ("three-EPS", THREE))
+             for i, (n, q, n1, o, h) in enumerate(layer_dims(specs))] + [Q8_MMA_SHAPE]
+    g_ = torch.Generator(device=dev).manual_seed(SEED)
+    for label, n, q, n1, o, npix in cases:
+        views = torch.rand((n, q, npix), generator=g_, device=dev)
+        cmt = torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev) * q ** (-n / 2)
+        wq, sw = Q.quantize_cmt(cmt)
+        z, a = wq.shape
+        for save_t in (False, True):
+            def call(M):
+                return lambda: M.eps_fwd_q8(views, wq, sw, n1, o, save_t=save_t)
+
+            got, ref = call(Q)(), call(OQ)()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            err, scale = float((got[0] - ref[0]).abs().max()), float(ref[0].abs().max())
+            name = "eps_fwd_q8_t" if save_t else "eps_fwd_q8"
+            check(err <= REL_TOL * scale, f"{name} [{label}]: differs from the other checkout's by "
+                  f"{err} (max|ref| {scale})")
+            check(not save_t or torch.equal(got[1], ref[1]),
+                  f"{name} [{label}]: t is not the other checkout's bit for bit")
+            del got, ref
+            dev_ms = {"parent": 0.0, "change": 0.0}
+            for tree in ("parent", "change", "change", "parent"):
+                fn = call(OQ if tree == "parent" else Q)
+                fn()
+                dev_ms[tree] += device_ms_per_call(fn, 10, os.devnull)[0] / 2
+            call_ms = median_ms([call(OQ), call(Q)], reps=10)
+            ops = 2.0 * z * a * npix
+            nbytes = 4.0 * (views.numel() + z + o * npix + (z * npix if save_t else 0)) + wq.numel()
+            b_ms, by = bound_ms(nbytes, 4.0 * z * npix, int8_ops=ops)
+            print(json.dumps({
+                "metric": "kernel_vs_parent", "kernel": name, "path": label,
+                "form": Q._q8_plan(n, q, n1, o, npix)["form"],
+                "shape": {"n": n, "q": q, "n1": n1, "O": o, "Z": z, "A": a, "npix": npix},
+                "parent_ms": dev_ms["parent"], "ms": dev_ms["change"],
+                "parent_over_change": dev_ms["parent"] / dev_ms["change"],
+                "tops": ops / dev_ms["change"] / 1e9,
+                "call_ms": {"parent": call_ms[0], "change": call_ms[1]},
+                "bound_ms": b_ms, "bound_by": by, "max_abs_diff_vs_parent": err,
+                "tol": REL_TOL * scale, "t_bit_equal": save_t}), flush=True)
+        del views, cmt, wq, sw
+        torch.cuda.empty_cache()
 
 
 def compare_sbs(S, OS, dev) -> None:
@@ -284,8 +344,12 @@ def compare_lme(L, OL, dev) -> None:
 
 def compare_steps(other_dir: str, families) -> None:
     trees = {"parent": os.path.abspath(other_dir), "change": os.path.dirname(os.path.abspath(__file__))}
+    done = set()
     for family in families:
         for label, extra in STEPS[family]:
+            if label in done:  # a step that two families share runs once
+                continue
+            done.add(label)
             for which in ("parent", "change", "change", "parent"):
                 proc = subprocess.run([sys.executable, "-m", "dctn_tpu_torch.bench", *extra],
                                       cwd=trees[which], capture_output=True, text=True, timeout=900)
@@ -300,7 +364,7 @@ def main(argv=None) -> int:
     ap.add_argument("other", metavar="DIR", help="root of the checkout to compare with")
     ap.add_argument("--steps", action="store_true", help="also the bench's steps in both checkouts")
     ap.add_argument("--families", default=",".join(FAMILIES),
-                    help="comma-separated kernel families: eps, sbs, lme (default all)")
+                    help="comma-separated kernel families: eps, q8, sbs, lme (default all)")
     args = ap.parse_args(argv)
     families = [f for f in args.families.split(",") if f]
     if not families or any(f not in FAMILIES for f in families):
@@ -313,8 +377,9 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     other = load_other(args.other)
     dev = torch.device("cuda", 0)
-    mods = {"eps": "eps_kernels", "sbs": "sbs_kernels", "lme": "logmatmulexp_kernels"}
-    runs = {"eps": compare_kernels, "sbs": compare_sbs, "lme": compare_lme}
+    mods = {"eps": "eps_kernels", "q8": "eps_q8_kernels", "sbs": "sbs_kernels",
+            "lme": "logmatmulexp_kernels"}
+    runs = {"eps": compare_kernels, "q8": compare_q8, "sbs": compare_sbs, "lme": compare_lme}
     for family in families:
         this = importlib.import_module(f"dctn_tpu_torch.kernels.{mods[family]}")
         that = importlib.import_module(f"{other}.kernels.{mods[family]}")

@@ -38,6 +38,8 @@ layer's arm as it does for the f32 forward (the JAX package's
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .eps_kernels import (
@@ -64,8 +66,19 @@ from .eps_kernels import (
 # all-zero rows and columns quantize to 0 with this scale instead of dividing
 # by zero (a black pixel's φ features are exact zeros)
 _EPS_SCALE = 1e-30
-# csrc/eps_fwd_q8.cu's tiling: pixels per CTA, A columns per step, rows of Z
-# per block, staged rows per warp
+# csrc/eps_fwd_q8.cu's tiling. The wgmma kernel: pixels per CTA (M), rows of
+# Z per N tile (N), A bytes per ring stage, ring stages, rows of t staged per
+# N tile (and their stride in floats), the most rows of u's suffix table T and
+# the most factors left of it. The mma.sync kernel: pixels per CTA, A columns
+# per step, rows of Z per block, staged rows per warp.
+_WG_TILE_P = 128
+_WG_TILE_N = 256
+_WG_STEP_K = 64
+_WG_STAGES = 5
+_WG_STAGED_ROWS = 128
+_WG_STAGED_STRIDE = _WG_TILE_P + 4
+_WG_MAX_T = 64
+_WG_MAX_LEAD = 4
 _TILE_PIX = 64
 _STEP_K = 64
 _BLOCK_ROWS = 128
@@ -126,18 +139,59 @@ def eps_fwd_q8_reference(
 # the kernel's wrapper
 
 
-def _q8_smem_bytes(n: int, q: int, n1: int) -> int:
-    """Shared memory of one ``eps_fwd_q8`` launch (``smem_layout`` in
-    csrc/eps_fwd_q8.cu): staged factors, su, two carry rows and the staged
-    partial rows (one per warp when B2 is a multiple of 16, else one per row
-    of the block) in f32; the digit tables of a and b; the A × 64 uq tile,
-    16-byte aligned, its rows padded to a 64 multiple plus 64."""
-    a, b2 = q**n1, q ** (n - n1)
+def _align128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+@functools.lru_cache(maxsize=256)
+def _q8_plan(n: int, q: int, n1: int, out_size: int, npix: int) -> dict:
+    """One ``eps_fwd_q8`` launch (``make_plan`` in csrc/eps_fwd_q8.cu), from
+    the shape alone. ``form`` is "wgmma" where A is a multiple of 4, u has at
+    most 8 factors left of its suffix table, the sum over b has a route (in
+    registers where B2 is a multiple of 8 and v's trailing factors make 8 or
+    16 rows; else on a staged t tile, B2 ≤ 128) and the shared memory fits;
+    else "mma.sync". wgmma: ``grid`` 128-pixel tiles, ``tiles`` N tiles of
+    ``n`` = 256 rows along Z, each ``outputs`` whole outputs (or one output
+    in ``passes`` tiles), wq through a ring of ``stages``. mma.sync: 64-pixel
+    tiles, Z in blocks of ``n`` = 128 rows. ``smem_bytes``: the form's
+    shared memory."""
+    a, b2, n2 = q**n1, q ** (n - n1), n - n1
+    a_pad = -(-a // _WG_STEP_K) * _WG_STEP_K
+    lt = 1
+    t_cap = min(max(16, a // 4), _WG_MAX_T)
+    while lt < n1 and q ** (lt + 1) <= t_cap:
+        lt += 1
+    l2 = 0
+    while l2 < n2 and q**l2 < 8:
+        l2 += 1
+    s2 = q**l2
+    regs = b2 % 8 == 0 and s2 in (8, 16)
+    if regs and b2 > _WG_TILE_N:
+        outs, passes = 1, -(-b2 // _WG_TILE_N)
+        tiles = out_size * passes
+    else:
+        outs, passes = min((_WG_TILE_N if regs else _WG_STAGED_ROWS) // b2, out_size), 1
+        tiles = -(-out_size // outs) if outs else 0
+    ring = _WG_STAGES * _WG_TILE_N * _WG_STEP_K
+    staged = 0 if regs else 4 * _WG_STAGED_ROWS * _WG_STAGED_STRIDE
+    row = 4 * _WG_TILE_P
+    vrows = b2 // s2 + s2 if regs else (b2 if n2 else 0)
+    t_rows = q**lt if lt >= 2 else 0  # the factor rows, T and their digit codes
+    prologue = (n * q + t_rows) * row + 4 * (t_rows + vrows)
+    off_v = _align128(_align128(a_pad * _WG_TILE_P) + max(ring + staged, prologue))
+    # su, sw of two N tiles, the ring's full and empty barriers
+    wgmma_bytes = off_v + vrows * row + row + 2 * _WG_TILE_N * 4 + 2 * _WG_STAGES * 8
+    if a % 4 == 0 and n1 - lt <= _WG_MAX_LEAD and outs > 0 and wgmma_bytes <= _MAX_SMEM_BYTES:
+        return {"form": "wgmma", "grid": (-(-npix // _WG_TILE_P),), "n": _WG_TILE_N,
+                "outputs": outs, "passes": passes, "tiles": tiles, "stages": _WG_STAGES,
+                "route": "registers" if regs else "staged", "smem_bytes": wgmma_bytes}
     units = 8 if b2 % _ROWS_PER_WARP == 0 else _BLOCK_ROWS
     floats = n * q * _TILE_PIX + 3 * _TILE_PIX + units * (_TILE_PIX + 8)
     uq_offset = -(-4 * (floats + a + b2) // 16) * 16
-    a_pad = -(-a // _STEP_K) * _STEP_K
-    return uq_offset + _TILE_PIX * (a_pad + 64)
+    return {"form": "mma.sync", "grid": (-(-npix // _TILE_PIX),), "n": _BLOCK_ROWS,
+            "outputs": None, "passes": None, "tiles": -(-out_size * b2 // _BLOCK_ROWS),
+            "stages": 1, "route": None,
+            "smem_bytes": uq_offset + _TILE_PIX * (-(-a // _STEP_K) * _STEP_K + 64)}
 
 
 def _check_q8_args(views_t, wq, sw, n1, out_size):
@@ -150,12 +204,18 @@ def _check_q8_args(views_t, wq, sw, n1, out_size):
     _check_tensors("eps_fwd_q8", shape, views_t.device, torch.int8, wq=wq)
     _check_split("eps_fwd_q8", shape, n, q, n1)
     a, b2 = q**n1, q ** (n - n1)
-    bits = (q - 1).bit_length()
-    smem = _q8_smem_bytes(n, q, n1)
-    if b2 > _MAX_B2 or a * 127 * 127 >= 2**31 or bits * max(n1, n - n1) > 32 or smem > _MAX_SMEM_BYTES:
+    if b2 > _MAX_B2 or a * 127 * 127 >= 2**31:
         raise ValueError(
-            f"eps_fwd_q8 kernel limits exceeded ({shape}): needs q^(n-n1)={b2} <= {_MAX_B2}, "
-            f"A·127² < 2³¹, digits in 32 bits, and {smem} B of shared memory <= {_MAX_SMEM_BYTES}"
+            f"eps_fwd_q8 kernel limits exceeded ({shape}): needs q^(n-n1)={b2} <= {_MAX_B2} "
+            "and A·127² < 2³¹"
+        )
+    plan = _q8_plan(n, q, n1, out_size, npix)
+    bits = (q - 1).bit_length()
+    if plan["form"] == "mma.sync" and (bits * max(n1, n - n1) > 32 or plan["smem_bytes"] > _MAX_SMEM_BYTES):
+        raise ValueError(
+            f"eps_fwd_q8 kernel limits exceeded ({shape}): neither form takes it; the mma.sync "
+            f"kernel needs digits in 32 bits and {plan['smem_bytes']} B of shared memory "
+            f"<= {_MAX_SMEM_BYTES}"
         )
     if tuple(wq.shape) != (out_size * b2, a) or tuple(sw.shape) != (out_size * b2, 1):
         raise ValueError(f"eps_fwd_q8: wq is not (O·q^(n-n1), q^n1) or sw not (Z, 1) ({shape})")

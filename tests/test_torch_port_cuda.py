@@ -66,7 +66,7 @@ def _assert_close(got, ref):
         (6, 2, 3, 3, 777),  # ragged last pixel tile
         (3, 5, 1, 2, 130),  # B2 = 25, not a multiple of the 8-row tile
         (10, 2, 1, 2, 300),  # B2 = 512, the most the kernel takes
-        (2, 128, 1, 2, 300),  # n·q = 256 staged factor rows, the most it takes
+        (2, 128, 1, 2, 300),  # n·q = 256 staged factor rows, the most it takes (mma.sync)
     ],
 )
 def test_kernel_matches_plain_on_cuda(cuda_device, n, q, n1, o, npix):
@@ -446,9 +446,16 @@ _Q8_SHAPES = [
     (3, 5, 1, 2, 130),  # B2 = 25, A = 5
     (6, 3, 1, 2, 200),  # B2 = 243: a channel carried across blocks of 128 rows
     (10, 2, 1, 2, 300),  # B2 = 512, the most the kernel takes
-    (2, 128, 1, 2, 300),  # n·q = 256 staged factor rows, the most it takes
+    (2, 128, 1, 2, 300),  # n·q = 256 staged factor rows, the most it takes (mma.sync)
     (3, 4, 1, 7, 999),  # B2 = 16: warp sums, 7 channels in one block; odd npix
     (11, 2, 11, 1, 300),  # A = 2048 in shared memory, n2 = 0
+    # the wgmma kernel's edges (kernels/eps_q8_kernels.py::_q8_plan)
+    (3, 6, 2, 5, 4000),  # B2 = 6, summed on the staged tile: 30 of the N tile's 256 rows
+    (3, 4, 2, 3, 555),  # Z = 12 < 16; 555 pixels: a ragged 128-pixel tile
+    (11, 2, 2, 2, 1000),  # B2 = 512 in registers: two passes of 256 rows per output
+    (2, 24, 2, 3, 1000),  # A = 576, the largest the staged route holds
+    (2, 26, 2, 3, 1000),  # A = 676, over it: the mma.sync kernel
+    (14, 2, 11, 1, 300),  # A = 2048 with B2 = 8, over the register route's 1,024: mma.sync
 ]
 
 
@@ -471,6 +478,19 @@ def test_q8_kernel_matches_plain(cuda_device, n, q, n1, o, npix):
     _assert_close(out, ref_out)
     assert torch.equal(t, ref_t)  # K9's t, bit for bit
     assert torch.equal(out_t, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,n1,o,npix", [(9, 4, 5, 6, 20_000), (4, 6, 3, 12, 9000), (11, 2, 2, 2, 1000)])
+def test_q8_kernel_gives_the_same_bits_twice(cuda_device, n, q, n1, o, npix):
+    """The register route (flagship layer 1, and B2 = 512 in two passes)
+    and the staged one (three-EPS layer 2): out and t the same bits on a
+    second run: the sums over b run in a fixed order."""
+    views, wq, sw = _q8_inputs(cuda_device, n, q, n1, o, npix, seed=3)
+    first = Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True)
+    second = Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _max_abs_u_scales(views, n1):

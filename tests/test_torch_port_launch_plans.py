@@ -16,8 +16,11 @@ an H100's 132 SMs idle, and then within two CTAs per SM. K13
 an SM at every case of ``chip_smoke.LME_SHAPES``; the ConvSBS backward
 (csrc/sbs_bwd.cu) plans threads, CTAs and shared memory within the card's
 limits for the legacy strings and the scope's edge, and takes every string
-it took before its d_core contraction. No kernel runs here; this file
-imports neither jax nor the JAX package.
+it took before its d_core contraction. The int8 forward (csrc/eps_fwd_q8.cu)
+takes every layer of the flagship and the three-EPS QAT model on its wgmma
+kernel, tiles pixels and Z without overlap, and takes every shape it took
+before. No kernel runs here; this file imports neither jax nor the JAX
+package.
 """
 
 import importlib.util
@@ -25,8 +28,10 @@ import math
 from pathlib import Path
 
 import pytest
+import torch
 
 from dctn_tpu_torch.kernels import eps_kernels as K
+from dctn_tpu_torch.kernels import eps_q8_kernels as Q8
 from dctn_tpu_torch.kernels import logmatmulexp_kernels as L
 from dctn_tpu_torch.kernels import sbs_kernels as S
 
@@ -293,3 +298,118 @@ def test_sbs_bwd_takes_every_string_it_took(P):
                             took += 1
                             spilled += S._launch_plan(olr, qc, mcut, True).spill
     assert took > 0 and spilled < took
+
+
+# ---------------------------------------------------------------------------
+# K8/K9 (csrc/eps_fwd_q8.cu): the wgmma kernel's 128-pixel tiles and N tiles
+# of whole outputs (or passes of one), or the mma.sync kernel, from the shape
+# alone
+
+_cuda_spec = importlib.util.spec_from_file_location("torch_port_cuda_cases",
+                                                    _ROOT / "tests" / "test_torch_port_cuda.py")
+_cuda_cases = importlib.util.module_from_spec(_cuda_spec)
+_cuda_spec.loader.exec_module(_cuda_cases)
+
+
+def _q8_shapes():
+    """(label, n, q, n1, O, npix, form): the layers K8 and K9 run on the
+    port's paths at batch 128 (the flagship's serving and QAT, the three-EPS
+    model's QAT), then every shape of the card tests (``_Q8_SHAPES``)."""
+    shapes = []
+    for model, specs in (("flagship", chip_smoke.FLAGSHIP), ("three-EPS", chip_smoke.THREE)):
+        for i, (n, q, n1, o, h) in enumerate(chip_smoke.layer_dims(specs)):
+            shapes.append((f"{model} layer {i}", n, q, n1, o, chip_smoke.BATCH * h * h, "wgmma"))
+    for n, q, n1, o, npix in _cuda_cases._Q8_SHAPES:
+        # on mma.sync: A not a multiple of 4 (81, 5, 3, 2), or a wgmma plan
+        # over 227 KB (n*q = 256 factor rows beside the staged tile; A = 676
+        # on the staged route; A = 2048 on the register route)
+        over = {(2, 128, 1), (2, 26, 2), (11, 2, 11), (14, 2, 11)}
+        form = "mma.sync" if q**n1 % 4 or (n, q, n1) in over else "wgmma"
+        shapes.append((f"card n={n} q={q} n1={n1} O={o} npix={npix}", n, q, n1, o, npix, form))
+    return shapes
+
+
+_Q8_PLAN_SHAPES = _q8_shapes()
+
+
+def _q8_tiles(plan, b2, o):
+    """Z rows [first, first + rows) of each N tile, as ``tile_rows`` in
+    csrc/eps_fwd_q8.cu walks them."""
+    z = o * b2
+    if plan["passes"] > 1:
+        return [(k // plan["passes"] * b2 + k % plan["passes"] * plan["n"],
+                 min(plan["n"], b2 - k % plan["passes"] * plan["n"])) for k in range(plan["tiles"])]
+    step = plan["outputs"] * b2
+    return [(k * step, min(step, z - k * step)) for k in range(plan["tiles"])]
+
+
+@pytest.mark.parametrize("label,n,q,n1,o,npix,form", _Q8_PLAN_SHAPES, ids=[s[0] for s in _Q8_PLAN_SHAPES])
+def test_q8_launch_plan_fits_the_card(label, n, q, n1, o, npix, form):
+    b2 = q ** (n - n1)
+    plan = Q8._q8_plan(n, q, n1, o, npix)
+    assert plan["form"] == form
+    assert plan["smem_bytes"] <= K._MAX_SMEM_BYTES
+    tile_p = 128 if form == "wgmma" else 64
+    (grid_x,) = plan["grid"]
+    # every pixel in exactly one tile
+    assert grid_x * tile_p >= npix > (grid_x - 1) * tile_p and grid_x <= _GRID_X
+    if form == "mma.sync":
+        return
+    assert plan["n"] == 256 and plan["stages"] >= 3
+    # every row of Z in exactly one N tile, and every output whole in one
+    # tile (or in its own passes, B2 > 256), the tile within N (and within
+    # 128 rows where t is staged)
+    rows = [z for first, count in _q8_tiles(plan, b2, o) for z in range(first, first + count)]
+    assert sorted(rows) == list(range(o * b2))
+    cap = plan["n"] if plan["route"] == "registers" else 128
+    for first, count in _q8_tiles(plan, b2, o):
+        assert 0 < count <= cap
+        if plan["passes"] == 1:
+            assert first % b2 == 0 and count % b2 == 0
+        else:
+            assert b2 > plan["n"] and first // b2 == (first + count - 1) // b2
+
+
+@pytest.mark.parametrize("layer,tiles", [(0, 4), (1, 6)])
+def test_q8_flagship_tiles_are_one_output_each(layer, tiles):
+    """The flagship's layers (B2 = 256): one output per N tile of 256 rows,
+    summed over b in registers; the three-EPS QAT layers (B2 = 1, 4, 6):
+    all their outputs in one tile, summed over b on the staged tile."""
+    n, q, n1, o, h = chip_smoke.layer_dims(chip_smoke.FLAGSHIP)[layer]
+    plan = Q8._q8_plan(n, q, n1, o, chip_smoke.BATCH * h * h)
+    assert (plan["outputs"], plan["passes"], plan["tiles"], plan["route"]) == (1, 1, tiles, "registers")
+    for n, q, n1, o, h in chip_smoke.layer_dims(chip_smoke.THREE):
+        plan = Q8._q8_plan(n, q, n1, o, chip_smoke.BATCH * h * h)
+        assert (plan["outputs"], plan["tiles"], plan["route"]) == (o, 1, "staged")
+
+
+def _q8_parent_takes(n, q, n1, o):
+    """The rule the int8 forward had before its wgmma kernel: B2 <= 512,
+    n*q <= 256, A*127^2 < 2^31, the digits of a and b in 32 bits, and its
+    64-pixel tile's shared memory within 227 KB."""
+    a, b2 = q**n1, q ** (n - n1)
+    if b2 > 512 or n * q > 256 or a * 127 * 127 >= 2**31 or (q - 1).bit_length() * max(n1, n - n1) > 32:
+        return False
+    units = 8 if b2 % 16 == 0 else 128
+    floats = n * q * 64 + 3 * 64 + units * 72
+    return -(-4 * (floats + a + b2) // 16) * 16 + 64 * (-(-a // 64) * 64 + 64) <= K._MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("q_range", [(1, 9), (9, 33), (33, 129)])
+def test_q8_takes_every_shape_it_took(q_range):
+    """Every shape the kernel took before (n up to 13, O of 1 to 40) still
+    passes the wrapper's checks, on one form or the other."""
+    took = on_wgmma = 0
+    for q in range(*q_range):
+        for n in range(1, 14):
+            for n1 in range(1, n + 1):
+                for o in (1, 6, 40):
+                    if not _q8_parent_takes(n, q, n1, o):
+                        continue
+                    took += 1
+                    b2, a = q ** (n - n1), q**n1
+                    views = torch.zeros((n, q, 8), device="meta")
+                    wq = torch.zeros((o * b2, a), dtype=torch.int8, device="meta")
+                    Q8._check_q8_args(views, wq, torch.zeros((o * b2, 1), device="meta"), n1, o)
+                    on_wgmma += Q8._q8_plan(n, q, n1, o, 8)["form"] == "wgmma"
+    assert took > 0 and 0 < on_wgmma <= took

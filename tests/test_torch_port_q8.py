@@ -186,12 +186,15 @@ def test_kernel_limits_raise_naming_the_shape(shape, n1, o, wq_shape, match):
 
 
 def test_flagship_layers_fit_the_kernel():
-    """Both flagship layers pass the wrapper's checks: layer 1 with one
-    staged row per warp (B2 = 256) in 87,040 B of shared memory."""
+    """Both flagship layers pass the wrapper's checks: layer 1 on the wgmma
+    kernel, one output (B2 = 256) per N tile, in 232,016 B of shared memory
+    (uq 128 KB, the ring 80 KB, the v tables 16 KB, su, sw and the ring's
+    barriers)."""
     for n, q, n1, o in ((8, 4, 4, 4), (9, 4, 5, 6)):
         wq = torch.zeros((o * q ** (n - n1), q**n1), dtype=torch.int8)
         Q8._check_q8_args(torch.zeros((n, q, 8)), wq, torch.ones((wq.shape[0], 1)), n1, o)
-    assert Q8._q8_smem_bytes(9, 4, 5) == 87_040
+    plan = Q8._q8_plan(9, 4, 5, 6, 8)
+    assert (plan["form"], plan["outputs"], plan["smem_bytes"]) == ("wgmma", 1, 232_016)
 
 
 # ---------------------------------------------------------------------------
