@@ -57,9 +57,15 @@ Run from the root of a checkout, with no arguments:
    K11) and of the sequential fold (K12) against their plain versions at
    both layer shapes of the legacy 2-layer bond-4 model, open strings and
    rings, batch 100 and 512, and every merge position at one shape, with
-   kernel, plain and bound times (no single library call folds a tensor
-   train: the library column is null); at batch 512 the backward gives the
-   same bits on a second run.
+   kernel, plain and bound times; the forward's route (the register
+   kernel for every legacy string) and its library time (one
+   ``torch.einsum`` over the string's views and cores; no single library
+   call folds the backward: its library column is null); at batch 512 the
+   backward gives the same bits on a second run. Then a string outside the
+   register route (layer 1's ring with its outputs on two cores, at layer
+   1's pixels at batch 100) holds the forward's shared-memory kernel against
+   the plain fold, both families, at every merge position. Phase 1 fails if
+   an instantiation of the forward's register route spills.
 6. Drives the legacy ConvSBS family: ``dctn_tpu_torch.cli.legacy_runner.run``
    on synthetic data (2 layers, bond 4, batch 100, 2 epochs; SGD and RMSprop
    with momentum; open strings and ``--trace-edge`` rings), checking its
@@ -104,12 +110,15 @@ Run from the root of a checkout, with no arguments:
    flagship training step (f32 and QAT) at batch 128, on the kernel and on
    the plain path, and of the deep model's step at batch 2048 (accumulation
    1 and 4) on the kernels, and of the ConvSBS step at batch 100 (open, ring)
-   and 512 (open) on the kernel and the plain path, with the device's busy
+   and 512 (open, ring) on the kernel and the plain path, with the device's busy
    share and extra memory; and of the log-matmul chain's forward+backward
    (kernel form, ops form, matmul) and one log-space classifier step
    (fused_kernel, fused_plain, scan), with the device's busy share; the
    full profiler tables go to DIR.
-11. Prints one JSON line describing the kernels, then the result line.
+11. Prints one JSON line describing the kernels (each entry's ``timed_by``
+   says whether its times are one call between CUDA events, the host's
+   work included, or device time per call under torch.profiler), then the
+   result line.
 
 Every count of kernel launches is set to 0 just before a path is driven and
 read just after it.
@@ -273,6 +282,10 @@ SBS_TOL = 1e-5
 # three strings and the pixels' gradient through layer 0's d_views): largest
 # reading 3.04e-6 (open) and 2.55e-6 (ring), so 1e-5
 SBS_GRAD_TOL = 1e-5
+# the forward's times in phase 2b are its device time per call over this many
+# calls under torch.profiler (a register-route launch takes 6–34 µs of device
+# time at the legacy shapes on an H100, less than the wrapper's host work)
+SBS_FWD_PROFILE_CALLS = 10
 # 3 SGD steps (momentum 0.9, lr 1e-2) of the float32 kernel path against
 # the float64 plain step on the CPU at batch 4, the runner's recipe
 # (sin²/cos², window-std multiplier, layers scaled to unit std): losses and
@@ -345,6 +358,13 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+# how the times of a kernel's entry in the kernels line were taken: the
+# median of one call between two CUDA events (the wrapper's host work
+# included), or device time per call under torch.profiler (the kernels alone)
+CUDA_EVENTS = "cuda_events"
+DEVICE_TIME = "device_time"
+
+
 def median_ms(fns, reps: int):
     """Median CUDA-event time of each function, run in turns."""
     for fn in fns:
@@ -399,6 +419,30 @@ def build_all(build) -> None:
                       f"{name}: no HMMA or HGMMA instruction in its SASS")
             if name == "eps_fwd_q8":
                 check(counts["IGMMA"] > 0, f"{name}: no IGMMA (int8 wgmma) instruction in its SASS")
+            if name == "sbs_fwd":
+                spills = register_route_spills(log.read_text())
+                print(f"{name}: register route, stack frame and spill bytes (frame, stores, "
+                      f"loads) per instantiation {spills}")
+                check(len(spills) == REG_INSTANTIATIONS,
+                      f"{name}: {len(spills)} register-route kernels in the compiler's report, "
+                      f"not {REG_INSTANTIATIONS}")
+                check(not any(any(v) for v in spills.values()),
+                      f"{name}: a register-route instantiation spills or keeps a stack frame")
+
+
+# the forward's register route (csrc/sbs_fwd.cu): bond B 4 or 8, ring bond
+# B0 1, 2 or 4, q^C within 4 or 16
+REG_INSTANTIATIONS = 12
+
+
+def register_route_spills(report: str) -> dict:
+    """(stack frame, spill stores, spill loads) in bytes of each
+    instantiation of the register route (``sbs_fwd_reg_kernel<B, B0, KQ>``)
+    in a ``-Xptxas -v`` report, keyed by its mangled template arguments."""
+    found = re.findall(r"Compiling entry function '\w*sbs_fwd_reg_kernelI(\w+?)EEv\w*'"
+                       r"(?:(?!Compiling entry).)*?(\d+) bytes stack frame, (\d+) bytes spill "
+                       r"stores, (\d+) bytes spill loads", report, flags=re.S)
+    return {args: (int(fr), int(st), int(ld)) for args, fr, st, ld in found}
 
 
 def layer_dims(specs):
@@ -477,7 +521,8 @@ def kernel_vs_plain(K, Q8, dev):
                                  "deep layer 1"),
     }
     res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0, "flops": 0.0, "int8_ops": 0.0, "mm_flops": 0.0, "bytes": 0.0}
+               "timed_by": CUDA_EVENTS, "bound_ms": 0.0, "flops": 0.0, "int8_ops": 0.0,
+               "mm_flops": 0.0, "bytes": 0.0}
            for k in runs}
     g_ = torch.Generator(device=dev).manual_seed(SEED)
     for label, n, q, n1, o, npix in kernel_shapes():
@@ -884,11 +929,23 @@ def sbs_case(S, CSM, dev, layer, trace_edge, batch, seed=SEED):
     q^C = 2, o = 2 on the middle core, 26×26 windows; layer 1: q^C = 4,
     o = 10, 24×24): factors uniform in [0, 1), cores scaled so every m
     element is of order 1/bond, a normal output cotangent."""
+    olr, qc = sbs_string(S, CSM, layer, trace_edge)
+    side = 28 - 2 * (layer + 1)
+    return sbs_operands(dev, olr, qc, batch * side * side, seed)
+
+
+def sbs_string(S, CSM, layer, trace_edge):
+    """The per-core (o, l, r) and q^C of a string of the legacy model's
+    ``layer``."""
     spec = CSM.ConvSBSModelConfig(SBS_LAYERS, SBS_BOND, trace_edge=trace_edge).layer_specs()[layer][0]
     olr, qc, ok = S.sbs_supported(spec)
     check(ok, f"legacy layer {layer} outside the kernels' support")
-    side = 28 - 2 * (layer + 1)
-    npix = batch * side * side
+    return olr, qc
+
+
+def sbs_operands(dev, olr, qc, npix, seed=SEED):
+    """``sbs_case``'s operands for the string ``olr`` at q^C ``qc`` over
+    ``npix`` pixels."""
     g_ = torch.Generator(device=dev).manual_seed(seed)
     views = torch.rand((len(olr), qc, npix), generator=g_, device=dev)
     scale = 1.0 / (SBS_BOND * (qc / 3) ** 0.5)
@@ -918,20 +975,62 @@ def sbs_fold_fmas(olr, mcut):
     return fmas + b0 * rm * o_pre * o_suf
 
 
-def sbs_work(olr, qc, npix, mcut, backward, need_dviews):
+def sbs_toward_output_fmas(olr, qc, c):
+    """FMAs per pixel of the forward's register route beyond the m elements:
+    both ends folded toward the output core c (the b0 × bond states), their
+    join over b0, and the output core's contraction with q^C views."""
+    b0 = olr[0][1]
+    fold = sum(b0 * l * r for i, (_, l, r) in enumerate(olr) if i != c)
+    oc, lc, rc = olr[c]
+    return fold + b0 * lc * rc + oc * qc
+
+
+def sbs_work(olr, qc, npix, mcut, backward, need_dviews, reg_c=None):
     """(bytes, flops) of one call: each input read once and each output
-    written once; the forward's FMAs (m, fold, merge), and for the backward
-    the forward's again (the states it reverses), twice the fold and merge
-    (the two transposes of each step) and the d_core (and d_view) FMAs."""
+    written once; the forward's FMAs (m, fold, merge; with ``reg_c`` the
+    register route's order, folded toward that output core), and for the
+    backward the forward's again (the states it reverses), twice the fold and
+    merge (the two transposes of each step) and the d_core (and d_view)
+    FMAs."""
     rows = sum(o * l * r for o, l, r in olr)
     m_fmas = rows * qc
-    fold = sbs_fold_fmas(olr, mcut)
+    fold = (sbs_fold_fmas(olr, mcut) if reg_c is None or backward
+            else sbs_toward_output_fmas(olr, qc, reg_c))
     o_total = math.prod(o for o, _, _ in olr)
     views, cores = len(olr) * qc * npix, rows * qc
     if not backward:
         return 4.0 * (views + cores + o_total * npix), 2.0 * npix * (m_fmas + fold)
     nbytes = 4.0 * (views + 2 * cores + o_total * npix + (views if need_dviews else 0))
     return nbytes, 2.0 * npix * (m_fmas * (2 + need_dviews) + 3 * fold)
+
+
+def sbs_library_fwd(views, cores, olr):
+    """The string's forward as one ``torch.einsum`` over the views and the
+    cores (l, r, o, q^C each; the ring bond closes the trace): the library
+    call beside ``sbs_fwd``, timed here and used nowhere in the port. It
+    contracts its operands from left to right (core 0, view 0, core 1, ...),
+    so each intermediate is a (b0, bond, outputs so far, pixels) state; the
+    path opt_einsum picks when it is installed multiplies the views together
+    first (140 GiB at layer 0 of the legacy model at batch 100 on an H100)."""
+    P = len(olr)
+    letters = iter("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXY")
+    bond = [next(letters) for _ in range(P)]  # bond i: the left bond of core i
+    ops, terms, outs = [], [], []
+    for i, ((o, l, r), core) in enumerate(zip(olr, cores)):
+        j, oo = next(letters), next(letters)
+        ops += [core.reshape(l, r, o, -1), views[i]]
+        terms += [bond[i] + bond[(i + 1) % P] + oo + j, j + "Z"]
+        outs.append(oo)
+    with torch.backends.opt_einsum.flags(enabled=False):
+        out = torch.einsum(",".join(terms) + "->" + "".join(outs) + "Z", *ops)
+    return out.reshape(-1, views.shape[2])
+
+
+def sbs_fwd_route(S, olr, qc, mcut):
+    """The forward's route for the string, and the register route's output
+    core (None on the shared-memory route)."""
+    route, plan = S._fwd_route(tuple(olr), qc, mcut)
+    return route, (plan.c if route == "registers" else None)
 
 
 def sbs_kernels_vs_plain(S, CSM, dev):
@@ -944,8 +1043,12 @@ def sbs_kernels_vs_plain(S, CSM, dev):
     kernel, plain and bound times summed over one training step of the
     model at batch 100 with open strings (each of layer 0's two strings
     without d_views, layer 1's with them; the sequential fold's step is
-    phase 7's sequential path)."""
-    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+    phase 7's sequential path). The forward's times are device time per
+    call (torch.profiler), with its library time (``sbs_library_fwd``); the
+    backward's are CUDA-event times of one call."""
+    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0 if k.startswith("sbs_fwd") else None,
+               "timed_by": DEVICE_TIME if k.startswith("sbs_fwd") else CUDA_EVENTS,
                "bytes": 0.0, "flops": 0.0} for k in SBS_KERNELS}
     worst = {}
 
@@ -976,17 +1079,29 @@ def sbs_kernels_vs_plain(S, CSM, dev):
                     def plain():
                         return S.sbs_fwd_reference(views, cores, olr, mcut)
 
-                    errs = held(name, label, kern(), plain())
-                    t_k, t_p = median_ms([kern, plain], reps=10)
-                    nbytes, flops = sbs_work(olr, qc, npix, mcut, False, False)
-                    print(f"{name} vs plain [{label}]: max|d|/max|ref| {errs} "
-                          f"(tol {SBS_TOL:g}*max|ref|); kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-                          f"bound {bound_ms(nbytes, flops)[0]:.4f} ms")
+                    def library():
+                        return sbs_library_fwd(views, cores, olr)
+
+                    route, reg_c = sbs_fwd_route(S, olr, qc, mcut)
+                    ref = plain()
+                    errs = held(name, label, kern(), ref)
+                    lib_err = float((library() - ref).abs().max() / ref.abs().max())
+                    del ref
+                    # device time per call: the kernel's launch takes a few µs of
+                    # device time, less than the host's work around it
+                    t_k, t_p, t_l = (device_ms_per_call(fn, SBS_FWD_PROFILE_CALLS, os.devnull)[0]
+                                     for fn in (kern, plain, library))
+                    nbytes, flops = sbs_work(olr, qc, npix, mcut, False, False, reg_c)
+                    print(f"{name} vs plain [{label}, {route} route]: max|d|/max|ref| {errs} "
+                          f"(tol {SBS_TOL:g}*max|ref|); device ms per call: kernel {t_k:.6f}, "
+                          f"plain {t_p:.6f}, library (one torch.einsum) {t_l:.6f} (its "
+                          f"max|d|/max|ref| {lib_err:.3e}); bound {bound_ms(nbytes, flops)[0]:.6f} ms")
                     if on_path:
                         for _ in range(2 if layer == 0 else 1):
                             r = res[name]
                             r["ms"] += t_k
                             r["plain_ms"] += t_p
+                            r["library_ms"] += t_l
                             r["bytes"] += nbytes
                             r["flops"] += flops
                     name = f"sbs_bwd_{fam}"
@@ -1039,6 +1154,21 @@ def sbs_kernels_vs_plain(S, CSM, dev):
             held("sbs_bwd_mim", f"{label} d_core {i}", a, b)
         print(f"sbs every merge position [{label}]: forward and backward held")
     del views, cores, g, dv, dc, rdv, rdc
+    # a string outside the register route: layer 1's ring with its ten
+    # outputs on two cores (2 on core 3, 5 on core 4), at layer 1's pixels at
+    # batch 100; it holds the shared-memory kernel against the plain fold
+    olr, qc = sbs_string(S, CSM, 1, True)
+    olr = tuple((2 if i == 3 else 5 if i == 4 else o, l, r) for i, (o, l, r) in enumerate(olr))
+    olr, views, cores, _ = sbs_operands(dev, olr, qc, 100 * 24 * 24)
+    for mcut in (*range(1, len(olr)), None):
+        fam = "seq" if mcut is None else "mim"
+        label = f"layer 1 ring, outputs on cores 3 and 4, batch 100 mcut={mcut}"
+        route, _ = sbs_fwd_route(S, olr, qc, mcut)
+        check(route == "shared", f"sbs_fwd [{label}]: the {route} route, not the shared-memory one")
+        held(f"sbs_fwd_{fam}", label, S.sbs_fwd(views, cores, olr, mcut),
+             S.sbs_fwd_reference(views, cores, olr, mcut))
+        print(f"sbs_fwd_{fam} vs plain [{label}, {route} route]: held")
+    del views, cores
     print(f"ConvSBS kernels vs plain, largest max|d|/max|ref| per kernel: {worst} "
           f"(tolerance {SBS_TOL:g})")
     for r in res.values():
@@ -1116,8 +1246,9 @@ def lme_kernel_vs_plain(L, LSC, max_shifts, dev):
     shift), and times summed over one chain forward (5 links) and one
     classifier step (1 call), K13's work in one iteration of each entry."""
     res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-           "bytes": 0.0, "flops": 0.0}
-    res_s = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bytes": 0.0}
+           "timed_by": DEVICE_TIME, "bytes": 0.0, "flops": 0.0}
+    res_s = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+             "timed_by": DEVICE_TIME, "bytes": 0.0}
     on_path = {"chain link": 5, "classifier step": 1}
     worst = {}
     for label, theta, r, i, offset, neg_inf in LME_SHAPES:
@@ -1485,10 +1616,10 @@ def sbs_sequential_phase(S, CSM, bench, x, y, dev):
 
 def profile_conv_sbs(S, CSM, out_dir, dev) -> None:
     """Phase 10 (opt-in): where the ConvSBS step's time goes, on the kernel
-    and the plain path, at batch 100 open and ring and batch 512 open: the
-    bench's step (SGD 1e-3) after 3 warm-up steps, over 5."""
+    and the plain path, at batch 100 and 512, open and ring: the bench's
+    step (SGD 1e-3) after 3 warm-up steps, over 5."""
     os.makedirs(out_dir, exist_ok=True)
-    for batch, trace_edge in ((100, False), (100, True), (512, False)):
+    for batch, trace_edge in ((100, False), (100, True), (512, False), (512, True)):
         cfg = CSM.ConvSBSModelConfig(SBS_LAYERS, SBS_BOND, trace_edge=trace_edge)
         gen = torch.Generator().manual_seed(SEED)
         params = CSM.init_conv_sbs_model(gen, cfg)

@@ -27,12 +27,13 @@ timed in turns:
   its output within ``chip_smoke.REL_TOL`` of the other's (device time per
   call, torch.profiler, in turns; and the median CUDA-event time of one call,
   the host's work included);
-- ``sbs``: the ConvSBS backward (K11 at the model's merge position, K12's
-  with ``mcut=None``, d_views both ways) at chip_smoke's phase-2b shapes
-  (both legacy layers, open and ring, batch 100 and 512) and K11 at every
-  merge position of layer 1's ring at batch 100, held within
-  ``chip_smoke.SBS_TOL`` of the other's (device time per call, and the
-  median CUDA-event time of one call, the host's work included);
+- ``sbs``: the ConvSBS forward (K10 at the model's merge position, K12's
+  with ``mcut=None``) and backward (the same families, d_views both ways)
+  at chip_smoke's phase-2b shapes (both legacy layers, open and ring, batch
+  100 and 512) and K11 at every merge position of layer 1's ring at batch
+  100, held within ``chip_smoke.SBS_TOL`` of the other's (device time per
+  call, and the median CUDA-event time of one call, the host's work
+  included);
 - ``lme``: K13 at every case of ``chip_smoke.LME_SHAPES``, both held to the
   plain version within chip_smoke's per-entry limit: the product's device
   time per call (torch.profiler), and the whole forward of
@@ -80,6 +81,7 @@ from chip_smoke import (
     lme_operands,
     median_ms,
     sbs_case,
+    sbs_fwd_route,
     sbs_work,
 )
 
@@ -238,10 +240,47 @@ def compare_q8(Q, OQ, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def turns_device_ms(call_parent, call_change, calls: int) -> dict:
+    """Device time per call (torch.profiler: the wrapper's kernels, its host
+    work left out) of two calls, in the order parent, change, change,
+    parent."""
+    dev_ms = {"parent": 0.0, "change": 0.0}
+    for tree in ("parent", "change", "change", "parent"):
+        fn = call_parent if tree == "parent" else call_change
+        fn()
+        dev_ms[tree] += device_ms_per_call(fn, calls, os.devnull)[0] / 2
+    return dev_ms
+
+
 def compare_sbs(S, OS, dev) -> None:
-    """K11 and K12's backward of both checkouts at phase 2b's shapes, and K11
-    at every merge position of layer 1's ring at batch 100."""
+    """K10, K11 and K12 (forward and backward) of both checkouts at phase
+    2b's shapes, and K11 at every merge position of layer 1's ring at batch
+    100."""
     from dctn_tpu_torch.models import conv_sbs_model as CSM
+
+    def fwd_reading(label, olr, views, cores, mcut):
+        def call(M):
+            return lambda: M.sbs_fwd(views, cores, olr, mcut)
+
+        got, ref = call(S)(), call(OS)()
+        torch.cuda.synchronize()
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        check(err <= SBS_TOL * scale, f"sbs_fwd [{label} mcut={mcut}]: differs from the other "
+              f"checkout's by {err} (max|ref| {scale})")
+        del got, ref
+        dev_ms = turns_device_ms(call(OS), call(S), 20)
+        call_ms = median_ms([call(OS), call(S)], reps=10)
+        qc, npix = views.shape[1], views.shape[2]
+        route, reg_c = sbs_fwd_route(S, olr, qc, mcut)
+        b_ms, by = bound_ms(*sbs_work(olr, qc, npix, mcut, False, False, reg_c))
+        print(json.dumps({
+            "metric": "kernel_vs_parent", "kernel": "sbs_fwd_seq" if mcut is None else "sbs_fwd_mim",
+            "path": label, "mcut": mcut, "npix": npix, "route": route,
+            "parent_ms": dev_ms["parent"], "ms": dev_ms["change"],
+            "parent_over_change": dev_ms["parent"] / dev_ms["change"],
+            "call_ms": {"parent": call_ms[0], "change": call_ms[1]},
+            "bound_ms": b_ms, "bound_by": by, "max_rel_diff_vs_parent": err / scale,
+            "tol": SBS_TOL}), flush=True)
 
     def reading(label, olr, views, cores, g, mcut, need):
         def call(M):
@@ -257,13 +296,9 @@ def compare_sbs(S, OS, dev) -> None:
                   f"checkout's by {err} (max|ref| {scale})")
             worst = max(worst, err / scale)
         del dv, dc, rdv, rdc, pairs
-        # device time per call (torch.profiler: the wrapper's kernels, its
-        # host work left out), parent, change, change, parent; and one
-        # call between CUDA events, the host's work included
-        dev_ms = {"parent": 0.0, "change": 0.0}
-        for tree in ("parent", "change", "change", "parent"):
-            dev_ms[tree] += device_ms_per_call(lambda: call(OS if tree == "parent" else S), 5,
-                                               os.devnull)[0] / 2
+        # device time per call in turns; and one call between CUDA events,
+        # the host's work included
+        dev_ms = turns_device_ms(lambda: call(OS), lambda: call(S), 5)
         t_other, t_this = dev_ms["parent"], dev_ms["change"]
         call_ms = median_ms([lambda: call(OS), lambda: call(S)], reps=10)
         qc, npix = views.shape[1], views.shape[2]
@@ -283,6 +318,8 @@ def compare_sbs(S, OS, dev) -> None:
             for batch in SBS_BATCHES:
                 olr, views, cores, g = sbs_case(S, CSM, dev, layer, ring, batch)
                 label = f"layer {layer} {'ring' if ring else 'open'} batch {batch}"
+                for mcut in (SBS_MCUT, None):
+                    fwd_reading(label, olr, views, cores, mcut)
                 for mcut in (SBS_MCUT, None):
                     for need in (True, False):
                         reading(label, olr, views, cores, g, mcut, need)

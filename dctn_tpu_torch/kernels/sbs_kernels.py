@@ -8,13 +8,20 @@ The host merges the C channel views of each core's position into one
 matricizes each core to (l·r·o, q^C) rows in (l, r, o) order
 (``_core_to_lro``). Two kernels then fold the string per pixel:
 
-- ``sbs_fwd`` (``csrc/sbs_fwd.cu``): the prefix fold of cores 0..mcut−1, the
-  suffix fold of cores P−1..mcut seeded with δ(b0) (the ring closure; 1 for
-  an open string), and their merge Σ_{b0, r_m} pre ⊗ suf. With a merge
-  position it replaces the meet-in-the-middle ``_sbs_fwd_mim_kernel_factory``
-  (K10, sbs_pallas.py:430); with ``mcut=None`` the prefix runs over all P
-  cores and the merge with the bare seed is the ring trace, which is the
-  sequential ``_sbs_fwd_kernel_factory`` (K12's forward, :256).
+- ``sbs_fwd`` (``csrc/sbs_fwd.cu``): the string's contraction per pixel.
+  With a merge position it replaces the meet-in-the-middle
+  ``_sbs_fwd_mim_kernel_factory`` (K10, sbs_pallas.py:430), with
+  ``mcut=None`` the sequential ``_sbs_fwd_kernel_factory`` (K12's forward,
+  :256): one function in two rounding orders. ``_fwd_route`` picks the
+  kernel from the string's shape. The register route (``_reg_plan``: at most
+  one core with o > 1, bonds ≤ 8, ring bond ≤ 4) folds both ends toward the
+  output core with b0 × bond states in registers, for both families alike;
+  ``mcut`` then only names the family counted. The shared-memory route takes
+  the other strings: the prefix fold of cores 0..mcut−1, the suffix fold of
+  cores P−1..mcut seeded with δ(b0) (the ring closure; 1 for an open
+  string), and their merge Σ_{b0, r_m} pre ⊗ suf; with ``mcut=None`` the
+  prefix runs over all P cores and the merge with the bare seed is the ring
+  trace.
 - ``sbs_bwd`` (``csrc/sbs_bwd.cu``): the reverse of the same fold, giving
   d_cores (per-CTA partial sums over pixels, then a second kernel that adds
   them in a fixed order) and, when asked, d_views; K11
@@ -73,6 +80,11 @@ _BWD_DM_ROWS = 16
 _BWD_REGISTERS = 128
 _SM_REGISTERS = 65536
 _SCOPE_ITEM = "ROADMAP Queue 1 item 16 (ConvSBS kernel scope)"
+# the forward's register route (csrc/sbs_fwd.cu, sbs_fwd_reg_kernel): the
+# padded shapes it is instantiated at (bond B, ring bond B0, q^C KQ)
+_REG_BONDS = (4, 8)
+_REG_RING_BONDS = (1, 2, 4)
+_REG_QCS = (4, 16)
 
 
 def sbs_supported(spec) -> Tuple[Tuple[Tuple[int, int, int], ...], int, bool]:
@@ -362,9 +374,68 @@ def _launch_plan(olr, qc: int, mcut: Optional[int], backward: bool) -> LaunchPla
                       (ctypes.c_int * len(ints))(*ints), spill, o_total)
 
 
+@dataclasses.dataclass(frozen=True)
+class RegPlan:
+    """The forward's register route for one string: the kernel's ``RegPlan``
+    struct (csrc/sbs_fwd.cu) as ints, the output core ``c`` both ends fold
+    toward, the padded shape (``B``, ``B0``, ``KQ``) and the staged cores'
+    shared memory."""
+
+    ints: Tuple[int, ...]
+    c: int
+    B: int
+    B0: int
+    KQ: int
+    smem_bytes: int
+    array: ctypes.Array = dataclasses.field(compare=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _reg_plan(olr, qc: int) -> Optional[RegPlan]:
+    """The register route's plan, or None where the string is outside it:
+    more than one core with o > 1, a bond over 8, a ring bond over 4, q^C
+    over 16, more than 16 cores, or staged cores (qc B×B slabs for every core
+    and o of them for the output core) over the shared memory. The output
+    core is the one with o > 1, else the middle one."""
+    P, b0 = len(olr), olr[0][1]
+    outs = [i for i, (o, _, _) in enumerate(olr) if o > 1]
+    bond = max(max(l, r) for _, l, r in olr)
+    if (len(outs) > 1 or bond > max(_REG_BONDS) or b0 > max(_REG_RING_BONDS)
+            or not 1 <= qc <= max(_REG_QCS) or not 1 <= P <= _MAX_CORES
+            or any(olr[i][2] != olr[(i + 1) % P][1] for i in range(P))):
+        return None
+    c = outs[0] if outs else (P - 1) // 2
+    oc = olr[c][0]
+    B = min(x for x in _REG_BONDS if x >= bond)
+    B0 = min(x for x in _REG_RING_BONDS if x >= b0)
+    KQ = min(x for x in _REG_QCS if x >= qc)
+    smem = 4 * (P - 1 + oc) * qc * B * B
+    if smem > _MAX_SMEM_BYTES:
+        return None
+    pad = [0] * (_MAX_CORES - P)
+    ints = ((P, qc, b0, c, oc, B, B0, KQ)
+            + tuple([l for _, l, _ in olr] + pad) + tuple([r for _, _, r in olr] + pad))
+    return RegPlan(ints, c, B, B0, KQ, smem, (ctypes.c_int * len(ints))(*ints))
+
+
+def _fwd_route(olr, qc: int, mcut: Optional[int]):
+    """The forward's route for one string, from its shape alone:
+    ``("registers", RegPlan)`` where the register kernel's plan holds it
+    (both families then run the same arithmetic, folded toward the output
+    core; ``mcut`` only picks the family counted), else ``("shared",
+    LaunchPlan)``, the shared-memory kernel at the family's merge position.
+    Raises where neither takes the string."""
+    _check_mcut(olr, mcut)
+    reg = _reg_plan(tuple(olr), qc)
+    if reg is not None:
+        return "registers", reg
+    return "shared", _launch_plan(tuple(olr), qc, mcut, False)
+
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
-    "sbs_fwd": {"dctn_sbs_fwd": [_P, _P, _P, _P, _I, _LL, _I, _P]},
+    "sbs_fwd": {"dctn_sbs_fwd": [_P, _P, _P, _P, _I, _LL, _I, _P],
+                "dctn_sbs_fwd_reg": [_P, _P, _P, _P, _I, _LL, _P]},
     "sbs_bwd": {"dctn_sbs_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _P]},
 }
 
@@ -418,9 +489,11 @@ def sbs_fwd(
     views_t: torch.Tensor, cores_lro: Sequence[torch.Tensor], olr, mcut: Optional[int]
 ) -> torch.Tensor:
     """One string's fold over the (P, q^C, npix) factor stack → (∏o, npix).
-    ``mcut`` a merge position: the meet-in-the-middle fold (K10); None: the
-    sequential fold (K12). CPU tensors run ``sbs_fwd_reference``; CUDA
-    tensors launch the kernel, and ``sbs_fwd.mim_launches`` /
+    ``mcut`` a merge position: the meet-in-the-middle family (K10); None: the
+    sequential family (K12). CPU tensors run ``sbs_fwd_reference``; CUDA
+    tensors launch the kernel of ``_fwd_route``'s route (on the register
+    route both families fold toward the output core; on the shared-memory
+    route ``mcut`` is the merge position), and ``sbs_fwd.mim_launches`` /
     ``sbs_fwd.seq_launches`` count its launches of each family."""
     if views_t.device.type == "cpu":
         return sbs_fwd_reference(views_t, cores_lro, olr, mcut)
@@ -428,16 +501,22 @@ def sbs_fwd(
         raise ValueError(f"sbs_fwd runs on cpu or cuda, not {views_t.device}")
     P, qc, npix = views_t.shape
     _check_args("sbs_fwd", views_t, cores_lro, olr, qc)
-    plan = _launch_plan(tuple(olr), qc, mcut, False)
+    route, plan = _fwd_route(olr, qc, mcut)
     dev = views_t.device
     views_t = views_t.contiguous()
-    cores = _flat_cores(cores_lro)
     out = torch.empty((math.prod(o for o, _, _ in olr), npix), dtype=torch.float32, device=dev)
+    lib = _library("sbs_fwd")
     with torch.cuda.device(dev):
-        err = _library("sbs_fwd").dctn_sbs_fwd(
-            views_t.data_ptr(), cores.data_ptr(), out.data_ptr(), plan.array,
-            len(plan.ints), npix, plan.threads, _stream(dev),
-        )
+        if route == "registers":
+            # the register kernel stages each core where it lies: no copy into one buffer
+            cores = [c.contiguous() for c in cores_lro]
+            ptrs = (ctypes.c_void_p * P)(*[c.data_ptr() for c in cores])
+            err = lib.dctn_sbs_fwd_reg(views_t.data_ptr(), ptrs, out.data_ptr(),
+                                       plan.array, len(plan.ints), npix, _stream(dev))
+        else:
+            cores = _flat_cores(cores_lro)
+            err = lib.dctn_sbs_fwd(views_t.data_ptr(), cores.data_ptr(), out.data_ptr(),
+                                   plan.array, len(plan.ints), npix, plan.threads, _stream(dev))
     _raise_on_error("sbs_fwd", err)
     if mcut is None:
         sbs_fwd.seq_launches += 1

@@ -772,6 +772,75 @@ def test_sbs_bwd_at_the_scope_edge_matches_plain(cuda_device, olr, qc):
                 _assert_close(a, b)
 
 
+def _fwd_edge(P, b0, bond, o, at=None):
+    """P cores, ring bond b0, inner bonds ``bond``, output o on core ``at``
+    (the middle one by default)."""
+    at = P // 2 if at is None else at
+    return tuple(((o if i == at else 1), b0 if i == 0 else bond, b0 if i == P - 1 else bond)
+                 for i in range(P))
+
+
+# the forward's strings at its register route's plan edges and beside them,
+# as (olr, q^C, route): bond 8 with three channels, a ring of bond 4 at q^C
+# 16, ring bonds 3 and 2 (padded to 4 and 2), 16 cores of bond 8, every o 1
+# (folded toward the middle core), the output on core 0 and on the last
+# core, one core, uneven bonds, staged cores at and over the shared memory's
+# edge, and two cores with o > 1 (the shared-memory kernel)
+_SBS_FWD_EDGE = [
+    (_fwd_edge(5, 1, 8, 3), 8, "registers"),
+    (_fwd_edge(4, 4, 4, 2), 16, "registers"),
+    (_fwd_edge(6, 3, 4, 5), 2, "registers"),
+    (_fwd_edge(6, 2, 5, 5), 3, "registers"),
+    (_fwd_edge(16, 4, 8, 2), 16, "registers"),
+    (_fwd_edge(8, 1, 4, 1), 4, "registers"),
+    (_fwd_edge(5, 4, 4, 3, at=0), 2, "registers"),
+    (_fwd_edge(5, 4, 4, 3, at=4), 2, "registers"),
+    (((6, 3, 3),), 4, "registers"),
+    (((1, 1, 3), (1, 3, 5), (7, 5, 2), (1, 2, 6), (1, 6, 1)), 2, "registers"),
+    (_fwd_edge(16, 4, 8, 41), 16, "registers"),
+    (_fwd_edge(16, 1, 5, 42), 16, "shared"),
+    (((2, 1, 4), (1, 4, 4), (3, 4, 1)), 2, "shared"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "olr,qc,route", _SBS_FWD_EDGE,
+    ids=["bond8_3ch", "ring4_qc16", "ring3", "ring2", "16_cores", "every_o_1", "out_core0",
+         "out_last_core", "one_core", "uneven_bonds", "smem_edge", "over_smem_edge", "two_outputs"])
+def test_sbs_fwd_routes_match_plain(cuda_device, olr, qc, route):
+    """K10 and K12's forward at the register route's plan edges and on the
+    shared-memory kernel against the plain folds, each family counted, the
+    same bits on a second run."""
+    g_ = torch.Generator(device=cuda_device).manual_seed(5)
+    npix = 3001
+    views = torch.rand((len(olr), qc, npix), generator=g_, device=cuda_device)
+    cores = [torch.randn((l * r * o, qc), generator=g_, device=cuda_device) / (max(l, r) * qc**0.5)
+             for o, l, r in olr]
+    for mcut in (S._mim_cut(olr), None):
+        assert S._fwd_route(olr, qc, mcut)[0] == route
+        before = (S.sbs_fwd.mim_launches, S.sbs_fwd.seq_launches)
+        out = S.sbs_fwd(views, cores, olr, mcut)
+        torch.cuda.synchronize()
+        assert (S.sbs_fwd.mim_launches - before[0], S.sbs_fwd.seq_launches - before[1]) == (
+            (1, 0) if mcut else (0, 1))
+        _assert_close(out, S.sbs_fwd_reference(views, cores, olr, mcut))
+        torch.testing.assert_close(S.sbs_fwd(views, cores, olr, mcut), out, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer,trace_edge", [(0, False), (1, True)])
+def test_sbs_fwd_gives_the_same_bits_twice(cuda_device, layer, trace_edge):
+    """The legacy strings at batch 100 on the register route: both families
+    the same bits on a second run, and the same bits as each other (one
+    arithmetic order, folded toward the output core)."""
+    olr, views, cores, _ = _sbs_case(cuda_device, layer, trace_edge, 100)
+    assert S._fwd_route(olr, views.shape[1], None)[0] == "registers"
+    runs = [S.sbs_fwd(views, cores, olr, mcut) for mcut in (4, 4, None, None)]
+    for other in runs[1:]:
+        torch.testing.assert_close(other, runs[0], rtol=0, atol=0)
+
+
 def _wide_string(bonds, channels):
     """A two-core string outside the kernels' scope (the specs of
     test_torch_port_sbs.py::test_support_rule_and_kernel_plan)."""

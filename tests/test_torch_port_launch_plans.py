@@ -16,7 +16,9 @@ an H100's 132 SMs idle, and then within two CTAs per SM. K13
 an SM at every case of ``chip_smoke.LME_SHAPES``; the ConvSBS backward
 (csrc/sbs_bwd.cu) plans threads, CTAs and shared memory within the card's
 limits for the legacy strings and the scope's edge, and takes every string
-it took before its d_core contraction. The int8 forward (csrc/eps_fwd_q8.cu)
+it took before its d_core contraction; the ConvSBS forward (csrc/sbs_fwd.cu)
+takes the legacy strings and the plan's edges on its register route, the
+rest on its shared-memory kernel, and every string it took before. The int8 forward (csrc/eps_fwd_q8.cu)
 takes every layer of the flagship and the three-EPS QAT model on its wgmma
 kernel, tiles pixels and Z without overlap, and takes every shape it took
 before. No kernel runs here; this file imports neither jax nor the JAX
@@ -298,6 +300,101 @@ def test_sbs_bwd_takes_every_string_it_took(P):
                             took += 1
                             spilled += S._launch_plan(olr, qc, mcut, True).spill
     assert took > 0 and spilled < took
+
+
+# ---------------------------------------------------------------------------
+# K10 and K12's forward (csrc/sbs_fwd.cu): the register route where its plan
+# holds the string, the shared-memory kernel for the rest
+
+
+@pytest.mark.parametrize("index", range(4), ids=[s[0] for s in _legacy_strings()])
+def test_sbs_fwd_legacy_strings_take_the_register_route(index):
+    """Every legacy string folds toward its output core (core 4: o = 2 at
+    layer 0, 10 at layer 1) with bond 4, q^C within 4, and the ring bond 1
+    (open) or 4; its cores staged as (P − 1 + o) q^C 4×4 slabs. Both
+    families take the same plan."""
+    label, olr, qc, _ = _legacy_strings()[index]
+    layer, ring = int(label.split()[1]), label.endswith("ring")
+    oc = 2 if layer == 0 else 10
+    for mcut in (None, S._mim_cut(olr)):
+        route, plan = S._fwd_route(olr, qc, mcut)
+        assert route == "registers"
+        assert (plan.c, plan.B, plan.B0, plan.KQ) == (4, 4, 4 if ring else 1, 4)
+        assert plan.smem_bytes == 4 * (8 + oc) * qc * 16 == (1280 if layer == 0 else 4608)
+        assert plan.ints[:8] == (9, qc, 4 if ring else 1, 4, oc, 4, 4 if ring else 1, 4)
+        assert plan.ints[8:17] == tuple(l for _, l, _ in olr)
+        assert plan.ints[24:33] == tuple(r for _, _, r in olr)
+        assert len(plan.ints) == 8 + 2 * 16
+
+
+# (label, olr, q^C, route, (c, B, B0, KQ) on the register route)
+_FWD_EDGES = [
+    ("bond 8, three channels", _edge(5, 1, 8, 8, 3), 8, "registers", (2, 8, 1, 16)),
+    ("ring bond 4 at q^C 16", _edge(4, 4, 4, 16, 2), 16, "registers", (2, 4, 4, 16)),
+    ("ring bond 3 pads to 4", _edge(6, 3, 4, 2, 5), 2, "registers", (3, 4, 4, 4)),
+    ("ring bond 2", _edge(6, 2, 5, 3, 5), 3, "registers", (3, 8, 2, 4)),
+    ("16 cores", _edge(16, 4, 8, 16, 2), 16, "registers", (8, 8, 4, 16)),
+    ("every o 1: the middle core", _edge(8, 1, 4, 4, 1), 4, "registers", (3, 4, 1, 4)),
+    ("output on core 0", ((3, 4, 4), (1, 4, 4), (1, 4, 4)), 4, "registers", (0, 4, 4, 4)),
+    ("one core", ((6, 3, 3),), 4, "registers", (0, 4, 4, 4)),
+    ("staged cores at the shared memory's edge", _edge(16, 4, 8, 16, 41), 16, "registers",
+     (8, 8, 4, 16)),
+    ("staged cores over the shared memory", _edge(16, 1, 5, 16, 42), 16, "shared", None),
+    ("two cores with o > 1", ((2, 1, 4), (1, 4, 4), (3, 4, 1)), 2, "shared", None),
+    ("two outputs in a ring of bond 4 at q^C 16", ((2, 4, 4), (1, 4, 4), (3, 4, 4)), 16, "shared",
+     None),
+]
+
+
+@pytest.mark.parametrize("label,olr,qc,route,shape", _FWD_EDGES, ids=[e[0] for e in _FWD_EDGES])
+def test_sbs_fwd_route_at_the_plan_edges(label, olr, qc, route, shape):
+    """The register route takes a string with at most one core of o > 1,
+    bonds within 8, a ring bond within 4 (padded to 1, 2 or 4), q^C within
+    16 (4 or 16) and its staged cores within 227 KB; the shared-memory kernel
+    takes the rest, at the family's merge position."""
+    for mcut in (None, S._mim_cut(olr)):
+        got, plan = S._fwd_route(olr, qc, mcut)
+        assert got == route
+        if route == "registers":
+            assert (plan.c, plan.B, plan.B0, plan.KQ) == shape
+            assert plan.smem_bytes == 4 * (len(olr) - 1 + olr[plan.c][0]) * qc * plan.B**2
+            assert plan.smem_bytes <= S._MAX_SMEM_BYTES
+        else:
+            assert plan.ints[3] == (len(olr) if mcut is None else mcut)
+            assert plan.smem_bytes <= S._MAX_SMEM_BYTES
+
+
+def _fwd_parent_takes(olr, qc, mcut):
+    """The rule the forward had before its register route: the shared-memory
+    kernel's plan, which raises where 32 threads' states do not fit."""
+    try:
+        S._launch_plan(olr, qc, mcut, False)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("P", [3, 9, 16])
+def test_sbs_fwd_takes_every_string_it_took(P):
+    """Bonds 1–8, ring bonds 1–4, q^C up to 16, an output of up to 40 on
+    the middle core, or outputs on two cores: every string the forward took
+    before still has a route; every one with a single output core takes the
+    register route (its staged cores fit), the two-output ones the
+    shared-memory kernel."""
+    took = 0
+    for bond in range(1, 9):
+        for b0 in range(1, 5):
+            for qc in (1, 2, 4, 9, 16):
+                for o in (1, 10, 40):
+                    one = _edge(P, b0, bond, qc, o)
+                    two = tuple((2 if i in (0, P - 1) else 1, l, r)
+                                for i, (_, l, r) in enumerate(one))
+                    for olr, want in ((one, "registers"), (two, "shared")):
+                        for mcut in {None, S._mim_cut(olr)}:
+                            if _fwd_parent_takes(olr, qc, mcut):
+                                took += 1
+                                assert S._fwd_route(olr, qc, mcut)[0] == want
+    assert took > 0
 
 
 # ---------------------------------------------------------------------------
