@@ -3,7 +3,9 @@ reference ``mnist.py:314-596``): the same click flags and the same
 ``run(**kw)`` → ``(params, best_acc)`` contract, for one device.
 
 Covers the single-device path of the JAX runner: synthetic or MNIST data
-and the seeded train/val split, ``--shuffle-pixels``, the input multiplier
+and the seeded train/val split, ``run_info.txt`` (the flags, the git
+commit and the performance fallbacks, with the working tree's diff beside
+it) and ``log.log``, ``--shuffle-pixels``, the input multiplier
 or ``--make-input-window-std-one``, the four SBS inits with
 ``--initialization-std``, ``--init-load-file`` (the npz of either package,
 or a reference torch ``state_dict``), ``--scale-layers-using-batch``, the
@@ -20,9 +22,9 @@ JAX runner; on CUDA a string outside the kernels' scope (a ring bond over
 Refused until their slices land (ROADMAP names each): ``--mesh-devices`` > 1
 and ``--distributed`` (multi-GPU DP), ``--autotune-kernels`` and
 ``--autotune-cache`` (the autotuner), ``--export-artifact`` (export),
-``--resume-from`` and ``--preempt-save`` (train-state saves and resume),
-``--profile-dir`` and a nonzero ``--tb-log-every-n-epochs`` (TB logging and
-TT statistics). The three of them that are on by default in JAX
+``--resume-from`` and ``--preempt-save`` (the legacy runner's train state
+and resume), ``--profile-dir`` (profiling) and a nonzero
+``--tb-log-every-n-epochs`` (TB logging and TT statistics). The three of them that are on by default in JAX
 (``--autotune-cache``, ``--preempt-save``, ``--tb-log-every-n-epochs 10``)
 are off by default here.
 
@@ -37,7 +39,6 @@ Run: ``python -m dctn_tpu_torch.cli.legacy_runner --ds-path synthetic
 
 from __future__ import annotations
 
-import json
 import logging
 import os
 import random
@@ -65,6 +66,8 @@ from ..models.conv_sbs_model import (
 )
 from ..ops import sbs
 from ..train.checkpoint import load_conv_sbs_params_npz, save_conv_sbs_params_npz
+from .runner import setup_run_provenance
+from .specs import fill_defaults
 
 logger = logging.getLogger(__name__)
 
@@ -84,11 +87,13 @@ REFUSED = (
     ("autotune_kernels", False, "--autotune-kernels", "the autotuner (slice 8, item 20)"),
     ("autotune_cache", False, "--autotune-cache", "the autotuner (slice 8, item 20)"),
     ("export_artifact", None, "--export-artifact", "export and serve (slice 6, item 18)"),
-    ("resume_from", None, "--resume-from", "train-state saves and resume (slice 4, item 13)"),
-    ("preempt_save", False, "--preempt-save", "train-state saves and resume (slice 4, item 13)"),
-    ("profile_dir", None, "--profile-dir", "TB logging and TT statistics (slice 4, item 13)"),
+    ("resume_from", None, "--resume-from",
+     "the legacy runner's train state and resume (slice 4, item 27)"),
+    ("preempt_save", False, "--preempt-save",
+     "the legacy runner's train state and resume (slice 4, item 27)"),
+    ("profile_dir", None, "--profile-dir", "profiling (slice 4, item 23)"),
     ("tb_log_every_n_epochs", 0, "--tb-log-every-n-epochs != 0",
-     "TB logging and TT statistics (slice 4, item 13)"),
+     "TB logging and TT statistics (slice 4, items 13 and 24)"),
 )
 
 
@@ -135,21 +140,21 @@ def permute_pixels_batch(images: np.ndarray, permutation) -> np.ndarray:
 @click.option("--export-batch-sizes", type=str, default="1,100",
               help="serving batch sizes for --export-artifact")
 @click.option("--resume-from", type=click.Path(exists=True, dir_okay=False), default=None,
-              help="not ported yet (train-state saves and resume, ROADMAP item 13)")
+              help="not ported yet (the legacy runner's resume, ROADMAP item 27)")
 @click.option("--preempt-sync-steps", type=int, default=16,
               help="with --distributed, steps between preemption agreements")
 @click.option("--preempt-save/--no-preempt-save", default=False,
-              help="not ported yet (train-state saves and resume, ROADMAP item 13); off by "
+              help="not ported yet (the legacy runner's resume, ROADMAP item 27); off by "
                    "default here, on in the JAX runner")
 @click.option("--profile-dir", type=click.Path(file_okay=False), default=None,
-              help="not ported yet (ROADMAP item 13)")
+              help="not ported yet (profiling, ROADMAP item 23)")
 @click.option("--profile-iters", nargs=2, type=int, default=(10, 5),
               help="START COUNT window for --profile-dir")
 @click.option("--seed", type=int, default=0)
 @click.option("--synthetic-sizes", nargs=2, type=int, default=(2048, 512))
 @click.option("--tb-log-every-n-epochs", type=int, default=0,
-              help="not ported yet (TB logging and TT statistics, ROADMAP item 13): only 0 "
-                   "is accepted; the JAX runner's default is 10")
+              help="not ported yet (TB logging and TT statistics, ROADMAP items 13 and 24): "
+                   "only 0 is accepted; the JAX runner's default is 10")
 @click.option("--distributed", default=None,
               help="not ported yet (multi-GPU DP, ROADMAP slice 7)")
 @click.option("--device", default="cuda",
@@ -158,38 +163,12 @@ def main(**kw) -> None:
     run(**kw)
 
 
-def _fill_defaults(kw: dict) -> dict:
-    for param in main.params:
-        if param.name not in kw:
-            default = param.default
-            if type(default).__name__ == "Sentinel":
-                default = () if param.multiple else None
-            kw[param.name] = default
-    return kw
-
-
 def _refuse_unported(kw: dict) -> None:
     for name, off, flag, slice_ in REFUSED:
         if kw[name] is not None and kw[name] != off:
             raise click.BadParameter(
                 f"{flag} is not ported to the PyTorch runner yet: ROADMAP, {slice_}"
             )
-
-
-def _setup_logging(models_dir: str, kw: dict) -> None:
-    """run_info.txt (the run's flags as JSON) and console + log.log logging,
-    as the JAX runners write them (runner.py:163-182, without the git
-    provenance)."""
-    with open(os.path.join(models_dir, "run_info.txt"), "w") as f:
-        json.dump({k: v if isinstance(v, (int, float, str, bool, type(None))) else repr(v)
-                   for k, v in kw.items()}, f, indent=2)
-    logging.basicConfig(
-        level=logging.INFO,
-        handlers=(logging.StreamHandler(),
-                  logging.FileHandler(os.path.join(models_dir, "log.log"), "w", "utf-8")),
-        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s",
-        force=True,
-    )
 
 
 def _load_init(path: str, template):
@@ -219,13 +198,13 @@ def _score(model: ConvSBSModel, x: torch.Tensor, y: torch.Tensor):
 
 
 def run(**kw):
-    kw = _fill_defaults(kw)
+    kw = fill_defaults(main, kw)
     _refuse_unported(kw)
     device = torch.device(kw["device"])
     if device.type == "cuda" and not torch.cuda.is_available():
         raise click.BadParameter(f"--device {device}: no CUDA device is available")
     os.makedirs(kw["models_dir"], exist_ok=True)
-    _setup_logging(kw["models_dir"], kw)
+    setup_run_provenance(kw["models_dir"], kw)
     if kw["make_input_window_std_one"] and kw["input_multiplier"] is not None:
         raise click.BadParameter(
             "--make-input-window-std-one computes the input scaling from the data — it "

@@ -1,0 +1,692 @@
+"""The EPS experiment runner of the port (``dctn_tpu/cli/runner.py``, the
+reference's ``new_runner.py``): the same click flags and the same
+``run(**kw)`` → ``TrainLoopState`` contract, on one device.
+
+It covers the JAX runner's single-device path: the flags and their
+validation; ``run_info.txt`` with the flags, the git commit and the
+performance fallbacks, the working tree's diff beside it, and ``log.log``;
+synthetic or real data; the three init families (theoretical, empirical,
+manual with per-core normal, uniform or from-file inits) and
+``--load-model-state`` (an npz of either package, or a reference
+``torch.save(state_dict)`` file); the intermediate statistics at start;
+the fast (cmt) layout's training step with parameter dropout, frozen cores,
+``--qat int8``, the regularizers, weight decay and gradient accumulation
+(``auto`` takes the saved-t cap's pick); evaluation on the eval schedule in
+the reference's log-line format, with the QAT runs scored on the int8
+forward; the last-N and best-per-metric checkpoints in the reference layout
+(npz files the JAX package loads), early stopping, the max-iterations and
+NaN-loss stoppers (the latter replaying to the batch that made the loss
+non-finite), ``train_state_latest.npz`` on the eval schedule, exact
+``--resume-from``, and ``--preempt-save`` (SIGTERM saves the train state and
+stops).
+
+``--device cuda`` (the default) runs every EPS layer through the
+hand-written kernels (the forward K1, with t where the backward reads it,
+``eps_dcore`` and the d_views kernels; K8/K9 under ``--qat int8``), and the
+empirical init's forwards through K1 too; ``--device cpu`` runs their plain
+versions. A run on ``cuda`` without a card is refused, never moved to the
+CPU. ``--train-backend`` and ``--eval-backend`` ``auto`` and ``pallas``
+both mean those kernels; ``xla`` is refused.
+
+``--debug-nans`` turns on torch.autograd's anomaly detection with its NaN
+check: a backward that produces a NaN raises, with the traceback of the
+forward op behind it (the JAX runner's ``jax_debug_nans``; debugging only,
+it slows every step).
+
+Flags the port does not run yet are refused with a ``click.BadParameter``
+naming their ROADMAP item (``REFUSED``). The inits and dropout masks draw
+from torch generators seeded from ``--seed``, so a seed gives other weights
+than in the JAX runner; pass ``--load-model-state`` to start both from the
+same ones.
+
+Run: ``python -m dctn_tpu_torch.cli.runner --experiments-dir runs --ds-type
+fashionmnist --ds-path synthetic --epses-specs "(4,4),(3,6)" --batch-size 128
+--optimizer adam --lr 3e-3 --init-epses-composition-unit-empirical-output-std
+[--device cpu]``
+"""
+
+from __future__ import annotations
+
+import ast
+import contextlib
+import json
+import logging
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import List
+
+import click
+import numpy as np
+import torch
+
+from ..data import Batcher, load_dataset
+from ..interop import (
+    eps_plus_linear_params_from_state_dict,
+    is_torch_checkpoint,
+    load_torch_state_dict,
+    params_from_numpy,
+)
+from ..kernels.eps_kernels import KERNELS
+from ..kernels.eps_q8_kernels import QAT_KERNELS
+from ..models.eps_plus_linear import (
+    EPSesPlusLinear,
+    EPSesPlusLinearConfig,
+    eps_plus_linear_forward_fast,
+    init_eps_plus_linear,
+    intermediate_reps_stats,
+    reference_params_from_fast,
+    saved_t_capped_layers,
+)
+from ..ops import composition
+from ..train import (
+    AsyncWriter,
+    BestModelCheckpointer,
+    LastModelsCheckpointer,
+    TrainLoopState,
+    ValuesNotImprovingEarlyStopper,
+    every_n_iters_intervals,
+    load_params_npz,
+    load_train_state,
+    log_parameters_stats,
+    make_fast_train_step,
+    make_gather_batch,
+    make_optimizer,
+    make_score_fn,
+    make_stopper_after_n_iters,
+    make_stopper_on_nan_loss,
+    resolve_auto_grad_accum,
+    train,
+    train_state_arrays,
+)
+from ..train.preemption import PreemptionHandler
+from ..train.step import REGULARIZERS
+from ..utils import fallbacks
+from ..utils.misc import (
+    FromFileInit,
+    ZeroCenteredNormalInit,
+    ZeroCenteredUniformInit,
+    exactly_one_true,
+    implies,
+    xor,
+)
+from .specs import fill_defaults, parse_epses_specs
+
+DIFF_FNAME = "git_diff_with_HEAD.patch"
+RUN_INFO_FNAME = "run_info.txt"
+LOG_FNAME = "log.log"
+# the checkout the runner's code lies in: its git commit is the run's
+REPO_ROOT = Path(__file__).resolve().parents[2]
+
+logger = logging.getLogger(__name__)
+
+# each refused flag, the values that mean "not used", and the ROADMAP item
+# that ports it
+REFUSED = (
+    ("mesh_devices", (1,), "--mesh-devices > 1", "multi-GPU (slice 7, item 19)"),
+    ("model_devices", (1,), "--model-devices > 1", "multi-GPU (slice 7, item 19)"),
+    ("space_devices", (1,), "--space-devices > 1", "multi-GPU (slice 7, item 19)"),
+    ("tp_shard_all", (False,), "--tp-shard-all", "multi-GPU (slice 7, item 19)"),
+    ("distributed", (None,), "--distributed", "multi-GPU (slice 7, item 19)"),
+    ("autotune_splits", (False,), "--autotune-splits", "the autotuner (slice 8, item 20)"),
+    ("autotune_cache", (False,), "--autotune-cache", "the autotuner (slice 8, item 20)"),
+    ("export_artifact", (None,), "--export-artifact", "export and serve (slice 6, item 18)"),
+    ("export_quantize", ("none",), "--export-quantize int8", "export and serve (slice 6, item 18)"),
+    ("tb_batches", (False,), "--tb-batches", "TB logging (slice 4, item 13)"),
+    ("log_intermediate_outputs", (False,), "--log-intermediate-outputs",
+     "TB logging (slice 4, item 13)"),
+    ("profile_dir", (None,), "--profile-dir", "profiling (slice 4, item 23)"),
+    ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
+     "a single-pass operand mode (Queue 2, follow-up 4)"),
+    ("train_backend", ("auto", "pallas"), "--train-backend xla",
+     "the differentiable reference-layout eps() (slice 4, item 8)"),
+    ("eval_backend", ("auto", "pallas"), "--eval-backend xla",
+     "the differentiable reference-layout eps() (slice 4, item 8)"),
+)
+
+
+def parse_eval_schedule(s: str):
+    """'((10, 1), (None, 100))' → a tuple of (length, frequency) pairs, by
+    ``ast.literal_eval`` (no code runs)."""
+    value = ast.literal_eval(s) if isinstance(s, str) else s
+    if not isinstance(value, tuple):
+        raise click.BadParameter(f"bad eval schedule {s!r}: a tuple of (length, frequency)")
+    return value
+
+
+def save_git_provenance(output_dir: str) -> str:
+    """The checkout's commit line for run_info.txt, and its working tree's
+    diff against HEAD written beside it (new_runner.py:63-78). Outside a
+    git checkout the line says why."""
+    try:
+        commit = subprocess.run(
+            ("git", "-C", str(REPO_ROOT), "show", "--format=oneline", "-s"),
+            text=True, capture_output=True, check=True, timeout=60,
+        ).stdout.strip()
+        diff = subprocess.run(
+            ("git", "-C", str(REPO_ROOT), "diff", "HEAD"),
+            capture_output=True, check=True, timeout=60,
+        ).stdout
+        with open(os.path.join(output_dir, DIFF_FNAME), "wb") as f:
+            f.write(diff)
+    except (OSError, subprocess.SubprocessError) as e:
+        commit = f"<no git: {e}>"
+    return commit
+
+
+def setup_run_provenance(output_dir: str, kwargs: dict, verbosity="INFO") -> str:
+    """run_info.txt (the flags as JSON, and the commit), the git diff, and
+    console + log.log logging, for both runners (runner.py:163-182). The
+    performance fallbacks the run records are appended to run_info.txt."""
+    commit = save_git_provenance(output_dir)
+    info = os.path.join(output_dir, RUN_INFO_FNAME)
+    with open(info, "w") as f:
+        json.dump(
+            {k: v if isinstance(v, (int, float, str, bool, type(None))) else repr(v)
+             for k, v in kwargs.items()} | {"commit": commit},
+            f, indent=2,
+        )
+    logging.basicConfig(
+        level=getattr(logging, str(verbosity).upper(), logging.INFO),
+        handlers=(
+            logging.StreamHandler(),
+            logging.FileHandler(os.path.join(output_dir, LOG_FNAME), "w", "utf-8"),
+        ),
+        format="%(asctime)s - %(name)s - %(levelname)s - %(message)s",
+        force=True,
+    )
+    fallbacks.reset()
+    fallbacks.add_sink(fallbacks.file_sink(info))
+    return commit
+
+
+def _hint_saved_t_recipe(cfg, plans, batch: int, accum: int) -> None:
+    """Warns when a layer's saved-t backward is held back only by the cap
+    on t at this microbatch, and names the accumulation that brings it back
+    (runner.py:97-129)."""
+    if batch % accum:
+        return
+    capped = saved_t_capped_layers(cfg, plans, batch // accum)
+    if not capped:
+        return
+    suggest = None
+    s = accum * 2
+    while s <= batch:
+        if batch % s == 0 and not saved_t_capped_layers(cfg, plans, batch // s):
+            suggest = s
+            break
+        s *= 2
+    msg = (
+        f"saved-t backward capped for EPS layer(s) {capped} at microbatch {batch // accum} — "
+        "the backward recomputes t there."
+    )
+    if suggest:
+        msg += f" Consider --grad-accum-steps {suggest}: microbatch t buffers stay under the cap."
+    logger.warning(msg)
+
+
+@click.command()
+@click.option("--experiments-dir", type=click.Path(file_okay=False), required=True)
+@click.option("--ds-type", type=click.Choice((
+    "mnist", "fashionmnist", "cifar10_28x28_grayscale",
+    "cifar10_32x32_grayscale", "cifar10_rgb", "cifar10_YCbCr"),
+    case_sensitive=False), required=True)
+@click.option("--ds-path", type=str, required=True,
+              help="dataset root, or 'synthetic' for generated data")
+@click.option("--seed", type=int, default=0)
+@click.option("-v", "--verbosity", default="INFO")
+@click.option("--epses-specs", type=parse_epses_specs, required=True, help="e.g. (4,4),(3,6)")
+@click.option("--batch-size", type=int, required=True)
+@click.option("--load-model-state", type=click.Path(exists=True, dir_okay=False))
+@click.option("--optimizer", "optimizer_name",
+              type=click.Choice(("adam", "sgd"), case_sensitive=False), default="adam")
+@click.option("--lr", type=float, default=1e-3)
+@click.option("--reg-type", type=click.Choice(("epswise", "epses_composition")),
+              default="epses_composition")
+@click.option("--reg-coeff", type=float, default=0.0)
+@click.option("--wd", type=float, default=0.0, help="weight decay")
+@click.option("--es-train-acc/--no-es-train-acc", default=True)
+@click.option("--es-val-acc/--no-es-val-acc", default=True)
+@click.option("--es-train-mean-ce/--no-es-train-mean-ce", default=True)
+@click.option("--es-val-mean-ce/--no-es-val-mean-ce", default=True)
+@click.option("--patience", type=int, default=20)
+@click.option("--max-num-iters", type=int, default=None)
+@click.option("--keep-last-models", type=int, default=10)
+@click.option("--init-epses-composition-unit-theoretical-output-std/"
+              "--no-init-epses-composition-unit-theoretical-output-std", default=False)
+@click.option("--init-epses-composition-unit-empirical-output-std/"
+              "--no-init-epses-composition-unit-empirical-output-std", default=False)
+@click.option("--init-epses-composition-unit-empirical-output-std-subset-size",
+              type=int, default=10880)
+@click.option("--dropout-p", type=float, default=1.0,
+              help="the probability of keeping each component of an EPS core")
+@click.option("--eval-schedule", type=parse_eval_schedule,
+              default="((10, 1), (100, 10), (1000, 100), (20000, 500), (None, 5000))")
+@click.option("--phi-multiplier", type=float, default=None, help="ν")
+@click.option("--center-and-normalize-each-channel/"
+              "--no-center-and-normalize-each-channel", default=False)
+@click.option("--nu-per-channel", nargs=3, type=float, default=None)
+@click.option("--add-constant-channel", type=float, default=None)
+@click.option("--init-eps-zero-centered-normal-std", nargs=2, type=(int, float), multiple=True)
+@click.option("--init-eps-from-file", nargs=2,
+              type=(int, click.Path(exists=True, dir_okay=False)), multiple=True)
+@click.option("--init-linear-weight-zero-centered-uniform", type=float, default=None)
+@click.option("--init-linear-weight-zero-centered-normal-std", type=float, default=None)
+@click.option("--init-linear-bias-zero-centered-uniform", type=float, default=None)
+@click.option("--freeze-eps", type=int, multiple=True)
+@click.option("--log-intermediate-reps-stats-batch-size", type=int, default=None)
+@click.option("--compute-dtype", type=click.Choice(("float32", "bfloat16")), default="float32",
+              help="float32 only (bfloat16: ROADMAP Queue 2, follow-up 4)")
+@click.option("--eval-backend", type=click.Choice(("auto", "xla", "pallas")), default="auto",
+              help="auto or pallas: the kernels on cuda, their plain versions on cpu "
+                   "(xla: ROADMAP item 8)")
+@click.option("--train-backend", type=click.Choice(("auto", "xla", "pallas")), default="auto",
+              help="as --eval-backend, for the training step")
+@click.option("--tb-batches/--no-tb-batches", default=False,
+              help="not ported yet (TB logging, ROADMAP item 13)")
+@click.option("--log-intermediate-outputs/--no-log-intermediate-outputs", default=False,
+              help="not ported yet (TB logging, ROADMAP item 13)")
+@click.option("--debug-nans/--no-debug-nans", default=False,
+              help="torch.autograd anomaly detection with its NaN check (slow; debugging only)")
+@click.option("--breakpoint-on-nan-loss/--no-breakpoint-on-nan-loss", default=False,
+              help="breakpoint() after the NaN-loss stopper's dump, its host values in scope")
+@click.option("--grad-accum-steps", type=str, default="1",
+              help="microbatch each step into this many accumulation slices, or 'auto': the "
+                   "smallest that keeps every EPS layer's saved-t backward under its cap")
+@click.option("--mesh-devices", type=int, default=1,
+              help="not ported yet (multi-GPU, ROADMAP item 19): only 1")
+@click.option("--model-devices", type=int, default=1,
+              help="not ported yet (multi-GPU, ROADMAP item 19): only 1")
+@click.option("--tp-shard-all/--tp-shard-last", default=False,
+              help="not ported yet (multi-GPU, ROADMAP item 19)")
+@click.option("--space-devices", type=int, default=1,
+              help="not ported yet (multi-GPU, ROADMAP item 19): only 1")
+@click.option("--autotune-splits/--no-autotune-splits", default=False,
+              help="not ported yet (the autotuner, ROADMAP item 20)")
+@click.option("--autotune-cache/--no-autotune-cache", default=False,
+              help="not ported yet (the autotuner, ROADMAP item 20); off by default here, "
+                   "on in the JAX runner")
+@click.option("--resume-from", type=click.Path(exists=True, dir_okay=False), default=None,
+              help="resume params, optimizer, step and the dropout generator from a "
+                   "train_state .npz (saved as train_state_latest.npz at every eval)")
+@click.option("--synthetic-sizes", nargs=3, type=int, default=(8192, 2048, 2048),
+              help="train/val/test sizes when --ds-path synthetic")
+@click.option("--export-artifact", type=click.Path(dir_okay=False), default=None,
+              help="not ported yet (export, ROADMAP item 18)")
+@click.option("--export-batch-sizes", type=str, default="1,128",
+              help="serving batch sizes for --export-artifact")
+@click.option("--export-quantize", type=click.Choice(("none", "int8")), default="none",
+              help="not ported yet (export, ROADMAP item 18)")
+@click.option("--qat", type=click.Choice(("none", "int8")), default="none",
+              help="quantization-aware training: every EPS layer's forward in int8 W8A8 "
+                   "(K8/K9) with straight-through gradients; evals score the same forward")
+@click.option("--eval-train-subset", type=int, default=None,
+              help="score only this many train samples per eval (full set if unset)")
+@click.option("--profile-dir", type=click.Path(file_okay=False), default=None,
+              help="not ported yet (profiling, ROADMAP item 23)")
+@click.option("--profile-iters", nargs=2, type=int, default=(10, 5),
+              help="START COUNT window for --profile-dir")
+@click.option("--preempt-save/--no-preempt-save", default=True,
+              help="on SIGTERM: finish the step in flight, save the train state, stop")
+@click.option("--preempt-sync-steps", type=int, default=16,
+              help="with --distributed (not ported), steps between preemption agreements")
+@click.option("--distributed", default=None,
+              help="not ported yet (multi-GPU, ROADMAP item 19)")
+@click.option("--device", default="cuda",
+              help="torch device: cuda (the kernels) or cpu (their plain versions)")
+def main(**kwargs) -> None:
+    run(**kwargs)
+
+
+def _validate(kw: dict) -> None:
+    """The refused flags, then the flags' interactions (new_runner.py:289-321,
+    runner.py:401-500), each failure naming the flags."""
+    for name, accepted, flag, where in REFUSED:
+        if kw[name] not in accepted:
+            raise click.BadParameter(f"{flag} is not ported to the PyTorch runner yet: ROADMAP, {where}")
+    specs = kw["epses_specs"]
+    chosen: List[bool] = [False] * len(specs)
+    for eps_index, _ in list(kw["init_eps_zero_centered_normal_std"]) + list(kw["init_eps_from_file"]):
+        if not 0 <= eps_index < len(specs) or chosen[eps_index]:
+            raise click.BadParameter(
+                f"EPS {eps_index} was given more than one per-tensor init, or is not a layer "
+                "(--init-eps-zero-centered-normal-std / --init-eps-from-file may each name an "
+                "eps index at most once, and not both)"
+            )
+        chosen[eps_index] = True
+    per_param = all(chosen) if chosen else False
+    if any(chosen) and not per_param:
+        missing = [i for i, c in enumerate(chosen) if not c]
+        raise click.BadParameter(
+            f"per-tensor EPS inits must cover EVERY eps or none — missing inits for eps indices {missing}"
+        )
+    w_uni = kw["init_linear_weight_zero_centered_uniform"] is not None
+    w_std = kw["init_linear_weight_zero_centered_normal_std"] is not None
+    b_uni = kw["init_linear_bias_zero_centered_uniform"] is not None
+    if not (per_param == xor(w_uni, w_std) == b_uni):
+        raise click.BadParameter(
+            "the manual (per-tensor) init family needs the full set together: per-eps inits for "
+            "every eps, exactly one of --init-linear-weight-zero-centered-uniform / "
+            "--init-linear-weight-zero-centered-normal-std, and "
+            "--init-linear-bias-zero-centered-uniform — and none of them with the composition "
+            "init families"
+        )
+    if not exactly_one_true(
+        kw["init_epses_composition_unit_theoretical_output_std"],
+        kw["init_epses_composition_unit_empirical_output_std"],
+        per_param,
+    ):
+        raise click.BadParameter(
+            "choose exactly one initialization family: "
+            "--init-epses-composition-unit-theoretical-output-std, "
+            "--init-epses-composition-unit-empirical-output-std, or a full per-tensor manual init"
+        )
+    colored = kw["ds_type"] in ("cifar10_rgb", "cifar10_YCbCr")
+    for given, name, want_colored in (
+        (kw["center_and_normalize_each_channel"], "--center-and-normalize-each-channel", True),
+        (bool(kw["nu_per_channel"]), "--nu-per-channel", True),
+        (kw["add_constant_channel"] is not None, "--add-constant-channel", True),
+        (kw["phi_multiplier"] is not None, "--phi-multiplier", False),
+    ):
+        if not implies(given, colored == want_colored):
+            raise click.BadParameter(
+                f"{name} applies to "
+                + ("colored CIFAR datasets only (--ds-type cifar10_rgb / cifar10_YCbCr)"
+                   if want_colored
+                   else "grayscale datasets only (colored datasets scale per channel via "
+                        "--nu-per-channel)")
+            )
+    if not 0.0 < kw["dropout_p"] <= 1.0:
+        raise click.BadParameter(f"--dropout-p {kw['dropout_p']}: a keep probability in (0, 1]")
+    if any(not 0 <= i < len(specs) for i in kw["freeze_eps"]):
+        raise click.BadParameter(f"--freeze-eps {list(kw['freeze_eps'])}: not all are layers")
+    ga = kw["grad_accum_steps"]
+    if isinstance(ga, str) and ga.strip().lower() != "auto":
+        try:
+            ga = kw["grad_accum_steps"] = int(ga)
+        except ValueError:
+            raise click.BadParameter(f"--grad-accum-steps {ga!r}: a count or 'auto'") from None
+    if isinstance(ga, str):
+        kw["grad_accum_steps"] = "auto"
+    elif ga < 1 or kw["batch_size"] % ga:
+        raise click.BadParameter(
+            "--grad-accum-steps must be >= 1 or 'auto', and divide --batch-size (the batch is "
+            "microbatched into equal accumulation slices)"
+        )
+
+
+def _load_model_state(path: str, params, device):
+    """Params from ``--load-model-state`` (an npz of either package, or a
+    reference torch ``state_dict``; runner.py:617-632), shapes checked
+    against ``params``."""
+    if is_torch_checkpoint(path):
+        loaded = eps_plus_linear_params_from_state_dict(load_torch_state_dict(path))
+        what = "reference torch state_dict"
+    else:
+        loaded = load_params_npz(path)
+        what = "model state"
+    got = [tuple(c.shape) for c in loaded["epses"]] + [tuple(loaded["linear"][k].shape) for k in "wb"]
+    want = [tuple(c.shape) for c in params["epses"]] + [tuple(params["linear"][k].shape) for k in "wb"]
+    if got != want:
+        raise click.BadParameter(
+            f"--load-model-state {path} does not match this model: leaves {got} vs {want}"
+        )
+    logger.info("loaded %s from %s", what, path)
+    return params_from_numpy(loaded, device, params["linear"]["w"].dtype)
+
+
+def _device_batches(index_stream, chunk: int, device):
+    """The index batches on the device, moved ``chunk`` at a time (an epoch)
+    from pinned memory without waiting, so that no iteration waits on a copy
+    from the host and the card's queue never drains for one."""
+    while True:
+        rows = torch.from_numpy(np.stack([next(index_stream) for _ in range(chunk)]))
+        if device.type == "cuda":
+            rows = rows.pin_memory().to(device, non_blocking=True)
+        yield from rows.to(device).unbind(0)
+
+
+def run(**kwargs) -> TrainLoopState:
+    """Programmatic entry: the flags as keyword arguments by their Python
+    names; unspecified ones take the CLI defaults. Returns the final
+    ``TrainLoopState``; its ``extras`` hold the run's ``output_dir``,
+    ``model``, ``step``, ``gather`` and ``timing``."""
+    kw = fill_defaults(main, dict(kwargs))
+    _validate(kw)
+    device = torch.device(kw["device"])
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise click.BadParameter(
+            f"--device {device}: no CUDA device is available (--device cpu runs the plain versions)"
+        )
+    output_dir = os.path.join(kw["experiments_dir"], time.strftime("%Y-%m-%d-%H-%M-%S"))
+    if os.path.exists(output_dir):
+        raise click.ClickException(f"{output_dir} exists: one run per experiments dir and second")
+    os.makedirs(output_dir)
+    kw["output_dir"] = output_dir
+    specs = kw["epses_specs"]
+
+    setup_run_provenance(output_dir, kw, kw["verbosity"])
+    logger.info("output_dir=%r", output_dir)
+
+    # --- data (new_runner.py:345-376) ---
+    autoscale = specs[0][0] if kw["phi_multiplier"] is None and not kw["nu_per_channel"] else None
+    splits = load_dataset(
+        kw["ds_type"], kw["ds_path"],
+        phi_multiplier=kw["phi_multiplier"],
+        autoscale_kernel_size=autoscale,
+        center_and_normalize_each_channel=kw["center_and_normalize_each_channel"],
+        add_constant_channel=kw["add_constant_channel"],
+        nu_per_channel=kw["nu_per_channel"] or None,
+        synthetic_sizes=tuple(kw["synthetic_sizes"]),
+    )
+    image_size, q0 = splits.train.x.shape[2], splits.train.x.shape[-1]
+    cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=image_size, q0=q0,
+                                dropout_p=kw["dropout_p"])
+    qat = None if kw["qat"] in (None, "none") else kw["qat"]
+
+    # --- model init (new_runner.py:378-431); the init and the dropout masks
+    # draw from generators of their own, both from --seed ---
+    init_seed, train_seed = (int(s) for s in np.random.SeedSequence(kw["seed"]).generate_state(2))
+    init_gen = torch.Generator().manual_seed(init_seed)
+    subset = kw["init_epses_composition_unit_empirical_output_std_subset_size"]
+    x_init = torch.as_tensor(splits.train.x[:, :subset], device=device)
+    if kw["init_epses_composition_unit_empirical_output_std"]:
+        params = init_eps_plus_linear(init_gen, cfg, "unit_empirical_output_std", device,
+                                      init_input=x_init, init_batch_size=kw["batch_size"])
+    elif kw["init_epses_composition_unit_theoretical_output_std"]:
+        params = init_eps_plus_linear(init_gen, cfg, "unit_theoretical_output_std", device)
+    else:
+        eps_inits = [None] * len(specs)
+        for i, std in kw["init_eps_zero_centered_normal_std"]:
+            eps_inits[i] = ZeroCenteredNormalInit(std)
+        for i, path in kw["init_eps_from_file"]:
+            eps_inits[i] = FromFileInit(path)
+        w_init = (
+            ZeroCenteredUniformInit(kw["init_linear_weight_zero_centered_uniform"])
+            if kw["init_linear_weight_zero_centered_uniform"] is not None
+            else ZeroCenteredNormalInit(kw["init_linear_weight_zero_centered_normal_std"])
+        )
+        b_init = ZeroCenteredUniformInit(kw["init_linear_bias_zero_centered_uniform"])
+        params = init_eps_plus_linear(init_gen, cfg, "manual", device, eps_inits=tuple(eps_inits),
+                                      linear_weight_init=w_init, linear_bias_init=b_init)
+    if kw["load_model_state"]:
+        params = _load_model_state(kw["load_model_state"], params, device)
+    with torch.no_grad():
+        logger.info("inner_product(epses, epses)=%.4e",
+                    float(composition.inner_product(params["epses"], params["epses"])))
+        stats_bs = kw["log_intermediate_reps_stats_batch_size"] or kw["batch_size"] // 2
+        intermediate_reps_stats(params, x_init, cfg, stats_bs)
+    del x_init
+
+    # --- training assembly (new_runner.py:443-546): the fast (cmt) layout ---
+    model = EPSesPlusLinear.from_reference(params, cfg, device=device)
+    plans = model.plans
+    del params
+    optimizer = make_optimizer(kw["optimizer_name"], model.parameters(), kw["lr"], kw["wd"])
+    if kw["grad_accum_steps"] == "auto":
+        kw["grad_accum_steps"] = resolve_auto_grad_accum(cfg, plans, kw["batch_size"])
+        logger.info("grad-accum-steps auto -> %d", kw["grad_accum_steps"])
+        if kw["grad_accum_steps"] > 1:
+            fallbacks.record(
+                f"grad-accum-steps auto took the saved-t cap's pick {kw['grad_accum_steps']} "
+                "without timing the candidates (the autotuner, ROADMAP item 20)"
+            )
+    step = make_fast_train_step(
+        model, optimizer, kw["reg_type"], kw["reg_coeff"],
+        frozen_eps_indices=kw["freeze_eps"], grad_accum_steps=kw["grad_accum_steps"], qat=qat,
+    )
+    _hint_saved_t_recipe(cfg, plans, kw["batch_size"], kw["grad_accum_steps"])
+    eval_kernels = KERNELS if qat is None else QAT_KERNELS
+    if qat is not None:
+        logger.info("QAT int8 active: W8A8 forward with straight-through gradients; evals "
+                    "score the quantized forward")
+
+    def forward(fast, xb):
+        return eps_plus_linear_forward_fast(fast, xb, cfg, plans, kernels=eval_kernels)
+
+    def params_view(fast):
+        return reference_params_from_fast(fast, cfg, plans)
+
+    score = make_score_fn(cfg, plans, kw["batch_size"], forward_fn=forward)
+    logger.info("fast (cmt) parameter layout on %s: EPS layers through %s", device,
+                "the CUDA kernels" if device.type == "cuda" else "the kernels' plain versions")
+
+    x_tr = torch.as_tensor(splits.train.x, device=device)
+    y_tr = torch.as_tensor(splits.train.y.astype(np.int64), device=device)
+    x_val = torch.as_tensor(splits.val.x, device=device)
+    y_val = torch.as_tensor(splits.val.y.astype(np.int64), device=device)
+    gather = make_gather_batch(x_tr, y_tr)
+    n_eval_train = kw["eval_train_subset"] or y_tr.shape[0]
+    x_tr_eval, y_tr_eval = x_tr[:, :n_eval_train], y_tr[:n_eval_train]
+    batcher = Batcher(splits.train, kw["batch_size"], shuffle=True, drop_last=True, seed=kw["seed"])
+    if len(batcher) == 0:
+        raise click.BadParameter(
+            f"--batch-size {kw['batch_size']} is over the {len(splits.train)} training images"
+        )
+    index_stream = batcher.indices_forever()
+    generator = torch.Generator(device=device).manual_seed(train_seed)
+
+    resume_step = 0
+    if kw["resume_from"]:
+        try:
+            resume_step = load_train_state(kw["resume_from"], model, optimizer, cfg, plans, generator)
+        except (KeyError, ValueError) as e:
+            raise click.ClickException(f"--resume-from {kw['resume_from']}: {e}") from None
+        logger.info("resumed train state from %s at step %d", kw["resume_from"], resume_step)
+        # the shuffled batch stream restarts at epoch 0: fast-forward it, so
+        # the resumed run takes the batches the unbroken run would have
+        for _ in range(resume_step):
+            next(index_stream)
+
+    schedule = every_n_iters_intervals(*kw["eval_schedule"])
+    timing = {"hooks_s": 0.0, "eval_s": 0.0, "evals": 0}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def timed(hook):
+        """``hook`` with its host time counted apart from the steps': the
+        card is synchronised before the clock starts and again before it
+        stops."""
+
+        def wrapped(state):
+            sync()
+            t0 = time.perf_counter()
+            hook(state)
+            sync()
+            timing["hooks_s"] += time.perf_counter() - t0
+
+        return wrapped
+
+    def evaluate_and_log(state: TrainLoopState) -> None:
+        t0 = time.perf_counter()
+        trm, tra = score(state.params, x_tr_eval, y_tr_eval)
+        vm, va = score(state.params, x_val, y_val)
+        state.iter_metrics.update(train_mean_ce=float(trm), train_acc=float(tra),
+                                  val_mean_ce=float(vm), val_acc=float(va))
+        if state.device_metrics is not None:
+            reg_term = float(state.device_metrics["reg_term"])
+        else:
+            with torch.no_grad():
+                reg_term = float(REGULARIZERS[kw["reg_type"]](params_view(state.params)))
+        # the reference's eval line (new_runner.py:468-473), parsed by viz.log_parsing
+        logger.info(
+            "After %07d iters: train/val mean_ce=%.5f/%.5f acc=%.2f%%/%.2f%% reg_term=%.2e",
+            state.num_iters_done,
+            state.iter_metrics["train_mean_ce"], state.iter_metrics["val_mean_ce"],
+            state.iter_metrics["train_acc"] * 100, state.iter_metrics["val_acc"] * 100,
+            reg_term,
+        )
+        timing["eval_s"] += time.perf_counter() - t0
+        timing["evals"] += 1
+
+    writer = AsyncWriter()
+
+    def save_train_state(state: TrainLoopState, completed_offset: int = 0) -> None:
+        """The full train state. ``completed_offset`` is 1 after a step (the
+        preemption hook after the step): ``num_iters_done`` then names the
+        iteration just done and the generator already stands at the next."""
+        writer.submit(
+            train_state_arrays(model, optimizer, state.num_iters_done + completed_offset, plans,
+                               generator),
+            os.path.join(output_dir, "train_state_latest.npz"),
+        )
+
+    metrics = (("train_acc", False), ("val_acc", False), ("train_mean_ce", True), ("val_mean_ce", True))
+    best_ckpts = [BestModelCheckpointer(output_dir, k, low, writer, params_view=params_view)
+                  for k, low in metrics]
+    es_metrics = tuple((name, low) for name, low in metrics if kw[f"es_{name}"])
+    at_iter_start = [
+        schedule(timed(evaluate_and_log)), schedule(timed(log_parameters_stats)),
+        schedule(timed(LastModelsCheckpointer(output_dir, kw["keep_last_models"], writer,
+                                              params_view=params_view))),
+        schedule(timed(save_train_state)),
+    ] + [schedule(timed(c)) for c in best_ckpts]
+    if es_metrics:
+        at_iter_start.append(schedule(ValuesNotImprovingEarlyStopper(kw["patience"], es_metrics)))
+    if kw["max_num_iters"] is not None:
+        at_iter_start.append(schedule(make_stopper_after_n_iters(kw["max_num_iters"])))
+    nan_stopper = make_stopper_on_nan_loss(
+        output_dir, forward, params_view=params_view, replay_step=step, replay_gather=gather,
+        interactive=kw["breakpoint_on_nan_loss"],
+    )
+    after_step = [schedule(timed(nan_stopper))]
+
+    state = TrainLoopState(params=model.fast_params(), opt_state=optimizer, rng=generator,
+                           num_iters_done=resume_step)
+    state.extras.update(output_dir=output_dir, cfg=cfg, model=model, step=step, gather=gather,
+                        timing=timing)
+    nan_stopper.enable_replay(state)
+    batches = _device_batches(index_stream, len(batcher), device)
+    with contextlib.ExitStack() as stack:
+        if kw["debug_nans"]:
+            stack.enter_context(torch.autograd.detect_anomaly(check_nan=True))
+            logger.info("torch.autograd anomaly detection (check_nan) enabled")
+        if kw["preempt_save"]:
+            preempt = stack.enter_context(PreemptionHandler())
+            # checked every iteration (a flag read): before the step, and
+            # after it with the step counted as done
+            at_iter_start = [preempt.make_hook(save_train_state)] + at_iter_start
+            after_step = after_step + [preempt.make_hook(lambda st: save_train_state(st, 1))]
+        sync()
+        t0 = time.perf_counter()
+        train(state, step, gather, batches, at_iter_start=at_iter_start, after_step=after_step)
+        sync()
+        loop_s = time.perf_counter() - t0
+    writer.wait()
+    iters = state.num_iters_done - resume_step
+    timing.update(loop_s=loop_s, iters=iters)
+    logger.info(
+        "timing: %d iterations at %.3f ms each (the steps, with the host's launches; %.3f s "
+        "more in the scheduled hooks), %d evals at %.3f ms each",
+        iters, 1e3 * (loop_s - timing["hooks_s"]) / max(iters, 1), timing["hooks_s"],
+        timing["evals"], 1e3 * timing["eval_s"] / max(timing["evals"], 1),
+    )
+    logger.info("training stopped: %s at %d iters", state.stop_reason, state.num_iters_done)
+    return state
+
+
+if __name__ == "__main__":
+    main()

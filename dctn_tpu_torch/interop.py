@@ -1,7 +1,7 @@
 """Parameters across the two packages: the JAX package's reference-layout
 parameter pytrees (the EPS model's and the legacy ConvSBS model's), given as
-numpy arrays, to the port's tensors and back; and the ConvSBS params to and
-from the reference torch ``state_dict``."""
+numpy arrays, to the port's tensors and back; and both models' params to
+and from the reference torch ``state_dict``."""
 
 from __future__ import annotations
 
@@ -57,6 +57,48 @@ def conv_sbs_params_to_numpy(params):
         tuple(tuple(c.detach().cpu().numpy() for c in string) for string in layer)
         for layer in params
     )
+
+
+_EPS_KEY = re.compile(r"^epses\.(\d+)$")
+
+
+def eps_plus_linear_params_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """A reference ``EPSesPlusLinear.state_dict()`` → reference-layout
+    params as numpy (``interop/torch_checkpoint.py:115-142``): the cores
+    ``epses.{i}`` as they are, ``linear.weight`` transposed from torch's
+    (out, in) to (in, out). Raises for another model's keys."""
+    cores = {int(m.group(1)): torch.as_tensor(v).detach().cpu().numpy()
+             for k, v in sd.items() if (m := _EPS_KEY.match(k))}
+    if not cores or "linear.weight" not in sd or "linear.bias" not in sd:
+        raise ValueError(
+            "state_dict is not an EPSesPlusLinear checkpoint (expected 'epses.{i}' + "
+            f"'linear.weight'/'linear.bias' keys; got {sorted(sd)[:6]}...)"
+        )
+    n = max(cores) + 1
+    missing = [i for i in range(n) if i not in cores]
+    if missing:
+        raise ValueError(f"state_dict missing epses indices {missing}")
+    weight = torch.as_tensor(sd["linear.weight"]).detach().cpu().numpy()
+    return {
+        "epses": tuple(cores[i] for i in range(n)),
+        "linear": {"w": np.ascontiguousarray(weight.T),
+                   "b": torch.as_tensor(sd["linear.bias"]).detach().cpu().numpy()},
+    }
+
+
+def state_dict_from_eps_plus_linear_params(params, dropout_p: float = 1.0) -> Dict[str, torch.Tensor]:
+    """Reference-layout params (tensors or numpy) → a ``state_dict`` the
+    reference ``EPSesPlusLinear`` loads (torch_checkpoint.py:145-165), with
+    its keep-probability buffer ``p``."""
+
+    def cpu(a):
+        return a.detach().cpu().clone() if isinstance(a, torch.Tensor) else torch.tensor(np.asarray(a))
+
+    sd = {f"epses.{i}": cpu(c) for i, c in enumerate(params["epses"])}
+    sd["linear.weight"] = cpu(params["linear"]["w"]).T.contiguous()
+    sd["linear.bias"] = cpu(params["linear"]["b"])
+    sd["p"] = torch.tensor(dropout_p, dtype=sd["linear.bias"].dtype)
+    return sd
 
 
 _CONV_SBS_KEY = re.compile(r"^conv_sbses\.(\d+)\.strings\.(\d+)\.cores\.(\d+)$")

@@ -1,29 +1,36 @@
 """EPSesPlusLinear — N EPS layers followed by a linear classifier (port of
-``dctn_tpu/models/eps_plus_linear.py``: the forward for serving and
-training, the epswise and composition regularizers, and which layers the
-saved-t cap holds back at a batch size).
+``dctn_tpu/models/eps_plus_linear.py``: the three init families, the
+forward for serving and training with parameter dropout, the epswise and
+composition regularizers, the intermediate-representation statistics, and
+which layers the saved-t cap holds back at a batch size).
 
 Parameters come in two layouts, as in the JAX package:
 
 - the reference layout, ``{"epses": (core_0, …), "linear": {"w": (in, 10),
   "b": (10,)}}``, which checkpoints use;
 - the fast layout, each core matricized to the kernel's (Z, A) "cmt" matrix
-  (``fast_params_from_reference``), which the serving forward runs on.
+  (``fast_params_from_reference``), which the forward runs on.
 
 ``EPSesPlusLinear`` is the ``nn.Module`` that holds the fast layout on one
 device; its parameters require gradients, and serving runs it under
 ``torch.inference_mode``; with ``eps_q8_kernels.QAT_KERNELS`` it is the
 quantization-aware training forward. ``EPSesPlusLinearQ8`` holds the int8
-serving parameters (``forward_fast_q8``). Only the
-"unit_theoretical_output_std" init is ported; the other two inits and
-parameter dropout come with a later slice.
+serving parameters (``forward_fast_q8``).
+
+Parameter dropout keeps each component of a core with probability p and
+scales the kept ones by 1/p. Its masks are drawn over the reference core
+shape and permuted to cmt (``dropout_cmts``, eps_plus_linear.py:431), so a
+mask bit lands on the same core component in either layout; the draw comes
+from a ``torch.Generator`` (``draw_dropout_masks``) or, to hold the port
+against the JAX package, the masks are passed in.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -40,6 +47,10 @@ from ..kernels.eps_kernels import (
 from ..kernels.eps_q8_kernels import eps_apply_t_q8, eps_fwd_q8, quantize_reference_params
 from ..ops import composition
 from ..ops import eps as eps_mod
+from ..ops.windows import make_windows
+from ..utils.misc import OneTensorInit, ZeroCenteredNormalInit, ZeroCenteredUniformInit
+
+logger = logging.getLogger(__name__)
 
 Params = Dict[str, Any]
 
@@ -51,9 +62,11 @@ class EPSesPlusLinearConfig:
     q0: int = 2
     num_classes: int = 10
     dtype: torch.dtype = torch.float32
-    # parameter dropout's keep probability (eps_plus_linear.py's dropout_p);
-    # make_fast_train_step refuses p < 1 until _dropout_cmts is ported
-    dropout_p: float = 1.0
+    dropout_p: float = 1.0  # the probability of KEEPING a core component
+
+    def __post_init__(self):
+        if not 0.0 < self.dropout_p <= 1.0:
+            raise ValueError(f"dropout_p must be in (0, 1], got {self.dropout_p}")
 
     @property
     def pre_linear_image_size(self) -> int:
@@ -70,15 +83,26 @@ class EPSesPlusLinearConfig:
 
 
 def _init_linear(
-    generator: torch.Generator, cfg: EPSesPlusLinearConfig, device="cpu"
+    generator: torch.Generator,
+    cfg: EPSesPlusLinearConfig,
+    device="cpu",
+    weight_init: Optional[OneTensorInit] = None,
+    bias_init: Optional[OneTensorInit] = None,
 ) -> Dict[str, torch.Tensor]:
-    """w = randn·in^(-1/2)/4, b ~ U(-in^(-1/2), in^(-1/2))
-    (eps_plus_linear.py:73-107, default branch)."""
+    """By default w = randn·in^(-1/2)/4, b ~ U(-in^(-1/2), in^(-1/2))
+    (eps_plus_linear.py:73-107), or the manually chosen distributions."""
     n_in, n_out = cfg.linear_in_features, cfg.num_classes
     kw = {"generator": generator, "dtype": cfg.dtype, "device": generator.device}
-    w = torch.randn((n_in, n_out), **kw) * (n_in**-0.5 / 4.0)
-    b_max = n_in**-0.5
-    b = (torch.rand((n_out,), **kw) * 2.0 - 1.0) * b_max
+
+    def draw(shape, init):
+        if isinstance(init, ZeroCenteredNormalInit):
+            return torch.randn(shape, **kw) * init.std
+        if isinstance(init, ZeroCenteredUniformInit):
+            return (torch.rand(shape, **kw) * 2.0 - 1.0) * init.maximum
+        raise ValueError(f"unsupported linear init {init!r}")
+
+    w = draw((n_in, n_out), weight_init or ZeroCenteredNormalInit(n_in**-0.5 / 4.0))
+    b = draw((n_out,), bias_init or ZeroCenteredUniformInit(n_in**-0.5))
     return {"w": w.to(device), "b": b.to(device)}
 
 
@@ -87,18 +111,46 @@ def init_eps_plus_linear(
     cfg: EPSesPlusLinearConfig,
     initialization: str = "unit_theoretical_output_std",
     device="cpu",
+    *,
+    init_input: Optional[torch.Tensor] = None,
+    init_batch_size: int = 128,
+    eps_inits: Optional[Sequence[OneTensorInit]] = None,
+    linear_weight_init: Optional[OneTensorInit] = None,
+    linear_bias_init: Optional[OneTensorInit] = None,
 ) -> Params:
-    """The reference-layout parameters, drawn from ``generator`` (cores in
-    layer order, then the linear layer)."""
-    if initialization != "unit_theoretical_output_std":
-        raise ValueError(
-            f"initialization {initialization!r} is not ported yet; only "
-            "'unit_theoretical_output_std' is"
+    """The reference-layout parameters on ``device``, the cores and then the
+    linear layer drawn from ``generator`` (eps_plus_linear.py:110-150).
+    ``initialization``:
+
+    - ``"unit_theoretical_output_std"``: randn·(Q^(C·K²))^(-1/2) per core;
+    - ``"unit_empirical_output_std"``: per layer, a unit-normal core rescaled
+      to output std 1 on ``init_input`` (C, N, H, W, Q), pushed through the
+      layers in slices of ``init_batch_size`` on its device (through the
+      forward kernel on a card);
+    - ``"manual"``: ``eps_inits`` per core, and ``linear_weight_init`` /
+      ``linear_bias_init`` for the classifier.
+    """
+    if initialization == "unit_empirical_output_std":
+        if init_input is None or init_input.shape[2] != cfg.image_size:
+            raise ValueError("the empirical init needs init_input of the model's image size")
+        epses = composition.make_unit_empirical_output_std(
+            generator, cfg.epses_specs, init_input, cfg.dtype, init_batch_size
         )
-    epses = composition.make_unit_theoretical_output_std(
-        generator, cfg.epses_specs, cfg.q0, cfg.dtype, device
-    )
-    return {"epses": epses, "linear": _init_linear(generator, cfg, device)}
+        epses = tuple(c.to(device) for c in epses)
+    elif initialization == "unit_theoretical_output_std":
+        epses = composition.make_unit_theoretical_output_std(
+            generator, cfg.epses_specs, cfg.q0, cfg.dtype, device
+        )
+    elif initialization == "manual":
+        if eps_inits is None:
+            raise ValueError("the manual init needs eps_inits")
+        epses = composition.make_manually_chosen(
+            generator, cfg.epses_specs, eps_inits, cfg.q0, cfg.dtype, device
+        )
+    else:
+        raise ValueError(f"unknown initialization {initialization!r}")
+    linear = _init_linear(generator, cfg, device, linear_weight_init, linear_bias_init)
+    return {"epses": tuple(epses), "linear": linear}
 
 
 # ---------------------------------------------------------------------------
@@ -177,11 +229,31 @@ def saved_t_capped_layers(cfg: EPSesPlusLinearConfig, plans, microbatch: int):
     return capped
 
 
-def fast_params_from_reference(params: Params, cfg: EPSesPlusLinearConfig):
+def legacy_split_plans(plans):
+    """``plans`` with each layer's n1 that of the split rule before the
+    JAX package's third round (the smallest n1 ≥ ⌈n/2⌉ with q^n1 ≥ 128,
+    nudged even where factor pairs merge; eps_plus_linear.py:297-316): the
+    cmt layout of fast train states saved with no ``eps_splits`` tag."""
+    out = []
+    for p in plans:
+        n = p["kernel_size"] ** 2 * p["c"]
+        q = p["q"]
+        n1 = math.ceil(n / 2)
+        while q**n1 < 128 and n1 < n:
+            n1 += 1
+        if p["merge_pairs"] and n1 % 2 == 1:
+            n1 += 1 if n1 + 1 <= n else -1
+        out.append({**p, "n1": n1})
+    return tuple(out)
+
+
+def fast_params_from_reference(params: Params, cfg: EPSesPlusLinearConfig, plans=None):
     """Reference parameters → (fast parameters, plans): each core matricized
-    to the kernel's (Z, A) layout."""
-    k0 = cfg.epses_specs[0][0]
-    plans = fast_layer_plans(cfg, (params["epses"][0].ndim - 1) // (k0 * k0))
+    to the kernel's (Z, A) layout. Explicit ``plans`` matricize under other
+    splits (a train state saved under another split rule)."""
+    if plans is None:
+        k0 = cfg.epses_specs[0][0]
+        plans = fast_layer_plans(cfg, (params["epses"][0].ndim - 1) // (k0 * k0))
     cmts = []
     for core, p in zip(params["epses"], plans):
         _, q_k, n1_k = _plan_dims(p)
@@ -202,19 +274,44 @@ def reference_params_from_fast(fast, cfg: EPSesPlusLinearConfig, plans) -> Param
     return {"epses": tuple(cores), "linear": dict(fast["linear"])}
 
 
+def draw_dropout_masks(plans, p: float, generator: torch.Generator) -> Tuple[torch.Tensor, ...]:
+    """One keep-mask per core, Bernoulli(p) over its reference shape, drawn
+    in layer order on the generator's device."""
+    return tuple(
+        torch.rand(plan["core_shape"], generator=generator, device=generator.device) < p
+        for plan in plans
+    )
+
+
+def dropout_cmts(cmts, plans, p: float, masks) -> Tuple[torch.Tensor, ...]:
+    """Parameter dropout on the fast layout (``_dropout_cmts``,
+    eps_plus_linear.py:431-452): each reference-shape mask permuted to cmt,
+    then cmt·mask/p. Differentiable in the undropped cmt."""
+    out = []
+    for cmt, plan, mask in zip(cmts, plans, masks):
+        _, q_k, n1_k = _plan_dims(plan)
+        mask_cmt = _core_to_cmt_k(mask.to(cmt.device), n1_k, q_k).to(cmt.dtype)
+        out.append(cmt * mask_cmt / p)
+    return tuple(out)
+
+
 def eps_plus_linear_forward_fast(
     fast, x: torch.Tensor, cfg: EPSesPlusLinearConfig, plans,
-    kernels: EPSKernels = KERNELS,
+    kernels: EPSKernels = KERNELS, masks=None,
 ) -> torch.Tensor:
-    """The forward over fast parameters (eps_plus_linear.py:455-503, without
-    dropout), all in the transposed batch-minor layout: one input relayout,
-    then each layer's ``outT[None]`` is the next layer's ``xT``. ``x``
-    (C, B, H, W, Q₀) → (B, num_classes); differentiable in the parameters.
-    ``kernels`` runs each layer's contractions (see ``eps_apply_t_cmt``)."""
-    del cfg
+    """The forward over fast parameters (eps_plus_linear.py:455-503), all in
+    the transposed batch-minor layout: one input relayout, then each
+    layer's ``outT[None]`` is the next layer's ``xT``. ``x`` (C, B, H, W,
+    Q₀) → (B, num_classes); differentiable in the parameters. ``kernels``
+    runs each layer's contractions (see ``eps_apply_t_cmt``). ``masks``
+    (one per core, reference shape) applies parameter dropout with
+    ``cfg.dropout_p``: a training forward passes them, an eval none."""
+    cmts = fast["epses_cmt"]
+    if masks is not None:
+        cmts = dropout_cmts(cmts, plans, cfg.dropout_p, masks)
     xT = x.permute(0, 4, 2, 3, 1)  # the only input relayout
     outT = None
-    for i, (cmt, p) in enumerate(zip(fast["epses_cmt"], plans)):
+    for i, (cmt, p) in enumerate(zip(cmts, plans)):
         outT = eps_apply_t_cmt(
             cmt, xT, p["out_size"], p["kernel_size"], p["n1"], p["merge_pairs"],
             layer_index=i, kernels=kernels,
@@ -242,6 +339,14 @@ def forward_fast_q8(
     return _transposed_classifier(outT, qparams["linear"])
 
 
+def epswise_l2_regularizer(params: Params) -> torch.Tensor:
+    """Σ w² + Σ‖core‖², the epswise L2 on the reference layout
+    (eps_plus_linear.py:510-513)."""
+    return torch.sum(params["linear"]["w"] ** 2) + composition.epswise_squared_fro_norm(
+        params["epses"]
+    )
+
+
 def epses_composition_l2_regularizer(params: Params) -> torch.Tensor:
     """Σ w² + ‖e_1 ∘ … ∘ e_L‖², the composition L2 on the reference layout
     (eps_plus_linear.py:516-519)."""
@@ -266,6 +371,37 @@ def epswise_l2_regularizer_fast(fast) -> torch.Tensor:
     return torch.sum(fast["linear"]["w"] ** 2) + sum(
         torch.sum(c**2) for c in fast["epses_cmt"]
     )
+
+
+def intermediate_reps_stats(
+    params: Params, x: torch.Tensor, cfg: EPSesPlusLinearConfig, batch_size: int = 128
+) -> Dict[str, Dict[str, float]]:
+    """μ, σ and μ²+σ² of every intermediate representation x_n, of the
+    window batches w_n (as rank-one tensors, never densified) and of the
+    classifier's output with and without bias, on ``x`` (C, N, H, W, Q)
+    without dropout (eps_plus_linear.py:526-569). Each layer runs over
+    ``x`` in slices of ``batch_size`` (``transform_in_slices``: the forward
+    kernel on a card). Logs a line per statistic and returns them."""
+    del cfg
+    stats: Dict[str, Dict[str, float]] = {}
+
+    def one(name: str, mu: float, sigma: float, extra: str = "") -> None:
+        stats[name] = {"mean": mu, "std": sigma, "second_moment": mu**2 + sigma**2}
+        logger.info("%s: μ=%.7e, σ=%.7e, μ²+σ²=%.7e%s", name, mu, sigma, mu**2 + sigma**2, extra)
+
+    for n, core in enumerate(params["epses"]):
+        one(f"x_{n}", float(x.mean()), float(x.std(correction=0)), f", shape={tuple(x.shape)}")
+        w = make_windows(x, eps_mod._infer_kernel_size(core, x.shape[0]))
+        one(f"w_{n}", float(w.mean_over_batch()), float(w.std_over_batch(unbiased=False)))
+        del w
+        x = eps_mod.transform_in_slices(core, x, batch_size)
+    flat = x[0].reshape(x.shape[1], -1)
+    one(f"x_{len(params['epses'])}", float(flat.mean()), float(flat.std(correction=0)))
+    no_bias = flat @ params["linear"]["w"]
+    one("output_of_linear_without_bias", float(no_bias.mean()), float(no_bias.std(correction=0)))
+    with_bias = no_bias + params["linear"]["b"]
+    one("output_of_linear_with_bias", float(with_bias.mean()), float(with_bias.std(correction=0)))
+    return stats
 
 
 class EPSesPlusLinear(nn.Module):

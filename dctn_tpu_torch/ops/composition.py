@@ -1,15 +1,23 @@
-"""Algebra on a composition of EPS cores (port of the part of
-``dctn_tpu/ops/composition.py`` that serving and training need): the
-composition's inner product, in the reference layout and on the fast (cmt)
-layout, and the unit-theoretical-output-std initializer."""
+"""Algebra on a composition of EPS cores (port of
+``dctn_tpu/ops/composition.py``): the composition's inner product, in the
+reference layout and on the fast (cmt) layout, its sequential application
+to an input, the per-core Frobenius norms, and the three initialization
+families (theoretical and empirical unit output std, manually chosen)."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels.eps_kernels import _kernel_dims
+from ..utils.misc import (
+    FromFileInit,
+    OneTensorInit,
+    ZeroCenteredNormalInit,
+    ZeroCenteredUniformInit,
+)
 from . import eps as eps_mod
 
 
@@ -76,6 +84,21 @@ def specs_to_full_specs(
     )
 
 
+def contract_with_input(epses: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Apply each core in turn, the singleton channel dim put back between
+    layers (composition.py:131-140): ``x`` (C, B, H, W, Q) → (B, H', W',
+    Q_out). The plain reference-layout ``eps``."""
+    intermediate = x
+    for core in epses[:-1]:
+        intermediate = eps_mod.eps(core, intermediate)[None]
+    return eps_mod.eps(epses[-1], intermediate)
+
+
+def epswise_squared_fro_norm(epses: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Σ‖core‖²_F over the composition (composition.py:143-146)."""
+    return sum(torch.sum(core**2) for core in epses)
+
+
 def make_unit_theoretical_output_std(
     generator: torch.Generator,
     epses_specs: Sequence[Tuple[int, int]],
@@ -91,3 +114,65 @@ def make_unit_theoretical_output_std(
         )
         for spec in specs_to_full_specs(epses_specs, initial_in_size)
     )
+
+
+def make_unit_empirical_output_std(
+    generator: Optional[torch.Generator],
+    epses_specs: Sequence[Tuple[int, int]],
+    x: torch.Tensor,
+    dtype: torch.dtype = torch.float32,
+    batch_size: int = 128,
+    unit_cores: Optional[Sequence[torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The data-dependent init (composition.py:167-186): per layer, a
+    unit-normal core rescaled so that its output on the init subset has std
+    1, then the subset transformed by the scaled core into the next layer's
+    input. ``x`` (C, N, H, W, Q) on the device the cores are made on. The
+    unit-normal cores are drawn from ``generator`` in layer order, unless
+    ``unit_cores`` gives them (the JAX package's draws, in the tests)."""
+    epses = []
+    x = x.to(dtype)
+    for i, (kernel_size, out_size) in enumerate(epses_specs):
+        num_channels, _, _, _, in_size = x.shape
+        if unit_cores is None:
+            core = eps_mod.draw_unit_normal_core(
+                generator, kernel_size, num_channels, in_size, out_size, dtype, x.device
+            )
+        else:
+            core = unit_cores[i].to(x.device, dtype)
+        core = eps_mod.scale_to_unit_empirical_output_std(core, x, batch_size)
+        x = eps_mod.transform_in_slices(core, x, batch_size)
+        epses.append(core)
+    return tuple(epses)
+
+
+def make_manually_chosen(
+    generator: torch.Generator,
+    epses_specs: Sequence[Tuple[int, int]],
+    initializations: Sequence[OneTensorInit],
+    initial_in_size: int,
+    dtype: torch.dtype = torch.float32,
+    device="cpu",
+) -> Tuple[torch.Tensor, ...]:
+    """Per-core normal, uniform or from-file init (composition.py:189-219),
+    drawn in layer order from ``generator`` on its device, then moved to
+    ``device``. A file is an ``np.save`` of the core in the reference
+    layout."""
+    if len(epses_specs) != len(initializations):
+        raise ValueError(f"{len(initializations)} inits for {len(epses_specs)} cores")
+    cores = []
+    for spec, init in zip(specs_to_full_specs(epses_specs, initial_in_size), initializations):
+        shape = eps_mod.eps_shape(**spec)
+        kw = {"generator": generator, "dtype": dtype, "device": generator.device}
+        if isinstance(init, ZeroCenteredNormalInit):
+            core = torch.randn(shape, **kw) * init.std
+        elif isinstance(init, ZeroCenteredUniformInit):
+            core = (torch.rand(shape, **kw) * 2.0 - 1.0) * init.maximum
+        elif isinstance(init, FromFileInit):
+            core = torch.as_tensor(np.load(init.path), dtype=dtype)
+            if tuple(core.shape) != shape:
+                raise ValueError(f"{init.path}: core shape {tuple(core.shape)}, the model needs {shape}")
+        else:
+            raise ValueError(f"unknown initialization {init!r}")
+        cores.append(core.to(device))
+    return tuple(cores)

@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..kernels.eps_kernels import _core_to_cmt_k, _kernel_dims, eps_apply_t_cmt, plan_call
 from .windows import window_views
 
 
@@ -152,6 +153,46 @@ def absorb_on_input_dims(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out.reshape((t,) * n + (o,))
 
 
+# ---------------------------------------------------------------------------
+# dataset-scale application
+
+
+def transform_in_slices(core: torch.Tensor, x: torch.Tensor, batch_size: int = 128) -> torch.Tensor:
+    """Apply the EPS ``core`` to a whole dataset ``x`` (C, N, H, W, Q) in
+    slices of ``batch_size`` images, without gradients: (1, N, H', W', O)
+    (eps.py:454-470). On a CUDA tensor each slice runs the forward kernel
+    (K1, ``eps_apply_t_cmt`` on the core's cmt), as training does; on the
+    CPU, the plain reference-layout ``eps``."""
+    num_channels, n_total, _, _, in_size = x.shape
+    kernel_size = _infer_kernel_size(core, num_channels)
+    out_size = core.shape[-1]
+    if x.device.type == "cpu":
+        def apply(xs):
+            return eps(core, xs)
+    else:
+        n = kernel_size**2 * num_channels
+        n1, merge_pairs = plan_call(
+            num_channels, in_size, kernel_size, _balanced_split(n, in_size, out_size)
+        )
+        _, q_k, n1_k = _kernel_dims(num_channels, in_size, kernel_size, n1, merge_pairs)
+        cmt = _core_to_cmt_k(core, n1_k, q_k)
+
+        def apply(xs):
+            outT = eps_apply_t_cmt(
+                cmt, xs.permute(0, 4, 2, 3, 1), out_size, kernel_size, n1, merge_pairs,
+                layer_index=0,
+            )
+            return outT.permute(3, 1, 2, 0)
+
+    with torch.no_grad():
+        pieces = [apply(x[:, s : s + batch_size]) for s in range(0, n_total, batch_size)]
+    return torch.cat(pieces, dim=0)[None]
+
+
+# ---------------------------------------------------------------------------
+# initializers
+
+
 def make_eps_unit_theoretical_output_std(
     generator: torch.Generator,
     kernel_size: int,
@@ -168,3 +209,43 @@ def make_eps_unit_theoretical_output_std(
     shape = eps_shape(kernel_size, in_num_channels, in_size, out_size)
     core = torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
     return (core * std).to(device)
+
+
+def draw_unit_normal_core(
+    generator: torch.Generator,
+    kernel_size: int,
+    in_num_channels: int,
+    in_size: int,
+    out_size: int,
+    dtype: torch.dtype = torch.float32,
+    device="cpu",
+) -> torch.Tensor:
+    """A core of standard normal entries, drawn on the generator's device,
+    then moved to ``device``: the draw of the empirical init
+    (eps.py:488-503), which ``scale_to_unit_empirical_output_std`` scales."""
+    shape = eps_shape(kernel_size, in_num_channels, in_size, out_size)
+    core = torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
+    return core.to(device)
+
+
+def scale_to_unit_empirical_output_std(
+    core: torch.Tensor, x: torch.Tensor, batch_size: int = 128
+) -> torch.Tensor:
+    """``core`` rescaled by 1/std of its output on ``x`` (C, N, H, W, Q), so
+    that the empirical output std is 1 (eps.py:504-527): the population
+    (biased) std, each slice's sum and sum of squares taken on the device in
+    the run's precision (float64 for a float64 run) and added up in float64
+    on the host, with one transfer at the end."""
+    sums = []
+    count = 0
+    for out in transform_in_slices(core, x.to(core.dtype), batch_size)[0].split(batch_size):
+        acc = torch.float64 if out.dtype == torch.float64 else torch.float32
+        sums.append(torch.stack((out.sum(dtype=acc), (out.to(acc) ** 2).sum())).double())
+        count += out.numel()
+    total_sum = total_sumsq = 0.0
+    for s, ss in torch.stack(sums).cpu().tolist():
+        total_sum += s
+        total_sumsq += ss
+    mean = total_sum / count
+    inv_std = (total_sumsq / count - mean**2) ** -0.5
+    return core * inv_std

@@ -4,12 +4,13 @@
 
 The JAX step is one jitted function of (params, optimizer state, batch);
 here the model and the optimizer hold that state, and the step runs
-eagerly: forward through the EPS kernels (in int8 with ``qat="int8"``),
-cross-entropy, backward through the kernels' ``autograd.Function``, the
-regularizer, optimizer update. With gradient accumulation the batch runs as
-contiguous microbatches, each forward and backward on its own, so a large
-batch's activations (and each layer's saved t) are a microbatch's. Batches
-are gathered on the device from the resident split.
+eagerly: parameter dropout's masks, forward through the EPS kernels (in
+int8 with ``qat="int8"``), cross-entropy, backward through the kernels'
+``autograd.Function``, the regularizer, frozen cores' gradients set to 0,
+optimizer update. With gradient accumulation the batch runs as contiguous
+microbatches, each forward and backward on its own, so a large batch's
+activations (and each layer's saved t) are a microbatch's. Batches are
+gathered on the device from the resident split.
 """
 
 from __future__ import annotations
@@ -24,12 +25,21 @@ from ..kernels.eps_q8_kernels import QAT_KERNELS
 from ..models.eps_plus_linear import (
     EPSesPlusLinear,
     EPSesPlusLinearConfig,
+    draw_dropout_masks,
+    eps_plus_linear_forward_fast,
+    epses_composition_l2_regularizer,
     epses_composition_l2_regularizer_fast,
+    epswise_l2_regularizer,
     epswise_l2_regularizer_fast,
     saved_t_capped_layers,
 )
 
 REG_TYPES = ("epswise", "epses_composition")
+# the regularizers on the reference layout, by --reg-type (train/step.py:26-29)
+REGULARIZERS = {
+    "epswise": epswise_l2_regularizer,
+    "epses_composition": epses_composition_l2_regularizer,
+}
 
 
 def make_fast_train_step(
@@ -44,14 +54,14 @@ def make_fast_train_step(
     grad_accum_steps: int = 1,
     qat: Optional[str] = None,
 ):
-    """Returns ``step(xb, yb) → {"loss", "ce", "reg_term"}`` (0-d tensors on
-    the model's device, not synchronised), which trains ``model`` one step
-    with ``optimizer`` (built over ``model.parameters()``): loss = mean
-    cross-entropy + ``reg_coeff``·reg (train/step.py:208-310). ``xb`` is
-    (C, B, H, W, Q₀), ``yb`` (B,) class indices. ``reg_type`` is
-    ``"epswise"`` (the L2 of every core and of the classifier's weights) or
-    ``"epses_composition"`` (the classifier's L2 + the composition's squared
-    norm, ``composition.inner_product_cmt``).
+    """Returns ``step(xb, yb, generator=None, masks=None) → {"loss", "ce",
+    "reg_term"}`` (0-d tensors on the model's device, not synchronised),
+    which trains ``model`` one step with ``optimizer`` (built over
+    ``model.parameters()``): loss = mean cross-entropy + ``reg_coeff``·reg
+    (train/step.py:208-310). ``xb`` is (C, B, H, W, Q₀), ``yb`` (B,) class
+    indices. ``reg_type`` is ``"epswise"`` (the L2 of every core and of the
+    classifier's weights) or ``"epses_composition"`` (the classifier's L2 +
+    the composition's squared norm, ``composition.inner_product_cmt``).
 
     ``grad_accum_steps`` splits the batch, which it must divide, into that
     many contiguous microbatches in batch order (``grad_accum_scan``; 1 is
@@ -62,25 +72,37 @@ def make_fast_train_step(
     at the whole batch can save it again at a microbatch
     (``resolve_auto_grad_accum``).
 
+    Parameter dropout (``model.cfg.dropout_p`` < 1) draws each
+    microbatch's masks from ``generator`` (``draw_dropout_masks``, on the
+    model's device), or takes them from ``masks``: one tuple of
+    reference-shape masks per microbatch. The forward runs on the dropped
+    cores, the gradient is the undropped cores'.
+
+    ``frozen_eps_indices`` name cores that do not train: the forward takes
+    them detached, so their ``eps_dcore`` is never launched (a frozen layer
+    after a trained one still computes its input's cotangent), and their
+    gradient is set to 0 before the update, as the JAX step zeros it
+    (``mask_frozen``, train/step.py:264-270): with weight decay the
+    optimizer still moves them by the decay alone.
+
     ``kernels`` runs the EPS layers' contractions, ``KERNELS`` by default.
     ``qat="int8"`` picks ``QAT_KERNELS`` instead (the JAX step's
     ``forward_fast_q8train``): each EPS layer's forward in int8 W8A8 on the
-    live f32 cores, with straight-through gradients, so the numerics of int8
-    serving, not the f32 trajectory. A caller that passes its own bundle
-    (``eps_q8_kernels.QAT_PLAIN`` for the plain QAT path) passes no ``qat``.
+    live f32 cores (after dropout), with straight-through gradients, so the
+    numerics of int8 serving, not the f32 trajectory. A caller that passes
+    its own bundle (``eps_q8_kernels.QAT_PLAIN`` for the plain QAT path)
+    passes no ``qat``.
 
-    The options of the JAX step that are not ported yet are refused."""
-    later = {
-        "frozen_eps_indices": bool(frozen_eps_indices),
-        "with_probs": with_probs,
-        "parameter dropout (dropout_p < 1)": model.cfg.dropout_p < 1.0,
-    }
-    for option, given in later.items():
-        if given:
-            raise ValueError(
-                f"{option} is not ported yet: it comes with the next slice of the "
-                "port, the rest of the EPS family and the runner (ROADMAP.md)"
-            )
+    ``with_probs`` (the per-sample probabilities of the true class) has no
+    reader until TB logging is ported (ROADMAP item 13) and is refused."""
+    if with_probs:
+        raise ValueError(
+            "with_probs is not ported yet: it comes with TB logging (ROADMAP item 13)"
+        )
+    frozen = frozenset(frozen_eps_indices)
+    n_layers = len(model.cmts)
+    if any(not 0 <= i < n_layers for i in frozen):
+        raise ValueError(f"frozen_eps_indices {sorted(frozen)} outside the model's {n_layers} cores")
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be at least 1, got {grad_accum_steps}")
     if qat not in (None, "int8"):
@@ -91,17 +113,28 @@ def make_fast_train_step(
         kernels = KERNELS if qat is None else QAT_KERNELS
     elif qat is not None:
         raise ValueError("qat picks the kernel bundle: pass qat or kernels, not both")
+    cfg, plans = model.cfg, model.plans
+    dropout = cfg.dropout_p < 1.0
 
     def reg_fn():
         fast = model.fast_params()
         if reg_type == "epswise":
             return epswise_l2_regularizer_fast(fast)
-        return epses_composition_l2_regularizer_fast(fast, model.plans)
+        return epses_composition_l2_regularizer_fast(fast, plans)
 
-    def ce_of(xs, ys):
-        return F.cross_entropy(model(xs, kernels=kernels), ys)
+    def ce_of(xs, ys, masks_i):
+        fast = model.fast_params()
+        if frozen:
+            fast = {**fast, "epses_cmt": tuple(
+                c.detach() if i in frozen else c for i, c in enumerate(fast["epses_cmt"])
+            )}
+        return F.cross_entropy(
+            eps_plus_linear_forward_fast(fast, xs, cfg, plans, kernels=kernels, masks=masks_i), ys
+        )
 
-    def step(xb: torch.Tensor, yb: torch.Tensor):
+    def step(xb: torch.Tensor, yb: torch.Tensor, generator=None, masks=None):
+        if dropout and generator is None and masks is None:
+            raise ValueError("parameter dropout (dropout_p < 1) needs a generator or masks")
         optimizer.zero_grad(set_to_none=True)
         batch = yb.shape[0]
         if batch % grad_accum_steps:
@@ -111,7 +144,12 @@ def make_fast_train_step(
         mb = batch // grad_accum_steps
         ce_sum = None
         for i in range(grad_accum_steps):
-            ce_i = ce_of(xb[:, i * mb : (i + 1) * mb], yb[i * mb : (i + 1) * mb])
+            masks_i = None
+            if dropout:
+                masks_i = masks[i] if masks is not None else draw_dropout_masks(
+                    plans, cfg.dropout_p, generator
+                )
+            ce_i = ce_of(xb[:, i * mb : (i + 1) * mb], yb[i * mb : (i + 1) * mb], masks_i)
             ce_i.backward()  # adds into each parameter's .grad
             ce_i = ce_i.detach()
             ce_sum = ce_i if ce_sum is None else ce_sum + ce_i
@@ -119,13 +157,16 @@ def make_fast_train_step(
         if grad_accum_steps > 1:
             inv = 1.0 / grad_accum_steps
             for p in model.parameters():
-                p.grad.mul_(inv)
+                if p.grad is not None:
+                    p.grad.mul_(inv)
             ce = ce_sum * inv
         if reg_coeff != 0.0:
             reg = reg_fn()
             (reg_coeff * reg).backward()
         else:
             reg = torch.zeros((), dtype=ce.dtype, device=ce.device)
+        for i in frozen:
+            model.cmts[i].grad = torch.zeros_like(model.cmts[i])
         loss = ce + reg_coeff * reg.detach()
         optimizer.step()
         return {"loss": loss.detach(), "ce": ce.detach(), "reg_term": reg.detach()}

@@ -1050,3 +1050,82 @@ def test_lme_through_the_autograd_function_on_the_classifiers_operands(cuda_devi
     for got, ref in zip(*grads):
         assert bool(torch.isfinite(got).all())
         _assert_close(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the EPS runner's modules on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("specs,q0,size", [
+    (((4, 4), (3, 6)), 2, 28),  # the flagship: K1's wgmma kernel
+    (((2, 4), (3, 6)), 3, 32),  # Q₀ = 3 (colored CIFAR): layer 0 on K1's mma.sync kernel
+])
+def test_empirical_init_through_k1_matches_the_plain_init(cuda_device, specs, q0, size):
+    """The empirical init on the card (every slice's forward through K1)
+    against the same init on the CPU's plain reference-layout ``eps``, on
+    the same unit-normal cores: the scaled cores within REL_TOL (float32
+    sums in other orders, then a scale from float64 totals)."""
+    from dctn_tpu_torch.ops import composition
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((1, 300, size, size, q0), generator=g)
+    cores, q = [], q0
+    for k, o in specs:
+        cores.append(torch.randn((q,) * (k * k) + (o,), generator=g))
+        q = o
+    before = K.eps_fwd.launches
+    got = composition.make_unit_empirical_output_std(None, specs, x.to(cuda_device), batch_size=128,
+                                                     unit_cores=cores)
+    torch.cuda.synchronize()
+    assert K.eps_fwd.launches - before == 2 * len(specs) * math.ceil(300 / 128)
+    ref = composition.make_unit_empirical_output_std(None, specs, x, batch_size=128, unit_cores=cores)
+    for a, b in zip(got, ref):
+        _assert_close(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen,dropout_p", [((), 0.9), ((0,), 1.0), ((1,), 0.9)])
+def test_step_with_dropout_and_frozen_cores_matches_the_plain_step(cuda_device, frozen, dropout_p):
+    """One flagship step at batch 16 with parameter dropout (the same masks)
+    and frozen cores, through the kernels and through the plain versions:
+    gradients within REL_TOL; a frozen core's gradient is 0 and its
+    ``eps_dcore`` never launches (layer 1 frozen behind a trained layer 0
+    still launches the d_views kernel from its saved t)."""
+    from dctn_tpu_torch.models import (
+        EPSesPlusLinear,
+        EPSesPlusLinearConfig,
+        draw_dropout_masks,
+        init_eps_plus_linear,
+    )
+    from dctn_tpu_torch.train import make_fast_train_step, make_optimizer
+
+    cfg = EPSesPlusLinearConfig(epses_specs=((4, 4), (3, 6)), dropout_p=dropout_p)
+    params = init_eps_plus_linear(torch.Generator().manual_seed(0), cfg)
+    from dctn_tpu_torch.data import load_dataset
+
+    train = load_dataset("fashionmnist", "synthetic", autoscale_kernel_size=4,
+                         synthetic_sizes=(16, 4, 4)).train  # ν-scaled φ features
+    x = torch.as_tensor(train.x, device=cuda_device)
+    y = torch.as_tensor(train.y.astype("int64"), device=cuda_device)
+    grads = []
+    for kernels in (K.KERNELS, K.PLAIN):
+        model = EPSesPlusLinear.from_reference(params, cfg, device=cuda_device)
+        step = make_fast_train_step(model, make_optimizer("adam", model.parameters(), 1e-3),
+                                    kernels=kernels, frozen_eps_indices=frozen)
+        masks = draw_dropout_masks(model.plans, dropout_p,
+                                   torch.Generator(device=cuda_device).manual_seed(2))
+        before = (K.eps_dcore.launches, K.eps_dviews_t.launches)
+        step(x, y, masks=(masks,) if dropout_p < 1 else None)
+        torch.cuda.synchronize()
+        if kernels is K.KERNELS:
+            assert K.eps_dcore.launches - before[0] == 2 - len(frozen)
+            assert K.eps_dviews_t.launches - before[1] == (0 if frozen == (0,) else 1)
+        grads.append([p.grad for p in model.parameters()])
+    for a, b in zip(*grads):
+        if float(b.abs().max()) > 0:
+            _assert_close(a, b)
+        else:  # a frozen core: 0 on both paths
+            assert torch.equal(a, b)
+    for i in frozen:
+        assert float(grads[0][2 + i].abs().max()) == 0.0

@@ -37,7 +37,10 @@ def test_port_imports_no_jax():
         "dctn_tpu_torch.utils.pos2d, dctn_tpu_torch.models.conv_sbs_model, "
         "dctn_tpu_torch.cli.legacy_runner, dctn_tpu_torch.train.checkpoint, "
         "dctn_tpu_torch.ops.logmatmulexp, dctn_tpu_torch.kernels.logmatmulexp_kernels, "
-        "dctn_tpu_torch.models.log_space_classifier, dctn_tpu_torch.utils.benchmark\n"
+        "dctn_tpu_torch.models.log_space_classifier, dctn_tpu_torch.utils.benchmark, "
+        "dctn_tpu_torch.cli.runner, dctn_tpu_torch.train.loop, dctn_tpu_torch.train.evaluation, "
+        "dctn_tpu_torch.train.schedule, dctn_tpu_torch.train.preemption, "
+        "dctn_tpu_torch.utils.misc, dctn_tpu_torch.utils.fallbacks, dctn_tpu_torch.ops.composition\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dctn_tpu'))\n"
         "assert not bad, bad"
     )

@@ -114,7 +114,7 @@ def test_init_shapes_seeding_and_linear_scale():
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     assert abs(float(a["linear"]["w"].std()) * n_in**0.5 * 4 - 1) < 0.05
     assert float(a["linear"]["b"].abs().max()) <= n_in**-0.5
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="needs init_input"):
         init_eps_plus_linear(torch.Generator(), cfg, "unit_empirical_output_std")
 
 

@@ -495,8 +495,10 @@ def test_qat_refuses_unsupported_modes_and_dropout():
     with pytest.raises(ValueError, match="not both"):
         make_fast_train_step(model, opt, qat="int8", kernels=K.KERNELS)
     model.cfg = EPSesPlusLinearConfig(epses_specs=((3, 3), (2, 4)), image_size=8, dropout_p=0.8)
-    with pytest.raises(ValueError, match="dropout"):
-        make_fast_train_step(model, opt, qat="int8")
+    step = make_fast_train_step(model, opt, qat="int8")
+    x = torch.tensor(np.random.default_rng(1).uniform(size=(1, 4, 8, 8, 2)).astype(np.float32))
+    with pytest.raises(ValueError, match="dropout .* needs a generator or masks"):
+        step(x, torch.tensor([0, 1, 2, 3]))
 
 
 def test_bench_qat_runs_on_cpu_and_reports_its_fields(capsys):
