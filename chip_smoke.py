@@ -65,6 +65,14 @@ Run from the root of a checkout, with no arguments:
    0.9 --freeze-eps 1`` (layer 1's d_views kernel alone, the frozen core
    unchanged) and ``--ds-type cifar10_rgb`` (Q₀ = 3; logits against the
    plain forward).
+4c. The runners' tooling: the quick start for 30 iterations with
+   ``--tb-batches --log-intermediate-outputs --profile-dir`` (window 10 5):
+   launches exact with the intermediate outputs' K1 launches, the
+   metrics.jsonl records of each scheduled iteration, a trace naming K1+t,
+   ``eps_dcore`` and the d_views kernel, the ms of each logging hook and of
+   the profiled iterations. Then ``--train-backend xla --eval-backend xla``
+   for 10 iterations at lr 1e-4: no EPS kernel launched, each parameter's
+   move within 1e-2 (L2) of the kernel path's from the same init.
    Then the ConvSBS kernels (phase 2b, before phase 3): the forward and
    the backward (d_views both ways) of the meet-in-the-middle fold (K10,
    K11) and of the sequential fold (K12) against their plain versions at
@@ -86,6 +94,11 @@ Run from the root of a checkout, with no arguments:
    writes d_views, three d_core sums) and its best checkpoint; one step's
    gradients (cores and pixels) on the kernels against the plain path at
    batch 100, and 3 SGD steps at batch 4 against the float64 CPU step.
+   The runs take the runner's defaults (TB logging at epoch 0, its probe's
+   gradients through K10/K11; ``--preempt-save``); then one with
+   ``--tb-log-every-n-epochs 1`` (its records at both epochs), one stopped
+   mid-epoch with its train state saved, and that state resumed: the
+   resumed run ends on the unbroken run's bits.
 7. ``dctn_tpu_torch.bench.run_conv_sbs``, the step of
    experiments/conv_sbs_benchmark.py, at batch 100 and 512, open and ring,
    on the kernels and the plain path: launches per step and over the run,
@@ -218,6 +231,25 @@ RUN_SHORT_EVAL_EVERY = 5
 RUN_SHORT_SIZES = (1024, 256, 256)
 RGB_SPECS = ((2, 4), (3, 6))
 RUN_PROFILE_STEPS = 10
+# the runners' tooling (phase 4c): the README quick start for RUN_TB_ITERS
+# iterations with --tb-batches, --log-intermediate-outputs and a profiled
+# window of RUN_PROFILE_ITERS, evals every RUN_TB_EVAL_EVERY (so that no
+# eval falls inside the window); the intermediate outputs' probe is the
+# first RUN_PROBE training images. Then the xla backends against the kernel
+# path for RUN_SHORT_ITERS iterations from one theoretical init at TRAJ_LR:
+# each parameter's move within TRAJ_NORM_TOL of the kernel path's, in L2
+# (float32 sums in other orders; Adam's update is ±lr wherever a gradient's
+# sign flips between them, which an L2 share tolerates and max|Δ| would not).
+RUN_TB_ITERS = 30
+RUN_TB_EVAL_EVERY = 15
+RUN_PROFILE_ITERS = (10, 5)
+RUN_PROBE = 64
+# the 16 records each intermediate-outputs log writes: 5 transforms of
+# eps_0, eps_1 and linear, and linear's logits as probabilities
+INTERMEDIATE_RECORDS = 16
+# K1+t, eps_dcore and the d_views kernel in a runner trace (torch.profiler's
+# demangled names)
+TRACE_KERNELS = (r"eps_fwd_\w*kernel<true>", r"eps_dcore_kernel", r"eps_dviews_kernel")
 # the int8 path against the plain int8 path: a last-bit difference in layer
 # 0's f32 sums can move one of layer 1's u/su over a rounding boundary and
 # its uq by one step (1/127 of that pixel's scale), so logits are held to
@@ -328,6 +360,11 @@ SBS_TRAJ_RTOL = 1e-4
 # the runner phase: synthetic train/val sizes and epochs at batch 100
 SBS_RUN_SIZES = (1000, 200)
 SBS_RUN_EPOCHS = 2
+# the legacy runner's TB logging (on by default every 10 epochs: epoch 0 of
+# every run above) forwards and backwards its probe batch (one training
+# step's launches) and forwards it once more for the strings' outputs; the
+# resume check stops after SBS_STOP_AFTER steps, mid-epoch 1
+SBS_STOP_AFTER = 15
 # K13, the fused log-space product of the log-matmul chain bench and the
 # log-space classifier (experiments/logmatmulexp_benchmark.py,
 # experiments/log_space_classifier.py)
@@ -1002,9 +1039,7 @@ def check_runner_log(out: str, want_iters) -> None:
 
 def final_reference(state):
     """A copy of a run's params in the reference layout."""
-    from dctn_tpu_torch.models import reference_params_from_fast
-
-    ref = reference_params_from_fast(state.params, state.extras["cfg"], state.extras["model"].plans)
+    ref = state.extras["params_view"](state.params)
     return {"epses": tuple(c.detach().clone() for c in ref["epses"]),
             "linear": {k: v.detach().clone() for k, v in ref["linear"].items()}}
 
@@ -1147,6 +1182,178 @@ def runner_phase(trunner, bench, K, dev) -> list:
                 print(f"runner rgb: logits vs plain forward (Q0 = 3, batch {BATCH}): "
                       f"max|d|={err:.3e} tol={REL_TOL * scale:.3e}")
                 check(err <= REL_TOL * scale, "colored logits differ from the plain forward")
+    return runs
+
+
+def trace_kernels(path: str) -> dict:
+    """Which of TRACE_KERNELS a torch.profiler trace names."""
+    with open(path) as f:
+        text = f.read()
+    return {pat: re.search(pat, text) is not None for pat in TRACE_KERNELS}
+
+
+def read_metrics(out: str) -> dict:
+    """metrics.jsonl's records by step."""
+    by_step = {}
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            by_step.setdefault(rec["step"], []).append(rec)
+    return by_step
+
+
+def check_finite_records(records, what: str) -> None:
+    check(all(math.isfinite(v) for r in records for v in r.values() if isinstance(v, float)),
+          f"{what}: a non-finite number in metrics.jsonl")
+
+
+def runner_tooling_phase(trunner, bench, K, dev) -> list:
+    """Phase 4c: the EPS runner's tooling on the card. The README quick start
+    for RUN_TB_ITERS iterations with ``--tb-batches``,
+    ``--log-intermediate-outputs`` and ``--profile-dir`` over
+    RUN_PROFILE_ITERS: launches exact (the steps, evals and init, and K1
+    once per layer per intermediate-outputs log on the probe), the
+    metrics.jsonl records of every scheduled iteration, a trace that names
+    K1+t, ``eps_dcore`` and the d_views kernel (a trace may drop events: the
+    step's window is taken again, at most PROFILE_TRIES in all), and the ms
+    of each logging hook and of the profiled window's iterations. Then the
+    xla backends (the reference layout through torch.matmul) for
+    RUN_SHORT_ITERS iterations at TRAJ_LR: no EPS kernel launched, and each
+    parameter's move within TRAJ_NORM_TOL of the kernel path's from the same
+    init. Returns the runs' launch counts."""
+    from dctn_tpu_torch.train import load_params_npz
+    from dctn_tpu_torch.utils.profiling import trace, trace_files
+
+    base = dict(ds_type="fashionmnist", ds_path="synthetic", batch_size=BATCH,
+                optimizer_name="adam", epses_specs=FLAGSHIP)
+    keys = tuple(bench.read_counters())
+    per_step = launches_per_step(FLAGSHIP, BATCH, 1, None, keys)
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_dir = os.path.join(tmp, "prof")
+        same = dict(max_num_iters=RUN_TB_ITERS, lr=3e-3, synthetic_sizes=RUN_SIZES,
+                    init_epses_composition_unit_empirical_output_std=True,
+                    eval_schedule=((None, RUN_TB_EVAL_EVERY),), **base)
+        logged = list(range(0, RUN_TB_ITERS, RUN_TB_EVAL_EVERY))
+        evals = RUN_TB_ITERS // RUN_TB_EVAL_EVERY + 1
+        want = {k: v * RUN_TB_ITERS for k, v in per_step.items()}
+        want["eps_fwd"] += (runner_init_launches(RUN_SIZES[0], BATCH, 2)
+                            + evals * runner_eval_launches(RUN_SIZES, BATCH, 2))
+        # the same run without the tooling, for its ms per iteration
+        control, counts, _ = run_runner(trunner, bench, tmp, "no_tooling", **same)
+        runs.append(counts)
+        check(counts == want, f"no_tooling run launches {counts} != {want}")
+        control_ms = 1e3 * (control.extras["timing"]["loop_s"]
+                            - control.extras["timing"]["hooks_s"]) / RUN_TB_ITERS
+        del control
+        state, counts, out = run_runner(
+            trunner, bench, tmp, "tooling", tb_batches=True, log_intermediate_outputs=True,
+            profile_dir=prof_dir, profile_iters=RUN_PROFILE_ITERS, **same)
+        runs.append(counts)
+        check(state.stop_reason == "max_iters" and state.num_iters_done == RUN_TB_ITERS,
+              f"the tooling run stopped: {state.stop_reason} at {state.num_iters_done}")
+        check_runner_log(out, range(0, RUN_TB_ITERS + 1, RUN_TB_EVAL_EVERY))
+        want["eps_fwd"] += 2 * len(logged)
+        check(counts == want, f"tooling run launches {counts} != {want} (per step {per_step}, "
+              f"{evals} evals, the init, {len(logged)} intermediate-outputs logs of 2 layers)")
+        by_step = read_metrics(out)
+        check(sorted(by_step) == logged, f"metrics.jsonl steps {sorted(by_step)} != {logged}")
+        for it in logged:
+            tags = [r["tag"] for r in by_step[it]]
+            inter = [t for t in tags if t.startswith("intermediate_")]
+            check(all(tags.count(t) == 1 for t in ("loss", "reg_term", "probs_of_true_class",
+                                                   "batch")), f"iteration {it}: records {tags}")
+            check(len(inter) == INTERMEDIATE_RECORDS
+                  and {t.split("/")[1] for t in inter} == {"eps_0", "eps_1", "linear"},
+                  f"iteration {it}: intermediate records {inter}")
+            check_finite_records(by_step[it], f"iteration {it}")
+        events = [f for f in os.listdir(out) if f.startswith("events.out.tfevents")]
+        print(f"runner tooling: TensorBoard event files beside metrics.jsonl: {events} "
+              "(written where torch.utils.tensorboard imports)")
+        hist = [r for r in by_step[logged[-1]] if r["tag"] == "probs_of_true_class"][0]
+        check(0.0 <= hist["hist_min"] <= hist["hist_max"] <= 1.0, f"probabilities {hist}")
+        files = trace_files(prof_dir)
+        check(len(files) == 1, f"the profiled window wrote {files}")
+        found = trace_kernels(files[0])
+        tries = 1
+        step, gather, gen = state.extras["step"], state.extras["gather"], state.rng
+        idx = torch.arange(BATCH, device=dev)
+        while not all(found.values()) and tries < PROFILE_TRIES:
+            again = os.path.join(tmp, f"prof_{tries}")
+            with trace(again):
+                for _ in range(RUN_PROFILE_ITERS[1]):
+                    step(*gather(idx), gen)
+            found = {k: v or trace_kernels(trace_files(again)[0])[k] for k, v in found.items()}
+            tries += 1
+        print(f"runner tooling: trace {os.path.basename(files[0])} "
+              f"({os.path.getsize(files[0])} bytes) names {found} in {tries} window(s)")
+        check(all(found.values()), f"the runner's trace lacks kernels: {found}")
+        timing = state.extras["timing"]
+        window = timing["profile_window"]
+        hooks = {name: [1e3 * sec for sec in calls] for name, calls in timing["hook_s"].items()}
+        record = {
+            "metric": "runner_tooling", "epses_specs": [list(s) for s in FLAGSHIP],
+            "batch_size": BATCH, "iterations": timing["iters"],
+            "ms_per_iteration": 1e3 * (timing["loop_s"] - timing["hooks_s"]) / timing["iters"],
+            "ms_per_iteration_without_tooling": control_ms,
+            "tb_batches_ms": hooks["tb_batches"],
+            "intermediate_outputs_ms": hooks["intermediate_outputs"],
+            "profiler_start_stop_ms": hooks["profiler"],
+            "logging_ms_per_iteration": (sum(hooks["tb_batches"])
+                                         + sum(hooks["intermediate_outputs"])) / timing["iters"],
+            "profiled_window_iterations": window["iterations"],
+            "profiled_ms_per_iteration": 1e3 * window["s"] / window["iterations"],
+            "trace_export_s": window["export_s"],
+        }
+        print(json.dumps(record))
+        check(window["iterations"] == RUN_PROFILE_ITERS[1] and len(hooks["profiler"]) == 2,
+              f"profiled window {window}, its hook's calls {hooks['profiler']}")
+        check(len(hooks["tb_batches"]) == len(hooks["intermediate_outputs"]) == len(logged),
+              f"logging calls {hooks}")
+        del state, step, gather, gen
+
+        # the xla backends against the kernel path from one theoretical init
+        short = dict(base, synthetic_sizes=RUN_SHORT_SIZES, max_num_iters=RUN_SHORT_ITERS,
+                     eval_schedule=((None, RUN_SHORT_EVAL_EVERY),), lr=TRAJ_LR,
+                     init_epses_composition_unit_theoretical_output_std=True)
+        short_evals = RUN_SHORT_ITERS // RUN_SHORT_EVAL_EVERY + 1
+        st_k, counts_k, out_k = run_runner(trunner, bench, tmp, "kernel_lr", **short)
+        st_x, counts_x, out_x = run_runner(trunner, bench, tmp, "xla", train_backend="xla",
+                                           eval_backend="xla", **short)
+        runs += [counts_k, counts_x]
+        want = {k: v * RUN_SHORT_ITERS for k, v in per_step.items()}
+        # the statistics at start push the init subset through each layer in
+        # slices of half the batch
+        want["eps_fwd"] += (short_evals * runner_eval_launches(RUN_SHORT_SIZES, BATCH, 2)
+                            + 2 * math.ceil(RUN_SHORT_SIZES[0] / (BATCH // 2)))
+        check(counts_k == want, f"kernel_lr launches {counts_k} != {want}")
+        check(all(v == 0 for v in counts_x.values()), f"the xla run launched {counts_x}")
+        check_runner_log(out_x, range(0, RUN_SHORT_ITERS + 1, RUN_SHORT_EVAL_EVERY))
+        (first,) = [f for f in os.listdir(out_k) if f.startswith("model_nitd=0000000")]
+        (first_x,) = [f for f in os.listdir(out_x) if f.startswith("model_nitd=0000000")]
+        start, start_x = (load_params_npz(os.path.join(o, f)) for o, f in ((out_k, first),
+                                                                             (out_x, first_x)))
+        fin_k, fin_x = final_reference(st_k), final_reference(st_x)
+        leaves = lambda p: (*p["epses"], p["linear"]["w"], p["linear"]["b"])  # noqa: E731
+        check(all(np.array_equal(a, b) for a, b in zip(leaves(start), leaves(start_x))),
+              "the xla and the kernel run start from other weights")
+        worst = 0.0
+        for i, (a, b, s0) in enumerate(zip(leaves(fin_x), leaves(fin_k), leaves(start))):
+            s0 = torch.as_tensor(s0, device=dev).double()
+            move_x, move_k = a.double() - s0, b.double() - s0
+            share = float(torch.linalg.vector_norm(move_x - move_k)
+                          / torch.linalg.vector_norm(move_k))
+            worst = max(worst, share)
+            print(f"xla vs kernels after {RUN_SHORT_ITERS} iterations, parameter {i}: "
+                  f"||move_x - move_k|| / ||move_k|| = {share:.3e} (tol {TRAJ_NORM_TOL:g}), "
+                  f"max|d| = {float((move_x - move_k).abs().max()):.3e}")
+            check(share <= TRAJ_NORM_TOL, f"the xla run's parameter {i} moved elsewhere")
+        tk, tx = st_k.extras["timing"], st_x.extras["timing"]
+        print(json.dumps({
+            "metric": "runner_xla", "iterations": RUN_SHORT_ITERS, "worst_move_share": worst,
+            "xla_ms_per_iteration": 1e3 * (tx["loop_s"] - tx["hooks_s"]) / tx["iters"],
+            "kernel_ms_per_iteration": 1e3 * (tk["loop_s"] - tk["hooks_s"]) / tk["iters"],
+        }))
     return runs
 
 
@@ -1712,45 +1919,136 @@ def check_sbs_training(S, CSM, x, y, dev) -> None:
               f"largest max|d|/max|p| {worst:.3e})")
 
 
+def sbs_run_launches(counts, steps, evals, tb_logs):
+    """The ConvSBS launches of a legacy run: per step (and per TB log's probe
+    gradients) the three strings' forward and backward, layer 0's two
+    without d_views, layer 1's with them, and a d_core sum each; a forward
+    of each string per evaluation, two per string while scaling the layers,
+    and one per TB log's named outputs."""
+    want = dict.fromkeys(counts, 0)
+    grads = steps + tb_logs
+    want.update(sbs_fwd_mim=3 * (grads + evals + 2 + tb_logs), sbs_bwd_mim=3 * grads,
+                sbs_bwd_dviews=grads, sbs_bwd_sum=3 * grads)
+    return want
+
+
+def sbs_run(legacy_runner, models_dir, trace_edge=False, opt="rmsprop", **kw):
+    return legacy_runner.run(
+        ds_path="synthetic", models_dir=models_dir, num_sbs_layers=SBS_LAYERS,
+        bond_dim_size=SBS_BOND, trace_edge=trace_edge, batch_size=100,
+        epochs=SBS_RUN_EPOCHS, synthetic_sizes=SBS_RUN_SIZES, optimizer_type=opt,
+        momentum=0.9, learning_rate=1e-3, warmup_num_epochs=1,
+        warmup_initial_multiplier=1e-2, cos_sin_squared=True,
+        make_input_window_std_one=True, scale_layers_using_batch=100, seed=SEED,
+        device="cuda", **kw,
+    )
+
+
 def sbs_runner_phase(legacy_runner, bench, dev):
     """Phase 6: ``legacy_runner.run`` on the card, 2 layers, bond 4, batch
     100, SBS_RUN_EPOCHS epochs of synthetic data, SGD and RMSprop with
-    momentum, open and ``--trace-edge``. Checks the launches (per step: the
-    three strings' forward and backward, layer 0's two without d_views,
-    layer 1's with them, and a d_core sum each; besides, a forward of each
-    string per evaluation and two per string while scaling the layers)
-    and the best checkpoint. Returns each run's counts."""
+    momentum, open and ``--trace-edge``, at the runner's defaults (TB logging
+    at epoch 0, ``--preempt-save``). Checks the launches
+    (``sbs_run_launches``) and the best checkpoint. Then RMSprop on open
+    strings with ``--tb-log-every-n-epochs 1`` (its metrics.jsonl records at
+    both epochs; the probe's gradients through K10/K11), a run stopped
+    after SBS_STOP_AFTER steps (mid-epoch 1) with its train state saved,
+    and that state resumed to the end: the resumed run ends on the
+    unbroken run's bits. Returns each run's counts."""
     n_tr, n_val = SBS_RUN_SIZES
-    steps = SBS_RUN_EPOCHS * (n_tr // 100)
+    per_epoch = n_tr // 100
+    steps = SBS_RUN_EPOCHS * per_epoch
     runs = []
     for trace_edge in (False, True):
         for opt in ("sgd", "rmsprop"):
             bench.zero_counters()
             t0 = time.perf_counter()
             with tempfile.TemporaryDirectory() as tmp:
-                _, best = legacy_runner.run(
-                    ds_path="synthetic", models_dir=tmp, num_sbs_layers=SBS_LAYERS,
-                    bond_dim_size=SBS_BOND, trace_edge=trace_edge, batch_size=100,
-                    epochs=SBS_RUN_EPOCHS, synthetic_sizes=SBS_RUN_SIZES, optimizer_type=opt,
-                    momentum=0.9, learning_rate=1e-3, warmup_num_epochs=1,
-                    warmup_initial_multiplier=1e-2, cos_sin_squared=True,
-                    make_input_window_std_one=True, scale_layers_using_batch=100, seed=SEED,
-                    device="cuda",
-                )
+                _, best = sbs_run(legacy_runner, tmp, trace_edge, opt)
                 ckpts = [f for f in os.listdir(tmp) if f.startswith("dctn_epoch=")]
             counts = bench.read_sbs_counters()
             label = f"legacy_runner {'--trace-edge ' if trace_edge else ''}{opt}"
             print(f"{label}: {time.perf_counter() - t0:.1f} s, best val acc {best:.4f} "
                   f"(synthetic, {SBS_RUN_EPOCHS} epochs), checkpoint {ckpts}, launches {counts}")
             check(len(ckpts) == 1 and ckpts[0].endswith(".npz"), f"{label}: no best checkpoint")
-            evals, scaling = SBS_RUN_EPOCHS, 2
-            want = dict.fromkeys(counts, 0)
-            want.update(sbs_fwd_mim=3 * (steps + evals + scaling), sbs_bwd_mim=3 * steps,
-                        sbs_bwd_dviews=steps, sbs_bwd_sum=3 * steps)
+            want = sbs_run_launches(counts, steps, SBS_RUN_EPOCHS, 1)
             check(counts == want, f"{label}: launches {counts} != {want}")
             print(f"{label}: per step sbs_fwd_mim 3, sbs_bwd_mim 3 (d_views 1), sum 3, over "
-                  f"{steps} steps")
+                  f"{steps} steps, and one TB log")
             runs.append(counts)
+
+    class StopAfter(legacy_runner.PreemptionHandler):
+        """Sees a signal after the SBS_STOP_AFTER-th step."""
+
+        def __init__(self):
+            super().__init__()
+            self.reads = 0
+
+        @property
+        def fired(self):
+            self.reads += 1
+            return "SIGTERM" if self.reads >= SBS_STOP_AFTER else None
+
+        @fired.setter
+        def fired(self, value):
+            pass
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        bench.zero_counters()
+        unbroken, best = sbs_run(legacy_runner, os.path.join(tmp, "tb"), tb_log_every_n_epochs=1)
+        counts = bench.read_sbs_counters()
+        runs.append(counts)
+        want = sbs_run_launches(counts, steps, SBS_RUN_EPOCHS, SBS_RUN_EPOCHS)
+        print(f"legacy_runner --tb-log-every-n-epochs 1: {time.perf_counter() - t0:.1f} s, "
+              f"launches {counts}")
+        check(counts == want, f"legacy TB run: launches {counts} != {want}")
+        by_step = read_metrics(os.path.join(tmp, "tb"))
+        logged = [per_epoch * (e + 1) for e in range(SBS_RUN_EPOCHS)]
+        with open(os.path.join(tmp, "tb", "log.log")) as f:
+            tb_ms = [float(m) for m in re.findall(r"TB log at iteration \d+: (\S+) ms", f.read())]
+        print(json.dumps({"metric": "legacy_runner_tb", "batch_size": 100, "bond": SBS_BOND,
+                          "steps_per_epoch": per_epoch, "tb_log_ms": tb_ms}))
+        check(len(tb_ms) == SBS_RUN_EPOCHS, f"legacy TB log times {tb_ms}")
+        check(sorted(by_step) == logged, f"legacy metrics.jsonl steps {sorted(by_step)}")
+        n_cores = sum(len(spec) for layer in
+                      legacy_runner.ConvSBSModelConfig(SBS_LAYERS, SBS_BOND).layer_specs()
+                      for spec in layer)
+        for it in logged:
+            tags = [r["tag"] for r in by_step[it]]
+            for prefix in ("weights/", "weights_mean/", "weights_std/", "grads/", "grads_mean/",
+                           "grads_std/"):
+                check(sum(t.startswith(prefix) for t in tags) == n_cores,
+                      f"legacy step {it}: {prefix} records")
+            for t in ("lr", "val/acc", "val/mean_ce", "train/last_batch_loss",
+                      "layer0.string0/tt_mean", "layer1.string0/tt_std",
+                      "intermediate_dumb_mean/layer0.string1", "intermediate_dumb/logits"):
+                check(tags.count(t) == 1, f"legacy step {it}: {t} records {tags.count(t)}")
+            check_finite_records(by_step[it], f"legacy step {it}")
+        saved = legacy_runner.PreemptionHandler
+        legacy_runner.PreemptionHandler = StopAfter
+        try:
+            sbs_run(legacy_runner, os.path.join(tmp, "stopped"), tb_log_every_n_epochs=1)
+        finally:
+            legacy_runner.PreemptionHandler = saved
+        state_file = os.path.join(tmp, "stopped", "train_state_latest.npz")
+        with np.load(state_file) as d:
+            where = (int(d["epoch"]), int(d["step_in_epoch"]))
+        check(where == divmod(SBS_STOP_AFTER, per_epoch), f"the stopped run saved at {where}")
+        bench.zero_counters()
+        resumed, best_r = sbs_run(legacy_runner, os.path.join(tmp, "resumed"),
+                                  tb_log_every_n_epochs=1, resume_from=state_file)
+        counts = bench.read_sbs_counters()
+        runs.append(counts)
+        left = steps - SBS_STOP_AFTER
+        want = sbs_run_launches(counts, left, SBS_RUN_EPOCHS - where[0], SBS_RUN_EPOCHS - where[0])
+        check(counts == want, f"legacy resumed run: launches {counts} != {want}")
+        same = all(torch.equal(a, b) for la, lb in zip(unbroken, resumed) for sa, sb in zip(la, lb)
+                   for a, b in zip(sa, sb))
+        print(f"legacy_runner: resumed at epoch {where[0]} step {where[1]} (after "
+              f"{SBS_STOP_AFTER} steps) to {SBS_RUN_EPOCHS} epochs vs unbroken: bit-equal {same}, "
+              f"best val acc {best_r:.4f} vs {best:.4f}")
+        check(same and best_r == best, "the resumed legacy run does not end on the unbroken bits")
     return runs
 
 
@@ -1977,8 +2275,19 @@ def main(argv=None) -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(dev)}")
 
+    start = lap = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        """Prints the seconds since the last phase ended."""
+        nonlocal lap
+        now = time.perf_counter()
+        print(f"{name} phase: {now - lap:.1f} s")
+        lap = now
+
     # phase 1: build every kernel of the paths from the checkout's sources
     build_all(build)
+
+    phase_done("build")
 
     # phase 2: each kernel against its plain version
     cfg = EPSesPlusLinearConfig(epses_specs=FLAGSHIP, image_size=28, q0=2)
@@ -1986,6 +2295,8 @@ def main(argv=None) -> int:
     kernels_at_deep_batch(K, dev, numbers)
     numbers.update(sbs_kernels_vs_plain(S, CSM, dev))
     numbers.update(lme_kernel_vs_plain(L, LSC, max_shifts, dev))
+
+    phase_done("kernels (2, 2b, 2c)")
 
     # phase 3: the serving paths, f32 then int8, through the entry point a
     # user calls
@@ -2093,6 +2404,8 @@ def main(argv=None) -> int:
                 result_q8.x, predict.latency_stats, args.profile, "int8",
             )
     del served, result, model, result_q8, qmodel
+
+    phase_done("serving")
 
     # phase 4: the training paths, f32 then QAT, through the bench entry point
     from dctn_tpu_torch.data import load_dataset
@@ -2214,17 +2527,24 @@ def main(argv=None) -> int:
                              tag=f"deep_accum{accum}", warmup=2, calls=2)
     del xd, yd
 
+    phase_done("training bench")
+
     # phase 4b: the EPS runner (the README quick start, a resume, QAT,
     # dropout with a frozen core, colored CIFAR)
     from dctn_tpu_torch.cli import runner as eps_runner
 
-    t0 = time.perf_counter()
     runner_runs = runner_phase(eps_runner, bench, K, dev)
-    print(f"runner phase: {time.perf_counter() - t0:.1f} s")
+    phase_done("runner")
+
+    # phase 4c: the runners' tooling (TB logging, intermediate outputs, a
+    # profiled window) and the xla backends
+    runner_runs += runner_tooling_phase(eps_runner, bench, K, dev)
+    phase_done("runner tooling")
 
     # phase 6: the legacy ConvSBS runner, then its step's gradients and a
     # trajectory against the float64 CPU step
     sbs_runs = sbs_runner_phase(legacy_runner, bench, dev)
+    phase_done("legacy runner")
     images, labels = data_io.synthetic_mnist_like(100, seed=1234)
     check_sbs_training(S, CSM, torch.as_tensor(images, device=dev),
                        torch.as_tensor(labels, device=dev), dev)
@@ -2235,12 +2555,15 @@ def main(argv=None) -> int:
                                              torch.as_tensor(labels, device=dev), dev)
     if args.profile:
         profile_conv_sbs(S, CSM, args.profile, dev)
+    phase_done("legacy step checks and ConvSBS bench (6, 7)")
 
     # phases 8 and 9: the log-space product's entries, the chain bench and
     # the log-space classifier's training
     lme_launches = [lme_chain_phase(bench, dev), log_space_phase(bench, LSC, dev)]
     if args.profile:
         profile_lme(bench, LSC, args.profile, dev)
+    phase_done("log-space (8, 9)")
+    print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     driven = [serving, serving_q8, *trained.values(), *runner_runs, *sbs_runs, *sbs_bench_counts,
               *lme_launches]

@@ -7,18 +7,20 @@ imports: it runs where only PyTorch is). Module names mirror the JAX
 package so each counterpart is easy to find:
 
   data/      the numpy dataset loader and feature maps
-  utils/     Pos2D grid positions
-  ops/       windows, rank-one statistics, the reference-layout EPS operator,
-             composition inits, the ConvSBS specs, inits and plain fold
+  utils/     Pos2D grid positions, performance fallbacks, torch.profiler traces
+  ops/       windows, rank-one statistics, the reference-layout EPS operator
+             (differentiable), composition inits, the ConvSBS specs, inits,
+             plain fold and TT statistics
   kernels/   the hand-written CUDA kernels (sources in csrc/), their plain
              PyTorch versions, and the EPS layer's and the ConvSBS string's
              autograd.Functions
   models/    EPSesPlusLinear in the fast (cmt) parameter layout; the legacy
              ConvSBS model
-  train/     the fast training step, optimizers, and npz checkpoints shared
-             with the JAX package
-  cli/       the predict entry point (f32 or --quantize int8) and the legacy
-             ConvSBS runner
+  train/     the fast and the reference-layout training steps, optimizers,
+             the train loop, npz checkpoints and train states shared with the
+             JAX package, TB logging and intermediate outputs
+  cli/       the predict entry point (f32 or --quantize int8), the EPS and the
+             legacy ConvSBS runners, torch_convert and sweep
   bench      the training-throughput benchmark (python -m dctn_tpu_torch.bench,
              --qat int8 for the quantization-aware step, --model-family
              conv_sbs for the legacy ConvSBS step)

@@ -19,14 +19,24 @@ kernels on ``--device cuda`` (the default) and their plain versions on
 JAX runner; on CUDA a string outside the kernels' scope (a ring bond over
 4, a bond over 8) is refused before training (ROADMAP item 16).
 
+The train state (``train_state_latest.npz``: the cores, the torch
+optimizer's state with the warmup's step, the epoch and step in it, the
+best accuracy and the epochs without improvement) is saved after every
+epoch and, with ``--preempt-save`` (on by default), after the step in
+flight when SIGTERM comes; ``--resume-from`` restores it and fast-forwards
+the epoch-shuffle RNG and the epoch's batches, so the resumed run ends on
+the unbroken run's bits. ``--tb-log-every-n-epochs`` (10 by default; 0
+turns it off) logs, into ``metrics.jsonl`` (and TensorBoard events where
+the ``tensorboard`` package is installed), the validation metrics, the lr,
+the weights' and the gradients' histograms on a probe batch (the forward
+K10 and backward K11 on a card), each string's output on that batch and
+each string's TT mean and std. ``--profile-dir`` writes a
+``torch.profiler`` trace of the ``--profile-iters`` window.
+
 Refused until their slices land (ROADMAP names each): ``--mesh-devices`` > 1
 and ``--distributed`` (multi-GPU DP), ``--autotune-kernels`` and
-``--autotune-cache`` (the autotuner), ``--export-artifact`` (export),
-``--resume-from`` and ``--preempt-save`` (the legacy runner's train state
-and resume), ``--profile-dir`` (profiling) and a nonzero
-``--tb-log-every-n-epochs`` (TB logging and TT statistics). The three of them that are on by default in JAX
-(``--autotune-cache``, ``--preempt-save``, ``--tb-log-every-n-epochs 10``)
-are off by default here.
+``--autotune-cache`` (the autotuner; the cache, on by default in the JAX
+runner, is off by default here), ``--export-artifact`` (export).
 
 The inits draw from a ``torch.Generator`` seeded with ``--seed``, so a seed
 gives other weights than in the JAX runner; pass ``--init-load-file`` to
@@ -39,9 +49,12 @@ Run: ``python -m dctn_tpu_torch.cli.legacy_runner --ds-path synthetic
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import random
+import time
+from types import SimpleNamespace
 
 import click
 import numpy as np
@@ -65,7 +78,22 @@ from ..models.conv_sbs_model import (
     scale_layers_using_batch,
 )
 from ..ops import sbs
-from ..train.checkpoint import load_conv_sbs_params_npz, save_conv_sbs_params_npz
+from ..train.checkpoint import (
+    AsyncWriter,
+    conv_sbs_train_state_arrays,
+    load_conv_sbs_params_npz,
+    load_conv_sbs_train_state,
+    save_conv_sbs_params_npz,
+)
+from ..train.intermediate_logger import (
+    DEFAULT_TRANSFORMS,
+    conv_sbs_model_named_outputs,
+    log_named_outputs,
+    log_tree_histograms,
+)
+from ..train.preemption import PreemptionHandler
+from ..train.tb_logging import MetricsWriter, log_conv_sbs_tt_statistics
+from ..utils.profiling import StepTracer
 from .runner import setup_run_provenance
 from .specs import fill_defaults
 
@@ -87,13 +115,6 @@ REFUSED = (
     ("autotune_kernels", False, "--autotune-kernels", "the autotuner (slice 8, item 20)"),
     ("autotune_cache", False, "--autotune-cache", "the autotuner (slice 8, item 20)"),
     ("export_artifact", None, "--export-artifact", "export and serve (slice 6, item 18)"),
-    ("resume_from", None, "--resume-from",
-     "the legacy runner's train state and resume (slice 4, item 27)"),
-    ("preempt_save", False, "--preempt-save",
-     "the legacy runner's train state and resume (slice 4, item 27)"),
-    ("profile_dir", None, "--profile-dir", "profiling (slice 4, item 23)"),
-    ("tb_log_every_n_epochs", 0, "--tb-log-every-n-epochs != 0",
-     "TB logging and TT statistics (slice 4, items 13 and 24)"),
 )
 
 
@@ -140,21 +161,25 @@ def permute_pixels_batch(images: np.ndarray, permutation) -> np.ndarray:
 @click.option("--export-batch-sizes", type=str, default="1,100",
               help="serving batch sizes for --export-artifact")
 @click.option("--resume-from", type=click.Path(exists=True, dir_okay=False), default=None,
-              help="not ported yet (the legacy runner's resume, ROADMAP item 27)")
+              help="train_state_latest.npz of an earlier (maybe preempted) run: restores the "
+                   "cores, the optimizer with the warmup's step, the epoch and step and the "
+                   "best-model bookkeeping, and continues the trajectory exactly")
 @click.option("--preempt-sync-steps", type=int, default=16,
               help="with --distributed, steps between preemption agreements")
-@click.option("--preempt-save/--no-preempt-save", default=False,
-              help="not ported yet (the legacy runner's resume, ROADMAP item 27); off by "
-                   "default here, on in the JAX runner")
+@click.option("--preempt-save/--no-preempt-save", default=True,
+              help="on SIGTERM: finish the step in flight, save the train state, stop "
+                   "(--resume-from train_state_latest.npz continues the trajectory)")
 @click.option("--profile-dir", type=click.Path(file_okay=False), default=None,
-              help="not ported yet (profiling, ROADMAP item 23)")
+              help="write a torch.profiler trace (CPU and CUDA activity) of the "
+                   "--profile-iters window of steps into this directory")
 @click.option("--profile-iters", nargs=2, type=int, default=(10, 5),
               help="START COUNT window for --profile-dir")
 @click.option("--seed", type=int, default=0)
 @click.option("--synthetic-sizes", nargs=2, type=int, default=(2048, 512))
-@click.option("--tb-log-every-n-epochs", type=int, default=0,
-              help="not ported yet (TB logging and TT statistics, ROADMAP items 13 and 24): "
-                   "only 0 is accepted; the JAX runner's default is 10")
+@click.option("--tb-log-every-n-epochs", type=int, default=10,
+              help="every this many epochs log the validation metrics, the lr, weight and "
+                   "probe-gradient histograms, the strings' outputs and TT statistics into "
+                   "metrics.jsonl (0: off)")
 @click.option("--distributed", default=None,
               help="not ported yet (multi-GPU DP, ROADMAP slice 7)")
 @click.option("--device", default="cuda",
@@ -278,35 +303,137 @@ def run(**kw):
         momentum=kw["momentum"], rmsprop_alpha=kw["rmsprop_alpha"],
         weight_decay=kw["weight_decay"],
     )
-    sched = torch.optim.lr_scheduler.LambdaLR(opt, make_warmup_lr_schedule(
-        kw["warmup_num_epochs"], steps_per_epoch, kw["warmup_initial_multiplier"]))
+    lr_multiplier = make_warmup_lr_schedule(
+        kw["warmup_num_epochs"], steps_per_epoch, kw["warmup_initial_multiplier"])
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lr_multiplier)
 
-    rng = np.random.default_rng(kw["seed"] + 1)
+    # the full-resume restore (legacy_runner.py:394-413)
+    resume_epoch, resume_step = 0, 0
     best_acc, best_file, bad_epochs = -1.0, None, 0
-    for epoch in range(kw["epochs"]):
-        perm = torch.as_tensor(rng.permutation(len(y_tr_host)), device=device)
-        for s in range(steps_per_epoch):
-            idx = perm[s * kw["batch_size"] : (s + 1) * kw["batch_size"]]
-            opt.zero_grad(set_to_none=True)
-            loss = torch.nn.functional.cross_entropy(model(x_tr[idx]), y_tr[idx])
-            loss.backward()
-            opt.step()
-            sched.step()
-        vce, vacc = _score(model, x_val, y_val)
-        logger.info("epoch %d: val ce=%.5f acc=%.2f%%", epoch, vce, vacc * 100)
-        if vacc > best_acc:
-            best_acc, bad_epochs = vacc, 0
-            new_file = os.path.join(kw["models_dir"], f"dctn_epoch={epoch}_vacc={vacc:.4f}.npz")
-            save_conv_sbs_params_npz(model.params(), new_file)
-            if best_file and os.path.exists(best_file):
-                os.remove(best_file)
-            best_file = new_file
-        else:
-            bad_epochs += 1
-            patience = kw["early_stopping_patience_num_epochs"]
-            if patience is not None and bad_epochs > patience:
-                logger.info("early stopping at epoch %d", epoch)
+    if kw["resume_from"]:
+        try:
+            warmup_step, resume_epoch, resume_step, best_acc, bad_epochs = (
+                load_conv_sbs_train_state(kw["resume_from"], model, opt))
+        except (KeyError, ValueError) as e:
+            raise click.ClickException(f"--resume-from {kw['resume_from']}: {e}") from None
+        # the scheduler at the saved step: LambdaLR's lr is base·multiplier(step)
+        sched.last_epoch = warmup_step
+        for group, base in zip(opt.param_groups, sched.base_lrs):
+            group["lr"] = base * lr_multiplier(warmup_step)
+        sched._last_lr = [group["lr"] for group in opt.param_groups]
+        logger.info("resumed train state from %s at epoch %d step %d",
+                    kw["resume_from"], resume_epoch, resume_step)
+
+    tb_every = kw["tb_log_every_n_epochs"]
+    tb_writer = None
+    if tb_every:
+        tb_writer = MetricsWriter(kw["models_dir"])
+        probe_n = min(kw["batch_size"], len(y_tr_host))
+        x_probe, y_probe = x_tr[:probe_n], y_tr[:probe_n]
+        layer_specs = cfg.layer_specs()
+
+        def log_tb(it: int) -> None:
+            """The weights, their gradients on the probe batch (the kernels'
+            forward and backward on a card), the strings' outputs on it and
+            their TT statistics (legacy_runner.py:529-560)."""
+            params = model.params()
+            tb_writer.add_scalar("lr", kw["learning_rate"] * lr_multiplier(it), it)
+            log_tree_histograms(tb_writer, params, it, "weights")
+            loss = torch.nn.functional.cross_entropy(model(x_probe), y_probe)
+            leaves = [c for layer in params for string in layer for c in string]
+            grads = iter(torch.autograd.grad(loss, leaves))
+            grad_tree = tuple(tuple(tuple(next(grads) for _ in string) for string in layer)
+                              for layer in params)
+            log_tree_histograms(tb_writer, grad_tree, it, "grads")
+            with torch.no_grad():
+                named = conv_sbs_model_named_outputs(params, cfg, x_probe)
+                log_named_outputs(tb_writer, named, it, DEFAULT_TRANSFORMS)
+                log_conv_sbs_tt_statistics(tb_writer, {
+                    f"layer{i}.string{j}": (spec, cores)
+                    for i, (specs_l, cores_l) in enumerate(zip(layer_specs, params))
+                    for j, (spec, cores) in enumerate(zip(specs_l, cores_l))
+                }, it)
+
+    tracer = StepTracer(kw["profile_dir"], *kw["profile_iters"]) if kw["profile_dir"] else None
+    writer = AsyncWriter()
+    state_file = os.path.join(kw["models_dir"], "train_state_latest.npz")
+
+    def save_train_state(epoch: int, step_in_epoch: int) -> None:
+        writer.submit(conv_sbs_train_state_arrays(
+            model.params(), opt, sched.last_epoch, epoch, step_in_epoch, best_acc, bad_epochs,
+        ), state_file)
+
+    # fast-forward the epoch-shuffle RNG over the epochs done, so that the
+    # resumed run takes the batches the unbroken one would
+    rng = np.random.default_rng(kw["seed"] + 1)
+    for _ in range(resume_epoch):
+        rng.permutation(len(y_tr_host))
+    if resume_step > steps_per_epoch:
+        logger.warning(
+            "saved step-in-epoch %d exceeds this configuration's %d steps per epoch (the batch "
+            "size changed): resuming at the start of epoch %d",
+            resume_step, steps_per_epoch, resume_epoch,
+        )
+        resume_step = 0
+    preempt = PreemptionHandler() if kw["preempt_save"] else None
+    preempted = False
+    loss = torch.full((), float("nan"))
+    with preempt if preempt is not None else contextlib.nullcontext():
+        for epoch in range(resume_epoch, kw["epochs"]):
+            perm = torch.as_tensor(rng.permutation(len(y_tr_host)), device=device)
+            skip = resume_step if epoch == resume_epoch else 0
+            for s in range(skip, steps_per_epoch):
+                if tracer is not None:
+                    tracer(SimpleNamespace(num_iters_done=epoch * steps_per_epoch + s))
+                idx = perm[s * kw["batch_size"] : (s + 1) * kw["batch_size"]]
+                opt.zero_grad(set_to_none=True)
+                loss = torch.nn.functional.cross_entropy(model(x_tr[idx]), y_tr[idx])
+                loss.backward()
+                opt.step()
+                sched.step()
+                if preempt is not None and preempt.fired is not None:
+                    # the step in flight is done: resume at batch s + 1
+                    save_train_state(epoch, s + 1)
+                    logger.info("training stopped: preempted (%s) at epoch %d step %d; train "
+                                "state saved for --resume-from", preempt.fired, epoch, s + 1)
+                    preempted = True
+                    break
+            if preempted:
                 break
+            vce, vacc = _score(model, x_val, y_val)
+            logger.info("epoch %d: val ce=%.5f acc=%.2f%%", epoch, vce, vacc * 100)
+            if tb_every and epoch % tb_every == 0:
+                t0 = time.perf_counter()
+                it = (epoch + 1) * steps_per_epoch
+                tb_writer.add_scalar("val/mean_ce", vce, it)
+                tb_writer.add_scalar("val/acc", vacc, it)
+                tb_writer.add_scalar("train/last_batch_loss", float(loss.detach()), it)
+                log_tb(it)
+                tb_writer.flush()
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                logger.info("TB log at iteration %d: %.3f ms", it, 1e3 * (time.perf_counter() - t0))
+            if vacc > best_acc:
+                best_acc, bad_epochs = vacc, 0
+                new_file = os.path.join(kw["models_dir"], f"dctn_epoch={epoch}_vacc={vacc:.4f}.npz")
+                save_conv_sbs_params_npz(model.params(), new_file)
+                if best_file and os.path.exists(best_file):
+                    os.remove(best_file)
+                best_file = new_file
+            else:
+                bad_epochs += 1
+                patience = kw["early_stopping_patience_num_epochs"]
+                if patience is not None and bad_epochs > patience:
+                    logger.info("early stopping at epoch %d", epoch)
+                    break
+            # the epoch is done, with its eval and bookkeeping: a hard kill
+            # loses at most one epoch
+            save_train_state(epoch + 1, 0)
+    if tracer is not None:
+        tracer.close()
+    if tb_writer is not None:
+        tb_writer.close()
+    writer.wait()
     params = tuple(tuple(tuple(c.detach() for c in s) for s in layer) for layer in model.params())
     return params, best_acc
 

@@ -17,8 +17,15 @@ forward; the last-N and best-per-metric checkpoints in the reference layout
 (npz files the JAX package loads), early stopping, the max-iterations and
 NaN-loss stoppers (the latter replaying to the batch that made the loss
 non-finite), ``train_state_latest.npz`` on the eval schedule, exact
-``--resume-from``, and ``--preempt-save`` (SIGTERM saves the train state and
-stops).
+``--resume-from`` (also of a train state the JAX runner wrote, whose own
+``--resume-from`` reads the port's), and ``--preempt-save`` (SIGTERM saves
+the train state and stops); ``--tb-batches`` (the loss, the regularizer,
+the histogram of the probabilities of the true class and an annotated image
+grid of the batch, on the eval schedule), ``--log-intermediate-outputs``
+(each layer's output on 64 training images, through the forward kernel)
+into ``metrics.jsonl`` (and TensorBoard events where the ``tensorboard``
+package is installed), and ``--profile-dir`` (a ``torch.profiler`` trace
+of the ``--profile-iters`` window).
 
 ``--device cuda`` (the default) runs every EPS layer through the
 hand-written kernels (the forward K1, with t where the backward reads it,
@@ -26,7 +33,12 @@ hand-written kernels (the forward K1, with t where the backward reads it,
 empirical init's forwards through K1 too; ``--device cpu`` runs their plain
 versions. A run on ``cuda`` without a card is refused, never moved to the
 CPU. ``--train-backend`` and ``--eval-backend`` ``auto`` and ``pallas``
-both mean those kernels; ``xla`` is refused.
+both mean those kernels (the fast layout); ``xla`` means the reference
+layout through the plain ``eps``, whose products are ``torch.matmul`` on
+either device (the JAX runner's XLA path): ``--train-backend xla`` trains
+it (``make_train_step``; the init and the statistics at start run the plain
+``eps`` too), and ``--eval-backend xla`` scores it, also for a run that
+trains the fast layout (through ``reference_params_from_fast``).
 
 ``--debug-nans`` turns on torch.autograd's anomaly detection with its NaN
 check: a backward that produces a NaN raises, with the traceback of the
@@ -73,7 +85,10 @@ from ..kernels.eps_q8_kernels import QAT_KERNELS
 from ..models.eps_plus_linear import (
     EPSesPlusLinear,
     EPSesPlusLinearConfig,
+    EPSesPlusLinearReference,
+    eps_plus_linear_forward,
     eps_plus_linear_forward_fast,
+    fast_params_from_reference,
     init_eps_plus_linear,
     intermediate_reps_stats,
     reference_params_from_fast,
@@ -96,13 +111,23 @@ from ..train import (
     make_score_fn,
     make_stopper_after_n_iters,
     make_stopper_on_nan_loss,
+    make_train_step,
     resolve_auto_grad_accum,
     train,
     train_state_arrays,
 )
+from ..train.intermediate_logger import (
+    DEFAULT_TRANSFORMS,
+    eps_plus_linear_named_outputs,
+    eps_plus_linear_named_outputs_fast,
+    log_logits_as_probabilities,
+    log_named_outputs,
+)
 from ..train.preemption import PreemptionHandler
 from ..train.step import REGULARIZERS
+from ..train.tb_logging import MetricsWriter, log_batch_images
 from ..utils import fallbacks
+from ..utils.profiling import StepTracer
 from ..utils.misc import (
     FromFileInit,
     ZeroCenteredNormalInit,
@@ -133,16 +158,8 @@ REFUSED = (
     ("autotune_cache", (False,), "--autotune-cache", "the autotuner (slice 8, item 20)"),
     ("export_artifact", (None,), "--export-artifact", "export and serve (slice 6, item 18)"),
     ("export_quantize", ("none",), "--export-quantize int8", "export and serve (slice 6, item 18)"),
-    ("tb_batches", (False,), "--tb-batches", "TB logging (slice 4, item 13)"),
-    ("log_intermediate_outputs", (False,), "--log-intermediate-outputs",
-     "TB logging (slice 4, item 13)"),
-    ("profile_dir", (None,), "--profile-dir", "profiling (slice 4, item 23)"),
     ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
      "a single-pass operand mode (Queue 2, follow-up 4)"),
-    ("train_backend", ("auto", "pallas"), "--train-backend xla",
-     "the differentiable reference-layout eps() (slice 4, item 8)"),
-    ("eval_backend", ("auto", "pallas"), "--eval-backend xla",
-     "the differentiable reference-layout eps() (slice 4, item 8)"),
 )
 
 
@@ -279,14 +296,15 @@ def _hint_saved_t_recipe(cfg, plans, batch: int, accum: int) -> None:
 @click.option("--compute-dtype", type=click.Choice(("float32", "bfloat16")), default="float32",
               help="float32 only (bfloat16: ROADMAP Queue 2, follow-up 4)")
 @click.option("--eval-backend", type=click.Choice(("auto", "xla", "pallas")), default="auto",
-              help="auto or pallas: the kernels on cuda, their plain versions on cpu "
-                   "(xla: ROADMAP item 8)")
+              help="auto or pallas: the fast layout, through the kernels on cuda and their "
+                   "plain versions on cpu; xla: the reference layout through torch.matmul")
 @click.option("--train-backend", type=click.Choice(("auto", "xla", "pallas")), default="auto",
               help="as --eval-backend, for the training step")
 @click.option("--tb-batches/--no-tb-batches", default=False,
-              help="not ported yet (TB logging, ROADMAP item 13)")
+              help="log the batch loss, reg_term, the probabilities of the true class and an "
+                   "image grid into metrics.jsonl (and TensorBoard) on the eval schedule")
 @click.option("--log-intermediate-outputs/--no-log-intermediate-outputs", default=False,
-              help="not ported yet (TB logging, ROADMAP item 13)")
+              help="log each layer's output on 64 training images on the eval schedule")
 @click.option("--debug-nans/--no-debug-nans", default=False,
               help="torch.autograd anomaly detection with its NaN check (slow; debugging only)")
 @click.option("--breakpoint-on-nan-loss/--no-breakpoint-on-nan-loss", default=False,
@@ -324,7 +342,8 @@ def _hint_saved_t_recipe(cfg, plans, batch: int, accum: int) -> None:
 @click.option("--eval-train-subset", type=int, default=None,
               help="score only this many train samples per eval (full set if unset)")
 @click.option("--profile-dir", type=click.Path(file_okay=False), default=None,
-              help="not ported yet (profiling, ROADMAP item 23)")
+              help="write a torch.profiler trace (CPU and CUDA activity) of the "
+                   "--profile-iters window into this directory")
 @click.option("--profile-iters", nargs=2, type=int, default=(10, 5),
               help="START COUNT window for --profile-dir")
 @click.option("--preempt-save/--no-preempt-save", default=True,
@@ -397,6 +416,11 @@ def _validate(kw: dict) -> None:
                    else "grayscale datasets only (colored datasets scale per channel via "
                         "--nu-per-channel)")
             )
+    if kw["qat"] not in (None, "none") and "xla" in (kw["train_backend"], kw["eval_backend"]):
+        raise click.BadParameter(
+            "--qat int8 runs on the fast (cmt) layout's kernels: --train-backend and "
+            "--eval-backend must both be pallas (or auto)"
+        )
     if not 0.0 < kw["dropout_p"] <= 1.0:
         raise click.BadParameter(f"--dropout-p {kw['dropout_p']}: a keep probability in (0, 1]")
     if any(not 0 <= i < len(specs) for i in kw["freeze_eps"]):
@@ -451,7 +475,8 @@ def run(**kwargs) -> TrainLoopState:
     """Programmatic entry: the flags as keyword arguments by their Python
     names; unspecified ones take the CLI defaults. Returns the final
     ``TrainLoopState``; its ``extras`` hold the run's ``output_dir``,
-    ``model``, ``step``, ``gather`` and ``timing``."""
+    ``model``, ``step``, ``gather``, ``timing`` and ``params_view`` (the
+    loop's params → the reference layout)."""
     kw = fill_defaults(main, dict(kwargs))
     _validate(kw)
     device = torch.device(kw["device"])
@@ -484,6 +509,10 @@ def run(**kwargs) -> TrainLoopState:
     cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=image_size, q0=q0,
                                 dropout_p=kw["dropout_p"])
     qat = None if kw["qat"] in (None, "none") else kw["qat"]
+    # the layouts the backends train and score: xla is the reference layout
+    # through the plain eps, anything else the fast layout's kernels
+    train_ref = kw["train_backend"] == "xla"
+    eval_ref = kw["eval_backend"] == "xla"
 
     # --- model init (new_runner.py:378-431); the init and the dropout masks
     # draw from generators of their own, both from --seed ---
@@ -493,7 +522,8 @@ def run(**kwargs) -> TrainLoopState:
     x_init = torch.as_tensor(splits.train.x[:, :subset], device=device)
     if kw["init_epses_composition_unit_empirical_output_std"]:
         params = init_eps_plus_linear(init_gen, cfg, "unit_empirical_output_std", device,
-                                      init_input=x_init, init_batch_size=kw["batch_size"])
+                                      init_input=x_init, init_batch_size=kw["batch_size"],
+                                      plain=train_ref)
     elif kw["init_epses_composition_unit_theoretical_output_std"]:
         params = init_eps_plus_linear(init_gen, cfg, "unit_theoretical_output_std", device)
     else:
@@ -516,12 +546,16 @@ def run(**kwargs) -> TrainLoopState:
         logger.info("inner_product(epses, epses)=%.4e",
                     float(composition.inner_product(params["epses"], params["epses"])))
         stats_bs = kw["log_intermediate_reps_stats_batch_size"] or kw["batch_size"] // 2
-        intermediate_reps_stats(params, x_init, cfg, stats_bs)
+        intermediate_reps_stats(params, x_init, cfg, stats_bs, plain=train_ref)
     del x_init
 
-    # --- training assembly (new_runner.py:443-546): the fast (cmt) layout ---
-    model = EPSesPlusLinear.from_reference(params, cfg, device=device)
-    plans = model.plans
+    # --- training assembly (new_runner.py:443-546): the fast (cmt) layout,
+    # or the reference one for --train-backend xla ---
+    plans = fast_params_from_reference(params, cfg)[1]
+    if train_ref:
+        model = EPSesPlusLinearReference(params, cfg).to(device)
+    else:
+        model = EPSesPlusLinear.from_reference(params, cfg, device=device)
     del params
     optimizer = make_optimizer(kw["optimizer_name"], model.parameters(), kw["lr"], kw["wd"])
     if kw["grad_accum_steps"] == "auto":
@@ -532,25 +566,54 @@ def run(**kwargs) -> TrainLoopState:
                 f"grad-accum-steps auto took the saved-t cap's pick {kw['grad_accum_steps']} "
                 "without timing the candidates (the autotuner, ROADMAP item 20)"
             )
-    step = make_fast_train_step(
-        model, optimizer, kw["reg_type"], kw["reg_coeff"],
-        frozen_eps_indices=kw["freeze_eps"], grad_accum_steps=kw["grad_accum_steps"], qat=qat,
-    )
-    _hint_saved_t_recipe(cfg, plans, kw["batch_size"], kw["grad_accum_steps"])
+    if train_ref:
+        step = make_train_step(
+            model, optimizer, kw["reg_type"], kw["reg_coeff"],
+            frozen_eps_indices=kw["freeze_eps"], with_probs=kw["tb_batches"],
+            grad_accum_steps=kw["grad_accum_steps"],
+        )
+    else:
+        step = make_fast_train_step(
+            model, optimizer, kw["reg_type"], kw["reg_coeff"],
+            frozen_eps_indices=kw["freeze_eps"], with_probs=kw["tb_batches"],
+            grad_accum_steps=kw["grad_accum_steps"], qat=qat,
+        )
+        _hint_saved_t_recipe(cfg, plans, kw["batch_size"], kw["grad_accum_steps"])
     eval_kernels = KERNELS if qat is None else QAT_KERNELS
     if qat is not None:
         logger.info("QAT int8 active: W8A8 forward with straight-through gradients; evals "
                     "score the quantized forward")
 
-    def forward(fast, xb):
-        return eps_plus_linear_forward_fast(fast, xb, cfg, plans, kernels=eval_kernels)
+    def params_view(params):
+        """The reference layout of the loop's params (``state.params``)."""
+        return params if train_ref else reference_params_from_fast(params, cfg, plans)
 
-    def params_view(fast):
-        return reference_params_from_fast(fast, cfg, plans)
+    def eval_params(params):
+        """The loop's params in the eval backend's layout."""
+        if eval_ref:
+            return params_view(params)
+        return fast_params_from_reference(params, cfg, plans)[0] if train_ref else params
 
-    score = make_score_fn(cfg, plans, kw["batch_size"], forward_fn=forward)
-    logger.info("fast (cmt) parameter layout on %s: EPS layers through %s", device,
-                "the CUDA kernels" if device.type == "cuda" else "the kernels' plain versions")
+    def eval_forward(params, xb):
+        """The eval backend's forward of params in its layout."""
+        if eval_ref:
+            return eps_plus_linear_forward(params, xb, cfg)
+        return eps_plus_linear_forward_fast(params, xb, cfg, plans, kernels=eval_kernels)
+
+    def forward(params, xb):
+        return eval_forward(eval_params(params), xb)
+
+    score_eval = make_score_fn(cfg, plans, kw["batch_size"], forward_fn=eval_forward)
+
+    def score(params, x, y):
+        return score_eval(eval_params(params), x, y)
+    logger.info(
+        "%s parameter layout on %s: training through %s, evals through %s",
+        "reference" if train_ref else "fast (cmt)", device,
+        "the plain eps (torch.matmul)" if train_ref
+        else "the CUDA kernels" if device.type == "cuda" else "the kernels' plain versions",
+        "the plain eps (torch.matmul)" if eval_ref else "the fast layout's forward",
+    )
 
     x_tr = torch.as_tensor(splits.train.x, device=device)
     y_tr = torch.as_tensor(splits.train.y.astype(np.int64), device=device)
@@ -571,32 +634,47 @@ def run(**kwargs) -> TrainLoopState:
     if kw["resume_from"]:
         try:
             resume_step = load_train_state(kw["resume_from"], model, optimizer, cfg, plans, generator)
+            with np.load(kw["resume_from"]) as d:
+                written_by_jax = "generator_state" not in d.files
         except (KeyError, ValueError) as e:
             raise click.ClickException(f"--resume-from {kw['resume_from']}: {e}") from None
         logger.info("resumed train state from %s at step %d", kw["resume_from"], resume_step)
+        if written_by_jax and cfg.dropout_p < 1.0:
+            # the JAX key's dropout stream has no counterpart in a torch
+            # generator: the masks from here on are the port's own draws
+            fallbacks.record(
+                f"--resume-from {kw['resume_from']} has no generator_state (a train state the "
+                "JAX runner wrote): its dropout stream cannot be continued, the resumed run "
+                "draws its masks from the port's generator seeded from --seed"
+            )
         # the shuffled batch stream restarts at epoch 0: fast-forward it, so
         # the resumed run takes the batches the unbroken run would have
         for _ in range(resume_step):
             next(index_stream)
 
     schedule = every_n_iters_intervals(*kw["eval_schedule"])
-    timing = {"hooks_s": 0.0, "eval_s": 0.0, "evals": 0}
+    # hook_s: each named hook's seconds, call by call
+    timing = {"hooks_s": 0.0, "eval_s": 0.0, "evals": 0, "hook_s": {}}
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    def timed(hook):
+    def timed(hook, name=None):
         """``hook`` with its host time counted apart from the steps': the
         card is synchronised before the clock starts and again before it
-        stops."""
+        stops. A ``name`` also lists each call's seconds in
+        ``timing["hook_s"][name]``."""
 
         def wrapped(state):
             sync()
             t0 = time.perf_counter()
             hook(state)
             sync()
-            timing["hooks_s"] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            timing["hooks_s"] += dt
+            if name is not None:
+                timing["hook_s"].setdefault(name, []).append(dt)
 
         return wrapped
 
@@ -630,7 +708,7 @@ def run(**kwargs) -> TrainLoopState:
         iteration just done and the generator already stands at the next."""
         writer.submit(
             train_state_arrays(model, optimizer, state.num_iters_done + completed_offset, plans,
-                               generator),
+                               generator, seed=train_seed),
             os.path.join(output_dir, "train_state_latest.npz"),
         )
 
@@ -653,11 +731,70 @@ def run(**kwargs) -> TrainLoopState:
         interactive=kw["breakpoint_on_nan_loss"],
     )
     after_step = [schedule(timed(nan_stopper))]
+    metrics_writer = None
+    if kw["tb_batches"] or kw["log_intermediate_outputs"]:
+        metrics_writer = MetricsWriter(output_dir)
+    if kw["tb_batches"]:
+        raw_images = splits.train.unmodified_x
 
-    state = TrainLoopState(params=model.fast_params(), opt_state=optimizer, rng=generator,
-                           num_iters_done=resume_step)
+        def log_batch_to_tb(state: TrainLoopState) -> None:
+            """The step's metrics on the eval schedule (runner.py:1632-1647):
+            read from the card here only, so the steps between stay free of
+            host syncs."""
+            m = state.device_metrics
+            if m is None:
+                return
+            nitd = state.num_iters_done
+            metrics_writer.add_scalar("loss", float(m["loss"]), nitd)
+            metrics_writer.add_scalar("reg_term", float(m["reg_term"]), nitd)
+            probs = m["probs_of_true_class"].cpu().numpy()
+            metrics_writer.add_histogram("probs_of_true_class", probs, nitd)
+            if raw_images is not None and raw_images.ndim == 3:
+                sel = state.batch_indices[:32].cpu().numpy()
+                log_batch_images(metrics_writer, raw_images[sel], probs[:32],
+                                 splits.train.y[sel], nitd)
+            metrics_writer.flush()
+
+        after_step.append(schedule(timed(log_batch_to_tb, "tb_batches")))
+    if kw["log_intermediate_outputs"]:
+        probe = x_tr[:, : min(64, x_tr.shape[1])]
+
+        def log_intermediates(state: TrainLoopState) -> None:
+            """Each layer's output on the probe images (runner.py:1649-1678):
+            the fast layout's through the forward kernel, the reference
+            layout's through the plain eps."""
+            with torch.no_grad():
+                if train_ref:
+                    named = eps_plus_linear_named_outputs(state.params, probe, cfg)
+                else:
+                    named = eps_plus_linear_named_outputs_fast(state.params, probe, cfg, plans)
+            log_named_outputs(metrics_writer, named, state.num_iters_done, DEFAULT_TRANSFORMS)
+            log_named_outputs(metrics_writer, named, state.num_iters_done,
+                              (log_logits_as_probabilities,),
+                              module_filter=lambda name: name == "linear")
+            metrics_writer.flush()
+
+        at_iter_start.append(schedule(timed(log_intermediates, "intermediate_outputs")))
+    tracer = None
+    if kw["profile_dir"]:
+        # first at an iteration's start, so that an eval there falls
+        # outside the window; its starting and writing the trace are timed
+        # apart from the steps (the window's own time is the tracer's)
+        tracer = StepTracer(kw["profile_dir"], *kw["profile_iters"])
+        timed_tracer = timed(tracer, "profiler")
+
+        def profile(state: TrainLoopState) -> None:
+            if tracer.acts_at(state.num_iters_done):
+                timed_tracer(state)
+
+        at_iter_start.insert(0, profile)
+
+    state = TrainLoopState(
+        params=model.reference_params() if train_ref else model.fast_params(),
+        opt_state=optimizer, rng=generator, num_iters_done=resume_step,
+    )
     state.extras.update(output_dir=output_dir, cfg=cfg, model=model, step=step, gather=gather,
-                        timing=timing)
+                        timing=timing, params_view=params_view)
     nan_stopper.enable_replay(state)
     batches = _device_batches(index_stream, len(batcher), device)
     with contextlib.ExitStack() as stack:
@@ -675,6 +812,12 @@ def run(**kwargs) -> TrainLoopState:
         train(state, step, gather, batches, at_iter_start=at_iter_start, after_step=after_step)
         sync()
         loop_s = time.perf_counter() - t0
+    if tracer is not None:
+        tracer.close()
+        timing["profile_window"] = {"iterations": tracer.iterations, "s": tracer.window_s,
+                                    "export_s": tracer.export_s}
+    if metrics_writer is not None:
+        metrics_writer.close()
     writer.wait()
     iters = state.num_iters_done - resume_step
     timing.update(loop_s=loop_s, iters=iters)

@@ -14,8 +14,11 @@ Parameters come in two layouts, as in the JAX package:
 ``EPSesPlusLinear`` is the ``nn.Module`` that holds the fast layout on one
 device; its parameters require gradients, and serving runs it under
 ``torch.inference_mode``; with ``eps_q8_kernels.QAT_KERNELS`` it is the
-quantization-aware training forward. ``EPSesPlusLinearQ8`` holds the int8
-serving parameters (``forward_fast_q8``).
+quantization-aware training forward. ``EPSesPlusLinearReference`` holds
+the reference layout, whose forward (``eps_plus_linear_forward``) runs the
+plain ``eps`` with its backward: the runners' xla backend.
+``EPSesPlusLinearQ8`` holds the int8 serving parameters
+(``forward_fast_q8``).
 
 Parameter dropout keeps each component of a core with probability p and
 scales the kept ones by 1/p. Its masks are drawn over the reference core
@@ -117,6 +120,7 @@ def init_eps_plus_linear(
     eps_inits: Optional[Sequence[OneTensorInit]] = None,
     linear_weight_init: Optional[OneTensorInit] = None,
     linear_bias_init: Optional[OneTensorInit] = None,
+    plain: bool = False,
 ) -> Params:
     """The reference-layout parameters on ``device``, the cores and then the
     linear layer drawn from ``generator`` (eps_plus_linear.py:110-150).
@@ -126,7 +130,7 @@ def init_eps_plus_linear(
     - ``"unit_empirical_output_std"``: per layer, a unit-normal core rescaled
       to output std 1 on ``init_input`` (C, N, H, W, Q), pushed through the
       layers in slices of ``init_batch_size`` on its device (through the
-      forward kernel on a card);
+      forward kernel on a card, unless ``plain``);
     - ``"manual"``: ``eps_inits`` per core, and ``linear_weight_init`` /
       ``linear_bias_init`` for the classifier.
     """
@@ -134,7 +138,7 @@ def init_eps_plus_linear(
         if init_input is None or init_input.shape[2] != cfg.image_size:
             raise ValueError("the empirical init needs init_input of the model's image size")
         epses = composition.make_unit_empirical_output_std(
-            generator, cfg.epses_specs, init_input, cfg.dtype, init_batch_size
+            generator, cfg.epses_specs, init_input, cfg.dtype, init_batch_size, plain=plain
         )
         epses = tuple(c.to(device) for c in epses)
     elif initialization == "unit_theoretical_output_std":
@@ -167,12 +171,25 @@ def _transposed_classifier(outT: torch.Tensor, linear) -> torch.Tensor:
     return logits + linear["b"]
 
 
-def eps_plus_linear_forward(params: Params, x: torch.Tensor, cfg: EPSesPlusLinearConfig):
-    """Reference-layout forward, plain: ``x`` (C, B, H, W, Q₀) → logits
-    (B, num_classes)."""
-    del cfg  # the layer shapes come from the cores
+def dropout_epses(epses, p: float, masks) -> Tuple[torch.Tensor, ...]:
+    """Parameter dropout on the reference layout (``_dropout_epses``,
+    eps_plus_linear.py:156-165): core·mask/p, differentiable in the core."""
+    return tuple(core * mask.to(core.device, core.dtype) / p for core, mask in zip(epses, masks))
+
+
+def eps_plus_linear_forward(
+    params: Params, x: torch.Tensor, cfg: EPSesPlusLinearConfig, masks=None
+):
+    """Reference-layout forward through the plain ``eps`` (its products
+    ``torch.matmul``; differentiable through ``eps``'s backward): ``x``
+    (C, B, H, W, Q₀) → logits (B, num_classes) (eps_plus_linear.py:248-293,
+    the xla backend). ``masks`` (one per core) applies parameter dropout
+    with ``cfg.dropout_p``."""
+    epses = params["epses"]
+    if masks is not None:
+        epses = dropout_epses(epses, cfg.dropout_p, masks)
     intermediate = x
-    for core in params["epses"]:
+    for core in epses:
         intermediate = eps_mod.eps(core, intermediate)[None]
     h = intermediate[0]  # (B, H', W', Q_out)
     return h.reshape(h.shape[0], -1) @ params["linear"]["w"] + params["linear"]["b"]
@@ -374,14 +391,16 @@ def epswise_l2_regularizer_fast(fast) -> torch.Tensor:
 
 
 def intermediate_reps_stats(
-    params: Params, x: torch.Tensor, cfg: EPSesPlusLinearConfig, batch_size: int = 128
+    params: Params, x: torch.Tensor, cfg: EPSesPlusLinearConfig, batch_size: int = 128,
+    plain: bool = False,
 ) -> Dict[str, Dict[str, float]]:
     """μ, σ and μ²+σ² of every intermediate representation x_n, of the
     window batches w_n (as rank-one tensors, never densified) and of the
     classifier's output with and without bias, on ``x`` (C, N, H, W, Q)
     without dropout (eps_plus_linear.py:526-569). Each layer runs over
     ``x`` in slices of ``batch_size`` (``transform_in_slices``: the forward
-    kernel on a card). Logs a line per statistic and returns them."""
+    kernel on a card, unless ``plain``). Logs a line per statistic and
+    returns them."""
     del cfg
     stats: Dict[str, Dict[str, float]] = {}
 
@@ -394,7 +413,7 @@ def intermediate_reps_stats(
         w = make_windows(x, eps_mod._infer_kernel_size(core, x.shape[0]))
         one(f"w_{n}", float(w.mean_over_batch()), float(w.std_over_batch(unbiased=False)))
         del w
-        x = eps_mod.transform_in_slices(core, x, batch_size)
+        x = eps_mod.transform_in_slices(core, x, batch_size, plain)
     flat = x[0].reshape(x.shape[1], -1)
     one(f"x_{len(params['epses'])}", float(flat.mean()), float(flat.std(correction=0)))
     no_bias = flat @ params["linear"]["w"]
@@ -440,6 +459,30 @@ class EPSesPlusLinear(nn.Module):
         return eps_plus_linear_forward_fast(
             self.fast_params(), x, self.cfg, self.plans, kernels=kernels
         )
+
+
+class EPSesPlusLinearReference(nn.Module):
+    """The model in the reference layout on one device, for the runners'
+    ``xla`` backend: every core as its (Q,)*(K²·C) + (O,) tensor, the layers
+    through the plain ``eps`` (``eps_plus_linear_forward``). It owns copies
+    of the tensors it is given."""
+
+    def __init__(self, params: Params, cfg: EPSesPlusLinearConfig):
+        super().__init__()
+        self.cfg = cfg
+
+        def param(t):
+            return nn.Parameter(t.detach().clone())
+
+        self.cores = nn.ParameterList(param(c) for c in params["epses"])
+        self.linear_w = param(params["linear"]["w"])
+        self.linear_b = param(params["linear"]["b"])
+
+    def reference_params(self) -> Params:
+        return {"epses": tuple(self.cores), "linear": {"w": self.linear_w, "b": self.linear_b}}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return eps_plus_linear_forward(self.reference_params(), x, self.cfg)
 
 
 class EPSesPlusLinearQ8(nn.Module):

@@ -123,13 +123,16 @@ def make_unit_empirical_output_std(
     dtype: torch.dtype = torch.float32,
     batch_size: int = 128,
     unit_cores: Optional[Sequence[torch.Tensor]] = None,
+    plain: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """The data-dependent init (composition.py:167-186): per layer, a
     unit-normal core rescaled so that its output on the init subset has std
     1, then the subset transformed by the scaled core into the next layer's
     input. ``x`` (C, N, H, W, Q) on the device the cores are made on. The
     unit-normal cores are drawn from ``generator`` in layer order, unless
-    ``unit_cores`` gives them (the JAX package's draws, in the tests)."""
+    ``unit_cores`` gives them (the JAX package's draws, in the tests).
+    ``plain`` pushes the subset through the reference-layout ``eps`` also
+    on a card (``eps.transform_in_slices``)."""
     epses = []
     x = x.to(dtype)
     for i, (kernel_size, out_size) in enumerate(epses_specs):
@@ -140,8 +143,8 @@ def make_unit_empirical_output_std(
             )
         else:
             core = unit_cores[i].to(x.device, dtype)
-        core = eps_mod.scale_to_unit_empirical_output_std(core, x, batch_size)
-        x = eps_mod.transform_in_slices(core, x, batch_size)
+        core = eps_mod.scale_to_unit_empirical_output_std(core, x, batch_size, plain)
+        x = eps_mod.transform_in_slices(core, x, batch_size, plain)
         epses.append(core)
     return tuple(epses)
 

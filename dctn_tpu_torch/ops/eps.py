@@ -12,6 +12,15 @@ parameter layout's shape depends on it, and checkpoints and parity tests
 compare those matrices one-to-one. ``_split_cost`` is therefore the JAX
 package's TPU cost model, kept as it is; a cost model for Hopper tiles is
 later work (the split is exact, so any n1 gives the same numbers).
+
+``eps`` is differentiable: by default through ``EPSContract``, the JAX
+package's hand-written backward (``_eps_contract_fwd/_bwd``) as a
+``torch.autograd.Function`` that saves what the JAX custom VJP saves (the
+transposed views, the Khatri-Rao prefixes of both halves and t); with
+``custom_vjp=False`` through autograd of the staged forward. Its products
+are ``torch.matmul``, on any device: the runners' ``xla`` backend (the JAX
+package's XLA einsums and matmuls, which no Pallas kernel replaces).
+``eps_one_by_one`` is the sequential-absorption oracle.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..kernels.eps_kernels import _core_to_cmt_k, _kernel_dims, eps_apply_t_cmt, plan_call
-from .windows import window_views
+from .windows import out_spatial, window_views
 
 
 def eps_shape(
@@ -30,6 +39,17 @@ def eps_shape(
 ) -> Tuple[int, ...]:
     """Shape an EPS core with these parameters must have."""
     return (in_size,) * (kernel_size**2 * in_num_channels) + (out_size,)
+
+
+def is_eps(a) -> bool:
+    """Whether ``a`` plausibly is an EPS core, judging by shape (eps.py:53)."""
+    return a.ndim >= 2 and all(s == a.shape[0] for s in a.shape[:-1])
+
+
+def matrix_shape(core) -> Tuple[int, int]:
+    """(out_size, total_in_size) of the matricized core (eps.py:56-59)."""
+    assert is_eps(core)
+    return core.shape[-1], math.prod(core.shape[:-1])
 
 
 def total_in_dim_size(kernel_size: int, in_num_channels: int, in_size: int) -> int:
@@ -84,11 +104,104 @@ def _balanced_split(n: int, q: int, out_size: int) -> int:
     )
 
 
-def eps(core: torch.Tensor, x: torch.Tensor, split: Optional[int] = None) -> torch.Tensor:
+def _kr_prefixes_t(factors_t: Sequence[torch.Tensor]):
+    """Prefix Khatri-Rao products in the transposed layout: factors (q, N) →
+    [(q₁, N), (q₁q₂, N), …], factor 1 slowest-varying (eps.py:137-149)."""
+    prods = [factors_t[0]]
+    for f in factors_t[1:]:
+        p = prods[-1]
+        prods.append((p[:, None, :] * f[None, :, :]).reshape(-1, p.shape[-1]))
+    return prods
+
+
+def _kr_chain_bwd_t(factors_t, prefixes_t, d_prod_t):
+    """Cotangents of every (q, N) factor of a transposed Khatri-Rao chain, by
+    the suffix sweep (eps.py:152-166)."""
+    d_factors = [None] * len(factors_t)
+    d = d_prod_t
+    for k in range(len(factors_t) - 1, 0, -1):
+        d3 = d.reshape(-1, factors_t[k].shape[0], d.shape[-1])  # (prod_{<k}, q_k, N)
+        d_factors[k] = torch.sum(d3 * prefixes_t[k - 1][:, None, :], dim=0)
+        d = torch.sum(d3 * factors_t[k][None, :, :], dim=1)
+    d_factors[0] = d
+    return d_factors
+
+
+class EPSContract(torch.autograd.Function):
+    """out[n, o] = Σ_{a,b} u[a,n]·v[b,n]·core[a,b,o] over the window views,
+    in the transposed (features, N) layout, with the JAX package's explicit
+    backward (``_eps_contract_fwd/_bwd``, eps.py:182-276): it saves the
+    core, the transposed views, the prefixes of both Khatri-Rao halves and
+    t, and computes d_core = u·(v ⊗ g)ᵀ, d_u = core·(v ⊗ g), d_v = Σ_o t·g,
+    then the suffix sweeps to each view's cotangent."""
+
+    @staticmethod
+    def forward(ctx, core, n1, *views):
+        n = len(views)
+        in_size = views[0].shape[-1]
+        out_size = core.shape[-1]
+        b, hp, wp, _ = views[0].shape
+        npix = b * hp * wp
+        views_t = tuple(v.reshape(npix, in_size).T for v in views)  # (Q, N)
+        u_prefixes = _kr_prefixes_t(views_t[:n1])
+        cm = core.reshape(in_size**n1, in_size ** (n - n1) * out_size)
+        t_t = cm.T @ u_prefixes[-1]  # (Q^n2·O, N)
+        ctx.dims = (n, n1, (b, hp, wp))
+        if n1 == n:
+            ctx.save_for_backward(core, *views_t, *u_prefixes)
+            return t_t.T.reshape(b, hp, wp, out_size)
+        v_prefixes = _kr_prefixes_t(views_t[n1:])
+        t3 = t_t.reshape(in_size ** (n - n1), out_size, npix)
+        out_t = torch.sum(v_prefixes[-1][:, None, :] * t3, dim=0)  # (O, N)
+        ctx.save_for_backward(core, *views_t, *u_prefixes, *v_prefixes, t3)
+        return out_t.T.reshape(b, hp, wp, out_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, n1, (b, hp, wp) = ctx.dims
+        # saved: the core, the n views, the n1 u prefixes, then (unless
+        # n1 == n) the n - n1 v prefixes and t3
+        core, *rest = ctx.saved_tensors
+        views_t, u_prefixes = rest[:n], rest[n : n + n1]
+        in_size = views_t[0].shape[0]
+        out_size = core.shape[-1]
+        npix = views_t[0].shape[-1]
+        u_t = u_prefixes[-1]
+        cm = core.reshape(in_size**n1, in_size ** (n - n1) * out_size)
+        g_t = g.reshape(npix, out_size).T  # (O, N)
+        # the input's cotangents only where the views need them (a first
+        # layer's input does not)
+        need_views = any(ctx.needs_input_grad[2:])
+        if n1 == n:
+            d_cm = u_t @ g_t.T  # (Q^n1, O)
+            if not need_views:
+                return (d_cm.reshape(core.shape), None, *([None] * n))
+            d_u = cm @ g_t  # (Q^n1, N)
+            d_views_t = _kr_chain_bwd_t(views_t, u_prefixes, d_u)
+        else:
+            v_prefixes, t3 = rest[n + n1 : -1], rest[-1]
+            kr2 = (v_prefixes[-1][:, None, :] * g_t[None, :, :]).reshape(-1, npix)
+            d_cm = u_t @ kr2.T  # (Q^n1, Q^n2·O)
+            if not need_views:
+                return (d_cm.reshape(core.shape), None, *([None] * n))
+            d_u = cm @ kr2  # (Q^n1, N)
+            d_v = torch.sum(t3 * g_t[None, :, :], dim=1)  # (Q^n2, N)
+            d_views_t = _kr_chain_bwd_t(views_t[:n1], u_prefixes, d_u) + _kr_chain_bwd_t(
+                views_t[n1:], v_prefixes, d_v
+            )
+        d_views = tuple(d.T.reshape(b, hp, wp, in_size) for d in d_views_t)
+        return (d_cm.reshape(core.shape), None, *d_views)
+
+
+def eps(
+    core: torch.Tensor, x: torch.Tensor, split: Optional[int] = None, custom_vjp: bool = True
+) -> torch.Tensor:
     """Contract an EPS ``core`` (Q,)*(K²·C) + (O,) with all K×K windows of
-    ``x`` (C, B, H, W, Q), giving (B, H', W', O). The plain reference-layout
-    forward (eps.py:339-364) without autograd glue: plain torch ops, any
-    device, any float dtype."""
+    ``x`` (C, B, H, W, Q), giving (B, H', W', O): the reference-layout
+    operator (eps.py:278-364), plain torch ops on any device and float
+    dtype. Differentiable in ``core`` and ``x``: through ``EPSContract``
+    (the JAX package's backward, the default), or with ``custom_vjp=False``
+    through autograd of the staged forward."""
     num_channels, _, _, _, in_size = x.shape
     kernel_size = _infer_kernel_size(core, num_channels)
     n = kernel_size**2 * num_channels
@@ -98,6 +211,8 @@ def eps(core: torch.Tensor, x: torch.Tensor, split: Optional[int] = None) -> tor
     n1 = split if split is not None else _balanced_split(n, in_size, out_size)
     n1 = max(1, min(n, n1))
     views = window_views(x, kernel_size)
+    if custom_vjp:
+        return EPSContract.apply(core, n1, *views)
     u = khatri_rao(views[:n1])  # (B, H', W', Q^n1)
     t = u @ core.reshape(in_size**n1, in_size ** (n - n1) * out_size)
     if n1 == n:
@@ -105,6 +220,24 @@ def eps(core: torch.Tensor, x: torch.Tensor, split: Optional[int] = None) -> tor
     v = khatri_rao(views[n1:])  # (B, H', W', Q^n2)
     t = t.reshape(*t.shape[:-1], in_size ** (n - n1), out_size)
     return torch.sum(v[..., :, None] * t, dim=-2)
+
+
+def eps_one_by_one(core: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Absorb one window factor at a time (the oracle, eps.py:367-388):
+    memory-light, K²·C small contractions."""
+    num_channels, batch, height, width, in_size = x.shape
+    kernel_size = _infer_kernel_size(core, num_channels)
+    if core.shape[:-1] != (in_size,) * (kernel_size**2 * num_channels):
+        raise ValueError(f"core shape {tuple(core.shape)} does not fit input Q={in_size}")
+    intermediate = None
+    for view in window_views(x, kernel_size):
+        if intermediate is None:
+            intermediate = torch.tensordot(view, core, dims=([3], [0]))
+        else:
+            intermediate = torch.einsum("bhwi,bhwi...->bhw...", view, intermediate)
+    out_h, out_w = out_spatial(height, width, kernel_size)
+    assert tuple(intermediate.shape) == (batch, out_h, out_w, core.shape[-1])
+    return intermediate
 
 
 # ---------------------------------------------------------------------------
@@ -157,16 +290,19 @@ def absorb_on_input_dims(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # dataset-scale application
 
 
-def transform_in_slices(core: torch.Tensor, x: torch.Tensor, batch_size: int = 128) -> torch.Tensor:
+def transform_in_slices(
+    core: torch.Tensor, x: torch.Tensor, batch_size: int = 128, plain: bool = False
+) -> torch.Tensor:
     """Apply the EPS ``core`` to a whole dataset ``x`` (C, N, H, W, Q) in
     slices of ``batch_size`` images, without gradients: (1, N, H', W', O)
     (eps.py:454-470). On a CUDA tensor each slice runs the forward kernel
     (K1, ``eps_apply_t_cmt`` on the core's cmt), as training does; on the
-    CPU, the plain reference-layout ``eps``."""
+    CPU, or with ``plain`` (the runners' xla backend), the reference-layout
+    ``eps``."""
     num_channels, n_total, _, _, in_size = x.shape
     kernel_size = _infer_kernel_size(core, num_channels)
     out_size = core.shape[-1]
-    if x.device.type == "cpu":
+    if plain or x.device.type == "cpu":
         def apply(xs):
             return eps(core, xs)
     else:
@@ -229,16 +365,17 @@ def draw_unit_normal_core(
 
 
 def scale_to_unit_empirical_output_std(
-    core: torch.Tensor, x: torch.Tensor, batch_size: int = 128
+    core: torch.Tensor, x: torch.Tensor, batch_size: int = 128, plain: bool = False
 ) -> torch.Tensor:
     """``core`` rescaled by 1/std of its output on ``x`` (C, N, H, W, Q), so
     that the empirical output std is 1 (eps.py:504-527): the population
     (biased) std, each slice's sum and sum of squares taken on the device in
     the run's precision (float64 for a float64 run) and added up in float64
-    on the host, with one transfer at the end."""
+    on the host, with one transfer at the end. ``plain`` as in
+    ``transform_in_slices``."""
     sums = []
     count = 0
-    for out in transform_in_slices(core, x.to(core.dtype), batch_size)[0].split(batch_size):
+    for out in transform_in_slices(core, x.to(core.dtype), batch_size, plain)[0].split(batch_size):
         acc = torch.float64 if out.dtype == torch.float64 else torch.float32
         sums.append(torch.stack((out.sum(dtype=acc), (out.to(acc) ** 2).sum())).double())
         count += out.numel()

@@ -6,8 +6,10 @@ A ConvSBS parameterizes a multilinear window operator as a tensor train:
 one core per kernel position, of shape ``(out_q, bond_l, bond_r, Q_in, …,
 Q_in)`` (one Q_in dim per channel). ``conv_sbs`` here is the JAX package's
 ``backend="xla"`` fold in the reference layout; the batch-minor kernel
-route is ``kernels.sbs_kernels.conv_sbs_t``. The TT statistics (``tt_*``)
-and ``as_eps`` are not ported yet (ROADMAP, the logging slice).
+route is ``kernels.sbs_kernels.conv_sbs_t``. The TT statistics
+(``tt_sum`` … ``tt_std``, the legacy runner's TB logging reads them) fold
+small per-core transfer matrices with plain torch ops and never build the
+implied dense tensor; ``as_explicit_tensor`` and ``as_eps`` do build it.
 
 The inits draw from a ``torch.Generator``, so the same seed gives other
 numbers than ``jax.random``; the tests carry weights across as numpy.
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import reduce
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -46,6 +49,10 @@ class SBSCoreShape:
         return (
             self.out_quantum_dim_size, self.bond_left_size, self.bond_right_size,
         ) + (self.in_quantum_dim_size,) * self.in_num_channels
+
+    @property
+    def total_dangling_dimensions_size(self) -> int:
+        return self.in_quantum_dim_size**self.in_num_channels * self.out_quantum_dim_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +112,11 @@ class SBSSpecString:
     @property
     def in_total_dim_size(self) -> int:
         return self.in_quantum_dim_size ** (self.in_num_channels * len(self))
+
+    @property
+    def nelement(self) -> int:
+        """The number of elements of the implied dense tensor."""
+        return math.prod(s.total_dangling_dimensions_size for s in self.shapes)
 
 
 SBSCores = Tuple[torch.Tensor, ...]
@@ -259,3 +271,99 @@ def multiply_by_scalar(
         raise ValueError("cannot distribute a negative scalar over an even chain")
     factor = scalar ** (1.0 / n) if scalar >= 0 else -((-scalar) ** (1.0 / n))
     return tuple(c * factor for c in cores)
+
+
+# ---------------------------------------------------------------------------
+# TT-space algebra (sbs.py:380-450): nothing of size Q^(K²C) is built
+
+
+def tt_sum(spec: SBSSpecString, cores: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The sum of all elements of the implied dense tensor (sbs.py:383-390):
+    the chain of per-core transfer matrices t_i[l, r] = Σ_{o,q…}
+    core[o, l, r, q…], traced."""
+    transfer = [torch.sum(c, dim=(0,) + tuple(range(3, c.ndim))) for c in cores]
+    return torch.trace(reduce(torch.matmul, transfer))
+
+
+def tt_mean(spec: SBSSpecString, cores: Sequence[torch.Tensor]) -> torch.Tensor:
+    return tt_sum(spec, cores) / float(spec.nelement)
+
+
+def tt_squared_fro_norm(spec: SBSSpecString, cores: Sequence[torch.Tensor]) -> torch.Tensor:
+    """‖T‖²_F through the doubled-bond chain (sbs.py:397-410): per core
+    t_i[(l, l'), (r, r')] = Σ_{o,q…} core[o,l,r,q…]·core[o,l',r',q…], the
+    ring trace pairing l with r and l' with r'."""
+    transfer = []
+    for c in cores:
+        o, l, r = c.shape[:3]
+        flat = c.reshape(o, l, r, -1)
+        transfer.append(torch.einsum("olrq,omsq->lmrs", flat, flat).reshape(l * l, r * r))
+    chain = reduce(torch.matmul, transfer)
+    b0 = cores[0].shape[1]
+    return torch.einsum("lmlm->", chain.reshape(b0, b0, b0, b0))
+
+
+def tt_fro_norm(spec: SBSSpecString, cores: Sequence[torch.Tensor]) -> torch.Tensor:
+    return tt_squared_fro_norm(spec, cores) ** 0.5
+
+
+def tt_var(
+    spec: SBSSpecString, cores: Sequence[torch.Tensor], unbiased: bool = True
+) -> torch.Tensor:
+    """The variance of the implied dense tensor's elements (sbs.py:417-429),
+    from its sum and squared norm."""
+    total = tt_sum(spec, cores)
+    n = float(spec.nelement)
+    mean = total / n
+    divisor = n - 1.0 if unbiased else n
+    return (
+        tt_squared_fro_norm(spec, cores) / divisor
+        - 2 * total / divisor * mean
+        + n / divisor * mean**2
+    )
+
+
+def tt_std(
+    spec: SBSSpecString, cores: Sequence[torch.Tensor], unbiased: bool = True
+) -> torch.Tensor:
+    return tt_var(spec, cores, unbiased) ** 0.5
+
+
+# ---------------------------------------------------------------------------
+# densification
+
+
+def as_explicit_tensor(spec: SBSSpecString, cores: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The implied dense tensor, its dims each core's input quantum dims
+    (core-major, channel-minor), then all output dims (sbs.py:456-483)."""
+    validate_cores(spec, cores)
+    acc = None
+    for c in cores:
+        # (o, l, r, q1..qC) → (l, q1..qC, o, r)
+        ct = c.permute((1,) + tuple(range(3, c.ndim)) + (0, 2))
+        acc = ct if acc is None else torch.tensordot(acc, ct, dims=([-1], [0]))
+    acc = torch.diagonal(acc, dim1=0, dim2=-1).sum(-1)  # the trace over (b0, last r)
+    num_channels = spec.in_num_channels
+    in_dims, out_dims = [], []
+    pos = 0
+    for _ in range(len(spec)):
+        in_dims.extend(range(pos, pos + num_channels))
+        out_dims.append(pos + num_channels)
+        pos += num_channels + 1
+    return acc.permute(in_dims + out_dims)
+
+
+def as_eps(spec: SBSSpecString, cores: Sequence[torch.Tensor]) -> torch.Tensor:
+    """A square-grid string as an explicit EPS core: the input dims in
+    raster order, the output dims merged into one (sbs.py:486-507)."""
+    assert spec.max_height_pos == spec.max_width_pos
+    dense = as_explicit_tensor(spec, cores)
+    n = len(spec)
+    num_channels = spec.in_num_channels
+    dense = dense.reshape((spec.in_quantum_dim_size,) * (num_channels * n) + (-1,))
+    standard = spec.get_indices_wrt_standard_order()
+    perm = []
+    for g in sorted(range(n), key=lambda g: standard[g]):
+        perm.extend(range(g * num_channels, (g + 1) * num_channels))
+    perm.append(num_channels * n)
+    return dense.permute(perm)

@@ -1,6 +1,8 @@
 from .checkpoint import (
     AsyncWriter,
+    conv_sbs_train_state_arrays,
     load_conv_sbs_params_npz,
+    load_conv_sbs_train_state,
     load_params_npz,
     load_train_state,
     save_conv_sbs_params_npz,
@@ -20,4 +22,9 @@ from .loop import (
 )
 from .optimizers import make_optimizer
 from .schedule import EvalSchedule, every_n_iters_intervals
-from .step import make_fast_train_step, make_gather_batch, resolve_auto_grad_accum
+from .step import (
+    make_fast_train_step,
+    make_gather_batch,
+    make_train_step,
+    resolve_auto_grad_accum,
+)

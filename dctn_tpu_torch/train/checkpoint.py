@@ -13,9 +13,17 @@ JAX runner's keys (cli/runner.py:1510-1538): ``params/…`` in the layout
 ``param_layout`` names (1 = fast cmt, 0 = reference), the optimizer's
 moments under ``opt_state/{i}/mu/…`` and ``…/nu/…`` with their step
 ``opt_state/{i}/count`` (i = 1 after weight decay's empty state, else 0;
-none for SGD), ``step``, and ``eps_splits``, each layer's matmul split,
-which fixes the cmt shapes. The JAX ``rng`` key has no counterpart: the
-port keeps the state of its dropout generator under ``generator_state``.
+none for SGD), ``step``, ``eps_splits``, each layer's matmul split, which
+fixes the cmt shapes, and ``rng``, a uint32 (2,) key in the layout of
+``jax.random.key_data``, so that the JAX runner resumes a state the port
+wrote. The port's dropout stream is the state of its generator, kept
+under ``generator_state``; neither package can continue the other's, so a
+state crosses packages exactly only without dropout.
+
+The legacy ConvSBS runner's train state (``conv_sbs_train_state_arrays``,
+``load_conv_sbs_train_state``) has the JAX legacy runner's keys for the
+params and the loop's position (legacy_runner.py:59-74) and the torch
+optimizer's own state under ``torch_opt_state/…``.
 """
 
 from __future__ import annotations
@@ -57,17 +65,28 @@ class AsyncWriter:
     does not wait for the disk (``AsyncWriter``, checkpoint.py:66-102).
     ``submit`` copies the tree to the host at once (the tensors change with
     the next step) and returns; ``wait`` joins every pending write. A write
-    goes to ``<file>.tmp`` first and is renamed into place."""
+    goes to ``<file>.tmp`` first and is renamed into place; writes to one
+    file run in the order they were submitted, each after the one before
+    (two at once would share the temporary file)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._pending: list = []
+        self._last: Dict[str, threading.Thread] = {}
 
     def submit(self, tree, filename: str) -> None:
         host = {k: _to_numpy(v) for k, v in flatten_tree(tree).items()}
-        t = threading.Thread(target=_write_npz, args=(host, filename), daemon=True)
-        t.start()
         with self._lock:
+            before = self._last.get(filename)
+
+            def write():
+                if before is not None:
+                    before.join()
+                _write_npz(host, filename)
+
+            t = threading.Thread(target=write, daemon=True)
+            self._last[filename] = t
+            t.start()
             self._pending = [x for x in self._pending if x.is_alive()] + [t]
 
     def wait(self) -> None:
@@ -142,11 +161,25 @@ def load_conv_sbs_params_npz(filename: str):
 # the EPS runner's train state
 
 
+def _is_fast(model) -> bool:
+    """Whether ``model`` holds the fast (cmt) layout (``EPSesPlusLinear``)
+    or the reference one (``EPSesPlusLinearReference``)."""
+    return hasattr(model, "cmts")
+
+
 def _param_names(model):
-    """(key under ``params/``, parameter) of the fast-layout model."""
-    return [(f"epses_cmt/{i}", c) for i, c in enumerate(model.cmts)] + [
+    """(key under ``params/``, parameter) of the model, in its layout."""
+    cores = (("epses_cmt", model.cmts) if _is_fast(model) else ("epses", model.cores))
+    return [(f"{cores[0]}/{i}", c) for i, c in enumerate(cores[1])] + [
         ("linear/w", model.linear_w), ("linear/b", model.linear_b)
     ]
+
+
+def jax_key_data(seed: int) -> np.ndarray:
+    """``jax.random.key_data(jax.random.PRNGKey(seed))`` for the default
+    threefry key, in numpy: the seed's high and low 32 bits."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
 
 
 def _opt_prefix(optimizer: torch.optim.Optimizer) -> Optional[str]:
@@ -157,10 +190,13 @@ def _opt_prefix(optimizer: torch.optim.Optimizer) -> Optional[str]:
     return "opt_state/1" if optimizer.param_groups[0]["weight_decay"] else "opt_state/0"
 
 
-def train_state_arrays(model, optimizer, step: int, plans, generator=None) -> Dict[str, Any]:
-    """The train state of ``model`` (fast layout) and ``optimizer`` after
+def train_state_arrays(
+    model, optimizer, step: int, plans, generator=None, seed: int = 0
+) -> Dict[str, Any]:
+    """The train state of ``model`` (either layout) and ``optimizer`` after
     ``step`` iterations, keyed as the JAX runner's ``save_train_state``
-    writes it, with the dropout ``generator``'s state: tensors, for
+    writes it, with the dropout ``generator``'s state, and as ``rng`` the
+    JAX key of ``seed`` (``jax_key_data``): tensors, for
     ``AsyncWriter.submit``. Before the first step Adam's moments are 0."""
     out: Dict[str, Any] = {f"params/{k}": p for k, p in _param_names(model)}
     prefix = _opt_prefix(optimizer)
@@ -173,8 +209,10 @@ def train_state_arrays(model, optimizer, step: int, plans, generator=None) -> Di
             count = int(st["step"]) if "step" in st else count
         out[f"{prefix}/count"] = np.int32(count)
     out["step"] = np.int64(step)
-    out["param_layout"] = np.int32(1)
-    out["eps_splits"] = np.asarray([p["n1"] for p in plans], np.int32)
+    out["rng"] = jax_key_data(seed)
+    out["param_layout"] = np.int32(1 if _is_fast(model) else 0)
+    if _is_fast(model):
+        out["eps_splits"] = np.asarray([p["n1"] for p in plans], np.int32)
     if generator is not None:
         out["generator_state"] = generator.get_state()
     return out
@@ -183,10 +221,13 @@ def train_state_arrays(model, optimizer, step: int, plans, generator=None) -> Di
 def load_train_state(filename: str, model, optimizer, cfg, plans, generator=None) -> int:
     """Restores ``model``'s parameters, ``optimizer``'s state and the
     ``generator``'s from a train state file; returns its ``step``. A file in
-    the reference layout (``param_layout`` 0) or saved under other splits
-    (``eps_splits``; none: the legacy split rule) is converted, parameters
-    and moments alike (the layouts differ by a permutation, and the moments
-    are elementwise), as the JAX runner converts (runner.py:1283-1400)."""
+    the other layout than ``model``'s (``param_layout``), or saved under
+    other splits (``eps_splits``; none: the legacy split rule) is
+    converted, parameters and moments alike (the layouts differ by a
+    permutation, and the moments are elementwise), as the JAX runner
+    converts (runner.py:1283-1400). ``plans`` are the fast layout's, for a
+    reference-layout ``model`` too. A file the JAX runner wrote has no
+    ``generator_state``: the generator is then left as it is."""
     from ..models.eps_plus_linear import (
         fast_params_from_reference,
         legacy_split_plans,
@@ -200,10 +241,12 @@ def load_train_state(filename: str, model, optimizer, cfg, plans, generator=None
         saved_plans = tuple({**p, "n1": int(s)} for p, s in zip(plans, arrays["eps_splits"]))
     elif saved_fast:
         saved_plans = legacy_split_plans(plans)
-    same_layout = saved_fast and [p["n1"] for p in saved_plans] == [p["n1"] for p in plans]
+    fast_target = _is_fast(model)
+    same_layout = (saved_fast and fast_target
+                   and [p["n1"] for p in saved_plans] == [p["n1"] for p in plans])
 
     def group(prefix: str):
-        """The parameter-shaped group under ``prefix``, in the current layout."""
+        """The parameter-shaped group under ``prefix``, in the model's layout."""
         def get(key):
             if f"{prefix}/{key}" not in arrays:
                 raise KeyError(f"train state {filename} missing leaf {prefix}/{key}")
@@ -218,11 +261,12 @@ def load_train_state(filename: str, model, optimizer, cfg, plans, generator=None
             ref = reference_params_from_fast(fast, cfg, saved_plans)
         else:
             ref = {"epses": tuple(get(f"epses/{i}") for i in range(n)), "linear": linear}
-        return fast_params_from_reference(ref, cfg, plans)[0]
+        return fast_params_from_reference(ref, cfg, plans)[0] if fast_target else ref
 
-    def by_name(fast):
-        return {f"epses_cmt/{i}": c for i, c in enumerate(fast["epses_cmt"])} | {
-            f"linear/{k}": v for k, v in fast["linear"].items()
+    def by_name(tree):
+        cores = "epses_cmt" if fast_target else "epses"
+        return {f"{cores}/{i}": c for i, c in enumerate(tree[cores])} | {
+            f"linear/{k}": v for k, v in tree["linear"].items()
         }
 
     params = by_name(group("params"))
@@ -255,3 +299,72 @@ def load_train_state(filename: str, model, optimizer, cfg, plans, generator=None
     if generator is not None and "generator_state" in arrays:
         generator.set_state(torch.from_numpy(np.array(arrays["generator_state"])))
     return int(arrays["step"])
+
+
+# ---------------------------------------------------------------------------
+# the legacy ConvSBS runner's train state
+
+
+def conv_sbs_train_state_arrays(
+    params, optimizer: torch.optim.Optimizer, warmup_step: int, epoch: int,
+    step_in_epoch: int, best_acc: float, bad_epochs: int,
+) -> Dict[str, Any]:
+    """Everything the legacy epoch loop needs to continue a trajectory
+    exactly (``_train_state_tree``, legacy_runner.py:59-74): the cores
+    under ``params/{layer}/{string}/{core}``, the loop's position
+    (``epoch``, ``step_in_epoch``) and the best-model and early-stopping
+    bookkeeping under the JAX keys; the torch optimizer's per-parameter
+    state (momentum buffers, RMSprop's square averages and step counts)
+    under ``torch_opt_state/{parameter index}/{name}``, and the warmup
+    schedule's step count under ``warmup_step``. The epoch-shuffle RNG is
+    not stored: the runner fast-forwards its seeded chain on resume."""
+    out: Dict[str, Any] = {
+        f"params/{l}/{s}/{c}": core
+        for l, layer in enumerate(params)
+        for s, string in enumerate(layer)
+        for c, core in enumerate(string)
+    }
+    for i, state in optimizer.state_dict()["state"].items():
+        for name, value in state.items():
+            if value is not None:
+                out[f"torch_opt_state/{i}/{name}"] = value
+    out.update(
+        epoch=np.int64(epoch), step_in_epoch=np.int64(step_in_epoch),
+        best_acc=np.float64(best_acc), bad_epochs=np.int64(bad_epochs),
+        warmup_step=np.int64(warmup_step),
+    )
+    return out
+
+
+def load_conv_sbs_train_state(filename: str, model, optimizer: torch.optim.Optimizer):
+    """Restores the legacy ``model``'s cores and ``optimizer``'s state from a
+    train state file; returns (warmup_step, epoch, step_in_epoch, best_acc,
+    bad_epochs)."""
+    with np.load(filename) as data:
+        arrays = {k: data[k] for k in data.files}
+    for key in ("epoch", "step_in_epoch", "best_acc", "bad_epochs", "warmup_step"):
+        if key not in arrays:
+            raise KeyError(f"train state {filename} missing leaf {key}")
+    with torch.no_grad():
+        for l, layer in enumerate(model.params()):
+            for s, string in enumerate(layer):
+                for c, core in enumerate(string):
+                    key = f"params/{l}/{s}/{c}"
+                    if key not in arrays:
+                        raise KeyError(f"train state {filename} missing leaf {key}")
+                    if tuple(arrays[key].shape) != tuple(core.shape):
+                        raise ValueError(
+                            f"train state {filename}: {key} is {arrays[key].shape}, the "
+                            f"model's {tuple(core.shape)}"
+                        )
+                    core.copy_(torch.from_numpy(arrays[key]))
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    for key, value in arrays.items():
+        if key.startswith("torch_opt_state/"):
+            _, i, name = key.split("/")
+            state.setdefault(int(i), {})[name] = torch.from_numpy(np.array(value))
+    sd = optimizer.state_dict()
+    sd["state"] = state
+    optimizer.load_state_dict(sd)
+    return (int(arrays["warmup_step"]), int(arrays["epoch"]), int(arrays["step_in_epoch"]),
+            float(arrays["best_acc"]), int(arrays["bad_epochs"]))

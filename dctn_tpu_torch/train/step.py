@@ -1,6 +1,8 @@
-"""The training step over the fast (cmt) parameter layout (port of
-``make_fast_train_step``, ``grad_accum_scan``, ``_hoist_reg`` and
-``make_gather_batch``, ``dctn_tpu/train/step.py``).
+"""The training steps (port of ``make_fast_train_step``,
+``make_train_step``, ``grad_accum_scan``, ``_hoist_reg`` and
+``make_gather_batch``, ``dctn_tpu/train/step.py``): over the fast (cmt)
+parameter layout through the EPS kernels, and over the reference layout
+through the plain ``eps`` (the runners' xla backend).
 
 The JAX step is one jitted function of (params, optimizer state, batch);
 here the model and the optimizer hold that state, and the step runs
@@ -11,6 +13,11 @@ optimizer update. With gradient accumulation the batch runs as contiguous
 microbatches, each forward and backward on its own, so a large batch's
 activations (and each layer's saved t) are a microbatch's. Batches are
 gathered on the device from the resident split.
+
+``with_probs`` adds each sample's probability of its true class to the
+metrics (``probs_of_true_class``, a device tensor in batch order, gathered
+over the microbatches): it is computed from the detached logits, so the
+update is the same bits with or without it, and nothing is read back.
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ from ..kernels.eps_q8_kernels import QAT_KERNELS
 from ..models.eps_plus_linear import (
     EPSesPlusLinear,
     EPSesPlusLinearConfig,
+    EPSesPlusLinearReference,
     draw_dropout_masks,
+    eps_plus_linear_forward,
     eps_plus_linear_forward_fast,
     epses_composition_l2_regularizer,
     epses_composition_l2_regularizer_fast,
@@ -93,12 +102,7 @@ def make_fast_train_step(
     its own bundle (``eps_q8_kernels.QAT_PLAIN`` for the plain QAT path)
     passes no ``qat``.
 
-    ``with_probs`` (the per-sample probabilities of the true class) has no
-    reader until TB logging is ported (ROADMAP item 13) and is refused."""
-    if with_probs:
-        raise ValueError(
-            "with_probs is not ported yet: it comes with TB logging (ROADMAP item 13)"
-        )
+    ``with_probs`` adds ``probs_of_true_class`` (see the module docstring)."""
     frozen = frozenset(frozen_eps_indices)
     n_layers = len(model.cmts)
     if any(not 0 <= i < n_layers for i in frozen):
@@ -114,7 +118,6 @@ def make_fast_train_step(
     elif qat is not None:
         raise ValueError("qat picks the kernel bundle: pass qat or kernels, not both")
     cfg, plans = model.cfg, model.plans
-    dropout = cfg.dropout_p < 1.0
 
     def reg_fn():
         fast = model.fast_params()
@@ -122,15 +125,29 @@ def make_fast_train_step(
             return epswise_l2_regularizer_fast(fast)
         return epses_composition_l2_regularizer_fast(fast, plans)
 
-    def ce_of(xs, ys, masks_i):
+    def logits_of(xs, masks_i):
         fast = model.fast_params()
         if frozen:
             fast = {**fast, "epses_cmt": tuple(
                 c.detach() if i in frozen else c for i, c in enumerate(fast["epses_cmt"])
             )}
-        return F.cross_entropy(
-            eps_plus_linear_forward_fast(fast, xs, cfg, plans, kernels=kernels, masks=masks_i), ys
-        )
+        return eps_plus_linear_forward_fast(fast, xs, cfg, plans, kernels=kernels, masks=masks_i)
+
+    def zero_frozen():
+        for i in frozen:
+            model.cmts[i].grad = torch.zeros_like(model.cmts[i])
+
+    return _accumulating_step(model, optimizer, logits_of, reg_fn, reg_coeff, grad_accum_steps,
+                              with_probs, plans, cfg.dropout_p, zero_frozen)
+
+
+def _accumulating_step(model, optimizer, logits_of, reg_fn, reg_coeff, grad_accum_steps,
+                       with_probs, plans, dropout_p, zero_frozen):
+    """The step both layouts share: per microbatch its dropout masks, the
+    forward (``logits_of(xs, masks)``), cross-entropy and backward; the
+    gradients averaged, the regularizer once (``_hoist_reg``), frozen cores'
+    gradients zeroed (``zero_frozen``), the update."""
+    dropout = dropout_p < 1.0
 
     def step(xb: torch.Tensor, yb: torch.Tensor, generator=None, masks=None):
         if dropout and generator is None and masks is None:
@@ -143,14 +160,19 @@ def make_fast_train_step(
             )
         mb = batch // grad_accum_steps
         ce_sum = None
+        probs = []
         for i in range(grad_accum_steps):
             masks_i = None
             if dropout:
                 masks_i = masks[i] if masks is not None else draw_dropout_masks(
-                    plans, cfg.dropout_p, generator
+                    plans, dropout_p, generator
                 )
-            ce_i = ce_of(xb[:, i * mb : (i + 1) * mb], yb[i * mb : (i + 1) * mb], masks_i)
+            ys = yb[i * mb : (i + 1) * mb]
+            logits = logits_of(xb[:, i * mb : (i + 1) * mb], masks_i)
+            ce_i = F.cross_entropy(logits, ys)
             ce_i.backward()  # adds into each parameter's .grad
+            if with_probs:
+                probs.append(torch.exp(-F.cross_entropy(logits.detach(), ys, reduction="none")))
             ce_i = ce_i.detach()
             ce_sum = ce_i if ce_sum is None else ce_sum + ce_i
         ce = ce_sum
@@ -165,13 +187,64 @@ def make_fast_train_step(
             (reg_coeff * reg).backward()
         else:
             reg = torch.zeros((), dtype=ce.dtype, device=ce.device)
-        for i in frozen:
-            model.cmts[i].grad = torch.zeros_like(model.cmts[i])
+        zero_frozen()
         loss = ce + reg_coeff * reg.detach()
         optimizer.step()
-        return {"loss": loss.detach(), "ce": ce.detach(), "reg_term": reg.detach()}
+        metrics = {"loss": loss.detach(), "ce": ce.detach(), "reg_term": reg.detach()}
+        if with_probs:
+            metrics["probs_of_true_class"] = torch.cat(probs)
+        return metrics
 
     return step
+
+
+def make_train_step(
+    model: EPSesPlusLinearReference,
+    optimizer: torch.optim.Optimizer,
+    reg_type: str = "epses_composition",
+    reg_coeff: float = 0.0,
+    *,
+    frozen_eps_indices: Sequence[int] = (),
+    with_probs: bool = False,
+    grad_accum_steps: int = 1,
+):
+    """The step over the reference layout (``make_train_step``,
+    train/step.py:116-206): ``model`` holds the cores as
+    (Q,)*(K²·C) + (O,) tensors and every layer runs through the plain
+    ``eps``, its products ``torch.matmul`` and its backward ``eps``'s
+    (``EPSContract``): the runners' xla backend. Returns the same ``step``
+    as ``make_fast_train_step``, with the same options: dropout masks drawn
+    over the reference shapes from the step's generator, frozen cores
+    detached with their gradients zeroed, accumulation in contiguous
+    microbatches with the regularizer added once, ``with_probs``."""
+    frozen = frozenset(frozen_eps_indices)
+    n_layers = len(model.cores)
+    if any(not 0 <= i < n_layers for i in frozen):
+        raise ValueError(f"frozen_eps_indices {sorted(frozen)} outside the model's {n_layers} cores")
+    if grad_accum_steps < 1:
+        raise ValueError(f"grad_accum_steps must be at least 1, got {grad_accum_steps}")
+    if reg_type not in REG_TYPES:
+        raise ValueError(f"unknown reg_type {reg_type!r}")
+    cfg = model.cfg
+    plans = tuple({"core_shape": tuple(c.shape)} for c in model.cores)
+
+    def reg_fn():
+        return REGULARIZERS[reg_type](model.reference_params())
+
+    def logits_of(xs, masks_i):
+        params = model.reference_params()
+        if frozen:
+            params = {**params, "epses": tuple(
+                c.detach() if i in frozen else c for i, c in enumerate(params["epses"])
+            )}
+        return eps_plus_linear_forward(params, xs, cfg, masks=masks_i)
+
+    def zero_frozen():
+        for i in frozen:
+            model.cores[i].grad = torch.zeros_like(model.cores[i])
+
+    return _accumulating_step(model, optimizer, logits_of, reg_fn, reg_coeff, grad_accum_steps,
+                              with_probs, plans, cfg.dropout_p, zero_frozen)
 
 
 def resolve_auto_grad_accum(cfg: EPSesPlusLinearConfig, plans, batch: int) -> int:

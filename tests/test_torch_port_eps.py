@@ -40,7 +40,10 @@ def test_port_imports_no_jax():
         "dctn_tpu_torch.models.log_space_classifier, dctn_tpu_torch.utils.benchmark, "
         "dctn_tpu_torch.cli.runner, dctn_tpu_torch.train.loop, dctn_tpu_torch.train.evaluation, "
         "dctn_tpu_torch.train.schedule, dctn_tpu_torch.train.preemption, "
-        "dctn_tpu_torch.utils.misc, dctn_tpu_torch.utils.fallbacks, dctn_tpu_torch.ops.composition\n"
+        "dctn_tpu_torch.utils.misc, dctn_tpu_torch.utils.fallbacks, dctn_tpu_torch.ops.composition, "
+        "dctn_tpu_torch.train.tb_logging, dctn_tpu_torch.train.intermediate_logger, "
+        "dctn_tpu_torch.utils.profiling, dctn_tpu_torch.cli.torch_convert, "
+        "dctn_tpu_torch.cli.sweep\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dctn_tpu'))\n"
         "assert not bad, bad"
     )

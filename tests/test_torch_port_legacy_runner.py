@@ -1,8 +1,13 @@
 """The port's legacy ConvSBS runner on the CPU: an end-to-end run whose best
 checkpoint the JAX package reads, a run beside the JAX runner from the same
-initial weights, and the flags it refuses until their slices land."""
+initial weights with both runners' TB logging, resumes (at an epoch's end,
+mid-epoch, and after SIGTERM) bit-equal to the unbroken run, and the flags
+it refuses until their slices land."""
 
+import json
 import os
+import signal
+import threading
 
 import click
 import jax
@@ -114,9 +119,10 @@ def test_one_epoch_beside_the_jax_runner(tmp_path, optimizer_type, momentum):
               learning_rate={"sgd": 1e-2, "rmsprop": 1e-3}[optimizer_type],
               optimizer_type=optimizer_type, momentum=momentum,
               make_input_window_std_one=True, scale_layers_using_batch=64)
-    jparams, jacc = jrunner.run(**_common(tmp_path / "jax"), **kw, tb_log_every_n_epochs=0,
+    jparams, jacc = jrunner.run(**_common(tmp_path / "jax"), **kw, tb_log_every_n_epochs=1,
                                 preempt_save=False, autotune_cache=False)
-    tparams, tacc = trunner.run(**_common(tmp_path / "port"), **kw, device="cpu")
+    tparams, tacc = trunner.run(**_common(tmp_path / "port"), **kw, tb_log_every_n_epochs=1,
+                                device="cpu")
     x_tr, x_val, y_val = _split()
     jstd = float(jax.jit(jm.calc_std_of_coordinates_of_windows, static_argnums=(1, 2, 3))(
         jnp.asarray(x_tr), 3, False, 1.0))
@@ -147,6 +153,36 @@ def test_one_epoch_beside_the_jax_runner(tmp_path, optimizer_type, momentum):
     (ce_t, acc_t), (ce_j, acc_j) = scores
     assert ce_t == pytest.approx(ce_j, rel=1e-5)
     assert abs(acc_t - acc_j) <= 1 / SIZES[1] and abs(tacc - jacc) <= 1 / SIZES[1]
+    _assert_tb_records_agree(tmp_path / "port", tmp_path / "jax")
+
+
+def _records(d):
+    with open(os.path.join(d, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+# the TB records of the two runners after an epoch (float32 runs whose
+# weights agree within rtol 1e-4): every number within TB_RTOL of
+# max(|value|, TB_FLOOR); the largest difference read 5.1e-5 (SGD, a probe
+# gradient's histogram max) and 3.0e-5 (RMSprop)
+TB_RTOL, TB_FLOOR = 5e-4, 1e-3
+
+
+def _assert_tb_records_agree(tdir, jdir):
+    """``--tb-log-every-n-epochs 1`` writes the JAX runner's records: the
+    same tags at the same iteration in the same order (the validation
+    metrics, the last batch's loss, the lr, the weights' and the probe
+    gradients' histograms by ``{layer}/{string}/{core}``, every transform
+    of each string's output, each string's TT mean and std)."""
+    trec, jrec = _records(tdir), _records(jdir)
+    assert [(r["tag"], r["step"]) for r in trec] == [(r["tag"], r["step"]) for r in jrec]
+    tags = {r["tag"] for r in trec}
+    assert {"lr", "val/acc", "weights/1/0/8", "grads_std/0/1/4", "layer1.string0/tt_std",
+            "intermediate_dumb_mean/layer0.string1"} <= tags
+    for a, b in zip(trec, jrec):
+        for k, v in b.items():
+            if isinstance(v, float):
+                assert abs(a[k] - v) <= TB_RTOL * max(abs(v), TB_FLOOR), (b["tag"], k, a[k], v)
 
 
 @pytest.mark.parametrize("name,off,flag,slice_", trunner.REFUSED)
@@ -189,3 +225,90 @@ def test_init_load_file_takes_a_reference_state_dict(tmp_path):
                             epochs=1, learning_rate=0.0)
     for a, b in zip(jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(np_params)):
         assert np.array_equal(a.numpy(), b)
+
+
+def _recipe(tmp, **kw):
+    """RMSprop with momentum under a 2-epoch warmup (every piece of the
+    optimizer's state and the warmup's step matter on resume), 4 steps an
+    epoch."""
+    return dict(_common(tmp), device="cpu", optimizer_type="rmsprop", momentum=0.5,
+                learning_rate=3e-3, warmup_num_epochs=2, warmup_initial_multiplier=1e-2,
+                make_input_window_std_one=True, scale_layers_using_batch=64, **kw)
+
+
+def _assert_same_bits(a, b):
+    for x, y in zip(jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)):
+        assert torch.equal(x, y)
+
+
+class _FiresAfter(trunner.PreemptionHandler):
+    """A preemption handler whose signal is seen after the ``n``-th step."""
+
+    def __init__(self, n):
+        super().__init__()
+        self.reads = 0
+        self.n = n
+
+    @property
+    def fired(self):
+        self.reads += 1
+        return "SIGTERM" if self.reads >= self.n else None
+
+    @fired.setter
+    def fired(self, value):
+        pass
+
+
+def test_resume_at_an_epoch_end_and_mid_epoch_is_bit_equal(tmp_path, monkeypatch):
+    """Three epochs unbroken; one epoch, then resumed to three from its train
+    state; and a run stopped after step 6 (mid-epoch 1: the state says
+    epoch 1, step 2) resumed to three: all end on the same bits with the
+    same best accuracy, and the state file has the JAX keys."""
+    unbroken, acc = trunner.run(**_recipe(tmp_path / "a", epochs=3))
+    trunner.run(**_recipe(tmp_path / "b", epochs=1))
+    state = str(tmp_path / "b" / "train_state_latest.npz")
+    with np.load(state) as d:
+        assert int(d["epoch"]) == 1 and int(d["step_in_epoch"]) == 0
+        assert {"params/1/0/8", "best_acc", "bad_epochs", "warmup_step",
+                "torch_opt_state/0/square_avg", "torch_opt_state/0/momentum_buffer"} <= set(d.files)
+    resumed, acc_b = trunner.run(**_recipe(tmp_path / "c", epochs=3), resume_from=state)
+    _assert_same_bits(unbroken, resumed)
+    monkeypatch.setattr(trunner, "PreemptionHandler", lambda: _FiresAfter(6))
+    trunner.run(**_recipe(tmp_path / "d", epochs=3))
+    monkeypatch.undo()
+    state = str(tmp_path / "d" / "train_state_latest.npz")
+    with np.load(state) as d:
+        assert (int(d["epoch"]), int(d["step_in_epoch"]), int(d["warmup_step"])) == (1, 2, 6)
+    mid, acc_d = trunner.run(**_recipe(tmp_path / "e", epochs=3), resume_from=state)
+    _assert_same_bits(unbroken, mid)
+    assert acc == acc_b == acc_d
+
+
+def test_sigterm_saves_a_train_state_that_resumes_the_same_way(tmp_path):
+    """A real SIGTERM under ``--preempt-save`` (the default) stops the run
+    after the step in flight with the train state saved; resumed to the
+    epoch after the one it stopped in, it ends on the bits of an unbroken
+    run to that epoch."""
+    prev = signal.signal(signal.SIGTERM, lambda *a: None)  # a late kill stays harmless
+    try:
+        stop_killing = threading.Event()
+
+        def killer():
+            while not stop_killing.wait(0.5):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        t = threading.Thread(target=killer, daemon=True)
+        t.start()
+        trunner.run(**_recipe(tmp_path / "a", epochs=10**6, tb_log_every_n_epochs=0))
+        stop_killing.set()
+        t.join(5)
+        assert not t.is_alive()
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    state = str(tmp_path / "a" / "train_state_latest.npz")
+    with np.load(state) as d:
+        target = int(d["epoch"]) + 2
+    resumed, _ = trunner.run(**_recipe(tmp_path / "b", epochs=target, tb_log_every_n_epochs=0),
+                             resume_from=state)
+    unbroken, _ = trunner.run(**_recipe(tmp_path / "c", epochs=target, tb_log_every_n_epochs=0))
+    _assert_same_bits(unbroken, resumed)

@@ -1,7 +1,10 @@
 """The port's EPS runner on the CPU: beside the JAX runner from one shared
-init (and caught by a mutated gradient), exact resume and SIGTERM resume,
-the NaN stopper's replay, the early stopper, the flags it refuses, its
-provenance, its log and checkpoints as the JAX package reads them.
+init (and caught by a mutated gradient), on the fast layout and on the
+reference layout (the xla backends), with the TB logging of batches and of
+intermediate outputs beside the JAX runner's, and a profiled window; exact
+resume and SIGTERM resume, train states crossing between the packages both
+ways, the NaN stopper's replay, the early stopper, the flags it refuses,
+its provenance, its log and checkpoints as the JAX package reads them.
 
 The port's CPU tensors run the kernels' plain versions, the JAX runner its
 default CPU backend, XLA; both float32. The kernels themselves are held
@@ -81,7 +84,7 @@ def _out_dir(root) -> str:
 
 def _reference(state):
     """A port run's final params in the reference layout, as numpy."""
-    ref = reference_params_from_fast(state.params, state.extras["cfg"], state.extras["model"].plans)
+    ref = state.extras["params_view"](state.params)
     return jax.tree_util.tree_map(lambda t: t.detach().numpy(), ref)
 
 
@@ -89,7 +92,10 @@ def _reference(state):
 def beside(tmp_path_factory):
     """``beside(ds_type)`` → (the flags, the shared init, the JAX run's params
     and out dir, the port's state and out dir): both runners from one npz
-    of JAX-drawn weights, run once per ds_type and module."""
+    of JAX-drawn weights, run once per ds_type and module, with
+    ``--tb-batches`` and ``--log-intermediate-outputs`` (which leave the
+    trajectory as it is); the port's run also traces iterations 1-2 into
+    ``prof/`` beside its out dir."""
     done = {}
 
     def get(ds_type):
@@ -102,9 +108,11 @@ def beside(tmp_path_factory):
             )
             init_file = str(tmp / "init.npz")
             save_pytree(init, init_file)
-            kw = dict(SHARED, ds_type=ds_type, load_model_state=init_file)
+            kw = dict(SHARED, ds_type=ds_type, load_model_state=init_file, tb_batches=True,
+                      log_intermediate_outputs=True)
             jstate = jrunner.run(experiments_dir=str(tmp / "jax"), autotune_cache=False, **kw)
-            tstate = trunner.run(experiments_dir=str(tmp / "port"), device="cpu", **kw)
+            tstate = trunner.run(experiments_dir=str(tmp / "port"), device="cpu",
+                                 profile_dir=str(tmp / "prof"), profile_iters=(1, 2), **kw)
             done[ds_type] = (kw, jax.tree_util.tree_map(np.asarray, init),
                              jax.tree_util.tree_map(np.asarray, jstate.params),
                              _out_dir(tmp / "jax"), tstate, _out_dir(tmp / "port"))
@@ -113,10 +121,8 @@ def beside(tmp_path_factory):
     return get
 
 
-def _assert_runs_agree(init, jparams, tparams, jdir, tdir):
-    """Every parameter's move agrees within MOVE_TOL of the largest; the
-    eval lines within their printed precision (CE to 5 decimals, accuracy
-    within one of the 32 validation images); the same checkpoints kept."""
+def _assert_moves_agree(init, jparams, tparams):
+    """Every parameter's move agrees within MOVE_TOL of the largest."""
     leaves = jax.tree_util.tree_leaves
     for i, (t, j, s) in enumerate(zip(leaves(tparams), leaves(jparams), leaves(init))):
         moved_t, moved_j = t.astype(np.float64) - s, j.astype(np.float64) - s
@@ -124,6 +130,13 @@ def _assert_runs_agree(init, jparams, tparams, jdir, tdir):
         assert scale > 1e-4, f"leaf {i} did not move"
         np.testing.assert_allclose(moved_t, moved_j, rtol=0, atol=MOVE_TOL * scale,
                                    err_msg=f"leaf {i}")
+
+
+def _assert_runs_agree(init, jparams, tparams, jdir, tdir):
+    """Every parameter's move agrees within MOVE_TOL of the largest; the
+    eval lines within their printed precision (CE to 5 decimals, accuracy
+    within one of the 32 validation images); the same checkpoints kept."""
+    _assert_moves_agree(init, jparams, tparams)
     jrec, trec = (load_records(os.path.join(d, "log.log")) for d in (jdir, tdir))
     assert [r.nitd for r in trec] == [r.nitd for r in jrec] == [0, 2, 4]
     for a, b in zip(trec, jrec):
@@ -188,6 +201,99 @@ def test_log_parses_and_checkpoints_load_in_the_jax_package(beside, ds_type):
         info = json.load(f)
     assert info["batch_size"] == 16 and info["device"] == "cpu" and info["commit"]
     assert "git_diff_with_HEAD.patch" in files and "train_state_latest.npz" in files
+
+
+def _metrics(out_dir):
+    import json
+
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+# the TB records of the two runs, float32 runs whose params agree within
+# MOVE_TOL of their moves: each number within TB_RTOL of itself or TB_ATOL;
+# the largest difference read 1.6e-6 of max(|value|, 1e-2) (fashionmnist,
+# eps_1's histogram mean)
+TB_RTOL, TB_ATOL = 2e-5, 1e-7
+
+
+@pytest.mark.parametrize("ds_type", ["fashionmnist", "cifar10_rgb"])
+def test_tb_records_match_the_jax_runner(beside, ds_type):
+    """``--tb-batches`` and ``--log-intermediate-outputs`` write the JAX
+    runner's records into metrics.jsonl: the same tags at the same
+    iterations in the same order (loss, reg_term, the probabilities'
+    histogram and, on grayscale images, the batch grid after the steps of
+    iterations 0 and 2; every transform of eps_0, eps_1 and linear at the
+    evals before iterations 0 and 2), each number within TB_RTOL or
+    TB_ATOL; and the profiled window's trace is written."""
+    _, _, _, jdir, _, tdir = beside(ds_type)
+    jrec, trec = _metrics(jdir), _metrics(tdir)
+    assert [(r["tag"], r["step"]) for r in trec] == [(r["tag"], r["step"]) for r in jrec]
+    tags = {r["tag"] for r in trec}
+    assert {"loss", "reg_term", "probs_of_true_class", "intermediate_dumb_mean/eps_0",
+            "intermediate_dumb/eps_1", "intermediate_logits_as_probabilities/linear"} <= tags
+    assert ("batch" in tags) == (ds_type == "fashionmnist")
+    assert {r["step"] for r in trec} == {0, 2}
+    for a, b in zip(trec, jrec):
+        for k, v in b.items():
+            if isinstance(v, float):
+                assert a[k] == pytest.approx(v, rel=TB_RTOL, abs=TB_ATOL), (b["tag"], k)
+            else:
+                assert a[k] == v, (b["tag"], k)
+    from dctn_tpu_torch.utils.profiling import trace_files
+
+    (trace,) = trace_files(os.path.join(os.path.dirname(os.path.dirname(tdir)), "prof"))
+    assert os.path.getsize(trace) > 0
+
+
+@pytest.mark.parametrize("backends", [("xla", "xla"), ("pallas", "xla"), ("xla", "pallas")],
+                         ids=["xla", "train_pallas_eval_xla", "train_xla_eval_pallas"])
+def test_xla_backends_match_the_jax_runner(beside, tmp_path, backends):
+    """``--train-backend xla`` trains the reference layout through the plain
+    eps (``make_train_step``) and ``--eval-backend xla`` scores it, also
+    for a fast-layout run: each pair ends within ``_assert_runs_agree`` of
+    the JAX runner (whose CPU backend is XLA), and a run that trains on the
+    fast layout ends on the bits of the beside run, whose evals differ only
+    in their backend."""
+    kw, init, jparams, jdir, tstate, _ = beside("fashionmnist")
+    train_backend, eval_backend = backends
+    state = trunner.run(experiments_dir=str(tmp_path), device="cpu", train_backend=train_backend,
+                        eval_backend=eval_backend, **kw)
+    got = _reference(state)
+    _assert_runs_agree(init, jparams, got, jdir, _out_dir(tmp_path))
+    if train_backend == "pallas":
+        for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(_reference(tstate))):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_train_states_cross_between_the_packages(beside, tmp_path):
+    """The JAX runner's train state at iteration 2, resumed by the port to 4,
+    and the port's, resumed by ``dctn_tpu.cli.runner.run`` to 4, each end
+    within MOVE_TOL of the other package's unbroken run (no dropout: both
+    take the seeded Batcher's batches). The port's file has the JAX key
+    leaf ``rng`` (uint32, 2); the port resuming a JAX state with dropout on
+    records that it cannot continue the JAX dropout stream."""
+    kw, init, jparams, _, tstate, _ = beside("fashionmnist")
+    kw = {k: v for k, v in kw.items() if k not in ("tb_batches", "log_intermediate_outputs")}
+    two = dict(kw, max_num_iters=2)
+    jrunner.run(experiments_dir=str(tmp_path / "jax2"), autotune_cache=False, **two)
+    trunner.run(experiments_dir=str(tmp_path / "port2"), device="cpu", **two)
+    jfile = os.path.join(_out_dir(tmp_path / "jax2"), "train_state_latest.npz")
+    tfile = os.path.join(_out_dir(tmp_path / "port2"), "train_state_latest.npz")
+    with np.load(tfile) as d:
+        assert d["rng"].dtype == np.uint32 and d["rng"].shape == (2,) and int(d["step"]) == 2
+    port_from_jax = trunner.run(experiments_dir=str(tmp_path / "p"), device="cpu", resume_from=jfile,
+                                **kw)
+    jax_from_port = jrunner.run(experiments_dir=str(tmp_path / "j"), autotune_cache=False,
+                                resume_from=tfile, **kw)
+    assert port_from_jax.num_iters_done == jax_from_port.num_iters_done == 4
+    _assert_moves_agree(init, jparams, _reference(port_from_jax))
+    _assert_moves_agree(init, jax.tree_util.tree_map(np.asarray, jax_from_port.params),
+                        _reference(tstate))
+    trunner.run(experiments_dir=str(tmp_path / "drop"), device="cpu", resume_from=jfile,
+                **dict(kw, dropout_p=0.9, max_num_iters=3))
+    with open(os.path.join(_out_dir(tmp_path / "drop"), "run_info.txt")) as f:
+        assert "its dropout stream cannot be continued" in f.read()
 
 
 COMMON = dict(ds_type="fashionmnist", ds_path="synthetic", epses_specs=SPECS, batch_size=16,
@@ -384,9 +490,7 @@ def test_early_stopper_stops_where_jax_stops():
 _REFUSED_VALUES = {
     "mesh_devices": 2, "model_devices": 2, "space_devices": 2, "tp_shard_all": True,
     "distributed": "auto", "autotune_splits": True, "autotune_cache": True,
-    "export_artifact": "a.zip", "export_quantize": "int8", "tb_batches": True,
-    "log_intermediate_outputs": True, "profile_dir": "prof", "compute_dtype": "bfloat16",
-    "train_backend": "xla", "eval_backend": "xla",
+    "export_artifact": "a.zip", "export_quantize": "int8", "compute_dtype": "bfloat16",
 }
 
 
@@ -417,6 +521,9 @@ def test_flag_validation_and_the_device(tmp_path):
         trunner.run(experiments_dir=str(tmp_path), **{**COMMON, "freeze_eps": (2,)})
     with pytest.raises(click.BadParameter, match="--grad-accum-steps"):
         trunner.run(experiments_dir=str(tmp_path), **{**COMMON, "grad_accum_steps": "3"})
+    with pytest.raises(click.BadParameter, match="--qat int8 runs on the fast"):
+        trunner.run(experiments_dir=str(tmp_path), **{**COMMON, "qat": "int8",
+                                                      "train_backend": "xla"})
     if not torch.cuda.is_available():
         with pytest.raises(click.BadParameter, match="no CUDA device"):
             trunner.run(experiments_dir=str(tmp_path), **{**COMMON, "device": "cuda"})

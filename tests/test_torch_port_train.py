@@ -336,7 +336,7 @@ def test_step_leaves_the_callers_tensors_alone():
     [
         ({"grad_accum_steps": 0}, "at least 1"),
         ({"frozen_eps_indices": (2,)}, "outside the model's 2 cores"),
-        ({"with_probs": True}, "TB logging .*item 13"),
+        ({"qat": "int8", "kernels": K.PLAIN}, "pass qat or kernels"),
         ({"qat": "int4"}, "unsupported qat"),
         ({"reg_type": "nosuchreg"}, "unknown reg_type"),
     ],
