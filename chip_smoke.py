@@ -36,6 +36,26 @@ Run from the root of a checkout, with no arguments:
    logits are as far from the f32 logits as the JAX package's own int8
    logits are on the same images, and within its int8 budget on uniform
    features.
+3b. Drives export and serve: ``dctn_tpu_torch.cli.export.run`` writes
+   artifacts of the same flagship, f32 and ``--quantize int8``, at batch
+   sizes 1 and 128, and of the 2-layer bond-4 ConvSBS model (the legacy
+   runner's recipe) at 1 and 100, all on the card; ``load_artifact`` loads
+   each. Checks: one ``dctn_tpu_torch::eps_fwd`` (``eps_fwd_q8``) node per
+   EPS layer and one ``sbs_fwd`` per string in the graphs, the launches per
+   forward (2 K1 without t, 2 K8, the ConvSBS forward's as the eager
+   model's), the logits against the eager model's within 1e-6 of the
+   largest (the reading and whether the bits are equal printed);
+   ``predict.run`` on both flagship artifacts with the latency bench beside
+   phase 3's npz numbers, and the artifact against the npz model in turns
+   with a host profile of each at batch 128 (host ms per call, and cProfile's
+   costliest Python functions); ``serve.make_server`` on a
+   free port: 128 images and 300 (chunked, padded) against direct calls, a
+   bad body answered 400, the HTTP round trip's p50 at batch 1 and 128 (f32
+   and int8), 16 concurrent batch-1 clients with micro-batching (2 ms)
+   taking fewer than 16 device calls (K1's counter) with each client's
+   logits beside its direct call, and graceful shutdowns. One
+   ``export_serve`` JSON line. K1, K8 and K10's entries in the kernels line
+   name the operator through which an artifact reaches them.
 4. Drives the training path: ``dctn_tpu_torch.bench.run`` takes Adam steps
    of the flagship at batch 128 on the kernels and on the plain path, and
    the script checks the kernels' launches per step, the gradients of one
@@ -157,6 +177,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import io
 import json
 import math
 import os
@@ -380,6 +401,32 @@ LME_KERNELS = {
     },
 }
 KERNELS = {**KERNELS, **LME_KERNELS}
+# the export and serve phase (3b): the seeded flagship exported f32 and int8
+# at ART_BATCHES, the ConvSBS model at SBS_ART_BATCHES; a loaded artifact's
+# logits against the eager model's on the same weights and images. The same
+# kernels run on the same operands behind the same glue ops, so equal bits
+# are expected; ART_TOL of the largest logit leaves room only for a glue op
+# the traced graph computes otherwise (the reading is printed).
+ART_BATCHES = (1, BATCH)
+SBS_ART_BATCHES = (1, 100)
+ART_TOL = 1e-6
+ART_AB_CALLS = 200  # fenced calls of each, eager and artifact in turns
+ART_PROFILE_CALLS = 20  # calls timed without a fence (< the launch queue) and profiled
+HOST_PROFILE_ROWS = 12
+HTTP_CALLS = 30
+MICROBATCH_CLIENTS = 16
+MICROBATCH_WAIT_MS = 2.0
+# a micro-batched client is served by the batch-128 entry and its direct call
+# by the batch-1 one: other shapes of the classifier's product (3,174
+# features), whose library kernels sum in other orders: the largest reading
+# was 4.381e-7 of the direct call's largest logit on an H100 (PERF.md §6),
+# 8.9e-7 on a CPU, so 1e-5
+MB_TOL = 1e-5
+# the kernels an exported artifact reaches through its registered operators
+ARTIFACT_OPS = {"eps_fwd": "dctn_tpu_torch::eps_fwd", "eps_fwd_q8": "dctn_tpu_torch::eps_fwd_q8",
+                "sbs_fwd_mim": "dctn_tpu_torch::sbs_fwd"}
+for _name, _op in ARTIFACT_OPS.items():
+    KERNELS[_name]["artifact_op"] = _op
 # (label, Θ, R, I, offset of A (B gets its negative), −inf rows, columns and
 # entries): a chain link (5 per chain forward), the classifier's step (its
 # real operands: features and the block-diagonal weights, −inf off the
@@ -842,6 +889,267 @@ def profile_serving(paths, x, latency_stats, out_dir: str, tag: str) -> None:
                 "host_enqueue_ms": host_ms, "extra_device_mib": extra_mib,
                 "top_device_ops_ms": top,
             }))
+
+
+
+def pct(times, q):
+    return sorted(times)[int(len(times) * q)]
+
+
+def interleaved_ms(fns, x, calls: int) -> list:
+    """p50 and p90 ms of each of ``fns`` on ``x``, every call fenced, the
+    functions in turns (one warm call each first)."""
+    times = [[] for _ in fns]
+    for fn in fns:
+        fn(x)
+    torch.cuda.synchronize()
+    for _ in range(calls):
+        for fn, ts in zip(fns, times):
+            t0 = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+    return [{"p50_ms": pct(ts, 0.5), "p90_ms": pct(ts, 0.9)} for ts in times]
+
+
+def host_profile(fn, x, calls: int) -> dict:
+    """Host ms per call of ``fn`` (its launches enqueued, no fence between
+    calls) and the Python functions that take most of it: cProfile's own
+    and cumulative time per call, the top ``HOST_PROFILE_ROWS`` of each."""
+    import cProfile
+    import pstats
+
+    fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(x)
+    host = 1e3 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn(x)
+    prof.disable()
+    torch.cuda.synchronize()
+    rows = pstats.Stats(prof).stats.items()  # (file, line, name): (cc, nc, own, cum, callers)
+
+    def top(col):
+        best = sorted(rows, key=lambda kv: kv[1][col], reverse=True)[:HOST_PROFILE_ROWS]
+        return {f"{os.path.basename(f)}:{line}({name})": 1e3 * v[col] / calls
+                for (f, line, name), v in best}
+
+    return {"host_ms_per_call": host, "own_ms_per_call": top(2), "cumulative_ms_per_call": top(3)}
+
+
+def export_serve_phase(bench, CSM, params, cfg, served, dev, tmp) -> dict:
+    """Phase 3b: export, load, predict and serve. The seeded flagship of
+    phase 3, f32 and int8, and the 2-layer bond-4 ConvSBS model exported on
+    the card through ``export.run``; each loaded with ``load_artifact``:
+    its operator nodes, launches per forward and logits against the eager
+    model; ``predict.run`` on both flagship artifacts beside phase 3's npz
+    numbers, and the artifact's latency against the npz model's in turns
+    (with a host profile of both); the stdlib server: 128 and 300 images
+    against direct calls, a bad body, 16 micro-batched batch-1 clients, the
+    HTTP round trip at batch 1 and 128, a graceful shutdown. Returns the
+    launch counts of the whole phase."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from dctn_tpu_torch.cli import export, predict, serve
+    from dctn_tpu_torch.data import io as data_io
+    from dctn_tpu_torch.models import ConvSBSModel, EPSesPlusLinear, EPSesPlusLinearQ8
+    from dctn_tpu_torch.train import save_conv_sbs_params_npz, save_params_npz
+
+    def counts():
+        return {**bench.read_counters(), **bench.read_sbs_counters()}
+
+    def launched(fn, x):
+        """fn(x) and the launches it made (the counters' moves)."""
+        torch.cuda.synchronize()
+        before = counts()
+        out = fn(x)
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in counts().items() if v != before[k]}
+
+    def hold(got, want, what):
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        equal = bool(torch.equal(got, want))
+        print(f"{what}: max|d|={err:.3e} tol={ART_TOL * scale:.3e} bit-equal {equal}")
+        check(torch.isfinite(got).all().item() and err <= ART_TOL * scale,
+              f"{what}: the artifact's logits differ from the eager model's")
+        return {"max_abs_d": err, "bit_equal": equal}
+
+    out = {}
+    bench.zero_counters()
+    ckpt = os.path.join(tmp, "flagship.npz")
+    save_params_npz(params, ckpt)
+    (run_f32, _), (run_q8, _) = served["none"], served["int8"]
+    x = run_f32.x[:, :BATCH]
+    arts, fns = {}, {}
+    eager = {"f32": EPSesPlusLinear.from_reference(params, cfg, device=dev),
+             "int8": EPSesPlusLinearQ8.from_reference(params, cfg, device=dev)}
+    for name, quantize, op in (("f32", "none", "eps_fwd"), ("int8", "int8", "eps_fwd_q8")):
+        arts[name] = os.path.join(tmp, f"{name}.zip")
+        report = export.run(checkpoint=ckpt, epses_specs=FLAGSHIP, batch_sizes=ART_BATCHES,
+                            device="cuda", quantize=quantize, out=arts[name])
+        meta, fns[name] = export.load_artifact(arts[name])
+        check(meta["platforms"] == ["cuda"] and meta["quantize"] == quantize, f"{name} meta {meta}")
+        rec = out[name] = {"export_s": report["export_s"], "artifact_bytes": report["artifact_bytes"]}
+        with torch.inference_mode():
+            for bs in ART_BATCHES:
+                check(export.op_nodes(fns[name][bs]) == {op: 2},
+                      f"{name} bs {bs}: graph nodes {export.op_nodes(fns[name][bs])}")
+                got, n_art = launched(fns[name][bs], x[:, :bs])
+                want, n_eager = launched(eager[name], x[:, :bs])
+                check(n_art == n_eager == {op: 2}, f"{name} bs {bs}: launches per forward "
+                      f"artifact {n_art}, eager {n_eager}")
+                rec[f"logits_bs{bs}"] = hold(got, want, f"{name} artifact vs eager, batch {bs}")
+            rec["launches_per_forward"] = n_art
+    try:
+        export.load_artifact(arts["f32"], "cuda:1")
+        check(False, "an artifact exported on cuda:0 loaded onto cuda:1")
+    except ValueError as e:
+        check("does not load onto cuda:1" in str(e), f"cuda:1 refusal: {e}")
+
+    # the ConvSBS model on the legacy runner's recipe (unit-std layers)
+    images, _ = data_io.synthetic_mnist_like(100, seed=1234)
+    xs = torch.as_tensor(images, device=dev)
+    scfg = sbs_model_cfg(CSM, xs, False)
+    sparams = sbs_recipe_params(CSM, scfg, xs, dev)
+    sckpt = os.path.join(tmp, "conv_sbs.npz")
+    save_conv_sbs_params_npz(sparams, sckpt)
+    arts["conv_sbs"] = os.path.join(tmp, "conv_sbs.zip")
+    report = export.run(checkpoint=sckpt, model_family="conv_sbs", num_sbs_layers=SBS_LAYERS,
+                        bond_dim=SBS_BOND, cos_sin_squared=True,
+                        input_multiplier=scfg.input_multiplier, batch_sizes=SBS_ART_BATCHES,
+                        device="cuda", out=arts["conv_sbs"])
+    _, fns["conv_sbs"] = export.load_artifact(arts["conv_sbs"])
+    smodel = ConvSBSModel(sparams, scfg)
+    rec = out["conv_sbs"] = {"export_s": report["export_s"],
+                             "artifact_bytes": report["artifact_bytes"]}
+    with torch.inference_mode():
+        for bs in SBS_ART_BATCHES:
+            fn = fns["conv_sbs"][bs]
+            check(export.op_nodes(fn) == {"sbs_fwd": 3}, f"conv_sbs nodes {export.op_nodes(fn)}")
+            got, n_art = launched(fn, xs[:bs])
+            want, n_eager = launched(smodel, xs[:bs])
+            check(n_art == n_eager and sum(n_art.values()) == 3,
+                  f"conv_sbs bs {bs}: launches per forward artifact {n_art}, eager {n_eager}")
+            rec[f"logits_bs{bs}"] = hold(got, want, f"conv_sbs artifact vs eager, batch {bs}")
+        rec["launches_per_forward"] = n_art
+
+    # predict.run from the artifacts, beside phase 3's npz numbers; then the
+    # artifact against the npz model in turns, and where the host time goes
+    for name, npz_run in (("f32", run_f32), ("int8", run_q8)):
+        art_run = predict.run(checkpoint=arts[name], ds_type="fashionmnist", ds_path="synthetic",
+                              batch_size=BATCH, latency_bench=True, device="cuda",
+                              synthetic_sizes=(1024, 256, 1024))
+        check(np.array_equal(art_run.preds, npz_run.preds),
+              f"predict.run on the {name} artifact predicts otherwise than on the npz")
+        rec = out[name]
+        rec["predict_latency"] = {
+            "artifact": {s["batch_size"]: {k: s[k] for k in ("p50_ms", "p90_ms",
+                                                             "pipelined_throughput_img_per_s")}
+                         for s in art_run.latency},
+            "npz": {s["batch_size"]: {k: s[k] for k in ("p50_ms", "p90_ms",
+                                                        "pipelined_throughput_img_per_s")}
+                    for s in npz_run.latency},
+        }
+        with torch.inference_mode():
+            for bs in ART_BATCHES:
+                e, a = interleaved_ms([eager[name], fns[name][bs]], x[:, :bs], ART_AB_CALLS)
+                rec[f"in_turns_bs{bs}"] = {"npz_model": e, "artifact": a,
+                                           "ratio_p50": a["p50_ms"] / e["p50_ms"]}
+            rec["host_profile_bs128"] = {
+                "npz_model": host_profile(eager[name], x, ART_PROFILE_CALLS),
+                "artifact": host_profile(fns[name][BATCH], x, ART_PROFILE_CALLS),
+            }
+        print(json.dumps({"metric": "artifact_latency", "model": name,
+                          **{k: rec[k] for k in ("predict_latency", "in_turns_bs1",
+                                                 f"in_turns_bs{BATCH}", "host_profile_bs128")}}))
+
+    # the HTTP server on a free port, in a thread
+    def post(base, arr, query=""):
+        buf = io.BytesIO()
+        np.save(buf, arr)
+        req = urllib.request.Request(f"{base}/predict{query}", data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return np.load(io.BytesIO(resp.read()))
+
+    def start(art, wait_ms=0.0):
+        server, model = serve.make_server(art, port=0, microbatch_wait_s=wait_ms / 1e3)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        return server, model, f"http://127.0.0.1:{server.server_address[1]}"
+
+    def stop(server, model, base):
+        server.shutdown()
+        server.server_close()
+        model.close()
+        try:
+            post(base, x300[:, :1])
+        except urllib.error.URLError:
+            return
+        check(False, "the server answered after its shutdown")
+
+    x300 = run_f32.x[:, :300].cpu().numpy()
+    for name in ("f32", "int8"):
+        server, model, base = start(arts[name])
+        x128 = x300[:, :BATCH]
+        with torch.inference_mode():
+            direct = fns[name][BATCH](torch.as_tensor(x128, device=dev)).cpu().numpy()
+        check(np.array_equal(post(base, x128), direct), f"{name}: HTTP 128 images != direct call")
+        check(np.array_equal(post(base, x300), model.predict(x300)),
+              f"{name}: HTTP 300 images (chunked, padded) != direct calls")
+        try:
+            urllib.request.urlopen(urllib.request.Request(f"{base}/predict", data=b"junk",
+                                                          method="POST"), timeout=60)
+            check(False, "a bad body was answered")
+        except urllib.error.HTTPError as e:
+            check(e.code == 400, f"a bad body got HTTP {e.code}")
+        http = {}
+        for bs in ART_BATCHES:
+            xb = x300[:, :bs]
+            post(base, xb)
+            ts = []
+            for _ in range(HTTP_CALLS):
+                t0 = time.perf_counter()
+                post(base, xb)
+                ts.append(1e3 * (time.perf_counter() - t0))
+            http[bs] = {"p50_ms": pct(ts, 0.5), "p90_ms": pct(ts, 0.9)}
+        out[name]["http_round_trip"] = http
+        stop(server, model, base)
+
+    # micro-batching: 16 concurrent batch-1 clients, started together
+    server, model, base = start(arts["f32"], MICROBATCH_WAIT_MS)
+    gate = threading.Barrier(MICROBATCH_CLIENTS)
+
+    def client(i):
+        gate.wait()
+        return post(base, x300[:, i : i + 1])
+
+    before = counts()["eps_fwd"]
+    with concurrent.futures.ThreadPoolExecutor(MICROBATCH_CLIENTS) as pool:
+        got = list(pool.map(client, range(MICROBATCH_CLIENTS)))
+    torch.cuda.synchronize()
+    calls = (counts()["eps_fwd"] - before) // 2
+    stop(server, model, base)
+    worst = 0.0
+    with torch.inference_mode():
+        for i, g in enumerate(got):
+            want = fns["f32"][1](torch.as_tensor(x300[:, i : i + 1], device=dev)).cpu().numpy()
+            err = float(np.abs(g - want).max())
+            worst = max(worst, err / float(np.abs(want).max()))
+    print(f"micro-batching ({MICROBATCH_CLIENTS} batch-1 clients, {MICROBATCH_WAIT_MS} ms): "
+          f"{calls} device calls; largest max|d|/max|direct| {worst:.3e} (tol {MB_TOL:g})")
+    check(calls < MICROBATCH_CLIENTS, f"micro-batching took {calls} device calls")
+    check(worst <= MB_TOL, "a micro-batched client's logits differ from its direct call")
+    out["microbatch"] = {"clients": MICROBATCH_CLIENTS, "wait_ms": MICROBATCH_WAIT_MS,
+                         "device_calls": calls, "max_rel_d": worst}
+    print(json.dumps({"export_serve": out}))
+    return counts()
 
 
 def make_trainer(params, cfg, kernels, dev, lr, reg=None, grad_accum_steps=1):
@@ -2403,9 +2711,14 @@ def main(argv=None) -> int:
                 {"kernel": qmodel, "plain": lambda xs: qmodel(xs, fwd=Q8.eps_fwd_q8_reference)},
                 result_q8.x, predict.latency_stats, args.profile, "int8",
             )
+    phase_done("serving")
+
+    # phase 3b: export, load, predict and serve artifacts of the same models
+    with tempfile.TemporaryDirectory() as tmp:
+        exported = export_serve_phase(bench, CSM, params, cfg, served, dev, tmp)
     del served, result, model, result_q8, qmodel
 
-    phase_done("serving")
+    phase_done("export and serve")
 
     # phase 4: the training paths, f32 then QAT, through the bench entry point
     from dctn_tpu_torch.data import load_dataset
@@ -2565,7 +2878,7 @@ def main(argv=None) -> int:
     phase_done("log-space (8, 9)")
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
-    driven = [serving, serving_q8, *trained.values(), *runner_runs, *sbs_runs, *sbs_bench_counts,
+    driven = [serving, serving_q8, exported, *trained.values(), *runner_runs, *sbs_runs, *sbs_bench_counts,
               *lme_launches]
     launches = {name: sum(c.get(name, 0) for c in driven) for name in KERNELS}
     print(json.dumps({"kernels": [

@@ -1,0 +1,418 @@
+"""Model export for deployment (port of ``dctn_tpu/cli/export.py``): the
+serving forward as ``torch.export`` programs with the trained weights
+inside, one per batch size, in one zip.
+
+Both model families export: EPSesPlusLinear (``--model-family eps``) and
+the legacy ConvSBS stack (``conv_sbs``, raw (bs, H, W) pixels in, the
+quantum map inside the graph). The ``pallas`` backend (the default, also
+what ``auto`` means) traces the fast forward with its kernels as the
+registered operators of ``kernels/ops.py`` (K1 per EPS layer, K8 per layer
+with ``--quantize int8``, one ConvSBS fold per string): a loaded artifact
+launches the same hand-written kernels as eager serving, and loading it
+needs ``dctn_tpu_torch`` installed, which registers those operators. The
+``xla`` backend traces the reference-layout forward through plain PyTorch
+operations only: its artifact loads wherever ``torch`` is installed.
+
+An artifact runs on the device type it was exported on (``--device``,
+``cuda`` by default): its weights lie there. ``load_artifact`` refuses
+another device type, and a CUDA artifact where no card is available; it
+never moves an artifact.
+
+Artifact layout (a zip):
+  meta.json          the model config, batch sizes, device type, backend
+  forward_bs{N}.pt2  ``torch.export.save`` of the program for batch size N
+                     (static shapes: the kernels' launch plans are fixed per
+                     shape)
+
+Usage:
+  python -m dctn_tpu_torch.cli.export CKPT.npz --epses-specs "(4,4),(3,6)" \
+      --batch-sizes 1,128 --out model.zip [--quantize int8]
+  # serving side:
+  #   from dctn_tpu_torch.cli.export import load_artifact
+  #   meta, fns = load_artifact("model.zip")
+  #   logits = fns[128](x)          # x (C, 128, H, W, Q0) on meta's device
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import time
+import zipfile
+from typing import Callable, Dict, Sequence, Tuple
+
+import click
+import torch
+from torch import nn
+
+from ..interop import conv_sbs_params_from_numpy, params_from_numpy
+from ..kernels import ops  # registers the operators that pallas graphs name
+from ..kernels.eps_q8_kernels import quantize_fast_params
+from ..models import (
+    ConvSBSModel,
+    ConvSBSModelConfig,
+    EPSesPlusLinear,
+    EPSesPlusLinearConfig,
+    EPSesPlusLinearQ8,
+    EPSesPlusLinearReference,
+    conv_sbs_model_forward,
+    fast_layer_plans,
+    fast_params_from_reference,
+    init_conv_sbs_model,
+)
+from ..train import load_conv_sbs_params_npz, load_params_npz
+from .specs import parse_epses_specs
+
+_META_NAME = "meta.json"
+_ENTRY = "forward_bs{}.pt2"
+BACKENDS = ("pallas", "xla")
+
+# each refused flag, the values that mean "not used", and the ROADMAP item
+# that ports it (as the runners' REFUSED tables)
+REFUSED = (
+    ("mesh_devices", (1,), "--mesh-devices > 1", "multi-GPU (slice 7, item 19)"),
+    ("space_devices", (1,), "--space-devices > 1", "multi-GPU (slice 7, item 19)"),
+    ("autotune_splits", (False,), "--autotune-splits", "the autotuner (slice 8, item 20)"),
+    ("autotune_cache", (False,), "--autotune-cache", "the autotuner (slice 8, item 20)"),
+    ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
+     "a single-pass operand mode (Queue 2, follow-up 4)"),
+)
+
+
+class _Program(nn.Module):
+    """What one entry point traces: ``forward(model, x)`` over ``model``,
+    whose parameters become the program's weights."""
+
+    def __init__(self, model: nn.Module, forward: Callable):
+        super().__init__()
+        # contiguous weights: the saved program stores each in its own
+        # storage, as torch.export.load expects
+        for t in (*model.parameters(), *model.buffers()):
+            t.data = t.data.contiguous()
+        self.model = model
+        self._forward = forward
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._forward(self.model, x)
+
+
+def _serialize(program: _Program, batch_sizes: Sequence[int], shape: Callable, device):
+    """({bs: saved program}, {bs: export seconds}): ``torch.export`` of
+    ``program`` at the input shape ``shape(bs)`` on ``device``. Traced under
+    ``no_grad``: the layers' autograd Functions then run their forwards
+    alone, and the graph holds the operators' nodes."""
+    serialized, seconds = {}, {}
+    for bs in batch_sizes:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            exported = torch.export.export(program.eval(), (torch.zeros(shape(bs), device=device),))
+        buf = io.BytesIO()
+        torch.export.save(exported, buf)
+        serialized[bs], seconds[bs] = buf.getvalue(), time.perf_counter() - t0
+    return serialized, seconds
+
+
+@torch.no_grad()
+def _eps_program(params, cfg: EPSesPlusLinearConfig, channels: int, device, backend: str,
+                 quantize) -> _Program:
+    """The serving model of ``backend`` on ``device``: the fast (cmt) model
+    through the operator bundles (K1, or K8 with ``quantize="int8"``), or
+    the reference-layout model through plain operations."""
+    if backend == "xla":
+        if quantize:
+            raise ValueError("quantize needs the pallas backend (the int8 kernel's fast layout)")
+        return _Program(EPSesPlusLinearReference(params, cfg).to(device), lambda m, x: m(x))
+    fast, plans = fast_params_from_reference(params, cfg, plans=fast_layer_plans(cfg, channels))
+    if quantize == "int8":
+        model = EPSesPlusLinearQ8(quantize_fast_params(fast), plans, cfg).to(device)
+        return _Program(model, lambda m, x: m(x, fwd=ops.eps_fwd_q8))
+    model = EPSesPlusLinear(fast, plans, cfg).to(device)
+    return _Program(model, lambda m, x: m(x, kernels=ops.OP_KERNELS))
+
+
+@torch.no_grad()
+def _sbs_program(params, cfg: ConvSBSModelConfig, device, backend: str) -> _Program:
+    """The ConvSBS serving model on ``device``: every string through the
+    ``sbs_fwd`` operator, or the plain reference-layout forward."""
+    model = ConvSBSModel(params, cfg, device=device, dtype=torch.float32)
+    if backend == "pallas":
+        return _Program(model, lambda m, x: m(x, kernels=ops.OP_SBS_KERNELS))
+    return _Program(model, lambda m, x: conv_sbs_model_forward(m.params(), m.cfg, x))
+
+
+def export_forward(
+    params,
+    cfg: EPSesPlusLinearConfig,
+    *,
+    batch_sizes: Sequence[int],
+    channels: int = 1,
+    device="cuda",
+    backend: str = "pallas",
+    quantize=None,
+) -> Tuple[Dict[int, bytes], Dict[int, float]]:
+    """The serving forward of reference-layout ``params`` (tensors on any
+    device), one saved program per batch size, the weights inside on
+    ``device``: input (C, bs, H, W, Q₀) f32 there, output (bs, classes).
+    ``quantize="int8"``: the W8A8 model, its int8 cores inside the program.
+    Returns ({bs: saved program}, {bs: export seconds})."""
+    assert backend in BACKENDS and quantize in (None, "int8"), (backend, quantize)
+    program = _eps_program(params, cfg, channels, device, backend, quantize)
+    size = cfg.image_size
+    return _serialize(program, batch_sizes, lambda bs: (channels, bs, size, size, cfg.q0), device)
+
+
+def export_conv_sbs_forward(
+    params,
+    cfg: ConvSBSModelConfig,
+    *,
+    batch_sizes: Sequence[int],
+    image_size: int = 28,
+    device="cuda",
+    backend: str = "pallas",
+) -> Tuple[Dict[int, bytes], Dict[int, float]]:
+    """ConvSBS (legacy family) serving export: raw (bs, H, W) pixels →
+    (bs, num_labels) logits, the quantum map inside the program. ``pallas``
+    folds every string through the ``sbs_fwd`` operator; ``xla`` is the
+    plain reference-layout forward. Returns as ``export_forward``."""
+    assert backend in BACKENDS, backend
+    program = _sbs_program(params, cfg, device, backend)
+    return _serialize(program, batch_sizes, lambda bs: (bs, image_size, image_size), device)
+
+
+def write_artifact(path: str, serialized: Dict[int, bytes], meta: dict) -> None:
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr(_META_NAME, json.dumps(meta, indent=1))
+        for bs, blob in sorted(serialized.items()):
+            zf.writestr(_ENTRY.format(bs), blob)
+
+
+def load_artifact(path: str, device=None) -> Tuple[dict, Dict[int, torch.nn.Module]]:
+    """(meta, {batch_size: callable}): each callable maps an input batch on
+    the artifact's device to logits, with the program's weights frozen.
+    ``device`` (default: the artifact's) must be the device the artifact was
+    exported on: its type, and for a card its index (``cuda`` alone means
+    the current card). A JAX package artifact (``.jaxexp`` entries) is
+    refused: re-export its npz checkpoint with this package."""
+    fns: Dict[int, torch.nn.Module] = {}
+    with zipfile.ZipFile(path) as zf:
+        names = zf.namelist()
+        if any(n.endswith(".jaxexp") for n in names):
+            raise ValueError(
+                f"{path} is an artifact of the JAX package (jax.export entries); the port loads "
+                "its own: re-export from the npz checkpoint with `python -m "
+                "dctn_tpu_torch.cli.export CKPT.npz ...`"
+            )
+        meta = json.loads(zf.read(_META_NAME))
+        if max(meta.get("mesh_devices", 1), meta.get("space_devices", 1)) > 1:
+            raise ValueError(f"{path} is a sharded artifact: not ported yet (ROADMAP item 19)")
+        exported_on = (meta.get("platforms") or ["cpu"])[0]
+        want = torch.device(device if device is not None else exported_on)
+        if want.type != exported_on:
+            raise ValueError(
+                f"{path} was exported on {exported_on}; it does not load onto {want.type} "
+                f"(re-export it with --device {want.type})"
+            )
+        if want.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"{path} was exported on cuda, and no CUDA device is available")
+            if want.index is None:
+                want = torch.device("cuda", torch.cuda.current_device())
+        for name in names:
+            if name == _META_NAME:
+                continue
+            bs = int(name[len("forward_bs") : -len(".pt2")])
+            program = torch.export.load(io.BytesIO(zf.read(name)))
+            held = {t.device for t in (*program.state_dict.values(), *program.constants.values())
+                    if isinstance(t, torch.Tensor) and t.device.type == "cuda"}
+            if held - {want}:
+                raise ValueError(
+                    f"{path}'s weights lie on {', '.join(sorted(map(str, held)))}; it does not "
+                    f"load onto {want} (export it there, or serve it there)"
+                )
+            fn = program.module()
+            for p in fn.parameters():
+                p.requires_grad_(False)
+            fns[bs] = fn
+    return meta, fns
+
+
+def op_nodes(fn: torch.nn.Module) -> Dict[str, int]:
+    """How many nodes of each ``dctn_tpu_torch`` operator a loaded entry
+    point's graph holds (``{}`` for an xla artifact)."""
+    counts: Dict[str, int] = {}
+    for node in fn.graph.nodes:
+        name = getattr(node.target, "name", lambda: "")()
+        if node.op == "call_function" and name.startswith(f"{ops.NAMESPACE}::"):
+            key = name.split("::", 1)[1]
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def parse_batch_sizes(s: str) -> Tuple[int, ...]:
+    """'1,128' → (1, 128): export's and the runners' --export-batch-sizes."""
+    return tuple(int(v) for v in s.split(",") if v.strip())
+
+
+def build_meta(
+    *,
+    model_family: str,
+    image_size: int,
+    batch_sizes: Sequence[int],
+    backend: str,
+    mesh_devices: int = 1,
+    space_devices: int = 1,
+    platforms: Sequence[str],
+    compute_dtype: str = "float32",
+    quantize: str = "none",
+    **family_meta,
+) -> dict:
+    """The artifact meta, the JAX package's schema with ``torch_version``
+    in place of ``jax_version`` and the torch device type in ``platforms``;
+    export's CLI and both runners' --export-artifact build it here."""
+    return {
+        "format_version": 1,
+        "model_family": model_family,
+        "image_size": image_size,
+        "batch_sizes": sorted(batch_sizes),
+        "mesh_devices": mesh_devices,
+        "space_devices": space_devices,
+        "platforms": list(platforms),
+        "backend": backend,
+        "compute_dtype": compute_dtype if model_family == "eps" else "float32",
+        "quantize": quantize if model_family == "eps" else "none",
+        "in_dtype": "float32",
+        "torch_version": torch.__version__,
+        **family_meta,
+    }
+
+
+def _parse_int_list(_ctx, _param, value: str) -> Tuple[int, ...]:
+    return parse_batch_sizes(value)
+
+
+@click.command()
+@click.argument("checkpoint", type=click.Path(exists=True, dir_okay=False))
+@click.option("--model-family", type=click.Choice(("eps", "conv_sbs")), default="eps")
+@click.option("--epses-specs", type=parse_epses_specs, default=None,
+              help="required for --model-family eps")
+@click.option("--image-size", type=int, default=28)
+@click.option("--q0", type=int, default=2)
+@click.option("--channels", type=int, default=1)
+@click.option("--num-classes", type=int, default=10)
+@click.option("--num-sbs-layers", type=int, default=2, help="conv_sbs family")
+@click.option("--bond-dim", type=int, default=4, help="conv_sbs family")
+@click.option("--trace-edge/--no-trace-edge", default=False, help="conv_sbs family")
+@click.option("--cos-sin-squared", is_flag=True, help="conv_sbs family")
+@click.option("--input-multiplier", type=float, default=1.0, help="conv_sbs family")
+@click.option("--batch-sizes", callback=_parse_int_list, default="1,128",
+              help="comma-separated; one exported entry point per size")
+@click.option("--mesh-devices", type=int, default=1, help="not ported yet: only 1 is accepted")
+@click.option("--space-devices", type=int, default=1, help="not ported yet: only 1 is accepted")
+@click.option("--device", default="cuda",
+              help="torch device to export on and serve on: cuda (the kernels) or cpu "
+                   "(their plain versions)")
+@click.option("--backend", type=click.Choice(("auto", "pallas", "xla")), default="auto",
+              help="pallas (and auto): the fast forward through the kernels' operators; "
+                   "xla: the reference-layout forward in plain operations, loadable without "
+                   "this package")
+@click.option("--compute-dtype", type=click.Choice(("float32", "bfloat16")), default="float32",
+              help="not ported yet: only float32 is accepted")
+@click.option("--quantize", type=click.Choice(("none", "int8")), default="none",
+              help="W8A8 int8 EPS layers (eps family, pallas backend): int8 cores inside "
+                   "the artifact, the activations quantized per pixel in the kernel")
+@click.option("--autotune-splits/--no-autotune-splits", default=False,
+              help="not ported yet (the autotuner, ROADMAP item 20)")
+@click.option("--autotune-cache/--no-autotune-cache", default=False,
+              help="not ported yet (the autotuner, ROADMAP item 20)")
+@click.option("--out", type=click.Path(dir_okay=False), required=True)
+def main(**kw):
+    run(**kw)
+
+
+def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2, channels=1,
+        num_classes=10, num_sbs_layers=2, bond_dim=4, trace_edge=False, cos_sin_squared=False,
+        input_multiplier=1.0, batch_sizes=(1, 128), mesh_devices=1, space_devices=1,
+        device="cuda", backend="auto", compute_dtype="float32", quantize="none",
+        autotune_splits=False, autotune_cache=False, out=None) -> dict:
+    """Export the npz ``checkpoint`` to the artifact ``out``; returns each
+    entry point's export seconds and bytes, and the artifact's bytes."""
+    given = dict(mesh_devices=mesh_devices, space_devices=space_devices,
+                 autotune_splits=autotune_splits, autotune_cache=autotune_cache,
+                 compute_dtype=compute_dtype)
+    for name, accepted, flag, where in REFUSED:
+        if given[name] not in accepted:
+            raise click.UsageError(f"{flag} is not ported to the PyTorch export yet: ROADMAP, {where}")
+    if backend == "auto":
+        backend = "pallas"
+    if quantize != "none":
+        if model_family != "eps":
+            raise click.UsageError(
+                "--quantize needs --model-family eps: the ConvSBS kernels are per-pixel bond "
+                "folds on the CUDA cores, with no tensor-core matmul to quantize (and KB-scale "
+                "cores)"
+            )
+        if backend != "pallas":
+            raise click.UsageError(
+                "--quantize needs the pallas backend (the int8 kernel runs on the fast layout)"
+            )
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise click.UsageError(f"--device {device}: no CUDA device is available")
+    t0 = time.perf_counter()
+    if model_family == "eps":
+        if not epses_specs:
+            raise click.UsageError("--model-family eps needs --epses-specs")
+        from .predict import _check_params
+
+        cfg = EPSesPlusLinearConfig(epses_specs=tuple(epses_specs), image_size=image_size, q0=q0,
+                                    num_classes=num_classes)
+        params = params_from_numpy(load_params_npz(checkpoint), device, torch.float32)
+        _check_params(params, cfg, channels)
+        serialized, seconds = export_forward(
+            params, cfg, batch_sizes=batch_sizes, channels=channels, device=device,
+            backend=backend, quantize=None if quantize == "none" else quantize)
+        family_meta = {"epses_specs": [list(s) for s in epses_specs], "q0": q0,
+                       "channels": channels, "num_classes": num_classes}
+    else:
+        cfg = ConvSBSModelConfig(
+            num_sbs_layers=num_sbs_layers, bond_dim_size=bond_dim, trace_edge=trace_edge,
+            cos_sin_squared=cos_sin_squared, input_multiplier=input_multiplier,
+            num_labels=num_classes,
+        )
+        params = conv_sbs_params_from_numpy(load_conv_sbs_params_npz(checkpoint), device,
+                                            torch.float32)
+        got = [tuple(c.shape) for layer in params for s in layer for c in s]
+        want = [tuple(c.shape) for layer in init_conv_sbs_model(torch.Generator(), cfg)
+                for s in layer for c in s]
+        if got != want:
+            raise click.UsageError(f"{checkpoint} does not match this model: cores {got} vs {want}")
+        serialized, seconds = export_conv_sbs_forward(
+            params, cfg, batch_sizes=batch_sizes, image_size=image_size, device=device,
+            backend=backend)
+        family_meta = {"num_sbs_layers": num_sbs_layers, "bond_dim_size": bond_dim,
+                       "trace_edge": trace_edge, "cos_sin_squared": cos_sin_squared,
+                       "input_multiplier": input_multiplier, "num_labels": num_classes}
+    meta = build_meta(
+        model_family=model_family, image_size=image_size, batch_sizes=batch_sizes,
+        backend=backend, platforms=[device.type], compute_dtype=compute_dtype,
+        quantize=quantize, **family_meta,
+    )
+    write_artifact(out, serialized, meta)
+    report = {
+        "export_s": seconds,
+        "entry_bytes": {bs: len(b) for bs, b in serialized.items()},
+        "artifact_bytes": os.path.getsize(out),
+        "total_s": time.perf_counter() - t0,
+    }
+    print(
+        f"exported {len(serialized)} entry point(s) (bs {sorted(serialized)}, device "
+        f"{device.type}, backend {backend}, quantize {quantize}) to {out} "
+        f"({report['artifact_bytes'] / 1e6:.2f} MB; export s per entry "
+        + ", ".join(f"bs {bs}: {s:.2f}" for bs, s in report["export_s"].items()) + ")"
+    )
+    return report
+
+
+if __name__ == "__main__":
+    main()

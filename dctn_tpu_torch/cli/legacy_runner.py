@@ -33,10 +33,15 @@ K10 and backward K11 on a card), each string's output on that batch and
 each string's TT mean and std. ``--profile-dir`` writes a
 ``torch.profiler`` trace of the ``--profile-iters`` window.
 
-Refused until their slices land (ROADMAP names each): ``--mesh-devices`` > 1
-and ``--distributed`` (multi-GPU DP), ``--autotune-kernels`` and
-``--autotune-cache`` (the autotuner; the cache, on by default in the JAX
-runner, is off by default here), ``--export-artifact`` (export).
+``--export-artifact`` writes the final cores as a ConvSBS deployment
+artifact (``cli/export.py``: raw pixels in, every string through the
+``sbs_fwd`` operator) on ``--device`` after training; with
+``--shuffle-pixels`` it is refused before training, since the artifact
+would not hold the pixel permutation. Refused until their slices land
+(ROADMAP names each): ``--mesh-devices`` > 1 and ``--distributed``
+(multi-GPU DP), ``--autotune-kernels`` and ``--autotune-cache`` (the
+autotuner; the cache, on by default in the JAX runner, is off by default
+here; an export takes the kernels' own routes, without serving picks).
 
 The inits draw from a ``torch.Generator`` seeded with ``--seed``, so a seed
 gives other weights than in the JAX runner; pass ``--init-load-file`` to
@@ -114,7 +119,6 @@ REFUSED = (
     ("distributed", None, "--distributed", "multi-GPU DP for the legacy family (slice 7)"),
     ("autotune_kernels", False, "--autotune-kernels", "the autotuner (slice 8, item 20)"),
     ("autotune_cache", False, "--autotune-cache", "the autotuner (slice 8, item 20)"),
-    ("export_artifact", None, "--export-artifact", "export and serve (slice 6, item 18)"),
 )
 
 
@@ -157,7 +161,8 @@ def permute_pixels_batch(images: np.ndarray, permutation) -> np.ndarray:
               help="not ported yet (the autotuner, ROADMAP item 20); off by default "
                    "here, on in the JAX runner")
 @click.option("--export-artifact", type=click.Path(dir_okay=False), default=None,
-              help="not ported yet (export, ROADMAP item 18)")
+              help="after training, export the final cores as a deployment artifact "
+                   "(cli/export.py) on --device")
 @click.option("--export-batch-sizes", type=str, default="1,100",
               help="serving batch sizes for --export-artifact")
 @click.option("--resume-from", type=click.Path(exists=True, dir_okay=False), default=None,
@@ -225,6 +230,10 @@ def _score(model: ConvSBSModel, x: torch.Tensor, y: torch.Tensor):
 def run(**kw):
     kw = fill_defaults(main, kw)
     _refuse_unported(kw)
+    if kw["export_artifact"] and kw["shuffle_pixels"]:
+        # the artifact holds the quantum map and the multiplier but not the
+        # host's pixel permutation: it would mis-serve raw images
+        raise click.UsageError("--export-artifact with --shuffle-pixels is not supported")
     device = torch.device(kw["device"])
     if device.type == "cuda" and not torch.cuda.is_available():
         raise click.BadParameter(f"--device {device}: no CUDA device is available")
@@ -435,6 +444,24 @@ def run(**kw):
         tb_writer.close()
     writer.wait()
     params = tuple(tuple(tuple(c.detach() for c in s) for s in layer) for layer in model.params())
+    if kw["export_artifact"]:
+        from .export import build_meta, export_conv_sbs_forward, parse_batch_sizes, write_artifact
+
+        bss = parse_batch_sizes(kw["export_batch_sizes"])
+        image_size = int(images.shape[1])
+        write_artifact(
+            kw["export_artifact"],
+            export_conv_sbs_forward(params, cfg, batch_sizes=bss, image_size=image_size,
+                                    device=device)[0],
+            build_meta(
+                model_family="conv_sbs", image_size=image_size, batch_sizes=bss,
+                backend="pallas", platforms=[device.type], num_sbs_layers=cfg.num_sbs_layers,
+                bond_dim_size=cfg.bond_dim_size, trace_edge=cfg.trace_edge,
+                cos_sin_squared=cfg.cos_sin_squared, input_multiplier=cfg.input_multiplier,
+                num_labels=cfg.num_labels,
+            ),
+        )
+        logger.info("deployment artifact written to %s (bs %s)", kw["export_artifact"], sorted(bss))
     return params, best_acc
 
 

@@ -5,13 +5,19 @@ The checkpoint is the JAX package's reference-layout npz; the model runs
 the fast (cmt) forward, whose EPS layers are the hand-written CUDA kernels
 on ``--device cuda`` and their plain PyTorch versions on ``--device cpu``.
 ``--quantize int8`` serves the int8 W8A8 model (cores quantized once at
-load, ``EPSesPlusLinearQ8``). Exported artifacts and ``--mesh-devices > 1``
-are not ported yet and are refused.
+load, ``EPSesPlusLinearQ8``). An artifact of ``cli/export.py`` serves in
+place of the checkpoint: the model config and weights come from it (no
+``--epses-specs``), every batch size used needs its entry point, and a
+short last batch is padded with its first image and trimmed, since the
+artifact's programs are static-shaped. ``--mesh-devices > 1`` is not
+ported yet and is refused.
 
 Usage:
   python -m dctn_tpu_torch.cli.predict CKPT.npz --ds-type fashionmnist \
       --ds-path synthetic --epses-specs "(4,4),(3,6)" --split test \
       --out preds.npy --latency-bench [--quantize int8]
+  python -m dctn_tpu_torch.cli.predict model.zip --ds-type fashionmnist \
+      --ds-path synthetic --split test --batch-size 128
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import dataclasses
 import json
 import time
 import zipfile
-from typing import Union
+from typing import Dict, Union
 
 import click
 import numpy as np
@@ -55,14 +61,43 @@ def _check_params(params, cfg: EPSesPlusLinearConfig, channels: int) -> None:
             raise ValueError(f"checkpoint leaf {key}: shape {got.get(key)} != model {tuple(shape)}")
 
 
-def predict_split(forward, x: torch.Tensor, batch_size: int) -> np.ndarray:
+def predict_split(forward, x: torch.Tensor, batch_size: int, pad: bool = False) -> np.ndarray:
     """Argmax predictions of ``forward`` over a (C, N, H, W, Q) split in
-    batches; the last batch may be short (nothing is compiled per shape)."""
-    preds = [
-        forward(x[:, start : start + batch_size]).argmax(dim=1).cpu()
-        for start in range(0, x.shape[1], batch_size)
-    ]
+    batches. The last batch may be short, or with ``pad`` (a static-shaped
+    artifact) is padded with its first image and trimmed."""
+    preds = []
+    for start in range(0, x.shape[1], batch_size):
+        xb = x[:, start : start + batch_size]
+        n = xb.shape[1]
+        if pad and n < batch_size:
+            xb = torch.cat([xb, xb[:, :1].expand(-1, batch_size - n, -1, -1, -1)], dim=1)
+        preds.append(forward(xb)[:n].argmax(dim=1).cpu())
     return torch.cat(preds).numpy()
+
+
+def _artifact_forward(path: str, batch_sizes, device):
+    """(meta, cfg, entry points) of an eps-family artifact, with an entry
+    point for every batch size in ``batch_sizes``."""
+    from .export import load_artifact
+
+    try:
+        meta, fns = load_artifact(path, device)
+    except ValueError as e:
+        raise click.UsageError(str(e)) from None
+    family = meta.get("model_family", "eps")
+    if family != "eps":
+        raise click.UsageError(f"predict serves eps-family artifacts; this one is {family!r}")
+    missing = [bs for bs in batch_sizes if bs not in fns]
+    if missing:
+        raise click.UsageError(
+            f"artifact has entry points for batch sizes {sorted(fns)}; missing {missing}: "
+            "re-export with --batch-sizes"
+        )
+    cfg = EPSesPlusLinearConfig(
+        epses_specs=tuple(tuple(s) for s in meta["epses_specs"]), image_size=meta["image_size"],
+        q0=meta["q0"], num_classes=meta.get("num_classes", 10),
+    )
+    return meta, cfg, fns
 
 
 def latency_stats(forward, x: torch.Tensor, batch_size: int, iters: int = 30) -> dict:
@@ -122,7 +157,8 @@ class PredictRun:
     accuracy: float
     latency: list  # one latency_stats dict per batch size
     forward_calls: int  # model forwards, prediction and latency together
-    model: Union[EPSesPlusLinear, EPSesPlusLinearQ8]  # the model that served
+    # the model that served: an artifact's entry points by batch size
+    model: Union[EPSesPlusLinear, EPSesPlusLinearQ8, Dict[int, torch.nn.Module]]
     x: torch.Tensor  # the split it served, (C, N, H, W, Q) on its device
 
 
@@ -131,7 +167,8 @@ class PredictRun:
 @click.option("--ds-type", required=True)
 @click.option("--ds-path", required=True)
 @click.option("--epses-specs", type=parse_epses_specs, default=None,
-              help="the model's EPS layers, e.g. '(4,4),(3,6)'")
+              help="the model's EPS layers, e.g. '(4,4),(3,6)'; required for npz checkpoints, "
+                   "artifacts carry their own")
 @click.option("--phi-multiplier", type=float, default=None)
 @click.option("--split", type=click.Choice(("train", "val", "test")), default="test")
 @click.option("--batch-size", type=int, default=128)
@@ -142,7 +179,8 @@ class PredictRun:
 @click.option("--mesh-devices", type=int, default=1,
               help="not ported yet: only 1 is accepted")
 @click.option("--quantize", type=click.Choice(("none", "int8")), default="none",
-              help="int8: W8A8 dynamic quantization of the EPS layers")
+              help="int8: W8A8 dynamic quantization of the EPS layers (npz checkpoints only: "
+                   "artifacts bake their quantization at export time)")
 @click.option("--device", default="cuda",
               help="torch device to run on: cuda (the kernels) or cpu (their plain versions)")
 def main(checkpoint, ds_type, ds_path, epses_specs, phi_multiplier, split,
@@ -157,17 +195,25 @@ def run(*, checkpoint, ds_type, ds_path, epses_specs=None, phi_multiplier=None,
         split="test", batch_size=128, out=None, latency_bench=False,
         mesh_devices=1, quantize="none", synthetic_sizes=(8192, 2048, 2048),
         device="cuda") -> PredictRun:
-    if _is_artifact(checkpoint):
-        raise click.UsageError("exported artifacts are not ported yet; pass an npz checkpoint")
     if quantize not in (None, "none", "int8"):
         raise click.UsageError(f"--quantize {quantize} is not supported: none or int8")
     if mesh_devices > 1:
         raise click.UsageError("--mesh-devices > 1 is not ported yet")
-    if not epses_specs:
+    artifact = _is_artifact(checkpoint)
+    if artifact and quantize == "int8":
+        raise click.UsageError(
+            "--quantize applies to npz checkpoints; artifacts bake their quantization at "
+            "export time (export --quantize int8)"
+        )
+    if not artifact and not epses_specs:
         raise click.UsageError("--epses-specs is required for npz checkpoints")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise click.UsageError(f"--device {device}: no CUDA device is available")
+    if artifact:
+        needed = sorted({batch_size} | ({1, batch_size} if latency_bench else set()))
+        meta, cfg, fns = _artifact_forward(checkpoint, needed, device)
+        epses_specs = cfg.epses_specs
     splits = load_dataset(
         ds_type, ds_path, phi_multiplier=phi_multiplier,
         autoscale_kernel_size=None if phi_multiplier else epses_specs[0][0],
@@ -175,21 +221,35 @@ def run(*, checkpoint, ds_type, ds_path, epses_specs=None, phi_multiplier=None,
     )
     sp = getattr(splits, split)
     channels, _, image_size, _, q0 = sp.x.shape
-    cfg = EPSesPlusLinearConfig(epses_specs=epses_specs, image_size=image_size, q0=q0)
-    params = params_from_numpy(load_params_npz(checkpoint), device, cfg.dtype)
-    _check_params(params, cfg, channels)
-    model = (EPSesPlusLinearQ8 if quantize == "int8" else EPSesPlusLinear).from_reference(params, cfg)
+    if artifact:
+        want = (meta.get("channels", channels), cfg.image_size, cfg.q0)
+        if (channels, image_size, q0) != want:
+            raise click.UsageError(
+                f"dataset shape (channels={channels}, {image_size}, q0={q0}) does not match the "
+                f"artifact (channels={want[0]}, {want[1]}, q0={want[2]})"
+            )
+        model = fns
+
+        def call(xb):
+            return fns[xb.shape[1]](xb)
+    else:
+        cfg = EPSesPlusLinearConfig(epses_specs=epses_specs, image_size=image_size, q0=q0)
+        params = params_from_numpy(load_params_npz(checkpoint), device, cfg.dtype)
+        _check_params(params, cfg, channels)
+        model = (EPSesPlusLinearQ8 if quantize == "int8" else EPSesPlusLinear).from_reference(
+            params, cfg)
+        call = model
     forward_calls = 0
 
     def forward(xb):
         nonlocal forward_calls
         forward_calls += 1
-        return model(xb)
+        return call(xb)
 
     x = torch.as_tensor(sp.x, device=device)
     latency = []
     with torch.inference_mode():
-        preds = predict_split(forward, x, batch_size)
+        preds = predict_split(forward, x, batch_size, pad=artifact)
         acc = float(np.mean(preds == np.asarray(sp.y)))
         print(f"{split}: n={len(preds)} accuracy={acc:.2%}")
         if out:

@@ -45,6 +45,11 @@ check: a backward that produces a NaN raises, with the traceback of the
 forward op behind it (the JAX runner's ``jax_debug_nans``; debugging only,
 it slows every step).
 
+``--export-artifact`` exports the final params as a deployment artifact
+(``cli/export.py``) on ``--device``, through the eval backend's forward:
+the kernels' registered operators for pallas (K8 with ``--export-quantize
+int8``), plain operations for xla.
+
 Flags the port does not run yet are refused with a ``click.BadParameter``
 naming their ROADMAP item (``REFUSED``). The inits and dropout masks draw
 from torch generators seeded from ``--seed``, so a seed gives other weights
@@ -156,8 +161,6 @@ REFUSED = (
     ("distributed", (None,), "--distributed", "multi-GPU (slice 7, item 19)"),
     ("autotune_splits", (False,), "--autotune-splits", "the autotuner (slice 8, item 20)"),
     ("autotune_cache", (False,), "--autotune-cache", "the autotuner (slice 8, item 20)"),
-    ("export_artifact", (None,), "--export-artifact", "export and serve (slice 6, item 18)"),
-    ("export_quantize", ("none",), "--export-quantize int8", "export and serve (slice 6, item 18)"),
     ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
      "a single-pass operand mode (Queue 2, follow-up 4)"),
 )
@@ -331,11 +334,13 @@ def _hint_saved_t_recipe(cfg, plans, batch: int, accum: int) -> None:
 @click.option("--synthetic-sizes", nargs=3, type=int, default=(8192, 2048, 2048),
               help="train/val/test sizes when --ds-path synthetic")
 @click.option("--export-artifact", type=click.Path(dir_okay=False), default=None,
-              help="not ported yet (export, ROADMAP item 18)")
+              help="after training, export the final params as a deployment artifact "
+                   "(cli/export.py) on --device, through the eval backend's forward")
 @click.option("--export-batch-sizes", type=str, default="1,128",
               help="serving batch sizes for --export-artifact")
 @click.option("--export-quantize", type=click.Choice(("none", "int8")), default="none",
-              help="not ported yet (export, ROADMAP item 18)")
+              help="int8: the exported artifact serves the W8A8 int8 forward (needs "
+                   "--export-artifact and the pallas eval backend)")
 @click.option("--qat", type=click.Choice(("none", "int8")), default="none",
               help="quantization-aware training: every EPS layer's forward in int8 W8A8 "
                    "(K8/K9) with straight-through gradients; evals score the same forward")
@@ -416,10 +421,22 @@ def _validate(kw: dict) -> None:
                    else "grayscale datasets only (colored datasets scale per channel via "
                         "--nu-per-channel)")
             )
+    if kw["export_quantize"] not in (None, "none"):
+        # at start, not after training: the int8 kernel runs on the fast layout
+        if not kw["export_artifact"]:
+            raise click.UsageError("--export-quantize needs --export-artifact")
+        if kw["eval_backend"] == "xla":
+            raise click.UsageError("--export-quantize int8 needs the pallas eval backend")
     if kw["qat"] not in (None, "none") and "xla" in (kw["train_backend"], kw["eval_backend"]):
         raise click.BadParameter(
             "--qat int8 runs on the fast (cmt) layout's kernels: --train-backend and "
             "--eval-backend must both be pallas (or auto)"
+        )
+    if kw["qat"] not in (None, "none") and kw["export_artifact"] and kw["export_quantize"] in (
+            None, "none"):
+        logger.warning(
+            "--qat int8 without --export-quantize int8: the exported artifact will serve the "
+            "f32 kernels, not the quantized forward the training metrics measured"
         )
     if not 0.0 < kw["dropout_p"] <= 1.0:
         raise click.BadParameter(f"--dropout-p {kw['dropout_p']}: a keep probability in (0, 1]")
@@ -828,7 +845,29 @@ def run(**kwargs) -> TrainLoopState:
         timing["evals"], 1e3 * timing["eval_s"] / max(timing["evals"], 1),
     )
     logger.info("training stopped: %s at %d iters", state.stop_reason, state.num_iters_done)
+    if kw["export_artifact"]:
+        _export_final(kw, params_view(state.params), cfg, int(splits.train.x.shape[0]), device,
+                      "xla" if eval_ref else "pallas")
     return state
+
+
+def _export_final(kw: dict, params, cfg: EPSesPlusLinearConfig, channels: int, device,
+                  backend: str) -> None:
+    """``--export-artifact``: the final reference-layout ``params`` as a
+    deployment artifact on ``device``, through the eval backend's forward."""
+    from .export import build_meta, export_forward, parse_batch_sizes, write_artifact
+
+    bss = parse_batch_sizes(kw["export_batch_sizes"])
+    quantize = None if kw["export_quantize"] in (None, "none") else kw["export_quantize"]
+    serialized, _ = export_forward(params, cfg, batch_sizes=bss, channels=channels,
+                                   device=device, backend=backend, quantize=quantize)
+    write_artifact(kw["export_artifact"], serialized, build_meta(
+        model_family="eps", image_size=cfg.image_size, batch_sizes=bss, backend=backend,
+        platforms=[device.type], quantize=quantize or "none",
+        epses_specs=[list(s) for s in cfg.epses_specs], q0=cfg.q0, channels=channels,
+        num_classes=cfg.num_classes,
+    ))
+    logger.info("deployment artifact written to %s (bs %s)", kw["export_artifact"], sorted(bss))
 
 
 if __name__ == "__main__":

@@ -1129,3 +1129,77 @@ def test_step_with_dropout_and_frozen_cores_matches_the_plain_step(cuda_device, 
             assert torch.equal(a, b)
     for i in frozen:
         assert float(grads[0][2 + i].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# deployment artifacts (cli/export.py): the kernels as registered operators
+
+
+def _artifact_case(dev, family):
+    """A seeded model of ``family`` on the card, its eager forward, its
+    input batch and the launch counter(s) of its kernel."""
+    from dctn_tpu_torch.models import (
+        ConvSBSModel,
+        EPSesPlusLinear,
+        EPSesPlusLinearConfig,
+        EPSesPlusLinearQ8,
+        init_eps_plus_linear,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    if family == "conv_sbs":
+        cfg = CSM.ConvSBSModelConfig(2, 4, cos_sin_squared=True, input_multiplier=1.2)
+        params = CSM.init_conv_sbs_model(g, cfg)
+        params = tuple(tuple(tuple(c.to(dev) for c in s) for s in layer) for layer in params)
+        x = torch.rand((100, 28, 28), generator=g).to(dev)
+        params = CSM.scale_layers_using_batch(params, cfg, x)
+        return (params, cfg), ConvSBSModel(params, cfg), x, lambda: S.sbs_fwd.mim_launches
+    cfg = EPSesPlusLinearConfig(epses_specs=((4, 4), (3, 6)))
+    params = init_eps_plus_linear(g, cfg)
+    x = torch.rand((1, 100, 28, 28, 2), generator=g).to(dev)
+    if family == "int8":
+        return (params, cfg), EPSesPlusLinearQ8.from_reference(params, cfg, device=dev), x, \
+            lambda: Q8.eps_fwd_q8.launches
+    return (params, cfg), EPSesPlusLinear.from_reference(params, cfg, device=dev), x, \
+        lambda: K.eps_fwd.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["f32", "int8", "conv_sbs"])
+def test_artifact_on_the_card_gives_the_eager_bits_and_launches_the_kernels(
+        cuda_device, tmp_path, family):
+    """Exported on the card and loaded back: the graph holds one operator
+    node per EPS layer (per ConvSBS string), a call launches the kernel as
+    often as the eager forward does (K1 without t), and gives its bits."""
+    from dctn_tpu_torch.cli import export
+
+    (params, cfg), model, x, launches = _artifact_case(cuda_device, family)
+    path = str(tmp_path / f"{family}.zip")
+    if family == "conv_sbs":
+        blobs, _ = export.export_conv_sbs_forward(params, cfg, batch_sizes=(100,),
+                                                  device=cuda_device)
+        want_nodes = {"sbs_fwd": 3}
+    else:
+        blobs, _ = export.export_forward(params, cfg, batch_sizes=(100,), device=cuda_device,
+                                         quantize="int8" if family == "int8" else None)
+        want_nodes = {"eps_fwd_q8" if family == "int8" else "eps_fwd": 2}
+    export.write_artifact(path, blobs, export.build_meta(
+        model_family="conv_sbs" if family == "conv_sbs" else "eps", image_size=28,
+        batch_sizes=(100,), backend="pallas", platforms=["cuda"]))
+    meta, fns = export.load_artifact(path)
+    assert meta["platforms"] == ["cuda"] and export.op_nodes(fns[100]) == want_nodes
+    with torch.inference_mode():
+        before = launches()
+        want = model(x)
+        torch.cuda.synchronize()
+        eager = launches() - before
+        t_before = K.eps_fwd.t_launches
+        got = fns[100](x)
+        torch.cuda.synchronize()
+    assert launches() - before - eager == eager == (3 if family == "conv_sbs" else 2)
+    assert K.eps_fwd.t_launches == t_before
+    assert got.device.type == "cuda" and torch.equal(got, want)
+    with pytest.raises(ValueError, match="does not load onto cpu"):
+        export.load_artifact(path, "cpu")
+    with pytest.raises(ValueError, match="weights lie on cuda:0; it does not load onto cuda:1"):
+        export.load_artifact(path, "cuda:1")

@@ -43,7 +43,8 @@ def test_port_imports_no_jax():
         "dctn_tpu_torch.utils.misc, dctn_tpu_torch.utils.fallbacks, dctn_tpu_torch.ops.composition, "
         "dctn_tpu_torch.train.tb_logging, dctn_tpu_torch.train.intermediate_logger, "
         "dctn_tpu_torch.utils.profiling, dctn_tpu_torch.cli.torch_convert, "
-        "dctn_tpu_torch.cli.sweep\n"
+        "dctn_tpu_torch.cli.sweep, dctn_tpu_torch.cli.export, dctn_tpu_torch.cli.serve, "
+        "dctn_tpu_torch.kernels.ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dctn_tpu'))\n"
         "assert not bad, bad"
     )

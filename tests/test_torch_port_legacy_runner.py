@@ -188,7 +188,7 @@ def _assert_tb_records_agree(tdir, jdir):
 @pytest.mark.parametrize("name,off,flag,slice_", trunner.REFUSED)
 def test_unported_flags_are_refused(tmp_path, name, off, flag, slice_):
     value = {"mesh_devices": 2, "distributed": "auto", "autotune_kernels": True,
-             "autotune_cache": True, "export_artifact": str(tmp_path / "a.zip"),
+             "autotune_cache": True,
              "resume_from": str(tmp_path / "state.npz"), "preempt_save": True,
              "profile_dir": str(tmp_path / "prof"), "tb_log_every_n_epochs": 10}[name]
     with pytest.raises(click.BadParameter, match="ROADMAP"):

@@ -1,7 +1,5 @@
 """The port's predict entry point against the JAX package, on the CPU."""
 
-import zipfile
-
 import click
 import jax
 import jax.numpy as jnp
@@ -75,16 +73,6 @@ def test_unported_inputs_are_refused(jax_checkpoint, kwargs, match):
                 epses_specs=SPECS, device="cpu", synthetic_sizes=SIZES)
     with pytest.raises(click.UsageError, match=match):
         predict.run(**{**args, **kwargs})
-
-
-def test_artifacts_are_refused(tmp_path):
-    path = str(tmp_path / "model.dctnx")
-    with zipfile.ZipFile(path, "w") as zf:
-        zf.writestr("meta.json", "{}")
-    assert predict._is_artifact(path)
-    with pytest.raises(click.UsageError, match="artifacts are not ported"):
-        predict.run(checkpoint=path, ds_type="fashionmnist", ds_path="synthetic",
-                    epses_specs=SPECS, device="cpu")
 
 
 def test_cuda_device_without_a_card_is_refused(jax_checkpoint):

@@ -490,7 +490,7 @@ def test_early_stopper_stops_where_jax_stops():
 _REFUSED_VALUES = {
     "mesh_devices": 2, "model_devices": 2, "space_devices": 2, "tp_shard_all": True,
     "distributed": "auto", "autotune_splits": True, "autotune_cache": True,
-    "export_artifact": "a.zip", "export_quantize": "int8", "compute_dtype": "bfloat16",
+    "compute_dtype": "bfloat16",
 }
 
 
