@@ -151,6 +151,15 @@ Run from the root of a checkout, with no arguments:
    ``fused_kernel`` step and once for its accuracy forward; the three forms
    within 0.02 in accuracy, finite weights; one step's gradient against
    ``fused_plain``.
+5b. Data parallelism (``dctn_tpu_torch.parallel``) at world size 1 through a
+   real ``nccl`` process group: the DP fast step, QAT step and ConvSBS step,
+   3 steps each beside the single-device steps from one init, parameters and
+   losses bit for bit, with their launches per step; the sharded score; a
+   sharded artifact at N = 1 (its device-free program placed on the card at
+   load) bit-equal to the eager model, served by ``serve.ArtifactModel`` and
+   ``predict.run``. With two or more cards it runs ``python -m
+   dctn_tpu_torch.multichip --devices min(4, count)`` and fails with it; on
+   one card it prints that it did not run.
 10. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
    of the serving forward (f32 and int8) at batch 1 and 128 and of the
    flagship training step (f32 and QAT) at batch 128, on the kernel and on
@@ -2252,6 +2261,177 @@ def sbs_run(legacy_runner, models_dir, trace_edge=False, opt="rmsprop", **kw):
     )
 
 
+DP_STEPS = 3
+DP_SERVE_IMAGES = 300
+MULTICHIP_TIMEOUT_S = 900
+
+
+def dp_phase(bench, CSM, params, cfg, tx, ty, dev) -> list:
+    """Phase 5b: data parallelism at world size 1 on the card, through a
+    real ``nccl`` process group (a file store in a temporary directory):
+    the DP fast step, the DP QAT step and the DP ConvSBS step, each
+    ``DP_STEPS`` steps from one init beside the single-device step, the
+    parameters and losses bit-equal (the one all-reduce over one rank is a
+    copy, and the mean divides by 1), their launches per step; the sharded
+    score against ``make_score_fn`` (the ranks' sum in float64: within
+    1e-6); then a sharded artifact at N = 1 (``export_sharded_forward``,
+    its device-free program placed on the card at load), its logits
+    bit-equal to the eager model's, served by ``ArtifactModel`` and by
+    ``predict.run``. With two or more cards, ``python -m
+    dctn_tpu_torch.multichip --devices min(4, count)`` runs as a subprocess
+    and its failure fails the smoke. Returns the launch counts of the
+    driven paths."""
+    import torch.distributed as dist
+
+    from dctn_tpu_torch.cli import export, predict, serve
+    from dctn_tpu_torch.data import io as data_io
+    from dctn_tpu_torch.models import EPSesPlusLinear
+    from dctn_tpu_torch.parallel import (
+        make_mesh,
+        make_parallel_fast_train_step,
+        make_parallel_pixel_train_step,
+        make_parallel_score_fn,
+        shard_split,
+    )
+    from dctn_tpu_torch.train import make_fast_train_step, make_optimizer, make_score_fn
+
+    counts, record = [], {"metric": "dp_world_size_1", "steps": DP_STEPS}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            mesh = make_mesh(1)
+            check(mesh.device == dev and mesh.backend == "nccl", f"mesh {mesh}")
+            for qat in (None, "int8"):
+                runs = []
+                for dp in (True, False):
+                    model = EPSesPlusLinear.from_reference(params, cfg, device=dev)
+                    opt = make_optimizer("adam", model.parameters(), bench.LR)
+                    if dp:
+                        step = make_parallel_fast_train_step(model, opt, mesh, "epswise",
+                                                             bench.REG_COEFF, qat=qat)
+                    else:
+                        step = make_fast_train_step(model, opt, "epswise", bench.REG_COEFF, qat=qat)
+                    bench.zero_counters()
+                    losses = [float(step(tx, ty)["loss"]) for _ in range(DP_STEPS)]
+                    torch.cuda.synchronize()
+                    launched = bench.read_counters()
+                    if dp:
+                        counts.append(launched)
+                        record[f"launches_per_step_qat={qat}"] = {
+                            k: v / DP_STEPS for k, v in launched.items() if v}
+                    runs.append((losses, [p.detach().clone() for p in model.parameters()],
+                                 launched))
+                (l_dp, p_dp, c_dp), (l_one, p_one, c_one) = runs
+                check(l_dp == l_one and all(torch.equal(a, b) for a, b in zip(p_dp, p_one)),
+                      f"DP step at world size 1 (qat={qat}) is not the single-device step's bits")
+                fwd = "eps_fwd" if qat is None else "eps_fwd_q8"
+                check(c_dp == c_one and c_dp[fwd] == 2 * DP_STEPS and c_dp["eps_dcore"] > 0,
+                      f"DP step (qat={qat}) launches {c_dp}, the single-device step {c_one}")
+                record[f"losses_qat={qat}"] = l_dp
+            # the sharded score
+            score = make_parallel_score_fn(cfg, model.plans, mesh, BATCH)
+            got = [float(v) for v in score(model.fast_params(), shard_split(
+                mesh, tx.cpu().numpy(), ty.cpu().numpy()))]
+            want = [float(v) for v in make_score_fn(cfg, model.plans, BATCH)(
+                model.fast_params(), tx, ty)]
+            check(abs(got[0] - want[0]) <= 1e-6 * abs(want[0]) and got[1] == want[1],
+                  f"sharded score {got} != {want}")
+            record["score"] = got
+            # the ConvSBS step
+            images, labels = (torch.as_tensor(a, device=dev)
+                              for a in data_io.synthetic_mnist_like(100, seed=1234))
+            scfg = sbs_model_cfg(CSM, images, False)
+            sruns = []
+            for dp in (True, False):
+                smodel = CSM.ConvSBSModel(sbs_recipe_params(CSM, scfg, images, dev), scfg)
+                sopt = torch.optim.SGD(smodel.parameters(), lr=SBS_TRAJ_LR)
+                if dp:
+                    sstep = make_parallel_pixel_train_step(smodel, sopt, mesh)
+                else:
+                    def sstep(xb, yb, smodel=smodel, sopt=sopt):
+                        sopt.zero_grad(set_to_none=True)
+                        loss = torch.nn.functional.cross_entropy(smodel(xb), yb)
+                        loss.backward()
+                        sopt.step()
+                        return loss
+                bench.zero_counters()
+                slosses = [float(sstep(images, labels)) for _ in range(DP_STEPS)]
+                torch.cuda.synchronize()
+                launched = bench.read_sbs_counters()
+                if dp:
+                    counts.append(launched)
+                    record["conv_sbs_launches_per_step"] = {
+                        k: v / DP_STEPS for k, v in launched.items() if v}
+                sruns.append((slosses, [p.detach().clone() for p in smodel.parameters()],
+                              launched))
+            check(sruns[0][0] == sruns[1][0] and all(
+                torch.equal(a, b) for a, b in zip(sruns[0][1], sruns[1][1])),
+                "DP ConvSBS step at world size 1 is not the single-device step's bits")
+            check(sruns[0][2] == sruns[1][2] and sruns[0][2]["sbs_fwd_mim"] == 3 * DP_STEPS
+                  and sruns[0][2]["sbs_bwd_mim"] == 3 * DP_STEPS,
+                  f"DP ConvSBS launches {sruns[0][2]}, the single-device step {sruns[1][2]}")
+            record["conv_sbs_losses"] = sruns[0][0]
+        finally:
+            dist.destroy_process_group()
+        # a sharded artifact at N = 1, served
+        host = {"epses": tuple(c.cpu() for c in params["epses"]),
+                "linear": {k: v.cpu() for k, v in params["linear"].items()}}
+        blobs, _ = export.export_sharded_forward(host, cfg, batch_sizes=(1, BATCH), mesh_devices=1)
+        path = os.path.join(tmp, "sharded1.zip")
+        export.write_artifact(path, blobs, export.build_meta(
+            model_family="eps", image_size=28, batch_sizes=(1, BATCH), backend="pallas",
+            mesh_devices=1, platforms=["cuda"], program_device="cpu",
+            epses_specs=[list(s_) for s_ in cfg.epses_specs], q0=2, channels=1, num_classes=10))
+        meta, fns = export.load_artifact(path)
+        eager = EPSesPlusLinear.from_reference(params, cfg, device=dev)
+        with torch.inference_mode():
+            bench.zero_counters()
+            got = fns[BATCH](tx)
+            torch.cuda.synchronize()
+            launches = bench.read_counters()
+            want = eager(tx)
+        counts.append(launches)
+        check(launches["eps_fwd"] == 2 and launches["eps_fwd_t"] == 0,
+              f"sharded artifact at N = 1: launches {launches}")
+        check(fns[BATCH].devices == [dev] and torch.equal(got, want),
+              "sharded artifact at N = 1: logits differ from the eager model's")
+        model = serve.ArtifactModel(path)
+        xs = torch.cat([tx] * 3, dim=1)[:, :DP_SERVE_IMAGES].cpu().numpy()
+        served = model.predict(xs)
+        with torch.inference_mode():
+            direct = torch.cat([eager(torch.as_tensor(xs[:, i : i + BATCH], device=dev)).cpu()
+                                for i in range(0, xs.shape[1], BATCH)])
+        check(served.shape == (xs.shape[1], 10) and bool(np.isfinite(served).all()),
+              "served logits")
+        gap = float(np.abs(served - direct.numpy()).max())
+        check(gap <= ART_TOL * float(direct.abs().max()), f"served logits {gap} from direct")
+        bench.zero_counters()
+        run = predict.run(checkpoint=path, ds_type="fashionmnist", ds_path="synthetic",
+                          batch_size=BATCH, latency_bench=True, device="cuda",
+                          synthetic_sizes=(256, 64, 512))
+        counts.append(bench.read_counters())
+        check(len(run.preds) == 512, "predict from the sharded artifact at N = 1")
+        record["sharded_artifact_n1"] = {
+            "bit_equal_to_eager": True, "served_max_abs_err": gap,
+            "p50_ms": {s_["batch_size"]: s_["p50_ms"] for s_ in run.latency},
+        }
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = min(4, cards)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "dctn_tpu_torch.multichip", "--devices",
+                               str(n)], capture_output=True, text=True,
+                              timeout=MULTICHIP_TIMEOUT_S)
+        print(proc.stdout[-4000:])
+        check(proc.returncode == 0, f"multichip --devices {n} failed:\n{proc.stderr[-4000:]}")
+        record["multichip"] = {"devices": n, "s": time.perf_counter() - t0}
+    else:
+        print("multichip: not run (it needs 2 or more cards; this machine has 1)")
+        record["multichip"] = None
+    print(json.dumps(record))
+    return counts
+
+
 def sbs_runner_phase(legacy_runner, bench, dev):
     """Phase 6: ``legacy_runner.run`` on the card, 2 layers, bond 4, batch
     100, SBS_RUN_EPOCHS epochs of synthetic data, SGD and RMSprop with
@@ -2870,6 +3050,11 @@ def main(argv=None) -> int:
         profile_conv_sbs(S, CSM, args.profile, dev)
     phase_done("legacy step checks and ConvSBS bench (6, 7)")
 
+    # phase 5b: data parallelism at world size 1 through a real NCCL group,
+    # a sharded artifact at N = 1, and with 2+ cards the multichip paths
+    dp_counts = dp_phase(bench, CSM, params, cfg, tx, ty, dev)
+    phase_done("data parallelism (5b)")
+
     # phases 8 and 9: the log-space product's entries, the chain bench and
     # the log-space classifier's training
     lme_launches = [lme_chain_phase(bench, dev), log_space_phase(bench, LSC, dev)]
@@ -2879,7 +3064,7 @@ def main(argv=None) -> int:
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     driven = [serving, serving_q8, exported, *trained.values(), *runner_runs, *sbs_runs, *sbs_bench_counts,
-              *lme_launches]
+              *dp_counts, *lme_launches]
     launches = {name: sum(c.get(name, 0) for c in driven) for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name], **numbers[name]}

@@ -19,8 +19,14 @@ package so each counterpart is easy to find:
   train/     the fast and the reference-layout training steps, optimizers,
              the train loop, npz checkpoints and train states shared with the
              JAX package, TB logging and intermediate outputs
+  parallel/  data parallelism over several cards: one rank per card in one
+             NCCL group (mesh), sharded splits, the DP steps and sharded
+             evals (data_parallel), replicas for serving (replicas)
   cli/       the predict entry point (f32 or --quantize int8), the EPS and the
-             legacy ConvSBS runners, torch_convert and sweep
+             legacy ConvSBS runners (one card, or --mesh-devices N), export,
+             serve, torch_convert and sweep
+  multichip  the DP paths on N cards against one (python -m
+             dctn_tpu_torch.multichip --devices N)
   bench      the training-throughput benchmark (python -m dctn_tpu_torch.bench,
              --qat int8 for the quantization-aware step, --model-family
              conv_sbs for the legacy ConvSBS step)

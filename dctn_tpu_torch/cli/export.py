@@ -16,7 +16,19 @@ operations only: its artifact loads wherever ``torch`` is installed.
 An artifact runs on the device type it was exported on (``--device``,
 ``cuda`` by default): its weights lie there. ``load_artifact`` refuses
 another device type, and a CUDA artifact where no card is available; it
-never moves an artifact.
+never moves a one-card artifact.
+
+``--mesh-devices N`` exports a sharded artifact (``export_sharded_forward``,
+JAX export.py:78-130): each entry point takes a global batch divisible by
+N and serves it on N cards (or N CPU replicas), each taking an equal share
+(``parallel.replicas.ShardedForward``). Its program is the one-card
+forward at the local batch, exported device-free (traced with its weights
+on the CPU) and moved onto each card at load: one program in the zip
+whatever N, a load without re-tracing, and, as for one-card artifacts, no
+model code needed beyond the operators. ``meta["mesh_devices"]`` is N and
+``meta["program_device"]`` ``"cpu"`` (``export_sharded_forward`` at N = 1
+with that key gives a one-replica artifact of the same kind);
+``load_artifact`` needs N visible cards.
 
 Artifact layout (a zip):
   meta.json          the model config, batch sizes, device type, backend
@@ -71,8 +83,8 @@ BACKENDS = ("pallas", "xla")
 # each refused flag, the values that mean "not used", and the ROADMAP item
 # that ports it (as the runners' REFUSED tables)
 REFUSED = (
-    ("mesh_devices", (1,), "--mesh-devices > 1", "multi-GPU (slice 7, item 19)"),
-    ("space_devices", (1,), "--space-devices > 1", "multi-GPU (slice 7, item 19)"),
+    ("space_devices", (1,), "--space-devices > 1",
+     "tensor and spatial parallelism (slice 7b, item 19b)"),
     ("autotune_splits", (False,), "--autotune-splits", "the autotuner (slice 8, item 20)"),
     ("autotune_cache", (False,), "--autotune-cache", "the autotuner (slice 8, item 20)"),
     ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
@@ -180,6 +192,40 @@ def export_conv_sbs_forward(
     return _serialize(program, batch_sizes, lambda bs: (bs, image_size, image_size), device)
 
 
+def export_sharded_forward(
+    params,
+    cfg,
+    *,
+    batch_sizes: Sequence[int],
+    mesh_devices: int,
+    channels: int = 1,
+    backend: str = "pallas",
+    quantize=None,
+    model_family: str = "eps",
+    image_size: int = 28,
+) -> Tuple[Dict[int, bytes], Dict[int, float]]:
+    """The data-sharded serving export (JAX export.py:78-130): for each
+    global batch size (divisible by ``mesh_devices``), the one-card program
+    at its local batch, exported device-free (weights on the CPU) so that
+    ``load_artifact`` places a replica on each card. ``cfg`` is the
+    ``model_family``'s config (``eps`` or ``conv_sbs``). Returns as
+    ``export_forward``, keyed by the global batch size."""
+    bad = [bs for bs in batch_sizes if bs % mesh_devices]
+    if bad:
+        raise ValueError(f"global batch sizes {bad} are not divisible by mesh_devices={mesh_devices}")
+    local = {bs: bs // mesh_devices for bs in batch_sizes}
+    if model_family == "eps":
+        serialized, seconds = export_forward(params, cfg, batch_sizes=sorted(set(local.values())),
+                                             channels=channels, device="cpu", backend=backend,
+                                             quantize=quantize)
+    else:
+        serialized, seconds = export_conv_sbs_forward(
+            params, cfg, batch_sizes=sorted(set(local.values())), image_size=image_size,
+            device="cpu", backend=backend)
+    return ({bs: serialized[lb] for bs, lb in local.items()},
+            {bs: seconds[lb] for bs, lb in local.items()})
+
+
 def write_artifact(path: str, serialized: Dict[int, bytes], meta: dict) -> None:
     with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as zf:
         zf.writestr(_META_NAME, json.dumps(meta, indent=1))
@@ -192,8 +238,11 @@ def load_artifact(path: str, device=None) -> Tuple[dict, Dict[int, torch.nn.Modu
     the artifact's device to logits, with the program's weights frozen.
     ``device`` (default: the artifact's) must be the device the artifact was
     exported on: its type, and for a card its index (``cuda`` alone means
-    the current card). A JAX package artifact (``.jaxexp`` entries) is
-    refused: re-export its npz checkpoint with this package."""
+    the current card). A sharded artifact (``meta["mesh_devices"]`` N > 1)
+    loads a replica of each program onto ``cuda:0`` … ``cuda:N-1`` (or N
+    CPU replicas): its callables take an input on any device and return the
+    logits there. A JAX package artifact (``.jaxexp`` entries) is refused:
+    re-export its npz checkpoint with this package."""
     fns: Dict[int, torch.nn.Module] = {}
     with zipfile.ZipFile(path) as zf:
         names = zf.namelist()
@@ -204,9 +253,12 @@ def load_artifact(path: str, device=None) -> Tuple[dict, Dict[int, torch.nn.Modu
                 "dctn_tpu_torch.cli.export CKPT.npz ...`"
             )
         meta = json.loads(zf.read(_META_NAME))
-        if max(meta.get("mesh_devices", 1), meta.get("space_devices", 1)) > 1:
-            raise ValueError(f"{path} is a sharded artifact: not ported yet (ROADMAP item 19)")
+        if meta.get("space_devices", 1) > 1:
+            raise ValueError(
+                f"{path} is a height-sharded artifact: not ported yet (ROADMAP item 19b)")
         exported_on = (meta.get("platforms") or ["cpu"])[0]
+        if meta.get("mesh_devices", 1) > 1 or meta.get("program_device") == "cpu":
+            return meta, _load_sharded(zf, names, meta, exported_on, device, path)
         want = torch.device(device if device is not None else exported_on)
         if want.type != exported_on:
             raise ValueError(
@@ -235,6 +287,38 @@ def load_artifact(path: str, device=None) -> Tuple[dict, Dict[int, torch.nn.Modu
                 p.requires_grad_(False)
             fns[bs] = fn
     return meta, fns
+
+
+def _load_sharded(zf, names, meta: dict, exported_on: str, device, path: str):
+    """{global batch size: ShardedForward} over a replica of each entry's
+    device-free program on each of ``meta["mesh_devices"]`` devices."""
+    import copy
+
+    from ..parallel.replicas import ShardedForward, replica_devices
+
+    want = torch.device(device if device is not None else exported_on)
+    if want.type != exported_on:
+        raise ValueError(f"{path} serves on {exported_on}; it does not load onto {want.type}")
+    n = meta["mesh_devices"]
+    devices = replica_devices(n, exported_on)
+    axis = 1 if meta.get("model_family", "eps") == "eps" else 0
+    fns = {}
+    for name in names:
+        if name == _META_NAME:
+            continue
+        bs = int(name[len("forward_bs") : -len(".pt2")])
+        base = torch.export.load(io.BytesIO(zf.read(name))).module()
+        for node in base.graph.nodes:
+            if "device" in node.kwargs:
+                raise ValueError(f"{path}: its program names a device ({node}); it cannot move")
+        replicas = []
+        for dev in devices:
+            fn = copy.deepcopy(base).to(dev)
+            for p in fn.parameters():
+                p.requires_grad_(False)
+            replicas.append(fn)
+        fns[bs] = ShardedForward(replicas, devices, axis)
+    return fns
 
 
 def op_nodes(fn: torch.nn.Module) -> Dict[str, int]:
@@ -307,8 +391,11 @@ def _parse_int_list(_ctx, _param, value: str) -> Tuple[int, ...]:
 @click.option("--input-multiplier", type=float, default=1.0, help="conv_sbs family")
 @click.option("--batch-sizes", callback=_parse_int_list, default="1,128",
               help="comma-separated; one exported entry point per size")
-@click.option("--mesh-devices", type=int, default=1, help="not ported yet: only 1 is accepted")
-@click.option("--space-devices", type=int, default=1, help="not ported yet: only 1 is accepted")
+@click.option("--mesh-devices", type=int, default=1,
+              help="a sharded artifact: every --batch-sizes entry is a global batch split over "
+                   "this many cards (or CPU replicas), a replica on each")
+@click.option("--space-devices", type=int, default=1,
+              help="not ported yet (spatial parallelism, ROADMAP item 19b): only 1")
 @click.option("--device", default="cuda",
               help="torch device to export on and serve on: cuda (the kernels) or cpu "
                    "(their plain versions)")
@@ -337,9 +424,8 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
         autotune_splits=False, autotune_cache=False, out=None) -> dict:
     """Export the npz ``checkpoint`` to the artifact ``out``; returns each
     entry point's export seconds and bytes, and the artifact's bytes."""
-    given = dict(mesh_devices=mesh_devices, space_devices=space_devices,
-                 autotune_splits=autotune_splits, autotune_cache=autotune_cache,
-                 compute_dtype=compute_dtype)
+    given = dict(space_devices=space_devices, autotune_splits=autotune_splits,
+                 autotune_cache=autotune_cache, compute_dtype=compute_dtype)
     for name, accepted, flag, where in REFUSED:
         if given[name] not in accepted:
             raise click.UsageError(f"{flag} is not ported to the PyTorch export yet: ROADMAP, {where}")
@@ -357,7 +443,16 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
                 "--quantize needs the pallas backend (the int8 kernel runs on the fast layout)"
             )
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if mesh_devices < 1:
+        raise click.UsageError(f"--mesh-devices {mesh_devices}: at least one device")
+    if mesh_devices > 1:
+        bad = [bs for bs in batch_sizes if bs % mesh_devices]
+        if bad:
+            raise click.UsageError(
+                f"global batch sizes {bad} are not divisible by --mesh-devices {mesh_devices}")
+    elif device.type == "cuda" and not torch.cuda.is_available():
+        # a one-card artifact's weights are placed on the card; a sharded
+        # one is traced device-free on the CPU
         raise click.UsageError(f"--device {device}: no CUDA device is available")
     t0 = time.perf_counter()
     if model_family == "eps":
@@ -367,11 +462,18 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
 
         cfg = EPSesPlusLinearConfig(epses_specs=tuple(epses_specs), image_size=image_size, q0=q0,
                                     num_classes=num_classes)
-        params = params_from_numpy(load_params_npz(checkpoint), device, torch.float32)
+        params = params_from_numpy(load_params_npz(checkpoint),
+                                   device if mesh_devices == 1 else "cpu", torch.float32)
         _check_params(params, cfg, channels)
-        serialized, seconds = export_forward(
-            params, cfg, batch_sizes=batch_sizes, channels=channels, device=device,
-            backend=backend, quantize=None if quantize == "none" else quantize)
+        q = None if quantize == "none" else quantize
+        if mesh_devices > 1:
+            serialized, seconds = export_sharded_forward(
+                params, cfg, batch_sizes=batch_sizes, mesh_devices=mesh_devices,
+                channels=channels, backend=backend, quantize=q)
+        else:
+            serialized, seconds = export_forward(
+                params, cfg, batch_sizes=batch_sizes, channels=channels, device=device,
+                backend=backend, quantize=q)
         family_meta = {"epses_specs": [list(s) for s in epses_specs], "q0": q0,
                        "channels": channels, "num_classes": num_classes}
     else:
@@ -380,23 +482,30 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
             cos_sin_squared=cos_sin_squared, input_multiplier=input_multiplier,
             num_labels=num_classes,
         )
-        params = conv_sbs_params_from_numpy(load_conv_sbs_params_npz(checkpoint), device,
-                                            torch.float32)
+        params = conv_sbs_params_from_numpy(load_conv_sbs_params_npz(checkpoint),
+                                            device if mesh_devices == 1 else "cpu", torch.float32)
         got = [tuple(c.shape) for layer in params for s in layer for c in s]
         want = [tuple(c.shape) for layer in init_conv_sbs_model(torch.Generator(), cfg)
                 for s in layer for c in s]
         if got != want:
             raise click.UsageError(f"{checkpoint} does not match this model: cores {got} vs {want}")
-        serialized, seconds = export_conv_sbs_forward(
-            params, cfg, batch_sizes=batch_sizes, image_size=image_size, device=device,
-            backend=backend)
+        if mesh_devices > 1:
+            serialized, seconds = export_sharded_forward(
+                params, cfg, batch_sizes=batch_sizes, mesh_devices=mesh_devices,
+                backend=backend, model_family="conv_sbs", image_size=image_size)
+        else:
+            serialized, seconds = export_conv_sbs_forward(
+                params, cfg, batch_sizes=batch_sizes, image_size=image_size, device=device,
+                backend=backend)
         family_meta = {"num_sbs_layers": num_sbs_layers, "bond_dim_size": bond_dim,
                        "trace_edge": trace_edge, "cos_sin_squared": cos_sin_squared,
                        "input_multiplier": input_multiplier, "num_labels": num_classes}
+    if mesh_devices > 1:
+        family_meta["program_device"] = "cpu"  # placed on each card at load
     meta = build_meta(
         model_family=model_family, image_size=image_size, batch_sizes=batch_sizes,
-        backend=backend, platforms=[device.type], compute_dtype=compute_dtype,
-        quantize=quantize, **family_meta,
+        backend=backend, mesh_devices=mesh_devices, platforms=[device.type],
+        compute_dtype=compute_dtype, quantize=quantize, **family_meta,
     )
     write_artifact(out, serialized, meta)
     report = {
@@ -407,7 +516,8 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
     }
     print(
         f"exported {len(serialized)} entry point(s) (bs {sorted(serialized)}, device "
-        f"{device.type}, backend {backend}, quantize {quantize}) to {out} "
+        f"{device.type}" + (f" x {mesh_devices} replicas" if mesh_devices > 1 else "")
+        + f", backend {backend}, quantize {quantize}) to {out} "
         f"({report['artifact_bytes'] / 1e6:.2f} MB; export s per entry "
         + ", ".join(f"bs {bs}: {s:.2f}" for bs, s in report["export_s"].items()) + ")"
     )

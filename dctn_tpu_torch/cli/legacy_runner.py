@@ -1,6 +1,7 @@
 """The legacy ConvSBS MNIST runner of the port (``dctn_tpu/cli/legacy_runner.py``,
 reference ``mnist.py:314-596``): the same click flags and the same
-``run(**kw)`` → ``(params, best_acc)`` contract, for one device.
+``run(**kw)`` → ``(params, best_acc)`` contract, on one device or data
+parallel over several.
 
 Covers the single-device path of the JAX runner: synthetic or MNIST data
 and the seeded train/val split, ``run_info.txt`` (the flags, the git
@@ -37,11 +38,25 @@ each string's TT mean and std. ``--profile-dir`` writes a
 artifact (``cli/export.py``: raw pixels in, every string through the
 ``sbs_fwd`` operator) on ``--device`` after training; with
 ``--shuffle-pixels`` it is refused before training, since the artifact
-would not hold the pixel permutation. Refused until their slices land
-(ROADMAP names each): ``--mesh-devices`` > 1 and ``--distributed``
-(multi-GPU DP), ``--autotune-kernels`` and ``--autotune-cache`` (the
-autotuner; the cache, on by default in the JAX runner, is off by default
-here; an export takes the kernels' own routes, without serving picks).
+would not hold the pixel permutation.
+
+``--mesh-devices N`` (and ``--distributed``, as in the EPS runner:
+``parallel/``) trains data parallel over N ranks, one per card: the pixel
+splits sharded on the sample axis, the cores replicated, each epoch's
+per-shard orders drawn from the one ``default_rng(seed + 1)`` chain as the
+JAX runner draws them (legacy_runner.py:414-470), one all-reduce a step,
+the validation scored over the shards; SIGTERM is agreed every
+``--preempt-sync-steps`` steps. Global rank 0 writes the checkpoints, the
+train state and the artifact; local rank 0 of another host writes its
+logs to ``<models-dir>-proc<PID>``. A train state resumes on any rank
+count; a mid-epoch position the new step grid lacks restarts that epoch
+(legacy_runner.py:633-640). With ranks, ``run`` returns rank 0's cores on
+the CPU.
+
+Refused until their slice lands: ``--autotune-kernels`` and
+``--autotune-cache`` (the autotuner, ROADMAP item 20; the cache, on by
+default in the JAX runner, is off by default here; an export takes the
+kernels' own routes, without serving picks).
 
 The inits draw from a ``torch.Generator`` seeded with ``--seed``, so a seed
 gives other weights than in the JAX runner; pass ``--init-load-file`` to
@@ -97,6 +112,7 @@ from ..train.intermediate_logger import (
     log_tree_histograms,
 )
 from ..train.preemption import PreemptionHandler
+from ..parallel import plan_job, spawn
 from ..train.tb_logging import MetricsWriter, log_conv_sbs_tt_statistics
 from ..utils.profiling import StepTracer
 from .runner import setup_run_provenance
@@ -115,8 +131,6 @@ INITIALIZERS = {
 
 # each refused flag, the value that means "off", and the ROADMAP slice that ports it
 REFUSED = (
-    ("mesh_devices", 1, "--mesh-devices > 1", "multi-GPU DP for the legacy family (slice 7)"),
-    ("distributed", None, "--distributed", "multi-GPU DP for the legacy family (slice 7)"),
     ("autotune_kernels", False, "--autotune-kernels", "the autotuner (slice 8, item 20)"),
     ("autotune_cache", False, "--autotune-cache", "the autotuner (slice 8, item 20)"),
 )
@@ -154,7 +168,9 @@ def permute_pixels_batch(images: np.ndarray, permutation) -> np.ndarray:
 @click.option("--weight-decay", type=float, default=0.0)
 @click.option("--shuffle-pixels", is_flag=True)
 @click.option("--mesh-devices", type=int, default=1,
-              help="not ported yet (multi-GPU DP, ROADMAP slice 7): only 1 is accepted")
+              help="data parallel over this many ranks, one per card (CPU replicas with "
+                   "--device cpu): replicated cores, pixel splits sharded on the sample axis, "
+                   "one gradient all-reduce a step")
 @click.option("--autotune-kernels/--no-autotune-kernels", default=False,
               help="not ported yet (the autotuner, ROADMAP item 20)")
 @click.option("--autotune-cache/--no-autotune-cache", default=False,
@@ -170,7 +186,8 @@ def permute_pixels_batch(images: np.ndarray, permutation) -> np.ndarray:
                    "cores, the optimizer with the warmup's step, the epoch and step and the "
                    "best-model bookkeeping, and continues the trajectory exactly")
 @click.option("--preempt-sync-steps", type=int, default=16,
-              help="with --distributed, steps between preemption agreements")
+              help="under --mesh-devices > 1, steps between the ranks' agreements on a "
+                   "preemption stop (they all stop at the same step)")
 @click.option("--preempt-save/--no-preempt-save", default=True,
               help="on SIGTERM: finish the step in flight, save the train state, stop "
                    "(--resume-from train_state_latest.npz continues the trajectory)")
@@ -186,7 +203,8 @@ def permute_pixels_batch(images: np.ndarray, permutation) -> np.ndarray:
                    "probe-gradient histograms, the strings' outputs and TT statistics into "
                    "metrics.jsonl (0: off)")
 @click.option("--distributed", default=None,
-              help="not ported yet (multi-GPU DP, ROADMAP slice 7)")
+              help="'HOST:PORT,NPROC,PID': this is host process PID of NPROC, each starting its "
+                   "share of --mesh-devices ranks, meeting at HOST:PORT; 'auto': torchrun's ranks")
 @click.option("--device", default="cuda",
               help="torch device: cuda (the kernels) or cpu (their plain versions)")
 def main(**kw) -> None:
@@ -234,16 +252,50 @@ def run(**kw):
         # the artifact holds the quantum map and the multiplier but not the
         # host's pixel permutation: it would mis-serve raw images
         raise click.UsageError("--export-artifact with --shuffle-pixels is not supported")
-    device = torch.device(kw["device"])
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise click.BadParameter(f"--device {device}: no CUDA device is available")
-    os.makedirs(kw["models_dir"], exist_ok=True)
-    setup_run_provenance(kw["models_dir"], kw)
     if kw["make_input_window_std_one"] and kw["input_multiplier"] is not None:
         raise click.BadParameter(
             "--make-input-window-std-one computes the input scaling from the data — it "
             "conflicts with an explicit --input-multiplier; pass one or the other"
         )
+    if kw["mesh_devices"] < 1 or kw["batch_size"] % kw["mesh_devices"]:
+        raise click.BadParameter(
+            f"--batch-size {kw['batch_size']} must be divisible by --mesh-devices "
+            f"{kw['mesh_devices']} (each rank takes an equal sub-batch)"
+        )
+    device = torch.device(kw["device"])
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise click.BadParameter(f"--device {device}: no CUDA device is available")
+    try:
+        job = plan_job(kw["mesh_devices"], kw["distributed"], device.type)
+    except ValueError as e:
+        raise click.BadParameter(str(e)) from None
+    if job is None:
+        return _run(kw, device, None)
+    params, best_acc = spawn(_run_rank, job, kw)
+    return params, best_acc
+
+
+def _run_rank(mesh, kw: dict):
+    """One rank's run; local rank 0's cores (on the CPU) and best accuracy
+    go back to ``run``."""
+    params, best_acc = _run(kw, mesh.device, mesh)
+    return tuple(tuple(tuple(c.cpu() for c in s) for s in layer) for layer in params), best_acc
+
+
+def _run(kw: dict, device: torch.device, mesh):
+    """The run on one device (``mesh`` None), or one rank's share of a
+    data-parallel run."""
+    primary = mesh is None or mesh.is_primary
+    writes_logs = mesh is None or mesh.writes_logs
+    if mesh is not None and mesh.node != 0:
+        # another host's logs and provenance, beside the primary's files
+        kw = dict(kw, models_dir=f"{kw['models_dir']}-proc{mesh.node}")
+    if writes_logs:
+        os.makedirs(kw["models_dir"], exist_ok=True)
+        setup_run_provenance(kw["models_dir"], kw)
+    else:
+        logging.basicConfig(level=logging.WARNING, force=True,
+                            format=f"rank {mesh.rank}: %(name)s - %(levelname)s - %(message)s")
 
     # data: the train split into train/val (random_split analog)
     if kw["ds_path"] == "synthetic":
@@ -297,13 +349,33 @@ def run(**kw):
         params = conv_sbs_params_from_numpy(_load_init(kw["init_load_file"], params),
                                             dtype=torch.float32)
     params = tuple(tuple(tuple(c.to(device) for c in s) for s in layer) for layer in params)
-    x_tr = torch.as_tensor(x_tr_host, device=device)
-    y_tr = torch.as_tensor(y_tr_host, device=device)
-    x_val = torch.as_tensor(images[val_idx], device=device)
-    y_val = torch.as_tensor(labels[val_idx], device=device)
     if kw["scale_layers_using_batch"]:
-        params = scale_layers_using_batch(params, cfg, x_tr[: kw["scale_layers_using_batch"]])
+        params = scale_layers_using_batch(params, cfg, torch.as_tensor(
+            x_tr_host[: kw["scale_layers_using_batch"]], device=device))
     model = ConvSBSModel(params, cfg)
+    world = 1 if mesh is None else mesh.world_size
+    per_dev = kw["batch_size"] // world
+    if mesh is None:
+        x_tr = torch.as_tensor(x_tr_host, device=device)
+        y_tr = torch.as_tensor(y_tr_host, device=device)
+        x_val = torch.as_tensor(images[val_idx], device=device)
+        y_val = torch.as_tensor(labels[val_idx], device=device)
+    else:
+        from ..parallel import (
+            make_parallel_pixel_score_fn,
+            make_parallel_pixel_train_step,
+            replicate,
+            shard_pixel_split,
+        )
+
+        replicate(mesh, model.parameters())
+        tr_split = shard_pixel_split(mesh, x_tr_host, y_tr_host)
+        val_split = shard_pixel_split(mesh, images[val_idx], labels[val_idx])
+        x_tr, y_tr = tr_split.x, tr_split.y  # this rank's shard
+        valid_per_shard = tr_split.valid_per_shard
+        dp_score = make_parallel_pixel_score_fn(lambda _, xb: model(xb), mesh, per_dev)
+        logger.info("data parallelism: %d ranks (%s), %d samples a rank a step", world,
+                    mesh.backend, per_dev)
 
     # the optimizer under the exponential warmup, one scheduler step per update
     steps_per_epoch = max(len(y_tr_host) // kw["batch_size"], 1)
@@ -333,12 +405,13 @@ def run(**kw):
         logger.info("resumed train state from %s at epoch %d step %d",
                     kw["resume_from"], resume_epoch, resume_step)
 
-    tb_every = kw["tb_log_every_n_epochs"]
+    tb_every = kw["tb_log_every_n_epochs"] if writes_logs else 0
     tb_writer = None
     if tb_every:
         tb_writer = MetricsWriter(kw["models_dir"])
         probe_n = min(kw["batch_size"], len(y_tr_host))
-        x_probe, y_probe = x_tr[:probe_n], y_tr[:probe_n]
+        x_probe = torch.as_tensor(x_tr_host[:probe_n], device=device)
+        y_probe = torch.as_tensor(y_tr_host[:probe_n], device=device)
         layer_specs = cfg.layer_specs()
 
         def log_tb(it: int) -> None:
@@ -363,53 +436,94 @@ def run(**kw):
                     for j, (spec, cores) in enumerate(zip(specs_l, cores_l))
                 }, it)
 
-    tracer = StepTracer(kw["profile_dir"], *kw["profile_iters"]) if kw["profile_dir"] else None
+    tracer = None
+    if kw["profile_dir"] and writes_logs:
+        tracer = StepTracer(kw["profile_dir"] if mesh is None or mesh.node == 0
+                            else f"{kw['profile_dir']}-proc{mesh.node}", *kw["profile_iters"])
     writer = AsyncWriter()
     state_file = os.path.join(kw["models_dir"], "train_state_latest.npz")
 
     def save_train_state(epoch: int, step_in_epoch: int) -> None:
+        if not primary:  # the replicated state is written once, by rank 0
+            return
         writer.submit(conv_sbs_train_state_arrays(
             model.params(), opt, sched.last_epoch, epoch, step_in_epoch, best_acc, bad_epochs,
         ), state_file)
 
+    # the epoch's batches: a permutation of the split, or under data
+    # parallelism one of each shard's valid samples (rank d takes its own),
+    # all drawn from one seeded chain on every rank (legacy_runner.py:447-460)
+    rng = np.random.default_rng(kw["seed"] + 1)
+    if mesh is None:
+        steps_this_epoch = steps_per_epoch
+
+        def draw_epoch():
+            return torch.as_tensor(rng.permutation(len(y_tr_host)), device=device)
+    else:
+        steps_this_epoch = max(min(valid_per_shard) // per_dev, 1)
+        dp_step = make_parallel_pixel_train_step(model, opt, mesh)
+
+        def draw_epoch():
+            orders = [rng.permutation(v) for v in valid_per_shard]
+            return torch.as_tensor(orders[mesh.rank], device=device)
     # fast-forward the epoch-shuffle RNG over the epochs done, so that the
     # resumed run takes the batches the unbroken one would
-    rng = np.random.default_rng(kw["seed"] + 1)
     for _ in range(resume_epoch):
-        rng.permutation(len(y_tr_host))
-    if resume_step > steps_per_epoch:
+        draw_epoch()
+    if resume_step > steps_this_epoch:
+        # an elastic resume onto fewer ranks or a larger batch: the saved
+        # mid-epoch position is not on this step grid (legacy_runner.py:633-640)
         logger.warning(
             "saved step-in-epoch %d exceeds this configuration's %d steps per epoch (the batch "
-            "size changed): resuming at the start of epoch %d",
-            resume_step, steps_per_epoch, resume_epoch,
+            "size or the rank count changed): resuming at the start of epoch %d",
+            resume_step, steps_this_epoch, resume_epoch,
         )
         resume_step = 0
     preempt = PreemptionHandler() if kw["preempt_save"] else None
+    sync_every = max(1, kw["preempt_sync_steps"])
+
+    def preempt_fired_now(global_step: int) -> bool:
+        """On one device, whether SIGTERM came; under data parallelism
+        every ``--preempt-sync-steps`` steps whether it came to any rank
+        (every rank asks at the same steps)."""
+        if preempt is None:
+            return False
+        if mesh is None:
+            return preempt.fired is not None
+        return global_step % sync_every == 0 and mesh.any(preempt.fired is not None)
+
     preempted = False
     loss = torch.full((), float("nan"))
     with preempt if preempt is not None else contextlib.nullcontext():
         for epoch in range(resume_epoch, kw["epochs"]):
-            perm = torch.as_tensor(rng.permutation(len(y_tr_host)), device=device)
+            perm = draw_epoch()
             skip = resume_step if epoch == resume_epoch else 0
-            for s in range(skip, steps_per_epoch):
+            for s in range(skip, steps_this_epoch):
                 if tracer is not None:
-                    tracer(SimpleNamespace(num_iters_done=epoch * steps_per_epoch + s))
-                idx = perm[s * kw["batch_size"] : (s + 1) * kw["batch_size"]]
-                opt.zero_grad(set_to_none=True)
-                loss = torch.nn.functional.cross_entropy(model(x_tr[idx]), y_tr[idx])
-                loss.backward()
-                opt.step()
+                    tracer(SimpleNamespace(num_iters_done=epoch * steps_this_epoch + s))
+                idx = perm[s * per_dev : (s + 1) * per_dev]
+                if mesh is None:
+                    opt.zero_grad(set_to_none=True)
+                    loss = torch.nn.functional.cross_entropy(model(x_tr[idx]), y_tr[idx])
+                    loss.backward()
+                    opt.step()
+                else:
+                    loss = dp_step(x_tr[idx], y_tr[idx])
                 sched.step()
-                if preempt is not None and preempt.fired is not None:
+                if preempt_fired_now(epoch * steps_this_epoch + s + 1):
                     # the step in flight is done: resume at batch s + 1
                     save_train_state(epoch, s + 1)
                     logger.info("training stopped: preempted (%s) at epoch %d step %d; train "
-                                "state saved for --resume-from", preempt.fired, epoch, s + 1)
+                                "state saved for --resume-from",
+                                preempt.fired or "a signal on another rank", epoch, s + 1)
                     preempted = True
                     break
             if preempted:
                 break
-            vce, vacc = _score(model, x_val, y_val)
+            if mesh is None:
+                vce, vacc = _score(model, x_val, y_val)
+            else:
+                vce, vacc = (float(v) for v in dp_score(None, val_split))
             logger.info("epoch %d: val ce=%.5f acc=%.2f%%", epoch, vce, vacc * 100)
             if tb_every and epoch % tb_every == 0:
                 t0 = time.perf_counter()
@@ -424,11 +538,13 @@ def run(**kw):
                 logger.info("TB log at iteration %d: %.3f ms", it, 1e3 * (time.perf_counter() - t0))
             if vacc > best_acc:
                 best_acc, bad_epochs = vacc, 0
-                new_file = os.path.join(kw["models_dir"], f"dctn_epoch={epoch}_vacc={vacc:.4f}.npz")
-                save_conv_sbs_params_npz(model.params(), new_file)
-                if best_file and os.path.exists(best_file):
-                    os.remove(best_file)
-                best_file = new_file
+                if primary:
+                    new_file = os.path.join(kw["models_dir"],
+                                            f"dctn_epoch={epoch}_vacc={vacc:.4f}.npz")
+                    save_conv_sbs_params_npz(model.params(), new_file)
+                    if best_file and os.path.exists(best_file):
+                        os.remove(best_file)
+                    best_file = new_file
             else:
                 bad_epochs += 1
                 patience = kw["early_stopping_patience_num_epochs"]
@@ -444,7 +560,7 @@ def run(**kw):
         tb_writer.close()
     writer.wait()
     params = tuple(tuple(tuple(c.detach() for c in s) for s in layer) for layer in model.params())
-    if kw["export_artifact"]:
+    if kw["export_artifact"] and primary:
         from .export import build_meta, export_conv_sbs_forward, parse_batch_sizes, write_artifact
 
         bss = parse_batch_sizes(kw["export_batch_sizes"])

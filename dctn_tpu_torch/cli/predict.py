@@ -9,8 +9,14 @@ load, ``EPSesPlusLinearQ8``). An artifact of ``cli/export.py`` serves in
 place of the checkpoint: the model config and weights come from it (no
 ``--epses-specs``), every batch size used needs its entry point, and a
 short last batch is padded with its first image and trimmed, since the
-artifact's programs are static-shaped. ``--mesh-devices > 1`` is not
-ported yet and is refused.
+artifact's programs are static-shaped.
+
+``--mesh-devices N`` serves an npz checkpoint data parallel from this one
+process (JAX predict.py:291-300): a replica of the model (f32, or int8
+with ``--quantize int8``) on each of ``cuda:0`` … ``cuda:N-1`` (CPU
+replicas with ``--device cpu``), every batch split over them and the
+logits gathered (``parallel.replicas``); no process group. A sharded
+artifact (``export --mesh-devices N``) brings its N replicas itself.
 
 Usage:
   python -m dctn_tpu_torch.cli.predict CKPT.npz --ds-type fashionmnist \
@@ -35,6 +41,7 @@ import torch
 from ..data import load_dataset
 from ..interop import params_from_numpy
 from ..models import EPSesPlusLinear, EPSesPlusLinearConfig, EPSesPlusLinearQ8, fast_layer_plans
+from ..parallel.replicas import ShardedForward, replica_devices
 from ..train import load_params_npz
 from .specs import parse_epses_specs
 
@@ -100,16 +107,21 @@ def _artifact_forward(path: str, batch_sizes, device):
     return meta, cfg, fns
 
 
-def latency_stats(forward, x: torch.Tensor, batch_size: int, iters: int = 30) -> dict:
+def latency_stats(forward, x: torch.Tensor, batch_size: int, iters: int = 30,
+                  devices=None) -> dict:
     """Per-call latency of ``forward``, each call fenced with
-    ``torch.cuda.synchronize()``, and the pipelined throughput of a window of
-    calls with one fence at its end, timed with CUDA events (host clock on a
-    CPU device)."""
+    ``torch.cuda.synchronize()`` on ``x``'s device and every one of
+    ``devices`` (the replicas' cards), and the pipelined throughput of a
+    window of calls with one fence at its end, timed with CUDA events on
+    ``x``'s device, where the outputs are gathered (host clock on a CPU
+    device)."""
     cuda = x.device.type == "cuda"
+    fenced = {x.device, *(devices or ())}
 
     def fence():
         if cuda:
-            torch.cuda.synchronize(x.device)
+            for d in fenced:
+                torch.cuda.synchronize(d)
 
     xb = x[:, :batch_size]
     forward(xb)
@@ -157,8 +169,9 @@ class PredictRun:
     accuracy: float
     latency: list  # one latency_stats dict per batch size
     forward_calls: int  # model forwards, prediction and latency together
-    # the model that served: an artifact's entry points by batch size
-    model: Union[EPSesPlusLinear, EPSesPlusLinearQ8, Dict[int, torch.nn.Module]]
+    # the model that served: an artifact's entry points by batch size, or
+    # under --mesh-devices the replicas, one per device
+    model: Union[EPSesPlusLinear, EPSesPlusLinearQ8, Dict[int, torch.nn.Module], list]
     x: torch.Tensor  # the split it served, (C, N, H, W, Q) on its device
 
 
@@ -177,7 +190,8 @@ class PredictRun:
 @click.option("--latency-bench", is_flag=True,
               help="print a JSON latency line for batch sizes 1 and --batch-size")
 @click.option("--mesh-devices", type=int, default=1,
-              help="not ported yet: only 1 is accepted")
+              help="serve on this many cards (CPU replicas with --device cpu), a model replica "
+                   "on each, every batch split over them")
 @click.option("--quantize", type=click.Choice(("none", "int8")), default="none",
               help="int8: W8A8 dynamic quantization of the EPS layers (npz checkpoints only: "
                    "artifacts bake their quantization at export time)")
@@ -197,8 +211,8 @@ def run(*, checkpoint, ds_type, ds_path, epses_specs=None, phi_multiplier=None,
         device="cuda") -> PredictRun:
     if quantize not in (None, "none", "int8"):
         raise click.UsageError(f"--quantize {quantize} is not supported: none or int8")
-    if mesh_devices > 1:
-        raise click.UsageError("--mesh-devices > 1 is not ported yet")
+    if mesh_devices < 1:
+        raise click.UsageError(f"--mesh-devices {mesh_devices}: at least one device")
     artifact = _is_artifact(checkpoint)
     if artifact and quantize == "int8":
         raise click.UsageError(
@@ -213,6 +227,10 @@ def run(*, checkpoint, ds_type, ds_path, epses_specs=None, phi_multiplier=None,
     if artifact:
         needed = sorted({batch_size} | ({1, batch_size} if latency_bench else set()))
         meta, cfg, fns = _artifact_forward(checkpoint, needed, device)
+        if mesh_devices not in (1, meta.get("mesh_devices", 1)):
+            raise click.UsageError(
+                f"--mesh-devices {mesh_devices}: the artifact serves on "
+                f"{meta.get('mesh_devices', 1)} device(s) (export --mesh-devices)")
         epses_specs = cfg.epses_specs
     splits = load_dataset(
         ds_type, ds_path, phi_multiplier=phi_multiplier,
@@ -229,16 +247,30 @@ def run(*, checkpoint, ds_type, ds_path, epses_specs=None, phi_multiplier=None,
                 f"artifact (channels={want[0]}, {want[1]}, q0={want[2]})"
             )
         model = fns
+        devices = ([torch.device(device.type, i) for i in range(meta["mesh_devices"])]
+                   if meta.get("mesh_devices", 1) > 1 else [device])
 
         def call(xb):
             return fns[xb.shape[1]](xb)
     else:
         cfg = EPSesPlusLinearConfig(epses_specs=epses_specs, image_size=image_size, q0=q0)
-        params = params_from_numpy(load_params_npz(checkpoint), device, cfg.dtype)
-        _check_params(params, cfg, channels)
-        model = (EPSesPlusLinearQ8 if quantize == "int8" else EPSesPlusLinear).from_reference(
-            params, cfg)
-        call = model
+        kind = EPSesPlusLinearQ8 if quantize == "int8" else EPSesPlusLinear
+        if mesh_devices == 1:
+            devices = [device]
+            params = params_from_numpy(load_params_npz(checkpoint), device, cfg.dtype)
+            _check_params(params, cfg, channels)
+            model = call = kind.from_reference(params, cfg)
+        else:
+            try:
+                devices = replica_devices(mesh_devices, device.type)
+            except ValueError as e:
+                raise click.UsageError(f"--mesh-devices {mesh_devices}: {e}") from None
+            loaded = load_params_npz(checkpoint)
+            _check_params(params_from_numpy(loaded, "cpu", cfg.dtype), cfg, channels)
+            # each replica made on its own device, as the one-device model is
+            model = [kind.from_reference(params_from_numpy(loaded, d, cfg.dtype), cfg)
+                     for d in devices]
+            call = ShardedForward(model, devices, batch_axis=1)
     forward_calls = 0
 
     def forward(xb):
@@ -257,7 +289,7 @@ def run(*, checkpoint, ds_type, ds_path, epses_specs=None, phi_multiplier=None,
             print(f"predictions written to {out}")
         if latency_bench:
             for bs in sorted({1, batch_size}):
-                stats = latency_stats(forward, x, bs)
+                stats = latency_stats(forward, x, bs, devices=devices)
                 print(json.dumps({"metric": "forward_latency", **stats}))
                 latency.append(stats)
     return PredictRun(preds, acc, latency, forward_calls, model, x)

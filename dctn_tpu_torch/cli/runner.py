@@ -1,8 +1,9 @@
 """The EPS experiment runner of the port (``dctn_tpu/cli/runner.py``, the
 reference's ``new_runner.py``): the same click flags and the same
-``run(**kw)`` → ``TrainLoopState`` contract, on one device.
+``run(**kw)`` → ``TrainLoopState`` contract, on one device or data
+parallel over several.
 
-It covers the JAX runner's single-device path: the flags and their
+It covers the JAX runner's single-device and data-parallel paths: the flags and their
 validation; ``run_info.txt`` with the flags, the git commit and the
 performance fallbacks, the working tree's diff beside it, and ``log.log``;
 synthetic or real data; the three init families (theoretical, empirical,
@@ -49,6 +50,28 @@ it slows every step).
 (``cli/export.py``) on ``--device``, through the eval backend's forward:
 the kernels' registered operators for pallas (K8 with ``--export-quantize
 int8``), plain operations for xla.
+
+``--mesh-devices N`` trains data parallel over N ranks, one per card
+(``gloo`` CPU replicas with ``--device cpu``; ``parallel/``): the splits
+sharded over the ranks, each rank's index row from
+``make_local_index_stream`` (the JAX runner's draws), the step's one
+all-reduce, the evals summed over the shards (``--eval-train-subset``
+scores that many train samples, sharded too; the JAX runner's DP path
+ignores it), the stoppers deciding on the ranks' mean loss and summed
+evals, SIGTERM agreed every ``--preempt-sync-steps`` iterations. The batch
+must divide by N · ``--grad-accum-steps``; ``auto`` resolves on each
+rank's batch. ``--distributed HOST:PORT,NPROC,PID`` (or ``auto`` under
+torchrun) spans several host processes, N counting ranks across them. The
+primary writes ``<experiments-dir>/<ts>``, local rank 0 of every other host
+``<ts>-proc<PID>`` (the timestamp is rank 0's); only global rank 0 writes
+checkpoints, train states and the artifact. A train state of N ranks
+resumes bit-equal on N ranks (the index streams fast-forwarded to its step,
+their saved position checked); on another rank count, or one device, it
+resumes elastically: the same parameters, moments, step and generator,
+and the new rank count's index streams fast-forwarded by the step (the
+JAX runner's rule), so the batches differ from the unbroken run's. With
+``mesh_devices > 1`` ``run`` returns rank 0's final state: ``params`` in
+the reference layout on the CPU, no optimizer.
 
 Flags the port does not run yet are refused with a ``click.BadParameter``
 naming their ROADMAP item (``REFUSED``). The inits and dropout masks draw
@@ -100,6 +123,7 @@ from ..models.eps_plus_linear import (
     saved_t_capped_layers,
 )
 from ..ops import composition
+from ..parallel import plan_job, spawn
 from ..train import (
     AsyncWriter,
     BestModelCheckpointer,
@@ -128,6 +152,7 @@ from ..train.intermediate_logger import (
     log_logits_as_probabilities,
     log_named_outputs,
 )
+from ..train.checkpoint import index_stream_arrays, saved_index_stream
 from ..train.preemption import PreemptionHandler
 from ..train.step import REGULARIZERS
 from ..train.tb_logging import MetricsWriter, log_batch_images
@@ -153,12 +178,11 @@ logger = logging.getLogger(__name__)
 
 # each refused flag, the values that mean "not used", and the ROADMAP item
 # that ports it
+_TP_SP = "tensor and spatial parallelism (slice 7b, item 19b)"
 REFUSED = (
-    ("mesh_devices", (1,), "--mesh-devices > 1", "multi-GPU (slice 7, item 19)"),
-    ("model_devices", (1,), "--model-devices > 1", "multi-GPU (slice 7, item 19)"),
-    ("space_devices", (1,), "--space-devices > 1", "multi-GPU (slice 7, item 19)"),
-    ("tp_shard_all", (False,), "--tp-shard-all", "multi-GPU (slice 7, item 19)"),
-    ("distributed", (None,), "--distributed", "multi-GPU (slice 7, item 19)"),
+    ("model_devices", (1,), "--model-devices > 1", _TP_SP),
+    ("space_devices", (1,), "--space-devices > 1", _TP_SP),
+    ("tp_shard_all", (False,), "--tp-shard-all", _TP_SP),
     ("autotune_splits", (False,), "--autotune-splits", "the autotuner (slice 8, item 20)"),
     ("autotune_cache", (False,), "--autotune-cache", "the autotuner (slice 8, item 20)"),
     ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
@@ -316,13 +340,14 @@ def _hint_saved_t_recipe(cfg, plans, batch: int, accum: int) -> None:
               help="microbatch each step into this many accumulation slices, or 'auto': the "
                    "smallest that keeps every EPS layer's saved-t backward under its cap")
 @click.option("--mesh-devices", type=int, default=1,
-              help="not ported yet (multi-GPU, ROADMAP item 19): only 1")
+              help="data parallel over this many ranks, one per card (CPU replicas with "
+                   "--device cpu); counts ranks across every host of --distributed")
 @click.option("--model-devices", type=int, default=1,
-              help="not ported yet (multi-GPU, ROADMAP item 19): only 1")
+              help="not ported yet (tensor parallelism, ROADMAP item 19b): only 1")
 @click.option("--tp-shard-all/--tp-shard-last", default=False,
-              help="not ported yet (multi-GPU, ROADMAP item 19)")
+              help="not ported yet (tensor parallelism, ROADMAP item 19b)")
 @click.option("--space-devices", type=int, default=1,
-              help="not ported yet (multi-GPU, ROADMAP item 19): only 1")
+              help="not ported yet (spatial parallelism, ROADMAP item 19b): only 1")
 @click.option("--autotune-splits/--no-autotune-splits", default=False,
               help="not ported yet (the autotuner, ROADMAP item 20)")
 @click.option("--autotune-cache/--no-autotune-cache", default=False,
@@ -354,9 +379,11 @@ def _hint_saved_t_recipe(cfg, plans, batch: int, accum: int) -> None:
 @click.option("--preempt-save/--no-preempt-save", default=True,
               help="on SIGTERM: finish the step in flight, save the train state, stop")
 @click.option("--preempt-sync-steps", type=int, default=16,
-              help="with --distributed (not ported), steps between preemption agreements")
+              help="under --mesh-devices > 1, iterations between the ranks' agreements on a "
+                   "preemption stop (they all stop at the same step)")
 @click.option("--distributed", default=None,
-              help="not ported yet (multi-GPU, ROADMAP item 19)")
+              help="'HOST:PORT,NPROC,PID': this is host process PID of NPROC, each starting its "
+                   "share of --mesh-devices ranks, meeting at HOST:PORT; 'auto': torchrun's ranks")
 @click.option("--device", default="cuda",
               help="torch device: cuda (the kernels) or cpu (their plain versions)")
 def main(**kwargs) -> None:
@@ -450,10 +477,16 @@ def _validate(kw: dict) -> None:
             raise click.BadParameter(f"--grad-accum-steps {ga!r}: a count or 'auto'") from None
     if isinstance(ga, str):
         kw["grad_accum_steps"] = "auto"
-    elif ga < 1 or kw["batch_size"] % ga:
+    elif ga < 1 or kw["batch_size"] % (kw["mesh_devices"] * ga):
         raise click.BadParameter(
-            "--grad-accum-steps must be >= 1 or 'auto', and divide --batch-size (the batch is "
-            "microbatched into equal accumulation slices)"
+            "--grad-accum-steps must be >= 1 or 'auto', and --batch-size divisible by "
+            "--mesh-devices * --grad-accum-steps (each rank's sub-batch is microbatched into "
+            "equal accumulation slices)"
+        )
+    if kw["mesh_devices"] < 1 or kw["batch_size"] % kw["mesh_devices"]:
+        raise click.BadParameter(
+            f"--batch-size {kw['batch_size']} must be divisible by --mesh-devices "
+            f"{kw['mesh_devices']} (each rank takes an equal sub-batch)"
         )
 
 
@@ -478,8 +511,9 @@ def _load_model_state(path: str, params, device):
 
 
 def _device_batches(index_stream, chunk: int, device):
-    """The index batches on the device, moved ``chunk`` at a time (an epoch)
-    from pinned memory without waiting, so that no iteration waits on a copy
+    """The index batches (or, under data parallelism, (W, b) arrays of
+    them) on the device, moved ``chunk`` at a time (an epoch) from pinned
+    memory without waiting, so that no iteration waits on a copy
     from the host and the card's queue never drains for one."""
     while True:
         rows = torch.from_numpy(np.stack([next(index_stream) for _ in range(chunk)]))
@@ -493,7 +527,11 @@ def run(**kwargs) -> TrainLoopState:
     names; unspecified ones take the CLI defaults. Returns the final
     ``TrainLoopState``; its ``extras`` hold the run's ``output_dir``,
     ``model``, ``step``, ``gather``, ``timing`` and ``params_view`` (the
-    loop's params → the reference layout)."""
+    loop's params → the reference layout). With ranks (``--mesh-devices``
+    > 1, ``--distributed``) it starts them, and returns local rank 0's
+    final state: the reference-layout params on the CPU, the iterations,
+    stop reason and metrics, and ``extras`` with ``output_dir``,
+    ``timing``, ``cfg``, ``world_size`` and an identity ``params_view``."""
     kw = fill_defaults(main, dict(kwargs))
     _validate(kw)
     device = torch.device(kw["device"])
@@ -501,15 +539,64 @@ def run(**kwargs) -> TrainLoopState:
         raise click.BadParameter(
             f"--device {device}: no CUDA device is available (--device cpu runs the plain versions)"
         )
-    output_dir = os.path.join(kw["experiments_dir"], time.strftime("%Y-%m-%d-%H-%M-%S"))
-    if os.path.exists(output_dir):
-        raise click.ClickException(f"{output_dir} exists: one run per experiments dir and second")
-    os.makedirs(output_dir)
-    kw["output_dir"] = output_dir
+    try:
+        job = plan_job(kw["mesh_devices"], kw["distributed"], device.type)
+    except ValueError as e:
+        raise click.BadParameter(str(e)) from None
+    if job is None:
+        return _run(kw, device, None)
+    out = spawn(_run_rank, job, kw)
+    state = TrainLoopState(params=out["params"], opt_state=None, rng=None,
+                           num_iters_done=out["num_iters_done"], stop=True,
+                           stop_reason=out["stop_reason"], iter_metrics=out["iter_metrics"])
+    state.extras.update(output_dir=out["output_dir"], timing=out["timing"], cfg=out["cfg"],
+                        world_size=job.world_size, params_view=lambda params: params)
+    return state
+
+
+def _run_rank(mesh, kw: dict) -> dict:
+    """One rank's run; what local rank 0 hands back to ``run``."""
+    state = _run(kw, mesh.device, mesh)
+    params = state.extras["params_view"](state.params)
+    return {
+        "params": {"epses": tuple(c.detach().cpu() for c in params["epses"]),
+                   "linear": {k: v.detach().cpu() for k, v in params["linear"].items()}},
+        "num_iters_done": state.num_iters_done, "stop_reason": state.stop_reason,
+        "iter_metrics": dict(state.iter_metrics), "output_dir": state.extras["output_dir"],
+        "timing": state.extras["timing"], "cfg": state.extras["cfg"],
+    }
+
+
+def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
+    """The run on one device (``mesh`` None), or one rank's share of a
+    data-parallel run."""
+    primary = mesh is None or mesh.is_primary
+    writes_logs = mesh is None or mesh.writes_logs
+    ts = time.strftime("%Y-%m-%d-%H-%M-%S")
+    if mesh is not None:
+        # one name for the run on every host, rank 0's clock
+        ts = mesh.broadcast_object(ts)
+    run_name = ts if mesh is None or mesh.node == 0 else f"{ts}-proc{mesh.node}"
+    output_dir = os.path.join(kw["experiments_dir"], run_name)
+    if writes_logs:
+        if os.path.exists(output_dir):
+            raise click.ClickException(
+                f"{output_dir} exists: one run per experiments dir and second")
+        os.makedirs(output_dir)
+    kw = dict(kw, output_dir=output_dir)
     specs = kw["epses_specs"]
 
-    setup_run_provenance(output_dir, kw, kw["verbosity"])
+    if writes_logs:
+        setup_run_provenance(output_dir, kw, kw["verbosity"])
+    else:
+        # the host's other ranks log warnings and errors to the console only
+        logging.basicConfig(level=logging.WARNING, force=True,
+                            format=f"rank {mesh.rank}: %(name)s - %(levelname)s - %(message)s")
     logger.info("output_dir=%r", output_dir)
+    if mesh is not None:
+        pids = mesh.all_gather_object(os.getpid())
+        logger.info("data parallel: %d ranks (%s), rank pids %s", mesh.world_size, mesh.backend,
+                    pids)
 
     # --- data (new_runner.py:345-376) ---
     autoscale = specs[0][0] if kw["phi_multiplier"] is None and not kw["nu_per_channel"] else None
@@ -559,11 +646,12 @@ def run(**kwargs) -> TrainLoopState:
                                       linear_weight_init=w_init, linear_bias_init=b_init)
     if kw["load_model_state"]:
         params = _load_model_state(kw["load_model_state"], params, device)
-    with torch.no_grad():
-        logger.info("inner_product(epses, epses)=%.4e",
-                    float(composition.inner_product(params["epses"], params["epses"])))
-        stats_bs = kw["log_intermediate_reps_stats_batch_size"] or kw["batch_size"] // 2
-        intermediate_reps_stats(params, x_init, cfg, stats_bs, plain=train_ref)
+    if writes_logs:  # statistics for the log, identical on every rank
+        with torch.no_grad():
+            logger.info("inner_product(epses, epses)=%.4e",
+                        float(composition.inner_product(params["epses"], params["epses"])))
+            stats_bs = kw["log_intermediate_reps_stats_batch_size"] or kw["batch_size"] // 2
+            intermediate_reps_stats(params, x_init, cfg, stats_bs, plain=train_ref)
     del x_init
 
     # --- training assembly (new_runner.py:443-546): the fast (cmt) layout,
@@ -574,28 +662,39 @@ def run(**kwargs) -> TrainLoopState:
     else:
         model = EPSesPlusLinear.from_reference(params, cfg, device=device)
     del params
+    world = 1 if mesh is None else mesh.world_size
+    per_dev = kw["batch_size"] // world  # each rank's batch
+    if mesh is not None:
+        from ..parallel import replicate
+
+        replicate(mesh, model.parameters())  # rank 0's init on every rank
     optimizer = make_optimizer(kw["optimizer_name"], model.parameters(), kw["lr"], kw["wd"])
     if kw["grad_accum_steps"] == "auto":
-        kw["grad_accum_steps"] = resolve_auto_grad_accum(cfg, plans, kw["batch_size"])
+        kw["grad_accum_steps"] = resolve_auto_grad_accum(cfg, plans, per_dev)
         logger.info("grad-accum-steps auto -> %d", kw["grad_accum_steps"])
         if kw["grad_accum_steps"] > 1:
             fallbacks.record(
                 f"grad-accum-steps auto took the saved-t cap's pick {kw['grad_accum_steps']} "
                 "without timing the candidates (the autotuner, ROADMAP item 20)"
             )
-    if train_ref:
-        step = make_train_step(
-            model, optimizer, kw["reg_type"], kw["reg_coeff"],
-            frozen_eps_indices=kw["freeze_eps"], with_probs=kw["tb_batches"],
-            grad_accum_steps=kw["grad_accum_steps"],
-        )
+    step_kw = dict(frozen_eps_indices=kw["freeze_eps"], with_probs=kw["tb_batches"],
+                   grad_accum_steps=kw["grad_accum_steps"])
+    if mesh is not None:
+        from ..parallel import make_parallel_fast_train_step, make_parallel_train_step
+
+        if train_ref:
+            step = make_parallel_train_step(model, optimizer, mesh, kw["reg_type"],
+                                            kw["reg_coeff"], **step_kw)
+        else:
+            step = make_parallel_fast_train_step(model, optimizer, mesh, kw["reg_type"],
+                                                 kw["reg_coeff"], qat=qat, **step_kw)
+    elif train_ref:
+        step = make_train_step(model, optimizer, kw["reg_type"], kw["reg_coeff"], **step_kw)
     else:
-        step = make_fast_train_step(
-            model, optimizer, kw["reg_type"], kw["reg_coeff"],
-            frozen_eps_indices=kw["freeze_eps"], with_probs=kw["tb_batches"],
-            grad_accum_steps=kw["grad_accum_steps"], qat=qat,
-        )
-        _hint_saved_t_recipe(cfg, plans, kw["batch_size"], kw["grad_accum_steps"])
+        step = make_fast_train_step(model, optimizer, kw["reg_type"], kw["reg_coeff"], qat=qat,
+                                    **step_kw)
+    if not train_ref:
+        _hint_saved_t_recipe(cfg, plans, per_dev, kw["grad_accum_steps"])
     eval_kernels = KERNELS if qat is None else QAT_KERNELS
     if qat is not None:
         logger.info("QAT int8 active: W8A8 forward with straight-through gradients; evals "
@@ -620,10 +719,18 @@ def run(**kwargs) -> TrainLoopState:
     def forward(params, xb):
         return eval_forward(eval_params(params), xb)
 
-    score_eval = make_score_fn(cfg, plans, kw["batch_size"], forward_fn=eval_forward)
+    if mesh is None:
+        score_eval = make_score_fn(cfg, plans, kw["batch_size"], forward_fn=eval_forward)
+    else:
+        from ..parallel import make_parallel_score_fn
 
-    def score(params, x, y):
-        return score_eval(eval_params(params), x, y)
+        # each rank scores its shard at its own batch (the JAX DP path's)
+        score_eval = make_parallel_score_fn(cfg, plans, mesh, per_dev, forward_fn=eval_forward)
+
+    def score(params, *split):
+        """(mean CE, accuracy) of one device's ``x, y``, or of a rank's
+        ``ShardedSplit``."""
+        return score_eval(eval_params(params), *split)
     logger.info(
         "%s parameter layout on %s: training through %s, evals through %s",
         "reference" if train_ref else "fast (cmt)", device,
@@ -632,19 +739,53 @@ def run(**kwargs) -> TrainLoopState:
         "the plain eps (torch.matmul)" if eval_ref else "the fast layout's forward",
     )
 
-    x_tr = torch.as_tensor(splits.train.x, device=device)
-    y_tr = torch.as_tensor(splits.train.y.astype(np.int64), device=device)
-    x_val = torch.as_tensor(splits.val.x, device=device)
-    y_val = torch.as_tensor(splits.val.y.astype(np.int64), device=device)
-    gather = make_gather_batch(x_tr, y_tr)
-    n_eval_train = kw["eval_train_subset"] or y_tr.shape[0]
-    x_tr_eval, y_tr_eval = x_tr[:, :n_eval_train], y_tr[:n_eval_train]
-    batcher = Batcher(splits.train, kw["batch_size"], shuffle=True, drop_last=True, seed=kw["seed"])
-    if len(batcher) == 0:
-        raise click.BadParameter(
-            f"--batch-size {kw['batch_size']} is over the {len(splits.train)} training images"
-        )
-    index_stream = batcher.indices_forever()
+    n_eval_train = kw["eval_train_subset"] or len(splits.train)
+    if mesh is None:
+        x_tr = torch.as_tensor(splits.train.x, device=device)
+        y_tr = torch.as_tensor(splits.train.y.astype(np.int64), device=device)
+        x_val = torch.as_tensor(splits.val.x, device=device)
+        y_val = torch.as_tensor(splits.val.y.astype(np.int64), device=device)
+        gather = make_gather_batch(x_tr, y_tr)
+        tr_eval, val_eval = (x_tr[:, :n_eval_train], y_tr[:n_eval_train]), (x_val, y_val)
+        batcher = Batcher(splits.train, kw["batch_size"], shuffle=True, drop_last=True,
+                          seed=kw["seed"])
+        if len(batcher) == 0:
+            raise click.BadParameter(
+                f"--batch-size {kw['batch_size']} is over the {len(splits.train)} training images"
+            )
+        index_stream = batcher.indices_forever()
+    else:
+        from ..parallel import make_local_index_stream, shard_split
+
+        y_tr_host = np.asarray(splits.train.y)
+        tr_split = shard_split(mesh, splits.train.x, y_tr_host)
+        x_tr = tr_split.x  # this rank's shard
+        tr_eval = (tr_split if n_eval_train >= len(y_tr_host) else shard_split(
+            mesh, splits.train.x[:, :n_eval_train], y_tr_host[:n_eval_train]),)
+        val_eval = (shard_split(mesh, splits.val.x, np.asarray(splits.val.y)),)
+        index_stream = make_local_index_stream(tr_split, per_dev, kw["seed"])
+        if per_dev > min(index_stream.valid_per_shard):
+            raise click.BadParameter(
+                f"--batch-size {kw['batch_size']} over {world} ranks takes {per_dev} images a "
+                f"rank, over the {min(index_stream.valid_per_shard)} of the smallest shard"
+            )
+        replay = {"stream": None, "at": 0}
+
+        def stream_position(step: int):
+            """The index streams' (orders, cursors) after ``step`` draws, for
+            the train state: a replay of the stream on the host, moved on
+            from the last save's (the loop's stream runs an epoch ahead)."""
+            if replay["stream"] is None or replay["at"] > step:
+                replay.update(stream=make_local_index_stream(tr_split, per_dev, kw["seed"]), at=0)
+            for _ in range(step - replay["at"]):
+                next(replay["stream"])
+            replay["at"] = step
+            return replay["stream"].orders, replay["stream"].cursors
+
+        def gather(idx):
+            """This rank's row of the (W, b) index array, from its shard."""
+            row = idx[mesh.rank]
+            return tr_split.x.index_select(1, row), tr_split.y.index_select(0, row)
     generator = torch.Generator(device=device).manual_seed(train_seed)
 
     resume_step = 0
@@ -668,6 +809,7 @@ def run(**kwargs) -> TrainLoopState:
         # the resumed run takes the batches the unbroken run would have
         for _ in range(resume_step):
             next(index_stream)
+        _check_resumed_stream(kw["resume_from"], world, index_stream)
 
     schedule = every_n_iters_intervals(*kw["eval_schedule"])
     # hook_s: each named hook's seconds, call by call
@@ -697,8 +839,8 @@ def run(**kwargs) -> TrainLoopState:
 
     def evaluate_and_log(state: TrainLoopState) -> None:
         t0 = time.perf_counter()
-        trm, tra = score(state.params, x_tr_eval, y_tr_eval)
-        vm, va = score(state.params, x_val, y_val)
+        trm, tra = score(state.params, *tr_eval)
+        vm, va = score(state.params, *val_eval)
         state.iter_metrics.update(train_mean_ce=float(trm), train_acc=float(tra),
                                   val_mean_ce=float(vm), val_acc=float(va))
         if state.device_metrics is not None:
@@ -723,35 +865,42 @@ def run(**kwargs) -> TrainLoopState:
         """The full train state. ``completed_offset`` is 1 after a step (the
         preemption hook after the step): ``num_iters_done`` then names the
         iteration just done and the generator already stands at the next."""
-        writer.submit(
-            train_state_arrays(model, optimizer, state.num_iters_done + completed_offset, plans,
-                               generator, seed=train_seed),
-            os.path.join(output_dir, "train_state_latest.npz"),
-        )
+        arrays = train_state_arrays(model, optimizer, state.num_iters_done + completed_offset,
+                                    plans, generator, seed=train_seed)
+        if mesh is not None:
+            arrays.update(index_stream_arrays(
+                *stream_position(state.num_iters_done + completed_offset), world))
+        writer.submit(arrays, os.path.join(output_dir, "train_state_latest.npz"))
 
     metrics = (("train_acc", False), ("val_acc", False), ("train_mean_ce", True), ("val_mean_ce", True))
-    best_ckpts = [BestModelCheckpointer(output_dir, k, low, writer, params_view=params_view)
-                  for k, low in metrics]
     es_metrics = tuple((name, low) for name, low in metrics if kw[f"es_{name}"])
-    at_iter_start = [
-        schedule(timed(evaluate_and_log)), schedule(timed(log_parameters_stats)),
-        schedule(timed(LastModelsCheckpointer(output_dir, kw["keep_last_models"], writer,
-                                              params_view=params_view))),
-        schedule(timed(save_train_state)),
-    ] + [schedule(timed(c)) for c in best_ckpts]
+    # evals and stoppers run on every rank (collectives, and decisions from
+    # the ranks' summed evals and mean loss); the writing hooks on the
+    # ranks that write
+    at_iter_start = [schedule(timed(evaluate_and_log))]
+    if writes_logs:
+        at_iter_start.append(schedule(timed(log_parameters_stats)))
+    if primary:
+        best_ckpts = [BestModelCheckpointer(output_dir, k, low, writer, params_view=params_view)
+                      for k, low in metrics]
+        at_iter_start += [
+            schedule(timed(LastModelsCheckpointer(output_dir, kw["keep_last_models"], writer,
+                                                  params_view=params_view))),
+            schedule(timed(save_train_state)),
+        ] + [schedule(timed(c)) for c in best_ckpts]
     if es_metrics:
         at_iter_start.append(schedule(ValuesNotImprovingEarlyStopper(kw["patience"], es_metrics)))
     if kw["max_num_iters"] is not None:
         at_iter_start.append(schedule(make_stopper_after_n_iters(kw["max_num_iters"])))
     nan_stopper = make_stopper_on_nan_loss(
         output_dir, forward, params_view=params_view, replay_step=step, replay_gather=gather,
-        interactive=kw["breakpoint_on_nan_loss"],
+        interactive=kw["breakpoint_on_nan_loss"] and primary, write_files=primary,
     )
     after_step = [schedule(timed(nan_stopper))]
     metrics_writer = None
-    if kw["tb_batches"] or kw["log_intermediate_outputs"]:
+    if writes_logs and (kw["tb_batches"] or kw["log_intermediate_outputs"]):
         metrics_writer = MetricsWriter(output_dir)
-    if kw["tb_batches"]:
+    if writes_logs and kw["tb_batches"]:
         raw_images = splits.train.unmodified_x
 
         def log_batch_to_tb(state: TrainLoopState) -> None:
@@ -767,14 +916,19 @@ def run(**kwargs) -> TrainLoopState:
             probs = m["probs_of_true_class"].cpu().numpy()
             metrics_writer.add_histogram("probs_of_true_class", probs, nitd)
             if raw_images is not None and raw_images.ndim == 3:
-                sel = state.batch_indices[:32].cpu().numpy()
+                sel = state.batch_indices.cpu().numpy()
+                if mesh is not None:
+                    # rank d's row holds positions in its shard, which starts
+                    # at d·n_local: the gathered probabilities' order
+                    sel = np.arange(world)[:, None] * tr_split.n_local + sel
+                sel = sel.reshape(-1)[:32]
                 log_batch_images(metrics_writer, raw_images[sel], probs[:32],
                                  splits.train.y[sel], nitd)
             metrics_writer.flush()
 
         after_step.append(schedule(timed(log_batch_to_tb, "tb_batches")))
-    if kw["log_intermediate_outputs"]:
-        probe = x_tr[:, : min(64, x_tr.shape[1])]
+    if writes_logs and kw["log_intermediate_outputs"]:
+        probe = torch.as_tensor(splits.train.x[:, :64], device=device)
 
         def log_intermediates(state: TrainLoopState) -> None:
             """Each layer's output on the probe images (runner.py:1649-1678):
@@ -793,11 +947,13 @@ def run(**kwargs) -> TrainLoopState:
 
         at_iter_start.append(schedule(timed(log_intermediates, "intermediate_outputs")))
     tracer = None
-    if kw["profile_dir"]:
+    if writes_logs and kw["profile_dir"]:
         # first at an iteration's start, so that an eval there falls
         # outside the window; its starting and writing the trace are timed
         # apart from the steps (the window's own time is the tracer's)
-        tracer = StepTracer(kw["profile_dir"], *kw["profile_iters"])
+        prof_dir = kw["profile_dir"] if mesh is None or mesh.node == 0 else (
+            f"{kw['profile_dir']}-proc{mesh.node}")
+        tracer = StepTracer(prof_dir, *kw["profile_iters"])
         timed_tracer = timed(tracer, "profiler")
 
         def profile(state: TrainLoopState) -> None:
@@ -813,17 +969,27 @@ def run(**kwargs) -> TrainLoopState:
     state.extras.update(output_dir=output_dir, cfg=cfg, model=model, step=step, gather=gather,
                         timing=timing, params_view=params_view)
     nan_stopper.enable_replay(state)
-    batches = _device_batches(index_stream, len(batcher), device)
+    # an epoch of index batches a copy; under data parallelism (W, b) arrays,
+    # an epoch of the smallest shard
+    epoch = len(batcher) if mesh is None else max(min(index_stream.valid_per_shard) // per_dev, 1)
+    batches = _device_batches(index_stream, epoch, device)
     with contextlib.ExitStack() as stack:
         if kw["debug_nans"]:
             stack.enter_context(torch.autograd.detect_anomaly(check_nan=True))
             logger.info("torch.autograd anomaly detection (check_nan) enabled")
         if kw["preempt_save"]:
             preempt = stack.enter_context(PreemptionHandler())
-            # checked every iteration (a flag read): before the step, and
-            # after it with the step counted as done
-            at_iter_start = [preempt.make_hook(save_train_state)] + at_iter_start
-            after_step = after_step + [preempt.make_hook(lambda st: save_train_state(st, 1))]
+            preempt_save = save_train_state if primary else (lambda st, completed_offset=0: None)
+            if mesh is not None:
+                # agreed every --preempt-sync-steps iterations: every rank
+                # stops at the same step
+                at_iter_start = [preempt.make_synced_hook(
+                    preempt_save, kw["preempt_sync_steps"], mesh.any)] + at_iter_start
+            else:
+                # checked every iteration (a flag read): before the step, and
+                # after it with the step counted as done
+                at_iter_start = [preempt.make_hook(preempt_save)] + at_iter_start
+                after_step = after_step + [preempt.make_hook(lambda st: preempt_save(st, 1))]
         sync()
         t0 = time.perf_counter()
         train(state, step, gather, batches, at_iter_start=at_iter_start, after_step=after_step)
@@ -845,10 +1011,34 @@ def run(**kwargs) -> TrainLoopState:
         timing["evals"], 1e3 * timing["eval_s"] / max(timing["evals"], 1),
     )
     logger.info("training stopped: %s at %d iters", state.stop_reason, state.num_iters_done)
-    if kw["export_artifact"]:
+    if kw["export_artifact"] and primary:
         _export_final(kw, params_view(state.params), cfg, int(splits.train.x.shape[0]), device,
                       "xla" if eval_ref else "pallas")
     return state
+
+
+def _check_resumed_stream(path: str, world: int, index_stream) -> None:
+    """After the fast-forward: on the rank count the train state was saved
+    on, its index streams' saved position must be where this run's stand
+    (the same seed, data and batch); on another count the resume is
+    elastic, and says so."""
+    saved_world, orders, cursors = saved_index_stream(path)
+    if saved_world != world:
+        logger.warning(
+            "elastic resume: the train state was saved on %d rank(s), this run has %d; the "
+            "parameters, moments, step and generator continue, the batches are this rank "
+            "count's streams fast-forwarded to the step (not the unbroken run's)",
+            saved_world, world)
+        return
+    if orders is None:
+        return
+    now_orders, now_cursors = index_stream.orders, index_stream.cursors
+    if list(cursors) != list(now_cursors) or any(
+            not np.array_equal(a, b) for a, b in zip(orders, now_orders)):
+        raise click.ClickException(
+            f"--resume-from {path}: its index streams stand elsewhere than this run's at its "
+            "step (another --seed, dataset or --batch-size): the resume would not continue "
+            "its trajectory")
 
 
 def _export_final(kw: dict, params, cfg: EPSesPlusLinearConfig, channels: int, device,

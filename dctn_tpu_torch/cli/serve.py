@@ -14,6 +14,9 @@ Endpoints:
                           entry points. Response: logits as .npy, or
                           {"predictions": [...]} with ?format=json.
 
+A sharded artifact (``export --mesh-devices N``) serves on its N cards:
+every device call, a micro-batch included, is split over them.
+
 A malformed body, or an array of the wrong shape, gets 400; a failure of
 the device call (a kernel that fails to build or launch, memory) gets 500
 and is never retried on the CPU.
@@ -62,7 +65,10 @@ class ArtifactModel:
 
     def __init__(self, path: str, microbatch_wait_s: float = 0.0):
         self.meta, self.fns = load_artifact(path)
-        self.device = torch.device(self.meta["platforms"][0])
+        # a sharded artifact's entry points split the batch over their
+        # cards from the host: its input stays on the CPU
+        self.device = torch.device(
+            "cpu" if self.meta.get("mesh_devices", 1) > 1 else self.meta["platforms"][0])
         self.sizes = sorted(self.fns)
         self.family = self.meta.get("model_family", "eps")
         self.batch_axis = 1 if self.family == "eps" else 0
@@ -292,7 +298,8 @@ def main(artifact, host, port, microbatch_wait_ms):
     server, model = make_server(artifact, host, port, microbatch_wait_s=microbatch_wait_ms / 1e3)
     print(
         f"serving {model.family} artifact on http://{host}:{server.server_address[1]} "
-        f"({model.device.type}; entry points: bs {model.sizes}"
+        f"({model.meta['platforms'][0]} x {model.meta.get('mesh_devices', 1)}; entry points: "
+        f"bs {model.sizes}"
         + (f", micro-batching {microbatch_wait_ms:g} ms)" if microbatch_wait_ms > 0 else ")"),
         flush=True,
     )

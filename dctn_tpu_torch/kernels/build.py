@@ -10,6 +10,7 @@ a build takes seconds; nothing is fetched or taken prebuilt.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -24,6 +25,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# every source of csrc/ that the wrappers load
+SOURCES = ("eps_fwd", "eps_dcore", "eps_dviews_t", "eps_fwd_q8", "sbs_fwd", "sbs_bwd",
+           "logmatmulexp")
 
 
 def _nvcc() -> str:
@@ -62,3 +66,12 @@ def load_library(name: str) -> ctypes.CDLL:
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))
+
+
+def build_all(names=SOURCES) -> None:
+    """Builds every source of ``names`` that is not current, one ``nvcc``
+    each, all started together (a rank of a multi-card job calls this once
+    per host before the others load the libraries)."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        for fut in [pool.submit(load_library, name) for name in names]:
+            fut.result()

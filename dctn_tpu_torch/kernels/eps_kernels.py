@@ -704,6 +704,7 @@ def eps_apply_t_cmt(
     *,
     layer_index: int,
     kernels: EPSKernels = KERNELS,
+    pixel_scale: int = 1,
 ) -> torch.Tensor:
     """One EPS layer on the matricized core (eps_pallas.py:924-980):
     ``xT`` (C, Q, H, W, B) → ``outT`` (O, H', W', B), differentiable in
@@ -711,7 +712,13 @@ def eps_apply_t_cmt(
     and ``plan_backward`` picks the saved-t arm for this layer, so serving
     (under ``inference_mode``) writes none. ``kernels`` is ``KERNELS``
     unless a caller runs the plain versions or the int8 forward
-    (``eps_q8_kernels.QAT_KERNELS``)."""
+    (``eps_q8_kernels.QAT_KERNELS``).
+
+    ``pixel_scale``: ``plan_backward`` decides on ``npix · pixel_scale``
+    pixels. A data-parallel QAT step passes its rank count, so that every
+    rank takes the arm that one device takes on the whole batch
+    (``forward_fast_q8train``'s ``pixel_scale``, eps_pallas_q8.py:383-416);
+    the f32 step plans each rank on its own pixels (1)."""
     c, q, h, w, b = xT.shape
     hp, wp = h - kernel_size + 1, w - kernel_size + 1
     n_k, q_k, n1_k = _kernel_dims(c, q, kernel_size, n1, merge_pairs)
@@ -719,7 +726,7 @@ def eps_apply_t_cmt(
     save_t = (
         torch.is_grad_enabled()
         and xT.requires_grad
-        and plan_backward(layer_index, n_k, n1_k, q_k, out_size, npix) == "saved_t"
+        and plan_backward(layer_index, n_k, n1_k, q_k, out_size, npix * pixel_scale) == "saved_t"
     )
     out = EPSApplyTCmt.apply(views_t, cmt, n1_k, out_size, save_t, kernels)
     return out.reshape(out_size, hp, wp, b)

@@ -33,7 +33,11 @@ when none was (``eps_dviews_recompute``, as the JAX STE backward does,
 eps_pallas_q8.py:262-268), so ``EPSApplyTCmt`` gives the
 straight-through backward unchanged, and ``plan_backward`` picks each
 layer's arm as it does for the f32 forward (the JAX package's
-``qat_save_decision`` is the same rule).
+``qat_save_decision`` is the same rule). Because the arm changes the STE
+gradient (a saved dequantized t, or t recomputed in f32), a data-parallel
+QAT step decides it on the global pixel count: ``eps_apply_t_cmt``'s
+``pixel_scale`` is the rank count there (``parallel.data_parallel``), so
+every rank takes the arm one device takes on the whole batch.
 """
 
 from __future__ import annotations

@@ -314,7 +314,7 @@ def dropout_cmts(cmts, plans, p: float, masks) -> Tuple[torch.Tensor, ...]:
 
 def eps_plus_linear_forward_fast(
     fast, x: torch.Tensor, cfg: EPSesPlusLinearConfig, plans,
-    kernels: EPSKernels = KERNELS, masks=None,
+    kernels: EPSKernels = KERNELS, masks=None, pixel_scale: int = 1,
 ) -> torch.Tensor:
     """The forward over fast parameters (eps_plus_linear.py:455-503), all in
     the transposed batch-minor layout: one input relayout, then each
@@ -322,7 +322,9 @@ def eps_plus_linear_forward_fast(
     Q₀) → (B, num_classes); differentiable in the parameters. ``kernels``
     runs each layer's contractions (see ``eps_apply_t_cmt``). ``masks``
     (one per core, reference shape) applies parameter dropout with
-    ``cfg.dropout_p``: a training forward passes them, an eval none."""
+    ``cfg.dropout_p``: a training forward passes them, an eval none.
+    ``pixel_scale`` is ``eps_apply_t_cmt``'s (the data-parallel QAT step's
+    rank count)."""
     cmts = fast["epses_cmt"]
     if masks is not None:
         cmts = dropout_cmts(cmts, plans, cfg.dropout_p, masks)
@@ -331,7 +333,7 @@ def eps_plus_linear_forward_fast(
     for i, (cmt, p) in enumerate(zip(cmts, plans)):
         outT = eps_apply_t_cmt(
             cmt, xT, p["out_size"], p["kernel_size"], p["n1"], p["merge_pairs"],
-            layer_index=i, kernels=kernels,
+            layer_index=i, kernels=kernels, pixel_scale=pixel_scale,
         )
         xT = outT[None]
     return _transposed_classifier(outT, fast["linear"])

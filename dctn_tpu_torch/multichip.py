@@ -1,0 +1,754 @@
+"""The data-parallel paths on several cards: the torch counterpart of the
+JAX package's multichip dry run (``__graft_entry__.py::dryrun_multichip``,
+its DP paths in ``MULTICHIP_r05.json``), with the times of each.
+
+    python -m dctn_tpu_torch.multichip --devices 4 [--profile DIR]
+    python -m dctn_tpu_torch.multichip --devices 2 --device cpu --small   # gloo rehearsal
+
+N ranks, one per card (``parallel.spawn``, NCCL), run in turn:
+
+- ``dp_xla``: the reference-layout step (plain ``eps``, the xla backend) on
+  N ranks against one card's step on the concatenated batch, and the
+  sharded score against one card's;
+- ``dp_fast_cmt(+dropout,+grad_accum=2)``: the fast step with parameter
+  dropout (the same masks on every rank) and 2 microbatches a rank;
+- ``dp_qat_int8_train``: the QAT step, its saved-t arm decided on the
+  global pixel count;
+- ``conv_sbs_dp_train(+sharded_score)``: the ConvSBS pixel step and score.
+
+Each is held against one card on the concatenated batch: the first step's
+gradients from one init (after the all-reduce) within ``DP_TOL`` of each
+parameter's largest entry; then 3 SGD steps at per-parameter lrs set from
+those gradients, with finite losses, after which every rank's parameters
+equal rank 0's bit for bit and rank 0's moves match one card's taking the
+same steps within ``TRAJ_TOL``; the scores within ``SCORE_TOL``. A failed
+check is reported at once and the run goes on, then exits nonzero without
+its last line. Then the times: the flagship ``(4,4),(3,6)``
+f32 and QAT steps at 128 images a card (global 128·N) against one card at
+128, the deep ``(4,4),(3,12),(2,24)`` step at 512 a card (global 512·N)
+against one card at 512·N, and the 2-layer bond-4 ConvSBS step at global
+512, open and ring, against one card at 512: step ms p50 (CUDA events on
+rank 0), images/s, the scaling efficiency of the EPS steps (images/s on N
+÷ N × images/s on one at the per-card batch; the deep step also beside one
+card at the global batch) and the ConvSBS steps' speedup over one card at
+the global batch, an isolated all-reduce of the step's gradient buffer, and with
+``--profile`` the device time per step of the NCCL kernels and of all
+kernels on rank 0 under ``torch.profiler`` (the NCCL kernel's time
+includes its wait for the slowest rank) and the device's idle share.
+
+Then, in this process, with a replica on each card (``parallel.replicas``):
+``dp_sharded_predict`` and ``dp_sharded_predict_int8`` (``predict.run
+--mesh-devices N`` at global batch 512 beside one card; every replica's
+logits equal replica 0's on the same images, bit for bit),
+``dp_sharded_export_serving`` (a sharded flagship artifact, ``export.run
+--mesh-devices N``, served by ``serve.ArtifactModel``) and
+``conv_sbs_artifact_serving`` (the ConvSBS cores the ranks trained, as a
+sharded artifact over N cards).
+
+One JSON line per path with its checks and times; the last line is
+``{"ok": true, "paths": [...]}``. Any failed check exits nonzero before it.
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+FLAGSHIP = ((4, 4), (3, 6))
+DEEP = ((4, 4), (3, 12), (2, 24))
+SMALL = ((2, 4), (2, 3))
+# every gradient of the first step, DP against one card on the concatenated
+# batch, as a share of the parameter's largest entry: the two sum the
+# cross-entropy's gradient over other partitions of the pixels (per rank,
+# then the all-reduce), in f32 with 3xTF32 products (~2^-22 relative each)
+DP_TOL = 1e-4
+# mean CE and accuracy, sharded score against one card: CE summed per shard
+# (f32) then over the shards (f64)
+SCORE_TOL = 1e-5
+# the checks' steps: the first at lr 0 (its gradients are compared), then
+# CHECK_STEPS of SGD whose lr moves each parameter's largest-gradient entry
+# by REL_STEP of the parameter's largest entry: small enough for every
+# model's steps to stay finite (the flagship's init has a CE of ~140, and
+# the ConvSBS model's CE leaves 2.3 for 33 and then NaN at 1e-2 on 4 CPU
+# ranks), large enough for each move to be far above float32 spacing
+CHECK_STEPS = 3
+REL_STEP = 1e-3
+# each parameter's move over those steps, the ranks' against one card's from
+# the same lrs, as an L2 gap relative to one card's move: the moves are sums
+# of lr·gradient, whose gaps are the gradients' (DP_TOL at the largest entry,
+# far less in L2); a rank that masks, steps or scales otherwise gives O(1).
+# Read on 4 gloo CPU ranks at these shapes (the plain versions): gradient
+# gaps 1.8e-7 to 7.7e-7, move gaps 5.8e-6 to 1.3e-5
+TRAJ_TOL = 1e-3
+
+# every failed check of this process, in order (``check``)
+_FAILED: list = []
+
+
+def check(ok: bool, what: str) -> bool:
+    """Records a failed check (on stderr at once) and goes on, so that one
+    run reports every check and every time; a run with a failed check exits
+    nonzero at its end and prints no result."""
+    if not ok:
+        _FAILED.append(what)
+        print(f"multichip check failed: {what}", file=sys.stderr, flush=True)
+    return ok
+
+
+def emit(mesh, record: dict) -> None:
+    if mesh is None or mesh.is_primary:
+        print(json.dumps(record), flush=True)
+
+
+def sizes(small: bool) -> dict:
+    """The shapes of the checks and the timed steps (``small``: a CPU
+    rehearsal)."""
+    if small:
+        return dict(specs=SMALL, check_b=4, time_b=8, steps=3, warmup=1, deep=None, deep_b=0,
+                    sbs_bond=2, sbs_global=16, predict_b=16, sbs_layers=2)
+    return dict(specs=FLAGSHIP, check_b=16, time_b=128, steps=30, warmup=3, deep=DEEP,
+                deep_b=512, sbs_bond=4, sbs_global=512, predict_b=512, sbs_layers=2)
+
+
+# ---------------------------------------------------------------------------
+# in the ranks
+
+
+def _data(specs, n: int, seed: int = 0):
+    from .data import load_dataset
+
+    sp = load_dataset("fashionmnist", "synthetic", autoscale_kernel_size=specs[0][0],
+                      synthetic_sizes=(n, 4, max(n // 2, 4))).train
+    return sp.x, sp.y.astype(np.int64)
+
+
+def _grads_agree(dp, one, what: str) -> float:
+    """The largest gap between the DP step's gradient of a parameter (after
+    its all-reduce) and one card's on the concatenated batch, from the same
+    parameters, as a share of one card's largest entry of it (checked
+    against DP_TOL)."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(dp, one)):
+        scale = float(b.abs().max())
+        if check(scale > 0, f"{what}: parameter {i} has no gradient"):
+            gap = float((a.double() - b.double()).abs().max()) / scale
+            worst = max(worst, gap if np.isfinite(gap) else float("inf"))
+    check(worst <= DP_TOL, f"{what}: gradients differ by {worst:.3e} of the largest > {DP_TOL}")
+    return worst
+
+
+def _grads(model):
+    return [p.grad.detach().clone() for p in model.parameters()]
+
+
+def _sgd(model) -> torch.optim.SGD:
+    """SGD with a group for each parameter, at lr 0 until ``_set_lrs``."""
+    return torch.optim.SGD([{"params": [p]} for p in model.parameters()], lr=0.0)
+
+
+def _set_lrs(opt, lrs) -> None:
+    for group, lr in zip(opt.param_groups, lrs):
+        group["lr"] = lr
+
+
+def _step_lrs(model, grads) -> list:
+    """Each parameter's lr for the moving steps: REL_STEP of its largest
+    entry over its largest gradient entry."""
+    lrs = []
+    for p, g in zip(model.parameters(), grads):
+        top = float(g.abs().max())
+        lrs.append(REL_STEP * float(p.detach().abs().max()) / top if top > 0 else 0.0)
+    return lrs
+
+
+def _ranks_agree(mesh, model, what: str) -> bool:
+    """Every rank's parameters equal rank 0's, bit for bit: the f64 sum and
+    largest magnitude of each, gathered from every rank."""
+    digest = torch.stack([torch.stack([p.detach().double().sum(), p.detach().double().abs().max()])
+                          for p in model.parameters()])
+    rows = mesh.all_gather_cat(digest[None])
+    return check(bool((rows == rows[:1]).all()),
+                 f"{what}: the ranks' parameters differ after {CHECK_STEPS} steps")
+
+
+def _moves_agree(init, dp, one, what: str) -> float:
+    """The largest L2 gap between a parameter's move on the ranks and on one
+    card, from the same parameters and lrs, relative to one card's move
+    (checked against TRAJ_TOL)."""
+    worst = 0.0
+    for i, (p0, a, b) in enumerate(zip(init, dp, one)):
+        da, db = a.detach().double() - p0.double(), b.detach().double() - p0.double()
+        norm = float(db.norm())
+        if check(norm > 0 and np.isfinite(norm), f"{what}: parameter {i} did not move on one card"):
+            gap = float((da - db).norm()) / norm
+            worst = max(worst, gap if np.isfinite(gap) else float("inf"))
+    check(worst <= TRAJ_TOL, f"{what}: moves differ by {worst:.3e} (L2) > {TRAJ_TOL}")
+    return worst
+
+
+def _trajectory(mesh, model, opt, step, one_card, what: str) -> dict:
+    """The checks' run: ``step()`` (the DP step on this rank's sub-batch →
+    the ranks' mean loss) once at lr 0, whose gradients rank 0 holds
+    against one card's on the concatenated batch (DP_TOL); then CHECK_STEPS
+    steps at the lrs ``_step_lrs`` sets from those gradients, after which
+    every rank's parameters must equal rank 0's and rank 0's moves those of
+    one card taking the same steps at the same lrs (TRAJ_TOL).
+    ``one_card()`` → (model, optimizer, step) of one card, run on rank 0."""
+    from .bench import read_counters, read_sbs_counters, zero_counters
+
+    zero_counters()
+    first = float(step())
+    grads = _grads(model)
+    lrs = _step_lrs(model, grads)
+    _set_lrs(opt, lrs)
+    init = [p.detach().clone() for p in model.parameters()]
+    losses = [first] + [float(step()) for _ in range(CHECK_STEPS)]
+    launches = {**read_counters(), **read_sbs_counters()}
+    rec = {"losses": losses, "launches_per_step": {
+        k: v / (CHECK_STEPS + 1) for k, v in launches.items() if v}}
+    check(all(np.isfinite(losses)), f"{what}: non-finite DP loss {losses}")
+    rec["ranks_equal"] = _ranks_agree(mesh, model, what)
+    if mesh.is_primary:
+        one, opt1, step1 = one_card()
+        rec["one_card_loss"] = float(step1())
+        rec["gradient_gap"] = _grads_agree(grads, _grads(one), what)
+        _set_lrs(opt1, lrs)
+        for _ in range(CHECK_STEPS):
+            step1()
+        rec["trajectory_gap"] = _moves_agree(init, list(model.parameters()),
+                                             list(one.parameters()), what)
+    mesh.barrier()
+    return rec
+
+
+def _fast_check(mesh, z, qat=None, dropout=False, accum=1) -> dict:
+    """DP fast (or QAT) step on the ranks against one card's on the
+    concatenated batch."""
+    from .models import EPSesPlusLinear, EPSesPlusLinearConfig, init_eps_plus_linear
+    from .models.eps_plus_linear import draw_dropout_masks
+    from .parallel import make_parallel_fast_train_step
+    from .train import make_fast_train_step
+
+    dev, w, b = mesh.device, mesh.world_size, z["check_b"]
+    p = 0.9 if dropout else 1.0
+    cfg = EPSesPlusLinearConfig(epses_specs=z["specs"], image_size=28, q0=2, dropout_p=p)
+    params = init_eps_plus_linear(torch.Generator().manual_seed(1), cfg,
+                                  "unit_theoretical_output_std", dev)
+    x, y = _data(z["specs"], w * b)
+    xg, yg = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    model = EPSesPlusLinear.from_reference(params, cfg)
+    masks = None
+    if dropout:  # one draw, on every rank and the one-card step alike
+        masks = draw_dropout_masks(model.plans, p, torch.Generator(device=dev).manual_seed(5))
+    opt = _sgd(model)
+    step = make_parallel_fast_train_step(model, opt, mesh, "epswise", 1e-4, qat=qat,
+                                         grad_accum_steps=accum)
+    xs, ys = xg[:, mesh.rank * b : (mesh.rank + 1) * b], yg[mesh.rank * b : (mesh.rank + 1) * b]
+
+    def one_card():
+        one = EPSesPlusLinear.from_reference(params, cfg)
+        opt1 = _sgd(one)
+        step1 = make_fast_train_step(one, opt1, "epswise", 1e-4, qat=qat)
+        return one, opt1, lambda: step1(xg, yg, masks=None if masks is None else [masks])["loss"]
+
+    return _trajectory(mesh, model, opt,
+                       lambda: step(xs, ys, masks=None if masks is None else [masks] * accum)["loss"],
+                       one_card, f"fast qat={qat} dropout={dropout} accum={accum}")
+
+
+def _xla_check(mesh, z) -> dict:
+    """The reference-layout DP step and the sharded score against one card."""
+    from .models import EPSesPlusLinearConfig, EPSesPlusLinearReference, init_eps_plus_linear
+    from .models.eps_plus_linear import eps_plus_linear_forward
+    from .parallel import make_parallel_score_fn, make_parallel_train_step, shard_split
+    from .train import make_score_fn, make_train_step
+
+    dev, w, b = mesh.device, mesh.world_size, max(z["check_b"] // 4, 2)
+    cfg = EPSesPlusLinearConfig(epses_specs=z["specs"], image_size=28, q0=2)
+    params = init_eps_plus_linear(torch.Generator().manual_seed(2), cfg,
+                                  "unit_theoretical_output_std", dev)
+    x, y = _data(z["specs"], w * b + 3)  # a split the ranks do not divide
+    xg, yg = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    model = EPSesPlusLinearReference(params, cfg).to(dev)
+    opt = _sgd(model)
+    step = make_parallel_train_step(model, opt, mesh, "epses_composition", 1e-4)
+    sl = slice(mesh.rank * b, (mesh.rank + 1) * b)
+
+    def one_card():
+        one = EPSesPlusLinearReference(params, cfg).to(dev)
+        opt1 = _sgd(one)
+        step1 = make_train_step(one, opt1, "epses_composition", 1e-4)
+        return one, opt1, lambda: step1(xg[:, : w * b], yg[: w * b])["loss"]
+
+    rec = _trajectory(mesh, model, opt, lambda: step(xg[:, sl], yg[sl])["loss"], one_card, "xla")
+
+    def fwd(p, xb):
+        return eps_plus_linear_forward(p, xb, cfg)
+
+    # scored at the init, whose logits are of order 1 (the steps' may not be)
+    score = make_parallel_score_fn(cfg, None, mesh, b, forward_fn=fwd)
+    ce, acc = (float(v) for v in score(params, shard_split(mesh, x, y)))
+    check(np.isfinite(ce), f"sharded score at the init: mean CE {ce}")
+    rec["score"] = [ce, acc]
+    if mesh.is_primary:
+        ce1, acc1 = (float(v) for v in make_score_fn(cfg, None, b, forward_fn=fwd)(
+            params, xg, yg))
+        rec["one_card_score"] = [ce1, acc1]
+        check(abs(ce - ce1) <= SCORE_TOL * max(1.0, abs(ce1)) and acc == acc1,
+              f"sharded score {ce, acc} != one card's {ce1, acc1}")
+    mesh.barrier()
+    return rec
+
+
+def _sbs_model(z, dev, trace_edge=False, seed=3):
+    """The legacy runner's recipe (``--cos-sin-squared
+    --make-input-window-std-one --scale-layers-using-batch 100``):
+    Khrulkov-normal cores, the window-std input multiplier and every layer
+    scaled to unit output std on 100 images, so that its logits are O(1)."""
+    from .models.conv_sbs_model import (
+        ConvSBSModel,
+        ConvSBSModelConfig,
+        calc_std_of_coordinates_of_windows,
+        init_conv_sbs_model,
+        scale_layers_using_batch,
+    )
+
+    x = _sbs_data(100, dev)[0]
+    std = float(calc_std_of_coordinates_of_windows(x.cpu(), 3, True, 1.0))
+    cfg = ConvSBSModelConfig(num_sbs_layers=z["sbs_layers"], bond_dim_size=z["sbs_bond"],
+                             trace_edge=trace_edge, cos_sin_squared=True,
+                             input_multiplier=std ** (-1.0 / 9.0))
+    params = init_conv_sbs_model(torch.Generator().manual_seed(seed), cfg)
+    params = tuple(tuple(tuple(c.to(dev) for c in s) for s in layer) for layer in params)
+    return ConvSBSModel(scale_layers_using_batch(params, cfg, x), cfg), cfg
+
+
+def _sbs_data(n: int, dev):
+    from .data import io as data_io
+
+    images, labels = data_io.synthetic_mnist_like(n, seed=1234)
+    return (torch.as_tensor(images, device=dev),
+            torch.as_tensor(labels.astype(np.int64), device=dev), images, labels)
+
+
+def _sbs_check(mesh, z):
+    """The ConvSBS pixel step and the sharded score against one card."""
+    from .parallel import make_parallel_pixel_score_fn, make_parallel_pixel_train_step
+    from .parallel import replicate, shard_pixel_split
+
+    dev, w, b = mesh.device, mesh.world_size, z["check_b"]
+    model, cfg = _sbs_model(z, dev)
+    replicate(mesh, model.parameters())  # rank 0's scaled cores, as the runner does
+    xg, yg, images, labels = _sbs_data(w * b + 3, dev)
+    opt = _sgd(model)
+    step = make_parallel_pixel_train_step(model, opt, mesh)
+    sl = slice(mesh.rank * b, (mesh.rank + 1) * b)
+
+    def one_card():
+        one, _ = _sbs_model(z, dev)
+        opt1 = _sgd(one)
+
+        def step1():
+            opt1.zero_grad(set_to_none=True)
+            loss = torch.nn.functional.cross_entropy(one(xg[: w * b]), yg[: w * b])
+            loss.backward()
+            opt1.step()
+            return loss.detach()
+
+        return one, opt1, step1
+
+    rec = _trajectory(mesh, model, opt, lambda: step(xg[sl], yg[sl]), one_card, "conv_sbs")
+    score = make_parallel_pixel_score_fn(lambda _, xb: model(xb), mesh, b)
+    ce, acc = (float(v) for v in score(None, shard_pixel_split(mesh, images, labels)))
+    check(np.isfinite(ce), f"sharded ConvSBS score: mean CE {ce}")
+    rec["score"] = [ce, acc]
+    if mesh.is_primary:
+        with torch.no_grad():
+            logits = model(xg)
+            ce1 = float(torch.nn.functional.cross_entropy(logits, yg))
+            acc1 = float((logits.argmax(1) == yg).float().mean())
+        rec["one_card_score"] = [ce1, acc1]
+        check(abs(ce - ce1) <= SCORE_TOL * max(1.0, abs(ce1)) and acc == acc1,
+              f"sharded ConvSBS score {ce, acc} != one card's {ce1, acc1}")
+    mesh.barrier()
+    cores = [[[c.detach().cpu() for c in s] for s in layer] for layer in model.params()]
+    return rec, cores, cfg
+
+
+def _timed(step, steps: int, warmup: int, dev) -> tuple:
+    """(per-step ms, window s) of ``steps`` calls after ``warmup``: CUDA
+    events around each step and the window (host clock on the CPU)."""
+    for _ in range(warmup):
+        step()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+    per, t_start = [], time.perf_counter()
+    for _ in range(steps):
+        if cuda:
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            step()
+            b.record()
+            per.append((a, b))
+        else:
+            t0 = time.perf_counter()
+            step()
+            per.append(1e3 * (time.perf_counter() - t0))
+    if cuda:
+        torch.cuda.synchronize(dev)
+        per = [a.elapsed_time(b) for a, b in per]
+    return per, time.perf_counter() - t_start
+
+
+def _profile(step, steps: int, dev, out):
+    """torch.profiler over ``steps`` calls on this rank: (device ms per step
+    of the NCCL kernels, of all kernels, wall ms per step under the
+    profiler, whose host work slows the steps)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # the profiler drops a window's device events now and then
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize(dev)
+        wall = 1e3 * (time.perf_counter() - t0) / steps
+        rows = [(e.key, e.self_device_time_total / 1e3 / steps) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)]
+        if rows:
+            break
+    check(bool(rows), "torch.profiler showed no device time")
+    if out:
+        with open(out, "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
+    nccl = sum(ms for k, ms in rows if "nccl" in k.lower())
+    return nccl, sum(ms for _, ms in rows), wall
+
+
+def _profiled(step, dev, out, step_ms: float) -> dict:
+    """The profile's rows of a timed step: the NCCL kernels' and all
+    kernels' device ms per step, and the device's idle share of the step's
+    p50 timed without the profiler."""
+    nccl, busy, wall = _profile(step, 10, dev, out)
+    return {"nccl_ms_per_step": nccl, "device_busy_ms_per_step": busy,
+            "wall_ms_per_step_profiled": wall, "device_idle_share": 1 - busy / step_ms}
+
+
+def _allreduce_ms(mesh, numel: int, reps: int = 20) -> float:
+    """p50 of an all-reduce of ``numel`` f32 values alone (CUDA events on
+    this rank; host clock on the CPU)."""
+    buf = torch.ones(numel, device=mesh.device)
+    per, _ = _timed(lambda: mesh.all_reduce_(buf), reps, 3, mesh.device)
+    return statistics.median(per)
+
+
+def _time_eps(mesh, z, name, specs, b, qat, opts):
+    """Times the DP step at ``b`` images a rank and one card at ``b`` (and,
+    for the deep model, at the global batch)."""
+    from .models import EPSesPlusLinear, EPSesPlusLinearConfig, init_eps_plus_linear
+    from .parallel import make_parallel_fast_train_step
+    from .train import make_fast_train_step, make_optimizer
+
+    dev, w = mesh.device, mesh.world_size
+    cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=28, q0=2)
+    params = init_eps_plus_linear(torch.Generator().manual_seed(0), cfg,
+                                  "unit_theoretical_output_std", dev)
+    x, y = _data(specs, b)
+    xs, ys = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    reg = ("epses_composition", 0.1) if specs == DEEP else ("epswise", 1e-6)
+    lr = 1e-3 if specs == DEEP else 3e-3
+    model = EPSesPlusLinear.from_reference(params, cfg)
+    opt = make_optimizer("adam", model.parameters(), lr)
+    step = make_parallel_fast_train_step(model, opt, mesh, *reg, qat=qat)
+    steps = z["steps"] if specs != DEEP else 5
+    per, window = _timed(lambda: step(xs, ys), steps, z["warmup"], dev)
+    grads = sum(p.numel() for p in model.parameters())
+    rec = {"path": name, "world_size": w, "per_card_batch": b, "global_batch": w * b,
+           "qat": qat, "step_ms_p50": statistics.median(per),
+           "images_per_s": w * b * steps / window, "gradient_values": grads,
+           "allreduce_ms_isolated_p50": _allreduce_ms(mesh, grads + 1)}
+    if opts.profile and dev.type == "cuda":
+        out = (os.path.join(opts.profile, f"profile_{name}_rank{mesh.rank}.txt")
+               if mesh.is_primary else None)
+        rec.update(_profiled(lambda: step(xs, ys), dev, out, rec["step_ms_p50"]))
+    del model, opt, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # one card: rank 0 alone, the others waiting
+    one_sizes = [b] + ([w * b] if specs == DEEP and w > 1 else [])
+    if mesh.is_primary:
+        for bb in one_sizes:
+            x1, y1 = _data(specs, bb)
+            x1, y1 = torch.as_tensor(x1, device=dev), torch.as_tensor(y1, device=dev)
+            one = EPSesPlusLinear.from_reference(params, cfg)
+            opt1 = make_optimizer("adam", one.parameters(), lr)
+            step1 = make_fast_train_step(one, opt1, *reg, qat=qat)
+            per1, window1 = _timed(lambda: step1(x1, y1), min(steps, 3 if bb > 1024 else steps),
+                                   min(z["warmup"], 2), dev)
+            rec[f"one_card_bs{bb}_step_ms_p50"] = statistics.median(per1)
+            rec[f"one_card_bs{bb}_images_per_s"] = bb * len(per1) / window1
+            del one, opt1, step1
+        rec["scaling_efficiency"] = rec["images_per_s"] / (w * rec[f"one_card_bs{b}_images_per_s"])
+    mesh.barrier()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _time_sbs(mesh, z, trace_edge, opts):
+    """The ConvSBS DP step at a global batch of ``sbs_global`` against one
+    card at that batch."""
+    from .parallel import make_parallel_pixel_train_step, replicate
+
+    dev, w = mesh.device, mesh.world_size
+    b = z["sbs_global"] // w
+    model, _ = _sbs_model(z, dev, trace_edge)
+    replicate(mesh, model.parameters())
+    xg, yg, _, _ = _sbs_data(z["sbs_global"], dev)
+    sl = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    step = make_parallel_pixel_train_step(model, opt, mesh)
+    per, window = _timed(lambda: step(xg[sl], yg[sl]), z["steps"], z["warmup"], dev)
+    name = f"conv_sbs_step_{'ring' if trace_edge else 'open'}"
+    rec = {"path": name, "world_size": w, "per_card_batch": b, "global_batch": w * b,
+           "step_ms_p50": statistics.median(per), "images_per_s": w * b * z["steps"] / window}
+    if opts.profile and dev.type == "cuda":
+        out = (os.path.join(opts.profile, f"profile_{name}.txt") if mesh.is_primary else None)
+        rec.update(_profiled(lambda: step(xg[sl], yg[sl]), dev, out, rec["step_ms_p50"]))
+    if mesh.is_primary:
+        one, _ = _sbs_model(z, dev, trace_edge)
+        opt1 = torch.optim.SGD(one.parameters(), lr=1e-3)
+
+        def step1():
+            opt1.zero_grad(set_to_none=True)
+            torch.nn.functional.cross_entropy(one(xg), yg).backward()
+            opt1.step()
+
+        per1, window1 = _timed(step1, z["steps"], z["warmup"], dev)
+        rec["one_card_step_ms_p50"] = statistics.median(per1)
+        rec["one_card_images_per_s"] = z["sbs_global"] * z["steps"] / window1
+        rec["speedup_over_one_card"] = rec["images_per_s"] / rec["one_card_images_per_s"]
+    mesh.barrier()
+    return rec
+
+
+def _rank_paths(mesh, opts) -> dict:
+    """Every rank's share of the DP paths; rank 0 prints the records."""
+    z = sizes(opts.small)
+    paths = []
+    rec = _xla_check(mesh, z)
+    emit(mesh, {"path": "dp_xla", **rec})
+    paths.append("dp_xla")
+    rec = _fast_check(mesh, z, dropout=True, accum=2)
+    emit(mesh, {"path": "dp_fast_cmt(+dropout,+grad_accum=2)", **rec})
+    paths.append("dp_fast_cmt(+dropout,+grad_accum=2)")
+    rec = _fast_check(mesh, z, qat="int8")
+    emit(mesh, {"path": "dp_qat_int8_train", **rec})
+    paths.append("dp_qat_int8_train")
+    rec, cores, sbs_cfg = _sbs_check(mesh, z)
+    emit(mesh, {"path": "conv_sbs_dp_train(+sharded_score)", **rec})
+    paths.append("conv_sbs_dp_train(+sharded_score)")
+    times = [_time_eps(mesh, z, "flagship_f32_step", z["specs"], z["time_b"], None, opts),
+             _time_eps(mesh, z, "flagship_qat_step", z["specs"], z["time_b"], "int8", opts)]
+    if z["deep"] is not None:
+        times.append(_time_eps(mesh, z, "deep_step", z["deep"], z["deep_b"], None, opts))
+    times += [_time_sbs(mesh, z, False, opts), _time_sbs(mesh, z, True, opts)]
+    for t in times:
+        emit(mesh, {"metric": "dp_step_time", **t})
+    failed = [f"rank {r}: {what}" for r, whats in enumerate(mesh.all_gather_object(_FAILED))
+              for what in whats]
+    return {"paths": paths, "times": times, "sbs_cores": cores, "sbs_cfg": sbs_cfg,
+            "failed": failed}
+
+
+# ---------------------------------------------------------------------------
+# in this process: a replica on each card
+
+
+def _replicas_bit_equal(replicas, devices, x, axis) -> bool:
+    """Every replica's output on its chunk equals replica 0's on the same
+    chunk, bit for bit (the same kernels on the same operands)."""
+    chunks = torch.tensor_split(x, len(replicas), dim=axis)
+    with torch.inference_mode():
+        for fn, dev, c in zip(replicas, devices, chunks):
+            if not torch.equal(fn(c.to(dev)).cpu(), replicas[0](c.to(devices[0])).cpu()):
+                return False
+    return True
+
+
+def _predict_paths(n: int, z, device: str, tmp: str) -> list:
+    from .bench import read_counters, zero_counters
+    from .cli import export, predict, serve
+    from .models import EPSesPlusLinearConfig, init_eps_plus_linear
+    from .parallel.replicas import ShardedForward
+    from .train import save_params_npz
+
+    specs, bs = z["specs"], z["predict_b"]
+    cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=28, q0=2)
+    ckpt = os.path.join(tmp, "eps.npz")
+    save_params_npz(init_eps_plus_linear(torch.Generator().manual_seed(0), cfg), ckpt)
+    common = dict(checkpoint=ckpt, ds_type="fashionmnist", ds_path="synthetic",
+                  epses_specs=specs, batch_size=bs, latency_bench=True, device=device,
+                  synthetic_sizes=(64, 16, 2 * bs))
+    out = []
+    for quantize, name in (("none", "dp_sharded_predict"), ("int8", "dp_sharded_predict_int8")):
+        zero_counters()
+        many = predict.run(**common, quantize=quantize, mesh_devices=n)
+        launches = {k: v for k, v in read_counters().items() if v}
+        one = predict.run(**common, quantize=quantize)
+        devices = [torch.device(device, i) if device == "cuda" else torch.device("cpu")
+                   for i in range(n)]
+        equal = _replicas_bit_equal(many.model, devices, many.x[:, :bs], 1)
+        agree = float((many.preds == one.preds).mean())
+        check(equal, f"{name}: a replica's logits differ from replica 0's")
+        check(agree >= 0.999, f"{name}: predictions agree with one card on {agree}")
+        lat = {s["batch_size"]: s for s in many.latency}
+        lat1 = {s["batch_size"]: s for s in one.latency}
+        rec = {"path": name, "devices": n, "replicas_bit_equal": equal,
+               "agreement_with_one_card": agree, "launches": launches,
+               "p50_ms": {b_: lat[b_]["p50_ms"] for b_ in lat},
+               "one_card_p50_ms": {b_: lat1[b_]["p50_ms"] for b_ in lat1},
+               "pipelined_img_per_s": lat[bs]["pipelined_throughput_img_per_s"],
+               "one_card_pipelined_img_per_s": lat1[bs]["pipelined_throughput_img_per_s"]}
+        print(json.dumps(rec), flush=True)
+        out.append(name)
+        if quantize == "none":
+            f32 = many
+    # the sharded artifact of the same model, served
+    art = os.path.join(tmp, "eps_sharded.zip")
+    export.run(checkpoint=ckpt, epses_specs=specs, batch_sizes=(n, bs), mesh_devices=n,
+               device=device, out=art)
+    meta, fns = export.load_artifact(art)
+    x = f32.x[:, :bs]
+    with torch.inference_mode():
+        eager = ShardedForward(f32.model, fns[bs].devices, 1)(x)
+        got = fns[bs](x)
+    exact = torch.equal(got, eager)
+    check(meta["mesh_devices"] == n and (exact or (device == "cpu" and torch.allclose(
+        got, eager, rtol=0, atol=1e-6 * float(eager.abs().max())))),
+        "dp_sharded_export_serving: the artifact's logits differ from the eager replicas'")
+    model = serve.ArtifactModel(art)
+    xs = f32.x[:, : min(300, f32.x.shape[1])].cpu().numpy()
+    served = model.predict(xs)
+    with torch.inference_mode():
+        direct = torch.cat([ShardedForward(f32.model, fns[bs].devices, 1)(
+            torch.as_tensor(xs[:, i : i + bs], device=f32.x.device)) for i in range(0, xs.shape[1], bs)])
+    check(np.allclose(served, direct.cpu().numpy(), rtol=0, atol=1e-6 * float(direct.abs().max())),
+          "dp_sharded_export_serving: served logits differ from direct calls")
+    lat = predict.latency_stats(fns[bs], f32.x, bs, devices=fns[bs].devices)
+    print(json.dumps({"path": "dp_sharded_export_serving", "devices": n,
+                      "bit_equal_to_eager": exact, "served_images": int(xs.shape[1]),
+                      "p50_ms": lat["p50_ms"], "pipelined_img_per_s":
+                      lat["pipelined_throughput_img_per_s"]}), flush=True)
+    out.append("dp_sharded_export_serving")
+    return out
+
+
+def _sbs_artifact_path(n: int, cores, cfg, device: str, tmp: str) -> str:
+    from .cli import export, serve
+    from .data import io as data_io
+    from .models.conv_sbs_model import ConvSBSModel
+    from .parallel.replicas import ShardedForward, replica_devices
+
+    devices = replica_devices(n, device)
+    bs = 100 * n
+    art = os.path.join(tmp, "sbs_sharded.zip")
+    serialized, _ = export.export_sharded_forward(cores, cfg, batch_sizes=(n, bs), mesh_devices=n,
+                                                  model_family="conv_sbs", image_size=28)
+    export.write_artifact(art, serialized, export.build_meta(
+        model_family="conv_sbs", image_size=28, batch_sizes=(n, bs), backend="pallas",
+        mesh_devices=n, platforms=[device], program_device="cpu",
+        num_sbs_layers=cfg.num_sbs_layers,
+        bond_dim_size=cfg.bond_dim_size, trace_edge=cfg.trace_edge,
+        cos_sin_squared=cfg.cos_sin_squared, input_multiplier=cfg.input_multiplier,
+        num_labels=cfg.num_labels))
+    _, fns = export.load_artifact(art)
+    images, _ = data_io.synthetic_mnist_like(bs, seed=7)
+    x = torch.as_tensor(images)
+    eager = [ConvSBSModel(cores, cfg, device=d) for d in devices]
+    with torch.inference_mode():
+        got = fns[bs](x)
+        want = ShardedForward(eager, devices, 0)(x)
+    check(tuple(got.shape) == (bs, cfg.num_labels) and bool(torch.isfinite(got).all()),
+          "conv_sbs_artifact_serving: bad logits")
+    # on a card the operator launches the eager forward's kernel: the same
+    # bits; on the CPU the traced program's plain ops may sum in another
+    # order than the eager ones (4.7e-10 of a 0.02 logit read at batch 100)
+    exact = torch.equal(got, want)
+    check(exact or (device == "cpu" and torch.allclose(
+        got, want, rtol=0, atol=1e-6 * float(want.abs().max()))),
+        "conv_sbs_artifact_serving: logits differ from the eager replicas")
+    served = serve.ArtifactModel(art).predict(images[:150])
+    check(np.array_equal(served, got[:150].numpy()) or np.allclose(
+        served, got[:150].numpy(), rtol=0, atol=1e-6 * float(got.abs().max())),
+        "conv_sbs_artifact_serving: served logits differ")
+    print(json.dumps({"path": "conv_sbs_artifact_serving", "devices": n, "global_batch": bs,
+                      "bit_equal_to_eager": exact}), flush=True)
+    return "conv_sbs_artifact_serving"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--devices", type=int, required=True, help="ranks, one per card")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda (NCCL, the kernels) or cpu (gloo, their plain versions)")
+    ap.add_argument("--small", action="store_true", help="small shapes, a CPU rehearsal")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="profile the timed steps on rank 0 (NCCL and device time); tables to DIR")
+    opts = ap.parse_args(argv)
+    from .kernels import build
+    from .parallel.mesh import Host, Job, spawn
+
+    n = opts.devices
+    if n < 2:  # one card's paths: chip_smoke.py phase 5b
+        ap.error("--devices: 2 or more ranks, each held against one card")
+    if opts.device == "cuda":
+        if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+            have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            print(f"multichip: {n} ranks need {n} CUDA cards; {have} visible", file=sys.stderr)
+            return 1
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip()
+        print(smi, flush=True)
+        t0 = time.perf_counter()
+        build.build_all()
+        print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    if opts.profile:
+        os.makedirs(opts.profile, exist_ok=True)
+    t0 = time.perf_counter()
+    threads = max(1, torch.get_num_threads() // n)
+    # every collective here ends in seconds: a rank left waiting fails soon
+    job = Job(n, n, Host(), opts.device, threads, timeout=datetime.timedelta(minutes=5))
+    out = spawn(_rank_paths, job, opts)
+    print(f"ranks' paths: {time.perf_counter() - t0:.1f} s", flush=True)
+    paths = list(out["paths"])
+    with tempfile.TemporaryDirectory() as tmp:
+        paths += _predict_paths(n, sizes(opts.small), opts.device, tmp)
+        paths.append(_sbs_artifact_path(n, out["sbs_cores"], out["sbs_cfg"], opts.device, tmp))
+    failed = out["failed"] + _FAILED
+    if failed:
+        print(f"multichip: {len(failed)} check(s) failed:\n  " + "\n  ".join(failed),
+              file=sys.stderr, flush=True)
+        return 1
+    print(json.dumps({"ok": True, "paths": paths}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,367 @@
+"""The data mesh and the processes behind it (port of
+``dctn_tpu/parallel/mesh.py``): one rank per card, joined in one
+``torch.distributed`` process group.
+
+JAX runs one controller over every device of a host and spans hosts with
+``jax.distributed``. Here each rank is a process of its own that holds one
+card (``nccl``) or, with ``--device cpu``, one CPU replica (``gloo``), and
+the CLIs start the ranks themselves:
+
+- ``--mesh-devices N`` on one host: ``spawn`` starts N ranks
+  (``multiprocessing``'s ``spawn`` method); rank r sets ``cuda:r`` as its
+  current device before it makes a tensor, and the ranks meet through a
+  ``FileStore`` in a temporary directory (no TCP port to collide on).
+- ``--distributed HOST:PORT,NPROC,PID`` (``initialize_distributed``): each
+  of the NPROC host processes starts N / NPROC local ranks, whose global
+  rank is PID·(N / NPROC) + local rank, and they meet at ``tcp://HOST:PORT``
+  (global rank 0 serves the store there). ``--mesh-devices`` counts ranks
+  across the whole job, as in JAX.
+- ``--distributed auto``: torchrun started the ranks; each reads its place
+  from torchrun's environment and meets the others through ``env://``.
+
+A job asking for more ranks on a host than it has visible cards is refused
+before anything starts. Nothing falls back to fewer cards, to ``gloo`` on a
+card or to the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import pickle
+import shutil
+import signal
+import sys
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Optional
+
+import torch
+import torch.distributed as dist
+
+# how long a rank waits for the others at a collective, and the spawner for
+# the other ranks after one has failed, before giving up on them
+COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=30)
+KILL_GRACE_S = 5.0
+
+_RESULT = "result.pkl"
+_ERROR = "error-rank{}.txt"
+
+
+@dataclasses.dataclass(frozen=True)
+class Host:
+    """Where this host process stands in a job: ``nodes`` host processes,
+    this one ``node``; the ranks meet at ``init_method``. ``torchrun``:
+    the process is itself a rank that torchrun started."""
+
+    init_method: Optional[str] = None
+    nodes: int = 1
+    node: int = 0
+    torchrun: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Job:
+    """The ranks a host process runs: ``world_size`` in all, ``local_ranks``
+    of them here, on ``device_type`` cards (or CPU replicas), each with
+    ``threads`` CPU threads; a rank waits ``timeout`` at a collective before
+    its group fails."""
+
+    world_size: int
+    local_ranks: int
+    host: Host
+    device_type: str
+    threads: int = 1
+    timeout: datetime.timedelta = COLLECTIVE_TIMEOUT
+
+    @property
+    def backend(self) -> str:
+        return "nccl" if self.device_type == "cuda" else "gloo"
+
+
+@dataclasses.dataclass
+class DataMesh:
+    """One rank's view of the 1-D ``data`` mesh: ``world_size`` ranks, this
+    one ``rank`` (``local_rank`` on its host, ``node`` the host process),
+    holding ``device``. The collectives run over the default process group.
+    ``writes_logs``: local rank 0 of each host keeps the run's logs;
+    ``is_primary``: global rank 0 also writes checkpoints and artifacts."""
+
+    world_size: int
+    rank: int
+    local_rank: int
+    node: int
+    device: torch.device
+    backend: str
+
+    @property
+    def is_primary(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def writes_logs(self) -> bool:
+        return self.local_rank == 0
+
+    def all_reduce_(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        dist.all_reduce(t, op=op)
+        return t
+
+    def all_gather_cat(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (equal shapes) concatenated on dim 0 in rank
+        order: the device-major layout of JAX's ``P("data")`` outputs."""
+        parts = [torch.empty_like(t) for _ in range(self.world_size)]
+        dist.all_gather(parts, t.contiguous())
+        return torch.cat(parts)
+
+    def any(self, flag: bool) -> bool:
+        """Whether ``flag`` is true on any rank (every rank must call)."""
+        t = torch.tensor([1.0 if flag else 0.0], device=self.device)
+        return bool(self.all_reduce_(t, dist.ReduceOp.MAX).item())
+
+    def all_gather_object(self, obj: Any) -> list:
+        """Every rank's ``obj``, in rank order."""
+        out = [None] * self.world_size
+        dist.all_gather_object(out, obj)
+        return out
+
+    def broadcast_object(self, obj: Any) -> Any:
+        """Rank 0's ``obj`` on every rank."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def barrier(self) -> None:
+        dist.barrier()
+
+
+def make_mesh(n_devices: Optional[int] = None) -> DataMesh:
+    """The calling rank's mesh over the process group it joined; with
+    ``n_devices``, checked to span that many ranks."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh runs inside a rank: start the ranks with spawn()")
+    world = dist.get_world_size()
+    if n_devices is not None and n_devices != world:
+        raise ValueError(f"requested a {n_devices}-rank mesh inside a {world}-rank job")
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    backend = dist.get_backend()
+    device = (torch.device("cuda", torch.cuda.current_device()) if backend == "nccl"
+              else torch.device("cpu"))
+    return DataMesh(world, dist.get_rank(), local_rank, int(os.environ.get("GROUP_RANK", "0")),
+                    device, backend)
+
+
+def data_axis_size(mesh: DataMesh) -> int:
+    return mesh.world_size
+
+
+def parse_distributed(spec) -> Host:
+    """``--distributed``: ``auto`` or ``HOST:PORT,NPROC,PID``."""
+    spec = str(spec).strip()
+    if spec.lower() == "auto":
+        return initialize_distributed()
+    try:
+        addr, nproc, pid = (s.strip() for s in spec.rsplit(",", 2))
+        return initialize_distributed(addr, int(nproc), int(pid))
+    except ValueError:
+        raise ValueError("--distributed must be 'auto' or 'HOST:PORT,NPROC,PID'") from None
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None) -> Host:
+    """This host process's place in a multi-host job. With no arguments,
+    torchrun's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, …)
+    describes a process that is itself a rank."""
+    if coordinator_address is None:
+        missing = [k for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+                   if k not in os.environ]
+        if missing:
+            raise ValueError(f"--distributed auto reads torchrun's environment; {missing} unset")
+        return Host("env://", int(os.environ.get("GROUP_WORLD_SIZE", "1")),
+                    int(os.environ.get("GROUP_RANK", "0")), torchrun=True)
+    if not (num_processes and num_processes >= 1 and 0 <= process_id < num_processes):
+        raise ValueError(f"--distributed: process id {process_id} outside 0..{num_processes}")
+    return Host(f"tcp://{coordinator_address}", num_processes, process_id)
+
+
+def plan_job(mesh_devices: int, distributed, device_type: str) -> Optional[Job]:
+    """The ranks ``--mesh-devices`` and ``--distributed`` ask of this host
+    process, or None for the single-device path (one rank, no group). Too
+    many ranks for the visible cards is refused here, before any rank
+    starts."""
+    host = parse_distributed(distributed) if distributed else Host()
+    if host.torchrun:
+        world = int(os.environ["WORLD_SIZE"])
+        if mesh_devices not in (1, world):
+            raise ValueError(f"--mesh-devices {mesh_devices}: torchrun started {world} ranks")
+        local = 1
+    else:
+        world = mesh_devices
+        if world <= 1 and host.nodes == 1:
+            return None
+        if world % host.nodes:
+            raise ValueError(
+                f"--mesh-devices {world} counts ranks across the job: it must be a multiple of "
+                f"the {host.nodes} host processes of --distributed"
+            )
+        local = world // host.nodes
+    if device_type == "cuda":
+        visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        need = int(os.environ["LOCAL_RANK"]) + 1 if host.torchrun else local
+        if need > visible:
+            raise ValueError(
+                f"{local} rank(s) on this host need {need} CUDA card(s); {visible} visible"
+            )
+    elif device_type != "cpu":
+        raise ValueError(f"ranks run on cuda or cpu, not {device_type}")
+    threads = max(1, torch.get_num_threads() // local) if device_type == "cpu" else 1
+    return Job(world, local, host, device_type, threads)
+
+
+def _init_rank(job: Job, local_rank: int, store_dir: Optional[str]) -> DataMesh:
+    """Joins this rank's process group and returns its mesh."""
+    host = job.host
+    if host.torchrun:
+        rank, local_rank = int(os.environ["RANK"]), int(os.environ["LOCAL_RANK"])
+        init_method = "env://"
+    else:
+        rank = host.node * job.local_ranks + local_rank
+        init_method = host.init_method or f"file://{os.path.join(store_dir, 'store')}"
+        # make_mesh reads these, as under torchrun
+        os.environ["LOCAL_RANK"] = str(local_rank)
+        os.environ["GROUP_RANK"] = str(host.node)
+    if job.device_type == "cuda":
+        torch.cuda.set_device(local_rank)  # before this rank makes any tensor
+        device = torch.device("cuda", local_rank)
+    else:
+        torch.set_num_threads(job.threads)
+        device = torch.device("cpu")
+    dist.init_process_group(job.backend, init_method=init_method, world_size=job.world_size,
+                            rank=rank, timeout=job.timeout)
+    return DataMesh(job.world_size, rank, local_rank, host.node, device, job.backend)
+
+
+def _rank_main(local_rank: int, fn: Callable, args: tuple, job: Job, run_dir: str) -> None:
+    """A rank's body: join the group, run ``fn(mesh, *args)``, and on local
+    rank 0 leave its result for the spawner. A failure leaves its traceback
+    for the spawner (and on stderr) and ends the process at once with code
+    1: destroying the group would wait for the other ranks, which may be
+    blocked in a collective this rank will never join (the spawner kills
+    them)."""
+    try:
+        mesh = _init_rank(job, local_rank, run_dir)
+        if job.device_type == "cuda":
+            _build_kernels_once(mesh)
+        result = fn(mesh, *args)
+        if mesh.local_rank == 0:
+            with open(os.path.join(run_dir, _RESULT + ".tmp"), "wb") as f:
+                pickle.dump(result, f)
+            os.replace(os.path.join(run_dir, _RESULT + ".tmp"), os.path.join(run_dir, _RESULT))
+    except BaseException:
+        text = traceback.format_exc()
+        with open(os.path.join(run_dir, _ERROR.format(local_rank)), "w") as f:
+            f.write(text)
+        sys.stderr.write(text)
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def _spawned_rank(parent_pid: int, *args) -> None:
+    """A rank that ``spawn`` started: on Linux it gets SIGKILL when the
+    spawner ends (``PR_SET_PDEATHSIG``), so that no rank outlives a killed
+    spawner and trains on alone; then ``_rank_main``."""
+    if sys.platform.startswith("linux"):
+        import ctypes
+
+        ctypes.CDLL(None).prctl(1, signal.SIGKILL)  # 1: PR_SET_PDEATHSIG
+        if os.getppid() != parent_pid:  # the spawner ended before the prctl
+            os._exit(1)
+    _rank_main(*args)
+
+
+def _build_kernels_once(mesh: DataMesh) -> None:
+    """Local rank 0 builds every kernel source (one nvcc each, at once)
+    while the host's other ranks wait, so that N cold ranks do not start
+    7·N compilers."""
+    from ..kernels import build
+
+    if mesh.local_rank == 0:
+        build.build_all()
+    mesh.barrier()
+
+
+def spawn(fn: Callable, job: Job, *args) -> Any:
+    """Runs ``fn(mesh, *args)`` on each of this host's ranks of ``job``
+    (``fn`` importable, ``args`` picklable) and returns local rank 0's
+    result. SIGTERM to this process is passed on to every rank (which
+    decide together when to stop: ``train.preemption``). If a rank fails,
+    the others are killed and its traceback is raised here. Under torchrun
+    the process is itself the rank: ``fn`` runs here."""
+    run_dir = tempfile.mkdtemp(prefix="dctn_ranks_")
+    try:
+        if job.host.torchrun:
+            _rank_main(0, fn, args, job, run_dir)
+            with open(os.path.join(run_dir, _RESULT), "rb") as f:
+                return pickle.load(f)
+        return _spawn_local(fn, args, job, run_dir)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def _spawn_local(fn: Callable, args: tuple, job: Job, run_dir: str) -> Any:
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_spawned_rank, args=(os.getpid(), r, fn, args, job, run_dir),
+                         daemon=False)
+             for r in range(job.local_ranks)]
+
+    def forward(signum, frame):
+        for p in procs:
+            if p.pid is not None and p.is_alive():
+                os.kill(p.pid, signum)
+
+    try:
+        prev = signal.signal(signal.SIGTERM, forward)
+    except ValueError:  # not the main thread: no signal to pass on
+        prev = None
+    try:
+        for p in procs:
+            p.start()
+        failed = None
+        while failed is None and any(p.is_alive() for p in procs):
+            for r, p in enumerate(procs):
+                if p.exitcode not in (None, 0) or os.path.exists(
+                        os.path.join(run_dir, _ERROR.format(r))):
+                    failed = r
+                    break
+            time.sleep(0.05)
+        for r, p in enumerate(procs):
+            if p.exitcode not in (None, 0) and failed is None:
+                failed = r
+        if failed is not None:
+            deadline = time.monotonic() + KILL_GRACE_S
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            path = os.path.join(run_dir, _ERROR.format(failed))
+            detail = open(path).read() if os.path.exists(path) else (
+                f"exit code {procs[failed].exitcode}")
+            raise RuntimeError(f"rank {job.host.node * job.local_ranks + failed} of "
+                               f"{job.world_size} failed:\n{detail}")
+        for p in procs:
+            p.join()
+    finally:
+        if prev is not None:
+            signal.signal(signal.SIGTERM, prev)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    with open(os.path.join(run_dir, _RESULT), "rb") as f:
+        return pickle.load(f)

@@ -301,6 +301,33 @@ def load_train_state(filename: str, model, optimizer, cfg, plans, generator=None
     return int(arrays["step"])
 
 
+def index_stream_arrays(orders, cursors, world_size: int) -> Dict[str, Any]:
+    """A data-parallel train state's extra leaves (rank 0 writes them beside
+    ``train_state_arrays``'): ``mesh_devices``, the rank count it was saved
+    on, and the position of the ranks' index streams
+    (``parallel.LocalIndexStream``) at its step: each shard's epoch order
+    ``index_stream/orders/{d}`` and ``index_stream/cursors``. A resume on
+    the same rank count fast-forwards its streams to the step and checks
+    them against these; the JAX package's loader reads none of them."""
+    out: Dict[str, Any] = {f"index_stream/orders/{d}": np.asarray(o, np.int64)
+                           for d, o in enumerate(orders)}
+    out["index_stream/cursors"] = np.asarray(cursors, np.int64)
+    out["mesh_devices"] = np.int32(world_size)
+    return out
+
+
+def saved_index_stream(filename: str):
+    """(rank count, orders, cursors) of a train state: 1 and None, None
+    for a single-device state; the rank count and None, None for a state
+    the JAX runner wrote, which records neither."""
+    with np.load(filename) as data:
+        world = int(data["mesh_devices"]) if "mesh_devices" in data.files else 1
+        if "index_stream/cursors" not in data.files:
+            return world, None, None
+        cursors = data["index_stream/cursors"].tolist()
+        return world, [data[f"index_stream/orders/{d}"] for d in range(len(cursors))], cursors
+
+
 # ---------------------------------------------------------------------------
 # the legacy ConvSBS runner's train state
 

@@ -5,7 +5,8 @@
 The split stays on its device and is scored in fixed-size batches of
 clamped sample ids with a validity mask, as the JAX package scans it: every
 forward has the same batch size, and only two scalars leave the device,
-when the caller reads them.
+when the caller reads them. A data-parallel run scores its sharded splits
+with ``score_sharded``: each rank its shard, then one all-reduce.
 """
 
 from __future__ import annotations
@@ -68,3 +69,23 @@ def make_score_fn(
         return ce_sum / n, correct.to(torch.float32) / n
 
     return score
+
+
+def score_sharded(forward_fn, split, batch_size: int):
+    """(mean CE, accuracy) over a ``parallel.ShardedSplit``, the same 0-d
+    tensors on every rank (the per-device scan and psum of
+    ``make_parallel_score_fn``, data_parallel.py:469-518): each rank scans
+    its shard in padded batches of ``batch_size``, samples past
+    ``n_valid`` masked by their global position, and one all-reduce sums
+    (CE sum, correct) over the ranks, in float64. ``forward_fn(xb) →
+    logits``; every rank must call."""
+    mesh = split.mesh
+    base = mesh.rank * split.n_local
+    ids, in_range = padded_batch_ids(split.n_local, batch_size, split.x.device)
+    valid = in_range & (base + ids < split.n_valid)
+    with torch.no_grad():
+        ce_sum, correct = masked_ce_acc_scan(forward_fn, split.x, split.y, ids, valid,
+                                             sample_axis=split.sample_axis)
+    sums = mesh.all_reduce_(torch.stack([ce_sum.to(torch.float64), correct.to(torch.float64)]))
+    n = split.n_valid
+    return (sums[0] / n).to(torch.float32), (sums[1] / n).to(torch.float32)

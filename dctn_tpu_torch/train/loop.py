@@ -12,6 +12,14 @@ device across steps (one ``isfinite`` and one ``or`` per step, no transfer).
 Hooks on the eval schedule read the flag and the metrics; between them the
 host only launches work, so the card is never held up waiting for it.
 Checkpoints are written by ``AsyncWriter``'s threads.
+
+Under data parallelism every rank runs this loop in lock step: the index
+stream yields the (W, b) array of every rank's local rows, ``gather_fn``
+takes the rank's own, and the step holds the one all-reduce. The hooks that
+decide (the evals, whose sums are all-reduced, the stoppers on the ranks'
+mean loss, the preemption agreement) run on every rank, so that all ranks
+stop at the same iteration; the hooks that only write run on the ranks that
+write (``cli/runner.py``).
 """
 
 from __future__ import annotations
@@ -230,6 +238,7 @@ def make_stopper_on_nan_loss(
     replay_step: Optional[Callable] = None,
     replay_gather: Optional[Callable] = None,
     interactive: bool = False,
+    write_files: bool = True,
 ) -> "NanLossStopper":
     """The NaN-loss stopper (training.py:213-237). It reads the loop's NaN
     flag when it runs (put it on the eval schedule, so the flag costs no
@@ -248,8 +257,14 @@ def make_stopper_on_nan_loss(
     ``train`` so that the first anchor covers the steps before the first
     observation. Without replay, or when the replay does not reproduce the
     NaN, it dumps the observation step's batch and its updated parameters,
-    and its README says so."""
-    return NanLossStopper(dir, forward_fn, params_view, replay_step, replay_gather, interactive)
+    and its README says so.
+
+    Data-parallel ranks all run the stopper: the flag comes from the
+    ranks' mean loss, so they stop together, and the replay's steps hold
+    the all-reduce, so every rank replays (to the same iteration); only the
+    rank with ``write_files`` writes the dump."""
+    return NanLossStopper(dir, forward_fn, params_view, replay_step, replay_gather, interactive,
+                          write_files)
 
 
 class NanLossStopper:
@@ -259,7 +274,8 @@ class NanLossStopper:
     scope."""
 
     def __init__(self, dir, forward_fn, params_view, replay_step, replay_gather,
-                 interactive=False):
+                 interactive=False, write_files=True):
+        self.write_files = write_files
         self.dir = dir
         self.forward_fn = forward_fn
         self.params_view = params_view
@@ -325,10 +341,6 @@ class NanLossStopper:
         logger.warning("Stopping because of NaN or Inf loss")
         state.stop = True
         state.stop_reason = "nan_loss"
-        subdir = os.path.join(self.dir, "nan_loss_stop")
-        if os.path.exists(subdir):
-            logger.error("%s already exists; the dump is skipped", subdir)
-            return
         triggering = (
             self._replay(state) if self.replay_enabled and self._anchor is not None else None
         )
@@ -358,6 +370,12 @@ class NanLossStopper:
                 "NaN — that happened at or before this step, since the previous scheduled "
                 "observation.\n"
             )
+        if not self.write_files:
+            return
+        subdir = os.path.join(self.dir, "nan_loss_stop")
+        if os.path.exists(subdir):
+            logger.error("%s already exists; the dump is skipped", subdir)
+            return
         params_host = {
             k: _to_numpy(v) for k, v in flatten_tree(
                 self.params_view(dump_params) if self.params_view else dump_params

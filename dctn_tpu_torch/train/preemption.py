@@ -7,9 +7,14 @@ flight, writes the train state (parameters, optimizer moments, step and the
 dropout generator's state) and stops the loop with a ``preempted`` reason.
 ``--resume-from <run>/train_state_latest.npz`` then continues the same
 trajectory: the runner restores that state and fast-forwards the shuffled
-batch stream to the saved step. The JAX package's agreement across
-processes (``make_synced_hook``) has no counterpart until the port runs on
-several GPUs (ROADMAP slice 7).
+batch stream to the saved step.
+
+Under data parallelism a rank that stopped alone would leave the others
+waiting in the next step's all-reduce, so ``make_synced_hook`` (JAX
+preemption.py:86-115) stops them together: every ``sync_every``
+iterations all ranks agree whether any of them was signalled, and if one
+was, all save (global rank 0 writes) and stop at the same step. The
+spawner passes a SIGTERM it receives on to every rank.
 """
 
 from __future__ import annotations
@@ -66,5 +71,30 @@ class PreemptionHandler:
                 save_fn(state)
                 state.stop = True
                 state.stop_reason = f"preempted ({self.fired}); train state saved for --resume-from"
+
+        return hook
+
+    def make_synced_hook(self, save_fn: Callable, sync_every: int,
+                         agree: Callable[[bool], bool]) -> Callable:
+        """An at-iteration-start hook for data-parallel ranks: a local signal
+        stops nothing by itself; every ``sync_every`` iterations
+        ``agree(fired)`` (``DataMesh.any``, a collective every rank calls)
+        tells whether any rank was signalled, and if one was, every rank
+        runs ``save_fn(state)`` and stops at this same iteration. The stop
+        can come up to ``sync_every`` steps after the signal: keep that
+        inside the grace period."""
+        if sync_every < 1:
+            raise ValueError(f"sync_every must be at least 1, not {sync_every}")
+
+        def hook(state) -> None:
+            if state.stop or state.num_iters_done % sync_every:
+                return
+            if agree(self.fired is not None):
+                save_fn(state)
+                state.stop = True
+                state.stop_reason = (
+                    f"preempted ({self.fired or 'a signal on another rank'}; every rank stopped "
+                    "at the same step); train state saved for --resume-from"
+                )
 
         return hook

@@ -62,6 +62,8 @@ def make_fast_train_step(
     with_probs: bool = False,
     grad_accum_steps: int = 1,
     qat: Optional[str] = None,
+    collective=None,
+    pixel_scale: int = 1,
 ):
     """Returns ``step(xb, yb, generator=None, masks=None) → {"loss", "ce",
     "reg_term"}`` (0-d tensors on the model's device, not synchronised),
@@ -102,7 +104,11 @@ def make_fast_train_step(
     its own bundle (``eps_q8_kernels.QAT_PLAIN`` for the plain QAT path)
     passes no ``qat``.
 
-    ``with_probs`` adds ``probs_of_true_class`` (see the module docstring)."""
+    ``with_probs`` adds ``probs_of_true_class`` (see the module docstring).
+
+    ``collective`` and ``pixel_scale`` make it one rank's step of the
+    data-parallel step (``parallel.data_parallel``): see
+    ``_accumulating_step``, and ``eps_apply_t_cmt`` for ``pixel_scale``."""
     frozen = frozenset(frozen_eps_indices)
     n_layers = len(model.cmts)
     if any(not 0 <= i < n_layers for i in frozen):
@@ -131,22 +137,30 @@ def make_fast_train_step(
             fast = {**fast, "epses_cmt": tuple(
                 c.detach() if i in frozen else c for i, c in enumerate(fast["epses_cmt"])
             )}
-        return eps_plus_linear_forward_fast(fast, xs, cfg, plans, kernels=kernels, masks=masks_i)
+        return eps_plus_linear_forward_fast(fast, xs, cfg, plans, kernels=kernels, masks=masks_i,
+                                            pixel_scale=pixel_scale)
 
     def zero_frozen():
         for i in frozen:
             model.cmts[i].grad = torch.zeros_like(model.cmts[i])
 
     return _accumulating_step(model, optimizer, logits_of, reg_fn, reg_coeff, grad_accum_steps,
-                              with_probs, plans, cfg.dropout_p, zero_frozen)
+                              with_probs, plans, cfg.dropout_p, zero_frozen, collective)
 
 
 def _accumulating_step(model, optimizer, logits_of, reg_fn, reg_coeff, grad_accum_steps,
-                       with_probs, plans, dropout_p, zero_frozen):
+                       with_probs, plans, dropout_p, zero_frozen, collective=None):
     """The step both layouts share: per microbatch its dropout masks, the
     forward (``logits_of(xs, masks)``), cross-entropy and backward; the
     gradients averaged, the regularizer once (``_hoist_reg``), frozen cores'
-    gradients zeroed (``zero_frozen``), the update."""
+    gradients zeroed (``zero_frozen``), the update.
+
+    With a ``collective`` (``parallel.data_parallel.GradAllReduce``) it is
+    one rank's step of the data-parallel step: after the local
+    accumulation, ``collective.mean(params, ce)`` averages the
+    cross-entropy's gradients and the cross-entropy over the ranks in one
+    all-reduce; the regularizer, identical on every rank, is added after it,
+    and ``collective.gather`` concatenates the ranks' probabilities."""
     dropout = dropout_p < 1.0
 
     def step(xb: torch.Tensor, yb: torch.Tensor, generator=None, masks=None):
@@ -182,6 +196,8 @@ def _accumulating_step(model, optimizer, logits_of, reg_fn, reg_coeff, grad_accu
                 if p.grad is not None:
                     p.grad.mul_(inv)
             ce = ce_sum * inv
+        if collective is not None:
+            ce = collective.mean(list(model.parameters()), ce)
         if reg_coeff != 0.0:
             reg = reg_fn()
             (reg_coeff * reg).backward()
@@ -192,7 +208,9 @@ def _accumulating_step(model, optimizer, logits_of, reg_fn, reg_coeff, grad_accu
         optimizer.step()
         metrics = {"loss": loss.detach(), "ce": ce.detach(), "reg_term": reg.detach()}
         if with_probs:
-            metrics["probs_of_true_class"] = torch.cat(probs)
+            probs = torch.cat(probs)
+            metrics["probs_of_true_class"] = (
+                probs if collective is None else collective.gather(probs))
         return metrics
 
     return step
@@ -207,6 +225,7 @@ def make_train_step(
     frozen_eps_indices: Sequence[int] = (),
     with_probs: bool = False,
     grad_accum_steps: int = 1,
+    collective=None,
 ):
     """The step over the reference layout (``make_train_step``,
     train/step.py:116-206): ``model`` holds the cores as
@@ -216,7 +235,8 @@ def make_train_step(
     as ``make_fast_train_step``, with the same options: dropout masks drawn
     over the reference shapes from the step's generator, frozen cores
     detached with their gradients zeroed, accumulation in contiguous
-    microbatches with the regularizer added once, ``with_probs``."""
+    microbatches with the regularizer added once, ``with_probs``, and a
+    data-parallel rank's ``collective``."""
     frozen = frozenset(frozen_eps_indices)
     n_layers = len(model.cores)
     if any(not 0 <= i < n_layers for i in frozen):
@@ -244,7 +264,7 @@ def make_train_step(
             model.cores[i].grad = torch.zeros_like(model.cores[i])
 
     return _accumulating_step(model, optimizer, logits_of, reg_fn, reg_coeff, grad_accum_steps,
-                              with_probs, plans, cfg.dropout_p, zero_frozen)
+                              with_probs, plans, cfg.dropout_p, zero_frozen, collective)
 
 
 def resolve_auto_grad_accum(cfg: EPSesPlusLinearConfig, plans, batch: int) -> int:

@@ -1203,3 +1203,83 @@ def test_artifact_on_the_card_gives_the_eager_bits_and_launches_the_kernels(
         export.load_artifact(path, "cpu")
     with pytest.raises(ValueError, match="weights lie on cuda:0; it does not load onto cuda:1"):
         export.load_artifact(path, "cuda:1")
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["f32", "int8", "conv_sbs"])
+def test_kernels_launch_on_a_card_that_is_not_current(two_cards, family):
+    """K1, K8 and K10 (and, for f32, the step's backward kernels) called on
+    cuda:1 tensors while cuda:0 is the current device: they launch there
+    (the wrappers enter the tensor's device) and give cuda:0's bits, as a
+    single-process replica (predict --mesh-devices, sharded artifacts)
+    calls them."""
+    d0, d1 = two_cards
+    _, model0, x0, launches = _artifact_case(d0, family)
+    _, model1, x1, _ = _artifact_case(d1, family)
+    assert torch.cuda.current_device() == 0
+    with torch.inference_mode():
+        want = model0(x0)
+        before = launches()
+        got = model1(x1)
+        torch.cuda.synchronize(d1)
+    assert launches() - before == (3 if family == "conv_sbs" else 2)
+    assert got.device == d1 and torch.equal(got.cpu(), want.cpu())
+    if family == "f32":  # the training step's kernels: K1+t, eps_dcore, the d_views kernel
+        y = torch.arange(100) % 10
+        grads = []
+        for model, x in ((model0, x0), (model1, x1)):
+            model.zero_grad(set_to_none=True)
+            torch.nn.functional.cross_entropy(model(x), y.to(x.device)).backward()
+            grads.append([p.grad.cpu() for p in model.parameters()])
+        assert torch.cuda.current_device() == 0
+        assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["f32", "int8", "conv_sbs"])
+def test_sharded_artifact_serves_on_every_card(two_cards, tmp_path, family):
+    """A sharded artifact (``export --mesh-devices N``, N the visible cards
+    up to 4) loads a replica onto each card; a global batch's logits equal
+    the eager model's on each card's share, bit for bit."""
+    from dctn_tpu_torch.cli import export
+
+    n = min(4, torch.cuda.device_count())
+    (params, cfg), model, x, _ = _artifact_case(two_cards[0], family)
+    host = _to_cpu(params)
+    bs = 25 * n
+    x = x[:bs] if family == "conv_sbs" else x[:, :bs]
+    path = str(tmp_path / f"{family}.zip")
+    blobs, _ = export.export_sharded_forward(
+        host, cfg, batch_sizes=(bs,), mesh_devices=n,
+        quantize="int8" if family == "int8" else None,
+        model_family="conv_sbs" if family == "conv_sbs" else "eps")
+    export.write_artifact(path, blobs, export.build_meta(
+        model_family="conv_sbs" if family == "conv_sbs" else "eps", image_size=28,
+        batch_sizes=(bs,), backend="pallas", mesh_devices=n, platforms=["cuda"],
+        program_device="cpu"))
+    meta, fns = export.load_artifact(path)
+    assert meta["mesh_devices"] == n and fns[bs].devices == [torch.device("cuda", i)
+                                                              for i in range(n)]
+    axis = 0 if family == "conv_sbs" else 1
+    with torch.inference_mode():
+        got = fns[bs](x)
+        want = torch.cat([model(c) for c in torch.tensor_split(x, n, dim=axis)])
+    assert got.device == x.device and torch.equal(got, want)
+
+
+def _to_cpu(params):
+    """A tree of tensors (dicts, tuples) with every tensor on the CPU."""
+    if isinstance(params, dict):
+        return {k: _to_cpu(v) for k, v in params.items()}
+    if isinstance(params, (tuple, list)):
+        return type(params)(_to_cpu(v) for v in params)
+    return params.cpu()

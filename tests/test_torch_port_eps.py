@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
         "dctn_tpu_torch.train.tb_logging, dctn_tpu_torch.train.intermediate_logger, "
         "dctn_tpu_torch.utils.profiling, dctn_tpu_torch.cli.torch_convert, "
         "dctn_tpu_torch.cli.sweep, dctn_tpu_torch.cli.export, dctn_tpu_torch.cli.serve, "
-        "dctn_tpu_torch.kernels.ops\n"
+        "dctn_tpu_torch.kernels.ops, dctn_tpu_torch.parallel, dctn_tpu_torch.parallel.replicas, "
+        "dctn_tpu_torch.multichip\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dctn_tpu'))\n"
         "assert not bad, bad"
     )

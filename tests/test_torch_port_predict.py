@@ -63,7 +63,7 @@ def test_cli_main_runs_on_cpu(jax_checkpoint):
     "kwargs,match",
     [
         ({"quantize": "int4"}, "--quantize int4 is not supported"),
-        ({"mesh_devices": 2}, "--mesh-devices > 1 is not ported"),
+        ({"mesh_devices": 0}, "--mesh-devices 0: at least one device"),
         ({"epses_specs": None}, "--epses-specs is required"),
     ],
 )
