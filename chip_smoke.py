@@ -160,6 +160,20 @@ Run from the root of a checkout, with no arguments:
    ``predict.run``. With two or more cards it runs ``python -m
    dctn_tpu_torch.multichip --devices min(4, count)`` and fails with it; on
    one card it prints that it did not run.
+5c. Tensor and spatial parallelism (``parallel.tensor_parallel``,
+   ``parallel.spatial_parallel``): (a) K1 ± t, ``eps_dcore``,
+   ``eps_dviews_t`` and K8/K9 at the shapes a grid rank gives the flagship's
+   layers at batch 128 (layer 1 on the cmt row block of 2 and 3 model
+   ranks; each layer on the slab of 2 and 4 space ranks), each against its
+   plain version, with the launch plan each takes; (b) on the card, f32 and
+   QAT, each row block's layer output against the O-slice of the whole
+   layer and the shards' partial logits summed against the one-card logits,
+   each space rank's slab outputs against the whole layers' rows and the
+   row-sliced classifier's partial logits summed against the one-card
+   logits; (c) the TP-fast and SP-fast steps on a grid of one rank through
+   a real ``nccl`` group, bit-equal to the single-device steps with their
+   launches. With two or more cards, phase 5b's multichip subprocess runs
+   the TP and SP paths.
 10. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
    of the serving forward (f32 and int8) at batch 1 and 128 and of the
    flagship training step (f32 and QAT) at batch 128, on the kernel and on
@@ -2432,6 +2446,251 @@ def dp_phase(bench, CSM, params, cfg, tx, ty, dev) -> list:
     return counts
 
 
+# phase 5c: the flagship's layers at the shapes a rank of a grid gives them
+# at batch 128 a data rank: under tensor parallelism layer 1 on the cmt row
+# block of each of 2 and 3 model ranks (O = 3, 2), under spatial parallelism
+# each layer on the slab of Hl + K - 1 rows of each of 2 and 4 space ranks
+# (Hl = 14, 7)
+GRID_MODEL_AXES = (2, 3)
+GRID_SPACE_AXES = (2, 4)
+
+
+def grid_shard_shapes():
+    """(label, layer, n, q, n1, O, npix) of the flagship's layers at a grid
+    rank's shapes: layer 1 at O / model for each model axis, each layer on
+    Hl rows for each space axis."""
+    dims = layer_dims(FLAGSHIP)
+    n, q, n1, o, h = dims[1]
+    shapes = [(f"TP layer 1, O={o // m} (model {m})", 1, n, q, n1, o // m, BATCH * h * h)
+              for m in GRID_MODEL_AXES]
+    for p in GRID_SPACE_AXES:
+        hl = -(-28 // p)
+        shapes += [(f"SP layer {i}, {hl} rows (space {p})", i, n_, q_, n1_, o_, BATCH * hl * h_)
+                   for i, (n_, q_, n1_, o_, h_) in enumerate(dims)]
+    return shapes
+
+
+def grid_kernels_at_shard_shapes(K, Q8, dev, res) -> None:
+    """Phase 5c (a): each kernel of a grid's step (K1 ± t, ``eps_dcore``,
+    ``eps_dviews_t``, K8/K9) against its plain version at the shard shapes
+    (``grid_shard_shapes``; layer 0 saves no t and needs no d_views), at
+    REL_TOL and K9's t bit for bit, as in phase 2; the launch plan each
+    shape takes (K1's and K8's kernel, ``eps_dcore``'s pixel slices) and the
+    kernel and plain times are printed; max |Δ| joins the kernel's in
+    ``res``."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, layer, n, q, n1, o, npix in grid_shard_shapes():
+        g_ = torch.Generator(device=dev).manual_seed(SEED)
+        views = torch.rand((n, q, npix), generator=g_, device=dev)
+        cmt = torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev) * q ** (-n / 2)
+        g = torch.randn((o, npix), generator=g_, device=dev)
+        t = K.eps_fwd_reference(views, cmt, n1, o, save_t=True)[1]
+        wq, sw = Q8.quantize_cmt(cmt)
+        cases = {
+            "eps_fwd": (lambda: K.eps_fwd(views, cmt, n1, o),
+                        lambda: K.eps_fwd_reference(views, cmt, n1, o)),
+            "eps_dcore": (lambda: K.eps_dcore(views, g, n1, o),
+                          lambda: K.eps_dcore_reference(views, g, n1, o)),
+            "eps_fwd_q8": (lambda: Q8.eps_fwd_q8(views, wq, sw, n1, o),
+                           lambda: Q8.eps_fwd_q8_reference(views, wq, sw, n1, o)),
+        }
+        if layer == 1:
+            cases.update({
+                "eps_fwd_t": (lambda: K.eps_fwd(views, cmt, n1, o, save_t=True),
+                              lambda: K.eps_fwd_reference(views, cmt, n1, o, save_t=True)),
+                "eps_dviews_t": (lambda: K.eps_dviews_t(views, cmt, g, t, n1, o),
+                                 lambda: K.eps_dviews_t_reference(views, cmt, g, t, n1, o)),
+                "eps_fwd_q8_t": (lambda: Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True),
+                                 lambda: Q8.eps_fwd_q8_reference(views, wq, sw, n1, o,
+                                                                 save_t=True)),
+            })
+        z, a = cmt.shape
+        print(f"grid shape [{label}] n={n} q={q} n1={n1} O={o} npix={npix}: K1 "
+              f"{K._fwd_plan(n, q, n1, o, npix)['kernel']}, K8 "
+              f"{Q8._q8_plan(n, q, n1, o, npix)['form']}, eps_dcore "
+              f"{K._dcore_slices(z, a, npix, sms)} pixel slice(s) of {math.ceil(z / 128)} x "
+              f"{math.ceil(a / 128)} tiles")
+        for name, (kern, plain) in cases.items():
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            errs = []
+            for which, x, r in zip(("out", "t"), got, ref):
+                err, scale = float((x - r).abs().max()), float(r.abs().max())
+                check(x.shape == r.shape and torch.isfinite(x).all().item(),
+                      f"{name} [{label}]: {which} shape {tuple(x.shape)} or non-finite")
+                check(err <= REL_TOL * scale,
+                      f"{name} [{label}]: {which} differs from plain by {err} (max|ref| {scale})")
+                if name == "eps_fwd_q8_t" and which == "t":
+                    check(torch.equal(x, r), f"{name} [{label}]: t is not the plain version's "
+                                             "bit for bit")
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+                errs.append(f"{which} max|d|={err:.3e} tol={REL_TOL * scale:.3e}")
+            del got, ref
+            t_k, t_p = median_ms([kern, plain], reps=5)
+            print(f"  {name} vs plain [{label}]: {'; '.join(errs)}; kernel {t_k:.4f} ms, "
+                  f"plain {t_p:.4f} ms")
+        del views, cmt, g, t, wq, sw
+
+
+def grid_shards_vs_whole(K, Q8, params, cfg, x, dev) -> dict:
+    """Phase 5c (b), on the card, f32 and then QAT (the W8A8 forward): the
+    flagship's layer 1 on each cmt row block of a model axis equals the
+    matching O-slice of the whole layer, and the shards' partial logits
+    (each its O-slice of the classifier's rows) sum to the one-card logits;
+    each space rank's layer outputs on its slab of the bottom-padded image
+    (its Hl rows and the next rank's K - 1) equal the whole layers' valid
+    rows, and the row-sliced classifier's partial logits sum to the one-card
+    logits. All within REL_TOL of the largest entry. Returns the largest
+    shares of it and the launch counts."""
+    from dctn_tpu_torch.bench import read_counters, zero_counters
+    from dctn_tpu_torch.models.eps_plus_linear import (
+        _transposed_classifier,
+        fast_params_from_reference,
+    )
+
+    fast, plans = fast_params_from_reference({
+        "epses": tuple(c.to(dev) for c in params["epses"]),
+        "linear": {k: v.to(dev) for k, v in params["linear"].items()}}, cfg)
+    cmts, lin = fast["epses_cmt"], fast["linear"]
+    out = {}
+    zero_counters()
+
+    def layer(cmt, xT, i, o, kernels):
+        p = plans[i]
+        return K.eps_apply_t_cmt(cmt, xT, o, p["kernel_size"], p["n1"], p["merge_pairs"],
+                                 layer_index=i, kernels=kernels)
+
+    def agree(got, want, what):
+        share = float((got - want).abs().max()) / (REL_TOL * float(want.abs().max()))
+        check(share <= 1.0, f"{what}: {share:.3f} of REL_TOL from the whole")
+        out[what] = share
+
+    with torch.no_grad():
+        for tag, kernels in (("f32", K.KERNELS), ("qat", Q8.QAT_KERNELS)):
+            xT = x.permute(0, 4, 2, 3, 1)
+            whole = [layer(cmts[0], xT, 0, plans[0]["out_size"], kernels)]
+            whole.append(layer(cmts[1], whole[0][None], 1, plans[1]["out_size"], kernels))
+            logits = _transposed_classifier(whole[1], lin)
+            o, hp, wp, b = whole[1].shape
+            w3 = lin["w"].reshape(hp * wp, o, -1)
+            for m in GRID_MODEL_AXES:
+                rows, ol = cmts[1].shape[0] // m, o // m
+                total = lin["b"]
+                for j in range(m):
+                    blk = layer(cmts[1][j * rows : (j + 1) * rows], whole[0][None], 1, ol, kernels)
+                    agree(blk, whole[1][j * ol : (j + 1) * ol], f"{tag} TP model {m} rank {j}")
+                    total = total + torch.tensordot(blk.reshape(ol, hp * wp, b),
+                                                    w3[:, j * ol : (j + 1) * ol], dims=([0, 1], [1, 0]))
+                agree(total, logits, f"{tag} TP model {m} logits")
+            for p in GRID_SPACE_AXES:
+                hl = -(-28 // p)
+                cur = torch.nn.functional.pad(xT, (0, 0, 0, 0, 0, p * hl - 28))
+                for i in range(2):
+                    k = plans[i]["kernel_size"]
+                    padded = torch.nn.functional.pad(cur, (0, 0, 0, 0, 0, k - 1))
+                    outs = [layer(cmts[i], padded[:, :, d * hl : d * hl + hl + k - 1], i,
+                                  plans[i]["out_size"], kernels) for d in range(p)]
+                    valid = whole[i].shape[1]
+                    for d in range(p):
+                        n_valid = max(0, min(hl, valid - d * hl))
+                        agree(outs[d][:, :n_valid], whole[i][:, d * hl : d * hl + n_valid],
+                              f"{tag} SP space {p} layer {i} rank {d}")
+                    cur = torch.cat(outs, dim=1)[None]
+                w4 = torch.nn.functional.pad(lin["w"].reshape(hp, wp, o, -1),
+                                             (0, 0, 0, 0, 0, 0, 0, p * hl - hp))
+                total = lin["b"]
+                for d in range(p):
+                    total = total + torch.tensordot(
+                        cur[0][:, d * hl : (d + 1) * hl].reshape(o, hl * wp, b),
+                        w4[d * hl : (d + 1) * hl].reshape(hl * wp, o, -1), dims=([0, 1], [1, 0]))
+                agree(total, logits, f"{tag} SP space {p} logits")
+    torch.cuda.synchronize()
+    return {"max_share_of_rel_tol": out, "launches": read_counters()}
+
+
+def grid_world_size_1(bench, params, cfg, tx, ty, dev) -> tuple:
+    """Phase 5c (c): the TP-fast and SP-fast steps on a grid whose every axis
+    has one rank, through a real ``nccl`` process group (a file store),
+    DP_STEPS Adam steps f32 and QAT beside the single-device step from one
+    init: losses and parameters bit for bit, the same launches per step.
+    Returns (launch counts of the grid steps, record)."""
+    import torch.distributed as dist
+
+    from dctn_tpu_torch.models import EPSesPlusLinear
+    from dctn_tpu_torch.models.eps_plus_linear import fast_params_from_reference
+    from dctn_tpu_torch.parallel import (TPFastModel, make_grid, make_mesh,
+                                         make_sp_fast_train_step, make_tp_fast_params,
+                                         make_tp_fast_train_step, merge_tp_fast_params)
+    from dctn_tpu_torch.train import make_fast_train_step, make_optimizer
+
+    counts, record = [], {}
+    fast, plans = fast_params_from_reference(params, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            mesh = make_mesh(1)
+            grids = {"tp": make_grid(mesh, "model", 1, 1), "sp": make_grid(mesh, "space", 1, 1)}
+            for qat in (None, "int8"):
+                runs = {}
+                for kind in ("tp", "sp", "one"):
+                    if kind == "tp":
+                        model = TPFastModel(make_tp_fast_params(fast, cfg, grids["tp"]), plans,
+                                            cfg, grids["tp"])
+                    else:
+                        model = EPSesPlusLinear.from_reference(params, cfg, device=dev)
+                    opt = make_optimizer("adam", model.parameters(), bench.LR)
+                    if kind == "tp":
+                        step = make_tp_fast_train_step(model, opt, "epswise", bench.REG_COEFF,
+                                                       qat=qat)
+                    elif kind == "sp":
+                        step = make_sp_fast_train_step(model, opt, grids["sp"], "epswise",
+                                                       bench.REG_COEFF, qat=qat)
+                    else:
+                        step = make_fast_train_step(model, opt, "epswise", bench.REG_COEFF,
+                                                    qat=qat)
+                    bench.zero_counters()
+                    losses = [float(step(tx, ty)["loss"]) for _ in range(DP_STEPS)]
+                    torch.cuda.synchronize()
+                    launched = bench.read_counters()
+                    if kind != "one":
+                        counts.append(launched)
+                    final = (merge_tp_fast_params(model.fast_params3(), cfg, grids["tp"])
+                             if kind == "tp" else model.fast_params())
+                    runs[kind] = (losses, [c.detach().clone() for c in final["epses_cmt"]]
+                                  + [final["linear"]["w"].detach().clone(),
+                                     final["linear"]["b"].detach().clone()], launched)
+                one = runs["one"]
+                for kind in ("tp", "sp"):
+                    losses, ps, launched = runs[kind]
+                    check(losses == one[0] and all(torch.equal(a, b) for a, b in zip(ps, one[1])),
+                          f"{kind} grid at world size 1 (qat={qat}) is not the single-device "
+                          "step's bits")
+                    check(launched == one[2], f"{kind} grid (qat={qat}) launches {launched}, the "
+                                              f"single-device step {one[2]}")
+                    record[f"{kind}_qat={qat}"] = {
+                        "losses": losses, "launches_per_step": {
+                            k: v / DP_STEPS for k, v in launched.items() if v}}
+        finally:
+            dist.destroy_process_group()
+    return counts, record
+
+
+def grid_phase(bench, K, Q8, params, cfg, tx, ty, dev, res) -> list:
+    """Phase 5c: tensor and spatial parallelism on the card: (a) the kernels
+    at the shard shapes, (b) shards against the whole layers and logits,
+    (c) the grid's steps at world size 1 through a real NCCL group. With
+    two or more cards the multichip subprocess of phase 5b runs the TP and
+    SP paths across them. Returns the launch counts of the driven paths."""
+    grid_kernels_at_shard_shapes(K, Q8, dev, res)
+    shards = grid_shards_vs_whole(K, Q8, params, cfg, tx, dev)
+    counts, record = grid_world_size_1(bench, params, cfg, tx, ty, dev)
+    print(json.dumps({"metric": "grid_world_size_1", "steps": DP_STEPS, **record,
+                      "shards_vs_whole": shards["max_share_of_rel_tol"]}))
+    return counts
+
+
 def sbs_runner_phase(legacy_runner, bench, dev):
     """Phase 6: ``legacy_runner.run`` on the card, 2 layers, bond 4, batch
     100, SBS_RUN_EPOCHS epochs of synthetic data, SGD and RMSprop with
@@ -3054,6 +3313,11 @@ def main(argv=None) -> int:
     # a sharded artifact at N = 1, and with 2+ cards the multichip paths
     dp_counts = dp_phase(bench, CSM, params, cfg, tx, ty, dev)
     phase_done("data parallelism (5b)")
+
+    # phase 5c: tensor and spatial parallelism: the kernels at the shard
+    # shapes, the shards against the whole, the grid at world size 1
+    dp_counts += grid_phase(bench, K, Q8, params, cfg, tx, ty, dev, numbers)
+    phase_done("tensor and spatial parallelism (5c)")
 
     # phases 8 and 9: the log-space product's entries, the chain bench and
     # the log-space classifier's training

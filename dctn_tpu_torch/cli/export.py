@@ -84,7 +84,7 @@ BACKENDS = ("pallas", "xla")
 # that ports it (as the runners' REFUSED tables)
 REFUSED = (
     ("space_devices", (1,), "--space-devices > 1",
-     "tensor and spatial parallelism (slice 7b, item 19b)"),
+     "the height-sharded artifact (slice 7c, item 19c)"),
     ("autotune_splits", (False,), "--autotune-splits", "the autotuner (slice 8, item 20)"),
     ("autotune_cache", (False,), "--autotune-cache", "the autotuner (slice 8, item 20)"),
     ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
@@ -255,7 +255,8 @@ def load_artifact(path: str, device=None) -> Tuple[dict, Dict[int, torch.nn.Modu
         meta = json.loads(zf.read(_META_NAME))
         if meta.get("space_devices", 1) > 1:
             raise ValueError(
-                f"{path} is a height-sharded artifact: not ported yet (ROADMAP item 19b)")
+                f"{path} is a height-sharded artifact: not ported yet (ROADMAP, the "
+                "height-sharded artifact, slice 7c, item 19c)")
         exported_on = (meta.get("platforms") or ["cpu"])[0]
         if meta.get("mesh_devices", 1) > 1 or meta.get("program_device") == "cpu":
             return meta, _load_sharded(zf, names, meta, exported_on, device, path)
@@ -395,7 +396,7 @@ def _parse_int_list(_ctx, _param, value: str) -> Tuple[int, ...]:
               help="a sharded artifact: every --batch-sizes entry is a global batch split over "
                    "this many cards (or CPU replicas), a replica on each")
 @click.option("--space-devices", type=int, default=1,
-              help="not ported yet (spatial parallelism, ROADMAP item 19b): only 1")
+              help="not ported yet (the height-sharded artifact, ROADMAP item 19c): only 1")
 @click.option("--device", default="cuda",
               help="torch device to export on and serve on: cuda (the kernels) or cpu "
                    "(their plain versions)")

@@ -73,6 +73,26 @@ JAX runner's rule), so the batches differ from the unbroken run's. With
 ``mesh_devices > 1`` ``run`` returns rank 0's final state: ``params`` in
 the reference layout on the CPU, no optimizer.
 
+``--model-devices M`` (tensor parallelism) or ``--space-devices S``
+(spatial parallelism) runs N·M or N·S ranks on a ``(data, model)`` or
+``(data, space)`` grid (``parallel.GridMesh``; N is ``--mesh-devices``),
+dispatched as the JAX runner dispatches them (runner.py:915-1043): the fast
+layout where both backends are the kernels' (TP: the last cmt's row block;
+SP: the kernels on each rank's slab of rows), else the reference layout
+with each backend's ``eps`` (``--tp-shard-all`` always: every core sharded,
+through the kernels' route of ``ops.eps`` with the pallas backend). Every
+rank draws the one-device batch stream and takes its data shard of each
+global batch (under SP its block of the padded rows, the whole train split
+held on each card); evals score the data shards through the sharded score
+functions. Checkpoints, train states and the artifact are written by global
+rank 0 in the layout one device holds: under TP the model group gathers its
+shards first (every rank calls), so a TP train state resumes on one device
+and one device's on TP; a layout conversion under TP is refused, as in JAX
+(runner.py:1319-1330). SP×TP (both over 1) is refused, naming ROADMAP item
+19c, as are ``--tp-shard-all`` with ``--qat int8``, a model axis that does
+not divide a sharded O and a halo wider than a rank's rows, all before any
+rank starts.
+
 Flags the port does not run yet are refused with a ``click.BadParameter``
 naming their ROADMAP item (``REFUSED``). The inits and dropout masks draw
 from torch generators seeded from ``--seed``, so a seed gives other weights
@@ -178,11 +198,7 @@ logger = logging.getLogger(__name__)
 
 # each refused flag, the values that mean "not used", and the ROADMAP item
 # that ports it
-_TP_SP = "tensor and spatial parallelism (slice 7b, item 19b)"
 REFUSED = (
-    ("model_devices", (1,), "--model-devices > 1", _TP_SP),
-    ("space_devices", (1,), "--space-devices > 1", _TP_SP),
-    ("tp_shard_all", (False,), "--tp-shard-all", _TP_SP),
     ("autotune_splits", (False,), "--autotune-splits", "the autotuner (slice 8, item 20)"),
     ("autotune_cache", (False,), "--autotune-cache", "the autotuner (slice 8, item 20)"),
     ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
@@ -343,11 +359,15 @@ def _hint_saved_t_recipe(cfg, plans, batch: int, accum: int) -> None:
               help="data parallel over this many ranks, one per card (CPU replicas with "
                    "--device cpu); counts ranks across every host of --distributed")
 @click.option("--model-devices", type=int, default=1,
-              help="not ported yet (tensor parallelism, ROADMAP item 19b): only 1")
+              help="tensor parallel over this many ranks a data rank: the last EPS core's "
+                   "output dim (every core's with --tp-shard-all) and the classifier's rows "
+                   "sharded over a model axis (parallel/tensor_parallel.py)")
 @click.option("--tp-shard-all/--tp-shard-last", default=False,
-              help="not ported yet (tensor parallelism, ROADMAP item 19b)")
+              help="shard EVERY EPS core's output dim (an all_gather between layers) instead of "
+                   "only the last core's")
 @click.option("--space-devices", type=int, default=1,
-              help="not ported yet (spatial parallelism, ROADMAP item 19b): only 1")
+              help="spatial parallel over this many ranks a data rank: the image height sharded "
+                   "with one halo exchange per EPS layer (parallel/spatial_parallel.py)")
 @click.option("--autotune-splits/--no-autotune-splits", default=False,
               help="not ported yet (the autotuner, ROADMAP item 20)")
 @click.option("--autotune-cache/--no-autotune-cache", default=False,
@@ -397,6 +417,7 @@ def _validate(kw: dict) -> None:
         if kw[name] not in accepted:
             raise click.BadParameter(f"{flag} is not ported to the PyTorch runner yet: ROADMAP, {where}")
     specs = kw["epses_specs"]
+    _validate_grid(kw)
     chosen: List[bool] = [False] * len(specs)
     for eps_index, _ in list(kw["init_eps_zero_centered_normal_std"]) + list(kw["init_eps_from_file"]):
         if not 0 <= eps_index < len(specs) or chosen[eps_index]:
@@ -490,6 +511,44 @@ def _validate(kw: dict) -> None:
         )
 
 
+# the image size of each dataset (data/pipeline.py), for the grid's checks
+# before any rank starts
+IMAGE_SIZES = {"mnist": 28, "fashionmnist": 28, "cifar10_28x28_grayscale": 28}
+
+
+def _validate_grid(kw: dict) -> None:
+    """The tensor- and spatial-parallel flags (runner.py:477-486, :569-574,
+    tensor_parallel.py:88-92, spatial_parallel.py:91-100): refused here,
+    before any rank starts, when their grid cannot be built."""
+    from ..parallel import check_model_axis, sp_check_config
+
+    model, space = kw["model_devices"], kw["space_devices"]
+    if model < 1 or space < 1:
+        raise click.BadParameter("--model-devices and --space-devices count ranks: >= 1")
+    if model > 1 and space > 1:
+        # and, as in the JAX runner, --tp-shard-all would not compose with it
+        raise click.BadParameter(
+            "--model-devices > 1 with --space-devices > 1 (SP x TP) is not ported to the "
+            "PyTorch runner yet: ROADMAP, the composed spatial x tensor parallelism "
+            "(slice 7c, item 19c)" + (
+                "; and --tp-shard-all does not compose with --space-devices (its inter-layer "
+                "all_gathers would interleave with the per-layer halo exchange; use the "
+                "default last-core TP layout)" if kw["tp_shard_all"] else ""))
+    if kw["qat"] not in (None, "none") and model > 1 and kw["tp_shard_all"]:
+        raise click.BadParameter(
+            "--qat int8 with --tp-shard-all: shard_all has no fast (cmt) layout analog and QAT "
+            "runs only on the fast pipeline (use the default last-core TP layout)")
+    cfg = EPSesPlusLinearConfig(epses_specs=kw["epses_specs"],
+                                image_size=IMAGE_SIZES.get(kw["ds_type"], 32))
+    try:
+        if model > 1:
+            check_model_axis(cfg, model, kw["tp_shard_all"])
+        if space > 1:
+            sp_check_config(cfg, space)
+    except ValueError as e:
+        raise click.BadParameter(f"--model-devices {model} --space-devices {space}: {e}") from None
+
+
 def _load_model_state(path: str, params, device):
     """Params from ``--load-model-state`` (an npz of either package, or a
     reference torch ``state_dict``; runner.py:617-632), shapes checked
@@ -540,7 +599,8 @@ def run(**kwargs) -> TrainLoopState:
             f"--device {device}: no CUDA device is available (--device cpu runs the plain versions)"
         )
     try:
-        job = plan_job(kw["mesh_devices"], kw["distributed"], device.type)
+        job = plan_job(kw["mesh_devices"], kw["distributed"], device.type, kw["model_devices"],
+                       kw["space_devices"])
     except ValueError as e:
         raise click.BadParameter(str(e)) from None
     if job is None:
@@ -569,7 +629,13 @@ def _run_rank(mesh, kw: dict) -> dict:
 
 def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     """The run on one device (``mesh`` None), or one rank's share of a
-    data-parallel run."""
+    data-parallel run, or of a tensor- or spatial-parallel one (``mesh`` a
+    ``GridMesh``)."""
+    from ..parallel import GridMesh
+
+    grid = mesh if isinstance(mesh, GridMesh) else None
+    tp = grid is not None and grid.axis == "model"
+    sp = grid is not None and grid.axis == "space"
     primary = mesh is None or mesh.is_primary
     writes_logs = mesh is None or mesh.writes_logs
     ts = time.strftime("%Y-%m-%d-%H-%M-%S")
@@ -595,8 +661,13 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     logger.info("output_dir=%r", output_dir)
     if mesh is not None:
         pids = mesh.all_gather_object(os.getpid())
-        logger.info("data parallel: %d ranks (%s), rank pids %s", mesh.world_size, mesh.backend,
-                    pids)
+        if grid is None:
+            logger.info("data parallel: %d ranks (%s), rank pids %s", mesh.world_size,
+                        mesh.backend, pids)
+        else:
+            logger.info("%s parallelism: grid (data=%d, %s=%d), %d ranks (%s), rank pids %s",
+                        "tensor" if tp else "spatial", grid.n_data, grid.axis, grid.n_other,
+                        grid.world_size, grid.backend, pids)
 
     # --- data (new_runner.py:345-376) ---
     autoscale = specs[0][0] if kw["phi_multiplier"] is None and not kw["nu_per_channel"] else None
@@ -657,14 +728,34 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     # --- training assembly (new_runner.py:443-546): the fast (cmt) layout,
     # or the reference one for --train-backend xla ---
     plans = fast_params_from_reference(params, cfg)[1]
-    if train_ref:
+    shard_all = tp and kw["tp_shard_all"]
+    if grid is not None:
+        from ..parallel import replicate
+
+        # rank 0's init on every rank, then each rank's shard of it
+        replicate(mesh, list(params["epses"]) + list(params["linear"].values()))
+        # the fast layout where both backends are the kernels' and a fast form
+        # exists (not --tp-shard-all: runner.py:663-667); else the reference
+        # layout with each backend's eps (xla, or the kernels' route)
+        train_ref = eval_ref = train_ref or eval_ref or shard_all
+    ref_backends = ("xla" if kw["train_backend"] == "xla" else "pallas",
+                    "xla" if kw["eval_backend"] == "xla" else "pallas")
+    if tp:
+        from ..parallel import TPFastModel, TPModel, make_tp_fast_params, make_tp_params
+
+        if train_ref:
+            model = TPModel(make_tp_params(params, cfg, grid, shard_all), cfg, grid, shard_all)
+        else:
+            model = TPFastModel(make_tp_fast_params(fast_params_from_reference(params, cfg)[0],
+                                                    cfg, grid), plans, cfg, grid)
+    elif train_ref:
         model = EPSesPlusLinearReference(params, cfg).to(device)
     else:
         model = EPSesPlusLinear.from_reference(params, cfg, device=device)
     del params
-    world = 1 if mesh is None else mesh.world_size
-    per_dev = kw["batch_size"] // world  # each rank's batch
-    if mesh is not None:
+    world = 1 if mesh is None else mesh.data_size
+    per_dev = kw["batch_size"] // world  # each data rank's batch
+    if mesh is not None and grid is None:
         from ..parallel import replicate
 
         replicate(mesh, model.parameters())  # rank 0's init on every rank
@@ -679,7 +770,25 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
             )
     step_kw = dict(frozen_eps_indices=kw["freeze_eps"], with_probs=kw["tb_batches"],
                    grad_accum_steps=kw["grad_accum_steps"])
-    if mesh is not None:
+    if tp:
+        from ..parallel import make_tp_fast_train_step, make_tp_train_step
+
+        if train_ref:
+            step = make_tp_train_step(model, optimizer, kw["reg_type"], kw["reg_coeff"],
+                                      backend=ref_backends[0], **step_kw)
+        else:
+            step = make_tp_fast_train_step(model, optimizer, kw["reg_type"], kw["reg_coeff"],
+                                           qat=qat, **step_kw)
+    elif sp:
+        from ..parallel import make_sp_fast_train_step, make_sp_train_step
+
+        if train_ref:
+            step = make_sp_train_step(model, optimizer, grid, kw["reg_type"], kw["reg_coeff"],
+                                      backend=ref_backends[0], **step_kw)
+        else:
+            step = make_sp_fast_train_step(model, optimizer, grid, kw["reg_type"],
+                                           kw["reg_coeff"], qat=qat, **step_kw)
+    elif mesh is not None:
         from ..parallel import make_parallel_fast_train_step, make_parallel_train_step
 
         if train_ref:
@@ -693,7 +802,7 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     else:
         step = make_fast_train_step(model, optimizer, kw["reg_type"], kw["reg_coeff"], qat=qat,
                                     **step_kw)
-    if not train_ref:
+    if not train_ref and grid is None:
         _hint_saved_t_recipe(cfg, plans, per_dev, kw["grad_accum_steps"])
     eval_kernels = KERNELS if qat is None else QAT_KERNELS
     if qat is not None:
@@ -701,11 +810,21 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
                     "score the quantized forward")
 
     def params_view(params):
-        """The reference layout of the loop's params (``state.params``)."""
+        """The reference layout of the loop's params (``state.params``):
+        under tensor parallelism the model group's shards gathered, which
+        every rank of the group must call."""
+        if tp:
+            from ..parallel import merge_tp_fast_params, merge_tp_params
+
+            if train_ref:
+                return merge_tp_params(params, cfg, grid, shard_all)
+            return reference_params_from_fast(merge_tp_fast_params(params, cfg, grid), cfg, plans)
         return params if train_ref else reference_params_from_fast(params, cfg, plans)
 
     def eval_params(params):
         """The loop's params in the eval backend's layout."""
+        if grid is not None:  # one layout for both backends
+            return params
         if eval_ref:
             return params_view(params)
         return fast_params_from_reference(params, cfg, plans)[0] if train_ref else params
@@ -715,6 +834,17 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
         if eval_ref:
             return eps_plus_linear_forward(params, xb, cfg)
         return eps_plus_linear_forward_fast(params, xb, cfg, plans, kernels=eval_kernels)
+
+    if tp:
+        from ..parallel import make_tp_fast_forward, make_tp_forward
+
+        eval_forward = (make_tp_forward(cfg, grid, shard_all, ref_backends[1]) if eval_ref
+                        else make_tp_fast_forward(cfg, plans, grid, qat))
+    elif sp:
+        from ..parallel import make_sp_forward
+
+        eval_forward = make_sp_forward(cfg, grid, None if eval_ref else plans, qat,
+                                       ref_backends[1])
 
     def forward(params, xb):
         return eval_forward(eval_params(params), xb)
@@ -740,7 +870,33 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     )
 
     n_eval_train = kw["eval_train_subset"] or len(splits.train)
-    if mesh is None:
+    if grid is not None:
+        # the one-device batch stream (runner.py:1203-1260): each step's global
+        # batch, each rank its data shard of it; a rank holds the whole train
+        # split (under SP its block of the padded rows)
+        from ..parallel import shard_split, sp_row_block, sp_shard_split
+
+        split_of = sp_shard_split if sp else shard_split
+        x_tr = torch.as_tensor(np.ascontiguousarray(sp_row_block(splits.train.x, grid))
+                               if sp else splits.train.x, device=device)
+        y_tr = torch.as_tensor(splits.train.y.astype(np.int64), device=device)
+        tr_eval = (split_of(grid, splits.train.x[:, :n_eval_train],
+                            np.asarray(splits.train.y)[:n_eval_train]),)
+        val_eval = (split_of(grid, splits.val.x, np.asarray(splits.val.y)),)
+        batcher = Batcher(splits.train, kw["batch_size"], shuffle=True, drop_last=True,
+                          seed=kw["seed"])
+        if len(batcher) == 0:
+            raise click.BadParameter(
+                f"--batch-size {kw['batch_size']} is over the {len(splits.train)} training images"
+            )
+        index_stream = batcher.indices_forever()
+        lo = grid.data_index * per_dev
+
+        def gather(idx):
+            """This rank's data shard of the global batch ``idx``."""
+            own = idx[lo : lo + per_dev]
+            return x_tr.index_select(1, own), y_tr.index_select(0, own)
+    elif mesh is None:
         x_tr = torch.as_tensor(splits.train.x, device=device)
         y_tr = torch.as_tensor(splits.train.y.astype(np.int64), device=device)
         x_val = torch.as_tensor(splits.val.x, device=device)
@@ -791,7 +947,14 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     resume_step = 0
     if kw["resume_from"]:
         try:
-            resume_step = load_train_state(kw["resume_from"], model, optimizer, cfg, plans, generator)
+            if tp:
+                from ..parallel import load_tp_train_state
+
+                resume_step = load_tp_train_state(kw["resume_from"], model, optimizer, plans,
+                                                  generator)
+            else:
+                resume_step = load_train_state(kw["resume_from"], model, optimizer, cfg, plans,
+                                               generator)
             with np.load(kw["resume_from"]) as d:
                 written_by_jax = "generator_state" not in d.files
         except (KeyError, ValueError) as e:
@@ -809,7 +972,8 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
         # the resumed run takes the batches the unbroken run would have
         for _ in range(resume_step):
             next(index_stream)
-        _check_resumed_stream(kw["resume_from"], world, index_stream)
+        # a grid's batches are the one-device stream's
+        _check_resumed_stream(kw["resume_from"], 1 if grid is not None else world, index_stream)
 
     schedule = every_n_iters_intervals(*kw["eval_schedule"])
     # hook_s: each named hook's seconds, call by call
@@ -864,12 +1028,20 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     def save_train_state(state: TrainLoopState, completed_offset: int = 0) -> None:
         """The full train state. ``completed_offset`` is 1 after a step (the
         preemption hook after the step): ``num_iters_done`` then names the
-        iteration just done and the generator already stands at the next."""
-        arrays = train_state_arrays(model, optimizer, state.num_iters_done + completed_offset,
-                                    plans, generator, seed=train_seed)
-        if mesh is not None:
-            arrays.update(index_stream_arrays(
-                *stream_position(state.num_iters_done + completed_offset), world))
+        iteration just done and the generator already stands at the next.
+        Under tensor parallelism every rank gathers its model group's shards
+        (the layout one device holds) and rank 0 writes."""
+        step_no = state.num_iters_done + completed_offset
+        if tp:
+            from ..parallel import tp_train_state_arrays
+
+            arrays = tp_train_state_arrays(model, optimizer, step_no, generator, seed=train_seed)
+            if primary:
+                writer.submit(arrays, os.path.join(output_dir, "train_state_latest.npz"))
+            return
+        arrays = train_state_arrays(model, optimizer, step_no, plans, generator, seed=train_seed)
+        if mesh is not None and grid is None:
+            arrays.update(index_stream_arrays(*stream_position(step_no), world))
         writer.submit(arrays, os.path.join(output_dir, "train_state_latest.npz"))
 
     metrics = (("train_acc", False), ("val_acc", False), ("train_mean_ce", True), ("val_mean_ce", True))
@@ -878,14 +1050,27 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     # the ranks' summed evals and mean loss); the writing hooks on the
     # ranks that write
     at_iter_start = [schedule(timed(evaluate_and_log))]
+    ckpt_view = params_view
+    if tp:
+        # the writers' reference params: the model group's shards, gathered on
+        # every rank at each scheduled iteration before rank 0 writes them
+        merged = {}
+
+        def gather_for_writers(state: TrainLoopState) -> None:
+            merged["params"] = params_view(state.params)
+
+        at_iter_start.append(schedule(timed(gather_for_writers)))
+        ckpt_view = lambda params: merged["params"]  # noqa: E731
     if writes_logs:
         at_iter_start.append(schedule(timed(log_parameters_stats)))
+    if tp and not primary:
+        at_iter_start.append(schedule(timed(save_train_state)))  # its gathers
     if primary:
-        best_ckpts = [BestModelCheckpointer(output_dir, k, low, writer, params_view=params_view)
+        best_ckpts = [BestModelCheckpointer(output_dir, k, low, writer, params_view=ckpt_view)
                       for k, low in metrics]
         at_iter_start += [
             schedule(timed(LastModelsCheckpointer(output_dir, kw["keep_last_models"], writer,
-                                                  params_view=params_view))),
+                                                  params_view=ckpt_view))),
             schedule(timed(save_train_state)),
         ] + [schedule(timed(c)) for c in best_ckpts]
     if es_metrics:
@@ -895,6 +1080,7 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     nan_stopper = make_stopper_on_nan_loss(
         output_dir, forward, params_view=params_view, replay_step=step, replay_gather=gather,
         interactive=kw["breakpoint_on_nan_loss"] and primary, write_files=primary,
+        views_on_every_rank=tp or sp,
     )
     after_step = [schedule(timed(nan_stopper))]
     metrics_writer = None
@@ -917,7 +1103,7 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
             metrics_writer.add_histogram("probs_of_true_class", probs, nitd)
             if raw_images is not None and raw_images.ndim == 3:
                 sel = state.batch_indices.cpu().numpy()
-                if mesh is not None:
+                if mesh is not None and grid is None:
                     # rank d's row holds positions in its shard, which starts
                     # at d·n_local: the gathered probabilities' order
                     sel = np.arange(world)[:, None] * tr_split.n_local + sel
@@ -927,18 +1113,28 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
             metrics_writer.flush()
 
         after_step.append(schedule(timed(log_batch_to_tb, "tb_batches")))
-    if writes_logs and kw["log_intermediate_outputs"]:
+    if (writes_logs or tp) and kw["log_intermediate_outputs"]:
         probe = torch.as_tensor(splits.train.x[:, :64], device=device)
 
         def log_intermediates(state: TrainLoopState) -> None:
             """Each layer's output on the probe images (runner.py:1649-1678):
             the fast layout's through the forward kernel, the reference
-            layout's through the plain eps."""
+            layout's through the plain eps. Under tensor parallelism every
+            rank gathers the whole parameters, and the logging ranks log
+            the one-device model's outputs; under spatial parallelism the
+            parameters are whole on every rank."""
+            params = state.params
+            if tp:
+                params = params_view(params)
+                if not writes_logs:
+                    return
+                if not train_ref or kw["train_backend"] != "xla":
+                    params = fast_params_from_reference(params, cfg, plans)[0]
             with torch.no_grad():
-                if train_ref:
-                    named = eps_plus_linear_named_outputs(state.params, probe, cfg)
+                if train_ref and not (tp and kw["train_backend"] != "xla"):
+                    named = eps_plus_linear_named_outputs(params, probe, cfg)
                 else:
-                    named = eps_plus_linear_named_outputs_fast(state.params, probe, cfg, plans)
+                    named = eps_plus_linear_named_outputs_fast(params, probe, cfg, plans)
             log_named_outputs(metrics_writer, named, state.num_iters_done, DEFAULT_TRANSFORMS)
             log_named_outputs(metrics_writer, named, state.num_iters_done,
                               (log_logits_as_probabilities,),
@@ -963,7 +1159,8 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
         at_iter_start.insert(0, profile)
 
     state = TrainLoopState(
-        params=model.reference_params() if train_ref else model.fast_params(),
+        params=(model.params3() if train_ref else model.fast_params3()) if tp else
+        model.reference_params() if train_ref else model.fast_params(),
         opt_state=optimizer, rng=generator, num_iters_done=resume_step,
     )
     state.extras.update(output_dir=output_dir, cfg=cfg, model=model, step=step, gather=gather,
@@ -971,7 +1168,8 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     nan_stopper.enable_replay(state)
     # an epoch of index batches a copy; under data parallelism (W, b) arrays,
     # an epoch of the smallest shard
-    epoch = len(batcher) if mesh is None else max(min(index_stream.valid_per_shard) // per_dev, 1)
+    epoch = (len(batcher) if mesh is None or grid is not None
+             else max(min(index_stream.valid_per_shard) // per_dev, 1))
     batches = _device_batches(index_stream, epoch, device)
     with contextlib.ExitStack() as stack:
         if kw["debug_nans"]:
@@ -979,7 +1177,8 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
             logger.info("torch.autograd anomaly detection (check_nan) enabled")
         if kw["preempt_save"]:
             preempt = stack.enter_context(PreemptionHandler())
-            preempt_save = save_train_state if primary else (lambda st, completed_offset=0: None)
+            preempt_save = (save_train_state if primary or tp
+                            else (lambda st, completed_offset=0: None))
             if mesh is not None:
                 # agreed every --preempt-sync-steps iterations: every rank
                 # stops at the same step
@@ -1011,9 +1210,11 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
         timing["evals"], 1e3 * timing["eval_s"] / max(timing["evals"], 1),
     )
     logger.info("training stopped: %s at %d iters", state.stop_reason, state.num_iters_done)
-    if kw["export_artifact"] and primary:
-        _export_final(kw, params_view(state.params), cfg, int(splits.train.x.shape[0]), device,
-                      "xla" if eval_ref else "pallas")
+    if kw["export_artifact"] and (primary or tp):
+        final = params_view(state.params)  # under TP the model group's gather
+        if primary:
+            _export_final(kw, final, cfg, int(splits.train.x.shape[0]), device,
+                          "xla" if eval_ref and kw["eval_backend"] == "xla" else "pallas")
     return state
 
 

@@ -705,6 +705,7 @@ def eps_apply_t_cmt(
     layer_index: int,
     kernels: EPSKernels = KERNELS,
     pixel_scale: int = 1,
+    save_shapes: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """One EPS layer on the matricized core (eps_pallas.py:924-980):
     ``xT`` (C, Q, H, W, B) → ``outT`` (O, H', W', B), differentiable in
@@ -718,15 +719,26 @@ def eps_apply_t_cmt(
     pixels. A data-parallel QAT step passes its rank count, so that every
     rank takes the arm that one device takes on the whole batch
     (``forward_fast_q8train``'s ``pixel_scale``, eps_pallas_q8.py:383-416);
-    the f32 step plans each rank on its own pixels (1)."""
+    the f32 step plans each rank on its own pixels (1).
+
+    ``save_shapes``: the unsharded ``(out_size, npix)`` that
+    ``plan_backward`` decides on instead (``apply_q8train_layer``'s
+    ``save_shapes``, eps_pallas_q8.py:327-366), for a rank that runs a row
+    block of the core (tensor parallelism: the whole O) or a slab of the
+    image (spatial parallelism: the valid global height, the batch of every
+    data rank), so that every rank takes the arm one device takes; the QAT
+    steps of those layouts pass it (the arm changes the STE gradient), their
+    f32 steps plan on the rank's own shapes, as JAX's ``plan_pallas_call``
+    does on the shard's."""
     c, q, h, w, b = xT.shape
     hp, wp = h - kernel_size + 1, w - kernel_size + 1
     n_k, q_k, n1_k = _kernel_dims(c, q, kernel_size, n1, merge_pairs)
     views_t, npix = _stack_views_from_xT(xT, kernel_size, merge_pairs)
+    plan_out, plan_npix = (out_size, npix * pixel_scale) if save_shapes is None else save_shapes
     save_t = (
         torch.is_grad_enabled()
         and xT.requires_grad
-        and plan_backward(layer_index, n_k, n1_k, q_k, out_size, npix * pixel_scale) == "saved_t"
+        and plan_backward(layer_index, n_k, n1_k, q_k, plan_out, plan_npix) == "saved_t"
     )
     out = EPSApplyTCmt.apply(views_t, cmt, n1_k, out_size, save_t, kernels)
     return out.reshape(out_size, hp, wp, b)

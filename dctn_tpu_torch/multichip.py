@@ -1,6 +1,7 @@
-"""The data-parallel paths on several cards: the torch counterpart of the
-JAX package's multichip dry run (``__graft_entry__.py::dryrun_multichip``,
-its DP paths in ``MULTICHIP_r05.json``), with the times of each.
+"""The data-, tensor- and spatial-parallel paths on several cards: the torch
+counterpart of the JAX package's multichip dry run
+(``__graft_entry__.py::dryrun_multichip``, its DP, TP and SP paths in
+``MULTICHIP_r05.json``; SP×TP is ROADMAP item 19c), with the times of each.
 
     python -m dctn_tpu_torch.multichip --devices 4 [--profile DIR]
     python -m dctn_tpu_torch.multichip --devices 2 --device cpu --small   # gloo rehearsal
@@ -36,6 +37,23 @@ the global batch, an isolated all-reduce of the step's gradient buffer, and with
 kernels on rank 0 under ``torch.profiler`` (the NCCL kernel's time
 includes its wait for the slowest rank) and the device's idle share.
 
+Then the TP and SP paths on grids of the same ranks (``parallel.make_grid``;
+TP (N/2 data, 2 model), SP (N/2, 2) and from 4 ranks (1, N)), each held
+against one card on the whole batch as above (``tp_last_core``: the
+reference layout's last core sharded, xla; ``tp_shard_all``: every core,
+each layer on the kernels' route of ``ops.eps``; ``tp_fast_cmt_pallas`` and
+``tp_qat_int8_train``: the last cmt's row block, f32 and int8;
+``sp_halo_exchange``: the reference layout, xla; ``sp_fast_cmt_pallas(+dropout)``
+on both SP grids; ``sp_qat_int8_train``): a TP model's gradients and moves
+gathered over its model group, every replicated parameter equal on every
+rank and every shard on the ranks of its model coordinate. Then their
+times: the flagship f32 and QAT steps at 128 a data rank on the TP and the
+(N/2, 2) SP grid (f32 also on (1, N)), and the deep model at global 2048 on
+(1, N), each beside one card at the data rank's batch (and at the global
+batch): step ms p50, images/s, launches per step, each card's peak memory,
+the deep model's layer-1 arm, and with ``--profile`` the NCCL kernels' and
+all kernels' device ms a step and the idle share on rank 0.
+
 Then, in this process, with a replica on each card (``parallel.replicas``):
 ``dp_sharded_predict`` and ``dp_sharded_predict_int8`` (``predict.run
 --mesh-devices N`` at global batch 512 beside one card; every replica's
@@ -68,6 +86,8 @@ import torch
 FLAGSHIP = ((4, 4), (3, 6))
 DEEP = ((4, 4), (3, 12), (2, 24))
 SMALL = ((2, 4), (2, 3))
+# the grid paths' small model: every O divides a model axis of 2
+SMALL_GRID = ((2, 4), (2, 4))
 # every gradient of the first step, DP against one card on the concatenated
 # batch, as a share of the parameter's largest entry: the two sum the
 # cross-entropy's gradient over other partitions of the pixels (per rank,
@@ -116,9 +136,11 @@ def sizes(small: bool) -> dict:
     rehearsal)."""
     if small:
         return dict(specs=SMALL, check_b=4, time_b=8, steps=3, warmup=1, deep=None, deep_b=0,
-                    sbs_bond=2, sbs_global=16, predict_b=16, sbs_layers=2)
+                    sbs_bond=2, sbs_global=16, predict_b=16, sbs_layers=2,
+                    grid_specs=SMALL_GRID, deep_sp_global=0)
     return dict(specs=FLAGSHIP, check_b=16, time_b=128, steps=30, warmup=3, deep=DEEP,
-                deep_b=512, sbs_bond=4, sbs_global=512, predict_b=512, sbs_layers=2)
+                deep_b=512, sbs_bond=4, sbs_global=512, predict_b=512, sbs_layers=2,
+                grid_specs=FLAGSHIP, deep_sp_global=2048)
 
 
 # ---------------------------------------------------------------------------
@@ -547,6 +569,324 @@ def _time_sbs(mesh, z, trace_edge, opts):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# tensor and spatial parallelism on grids of the ranks
+
+
+def _grids(n: int):
+    """The TP grid, (n/2 data, 2 model), and the SP grids, (n/2 data, 2
+    space) and, from 4 ranks, (1 data, n space)."""
+    return (n // 2, 2), [(n // 2, 2)] + ([(1, n)] if n > 2 else [])
+
+
+def _keyed(model) -> dict:
+    """One card's parameters by train-state key."""
+    from .train.checkpoint import _param_names
+
+    return dict(_param_names(model))
+
+
+def _tp_whole(model, of_grad: bool) -> dict:
+    """The TP model group's parameters (or their gradients) gathered, by
+    train-state key, in one card's layout (every rank of the group calls)."""
+    from .parallel.tensor_parallel import _full
+
+    out = {}
+    for key, p, dim in model.shards():
+        t = _full(p.grad if of_grad else p, dim, model.mesh)
+        out[key] = t.reshape(-1, model.cfg.num_classes) if key == "linear/w" else t
+    return out
+
+
+def _tp_trajectory(g, model, opt, step, one_card, what: str) -> dict:
+    """``_trajectory`` for a TP model: the first step's gradients gathered
+    over the model group against one card's (DP_TOL), each shard's lr from
+    its whole parameter's, CHECK_STEPS steps; then every replicated
+    parameter equal on every rank and every shard equal on the ranks of
+    its model coordinate, bit for bit, and the gathered moves against one
+    card's (TRAJ_TOL)."""
+    from .bench import read_counters, zero_counters
+
+    zero_counters()
+    first = float(step())
+    grads, params = _tp_whole(model, True), _tp_whole(model, False)
+    lrs = {}
+    for key in grads:
+        top = float(grads[key].abs().max())
+        lrs[key] = REL_STEP * float(params[key].abs().max()) / top if top > 0 else 0.0
+    key_of = {id(p): key for key, p, _ in model.shards()}
+    for group in opt.param_groups:
+        group["lr"] = lrs[key_of[id(group["params"][0])]]
+    init = {k: v.clone() for k, v in params.items()}
+    losses = [first] + [float(step()) for _ in range(CHECK_STEPS)]
+    launches = read_counters()
+    rec = {"losses": losses, "launches_per_step": {
+        k: v / (CHECK_STEPS + 1) for k, v in launches.items() if v}}
+    check(all(np.isfinite(losses)), f"{what}: non-finite loss {losses}")
+    digest = torch.stack([torch.stack([p.detach().double().sum(), p.detach().double().abs().max()])
+                          for _, p, _ in model.shards()])
+    rows = g.all_gather_cat(digest[None])
+    same = []
+    for i, (_, _, dim) in enumerate(model.shards()):
+        peers = [r for r in range(g.world_size) if dim is None or r % g.n_other == g.other_index]
+        same.append(bool((rows[peers, i] == rows[g.rank, i]).all()))
+    rec["ranks_equal"] = check(all(same), f"{what}: the ranks' parameters differ after "
+                                          f"{CHECK_STEPS} steps")
+    final = _tp_whole(model, False)
+    if g.is_primary:
+        one, opt1, step1 = one_card()
+        rec["one_card_loss"] = float(step1())
+        named = _keyed(one)
+        rec["gradient_gap"] = _grads_agree([grads[k] for k in named],
+                                           [p.grad for p in named.values()], what)
+        for group in opt1.param_groups:
+            group["lr"] = lrs[next(k for k, p in named.items() if p is group["params"][0])]
+        for _ in range(CHECK_STEPS):
+            step1()
+        rec["trajectory_gap"] = _moves_agree([init[k] for k in named], [final[k] for k in named],
+                                             list(named.values()), what)
+    g.barrier()
+    return rec
+
+
+def _grid_problem(z, dev, n_data, b, specs=None, dropout_p=1.0, seed=1):
+    from .models import EPSesPlusLinearConfig, init_eps_plus_linear
+
+    specs = specs or z["grid_specs"]
+    cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=28, q0=2, dropout_p=dropout_p)
+    params = init_eps_plus_linear(torch.Generator().manual_seed(seed), cfg,
+                                  "unit_theoretical_output_std", dev)
+    x, y = _data(specs, n_data * b)
+    return cfg, params, x, y
+
+
+def _tp_check(mesh, z, dims, kind) -> dict:
+    """A TP step on a (data, model) grid against one card's on the whole
+    batch: ``kind`` "last_xla" (the reference layout, the last core sharded,
+    the xla backend), "shard_all_pallas" (every core sharded, each layer on
+    the kernels' route of ``ops.eps``), "fast" or "qat" (the fast layout's
+    row block, f32 or int8)."""
+    from .models import EPSesPlusLinear, EPSesPlusLinearReference
+    from .models.eps_plus_linear import fast_params_from_reference
+    from .parallel import (TPFastModel, TPModel, make_grid, make_tp_fast_params,
+                           make_tp_fast_train_step, make_tp_params, make_tp_train_step)
+    from .train import make_fast_train_step, make_train_step
+
+    g = make_grid(mesh, "model", *dims)
+    dev, b = mesh.device, z["check_b"]
+    cfg, params, x, y = _grid_problem(z, dev, g.n_data, b)
+    xg, yg = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    sl = slice(g.data_index * b, (g.data_index + 1) * b)
+    qat = "int8" if kind == "qat" else None
+    if kind in ("fast", "qat"):
+        fast, plans = fast_params_from_reference(params, cfg)
+        model = TPFastModel(make_tp_fast_params(fast, cfg, g), plans, cfg, g)
+        opt = _sgd(model)
+        step = make_tp_fast_train_step(model, opt, "epswise", 1e-4, qat=qat)
+
+        def one_card():
+            one = EPSesPlusLinear.from_reference(params, cfg)
+            opt1 = _sgd(one)
+            step1 = make_fast_train_step(one, opt1, "epswise", 1e-4, qat=qat)
+            return one, opt1, lambda: step1(xg, yg)["loss"]
+    else:
+        shard_all = kind == "shard_all_pallas"
+        model = TPModel(make_tp_params(params, cfg, g, shard_all), cfg, g, shard_all)
+        opt = _sgd(model)
+        step = make_tp_train_step(model, opt, "epses_composition", 1e-4,
+                                  backend="pallas" if shard_all else "xla")
+
+        def one_card():
+            one = EPSesPlusLinearReference(params, cfg).to(dev)
+            opt1 = _sgd(one)
+            step1 = make_train_step(one, opt1, "epses_composition", 1e-4)
+            return one, opt1, lambda: step1(xg, yg)["loss"]
+
+    rec = _tp_trajectory(g, model, opt, lambda: step(xg[:, sl], yg[sl])["loss"], one_card,
+                         f"tp {kind} grid {dims}")
+    return {"grid": {"data": dims[0], "model": dims[1]}, **rec}
+
+
+def _sp_check(mesh, z, dims, kind) -> dict:
+    """An SP step on a (data, space) grid against one card's on the whole
+    batch: ``kind`` "halo_xla" (the reference layout, the xla backend),
+    "fast_dropout" (the fast layout's kernels on each slab, parameter
+    dropout at p = 0.9 with one draw everywhere) or "qat"."""
+    from .models import EPSesPlusLinear, EPSesPlusLinearReference
+    from .models.eps_plus_linear import draw_dropout_masks
+    from .parallel import make_grid, make_sp_fast_train_step, make_sp_train_step, sp_shard_batch
+    from .train import make_fast_train_step, make_train_step
+
+    g = make_grid(mesh, "space", *dims)
+    dev, b = mesh.device, z["check_b"]
+    p = 0.9 if kind == "fast_dropout" else 1.0
+    cfg, params, x, y = _grid_problem(z, dev, g.n_data, b, dropout_p=p)
+    xg, yg = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    xs, ys = sp_shard_batch(g, x, y)
+    masks = None
+    qat = "int8" if kind == "qat" else None
+    if kind == "halo_xla":
+        model = EPSesPlusLinearReference(params, cfg).to(dev)
+        opt = _sgd(model)
+        step = make_sp_train_step(model, opt, g, "epses_composition", 1e-4)
+
+        def one_card():
+            one = EPSesPlusLinearReference(params, cfg).to(dev)
+            opt1 = _sgd(one)
+            step1 = make_train_step(one, opt1, "epses_composition", 1e-4)
+            return one, opt1, lambda: step1(xg, yg)["loss"]
+    else:
+        model = EPSesPlusLinear.from_reference(params, cfg)
+        if p < 1.0:
+            masks = draw_dropout_masks(model.plans, p, torch.Generator(device=dev).manual_seed(5))
+        opt = _sgd(model)
+        step = make_sp_fast_train_step(model, opt, g, "epswise", 1e-4, qat=qat)
+
+        def one_card():
+            one = EPSesPlusLinear.from_reference(params, cfg)
+            opt1 = _sgd(one)
+            step1 = make_fast_train_step(one, opt1, "epswise", 1e-4, qat=qat)
+            return one, opt1, lambda: step1(xg, yg, masks=None if masks is None else [masks])[
+                "loss"]
+
+    rec = _trajectory(g, model, opt, lambda: step(xs, ys, masks=None if masks is None else [
+        masks])["loss"], one_card, f"sp {kind} grid {dims}")
+    return {"grid": {"data": dims[0], "space": dims[1]}, **rec}
+
+
+def _time_grid(mesh, z, name, axis, dims, specs, b, qat, opts, global_batch=None) -> dict:
+    """Times the fast-layout step on a grid at ``b`` images a data rank (or
+    at ``global_batch``), beside one card at ``b`` (and at the global
+    batch): step ms p50, images/s, launches per step, the saved-t arm of
+    each layer, each card's peak memory, and with ``--profile`` the NCCL
+    kernels' and all kernels' device ms a step and the idle share."""
+    from .bench import read_counters, zero_counters
+    from .kernels import eps_kernels as K
+    from .models import EPSesPlusLinear, EPSesPlusLinearConfig, init_eps_plus_linear
+    from .models.eps_plus_linear import _plan_dims, fast_params_from_reference
+    from .parallel import (TPFastModel, make_grid, make_sp_fast_train_step,
+                           make_tp_fast_params, make_tp_fast_train_step, sp_shard_batch)
+    from .train import make_fast_train_step, make_optimizer
+
+    g = make_grid(mesh, axis, *dims)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    deep = specs == DEEP
+    batch = global_batch or g.n_data * b
+    b = batch // g.n_data
+    cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=28, q0=2)
+    params = init_eps_plus_linear(torch.Generator().manual_seed(0), cfg,
+                                  "unit_theoretical_output_std", dev)
+    x, y = _data(specs, batch)
+    reg = ("epses_composition", 0.1) if deep else ("epswise", 1e-6)
+    lr = 1e-3 if deep else 3e-3
+    if axis == "model":
+        fast, plans = fast_params_from_reference(params, cfg)
+        model = TPFastModel(make_tp_fast_params(fast, cfg, g), plans, cfg, g)
+        opt = make_optimizer("adam", model.parameters(), lr)
+        step = make_tp_fast_train_step(model, opt, *reg, qat=qat)
+        sl = slice(g.data_index * b, (g.data_index + 1) * b)
+        xs = torch.as_tensor(x[:, sl], device=dev)
+        ys = torch.as_tensor(y[sl], device=dev)
+    else:
+        model = EPSesPlusLinear.from_reference(params, cfg)
+        opt = make_optimizer("adam", model.parameters(), lr)
+        step = make_sp_fast_train_step(model, opt, g, *reg, qat=qat)
+        xs, ys = sp_shard_batch(g, x, y)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
+    step(xs, ys)
+    launches = read_counters()
+    steps = 5 if deep else z["steps"]
+    per, window = _timed(lambda: step(xs, ys), steps, 1 if deep else z["warmup"], dev)
+    rec = {"path": name, "grid": {"data": g.n_data, axis: g.n_other}, "per_data_rank_batch": b,
+           "global_batch": batch, "qat": qat, "step_ms_p50": statistics.median(per),
+           "images_per_s": batch * steps / window,
+           "launches_per_step": {k: v for k, v in launches.items() if v},
+           # layer 0 never saves t; a later layer that launches K1+t reads it
+           "saved_t_layers_launched": launches["eps_fwd_t"] + launches.get("eps_fwd_q8_t", 0),
+           "recompute_layers_launched": launches["eps_dviews_recompute"]}
+    if cuda:
+        rec["peak_memory_gib"] = g.all_gather_object(
+            torch.cuda.max_memory_allocated(dev) / 2**30)
+    if deep:
+        # layer 1's arm under the cap on t, on this rank's pixels (its rows)
+        p1 = model.plans[1]
+        n_k, q_k, n1_k = _plan_dims(p1)
+        w1 = 28 - specs[0][0] - specs[1][0] + 2
+        npix = b * (xs.shape[2] if axis == "space" else w1) * w1
+        rec["layer1_local_pixels"] = npix
+        rec["layer1_arm"] = K.plan_backward(1, n_k, n1_k, q_k, p1["out_size"], npix)
+        rec["layer1_t_gib"] = p1["out_size"] * q_k ** (n_k - n1_k) * npix * 4 / 2**30
+    if opts.profile and cuda:
+        out = (os.path.join(opts.profile, f"profile_{name}_rank{mesh.rank}.txt")
+               if mesh.is_primary else None)
+        rec.update(_profiled(lambda: step(xs, ys), dev, out, rec["step_ms_p50"]))
+    del model, opt, step
+    if cuda:
+        torch.cuda.empty_cache()
+    one_sizes = [b] + ([batch] if batch != b else [])
+    if mesh.is_primary:
+        for bb in one_sizes:
+            x1, y1 = (torch.as_tensor(a[..., :bb] if a.ndim == 1 else a[:, :bb], device=dev)
+                      for a in (x, y))
+            one = EPSesPlusLinear.from_reference(params, cfg)
+            opt1 = make_optimizer("adam", one.parameters(), lr)
+            step1 = make_fast_train_step(one, opt1, *reg, qat=qat)
+            if cuda:
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            per1, window1 = _timed(lambda: step1(x1, y1), 3 if bb > 1024 else steps,
+                                   1 if bb > 1024 else min(z["warmup"], 2), dev)
+            rec[f"one_card_bs{bb}_step_ms_p50"] = statistics.median(per1)
+            rec[f"one_card_bs{bb}_images_per_s"] = bb * len(per1) / window1
+            if cuda:
+                rec[f"one_card_bs{bb}_peak_memory_gib"] = (
+                    torch.cuda.max_memory_allocated(dev) / 2**30)
+            del one, opt1, step1
+            if cuda:
+                torch.cuda.empty_cache()
+    g.barrier()
+    return rec
+
+
+def _grid_paths(mesh, z, opts) -> tuple:
+    """The TP and SP paths' checks and times on this rank; rank 0 prints
+    the records. Returns (paths, times)."""
+    tp_dims, sp_dims = _grids(mesh.world_size)
+    paths, times = [], []
+    for kind, name in (("last_xla", "tp_last_core"), ("shard_all_pallas", "tp_shard_all"),
+                       ("fast", "tp_fast_cmt_pallas"), ("qat", "tp_qat_int8_train")):
+        emit(mesh, {"path": name, **_tp_check(mesh, z, tp_dims, kind)})
+        paths.append(name)
+    emit(mesh, {"path": "sp_halo_exchange", **_sp_check(mesh, z, sp_dims[0], "halo_xla")})
+    paths.append("sp_halo_exchange")
+    for dims in sp_dims:
+        emit(mesh, {"path": "sp_fast_cmt_pallas(+dropout)",
+                    **_sp_check(mesh, z, dims, "fast_dropout")})
+    paths.append("sp_fast_cmt_pallas(+dropout)")
+    emit(mesh, {"path": "sp_qat_int8_train", **_sp_check(mesh, z, sp_dims[-1], "qat")})
+    paths.append("sp_qat_int8_train")
+    b = z["time_b"]
+    for qat in (None, "int8"):
+        tag = "qat" if qat else "f32"
+        times.append(_time_grid(mesh, z, f"tp_flagship_{tag}_step", "model", tp_dims,
+                                z["grid_specs"], b, qat, opts))
+        times.append(_time_grid(mesh, z, f"sp_flagship_{tag}_step", "space", sp_dims[0],
+                                z["grid_specs"], b, qat, opts))
+    if len(sp_dims) > 1:
+        times.append(_time_grid(mesh, z, "sp_flagship_f32_step", "space", sp_dims[1],
+                                z["grid_specs"], b, None, opts))
+    if z["deep"] is not None:
+        times.append(_time_grid(mesh, z, "deep_sp_step", "space", sp_dims[-1], z["deep"], 0,
+                                None, opts, global_batch=z["deep_sp_global"]))
+    for t in times:
+        emit(mesh, {"metric": "grid_step_time", **t})
+    return paths, times
+
+
 def _rank_paths(mesh, opts) -> dict:
     """Every rank's share of the DP paths; rank 0 prints the records."""
     z = sizes(opts.small)
@@ -563,6 +903,8 @@ def _rank_paths(mesh, opts) -> dict:
     rec, cores, sbs_cfg = _sbs_check(mesh, z)
     emit(mesh, {"path": "conv_sbs_dp_train(+sharded_score)", **rec})
     paths.append("conv_sbs_dp_train(+sharded_score)")
+    grid_paths, grid_times = _grid_paths(mesh, z, opts)
+    paths += grid_paths
     times = [_time_eps(mesh, z, "flagship_f32_step", z["specs"], z["time_b"], None, opts),
              _time_eps(mesh, z, "flagship_qat_step", z["specs"], z["time_b"], "int8", opts)]
     if z["deep"] is not None:
@@ -572,7 +914,7 @@ def _rank_paths(mesh, opts) -> dict:
         emit(mesh, {"metric": "dp_step_time", **t})
     failed = [f"rank {r}: {what}" for r, whats in enumerate(mesh.all_gather_object(_FAILED))
               for what in whats]
-    return {"paths": paths, "times": times, "sbs_cores": cores, "sbs_cfg": sbs_cfg,
+    return {"paths": paths, "times": times + grid_times, "sbs_cores": cores, "sbs_cfg": sbs_cfg,
             "failed": failed}
 
 

@@ -194,14 +194,23 @@ class EPSContract(torch.autograd.Function):
 
 
 def eps(
-    core: torch.Tensor, x: torch.Tensor, split: Optional[int] = None, custom_vjp: bool = True
+    core: torch.Tensor, x: torch.Tensor, split: Optional[int] = None, custom_vjp: bool = True,
+    backend: str = "xla",
 ) -> torch.Tensor:
     """Contract an EPS ``core`` (Q,)*(K²·C) + (O,) with all K×K windows of
     ``x`` (C, B, H, W, Q), giving (B, H', W', O): the reference-layout
-    operator (eps.py:278-364), plain torch ops on any device and float
-    dtype. Differentiable in ``core`` and ``x``: through ``EPSContract``
-    (the JAX package's backward, the default), or with ``custom_vjp=False``
-    through autograd of the staged forward."""
+    operator (eps.py:278-364). Differentiable in ``core`` and ``x``.
+
+    ``backend="xla"`` (the default): plain torch ops on any device and float
+    dtype, through ``EPSContract`` (the JAX package's backward), or with
+    ``custom_vjp=False`` through autograd of the staged forward.
+    ``backend="pallas"`` (eps.py:308-330): the core turned into its cmt
+    (``_core_to_cmt_k``, differentiable) and the layer run by
+    ``eps_apply_t_cmt``: K1 (with t where the backward reads it), then
+    ``eps_dcore`` and the d_views kernel, on a CUDA tensor; their plain
+    versions on a CPU one. Its split is the same ``_balanced_split`` of
+    this core's O (a sharded core's local O), as the fast layout's; the
+    split is exact, so either route gives the same numbers."""
     num_channels, _, _, _, in_size = x.shape
     kernel_size = _infer_kernel_size(core, num_channels)
     n = kernel_size**2 * num_channels
@@ -210,6 +219,16 @@ def eps(
     out_size = core.shape[-1]
     n1 = split if split is not None else _balanced_split(n, in_size, out_size)
     n1 = max(1, min(n, n1))
+    if backend == "pallas":
+        n1, merge_pairs = plan_call(num_channels, in_size, kernel_size, n1)
+        _, q_k, n1_k = _kernel_dims(num_channels, in_size, kernel_size, n1, merge_pairs)
+        outT = eps_apply_t_cmt(
+            _core_to_cmt_k(core, n1_k, q_k), x.permute(0, 4, 2, 3, 1), out_size, kernel_size,
+            n1, merge_pairs, layer_index=1 if x.requires_grad else 0,
+        )
+        return outT.permute(3, 1, 2, 0)
+    if backend != "xla":
+        raise ValueError(f"eps backend is xla or pallas, not {backend!r}")
     views = window_views(x, kernel_size)
     if custom_vjp:
         return EPSContract.apply(core, n1, *views)

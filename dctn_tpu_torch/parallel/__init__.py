@@ -1,5 +1,6 @@
-"""Multi-GPU data parallelism (port of ``dctn_tpu/parallel``'s data-parallel
-half; tensor and spatial parallelism are ROADMAP item 19b).
+"""Multi-GPU data, tensor and spatial parallelism (port of
+``dctn_tpu/parallel``; the composed SP×TP and the height-sharded artifact
+are ROADMAP item 19c, slice 7c).
 
 Process model: one rank per card. ``--mesh-devices N`` on one host starts
 N rank processes (``mesh.spawn``, the ``spawn`` start method); rank r sets
@@ -8,14 +9,19 @@ process group, ``nccl`` on the cards or ``gloo`` with ``--device cpu``.
 ``--distributed HOST:PORT,NPROC,PID`` makes the job span NPROC host
 processes, each starting its N / NPROC local ranks (global rank
 PID·(N / NPROC) + local rank), and ``--distributed auto`` takes torchrun's
-ranks. Parameters and optimizer state are replicated, the data sharded;
-each step's gradients are averaged in one all-reduce (``data_parallel``).
-Local rank 0 of each host writes the run's logs; global rank 0 also writes
-its checkpoints, train states and artifacts. A job that asks for more
-ranks than a host has visible cards is refused before it starts; nothing
-falls back to fewer cards, to ``gloo`` on a card or to the CPU.
+ranks. Data parallelism (``data_parallel``): parameters and optimizer
+state replicated, the data sharded, each step's gradients averaged in one
+all-reduce. ``--model-devices M`` (``tensor_parallel``) or
+``--space-devices S`` (``spatial_parallel``) put the ranks on a 2-D grid
+``(data, model)`` or ``(data, space)`` (``mesh.GridMesh``), N·M or N·S
+ranks, with the collectives of ``collectives``. Local rank 0 of each host
+writes the run's logs; global rank 0 also writes its checkpoints, train
+states and artifacts. A job that asks for more ranks than a host has
+visible cards is refused before it starts; nothing falls back to fewer
+cards, to ``gloo`` on a card or to the CPU.
 """
 
+from .collectives import GridGradReduce, gather_along, psum_value_only, with_halo
 from .data_parallel import (
     GradAllReduce,
     ShardedSplit,
@@ -32,9 +38,45 @@ from .data_parallel import (
 )
 from .mesh import (
     DataMesh,
+    GridMesh,
     data_axis_size,
     initialize_distributed,
+    make_grid,
     make_mesh,
     plan_job,
     spawn,
+)
+from .spatial_parallel import (
+    make_sp_fast_train_step,
+    make_sp_forward,
+    make_sp_score_fn,
+    make_sp_train_step,
+    pad_rows,
+    sp_check_config,
+    sp_fast_forward,
+    sp_forward,
+    sp_local_rows,
+    sp_row_block,
+    sp_shard_batch,
+    sp_shard_split,
+)
+from .tensor_parallel import (
+    TPFastModel,
+    TPModel,
+    check_model_axis,
+    load_tp_train_state,
+    make_tp_fast_forward,
+    make_tp_fast_params,
+    make_tp_fast_score_fn,
+    make_tp_fast_train_step,
+    make_tp_forward,
+    make_tp_params,
+    make_tp_score_fn,
+    make_tp_train_step,
+    merge_tp_fast_params,
+    merge_tp_params,
+    tp_fast_forward,
+    tp_forward,
+    tp_reference_params,
+    tp_train_state_arrays,
 )

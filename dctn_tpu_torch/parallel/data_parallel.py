@@ -66,7 +66,7 @@ class ShardedSplit:
 
     @property
     def valid_per_shard(self) -> list:
-        return valid_per_shard(self.n_valid, self.n_local, self.mesh.world_size)
+        return valid_per_shard(self.n_valid, self.n_local, self.mesh.data_size)
 
 
 def valid_per_shard(n_valid: int, n_local: int, world_size: int) -> list:
@@ -87,9 +87,9 @@ def _pad_to_ranks(x: np.ndarray, y: np.ndarray, ndev: int, axis: int):
 
 def _shard(mesh: DataMesh, x: np.ndarray, y: np.ndarray, axis: int) -> ShardedSplit:
     n = y.shape[0]
-    x, y = _pad_to_ranks(np.asarray(x), np.asarray(y), mesh.world_size, axis)
-    n_local = y.shape[0] // mesh.world_size
-    lo, hi = mesh.rank * n_local, (mesh.rank + 1) * n_local
+    x, y = _pad_to_ranks(np.asarray(x), np.asarray(y), mesh.data_size, axis)
+    n_local = y.shape[0] // mesh.data_size
+    lo, hi = mesh.data_index * n_local, (mesh.data_index + 1) * n_local
     xs = np.take(x, np.arange(lo, hi), axis=axis)
     return ShardedSplit(
         torch.as_tensor(np.ascontiguousarray(xs), device=mesh.device),
@@ -99,8 +99,10 @@ def _shard(mesh: DataMesh, x: np.ndarray, y: np.ndarray, axis: int) -> ShardedSp
 
 
 def shard_split(mesh: DataMesh, x: np.ndarray, y: np.ndarray) -> ShardedSplit:
-    """Pad N to a multiple of the rank count (data_parallel.py:67-90) and
-    keep this rank's shard of a (C, N, H, W, Q) split on its device."""
+    """Pad N to a multiple of the data axis's size (data_parallel.py:67-90)
+    and keep this rank's shard of a (C, N, H, W, Q) split on its device:
+    the shard of its data coordinate, so that every rank of a model or
+    space group holds the same samples."""
     return _shard(mesh, x, y, 1)
 
 
@@ -115,7 +117,8 @@ def replicate(mesh: DataMesh, tensors):
     device, parameters included) on every rank, in place; returns them."""
     tensors = list(tensors)
     for t in tensors:
-        dist.broadcast(t.data, src=0)
+        # a grid smaller than the world broadcasts over its own ranks
+        dist.broadcast(t.data, src=0, group=getattr(mesh, "grid_group", None))
     return tensors
 
 
@@ -154,7 +157,9 @@ class LocalIndexStream:
 
 def make_local_index_stream(split: ShardedSplit, per_device_batch: int,
                             seed: int = 0) -> LocalIndexStream:
-    return LocalIndexStream(split.mesh.world_size, split.n_local, split.n_valid,
+    """One row per data coordinate: the ranks of a model or space group
+    take the same row, so they draw the same batch."""
+    return LocalIndexStream(split.mesh.data_size, split.n_local, split.n_valid,
                             per_device_batch, seed)
 
 
@@ -176,7 +181,7 @@ class GradAllReduce:
         grads = [p.grad for p in params if p.grad is not None]
         ce = ce.detach().reshape(1).to(grads[0].dtype)
         buf = torch.cat([g.reshape(-1) for g in grads] + [ce])
-        self.mesh.all_reduce_(buf).div_(self.mesh.world_size)
+        self.mesh.reduce_data_(buf).div_(self.mesh.data_size)
         offset = 0
         for g in grads:
             g.copy_(buf[offset : offset + g.numel()].view_as(g))
@@ -184,7 +189,7 @@ class GradAllReduce:
         return buf[offset].clone()  # not a view that would keep the buffer alive
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
-        return self.mesh.all_gather_cat(t)
+        return self.mesh.gather_data(t)
 
 
 def make_parallel_train_step(
@@ -296,6 +301,6 @@ def make_parallel_predict_fn(cfg, plans, mesh: DataMesh, batch_size: int, forwar
                 logits = forward_fn(params, split.x.index_select(split.sample_axis, idx))
                 # clamped ids repeat the last sample: each write is its own id's
                 preds[idx] = logits.argmax(1)
-        return split.mesh.all_gather_cat(preds).cpu().numpy()[: split.n_valid]
+        return split.mesh.gather_data(preds).cpu().numpy()[: split.n_valid]
 
     return predict_split

@@ -1,6 +1,7 @@
-"""The data mesh and the processes behind it (port of
-``dctn_tpu/parallel/mesh.py``): one rank per card, joined in one
-``torch.distributed`` process group.
+"""The data mesh, the 2-D rank grid, and the processes behind them (port
+of ``dctn_tpu/parallel/mesh.py`` and of ``make_tp_mesh`` /
+``make_sp_mesh``): one rank per card, joined in one ``torch.distributed``
+process group.
 
 JAX runs one controller over every device of a host and spans hosts with
 ``jax.distributed``. Here each rank is a process of its own that holds one
@@ -22,6 +23,15 @@ the CLIs start the ranks themselves:
 A job asking for more ranks on a host than it has visible cards is refused
 before anything starts. Nothing falls back to fewer cards, to ``gloo`` on a
 card or to the CPU.
+
+Tensor and spatial parallelism run on a 2-D grid of ranks, ``(data,
+model)`` or ``(data, space)`` (``GridMesh``): rank = d·n_other + j, the
+order of JAX's ``devices.reshape(n_data, n_other)``, so that each model or
+space group lies on neighbouring cards. Every rank creates every group of
+both axes (``dist.new_group``, the same groups in the same order on every
+rank), then runs one collective in each group it belongs to, so that a
+group's first call is never a point-to-point batch (NCCL needs every rank of
+the group in such a first call).
 """
 
 from __future__ import annotations
@@ -75,6 +85,8 @@ class Job:
     device_type: str
     threads: int = 1
     timeout: datetime.timedelta = COLLECTIVE_TIMEOUT
+    # (axis, n_data, n_other) of a 2-D grid (``GridMesh``), or None: data only
+    grid: Optional[tuple] = None
 
     @property
     def backend(self) -> str:
@@ -135,6 +147,135 @@ class DataMesh:
     def barrier(self) -> None:
         dist.barrier()
 
+    # the data axis: the whole world on a 1-D mesh (``GridMesh`` overrides)
+
+    @property
+    def data_size(self) -> int:
+        return self.world_size
+
+    @property
+    def data_index(self) -> int:
+        return self.rank
+
+    def reduce_data_(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``t`` reduced in place over the ranks of this rank's data group."""
+        return self.all_reduce_(t, op)
+
+    def gather_data(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` of this rank's data group, concatenated on dim
+        0 in data order."""
+        return self.all_gather_cat(t)
+
+
+@dataclasses.dataclass
+class GridMesh(DataMesh):
+    """One rank's view of a 2-D ``(data, axis)`` grid, ``axis`` being
+    ``"model"`` (tensor parallelism) or ``"space"`` (spatial parallelism):
+    ``n_data`` × ``n_other`` ranks, rank = d·n_other + j. ``data_group``
+    holds the ranks of this rank's column j (its data peers),
+    ``other_group`` those of its row d (its model or space peers), each
+    ordered by its coordinate. The collectives of ``DataMesh``
+    (``all_gather_object``, ``any``, ``barrier``, …) run over the grid's
+    ranks: ``grid_group``, or the default group when the grid fills the
+    world."""
+
+    axis: str = "model"
+    n_data: int = 1
+    n_other: int = 1
+    data_group: Any = None
+    other_group: Any = None
+    grid_group: Any = None
+
+    def all_reduce_(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        dist.all_reduce(t, op=op, group=self.grid_group)
+        return t
+
+    def all_gather_cat(self, t: torch.Tensor) -> torch.Tensor:
+        parts = [torch.empty_like(t) for _ in range(self.world_size)]
+        dist.all_gather(parts, t.contiguous(), group=self.grid_group)
+        return torch.cat(parts)
+
+    def all_gather_object(self, obj: Any) -> list:
+        out = [None] * self.world_size
+        dist.all_gather_object(out, obj, group=self.grid_group)
+        return out
+
+    def broadcast_object(self, obj: Any) -> Any:
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=self.grid_group)
+        return box[0]
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.grid_group)
+
+    @property
+    def data_size(self) -> int:
+        return self.n_data
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_other
+
+    @property
+    def other_index(self) -> int:
+        return self.rank % self.n_other
+
+    def other_rank(self, j: int) -> int:
+        """The global rank at coordinate ``j`` of this rank's row."""
+        return self.data_index * self.n_other + j
+
+    def reduce_data_(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        if self.n_data > 1:
+            dist.all_reduce(t, op=op, group=self.data_group)
+        return t
+
+    def reduce_other_(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``t`` reduced in place over this rank's model or space group."""
+        if self.n_other > 1:
+            dist.all_reduce(t, op=op, group=self.other_group)
+        return t
+
+    def gather_data(self, t: torch.Tensor) -> torch.Tensor:
+        if self.n_data == 1:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.n_data)]
+        dist.all_gather(parts, t.contiguous(), group=self.data_group)
+        return torch.cat(parts)
+
+
+def make_grid(mesh: DataMesh, axis: str, n_data: int, n_other: int) -> Optional[GridMesh]:
+    """The calling rank's ``GridMesh`` over the first n_data·n_other ranks
+    of the world of ``mesh`` (a job's grid fills it; a smaller grid leaves
+    the ranks past it out, and they get None). Every rank of the world must
+    call it, in the same order as any other call that makes groups."""
+    if axis not in ("model", "space"):
+        raise ValueError(f"a grid's second axis is model or space, not {axis!r}")
+    if n_data < 1 or n_other < 1 or n_data * n_other > mesh.world_size:
+        raise ValueError(
+            f"a ({n_data}, {n_other}) grid needs {n_data * n_other} ranks; the job has "
+            f"{mesh.world_size}")
+    size = n_data * n_other
+    grid_group = dist.new_group(list(range(size))) if size < mesh.world_size else None
+    data_group = other_group = None
+    for j in range(n_other):
+        g = dist.new_group([d * n_other + j for d in range(n_data)])
+        if mesh.rank % n_other == j:
+            data_group = g
+    for d in range(n_data):
+        g = dist.new_group([d * n_other + j for j in range(n_other)])
+        if mesh.rank // n_other == d:
+            other_group = g
+    if mesh.rank >= size:
+        return None
+    grid = GridMesh(size, mesh.rank, mesh.local_rank, mesh.node, mesh.device, mesh.backend,
+                    axis, n_data, n_other, data_group, other_group, grid_group)
+    # one collective in each group first: a group whose first call were a
+    # point-to-point batch (the halo) would need every rank of it in that batch
+    for size, group in ((n_data, data_group), (n_other, other_group)):
+        if size > 1:
+            dist.all_reduce(torch.zeros(1, device=mesh.device), group=group)
+    return grid
+
 
 def make_mesh(n_devices: Optional[int] = None) -> DataMesh:
     """The calling rank's mesh over the process group it joined; with
@@ -153,7 +294,7 @@ def make_mesh(n_devices: Optional[int] = None) -> DataMesh:
 
 
 def data_axis_size(mesh: DataMesh) -> int:
-    return mesh.world_size
+    return mesh.data_size
 
 
 def parse_distributed(spec) -> Host:
@@ -186,19 +327,29 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     return Host(f"tcp://{coordinator_address}", num_processes, process_id)
 
 
-def plan_job(mesh_devices: int, distributed, device_type: str) -> Optional[Job]:
-    """The ranks ``--mesh-devices`` and ``--distributed`` ask of this host
-    process, or None for the single-device path (one rank, no group). Too
-    many ranks for the visible cards is refused here, before any rank
-    starts."""
+def plan_job(mesh_devices: int, distributed, device_type: str, model_devices: int = 1,
+             space_devices: int = 1) -> Optional[Job]:
+    """The ranks ``--mesh-devices`` (the data axis), ``--model-devices`` or
+    ``--space-devices`` and ``--distributed`` ask of this host process:
+    mesh_devices × model_devices × space_devices ranks in all, on a 2-D grid
+    when either of the last two is over 1; or None for the single-device
+    path (one rank, no group). Too many ranks for the visible cards is
+    refused here, before any rank starts."""
+    if min(mesh_devices, model_devices, space_devices) < 1:
+        raise ValueError("--mesh-devices, --model-devices and --space-devices count ranks: >= 1")
+    if model_devices > 1 and space_devices > 1:
+        raise ValueError("a grid has one axis beside data: --model-devices or --space-devices")
+    grid = (("model", mesh_devices, model_devices) if model_devices > 1 else
+            ("space", mesh_devices, space_devices) if space_devices > 1 else None)
+    ranks = mesh_devices * model_devices * space_devices
     host = parse_distributed(distributed) if distributed else Host()
     if host.torchrun:
         world = int(os.environ["WORLD_SIZE"])
-        if mesh_devices not in (1, world):
-            raise ValueError(f"--mesh-devices {mesh_devices}: torchrun started {world} ranks")
+        if ranks not in (1, world) or (grid is not None and ranks != world):
+            raise ValueError(f"{ranks} ranks asked: torchrun started {world}")
         local = 1
     else:
-        world = mesh_devices
+        world = ranks
         if world <= 1 and host.nodes == 1:
             return None
         if world % host.nodes:
@@ -217,7 +368,7 @@ def plan_job(mesh_devices: int, distributed, device_type: str) -> Optional[Job]:
     elif device_type != "cpu":
         raise ValueError(f"ranks run on cuda or cpu, not {device_type}")
     threads = max(1, torch.get_num_threads() // local) if device_type == "cpu" else 1
-    return Job(world, local, host, device_type, threads)
+    return Job(world, local, host, device_type, threads, grid=grid)
 
 
 def _init_rank(job: Job, local_rank: int, store_dir: Optional[str]) -> DataMesh:
@@ -240,7 +391,8 @@ def _init_rank(job: Job, local_rank: int, store_dir: Optional[str]) -> DataMesh:
         device = torch.device("cpu")
     dist.init_process_group(job.backend, init_method=init_method, world_size=job.world_size,
                             rank=rank, timeout=job.timeout)
-    return DataMesh(job.world_size, rank, local_rank, host.node, device, job.backend)
+    mesh = DataMesh(job.world_size, rank, local_rank, host.node, device, job.backend)
+    return mesh if job.grid is None else make_grid(mesh, *job.grid)
 
 
 def _rank_main(local_rank: int, fn: Callable, args: tuple, job: Job, run_dir: str) -> None:

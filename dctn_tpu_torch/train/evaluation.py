@@ -77,15 +77,17 @@ def score_sharded(forward_fn, split, batch_size: int):
     ``make_parallel_score_fn``, data_parallel.py:469-518): each rank scans
     its shard in padded batches of ``batch_size``, samples past
     ``n_valid`` masked by their global position, and one all-reduce sums
-    (CE sum, correct) over the ranks, in float64. ``forward_fn(xb) →
-    logits``; every rank must call."""
+    (CE sum, correct) over the data axis's ranks, in float64 (on a grid the
+    ranks of a model or space group hold the same shard, and
+    ``forward_fn`` runs their collectives). ``forward_fn(xb) → logits``;
+    every rank must call."""
     mesh = split.mesh
-    base = mesh.rank * split.n_local
+    base = mesh.data_index * split.n_local
     ids, in_range = padded_batch_ids(split.n_local, batch_size, split.x.device)
     valid = in_range & (base + ids < split.n_valid)
     with torch.no_grad():
         ce_sum, correct = masked_ce_acc_scan(forward_fn, split.x, split.y, ids, valid,
                                              sample_axis=split.sample_axis)
-    sums = mesh.all_reduce_(torch.stack([ce_sum.to(torch.float64), correct.to(torch.float64)]))
+    sums = mesh.reduce_data_(torch.stack([ce_sum.to(torch.float64), correct.to(torch.float64)]))
     n = split.n_valid
     return (sums[0] / n).to(torch.float32), (sums[1] / n).to(torch.float32)

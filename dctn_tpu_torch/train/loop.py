@@ -239,6 +239,7 @@ def make_stopper_on_nan_loss(
     replay_gather: Optional[Callable] = None,
     interactive: bool = False,
     write_files: bool = True,
+    views_on_every_rank: bool = False,
 ) -> "NanLossStopper":
     """The NaN-loss stopper (training.py:213-237). It reads the loop's NaN
     flag when it runs (put it on the eval schedule, so the flag costs no
@@ -262,9 +263,12 @@ def make_stopper_on_nan_loss(
     Data-parallel ranks all run the stopper: the flag comes from the
     ranks' mean loss, so they stop together, and the replay's steps hold
     the all-reduce, so every rank replays (to the same iteration); only the
-    rank with ``write_files`` writes the dump."""
+    rank with ``write_files`` writes the dump. With ``views_on_every_rank``
+    (tensor and spatial parallelism, whose ``params_view`` and
+    ``forward_fn`` hold collectives) every rank computes the dump's
+    parameters and output, and the writing rank writes them."""
     return NanLossStopper(dir, forward_fn, params_view, replay_step, replay_gather, interactive,
-                          write_files)
+                          write_files, views_on_every_rank)
 
 
 class NanLossStopper:
@@ -274,8 +278,9 @@ class NanLossStopper:
     scope."""
 
     def __init__(self, dir, forward_fn, params_view, replay_step, replay_gather,
-                 interactive=False, write_files=True):
+                 interactive=False, write_files=True, views_on_every_rank=False):
         self.write_files = write_files
+        self.views_on_every_rank = views_on_every_rank
         self.dir = dir
         self.forward_fn = forward_fn
         self.params_view = params_view
@@ -370,12 +375,13 @@ class NanLossStopper:
                 "NaN — that happened at or before this step, since the previous scheduled "
                 "observation.\n"
             )
-        if not self.write_files:
+        if not (self.write_files or self.views_on_every_rank):
             return
         subdir = os.path.join(self.dir, "nan_loss_stop")
-        if os.path.exists(subdir):
+        if self.write_files and os.path.exists(subdir):
             logger.error("%s already exists; the dump is skipped", subdir)
-            return
+            if not self.views_on_every_rank:
+                return
         params_host = {
             k: _to_numpy(v) for k, v in flatten_tree(
                 self.params_view(dump_params) if self.params_view else dump_params
@@ -387,6 +393,8 @@ class NanLossStopper:
             if self.forward_fn is not None:
                 with torch.no_grad():
                     out_host = _to_numpy(self.forward_fn(dump_params, xb))
+        if not self.write_files or os.path.exists(subdir):
+            return
         if self.interactive:
             breakpoint()  # noqa: T100
         os.mkdir(subdir)

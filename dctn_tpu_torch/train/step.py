@@ -160,7 +160,11 @@ def _accumulating_step(model, optimizer, logits_of, reg_fn, reg_coeff, grad_accu
     accumulation, ``collective.mean(params, ce)`` averages the
     cross-entropy's gradients and the cross-entropy over the ranks in one
     all-reduce; the regularizer, identical on every rank, is added after it,
-    and ``collective.gather`` concatenates the ranks' probabilities."""
+    and ``collective.gather`` concatenates the ranks' probabilities. A
+    collective with ``reg_inside`` (``parallel.collectives.GridGradReduce``,
+    the tensor- and spatial-parallel steps) takes the regularizer's
+    gradient into its reduction: ``reg_fn`` then gives each rank's local
+    form of it, whose value is the whole regularizer."""
     dropout = dropout_p < 1.0
 
     def step(xb: torch.Tensor, yb: torch.Tensor, generator=None, masks=None):
@@ -196,13 +200,16 @@ def _accumulating_step(model, optimizer, logits_of, reg_fn, reg_coeff, grad_accu
                 if p.grad is not None:
                     p.grad.mul_(inv)
             ce = ce_sum * inv
-        if collective is not None:
+        reg_inside = getattr(collective, "reg_inside", False)
+        if collective is not None and not reg_inside:
             ce = collective.mean(list(model.parameters()), ce)
         if reg_coeff != 0.0:
             reg = reg_fn()
             (reg_coeff * reg).backward()
         else:
             reg = torch.zeros((), dtype=ce.dtype, device=ce.device)
+        if reg_inside:
+            ce = collective.mean(list(model.parameters()), ce)
         zero_frozen()
         loss = ce + reg_coeff * reg.detach()
         optimizer.step()

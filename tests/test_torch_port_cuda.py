@@ -1283,3 +1283,57 @@ def _to_cpu(params):
     if isinstance(params, (tuple, list)):
         return type(params)(_to_cpu(v) for v in params)
     return params.cpu()
+
+
+def _grid_collectives_job(mesh):
+    """On 2 ranks of 2 cards (nccl): ``with_halo`` on a (data 1, space 2)
+    grid and ``gather_along`` / ``psum_value_only`` on a (data 1, model 2)
+    grid, forward and backward, each against what the rows and slices must
+    be; returns every rank's (check, ok) pairs."""
+    from dctn_tpu_torch.parallel import gather_along, make_grid, psum_value_only, with_halo
+
+    sp, tp = make_grid(mesh, "space", 1, 2), make_grid(mesh, "model", 1, 2)
+    dev, r = mesh.device, mesh.rank
+    full = torch.arange(2 * 3 * 8 * 5 * 2, dtype=torch.float32, device=dev).reshape(2, 3, 8, 5, 2)
+    x = full[:, :, 4 * r : 4 * r + 4].clone().requires_grad_(True)
+    slab = with_halo(x, 3, sp, row_axis=2)
+    want = torch.cat([full[:, :, 4 * r : 4 * r + 4],
+                      full[:, :, 4 : 6] if r == 0 else torch.zeros_like(full[:, :, :2])], dim=2)
+    up = torch.full_like(slab, float(r + 1))
+    slab.backward(up)
+    # rank 1's first two rows also carry rank 0's cotangent of its halo (1)
+    g_want = torch.full_like(x, float(r + 1))
+    if r == 1:
+        g_want[:, :, :2] += 1.0
+    out = [("halo forward", torch.equal(slab.detach(), want)),
+           ("halo backward", torch.equal(x.grad, g_want))]
+    a = (torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3) + 10 * r).requires_grad_(True)
+    gathered = gather_along(a, 1, tp)
+    out.append(("gather forward", torch.equal(gathered.detach(), torch.cat(
+        [torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3) + 10 * j for j in (0, 1)],
+        dim=1))))
+    cot = torch.arange(12, dtype=torch.float32, device=dev).reshape(2, 6) * (r + 1)
+    gathered.backward(cot)
+    base = torch.arange(12, dtype=torch.float32, device=dev).reshape(2, 6) * 3  # Σ over ranks
+    out.append(("gather backward (reduce-scatter)", torch.equal(a.grad, base[:, 3 * r : 3 * r + 3])))
+    b = torch.full((4,), float(r + 1), device=dev, requires_grad=True)
+    s = psum_value_only(b, tp)
+    s.backward(torch.ones_like(s))
+    out.append(("psum value", torch.equal(s.detach(), torch.full_like(s, 3.0))))
+    out.append(("psum backward (identity)", torch.equal(b.grad, torch.ones_like(b))))
+    return mesh.all_gather_object(out)
+
+
+@pytest.mark.cuda
+def test_grid_collectives_over_nccl_on_every_card(two_cards):
+    """The halo pull and the model gather (``parallel.collectives``) over a
+    real ``nccl`` group of 2 ranks on 2 cards, forward and backward: the
+    halo is the next rank's first K − 1 rows (zeros on the last), its
+    backward sends the cotangent back to the owner; the gather concatenates
+    in model order and its backward is a reduce-scatter; the value-only sum
+    has an identity backward."""
+    from dctn_tpu_torch.parallel.mesh import Host, Job, spawn
+
+    results = spawn(_grid_collectives_job, Job(2, 2, Host(), "cuda"))
+    bad = [(rank, what) for rank, checks in enumerate(results) for what, ok in checks if not ok]
+    assert not bad, bad

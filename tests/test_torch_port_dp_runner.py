@@ -513,9 +513,12 @@ def test_more_ranks_than_cards_is_refused_before_any_rank_starts(tmp_path, monke
 @pytest.mark.parametrize("flag,value", [("model_devices", 2), ("space_devices", 2),
                                         ("tp_shard_all", True)])
 def test_tp_and_sp_flags_name_their_item(tmp_path, flag, value):
-    """Tensor and spatial parallelism stay refused, naming ROADMAP item 19b."""
-    with pytest.raises(click.BadParameter, match=r"ROADMAP, .*item 19b"):
-        trunner.run(**QUICK, experiments_dir=str(tmp_path), max_num_iters=1, **{flag: value})
+    """Tensor and spatial parallelism run (tests/test_torch_port_tp.py,
+    test_torch_port_sp.py); composed (SP x TP, with each flag on top of the
+    other axis) they stay refused, naming ROADMAP item 19c."""
+    both = {"model_devices": 2, "space_devices": 2, flag: value}
+    with pytest.raises(click.BadParameter, match=r"ROADMAP, .*item 19c"):
+        trunner.run(**QUICK, experiments_dir=str(tmp_path), max_num_iters=1, **both)
     assert not os.listdir(tmp_path)
 
 

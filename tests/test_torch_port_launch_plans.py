@@ -51,6 +51,9 @@ def _shapes():
     for batch in (chip_smoke.DEEP_BATCH, chip_smoke.DEEP_BATCH // 4):
         for i, (n, q, n1, o, h) in enumerate(chip_smoke.layer_dims(chip_smoke.DEEP)):
             shapes.append((f"deep layer {i} at batch {batch}", n, q, n1, o, batch * h * h))
+    # a tensor- or spatial-parallel rank's shapes (chip_smoke phase 5c)
+    shapes += [(label, n, q, n1, o, npix)
+               for label, _, n, q, n1, o, npix in chip_smoke.grid_shard_shapes()]
     return shapes
 
 
@@ -159,6 +162,36 @@ def test_fwd_launch_plan_fits_the_card(label, n, q, n1, o, npix, kernel):
     assert grid_x * K._FWD_TILE_P >= npix > (grid_x - 1) * K._FWD_TILE_P
     assert grid_x <= _GRID_X and grid_y <= _GRID_YZ
     assert plan["smem_bytes"] <= K._MAX_SMEM_BYTES
+
+
+# the plans a grid rank's shapes of the flagship take at batch 128 a data
+# rank (chip_smoke.grid_shard_shapes): K1's kernel and its Z tiles, K8's form
+# and N tiles, and eps_dcore's pixel slices on 132 SMs. Layer 1 on 3 or 2
+# rows of O has 48 or 32 of the (Z, A) tiles where the whole layer has 96, so
+# eps_dcore sums 5 or 8 pixel slices where the whole layer takes one
+_GRID_PLANS = {
+    "TP layer 1, O=3 (model 2)": ("wgmma", 3, "wgmma", 3, 5),
+    "TP layer 1, O=2 (model 3)": ("wgmma", 2, "wgmma", 2, 8),
+    "SP layer 0, 14 rows (space 2)": ("wgmma", 4, "wgmma", 4, 16),
+    "SP layer 1, 14 rows (space 2)": ("wgmma", 6, "wgmma", 6, 1),
+    "SP layer 0, 7 rows (space 4)": ("wgmma", 4, "wgmma", 4, 16),
+    "SP layer 1, 7 rows (space 4)": ("wgmma", 6, "wgmma", 6, 1),
+}
+
+
+@pytest.mark.parametrize("label,layer,n,q,n1,o,npix", chip_smoke.grid_shard_shapes(),
+                         ids=[s[0] for s in chip_smoke.grid_shard_shapes()])
+def test_grid_shard_shapes_take_their_plans(label, layer, n, q, n1, o, npix):
+    """The launch plans of the shapes a TP or SP rank gives the flagship's
+    layers, pinned: each takes the kernel the whole layer takes; only
+    ``eps_dcore``'s pixel slices follow the smaller Z."""
+    fwd, z_tiles, form, n_tiles, slices = _GRID_PLANS[label]
+    plan = K._fwd_plan(n, q, n1, o, npix)
+    assert (plan["kernel"], plan["grid"][1]) == (fwd, z_tiles)
+    assert plan["grid"][0] == math.ceil(npix / K._FWD_TILE_P)
+    q8 = Q8._q8_plan(n, q, n1, o, npix)
+    assert (q8["form"], q8["tiles"]) == (form, n_tiles)
+    assert K._dcore_slices(o * q ** (n - n1), q**n1, npix, _SMS) == slices
 
 
 @pytest.mark.parametrize("layer,outputs,tiles", [(0, 1, 4), (1, 1, 6)])

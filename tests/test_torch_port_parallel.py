@@ -295,7 +295,8 @@ def test_local_index_stream_is_the_jax_stream(ndev, n, b):
     from dctn_tpu.parallel.data_parallel import make_local_index_stream as jax_stream
 
     n_local = -(-n // ndev)
-    fake = SimpleNamespace(mesh=SimpleNamespace(devices=np.empty(ndev), world_size=ndev),
+    fake = SimpleNamespace(mesh=SimpleNamespace(devices=np.empty(ndev), world_size=ndev,
+                                                data_size=ndev),
                            n_local=n_local, n_valid=n)
     ours, theirs = make_local_index_stream(fake, b, seed=5), jax_stream(fake, b, seed=5)
     for _ in range(40):
