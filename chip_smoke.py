@@ -160,20 +160,29 @@ Run from the root of a checkout, with no arguments:
    ``predict.run``. With two or more cards it runs ``python -m
    dctn_tpu_torch.multichip --devices min(4, count)`` and fails with it; on
    one card it prints that it did not run.
-5c. Tensor and spatial parallelism (``parallel.tensor_parallel``,
-   ``parallel.spatial_parallel``): (a) K1 ± t, ``eps_dcore``,
-   ``eps_dviews_t`` and K8/K9 at the shapes a grid rank gives the flagship's
-   layers at batch 128 (layer 1 on the cmt row block of 2 and 3 model
-   ranks; each layer on the slab of 2 and 4 space ranks), each against its
-   plain version, with the launch plan each takes; (b) on the card, f32 and
-   QAT, each row block's layer output against the O-slice of the whole
-   layer and the shards' partial logits summed against the one-card logits,
-   each space rank's slab outputs against the whole layers' rows and the
-   row-sliced classifier's partial logits summed against the one-card
-   logits; (c) the TP-fast and SP-fast steps on a grid of one rank through
+5c. Tensor and spatial parallelism and SP x TP (``parallel.tensor_parallel``,
+   ``parallel.spatial_parallel``, ``parallel.sp_tp``): (a) K1 ± t,
+   ``eps_dcore``, ``eps_dviews_t`` and K8/K9 at the shapes a grid rank gives
+   the flagship's layers at batch 128 (layer 1 on the cmt row block of 2
+   and 3 model ranks; each layer on the slab of 2 and 4 space ranks; under
+   SP x TP layer 1 on the slab of 2 and 4 space ranks at the row block of
+   2 model ranks), each against its plain version, with the launch plan
+   each takes; (b) on the card, f32 and QAT, each row block's layer output
+   against the O-slice of the whole layer and the shards' partial logits
+   summed against the one-card logits, each space rank's slab outputs
+   against the whole layers' rows and the row-sliced classifier's partial
+   logits summed against the one-card logits, and on (space 2, model 2)
+   each rank's layer 1 against its rows and O-slice of the whole layer bit
+   for bit and the four partial logits summed against the one-card logits;
+   (c) the SP x TP, TP-fast and SP-fast steps on a grid of one rank through
    a real ``nccl`` group, bit-equal to the single-device steps with their
-   launches. With two or more cards, phase 5b's multichip subprocess runs
-   the TP and SP paths.
+   launches; (d) the flagship's height-sharded artifact (``export.run
+   --space-devices 2`` and ``4``): one K1 node per EPS layer, refused by
+   ``load_artifact`` on one card, and, every band on this card, its logits
+   against one card's artifact and each band's layer rows against the
+   whole image's. With two or more cards, phase 5b's multichip subprocess
+   runs the TP, SP and (from 4 cards) SP x TP paths and the height-sharded
+   artifact across them.
 10. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
    of the serving forward (f32 and int8) at batch 1 and 128 and of the
    flagship training step (f32 and QAT) at batch 128, on the kernel and on
@@ -2453,12 +2462,15 @@ def dp_phase(bench, CSM, params, cfg, tx, ty, dev) -> list:
 # (Hl = 14, 7)
 GRID_MODEL_AXES = (2, 3)
 GRID_SPACE_AXES = (2, 4)
+# SP x TP's model axis: layer 1 on each space rank's slab at O / 2 (Z = 768)
+SP_TP_MODEL = 2
 
 
 def grid_shard_shapes():
     """(label, layer, n, q, n1, O, npix) of the flagship's layers at a grid
     rank's shapes: layer 1 at O / model for each model axis, each layer on
-    Hl rows for each space axis."""
+    Hl rows for each space axis, and under SP x TP layer 1 on Hl rows at O /
+    2 for each space axis (its layer 0 is SP's)."""
     dims = layer_dims(FLAGSHIP)
     n, q, n1, o, h = dims[1]
     shapes = [(f"TP layer 1, O={o // m} (model {m})", 1, n, q, n1, o // m, BATCH * h * h)
@@ -2467,6 +2479,10 @@ def grid_shard_shapes():
         hl = -(-28 // p)
         shapes += [(f"SP layer {i}, {hl} rows (space {p})", i, n_, q_, n1_, o_, BATCH * hl * h_)
                    for i, (n_, q_, n1_, o_, h_) in enumerate(dims)]
+    for p in GRID_SPACE_AXES:
+        hl = -(-28 // p)
+        shapes.append((f"SP x TP layer 1, O={o // SP_TP_MODEL}, {hl} rows (space {p}, model "
+                       f"{SP_TP_MODEL})", 1, n, q, n1, o // SP_TP_MODEL, BATCH * hl * h))
     return shapes
 
 
@@ -2542,8 +2558,11 @@ def grid_shards_vs_whole(K, Q8, params, cfg, x, dev) -> dict:
     each space rank's layer outputs on its slab of the bottom-padded image
     (its Hl rows and the next rank's K - 1) equal the whole layers' valid
     rows, and the row-sliced classifier's partial logits sum to the one-card
-    logits. All within REL_TOL of the largest entry. Returns the largest
-    shares of it and the launch counts."""
+    logits; under SP x TP on (space 2, model 2) each rank's layer 1 on its
+    slab and cmt row block equals its rows and O-slice of the whole layer
+    bit for bit, and the four partial logits sum to the one-card logits.
+    All within REL_TOL of the largest entry. Returns the largest shares of
+    it, the SP x TP shards' equality and the launch counts."""
     from dctn_tpu_torch.bench import read_counters, zero_counters
     from dctn_tpu_torch.models.eps_plus_linear import (
         _transposed_classifier,
@@ -2554,7 +2573,7 @@ def grid_shards_vs_whole(K, Q8, params, cfg, x, dev) -> dict:
         "epses": tuple(c.to(dev) for c in params["epses"]),
         "linear": {k: v.to(dev) for k, v in params["linear"].items()}}, cfg)
     cmts, lin = fast["epses_cmt"], fast["linear"]
-    out = {}
+    out, exact = {}, {}
     zero_counters()
 
     def layer(cmt, xT, i, o, kernels):
@@ -2606,22 +2625,51 @@ def grid_shards_vs_whole(K, Q8, params, cfg, x, dev) -> dict:
                         cur[0][:, d * hl : (d + 1) * hl].reshape(o, hl * wp, b),
                         w4[d * hl : (d + 1) * hl].reshape(hl * wp, o, -1), dims=([0, 1], [1, 0]))
                 agree(total, logits, f"{tag} SP space {p} logits")
+            # SP x TP on (space 2, model 2): layer 0 on each slab, layer 1 on
+            # each slab with each cmt row block at O / 2
+            p, m = GRID_SPACE_AXES[0], SP_TP_MODEL
+            hl, rows, ol = -(-28 // p), cmts[1].shape[0] // m, o // m
+            k0, k1 = plans[0]["kernel_size"], plans[1]["kernel_size"]
+            pad0 = torch.nn.functional.pad(xT, (0, 0, 0, 0, 0, p * hl - 28 + k0 - 1))
+            l0 = torch.cat([layer(cmts[0], pad0[:, :, d * hl : d * hl + hl + k0 - 1], 0,
+                                  plans[0]["out_size"], kernels) for d in range(p)], dim=1)
+            pad1 = torch.nn.functional.pad(l0[None], (0, 0, 0, 0, 0, k1 - 1))
+            w4 = torch.nn.functional.pad(lin["w"].reshape(hp, wp, o, -1),
+                                         (0, 0, 0, 0, 0, 0, 0, p * hl - hp))
+            total = lin["b"]
+            for d in range(p):
+                n_valid = max(0, min(hl, hp - d * hl))
+                for j in range(m):
+                    blk = layer(cmts[1][j * rows : (j + 1) * rows],
+                                pad1[:, :, d * hl : d * hl + hl + k1 - 1], 1, ol, kernels)
+                    what = f"{tag} SP x TP (space {p}, model {m}) rank ({d}, {j})"
+                    same = torch.equal(blk[:, :n_valid],
+                                       whole[1][j * ol : (j + 1) * ol, d * hl : d * hl + n_valid])
+                    check(same, f"{what}: its rows and O-slice are not the whole layer's bit "
+                                "for bit")
+                    exact[what] = same
+                    w_blk = w4[d * hl : (d + 1) * hl, :, j * ol : (j + 1) * ol]
+                    total = total + torch.tensordot(blk.reshape(ol, hl * wp, b),
+                                                    w_blk.reshape(hl * wp, ol, -1),
+                                                    dims=([0, 1], [1, 0]))
+            agree(total, logits, f"{tag} SP x TP (space {p}, model {m}) logits")
     torch.cuda.synchronize()
-    return {"max_share_of_rel_tol": out, "launches": read_counters()}
+    return {"max_share_of_rel_tol": out, "sp_x_tp_bit_equal": exact, "launches": read_counters()}
 
 
 def grid_world_size_1(bench, params, cfg, tx, ty, dev) -> tuple:
-    """Phase 5c (c): the TP-fast and SP-fast steps on a grid whose every axis
-    has one rank, through a real ``nccl`` process group (a file store),
-    DP_STEPS Adam steps f32 and QAT beside the single-device step from one
-    init: losses and parameters bit for bit, the same launches per step.
-    Returns (launch counts of the grid steps, record)."""
+    """Phase 5c (c): the SP x TP, TP-fast and SP-fast steps on a grid whose
+    every axis has one rank, through a real ``nccl`` process group (a file
+    store), DP_STEPS Adam steps f32 and QAT beside the single-device step
+    from one init: losses and parameters bit for bit, the same launches per
+    step. Returns (launch counts of the grid steps, record)."""
     import torch.distributed as dist
 
     from dctn_tpu_torch.models import EPSesPlusLinear
     from dctn_tpu_torch.models.eps_plus_linear import fast_params_from_reference
     from dctn_tpu_torch.parallel import (TPFastModel, make_grid, make_mesh,
-                                         make_sp_fast_train_step, make_tp_fast_params,
+                                         make_sp_fast_train_step, make_sp_tp_fast_train_step,
+                                         make_sp_tp_grid, make_tp_fast_params,
                                          make_tp_fast_train_step, merge_tp_fast_params)
     from dctn_tpu_torch.train import make_fast_train_step, make_optimizer
 
@@ -2631,17 +2679,21 @@ def grid_world_size_1(bench, params, cfg, tx, ty, dev) -> tuple:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
         try:
             mesh = make_mesh(1)
-            grids = {"tp": make_grid(mesh, "model", 1, 1), "sp": make_grid(mesh, "space", 1, 1)}
+            grids = {"tp": make_grid(mesh, "model", 1, 1), "sp": make_grid(mesh, "space", 1, 1),
+                     "sp_tp": make_sp_tp_grid(mesh, 1, 1, 1)}
             for qat in (None, "int8"):
                 runs = {}
-                for kind in ("tp", "sp", "one"):
-                    if kind == "tp":
-                        model = TPFastModel(make_tp_fast_params(fast, cfg, grids["tp"]), plans,
-                                            cfg, grids["tp"])
+                for kind in ("sp_tp", "tp", "sp", "one"):
+                    if kind in ("tp", "sp_tp"):
+                        model = TPFastModel(make_tp_fast_params(fast, cfg, grids[kind]), plans,
+                                            cfg, grids[kind])
                     else:
                         model = EPSesPlusLinear.from_reference(params, cfg, device=dev)
                     opt = make_optimizer("adam", model.parameters(), bench.LR)
-                    if kind == "tp":
+                    if kind == "sp_tp":
+                        step = make_sp_tp_fast_train_step(model, opt, "epswise", bench.REG_COEFF,
+                                                          qat=qat)
+                    elif kind == "tp":
                         step = make_tp_fast_train_step(model, opt, "epswise", bench.REG_COEFF,
                                                        qat=qat)
                     elif kind == "sp":
@@ -2656,13 +2708,13 @@ def grid_world_size_1(bench, params, cfg, tx, ty, dev) -> tuple:
                     launched = bench.read_counters()
                     if kind != "one":
                         counts.append(launched)
-                    final = (merge_tp_fast_params(model.fast_params3(), cfg, grids["tp"])
-                             if kind == "tp" else model.fast_params())
+                    final = (merge_tp_fast_params(model.fast_params3(), cfg, grids[kind])
+                             if kind in ("tp", "sp_tp") else model.fast_params())
                     runs[kind] = (losses, [c.detach().clone() for c in final["epses_cmt"]]
                                   + [final["linear"]["w"].detach().clone(),
                                      final["linear"]["b"].detach().clone()], launched)
                 one = runs["one"]
-                for kind in ("tp", "sp"):
+                for kind in ("sp_tp", "tp", "sp"):
                     losses, ps, launched = runs[kind]
                     check(losses == one[0] and all(torch.equal(a, b) for a, b in zip(ps, one[1])),
                           f"{kind} grid at world size 1 (qat={qat}) is not the single-device "
@@ -2677,18 +2729,99 @@ def grid_world_size_1(bench, params, cfg, tx, ty, dev) -> tuple:
     return counts, record
 
 
+# phase 5c (d): the flagship's height-sharded artifact over these many bands
+SPACE_ARTIFACT_BANDS = (2, 4)
+
+
+def grid_space_artifact(bench, params, cfg, x, dev) -> tuple:
+    """Phase 5c (d): the flagship exported by ``export.run --space-devices
+    S`` (pallas) for each S of SPACE_ARTIFACT_BANDS: its slab program holds
+    one ``dctn_tpu_torch::eps_fwd`` node per EPS layer, and ``load_artifact``
+    on one card refuses it, naming the count. Then, for the numbers only,
+    ``RowShardedForward`` built directly over the artifact's program with
+    every band on this card (never through ``load_artifact``): its logits
+    within REL_TOL of one card's artifact of the same npz, and each band's
+    layer outputs (the eager slab program) equal to the whole image's rows,
+    bit for bit; the two timed in turns. Returns (launch counts, record)."""
+    import zipfile
+
+    from dctn_tpu_torch.cli import export
+    from dctn_tpu_torch.parallel.replicas import RowShardedForward
+    from dctn_tpu_torch.train import save_params_npz
+
+    record = {}
+    xb = x[:, :BATCH]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "flagship.npz")
+        save_params_npz(params, ckpt)
+        one_art = os.path.join(tmp, "one.zip")
+        export.run(checkpoint=ckpt, epses_specs=FLAGSHIP, batch_sizes=(BATCH,), device="cuda",
+                   out=one_art)
+        one = export.load_artifact(one_art)[1][BATCH]
+        bench.zero_counters()
+        with torch.inference_mode():
+            want = one(xb)
+            program = export.space_slab_program(params, cfg).to(dev)
+            whole = program.features(xb)
+            for bands in SPACE_ARTIFACT_BANDS:
+                art = os.path.join(tmp, f"space{bands}.zip")
+                export.run(checkpoint=ckpt, epses_specs=FLAGSHIP, batch_sizes=(BATCH,),
+                           space_devices=bands, device="cuda", out=art)
+                try:
+                    export.load_artifact(art)
+                    refused = ""
+                except ValueError as e:
+                    refused = str(e)
+                check(f"{bands} replicas need {bands} CUDA cards; 1 visible" in refused,
+                      f"load_artifact of a {bands}-band artifact on one card: {refused!r}")
+                with zipfile.ZipFile(art) as zf:
+                    meta = json.loads(zf.read("meta.json"))
+                    prog = torch.export.load(io.BytesIO(zf.read(f"forward_bs{BATCH}.pt2"))).module()
+                    classifier = torch.load(io.BytesIO(zf.read("classifier.pt")), weights_only=True)
+                nodes = export.op_nodes(prog)
+                check(nodes == {"eps_fwd": len(FLAGSHIP)},
+                      f"{bands}-band artifact: operator nodes {nodes}")
+                prog = prog.to(dev)
+                fn = RowShardedForward([prog] * bands, [dev] * bands, list(classifier["w"]),
+                                       classifier["b"], meta["space_rows"], meta["space_halo"])
+                got = fn(xb)
+                share = float((got - want).abs().max()) / (REL_TOL * float(want.abs().max()))
+                check(share <= 1.0, f"{bands}-band artifact: logits {share:.3f} of REL_TOL from "
+                                    "one card's artifact")
+                rows, same = meta["space_rows"], []
+                for s, slab in enumerate(fn.slabs(xb)):
+                    band = program.features(slab)
+                    n_valid = max(0, min(rows, whole.shape[1] - s * rows))
+                    same.append(torch.equal(band[:, :n_valid],
+                                            whole[:, s * rows : s * rows + n_valid]))
+                check(all(same), f"{bands}-band artifact: band layer outputs {same} are not the "
+                                 "whole image's rows bit for bit")
+                t_band, t_one = median_ms([lambda: fn(xb), lambda: one(xb)], reps=10)
+                record[f"space_{bands}"] = {
+                    "slab_rows": rows + meta["space_halo"], "share_of_rel_tol": share,
+                    "bands_bit_equal": all(same), "op_nodes": nodes,
+                    "ms_all_bands_on_one_card": t_band, "one_card_artifact_ms": t_one}
+        torch.cuda.synchronize()
+        counts = bench.read_counters()
+    return counts, record
+
+
 def grid_phase(bench, K, Q8, params, cfg, tx, ty, dev, res) -> list:
-    """Phase 5c: tensor and spatial parallelism on the card: (a) the kernels
-    at the shard shapes, (b) shards against the whole layers and logits,
-    (c) the grid's steps at world size 1 through a real NCCL group. With
-    two or more cards the multichip subprocess of phase 5b runs the TP and
-    SP paths across them. Returns the launch counts of the driven paths."""
+    """Phase 5c: tensor and spatial parallelism and SP x TP on the card: (a)
+    the kernels at the shard shapes, (b) shards against the whole layers and
+    logits, (c) the grid's steps at world size 1 through a real NCCL group,
+    (d) the height-sharded artifact. With two or more cards the multichip
+    subprocess of phase 5b runs the TP, SP and SP x TP paths across them.
+    Returns the launch counts of the driven paths."""
     grid_kernels_at_shard_shapes(K, Q8, dev, res)
     shards = grid_shards_vs_whole(K, Q8, params, cfg, tx, dev)
     counts, record = grid_world_size_1(bench, params, cfg, tx, ty, dev)
+    art_counts, art_record = grid_space_artifact(bench, params, cfg, tx, dev)
     print(json.dumps({"metric": "grid_world_size_1", "steps": DP_STEPS, **record,
-                      "shards_vs_whole": shards["max_share_of_rel_tol"]}))
-    return counts
+                      "shards_vs_whole": shards["max_share_of_rel_tol"],
+                      "sp_x_tp_bit_equal": shards["sp_x_tp_bit_equal"],
+                      "space_artifact": art_record}))
+    return counts + [art_counts]
 
 
 def sbs_runner_phase(legacy_runner, bench, dev):
@@ -3314,8 +3447,9 @@ def main(argv=None) -> int:
     dp_counts = dp_phase(bench, CSM, params, cfg, tx, ty, dev)
     phase_done("data parallelism (5b)")
 
-    # phase 5c: tensor and spatial parallelism: the kernels at the shard
-    # shapes, the shards against the whole, the grid at world size 1
+    # phase 5c: tensor and spatial parallelism and SP x TP: the kernels at
+    # the shard shapes, the shards against the whole, the grid at world size
+    # 1, the height-sharded artifact
     dp_counts += grid_phase(bench, K, Q8, params, cfg, tx, ty, dev, numbers)
     phase_done("tensor and spatial parallelism (5c)")
 

@@ -30,11 +30,35 @@ model code needed beyond the operators. ``meta["mesh_devices"]`` is N and
 with that key gives a one-replica artifact of the same kind);
 ``load_artifact`` needs N visible cards.
 
+``--space-devices S`` exports the height-sharded artifact (eps family;
+``export_space_sharded_forward``, JAX export.py:130-215): each entry point
+takes a global batch of whole images, H = S·Hl rows, and serves each image
+by bands of Hl rows on S cards, for images whose activations one card
+cannot hold. JAX exports one ``shard_map`` with a halo ``ppermute`` per
+layer; ``torch.export`` holds no program that spans cards, and the port
+serves from one process without a process group. So each card runs one
+device-free program on an overlapped slab of the image, rows [s·Hl, s·Hl +
+Hl + Σ_i(K_i − 1)), zero past the bottom: every EPS layer with no exchange,
+then its partial logits against its h-slice of the classifier, which the
+program takes as its second input. The loader (``_load_space_sharded``)
+places a copy of the program on ``cuda:0`` … ``cuda:S-1`` with the slices
+of ``classifier.pt``, launches every card before it gathers, sums the
+partial logits on the input's device in card order and adds the bias once
+(``parallel.replicas.RowShardedForward``). The cost: layer 0 runs
+Σ_{i≥1}(K_i − 1) more rows than a training slab (the flagship: 19 rows
+against 17 at S = 2, 12 against 10 at S = 4); no card holds a whole image's
+activations. ``meta["space_devices"]`` is S; ``load_artifact`` needs S
+visible cards and never puts two bands on one card. As in JAX, it refuses
+another family, ``--mesh-devices`` beside it, ``--quantize int8`` and a
+height that S does not divide.
+
 Artifact layout (a zip):
   meta.json          the model config, batch sizes, device type, backend
   forward_bs{N}.pt2  ``torch.export.save`` of the program for batch size N
                      (static shapes: the kernels' launch plans are fixed per
                      shape)
+  classifier.pt      height-sharded artifacts only: the classifier's S
+                     h-slices and its bias (``torch.save``)
 
 Usage:
   python -m dctn_tpu_torch.cli.export CKPT.npz --epses-specs "(4,4),(3,6)" \
@@ -60,6 +84,7 @@ from torch import nn
 
 from ..interop import conv_sbs_params_from_numpy, params_from_numpy
 from ..kernels import ops  # registers the operators that pallas graphs name
+from ..kernels.eps_kernels import eps_apply_t_cmt
 from ..kernels.eps_q8_kernels import quantize_fast_params
 from ..models import (
     ConvSBSModel,
@@ -73,18 +98,18 @@ from ..models import (
     fast_params_from_reference,
     init_conv_sbs_model,
 )
+from ..ops import eps as eps_mod
 from ..train import load_conv_sbs_params_npz, load_params_npz
 from .specs import parse_epses_specs
 
 _META_NAME = "meta.json"
 _ENTRY = "forward_bs{}.pt2"
+_CLASSIFIER = "classifier.pt"
 BACKENDS = ("pallas", "xla")
 
 # each refused flag, the values that mean "not used", and the ROADMAP item
 # that ports it (as the runners' REFUSED tables)
 REFUSED = (
-    ("space_devices", (1,), "--space-devices > 1",
-     "the height-sharded artifact (slice 7c, item 19c)"),
     ("autotune_splits", (False,), "--autotune-splits", "the autotuner (slice 8, item 20)"),
     ("autotune_cache", (False,), "--autotune-cache", "the autotuner (slice 8, item 20)"),
     ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
@@ -226,11 +251,129 @@ def export_sharded_forward(
             {bs: seconds[lb] for bs, lb in local.items()})
 
 
-def write_artifact(path: str, serialized: Dict[int, bytes], meta: dict) -> None:
+class _SlabProgram(nn.Module):
+    """What a height-sharded artifact's entry point traces: one card's slab
+    (C, B, Hl + Σ(K−1), W, Q₀) through every EPS layer, then its partial
+    logits (B, classes) against the classifier's h-slice ``w_loc``
+    (Hl·W'·O, classes, rows ordered (h, w, o)). ``plans`` None: the
+    reference cores through the plain ``eps`` (xla); else the cmts through
+    the K1 operator (pallas)."""
+
+    def __init__(self, cores, plans=None):
+        super().__init__()
+        self.cores = nn.ParameterList(nn.Parameter(c.detach().clone().contiguous(),
+                                                   requires_grad=False) for c in cores)
+        self.plans = plans
+
+    def features(self, slab: torch.Tensor) -> torch.Tensor:
+        """The last EPS layer's output on ``slab`` (or on a whole image):
+        (B, rows, W', O) through the reference cores, batch-minor (O, rows,
+        W', B) through the cmts."""
+        if self.plans is None:
+            h = slab
+            for core in self.cores:
+                h = eps_mod.eps(core, h)[None]
+            return h[0]
+        xT = slab.permute(0, 4, 2, 3, 1)
+        for i, (cmt, p) in enumerate(zip(self.cores, self.plans)):
+            xT = eps_apply_t_cmt(cmt, xT, p["out_size"], p["kernel_size"], p["n1"],
+                                 p["merge_pairs"], layer_index=i, kernels=ops.OP_KERNELS)[None]
+        return xT[0]
+
+    def forward(self, slab: torch.Tensor, w_loc: torch.Tensor) -> torch.Tensor:
+        f = self.features(slab)
+        if self.plans is None:
+            return f.reshape(f.shape[0], -1) @ w_loc
+        o, hl, wl, b = f.shape
+        return torch.tensordot(f.reshape(o, hl * wl, b), w_loc.reshape(hl * wl, o, -1),
+                               dims=([0, 1], [1, 0]))
+
+
+def space_layout(cfg: EPSesPlusLinearConfig, space_devices: int) -> Tuple[int, int]:
+    """(Hl, halo) of a height-sharded artifact: each card's band of output
+    rows, H / S, and the rows below it its slab adds, Σ_i(K_i − 1). Refuses
+    a height that S does not divide and, as SP training does, a halo wider
+    than a band."""
+    from ..parallel import sp_check_config
+
+    if cfg.image_size % space_devices:
+        raise ValueError(
+            f"image height {cfg.image_size} is not divisible by space_devices={space_devices} "
+            "(the exported module carries no height pad)")
+    sp_check_config(cfg, space_devices)
+    return cfg.image_size // space_devices, sum(k - 1 for k, _ in cfg.epses_specs)
+
+
+def space_classifier(params, cfg: EPSesPlusLinearConfig, space_devices: int) -> dict:
+    """The classifier of reference-layout ``params`` as the height-sharded
+    artifact holds it: ``w`` (S, Hl·W'·O, classes), card s's h-slice of the
+    weight zero-padded along h to S·Hl rows, and the bias ``b``."""
+    hl, _ = space_layout(cfg, space_devices)
+    v = cfg.pre_linear_image_size
+    w = params["linear"]["w"].detach().cpu().reshape(v, v, -1, cfg.num_classes)
+    w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, 0, 0, space_devices * hl - v))
+    return {"w": w.reshape(space_devices, -1, cfg.num_classes).contiguous(),
+            "b": params["linear"]["b"].detach().cpu().clone()}
+
+
+def space_slab_program(params, cfg: EPSesPlusLinearConfig, channels: int = 1,
+                       backend: str = "pallas") -> _SlabProgram:
+    """The slab program of reference-layout ``params`` on the CPU (what
+    ``export_space_sharded_forward`` traces and serving places on each
+    card): the fast layout's cmts for ``pallas``, the reference cores for
+    ``xla``."""
+    cores = tuple(c.detach().cpu() for c in params["epses"])
+    if backend == "xla":
+        return _SlabProgram(cores)
+    fast, plans = fast_params_from_reference({"epses": cores, "linear": {}}, cfg,
+                                             plans=fast_layer_plans(cfg, channels))
+    return _SlabProgram(fast["epses_cmt"], plans)
+
+
+def export_space_sharded_forward(
+    params,
+    cfg: EPSesPlusLinearConfig,
+    *,
+    batch_sizes: Sequence[int],
+    space_devices: int,
+    channels: int = 1,
+    backend: str = "pallas",
+) -> Tuple[Dict[int, bytes], Dict[int, float], bytes]:
+    """The height-sharded serving export (JAX export.py:130-215): for each
+    batch size the device-free slab program (``space_slab_program``),
+    traced on the CPU at the slab's shape with a classifier slice, and the
+    classifier's S slices with the bias (``space_classifier``), saved
+    apart. Returns ({bs: saved program}, {bs: export seconds}, the
+    ``classifier.pt`` bytes)."""
+    assert backend in BACKENDS, backend
+    hl, halo = space_layout(cfg, space_devices)
+    program = space_slab_program(params, cfg, channels, backend)
+    classifier = space_classifier(params, cfg, space_devices)
+    w0 = classifier["w"][0]
+    serialized, seconds = {}, {}
+    for bs in batch_sizes:
+        t0 = time.perf_counter()
+        slab = torch.zeros(channels, bs, hl + halo, cfg.image_size, cfg.q0)
+        with torch.no_grad():
+            exported = torch.export.export(program.eval(), (slab, w0))
+        buf = io.BytesIO()
+        torch.export.save(exported, buf)
+        serialized[bs], seconds[bs] = buf.getvalue(), time.perf_counter() - t0
+    buf = io.BytesIO()
+    torch.save(classifier, buf)
+    return serialized, seconds, buf.getvalue()
+
+
+def write_artifact(path: str, serialized: Dict[int, bytes], meta: dict,
+                   classifier: bytes = None) -> None:
+    """The artifact zip: the meta, one program per batch size, and a
+    height-sharded artifact's ``classifier``."""
     with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as zf:
         zf.writestr(_META_NAME, json.dumps(meta, indent=1))
         for bs, blob in sorted(serialized.items()):
             zf.writestr(_ENTRY.format(bs), blob)
+        if classifier is not None:
+            zf.writestr(_CLASSIFIER, classifier)
 
 
 def load_artifact(path: str, device=None) -> Tuple[dict, Dict[int, torch.nn.Module]]:
@@ -241,8 +384,11 @@ def load_artifact(path: str, device=None) -> Tuple[dict, Dict[int, torch.nn.Modu
     the current card). A sharded artifact (``meta["mesh_devices"]`` N > 1)
     loads a replica of each program onto ``cuda:0`` … ``cuda:N-1`` (or N
     CPU replicas): its callables take an input on any device and return the
-    logits there. A JAX package artifact (``.jaxexp`` entries) is refused:
-    re-export its npz checkpoint with this package."""
+    logits there. So does a height-sharded artifact (``meta["space_devices"]``
+    S > 1), whose program goes onto ``cuda:0`` … ``cuda:S-1``, one band of
+    rows each, refused where fewer cards are visible. A JAX package artifact
+    (``.jaxexp`` entries) is refused: re-export its npz checkpoint with this
+    package."""
     fns: Dict[int, torch.nn.Module] = {}
     with zipfile.ZipFile(path) as zf:
         names = zf.namelist()
@@ -253,11 +399,9 @@ def load_artifact(path: str, device=None) -> Tuple[dict, Dict[int, torch.nn.Modu
                 "dctn_tpu_torch.cli.export CKPT.npz ...`"
             )
         meta = json.loads(zf.read(_META_NAME))
-        if meta.get("space_devices", 1) > 1:
-            raise ValueError(
-                f"{path} is a height-sharded artifact: not ported yet (ROADMAP, the "
-                "height-sharded artifact, slice 7c, item 19c)")
         exported_on = (meta.get("platforms") or ["cpu"])[0]
+        if meta.get("space_devices", 1) > 1:
+            return meta, _load_space_sharded(zf, names, meta, exported_on, device, path)
         if meta.get("mesh_devices", 1) > 1 or meta.get("program_device") == "cpu":
             return meta, _load_sharded(zf, names, meta, exported_on, device, path)
         want = torch.device(device if device is not None else exported_on)
@@ -290,36 +434,61 @@ def load_artifact(path: str, device=None) -> Tuple[dict, Dict[int, torch.nn.Modu
     return meta, fns
 
 
-def _load_sharded(zf, names, meta: dict, exported_on: str, device, path: str):
-    """{global batch size: ShardedForward} over a replica of each entry's
-    device-free program on each of ``meta["mesh_devices"]`` devices."""
+def _placed_programs(zf, names, meta: dict, exported_on: str, device, path: str, n: int):
+    """The devices of a sharded artifact's ``n`` cards (``n`` CPU replicas),
+    and {batch size: [a copy of the entry's device-free program on each]}."""
     import copy
 
-    from ..parallel.replicas import ShardedForward, replica_devices
+    from ..parallel.replicas import replica_devices
 
     want = torch.device(device if device is not None else exported_on)
     if want.type != exported_on:
         raise ValueError(f"{path} serves on {exported_on}; it does not load onto {want.type}")
-    n = meta["mesh_devices"]
     devices = replica_devices(n, exported_on)
-    axis = 1 if meta.get("model_family", "eps") == "eps" else 0
-    fns = {}
+    programs = {}
     for name in names:
-        if name == _META_NAME:
+        if not name.startswith("forward_bs"):
             continue
         bs = int(name[len("forward_bs") : -len(".pt2")])
         base = torch.export.load(io.BytesIO(zf.read(name))).module()
         for node in base.graph.nodes:
             if "device" in node.kwargs:
                 raise ValueError(f"{path}: its program names a device ({node}); it cannot move")
-        replicas = []
+        programs[bs] = []
         for dev in devices:
             fn = copy.deepcopy(base).to(dev)
             for p in fn.parameters():
                 p.requires_grad_(False)
-            replicas.append(fn)
-        fns[bs] = ShardedForward(replicas, devices, axis)
-    return fns
+            programs[bs].append(fn)
+    return devices, programs
+
+
+def _load_sharded(zf, names, meta: dict, exported_on: str, device, path: str):
+    """{global batch size: ShardedForward} over a replica of each entry's
+    device-free program on each of ``meta["mesh_devices"]`` devices."""
+    from ..parallel.replicas import ShardedForward
+
+    devices, programs = _placed_programs(zf, names, meta, exported_on, device, path,
+                                         meta["mesh_devices"])
+    axis = 1 if meta.get("model_family", "eps") == "eps" else 0
+    return {bs: ShardedForward(replicas, devices, axis) for bs, replicas in programs.items()}
+
+
+def _load_space_sharded(zf, names, meta: dict, exported_on: str, device, path: str):
+    """{batch size: RowShardedForward} of a height-sharded artifact: its
+    slab program on each of ``meta["space_devices"]`` cards, each with its
+    h-slice of the classifier."""
+    from ..parallel.replicas import RowShardedForward
+
+    n = meta["space_devices"]
+    try:
+        devices, programs = _placed_programs(zf, names, meta, exported_on, device, path, n)
+    except ValueError as e:
+        raise ValueError(f"{path} is height-sharded over {n} devices: {e}") from None
+    classifier = torch.load(io.BytesIO(zf.read(_CLASSIFIER)), weights_only=True)
+    return {bs: RowShardedForward(replicas, devices, list(classifier["w"]), classifier["b"],
+                                  meta["space_rows"], meta["space_halo"])
+            for bs, replicas in programs.items()}
 
 
 def op_nodes(fn: torch.nn.Module) -> Dict[str, int]:
@@ -396,7 +565,8 @@ def _parse_int_list(_ctx, _param, value: str) -> Tuple[int, ...]:
               help="a sharded artifact: every --batch-sizes entry is a global batch split over "
                    "this many cards (or CPU replicas), a replica on each")
 @click.option("--space-devices", type=int, default=1,
-              help="not ported yet (the height-sharded artifact, ROADMAP item 19c): only 1")
+              help="the height-sharded artifact (eps family): every image served by bands of "
+                   "H / S rows on S cards (or CPU replicas), a slab program on each")
 @click.option("--device", default="cuda",
               help="torch device to export on and serve on: cuda (the kernels) or cpu "
                    "(their plain versions)")
@@ -425,8 +595,8 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
         autotune_splits=False, autotune_cache=False, out=None) -> dict:
     """Export the npz ``checkpoint`` to the artifact ``out``; returns each
     entry point's export seconds and bytes, and the artifact's bytes."""
-    given = dict(space_devices=space_devices, autotune_splits=autotune_splits,
-                 autotune_cache=autotune_cache, compute_dtype=compute_dtype)
+    given = dict(autotune_splits=autotune_splits, autotune_cache=autotune_cache,
+                 compute_dtype=compute_dtype)
     for name, accepted, flag, where in REFUSED:
         if given[name] not in accepted:
             raise click.UsageError(f"{flag} is not ported to the PyTorch export yet: ROADMAP, {where}")
@@ -444,14 +614,37 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
                 "--quantize needs the pallas backend (the int8 kernel runs on the fast layout)"
             )
     device = torch.device(device)
-    if mesh_devices < 1:
-        raise click.UsageError(f"--mesh-devices {mesh_devices}: at least one device")
+    if mesh_devices < 1 or space_devices < 1:
+        raise click.UsageError(
+            f"--mesh-devices {mesh_devices} --space-devices {space_devices}: at least one device")
+    if space_devices > 1:  # JAX export.py:471-493, its words
+        if model_family != "eps":
+            raise click.UsageError("--space-devices > 1 needs --model-family eps")
+        if mesh_devices > 1:
+            raise click.UsageError(
+                "--space-devices and --mesh-devices are mutually exclusive in export (one "
+                "sharded entry convention per artifact; shard data OR image height)")
+        if quantize != "none":
+            raise click.UsageError(
+                "--quantize int8 does not compose with --space-devices export: the W8A8 serving "
+                "kernels plan per full image (use --mesh-devices or single-chip int8)")
+        if image_size % space_devices:
+            raise click.UsageError(
+                f"--image-size {image_size} must be divisible by --space-devices "
+                f"{space_devices} (the exported module carries no height pad)")
+        if epses_specs:
+            try:  # a halo wider than a band, before the checkpoint loads
+                space_layout(EPSesPlusLinearConfig(epses_specs=tuple(epses_specs),
+                                                   image_size=image_size, q0=q0), space_devices)
+            except ValueError as e:
+                raise click.UsageError(f"--space-devices {space_devices}: {e}") from None
+    sharded = mesh_devices > 1 or space_devices > 1
     if mesh_devices > 1:
         bad = [bs for bs in batch_sizes if bs % mesh_devices]
         if bad:
             raise click.UsageError(
                 f"global batch sizes {bad} are not divisible by --mesh-devices {mesh_devices}")
-    elif device.type == "cuda" and not torch.cuda.is_available():
+    if not sharded and device.type == "cuda" and not torch.cuda.is_available():
         # a one-card artifact's weights are placed on the card; a sharded
         # one is traced device-free on the CPU
         raise click.UsageError(f"--device {device}: no CUDA device is available")
@@ -464,10 +657,15 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
         cfg = EPSesPlusLinearConfig(epses_specs=tuple(epses_specs), image_size=image_size, q0=q0,
                                     num_classes=num_classes)
         params = params_from_numpy(load_params_npz(checkpoint),
-                                   device if mesh_devices == 1 else "cpu", torch.float32)
+                                   "cpu" if sharded else device, torch.float32)
         _check_params(params, cfg, channels)
         q = None if quantize == "none" else quantize
-        if mesh_devices > 1:
+        if space_devices > 1:
+            serialized, seconds, classifier = export_space_sharded_forward(
+                params, cfg, batch_sizes=batch_sizes, space_devices=space_devices,
+                channels=channels, backend=backend)
+            hl, halo = space_layout(cfg, space_devices)
+        elif mesh_devices > 1:
             serialized, seconds = export_sharded_forward(
                 params, cfg, batch_sizes=batch_sizes, mesh_devices=mesh_devices,
                 channels=channels, backend=backend, quantize=q)
@@ -501,14 +699,16 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
         family_meta = {"num_sbs_layers": num_sbs_layers, "bond_dim_size": bond_dim,
                        "trace_edge": trace_edge, "cos_sin_squared": cos_sin_squared,
                        "input_multiplier": input_multiplier, "num_labels": num_classes}
-    if mesh_devices > 1:
+    if sharded:
         family_meta["program_device"] = "cpu"  # placed on each card at load
+    if space_devices > 1:
+        family_meta.update(space_rows=hl, space_halo=halo)
     meta = build_meta(
         model_family=model_family, image_size=image_size, batch_sizes=batch_sizes,
-        backend=backend, mesh_devices=mesh_devices, platforms=[device.type],
-        compute_dtype=compute_dtype, quantize=quantize, **family_meta,
+        backend=backend, mesh_devices=mesh_devices, space_devices=space_devices,
+        platforms=[device.type], compute_dtype=compute_dtype, quantize=quantize, **family_meta,
     )
-    write_artifact(out, serialized, meta)
+    write_artifact(out, serialized, meta, classifier if space_devices > 1 else None)
     report = {
         "export_s": seconds,
         "entry_bytes": {bs: len(b) for bs, b in serialized.items()},
@@ -518,6 +718,7 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
     print(
         f"exported {len(serialized)} entry point(s) (bs {sorted(serialized)}, device "
         f"{device.type}" + (f" x {mesh_devices} replicas" if mesh_devices > 1 else "")
+        + (f" x {space_devices} bands of rows" if space_devices > 1 else "")
         + f", backend {backend}, quantize {quantize}) to {out} "
         f"({report['artifact_bytes'] / 1e6:.2f} MB; export s per entry "
         + ", ".join(f"bs {bs}: {s:.2f}" for bs, s in report["export_s"].items()) + ")"

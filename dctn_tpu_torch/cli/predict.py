@@ -16,7 +16,9 @@ process (JAX predict.py:291-300): a replica of the model (f32, or int8
 with ``--quantize int8``) on each of ``cuda:0`` … ``cuda:N-1`` (CPU
 replicas with ``--device cpu``), every batch split over them and the
 logits gathered (``parallel.replicas``); no process group. A sharded
-artifact (``export --mesh-devices N``) brings its N replicas itself.
+artifact brings its cards itself: N replicas by batch share (``export
+--mesh-devices N``), or S by band of image rows (``export --space-devices
+S``, the height-sharded artifact).
 
 Usage:
   python -m dctn_tpu_torch.cli.predict CKPT.npz --ds-type fashionmnist \
@@ -247,8 +249,11 @@ def run(*, checkpoint, ds_type, ds_path, epses_specs=None, phi_multiplier=None,
                 f"artifact (channels={want[0]}, {want[1]}, q0={want[2]})"
             )
         model = fns
-        devices = ([torch.device(device.type, i) for i in range(meta["mesh_devices"])]
-                   if meta.get("mesh_devices", 1) > 1 else [device])
+        # a sharded artifact's cards: one a batch share (--mesh-devices) or
+        # one a band of rows (--space-devices)
+        cards = max(meta.get("mesh_devices", 1), meta.get("space_devices", 1))
+        devices = ([torch.device(device.type, i) for i in range(cards)] if cards > 1
+                   else [device])
 
         def call(xb):
             return fns[xb.shape[1]](xb)

@@ -73,25 +73,27 @@ JAX runner's rule), so the batches differ from the unbroken run's. With
 ``mesh_devices > 1`` ``run`` returns rank 0's final state: ``params`` in
 the reference layout on the CPU, no optimizer.
 
-``--model-devices M`` (tensor parallelism) or ``--space-devices S``
-(spatial parallelism) runs N·M or N·S ranks on a ``(data, model)`` or
-``(data, space)`` grid (``parallel.GridMesh``; N is ``--mesh-devices``),
-dispatched as the JAX runner dispatches them (runner.py:915-1043): the fast
-layout where both backends are the kernels' (TP: the last cmt's row block;
-SP: the kernels on each rank's slab of rows), else the reference layout
-with each backend's ``eps`` (``--tp-shard-all`` always: every core sharded,
-through the kernels' route of ``ops.eps`` with the pallas backend). Every
-rank draws the one-device batch stream and takes its data shard of each
-global batch (under SP its block of the padded rows, the whole train split
-held on each card); evals score the data shards through the sharded score
-functions. Checkpoints, train states and the artifact are written by global
-rank 0 in the layout one device holds: under TP the model group gathers its
-shards first (every rank calls), so a TP train state resumes on one device
-and one device's on TP; a layout conversion under TP is refused, as in JAX
-(runner.py:1319-1330). SP×TP (both over 1) is refused, naming ROADMAP item
-19c, as are ``--tp-shard-all`` with ``--qat int8``, a model axis that does
-not divide a sharded O and a halo wider than a rank's rows, all before any
-rank starts.
+``--model-devices M`` (tensor parallelism), ``--space-devices S`` (spatial
+parallelism) or both (SP×TP) run N·S·M ranks on a ``(data, space, model)``
+grid (``parallel.GridMesh``; N is ``--mesh-devices``), dispatched as the
+JAX runner dispatches them (runner.py:849-1043): the fast layout where both
+backends are the kernels' (TP: the last cmt's row block; SP: the kernels on
+each rank's slab of rows; SP×TP: both, ``parallel.sp_tp``), else the
+reference layout with each backend's ``eps`` (``--tp-shard-all`` always:
+every core sharded, through the kernels' route of ``ops.eps`` with the
+pallas backend); under QAT evals score the int8 forward. Every rank draws
+the one-device batch stream and takes its data shard of each global batch
+(under SP and SP×TP its block of the padded rows, the whole train split held
+on each card, the same on every rank of a model line); evals score the data
+shards through the sharded score functions. Checkpoints, train states and
+the artifact are written by global rank 0 in the layout one device holds:
+under TP and SP×TP the model line gathers its shards first (every rank
+calls), so such a train state resumes on one device and one device's on the
+grid; a layout conversion under TP is refused, as in JAX
+(runner.py:1319-1330). ``--tp-shard-all`` with ``--space-devices`` (JAX
+runner.py:477-486) or with ``--qat int8``, a model axis that does not divide
+a sharded O, a halo wider than a rank's rows and more ranks than visible
+cards are refused before any rank starts.
 
 Flags the port does not run yet are refused with a ``click.BadParameter``
 naming their ROADMAP item (``REFUSED``). The inits and dropout masks draw
@@ -517,23 +519,20 @@ IMAGE_SIZES = {"mnist": 28, "fashionmnist": 28, "cifar10_28x28_grayscale": 28}
 
 
 def _validate_grid(kw: dict) -> None:
-    """The tensor- and spatial-parallel flags (runner.py:477-486, :569-574,
-    tensor_parallel.py:88-92, spatial_parallel.py:91-100): refused here,
-    before any rank starts, when their grid cannot be built."""
+    """The tensor- and spatial-parallel flags and their composition
+    (runner.py:477-486, :569-574, tensor_parallel.py:88-92,
+    spatial_parallel.py:91-100): refused here, before any rank starts, when
+    their grid cannot be built."""
     from ..parallel import check_model_axis, sp_check_config
 
     model, space = kw["model_devices"], kw["space_devices"]
     if model < 1 or space < 1:
         raise click.BadParameter("--model-devices and --space-devices count ranks: >= 1")
-    if model > 1 and space > 1:
-        # and, as in the JAX runner, --tp-shard-all would not compose with it
+    if model > 1 and space > 1 and kw["tp_shard_all"]:
         raise click.BadParameter(
-            "--model-devices > 1 with --space-devices > 1 (SP x TP) is not ported to the "
-            "PyTorch runner yet: ROADMAP, the composed spatial x tensor parallelism "
-            "(slice 7c, item 19c)" + (
-                "; and --tp-shard-all does not compose with --space-devices (its inter-layer "
-                "all_gathers would interleave with the per-layer halo exchange; use the "
-                "default last-core TP layout)" if kw["tp_shard_all"] else ""))
+            "--tp-shard-all does not compose with --space-devices (its inter-layer all_gathers "
+            "would interleave with the per-layer halo exchange; use the default last-core TP "
+            "layout)")
     if kw["qat"] not in (None, "none") and model > 1 and kw["tp_shard_all"]:
         raise click.BadParameter(
             "--qat int8 with --tp-shard-all: shard_all has no fast (cmt) layout analog and QAT "
@@ -629,13 +628,13 @@ def _run_rank(mesh, kw: dict) -> dict:
 
 def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     """The run on one device (``mesh`` None), or one rank's share of a
-    data-parallel run, or of a tensor- or spatial-parallel one (``mesh`` a
-    ``GridMesh``)."""
+    data-parallel run, or of a tensor- or spatial-parallel one or both
+    (``mesh`` a ``GridMesh``)."""
     from ..parallel import GridMesh
 
     grid = mesh if isinstance(mesh, GridMesh) else None
-    tp = grid is not None and grid.axis == "model"
-    sp = grid is not None and grid.axis == "space"
+    tp = grid is not None and grid.size("model") > 1
+    sp = grid is not None and grid.size("space") > 1
     primary = mesh is None or mesh.is_primary
     writes_logs = mesh is None or mesh.writes_logs
     ts = time.strftime("%Y-%m-%d-%H-%M-%S")
@@ -664,9 +663,13 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
         if grid is None:
             logger.info("data parallel: %d ranks (%s), rank pids %s", mesh.world_size,
                         mesh.backend, pids)
+        elif tp and sp:
+            logger.info("SP x TP: grid (data=%d, space=%d, model=%d), %d ranks (%s), rank pids %s",
+                        *grid.dims, grid.world_size, grid.backend, pids)
         else:
+            axis = "model" if tp else "space"
             logger.info("%s parallelism: grid (data=%d, %s=%d), %d ranks (%s), rank pids %s",
-                        "tensor" if tp else "spatial", grid.n_data, grid.axis, grid.n_other,
+                        "tensor" if tp else "spatial", grid.n_data, axis, grid.size(axis),
                         grid.world_size, grid.backend, pids)
 
     # --- data (new_runner.py:345-376) ---
@@ -684,6 +687,10 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=image_size, q0=q0,
                                 dropout_p=kw["dropout_p"])
     qat = None if kw["qat"] in (None, "none") else kw["qat"]
+    if sp:
+        from ..parallel import sp_local_rows
+
+        logger.info("%d image rows a space rank", sp_local_rows(image_size, grid.size("space")))
     # the layouts the backends train and score: xla is the reference layout
     # through the plain eps, anything else the fast layout's kernels
     train_ref = kw["train_backend"] == "xla"
@@ -770,7 +777,16 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
             )
     step_kw = dict(frozen_eps_indices=kw["freeze_eps"], with_probs=kw["tb_batches"],
                    grad_accum_steps=kw["grad_accum_steps"])
-    if tp:
+    if tp and sp:
+        from ..parallel import make_sp_tp_fast_train_step, make_sp_tp_train_step
+
+        if train_ref:
+            step = make_sp_tp_train_step(model, optimizer, kw["reg_type"], kw["reg_coeff"],
+                                         backend=ref_backends[0], **step_kw)
+        else:
+            step = make_sp_tp_fast_train_step(model, optimizer, kw["reg_type"],
+                                              kw["reg_coeff"], qat=qat, **step_kw)
+    elif tp:
         from ..parallel import make_tp_fast_train_step, make_tp_train_step
 
         if train_ref:
@@ -835,7 +851,12 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
             return eps_plus_linear_forward(params, xb, cfg)
         return eps_plus_linear_forward_fast(params, xb, cfg, plans, kernels=eval_kernels)
 
-    if tp:
+    if tp and sp:
+        from ..parallel import make_sp_tp_forward
+
+        eval_forward = make_sp_tp_forward(cfg, grid, None if eval_ref else plans, qat,
+                                          ref_backends[1])
+    elif tp:
         from ..parallel import make_tp_fast_forward, make_tp_forward
 
         eval_forward = (make_tp_forward(cfg, grid, shard_all, ref_backends[1]) if eval_ref
@@ -851,6 +872,11 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
 
     if mesh is None:
         score_eval = make_score_fn(cfg, plans, kw["batch_size"], forward_fn=eval_forward)
+    elif tp and sp:
+        from ..parallel import make_sp_tp_score_fn
+
+        score_eval = make_sp_tp_score_fn(cfg, grid, per_dev, None if eval_ref else plans, qat,
+                                         ref_backends[1])
     else:
         from ..parallel import make_parallel_score_fn
 

@@ -65,10 +65,10 @@ class ArtifactModel:
 
     def __init__(self, path: str, microbatch_wait_s: float = 0.0):
         self.meta, self.fns = load_artifact(path)
-        # a sharded artifact's entry points split the batch over their
-        # cards from the host: its input stays on the CPU
-        self.device = torch.device(
-            "cpu" if self.meta.get("mesh_devices", 1) > 1 else self.meta["platforms"][0])
+        # a sharded artifact's entry points split the batch (or the image's
+        # rows) over their cards from the host: its input stays on the CPU
+        sharded = max(self.meta.get("mesh_devices", 1), self.meta.get("space_devices", 1)) > 1
+        self.device = torch.device("cpu" if sharded else self.meta["platforms"][0])
         self.sizes = sorted(self.fns)
         self.family = self.meta.get("model_family", "eps")
         self.batch_axis = 1 if self.family == "eps" else 0

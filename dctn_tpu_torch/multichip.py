@@ -1,7 +1,7 @@
-"""The data-, tensor- and spatial-parallel paths on several cards: the torch
-counterpart of the JAX package's multichip dry run
-(``__graft_entry__.py::dryrun_multichip``, its DP, TP and SP paths in
-``MULTICHIP_r05.json``; SP×TP is ROADMAP item 19c), with the times of each.
+"""The data-, tensor- and spatial-parallel paths and SP×TP on several cards:
+the torch counterpart of the JAX package's multichip dry run
+(``__graft_entry__.py::dryrun_multichip``, its DP, TP, SP and SP×TP paths
+in ``MULTICHIP_r05.json``), with the times of each.
 
     python -m dctn_tpu_torch.multichip --devices 4 [--profile DIR]
     python -m dctn_tpu_torch.multichip --devices 2 --device cpu --small   # gloo rehearsal
@@ -54,6 +54,14 @@ batch): step ms p50, images/s, launches per step, each card's peak memory,
 the deep model's layer-1 arm, and with ``--profile`` the NCCL kernels' and
 all kernels' device ms a step and the idle share on rank 0.
 
+From 4 ranks, SP×TP on the (N/4 data, 2 space, 2 model) grid
+(``parallel.make_sp_tp_grid``), checked as the TP paths are:
+``sp_x_tp_composed`` (the reference layout, the xla backend),
+``sp_x_tp_fast_cmt_pallas(+dropout)`` (the kernels on each slab and row
+block) and ``sp_x_tp_qat_int8_train``; then their times, the flagship f32
+and QAT steps at 128 a data rank beside one card and beside SP (1, N) at the
+same global batch, and the deep model at global 2048.
+
 Then, in this process, with a replica on each card (``parallel.replicas``):
 ``dp_sharded_predict`` and ``dp_sharded_predict_int8`` (``predict.run
 --mesh-devices N`` at global batch 512 beside one card; every replica's
@@ -61,7 +69,10 @@ logits equal replica 0's on the same images, bit for bit),
 ``dp_sharded_export_serving`` (a sharded flagship artifact, ``export.run
 --mesh-devices N``, served by ``serve.ArtifactModel``) and
 ``conv_sbs_artifact_serving`` (the ConvSBS cores the ranks trained, as a
-sharded artifact over N cards).
+sharded artifact over N cards) and ``sp_sharded_export_serving`` (the
+height-sharded artifact, ``export.run --space-devices S`` at S = 2 and,
+from 4 cards, 4, by bands of rows, against one card's artifact in the call:
+logits, p50 at batch 128, served and predicted from).
 
 One JSON line per path with its checks and times; the last line is
 ``{"ok": true, "paths": [...]}``. Any failed check exits nonzero before it.
@@ -111,6 +122,12 @@ REL_STEP = 1e-3
 # Read on 4 gloo CPU ranks at these shapes (the plain versions): gradient
 # gaps 1.8e-7 to 7.7e-7, move gaps 5.8e-6 to 1.3e-5
 TRAJ_TOL = 1e-3
+# the height-sharded artifact's logits against one card's artifact of the
+# same npz, as a share of the largest logit: each band's layer rows are the
+# whole layers' (the same kernels on the same pixels), and only the
+# classifier's sum runs in another order (over S partial products, then
+# the bias); float32 sums of 3,174 products each, ~1e-6 of the largest
+ARTIFACT_TOL = 1e-5
 
 # every failed check of this process, in order (``check``)
 _FAILED: list = []
@@ -574,9 +591,11 @@ def _time_sbs(mesh, z, trace_edge, opts):
 
 
 def _grids(n: int):
-    """The TP grid, (n/2 data, 2 model), and the SP grids, (n/2 data, 2
-    space) and, from 4 ranks, (1 data, n space)."""
-    return (n // 2, 2), [(n // 2, 2)] + ([(1, n)] if n > 2 else [])
+    """The TP grid, (n/2 data, 2 model), the SP grids, (n/2 data, 2 space)
+    and, from 4 ranks, (1 data, n space), and from 4 ranks the SP×TP grid
+    (n/4 data, 2 space, 2 model), or None."""
+    return ((n // 2, 2), [(n // 2, 2)] + ([(1, n)] if n > 2 else []),
+            (n // 4, 2, 2) if n >= 4 else None)
 
 
 def _keyed(model) -> dict:
@@ -628,7 +647,8 @@ def _tp_trajectory(g, model, opt, step, one_card, what: str) -> dict:
     rows = g.all_gather_cat(digest[None])
     same = []
     for i, (_, _, dim) in enumerate(model.shards()):
-        peers = [r for r in range(g.world_size) if dim is None or r % g.n_other == g.other_index]
+        peers = [r for r in range(g.world_size)
+                 if dim is None or r % g.size("model") == g.index("model")]
         same.append(bool((rows[peers, i] == rows[g.rank, i]).all()))
     rec["ranks_equal"] = check(all(same), f"{what}: the ranks' parameters differ after "
                                           f"{CHECK_STEPS} steps")
@@ -754,6 +774,57 @@ def _sp_check(mesh, z, dims, kind) -> dict:
     return {"grid": {"data": dims[0], "space": dims[1]}, **rec}
 
 
+def _sp_tp_check(mesh, z, dims, kind) -> dict:
+    """An SP×TP step on a (data, space, model) grid against one card's on
+    the whole batch: ``kind`` "xla" (the reference layout, the last core
+    sharded, the xla backend), "fast_dropout" (the fast layout's kernels on
+    each slab and row block, parameter dropout at p = 0.9 with one draw
+    everywhere) or "qat"."""
+    from .models import EPSesPlusLinear, EPSesPlusLinearReference
+    from .models.eps_plus_linear import draw_dropout_masks, fast_params_from_reference
+    from .parallel import (TPFastModel, TPModel, make_sp_tp_fast_train_step, make_sp_tp_grid,
+                           make_sp_tp_train_step, make_tp_fast_params, make_tp_params,
+                           sp_tp_shard_batch)
+    from .train import make_fast_train_step, make_train_step
+
+    g = make_sp_tp_grid(mesh, *dims)
+    dev, b = mesh.device, z["check_b"]
+    p = 0.9 if kind == "fast_dropout" else 1.0
+    cfg, params, x, y = _grid_problem(z, dev, g.n_data, b, dropout_p=p)
+    xg, yg = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    xs, ys = sp_tp_shard_batch(g, x, y)
+    masks = None
+    qat = "int8" if kind == "qat" else None
+    if kind == "xla":
+        model = TPModel(make_tp_params(params, cfg, g), cfg, g)
+        opt = _sgd(model)
+        step = make_sp_tp_train_step(model, opt, "epses_composition", 1e-4)
+
+        def one_card():
+            one = EPSesPlusLinearReference(params, cfg).to(dev)
+            opt1 = _sgd(one)
+            step1 = make_train_step(one, opt1, "epses_composition", 1e-4)
+            return one, opt1, lambda: step1(xg, yg)["loss"]
+    else:
+        fast, plans = fast_params_from_reference(params, cfg)
+        model = TPFastModel(make_tp_fast_params(fast, cfg, g), plans, cfg, g)
+        if p < 1.0:
+            masks = draw_dropout_masks(plans, p, torch.Generator(device=dev).manual_seed(5))
+        opt = _sgd(model)
+        step = make_sp_tp_fast_train_step(model, opt, "epswise", 1e-4, qat=qat)
+
+        def one_card():
+            one = EPSesPlusLinear.from_reference(params, cfg)
+            opt1 = _sgd(one)
+            step1 = make_fast_train_step(one, opt1, "epswise", 1e-4, qat=qat)
+            return one, opt1, lambda: step1(xg, yg, masks=None if masks is None else [masks])[
+                "loss"]
+
+    rec = _tp_trajectory(g, model, opt, lambda: step(xs, ys, masks=None if masks is None else [
+        masks])["loss"], one_card, f"sp x tp {kind} grid {dims}")
+    return {"grid": dict(zip(("data", "space", "model"), dims)), **rec}
+
+
 def _time_grid(mesh, z, name, axis, dims, specs, b, qat, opts, global_batch=None) -> dict:
     """Times the fast-layout step on a grid at ``b`` images a data rank (or
     at ``global_batch``), beside one card at ``b`` (and at the global
@@ -765,10 +836,11 @@ def _time_grid(mesh, z, name, axis, dims, specs, b, qat, opts, global_batch=None
     from .models import EPSesPlusLinear, EPSesPlusLinearConfig, init_eps_plus_linear
     from .models.eps_plus_linear import _plan_dims, fast_params_from_reference
     from .parallel import (TPFastModel, make_grid, make_sp_fast_train_step,
-                           make_tp_fast_params, make_tp_fast_train_step, sp_shard_batch)
+                           make_sp_tp_fast_train_step, make_sp_tp_grid, make_tp_fast_params,
+                           make_tp_fast_train_step, sp_shard_batch)
     from .train import make_fast_train_step, make_optimizer
 
-    g = make_grid(mesh, axis, *dims)
+    g = make_sp_tp_grid(mesh, *dims) if axis == "sp_tp" else make_grid(mesh, axis, *dims)
     dev = mesh.device
     cuda = dev.type == "cuda"
     deep = specs == DEEP
@@ -780,7 +852,13 @@ def _time_grid(mesh, z, name, axis, dims, specs, b, qat, opts, global_batch=None
     x, y = _data(specs, batch)
     reg = ("epses_composition", 0.1) if deep else ("epswise", 1e-6)
     lr = 1e-3 if deep else 3e-3
-    if axis == "model":
+    if axis == "sp_tp":
+        fast, plans = fast_params_from_reference(params, cfg)
+        model = TPFastModel(make_tp_fast_params(fast, cfg, g), plans, cfg, g)
+        opt = make_optimizer("adam", model.parameters(), lr)
+        step = make_sp_tp_fast_train_step(model, opt, *reg, qat=qat)
+        xs, ys = sp_shard_batch(g, x, y)
+    elif axis == "model":
         fast, plans = fast_params_from_reference(params, cfg)
         model = TPFastModel(make_tp_fast_params(fast, cfg, g), plans, cfg, g)
         opt = make_optimizer("adam", model.parameters(), lr)
@@ -801,7 +879,8 @@ def _time_grid(mesh, z, name, axis, dims, specs, b, qat, opts, global_batch=None
     launches = read_counters()
     steps = 5 if deep else z["steps"]
     per, window = _timed(lambda: step(xs, ys), steps, 1 if deep else z["warmup"], dev)
-    rec = {"path": name, "grid": {"data": g.n_data, axis: g.n_other}, "per_data_rank_batch": b,
+    rec = {"path": name, "grid": dict(zip(("data", "space", "model"), g.dims)),
+           "per_data_rank_batch": b,
            "global_batch": batch, "qat": qat, "step_ms_p50": statistics.median(per),
            "images_per_s": batch * steps / window,
            "launches_per_step": {k: v for k, v in launches.items() if v},
@@ -816,7 +895,7 @@ def _time_grid(mesh, z, name, axis, dims, specs, b, qat, opts, global_batch=None
         p1 = model.plans[1]
         n_k, q_k, n1_k = _plan_dims(p1)
         w1 = 28 - specs[0][0] - specs[1][0] + 2
-        npix = b * (xs.shape[2] if axis == "space" else w1) * w1
+        npix = b * (xs.shape[2] if axis != "model" else w1) * w1
         rec["layer1_local_pixels"] = npix
         rec["layer1_arm"] = K.plan_backward(1, n_k, n1_k, q_k, p1["out_size"], npix)
         rec["layer1_t_gib"] = p1["out_size"] * q_k ** (n_k - n1_k) * npix * 4 / 2**30
@@ -855,7 +934,7 @@ def _time_grid(mesh, z, name, axis, dims, specs, b, qat, opts, global_batch=None
 def _grid_paths(mesh, z, opts) -> tuple:
     """The TP and SP paths' checks and times on this rank; rank 0 prints
     the records. Returns (paths, times)."""
-    tp_dims, sp_dims = _grids(mesh.world_size)
+    tp_dims, sp_dims, st_dims = _grids(mesh.world_size)
     paths, times = [], []
     for kind, name in (("last_xla", "tp_last_core"), ("shard_all_pallas", "tp_shard_all"),
                        ("fast", "tp_fast_cmt_pallas"), ("qat", "tp_qat_int8_train")):
@@ -869,6 +948,12 @@ def _grid_paths(mesh, z, opts) -> tuple:
     paths.append("sp_fast_cmt_pallas(+dropout)")
     emit(mesh, {"path": "sp_qat_int8_train", **_sp_check(mesh, z, sp_dims[-1], "qat")})
     paths.append("sp_qat_int8_train")
+    if st_dims is not None:
+        for kind, name in (("xla", "sp_x_tp_composed"),
+                           ("fast_dropout", "sp_x_tp_fast_cmt_pallas(+dropout)"),
+                           ("qat", "sp_x_tp_qat_int8_train")):
+            emit(mesh, {"path": name, **_sp_tp_check(mesh, z, st_dims, kind)})
+            paths.append(name)
     b = z["time_b"]
     for qat in (None, "int8"):
         tag = "qat" if qat else "f32"
@@ -879,9 +964,19 @@ def _grid_paths(mesh, z, opts) -> tuple:
     if len(sp_dims) > 1:
         times.append(_time_grid(mesh, z, "sp_flagship_f32_step", "space", sp_dims[1],
                                 z["grid_specs"], b, None, opts))
+    if st_dims is not None:
+        # the flagship at the same global batch on (1, n) SP and on SP×TP
+        times.append(_time_grid(mesh, z, "sp_flagship_qat_step", "space", sp_dims[1],
+                                z["grid_specs"], b, "int8", opts))
+        for qat in (None, "int8"):
+            times.append(_time_grid(mesh, z, f"sp_x_tp_flagship_{'qat' if qat else 'f32'}_step",
+                                    "sp_tp", st_dims, z["grid_specs"], b, qat, opts))
     if z["deep"] is not None:
         times.append(_time_grid(mesh, z, "deep_sp_step", "space", sp_dims[-1], z["deep"], 0,
                                 None, opts, global_batch=z["deep_sp_global"]))
+        if st_dims is not None:
+            times.append(_time_grid(mesh, z, "deep_sp_x_tp_step", "sp_tp", st_dims, z["deep"], 0,
+                                    None, opts, global_batch=z["deep_sp_global"]))
     for t in times:
         emit(mesh, {"metric": "grid_step_time", **t})
     return paths, times
@@ -998,7 +1093,67 @@ def _predict_paths(n: int, z, device: str, tmp: str) -> list:
                       "p50_ms": lat["p50_ms"], "pipelined_img_per_s":
                       lat["pipelined_throughput_img_per_s"]}), flush=True)
     out.append("dp_sharded_export_serving")
+    if n >= 2:  # at the training steps' batch
+        out.append(_space_artifact_path(n, ckpt, specs, f32.x, z["time_b"], device, tmp))
     return out
+
+
+def _space_artifact_path(n: int, ckpt: str, specs, x_all, bs: int, device: str, tmp: str) -> str:
+    """``sp_sharded_export_serving``: the flagship's height-sharded artifact
+    (``export.run --space-devices S``, S = 2 and, from 4 cards, 4), served
+    by bands of rows on S cards, against one card's artifact of the same
+    npz in the same call: logits within ARTIFACT_TOL of the largest, one
+    K1 node per EPS layer in the slab program, p50 at ``bs``; then
+    ``serve.ArtifactModel`` and ``predict.run`` from the S = 2 artifact."""
+    from .cli import export, predict, serve
+
+    one_art = os.path.join(tmp, "eps_one.zip")
+    export.run(checkpoint=ckpt, epses_specs=specs, batch_sizes=(bs,), device=device, out=one_art)
+    one = export.load_artifact(one_art)[1][bs]
+    x = x_all[:, :bs]
+    with torch.inference_mode():
+        want = one(x)
+    rec = {"path": "sp_sharded_export_serving", "batch": bs,
+           "one_card_p50_ms": predict.latency_stats(one, x_all, bs)["p50_ms"], "bands": {}}
+    for space in (2, 4):
+        if space > n:
+            continue
+        art = os.path.join(tmp, f"eps_space{space}.zip")
+        report = export.run(checkpoint=ckpt, epses_specs=specs, batch_sizes=(bs,),
+                            space_devices=space, device=device, out=art)
+        meta, fns = export.load_artifact(art)
+        fn = fns[bs]
+        with torch.inference_mode():
+            got = fn(x)
+        gap = float((got - want).abs().max()) / float(want.abs().max())
+        check(gap <= ARTIFACT_TOL, f"sp_sharded_export_serving S={space}: logits {gap:.3e} of "
+                                   f"the largest from one card's artifact > {ARTIFACT_TOL}")
+        nodes = export.op_nodes(fn.replicas[0])
+        check(nodes == {"eps_fwd": len(specs)},
+              f"sp_sharded_export_serving S={space}: operator nodes {nodes}")
+        check(fn.devices == [torch.device(device, i) if device == "cuda" else torch.device("cpu")
+                             for i in range(space)],
+              f"sp_sharded_export_serving S={space}: bands on {fn.devices}")
+        lat = predict.latency_stats(fn, x_all, bs, devices=fn.devices)
+        rec["bands"][space] = {"logit_gap": gap,
+                               "slab_rows": meta["space_rows"] + meta["space_halo"],
+                               "op_nodes": nodes, "p50_ms": lat["p50_ms"], "p90_ms": lat["p90_ms"],
+                               "pipelined_img_per_s": lat["pipelined_throughput_img_per_s"],
+                               "artifact_bytes": report["artifact_bytes"]}
+        if space == 2:
+            xs = x_all[:, : min(300, x_all.shape[1])].cpu().numpy()
+            served = serve.ArtifactModel(art).predict(xs)
+            with torch.inference_mode():
+                direct = torch.cat([fn(torch.as_tensor(xs[:, i : i + bs], device=x.device))
+                                    for i in range(0, xs.shape[1] - bs + 1, bs)]).cpu().numpy()
+            check(np.allclose(served[: direct.shape[0]], direct, rtol=0,
+                              atol=1e-6 * float(np.abs(direct).max())),
+                  "sp_sharded_export_serving: served logits differ from direct calls")
+            preds = predict.run(checkpoint=art, ds_type="fashionmnist", ds_path="synthetic",
+                                batch_size=bs, device=device, synthetic_sizes=(64, 16, 2 * bs))
+            rec["predict_accuracy"] = preds.accuracy
+    print(json.dumps(rec), flush=True)
+    return "sp_sharded_export_serving"
 
 
 def _sbs_artifact_path(n: int, cores, cfg, device: str, tmp: str) -> str:

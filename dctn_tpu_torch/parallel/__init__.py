@@ -1,6 +1,5 @@
-"""Multi-GPU data, tensor and spatial parallelism (port of
-``dctn_tpu/parallel``; the composed SP×TP and the height-sharded artifact
-are ROADMAP item 19c, slice 7c).
+"""Multi-GPU data, tensor and spatial parallelism and their composition
+(port of ``dctn_tpu/parallel``).
 
 Process model: one rank per card. ``--mesh-devices N`` on one host starts
 N rank processes (``mesh.spawn``, the ``spawn`` start method); rank r sets
@@ -11,14 +10,18 @@ processes, each starting its N / NPROC local ranks (global rank
 PID·(N / NPROC) + local rank), and ``--distributed auto`` takes torchrun's
 ranks. Data parallelism (``data_parallel``): parameters and optimizer
 state replicated, the data sharded, each step's gradients averaged in one
-all-reduce. ``--model-devices M`` (``tensor_parallel``) or
-``--space-devices S`` (``spatial_parallel``) put the ranks on a 2-D grid
-``(data, model)`` or ``(data, space)`` (``mesh.GridMesh``), N·M or N·S
-ranks, with the collectives of ``collectives``. Local rank 0 of each host
-writes the run's logs; global rank 0 also writes its checkpoints, train
-states and artifacts. A job that asks for more ranks than a host has
-visible cards is refused before it starts; nothing falls back to fewer
-cards, to ``gloo`` on a card or to the CPU.
+all-reduce. ``--space-devices S`` and ``--model-devices M`` put the ranks
+on a ``(data, space, model)`` grid (``mesh.GridMesh``), N·S·M ranks:
+tensor parallelism (``tensor_parallel``) with S = 1, spatial parallelism
+(``spatial_parallel``) with M = 1, SP×TP (``sp_tp``) with both over 1, each
+with the collectives of ``collectives`` on its named axes. Local rank 0 of
+each host writes the run's logs; global rank 0 also writes its
+checkpoints, train states and artifacts. A job that asks for more ranks
+than a host has visible cards is refused before it starts; nothing falls
+back to fewer cards, to ``gloo`` on a card or to the CPU. Serving needs no
+process group: ``replicas`` runs a replica of a program on each card from
+one process, by batch shares (``ShardedForward``) or by rows of the image
+(``RowShardedForward``, the height-sharded artifact).
 """
 
 from .collectives import GridGradReduce, gather_along, psum_value_only, with_halo
@@ -43,8 +46,19 @@ from .mesh import (
     initialize_distributed,
     make_grid,
     make_mesh,
+    make_sp_tp_grid,
     plan_job,
     spawn,
+)
+from .sp_tp import (
+    make_sp_tp_fast_train_step,
+    make_sp_tp_forward,
+    make_sp_tp_score_fn,
+    make_sp_tp_train_step,
+    sp_tp_check_config,
+    sp_tp_fast_forward,
+    sp_tp_forward,
+    sp_tp_shard_batch,
 )
 from .spatial_parallel import (
     make_sp_fast_train_step,

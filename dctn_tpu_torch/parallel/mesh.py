@@ -1,7 +1,7 @@
-"""The data mesh, the 2-D rank grid, and the processes behind them (port
-of ``dctn_tpu/parallel/mesh.py`` and of ``make_tp_mesh`` /
-``make_sp_mesh``): one rank per card, joined in one ``torch.distributed``
-process group.
+"""The data mesh, the rank grid, and the processes behind them (port of
+``dctn_tpu/parallel/mesh.py`` and of ``make_tp_mesh``, ``make_sp_mesh``
+and ``make_sp_tp_mesh``): one rank per card, joined in one
+``torch.distributed`` process group.
 
 JAX runs one controller over every device of a host and spans hosts with
 ``jax.distributed``. Here each rank is a process of its own that holds one
@@ -24,20 +24,22 @@ A job asking for more ranks on a host than it has visible cards is refused
 before anything starts. Nothing falls back to fewer cards, to ``gloo`` on a
 card or to the CPU.
 
-Tensor and spatial parallelism run on a 2-D grid of ranks, ``(data,
-model)`` or ``(data, space)`` (``GridMesh``): rank = d·n_other + j, the
-order of JAX's ``devices.reshape(n_data, n_other)``, so that each model or
-space group lies on neighbouring cards. Every rank creates every group of
-both axes (``dist.new_group``, the same groups in the same order on every
-rank), then runs one collective in each group it belongs to, so that a
-group's first call is never a point-to-point batch (NCCL needs every rank of
-the group in such a first call).
+Tensor and spatial parallelism and their composition run on a 3-D grid of
+ranks, ``(data, space, model)`` (``GridMesh``): rank = (d·n_space + s)·n_model
++ m, the order of JAX's ``devices.reshape(n_data, n_space, n_model)``, so
+that each model line, then each space line, lies on neighbouring cards. TP
+is the grid with a space axis of one rank, SP the grid with a model axis of
+one. Every rank creates every group (``dist.new_group``, the same groups in
+the same order on every rank), then runs one collective in each group it
+belongs to, so that a group's first call is never a point-to-point batch
+(NCCL needs every rank of the group in such a first call).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import pickle
 import shutil
@@ -85,7 +87,7 @@ class Job:
     device_type: str
     threads: int = 1
     timeout: datetime.timedelta = COLLECTIVE_TIMEOUT
-    # (axis, n_data, n_other) of a 2-D grid (``GridMesh``), or None: data only
+    # (n_data, n_space, n_model) of a grid (``GridMesh``), or None: data only
     grid: Optional[tuple] = None
 
     @property
@@ -167,23 +169,43 @@ class DataMesh:
         return self.all_gather_cat(t)
 
 
+# the axes of a grid, in rank order: rank = (d·n_space + s)·n_model + m
+GRID_AXES = ("data", "space", "model")
+
+
+def _axes(axis) -> tuple:
+    """An axis name or a tuple of them, as a tuple in grid order."""
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    bad = [a for a in names if a not in GRID_AXES]
+    if bad or len(set(names)) != len(names):
+        raise ValueError(f"a grid's axes are {GRID_AXES}, not {axis!r}")
+    return tuple(a for a in GRID_AXES if a in names)
+
+
 @dataclasses.dataclass
 class GridMesh(DataMesh):
-    """One rank's view of a 2-D ``(data, axis)`` grid, ``axis`` being
-    ``"model"`` (tensor parallelism) or ``"space"`` (spatial parallelism):
-    ``n_data`` × ``n_other`` ranks, rank = d·n_other + j. ``data_group``
-    holds the ranks of this rank's column j (its data peers),
-    ``other_group`` those of its row d (its model or space peers), each
-    ordered by its coordinate. The collectives of ``DataMesh``
+    """One rank's view of the 3-D ``(data, space, model)`` grid
+    (``make_sp_tp_mesh``, sp_tp.py:78-87): ``dims`` = (n_data, n_space,
+    n_model) ranks, rank = (d·n_space + s)·n_model + m, the order of JAX's
+    ``devices.reshape(n_data, n_space, n_model)``. Tensor parallelism is the
+    grid with a space axis of one rank, spatial parallelism the grid with a
+    model axis of one, SP×TP both over one.
+
+    The accessors take an axis by name (``size``, ``group`` and ``live``
+    also a tuple of names, for the ranks that share this rank's other
+    coordinates): ``size("space")``, ``index("model")``, ``group(("space",
+    "model"))`` (the plane of this rank's data coordinate) and
+    ``peer("space", j)``, the global rank at coordinate j of this rank's
+    space line. An axis of one rank has no
+    group (``group`` is None) and its collectives do nothing. ``groups``
+    holds this rank's group of each axis and of the plane, or None where
+    the axes span one rank. The collectives of ``DataMesh``
     (``all_gather_object``, ``any``, ``barrier``, …) run over the grid's
     ranks: ``grid_group``, or the default group when the grid fills the
     world."""
 
-    axis: str = "model"
-    n_data: int = 1
-    n_other: int = 1
-    data_group: Any = None
-    other_group: Any = None
+    dims: tuple = (1, 1, 1)
+    groups: Any = None
     grid_group: Any = None
 
     def all_reduce_(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -208,73 +230,127 @@ class GridMesh(DataMesh):
     def barrier(self) -> None:
         dist.barrier(group=self.grid_group)
 
+    # the axes by name
+
+    @property
+    def coords(self) -> tuple:
+        """This rank's (d, s, m)."""
+        _, n_space, n_model = self.dims
+        return (self.rank // (n_space * n_model), self.rank // n_model % n_space,
+                self.rank % n_model)
+
+    def size(self, axis) -> int:
+        """The ranks along ``axis`` (a name, or a tuple: their product)."""
+        return math.prod(self.dims[GRID_AXES.index(a)] for a in _axes(axis))
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return self.coords[GRID_AXES.index(_axes(axis)[0])]
+
+    def peer(self, axis: str, j: int) -> int:
+        """The global rank at coordinate ``j`` of this rank's ``axis`` line."""
+        c = list(self.coords)
+        c[GRID_AXES.index(_axes(axis)[0])] = j
+        return (c[0] * self.dims[1] + c[1]) * self.dims[2] + c[2]
+
+    def live(self, axis) -> tuple:
+        """The axes of ``axis`` that span more than one rank."""
+        return tuple(a for a in _axes(axis) if self.size(a) > 1)
+
+    def group(self, axis):
+        """This rank's group of ``axis`` (None where it spans one rank)."""
+        live = self.live(axis)
+        return self.groups.get(live) if live else None
+
+    def reduce_(self, t: torch.Tensor, axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``t`` reduced in place over this rank's ``axis`` group."""
+        if self.live(axis):
+            dist.all_reduce(t, op=op, group=self.group(axis))
+        return t
+
+    def gather_cat(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        """This rank's ``axis`` group's ``t`` (equal shapes) concatenated on
+        ``dim`` in coordinate order."""
+        n = self.size(axis)
+        if n == 1:
+            return t
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=self.group(axis))
+        return torch.cat(parts, dim=dim)
+
+    @property
+    def n_data(self) -> int:
+        return self.dims[0]
+
     @property
     def data_size(self) -> int:
         return self.n_data
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.n_other
-
-    @property
-    def other_index(self) -> int:
-        return self.rank % self.n_other
-
-    def other_rank(self, j: int) -> int:
-        """The global rank at coordinate ``j`` of this rank's row."""
-        return self.data_index * self.n_other + j
+        return self.coords[0]
 
     def reduce_data_(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-        if self.n_data > 1:
-            dist.all_reduce(t, op=op, group=self.data_group)
-        return t
-
-    def reduce_other_(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-        """``t`` reduced in place over this rank's model or space group."""
-        if self.n_other > 1:
-            dist.all_reduce(t, op=op, group=self.other_group)
-        return t
+        return self.reduce_(t, "data", op)
 
     def gather_data(self, t: torch.Tensor) -> torch.Tensor:
-        if self.n_data == 1:
-            return t
-        parts = [torch.empty_like(t) for _ in range(self.n_data)]
-        dist.all_gather(parts, t.contiguous(), group=self.data_group)
-        return torch.cat(parts)
+        return self.gather_cat(t, "data")
+
+
+def make_sp_tp_grid(mesh: DataMesh, n_data: int, n_space: int, n_model: int
+                    ) -> Optional[GridMesh]:
+    """The calling rank's ``GridMesh`` (``make_sp_tp_mesh``) over the first
+    n_data·n_space·n_model ranks of the world of ``mesh`` (a job's grid
+    fills it; a smaller grid leaves the ranks past it out, and they get
+    None). Every rank of the world must call it, in the same order as any
+    other call that makes groups: it creates every group of every axis of
+    more than one rank, line by line, and the (space, model) planes when
+    both are, each on every rank in the same order; then each rank runs one
+    collective in each group it belongs to, so that a group's first call is
+    never a point-to-point batch (NCCL needs every rank of the group in
+    such a first call)."""
+    dims = (n_data, n_space, n_model)
+    size = n_data * n_space * n_model
+    if min(dims) < 1 or size > mesh.world_size:
+        raise ValueError(f"a {dims} grid needs {size} ranks; the job has {mesh.world_size}")
+    grid_group = dist.new_group(list(range(size))) if size < mesh.world_size else None
+
+    def rank_of(c):
+        return (c[0] * n_space + c[1]) * n_model + c[2]
+
+    coords = [(d, s, m) for d in range(n_data) for s in range(n_space) for m in range(n_model)]
+    mine = coords[mesh.rank] if mesh.rank < size else None
+    groups = {}
+    spans = [(0,), (1,), (2,)] + ([(1, 2)] if n_space > 1 and n_model > 1 else [])
+    for ks in spans:
+        if all(dims[k] == 1 for k in ks):
+            continue
+
+        def others(c):
+            return tuple(c[k] for k in range(3) if k not in ks)
+
+        # one group along ks for each value of the other coordinates
+        for f in sorted({others(c) for c in coords}):
+            g = dist.new_group([rank_of(c) for c in coords if others(c) == f])
+            if mine is not None and others(mine) == f:
+                groups[tuple(GRID_AXES[k] for k in ks)] = g
+    if mine is None:
+        return None
+    grid = GridMesh(size, mesh.rank, mesh.local_rank, mesh.node, mesh.device, mesh.backend,
+                    dims, groups, grid_group)
+    for g in groups.values():
+        dist.all_reduce(torch.zeros(1, device=mesh.device), group=g)
+    return grid
 
 
 def make_grid(mesh: DataMesh, axis: str, n_data: int, n_other: int) -> Optional[GridMesh]:
-    """The calling rank's ``GridMesh`` over the first n_data·n_other ranks
-    of the world of ``mesh`` (a job's grid fills it; a smaller grid leaves
-    the ranks past it out, and they get None). Every rank of the world must
-    call it, in the same order as any other call that makes groups."""
+    """The 2-D grid ``(data, axis)``, ``axis`` being ``"model"`` (tensor
+    parallelism) or ``"space"`` (spatial parallelism): ``make_sp_tp_grid``
+    with the third axis of one rank, rank = d·n_other + j."""
     if axis not in ("model", "space"):
         raise ValueError(f"a grid's second axis is model or space, not {axis!r}")
-    if n_data < 1 or n_other < 1 or n_data * n_other > mesh.world_size:
-        raise ValueError(
-            f"a ({n_data}, {n_other}) grid needs {n_data * n_other} ranks; the job has "
-            f"{mesh.world_size}")
-    size = n_data * n_other
-    grid_group = dist.new_group(list(range(size))) if size < mesh.world_size else None
-    data_group = other_group = None
-    for j in range(n_other):
-        g = dist.new_group([d * n_other + j for d in range(n_data)])
-        if mesh.rank % n_other == j:
-            data_group = g
-    for d in range(n_data):
-        g = dist.new_group([d * n_other + j for j in range(n_other)])
-        if mesh.rank // n_other == d:
-            other_group = g
-    if mesh.rank >= size:
-        return None
-    grid = GridMesh(size, mesh.rank, mesh.local_rank, mesh.node, mesh.device, mesh.backend,
-                    axis, n_data, n_other, data_group, other_group, grid_group)
-    # one collective in each group first: a group whose first call were a
-    # point-to-point batch (the halo) would need every rank of it in that batch
-    for size, group in ((n_data, data_group), (n_other, other_group)):
-        if size > 1:
-            dist.all_reduce(torch.zeros(1, device=mesh.device), group=group)
-    return grid
+    return make_sp_tp_grid(mesh, n_data, n_other if axis == "space" else 1,
+                           n_other if axis == "model" else 1)
 
 
 def make_mesh(n_devices: Optional[int] = None) -> DataMesh:
@@ -329,18 +405,16 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
 def plan_job(mesh_devices: int, distributed, device_type: str, model_devices: int = 1,
              space_devices: int = 1) -> Optional[Job]:
-    """The ranks ``--mesh-devices`` (the data axis), ``--model-devices`` or
-    ``--space-devices`` and ``--distributed`` ask of this host process:
-    mesh_devices × model_devices × space_devices ranks in all, on a 2-D grid
-    when either of the last two is over 1; or None for the single-device
-    path (one rank, no group). Too many ranks for the visible cards is
-    refused here, before any rank starts."""
+    """The ranks ``--mesh-devices`` (the data axis), ``--space-devices``,
+    ``--model-devices`` and ``--distributed`` ask of this host process:
+    mesh_devices × space_devices × model_devices ranks in all, on a
+    ``(data, space, model)`` grid when either of the last two is over 1; or
+    None for the single-device path (one rank, no group). Too many ranks for
+    the visible cards is refused here, before any rank starts."""
     if min(mesh_devices, model_devices, space_devices) < 1:
         raise ValueError("--mesh-devices, --model-devices and --space-devices count ranks: >= 1")
-    if model_devices > 1 and space_devices > 1:
-        raise ValueError("a grid has one axis beside data: --model-devices or --space-devices")
-    grid = (("model", mesh_devices, model_devices) if model_devices > 1 else
-            ("space", mesh_devices, space_devices) if space_devices > 1 else None)
+    grid = ((mesh_devices, space_devices, model_devices)
+            if model_devices > 1 or space_devices > 1 else None)
     ranks = mesh_devices * model_devices * space_devices
     host = parse_distributed(distributed) if distributed else Host()
     if host.torchrun:
@@ -392,7 +466,7 @@ def _init_rank(job: Job, local_rank: int, store_dir: Optional[str]) -> DataMesh:
     dist.init_process_group(job.backend, init_method=init_method, world_size=job.world_size,
                             rank=rank, timeout=job.timeout)
     mesh = DataMesh(job.world_size, rank, local_rank, host.node, device, job.backend)
-    return mesh if job.grid is None else make_grid(mesh, *job.grid)
+    return mesh if job.grid is None else make_sp_tp_grid(mesh, *job.grid)
 
 
 def _rank_main(local_rank: int, fn: Callable, args: tuple, job: Job, run_dir: str) -> None:

@@ -1,9 +1,10 @@
 """Spatial parallelism (SP) for EPSesPlusLinear (port of
 ``dctn_tpu/parallel/spatial_parallel.py``): the image HEIGHT sharded over
-the ``space`` axis of a ``(data, space)`` grid of ranks
-(``mesh.GridMesh``), with one halo exchange per EPS layer, composable with
-the data axis. It is for images whose activations one card cannot hold: an
-EPS layer's Khatri-Rao vectors and its t grow with B·H·W.
+the ``space`` axis of a ``(data, space, model)`` grid of ranks
+(``mesh.GridMesh``) whose model axis has one rank, with one halo exchange
+per EPS layer, composable with the data axis. It is for images whose
+activations one card cannot hold: an EPS layer's Khatri-Rao vectors and its
+t grow with B·H·W.
 
 As in JAX:
 
@@ -99,10 +100,11 @@ def pad_rows(x, n_space: int, row_axis: int = 2):
 def sp_row_block(x, mesh, row_axis: int = 2):
     """This space rank's block of the rows of ``x`` (numpy or torch)
     bottom-padded to a multiple of the space axis's size."""
-    x = pad_rows(x, mesh.n_other, row_axis)
-    hl = x.shape[row_axis] // mesh.n_other
+    n, j = mesh.size("space"), mesh.index("space")
+    x = pad_rows(x, n, row_axis)
+    hl = x.shape[row_axis] // n
     idx = [slice(None)] * x.ndim
-    idx[row_axis] = slice(mesh.other_index * hl, (mesh.other_index + 1) * hl)
+    idx[row_axis] = slice(j * hl, (j + 1) * hl)
     return x[tuple(idx)]
 
 
@@ -137,8 +139,9 @@ def _classifier_weight(w, cfg: EPSesPlusLinearConfig, mesh, hl: int, *inner):
     a rank's features have; V itself on a space axis of one rank)."""
     v = cfg.pre_linear_image_size
     w4 = w.reshape(v, *inner, cfg.num_classes)
-    w4 = F.pad(w4, [0, 0] * (w4.ndim - 1) + [0, mesh.n_other * hl - v])
-    return w4[mesh.other_index * hl : (mesh.other_index + 1) * hl]
+    w4 = F.pad(w4, [0, 0] * (w4.ndim - 1) + [0, mesh.size("space") * hl - v])
+    j = mesh.index("space")
+    return w4[j * hl : (j + 1) * hl]
 
 
 def sp_forward(params, x: torch.Tensor, cfg: EPSesPlusLinearConfig, mesh, masks=None,
@@ -147,7 +150,7 @@ def sp_forward(params, x: torch.Tensor, cfg: EPSesPlusLinearConfig, mesh, masks=
     ``x`` (C, B, Hl, W, Q₀), this rank's rows → the whole logits (B,
     classes). ``masks`` apply parameter dropout; ``backend`` is
     ``ops.eps``'s."""
-    sp_check_config(cfg, mesh.n_other)
+    sp_check_config(cfg, mesh.size("space"))
     epses = params["epses"]
     if masks is not None:
         epses = dropout_epses(epses, cfg.dropout_p, masks)
@@ -159,7 +162,7 @@ def sp_forward(params, x: torch.Tensor, cfg: EPSesPlusLinearConfig, mesh, masks=
     b, hl, wl, o = feats.shape
     w_loc = _classifier_weight(params["linear"]["w"], cfg, mesh, hl, wl * o)
     partial = feats.reshape(b, hl * wl * o) @ w_loc.reshape(hl * wl * o, cfg.num_classes)
-    return psum_value_only(partial, mesh) + params["linear"]["b"]
+    return psum_value_only(partial, mesh, "space") + params["linear"]["b"]
 
 
 def sp_fast_forward(fast, x: torch.Tensor, cfg: EPSesPlusLinearConfig, plans, mesh, masks=None,
@@ -169,7 +172,7 @@ def sp_fast_forward(fast, x: torch.Tensor, cfg: EPSesPlusLinearConfig, plans, me
     Hl+K−1 rows, in the transposed batch-minor layout (the halo moves rows,
     a middle dim); ``qat="int8"`` the W8A8 forward, its saved-t arm decided
     on the valid global height and every data rank's batch."""
-    sp_check_config(cfg, mesh.n_other)
+    sp_check_config(cfg, mesh.size("space"))
     cmts = fast["epses_cmt"]
     if masks is not None:
         cmts = dropout_cmts(cmts, plans, cfg.dropout_p, masks)
@@ -184,14 +187,14 @@ def sp_fast_forward(fast, x: torch.Tensor, cfg: EPSesPlusLinearConfig, plans, me
         ww, hg = ww - k + 1, hg - k + 1
         outT = eps_apply_t_cmt(
             cmt, xT, out_size, k, p["n1"], p["merge_pairs"], layer_index=i, kernels=kernels,
-            save_shapes=None if qat is None else (out_size, b * mesh.n_data * hg * ww),
+            save_shapes=None if qat is None else (out_size, b * mesh.size("data") * hg * ww),
         )
         xT = outT[None]
     o, hl, wl, b2 = outT.shape
     w_loc = _classifier_weight(fast["linear"]["w"], cfg, mesh, hl, wl, o)
     partial = torch.tensordot(outT.reshape(o, hl * wl, b2),
                               w_loc.reshape(hl * wl, o, cfg.num_classes), dims=([0, 1], [1, 0]))
-    return psum_value_only(partial, mesh) + fast["linear"]["b"]
+    return psum_value_only(partial, mesh, "space") + fast["linear"]["b"]
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +208,7 @@ def _sp_step(model, optimizer, reg_coeff, frozen_eps_indices, with_probs, grad_a
         raise ValueError(f"frozen_eps_indices {sorted(frozen)} outside the model's {len(cores)} cores")
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be at least 1, got {grad_accum_steps}")
-    sp_check_config(model.cfg, mesh.n_other)
+    sp_check_config(model.cfg, mesh.size("space"))
 
     def detached(ts):
         return tuple(c.detach() if i in frozen else c for i, c in enumerate(ts))
@@ -216,10 +219,10 @@ def _sp_step(model, optimizer, reg_coeff, frozen_eps_indices, with_probs, grad_a
 
     return _accumulating_step(
         model, optimizer, lambda xs, m: logits_of(detached, xs, m),
-        lambda: grad_scaled(reg_fn(), 1.0 / mesh.n_other), reg_coeff, grad_accum_steps,
+        lambda: grad_scaled(reg_fn(), 1.0 / mesh.size("space")), reg_coeff, grad_accum_steps,
         with_probs, plans, model.cfg.dropout_p, zero_frozen,
         # every leaf but the bias summed over space
-        GridGradReduce(mesh, list(cores) + [model.linear_w]))
+        GridGradReduce(mesh, [(p, "space") for p in list(cores) + [model.linear_w]]))
 
 
 def make_sp_train_step(

@@ -1,7 +1,9 @@
 """Tensor parallelism for EPSesPlusLinear (port of
 ``dctn_tpu/parallel/tensor_parallel.py``): the EPS cores' output dims and
-the classifier's rows sharded over the ``model`` axis of a ``(data,
-model)`` grid of ranks (``mesh.GridMesh``), composable with the data axis.
+the classifier's rows sharded over the ``model`` axis of a ``(data, space,
+model)`` grid of ranks (``mesh.GridMesh``) whose space axis has one rank,
+composable with the data axis. The parameter layout and its merges also
+serve SP×TP (``sp_tp``), on the model axis of its grid.
 
 Two layouts of the reference parameters, as in JAX:
 
@@ -62,7 +64,7 @@ from ..ops import composition
 from ..ops import eps as eps_mod
 from ..train.evaluation import score_sharded
 from ..train.step import REG_TYPES, _accumulating_step
-from .collectives import GridGradReduce, _gather_cat, gather_along, psum_value_only
+from .collectives import GridGradReduce, gather_along, psum_value_only
 
 
 def _torch_tree(params, device):
@@ -92,8 +94,8 @@ def check_model_axis(cfg: EPSesPlusLinearConfig, n_model: int, shard_all: bool =
 
 
 def _o_slice(o: int, mesh) -> slice:
-    o_loc = o // mesh.n_other
-    return slice(mesh.other_index * o_loc, (mesh.other_index + 1) * o_loc)
+    o_loc = o // mesh.size("model")
+    return slice(mesh.index("model") * o_loc, (mesh.index("model") + 1) * o_loc)
 
 
 def _sharded(i: int, n_eps: int, shard_all: bool) -> bool:
@@ -104,7 +106,7 @@ def make_tp_params(params, cfg: EPSesPlusLinearConfig, mesh, shard_all: bool = F
     """Reference parameters → this rank's TP shard ``{"epses": (…), "linear":
     {"w3", "b"}}`` on the rank's device: the last core (every core with
     ``shard_all``) and ``w3`` sliced on O."""
-    check_model_axis(cfg, mesh.n_other, shard_all)
+    check_model_axis(cfg, mesh.size("model"), shard_all)
     params = _torch_tree(params, mesh.device)
     epses = params["epses"]
     n = len(epses)
@@ -126,8 +128,7 @@ def merge_tp_params(params3, cfg: EPSesPlusLinearConfig, mesh, shard_all: bool =
     n = len(epses)
 
     def full(t, dim):
-        t = t.detach()
-        return t if mesh.n_other == 1 else _gather_cat(t, dim, mesh.n_other, mesh.other_group)
+        return mesh.gather_cat(t.detach(), "model", dim)
 
     return {
         "epses": tuple(full(c, c.ndim - 1) if _sharded(i, n, shard_all) else c.detach()
@@ -141,14 +142,14 @@ def make_tp_fast_params(fast, cfg: EPSesPlusLinearConfig, mesh):
     """Fast (cmt) parameters → this rank's TP-fast shard ``{"epses_cmt":
     (…), "linear": {"w3", "b"}}``: the last cmt's row block and ``w3``'s O
     slice; the early cmts replicated."""
-    check_model_axis(cfg, mesh.n_other)
+    check_model_axis(cfg, mesh.size("model"))
     fast = _torch_tree(fast, mesh.device)
     cmts = fast["epses_cmt"]
     o = cfg.epses_specs[-1][1]
     hw = cfg.pre_linear_image_size**2
     w3 = fast["linear"]["w"].reshape(hw, o, cfg.num_classes)
-    rows = cmts[-1].shape[0] // mesh.n_other
-    last = cmts[-1][mesh.other_index * rows : (mesh.other_index + 1) * rows].contiguous()
+    rows = cmts[-1].shape[0] // mesh.size("model")
+    last = cmts[-1][mesh.index("model") * rows : (mesh.index("model") + 1) * rows].contiguous()
     return {"epses_cmt": tuple(cmts[:-1]) + (last,),
             "linear": {"w3": w3[:, _o_slice(o, mesh)].contiguous(), "b": fast["linear"]["b"]}}
 
@@ -158,9 +159,8 @@ def merge_tp_fast_params(fast3, cfg: EPSesPlusLinearConfig, mesh):
     """This model group's TP-fast shards → the fast (cmt) parameters."""
     cmts = [c.detach() for c in fast3["epses_cmt"]]
     w3 = fast3["linear"]["w3"].detach()
-    if mesh.n_other > 1:
-        cmts[-1] = _gather_cat(cmts[-1], 0, mesh.n_other, mesh.other_group)
-        w3 = _gather_cat(w3, 1, mesh.n_other, mesh.other_group)
+    cmts[-1] = mesh.gather_cat(cmts[-1], "model", 0)
+    w3 = mesh.gather_cat(w3, "model", 1)
     return {"epses_cmt": tuple(cmts),
             "linear": {"w": w3.reshape(-1, cfg.num_classes), "b": fast3["linear"]["b"].detach()}}
 
@@ -234,7 +234,17 @@ def _classifier(h_loc: torch.Tensor, linear, mesh) -> torch.Tensor:
     its O-slice of ``w3``, summed over the model group, plus the bias."""
     b, hp, wp, o = h_loc.shape
     partial = torch.einsum("bpo,poc->bc", h_loc.reshape(b, hp * wp, o), linear["w3"])
-    return psum_value_only(partial, mesh) + linear["b"]
+    return psum_value_only(partial, mesh, "model") + linear["b"]
+
+
+def _local_mask_epses(epses, masks, mesh, p: float, shard_all: bool = False):
+    """Dropout on the TP shard: each whole-shape mask, a sharded core's
+    sliced to its O range."""
+    n = len(epses)
+    return tuple(
+        c * (m.to(c.device, c.dtype)[..., _o_slice(m.shape[-1], mesh)]
+             if _sharded(i, n, shard_all) else m.to(c.device, c.dtype)) / p
+        for i, (c, m) in enumerate(zip(epses, masks)))
 
 
 def tp_forward(params3, x: torch.Tensor, cfg: EPSesPlusLinearConfig, mesh,
@@ -246,15 +256,12 @@ def tp_forward(params3, x: torch.Tensor, cfg: EPSesPlusLinearConfig, mesh,
     epses = params3["epses"]
     n = len(epses)
     if masks is not None:
-        epses = tuple(
-            c * (m.to(c.device, c.dtype)[..., _o_slice(m.shape[-1], mesh)]
-                 if _sharded(i, n, shard_all) else m.to(c.device, c.dtype)) / cfg.dropout_p
-            for i, (c, m) in enumerate(zip(epses, masks)))
+        epses = _local_mask_epses(epses, masks, mesh, cfg.dropout_p, shard_all)
     h = x
     for i, core in enumerate(epses):
         h = eps_mod.eps(core, h, backend=backend)
         if shard_all and i < n - 1:
-            h = gather_along(h, h.ndim - 1, mesh)  # the whole Q for the next layer
+            h = gather_along(h, h.ndim - 1, mesh, "model")  # the whole Q for the next layer
         h = h[None]
     return _classifier(h[0], params3["linear"], mesh)
 
@@ -266,9 +273,9 @@ def _local_mask_cmts(cmts, plans, masks, mesh, p: float):
     for i, (cmt, plan, mask) in enumerate(zip(cmts, plans, masks)):
         _, q_k, n1_k = _plan_dims(plan)
         mask_cmt = _core_to_cmt_k(mask.to(cmt.device), n1_k, q_k).to(cmt.dtype)
-        if i == len(cmts) - 1 and mesh.n_other > 1:
+        if i == len(cmts) - 1 and mesh.size("model") > 1:
             rows = cmt.shape[0]
-            mask_cmt = mask_cmt[mesh.other_index * rows : (mesh.other_index + 1) * rows]
+            mask_cmt = mask_cmt[mesh.index("model") * rows : (mesh.index("model") + 1) * rows]
         out.append(cmt * mask_cmt / p)
     return tuple(out)
 
@@ -290,17 +297,17 @@ def tp_fast_forward(fast3, x: torch.Tensor, cfg: EPSesPlusLinearConfig, plans, m
     outT = None
     for i, (cmt, p) in enumerate(zip(cmts, plans)):
         k, out_full = p["kernel_size"], p["out_size"]
-        o_i = out_full // mesh.n_other if i == n - 1 else out_full
+        o_i = out_full // mesh.size("model") if i == n - 1 else out_full
         hh, ww = hh - k + 1, ww - k + 1
         outT = eps_apply_t_cmt(
             cmt, xT, o_i, k, p["n1"], p["merge_pairs"], layer_index=i, kernels=kernels,
-            save_shapes=None if qat is None else (out_full, b * hh * ww * mesh.n_data),
+            save_shapes=None if qat is None else (out_full, b * hh * ww * mesh.size("data")),
         )
         xT = outT[None]
     o_loc, hp, wp, b2 = outT.shape
     partial = torch.tensordot(outT.reshape(o_loc, hp * wp, b2), fast3["linear"]["w3"],
                               dims=([0, 1], [1, 0]))
-    return psum_value_only(partial, mesh) + fast3["linear"]["b"]
+    return psum_value_only(partial, mesh, "model") + fast3["linear"]["b"]
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +322,7 @@ def tp_local_regularizer(params3, reg_type: str, mesh, shard_all: bool = False):
     under ``shard_all``), its last contraction over the local O."""
     epses = params3["epses"]
     w3 = params3["linear"]["w3"]
-    n_model = mesh.n_other
+    n_model = mesh.size("model")
     if reg_type == "epswise":
         if shard_all:
             part = torch.sum(w3**2) + sum(torch.sum(c**2) for c in epses)
@@ -324,9 +331,10 @@ def tp_local_regularizer(params3, reg_type: str, mesh, shard_all: bool = False):
                                        + torch.sum(epses[-1] ** 2))
     else:
         if shard_all:
-            epses = tuple(gather_along(c, c.ndim - 1, mesh) for c in epses[:-1]) + (epses[-1],)
+            epses = (tuple(gather_along(c, c.ndim - 1, mesh, "model") for c in epses[:-1])
+                     + (epses[-1],))
         part = torch.sum(w3**2) + composition.inner_product(epses, epses)
-    return psum_value_only(part, mesh)
+    return psum_value_only(part, mesh, "model")
 
 
 def tp_fast_local_regularizer(fast3, plans, reg_type: str, mesh):
@@ -336,14 +344,14 @@ def tp_fast_local_regularizer(fast3, plans, reg_type: str, mesh):
     model axis's size."""
     cmts = fast3["epses_cmt"]
     w3 = fast3["linear"]["w3"]
-    n_model = mesh.n_other
+    n_model = mesh.size("model")
     if reg_type == "epswise":  # summed in the one-device order
         part = torch.sum(w3**2) + (sum(torch.sum(c**2) for c in cmts[:-1]) / n_model
                                    + torch.sum(cmts[-1] ** 2))
     else:
-        full = tuple(cmts[:-1]) + (gather_along(cmts[-1], 0, mesh),)
+        full = tuple(cmts[:-1]) + (gather_along(cmts[-1], 0, mesh, "model"),)
         part = torch.sum(w3**2) + composition.inner_product_cmt(full, plans) / n_model
-    return psum_value_only(part, mesh)
+    return psum_value_only(part, mesh, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +359,7 @@ def tp_fast_local_regularizer(fast3, plans, reg_type: str, mesh):
 
 
 def _step(model, optimizer, reg_type, reg_coeff, frozen_eps_indices, with_probs,
-          grad_accum_steps, logits_of, reg_fn, cores, summed):
+          grad_accum_steps, logits_of, reg_fn, cores, table):
     frozen = frozenset(frozen_eps_indices)
     if any(not 0 <= i < len(cores) for i in frozen):
         raise ValueError(f"frozen_eps_indices {sorted(frozen)} outside the model's {len(cores)} cores")
@@ -370,7 +378,7 @@ def _step(model, optimizer, reg_type, reg_coeff, frozen_eps_indices, with_probs,
     return _accumulating_step(
         model, optimizer, lambda xs, m: logits_of(detached, xs, m), reg_fn, reg_coeff,
         grad_accum_steps, with_probs, model.plans, model.cfg.dropout_p, zero_frozen,
-        GridGradReduce(model.mesh, summed))
+        GridGradReduce(model.mesh, table))
 
 
 def make_tp_train_step(
@@ -392,11 +400,12 @@ def make_tp_train_step(
         return tp_forward({**p3, "epses": detached(p3["epses"])}, xs, cfg, mesh, shard_all,
                           masks, backend)
 
-    summed = [] if shard_all else list(model.cores[:-1])
+    # the replicated cores' gradients summed over model (none with shard_all)
+    table = [] if shard_all else [(c, "model") for c in model.cores[:-1]]
     return _step(model, optimizer, reg_type, reg_coeff, frozen_eps_indices, with_probs,
                  grad_accum_steps, logits_of,
                  lambda: tp_local_regularizer(model.params3(), reg_type, mesh, shard_all),
-                 model.cores, summed)
+                 model.cores, table)
 
 
 def make_tp_fast_train_step(
@@ -420,7 +429,7 @@ def make_tp_fast_train_step(
     return _step(model, optimizer, reg_type, reg_coeff, frozen_eps_indices, with_probs,
                  grad_accum_steps, logits_of,
                  lambda: tp_fast_local_regularizer(model.fast_params3(), plans, reg_type, mesh),
-                 model.cmts, list(model.cmts[:-1]))
+                 model.cmts, [(c, "model") for c in model.cmts[:-1]])
 
 
 # ---------------------------------------------------------------------------
@@ -475,9 +484,7 @@ def make_tp_fast_score_fn(cfg: EPSesPlusLinearConfig, plans, mesh, batch_size: i
 
 def _full(t: torch.Tensor, dim, mesh) -> torch.Tensor:
     t = t.detach()
-    if dim is None or mesh.n_other == 1:
-        return t
-    return _gather_cat(t.contiguous(), dim, mesh.n_other, mesh.other_group)
+    return t if dim is None else mesh.gather_cat(t, "model", dim)
 
 
 def tp_train_state_arrays(model, optimizer, step: int, generator=None, seed: int = 0):
@@ -557,10 +564,10 @@ def load_tp_train_state(filename: str, model, optimizer, plans, generator=None) 
     def local(t, dim, key):
         if key == "linear/w":
             t = t.reshape(hw, o, classes)
-        if dim is None or mesh.n_other == 1:
+        if dim is None or mesh.size("model") == 1:
             return t.to(mesh.device)
-        size = t.shape[dim] // mesh.n_other
-        return t.narrow(dim, mesh.other_index * size, size).contiguous().to(mesh.device)
+        size = t.shape[dim] // mesh.size("model")
+        return t.narrow(dim, mesh.index("model") * size, size).contiguous().to(mesh.device)
 
     order = [q for group in optimizer.param_groups for q in group["params"]]
     sd = optimizer.state_dict()

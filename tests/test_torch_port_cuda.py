@@ -1337,3 +1337,63 @@ def test_grid_collectives_over_nccl_on_every_card(two_cards):
     results = spawn(_grid_collectives_job, Job(2, 2, Host(), "cuda"))
     bad = [(rank, what) for rank, checks in enumerate(results) for what, ok in checks if not ok]
     assert not bad, bad
+
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    torch.cuda.set_device(0)
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def _sp_tp_collectives_job(mesh):
+    """On 4 ranks of 4 cards (nccl), the (data 1, space 2, model 2) grid:
+    rank = 2·s + m, so a space line's neighbour is rank ± 2. ``with_halo``
+    forward and backward along the space line, each model column with its
+    own values (a halo from rank ± 1 would bring the other column's), and
+    ``psum_value_only`` over the plane, over space and over model; returns
+    every rank's (check, ok) pairs."""
+    from dctn_tpu_torch.parallel import make_sp_tp_grid, psum_value_only, with_halo
+
+    g = make_sp_tp_grid(mesh, 1, 2, 2)
+    dev, r = mesh.device, mesh.rank
+    s, m = g.index("space"), g.index("model")
+    out = [("coordinates", (s, m) == (r // 2, r % 2)),
+           ("space neighbour", g.peer("space", 1 - s) == (r + 2 if s == 0 else r - 2))]
+    full = (torch.arange(2 * 3 * 8 * 5 * 2, dtype=torch.float32, device=dev)
+            .reshape(2, 3, 8, 5, 2) + 1000.0 * m)
+    x = full[:, :, 4 * s : 4 * s + 4].clone().requires_grad_(True)
+    slab = with_halo(x, 3, g, row_axis=2)
+    want = torch.cat([full[:, :, 4 * s : 4 * s + 4],
+                      full[:, :, 4:6] if s == 0 else torch.zeros_like(full[:, :, :2])], dim=2)
+    slab.backward(torch.full_like(slab, float(r + 1)))
+    # space 1's first two rows also carry the cotangent of rank r - 2's halo
+    g_want = torch.full_like(x, float(r + 1))
+    if s == 1:
+        g_want[:, :, :2] += float(r - 1)
+    out += [("halo forward", torch.equal(slab.detach(), want)),
+            ("halo backward", torch.equal(x.grad, g_want))]
+    b = torch.full((4,), float(r + 1), device=dev, requires_grad=True)
+    v = psum_value_only(b, g, ("space", "model"))
+    v.backward(torch.ones_like(v))
+    out += [("plane sum", torch.equal(v.detach(), torch.full_like(v, 10.0))),
+            ("plane sum backward (identity)", torch.equal(b.grad, torch.ones_like(b))),
+            ("space sum", torch.equal(psum_value_only(b.detach(), g, "space"),
+                                      torch.full_like(v, 2.0 * m + 4))),
+            ("model sum", torch.equal(psum_value_only(b.detach(), g, "model"),
+                                      torch.full_like(v, 4.0 * s + 3)))]
+    return mesh.all_gather_object(out)
+
+
+@pytest.mark.cuda
+def test_sp_tp_grid_collectives_over_nccl_on_four_cards(four_cards):
+    """The SP x TP grid's collectives over a real ``nccl`` group of 4 ranks
+    on 4 cards, (1, 2, 2): the halo comes from the space line's neighbour,
+    rank ± 2, forward and backward; the value-only sums run over the plane,
+    the space line and the model line, each with an identity backward."""
+    from dctn_tpu_torch.parallel.mesh import Host, Job, spawn
+
+    results = spawn(_sp_tp_collectives_job, Job(4, 4, Host(), "cuda"))
+    bad = [(rank, what) for rank, checks in enumerate(results) for what, ok in checks if not ok]
+    assert not bad, bad

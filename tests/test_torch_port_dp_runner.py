@@ -514,11 +514,20 @@ def test_more_ranks_than_cards_is_refused_before_any_rank_starts(tmp_path, monke
                                         ("tp_shard_all", True)])
 def test_tp_and_sp_flags_name_their_item(tmp_path, flag, value):
     """Tensor and spatial parallelism run (tests/test_torch_port_tp.py,
-    test_torch_port_sp.py); composed (SP x TP, with each flag on top of the
-    other axis) they stay refused, naming ROADMAP item 19c."""
-    both = {"model_devices": 2, "space_devices": 2, flag: value}
-    with pytest.raises(click.BadParameter, match=r"ROADMAP, .*item 19c"):
-        trunner.run(**QUICK, experiments_dir=str(tmp_path), max_num_iters=1, **both)
+    test_torch_port_sp.py), and composed (SP x TP,
+    tests/test_torch_port_sp_tp.py); what a composed grid cannot build is
+    refused before any rank starts, naming what it refuses: with each flag
+    on top of the other axis, a model axis that does not divide the last O,
+    a halo wider than a rank's rows, and ``--tp-shard-all`` with
+    ``--space-devices``."""
+    refused = {"model_devices": ({}, "output dim 3 not divisible by model axis 2"),
+               "space_devices": ({"epses_specs": ((4, 4), (3, 6)), "space_devices": 7 * value},
+                                 "3-row halo but each device holds only 2 rows"),
+               "tp_shard_all": ({}, "--tp-shard-all does not compose with --space-devices")}
+    extra, match = refused[flag]
+    both = {"model_devices": 2, "space_devices": 2, flag: value, **extra}
+    with pytest.raises(click.BadParameter, match=match):
+        trunner.run(**{**QUICK, **both}, experiments_dir=str(tmp_path), max_num_iters=1)
     assert not os.listdir(tmp_path)
 
 

@@ -282,7 +282,7 @@ def test_cli_end_to_end(made, tmp_path):
 @pytest.mark.parametrize("kw,match", [
     ({"mesh_devices": 2, "batch_sizes": (3,)},
      r"global batch sizes \[3\] are not divisible by --mesh-devices 2"),
-    ({"space_devices": 2}, r"--space-devices > 1 is not ported .*item 19"),
+    ({"space_devices": 2, "mesh_devices": 2}, "--space-devices and --mesh-devices are mutually"),
     ({"autotune_splits": True}, r"--autotune-splits is not ported .*item 20"),
     ({"autotune_cache": True}, r"--autotune-cache is not ported .*item 20"),
     ({"compute_dtype": "bfloat16"}, r"bfloat16 is not ported .*follow-up 4"),

@@ -168,7 +168,8 @@ def test_fwd_launch_plan_fits_the_card(label, n, q, n1, o, npix, kernel):
 # rank (chip_smoke.grid_shard_shapes): K1's kernel and its Z tiles, K8's form
 # and N tiles, and eps_dcore's pixel slices on 132 SMs. Layer 1 on 3 or 2
 # rows of O has 48 or 32 of the (Z, A) tiles where the whole layer has 96, so
-# eps_dcore sums 5 or 8 pixel slices where the whole layer takes one
+# eps_dcore sums 5 or 8 pixel slices where the whole layer takes one; under
+# SP x TP the O = 3 row block on a slab takes TP's plan
 _GRID_PLANS = {
     "TP layer 1, O=3 (model 2)": ("wgmma", 3, "wgmma", 3, 5),
     "TP layer 1, O=2 (model 3)": ("wgmma", 2, "wgmma", 2, 8),
@@ -176,15 +177,17 @@ _GRID_PLANS = {
     "SP layer 1, 14 rows (space 2)": ("wgmma", 6, "wgmma", 6, 1),
     "SP layer 0, 7 rows (space 4)": ("wgmma", 4, "wgmma", 4, 16),
     "SP layer 1, 7 rows (space 4)": ("wgmma", 6, "wgmma", 6, 1),
+    "SP x TP layer 1, O=3, 14 rows (space 2, model 2)": ("wgmma", 3, "wgmma", 3, 5),
+    "SP x TP layer 1, O=3, 7 rows (space 4, model 2)": ("wgmma", 3, "wgmma", 3, 5),
 }
 
 
 @pytest.mark.parametrize("label,layer,n,q,n1,o,npix", chip_smoke.grid_shard_shapes(),
                          ids=[s[0] for s in chip_smoke.grid_shard_shapes()])
 def test_grid_shard_shapes_take_their_plans(label, layer, n, q, n1, o, npix):
-    """The launch plans of the shapes a TP or SP rank gives the flagship's
-    layers, pinned: each takes the kernel the whole layer takes; only
-    ``eps_dcore``'s pixel slices follow the smaller Z."""
+    """The launch plans of the shapes a TP, SP or SP x TP rank gives the
+    flagship's layers, pinned: each takes the kernel the whole layer takes;
+    only ``eps_dcore``'s pixel slices follow the smaller Z."""
     fwd, z_tiles, form, n_tiles, slices = _GRID_PLANS[label]
     plan = K._fwd_plan(n, q, n1, o, npix)
     assert (plan["kernel"], plan["grid"][1]) == (fwd, z_tiles)

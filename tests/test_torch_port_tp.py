@@ -386,8 +386,9 @@ def test_tp_fast_layout_matches_jax_interpret(pool, qat, reg_type, dropout_p):
 def test_tp_refuses_a_model_axis_that_does_not_divide_o(tmp_path):
     """``make_tp_params``' check (tensor_parallel.py:88-92), and the runner's
     refusals before any rank starts: a model axis that does not divide the
-    sharded O, QAT with ``--tp-shard-all`` (runner.py:569-574), SP x TP
-    (item 19c)."""
+    sharded O, QAT with ``--tp-shard-all`` (runner.py:569-574), and with a
+    space axis beside it (SP x TP) a model axis that does not divide the
+    last O."""
     cfg = EPSesPlusLinearConfig(epses_specs=SPECS, image_size=6)
     check_model_axis(cfg, 2)  # the last O, 4
     with pytest.raises(ValueError, match="output dim 3 not divisible by model axis 2"):
@@ -396,7 +397,7 @@ def test_tp_refuses_a_model_axis_that_does_not_divide_o(tmp_path):
     for kw, match in (
         ({"model_devices": 3}, "output dim 4 not divisible by model axis 3"),
         ({"model_devices": 2, "tp_shard_all": True, "qat": "int8"}, "--qat int8 with --tp-shard"),
-        ({"model_devices": 2, "space_devices": 2}, r"ROADMAP, .*item 19c"),
+        ({"model_devices": 3, "space_devices": 2}, "output dim 4 not divisible by model axis 3"),
         ({"model_devices": 2, "device": "cuda"}, "CUDA"),
     ):
         with pytest.raises(click.BadParameter, match=match):
