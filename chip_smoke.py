@@ -183,7 +183,24 @@ Run from the root of a checkout, with no arguments:
    whole image's. With two or more cards, phase 5b's multichip subprocess
    runs the TP, SP and (from 4 cards) SP x TP paths and the height-sharded
    artifact across them.
-10. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
+10. The autotuners (``dctn_tpu_torch.train.autotune``) on the card: the
+   split tuner on the flagship at batch 128 under each objective (training
+   f32, QAT, serving f32, serving int8; each candidate's ms, the pick and
+   the default printed, the tune's seconds); a repeat of the four tunes
+   from a temporary cache measures nothing (the measurer's calls counted)
+   and its keys name the card; 3 Adam steps at the training picks against
+   3 at the default splits from the same weights, within REL_TOL;
+   ``export.run --autotune-splits`` f32 and int8 (serving picks from that
+   cache), each artifact's logits against the eager model at its splits
+   within 1e-6 of the largest. The accumulation tuner on the deep model at
+   batch 2048 (the saved-t cap's pick 4: candidates 4, 8, 16, each step's
+   ms printed), and the runner's ``"auto"`` taking its winner. The ConvSBS
+   tuner on the legacy recipe (2 layers, bond 4) at batch 100, open and
+   ring, training objective (each candidate, the whole-model gate, the
+   picks), and 3 SGD steps at the picks against 3 at the heuristics within
+   the ConvSBS trajectory tolerance. One ``autotune`` JSON line; the
+   tuners' launches count in the kernels line.
+11. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
    of the serving forward (f32 and int8) at batch 1 and 128 and of the
    flagship training step (f32 and QAT) at batch 128, on the kernel and on
    the plain path, and of the deep model's step at batch 2048 (accumulation
@@ -193,7 +210,7 @@ Run from the root of a checkout, with no arguments:
    (kernel form, ops form, matmul) and one log-space classifier step
    (fused_kernel, fused_plain, scan), with the device's busy share; the
    full profiler tables go to DIR.
-11. Prints one JSON line describing the kernels (each entry's ``timed_by``
+12. Prints one JSON line describing the kernels (each entry's ``timed_by``
    says whether its times are one call between CUDA events, the host's
    work included, or device time per call under torch.profiler), then the
    result line.
@@ -1184,15 +1201,16 @@ def export_serve_phase(bench, CSM, params, cfg, served, dev, tmp) -> dict:
     return counts()
 
 
-def make_trainer(params, cfg, kernels, dev, lr, reg=None, grad_accum_steps=1):
-    """A model on ``dev`` from ``params`` and an Adam step at learning rate
-    ``lr`` through ``kernels`` (a QAT bundle for the QAT step): the bench's
-    (epswise L2 1e-6) unless ``reg`` gives (reg_type, reg_coeff)."""
+def make_trainer(params, cfg, kernels, dev, lr, reg=None, grad_accum_steps=1, plans=None):
+    """A model on ``dev`` from ``params`` (at ``plans``' splits; default the
+    defaults) and an Adam step at learning rate ``lr`` through ``kernels``
+    (a QAT bundle for the QAT step): the bench's (epswise L2 1e-6) unless
+    ``reg`` gives (reg_type, reg_coeff)."""
     from dctn_tpu_torch import bench
     from dctn_tpu_torch.models import EPSesPlusLinear
     from dctn_tpu_torch.train import make_fast_train_step, make_optimizer
 
-    model = EPSesPlusLinear.from_reference(params, cfg, device=dev)
+    model = EPSesPlusLinear.from_reference(params, cfg, device=dev, plans=plans)
     opt = make_optimizer("adam", model.parameters(), lr)
     reg_type, reg_coeff = reg or ("epswise", bench.REG_COEFF)
     step = make_fast_train_step(model, opt, reg_type, reg_coeff, kernels=kernels,
@@ -3116,6 +3134,237 @@ def profile_lme(bench, LSC, out_dir, dev) -> None:
         }))
 
 
+# phase 10: the split tuner's objectives (name, forward only, quantize), and
+# the steps that hold tuned against default splits (and ConvSBS picks against
+# the heuristics)
+AUTOTUNE_OBJECTIVES = (("train", False, None), ("QAT", False, "int8"),
+                       ("serve f32", True, None), ("serve int8", True, "int8"))
+AUTOTUNE_STEPS = 3
+SBS_TUNE_BATCH = 100
+
+
+def autotune_phase(bench, CSM, params, cfg, tx, ty, dev, tmp) -> tuple:
+    """Phase 10: the three tuners on the card (see the module docstring).
+    Returns (the phase's launch counts, its record)."""
+    import dataclasses
+
+    from dctn_tpu_torch.cli import export
+    from dctn_tpu_torch.cli import runner as eps_runner
+    from dctn_tpu_torch.data import io as data_io
+    from dctn_tpu_torch.kernels import eps_kernels as K
+    from dctn_tpu_torch.models import (
+        EPSesPlusLinear,
+        EPSesPlusLinearConfig,
+        EPSesPlusLinearQ8,
+        fast_layer_plans,
+        reference_params_from_fast,
+    )
+    from dctn_tpu_torch.train import autotune as at
+    from dctn_tpu_torch.train import resolve_auto_grad_accum, save_params_npz
+
+    card = torch.cuda.get_device_name(dev)
+    cache = os.path.join(tmp, "autotune.json")
+    os.environ[at.CACHE_ENV] = cache  # the runners' and export's default_cache_path()
+    record = {"device": card, "splits": {}}
+    bench.zero_counters()
+    base = fast_layer_plans(cfg)
+    defaults = [p["n1"] for p in base]
+
+    def at_splits(picks):
+        return tuple({**p, "n1": n1} for p, n1 in zip(base, picks))
+
+    def counting(name):
+        """Wraps ``at.<name>`` to count its calls; returns (calls, restore)."""
+        real, calls = getattr(at, name), []
+
+        def wrapped(*a, **k):
+            calls.append(a)
+            return real(*a, **k)
+
+        setattr(at, name, wrapped)
+        return calls, lambda: setattr(at, name, real)
+
+    # the split tuner, each objective, into the cache
+    for name, forward_only, quantize in AUTOTUNE_OBJECTIVES:
+        t0 = time.perf_counter()
+        plans, report = at.autotune_splits(cfg, BATCH, device=dev, forward_only=forward_only,
+                                           quantize=quantize, cache_path=cache)
+        seconds = time.perf_counter() - t0
+        picks = [p["n1"] for p in plans]
+        rows = [[{k: r[k] for k in ("n1", "ms", "failed") if k in r} for r in layer["candidates"]]
+                for layer in report]
+        for i, (layer_rows, d) in enumerate(zip(rows, defaults)):
+            check(any(r["n1"] == d and "ms" in r for r in layer_rows),
+                  f"autotune {name} layer {i}: the default split {d} was not measured")
+            print(f"autotune splits flagship batch {BATCH} {name} layer {i}: "
+                  + ", ".join(f"n1={r['n1']} " + (f"{r['ms']:.4f} ms" if "ms" in r
+                                                   else f"failed ({r['failed']})")
+                              for r in layer_rows)
+                  + f"; picked {picks[i]} (default {d})")
+        print(f"autotune splits flagship batch {BATCH} {name}: picks {picks} (defaults "
+              f"{defaults}), {seconds:.1f} s")
+        record["splits"][name] = {"picks": picks, "defaults": defaults, "seconds": seconds,
+                                  "candidates": rows}
+    # a repeat of every tune measures nothing; the cache's keys name the card
+    calls, restore = counting("_measure_candidate")
+    try:
+        t0 = time.perf_counter()
+        for name, forward_only, quantize in AUTOTUNE_OBJECTIVES:
+            plans, report = at.autotune_splits(cfg, BATCH, device=dev, forward_only=forward_only,
+                                               quantize=quantize, cache_path=cache)
+            check([p["n1"] for p in plans] == record["splits"][name]["picks"]
+                  and all(r.get("cached") for r in report), f"autotune {name}: cache miss")
+        record["cache_hit_s"] = (time.perf_counter() - t0) / len(AUTOTUNE_OBJECTIVES)
+        check(not calls, f"a repeated tune measured {len(calls)} candidates")
+        with open(cache) as f:
+            keys = [json.loads(k) for k in json.load(f)]
+        check(len(keys) == 4 and all(k["device"] == card for k in keys),
+              f"autotune cache keys {[k['device'] for k in keys]} do not name the card {card}")
+        print(f"autotune cache: a repeat of the 4 tunes measured nothing, "
+              f"{1e3 * record['cache_hit_s']:.1f} ms per tune; keys name {card!r}")
+
+        # 3 Adam steps at the training picks against the default splits:
+        # each step's loss (of the largest loss) and the logits after the
+        # steps (of the largest logit) within REL_TOL.
+        # The parameters are printed, not held: Adam's first steps move an
+        # entry by about ±lr whatever its gradient's size, so an entry whose
+        # gradient is as small as the summation order's rounding can move
+        # either way; such an entry barely moves the logits
+        xb, yb = tx[:, :BATCH], ty[:BATCH]
+        finals, losses, logits = [], [], []
+        for splits in (record["splits"]["train"]["picks"], defaults):
+            model, step = make_trainer(params, cfg, K.KERNELS, dev, TRAJ_LR,
+                                       plans=at_splits(splits))
+            losses.append([float(step(xb, yb)["loss"]) for _ in range(AUTOTUNE_STEPS)])
+            with torch.inference_mode():
+                logits.append(model(xb))
+            with torch.no_grad():
+                finals.append(reference_params_from_fast(model.fast_params(), cfg,
+                                                         at_splits(splits)))
+        check(all(math.isfinite(v) for v in losses[0]), "tuned-split steps: non-finite loss")
+        loss_gap = max(abs(a - b) for a, b in zip(*losses)) / max(map(abs, losses[1]))
+        err, scale = float((logits[0] - logits[1]).abs().max()), float(logits[1].abs().max())
+        check(loss_gap <= REL_TOL and err <= REL_TOL * scale,
+              f"{AUTOTUNE_STEPS} Adam steps at the tuned splits: losses {losses}, logits "
+              f"max|d| {err} (max|ref| {scale})")
+        params_gap = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(*(
+            [t.detach() for t in (*f["epses"], f["linear"]["w"])] for f in finals)))
+        record["train_tuned_vs_default"] = {"loss_rel": loss_gap, "logits_rel": err / scale,
+                                            "params_rel": params_gap}
+        print(f"{AUTOTUNE_STEPS} Adam steps (lr {TRAJ_LR:g}) at splits "
+              f"{record['splits']['train']['picks']} vs {defaults}: losses {losses[0]} vs "
+              f"{losses[1]} (largest gap / max loss {loss_gap:.3e}), final logits max|d|/max|ref| "
+              f"{err / scale:.3e} (limit {REL_TOL:g}); parameters max|d|/max|p| "
+              f"{params_gap:.3e}")
+        del model, step, finals, logits
+
+        # export at the serving picks (looked up in the cache: measured above)
+        ckpt = os.path.join(tmp, "flagship_autotune.npz")
+        save_params_npz(params, ckpt)
+        x = tx[:, :BATCH]
+        for name, quantize, key, cls in (("f32", "none", "serve f32", EPSesPlusLinear),
+                                         ("int8", "int8", "serve int8", EPSesPlusLinearQ8)):
+            art = os.path.join(tmp, f"autotune_{name}.zip")
+            export.run(checkpoint=ckpt, epses_specs=FLAGSHIP, batch_sizes=ART_BATCHES,
+                       device="cuda", quantize=quantize, autotune_splits=True,
+                       autotune_cache=True, out=art)
+            meta, fns = export.load_artifact(art)
+            picks = record["splits"][key]["picks"]
+            check(meta["autotuned_splits"] == picks,
+                  f"{name} artifact's splits {meta.get('autotuned_splits')} != {picks}")
+            eager = cls.from_reference(params, cfg, device=dev, plans=at_splits(picks))
+            with torch.inference_mode():
+                for bs in ART_BATCHES:
+                    got, want = fns[bs](x[:, :bs]), eager(x[:, :bs])
+                    err, scale = float((got - want).abs().max()), float(want.abs().max())
+                    print(f"export --autotune-splits {name} (splits {picks}) vs eager, batch "
+                          f"{bs}: max|d|={err:.3e} tol={ART_TOL * scale:.3e} bit-equal "
+                          f"{bool(torch.equal(got, want))}")
+                    check(torch.isfinite(got).all().item() and err <= ART_TOL * scale,
+                          f"{name} artifact at tuned splits differs from the eager model")
+        check(not calls, "export --autotune-splits measured again what the cache held")
+    finally:
+        restore()
+
+    # the accumulation tuner on the deep model at batch 2048, and "auto"
+    cfg_d = EPSesPlusLinearConfig(epses_specs=DEEP, image_size=28, q0=2)
+    plans_d = fast_layer_plans(cfg_d)
+    cap = resolve_auto_grad_accum(cfg_d, plans_d, DEEP_BATCH)
+    check(cap == 4 and at.accum_candidates(cap, DEEP_BATCH) == [4, 8, 16],
+          f"deep cap pick {cap}, candidates {at.accum_candidates(cap, DEEP_BATCH)}")
+    t0 = time.perf_counter()
+    pick = at.autotune_grad_accum(cfg_d, plans_d, DEEP_BATCH, cap_pick=cap, device=dev,
+                                  log_fn=print, seed=SEED, cache_path=cache)
+    record["accum"] = {"pick": pick, "seconds": time.perf_counter() - t0}
+    with open(cache) as f:
+        entry = next((v for k, v in json.load(f).items()
+                      if json.loads(k).get("family") == "grad_accum"), {"candidates": []})
+    record["accum"]["candidates"] = entry["candidates"]
+    check(len(entry["candidates"]) == 3 and all("step_ms" in r for r in entry["candidates"]),
+          f"accum candidates {entry}")
+    calls, restore = counting("_measure_accum_candidate")
+    try:
+        auto = eps_runner._auto_grad_accum({"seed": SEED, "autotune_cache": True}, cfg_d, plans_d,
+                                           DEEP_BATCH, 1, dev, None, True)
+    finally:
+        restore()
+    check(auto == pick and not calls, f"the runner's auto took {auto}, the tuner {pick}")
+    print(f"deep batch {DEEP_BATCH}: accumulation tuner picked {pick} of "
+          f"{[r['accum'] for r in entry['candidates']]} (step ms "
+          f"{[round(r['step_ms'], 4) for r in entry['candidates']]}), "
+          f"{record['accum']['seconds']:.1f} s; the runner's auto -> {auto}")
+    torch.cuda.empty_cache()
+
+    # the ConvSBS tuner on the legacy recipe, open and ring, and 3 SGD steps
+    # at its picks against the heuristics
+    images, labels = data_io.synthetic_mnist_like(SBS_TUNE_BATCH, seed=1234)
+    xs, ys = torch.as_tensor(images, device=dev), torch.as_tensor(labels, device=dev)
+    record["conv_sbs"] = {}
+    for trace_edge in (False, True):
+        kind = "ring" if trace_edge else "open"
+        scfg = sbs_model_cfg(CSM, xs, trace_edge)
+        t0 = time.perf_counter()
+        tuning, report = at.autotune_conv_sbs(scfg, 28, SBS_TUNE_BATCH, device=dev, seed=SEED)
+        seconds = time.perf_counter() - t0
+        for layer in (r for r in report if "candidates" in r):
+            print(f"autotune conv_sbs {kind} batch {SBS_TUNE_BATCH} layer {layer['layer']}: "
+                  + ", ".join(f"mim={r['mim']} mcut={r['mcut']} "
+                              + (f"{r['ms']:.4f} ms" if "ms" in r else f"failed ({r['failed']})")
+                              for r in layer["candidates"])
+                  + f"; picked {layer['picked']} (heuristic {tuple(layer['heuristic'])})")
+            check(not any("failed" in r for r in layer["candidates"]),
+                  f"conv_sbs {kind}: a candidate failed on the card")
+        gate = next((r["whole_model"] for r in report if "whole_model" in r), None)
+        print(f"autotune conv_sbs {kind}: gate {gate}, picks {tuning}, {seconds:.1f} s")
+        record["conv_sbs"][kind] = {"picks": tuning, "gate": gate, "seconds": seconds,
+                                    "layers": [r for r in report if "candidates" in r]}
+        sparams = sbs_recipe_params(CSM, scfg, xs, dev)
+        finals = []
+        for c in (dataclasses.replace(scfg, kernel_tuning=tuning), scfg):
+            model = CSM.ConvSBSModel(sparams, c)
+            opt = torch.optim.SGD(model.parameters(), lr=SBS_TRAJ_LR, momentum=0.9)
+            for _ in range(AUTOTUNE_STEPS):
+                opt.zero_grad()
+                loss = torch.nn.functional.cross_entropy(model(xs), ys)
+                loss.backward()
+                opt.step()
+            check(math.isfinite(float(loss)), f"conv_sbs {kind} tuned steps: non-finite loss")
+            finals.append([p.detach() for p in model.parameters()])
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(*finals)):
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            check(err <= SBS_TRAJ_RTOL * scale, f"conv_sbs {kind}: core {i} after "
+                  f"{AUTOTUNE_STEPS} steps at the picks differs from the heuristics' by {err}")
+            worst = max(worst, err / scale)
+        record["conv_sbs"][kind]["tuned_vs_heuristic"] = worst
+        print(f"conv_sbs {kind}: {AUTOTUNE_STEPS} SGD steps at picks {tuning} vs the heuristics: "
+              f"largest max|d|/max|p| {worst:.3e} (limit {SBS_TRAJ_RTOL:g})")
+    del os.environ[at.CACHE_ENV]
+    counts = {**bench.read_counters(), **bench.read_sbs_counters()}
+    print(f"autotune phase launches {counts}")
+    return counts, record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -3459,10 +3708,16 @@ def main(argv=None) -> int:
     if args.profile:
         profile_lme(bench, LSC, args.profile, dev)
     phase_done("log-space (8, 9)")
+
+    # phase 10: the autotuners on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        tuned_counts, tuned = autotune_phase(bench, CSM, params, cfg, tx, ty, dev, tmp)
+    print(json.dumps({"autotune": tuned}))
+    phase_done("autotune (10)")
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     driven = [serving, serving_q8, exported, *trained.values(), *runner_runs, *sbs_runs, *sbs_bench_counts,
-              *dp_counts, *lme_launches]
+              *dp_counts, *lme_launches, tuned_counts]
     launches = {name: sum(c.get(name, 0) for c in driven) for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name], **numbers[name]}

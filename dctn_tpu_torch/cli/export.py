@@ -52,8 +52,16 @@ visible cards and never puts two bands on one card. As in JAX, it refuses
 another family, ``--mesh-devices`` beside it, ``--quantize int8`` and a
 height that S does not divide.
 
+``--autotune-splits`` measures each EPS layer's split candidates with the
+serving objective (the forward, f32 or int8) on ``--device`` at the largest
+batch size a card serves, and exports at the picks; ``--autotune-cache``
+reuses and stores such picks, and alone exports at the cached ones
+(``serving_splits``). Splits are exact: only the kernels' speed changes.
+``meta["autotuned_splits"]`` records them.
+
 Artifact layout (a zip):
   meta.json          the model config, batch sizes, device type, backend
+                     (and ``autotuned_splits`` where the splits were tuned)
   forward_bs{N}.pt2  ``torch.export.save`` of the program for batch size N
                      (static shapes: the kernels' launch plans are fixed per
                      shape)
@@ -110,8 +118,6 @@ BACKENDS = ("pallas", "xla")
 # each refused flag, the values that mean "not used", and the ROADMAP item
 # that ports it (as the runners' REFUSED tables)
 REFUSED = (
-    ("autotune_splits", (False,), "--autotune-splits", "the autotuner (slice 8, item 20)"),
-    ("autotune_cache", (False,), "--autotune-cache", "the autotuner (slice 8, item 20)"),
     ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
      "a single-pass operand mode (Queue 2, follow-up 4)"),
 )
@@ -150,17 +156,29 @@ def _serialize(program: _Program, batch_sizes: Sequence[int], shape: Callable, d
     return serialized, seconds
 
 
+def _plans_at(cfg: EPSesPlusLinearConfig, channels: int, splits):
+    """``fast_layer_plans`` with each layer's n1 from ``splits`` (None: the
+    default splits)."""
+    plans = fast_layer_plans(cfg, channels)
+    if splits is None:
+        return plans
+    if len(splits) != len(plans):
+        raise ValueError(f"{len(splits)} splits for {len(plans)} EPS layers")
+    return tuple({**p, "n1": int(n1)} for p, n1 in zip(plans, splits))
+
+
 @torch.no_grad()
 def _eps_program(params, cfg: EPSesPlusLinearConfig, channels: int, device, backend: str,
-                 quantize) -> _Program:
+                 quantize, splits=None) -> _Program:
     """The serving model of ``backend`` on ``device``: the fast (cmt) model
-    through the operator bundles (K1, or K8 with ``quantize="int8"``), or
-    the reference-layout model through plain operations."""
+    at ``splits`` through the operator bundles (K1, or K8 with
+    ``quantize="int8"``), or the reference-layout model through plain
+    operations."""
     if backend == "xla":
         if quantize:
             raise ValueError("quantize needs the pallas backend (the int8 kernel's fast layout)")
         return _Program(EPSesPlusLinearReference(params, cfg).to(device), lambda m, x: m(x))
-    fast, plans = fast_params_from_reference(params, cfg, plans=fast_layer_plans(cfg, channels))
+    fast, plans = fast_params_from_reference(params, cfg, plans=_plans_at(cfg, channels, splits))
     if quantize == "int8":
         model = EPSesPlusLinearQ8(quantize_fast_params(fast), plans, cfg).to(device)
         return _Program(model, lambda m, x: m(x, fwd=ops.eps_fwd_q8))
@@ -187,14 +205,17 @@ def export_forward(
     device="cuda",
     backend: str = "pallas",
     quantize=None,
+    splits=None,
 ) -> Tuple[Dict[int, bytes], Dict[int, float]]:
     """The serving forward of reference-layout ``params`` (tensors on any
     device), one saved program per batch size, the weights inside on
     ``device``: input (C, bs, H, W, Q₀) f32 there, output (bs, classes).
     ``quantize="int8"``: the W8A8 model, its int8 cores inside the program.
+    ``splits``: each EPS layer's matmul split (pallas; None: the defaults),
+    e.g. serving-objective picks of ``train.autotune.autotune_splits``.
     Returns ({bs: saved program}, {bs: export seconds})."""
     assert backend in BACKENDS and quantize in (None, "int8"), (backend, quantize)
-    program = _eps_program(params, cfg, channels, device, backend, quantize)
+    program = _eps_program(params, cfg, channels, device, backend, quantize, splits)
     size = cfg.image_size
     return _serialize(program, batch_sizes, lambda bs: (channels, bs, size, size, cfg.q0), device)
 
@@ -228,13 +249,15 @@ def export_sharded_forward(
     quantize=None,
     model_family: str = "eps",
     image_size: int = 28,
+    splits=None,
 ) -> Tuple[Dict[int, bytes], Dict[int, float]]:
     """The data-sharded serving export (JAX export.py:78-130): for each
     global batch size (divisible by ``mesh_devices``), the one-card program
     at its local batch, exported device-free (weights on the CPU) so that
     ``load_artifact`` places a replica on each card. ``cfg`` is the
     ``model_family``'s config (``eps`` or ``conv_sbs``). Returns as
-    ``export_forward``, keyed by the global batch size."""
+    ``export_forward``, keyed by the global batch size; ``splits`` as
+    there (eps family)."""
     bad = [bs for bs in batch_sizes if bs % mesh_devices]
     if bad:
         raise ValueError(f"global batch sizes {bad} are not divisible by mesh_devices={mesh_devices}")
@@ -242,7 +265,7 @@ def export_sharded_forward(
     if model_family == "eps":
         serialized, seconds = export_forward(params, cfg, batch_sizes=sorted(set(local.values())),
                                              channels=channels, device="cpu", backend=backend,
-                                             quantize=quantize)
+                                             quantize=quantize, splits=splits)
     else:
         serialized, seconds = export_conv_sbs_forward(
             params, cfg, batch_sizes=sorted(set(local.values())), image_size=image_size,
@@ -317,16 +340,16 @@ def space_classifier(params, cfg: EPSesPlusLinearConfig, space_devices: int) -> 
 
 
 def space_slab_program(params, cfg: EPSesPlusLinearConfig, channels: int = 1,
-                       backend: str = "pallas") -> _SlabProgram:
+                       backend: str = "pallas", splits=None) -> _SlabProgram:
     """The slab program of reference-layout ``params`` on the CPU (what
     ``export_space_sharded_forward`` traces and serving places on each
-    card): the fast layout's cmts for ``pallas``, the reference cores for
-    ``xla``."""
+    card): the fast layout's cmts at ``splits`` for ``pallas``, the
+    reference cores for ``xla``."""
     cores = tuple(c.detach().cpu() for c in params["epses"])
     if backend == "xla":
         return _SlabProgram(cores)
     fast, plans = fast_params_from_reference({"epses": cores, "linear": {}}, cfg,
-                                             plans=fast_layer_plans(cfg, channels))
+                                             plans=_plans_at(cfg, channels, splits))
     return _SlabProgram(fast["epses_cmt"], plans)
 
 
@@ -338,16 +361,17 @@ def export_space_sharded_forward(
     space_devices: int,
     channels: int = 1,
     backend: str = "pallas",
+    splits=None,
 ) -> Tuple[Dict[int, bytes], Dict[int, float], bytes]:
     """The height-sharded serving export (JAX export.py:130-215): for each
     batch size the device-free slab program (``space_slab_program``),
     traced on the CPU at the slab's shape with a classifier slice, and the
     classifier's S slices with the bias (``space_classifier``), saved
-    apart. Returns ({bs: saved program}, {bs: export seconds}, the
-    ``classifier.pt`` bytes)."""
+    apart; ``splits`` as in ``export_forward``. Returns ({bs: saved
+    program}, {bs: export seconds}, the ``classifier.pt`` bytes)."""
     assert backend in BACKENDS, backend
     hl, halo = space_layout(cfg, space_devices)
-    program = space_slab_program(params, cfg, channels, backend)
+    program = space_slab_program(params, cfg, channels, backend, splits)
     classifier = space_classifier(params, cfg, space_devices)
     w0 = classifier["w"][0]
     serialized, seconds = {}, {}
@@ -541,6 +565,27 @@ def build_meta(
     }
 
 
+def serving_splits(cfg: EPSesPlusLinearConfig, batch_size: int, channels: int, device, quantize,
+                   tune: bool, cache: bool, log_fn=None):
+    """An artifact's splits, always at the SERVING objective (the forward,
+    f32 or ``quantize="int8"``) at ``batch_size`` images a card: measured on
+    ``device`` with ``tune`` (reusing and storing picks with ``cache``),
+    else with ``cache`` the picks the cache holds for that problem, else
+    None (the default splits)."""
+    from ..train.autotune import autotune_cache_lookup, autotune_splits, default_cache_path
+
+    problem = dict(device=device, forward_only=True, quantize=quantize, log_fn=log_fn,
+                   cache_path=default_cache_path() if cache else None)
+    if tune:
+        plans, _ = autotune_splits(cfg, max(1, batch_size), channels, **problem)
+    else:
+        hit = autotune_cache_lookup(cfg, max(1, batch_size), channels, **problem)
+        if hit is None:
+            return None
+        plans = hit[0]
+    return tuple(p["n1"] for p in plans)
+
+
 def _parse_int_list(_ctx, _param, value: str) -> Tuple[int, ...]:
     return parse_batch_sizes(value)
 
@@ -580,9 +625,14 @@ def _parse_int_list(_ctx, _param, value: str) -> Tuple[int, ...]:
               help="W8A8 int8 EPS layers (eps family, pallas backend): int8 cores inside "
                    "the artifact, the activations quantized per pixel in the kernel")
 @click.option("--autotune-splits/--no-autotune-splits", default=False,
-              help="not ported yet (the autotuner, ROADMAP item 20)")
+              help="measure each EPS layer's matmul-split candidates on --device with the "
+                   "SERVING objective (the forward, f32 or --quantize int8) at the largest "
+                   "batch size (per card), and export at the fastest (eps family, pallas "
+                   "backend; exact: splits only re-matricize the cores)")
 @click.option("--autotune-cache/--no-autotune-cache", default=False,
-              help="not ported yet (the autotuner, ROADMAP item 20)")
+              help="reuse and store serving-objective split picks in "
+                   "train/autotune.default_cache_path() ($DCTN_TPU_TORCH_AUTOTUNE_CACHE); "
+                   "without --autotune-splits, export at cached picks alone. Off by default")
 @click.option("--out", type=click.Path(dir_okay=False), required=True)
 def main(**kw):
     run(**kw)
@@ -595,13 +645,16 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
         autotune_splits=False, autotune_cache=False, out=None) -> dict:
     """Export the npz ``checkpoint`` to the artifact ``out``; returns each
     entry point's export seconds and bytes, and the artifact's bytes."""
-    given = dict(autotune_splits=autotune_splits, autotune_cache=autotune_cache,
-                 compute_dtype=compute_dtype)
+    given = dict(compute_dtype=compute_dtype)
     for name, accepted, flag, where in REFUSED:
         if given[name] not in accepted:
             raise click.UsageError(f"{flag} is not ported to the PyTorch export yet: ROADMAP, {where}")
     if backend == "auto":
         backend = "pallas"
+    if autotune_splits and (model_family != "eps" or backend != "pallas"):
+        raise click.UsageError(
+            "--autotune-splits needs --model-family eps and the pallas backend (the fast "
+            "layout): it is the only path with tunable splits")
     if quantize != "none":
         if model_family != "eps":
             raise click.UsageError(
@@ -660,21 +713,28 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
                                    "cpu" if sharded else device, torch.float32)
         _check_params(params, cfg, channels)
         q = None if quantize == "none" else quantize
+        splits = None
+        if backend == "pallas" and (autotune_splits or autotune_cache):
+            splits = serving_splits(cfg, max(batch_sizes) // mesh_devices, channels, device, q,
+                                    autotune_splits, autotune_cache,
+                                    log_fn=lambda m: click.echo(m, err=True))
         if space_devices > 1:
             serialized, seconds, classifier = export_space_sharded_forward(
                 params, cfg, batch_sizes=batch_sizes, space_devices=space_devices,
-                channels=channels, backend=backend)
+                channels=channels, backend=backend, splits=splits)
             hl, halo = space_layout(cfg, space_devices)
         elif mesh_devices > 1:
             serialized, seconds = export_sharded_forward(
                 params, cfg, batch_sizes=batch_sizes, mesh_devices=mesh_devices,
-                channels=channels, backend=backend, quantize=q)
+                channels=channels, backend=backend, quantize=q, splits=splits)
         else:
             serialized, seconds = export_forward(
                 params, cfg, batch_sizes=batch_sizes, channels=channels, device=device,
-                backend=backend, quantize=q)
+                backend=backend, quantize=q, splits=splits)
         family_meta = {"epses_specs": [list(s) for s in epses_specs], "q0": q0,
                        "channels": channels, "num_classes": num_classes}
+        if splits is not None:
+            family_meta["autotuned_splits"] = list(splits)
     else:
         cfg = ConvSBSModelConfig(
             num_sbs_layers=num_sbs_layers, bond_dim_size=bond_dim, trace_edge=trace_edge,

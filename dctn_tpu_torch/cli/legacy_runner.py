@@ -53,10 +53,16 @@ count; a mid-epoch position the new step grid lacks restarts that epoch
 (legacy_runner.py:633-640). With ranks, ``run`` returns rank 0's cores on
 the CPU.
 
-Refused until their slice lands: ``--autotune-kernels`` and
-``--autotune-cache`` (the autotuner, ROADMAP item 20; the cache, on by
-default in the JAX runner, is off by default here; an export takes the
-kernels' own routes, without serving picks).
+``--autotune-kernels`` measures each layer's fold (family and merge
+position, ``train/autotune.autotune_conv_sbs``) on ``--device`` at the
+per-rank batch with the training objective, keeps picks that win end to
+end, and trains at them (``ConvSBSModelConfig.kernel_tuning``; rank 0
+measures and broadcasts); the report goes to ``autotune_report.json``.
+``--autotune-cache`` (off by default here, on in the JAX runner) reuses and
+stores measured picks, and alone applies the cached ones. An
+``--export-artifact`` takes serving-objective picks only: measured at the
+largest export batch with ``--autotune-kernels``, looked up under the
+serving key with ``--autotune-cache``, else the kernels' own picks.
 
 The inits draw from a ``torch.Generator`` seeded with ``--seed``, so a seed
 gives other weights than in the JAX runner; pass ``--init-load-file`` to
@@ -70,6 +76,8 @@ Run: ``python -m dctn_tpu_torch.cli.legacy_runner --ds-path synthetic
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import json
 import logging
 import os
 import random
@@ -129,13 +137,6 @@ INITIALIZERS = {
     "min-random-eye": sbs.init_min_random_eye,
 }
 
-# each refused flag, the value that means "off", and the ROADMAP slice that ports it
-REFUSED = (
-    ("autotune_kernels", False, "--autotune-kernels", "the autotuner (slice 8, item 20)"),
-    ("autotune_cache", False, "--autotune-cache", "the autotuner (slice 8, item 20)"),
-)
-
-
 def permute_pixels_batch(images: np.ndarray, permutation) -> np.ndarray:
     n, h, w = images.shape
     return images.reshape(n, h * w)[:, permutation].reshape(n, h, w)
@@ -172,10 +173,14 @@ def permute_pixels_batch(images: np.ndarray, permutation) -> np.ndarray:
                    "--device cpu): replicated cores, pixel splits sharded on the sample axis, "
                    "one gradient all-reduce a step")
 @click.option("--autotune-kernels/--no-autotune-kernels", default=False,
-              help="not ported yet (the autotuner, ROADMAP item 20)")
+              help="measure each layer's ConvSBS fold (family, merge position) on --device "
+                   "and train with the fastest that wins end to end "
+                   "(train/autotune.autotune_conv_sbs); --export-artifact re-tunes with the "
+                   "serving objective at the largest export batch")
 @click.option("--autotune-cache/--no-autotune-cache", default=False,
-              help="not ported yet (the autotuner, ROADMAP item 20); off by default "
-                   "here, on in the JAX runner")
+              help="reuse and store measured picks in train/autotune.default_cache_path() "
+                   "($DCTN_TPU_TORCH_AUTOTUNE_CACHE); alone, apply cached picks (serving ones "
+                   "to an export). Off by default here, on in the JAX runner")
 @click.option("--export-artifact", type=click.Path(dir_okay=False), default=None,
               help="after training, export the final cores as a deployment artifact "
                    "(cli/export.py) on --device")
@@ -211,12 +216,58 @@ def main(**kw) -> None:
     run(**kw)
 
 
-def _refuse_unported(kw: dict) -> None:
-    for name, off, flag, slice_ in REFUSED:
-        if kw[name] is not None and kw[name] != off:
-            raise click.BadParameter(
-                f"{flag} is not ported to the PyTorch runner yet: ROADMAP, {slice_}"
-            )
+def _tuned_config(kw: dict, cfg: ConvSBSModelConfig, image_size: int, batch: int, device,
+                  mesh, writes_logs: bool) -> ConvSBSModelConfig:
+    """``cfg`` with the training-objective fold picks (legacy_runner.py:
+    269-350): measured with ``--autotune-kernels``, cached ones with
+    ``--autotune-cache`` alone; rank 0 measures or looks up and broadcasts."""
+    if not (kw["autotune_kernels"] or kw["autotune_cache"]):
+        return cfg
+    from ..train.autotune import autotune_conv_sbs, conv_sbs_cache_lookup, default_cache_path
+
+    cache = default_cache_path() if kw["autotune_cache"] else None
+    tuning = report = None
+    if mesh is None or mesh.is_primary:
+        if kw["autotune_kernels"]:
+            tuning, report = autotune_conv_sbs(cfg, image_size, batch, device=device,
+                                               log_fn=logger.info, seed=kw["seed"],
+                                               cache_path=cache)
+        else:
+            tuning = conv_sbs_cache_lookup(cfg, image_size, batch, device=device,
+                                           log_fn=logger.info, cache_path=cache)
+    if mesh is not None:
+        tuning = mesh.broadcast_object(tuning)
+        if not mesh.is_primary and kw["autotune_kernels"]:
+            report = [{"broadcast_from_rank_0": True, "picks": tuning}]
+    if report is not None and writes_logs:
+        with open(os.path.join(kw["models_dir"], "autotune_report.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+    if not tuning or not any(tuning):
+        return cfg
+    logger.info("conv_sbs kernel_tuning: %s", tuning)
+    return dataclasses.replace(cfg, kernel_tuning=tuple(tuning))
+
+
+def _serving_tuning(kw: dict, cfg: ConvSBSModelConfig, image_size: int, batch: int,
+                    device) -> tuple:
+    """An artifact's fold picks, at the SERVING objective only: measured at
+    ``batch`` with ``--autotune-kernels``, looked up under the serving key
+    with ``--autotune-cache`` alone, else () (the kernels' own picks).
+    Never the training picks."""
+    if not (kw["autotune_kernels"] or kw["autotune_cache"]):
+        return ()
+    from ..train.autotune import autotune_conv_sbs, conv_sbs_cache_lookup, default_cache_path
+
+    base = dataclasses.replace(cfg, kernel_tuning=())
+    cache = default_cache_path() if kw["autotune_cache"] else None
+    if kw["autotune_kernels"]:
+        tuning, _ = autotune_conv_sbs(base, image_size, batch, device=device, forward_only=True,
+                                      log_fn=logger.info, seed=kw["seed"], cache_path=cache)
+    else:
+        tuning = conv_sbs_cache_lookup(base, image_size, batch, device=device,
+                                       forward_only=True, log_fn=logger.info, cache_path=cache)
+    logger.info("export: serving-objective kernel picks %s", tuning)
+    return tuple(tuning) if tuning and any(tuning) else ()
 
 
 def _load_init(path: str, template):
@@ -247,7 +298,6 @@ def _score(model: ConvSBSModel, x: torch.Tensor, y: torch.Tensor):
 
 def run(**kw):
     kw = fill_defaults(main, kw)
-    _refuse_unported(kw)
     if kw["export_artifact"] and kw["shuffle_pixels"]:
         # the artifact holds the quantum map and the multiplier but not the
         # host's pixel permutation: it would mis-serve raw images
@@ -333,6 +383,10 @@ def _run(kw: dict, device: torch.device, mesh):
         input_multiplier=multiplier,
     )
     check_kernel_scope(cfg, device.type == "cuda")
+    image_size = int(images.shape[1])
+    world = 1 if mesh is None else mesh.world_size
+    cfg = _tuned_config(kw, cfg, image_size, kw["batch_size"] // world, device, mesh,
+                        writes_logs)
     init_kwargs = {}
     if kw["initialization_std"] is not None:
         init_kwargs = {
@@ -353,7 +407,6 @@ def _run(kw: dict, device: torch.device, mesh):
         params = scale_layers_using_batch(params, cfg, torch.as_tensor(
             x_tr_host[: kw["scale_layers_using_batch"]], device=device))
     model = ConvSBSModel(params, cfg)
-    world = 1 if mesh is None else mesh.world_size
     per_dev = kw["batch_size"] // world
     if mesh is None:
         x_tr = torch.as_tensor(x_tr_host, device=device)
@@ -564,10 +617,11 @@ def _run(kw: dict, device: torch.device, mesh):
         from .export import build_meta, export_conv_sbs_forward, parse_batch_sizes, write_artifact
 
         bss = parse_batch_sizes(kw["export_batch_sizes"])
-        image_size = int(images.shape[1])
+        export_cfg = dataclasses.replace(cfg, kernel_tuning=_serving_tuning(
+            kw, cfg, image_size, max(bss), device))
         write_artifact(
             kw["export_artifact"],
-            export_conv_sbs_forward(params, cfg, batch_sizes=bss, image_size=image_size,
+            export_conv_sbs_forward(params, export_cfg, batch_sizes=bss, image_size=image_size,
                                     device=device)[0],
             build_meta(
                 model_family="conv_sbs", image_size=image_size, batch_sizes=bss,

@@ -12,7 +12,9 @@ manual with per-core normal, uniform or from-file inits) and
 ``torch.save(state_dict)`` file); the intermediate statistics at start;
 the fast (cmt) layout's training step with parameter dropout, frozen cores,
 ``--qat int8``, the regularizers, weight decay and gradient accumulation
-(``auto`` takes the saved-t cap's pick); evaluation on the eval schedule in
+(``auto``: the saved-t cap's pick, and where the cap fires on the fast
+layout the fastest of its candidates, measured, ``train/autotune.py``);
+evaluation on the eval schedule in
 the reference's log-line format, with the QAT runs scored on the int8
 forward; the last-N and best-per-metric checkpoints in the reference layout
 (npz files the JAX package loads), early stopping, the max-iterations and
@@ -94,6 +96,15 @@ grid; a layout conversion under TP is refused, as in JAX
 runner.py:477-486) or with ``--qat int8``, a model axis that does not divide
 a sharded O, a halo wider than a rank's rows and more ranks than visible
 cards are refused before any rank starts.
+
+``--autotune-splits`` measures each EPS layer's split candidates on
+``--device`` at the per-rank microbatch under the run's objective and
+trains at the fastest (``train/autotune.py``); with several ranks rank 0
+measures and broadcasts the picks before any parameter of the fast layout is
+built, and the picks go to ``autotune_report.json``; train states record
+the splits (``eps_splits``). ``--autotune-cache`` (off by default, as
+ROADMAP item 20 decided; on in the JAX runner) reuses and stores measured
+picks, and without ``--autotune-splits`` applies the cached splits alone.
 
 Flags the port does not run yet are refused with a ``click.BadParameter``
 naming their ROADMAP item (``REFUSED``). The inits and dropout masks draw
@@ -201,8 +212,6 @@ logger = logging.getLogger(__name__)
 # each refused flag, the values that mean "not used", and the ROADMAP item
 # that ports it
 REFUSED = (
-    ("autotune_splits", (False,), "--autotune-splits", "the autotuner (slice 8, item 20)"),
-    ("autotune_cache", (False,), "--autotune-cache", "the autotuner (slice 8, item 20)"),
     ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
      "a single-pass operand mode (Queue 2, follow-up 4)"),
 )
@@ -261,6 +270,81 @@ def setup_run_provenance(output_dir: str, kwargs: dict, verbosity="INFO") -> str
     fallbacks.reset()
     fallbacks.add_sink(fallbacks.file_sink(info))
     return commit
+
+
+def _tuned_plans(kw: dict, cfg, plans, channels: int, per_dev: int, device, mesh,
+                 use_fast: bool, qat, writes_logs: bool):
+    """The fast layout's plans at the splits the run trains at
+    (runner.py:684-803): with ``--autotune-splits`` measured at the
+    per-rank microbatch under the run's objective (``--qat int8``: the QAT
+    step; the composition regularizer charged), with ``--autotune-cache``
+    alone the cached picks where the cache holds this problem, else
+    ``plans``. Rank 0 measures or looks up and broadcasts the picks over
+    the run's group, so that every rank holds the same cmt shapes; the
+    report goes to ``autotune_report.json``."""
+    if not use_fast:
+        if kw["autotune_splits"]:
+            logger.warning("--autotune-splits ignored: the fast (cmt) layout is not in use "
+                           "(the xla backend, or --tp-shard-all)")
+        return plans
+    if not (kw["autotune_splits"] or kw["autotune_cache"]):
+        return plans
+    from ..train.autotune import autotune_cache_lookup, autotune_splits, default_cache_path
+
+    ga = kw["grad_accum_steps"]
+    if ga == "auto":  # the cap's pick at the default splits: the microbatch the step runs
+        ga = resolve_auto_grad_accum(cfg, plans, per_dev)
+    micro = max(1, per_dev // max(1, ga))
+    if kw["model_devices"] > 1 or kw["space_devices"] > 1:
+        logger.warning("--autotune-splits measures unsharded layer shapes; under "
+                       "--space-devices/--model-devices the per-device shapes differ: treat "
+                       "the picks as approximate")
+    problem = dict(device=device, reg_type=kw["reg_type"], reg_coeff=kw["reg_coeff"],
+                   quantize=qat, log_fn=logger.info)
+    cache = default_cache_path() if kw["autotune_cache"] else None
+    picks, report = None, None
+    if mesh is None or mesh.is_primary:
+        if kw["autotune_splits"]:
+            tuned, report = autotune_splits(cfg, micro, channels, seed=kw["seed"],
+                                            cache_path=cache, **problem)
+        else:
+            hit = autotune_cache_lookup(cfg, micro, channels, cache_path=cache, **problem)
+            tuned = plans if hit is None else hit[0]
+        picks = [p["n1"] for p in tuned]
+    if mesh is not None:
+        picks = mesh.broadcast_object(picks)
+        if not mesh.is_primary and kw["autotune_splits"]:
+            report = [{"layer": i, "picked_n1": n1, "model_n1": p["n1"],
+                       "broadcast_from_rank_0": True}
+                      for i, (p, n1) in enumerate(zip(plans, picks))]
+            logger.info("autotune splits broadcast from rank 0: %s", tuple(picks))
+    if picks != [p["n1"] for p in plans]:
+        logger.info("EPS splits %s (the defaults %s)", tuple(picks),
+                    tuple(p["n1"] for p in plans))
+    if report is not None and writes_logs:
+        with open(os.path.join(kw["output_dir"], "autotune_report.json"), "w") as f:
+            json.dump(report, f, indent=1)
+    return tuple({**p, "n1": n1} for p, n1 in zip(plans, picks))
+
+
+def _auto_grad_accum(kw: dict, cfg, plans, per_dev: int, channels: int, device, mesh,
+                     use_fast: bool) -> int:
+    """``--grad-accum-steps auto`` (runner.py:804-845): the saved-t cap's
+    pick, and where the cap fired on the fast layout the measured fastest
+    of its candidates (``autotune_grad_accum``), measured by rank 0 and
+    broadcast, since the ranks' accumulation counts must agree."""
+    cap_pick = resolve_auto_grad_accum(cfg, plans, per_dev)
+    if cap_pick <= 1 or not use_fast:
+        return cap_pick
+    from ..train.autotune import autotune_grad_accum, default_cache_path
+
+    pick = None
+    if mesh is None or mesh.is_primary:
+        pick = autotune_grad_accum(
+            cfg, plans, per_dev, channels, cap_pick=cap_pick, device=device,
+            log_fn=logger.info, seed=kw["seed"],
+            cache_path=default_cache_path() if kw["autotune_cache"] else None)
+    return pick if mesh is None else mesh.broadcast_object(pick)
 
 
 def _hint_saved_t_recipe(cfg, plans, batch: int, accum: int) -> None:
@@ -371,9 +455,14 @@ def _hint_saved_t_recipe(cfg, plans, batch: int, accum: int) -> None:
               help="spatial parallel over this many ranks a data rank: the image height sharded "
                    "with one halo exchange per EPS layer (parallel/spatial_parallel.py)")
 @click.option("--autotune-splits/--no-autotune-splits", default=False,
-              help="not ported yet (the autotuner, ROADMAP item 20)")
+              help="measure each EPS layer's matmul-split candidates on --device at the "
+                   "per-rank microbatch and train at the fastest (train/autotune.py; exact: "
+                   "splits only re-matricize the cores); rank 0 measures, every rank takes "
+                   "its picks")
 @click.option("--autotune-cache/--no-autotune-cache", default=False,
-              help="not ported yet (the autotuner, ROADMAP item 20); off by default here, "
+              help="reuse and store measured picks (splits, the measured 'auto' accumulation) "
+                   "in train/autotune.default_cache_path() ($DCTN_TPU_TORCH_AUTOTUNE_CACHE); "
+                   "without --autotune-splits, apply cached splits only. Off by default here, "
                    "on in the JAX runner")
 @click.option("--resume-from", type=click.Path(exists=True, dir_okay=False), default=None,
               help="resume params, optimizer, step and the dropout generator from a "
@@ -745,6 +834,14 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
         # exists (not --tp-shard-all: runner.py:663-667); else the reference
         # layout with each backend's eps (xla, or the kernels' route)
         train_ref = eval_ref = train_ref or eval_ref or shard_all
+    world = 1 if mesh is None else mesh.data_size
+    per_dev = kw["batch_size"] // world  # each data rank's batch
+    k0 = specs[0][0]
+    channels = (params["epses"][0].ndim - 1) // (k0 * k0)
+    # the splits the fast layout trains at: measured or looked up by rank 0
+    # and broadcast, before any parameter of that layout is built
+    plans = _tuned_plans(kw, cfg, plans, channels, per_dev, device, mesh, not train_ref,
+                         qat, writes_logs)
     ref_backends = ("xla" if kw["train_backend"] == "xla" else "pallas",
                     "xla" if kw["eval_backend"] == "xla" else "pallas")
     if tp:
@@ -753,28 +850,22 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
         if train_ref:
             model = TPModel(make_tp_params(params, cfg, grid, shard_all), cfg, grid, shard_all)
         else:
-            model = TPFastModel(make_tp_fast_params(fast_params_from_reference(params, cfg)[0],
-                                                    cfg, grid), plans, cfg, grid)
+            model = TPFastModel(make_tp_fast_params(
+                fast_params_from_reference(params, cfg, plans)[0], cfg, grid), plans, cfg, grid)
     elif train_ref:
         model = EPSesPlusLinearReference(params, cfg).to(device)
     else:
-        model = EPSesPlusLinear.from_reference(params, cfg, device=device)
+        model = EPSesPlusLinear.from_reference(params, cfg, device=device, plans=plans)
     del params
-    world = 1 if mesh is None else mesh.data_size
-    per_dev = kw["batch_size"] // world  # each data rank's batch
     if mesh is not None and grid is None:
         from ..parallel import replicate
 
         replicate(mesh, model.parameters())  # rank 0's init on every rank
     optimizer = make_optimizer(kw["optimizer_name"], model.parameters(), kw["lr"], kw["wd"])
     if kw["grad_accum_steps"] == "auto":
-        kw["grad_accum_steps"] = resolve_auto_grad_accum(cfg, plans, per_dev)
+        kw["grad_accum_steps"] = _auto_grad_accum(kw, cfg, plans, per_dev, channels, device,
+                                                  mesh, not train_ref)
         logger.info("grad-accum-steps auto -> %d", kw["grad_accum_steps"])
-        if kw["grad_accum_steps"] > 1:
-            fallbacks.record(
-                f"grad-accum-steps auto took the saved-t cap's pick {kw['grad_accum_steps']} "
-                "without timing the candidates (the autotuner, ROADMAP item 20)"
-            )
     step_kw = dict(frozen_eps_indices=kw["freeze_eps"], with_probs=kw["tb_batches"],
                    grad_accum_steps=kw["grad_accum_steps"])
     if tp and sp:

@@ -295,11 +295,12 @@ def quantize_fast_params(fast):
     return {"epses_q": tuple(wqs), "epses_scale": tuple(sws), "linear": dict(fast["linear"])}
 
 
-def quantize_reference_params(params, cfg):
-    """Reference-layout parameters → (int8 serving parameters, plans)."""
+def quantize_reference_params(params, cfg, plans=None):
+    """Reference-layout parameters → (int8 serving parameters, plans), the
+    cores matricized under ``plans`` (default: ``fast_layer_plans``')."""
     from ..models.eps_plus_linear import fast_params_from_reference
 
-    fast, plans = fast_params_from_reference(params, cfg)
+    fast, plans = fast_params_from_reference(params, cfg, plans)
     return quantize_fast_params(fast), plans
 
 

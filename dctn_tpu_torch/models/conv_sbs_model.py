@@ -60,6 +60,11 @@ class ConvSBSModelConfig:
     cos_sin_squared: bool = False
     input_multiplier: float = 1.0
     num_labels: int = NUM_LABELS
+    # per layer, the strings' fold as ``(mcut, mim)`` (``conv_sbs_t``'s
+    # merge position and family), or None for ``conv_sbs_t``'s own pick;
+    # layers past the tuple take their own pick too. Measured by
+    # ``train.autotune.autotune_conv_sbs``.
+    kernel_tuning: tuple = ()
 
     def __post_init__(self):
         assert self.num_sbs_layers >= 2
@@ -141,8 +146,17 @@ def _quantum_t(x: torch.Tensor, cfg: ConvSBSModelConfig) -> torch.Tensor:
     return (q * cfg.input_multiplier)[None]
 
 
-def _layer_t(layer_spec, layer_params, xT, kernels):
-    return [conv_sbs_t(s, cores, xT, kernels=kernels) for s, cores in zip(layer_spec, layer_params)]
+def _layer_t(layer_spec, layer_params, xT, kernels, tune=None):
+    """Each string of one layer through ``conv_sbs_t``, at the layer's
+    ``kernel_tuning`` entry ``tune`` = (mcut, mim) where there is one."""
+    mcut, mim = tune if tune else (None, None)
+    return [conv_sbs_t(s, cores, xT, mim=mim, mcut=mcut, kernels=kernels)
+            for s, cores in zip(layer_spec, layer_params)]
+
+
+def layer_tuning(cfg: "ConvSBSModelConfig", li: int):
+    """Layer ``li``'s ``(mcut, mim)`` from ``cfg.kernel_tuning``, or None."""
+    return cfg.kernel_tuning[li] if li < len(cfg.kernel_tuning) else None
 
 
 def conv_sbs_model_forward_t(
@@ -154,8 +168,9 @@ def conv_sbs_model_forward_t(
     through ``conv_sbs_t``, the strings' outputs stacked as the next layer's
     channels, the mean over the (10, H', W', B) map's spatial dims."""
     xT = _quantum_t(x, cfg)
-    for layer_spec, layer_params in zip(check_kernel_scope(cfg, xT.is_cuda), params):
-        outsT = _layer_t(layer_spec, layer_params, xT, kernels)
+    for li, (layer_spec, layer_params) in enumerate(zip(check_kernel_scope(cfg, xT.is_cuda),
+                                                        params)):
+        outsT = _layer_t(layer_spec, layer_params, xT, kernels, layer_tuning(cfg, li))
         xT = torch.stack(outsT, dim=0)
     return outsT[0].mean(dim=(1, 2)).T
 

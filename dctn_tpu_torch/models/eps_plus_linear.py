@@ -444,11 +444,12 @@ class EPSesPlusLinear(nn.Module):
 
     @classmethod
     def from_reference(
-        cls, params: Params, cfg: EPSesPlusLinearConfig, device=None
+        cls, params: Params, cfg: EPSesPlusLinearConfig, device=None, plans=None
     ) -> "EPSesPlusLinear":
-        """Matricize reference-layout ``params`` and place them on
-        ``device`` (default: where ``params`` lie)."""
-        model = cls(*fast_params_from_reference(params, cfg), cfg=cfg)
+        """Matricize reference-layout ``params`` under ``plans`` (default:
+        ``fast_layer_plans``' splits) and place them on ``device`` (default:
+        where ``params`` lie)."""
+        model = cls(*fast_params_from_reference(params, cfg, plans), cfg=cfg)
         return model if device is None else model.to(device)
 
     def fast_params(self):
@@ -506,11 +507,12 @@ class EPSesPlusLinearQ8(nn.Module):
 
     @classmethod
     def from_reference(
-        cls, params: Params, cfg: EPSesPlusLinearConfig, device=None
+        cls, params: Params, cfg: EPSesPlusLinearConfig, device=None, plans=None
     ) -> "EPSesPlusLinearQ8":
-        """Matricize and quantize reference-layout ``params`` where they lie,
-        then place the model on ``device`` (default: there)."""
-        model = cls(*quantize_reference_params(params, cfg), cfg)
+        """Matricize (under ``plans``, default ``fast_layer_plans``' splits)
+        and quantize reference-layout ``params`` where they lie, then place
+        the model on ``device`` (default: there)."""
+        model = cls(*quantize_reference_params(params, cfg, plans), cfg)
         return model if device is None else model.to(device)
 
     def qparams(self):

@@ -283,8 +283,10 @@ def test_cli_end_to_end(made, tmp_path):
     ({"mesh_devices": 2, "batch_sizes": (3,)},
      r"global batch sizes \[3\] are not divisible by --mesh-devices 2"),
     ({"space_devices": 2, "mesh_devices": 2}, "--space-devices and --mesh-devices are mutually"),
-    ({"autotune_splits": True}, r"--autotune-splits is not ported .*item 20"),
-    ({"autotune_cache": True}, r"--autotune-cache is not ported .*item 20"),
+    ({"autotune_splits": True, "backend": "xla"},
+     "--autotune-splits needs --model-family eps and the pallas backend"),
+    ({"autotune_splits": True, "model_family": "conv_sbs"},
+     "--autotune-splits needs --model-family eps and the pallas backend"),
     ({"compute_dtype": "bfloat16"}, r"bfloat16 is not ported .*follow-up 4"),
     ({"quantize": "int8", "backend": "xla"}, "needs the pallas backend"),
     ({"quantize": "int8", "model_family": "conv_sbs"}, "needs --model-family eps"),

@@ -9,7 +9,6 @@ import os
 import signal
 import threading
 
-import click
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -183,17 +182,6 @@ def _assert_tb_records_agree(tdir, jdir):
         for k, v in b.items():
             if isinstance(v, float):
                 assert abs(a[k] - v) <= TB_RTOL * max(abs(v), TB_FLOOR), (b["tag"], k, a[k], v)
-
-
-@pytest.mark.parametrize("name,off,flag,slice_", trunner.REFUSED)
-def test_unported_flags_are_refused(tmp_path, name, off, flag, slice_):
-    value = {"mesh_devices": 2, "distributed": "auto", "autotune_kernels": True,
-             "autotune_cache": True,
-             "resume_from": str(tmp_path / "state.npz"), "preempt_save": True,
-             "profile_dir": str(tmp_path / "prof"), "tb_log_every_n_epochs": 10}[name]
-    with pytest.raises(click.BadParameter, match="ROADMAP"):
-        trunner.run(**_common(tmp_path), device="cpu", epochs=1, **{name: value})
-    assert not os.path.exists(tmp_path / "run_info.txt")
 
 
 def test_conv_sbs_bench_runs_on_cpu_and_reports_its_fields():
