@@ -200,7 +200,23 @@ Run from the root of a checkout, with no arguments:
    picks), and 3 SGD steps at the picks against 3 at the heuristics within
    the ConvSBS trajectory tolerance. One ``autotune`` JSON line; the
    tuners' launches count in the kernels line.
-11. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
+11. The bf16 operand mode (``compute_dtype=torch.bfloat16``): (a) each
+   kernel's bf16 mode (K1 ± t, ``eps_dcore``, ``eps_dviews_t``,
+   ``eps_dviews_recompute``) against its plain bf16 version at both flagship
+   layers (the recompute form forced at layer 1) and the three-EPS model's
+   layers 1 and 2 at batch 128, within REL_TOL (the saved bf16 t within one
+   bf16 step), and against the float32 kernel on the same inputs, which
+   must differ by more (the negative control), with kernel, plain, library
+   (``torch.matmul`` on bf16 operands) and bound times; (b) ``runner.run``
+   with ``--compute-dtype bfloat16`` (the README quick start, 10 iterations,
+   launches exact, final logits against the plain bf16 forward), and the
+   three-EPS bench step in bf16 (the recompute arm); (c) the deep model's
+   step at batch 2048 with ``grad_accum_steps="auto"`` (2 in bf16); (d) a
+   bf16 artifact exported, loaded (one K1 node a layer, the bf16 mode's
+   launches), its logits the eager bf16 model's bits, ``predict.run`` and
+   a served request from it; (e) the flagship's f32 and bf16 step and
+   forward p50 in turns (f32, bf16, bf16, f32). One ``bf16`` JSON line.
+12. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
    of the serving forward (f32 and int8) at batch 1 and 128 and of the
    flagship training step (f32 and QAT) at batch 128, on the kernel and on
    the plain path, and of the deep model's step at batch 2048 (accumulation
@@ -210,7 +226,7 @@ Run from the root of a checkout, with no arguments:
    (kernel form, ops form, matmul) and one log-space classifier step
    (fused_kernel, fused_plain, scan), with the device's busy share; the
    full profiler tables go to DIR.
-12. Prints one JSON line describing the kernels (each entry's ``timed_by``
+13. Prints one JSON line describing the kernels (each entry's ``timed_by``
    says whether its times are one call between CUDA events, the host's
    work included, or device time per call under torch.profiler), then the
    result line.
@@ -340,10 +356,12 @@ Q8_BUDGET = 0.05
 # tensor cores, dense int8 on the tensor cores, and HBM3. The f32 kernels'
 # matrix products are counted at the card's fastest float32-accurate rate,
 # 3xTF32 on the tensor cores (three TF32 products per hi/lo split pair,
-# csrc/tf32x3.cuh): a third of the 495 TFLOP/s dense TF32 peak. Their
-# elementwise float32 work stays at the CUDA cores' 67.
+# csrc/tf32x3.cuh): a third of the 495 TFLOP/s dense TF32 peak; the bf16
+# mode's (csrc/bf16.cuh) at the dense bf16 peak, 989. Their elementwise
+# float32 work stays at the CUDA cores' 67.
 F32_PEAK_FLOPS = 67e12
 TF32X3_PEAK_FLOPS = 495e12 / 3
+BF16_PEAK_FLOPS = 989e12
 INT8_PEAK_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 KERNELS = {
@@ -450,6 +468,27 @@ LME_KERNELS = {
     },
 }
 KERNELS = {**KERNELS, **LME_KERNELS}
+# phase 11: the bf16 operand modes of K1 ± t, eps_dcore and both d_views
+# forms, each its own kernel in the source of its float32 mode
+BF16_KERNELS = {
+    f"{name}_bf16": meta for name, meta in KERNELS.items()
+    if name in ("eps_fwd", "eps_fwd_t", "eps_dcore", "eps_dviews_t", "eps_dviews_recompute")
+}
+KERNELS = {**KERNELS, **BF16_KERNELS}
+# a bf16 kernel against its plain bf16 version: both round the same
+# float32 operands (formed in the same order) to the same bf16 values, and
+# bf16 products are exact in float32, so the two differ only in the order of
+# their float32 sums: REL_TOL. K1's saved t is itself stored in bf16,
+# rounded from sums in two orders, so an entry may land one bf16 step apart
+# (2^-7 of its size at most; REL_TOL of the largest beside). The negative
+# control: the float32 (3xTF32) kernel on the same inputs differs from the
+# bf16 result by more than REL_TOL of the largest, or the mode did not round.
+BF16_STEP = 2.0**-7
+# the runner in bf16 (phase 11 b): the README quick start, these many
+# iterations, one eval past the first
+BF16_RUN_ITERS = 10
+# the f32 and bf16 flagship steps and forwards timed in turns (phase 11 e)
+BF16_TURN_STEPS = 20
 # the export and serve phase (3b): the seeded flagship exported f32 and int8
 # at ART_BATCHES, the ConvSBS model at SBS_ART_BATCHES; a loaded artifact's
 # logits against the eager model's on the same weights and images. The same
@@ -636,15 +675,18 @@ def kernel_shapes():
     return shapes + [("n2=0", 4, 3, 4, 5, 1000), ("ragged npix", 6, 2, 3, 3, 777)]
 
 
-def bound_ms(nbytes: float, flops: float = 0.0, int8_ops: float = 0.0, mm_flops: float = 0.0):
+def bound_ms(nbytes: float, flops: float = 0.0, int8_ops: float = 0.0, mm_flops: float = 0.0,
+             bf16_flops: float = 0.0):
     """The least time of the work on the card: (ms, what bounds it), the
     operations of each type at that type's peak: ``flops`` elementwise
     float32 on the CUDA cores, ``mm_flops`` float32 matrix products at the
-    3xTF32 rate and ``int8_ops`` at the int8 rate, both on the tensor cores.
-    The CUDA cores and the tensor cores can overlap, so the slower of the
-    two bounds the operations."""
+    3xTF32 rate, ``bf16_flops`` bf16 products at the dense bf16 rate and
+    ``int8_ops`` at the int8 rate, all three on the tensor cores. The CUDA
+    cores and the tensor cores can overlap, so the slower of the two bounds
+    the operations."""
     t_ops = max(flops / F32_PEAK_FLOPS,
-                mm_flops / TF32X3_PEAK_FLOPS + int8_ops / INT8_PEAK_OPS)
+                mm_flops / TF32X3_PEAK_FLOPS + int8_ops / INT8_PEAK_OPS
+                + bf16_flops / BF16_PEAK_FLOPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -1248,35 +1290,41 @@ def check_step_gradients(params, cfg, paths, x, y, dev, qat=None, model_name="fl
     compare_gradients(grads, REL_TOL, f"{model_name} {'QAT ' if qat else ''}kernel vs plain")
 
 
-def launches_per_step(specs, batch, accum, qat, keys, image_size=28, q0=2, frozen=()):
+def launches_per_step(specs, batch, accum, qat, keys, image_size=28, q0=2, frozen=(),
+                      bf16=False):
     """The kernel launches of one training step, from each layer's backward
     arm (``plan_backward``) at the microbatch: its forward (writing t on the
     saved-t arm), ``eps_dcore`` (and its slice sum where its tiles are few;
     neither for a ``frozen`` layer), and the arm's d_views kernel (none for
-    layer 0); ``accum`` microbatches."""
+    layer 0); ``accum`` microbatches. ``bf16``: the kernels' bf16 modes
+    (their ``*_bf16`` counters), t counted at 2 bytes by the saved-t cap."""
     from dctn_tpu_torch.kernels import eps_kernels as K
 
     fwd = "eps_fwd" if qat is None else "eps_fwd_q8"
+    sfx = "_bf16" if bf16 else ""
+    slices = K._dcore_bf16_slices if bf16 else K._dcore_slices
     counts = dict.fromkeys(keys, 0)
     for i, (n, q, n1, o, h) in enumerate(layer_dims(specs, image_size, q0)):
         npix = batch // accum * h * h
-        arm = K.plan_backward(i, n, n1, q, o, npix)
-        counts[fwd] += 1
-        counts[f"{fwd}_t"] += arm == "saved_t"
+        arm = K.plan_backward(i, n, n1, q, o, npix, 2 if bf16 else 4)
+        counts[fwd + sfx] += 1
+        counts[f"{fwd}_t{sfx}"] += arm == "saved_t"
         if i not in frozen:
-            counts["eps_dcore"] += 1
-            counts["eps_dcore_sum"] += K._dcore_slices(o * q ** (n - n1), q**n1, npix,
-                                                       K._sm_count(torch.device("cuda", 0))) > 1
-        counts["eps_dviews_t"] += arm == "saved_t"
-        counts["eps_dviews_recompute"] += arm == "recompute"
+            counts["eps_dcore" + sfx] += 1
+            counts["eps_dcore_sum" + sfx] += slices(o * q ** (n - n1), q**n1, npix,
+                                                    K._sm_count(torch.device("cuda", 0))) > 1
+        counts["eps_dviews_t" + sfx] += arm == "saved_t"
+        counts["eps_dviews_recompute" + sfx] += arm == "recompute"
     return {k: v * accum for k, v in counts.items()}
 
 
 def print_train_record(rec, tag: str) -> None:
-    share = rec["f32_peak_share"]
-    print(f"train step {tag} [{rec['path']}]: p50 {rec['step_ms_p50']:.4f} ms, "
-          f"{rec['images_per_s']:.1f} img/s"
-          f"{'' if share is None else f', {share:.4f} of the f32 peak'}, "
+    share, share16, fwd = rec["f32_peak_share"], rec["bf16_peak_share"], rec["forward_ms_p50"]
+    print(f"train step {tag} [{rec['path']}, {rec['compute_dtype']}]: p50 "
+          f"{rec['step_ms_p50']:.4f} ms, {rec['images_per_s']:.1f} img/s"
+          f"{'' if share is None else f', {share:.4f} of the f32 peak'}"
+          f"{'' if share16 is None else f', {share16:.4f} of the bf16 peak'}"
+          f"{'' if fwd is None else f', forward p50 {fwd:.4f} ms'}, "
           f"peak extra memory {rec['peak_extra_mib']:.1f} MiB, "
           f"loss {rec['first_loss']:.6f} -> {rec['last_loss']:.6f}")
 
@@ -3365,6 +3413,316 @@ def autotune_phase(bench, CSM, params, cfg, tx, ty, dev, tmp) -> tuple:
     return counts, record
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the bf16 operand mode
+
+
+def bf16_kernels_vs_plain(K, dev) -> dict:
+    """Phase 11 (a): each kernel's bf16 mode against its plain bf16 version
+    on the same inputs (cmt rounded from a float32 draw), within REL_TOL
+    (t within one bf16 step), and against the float32 kernel on the same
+    inputs, which must differ by more (the negative control): K1 ± t,
+    ``eps_dcore`` and ``eps_dviews_t`` at both flagship layers at batch 128
+    (the d_views forms at layer 1, the recompute form forced there too), the
+    recompute form and ``eps_dcore`` at the three-EPS model's layers 1 and 2
+    (A = 64, 216). Kernel, plain and library times (one ``torch.matmul`` on
+    bf16 operands for the products, which the port never calls) and the
+    bound (products at the dense bf16 rate) are summed over the shapes each
+    mode runs at on its path, as phase 2 sums them. Returns the kernels
+    line's numbers of the bf16 entries."""
+    flag = layer_dims(FLAGSHIP)
+    three = layer_dims(THREE)
+    shapes = {
+        "flagship layer 0": flag[0], "flagship layer 1": flag[1],
+        "three-EPS layer 1": three[1], "three-EPS layer 2": three[2],
+    }
+    runs = {
+        "eps_fwd_bf16": ("flagship layer 0", "flagship layer 1", "three-EPS layer 2"),
+        "eps_fwd_t_bf16": ("flagship layer 1",),
+        "eps_dcore_bf16": ("flagship layer 0", "flagship layer 1", "three-EPS layer 1",
+                           "three-EPS layer 2"),
+        "eps_dviews_t_bf16": ("flagship layer 1",),
+        "eps_dviews_recompute_bf16": ("flagship layer 1", "three-EPS layer 1",
+                                      "three-EPS layer 2"),
+    }
+    on_path = {
+        "eps_fwd_bf16": ("flagship layer 0", "flagship layer 1"),
+        "eps_fwd_t_bf16": ("flagship layer 1",),
+        "eps_dcore_bf16": ("flagship layer 0", "flagship layer 1"),
+        "eps_dviews_t_bf16": ("flagship layer 1",),
+        "eps_dviews_recompute_bf16": ("three-EPS layer 1", "three-EPS layer 2"),
+    }
+    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "timed_by": CUDA_EVENTS, "bound_ms": 0.0, "flops": 0.0, "bf16_flops": 0.0,
+               "bytes": 0.0, "f32_gap": float("inf")}
+           for k in runs}
+    bf = torch.bfloat16
+    g_ = torch.Generator(device=dev).manual_seed(SEED)
+    for label, (n, q, n1, o, h) in shapes.items():
+        npix = BATCH * h * h
+        views = torch.rand((n, q, npix), generator=g_, device=dev)
+        cmt = torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev) * q ** (-n / 2)
+        g = torch.randn((o, npix), generator=g_, device=dev)
+        cb = cmt.to(bf)
+        z, a = cmt.shape
+        tb = K.eps_fwd_reference(views, cb, n1, o, save_t=True)[1] if n1 < n else None
+        tf = K.eps_fwd_reference(views, cmt, n1, o, save_t=True)[1] if n1 < n else None
+        ub = K._suffix_chain(views, 0, n1)[0].to(bf)
+        kb = K._kr2(views, g, n1).to(bf)
+        f4, gemm = 4.0, 2.0 * z * a * npix
+        cases = {
+            "eps_fwd_bf16": (lambda: K.eps_fwd(views, cb, n1, o),
+                             lambda: K.eps_fwd_reference(views, cb, n1, o),
+                             lambda: K.eps_fwd(views, cmt, n1, o),
+                             lambda: torch.matmul(cb, ub), (gemm, 2.0 * z * npix),
+                             f4 * (views.numel() + o * npix) + 2.0 * cmt.numel()),
+            "eps_fwd_t_bf16": (lambda: K.eps_fwd(views, cb, n1, o, save_t=True),
+                               lambda: K.eps_fwd_reference(views, cb, n1, o, save_t=True),
+                               lambda: K.eps_fwd(views, cmt, n1, o, save_t=True),
+                               lambda: torch.matmul(cb, ub), (gemm, 2.0 * z * npix),
+                               f4 * (views.numel() + o * npix) + 2.0 * (cmt.numel() + z * npix)),
+            "eps_dcore_bf16": (lambda: K.eps_dcore(views, g, n1, o, mm_dtype=bf),
+                               lambda: K.eps_dcore_reference(views, g, n1, o, bf),
+                               lambda: K.eps_dcore(views, g, n1, o),
+                               lambda: torch.matmul(kb, ub.T), (gemm, 0.0),
+                               f4 * (views.numel() + g.numel() + z * a)),
+            "eps_dviews_t_bf16": (lambda: K.eps_dviews_t(views, cb, g, tb, n1, o),
+                                  lambda: K.eps_dviews_t_reference(views, cb, g, tb, n1, o),
+                                  lambda: K.eps_dviews_t(views, cmt, g, tf, n1, o),
+                                  lambda: torch.matmul(cb.T, kb), (gemm, 2.0 * z * npix),
+                                  f4 * (2 * views.numel() + g.numel())
+                                  + 2.0 * (cmt.numel() + (0 if tb is None else tb.numel()))),
+            "eps_dviews_recompute_bf16": (
+                lambda: K.eps_dviews_recompute(views, cb, g, n1, o),
+                lambda: K.eps_dviews_recompute_reference(views, cb, g, n1, o),
+                lambda: K.eps_dviews_recompute(views, cmt, g, n1, o),
+                lambda: (torch.matmul(cb.T, kb), torch.matmul(cb, ub)),
+                (2 * gemm, 2.0 * z * npix if n1 < n else 0.0),
+                f4 * (2 * views.numel() + g.numel()) + 2.0 * cmt.numel()),
+        }
+        for name, (kern, plain, full, lib, (bf16_flops, flops), nbytes) in cases.items():
+            if label not in runs[name]:
+                continue
+            got = kern()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref, f32 = plain(), full()
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            f32 = f32 if isinstance(f32, tuple) else (f32,)
+            errs = []
+            for which, x, r, f in zip(("out", "t"), got, ref, f32):
+                check(x.shape == r.shape and x.dtype == r.dtype,
+                      f"{name} [{label}]: {which} {tuple(x.shape)} {x.dtype}")
+                x, r, f = x.float(), r.float(), f.float()
+                check(torch.isfinite(x).all().item(), f"{name} [{label}]: non-finite {which}")
+                err, scale = float((x - r).abs().max()), float(r.abs().max())
+                if which == "t":
+                    excess = float(((x - r).abs() - BF16_STEP * r.abs()).max())
+                    check(excess <= REL_TOL * scale,
+                          f"{name} [{label}]: t more than a bf16 step from plain ({excess})")
+                else:
+                    check(err <= REL_TOL * scale,
+                          f"{name} [{label}]: {which} differs from plain by {err} (max|ref| {scale})")
+                gap = float((x - f).abs().max()) / scale
+                check(gap > REL_TOL, f"{name} [{label}]: {which} within {gap:.2e} of the float32 "
+                      "kernel's: the mode did not round")
+                errs.append(f"{which} max|d|={err:.3e} tol={REL_TOL * scale:.3e} vs f32 kernel "
+                            f"{gap:.2e} of max")
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+                res[name]["f32_gap"] = min(res[name]["f32_gap"], gap)
+            t_k, t_p, t_l = median_ms([kern, plain, lib], reps=10)
+            b_ms, _ = bound_ms(nbytes, flops, bf16_flops=bf16_flops)
+            print(f"{name} vs plain [{label}] n={n} q={q} n1={n1} O={o} npix={npix}: "
+                  f"{'; '.join(errs)}; kernel {t_k:.4f} ms "
+                  f"({bf16_flops / t_k / 1e9:.2f} TFLOP/s of the products), plain {t_p:.4f} ms, "
+                  f"library bf16 matmul {t_l:.4f} ms, bound {b_ms:.4f} ms")
+            if label in on_path[name]:
+                r_ = res[name]
+                r_["ms"] += t_k
+                r_["plain_ms"] += t_p
+                r_["library_ms"] += t_l
+                r_["bytes"] += nbytes
+                r_["flops"] += flops
+                r_["bf16_flops"] += bf16_flops
+        del views, cmt, g, cb, tb, tf, ub, kb
+    for r_ in res.values():
+        r_["bound_ms"], r_["bound_by"] = bound_ms(r_.pop("bytes"), r_.pop("flops"),
+                                                  bf16_flops=r_.pop("bf16_flops"))
+        print(f"bf16 negative control: the closest float32 kernel result lay "
+              f"{r_.pop('f32_gap'):.2e} of the largest entry away (> {REL_TOL:g})")
+    return res
+
+
+def bf16_phase(trunner, bench, K, params, cfg, dev, tmp) -> tuple:
+    """Phase 11: the bf16 operand mode on the card. (a) the kernels'
+    bf16 modes against their plain versions (``bf16_kernels_vs_plain``);
+    (b) the runner's README quick start at full width with
+    ``--compute-dtype bfloat16`` for BF16_RUN_ITERS iterations and its evals
+    (launches exact, the final logits through the kernels against the plain
+    bf16 forward); the three-EPS bench step in bf16 (its layers 1 and 2 on
+    the recompute arm); (c) the deep model's step at batch 2048 with
+    ``grad_accum_steps="auto"``: 2 in bf16, as the JAX docs say; (d) a bf16
+    artifact exported, loaded, predicted from and served, its logits the
+    eager bf16 model's bits; (e) the flagship step and forward, f32 and
+    bf16, in turns. Returns (the launch counts of b-e, the kernels line's
+    bf16 numbers, the phase's record)."""
+    import threading
+    import urllib.request
+
+    from dctn_tpu_torch.cli import export, predict, serve
+    from dctn_tpu_torch.models import EPSesPlusLinear, EPSesPlusLinearConfig, fast_layer_plans
+    from dctn_tpu_torch.train import resolve_auto_grad_accum, save_params_npz
+
+    bf = torch.bfloat16
+    numbers = bf16_kernels_vs_plain(K, dev)
+    keys = tuple(bench.read_counters())
+    counts, record = [], {}
+
+    # (b) the runner, then the three-EPS bench step
+    sizes = RUN_SHORT_SIZES
+    kw = dict(ds_type="fashionmnist", ds_path="synthetic", batch_size=BATCH,
+              optimizer_name="adam", lr=3e-3, init_epses_composition_unit_empirical_output_std=True,
+              epses_specs=FLAGSHIP, synthetic_sizes=sizes, compute_dtype="bfloat16",
+              eval_schedule=((None, BF16_RUN_ITERS),))
+    state, run_counts, out = run_runner(trunner, bench, tmp, "bf16", max_num_iters=BF16_RUN_ITERS,
+                                        **kw)
+    counts.append(run_counts)
+    check(state.extras["cfg"].compute_dtype == bf, "the runner's model is not in bf16")
+    check_runner_log(out, range(0, BF16_RUN_ITERS + 1, BF16_RUN_ITERS))
+    per_step = launches_per_step(FLAGSHIP, BATCH, 1, None, keys, bf16=True)
+    want = {k: v * BF16_RUN_ITERS for k, v in per_step.items()}
+    want["eps_fwd"] += runner_init_launches(sizes[0], BATCH, 2)  # the init runs in float32
+    want["eps_fwd_bf16"] += 2 * runner_eval_launches(sizes, BATCH, 2)
+    check(run_counts == want, f"bf16 runner launches {run_counts} != {want}")
+    final = final_reference(state)
+    model = EPSesPlusLinear.from_reference(final, state.extras["cfg"])
+    xb, _ = state.extras["gather"](torch.arange(BATCH, device=dev))
+    with torch.inference_mode():
+        got, ref = model(xb), model(xb, kernels=K.PLAIN)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    print(f"bf16 runner: final logits vs the plain bf16 forward (batch {BATCH}): "
+          f"max|d|={err:.3e} tol={REL_TOL * scale:.3e}")
+    check(torch.isfinite(got).all().item() and err <= REL_TOL * scale,
+          "the bf16 runner's logits differ from the plain bf16 forward")
+    timing = state.extras["timing"]
+    record["runner"] = {
+        "ms_per_iteration": 1e3 * (timing["loop_s"] - timing["hooks_s"]) / max(timing["iters"], 1),
+        "ms_per_eval": 1e3 * timing["eval_s"] / max(timing["evals"], 1),
+    }
+    want = launches_per_step(THREE, BATCH, 1, None, keys, bf16=True)
+    check(want["eps_dviews_recompute_bf16"] == 2, f"three-EPS bf16 arms {want}")
+    bench.zero_counters()
+    (rec3,) = bench.run(device="cuda", steps=5, warmup=1, epses_specs=THREE, compute_dtype=bf)
+    three_counts = bench.read_counters()
+    counts.append(three_counts)
+    check(rec3["launches_per_step"] == {k: float(v) for k, v in want.items()},
+          f"three-EPS bf16 launches per step {rec3['launches_per_step']} != {want}")
+    check(all(math.isfinite(rec3[k]) for k in ("first_loss", "last_loss")), "non-finite loss")
+    print_train_record(rec3, "three-EPS bf16")
+
+    # (c) the deep model at batch 2048, accumulation "auto"
+    cfg_d = EPSesPlusLinearConfig(epses_specs=DEEP, image_size=28, q0=2, compute_dtype=bf)
+    auto = resolve_auto_grad_accum(cfg_d, fast_layer_plans(cfg_d), DEEP_BATCH)
+    print(f"deep model at batch {DEEP_BATCH} in bf16: grad_accum_steps auto -> {auto} "
+          "(the JAX docs: 2; the float32 mode: 4)")
+    check(auto == 2, f"auto resolved to {auto} in bf16, not 2")
+    bench.zero_counters()
+    (recd,) = bench.run(device="cuda", steps=DEEP_STEPS, warmup=1, batch_size=DEEP_BATCH,
+                        epses_specs=DEEP, lr=DEEP_LR, reg_type=DEEP_REG[0], reg_coeff=DEEP_REG[1],
+                        grad_accum_steps="auto", compute_dtype=bf)
+    deep_counts = bench.read_counters()
+    counts.append(deep_counts)
+    want = launches_per_step(DEEP, DEEP_BATCH, 2, None, keys, bf16=True)
+    check(recd["grad_accum_steps"] == 2 and recd["launches_per_step"] == {
+        k: float(v) for k, v in want.items()}, f"deep bf16 launches {recd['launches_per_step']}")
+    check(deep_counts == {k: v * (DEEP_STEPS + 2) for k, v in want.items()},
+          f"deep bf16 launches over the run {deep_counts}")
+    check(all(math.isfinite(recd[k]) for k in ("first_loss", "last_loss")), "non-finite loss")
+    print_train_record(recd, f"deep batch {DEEP_BATCH} bf16 grad_accum_steps=auto (2)")
+    record["deep"] = {k: recd[k] for k in ("grad_accum_steps", "step_ms_p50", "images_per_s",
+                                           "peak_extra_mib", "launches_per_step")}
+
+    # (d) a bf16 artifact: exported, loaded, predicted from, served
+    bench.zero_counters()
+    ckpt = os.path.join(tmp, "flagship_bf16.npz")
+    save_params_npz(params, ckpt)
+    art = os.path.join(tmp, "bf16.zip")
+    report = export.run(checkpoint=ckpt, epses_specs=FLAGSHIP, batch_sizes=ART_BATCHES,
+                        device="cuda", compute_dtype="bfloat16", out=art)
+    meta, fns = export.load_artifact(art)
+    check(meta["compute_dtype"] == "bfloat16" and meta["platforms"] == ["cuda"], f"meta {meta}")
+    eager = EPSesPlusLinear.from_reference(
+        params, EPSesPlusLinearConfig(epses_specs=FLAGSHIP, image_size=28, q0=2, compute_dtype=bf),
+        device=dev)
+    from dctn_tpu_torch.data import load_dataset
+
+    x = torch.as_tensor(load_dataset("fashionmnist", "synthetic", autoscale_kernel_size=4,
+                                     synthetic_sizes=(4, 4, 300)).test.x, device=dev)
+    art_rec = {"export_s": report["export_s"], "artifact_bytes": report["artifact_bytes"]}
+    with torch.inference_mode():
+        for bs in ART_BATCHES:
+            check(export.op_nodes(fns[bs]) == {"eps_fwd": 2}, f"bf16 artifact nodes bs {bs}")
+            before = bench.read_counters()
+            got = fns[bs](x[:, :bs])
+            torch.cuda.synchronize()
+            moved = {k: v - before[k] for k, v in bench.read_counters().items() if v != before[k]}
+            check(moved == {"eps_fwd_bf16": 2}, f"bf16 artifact bs {bs}: launches {moved}")
+            want_l = eager(x[:, :bs])
+            equal = bool(torch.equal(got, want_l))
+            print(f"bf16 artifact vs eager bf16 model, batch {bs}: "
+                  f"max|d|={float((got - want_l).abs().max()):.3e}, bit-equal {equal}")
+            check(equal, f"bf16 artifact bs {bs}: logits are not the eager bf16 model's bits")
+    run = predict.run(checkpoint=art, ds_type="fashionmnist", ds_path="synthetic",
+                      batch_size=BATCH, latency_bench=True, device="cuda",
+                      synthetic_sizes=(4, 4, 1024))
+    with torch.inference_mode():
+        direct = eager(run.x[:, :BATCH]).argmax(1).cpu().numpy()
+    check(bool((direct == run.preds[:BATCH]).all()), "predict.run on the bf16 artifact")
+    art_rec["predict_latency"] = {s["batch_size"]: {k: s[k] for k in ("p50_ms", "p90_ms")}
+                                  for s in run.latency}
+    server, smodel = serve.make_server(art, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        xs = run.x[:, :BATCH].cpu().numpy()
+        buf = io.BytesIO()
+        np.save(buf, xs)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/predict", data=buf.getvalue(),
+            method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            served = np.load(io.BytesIO(resp.read()))
+    finally:
+        server.shutdown()
+        server.server_close()
+        smodel.close()
+    with torch.inference_mode():
+        check(np.array_equal(served, fns[BATCH](run.x[:, :BATCH]).cpu().numpy()),
+              "the served bf16 logits are not the artifact's")
+    counts.append(bench.read_counters())
+    record["artifact"] = art_rec
+
+    # (e) the flagship step and forward, f32 and bf16, in turns
+    bench.zero_counters()
+    turns = []
+    for dtype in (None, bf, bf, None):
+        (rec,) = bench.run(device="cuda", steps=BF16_TURN_STEPS, compute_dtype=dtype,
+                           time_forward=True)
+        turns.append({k: rec[k] for k in ("compute_dtype", "step_ms_p50", "forward_ms_p50",
+                                           "images_per_s", "peak_extra_mib")})
+        print_train_record(rec, f"turn {len(turns)} {rec['compute_dtype']}")
+    counts.append(bench.read_counters())
+    record["turns"] = turns
+    for dtype in ("float32", "bfloat16"):
+        mine = [t for t in turns if t["compute_dtype"] == dtype]
+        record[dtype] = {k: statistics.median(t[k] for t in mine)
+                         for k in ("step_ms_p50", "forward_ms_p50", "images_per_s")}
+    print(f"flagship at batch {BATCH}, in turns: step p50 f32 {record['float32']['step_ms_p50']:.4f} "
+          f"ms, bf16 {record['bfloat16']['step_ms_p50']:.4f} ms; forward p50 f32 "
+          f"{record['float32']['forward_ms_p50']:.4f} ms, bf16 "
+          f"{record['bfloat16']['forward_ms_p50']:.4f} ms")
+    return counts, numbers, record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -3714,10 +4072,22 @@ def main(argv=None) -> int:
         tuned_counts, tuned = autotune_phase(bench, CSM, params, cfg, tx, ty, dev, tmp)
     print(json.dumps({"autotune": tuned}))
     phase_done("autotune (10)")
+
+    # phase 11: the bf16 operand mode: its kernels against their plain
+    # versions, the runner, the deep step at "auto", an artifact, and the
+    # flagship's f32 and bf16 step and forward in turns
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16_counts, bf16_numbers, bf16_record = bf16_phase(eps_runner, bench, K, params, cfg,
+                                                            dev, tmp)
+    numbers.update(bf16_numbers)
+    print(json.dumps({"bf16": bf16_record}))
+    phase_done("bf16 operands (11)")
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     driven = [serving, serving_q8, exported, *trained.values(), *runner_runs, *sbs_runs, *sbs_bench_counts,
-              *dp_counts, *lme_launches, tuned_counts]
+              *dp_counts, *lme_launches, tuned_counts, *bf16_counts]
+    missing = [name for name in BF16_KERNELS if sum(c.get(name, 0) for c in bf16_counts) == 0]
+    check(not missing, f"phase 11 launched no {missing}")
     launches = {name: sum(c.get(name, 0) for c in driven) for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, **meta, "launches": launches[name], **numbers[name]}

@@ -21,10 +21,18 @@ after the warm-up are timed with CUDA events.
 ``--qat int8``): each EPS layer's forward in int8 W8A8 (``eps_fwd_q8``),
 the straight-through f32 backward.
 
-Prints one JSON line per path: images/s, step ms p50, the first and last
-loss, kernel launches per step, the step's GFLOP (computed from the layer
-shapes) and, for the f32 step, their share of the H100's 67 TFLOP/s float32
-peak, and the extra device memory of one step. ``--compare-plain`` adds the
+``--compute-dtype bfloat16`` (JAX ``bench.py:79``, ``BENCH_COMPUTE_DTYPE``)
+times the step with every EPS product on bf16 operands and float32 sums:
+the kernels' bf16 mode (``--compare-plain``: their plain versions in the
+same mode, in the same run). Not with ``--qat`` (ROADMAP item 14b).
+
+Prints one JSON line per path: the compute dtype, images/s, step ms p50,
+the serving forward's ms p50 at the same batch (the model's forward under
+``inference_mode``; not with ``--qat``), the first and last loss,
+kernel launches per step, the step's GFLOP (computed from the layer shapes)
+and their share of the H100's 67 TFLOP/s float32 peak (the f32 step) or of
+its 989 TFLOP/s dense bf16 peak (the bf16 step), and the extra device
+memory of one step. ``--compare-plain`` adds the
 same line for the plain path (the kernels' plain PyTorch versions through
 the same ``autograd.Function``), measured in the same process.
 
@@ -55,7 +63,7 @@ in accuracy, with finite weights.
 Usage:
   python -m dctn_tpu_torch.bench [--steps 30] [--batch-size 128] [--compare-plain] [--qat int8]
       [--epses-specs "(4,4),(3,6)"] [--lr 3e-3] [--reg-type epswise] [--reg-coeff 1e-6]
-      [--grad-accum-steps 1|n|auto]
+      [--grad-accum-steps 1|n|auto] [--compute-dtype float32|bfloat16]
   python -m dctn_tpu_torch.bench --model-family conv_sbs [--batch-size 100] [--trace-edge]
       [--compare-plain]
   python -m dctn_tpu_torch.bench --model-family logmatmulexp [--steps 20]
@@ -103,6 +111,8 @@ SEED = 0
 # the H100 SXM's float32 peak outside the tensor cores (NVIDIA's data sheet,
 # at the 700 W power limit)
 H100_F32_PEAK_FLOPS = 67e12
+# and its dense bf16 tensor-core peak
+H100_BF16_PEAK_FLOPS = 989e12
 COUNTERS = (
     ("eps_fwd", K.eps_fwd, "launches"),
     ("eps_fwd_t", K.eps_fwd, "t_launches"),
@@ -112,6 +122,12 @@ COUNTERS = (
     ("eps_dviews_recompute", K.eps_dviews_recompute, "launches"),
     ("eps_fwd_q8", Q8.eps_fwd_q8, "launches"),
     ("eps_fwd_q8_t", Q8.eps_fwd_q8, "t_launches"),
+    ("eps_fwd_bf16", K.eps_fwd, "bf16_launches"),
+    ("eps_fwd_t_bf16", K.eps_fwd, "bf16_t_launches"),
+    ("eps_dcore_bf16", K.eps_dcore, "bf16_launches"),
+    ("eps_dcore_sum_bf16", K.eps_dcore, "bf16_sum_launches"),
+    ("eps_dviews_t_bf16", K.eps_dviews_t, "bf16_launches"),
+    ("eps_dviews_recompute_bf16", K.eps_dviews_recompute, "bf16_launches"),
 )
 # the ConvSBS kernels' counters, read apart: the EPS records keep their keys
 SBS_COUNTERS = (
@@ -227,10 +243,13 @@ def _peak_extra_mib(step_once, device) -> float:
 
 
 def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device, qat=None,
-                 lr=LR, reg_type="epswise", reg_coeff=REG_COEFF, grad_accum_steps=1):
+                 lr=LR, reg_type="epswise", reg_coeff=REG_COEFF, grad_accum_steps=1,
+                 time_forward=False):
     """One path's JSON record: a fresh model from ``params`` and a fresh
     Adam, ``warmup`` untimed steps (the first builds and loads the kernels),
-    one step for peak memory, then the timed steps."""
+    one step for peak memory, then the timed steps; then, with
+    ``time_forward`` (and no ``qat``), the model's forward under
+    ``inference_mode`` on the same batches, timed alike."""
     cuda = device.type == "cuda"
     model = EPSesPlusLinear.from_reference(params, cfg, device=device)
     opt = make_optimizer("adam", model.parameters(), lr)
@@ -249,8 +268,17 @@ def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device, qat=N
     after = read_counters()
     p50 = statistics.median(per_step_ms)
     gflop = step_gflop(cfg, idx.shape[1], x.shape[0])
+    fwd_p50 = None
+    if time_forward and qat is None:
+        with torch.inference_mode():
+            model(gather(idx[0])[0], kernels=kernels)
+            per_fwd_ms, _, _ = _timed_steps(
+                lambda row: model(gather(row)[0], kernels=kernels).sum(), timed, cuda)
+        fwd_p50 = statistics.median(per_fwd_ms)
+    bf16 = cfg.compute_dtype is not None
     return {
         "metric": "train_step", "path": name, "qat": qat,
+        "compute_dtype": "bfloat16" if bf16 else "float32",
         "device": _device_name(device),
         "timer": "cuda_events" if cuda else "host_clock",
         "epses_specs": [list(s) for s in cfg.epses_specs], "batch_size": int(idx.shape[1]),
@@ -258,11 +286,16 @@ def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device, qat=N
         "reg_coeff": reg_coeff, "timed_steps": len(timed),
         "images_per_s": idx.shape[1] * len(timed) / window_s,
         "step_ms_p50": p50,
+        "forward_ms_p50": fwd_p50,
         "first_loss": first, "last_loss": losses[-1],
         "launches_per_step": {k: (after[k] - before[k]) / len(timed) for k in after},
         "step_gflop": gflop,
         "f32_peak_share": (
-            gflop / (p50 / 1e3) / H100_F32_PEAK_FLOPS * 1e9 if cuda and qat is None else None
+            gflop / (p50 / 1e3) / H100_F32_PEAK_FLOPS * 1e9
+            if cuda and qat is None and not bf16 else None
+        ),
+        "bf16_peak_share": (
+            gflop / (p50 / 1e3) / H100_BF16_PEAK_FLOPS * 1e9 if cuda and bf16 else None
         ),
         "peak_extra_mib": extra_mib,
     }
@@ -270,14 +303,21 @@ def measure_path(*, name, params, cfg, kernels, x, y, idx, warmup, device, qat=N
 
 def run(*, device="cuda", steps=30, warmup=3, batch_size=128, compare_plain=False,
         epses_specs=FLAGSHIP, synthetic_sizes=(8192, 2048, 2048), qat=None, lr=LR,
-        reg_type="epswise", reg_coeff=REG_COEFF, grad_accum_steps=1):
+        reg_type="epswise", reg_coeff=REG_COEFF, grad_accum_steps=1, compute_dtype=None,
+        time_forward=False):
     """Benchmarks the training step (the int8 QAT step with
     ``qat="int8"``) on ``device``, printing and returning one record per
     path (the kernel path, then the plain one with ``compare_plain``).
     ``grad_accum_steps`` is a count or ``"auto"``, resolved for
-    ``batch_size`` by ``resolve_auto_grad_accum``."""
+    ``batch_size`` by ``resolve_auto_grad_accum``. ``compute_dtype``: None
+    (float32) or ``torch.bfloat16``, the EPS products' operands.
+    ``time_forward`` adds each path's forward p50 (``measure_path``); its
+    launches count in the wrappers' counters after the steps'."""
     if qat not in PATHS:
         raise click.UsageError(f"--qat {qat}: none or int8")
+    if qat is not None and compute_dtype is not None:
+        raise click.UsageError("--qat int8 with --compute-dtype bfloat16 is not ported yet "
+                               "(ROADMAP item 14b)")
     if reg_type not in REG_TYPES:
         raise click.UsageError(f"--reg-type {reg_type}: one of {', '.join(REG_TYPES)}")
     device = _device(device)
@@ -289,7 +329,8 @@ def run(*, device="cuda", steps=30, warmup=3, batch_size=128, compare_plain=Fals
     )
     train = splits.train
     channels, _, image_size, _, q0 = train.x.shape
-    cfg = EPSesPlusLinearConfig(epses_specs=epses_specs, image_size=image_size, q0=q0)
+    cfg = EPSesPlusLinearConfig(epses_specs=epses_specs, image_size=image_size, q0=q0,
+                                compute_dtype=compute_dtype)
     if grad_accum_steps == "auto":
         grad_accum_steps = resolve_auto_grad_accum(
             cfg, fast_layer_plans(cfg, channels), batch_size
@@ -310,7 +351,7 @@ def run(*, device="cuda", steps=30, warmup=3, batch_size=128, compare_plain=Fals
         rec = measure_path(
             name=name, params=params, cfg=cfg, kernels=kernels, x=x, y=y, idx=idx,
             warmup=warmup, device=device, qat=qat, lr=lr, reg_type=reg_type,
-            reg_coeff=reg_coeff, grad_accum_steps=grad_accum_steps,
+            reg_coeff=reg_coeff, grad_accum_steps=grad_accum_steps, time_forward=time_forward,
         )
         print(json.dumps(rec))
         records.append(rec)
@@ -547,8 +588,10 @@ def run_log_space(*, device="cuda", steps=LOG_SPACE_STEPS, batch_size=LOG_SPACE_
 @click.option("--reg-coeff", type=float, default=REG_COEFF)
 @click.option("--grad-accum-steps", default="1",
               help="microbatches per step: a count that divides the batch size, or auto")
+@click.option("--compute-dtype", type=click.Choice(("float32", "bfloat16")), default="float32",
+              help="eps: the EPS products' operands (bfloat16: the kernels' bf16 mode)")
 def main(model_family, trace_edge, steps, warmup, batch_size, epses_specs, compare_plain,
-         device, qat, lr, reg_type, reg_coeff, grad_accum_steps):
+         device, qat, lr, reg_type, reg_coeff, grad_accum_steps, compute_dtype):
     if model_family == "logmatmulexp":
         run_logmatmulexp(device=device,
                          num_iterations=CHAIN_ITERATIONS if steps is None else steps)
@@ -567,7 +610,8 @@ def main(model_family, trace_edge, steps, warmup, batch_size, epses_specs, compa
         compare_plain=compare_plain, epses_specs=epses_specs,
         qat=None if qat == "none" else qat, lr=LR if lr is None else lr, reg_type=reg_type,
         reg_coeff=reg_coeff,
-        grad_accum_steps=grad_accum_steps if grad_accum_steps == "auto" else _count(grad_accum_steps))
+        grad_accum_steps=grad_accum_steps if grad_accum_steps == "auto" else _count(grad_accum_steps),
+        compute_dtype=torch.bfloat16 if compute_dtype == "bfloat16" else None, time_forward=True)
 
 
 def _count(text: str) -> int:

@@ -59,6 +59,14 @@ reuses and stores such picks, and alone exports at the cached ones
 (``serving_splits``). Splits are exact: only the kernels' speed changes.
 ``meta["autotuned_splits"]`` records them.
 
+``--compute-dtype bfloat16`` (eps family; JAX export.py:505-509) exports
+the forward with the EPS products' operands rounded to bf16 and float32
+sums: on the pallas backend each layer's float32 core is rounded inside
+the graph and K1 runs its bf16 mode, on the xla backend the plain
+operations round where the JAX ``eps`` casts; ``meta["compute_dtype"]``
+says ``"bfloat16"``. It refuses ``--quantize int8`` (JAX's words) and
+``--space-devices`` (ROADMAP item 14b).
+
 Artifact layout (a zip):
   meta.json          the model config, batch sizes, device type, backend
                      (and ``autotuned_splits`` where the splits were tuned)
@@ -115,11 +123,12 @@ _ENTRY = "forward_bs{}.pt2"
 _CLASSIFIER = "classifier.pt"
 BACKENDS = ("pallas", "xla")
 
-# each refused flag, the values that mean "not used", and the ROADMAP item
-# that ports it (as the runners' REFUSED tables)
+# the flags --compute-dtype bfloat16 does not take yet, each with the
+# values that mean "not used" and the ROADMAP item that ports it (as the
+# runner's REFUSED table)
 REFUSED = (
-    ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
-     "a single-pass operand mode (Queue 2, follow-up 4)"),
+    ("space_devices", (1,), "--space-devices > 1",
+     "item 14b (the height-sharded artifact in bf16)"),
 )
 
 
@@ -620,7 +629,9 @@ def _parse_int_list(_ctx, _param, value: str) -> Tuple[int, ...]:
                    "xla: the reference-layout forward in plain operations, loadable without "
                    "this package")
 @click.option("--compute-dtype", type=click.Choice(("float32", "bfloat16")), default="float32",
-              help="not ported yet: only float32 is accepted")
+              help="the EPS products' operands (eps family): bfloat16 rounds them to bf16 and "
+                   "sums in float32 (the kernels' bf16 mode); the artifact keeps float32 "
+                   "weights")
 @click.option("--quantize", type=click.Choice(("none", "int8")), default="none",
               help="W8A8 int8 EPS layers (eps family, pallas backend): int8 cores inside "
                    "the artifact, the activations quantized per pixel in the kernel")
@@ -645,10 +656,12 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
         autotune_splits=False, autotune_cache=False, out=None) -> dict:
     """Export the npz ``checkpoint`` to the artifact ``out``; returns each
     entry point's export seconds and bytes, and the artifact's bytes."""
-    given = dict(compute_dtype=compute_dtype)
-    for name, accepted, flag, where in REFUSED:
-        if given[name] not in accepted:
-            raise click.UsageError(f"{flag} is not ported to the PyTorch export yet: ROADMAP, {where}")
+    if compute_dtype == "bfloat16":
+        given = dict(space_devices=space_devices)
+        for name, accepted, flag, where in REFUSED:
+            if given[name] not in accepted:
+                raise click.UsageError(f"--compute-dtype bfloat16 with {flag} is not ported to "
+                                       f"the PyTorch export yet: ROADMAP, {where}")
     if backend == "auto":
         backend = "pallas"
     if autotune_splits and (model_family != "eps" or backend != "pallas"):
@@ -665,6 +678,12 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
         if backend != "pallas":
             raise click.UsageError(
                 "--quantize needs the pallas backend (the int8 kernel runs on the fast layout)"
+            )
+        if compute_dtype == "bfloat16":  # JAX export.py:463-467, its words
+            raise click.UsageError(
+                "--quantize int8 and --compute-dtype bfloat16 are mutually exclusive: the W8A8 "
+                "kernels fix their own dtypes (int8 tensor-core products accumulating in int32, "
+                "f32 elsewhere)"
             )
     device = torch.device(device)
     if mesh_devices < 1 or space_devices < 1:
@@ -707,8 +726,10 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
             raise click.UsageError("--model-family eps needs --epses-specs")
         from .predict import _check_params
 
-        cfg = EPSesPlusLinearConfig(epses_specs=tuple(epses_specs), image_size=image_size, q0=q0,
-                                    num_classes=num_classes)
+        cfg = EPSesPlusLinearConfig(
+            epses_specs=tuple(epses_specs), image_size=image_size, q0=q0,
+            num_classes=num_classes,
+            compute_dtype=torch.bfloat16 if compute_dtype == "bfloat16" else None)
         params = params_from_numpy(load_params_npz(checkpoint),
                                    "cpu" if sharded else device, torch.float32)
         _check_params(params, cfg, channels)

@@ -86,7 +86,9 @@ def predict_split(forward, x: torch.Tensor, batch_size: int, pad: bool = False) 
 
 def _artifact_forward(path: str, batch_sizes, device):
     """(meta, cfg, entry points) of an eps-family artifact, with an entry
-    point for every batch size in ``batch_sizes``."""
+    point for every batch size in ``batch_sizes``; ``cfg.compute_dtype``
+    is the artifact's (``meta["compute_dtype"]``: a bf16 artifact rounds
+    its EPS operands inside its graph)."""
     from .export import load_artifact
 
     try:
@@ -105,6 +107,7 @@ def _artifact_forward(path: str, batch_sizes, device):
     cfg = EPSesPlusLinearConfig(
         epses_specs=tuple(tuple(s) for s in meta["epses_specs"]), image_size=meta["image_size"],
         q0=meta["q0"], num_classes=meta.get("num_classes", 10),
+        compute_dtype=torch.bfloat16 if meta.get("compute_dtype") == "bfloat16" else None,
     )
     return meta, cfg, fns
 

@@ -106,7 +106,14 @@ the splits (``eps_splits``). ``--autotune-cache`` (off by default, as
 ROADMAP item 20 decided; on in the JAX runner) reuses and stores measured
 picks, and without ``--autotune-splits`` applies the cached splits alone.
 
-Flags the port does not run yet are refused with a ``click.BadParameter``
+``--compute-dtype bfloat16`` (runner.py:543-545) runs every EPS product on
+bf16 operands with float32 sums (the kernels' bf16 mode, the plain
+``eps``'s rounding on the xla backend) on one device and under
+``--mesh-devices``/``--distributed``; the parameters, the optimizer and the
+checkpoints stay float32, and ``--export-artifact`` writes a bf16 artifact
+unless ``--export-quantize int8`` (runner.py:1763-1768). The combinations of
+bf16 the port does not run yet (with ``--qat int8``, ``--model-devices``
+or ``--space-devices`` above 1) are refused with a ``click.BadParameter``
 naming their ROADMAP item (``REFUSED``). The inits and dropout masks draw
 from torch generators seeded from ``--seed``, so a seed gives other weights
 than in the JAX runner; pass ``--load-model-state`` to start both from the
@@ -209,11 +216,12 @@ REPO_ROOT = Path(__file__).resolve().parents[2]
 
 logger = logging.getLogger(__name__)
 
-# each refused flag, the values that mean "not used", and the ROADMAP item
-# that ports it
+# the flags --compute-dtype bfloat16 does not take yet, each with the values
+# that mean "not used" and the ROADMAP item that ports it
 REFUSED = (
-    ("compute_dtype", ("float32",), "--compute-dtype bfloat16",
-     "a single-pass operand mode (Queue 2, follow-up 4)"),
+    ("qat", (None, "none"), "--qat int8", "item 14b (K9 writing its t in bf16)"),
+    ("model_devices", (1,), "--model-devices > 1", "item 14b (the TP steps in bf16)"),
+    ("space_devices", (1,), "--space-devices > 1", "item 14b (the SP and SP×TP steps in bf16)"),
 )
 
 
@@ -423,7 +431,9 @@ def _hint_saved_t_recipe(cfg, plans, batch: int, accum: int) -> None:
 @click.option("--freeze-eps", type=int, multiple=True)
 @click.option("--log-intermediate-reps-stats-batch-size", type=int, default=None)
 @click.option("--compute-dtype", type=click.Choice(("float32", "bfloat16")), default="float32",
-              help="float32 only (bfloat16: ROADMAP Queue 2, follow-up 4)")
+              help="the EPS products' operands: bfloat16 rounds them to bf16 and sums in float32 "
+                   "(the kernels' bf16 mode); parameters and optimizer stay float32. Not yet with "
+                   "--qat, --model-devices or --space-devices (ROADMAP item 14b)")
 @click.option("--eval-backend", type=click.Choice(("auto", "xla", "pallas")), default="auto",
               help="auto or pallas: the fast layout, through the kernels on cuda and their "
                    "plain versions on cpu; xla: the reference layout through torch.matmul")
@@ -504,9 +514,11 @@ def main(**kwargs) -> None:
 def _validate(kw: dict) -> None:
     """The refused flags, then the flags' interactions (new_runner.py:289-321,
     runner.py:401-500), each failure naming the flags."""
-    for name, accepted, flag, where in REFUSED:
-        if kw[name] not in accepted:
-            raise click.BadParameter(f"{flag} is not ported to the PyTorch runner yet: ROADMAP, {where}")
+    if kw["compute_dtype"] == "bfloat16":
+        for name, accepted, flag, where in REFUSED:
+            if kw[name] not in accepted:
+                raise click.BadParameter(f"--compute-dtype bfloat16 with {flag} is not ported to "
+                                         f"the PyTorch runner yet: ROADMAP, {where}")
     specs = kw["epses_specs"]
     _validate_grid(kw)
     chosen: List[bool] = [False] * len(specs)
@@ -773,8 +785,9 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
         synthetic_sizes=tuple(kw["synthetic_sizes"]),
     )
     image_size, q0 = splits.train.x.shape[2], splits.train.x.shape[-1]
-    cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=image_size, q0=q0,
-                                dropout_p=kw["dropout_p"])
+    cfg = EPSesPlusLinearConfig(
+        epses_specs=specs, image_size=image_size, q0=q0, dropout_p=kw["dropout_p"],
+        compute_dtype=torch.bfloat16 if kw["compute_dtype"] == "bfloat16" else None)
     qat = None if kw["qat"] in (None, "none") else kw["qat"]
     if sp:
         from ..parallel import sp_local_rows
@@ -1372,6 +1385,9 @@ def _export_final(kw: dict, params, cfg: EPSesPlusLinearConfig, channels: int, d
     write_artifact(kw["export_artifact"], serialized, build_meta(
         model_family="eps", image_size=cfg.image_size, batch_sizes=bss, backend=backend,
         platforms=[device.type], quantize=quantize or "none",
+        # a quantized artifact's products are int8 whatever the training
+        # compute dtype (runner.py:1763-1768)
+        compute_dtype="bfloat16" if cfg.compute_dtype is not None and not quantize else "float32",
         epses_specs=[list(s) for s in cfg.epses_specs], q0=cfg.q0, channels=channels,
         num_classes=cfg.num_classes,
     ))

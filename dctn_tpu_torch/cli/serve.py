@@ -298,7 +298,8 @@ def main(artifact, host, port, microbatch_wait_ms):
     server, model = make_server(artifact, host, port, microbatch_wait_s=microbatch_wait_ms / 1e3)
     print(
         f"serving {model.family} artifact on http://{host}:{server.server_address[1]} "
-        f"({model.meta['platforms'][0]} x {model.meta.get('mesh_devices', 1)}; entry points: "
+        f"({model.meta['platforms'][0]} x {model.meta.get('mesh_devices', 1)}, "
+        f"{model.meta.get('compute_dtype', 'float32')} operands; entry points: "
         f"bs {model.sizes}"
         + (f", micro-batching {microbatch_wait_ms:g} ms)" if microbatch_wait_ms > 0 else ")"),
         flush=True,

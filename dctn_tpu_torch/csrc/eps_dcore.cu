@@ -474,3 +474,201 @@ extern "C" int dctn_eps_dcore(const void* views, const void* g, void* d_cmt,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// The bf16 operand mode (dctn_eps_dcore_bf16): _dcore_kernel_factory and
+// the d_cmt half of K2/K4 with mm_dtype bf16 (eps_pallas.py:348-388, :303):
+// d_cmt[z, a] = sum_p bf16(kr2[z, p]) * bf16(u[a, p]), kr2 = g * v and u
+// formed in float32 as the plain version forms them (the JAX suffix chain)
+// and only then rounded; one bf16 product a pair, float32 sums (bf16.cuh);
+// d_cmt in float32.
+//
+// What bounds it: the product, 2*Z*A flops per pixel at the dense bf16 rate
+// (989 TFLOP/s, H100 SXM at 700 W): 0.042 ms at the flagship's first layer
+// at batch 128. The operand build (n multiplies per entry of both operands,
+// once per (Z, A) tile and pixel) runs on the CUDA cores beside it.
+//
+// Design, a simple kernel first: a CTA of 4 warps owns a 64 x 64 (Z, A)
+// tile and one pixel slice; per step of 32 pixels it stages the factor
+// columns and the g rows its Z tile touches, and each thread builds one
+// row of each operand over 16 pixels from its row's factor-row offsets
+// (found once, kept in shared memory); each warp holds 16 rows of Z x 64 of
+// A, 8 fragments of mma.m16n8k16, added into float32 totals every step.
+// Pixel slices as the float32 kernel's: partial sums into scratch, then
+// sum_slices_kernel adds them in a fixed order; no atomics, the same bits
+// from run to run.
+
+#include "bf16.cuh"
+
+namespace {
+namespace dcore_bf16 {
+
+constexpr int kThreads = 128;     // 4 warps, 16 rows of Z each
+constexpr int kTile = 64;         // rows of Z and of A per CTA
+constexpr int kChunkP = 32;       // pixels per step: two k16 steps
+constexpr int kRow = kChunkP + 4;
+constexpr int kNj = kTile / 8;    // n8 fragments a warp holds
+
+// the g rows a Z tile touches at most
+int g_rows(long long b2, int out_size) {
+  const long long r = (kTile - 1) / b2 + 2;
+  return static_cast<int>(r < out_size ? r : out_size);
+}
+
+long long smem_bytes(int n, int q, long long b2, int out_size) {
+  return 4LL * (kRow * (n * q + g_rows(b2, out_size)) + kTile * n) +
+         2LL * 2 * kTile * bf16op::kOpStride;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    eps_dcore_bf16_kernel(const float* __restrict__ views, const float* __restrict__ gcot,
+                          float* __restrict__ dst, int n, int q, int n1, int a_dim, int b2,
+                          int z_dim, long long npix, long long pix_per_slice, int g_cap) {
+  extern __shared__ __align__(16) float smem[];
+  const int nq = n * q;
+  float* fac = smem;               // nq rows of the step's pixels
+  float* gs = fac + nq * kRow;     // the Z tile's g rows
+  int* offs = reinterpret_cast<int*>(gs + g_cap * kRow);  // kTile rows x n offsets
+  uint32_t* k_op = reinterpret_cast<uint32_t*>(offs + kTile * n);
+  uint32_t* u_op = k_op + kTile * bf16op::kOpWords;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
+  const int a0 = blockIdx.x * kTile, zt0 = blockIdx.y * kTile;
+  const int o_first = zt0 / b2;
+  const int g_used = (min(zt0 + kTile, z_dim) - 1) / b2 - o_first + 1;
+  // each thread builds row r of both operands over 16 pixels
+  const int r = tid / 2, jb = (tid % 2) * 16;
+  const int a = a0 + r, z = zt0 + r;
+  const bool ok_a = a < a_dim, ok_z = z < z_dim;
+  const int g_row = ok_z ? z / b2 - o_first : 0;
+  if (tid % 2 == 0) {
+    int rem = ok_a ? a : 0;
+    for (int k = n1 - 1; k >= 0; --k) {
+      offs[r * n + k] = (k * q + rem % q) * kRow;
+      rem /= q;
+    }
+    rem = ok_z ? z % b2 : 0;
+    for (int k = n - 1; k >= n1; --k) {
+      offs[r * n + k] = (k * q + rem % q) * kRow;
+      rem /= q;
+    }
+  }
+  const long long pb = blockIdx.z * pix_per_slice;
+  const long long pe = pb + pix_per_slice < npix ? pb + pix_per_slice : npix;
+  float tot[kNj][4];
+#pragma unroll
+  for (int nj = 0; nj < kNj; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tot[nj][e] = 0.f;
+  for (long long pc = pb; pc < pe; pc += kChunkP) {
+    __syncthreads();  // the last step's operands are read
+    for (int i = tid; i < nq * kChunkP; i += kThreads) {
+      const int rr = i / kChunkP, j = i % kChunkP;
+      const long long p = pc + j;
+      fac[rr * kRow + j] = p < pe ? views[rr * npix + p] : 0.f;
+    }
+    for (int i = tid; i < g_used * kChunkP; i += kThreads) {
+      const int rr = i / kChunkP, j = i % kChunkP;
+      const long long p = pc + j;
+      gs[rr * kRow + j] = p < pe ? gcot[(o_first + rr) * npix + p] : 0.f;
+    }
+    __syncthreads();
+    float x[16];
+    // u[a] = f_0[d_0] * (f_1[d_1] * (... * f_{n1-1}[d_{n1-1}]))
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) x[jj] = 1.f;
+    for (int k = n1 - 1; k >= 0; --k) {
+      const float* f = fac + offs[r * n + k] + jb;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) x[jj] = f[jj] * x[jj];
+    }
+#pragma unroll
+    for (int jj = 0; jj < 16; jj += 2)
+      u_op[r * bf16op::kOpWords + (jb + jj) / 2] =
+          ok_a ? bf16op::pack(x[jj], x[jj + 1]) : 0u;
+    // kr2[(o, b)] = g[o] * v[b], v the chain of the factors past n1 (g when n2 = 0)
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) x[jj] = 1.f;
+    for (int k = n - 1; k >= n1; --k) {
+      const float* f = fac + offs[r * n + k] + jb;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) x[jj] = f[jj] * x[jj];
+    }
+    const float* gr = gs + g_row * kRow + jb;
+#pragma unroll
+    for (int jj = 0; jj < 16; jj += 2)
+      k_op[r * bf16op::kOpWords + (jb + jj) / 2] =
+          ok_z ? bf16op::pack(gr[jj] * x[jj], gr[jj + 1] * x[jj + 1]) : 0u;
+    __syncthreads();
+    float acc[kNj][4];
+#pragma unroll
+    for (int nj = 0; nj < kNj; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nj][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kChunkP / 16; ++ks) {
+      uint32_t af[4];
+      bf16op::load_a(af, k_op + warp * 16 * bf16op::kOpWords, ks * 8);
+#pragma unroll
+      for (int nj = 0; nj < kNj; ++nj) {
+        uint32_t bf[2];
+        bf16op::load_b(bf, u_op + nj * 8 * bf16op::kOpWords, ks * 8);
+        bf16op::mma(acc[nj], af, bf);
+      }
+    }
+#pragma unroll
+    for (int nj = 0; nj < kNj; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[nj][e] += acc[nj][e];
+  }
+  float* d = dst + static_cast<long long>(blockIdx.z) * z_dim * a_dim;
+#pragma unroll
+  for (int nj = 0; nj < kNj; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int zz = zt0 + warp * 16 + g + (e >= 2 ? 8 : 0);
+      const int aa = a0 + nj * 8 + 2 * tig + (e & 1);
+      if (zz < z_dim && aa < a_dim) d[static_cast<long long>(zz) * a_dim + aa] = tot[nj][e];
+    }
+}
+
+}  // namespace dcore_bf16
+}  // namespace
+
+// dctn_eps_dcore's bf16 mode: the same arguments but `sms` (the wrapper
+// picks `slices`); d_cmt and scratch float32.
+extern "C" int dctn_eps_dcore_bf16(const void* views, const void* g, void* d_cmt, void* scratch,
+                                   int n, int q, int n1, int out_size, long long npix, int slices,
+                                   void* stream) {
+  namespace db = dcore_bf16;
+  if (n < 1 || q < 1 || n1 < 1 || n1 > n || out_size < 1 || npix < 1 ||
+      n * q > bf16op::kMaxFactorRows || slices < 1 || slices > kMaxSlices ||
+      (slices > 1 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long a_dim = bf16op::ipow(q, n1);
+  const long long b2 = bf16op::ipow(q, n - n1);
+  const long long z_dim = b2 * out_size;
+  if (a_dim > (1LL << 30) || z_dim > (1LL << 30) || (z_dim + db::kTile - 1) / db::kTile > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long bytes = db::smem_bytes(n, q, b2, out_size);
+  if (bytes > bf16op::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = bf16op::allow_smem(db::eps_dcore_bf16_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long chunks = (npix + db::kChunkP - 1) / db::kChunkP;
+  const long long pix_per_slice = (chunks + slices - 1) / slices * db::kChunkP;
+  const dim3 grid(static_cast<unsigned>((a_dim + db::kTile - 1) / db::kTile),
+                  static_cast<unsigned>((z_dim + db::kTile - 1) / db::kTile),
+                  static_cast<unsigned>(slices));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* dst = slices > 1 ? static_cast<float*>(scratch) : static_cast<float*>(d_cmt);
+  db::eps_dcore_bf16_kernel<<<grid, db::kThreads, static_cast<size_t>(bytes), s>>>(
+      static_cast<const float*>(views), static_cast<const float*>(g), dst, n, q, n1,
+      static_cast<int>(a_dim), static_cast<int>(b2), static_cast<int>(z_dim), npix,
+      pix_per_slice, db::g_rows(b2, out_size));
+  if (slices > 1) {
+    const long long count = z_dim * a_dim;
+    const unsigned blocks = static_cast<unsigned>(std::min((count + 255) / 256, 4096LL));
+    sum_slices_kernel<<<blocks, 256, 0, s>>>(dst, static_cast<float*>(d_cmt), count, slices);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -641,3 +641,335 @@ extern "C" int dctn_eps_dviews_recompute(const void* views, const void* cmt,
                                          void* stream) {
   return launch<true>(views, cmt, g, nullptr, dviews, n, q, n1, out_size, npix, stream);
 }
+
+// ---------------------------------------------------------------------------
+// The bf16 operand mode (dctn_eps_dviews_t_bf16, dctn_eps_dviews_recompute_bf16):
+// the d_views half of K2 and K4, and K6, with mm_dtype bf16
+// (eps_pallas.py:254-345, :391):
+//   d_u[a, p] = sum_z cmt[z, a] * bf16(kr2[z, p])       (cmt in bf16)
+//   d_v[b, p] = sum_o t[(o, b), p] * g[o, p]
+// with t the saved bf16 t read as float32 (K2), or recomputed, t = cmt .
+// bf16(u) in float32 and not rounded (K4, K6); kr2 = g * v and u formed in
+// float32 as the plain version forms them (the JAX suffix chain), then
+// rounded; one bf16 product a pair, float32 sums (bf16.cuh). Each factor's
+// cotangent is then the leave-one-out sum
+//   d f_k[i, p] = sum_{a: d_k(a) = i} d_u[a, p] * prod_{j != k} f_j[d_j(a), p]
+// (and the same over b for the factors of v), the front-peel sweep of the
+// plain version in another order of float32 operations.
+//
+// What bounds it: the products, 2*Z*A flops per pixel (d_u; twice that on
+// the recompute arm) at the dense bf16 rate (989 TFLOP/s, H100 SXM at
+// 700 W): 0.215 ms (K2) at the flagship's second layer at batch 128.
+//
+// Design, a simple kernel first: a CTA of 8 warps owns 32 pixels; it
+// stages their factor columns, g and v in shared memory; d_u in tiles of
+// 128 rows of A, each over steps of 128 rows of Z (cmt's 128 x 128, read
+// from its transpose cmtT (A, Z), which the wrapper makes, as 16-byte
+// copies where Z is a multiple of 8; kr2's 128 x 32 built from g and v),
+// each warp 16 rows x 32 pixels, 4 fragments of mma.m16n8k16 over 8 k16
+// steps, added into float32 totals every step; a tile of d_u goes to shared
+// memory and a thread per (pixel, quarter of the tile's rows), of the first
+// 4 warps, adds its leave-one-out terms into that quarter's cotangent
+// rows. The recompute arm runs t the same way in tiles of 128 rows of Z
+// over steps of 128 columns of A (cmt's rows as 16-byte copies where A is
+// a multiple of 8), and a thread per (pixel, b mod 4) adds t * g into d_v;
+// the saved arm reads t (a thread per pixel and b mod 8). The four quarters' cotangents are added in a
+// fixed order at the end: no atomics, the same bits from run to run.
+// Limits: n1 and n - n1 at most 8 (the leave-one-out products in
+// registers), B2 <= 512, n*q <= 256, shared memory 4 (36 (n q + O + 2 B2 +
+// 128) + 128 n q) + 43520 bytes (156 KB at the flagship's second layer).
+
+#include "bf16.cuh"
+
+namespace {
+namespace dviews_bf16 {
+
+constexpr int kThreads = 256;      // 8 warps, 16 rows of a product tile each
+constexpr int kTileP = 32;         // pixels per CTA
+constexpr int kTileM = 128;        // rows of A (d_u) or of Z (t) per product tile
+constexpr int kRoles = 4 * kTileP; // the threads that accumulate: a pixel and a quarter
+constexpr int kChunk = 128;        // K per step: eight k16 steps
+constexpr int kWords = bf16op::op_words<kChunk>();
+constexpr int kRow = kTileP + 4;   // floats a row of the factor, g, v, d_v and tile rows
+constexpr int kNj = kTileP / 8;    // n8 fragments a warp holds
+constexpr int kMaxChain = 8;       // factors of a half in the leave-one-out products
+
+long long smem_bytes(int n, int q, long long b2, int out_size) {
+  return 4LL * (kRow * (n * q + out_size + 2 * b2 + kTileM) + 4LL * n * q * kTileP) +
+         4LL * (kTileM + kTileP) * kWords;
+}
+
+// adds d * prod_{j != i} f_{first + j}[digit j of idx] into dq's row of
+// factor first + i and idx's digit i, for each of the `count` factors
+// (digit 0 the slowest), at pixel pj
+__device__ __forceinline__ void add_leave_one_out(float* dq, const float* fac, int first,
+                                                  int count, int q, int idx, float d, int pj) {
+  int row[kMaxChain];
+  float fv[kMaxChain], suf[kMaxChain];
+  int rem = idx;
+#pragma unroll
+  for (int i = kMaxChain - 1; i >= 0; --i)
+    if (i < count) {
+      row[i] = (first + i) * q + rem % q;
+      rem /= q;
+      fv[i] = fac[row[i] * kRow + pj];
+    }
+  float s = 1.f;
+#pragma unroll
+  for (int i = kMaxChain - 1; i >= 0; --i)
+    if (i < count) {
+      suf[i] = s;
+      s *= fv[i];
+    }
+  float pre = 1.f;
+#pragma unroll
+  for (int i = 0; i < kMaxChain; ++i)
+    if (i < count) {
+      dq[row[i] * kTileP + pj] += d * (pre * suf[i]);
+      pre *= fv[i];
+    }
+}
+
+// tot (this warp's 16 rows at `a_rows` x 32 pixels) += a_op . b_op over one step
+__device__ __forceinline__ void step_product(float (&tot)[kNj][4], const uint32_t* a_rows,
+                                             const uint32_t* b_op) {
+  float acc[kNj][4];
+#pragma unroll
+  for (int nj = 0; nj < kNj; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nj][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kChunk / 16; ++ks) {
+    uint32_t af[4];
+    bf16op::load_a<kWords>(af, a_rows, ks * 8);
+#pragma unroll
+    for (int nj = 0; nj < kNj; ++nj) {
+      uint32_t bf[2];
+      bf16op::load_b<kWords>(bf, b_op + nj * 8 * kWords, ks * 8);
+      bf16op::mma(acc[nj], af, bf);
+    }
+  }
+#pragma unroll
+  for (int nj = 0; nj < kNj; ++nj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tot[nj][e] += acc[nj][e];
+}
+
+// this warp's totals (rows 16 warp.., 32 pixels) into the shared tile
+__device__ __forceinline__ void totals_to_tile(float* ts, const float (&tot)[kNj][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int nj = 0; nj < kNj; ++nj) {
+    const int r = warp * 16 + g, c = nj * 8 + 2 * tig;
+    ts[r * kRow + c] = tot[nj][0];
+    ts[r * kRow + c + 1] = tot[nj][1];
+    ts[(r + 8) * kRow + c] = tot[nj][2];
+    ts[(r + 8) * kRow + c + 1] = tot[nj][3];
+  }
+}
+
+template <bool kRecompute>
+__global__ void __launch_bounds__(kThreads)
+    eps_dviews_bf16_kernel(const float* __restrict__ views, const uint16_t* __restrict__ cmt,
+                           const uint16_t* __restrict__ cmt_t, const float* __restrict__ gcot,
+                           const uint16_t* __restrict__ t, float* __restrict__ dviews, int n,
+                           int q, int n1, int a_dim, int b2, int z_dim, int out_size,
+                           long long npix, bool vec_a, bool vec_z) {
+  extern __shared__ __align__(16) float smem[];
+  const int nq = n * q, n2 = n - n1;
+  float* fac = smem;                   // nq rows
+  float* gs = fac + nq * kRow;         // out_size rows
+  float* vs = gs + out_size * kRow;    // b2 rows
+  float* dv = vs + b2 * kRow;          // b2 rows
+  float* ts = dv + b2 * kRow;          // kTileM rows
+  float* dfac = ts + kTileM * kRow;    // 4 quarters x nq rows x kTileP
+  uint32_t* a_op = reinterpret_cast<uint32_t*>(dfac + 4 * nq * kTileP);
+  uint32_t* b_op = a_op + kTileM * kWords;
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const long long p0 = static_cast<long long>(blockIdx.x) * kTileP;
+  for (int i = tid; i < nq * kTileP; i += kThreads) {
+    const int r = i / kTileP, j = i % kTileP;
+    fac[r * kRow + j] = p0 + j < npix ? views[r * npix + p0 + j] : 0.f;
+  }
+  for (int i = tid; i < out_size * kTileP; i += kThreads) {
+    const int r = i / kTileP, j = i % kTileP;
+    gs[r * kRow + j] = p0 + j < npix ? gcot[r * npix + p0 + j] : 0.f;
+  }
+  for (int i = tid; i < 4 * nq * kTileP; i += kThreads) dfac[i] = 0.f;
+  for (int i = tid; i < b2 * kRow; i += kThreads) dv[i] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < b2 * kTileP; i += kThreads) {
+    const int b = i / kTileP, j = i % kTileP;
+    int rem = b;
+    float x = 1.f;
+    for (int k = n - 1; k >= n1; --k) {
+      x = fac[(k * q + rem % q) * kRow + j] * x;
+      rem /= q;
+    }
+    vs[b * kRow + j] = x;
+  }
+  // the accumulating roles of the first kRoles threads: a pixel and a quarter
+  const bool role = tid < kRoles;
+  const int pj = tid % kTileP, qt = (tid / kTileP) % 4;
+  float* dq = dfac + qt * nq * kTileP;
+  // operand builds: a pair of K rows (2 kp, 2 kp + 1) over 8 pixels
+  const int kp = tid % (kChunk / 2), jb = (tid / (kChunk / 2)) * 8;
+
+  // d_u, tile by tile over A, and the cotangents of u's factors
+  for (int a0 = 0; a0 < a_dim; a0 += kTileM) {
+    float tot[kNj][4];
+#pragma unroll
+    for (int nj = 0; nj < kNj; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[nj][e] = 0.f;
+    for (int zc = 0; zc < z_dim; zc += kChunk) {
+      __syncthreads();  // the last step's operands and tile are read (and v formed)
+      bf16op::stage_rows<kChunk, kWords, kThreads>(a_op, cmt_t, a0, kTileM, a_dim - a0, zc,
+                                                   z_dim, vec_z);
+      {
+        const int z = zc + 2 * kp;
+        const bool ok0 = z < z_dim, ok1 = z + 1 < z_dim;
+        const float* g0 = gs + (ok0 ? z / b2 : 0) * kRow + jb;
+        const float* v0 = vs + (ok0 ? z % b2 : 0) * kRow + jb;
+        const float* g1 = gs + (ok1 ? (z + 1) / b2 : 0) * kRow + jb;
+        const float* v1 = vs + (ok1 ? (z + 1) % b2 : 0) * kRow + jb;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          b_op[(jb + jj) * kWords + kp] = bf16op::pack(ok0 ? g0[jj] * v0[jj] : 0.f,
+                                                       ok1 ? g1[jj] * v1[jj] : 0.f);
+      }
+      __syncthreads();
+      step_product(tot, a_op + warp * 16 * kWords, b_op);
+    }
+    totals_to_tile(ts, tot);
+    __syncthreads();
+    constexpr int kQuarter = kTileM / 4;
+    if (role)
+      for (int r = qt * kQuarter; r < (qt + 1) * kQuarter && a0 + r < a_dim; ++r)
+        add_leave_one_out(dq, fac, 0, n1, q, a0 + r, ts[r * kRow + pj], pj);
+  }
+
+  if (n2 > 0) {
+    if (kRecompute) {
+      // t = cmt . bf16(u), float32 and unrounded, tile by tile over Z
+      for (int zt = 0; zt < z_dim; zt += kTileM) {
+        float tot[kNj][4];
+#pragma unroll
+        for (int nj = 0; nj < kNj; ++nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tot[nj][e] = 0.f;
+        for (int ac = 0; ac < a_dim; ac += kChunk) {
+          __syncthreads();
+          bf16op::stage_rows<kChunk, kWords, kThreads>(a_op, cmt, zt, kTileM, z_dim - zt, ac,
+                                                       a_dim, vec_a);
+          {
+            const int a = ac + 2 * kp;
+            const bool ok0 = a < a_dim, ok1 = a + 1 < a_dim;
+            int rem0 = ok0 ? a : 0, rem1 = ok1 ? a + 1 : 0;
+            float x0[8], x1[8];
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) x0[jj] = x1[jj] = 1.f;
+            for (int k = n1 - 1; k >= 0; --k) {
+              const float* f0 = fac + (k * q + rem0 % q) * kRow + jb;
+              const float* f1 = fac + (k * q + rem1 % q) * kRow + jb;
+              rem0 /= q;
+              rem1 /= q;
+#pragma unroll
+              for (int jj = 0; jj < 8; ++jj) {
+                x0[jj] = f0[jj] * x0[jj];
+                x1[jj] = f1[jj] * x1[jj];
+              }
+            }
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj)
+              b_op[(jb + jj) * kWords + kp] =
+                  bf16op::pack(ok0 ? x0[jj] : 0.f, ok1 ? x1[jj] : 0.f);
+          }
+          __syncthreads();
+          step_product(tot, a_op + warp * 16 * kWords, b_op);
+        }
+        totals_to_tile(ts, tot);
+        __syncthreads();
+        if (role)
+          for (int r = 0; r < kTileM && zt + r < z_dim; ++r) {
+            const int z = zt + r, b = z % b2;
+            if (b % 4 == qt) dv[b * kRow + pj] += ts[r * kRow + pj] * gs[(z / b2) * kRow + pj];
+          }
+      }
+    } else {
+      // the saved t, bf16 read as float32: every thread, a pixel and b mod
+      // 8, each (b, pixel)'s sum over o in order
+      constexpr int kGroups = kThreads / kTileP;
+      if (p0 + pj < npix)
+        for (int o = 0; o < out_size; ++o) {
+          const float go = gs[o * kRow + pj];
+          const uint16_t* to = t + static_cast<long long>(o) * b2 * npix + p0 + pj;
+          for (int b = tid / kTileP; b < b2; b += kGroups)
+            dv[b * kRow + pj] += bf16op::widen(to[static_cast<long long>(b) * npix]) * go;
+        }
+      __syncthreads();
+    }
+    for (int b = role ? qt : b2; b < b2; b += 4)
+      add_leave_one_out(dq, fac, n1, n2, q, b, dv[b * kRow + pj], pj);
+  }
+  __syncthreads();
+  for (int i = tid; i < nq * kTileP; i += kThreads) {
+    const int r = i / kTileP, j = i % kTileP;
+    if (p0 + j < npix)
+      dviews[r * npix + p0 + j] = ((dfac[r * kTileP + j] + dfac[(nq + r) * kTileP + j]) +
+                                   dfac[(2 * nq + r) * kTileP + j]) +
+                                  dfac[(3 * nq + r) * kTileP + j];
+  }
+}
+
+template <bool kRecompute>
+int launch_bf16(const void* views, const void* cmt, const void* cmt_t, const void* g,
+                const void* t, void* dviews, int n, int q, int n1, int out_size, long long npix,
+                void* stream) {
+  if (n < 1 || q < 1 || n1 < 1 || n1 > n || out_size < 1 || npix < 1 ||
+      n * q > bf16op::kMaxFactorRows || n1 > kMaxChain || n - n1 > kMaxChain)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long a_dim = bf16op::ipow(q, n1);
+  const long long b2 = bf16op::ipow(q, n - n1);
+  const long long z_dim = b2 * out_size;
+  if (b2 > bf16op::kMaxB2 || a_dim > (1LL << 30) || z_dim > (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long bytes = smem_bytes(n, q, b2, out_size);
+  if (bytes > bf16op::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = bf16op::allow_smem(eps_dviews_bf16_kernel<kRecompute>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec_a = a_dim % 8 == 0 && reinterpret_cast<uintptr_t>(cmt) % 16 == 0;
+  const bool vec_z = z_dim % 8 == 0 && reinterpret_cast<uintptr_t>(cmt_t) % 16 == 0;
+  eps_dviews_bf16_kernel<kRecompute>
+      <<<static_cast<unsigned>((npix + kTileP - 1) / kTileP), kThreads, static_cast<size_t>(bytes),
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(views), static_cast<const uint16_t*>(cmt),
+          static_cast<const uint16_t*>(cmt_t), static_cast<const float*>(g),
+          static_cast<const uint16_t*>(t), static_cast<float*>(dviews), n, q, n1,
+          static_cast<int>(a_dim), static_cast<int>(b2), static_cast<int>(z_dim), out_size, npix,
+          vec_a, vec_z);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace dviews_bf16
+}  // namespace
+
+// dctn_eps_dviews_t's bf16 mode: cmt (Z, A), its transpose cmt_t (A, Z) and
+// t (Z, npix) in bf16 (t null when n1 == n), views, g and dviews float32.
+extern "C" int dctn_eps_dviews_t_bf16(const void* views, const void* cmt, const void* cmt_t,
+                                      const void* g, const void* t, void* dviews, int n, int q,
+                                      int n1, int out_size, long long npix, void* stream) {
+  if ((n1 < n) != (t != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  return dviews_bf16::launch_bf16<false>(views, cmt, cmt_t, g, t, dviews, n, q, n1, out_size,
+                                         npix, stream);
+}
+
+// dctn_eps_dviews_recompute's bf16 mode: t recomputed in float32, not rounded.
+extern "C" int dctn_eps_dviews_recompute_bf16(const void* views, const void* cmt,
+                                              const void* cmt_t, const void* g, void* dviews,
+                                              int n, int q, int n1, int out_size,
+                                              long long npix, void* stream) {
+  return dviews_bf16::launch_bf16<true>(views, cmt, cmt_t, g, nullptr, dviews, n, q, n1,
+                                        out_size, npix, stream);
+}

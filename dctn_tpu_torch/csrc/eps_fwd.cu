@@ -698,3 +698,215 @@ extern "C" int dctn_eps_fwd(const void* views, const void* cmt, void* out,
                                : (wgmma ? launch<true, false> : launch<false, false>);
   return go(pl, views, cmt, out, t, n, q, n1, a_dim, b2, out_size, npix, stream);
 }
+
+// ---------------------------------------------------------------------------
+// The bf16 operand mode (dctn_eps_fwd_bf16): _fwd_kernel_factory with
+// cmt_ref.dtype bf16 (eps_pallas.py:227-250). u is formed in float32 as the
+// JAX suffix chain forms it, u[a] = f_0[d_0] * (f_1[d_1] * (... *
+// f_{n1-1}[d_{n1-1}])), the same float32 products as the plain version, and
+// rounded to bf16; cmt arrives in bf16; t = cmt . u in one bf16 product a
+// pair with float32 sums (bf16.cuh); the epilogue sums the unrounded float32
+// t times the float32 v; with save_t, t is stored in bf16.
+//
+// What bounds it: the product, 2*Z*A flops per pixel at the dense bf16 rate
+// of an H100 SXM (989 TFLOP/s at 700 W): 0.042 ms for the flagship's first
+// layer at batch 128 and 0.215 ms for its second; bytes are fewer than in
+// the float32 mode (cmt and t at 2 bytes an entry).
+//
+// Design, a simple kernel first: a CTA of 4 warps owns 64 pixels and a Z
+// tile of whole outputs (G = floor(64 / B2) where B2 <= 64, else one output
+// walked in passes of 64 rows) and stages its factor columns in shared
+// memory once; per step of 64 columns of A it stages cmt's 64 x 64 bf16
+// (16-byte copies where A is a multiple of 8) and builds u's 64 x 64 (each
+// thread a pair of columns of A over 16 pixels, so every u entry is built
+// once per pass and step); each warp owns 16 rows x 64 pixels, 8 fragments
+// of mma.m16n8k16, summed per step into float32 totals. The epilogue puts
+// the pass's t in shared memory, writes it in bf16 when asked, and one
+// thread per (output, pixel) adds t times v (its chain formed again from
+// the staged factors, the plain version's order) over the output's rows
+// onto the earlier passes' sum: serving and save_t give the same bits.
+// Limits as the float32 kernel's (B2 <= 512, n*q <= 256, the Z tiles along
+// grid.y); shared memory 4 (68 (n q + 64) + 64 G) + 18432 bytes, 46 KB at
+// the flagship's second layer (four CTAs an SM).
+
+#include "bf16.cuh"
+
+namespace {
+namespace fwd_bf16 {
+
+constexpr int kThreads = 128;     // 4 warps, 16 rows of a pass each
+constexpr int kTileZ = 64;        // rows of Z per pass
+constexpr int kTileP = 64;        // pixels per CTA
+constexpr int kChunkA = 64;       // columns of A per step: four k16 steps
+constexpr int kWords = bf16op::op_words<kChunkA>();
+constexpr int kRow = kTileP + 4;  // floats a row of the factor and t tiles
+constexpr int kNj = kTileP / 8;   // n8 fragments a warp holds
+
+struct Plan {
+  int outputs, passes;
+  long long bytes;
+};
+
+Plan make_plan_bf16(int n, int q, long long b2, int out_size) {
+  Plan p;
+  p.outputs = b2 <= kTileZ ? static_cast<int>(kTileZ / b2 < out_size ? kTileZ / b2 : out_size) : 1;
+  p.passes = static_cast<int>((p.outputs * b2 + kTileZ - 1) / kTileZ);
+  p.bytes = 4LL * (kRow * (n * q + kTileZ) + p.outputs * kTileP) + 4LL * 2 * kTileZ * kWords;
+  return p;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    eps_fwd_bf16_kernel(const float* __restrict__ views, const uint16_t* __restrict__ cmt,
+                        float* __restrict__ out, uint16_t* __restrict__ t, int n, int q, int n1,
+                        int a_dim, int b2, long long npix, int outputs, int passes,
+                        int out_size, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int nq = n * q;
+  float* fac = smem;                  // nq rows
+  float* ts = fac + nq * kRow;        // kTileZ rows
+  float* osum = ts + kTileZ * kRow;   // outputs x kTileP
+  uint32_t* cm_op = reinterpret_cast<uint32_t*>(osum + outputs * kTileP);
+  uint32_t* u_op = cm_op + kTileZ * kWords;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
+  const long long p0 = static_cast<long long>(blockIdx.x) * kTileP;
+  const int o0 = blockIdx.y * outputs;
+  const int n_out = min(outputs, out_size - o0);
+  const int rows = n_out * b2;
+  const long long z0 = static_cast<long long>(o0) * b2;
+
+  for (int i = tid; i < nq * kTileP; i += kThreads) {
+    const int r = i / kTileP, j = i % kTileP;
+    const long long p = p0 + j;
+    fac[r * kRow + j] = p < npix ? views[r * npix + p] : 0.f;
+  }
+  for (int i = tid; i < outputs * kTileP; i += kThreads) osum[i] = 0.f;
+
+  // the u build: a pair of columns of A (2 ap, 2 ap + 1) over 16 pixels
+  const int ap = tid % (kChunkA / 2), jb = (tid / (kChunkA / 2)) * 16;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int r0 = pass * kTileZ;
+    float tot[kNj][4];
+#pragma unroll
+    for (int nj = 0; nj < kNj; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[nj][e] = 0.f;
+    for (int a0 = 0; a0 < a_dim; a0 += kChunkA) {
+      __syncthreads();  // the last step's operands are read (and fac staged)
+      bf16op::stage_rows<kChunkA, kWords, kThreads>(cm_op, cmt, z0 + r0, kTileZ, rows - r0, a0,
+                                                    a_dim, vec);
+      {
+        const int a = a0 + 2 * ap;
+        const bool ok0 = a < a_dim, ok1 = a + 1 < a_dim;
+        int rem0 = ok0 ? a : 0, rem1 = ok1 ? a + 1 : 0;
+        float x0[16], x1[16];
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) x0[jj] = x1[jj] = 1.f;
+        for (int k = n1 - 1; k >= 0; --k) {
+          const float* f0 = fac + (k * q + rem0 % q) * kRow + jb;
+          const float* f1 = fac + (k * q + rem1 % q) * kRow + jb;
+          rem0 /= q;
+          rem1 /= q;
+#pragma unroll
+          for (int jj = 0; jj < 16; ++jj) {
+            x0[jj] = f0[jj] * x0[jj];
+            x1[jj] = f1[jj] * x1[jj];
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj)
+          u_op[(jb + jj) * kWords + ap] = bf16op::pack(ok0 ? x0[jj] : 0.f, ok1 ? x1[jj] : 0.f);
+      }
+      __syncthreads();
+      float acc[kNj][4];
+#pragma unroll
+      for (int nj = 0; nj < kNj; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nj][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kChunkA / 16; ++ks) {
+        uint32_t af[4];
+        bf16op::load_a<kWords>(af, cm_op + warp * 16 * kWords, ks * 8);
+#pragma unroll
+        for (int nj = 0; nj < kNj; ++nj) {
+          uint32_t bf[2];
+          bf16op::load_b<kWords>(bf, u_op + nj * 8 * kWords, ks * 8);
+          bf16op::mma(acc[nj], af, bf);
+        }
+      }
+#pragma unroll
+      for (int nj = 0; nj < kNj; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tot[nj][e] += acc[nj][e];
+    }
+    // the pass's t, unrounded, to shared memory
+#pragma unroll
+    for (int nj = 0; nj < kNj; ++nj) {
+      const int r = warp * 16 + g, c = nj * 8 + 2 * tig;
+      ts[r * kRow + c] = tot[nj][0];
+      ts[r * kRow + c + 1] = tot[nj][1];
+      ts[(r + 8) * kRow + c] = tot[nj][2];
+      ts[(r + 8) * kRow + c + 1] = tot[nj][3];
+    }
+    __syncthreads();
+    if (t != nullptr) {
+      for (int i = tid; i < kTileZ * kTileP; i += kThreads) {
+        const int r = i / kTileP, j = i % kTileP;
+        if (r0 + r < rows && p0 + j < npix)
+          t[(z0 + r0 + r) * npix + p0 + j] = bf16op::to_bf16(ts[r * kRow + j]);
+      }
+    }
+    // out += t v over each output's rows of the pass, v[b] = f_{n1}[d] *
+    // (... * f_{n-1}[d]) as the plain suffix chain (1 when n2 = 0)
+    const int j = tid % kTileP, r_end = min(r0 + kTileZ, rows);
+    for (int ol = tid / kTileP; ol < n_out; ol += kThreads / kTileP) {
+      const int rb = max(ol * b2, r0), re = min((ol + 1) * b2, r_end);
+      float s = osum[ol * kTileP + j];
+      for (int r = rb; r < re; ++r) {
+        int rem = r - ol * b2;
+        float v = 1.f;
+        for (int k = n - 1; k >= n1; --k) {
+          v = fac[(k * q + rem % q) * kRow + j] * v;
+          rem /= q;
+        }
+        s += ts[(r - r0) * kRow + j] * v;
+      }
+      osum[ol * kTileP + j] = s;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n_out * kTileP; i += kThreads) {
+    const int ol = i / kTileP, j = i % kTileP;
+    if (p0 + j < npix) out[(o0 + ol) * npix + p0 + j] = osum[i];
+  }
+}
+
+}  // namespace fwd_bf16
+}  // namespace
+
+// dctn_eps_fwd's bf16 mode: the same arguments, cmt (Z, A) and t (Z, npix)
+// in bf16 (t may be null), out (O, npix) float32.
+extern "C" int dctn_eps_fwd_bf16(const void* views, const void* cmt, void* out, void* t, int n,
+                                 int q, int n1, int out_size, long long npix, void* stream) {
+  if (n < 1 || q < 1 || n1 < 1 || n1 > n || out_size < 1 || npix < 1 ||
+      n * q > bf16op::kMaxFactorRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long a_dim = bf16op::ipow(q, n1);
+  const long long b2 = bf16op::ipow(q, n - n1);
+  if (b2 > bf16op::kMaxB2 || a_dim > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  const fwd_bf16::Plan pl = fwd_bf16::make_plan_bf16(n, q, b2, out_size);
+  const long long grid_y = (out_size + pl.outputs - 1) / pl.outputs;
+  if (pl.bytes > bf16op::kMaxSmemBytes || grid_y > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = bf16op::allow_smem(fwd_bf16::eps_fwd_bf16_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = a_dim % 8 == 0 && reinterpret_cast<uintptr_t>(cmt) % 16 == 0;
+  const dim3 grid(static_cast<unsigned>((npix + fwd_bf16::kTileP - 1) / fwd_bf16::kTileP),
+                  static_cast<unsigned>(grid_y));
+  fwd_bf16::eps_fwd_bf16_kernel<<<grid, fwd_bf16::kThreads, static_cast<size_t>(pl.bytes),
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(views), static_cast<const uint16_t*>(cmt),
+      static_cast<float*>(out), static_cast<uint16_t*>(t), n, q, n1, static_cast<int>(a_dim),
+      static_cast<int>(b2), npix, pl.outputs, pl.passes, out_size, vec);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -21,6 +21,17 @@ core in its matricized (Z, A) "cmt" layout, to three contractions:
   ``_bwd_fused_kernel_factory``, K4, :254, and ``_dviews_kernel_factory``
   without t, K6, :391).
 
+Each has a bf16 operand mode (the JAX package's ``mm_dtype`` of bfloat16,
+eps_pallas.py:227-391): the Khatri-Rao operands (u, and kr2 = g ⊗ v) are
+formed in float32 and rounded to bf16, cmt is read as bf16, one bf16
+product per pair on the tensor cores (``csrc/bf16.cuh``), every sum in
+float32; the forward's epilogue reads the unrounded t and a float32 v, and
+the saved t is stored in bf16. The mode follows cmt's dtype (``eps_dcore``,
+which takes no cmt, takes ``mm_dtype``), as the TPU kernel's ``md =
+cmt_ref.dtype`` does; float32 cmt is the 3xTF32 mode, bf16 cmt the bf16
+one. The bf16 kernels are their own launches, counted in ``bf16_launches``
+(``bf16_t_launches`` for K1 with t), beside the float32 counters.
+
 On a CPU tensor each wrapper runs its plain PyTorch version (``*_reference``);
 on a CUDA tensor it launches its hand-written kernel or raises. There is no
 fallback. ``KERNELS`` and ``PLAIN`` bundle the four for the callers that
@@ -82,6 +93,32 @@ SAVE_T_MIN_A = 512
 # footprint: the JAX package's cap (DCTN_TPU_SAVE_T_MAX_BYTES, 4 GiB,
 # eps_pallas.py:814); beyond it the layer takes the recompute arm
 SAVE_T_MAX_BYTES = 4 << 30
+# the operand dtypes of the kernels: None (float32 in 3xTF32) or bf16
+OPERAND_DTYPES = (None, torch.bfloat16)
+# where the bf16 mode's limits are to be widened
+BF16_ITEM = "ROADMAP item 14b"
+
+
+def operand_dtype(mm_dtype) -> torch.dtype:
+    """The dtype the products read: float32 for None (3xTF32) or bf16;
+    anything else raises."""
+    if mm_dtype not in OPERAND_DTYPES:
+        raise ValueError(f"the EPS kernels take compute dtype None or torch.bfloat16, not {mm_dtype!r}")
+    return torch.float32 if mm_dtype is None else mm_dtype
+
+
+def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest even) and back to its dtype where
+    ``dtype`` is bf16: the products of two such operands are exact in
+    float32, so a float32 matmul of them sums in float32 what a bf16
+    tensor-core product does (a bf16 ``torch.matmul`` accumulates
+    otherwise). ``x`` itself for any other ``dtype``."""
+    return x.to(dtype).to(x.dtype) if dtype == torch.bfloat16 else x
+
+
+def _up(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 operand (cmt, a saved t) in float32; any other as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def _slice_specs(kernel_size: int, num_channels: int):
@@ -152,7 +189,8 @@ def plan_call(c: int, q: int, kernel_size: int, n1: int):
 
 
 def plan_backward(
-    layer_index: int, n_k: int, n1_k: int, q_k: int, out_size: int, npix: int
+    layer_index: int, n_k: int, n1_k: int, q_k: int, out_size: int, npix: int,
+    t_bytes: int = 4,
 ) -> str:
     """The backward arm of one layer (``_save_t_plan`` and ``_bwd_dispatch``,
     eps_pallas.py:794-894, without the VMEM planning and without padding
@@ -161,9 +199,11 @@ def plan_backward(
     - ``"dcore_only"``: the model's first layer, whose input needs no
       gradient (the JAX ``force_two_pass``, whose d_views pass XLA drops):
       ``eps_dcore`` alone;
-    - ``"saved_t"``: n2 > 0, A = q_k^n1_k ≥ ``SAVE_T_MIN_A`` and t's float32
-      footprint Z·npix·4 ≤ ``SAVE_T_MAX_BYTES``: the forward writes t, the
-      backward runs ``eps_dcore`` and ``eps_dviews_t``;
+    - ``"saved_t"``: n2 > 0, A = q_k^n1_k ≥ ``SAVE_T_MIN_A`` and t's
+      footprint Z·npix·``t_bytes`` ≤ ``SAVE_T_MAX_BYTES``: the forward
+      writes t, the backward runs ``eps_dcore`` and ``eps_dviews_t``.
+      ``t_bytes`` is t's storage size, the operand dtype's (4 for float32,
+      2 for bf16), as the JAX cap counts it (eps_pallas.py:820-823);
     - ``"recompute"``: anything else (K4/K6): the forward writes no t, the
       backward runs ``eps_dcore`` and ``eps_dviews_recompute``.
 
@@ -174,7 +214,7 @@ def plan_backward(
         return "dcore_only"
     n2 = n_k - n1_k
     z = out_size * q_k**n2
-    if n2 > 0 and q_k**n1_k >= SAVE_T_MIN_A and z * npix * 4 <= SAVE_T_MAX_BYTES:
+    if n2 > 0 and q_k**n1_k >= SAVE_T_MIN_A and z * npix * t_bytes <= SAVE_T_MAX_BYTES:
         return "saved_t"
     return "recompute"
 
@@ -219,6 +259,13 @@ def _chain_bwd(views_t, sufs, d, start: int, stop: int) -> List[torch.Tensor]:
     return out
 
 
+def _fwd_t(views_t: torch.Tensor, cmt: torch.Tensor, n1: int) -> torch.Tensor:
+    """t = cmt·u in float32, unrounded: u built in float32 and rounded to
+    cmt's dtype (eps_pallas.py:237)."""
+    u = _suffix_chain(views_t, 0, n1)[0]
+    return _up(cmt) @ _round(u, cmt.dtype)
+
+
 def eps_fwd_reference(
     views_t: torch.Tensor, cmt: torch.Tensor, n1: int, out_size: int,
     save_t: bool = False,
@@ -226,24 +273,28 @@ def eps_fwd_reference(
     """The forward kernel's plain PyTorch version: u from the first n1
     factors, t = cmt @ u, then out[o, p] = Σ_b t[(o, b), p]·v[b, p] (out = t
     when every factor is in u). (n, q, npix), (Z, A) → (O, npix), and t
-    (Z, npix) too when ``save_t``."""
+    (Z, npix) too when ``save_t``. A bf16 cmt is the bf16 mode: u rounded to
+    bf16, the epilogue on the unrounded t and the float32 v, t returned in
+    bf16 (eps_pallas.py:227-250)."""
     n, q, npix = views_t.shape
-    t = cmt @ _suffix_chain(views_t, 0, n1)[0]
+    t = _fwd_t(views_t, cmt, n1)
     if n1 == n:
         out = t
     else:
         v = _suffix_chain(views_t, n1, n)[0]
         out = torch.sum(t.reshape(out_size, q ** (n - n1), npix) * v[None], dim=1)
-    return (out, t) if save_t else out
+    return (out, t.to(cmt.dtype)) if save_t else out
 
 
 def eps_dcore_reference(
-    views_t: torch.Tensor, g: torch.Tensor, n1: int, out_size: int
+    views_t: torch.Tensor, g: torch.Tensor, n1: int, out_size: int, mm_dtype=None
 ) -> torch.Tensor:
     """The d_cmt kernel's plain version: d_cmt[z, a] = Σ_p kr2[z, p]·u[a, p].
-    (n, q, npix), (O, npix) → (Z, A)."""
+    (n, q, npix), (O, npix) → (Z, A), float32. ``mm_dtype`` bf16 rounds kr2
+    and u (eps_pallas.py:372-376)."""
     del out_size  # rows follow g
-    return _kr2(views_t, g, n1) @ _suffix_chain(views_t, 0, n1)[0].T
+    md = operand_dtype(mm_dtype)
+    return _round(_kr2(views_t, g, n1), md) @ _round(_suffix_chain(views_t, 0, n1)[0], md).T
 
 
 def eps_dviews_t_reference(
@@ -252,12 +303,13 @@ def eps_dviews_t_reference(
 ) -> torch.Tensor:
     """The d_views kernel's plain version: d_u = cmtᵀ·kr2 and
     d_v[b, p] = Σ_o t[(o, b), p]·g[o, p], each through ``_chain_bwd`` to its
-    factors. ``t`` is None when n2 = 0. → (n, q, npix)."""
+    factors. ``t`` is None when n2 = 0. → (n, q, npix). A bf16 cmt rounds
+    kr2; a bf16 t is read as float32 (eps_pallas.py:303-345)."""
     n, _, npix = views_t.shape
-    d_u = cmt.T @ _kr2(views_t, g, n1)
+    d_u = _up(cmt).T @ _round(_kr2(views_t, g, n1), cmt.dtype)
     dviews = _chain_bwd(views_t, _suffix_chain(views_t, 0, n1), d_u, 0, n1)
     if n1 < n:
-        d_v = torch.sum(t.reshape(out_size, -1, npix) * g[:, None, :], dim=0)
+        d_v = torch.sum(_up(t).reshape(out_size, -1, npix) * g[:, None, :], dim=0)
         dviews += _chain_bwd(views_t, _suffix_chain(views_t, n1, n), d_v, n1, n)
     return torch.stack(dviews, dim=0)
 
@@ -266,10 +318,9 @@ def eps_dviews_recompute_reference(
     views_t: torch.Tensor, cmt: torch.Tensor, g: torch.Tensor, n1: int, out_size: int
 ) -> torch.Tensor:
     """The recompute arm's d_views (K4 ``_bwd_fused_kernel_factory``'s half,
-    K6 ``_dviews_kernel_factory`` without t), plain: t recomputed."""
-    t = None
-    if n1 < views_t.shape[0]:
-        t = eps_fwd_reference(views_t, cmt, n1, out_size, save_t=True)[1]
+    K6 ``_dviews_kernel_factory`` without t), plain: t recomputed, in
+    float32 and unrounded in the bf16 mode too (eps_pallas.py:294)."""
+    t = _fwd_t(views_t, cmt, n1) if n1 < views_t.shape[0] else None
     return eps_dviews_t_reference(views_t, cmt, g, t, n1, out_size)
 
 
@@ -281,11 +332,19 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the C entries of each source, with their signatures: pointers and the
 # stream as c_void_p
 _ENTRIES = {
-    "eps_fwd": {"dctn_eps_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]},
-    "eps_dcore": {"dctn_eps_dcore": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _P]},
+    "eps_fwd": {
+        "dctn_eps_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
+        "dctn_eps_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
+    },
+    "eps_dcore": {
+        "dctn_eps_dcore": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _P],
+        "dctn_eps_dcore_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P],
+    },
     "eps_dviews_t": {
         "dctn_eps_dviews_t": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
         "dctn_eps_dviews_recompute": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
+        "dctn_eps_dviews_t_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
+        "dctn_eps_dviews_recompute_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
     },
     "eps_fwd_q8": {"dctn_eps_fwd_q8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]},
 }
@@ -381,6 +440,97 @@ def _check_kernel_args(views_t, cmt, n1, out_size):
         )
 
 
+# The bf16 mode's kernels (csrc/bf16.cuh; the *_bf16 entries of eps_fwd.cu,
+# eps_dcore.cu and eps_dviews_t.cu): mma.sync.m16n8k16 on bf16 operands
+# staged in shared memory with rows of K / 2 + 4 words (a k16 step's
+# fragments then read without bank conflicts: ``op_words``), float32 rows 4
+# floats longer than their tile.
+
+
+def _op_words(chunk: int) -> int:
+    return chunk // 2 + 4
+
+
+# K1: a CTA takes 64 pixels and a Z tile of whole outputs, 64 rows of Z per
+# pass, 64 columns of A per step
+_BF16_FWD_TILE = 64
+_BF16_FWD_CHUNK = 64
+# eps_dcore: 64 x 64 (Z, A) tiles over steps of 32 pixels, pixel slices as
+# the float32 kernel's, aiming at four CTAs per SM, each slice at least
+# this long
+_BF16_DCORE_TILE = 64
+_BF16_DCORE_MIN_SLICE_PIXELS = 2048
+# d_views: a CTA takes 32 pixels; d_u in tiles of 128 rows of A and, on the
+# recompute arm, t in tiles of 128 rows of Z, both over steps of 128; the
+# factors' cotangents summed by four thread quarters apart; the
+# leave-one-out products over at most this many factors of a half
+_BF16_DVIEWS_TILE_P = 32
+_BF16_DVIEWS_CHUNK = 128
+_BF16_MAX_CHAIN = 8
+
+
+def _fwd_bf16_plan(n: int, q: int, n1: int, out_size: int, npix: int) -> dict:
+    """One bf16 ``eps_fwd`` launch (``make_plan_bf16`` in csrc/eps_fwd.cu):
+    ``outputs`` whole outputs a CTA (⌊64 / B2⌋ where B2 ≤ 64, else one),
+    walked in ``passes`` of 64 rows; shared memory: the staged factor rows
+    (68 floats each), the 64 x 68 t tile, the outputs' sums and the two
+    64-row operand tiles."""
+    tile = _BF16_FWD_TILE
+    b2 = q ** (n - n1)
+    outputs = min(tile // b2, out_size) if b2 <= tile else 1
+    rows = tile + 4
+    return {
+        "outputs": outputs,
+        "passes": math.ceil(outputs * b2 / tile),
+        "grid": (math.ceil(npix / tile), math.ceil(out_size / outputs)),
+        "smem_bytes": 4 * (rows * (n * q + tile) + outputs * tile)
+        + 4 * 2 * tile * _op_words(_BF16_FWD_CHUNK),
+    }
+
+
+def _dcore_bf16_smem_bytes(n: int, q: int, n1: int, out_size: int) -> int:
+    """Shared memory of one bf16 ``eps_dcore`` launch (``smem_bytes`` in
+    csrc/eps_dcore.cu): a step's factor rows and the g rows a Z tile
+    touches (36 floats each), each tile row's factor-row offsets (n ints)
+    and the two operand tiles."""
+    tile = _BF16_DCORE_TILE
+    g_rows = min(out_size, (tile - 1) // q ** (n - n1) + 2)
+    return 4 * (36 * (n * q + g_rows) + tile * n) + 4 * 2 * tile * _op_words(32)
+
+
+def _dcore_bf16_slices(z: int, a: int, npix: int, sms: int) -> int:
+    """The pixel slices of a bf16 ``eps_dcore`` launch on ``sms`` SMs."""
+    tiles = math.ceil(z / _BF16_DCORE_TILE) * math.ceil(a / _BF16_DCORE_TILE)
+    return max(1, min(math.ceil(4 * sms / tiles), npix // _BF16_DCORE_MIN_SLICE_PIXELS,
+                      _DCORE_MAX_SLICES))
+
+
+def _dviews_bf16_smem_bytes(n: int, q: int, n1: int, out_size: int) -> int:
+    """Shared memory of one bf16 d_views launch, either form
+    (``smem_bytes`` in csrc/eps_dviews_t.cu): the staged factor rows, g, v
+    and d_v (36 floats each), the four quarters' factor cotangents (32
+    floats a row), the 128-row product tile, and the two operand tiles."""
+    b2 = q ** (n - n1)
+    tile_p = _BF16_DVIEWS_TILE_P
+    return (4 * (36 * (n * q + out_size + 2 * b2 + 128) + 4 * n * q * tile_p)
+            + 4 * (128 + tile_p) * _op_words(_BF16_DVIEWS_CHUNK))
+
+
+def _check_bf16_plan(name: str, shape: str, smem: int, **limits) -> None:
+    """Raises where a bf16 launch is outside its kernel's plan: shared
+    memory over the card's 227 KB, or a ``limits`` entry (value, most)
+    over its most. The bf16 mode never runs the float32 kernel or the
+    plain version in its place."""
+    over = [f"{k}={v} > {most}" for k, (v, most) in limits.items() if v > most]
+    if smem > _MAX_SMEM_BYTES:
+        over.append(f"{smem} B of shared memory > {_MAX_SMEM_BYTES}")
+    if over:
+        raise ValueError(
+            f"{name}: bf16 operand mode outside its kernel's plan ({shape}): "
+            f"{', '.join(over)} ({BF16_ITEM})"
+        )
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -403,10 +553,13 @@ def eps_fwd(
     the (Z, A) cmt → (O, npix), and t (Z, npix) too when ``save_t``. CPU
     tensors run ``eps_fwd_reference``; CUDA tensors run the kernel:
     ``eps_fwd.launches`` counts its launches and ``eps_fwd.t_launches``
-    those that wrote t."""
+    those that wrote t. A bf16 cmt runs the bf16 mode (t in bf16), counted
+    in ``eps_fwd.bf16_launches`` and ``eps_fwd.bf16_t_launches``."""
     if views_t.device.type == "cpu":
         return eps_fwd_reference(views_t, cmt, n1, out_size, save_t)
     _check_device("eps_fwd", views_t)
+    if cmt.dtype == torch.bfloat16:
+        return _eps_fwd_bf16(views_t, cmt, n1, out_size, save_t)
     _check_kernel_args(views_t, cmt, n1, out_size)
     n, q, npix = views_t.shape
     dev = views_t.device
@@ -425,8 +578,46 @@ def eps_fwd(
     return out
 
 
+def _check_fwd_bf16_args(views_t, cmt, n1, out_size):
+    """The arguments of ``eps_fwd``'s bf16 mode: float32 views, bf16 cmt,
+    within ``_fwd_bf16_plan``."""
+    n, q, npix = views_t.shape
+    shape = f"views {tuple(views_t.shape)}, cmt {tuple(cmt.shape)}, n1={n1}, O={out_size}"
+    _check_tensors("eps_fwd", shape, views_t.device, views=views_t)
+    _check_tensors("eps_fwd", shape, views_t.device, torch.bfloat16, cmt=cmt)
+    _check_split("eps_fwd", shape, n, q, n1)
+    b2 = q ** (n - n1)
+    if tuple(cmt.shape) != (out_size * b2, q**n1):
+        raise ValueError(f"eps_fwd: cmt is not (O·q^(n-n1), q^n1) ({shape})")
+    plan = _fwd_bf16_plan(n, q, n1, out_size, npix)
+    _check_bf16_plan("eps_fwd", shape, plan["smem_bytes"], **{
+        "q^(n-n1)": (b2, _MAX_B2), "Z tiles": (plan["grid"][1], _MAX_OUT_SIZE)})
+
+
+def _eps_fwd_bf16(views_t, cmt, n1, out_size, save_t):
+    """``eps_fwd``'s bf16 mode on CUDA tensors."""
+    _check_fwd_bf16_args(views_t, cmt, n1, out_size)
+    n, q, npix = views_t.shape
+    dev = views_t.device
+    out = torch.empty((out_size, npix), dtype=torch.float32, device=dev)
+    t = torch.empty((cmt.shape[0], npix), dtype=torch.bfloat16, device=dev) if save_t else None
+    with torch.cuda.device(dev):
+        err = _library("eps_fwd").dctn_eps_fwd_bf16(
+            views_t.data_ptr(), cmt.data_ptr(), out.data_ptr(),
+            None if t is None else t.data_ptr(), n, q, n1, out_size, npix, _stream(dev),
+        )
+    _raise_on_error("eps_fwd (bf16)", err)
+    eps_fwd.bf16_launches += 1
+    if save_t:
+        eps_fwd.bf16_t_launches += 1
+        return out, t
+    return out
+
+
 eps_fwd.launches = 0
 eps_fwd.t_launches = 0
+eps_fwd.bf16_launches = 0
+eps_fwd.bf16_t_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -490,16 +681,23 @@ def _check_dcore_args(views_t, g, n1, out_size):
 
 
 def eps_dcore(
-    views_t: torch.Tensor, g: torch.Tensor, n1: int, out_size: int
+    views_t: torch.Tensor, g: torch.Tensor, n1: int, out_size: int, mm_dtype=None
 ) -> torch.Tensor:
     """d_cmt (Z, A) of one EPS layer from the (n, q, npix) views and the
-    (O, npix) output cotangent. CPU tensors run ``eps_dcore_reference``;
-    CUDA tensors run the kernel: ``eps_dcore.launches`` counts its calls,
-    ``eps_dcore.sum_launches`` those that also ran the fixed-order sum of
-    pixel slices (a second device kernel of the same call)."""
+    (O, npix) output cotangent, in float32. CPU tensors run
+    ``eps_dcore_reference``; CUDA tensors run the kernel:
+    ``eps_dcore.launches`` counts its calls, ``eps_dcore.sum_launches``
+    those that also ran the fixed-order sum of pixel slices (a second
+    device kernel of the same call). ``mm_dtype`` bf16 runs the bf16 mode,
+    counted in ``eps_dcore.bf16_launches`` (``bf16_sum_launches``)."""
+    bf16 = operand_dtype(mm_dtype) == torch.bfloat16
     if views_t.device.type == "cpu":
+        if bf16:
+            return eps_dcore_reference(views_t, g, n1, out_size, mm_dtype)
         return eps_dcore_reference(views_t, g, n1, out_size)
     _check_device("eps_dcore", views_t)
+    if bf16:
+        return _eps_dcore_bf16(views_t, g, n1, out_size)
     _check_dcore_args(views_t, g, n1, out_size)
     n, q, npix = views_t.shape
     dev = views_t.device
@@ -522,8 +720,46 @@ def eps_dcore(
     return d_cmt
 
 
+def _check_dcore_bf16_args(views_t, g, n1, out_size):
+    """The arguments of ``eps_dcore``'s bf16 mode."""
+    n, q, npix = views_t.shape
+    shape = f"views {tuple(views_t.shape)}, g {tuple(g.shape)}, n1={n1}, O={out_size}"
+    _check_tensors("eps_dcore", shape, views_t.device, views=views_t, g=g)
+    _check_split("eps_dcore", shape, n, q, n1)
+    if tuple(g.shape) != (out_size, npix):
+        raise ValueError(f"eps_dcore: g is not (O, npix) ({shape})")
+    z = out_size * q ** (n - n1)
+    _check_bf16_plan("eps_dcore", shape, _dcore_bf16_smem_bytes(n, q, n1, out_size),
+                     **{"Z tiles": (math.ceil(z / _BF16_DCORE_TILE), 65535)})
+
+
+def _eps_dcore_bf16(views_t, g, n1, out_size):
+    """``eps_dcore``'s bf16 mode on CUDA tensors."""
+    _check_dcore_bf16_args(views_t, g, n1, out_size)
+    n, q, npix = views_t.shape
+    z, a = out_size * q ** (n - n1), q**n1
+    dev = views_t.device
+    slices = _dcore_bf16_slices(z, a, npix, _sm_count(dev))
+    d_cmt = torch.empty((z, a), dtype=torch.float32, device=dev)
+    scratch = (
+        torch.empty((slices, z, a), dtype=torch.float32, device=dev) if slices > 1 else None
+    )
+    with torch.cuda.device(dev):
+        err = _library("eps_dcore").dctn_eps_dcore_bf16(
+            views_t.data_ptr(), g.data_ptr(), d_cmt.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            n, q, n1, out_size, npix, slices, _stream(dev),
+        )
+    _raise_on_error("eps_dcore (bf16)", err)
+    eps_dcore.bf16_launches += 1
+    eps_dcore.bf16_sum_launches += slices > 1
+    return d_cmt
+
+
 eps_dcore.launches = 0
 eps_dcore.sum_launches = 0
+eps_dcore.bf16_launches = 0
+eps_dcore.bf16_sum_launches = 0
 
 
 def _dviews_smem_bytes(n: int, q: int, n1: int, out_size: int, recompute: bool) -> int:
@@ -580,17 +816,21 @@ def eps_dviews_t(
     """The (n, q, npix) cotangent of the factor stack, from the (Z, A) cmt,
     the (O, npix) output cotangent and the forward-saved (Z, npix) t (None
     when n2 = 0). CPU tensors run ``eps_dviews_t_reference``; CUDA tensors
-    run the kernel, and ``eps_dviews_t.launches`` counts its launches."""
+    run the kernel, and ``eps_dviews_t.launches`` counts its launches. A
+    bf16 cmt (and t) runs the bf16 mode, counted in
+    ``eps_dviews_t.bf16_launches``."""
     if views_t.device.type == "cpu":
         return eps_dviews_t_reference(views_t, cmt, g, t, n1, out_size)
     _check_device("eps_dviews_t", views_t)
-    _check_dviews_args("eps_dviews_t", views_t, cmt, g, t, n1, out_size)
     n, q, npix = views_t.shape
     if (t is None) != (n1 == n) or (t is not None and tuple(t.shape) != (cmt.shape[0], npix)):
         raise ValueError(
             f"eps_dviews_t: t must be (Z, npix) when n2 > 0, None when n2 = 0 "
             f"(t {None if t is None else tuple(t.shape)}, cmt {tuple(cmt.shape)}, n1={n1})"
         )
+    if cmt.dtype == torch.bfloat16:
+        return _eps_dviews_bf16("eps_dviews_t", views_t, cmt, g, t, n1, out_size)
+    _check_dviews_args("eps_dviews_t", views_t, cmt, g, t, n1, out_size)
     dev = views_t.device
     dviews = torch.empty((n, q, npix), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -605,6 +845,7 @@ def eps_dviews_t(
 
 
 eps_dviews_t.launches = 0
+eps_dviews_t.bf16_launches = 0
 
 
 def eps_dviews_recompute(
@@ -614,10 +855,14 @@ def eps_dviews_recompute(
     factor stack from the (Z, A) cmt and the (O, npix) output cotangent,
     with t recomputed in the kernel and never written. CPU tensors run
     ``eps_dviews_recompute_reference``; CUDA tensors run the kernel, and
-    ``eps_dviews_recompute.launches`` counts its launches."""
+    ``eps_dviews_recompute.launches`` counts its launches. A bf16 cmt runs
+    the bf16 mode (t recomputed in float32, unrounded), counted in
+    ``eps_dviews_recompute.bf16_launches``."""
     if views_t.device.type == "cpu":
         return eps_dviews_recompute_reference(views_t, cmt, g, n1, out_size)
     _check_device("eps_dviews_recompute", views_t)
+    if cmt.dtype == torch.bfloat16:
+        return _eps_dviews_bf16("eps_dviews_recompute", views_t, cmt, g, None, n1, out_size)
     _check_dviews_args("eps_dviews_recompute", views_t, cmt, g, None, n1, out_size)
     n, q, npix = views_t.shape
     dev = views_t.device
@@ -633,6 +878,53 @@ def eps_dviews_recompute(
 
 
 eps_dviews_recompute.launches = 0
+eps_dviews_recompute.bf16_launches = 0
+
+
+def _check_dviews_bf16_args(name, views_t, cmt, g, t, n1, out_size):
+    """The arguments of the bf16 mode of ``eps_dviews_t`` (with its bf16
+    ``t``) or of ``eps_dviews_recompute`` (``t`` None)."""
+    n, q, npix = views_t.shape
+    shape = (
+        f"views {tuple(views_t.shape)}, cmt {tuple(cmt.shape)}, g {tuple(g.shape)}, "
+        f"t {None if t is None else tuple(t.shape)}, n1={n1}, O={out_size}"
+    )
+    _check_tensors(name, shape, views_t.device, views=views_t, g=g)
+    bf = {"cmt": cmt} if t is None else {"cmt": cmt, "t": t}
+    _check_tensors(name, shape, views_t.device, torch.bfloat16, **bf)
+    _check_split(name, shape, n, q, n1)
+    z = out_size * q ** (n - n1)
+    if tuple(cmt.shape) != (z, q**n1) or tuple(g.shape) != (out_size, npix):
+        raise ValueError(f"{name}: cmt is not (O·q^(n-n1), q^n1) or g not (O, npix) ({shape})")
+    _check_bf16_plan(name, shape, _dviews_bf16_smem_bytes(n, q, n1, out_size), **{
+        "q^(n-n1)": (q ** (n - n1), _MAX_B2), "n1": (n1, _BF16_MAX_CHAIN),
+        "n-n1": (n - n1, _BF16_MAX_CHAIN)})
+
+
+def _eps_dviews_bf16(name, views_t, cmt, g, t, n1, out_size):
+    """The bf16 mode of ``eps_dviews_t`` (with the saved bf16 ``t``) or of
+    ``eps_dviews_recompute`` (``t`` None) on CUDA tensors."""
+    _check_dviews_bf16_args(name, views_t, cmt, g, t, n1, out_size)
+    n, q, npix = views_t.shape
+    dev = views_t.device
+    dviews = torch.empty((n, q, npix), dtype=torch.float32, device=dev)
+    cmt_t = cmt.t().contiguous()  # d_u's operand rows: (A, Z), Z contiguous
+    lib = _library("eps_dviews_t")
+    with torch.cuda.device(dev):
+        if name == "eps_dviews_recompute":
+            err = lib.dctn_eps_dviews_recompute_bf16(
+                views_t.data_ptr(), cmt.data_ptr(), cmt_t.data_ptr(), g.data_ptr(),
+                dviews.data_ptr(), n, q, n1, out_size, npix, _stream(dev),
+            )
+        else:
+            err = lib.dctn_eps_dviews_t_bf16(
+                views_t.data_ptr(), cmt.data_ptr(), cmt_t.data_ptr(), g.data_ptr(),
+                None if t is None else t.data_ptr(), dviews.data_ptr(),
+                n, q, n1, out_size, npix, _stream(dev),
+            )
+    _raise_on_error(f"{name} (bf16)", err)
+    (eps_dviews_recompute if name == "eps_dviews_recompute" else eps_dviews_t).bf16_launches += 1
+    return dviews
 
 
 @dataclasses.dataclass(frozen=True)
@@ -666,16 +958,24 @@ class EPSApplyTCmt(torch.autograd.Function):
     The forward writes t when ``save_t``; the backward computes d_cmt with
     ``dcore`` when cmt needs a gradient, and the views' cotangent when they
     need one: from t with ``dviews_t``, or, without a saved t, with
-    ``dviews_recompute``."""
+    ``dviews_recompute``.
+
+    ``mm_dtype`` bf16 is the bf16 operand mode: the Function takes the
+    float32 cmt and rounds it to bf16 inside ``forward`` (``cmt32.astype
+    (mm_dtype)``, eps_pallas.py:955), the kernels read the bf16 copy, and
+    d_cmt comes back in float32 from ``dcore``. Cast outside the Function,
+    autograd would round the gradient to the bf16 input's dtype too."""
 
     @staticmethod
-    def forward(ctx, views_t, cmt, n1: int, out_size: int, save_t: bool, kernels: EPSKernels):
+    def forward(ctx, views_t, cmt, n1: int, out_size: int, save_t: bool, kernels: EPSKernels,
+                mm_dtype=None):
+        cmtm = cmt if mm_dtype is None else cmt.to(operand_dtype(mm_dtype))
         if save_t:
-            out, t = kernels.fwd(views_t, cmt, n1, out_size, save_t=True)
+            out, t = kernels.fwd(views_t, cmtm, n1, out_size, save_t=True)
         else:
-            out, t = kernels.fwd(views_t, cmt, n1, out_size), None
-        ctx.save_for_backward(views_t, cmt, t)
-        ctx.n1, ctx.out_size, ctx.kernels = n1, out_size, kernels
+            out, t = kernels.fwd(views_t, cmtm, n1, out_size), None
+        ctx.save_for_backward(views_t, cmtm, t)
+        ctx.n1, ctx.out_size, ctx.kernels, ctx.mm_dtype = n1, out_size, kernels, mm_dtype
         return out
 
     @staticmethod
@@ -685,13 +985,16 @@ class EPSApplyTCmt(torch.autograd.Function):
         k, n1, o = ctx.kernels, ctx.n1, ctx.out_size
         d_views = d_cmt = None
         if ctx.needs_input_grad[1]:
-            d_cmt = k.dcore(views_t, g, n1, o)
+            if ctx.mm_dtype is None:
+                d_cmt = k.dcore(views_t, g, n1, o)
+            else:
+                d_cmt = k.dcore(views_t, g, n1, o, mm_dtype=ctx.mm_dtype)
         if ctx.needs_input_grad[0]:
             if t is None:
                 d_views = k.dviews_recompute(views_t, cmt, g, n1, o)
             else:
                 d_views = k.dviews_t(views_t, cmt, g, t, n1, o)
-        return d_views, d_cmt, None, None, None, None
+        return d_views, d_cmt, None, None, None, None, None
 
 
 def eps_apply_t_cmt(
@@ -706,6 +1009,7 @@ def eps_apply_t_cmt(
     kernels: EPSKernels = KERNELS,
     pixel_scale: int = 1,
     save_shapes: Optional[Tuple[int, int]] = None,
+    mm_dtype=None,
 ) -> torch.Tensor:
     """One EPS layer on the matricized core (eps_pallas.py:924-980):
     ``xT`` (C, Q, H, W, B) → ``outT`` (O, H', W', B), differentiable in
@@ -714,6 +1018,11 @@ def eps_apply_t_cmt(
     (under ``inference_mode``) writes none. ``kernels`` is ``KERNELS``
     unless a caller runs the plain versions or the int8 forward
     (``eps_q8_kernels.QAT_KERNELS``).
+
+    ``mm_dtype``: the operand dtype, None (float32, 3xTF32 on a card) or
+    ``torch.bfloat16`` (the bf16 mode: ``cmt`` stays the float32 parameter
+    and is rounded inside ``EPSApplyTCmt``; t is stored in bf16, so
+    ``plan_backward`` counts 2 bytes an entry).
 
     ``pixel_scale``: ``plan_backward`` decides on ``npix · pixel_scale``
     pixels. A data-parallel QAT step passes its rank count, so that every
@@ -730,6 +1039,7 @@ def eps_apply_t_cmt(
     steps of those layouts pass it (the arm changes the STE gradient), their
     f32 steps plan on the rank's own shapes, as JAX's ``plan_pallas_call``
     does on the shard's."""
+    t_bytes = operand_dtype(mm_dtype).itemsize
     c, q, h, w, b = xT.shape
     hp, wp = h - kernel_size + 1, w - kernel_size + 1
     n_k, q_k, n1_k = _kernel_dims(c, q, kernel_size, n1, merge_pairs)
@@ -738,7 +1048,7 @@ def eps_apply_t_cmt(
     save_t = (
         torch.is_grad_enabled()
         and xT.requires_grad
-        and plan_backward(layer_index, n_k, n1_k, q_k, plan_out, plan_npix) == "saved_t"
+        and plan_backward(layer_index, n_k, n1_k, q_k, plan_out, plan_npix, t_bytes) == "saved_t"
     )
-    out = EPSApplyTCmt.apply(views_t, cmt, n1_k, out_size, save_t, kernels)
+    out = EPSApplyTCmt.apply(views_t, cmt, n1_k, out_size, save_t, kernels, mm_dtype)
     return out.reshape(out_size, hp, wp, b)

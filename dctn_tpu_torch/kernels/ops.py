@@ -11,7 +11,10 @@ version. A loaded artifact therefore launches the same kernels, through the
 same counters, as eager serving.
 
 - ``dctn_tpu_torch::eps_fwd(views_t, cmt, n1, out_size)``: K1 without t
-  (``eps_kernels.eps_fwd``);
+  (``eps_kernels.eps_fwd``), in the mode of cmt's dtype: a bf16 artifact's
+  graph rounds the float32 core to bf16 before the node (inside
+  ``EPSApplyTCmt``) and the node runs K1's bf16 mode; the output is
+  float32 either way;
 - ``dctn_tpu_torch::eps_fwd_q8(views_t, wq, sw, n1, out_size)``: K8 without
   t (``eps_q8_kernels.eps_fwd_q8``);
 - ``dctn_tpu_torch::sbs_fwd(views_t, cores, olr, mcut)``: one ConvSBS
@@ -48,7 +51,7 @@ def eps_fwd(views_t: torch.Tensor, cmt: torch.Tensor, n1: int, out_size: int) ->
 
 @eps_fwd.register_fake
 def _(views_t, cmt, n1, out_size):
-    return views_t.new_empty((out_size, views_t.shape[2]))
+    return views_t.new_empty((out_size, views_t.shape[2]))  # float32 for a bf16 cmt too
 
 
 @torch.library.custom_op(f"{NAMESPACE}::eps_fwd_q8", mutates_args=())

@@ -44,6 +44,7 @@ from ..kernels.eps_kernels import (
     _core_to_cmt_k,
     _kernel_dims,
     eps_apply_t_cmt,
+    operand_dtype,
     plan_backward,
     plan_call,
 )
@@ -66,10 +67,16 @@ class EPSesPlusLinearConfig:
     num_classes: int = 10
     dtype: torch.dtype = torch.float32
     dropout_p: float = 1.0  # the probability of KEEPING a core component
+    # the EPS products' operand dtype (eps_plus_linear.py:48): None is
+    # float32 (3xTF32 on a card), torch.bfloat16 rounds the operands of
+    # every EPS product to bf16 and sums in float32; the parameters stay
+    # float32
+    compute_dtype: Optional[torch.dtype] = None
 
     def __post_init__(self):
         if not 0.0 < self.dropout_p <= 1.0:
             raise ValueError(f"dropout_p must be in (0, 1], got {self.dropout_p}")
+        operand_dtype(self.compute_dtype)
 
     @property
     def pre_linear_image_size(self) -> int:
@@ -190,7 +197,7 @@ def eps_plus_linear_forward(
         epses = dropout_epses(epses, cfg.dropout_p, masks)
     intermediate = x
     for core in epses:
-        intermediate = eps_mod.eps(core, intermediate)[None]
+        intermediate = eps_mod.eps(core, intermediate, compute_dtype=cfg.compute_dtype)[None]
     h = intermediate[0]  # (B, H', W', Q_out)
     return h.reshape(h.shape[0], -1) @ params["linear"]["w"] + params["linear"]["b"]
 
@@ -231,17 +238,21 @@ def saved_t_capped_layers(cfg: EPSesPlusLinearConfig, plans, microbatch: int):
     """Indices of the EPS layers whose saved-t backward is held back only
     by the cap on t's size (``plan_backward``'s ``SAVE_T_MAX_BYTES``) at
     this microbatch: they would save t at a smaller one
-    (eps_plus_linear.py:364-383, on the port's rule, whose t is float32;
-    the JAX package counts t in its matmul dtype, bf16 on the TPU). Layer 0
+    (eps_plus_linear.py:364-383). t is counted in its storage dtype, as the
+    JAX package counts it: float32 (4 bytes) for ``cfg.compute_dtype`` None,
+    bf16 (2) for bf16; the JAX package's None is bf16 on the TPU. Layer 0
     never saves t. Non-empty means gradient accumulation would bring the
     saved-t backward back (the large-batch recipe, docs/performance.md)."""
+    t_bytes = operand_dtype(cfg.compute_dtype).itemsize
     h = cfg.image_size
     capped = []
     for i, p in enumerate(plans):
         h = h - p["kernel_size"] + 1
         n_k, q_k, n1_k = _plan_dims(p)
-        arm = plan_backward(i, n_k, n1_k, q_k, p["out_size"], microbatch * h * h)
-        if arm == "recompute" and plan_backward(i, n_k, n1_k, q_k, p["out_size"], 1) == "saved_t":
+        arm = plan_backward(i, n_k, n1_k, q_k, p["out_size"], microbatch * h * h, t_bytes)
+        if arm == "recompute" and plan_backward(
+            i, n_k, n1_k, q_k, p["out_size"], 1, t_bytes
+        ) == "saved_t":
             capped.append(i)
     return capped
 
@@ -324,7 +335,8 @@ def eps_plus_linear_forward_fast(
     (one per core, reference shape) applies parameter dropout with
     ``cfg.dropout_p``: a training forward passes them, an eval none.
     ``pixel_scale`` is ``eps_apply_t_cmt``'s (the data-parallel QAT step's
-    rank count)."""
+    rank count). ``cfg.compute_dtype`` is each layer's operand dtype
+    (eps_plus_linear.py:486-488)."""
     cmts = fast["epses_cmt"]
     if masks is not None:
         cmts = dropout_cmts(cmts, plans, cfg.dropout_p, masks)
@@ -333,7 +345,7 @@ def eps_plus_linear_forward_fast(
     for i, (cmt, p) in enumerate(zip(cmts, plans)):
         outT = eps_apply_t_cmt(
             cmt, xT, p["out_size"], p["kernel_size"], p["n1"], p["merge_pairs"],
-            layer_index=i, kernels=kernels, pixel_scale=pixel_scale,
+            layer_index=i, kernels=kernels, pixel_scale=pixel_scale, mm_dtype=cfg.compute_dtype,
         )
         xT = outT[None]
     return _transposed_classifier(outT, fast["linear"])

@@ -19,7 +19,10 @@ package's hand-written backward (``_eps_contract_fwd/_bwd``) as a
 transposed views, the Khatri-Rao prefixes of both halves and t); with
 ``custom_vjp=False`` through autograd of the staged forward. Its products
 are ``torch.matmul``, on any device: the runners' ``xla`` backend (the JAX
-package's XLA einsums and matmuls, which no Pallas kernel replaces).
+package's XLA einsums and matmuls, which no Pallas kernel replaces). With
+``compute_dtype=torch.bfloat16`` their operands are rounded to bf16 where
+the JAX package casts them (``_maybe``, eps.py:182-272 and :343-364) and
+multiplied in float32, which sums the exact bf16 products in float32.
 ``eps_one_by_one`` is the sequential-absorption oracle.
 """
 
@@ -30,7 +33,14 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels.eps_kernels import _core_to_cmt_k, _kernel_dims, eps_apply_t_cmt, plan_call
+from ..kernels.eps_kernels import (
+    _core_to_cmt_k,
+    _kernel_dims,
+    _round,
+    eps_apply_t_cmt,
+    operand_dtype,
+    plan_call,
+)
 from .windows import out_spatial, window_views
 
 
@@ -133,10 +143,13 @@ class EPSContract(torch.autograd.Function):
     backward (``_eps_contract_fwd/_bwd``, eps.py:182-276): it saves the
     core, the transposed views, the prefixes of both Khatri-Rao halves and
     t, and computes d_core = u·(v ⊗ g)ᵀ, d_u = core·(v ⊗ g), d_v = Σ_o t·g,
-    then the suffix sweeps to each view's cotangent."""
+    then the suffix sweeps to each view's cotangent. ``md`` bf16 rounds the
+    products' operands as ``_eps_contract_fwd/_bwd`` do: cm and u in the
+    forward (not v), u, cm and kr2 (g when n1 = n) in the backward, whose
+    d_v reads the float32 t."""
 
     @staticmethod
-    def forward(ctx, core, n1, *views):
+    def forward(ctx, core, n1, md, *views):
         n = len(views)
         in_size = views[0].shape[-1]
         out_size = core.shape[-1]
@@ -145,8 +158,9 @@ class EPSContract(torch.autograd.Function):
         views_t = tuple(v.reshape(npix, in_size).T for v in views)  # (Q, N)
         u_prefixes = _kr_prefixes_t(views_t[:n1])
         cm = core.reshape(in_size**n1, in_size ** (n - n1) * out_size)
-        t_t = cm.T @ u_prefixes[-1]  # (Q^n2·O, N)
+        t_t = _round(cm, md).T @ _round(u_prefixes[-1], md)  # (Q^n2·O, N)
         ctx.dims = (n, n1, (b, hp, wp))
+        ctx.md = md
         if n1 == n:
             ctx.save_for_backward(core, *views_t, *u_prefixes)
             return t_t.T.reshape(b, hp, wp, out_size)
@@ -159,6 +173,7 @@ class EPSContract(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         n, n1, (b, hp, wp) = ctx.dims
+        md = ctx.md
         # saved: the core, the n views, the n1 u prefixes, then (unless
         # n1 == n) the n - n1 v prefixes and t3
         core, *rest = ctx.saved_tensors
@@ -166,36 +181,37 @@ class EPSContract(torch.autograd.Function):
         in_size = views_t[0].shape[0]
         out_size = core.shape[-1]
         npix = views_t[0].shape[-1]
-        u_t = u_prefixes[-1]
-        cm = core.reshape(in_size**n1, in_size ** (n - n1) * out_size)
+        u_t = _round(u_prefixes[-1], md)
+        cm = _round(core.reshape(in_size**n1, in_size ** (n - n1) * out_size), md)
         g_t = g.reshape(npix, out_size).T  # (O, N)
         # the input's cotangents only where the views need them (a first
         # layer's input does not)
-        need_views = any(ctx.needs_input_grad[2:])
+        need_views = any(ctx.needs_input_grad[3:])
         if n1 == n:
-            d_cm = u_t @ g_t.T  # (Q^n1, O)
+            g_m = _round(g_t, md)
+            d_cm = u_t @ g_m.T  # (Q^n1, O)
             if not need_views:
-                return (d_cm.reshape(core.shape), None, *([None] * n))
-            d_u = cm @ g_t  # (Q^n1, N)
+                return (d_cm.reshape(core.shape), None, None, *([None] * n))
+            d_u = cm @ g_m  # (Q^n1, N)
             d_views_t = _kr_chain_bwd_t(views_t, u_prefixes, d_u)
         else:
             v_prefixes, t3 = rest[n + n1 : -1], rest[-1]
-            kr2 = (v_prefixes[-1][:, None, :] * g_t[None, :, :]).reshape(-1, npix)
+            kr2 = _round((v_prefixes[-1][:, None, :] * g_t[None, :, :]).reshape(-1, npix), md)
             d_cm = u_t @ kr2.T  # (Q^n1, Q^n2·O)
             if not need_views:
-                return (d_cm.reshape(core.shape), None, *([None] * n))
+                return (d_cm.reshape(core.shape), None, None, *([None] * n))
             d_u = cm @ kr2  # (Q^n1, N)
             d_v = torch.sum(t3 * g_t[None, :, :], dim=1)  # (Q^n2, N)
             d_views_t = _kr_chain_bwd_t(views_t[:n1], u_prefixes, d_u) + _kr_chain_bwd_t(
                 views_t[n1:], v_prefixes, d_v
             )
         d_views = tuple(d.T.reshape(b, hp, wp, in_size) for d in d_views_t)
-        return (d_cm.reshape(core.shape), None, *d_views)
+        return (d_cm.reshape(core.shape), None, None, *d_views)
 
 
 def eps(
     core: torch.Tensor, x: torch.Tensor, split: Optional[int] = None, custom_vjp: bool = True,
-    backend: str = "xla",
+    backend: str = "xla", compute_dtype=None,
 ) -> torch.Tensor:
     """Contract an EPS ``core`` (Q,)*(K²·C) + (O,) with all K×K windows of
     ``x`` (C, B, H, W, Q), giving (B, H', W', O): the reference-layout
@@ -210,7 +226,13 @@ def eps(
     ``eps_dcore`` and the d_views kernel, on a CUDA tensor; their plain
     versions on a CPU one. Its split is the same ``_balanced_split`` of
     this core's O (a sharded core's local O), as the fast layout's; the
-    split is exact, so either route gives the same numbers."""
+    split is exact, so either route gives the same numbers.
+
+    ``compute_dtype``: None (float32) or ``torch.bfloat16``, the operands of
+    every product rounded to bf16 and summed in float32 (eps.py:292-293):
+    on the xla backend where the JAX package casts them, on the pallas
+    backend the kernels' bf16 mode."""
+    md = operand_dtype(compute_dtype)
     num_channels, _, _, _, in_size = x.shape
     kernel_size = _infer_kernel_size(core, num_channels)
     n = kernel_size**2 * num_channels
@@ -224,19 +246,19 @@ def eps(
         _, q_k, n1_k = _kernel_dims(num_channels, in_size, kernel_size, n1, merge_pairs)
         outT = eps_apply_t_cmt(
             _core_to_cmt_k(core, n1_k, q_k), x.permute(0, 4, 2, 3, 1), out_size, kernel_size,
-            n1, merge_pairs, layer_index=1 if x.requires_grad else 0,
+            n1, merge_pairs, layer_index=1 if x.requires_grad else 0, mm_dtype=compute_dtype,
         )
         return outT.permute(3, 1, 2, 0)
     if backend != "xla":
         raise ValueError(f"eps backend is xla or pallas, not {backend!r}")
     views = window_views(x, kernel_size)
     if custom_vjp:
-        return EPSContract.apply(core, n1, *views)
-    u = khatri_rao(views[:n1])  # (B, H', W', Q^n1)
-    t = u @ core.reshape(in_size**n1, in_size ** (n - n1) * out_size)
+        return EPSContract.apply(core, n1, md, *views)
+    u = _round(khatri_rao(views[:n1]), md)  # (B, H', W', Q^n1)
+    t = u @ _round(core.reshape(in_size**n1, in_size ** (n - n1) * out_size), md)
     if n1 == n:
         return t
-    v = khatri_rao(views[n1:])  # (B, H', W', Q^n2)
+    v = _round(khatri_rao(views[n1:]), md)  # (B, H', W', Q^n2)
     t = t.reshape(*t.shape[:-1], in_size ** (n - n1), out_size)
     return torch.sum(v[..., :, None] * t, dim=-2)
 

@@ -29,7 +29,9 @@ single-device step on the concatenated batch up to the summation order of
 the mean (``tests/test_torch_port_parallel.py``). The f32 fast step plans
 each rank's saved-t arm on its own pixels; the QAT step decides it on the
 global pixel count (``pixel_scale``, eps_pallas_q8.py:383-416), so its STE
-gradient is the single-device one.
+gradient is the single-device one. The model's ``cfg.compute_dtype`` rides
+along: the steps and the sharded evals run every EPS layer in its operands
+(bf16: the kernels' bf16 mode), as one device does.
 """
 
 from __future__ import annotations

@@ -91,8 +91,12 @@ def device_name(device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
-def objective_name(forward_only: bool, quantize: Optional[str]) -> str:
-    """``train``, ``train-int8``, ``serve-f32`` or ``serve-int8``."""
+def objective_name(forward_only: bool, quantize: Optional[str], compute_dtype=None) -> str:
+    """``train``, ``train-int8``, ``serve-f32`` or ``serve-int8``; with a
+    bf16 ``compute_dtype`` (the kernels' bf16 mode) ``train-bf16`` or
+    ``serve-bf16``."""
+    if quantize is None and compute_dtype is not None:
+        return "serve-bf16" if forward_only else "train-bf16"
     if forward_only:
         return f"serve-{quantize or 'f32'}"
     return "train" if quantize is None else f"train-{quantize}"
@@ -102,9 +106,9 @@ def _cache_key(cfg, batch_size, in_channels, *, device, max_candidates, charge_r
                min_gain, forward_only, quantize) -> str:
     """Everything that can change a measured ranking or the pick rule: the
     device and CUDA version, the layer-shape chain, the per-rank microbatch
-    (its pixel count sets the backward's arm), the objective, the
-    regularizer charged, the pick rule's constants and the saved-t
-    planning constants."""
+    (its pixel count sets the backward's arm), the compute dtype
+    (autotune.py:79-82), the objective, the regularizer charged, the pick
+    rule's constants and the saved-t planning constants."""
     key = {
         "schema": _CACHE_SCHEMA,
         "device": device_name(device),
@@ -114,7 +118,8 @@ def _cache_key(cfg, batch_size, in_channels, *, device, max_candidates, charge_r
         "q0": cfg.q0,
         "in_channels": in_channels,
         "batch_size": batch_size,
-        "objective": objective_name(forward_only, quantize),
+        "compute_dtype": None if cfg.compute_dtype is None else "bfloat16",
+        "objective": objective_name(forward_only, quantize, cfg.compute_dtype),
         "reg": reg_type if charge_reg else None,
         "max_candidates": max_candidates,
         "min_gain": min_gain,
@@ -164,9 +169,11 @@ def _layer_dims(cfg, in_channels: int = 1):
 
 # an H100 SXM's rates at its 700 W limit (NVIDIA's data sheet), as
 # chip_smoke.py counts them: float32 on the CUDA cores, the f32 kernels'
-# products in 3xTF32 on the tensor cores, dense int8, HBM3
+# products in 3xTF32 on the tensor cores, the bf16 mode's in dense bf16,
+# dense int8, HBM3
 _F32_FLOPS = 67e12
 _TF32X3_FLOPS = 495e12 / 3
+_BF16_FLOPS = 989e12
 _INT8_OPS = 1979e12
 _HBM_BYTES = 3.35e12
 
@@ -186,29 +193,33 @@ def hopper_split_cost(c: int, q: int, kernel_size: int, n1: int, out_size: int, 
     - the operand build: u's A and v's B2 entries a pixel and the sum over
       b of Z = O·B2 products (float32, CUDA cores);
     - the padding of the product to the kernels' tiles: A to the forward's
-      K step (32; int8: 64) and Z to its Z tile (128; int8: 256), and the
-      backward's 128 × 128 (Z, A) tiles of d_cmt and d_u;
-    - the backward's arm (``plan_backward``): t's Z·npix float32 entries
-      written and read back under the 4 GiB cap (saved t), or t computed
-      again (recompute);
+      K step (32; int8: 64) and Z to its Z tile (128; int8: 256; bf16: 64),
+      and the backward's 128 × 128 (Z, A) tiles of d_cmt and d_u (bf16:
+      64 × 64);
+    - the backward's arm (``plan_backward``): t's Z·npix entries (float32,
+      or bf16 under the bf16 objectives) written and read back under the
+      4 GiB cap (saved t), or t computed again (recompute);
 
-    each at the card's peak rate for its type."""
+    each at the card's peak rate for its type (the bf16 objectives'
+    products at the dense bf16 rate)."""
     _, merge = EK.plan_call(c, q, kernel_size, n1)
     n_k, q_k, n1_k = EK._kernel_dims(c, q, kernel_size, n1, merge)
     a, b2 = q_k**n1_k, q_k ** (n_k - n1_k)
     z = out_size * b2
+    bf16 = objective.endswith("bf16")
+    rate, tile, t_bytes = (_BF16_FLOPS, 64, 2) if bf16 else (_TF32X3_FLOPS, 128, 4)
     cost = npix * (a + b2 + 2 * z) / _F32_FLOPS
     if objective.endswith("int8"):
         cost += 2 * _pad(z, 256) * _pad(a, 64) * npix / _INT8_OPS
     else:
-        cost += 2 * _pad(z, 128) * _pad(a, 32) * npix / _TF32X3_FLOPS
+        cost += 2 * _pad(z, tile) * _pad(a, 32) * npix / rate
     if not objective.startswith("train"):
         return cost
-    tile_mm = 2 * _pad(z, 128) * _pad(a, 128) * npix / _TF32X3_FLOPS
+    tile_mm = 2 * _pad(z, tile) * _pad(a, tile) * npix / rate
     cost += tile_mm + npix * (a + z) / _F32_FLOPS  # d_cmt and its operands
-    arm = EK.plan_backward(layer_index, n_k, n1_k, q_k, out_size, npix)
+    arm = EK.plan_backward(layer_index, n_k, n1_k, q_k, out_size, npix, t_bytes)
     if arm == "saved_t":
-        cost += 2 * 4 * z * npix / _HBM_BYTES + tile_mm + npix * z / _F32_FLOPS
+        cost += 2 * t_bytes * z * npix / _HBM_BYTES + tile_mm + npix * z / _F32_FLOPS
     elif arm == "recompute":
         cost += 2 * tile_mm + npix * z / _F32_FLOPS
     return cost
@@ -219,7 +230,8 @@ def kernels_take_split(c: int, q: int, kernel_size: int, n1: int, out_size: int,
     """Whether the kernels that ``objective`` launches take this layer at
     split ``n1``: the wrappers' own argument checks (``eps_fwd``'s or
     ``eps_fwd_q8``'s plan, and for training ``eps_dcore``'s and the arm's
-    d_views kernel's), run on shape-only ``meta`` tensors."""
+    d_views kernel's), run on shape-only ``meta`` tensors; the bf16
+    objectives check the bf16 mode's plans."""
     n1_r, merge = EK.plan_call(c, q, kernel_size, n1)
     if n1_r != n1:
         return False
@@ -230,6 +242,9 @@ def kernels_take_split(c: int, q: int, kernel_size: int, n1: int, out_size: int,
         return torch.empty(shape, dtype=dtype, device="meta")
 
     views, cmt = meta(n_k, q_k, npix), meta(z, a)
+    if objective.endswith("bf16"):
+        return _bf16_kernels_take(views, meta(z, a, dtype=torch.bfloat16), meta, n1_k, out_size,
+                                  layer_index, objective)
     try:
         if objective.endswith("int8"):
             Q8._check_q8_args(views, meta(z, a, dtype=torch.int8), meta(z, 1), n1_k, out_size)
@@ -243,6 +258,29 @@ def kernels_take_split(c: int, q: int, kernel_size: int, n1: int, out_size: int,
                 EK._check_dviews_args("eps_dviews_t", views, cmt, g, meta(z, npix), n1_k, out_size)
             elif arm == "recompute":
                 EK._check_dviews_args("eps_dviews_recompute", views, cmt, g, None, n1_k, out_size)
+    except ValueError:
+        return False
+    return True
+
+
+def _bf16_kernels_take(views, cmt, meta, n1_k, out_size, layer_index, objective) -> bool:
+    """``kernels_take_split`` for the bf16 objectives: the bf16 mode's own
+    checks of K1, and for training of ``eps_dcore`` and the arm's d_views
+    kernel (t in bf16)."""
+    n_k, q_k, npix = views.shape
+    z = cmt.shape[0]
+    try:
+        EK._check_fwd_bf16_args(views, cmt, n1_k, out_size)
+        if objective.startswith("train"):
+            g = meta(out_size, npix)
+            EK._check_dcore_bf16_args(views, g, n1_k, out_size)
+            arm = EK.plan_backward(layer_index, n_k, n1_k, q_k, out_size, npix, 2)
+            if arm == "saved_t":
+                EK._check_dviews_bf16_args("eps_dviews_t", views, cmt, g,
+                                           meta(z, npix, dtype=torch.bfloat16), n1_k, out_size)
+            elif arm == "recompute":
+                EK._check_dviews_bf16_args("eps_dviews_recompute", views, cmt, g, None, n1_k,
+                                           out_size)
     except ValueError:
         return False
     return True
@@ -273,13 +311,14 @@ def candidate_splits(c: int, q: int, kernel_size: int, out_size: int, npix: int,
 
 
 def _measure_candidate(c, q, h, w, kernel_size, out_size, n1, batch_size, device, layer_index,
-                       generator, forward_only=False, quantize=None) -> float:
+                       generator, forward_only=False, quantize=None, mm_dtype=None) -> float:
     """ms of one layer at one split on ``device``, on random operands (the
     kernels have no data-dependent control flow): the forward and backward
     of ``EPSApplyTCmt`` for training, asking for the input's gradient past
     the first layer so that the d_views kernel runs (K8/K9 with the
     straight-through backward under ``quantize="int8"``); K1 without t for
-    f32 serving; K8 for int8 serving."""
+    f32 serving; K8 for int8 serving. ``mm_dtype`` bf16 measures the
+    kernels' bf16 mode, the run's."""
     n1_r, merge = EK.plan_call(c, q, kernel_size, n1)
     if n1_r != n1:
         raise ValueError(f"split n1={n1} is not legal for a layer whose factor pairs merge")
@@ -299,14 +338,16 @@ def _measure_candidate(c, q, h, w, kernel_size, out_size, n1, batch_size, device
 
         def call():
             with torch.inference_mode():
-                return EK.eps_apply_t_cmt(cmt, xT, *args, layer_index=layer_index)
+                return EK.eps_apply_t_cmt(cmt, xT, *args, layer_index=layer_index,
+                                          mm_dtype=mm_dtype)
 
     else:
         kernels = EK.KERNELS if quantize is None else Q8.QAT_KERNELS
         leaves = [cmt.requires_grad_()] + ([] if layer_index == 0 else [xT.requires_grad_()])
 
         def call():
-            out = EK.eps_apply_t_cmt(cmt, xT, *args, layer_index=layer_index, kernels=kernels)
+            out = EK.eps_apply_t_cmt(cmt, xT, *args, layer_index=layer_index, kernels=kernels,
+                                     mm_dtype=mm_dtype)
             return torch.autograd.grad(out.sum(), leaves)
 
     return timed_ms(call, device)
@@ -360,7 +401,7 @@ def _problem(cfg, batch_size, in_channels, device, reg_type, reg_coeff, forward_
 
     base_plans = fast_layer_plans(cfg, in_channels)
     charge_reg = reg_type == "epses_composition" and reg_coeff != 0.0 and not forward_only
-    objective = objective_name(forward_only, quantize)
+    objective = objective_name(forward_only, quantize, cfg.compute_dtype)
     dims = _layer_dims(cfg, in_channels)
 
     def legal(i, n1):
@@ -404,7 +445,9 @@ def autotune_splits(cfg, batch_size: int, in_channels: int = 1, *, device="cuda"
     runs (its pixel count sets the backward's arm).
 
     The objective: training f32 (default), QAT (``quantize="int8"``),
-    serving f32 (``forward_only``) or serving int8 (both). With the
+    serving f32 (``forward_only``) or serving int8 (both); a bf16
+    ``cfg.compute_dtype`` makes the f32 objectives the bf16 mode's
+    (``train-bf16``, ``serve-bf16``), measured and planned in it. With the
     ``epses_composition`` regularizer on (``reg_coeff`` ≠ 0) each training
     candidate is also charged its regularizer's marginal ms.
 
@@ -425,6 +468,7 @@ def autotune_splits(cfg, batch_size: int, in_channels: int = 1, *, device="cuda"
         if hit is not None:
             return hit
     generator = torch.Generator().manual_seed(seed)
+    bf16 = {} if cfg.compute_dtype is None else {"mm_dtype": cfg.compute_dtype}
     plans, report = [], []
     for i, ((c, q, h, w, kernel_size, out_size), base) in enumerate(
             zip(_layer_dims(cfg, in_channels), base_plans)):
@@ -439,7 +483,7 @@ def autotune_splits(cfg, batch_size: int, in_channels: int = 1, *, device="cuda"
             try:
                 ms = _measure_candidate(c, q, h, w, kernel_size, out_size, n1, batch_size,
                                         device, i, generator, forward_only=forward_only,
-                                        quantize=quantize)
+                                        quantize=quantize, **bf16)
                 row = {"n1": n1, "ms": ms}
                 if charge_reg:
                     row["reg_ms"] = _measure_reg_marginal(cfg, base_plans, i, n1, device,

@@ -93,15 +93,14 @@ def log_named_outputs(
 
 def eps_plus_linear_named_outputs(params, x: torch.Tensor, cfg) -> Dict[str, torch.Tensor]:
     """{eps_0, …, eps_{n-1}, linear} over reference-layout ``params``: each
-    EPS layer's output through the plain ``eps`` and the logits
-    (intermediate_logger.py:103-117)."""
+    EPS layer's output through the plain ``eps`` in ``cfg.compute_dtype``'s
+    operands, and the logits (intermediate_logger.py:103-117)."""
     from ..ops import eps as eps_mod
 
-    del cfg
     named: Dict[str, torch.Tensor] = {}
     intermediate = x
     for i, core in enumerate(params["epses"]):
-        out = eps_mod.eps(core, intermediate)
+        out = eps_mod.eps(core, intermediate, compute_dtype=cfg.compute_dtype)
         named[f"eps_{i}"] = out
         intermediate = out[None]
     h = intermediate[0]
@@ -112,18 +111,18 @@ def eps_plus_linear_named_outputs(params, x: torch.Tensor, cfg) -> Dict[str, tor
 def eps_plus_linear_named_outputs_fast(fast, x: torch.Tensor, cfg, plans) -> Dict[str, torch.Tensor]:
     """The same over fast-layout parameters: each layer through
     ``eps_apply_t_cmt`` (K1 without t on a card, its plain version on the
-    CPU), its batch-minor output relaid to (B, H', W', O)."""
+    CPU) in ``cfg.compute_dtype``'s operands, its batch-minor output relaid
+    to (B, H', W', O)."""
     from ..kernels.eps_kernels import eps_apply_t_cmt
     from ..models.eps_plus_linear import _transposed_classifier
 
-    del cfg
     named: Dict[str, torch.Tensor] = {}
     xT = x.permute(0, 4, 2, 3, 1)
     outT = None
     for i, (cmt, p) in enumerate(zip(fast["epses_cmt"], plans)):
         outT = eps_apply_t_cmt(
             cmt, xT, p["out_size"], p["kernel_size"], p["n1"], p["merge_pairs"],
-            layer_index=i,
+            layer_index=i, mm_dtype=cfg.compute_dtype,
         )
         named[f"eps_{i}"] = outT.permute(3, 1, 2, 0)
         xT = outT[None]

@@ -102,7 +102,9 @@ def make_fast_train_step(
     live f32 cores (after dropout), with straight-through gradients, so the
     numerics of int8 serving, not the f32 trajectory. A caller that passes
     its own bundle (``eps_q8_kernels.QAT_PLAIN`` for the plain QAT path)
-    passes no ``qat``.
+    passes no ``qat``. The model's ``cfg.compute_dtype`` is every EPS
+    layer's operand dtype (bf16 runs the kernels' bf16 mode); ``qat`` takes
+    none (float32).
 
     ``with_probs`` adds ``probs_of_true_class`` (see the module docstring).
 
@@ -117,6 +119,9 @@ def make_fast_train_step(
         raise ValueError(f"grad_accum_steps must be at least 1, got {grad_accum_steps}")
     if qat not in (None, "int8"):
         raise ValueError(f"unsupported qat mode {qat!r}")
+    if qat is not None and model.cfg.compute_dtype is not None:
+        raise ValueError("qat with a bf16 compute dtype is not ported yet (ROADMAP item 14b: "
+                         "the int8 forward would write its t in bf16)")
     if reg_type not in REG_TYPES:
         raise ValueError(f"unknown reg_type {reg_type!r}")
     if kernels is None:
@@ -278,9 +283,10 @@ def resolve_auto_grad_accum(cfg: EPSesPlusLinearConfig, plans, batch: int) -> in
     """``grad_accum_steps="auto"``: the smallest power of two that divides
     ``batch`` and at which no EPS layer's saved-t backward is held back by
     the cap on t (``saved_t_capped_layers``); 1 when none is. Ported from
-    the JAX runner's ``_resolve_auto_grad_accum`` (cli/runner.py:75-95), on
-    the port's float32 t: where the TPU's bf16 t fits at twice the
-    microbatch, the port may pick twice the steps."""
+    the JAX runner's ``_resolve_auto_grad_accum`` (cli/runner.py:75-95),
+    with t counted in its storage dtype: bf16 under ``cfg.compute_dtype``
+    bf16, which picks what the JAX runner picks on the TPU (2 for the deep
+    model at batch 2048), float32 otherwise (4 there)."""
     s = 1
     while s <= batch:
         if batch % s == 0 and not saved_t_capped_layers(cfg, plans, batch // s):

@@ -696,10 +696,11 @@ def test_legacy_runner_trains_at_training_picks_and_exports_serving_picks(tmp_pa
 
 
 def test_no_flag_of_the_autotuner_is_refused(tmp_path):
-    """ROADMAP item 20's flags are accepted by every CLI; the runner still
-    refuses only ``--compute-dtype bfloat16``."""
-    assert [r[0] for r in trunner.REFUSED] == ["compute_dtype"]
-    assert [r[0] for r in texport.REFUSED] == ["compute_dtype"]
+    """ROADMAP item 20's flags are accepted by every CLI; what the runner
+    and export still refuse is ``--compute-dtype bfloat16`` beside the flags
+    of ROADMAP item 14b."""
+    assert [r[0] for r in trunner.REFUSED] == ["qat", "model_devices", "space_devices"]
+    assert [r[0] for r in texport.REFUSED] == ["space_devices"]
     assert not hasattr(tlegacy, "REFUSED")
     kw = fill_defaults(trunner.main, dict(RECIPE, experiments_dir=str(tmp_path),
                                           autotune_splits=True, autotune_cache=True))

@@ -1397,3 +1397,166 @@ def test_sp_tp_grid_collectives_over_nccl_on_four_cards(four_cards):
     results = spawn(_sp_tp_collectives_job, Job(4, 4, Host(), "cuda"))
     bad = [(rank, what) for rank, checks in enumerate(results) for what, ok in checks if not ok]
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# the bf16 operand mode (K1 ± t, eps_dcore and both d_views forms)
+#
+# Tolerance: the kernel and its plain version form the same float32
+# operands (the plain version's suffix chain, in the same order) and round
+# them to the same bf16 values; bf16 products are exact in float32, so the
+# two differ only in the order of their float32 sums: REL_TOL of the
+# largest entry, as the float32 mode. The negative control: the float32
+# (3xTF32) kernel on the same inputs must differ from the bf16 result by
+# more than that tolerance, or the mode did not round. K1's saved t is
+# itself rounded to bf16 from sums taken in two orders, so an entry may land
+# one bf16 step (2^-7 of its size at most) from the plain version's.
+BF16_STEP = 2.0**-7
+
+
+def _assert_close_bf16(got, ref):
+    """``got`` against ``ref`` as ``_assert_close``; a bf16 tensor entry by
+    entry within one bf16 step of ``ref`` (plus REL_TOL of the largest)."""
+    if ref.dtype != torch.bfloat16:
+        _assert_close(got, ref)
+        return
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    limit = BF16_STEP * ref.abs() + REL_TOL * float(ref.abs().max())
+    assert bool(((got - ref).abs() <= limit).all())
+
+_BF16_SHAPES = [
+    (8, 4, 4, 4, 128 * 625),  # flagship layer 0 at batch 128
+    (9, 4, 5, 6, 128 * 529),  # flagship layer 1 at batch 128
+    (4, 4, 3, 6, 2 * 676),  # three-EPS layer 1: A = 64, B2 = 4
+    (4, 6, 3, 12, 2 * 625),  # three-EPS layer 2: A = 216, not a step multiple
+    (4, 12, 3, 24, 2 * 484),  # deep layer 2: A = 1728, B2 = 12
+    (9, 4, 5, 12, 2 * 529),  # deep layer 1: Z = 3072
+    (4, 3, 4, 5, 1000),  # n2 = 0: out = t
+    (6, 2, 3, 3, 777),  # ragged last pixel tile
+    (3, 5, 1, 2, 130),  # B2 = 25: outputs across pass rows
+    (10, 2, 2, 2, 300),  # B2 = 256, n2 = 8: the most factors a half takes
+]
+
+
+def _bf16_cases(views, cmt, g, n1, o):
+    """name → (kernel call, plain call, f32 kernel call, counter) on the
+    same inputs; cmt is float32, each bf16 call rounds it once."""
+    cb = cmt.to(torch.bfloat16)
+    n = views.shape[0]
+    tb = K.eps_fwd_reference(views, cb, n1, o, save_t=True)[1] if n1 < n else None
+    tf = K.eps_fwd_reference(views, cmt, n1, o, save_t=True)[1] if n1 < n else None
+    return {
+        "eps_fwd": (lambda: K.eps_fwd(views, cb, n1, o), lambda: K.eps_fwd_reference(views, cb, n1, o),
+                    lambda: K.eps_fwd(views, cmt, n1, o), (K.eps_fwd, "bf16_launches")),
+        "eps_fwd_t": (lambda: K.eps_fwd(views, cb, n1, o, save_t=True),
+                      lambda: K.eps_fwd_reference(views, cb, n1, o, save_t=True),
+                      lambda: K.eps_fwd(views, cmt, n1, o, save_t=True),
+                      (K.eps_fwd, "bf16_t_launches")),
+        "eps_dcore": (lambda: K.eps_dcore(views, g, n1, o, mm_dtype=torch.bfloat16),
+                      lambda: K.eps_dcore_reference(views, g, n1, o, torch.bfloat16),
+                      lambda: K.eps_dcore(views, g, n1, o), (K.eps_dcore, "bf16_launches")),
+        "eps_dviews_t": (lambda: K.eps_dviews_t(views, cb, g, tb, n1, o),
+                         lambda: K.eps_dviews_t_reference(views, cb, g, tb, n1, o),
+                         lambda: K.eps_dviews_t(views, cmt, g, tf, n1, o),
+                         (K.eps_dviews_t, "bf16_launches")),
+        "eps_dviews_recompute": (lambda: K.eps_dviews_recompute(views, cb, g, n1, o),
+                                 lambda: K.eps_dviews_recompute_reference(views, cb, g, n1, o),
+                                 lambda: K.eps_dviews_recompute(views, cmt, g, n1, o),
+                                 (K.eps_dviews_recompute, "bf16_launches")),
+    }
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["eps_fwd", "eps_fwd_t", "eps_dcore", "eps_dviews_t",
+                                    "eps_dviews_recompute"])
+@pytest.mark.parametrize("n,q,n1,o,npix", _BF16_SHAPES)
+def test_bf16_kernels_match_plain_and_round(cuda_device, kernel, n, q, n1, o, npix):
+    if kernel == "eps_fwd_t" and n1 == n:
+        pytest.skip("no t to save when n2 = 0")
+    views, cmt, g = _inputs(cuda_device, n, q, n1, o, npix)
+    call, plain, f32, (fn, counter) = _bf16_cases(views, cmt, g, n1, o)[kernel]
+    f32_before = fn.launches
+    before = getattr(fn, counter)
+    got = _as_tuple(call())
+    torch.cuda.synchronize()
+    assert getattr(fn, counter) == before + 1
+    assert fn.launches == f32_before
+    ref, full = _as_tuple(plain()), _as_tuple(f32())
+    for x, r, f in zip(got, ref, full):
+        assert x.dtype == r.dtype
+        _assert_close_bf16(x, r)
+        scale = float(r.float().abs().max())
+        assert float((x.float() - f.float()).abs().max()) > REL_TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["eps_fwd_t", "eps_dcore", "eps_dviews_t",
+                                    "eps_dviews_recompute"])
+def test_bf16_kernels_give_the_same_bits_twice(cuda_device, kernel):
+    views, cmt, g = _inputs(cuda_device, 9, 4, 5, 6, 20_000)
+    call = _bf16_cases(views, cmt, g, 5, 6)[kernel][0]
+    for a, b in zip(_as_tuple(call()), _as_tuple(call())):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_with_zero_factors(cuda_device):
+    views, cmt, g = _inputs(cuda_device, 9, 4, 5, 6, 700)
+    views[:, 0, ::3] = 0.0
+    views[2, :, ::5] = 0.0
+    views[7, :, 1::4] = 0.0
+    for call, plain, _, _ in _bf16_cases(views, cmt, g, 5, 6).values():
+        for x, r in zip(_as_tuple(call()), _as_tuple(plain())):
+            _assert_close_bf16(x, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer_index,n1,save", [(1, 5, True), (1, 5, False), (0, 5, False)])
+def test_bf16_layer_gradients_match_the_plain_path(cuda_device, layer_index, n1, save):
+    """EPSApplyTCmt in the bf16 mode on the kernels against the same
+    Function with the plain backward: the saved-t arm of the flagship's
+    layer 1, the same layer forced onto the recompute arm (a cap of 0
+    bytes), and the d_cmt-only arm; d_cmt comes back float32. Both sides run
+    the kernel's forward, so the backward reads the same saved bf16 t (the
+    plain forward's t, rounded from sums in another order, may land a bf16
+    step apart in some entries); the plain forward's output is held apart."""
+    xT = torch.rand((1, 4, 9, 9, 3), device=cuda_device, requires_grad=True)
+    cmt = (torch.randn((6 * 256, 1024), device=cuda_device) * 4**-4.5).requires_grad_(True)
+    plain_bwd = K.EPSKernels(K.eps_fwd, K.eps_dcore_reference, K.eps_dviews_t_reference,
+                             K.eps_dviews_recompute_reference)
+    cap = K.SAVE_T_MAX_BYTES
+    K.SAVE_T_MAX_BYTES = cap if save else 0
+    try:
+        grads, outs, t_writes = [], [], K.eps_fwd.bf16_t_launches
+        for kernels in (K.KERNELS, plain_bwd, K.PLAIN):
+            out = K.eps_apply_t_cmt(cmt, xT, 6, 3, n1, False, layer_index=layer_index,
+                                    kernels=kernels, mm_dtype=torch.bfloat16)
+            outs.append(out.detach())
+            if kernels is not K.PLAIN:
+                grads.append(torch.autograd.grad(torch.sum(out * torch.cos(out)), (xT, cmt)))
+    finally:
+        K.SAVE_T_MAX_BYTES = cap
+    assert K.eps_fwd.bf16_t_launches - t_writes == (2 if save and layer_index else 0)
+    _assert_close(outs[0], outs[2])
+    for a, b in zip(*grads):
+        assert a.dtype == b.dtype == torch.float32
+        _assert_close(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_mode_refuses_what_its_plan_does_not_take(cuda_device):
+    views, cmt, g = _inputs(cuda_device, 10, 2, 1, 2, 300)  # n - n1 = 9 factors of v
+    cb = cmt.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="ROADMAP item 14b"):
+        K.eps_dviews_recompute(views, cb, g, 1, 2)
+    t = torch.zeros((cmt.shape[0], 300), device=cuda_device)  # a float32 t with a bf16 cmt
+    with pytest.raises(ValueError, match="bfloat16"):
+        K.eps_dviews_t(views, cb, g, t, 1, 2)
+    with pytest.raises(ValueError, match="compute dtype"):
+        K.eps_dcore(views, g, 1, 2, mm_dtype=torch.float16)

@@ -14,7 +14,8 @@ rank). This module imports no JAX at import: the ranks import it.
 
 Tolerances: ``MOVE_TOL`` 5e-5 of the largest move against the JAX runner
 (float32 steps in other summation orders, as in
-``tests/test_torch_port_runner.py``); the legacy runner's weights within
+``tests/test_torch_port_runner.py``); ``BF16_MOVE_TOL`` 1e-3 for the bf16
+run (its test says why); the legacy runner's weights within
 rtol 1e-4, atol 1e-6 of JAX's (as ``test_one_epoch_beside_the_jax_runner``);
 the rest bit for bit.
 """
@@ -44,6 +45,8 @@ from dctn_tpu_torch.train.checkpoint import load_params_npz
 SPECS = ((2, 4), (2, 3))
 RANKS = 2
 MOVE_TOL = 5e-5
+# the bf16 DP run's moves against JAX's (test_bf16_runner_dp_beside_the_jax_dp_runner)
+BF16_MOVE_TOL = 1e-3
 TIMEOUT_S = 180
 # the JAX runner's DP step from the shared init: Adam at weight decay 0.1
 # (a mutated gradient's scale shows), evals every 2 of 4 iterations
@@ -176,6 +179,53 @@ def test_runner_dp_beside_the_jax_dp_runner(beside):
     assert ckpts[0] == ckpts[1]
     with open(os.path.join(beside["tdir"], "log.log")) as f:
         assert re.search(r"data parallel: 2 ranks \(gloo\), rank pids \[\d+, \d+\]", f.read())
+
+
+def test_bf16_runner_dp_beside_the_jax_dp_runner(tmp_path, pool):
+    """``--compute-dtype bfloat16`` at ``--mesh-devices 2`` through the
+    pool's ranks (xla backends, SGD 1e-3, 4 iterations) against the JAX
+    runner's bf16 DP run from the same init: every parameter's move within
+    BF16_MOVE_TOL of the largest, the ranks' model in the mode with float32
+    parameters; the port's float32 run misses the bound (the mode is on).
+
+    Why not MOVE_TOL: a bf16 operand that the two packages form from
+    float32 sums taken in other orders (a later layer's input chain, g·v)
+    can round one bf16 step apart, and the difference carries through the
+    steps (read: 3.7e-4 of the largest move, against 4e-3 between the
+    float32 and the bf16 run). Adam, which steps each entry by about ±lr,
+    would turn a gradient near 0 that such a step flips into a whole step
+    apart: SGD moves by the gradient itself."""
+    import jax
+
+    from dctn_tpu import models as jm
+    from dctn_tpu.cli import runner as jrunner
+    from dctn_tpu.train.checkpoint import save_pytree
+
+    init = jm.init_eps_plus_linear(jax.random.PRNGKey(3), jm.EPSesPlusLinearConfig(
+        epses_specs=SPECS, image_size=28, q0=2))
+    init_file = str(tmp_path / "init.npz")
+    save_pytree(init, init_file)
+    kw = dict(SHARED, load_model_state=init_file, optimizer_name="sgd", lr=1e-3, wd=0.0,
+              train_backend="xla", eval_backend="xla")
+    jstate = jrunner.run(experiments_dir=str(tmp_path / "jax"), mesh_devices=RANKS,
+                         autotune_cache=False, compute_dtype="bfloat16", **kw)
+    runs = {dtype: pool.run(job_eps_run, dict(kw, experiments_dir=str(tmp_path / dtype),
+                                              mesh_devices=RANKS, device="cpu",
+                                              compute_dtype=dtype), timeout=TIMEOUT_S)
+            for dtype in ("bfloat16", "float32")}
+    out = runs["bfloat16"]
+    assert out["num_iters_done"] == 4 and out["cfg"].compute_dtype == torch.bfloat16
+    assert all(c.dtype == torch.float32 for c in out["params"]["epses"])
+    init_np = _leaves(jax.tree_util.tree_map(np.asarray, init))
+    want = [b - a for a, b in zip(init_np, _leaves(jax.tree_util.tree_map(np.asarray,
+                                                                           jstate.params)))]
+    for dtype, run in runs.items():
+        got = [b - a for a, b in zip(init_np, _leaves(_np(run["params"])))]
+        off = [float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want)]
+        if dtype == "bfloat16":
+            assert max(off) <= BF16_MOVE_TOL, off
+        else:
+            assert max(off) > BF16_MOVE_TOL, off
 
 
 def test_jax_dp_train_state_resumes_in_the_port(beside):

@@ -287,7 +287,8 @@ def test_cli_end_to_end(made, tmp_path):
      "--autotune-splits needs --model-family eps and the pallas backend"),
     ({"autotune_splits": True, "model_family": "conv_sbs"},
      "--autotune-splits needs --model-family eps and the pallas backend"),
-    ({"compute_dtype": "bfloat16"}, r"bfloat16 is not ported .*follow-up 4"),
+    ({"compute_dtype": "bfloat16", "quantize": "int8"},
+     "--quantize int8 and --compute-dtype bfloat16 are mutually exclusive"),
     ({"quantize": "int8", "backend": "xla"}, "needs the pallas backend"),
     ({"quantize": "int8", "model_family": "conv_sbs"}, "needs --model-family eps"),
     ({"epses_specs": None}, "needs --epses-specs"),
