@@ -175,12 +175,15 @@ Run from the root of a checkout, with no arguments:
    each rank's layer 1 against its rows and O-slice of the whole layer bit
    for bit and the four partial logits summed against the one-card logits;
    (c) the SP x TP, TP-fast and SP-fast steps on a grid of one rank through
-   a real ``nccl`` group, bit-equal to the single-device steps with their
-   launches; (d) the flagship's height-sharded artifact (``export.run
-   --space-devices 2`` and ``4``): one K1 node per EPS layer, refused by
-   ``load_artifact`` on one card, and, every band on this card, its logits
-   against one card's artifact and each band's layer rows against the
-   whole image's. With two or more cards, phase 5b's multichip subprocess
+   a real ``nccl`` group, f32 and QAT, each in float32 and in bf16
+   operands, bit-equal to the single-device steps with their launches;
+   (d) the flagship's height-sharded artifact (``export.run
+   --space-devices 2`` and ``4``, and with ``--compute-dtype bfloat16`` at
+   2): one K1 node per EPS layer, refused by ``load_artifact`` on one
+   card, and, every band on this card, one K1 launch (its bf16 mode in the
+   bf16 artifact) a band and layer, its logits against one card's artifact
+   in the same dtype and each band's layer rows against the whole
+   image's. With two or more cards, phase 5b's multichip subprocess
    runs the TP, SP and (from 4 cards) SP x TP paths and the height-sharded
    artifact across them.
 10. The autotuners (``dctn_tpu_torch.train.autotune``) on the card: the
@@ -215,7 +218,18 @@ Run from the root of a checkout, with no arguments:
    bf16 artifact exported, loaded (one K1 node a layer, the bf16 mode's
    launches), its logits the eager bf16 model's bits, ``predict.run`` and
    a served request from it; (e) the flagship's f32 and bf16 step and
-   forward p50 in turns (f32, bf16, bf16, f32). One ``bf16`` JSON line.
+   forward p50 in turns (f32, bf16, bf16, f32); (f) K9 storing its t in
+   bf16 (the bf16 QAT step's) against its plain version at flagship layer
+   1, a TP and an SP shard's layer 1 and a layer only its mma.sync kernel
+   takes: t bit-equal to the plain version's and to the float32 K9's t
+   rounded, out bit-equal to the float32 K9's, both kernels run, with
+   kernel, plain, library (``torch._int_mm``) and bound times and the
+   float32 K9 in the same turns; (g) the flagship's bf16 QAT step through
+   ``bench.run`` (launches exact), one step's gradients on the kernels
+   against the plain bf16 QAT bundle within BF16_QAT_GRAD_TOL, 3 Adam steps
+   at 1e-4 against it, its forward logits the float32 QAT forward's bits;
+   (h) the flagship QAT step p50, f32 and bf16, in turns. One ``bf16`` JSON
+   line (the bf16 QAT numbers under ``qat``).
 12. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
    of the serving forward (f32 and int8) at batch 1 and 128 and of the
    flagship training step (f32 and QAT) at batch 128, on the kernel and on
@@ -474,6 +488,11 @@ BF16_KERNELS = {
     f"{name}_bf16": meta for name, meta in KERNELS.items()
     if name in ("eps_fwd", "eps_fwd_t", "eps_dcore", "eps_dviews_t", "eps_dviews_recompute")
 }
+# K9 storing its t in bf16: the bf16 QAT step's (eps_pallas_q8.py:297)
+BF16_KERNELS["eps_fwd_q8_t_bf16"] = {
+    "route": "cuda", "source": "dctn_tpu_torch/csrc/eps_fwd_q8.cu",
+    "replaces": "dctn_tpu/pallas/eps_pallas_q8.py:116",
+}
 KERNELS = {**KERNELS, **BF16_KERNELS}
 # a bf16 kernel against its plain bf16 version: both round the same
 # float32 operands (formed in the same order) to the same bf16 values, and
@@ -489,6 +508,23 @@ BF16_STEP = 2.0**-7
 BF16_RUN_ITERS = 10
 # the f32 and bf16 flagship steps and forwards timed in turns (phase 11 e)
 BF16_TURN_STEPS = 20
+# phase 11 (f): K9 with a bf16 t at these shapes beside flagship layer 1 at
+# batch 128: a TP and an SP shard's layer 1 (``grid_shard_shapes``) and a
+# layer that only the mma.sync kernel takes (A = 676)
+BF16_Q8_SHARDS = ("TP layer 1, O=3 (model 2)", "SP layer 1, 14 rows (space 2)")
+BF16_Q8_MMA_SYNC = ("mma.sync route, A = 676", 2, 26, 2, 3, 4000)
+# the flagship's bf16 QAT step (phase 11 g): its gradients on the kernels
+# against the plain bf16 QAT bundle's at batch 128. Both forwards are the
+# same int8 products and store the same bf16 t (K9's is the plain
+# version's, bit for bit), and the bf16 backward's kernels hold their plain
+# versions at REL_TOL (phase 11 a); what can differ more is an operand the
+# backward rounds to bf16 after float32 sums taken in other orders (layer
+# 0's kr2 = g·v, from layer 1's d_views): one bf16 step (2^-8) in the
+# entries that straddle a rounding boundary, averaged over the 80,000
+# pixels of layer 0's d_cmt. Predicted before the first card run: within
+# 1e-3 of the largest entry (the CPU's flagship at 8 images, whose d_cmt
+# sums 200 pixels, reads up to 6e-3, tests/test_torch_port_bf16.py)
+BF16_QAT_GRAD_TOL = 1e-3
 # the export and serve phase (3b): the seeded flagship exported f32 and int8
 # at ART_BATCHES, the ConvSBS model at SBS_ART_BATCHES; a loaded artifact's
 # logits against the eager model's on the same weights and images. The same
@@ -1297,18 +1333,22 @@ def launches_per_step(specs, batch, accum, qat, keys, image_size=28, q0=2, froze
     saved-t arm), ``eps_dcore`` (and its slice sum where its tiles are few;
     neither for a ``frozen`` layer), and the arm's d_views kernel (none for
     layer 0); ``accum`` microbatches. ``bf16``: the kernels' bf16 modes
-    (their ``*_bf16`` counters), t counted at 2 bytes by the saved-t cap."""
+    (their ``*_bf16`` counters), t counted at 2 bytes by the saved-t cap;
+    under ``qat`` K8/K9's forward, a bf16 t also in ``eps_fwd_q8_t_bf16``."""
     from dctn_tpu_torch.kernels import eps_kernels as K
 
     fwd = "eps_fwd" if qat is None else "eps_fwd_q8"
     sfx = "_bf16" if bf16 else ""
+    fsfx = "" if qat else sfx  # K8/K9 have no bf16 forward: a bf16 t counts apart
     slices = K._dcore_bf16_slices if bf16 else K._dcore_slices
     counts = dict.fromkeys(keys, 0)
     for i, (n, q, n1, o, h) in enumerate(layer_dims(specs, image_size, q0)):
         npix = batch // accum * h * h
         arm = K.plan_backward(i, n, n1, q, o, npix, 2 if bf16 else 4)
-        counts[fwd + sfx] += 1
-        counts[f"{fwd}_t{sfx}"] += arm == "saved_t"
+        counts[fwd + fsfx] += 1
+        counts[f"{fwd}_t{fsfx}"] += arm == "saved_t"
+        if qat and bf16:
+            counts["eps_fwd_q8_t_bf16"] += arm == "saved_t"
         if i not in frozen:
             counts["eps_dcore" + sfx] += 1
             counts["eps_dcore_sum" + sfx] += slices(o * q ** (n - n1), q**n1, npix,
@@ -2554,12 +2594,14 @@ def grid_shard_shapes():
 
 def grid_kernels_at_shard_shapes(K, Q8, dev, res) -> None:
     """Phase 5c (a): each kernel of a grid's step (K1 ± t, ``eps_dcore``,
-    ``eps_dviews_t``, K8/K9) against its plain version at the shard shapes
-    (``grid_shard_shapes``; layer 0 saves no t and needs no d_views), at
-    REL_TOL and K9's t bit for bit, as in phase 2; the launch plan each
-    shape takes (K1's and K8's kernel, ``eps_dcore``'s pixel slices) and the
-    kernel and plain times are printed; max |Δ| joins the kernel's in
-    ``res``."""
+    ``eps_dviews_t``, K8/K9, and their bf16 modes with K9's bf16 t) against
+    its plain version at the shard shapes (``grid_shard_shapes``; layer 0
+    saves no t and needs no d_views), at REL_TOL (a bf16 t within one bf16
+    step) and K9's t bit for bit, as in phases 2 and 11; the launch plan
+    each shape takes (K1's and K8's kernel, ``eps_dcore``'s pixel slices)
+    and the kernel and plain times are printed; max |Δ| joins the kernel's
+    in ``res`` (the bf16 modes' in phase 11's numbers)."""
+    bf = torch.bfloat16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, layer, n, q, n1, o, npix in grid_shard_shapes():
         g_ = torch.Generator(device=dev).manual_seed(SEED)
@@ -2568,6 +2610,8 @@ def grid_kernels_at_shard_shapes(K, Q8, dev, res) -> None:
         g = torch.randn((o, npix), generator=g_, device=dev)
         t = K.eps_fwd_reference(views, cmt, n1, o, save_t=True)[1]
         wq, sw = Q8.quantize_cmt(cmt)
+        cb = cmt.to(bf)
+        tb = K.eps_fwd_reference(views, cb, n1, o, save_t=True)[1]
         cases = {
             "eps_fwd": (lambda: K.eps_fwd(views, cmt, n1, o),
                         lambda: K.eps_fwd_reference(views, cmt, n1, o)),
@@ -2575,7 +2619,22 @@ def grid_kernels_at_shard_shapes(K, Q8, dev, res) -> None:
                           lambda: K.eps_dcore_reference(views, g, n1, o)),
             "eps_fwd_q8": (lambda: Q8.eps_fwd_q8(views, wq, sw, n1, o),
                            lambda: Q8.eps_fwd_q8_reference(views, wq, sw, n1, o)),
+            "eps_fwd_bf16": (lambda: K.eps_fwd(views, cb, n1, o),
+                             lambda: K.eps_fwd_reference(views, cb, n1, o)),
+            "eps_dcore_bf16": (lambda: K.eps_dcore(views, g, n1, o, mm_dtype=bf),
+                               lambda: K.eps_dcore_reference(views, g, n1, o, bf)),
         }
+        if layer == 1:
+            cases.update({
+                "eps_fwd_t_bf16": (lambda: K.eps_fwd(views, cb, n1, o, save_t=True),
+                                   lambda: K.eps_fwd_reference(views, cb, n1, o, save_t=True)),
+                "eps_dviews_t_bf16": (lambda: K.eps_dviews_t(views, cb, g, tb, n1, o),
+                                      lambda: K.eps_dviews_t_reference(views, cb, g, tb, n1, o)),
+                "eps_fwd_q8_t_bf16": (
+                    lambda: Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True, t_dtype=bf),
+                    lambda: Q8.eps_fwd_q8_reference(views, wq, sw, n1, o, save_t=True,
+                                                    t_dtype=bf)),
+            })
         if layer == 1:
             cases.update({
                 "eps_fwd_t": (lambda: K.eps_fwd(views, cmt, n1, o, save_t=True),
@@ -2599,21 +2658,29 @@ def grid_kernels_at_shard_shapes(K, Q8, dev, res) -> None:
             ref = ref if isinstance(ref, tuple) else (ref,)
             errs = []
             for which, x, r in zip(("out", "t"), got, ref):
-                err, scale = float((x - r).abs().max()), float(r.abs().max())
-                check(x.shape == r.shape and torch.isfinite(x).all().item(),
-                      f"{name} [{label}]: {which} shape {tuple(x.shape)} or non-finite")
-                check(err <= REL_TOL * scale,
-                      f"{name} [{label}]: {which} differs from plain by {err} (max|ref| {scale})")
-                if name == "eps_fwd_q8_t" and which == "t":
+                check(x.shape == r.shape and x.dtype == r.dtype
+                      and torch.isfinite(x.float()).all().item(),
+                      f"{name} [{label}]: {which} shape {tuple(x.shape)}, dtype or non-finite")
+                if name.startswith("eps_fwd_q8_t") and which == "t":
                     check(torch.equal(x, r), f"{name} [{label}]: t is not the plain version's "
                                              "bit for bit")
-                res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+                x, r = x.float(), r.float()
+                err, scale = float((x - r).abs().max()), float(r.abs().max())
+                if which == "t" and name == "eps_fwd_t_bf16":
+                    excess = float(((x - r).abs() - BF16_STEP * r.abs()).max())
+                    check(excess <= REL_TOL * scale,
+                          f"{name} [{label}]: t more than a bf16 step from plain ({excess})")
+                else:
+                    check(err <= REL_TOL * scale, f"{name} [{label}]: {which} differs from "
+                                                  f"plain by {err} (max|ref| {scale})")
+                if name in res:
+                    res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
                 errs.append(f"{which} max|d|={err:.3e} tol={REL_TOL * scale:.3e}")
             del got, ref
             t_k, t_p = median_ms([kern, plain], reps=5)
             print(f"  {name} vs plain [{label}]: {'; '.join(errs)}; kernel {t_k:.4f} ms, "
                   f"plain {t_p:.4f} ms")
-        del views, cmt, g, t, wq, sw
+        del views, cmt, g, t, wq, sw, cb, tb
 
 
 def grid_shards_vs_whole(K, Q8, params, cfg, x, dev) -> dict:
@@ -2726,9 +2793,12 @@ def grid_shards_vs_whole(K, Q8, params, cfg, x, dev) -> dict:
 def grid_world_size_1(bench, params, cfg, tx, ty, dev) -> tuple:
     """Phase 5c (c): the SP x TP, TP-fast and SP-fast steps on a grid whose
     every axis has one rank, through a real ``nccl`` process group (a file
-    store), DP_STEPS Adam steps f32 and QAT beside the single-device step
-    from one init: losses and parameters bit for bit, the same launches per
-    step. Returns (launch counts of the grid steps, record)."""
+    store), DP_STEPS Adam steps f32 and QAT, each in float32 and in bf16
+    operands, beside the single-device step from one init: losses and
+    parameters bit for bit, the same launches per step. Returns (launch
+    counts of the grid steps, record)."""
+    import dataclasses
+
     import torch.distributed as dist
 
     from dctn_tpu_torch.models import EPSesPlusLinear
@@ -2740,21 +2810,24 @@ def grid_world_size_1(bench, params, cfg, tx, ty, dev) -> tuple:
     from dctn_tpu_torch.train import make_fast_train_step, make_optimizer
 
     counts, record = [], {}
-    fast, plans = fast_params_from_reference(params, cfg)
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
         try:
             mesh = make_mesh(1)
             grids = {"tp": make_grid(mesh, "model", 1, 1), "sp": make_grid(mesh, "space", 1, 1),
                      "sp_tp": make_sp_tp_grid(mesh, 1, 1, 1)}
-            for qat in (None, "int8"):
+            for qat, dtype in ((None, None), ("int8", None), (None, torch.bfloat16),
+                               ("int8", torch.bfloat16)):
+                cfg_d = dataclasses.replace(cfg, compute_dtype=dtype)
+                fast, plans = fast_params_from_reference(params, cfg_d)
+                tag = f"qat={qat}" + ("" if dtype is None else " bf16")
                 runs = {}
                 for kind in ("sp_tp", "tp", "sp", "one"):
                     if kind in ("tp", "sp_tp"):
-                        model = TPFastModel(make_tp_fast_params(fast, cfg, grids[kind]), plans,
-                                            cfg, grids[kind])
+                        model = TPFastModel(make_tp_fast_params(fast, cfg_d, grids[kind]), plans,
+                                            cfg_d, grids[kind])
                     else:
-                        model = EPSesPlusLinear.from_reference(params, cfg, device=dev)
+                        model = EPSesPlusLinear.from_reference(params, cfg_d, device=dev)
                     opt = make_optimizer("adam", model.parameters(), bench.LR)
                     if kind == "sp_tp":
                         step = make_sp_tp_fast_train_step(model, opt, "epswise", bench.REG_COEFF,
@@ -2774,7 +2847,7 @@ def grid_world_size_1(bench, params, cfg, tx, ty, dev) -> tuple:
                     launched = bench.read_counters()
                     if kind != "one":
                         counts.append(launched)
-                    final = (merge_tp_fast_params(model.fast_params3(), cfg, grids[kind])
+                    final = (merge_tp_fast_params(model.fast_params3(), cfg_d, grids[kind])
                              if kind in ("tp", "sp_tp") else model.fast_params())
                     runs[kind] = (losses, [c.detach().clone() for c in final["epses_cmt"]]
                                   + [final["linear"]["w"].detach().clone(),
@@ -2783,11 +2856,14 @@ def grid_world_size_1(bench, params, cfg, tx, ty, dev) -> tuple:
                 for kind in ("sp_tp", "tp", "sp"):
                     losses, ps, launched = runs[kind]
                     check(losses == one[0] and all(torch.equal(a, b) for a, b in zip(ps, one[1])),
-                          f"{kind} grid at world size 1 (qat={qat}) is not the single-device "
+                          f"{kind} grid at world size 1 ({tag}) is not the single-device "
                           "step's bits")
-                    check(launched == one[2], f"{kind} grid (qat={qat}) launches {launched}, the "
+                    check(launched == one[2], f"{kind} grid ({tag}) launches {launched}, the "
                                               f"single-device step {one[2]}")
-                    record[f"{kind}_qat={qat}"] = {
+                    if dtype is not None:
+                        check(sum(v for k, v in launched.items() if k.endswith("_bf16")) > 0,
+                              f"{kind} grid ({tag}) launched no bf16 kernel: {launched}")
+                    record[f"{kind}_{tag}"] = {
                         "losses": losses, "launches_per_step": {
                             k: v / DP_STEPS for k, v in launched.items() if v}}
         finally:
@@ -2801,14 +2877,17 @@ SPACE_ARTIFACT_BANDS = (2, 4)
 
 def grid_space_artifact(bench, params, cfg, x, dev) -> tuple:
     """Phase 5c (d): the flagship exported by ``export.run --space-devices
-    S`` (pallas) for each S of SPACE_ARTIFACT_BANDS: its slab program holds
-    one ``dctn_tpu_torch::eps_fwd`` node per EPS layer, and ``load_artifact``
+    S`` (pallas) for each S of SPACE_ARTIFACT_BANDS, and with
+    ``--compute-dtype bfloat16`` for S = 2: its slab program holds one
+    ``dctn_tpu_torch::eps_fwd`` node per EPS layer, and ``load_artifact``
     on one card refuses it, naming the count. Then, for the numbers only,
     ``RowShardedForward`` built directly over the artifact's program with
     every band on this card (never through ``load_artifact``): its logits
-    within REL_TOL of one card's artifact of the same npz, and each band's
-    layer outputs (the eager slab program) equal to the whole image's rows,
-    bit for bit; the two timed in turns. Returns (launch counts, record)."""
+    within REL_TOL of one card's artifact of the same npz in the same
+    dtype, and each band's layer outputs (the eager slab program) equal to
+    the whole image's rows, bit for bit; the two timed in turns. Returns
+    (launch counts, record)."""
+    import dataclasses
     import zipfile
 
     from dctn_tpu_torch.cli import export
@@ -2817,58 +2896,71 @@ def grid_space_artifact(bench, params, cfg, x, dev) -> tuple:
 
     record = {}
     xb = x[:, :BATCH]
+    counts = []
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "flagship.npz")
         save_params_npz(params, ckpt)
-        one_art = os.path.join(tmp, "one.zip")
-        export.run(checkpoint=ckpt, epses_specs=FLAGSHIP, batch_sizes=(BATCH,), device="cuda",
-                   out=one_art)
-        one = export.load_artifact(one_art)[1][BATCH]
-        bench.zero_counters()
-        with torch.inference_mode():
-            want = one(xb)
-            program = export.space_slab_program(params, cfg).to(dev)
-            whole = program.features(xb)
-            for bands in SPACE_ARTIFACT_BANDS:
-                art = os.path.join(tmp, f"space{bands}.zip")
-                export.run(checkpoint=ckpt, epses_specs=FLAGSHIP, batch_sizes=(BATCH,),
-                           space_devices=bands, device="cuda", out=art)
-                try:
-                    export.load_artifact(art)
-                    refused = ""
-                except ValueError as e:
-                    refused = str(e)
-                check(f"{bands} replicas need {bands} CUDA cards; 1 visible" in refused,
-                      f"load_artifact of a {bands}-band artifact on one card: {refused!r}")
-                with zipfile.ZipFile(art) as zf:
-                    meta = json.loads(zf.read("meta.json"))
-                    prog = torch.export.load(io.BytesIO(zf.read(f"forward_bs{BATCH}.pt2"))).module()
-                    classifier = torch.load(io.BytesIO(zf.read("classifier.pt")), weights_only=True)
-                nodes = export.op_nodes(prog)
-                check(nodes == {"eps_fwd": len(FLAGSHIP)},
-                      f"{bands}-band artifact: operator nodes {nodes}")
-                prog = prog.to(dev)
-                fn = RowShardedForward([prog] * bands, [dev] * bands, list(classifier["w"]),
-                                       classifier["b"], meta["space_rows"], meta["space_halo"])
-                got = fn(xb)
-                share = float((got - want).abs().max()) / (REL_TOL * float(want.abs().max()))
-                check(share <= 1.0, f"{bands}-band artifact: logits {share:.3f} of REL_TOL from "
-                                    "one card's artifact")
-                rows, same = meta["space_rows"], []
-                for s, slab in enumerate(fn.slabs(xb)):
-                    band = program.features(slab)
-                    n_valid = max(0, min(rows, whole.shape[1] - s * rows))
-                    same.append(torch.equal(band[:, :n_valid],
-                                            whole[:, s * rows : s * rows + n_valid]))
-                check(all(same), f"{bands}-band artifact: band layer outputs {same} are not the "
-                                 "whole image's rows bit for bit")
-                t_band, t_one = median_ms([lambda: fn(xb), lambda: one(xb)], reps=10)
-                record[f"space_{bands}"] = {
-                    "slab_rows": rows + meta["space_halo"], "share_of_rel_tol": share,
-                    "bands_bit_equal": all(same), "op_nodes": nodes,
-                    "ms_all_bands_on_one_card": t_band, "one_card_artifact_ms": t_one}
-        torch.cuda.synchronize()
-        counts = bench.read_counters()
+        for dtype, all_bands in (("float32", SPACE_ARTIFACT_BANDS), ("bfloat16", (2,))):
+            sfx = "" if dtype == "float32" else "_bf16"
+            one_art = os.path.join(tmp, f"one{sfx}.zip")
+            export.run(checkpoint=ckpt, epses_specs=FLAGSHIP, batch_sizes=(BATCH,),
+                       device="cuda", compute_dtype=dtype, out=one_art)
+            one = export.load_artifact(one_art)[1][BATCH]
+            cfg_d = dataclasses.replace(cfg, compute_dtype=torch.bfloat16 if sfx else None)
+            bench.zero_counters()
+            with torch.inference_mode():
+                want = one(xb)
+                program = export.space_slab_program(params, cfg_d).to(dev)
+                whole = program.features(xb)
+                for bands in all_bands:
+                    art = os.path.join(tmp, f"space{bands}{sfx}.zip")
+                    export.run(checkpoint=ckpt, epses_specs=FLAGSHIP, batch_sizes=(BATCH,),
+                               space_devices=bands, device="cuda", compute_dtype=dtype, out=art)
+                    try:
+                        export.load_artifact(art)
+                        refused = ""
+                    except ValueError as e:
+                        refused = str(e)
+                    what = f"{bands}-band {dtype} artifact"
+                    check(f"{bands} replicas need {bands} CUDA cards; 1 visible" in refused,
+                          f"load_artifact of a {what} on one card: {refused!r}")
+                    with zipfile.ZipFile(art) as zf:
+                        meta = json.loads(zf.read("meta.json"))
+                        prog = torch.export.load(
+                            io.BytesIO(zf.read(f"forward_bs{BATCH}.pt2"))).module()
+                        classifier = torch.load(io.BytesIO(zf.read("classifier.pt")),
+                                                weights_only=True)
+                    check(meta["compute_dtype"] == dtype, f"{what}: meta {meta['compute_dtype']}")
+                    nodes = export.op_nodes(prog)
+                    check(nodes == {"eps_fwd": len(FLAGSHIP)}, f"{what}: operator nodes {nodes}")
+                    prog = export.place_program(prog, dev)
+                    fn = RowShardedForward([prog] * bands, [dev] * bands, list(classifier["w"]),
+                                           classifier["b"], meta["space_rows"],
+                                           meta["space_halo"])
+                    launched = bench.read_counters()[f"eps_fwd{sfx}"]
+                    got = fn(xb)
+                    torch.cuda.synchronize()
+                    moved = bench.read_counters()[f"eps_fwd{sfx}"] - launched
+                    check(moved == bands * len(FLAGSHIP),
+                          f"{what}: {moved} eps_fwd{sfx} launches, not one a band and layer")
+                    share = float((got - want).abs().max()) / (REL_TOL * float(want.abs().max()))
+                    check(share <= 1.0, f"{what}: logits {share:.3f} of REL_TOL from one card's "
+                                        "artifact")
+                    rows, same = meta["space_rows"], []
+                    for s_, slab in enumerate(fn.slabs(xb)):
+                        band = program.features(slab)
+                        n_valid = max(0, min(rows, whole.shape[1] - s_ * rows))
+                        same.append(torch.equal(band[:, :n_valid],
+                                                whole[:, s_ * rows : s_ * rows + n_valid]))
+                    check(all(same), f"{what}: band layer outputs {same} are not the whole "
+                                     "image's rows bit for bit")
+                    t_band, t_one = median_ms([lambda: fn(xb), lambda: one(xb)], reps=10)
+                    record[f"space_{bands}{sfx}"] = {
+                        "slab_rows": rows + meta["space_halo"], "share_of_rel_tol": share,
+                        "bands_bit_equal": all(same), "op_nodes": nodes,
+                        "ms_all_bands_on_one_card": t_band, "one_card_artifact_ms": t_one}
+            torch.cuda.synchronize()
+            counts.append(bench.read_counters())
     return counts, record
 
 
@@ -2887,7 +2979,7 @@ def grid_phase(bench, K, Q8, params, cfg, tx, ty, dev, res) -> list:
                       "shards_vs_whole": shards["max_share_of_rel_tol"],
                       "sp_x_tp_bit_equal": shards["sp_x_tp_bit_equal"],
                       "space_artifact": art_record}))
-    return counts + [art_counts]
+    return counts + art_counts
 
 
 def sbs_runner_phase(legacy_runner, bench, dev):
@@ -3723,6 +3815,166 @@ def bf16_phase(trunner, bench, K, params, cfg, dev, tmp) -> tuple:
     return counts, numbers, record
 
 
+def q8_bf16_t_vs_plain(K, Q8, dev) -> tuple:
+    """Phase 11 (f): K9 storing t in bf16 (the bf16 QAT step's) against its
+    plain version at flagship layer 1 at batch 128, at a TP and an SP
+    shard's layer 1 (BF16_Q8_SHARDS) and at a layer only the mma.sync kernel
+    takes (BF16_Q8_MMA_SYNC): t bit-equal to the plain version's and to the
+    float32 K9's t rounded to nearest even, out bit-equal to the float32
+    K9's (summed from the same float32 t) and within REL_TOL of the plain
+    version's; both kernels (wgmma and mma.sync) must run. Kernel, plain,
+    library (``torch._int_mm``, as K9's entry) and bound times at flagship
+    layer 1, with the float32 K9 timed in the same turns. Returns the
+    kernels line's numbers of ``eps_fwd_q8_t_bf16`` and the record."""
+    bf = torch.bfloat16
+    n, q, n1, o, h = layer_dims(FLAGSHIP)[1]
+    shapes = [("flagship layer 1", n, q, n1, o, BATCH * h * h)]
+    shapes += [(label, *dims) for label, _, *dims in grid_shard_shapes() if label in BF16_Q8_SHARDS]
+    shapes.append(BF16_Q8_MMA_SYNC)
+    check(len(shapes) == 4, f"K9 bf16 shapes {[s_[0] for s_ in shapes]}")
+    num = {"max_abs_err": 0.0, "timed_by": CUDA_EVENTS}
+    record, forms = {}, set()
+    g_ = torch.Generator(device=dev).manual_seed(SEED)
+    for label, n, q, n1, o, npix in shapes:
+        views = torch.rand((n, q, npix), generator=g_, device=dev)
+        cmt = torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev) * q ** (-n / 2)
+        wq, sw = Q8.quantize_cmt(cmt)
+        z, a = cmt.shape
+        form = Q8._q8_plan(n, q, n1, o, npix)["form"]
+        forms.add(form)
+        kern = lambda: Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True, t_dtype=bf)  # noqa: E731
+        k32 = lambda: Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True)  # noqa: E731
+        plain = lambda: Q8.eps_fwd_q8_reference(views, wq, sw, n1, o, save_t=True,  # noqa: E731
+                                                 t_dtype=bf)
+        before = Q8.eps_fwd_q8.bf16_t_launches
+        (out, t), (out32, t32), (rout, rt) = kern(), k32(), plain()
+        torch.cuda.synchronize()
+        check(Q8.eps_fwd_q8.bf16_t_launches == before + 1, f"K9 bf16 [{label}]: not counted")
+        check(t.dtype == rt.dtype == bf and t.shape == (z, npix), f"K9 bf16 [{label}]: t {t.dtype}")
+        check(torch.equal(t, rt), f"K9 bf16 [{label}]: t is not the plain version's bit for bit")
+        check(torch.equal(t, t32.to(bf)), f"K9 bf16 [{label}]: t is not the float32 K9's t "
+                                          "rounded to nearest even")
+        check(torch.equal(out, out32), f"K9 bf16 [{label}]: out is not the float32 K9's")
+        err, scale = float((out - rout).abs().max()), float(rout.abs().max())
+        check(torch.isfinite(out).all().item() and err <= REL_TOL * scale,
+              f"K9 bf16 [{label}]: out differs from plain by {err} (max|ref| {scale})")
+        num["max_abs_err"] = max(num["max_abs_err"], err)
+        print(f"eps_fwd_q8_t_bf16 vs plain [{label}] n={n} q={q} n1={n1} O={o} npix={npix} "
+              f"({form}): t bit-equal to plain and to the f32 K9's t rounded, out bit-equal to "
+              f"the f32 K9's, out max|d| vs plain {err:.3e} tol={REL_TOL * scale:.3e}")
+        if label == "flagship layer 1":
+            uq = Q8._quantize_columns(K._suffix_chain(views, 0, n1)[0])[0]
+            lib = lambda: torch._int_mm(wq, uq)  # noqa: E731
+            t_k, t_32, t_p, t_l = median_ms([kern, k32, plain, lib], reps=10)
+            gemm = 2.0 * z * a * npix
+            nbytes = 4.0 * (views.numel() + z + o * npix) + wq.numel() + 2.0 * z * npix
+            num["bound_ms"], num["bound_by"] = bound_ms(nbytes, 4.0 * z * npix, int8_ops=gemm)
+            num.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
+            record = {"ms": t_k, "f32_t_ms": t_32, "plain_ms": t_p, "library_ms": t_l,
+                      "bound_ms": num["bound_ms"], "bound_by": num["bound_by"]}
+            print(f"  K9 at flagship layer 1: bf16 t {t_k:.4f} ms, f32 t {t_32:.4f} ms (in turns), "
+                  f"plain {t_p:.4f} ms, torch._int_mm {t_l:.4f} ms, bound {num['bound_ms']:.4f} ms "
+                  f"({num['bound_by']})")
+        del views, cmt, wq, sw, out, t, out32, t32, rout, rt
+    check(forms == {"wgmma", "mma.sync"}, f"K9 bf16 ran on {forms}, not both kernels")
+    record["forms"] = sorted(forms)
+    return num, record
+
+
+def qat_bf16_phase(bench, K, Q8, params, cfg, tx, ty, dev) -> tuple:
+    """Phase 11 (f-h): the bf16 QAT step. (f) K9 with a bf16 t against its
+    plain version (``q8_bf16_t_vs_plain``); (g) the flagship's QAT step in
+    bf16 through ``bench.run`` (kernels and plain bundle, launches exact:
+    K8 at layer 0, K9 with a bf16 t at layer 1, ``eps_dcore`` and
+    ``eps_dviews_t`` in bf16), one step's gradients on the kernels against
+    the plain bf16 QAT bundle's within BF16_QAT_GRAD_TOL, and 3 Adam steps
+    at TRAJ_LR on both (losses at TRAJ_RTOL, parameters in norm at
+    TRAJ_NORM_TOL); its forward logits equal the float32 QAT forward's bit
+    for bit; (h) the flagship QAT step p50, f32 and bf16, in turns. Returns
+    (launch counts of g-h, the kernels line's K9 bf16 numbers, record)."""
+    import dataclasses
+
+    from dctn_tpu_torch.models import EPSesPlusLinear
+
+    bf = torch.bfloat16
+    numbers, record = q8_bf16_t_vs_plain(K, Q8, dev)
+    record = {"k9_bf16": record}
+    keys = tuple(bench.read_counters())
+    cfg16 = dataclasses.replace(cfg, compute_dtype=bf)
+    counts = []
+
+    # (g) the flagship's QAT step in bf16
+    want = launches_per_step(FLAGSHIP, BATCH, 1, "int8", keys, bf16=True)
+    check(want["eps_fwd_q8_t_bf16"] == 1 and want["eps_dviews_t_bf16"] == 1
+          and want["eps_fwd_q8"] == 2, f"the flagship's bf16 QAT arms {want}")
+    steps_run = 3 + 1 + TRAIN_STEPS
+    bench.zero_counters()
+    rec_k, rec_p = bench.run(device="cuda", steps=TRAIN_STEPS, compare_plain=True, qat="int8",
+                             compute_dtype=bf)
+    run_counts = bench.read_counters()
+    counts.append(run_counts)
+    check(rec_k["launches_per_step"] == {k: float(v) for k, v in want.items()},
+          f"bf16 QAT launches per step {rec_k['launches_per_step']} != {want}")
+    check(run_counts == {k: v * steps_run for k, v in want.items()},
+          f"bf16 QAT launches over the run {run_counts}")
+    for rec in (rec_k, rec_p):
+        check(all(math.isfinite(rec[k]) for k in ("first_loss", "last_loss")), "non-finite loss")
+        print_train_record(rec, "qat=int8 bf16")
+    xb, yb = tx[:, :BATCH], ty[:BATCH]
+    grads, trainers = [], []
+    for kernels in (Q8.QAT_KERNELS, Q8.QAT_PLAIN):
+        model, step = make_trainer(params, cfg16, kernels, dev, bench.LR)
+        step(xb, yb)
+        grads.append([p.grad for p in model.parameters()])
+    gap = compare_gradients(grads, BF16_QAT_GRAD_TOL, "flagship bf16 QAT kernel vs plain")
+    print(f"flagship bf16 QAT gradients, kernel vs plain: largest max|d|/max|ref| {gap:.3e} "
+          f"(limit {BF16_QAT_GRAD_TOL:g})")
+    record["gradient_gap"] = gap
+    del grads
+    for kernels in (Q8.QAT_KERNELS, Q8.QAT_PLAIN):
+        trainers.append(make_trainer(params, cfg16, kernels, dev, TRAJ_LR))
+    start = [p.detach().clone() for p in trainers[1][0].parameters()]
+    losses = [[float(step(xb, yb)["loss"]) for _ in range(3)] for _, step in trainers]
+    check(np.allclose(losses[0], losses[1], rtol=TRAJ_RTOL, atol=0),
+          f"bf16 QAT 3 steps: losses {losses[0]} vs plain {losses[1]}")
+    worst = 0.0
+    for pk, pp, p0 in zip(trainers[0][0].parameters(), trainers[1][0].parameters(), start):
+        move = float((pp.detach() - p0).norm())
+        gap_n = float((pk.detach() - pp.detach()).norm()) / max(move, 1e-30)
+        worst = max(worst, gap_n)
+    check(worst <= TRAJ_NORM_TOL, f"bf16 QAT 3 steps: parameters {worst:.3e} of the move apart")
+    print(f"flagship bf16 QAT, 3 Adam steps at lr {TRAJ_LR:g}, kernel vs plain: losses "
+          f"{losses[0]} vs {losses[1]}; parameters {worst:.3e} of the plain move apart (norm)")
+    record["trajectory"] = {"losses": losses, "parameter_gap": worst}
+    model32 = EPSesPlusLinear.from_reference(params, cfg, device=dev)
+    model16 = EPSesPlusLinear.from_reference(params, cfg16, device=dev)
+    bench.zero_counters()
+    with torch.inference_mode():
+        same = torch.equal(model16(xb, kernels=Q8.QAT_KERNELS), model32(xb, kernels=Q8.QAT_KERNELS))
+    counts.append(bench.read_counters())
+    check(same, "the bf16 QAT forward's logits are not the float32 QAT forward's bits")
+    del trainers, model32, model16
+
+    # (h) the flagship QAT step, f32 and bf16, in turns
+    bench.zero_counters()
+    turns = []
+    for dtype in (None, bf, bf, None):
+        (rec,) = bench.run(device="cuda", steps=BF16_TURN_STEPS, qat="int8", compute_dtype=dtype)
+        turns.append({k: rec[k] for k in ("compute_dtype", "step_ms_p50", "images_per_s",
+                                           "peak_extra_mib")})
+        print_train_record(rec, f"QAT turn {len(turns)} {rec['compute_dtype']}")
+    counts.append(bench.read_counters())
+    record["qat_turns"] = turns
+    for dtype in ("float32", "bfloat16"):
+        mine = [t_ for t_ in turns if t_["compute_dtype"] == dtype]
+        record[f"qat_{dtype}"] = {k: statistics.median(t_[k] for t_ in mine)
+                                  for k in ("step_ms_p50", "images_per_s")}
+    print(f"flagship QAT step at batch {BATCH}, in turns: p50 f32 "
+          f"{record['qat_float32']['step_ms_p50']:.4f} ms, bf16 "
+          f"{record['qat_bfloat16']['step_ms_p50']:.4f} ms")
+    return counts, numbers, record
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -4075,11 +4327,15 @@ def main(argv=None) -> int:
 
     # phase 11: the bf16 operand mode: its kernels against their plain
     # versions, the runner, the deep step at "auto", an artifact, and the
-    # flagship's f32 and bf16 step and forward in turns
+    # flagship's f32 and bf16 step and forward in turns; then K9 with a bf16
+    # t and the flagship's bf16 QAT step
     with tempfile.TemporaryDirectory() as tmp:
         bf16_counts, bf16_numbers, bf16_record = bf16_phase(eps_runner, bench, K, params, cfg,
                                                             dev, tmp)
     numbers.update(bf16_numbers)
+    qat_counts, numbers["eps_fwd_q8_t_bf16"], bf16_record["qat"] = qat_bf16_phase(
+        bench, K, Q8, params, cfg, tx, ty, dev)
+    bf16_counts += qat_counts
     print(json.dumps({"bf16": bf16_record}))
     phase_done("bf16 operands (11)")
     print(f"all phases: {time.perf_counter() - start:.1f} s")

@@ -24,7 +24,9 @@ the straight-through f32 backward.
 ``--compute-dtype bfloat16`` (JAX ``bench.py:79``, ``BENCH_COMPUTE_DTYPE``)
 times the step with every EPS product on bf16 operands and float32 sums:
 the kernels' bf16 mode (``--compare-plain``: their plain versions in the
-same mode, in the same run). Not with ``--qat`` (ROADMAP item 14b).
+same mode, in the same run). With ``--qat int8`` it times the bf16 QAT
+step: the int8 forward on the float32 cores, K9's saved t in bf16, the
+backward in the bf16 mode.
 
 Prints one JSON line per path: the compute dtype, images/s, step ms p50,
 the serving forward's ms p50 at the same batch (the model's forward under
@@ -128,6 +130,7 @@ COUNTERS = (
     ("eps_dcore_sum_bf16", K.eps_dcore, "bf16_sum_launches"),
     ("eps_dviews_t_bf16", K.eps_dviews_t, "bf16_launches"),
     ("eps_dviews_recompute_bf16", K.eps_dviews_recompute, "bf16_launches"),
+    ("eps_fwd_q8_t_bf16", Q8.eps_fwd_q8, "bf16_t_launches"),
 )
 # the ConvSBS kernels' counters, read apart: the EPS records keep their keys
 SBS_COUNTERS = (
@@ -315,9 +318,6 @@ def run(*, device="cuda", steps=30, warmup=3, batch_size=128, compare_plain=Fals
     launches count in the wrappers' counters after the steps'."""
     if qat not in PATHS:
         raise click.UsageError(f"--qat {qat}: none or int8")
-    if qat is not None and compute_dtype is not None:
-        raise click.UsageError("--qat int8 with --compute-dtype bfloat16 is not ported yet "
-                               "(ROADMAP item 14b)")
     if reg_type not in REG_TYPES:
         raise click.UsageError(f"--reg-type {reg_type}: one of {', '.join(REG_TYPES)}")
     device = _device(device)

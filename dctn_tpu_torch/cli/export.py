@@ -64,8 +64,10 @@ the forward with the EPS products' operands rounded to bf16 and float32
 sums: on the pallas backend each layer's float32 core is rounded inside
 the graph and K1 runs its bf16 mode, on the xla backend the plain
 operations round where the JAX ``eps`` casts; ``meta["compute_dtype"]``
-says ``"bfloat16"``. It refuses ``--quantize int8`` (JAX's words) and
-``--space-devices`` (ROADMAP item 14b).
+says ``"bfloat16"``. So does the height-sharded artifact
+(``--space-devices``: each card's slab program rounds its layers' cores the
+same way, JAX's ``_sp_fast_forward_local``, export.py:188-195). It refuses
+``--quantize int8`` (JAX's words).
 
 Artifact layout (a zip):
   meta.json          the model config, batch sizes, device type, backend
@@ -122,14 +124,6 @@ _META_NAME = "meta.json"
 _ENTRY = "forward_bs{}.pt2"
 _CLASSIFIER = "classifier.pt"
 BACKENDS = ("pallas", "xla")
-
-# the flags --compute-dtype bfloat16 does not take yet, each with the
-# values that mean "not used" and the ROADMAP item that ports it (as the
-# runner's REFUSED table)
-REFUSED = (
-    ("space_devices", (1,), "--space-devices > 1",
-     "item 14b (the height-sharded artifact in bf16)"),
-)
 
 
 class _Program(nn.Module):
@@ -289,13 +283,15 @@ class _SlabProgram(nn.Module):
     logits (B, classes) against the classifier's h-slice ``w_loc``
     (Hl·W'·O, classes, rows ordered (h, w, o)). ``plans`` None: the
     reference cores through the plain ``eps`` (xla); else the cmts through
-    the K1 operator (pallas)."""
+    the K1 operator (pallas). ``compute_dtype``: the products' operands,
+    None (float32) or bf16 (the float32 cores rounded inside the graph)."""
 
-    def __init__(self, cores, plans=None):
+    def __init__(self, cores, plans=None, compute_dtype=None):
         super().__init__()
         self.cores = nn.ParameterList(nn.Parameter(c.detach().clone().contiguous(),
                                                    requires_grad=False) for c in cores)
         self.plans = plans
+        self.compute_dtype = compute_dtype
 
     def features(self, slab: torch.Tensor) -> torch.Tensor:
         """The last EPS layer's output on ``slab`` (or on a whole image):
@@ -304,12 +300,13 @@ class _SlabProgram(nn.Module):
         if self.plans is None:
             h = slab
             for core in self.cores:
-                h = eps_mod.eps(core, h)[None]
+                h = eps_mod.eps(core, h, compute_dtype=self.compute_dtype)[None]
             return h[0]
         xT = slab.permute(0, 4, 2, 3, 1)
         for i, (cmt, p) in enumerate(zip(self.cores, self.plans)):
             xT = eps_apply_t_cmt(cmt, xT, p["out_size"], p["kernel_size"], p["n1"],
-                                 p["merge_pairs"], layer_index=i, kernels=ops.OP_KERNELS)[None]
+                                 p["merge_pairs"], layer_index=i, kernels=ops.OP_KERNELS,
+                                 mm_dtype=self.compute_dtype)[None]
         return xT[0]
 
     def forward(self, slab: torch.Tensor, w_loc: torch.Tensor) -> torch.Tensor:
@@ -353,13 +350,13 @@ def space_slab_program(params, cfg: EPSesPlusLinearConfig, channels: int = 1,
     """The slab program of reference-layout ``params`` on the CPU (what
     ``export_space_sharded_forward`` traces and serving places on each
     card): the fast layout's cmts at ``splits`` for ``pallas``, the
-    reference cores for ``xla``."""
+    reference cores for ``xla``; in ``cfg.compute_dtype``'s operands."""
     cores = tuple(c.detach().cpu() for c in params["epses"])
     if backend == "xla":
-        return _SlabProgram(cores)
+        return _SlabProgram(cores, compute_dtype=cfg.compute_dtype)
     fast, plans = fast_params_from_reference({"epses": cores, "linear": {}}, cfg,
                                              plans=_plans_at(cfg, channels, splits))
-    return _SlabProgram(fast["epses_cmt"], plans)
+    return _SlabProgram(fast["epses_cmt"], plans, cfg.compute_dtype)
 
 
 def export_space_sharded_forward(
@@ -467,6 +464,28 @@ def load_artifact(path: str, device=None) -> Tuple[dict, Dict[int, torch.nn.Modu
     return meta, fns
 
 
+# the check torch.export puts before each dtype cast (a bf16 artifact rounds
+# its float32 cores inside the graph): it names the device it was traced on
+_ASSERT_METADATA = torch.ops.aten._assert_tensor_metadata.default
+
+
+def place_program(fn, dev):
+    """A device-free program (a sharded artifact's ``torch.export`` module)
+    moved onto ``dev``, its weights frozen and its dtype casts' metadata
+    checks pointed at ``dev``, where its tensors now are. Returns it."""
+    fn = fn.to(dev)
+    for p in fn.parameters():
+        p.requires_grad_(False)
+    changed = False
+    for node in fn.graph.nodes:
+        if node.target is _ASSERT_METADATA and node.kwargs.get("device") is not None:
+            node.kwargs = {**node.kwargs, "device": torch.device(dev)}
+            changed = True
+    if changed:
+        fn.recompile()
+    return fn
+
+
 def _placed_programs(zf, names, meta: dict, exported_on: str, device, path: str, n: int):
     """The devices of a sharded artifact's ``n`` cards (``n`` CPU replicas),
     and {batch size: [a copy of the entry's device-free program on each]}."""
@@ -485,14 +504,9 @@ def _placed_programs(zf, names, meta: dict, exported_on: str, device, path: str,
         bs = int(name[len("forward_bs") : -len(".pt2")])
         base = torch.export.load(io.BytesIO(zf.read(name))).module()
         for node in base.graph.nodes:
-            if "device" in node.kwargs:
+            if "device" in node.kwargs and node.target is not _ASSERT_METADATA:
                 raise ValueError(f"{path}: its program names a device ({node}); it cannot move")
-        programs[bs] = []
-        for dev in devices:
-            fn = copy.deepcopy(base).to(dev)
-            for p in fn.parameters():
-                p.requires_grad_(False)
-            programs[bs].append(fn)
+        programs[bs] = [place_program(copy.deepcopy(base), dev) for dev in devices]
     return devices, programs
 
 
@@ -656,12 +670,6 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
         autotune_splits=False, autotune_cache=False, out=None) -> dict:
     """Export the npz ``checkpoint`` to the artifact ``out``; returns each
     entry point's export seconds and bytes, and the artifact's bytes."""
-    if compute_dtype == "bfloat16":
-        given = dict(space_devices=space_devices)
-        for name, accepted, flag, where in REFUSED:
-            if given[name] not in accepted:
-                raise click.UsageError(f"--compute-dtype bfloat16 with {flag} is not ported to "
-                                       f"the PyTorch export yet: ROADMAP, {where}")
     if backend == "auto":
         backend = "pallas"
     if autotune_splits and (model_family != "eps" or backend != "pallas"):

@@ -108,13 +108,13 @@ picks, and without ``--autotune-splits`` applies the cached splits alone.
 
 ``--compute-dtype bfloat16`` (runner.py:543-545) runs every EPS product on
 bf16 operands with float32 sums (the kernels' bf16 mode, the plain
-``eps``'s rounding on the xla backend) on one device and under
-``--mesh-devices``/``--distributed``; the parameters, the optimizer and the
+``eps``'s rounding on the xla backend) on one device, under
+``--mesh-devices``/``--distributed``, on the TP, SP and SP×TP grids
+(``--model-devices``, ``--space-devices``, ``--tp-shard-all``) and with
+``--qat int8`` (the int8 forward on the float32 cores, its saved t in
+bf16, the bf16 backward); the parameters, the optimizer and the
 checkpoints stay float32, and ``--export-artifact`` writes a bf16 artifact
-unless ``--export-quantize int8`` (runner.py:1763-1768). The combinations of
-bf16 the port does not run yet (with ``--qat int8``, ``--model-devices``
-or ``--space-devices`` above 1) are refused with a ``click.BadParameter``
-naming their ROADMAP item (``REFUSED``). The inits and dropout masks draw
+unless ``--export-quantize int8`` (runner.py:1763-1768). The inits and dropout masks draw
 from torch generators seeded from ``--seed``, so a seed gives other weights
 than in the JAX runner; pass ``--load-model-state`` to start both from the
 same ones.
@@ -215,14 +215,6 @@ LOG_FNAME = "log.log"
 REPO_ROOT = Path(__file__).resolve().parents[2]
 
 logger = logging.getLogger(__name__)
-
-# the flags --compute-dtype bfloat16 does not take yet, each with the values
-# that mean "not used" and the ROADMAP item that ports it
-REFUSED = (
-    ("qat", (None, "none"), "--qat int8", "item 14b (K9 writing its t in bf16)"),
-    ("model_devices", (1,), "--model-devices > 1", "item 14b (the TP steps in bf16)"),
-    ("space_devices", (1,), "--space-devices > 1", "item 14b (the SP and SP×TP steps in bf16)"),
-)
 
 
 def parse_eval_schedule(s: str):
@@ -432,8 +424,9 @@ def _hint_saved_t_recipe(cfg, plans, batch: int, accum: int) -> None:
 @click.option("--log-intermediate-reps-stats-batch-size", type=int, default=None)
 @click.option("--compute-dtype", type=click.Choice(("float32", "bfloat16")), default="float32",
               help="the EPS products' operands: bfloat16 rounds them to bf16 and sums in float32 "
-                   "(the kernels' bf16 mode); parameters and optimizer stay float32. Not yet with "
-                   "--qat, --model-devices or --space-devices (ROADMAP item 14b)")
+                   "(the kernels' bf16 mode); parameters and optimizer stay float32. With --qat "
+                   "int8 the int8 forward saves its t in bf16; on every grid "
+                   "(--mesh-devices, --model-devices, --space-devices) each rank runs the mode")
 @click.option("--eval-backend", type=click.Choice(("auto", "xla", "pallas")), default="auto",
               help="auto or pallas: the fast layout, through the kernels on cuda and their "
                    "plain versions on cpu; xla: the reference layout through torch.matmul")
@@ -512,13 +505,8 @@ def main(**kwargs) -> None:
 
 
 def _validate(kw: dict) -> None:
-    """The refused flags, then the flags' interactions (new_runner.py:289-321,
-    runner.py:401-500), each failure naming the flags."""
-    if kw["compute_dtype"] == "bfloat16":
-        for name, accepted, flag, where in REFUSED:
-            if kw[name] not in accepted:
-                raise click.BadParameter(f"--compute-dtype bfloat16 with {flag} is not ported to "
-                                         f"the PyTorch runner yet: ROADMAP, {where}")
+    """The flags' interactions (new_runner.py:289-321, runner.py:401-500),
+    each failure naming the flags."""
     specs = kw["epses_specs"]
     _validate_grid(kw)
     chosen: List[bool] = [False] * len(specs)

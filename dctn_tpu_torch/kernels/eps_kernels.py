@@ -95,8 +95,8 @@ SAVE_T_MIN_A = 512
 SAVE_T_MAX_BYTES = 4 << 30
 # the operand dtypes of the kernels: None (float32 in 3xTF32) or bf16
 OPERAND_DTYPES = (None, torch.bfloat16)
-# where the bf16 mode's limits are to be widened
-BF16_ITEM = "ROADMAP item 14b"
+# where the bf16 kernels' plans and their limits are written down
+BF16_ITEM = "ROADMAP, the bf16 plans' limits"
 
 
 def operand_dtype(mm_dtype) -> torch.dtype:
@@ -346,7 +346,10 @@ _ENTRIES = {
         "dctn_eps_dviews_t_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
         "dctn_eps_dviews_recompute_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
     },
-    "eps_fwd_q8": {"dctn_eps_fwd_q8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]},
+    "eps_fwd_q8": {
+        "dctn_eps_fwd_q8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
+        "dctn_eps_fwd_q8_t_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
+    },
 }
 
 
@@ -931,12 +934,16 @@ def _eps_dviews_bf16(name, views_t, cmt, g, t, n1, out_size):
 class EPSKernels:
     """The contractions of one EPS layer's forward and backward, with the
     signatures of ``eps_fwd``, ``eps_dcore``, ``eps_dviews_t`` and
-    ``eps_dviews_recompute``."""
+    ``eps_dviews_recompute``. ``quantizes``: ``fwd`` is an int8 forward
+    that quantizes the cmt it is given (the QAT bundles of
+    ``eps_q8_kernels``): it takes the float32 cmt in every mode, and a
+    ``t_dtype`` to store t in."""
 
     fwd: Callable
     dcore: Callable
     dviews_t: Callable
     dviews_recompute: Callable
+    quantizes: bool = False
 
 
 KERNELS = EPSKernels(eps_fwd, eps_dcore, eps_dviews_t, eps_dviews_recompute)
@@ -964,16 +971,22 @@ class EPSApplyTCmt(torch.autograd.Function):
     float32 cmt and rounds it to bf16 inside ``forward`` (``cmt32.astype
     (mm_dtype)``, eps_pallas.py:955), the kernels read the bf16 copy, and
     d_cmt comes back in float32 from ``dcore``. Cast outside the Function,
-    autograd would round the gradient to the bf16 input's dtype too."""
+    autograd would round the gradient to the bf16 input's dtype too. A
+    bundle that ``quantizes`` (QAT) gets the float32 cmt in its forward
+    instead, with t to be stored in the operand dtype
+    (``_q8train_fwd``, eps_pallas_q8.py:293-297); its backward reads the
+    bf16 copy (``_q8train_bwd``, :317-330)."""
 
     @staticmethod
     def forward(ctx, views_t, cmt, n1: int, out_size: int, save_t: bool, kernels: EPSKernels,
                 mm_dtype=None):
         cmtm = cmt if mm_dtype is None else cmt.to(operand_dtype(mm_dtype))
-        if save_t:
-            out, t = kernels.fwd(views_t, cmtm, n1, out_size, save_t=True)
+        if kernels.quantizes:
+            fwd = functools.partial(kernels.fwd, views_t, cmt, n1, out_size,
+                                    t_dtype=cmtm.dtype)
         else:
-            out, t = kernels.fwd(views_t, cmtm, n1, out_size), None
+            fwd = functools.partial(kernels.fwd, views_t, cmtm, n1, out_size)
+        out, t = fwd(save_t=True) if save_t else (fwd(), None)
         ctx.save_for_backward(views_t, cmtm, t)
         ctx.n1, ctx.out_size, ctx.kernels, ctx.mm_dtype = n1, out_size, kernels, mm_dtype
         return out

@@ -15,8 +15,11 @@ Scheme (dynamic W8A8, no calibration data, as in the JAX package):
 ``eps_fwd_q8`` runs the hand-written kernel (``csrc/eps_fwd_q8.cu``,
 replacing ``_fwd_q8_kernel_factory``, eps_pallas_q8.py:98) on CUDA tensors
 and its plain version ``eps_fwd_q8_reference`` on CPU tensors; with
-``save_t`` it also writes the dequantized t (K9). The quantizers of the
-weights stay torch ops on the card: they run outside the TPU kernel too.
+``save_t`` it also writes the dequantized t (K9), in float32 or, with
+``t_dtype=torch.bfloat16``, in bf16 (the float32 t rounded to nearest even,
+as the JAX QAT step stores it in its operand dtype, eps_pallas_q8.py:297).
+The quantizers of the weights stay torch ops on the card: they run outside
+the TPU kernel too.
 
 The plain version is written so that the kernel's uq, int32 t and saved t
 equal it bit for bit: true division everywhere (torch's CUDA division by a
@@ -25,13 +28,19 @@ and an exact integer product (an int8 ``torch.mm`` would wrap, and CUDA has
 no integer matmul: float64 on every device, exact below 2⁵³, and far faster
 on the CPU than an int32 matmul).
 
-QAT: ``QAT_KERNELS`` and ``QAT_PLAIN`` are ``EPSKernels`` bundles whose
-forward quantizes the live f32 cmt and runs the int8 forward; their backward
-is the f32 one (``eps_dcore``, ``eps_dviews_t``) on the f32 cmt, fed the
-dequantized t when one was saved, or recomputing t in f32 from the f32 cmt
-when none was (``eps_dviews_recompute``, as the JAX STE backward does,
-eps_pallas_q8.py:262-268), so ``EPSApplyTCmt`` gives the
-straight-through backward unchanged, and ``plan_backward`` picks each
+QAT: ``QAT_KERNELS`` and ``QAT_PLAIN`` are ``EPSKernels`` bundles (marked
+``quantizes``) whose forward quantizes the live f32 cmt and runs the int8
+forward; their backward is the operand dtype's (``eps_dcore``,
+``eps_dviews_t``) on the cmt in that dtype, fed the dequantized t when one
+was saved, or recomputing t from the cmt when none was
+(``eps_dviews_recompute``, as the JAX STE backward does,
+eps_pallas_q8.py:262-268, :317-330), so ``EPSApplyTCmt`` gives the
+straight-through backward unchanged. In the bf16 mode ``EPSApplyTCmt``
+hands the forward the float32 cmt (JAX quantizes ``cmt32``,
+eps_pallas_q8.py:293: quantizing the bf16-rounded core would change
+``sw`` and ``wq``, and the forward would no longer be int8 serving's) with
+``t_dtype`` bf16, and the backward the bf16-rounded copy, so the QAT
+forward's logits are the float32 QAT step's bit for bit. ``plan_backward`` picks each
 layer's arm as it does for the f32 forward (the JAX package's
 ``qat_save_decision`` is the same rule). Because the arm changes the STE
 gradient (a saved dequantized t, or t recomputed in f32), a data-parallel
@@ -123,11 +132,13 @@ def _int_matmul(wq: torch.Tensor, uq: torch.Tensor) -> torch.Tensor:
 
 def eps_fwd_q8_reference(
     views_t: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, n1: int, out_size: int,
-    save_t: bool = False,
+    save_t: bool = False, t_dtype=None,
 ):
     """The int8 forward kernel's plain PyTorch version: (n, q, npix) f32
     views, the (Z, A) int8 wq and its (Z, 1) scales → (O, npix), and the
-    dequantized t (Z, npix) too when ``save_t``."""
+    dequantized t (Z, npix) too when ``save_t``, in ``t_dtype`` (None:
+    float32; bf16: the float32 t rounded to nearest even; ``out`` is summed
+    from the float32 t either way)."""
     n, _, npix = views_t.shape
     uq, su = _quantize_columns(_suffix_chain(views_t, 0, n1)[0])
     t = (_int_matmul(wq, uq).to(torch.float32) * sw) * su
@@ -136,11 +147,19 @@ def eps_fwd_q8_reference(
     else:
         v = _suffix_chain(views_t, n1, n)[0]
         out = torch.sum(t.reshape(out_size, -1, npix) * v[None], dim=1)
-    return (out, t) if save_t else out
+    return (out, t.to(_t_dtype(t_dtype))) if save_t else out
 
 
 # ---------------------------------------------------------------------------
 # the kernel's wrapper
+
+
+def _t_dtype(t_dtype) -> torch.dtype:
+    """K9's storage dtype of t: float32 (None) or bf16; anything else
+    raises."""
+    if t_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"eps_fwd_q8 stores t in float32 or bfloat16, not {t_dtype!r}")
+    return torch.float32 if t_dtype is None else t_dtype
 
 
 def _align128(x: int) -> int:
@@ -226,16 +245,25 @@ def _check_q8_args(views_t, wq, sw, n1, out_size):
 
 
 def _launch_q8(views_t, wq, sw, n1: int, out_size: int, t=None, su=None) -> torch.Tensor:
-    """One launch of the kernel on CUDA tensors (``t`` (Z, npix) and ``su``
-    (npix,) are written when given); counts it in ``eps_fwd_q8.launches``
-    and, with ``t``, ``eps_fwd_q8.t_launches``."""
+    """One launch of the kernel on CUDA tensors (``t`` (Z, npix), float32
+    or bf16, and ``su`` (npix,) are written when given); counts it in
+    ``eps_fwd_q8.launches`` and, with ``t``, ``eps_fwd_q8.t_launches``, a
+    bf16 t also in ``eps_fwd_q8.bf16_t_launches``."""
     _check_device("eps_fwd_q8", views_t)
     _check_q8_args(views_t, wq, sw, n1, out_size)
     n, q, npix = views_t.shape
     dev = views_t.device
+    bf16_t = t is not None and t.dtype == torch.bfloat16
+    if t is not None and (t.dtype not in (torch.float32, torch.bfloat16) or not t.is_contiguous()
+                          or tuple(t.shape) != (wq.shape[0], npix) or t.device != dev):
+        raise ValueError(f"eps_fwd_q8: t must be a contiguous float32 or bfloat16 (Z, npix) = "
+                         f"{(wq.shape[0], npix)} tensor on {dev}, not {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
     out = torch.empty((out_size, npix), dtype=torch.float32, device=dev)
+    lib = _library("eps_fwd_q8")
+    entry = lib.dctn_eps_fwd_q8_t_bf16 if bf16_t else lib.dctn_eps_fwd_q8
     with torch.cuda.device(dev):
-        err = _library("eps_fwd_q8").dctn_eps_fwd_q8(
+        err = entry(
             views_t.data_ptr(), wq.data_ptr(), sw.data_ptr(), out.data_ptr(),
             None if t is None else t.data_ptr(), None if su is None else su.data_ptr(),
             n, q, n1, out_size, npix, _stream(dev),
@@ -243,29 +271,35 @@ def _launch_q8(views_t, wq, sw, n1: int, out_size: int, t=None, su=None) -> torc
     _raise_on_error("eps_fwd_q8", err)
     eps_fwd_q8.launches += 1
     eps_fwd_q8.t_launches += t is not None
+    eps_fwd_q8.bf16_t_launches += bf16_t
     return out
 
 
 def eps_fwd_q8(
     views_t: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, n1: int, out_size: int,
-    save_t: bool = False,
+    save_t: bool = False, t_dtype=None,
 ):
     """One EPS layer's int8 forward on the factor stack: (n, q, npix) f32
     views, the (Z, A) int8 wq and its (Z, 1) f32 scales → (O, npix), and the
-    dequantized t (Z, npix) too when ``save_t``. CPU tensors run
+    dequantized t (Z, npix) too when ``save_t``, stored in ``t_dtype``
+    (None: float32; bf16: rounded to nearest even from the float32 t, which
+    ``out`` is summed from either way). CPU tensors run
     ``eps_fwd_q8_reference``; CUDA tensors run the kernel:
-    ``eps_fwd_q8.launches`` counts its launches and ``eps_fwd_q8.t_launches``
-    those that wrote t."""
+    ``eps_fwd_q8.launches`` counts its launches, ``eps_fwd_q8.t_launches``
+    those that wrote t and ``eps_fwd_q8.bf16_t_launches`` those that wrote
+    it in bf16."""
+    t_dtype = _t_dtype(t_dtype)
     if views_t.device.type == "cpu":
-        return eps_fwd_q8_reference(views_t, wq, sw, n1, out_size, save_t)
+        return eps_fwd_q8_reference(views_t, wq, sw, n1, out_size, save_t, t_dtype)
     if not save_t:
         return _launch_q8(views_t, wq, sw, n1, out_size)
-    t = torch.empty((wq.shape[0], views_t.shape[2]), dtype=torch.float32, device=views_t.device)
+    t = torch.empty((wq.shape[0], views_t.shape[2]), dtype=t_dtype, device=views_t.device)
     return _launch_q8(views_t, wq, sw, n1, out_size, t=t), t
 
 
 eps_fwd_q8.launches = 0
 eps_fwd_q8.t_launches = 0
+eps_fwd_q8.bf16_t_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -309,21 +343,23 @@ def quantize_reference_params(params, cfg, plans=None):
 
 
 def _quantized_fwd(q8_fwd):
-    """An ``EPSKernels.fwd`` that quantizes the live f32 cmt and runs
-    ``q8_fwd`` (the kernel or its plain version)."""
+    """An ``EPSKernels.fwd`` that quantizes the live cmt (float32: the QAT
+    bundles' ``EPSApplyTCmt`` passes the float32 parameter in every mode)
+    and runs ``q8_fwd`` (the kernel or its plain version), t stored in
+    ``t_dtype``."""
 
-    def fwd(views_t, cmt, n1, out_size, save_t=False):
+    def fwd(views_t, cmt, n1, out_size, save_t=False, t_dtype=None):
         wq, sw = quantize_cmt(cmt)
-        return q8_fwd(views_t, wq, sw, n1, out_size, save_t)
+        return q8_fwd(views_t, wq, sw, n1, out_size, save_t, t_dtype)
 
     return fwd
 
 
 QAT_KERNELS = EPSKernels(
-    _quantized_fwd(eps_fwd_q8), eps_dcore, eps_dviews_t, eps_dviews_recompute
+    _quantized_fwd(eps_fwd_q8), eps_dcore, eps_dviews_t, eps_dviews_recompute, quantizes=True
 )
 QAT_PLAIN = EPSKernels(
     _quantized_fwd(eps_fwd_q8_reference), eps_dcore_reference, eps_dviews_t_reference,
-    eps_dviews_recompute_reference,
+    eps_dviews_recompute_reference, quantizes=True,
 )
 

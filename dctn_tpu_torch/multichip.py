@@ -62,6 +62,14 @@ block) and ``sp_x_tp_qat_int8_train``; then their times, the flagship f32
 and QAT steps at 128 a data rank beside one card and beside SP (1, N) at the
 same global batch, and the deep model at global 2048.
 
+Then the bf16 operand mode (``compute_dtype`` bf16) on the same grids, each
+path held against one card in bf16: ``dp_qat_int8_train_bf16`` (the DP QAT
+step, K9 storing its t in bf16), and the f32 paths' layout and QAT on TP
+(N/2, 2), SP (N/2, 2) and, from 4 ranks, SP×TP (N/4, 2, 2)
+(``tp_fast_cmt_pallas_bf16``, ``tp_qat_int8_train_bf16``, ``sp_…_bf16``,
+``sp_x_tp_…_bf16``; with a model axis at BF16_MODEL_AXIS_TOL); and their
+times at 128 a data rank beside one card in bf16.
+
 Then, in this process, with a replica on each card (``parallel.replicas``):
 ``dp_sharded_predict`` and ``dp_sharded_predict_int8`` (``predict.run
 --mesh-devices N`` at global batch 512 beside one card; every replica's
@@ -72,7 +80,8 @@ logits equal replica 0's on the same images, bit for bit),
 sharded artifact over N cards) and ``sp_sharded_export_serving`` (the
 height-sharded artifact, ``export.run --space-devices S`` at S = 2 and,
 from 4 cards, 4, by bands of rows, against one card's artifact in the call:
-logits, p50 at batch 128, served and predicted from).
+logits, p50 at batch 128, served and predicted from), and the same in bf16
+(``sp_sharded_export_serving_bf16``, against one card's bf16 artifact).
 
 One JSON line per path with its checks and times; the last line is
 ``{"ok": true, "paths": [...]}``. Any failed check exits nonzero before it.
@@ -128,6 +137,17 @@ TRAJ_TOL = 1e-3
 # classifier's sum runs in another order (over S partial products, then
 # the bias); float32 sums of 3,174 products each, ~1e-6 of the largest
 ARTIFACT_TOL = 1e-5
+# the bf16 paths with a model axis (TP, SP×TP) against one card in bf16,
+# gradients and moves alike, as a share of the largest entry: the early
+# cores are replicated, and each model rank's d_cmt of them rounds kr2 =
+# g·v of its partial cotangent to bf16 before the sum over ``model`` (as
+# the JAX TP step does), where one card rounds the whole cotangent once:
+# each of the M + 1 roundings is at most half a bf16 step (2^-9) of the
+# operand, so at most (M + 1)·2^-9 = 6e-3 of the largest entry at M = 2. The
+# paths without a model axis (DP, SP) round each pixel's operands from the
+# same float32 values up to the order of the sums, and keep DP_TOL and
+# TRAJ_TOL.
+BF16_MODEL_AXIS_TOL = 6e-3
 
 # every failed check of this process, in order (``check``)
 _FAILED: list = []
@@ -172,18 +192,18 @@ def _data(specs, n: int, seed: int = 0):
     return sp.x, sp.y.astype(np.int64)
 
 
-def _grads_agree(dp, one, what: str) -> float:
+def _grads_agree(dp, one, what: str, tol: float = DP_TOL) -> float:
     """The largest gap between the DP step's gradient of a parameter (after
     its all-reduce) and one card's on the concatenated batch, from the same
     parameters, as a share of one card's largest entry of it (checked
-    against DP_TOL)."""
+    against ``tol``, DP_TOL by default)."""
     worst = 0.0
     for i, (a, b) in enumerate(zip(dp, one)):
         scale = float(b.abs().max())
         if check(scale > 0, f"{what}: parameter {i} has no gradient"):
             gap = float((a.double() - b.double()).abs().max()) / scale
             worst = max(worst, gap if np.isfinite(gap) else float("inf"))
-    check(worst <= DP_TOL, f"{what}: gradients differ by {worst:.3e} of the largest > {DP_TOL}")
+    check(worst <= tol, f"{what}: gradients differ by {worst:.3e} of the largest > {tol}")
     return worst
 
 
@@ -221,10 +241,10 @@ def _ranks_agree(mesh, model, what: str) -> bool:
                  f"{what}: the ranks' parameters differ after {CHECK_STEPS} steps")
 
 
-def _moves_agree(init, dp, one, what: str) -> float:
+def _moves_agree(init, dp, one, what: str, tol: float = TRAJ_TOL) -> float:
     """The largest L2 gap between a parameter's move on the ranks and on one
     card, from the same parameters and lrs, relative to one card's move
-    (checked against TRAJ_TOL)."""
+    (checked against ``tol``, TRAJ_TOL by default)."""
     worst = 0.0
     for i, (p0, a, b) in enumerate(zip(init, dp, one)):
         da, db = a.detach().double() - p0.double(), b.detach().double() - p0.double()
@@ -232,18 +252,19 @@ def _moves_agree(init, dp, one, what: str) -> float:
         if check(norm > 0 and np.isfinite(norm), f"{what}: parameter {i} did not move on one card"):
             gap = float((da - db).norm()) / norm
             worst = max(worst, gap if np.isfinite(gap) else float("inf"))
-    check(worst <= TRAJ_TOL, f"{what}: moves differ by {worst:.3e} (L2) > {TRAJ_TOL}")
+    check(worst <= tol, f"{what}: moves differ by {worst:.3e} (L2) > {tol}")
     return worst
 
 
-def _trajectory(mesh, model, opt, step, one_card, what: str) -> dict:
+def _trajectory(mesh, model, opt, step, one_card, what: str, tols=(DP_TOL, TRAJ_TOL)) -> dict:
     """The checks' run: ``step()`` (the DP step on this rank's sub-batch →
     the ranks' mean loss) once at lr 0, whose gradients rank 0 holds
     against one card's on the concatenated batch (DP_TOL); then CHECK_STEPS
     steps at the lrs ``_step_lrs`` sets from those gradients, after which
     every rank's parameters must equal rank 0's and rank 0's moves those of
-    one card taking the same steps at the same lrs (TRAJ_TOL).
-    ``one_card()`` → (model, optimizer, step) of one card, run on rank 0."""
+    one card taking the same steps at the same lrs (TRAJ_TOL; ``tols``
+    gives both bounds). ``one_card()`` → (model, optimizer, step) of one
+    card, run on rank 0."""
     from .bench import read_counters, read_sbs_counters, zero_counters
 
     zero_counters()
@@ -261,19 +282,19 @@ def _trajectory(mesh, model, opt, step, one_card, what: str) -> dict:
     if mesh.is_primary:
         one, opt1, step1 = one_card()
         rec["one_card_loss"] = float(step1())
-        rec["gradient_gap"] = _grads_agree(grads, _grads(one), what)
+        rec["gradient_gap"] = _grads_agree(grads, _grads(one), what, tols[0])
         _set_lrs(opt1, lrs)
         for _ in range(CHECK_STEPS):
             step1()
         rec["trajectory_gap"] = _moves_agree(init, list(model.parameters()),
-                                             list(one.parameters()), what)
+                                             list(one.parameters()), what, tols[1])
     mesh.barrier()
     return rec
 
 
-def _fast_check(mesh, z, qat=None, dropout=False, accum=1) -> dict:
+def _fast_check(mesh, z, qat=None, dropout=False, accum=1, bf16=False) -> dict:
     """DP fast (or QAT) step on the ranks against one card's on the
-    concatenated batch."""
+    concatenated batch (``bf16``: both with bf16 operands)."""
     from .models import EPSesPlusLinear, EPSesPlusLinearConfig, init_eps_plus_linear
     from .models.eps_plus_linear import draw_dropout_masks
     from .parallel import make_parallel_fast_train_step
@@ -281,7 +302,8 @@ def _fast_check(mesh, z, qat=None, dropout=False, accum=1) -> dict:
 
     dev, w, b = mesh.device, mesh.world_size, z["check_b"]
     p = 0.9 if dropout else 1.0
-    cfg = EPSesPlusLinearConfig(epses_specs=z["specs"], image_size=28, q0=2, dropout_p=p)
+    cfg = EPSesPlusLinearConfig(epses_specs=z["specs"], image_size=28, q0=2, dropout_p=p,
+                                compute_dtype=torch.bfloat16 if bf16 else None)
     params = init_eps_plus_linear(torch.Generator().manual_seed(1), cfg,
                                   "unit_theoretical_output_std", dev)
     x, y = _data(z["specs"], w * b)
@@ -303,7 +325,8 @@ def _fast_check(mesh, z, qat=None, dropout=False, accum=1) -> dict:
 
     return _trajectory(mesh, model, opt,
                        lambda: step(xs, ys, masks=None if masks is None else [masks] * accum)["loss"],
-                       one_card, f"fast qat={qat} dropout={dropout} accum={accum}")
+                       one_card, f"fast qat={qat} dropout={dropout} accum={accum}"
+                       + (" bf16" if bf16 else ""))
 
 
 def _xla_check(mesh, z) -> dict:
@@ -617,7 +640,7 @@ def _tp_whole(model, of_grad: bool) -> dict:
     return out
 
 
-def _tp_trajectory(g, model, opt, step, one_card, what: str) -> dict:
+def _tp_trajectory(g, model, opt, step, one_card, what: str, tols=(DP_TOL, TRAJ_TOL)) -> dict:
     """``_trajectory`` for a TP model: the first step's gradients gathered
     over the model group against one card's (DP_TOL), each shard's lr from
     its whole parameter's, CHECK_STEPS steps; then every replicated
@@ -658,34 +681,36 @@ def _tp_trajectory(g, model, opt, step, one_card, what: str) -> dict:
         rec["one_card_loss"] = float(step1())
         named = _keyed(one)
         rec["gradient_gap"] = _grads_agree([grads[k] for k in named],
-                                           [p.grad for p in named.values()], what)
+                                           [p.grad for p in named.values()], what, tols[0])
         for group in opt1.param_groups:
             group["lr"] = lrs[next(k for k, p in named.items() if p is group["params"][0])]
         for _ in range(CHECK_STEPS):
             step1()
         rec["trajectory_gap"] = _moves_agree([init[k] for k in named], [final[k] for k in named],
-                                             list(named.values()), what)
+                                             list(named.values()), what, tols[1])
     g.barrier()
     return rec
 
 
-def _grid_problem(z, dev, n_data, b, specs=None, dropout_p=1.0, seed=1):
+def _grid_problem(z, dev, n_data, b, specs=None, dropout_p=1.0, seed=1, bf16=False):
     from .models import EPSesPlusLinearConfig, init_eps_plus_linear
 
     specs = specs or z["grid_specs"]
-    cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=28, q0=2, dropout_p=dropout_p)
+    cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=28, q0=2, dropout_p=dropout_p,
+                                compute_dtype=torch.bfloat16 if bf16 else None)
     params = init_eps_plus_linear(torch.Generator().manual_seed(seed), cfg,
                                   "unit_theoretical_output_std", dev)
     x, y = _data(specs, n_data * b)
     return cfg, params, x, y
 
 
-def _tp_check(mesh, z, dims, kind) -> dict:
+def _tp_check(mesh, z, dims, kind, bf16=False) -> dict:
     """A TP step on a (data, model) grid against one card's on the whole
     batch: ``kind`` "last_xla" (the reference layout, the last core sharded,
     the xla backend), "shard_all_pallas" (every core sharded, each layer on
     the kernels' route of ``ops.eps``), "fast" or "qat" (the fast layout's
-    row block, f32 or int8)."""
+    row block, f32 or int8); ``bf16``: both sides with bf16 operands, held
+    at BF16_MODEL_AXIS_TOL."""
     from .models import EPSesPlusLinear, EPSesPlusLinearReference
     from .models.eps_plus_linear import fast_params_from_reference
     from .parallel import (TPFastModel, TPModel, make_grid, make_tp_fast_params,
@@ -694,7 +719,7 @@ def _tp_check(mesh, z, dims, kind) -> dict:
 
     g = make_grid(mesh, "model", *dims)
     dev, b = mesh.device, z["check_b"]
-    cfg, params, x, y = _grid_problem(z, dev, g.n_data, b)
+    cfg, params, x, y = _grid_problem(z, dev, g.n_data, b, bf16=bf16)
     xg, yg = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
     sl = slice(g.data_index * b, (g.data_index + 1) * b)
     qat = "int8" if kind == "qat" else None
@@ -722,16 +747,18 @@ def _tp_check(mesh, z, dims, kind) -> dict:
             step1 = make_train_step(one, opt1, "epses_composition", 1e-4)
             return one, opt1, lambda: step1(xg, yg)["loss"]
 
+    tols = (BF16_MODEL_AXIS_TOL,) * 2 if bf16 else (DP_TOL, TRAJ_TOL)
     rec = _tp_trajectory(g, model, opt, lambda: step(xg[:, sl], yg[sl])["loss"], one_card,
-                         f"tp {kind} grid {dims}")
+                         f"tp {kind}{' bf16' if bf16 else ''} grid {dims}", tols)
     return {"grid": {"data": dims[0], "model": dims[1]}, **rec}
 
 
-def _sp_check(mesh, z, dims, kind) -> dict:
+def _sp_check(mesh, z, dims, kind, bf16=False) -> dict:
     """An SP step on a (data, space) grid against one card's on the whole
     batch: ``kind`` "halo_xla" (the reference layout, the xla backend),
     "fast_dropout" (the fast layout's kernels on each slab, parameter
-    dropout at p = 0.9 with one draw everywhere) or "qat"."""
+    dropout at p = 0.9 with one draw everywhere), "fast" (without dropout)
+    or "qat"; ``bf16``: both sides with bf16 operands."""
     from .models import EPSesPlusLinear, EPSesPlusLinearReference
     from .models.eps_plus_linear import draw_dropout_masks
     from .parallel import make_grid, make_sp_fast_train_step, make_sp_train_step, sp_shard_batch
@@ -740,7 +767,7 @@ def _sp_check(mesh, z, dims, kind) -> dict:
     g = make_grid(mesh, "space", *dims)
     dev, b = mesh.device, z["check_b"]
     p = 0.9 if kind == "fast_dropout" else 1.0
-    cfg, params, x, y = _grid_problem(z, dev, g.n_data, b, dropout_p=p)
+    cfg, params, x, y = _grid_problem(z, dev, g.n_data, b, dropout_p=p, bf16=bf16)
     xg, yg = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
     xs, ys = sp_shard_batch(g, x, y)
     masks = None
@@ -770,16 +797,17 @@ def _sp_check(mesh, z, dims, kind) -> dict:
                 "loss"]
 
     rec = _trajectory(g, model, opt, lambda: step(xs, ys, masks=None if masks is None else [
-        masks])["loss"], one_card, f"sp {kind} grid {dims}")
+        masks])["loss"], one_card, f"sp {kind}{' bf16' if bf16 else ''} grid {dims}")
     return {"grid": {"data": dims[0], "space": dims[1]}, **rec}
 
 
-def _sp_tp_check(mesh, z, dims, kind) -> dict:
+def _sp_tp_check(mesh, z, dims, kind, bf16=False) -> dict:
     """An SP×TP step on a (data, space, model) grid against one card's on
     the whole batch: ``kind`` "xla" (the reference layout, the last core
     sharded, the xla backend), "fast_dropout" (the fast layout's kernels on
     each slab and row block, parameter dropout at p = 0.9 with one draw
-    everywhere) or "qat"."""
+    everywhere), "fast" (without dropout) or "qat"; ``bf16``: both sides
+    with bf16 operands, held at BF16_MODEL_AXIS_TOL."""
     from .models import EPSesPlusLinear, EPSesPlusLinearReference
     from .models.eps_plus_linear import draw_dropout_masks, fast_params_from_reference
     from .parallel import (TPFastModel, TPModel, make_sp_tp_fast_train_step, make_sp_tp_grid,
@@ -790,7 +818,7 @@ def _sp_tp_check(mesh, z, dims, kind) -> dict:
     g = make_sp_tp_grid(mesh, *dims)
     dev, b = mesh.device, z["check_b"]
     p = 0.9 if kind == "fast_dropout" else 1.0
-    cfg, params, x, y = _grid_problem(z, dev, g.n_data, b, dropout_p=p)
+    cfg, params, x, y = _grid_problem(z, dev, g.n_data, b, dropout_p=p, bf16=bf16)
     xg, yg = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
     xs, ys = sp_tp_shard_batch(g, x, y)
     masks = None
@@ -820,17 +848,20 @@ def _sp_tp_check(mesh, z, dims, kind) -> dict:
             return one, opt1, lambda: step1(xg, yg, masks=None if masks is None else [masks])[
                 "loss"]
 
+    tols = (BF16_MODEL_AXIS_TOL,) * 2 if bf16 else (DP_TOL, TRAJ_TOL)
     rec = _tp_trajectory(g, model, opt, lambda: step(xs, ys, masks=None if masks is None else [
-        masks])["loss"], one_card, f"sp x tp {kind} grid {dims}")
+        masks])["loss"], one_card, f"sp x tp {kind}{' bf16' if bf16 else ''} grid {dims}", tols)
     return {"grid": dict(zip(("data", "space", "model"), dims)), **rec}
 
 
-def _time_grid(mesh, z, name, axis, dims, specs, b, qat, opts, global_batch=None) -> dict:
+def _time_grid(mesh, z, name, axis, dims, specs, b, qat, opts, global_batch=None,
+               bf16=False) -> dict:
     """Times the fast-layout step on a grid at ``b`` images a data rank (or
     at ``global_batch``), beside one card at ``b`` (and at the global
     batch): step ms p50, images/s, launches per step, the saved-t arm of
     each layer, each card's peak memory, and with ``--profile`` the NCCL
-    kernels' and all kernels' device ms a step and the idle share."""
+    kernels' and all kernels' device ms a step and the idle share.
+    ``bf16``: both with bf16 operands."""
     from .bench import read_counters, zero_counters
     from .kernels import eps_kernels as K
     from .models import EPSesPlusLinear, EPSesPlusLinearConfig, init_eps_plus_linear
@@ -846,7 +877,8 @@ def _time_grid(mesh, z, name, axis, dims, specs, b, qat, opts, global_batch=None
     deep = specs == DEEP
     batch = global_batch or g.n_data * b
     b = batch // g.n_data
-    cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=28, q0=2)
+    cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=28, q0=2,
+                                compute_dtype=torch.bfloat16 if bf16 else None)
     params = init_eps_plus_linear(torch.Generator().manual_seed(0), cfg,
                                   "unit_theoretical_output_std", dev)
     x, y = _data(specs, batch)
@@ -881,12 +913,15 @@ def _time_grid(mesh, z, name, axis, dims, specs, b, qat, opts, global_batch=None
     per, window = _timed(lambda: step(xs, ys), steps, 1 if deep else z["warmup"], dev)
     rec = {"path": name, "grid": dict(zip(("data", "space", "model"), g.dims)),
            "per_data_rank_batch": b,
-           "global_batch": batch, "qat": qat, "step_ms_p50": statistics.median(per),
+           "global_batch": batch, "qat": qat, "compute_dtype": "bfloat16" if bf16 else "float32",
+           "step_ms_p50": statistics.median(per),
            "images_per_s": batch * steps / window,
            "launches_per_step": {k: v for k, v in launches.items() if v},
            # layer 0 never saves t; a later layer that launches K1+t reads it
-           "saved_t_layers_launched": launches["eps_fwd_t"] + launches.get("eps_fwd_q8_t", 0),
-           "recompute_layers_launched": launches["eps_dviews_recompute"]}
+           "saved_t_layers_launched": (launches["eps_fwd_t"] + launches["eps_fwd_q8_t"]
+                                       + launches["eps_fwd_t_bf16"]),
+           "recompute_layers_launched": (launches["eps_dviews_recompute"]
+                                         + launches["eps_dviews_recompute_bf16"])}
     if cuda:
         rec["peak_memory_gib"] = g.all_gather_object(
             torch.cuda.max_memory_allocated(dev) / 2**30)
@@ -954,6 +989,17 @@ def _grid_paths(mesh, z, opts) -> tuple:
                            ("qat", "sp_x_tp_qat_int8_train")):
             emit(mesh, {"path": name, **_sp_tp_check(mesh, z, st_dims, kind)})
             paths.append(name)
+    # the bf16 operand mode on each grid, the f32 paths' layout and QAT
+    for kind in ("fast", "qat"):
+        tag = "fast_cmt_pallas" if kind == "fast" else "qat_int8_train"
+        for name, check_fn, dims in ((f"tp_{tag}_bf16", _tp_check, tp_dims),
+                                     (f"sp_{tag}_bf16", _sp_check, sp_dims[0]),
+                                     (f"sp_x_tp_{tag}_bf16", _sp_tp_check, st_dims)):
+            if dims is None:
+                continue
+            emit(mesh, {"path": name, "compute_dtype": "bfloat16",
+                        **check_fn(mesh, z, dims, kind, bf16=True)})
+            paths.append(name)
     b = z["time_b"]
     for qat in (None, "int8"):
         tag = "qat" if qat else "f32"
@@ -971,6 +1017,14 @@ def _grid_paths(mesh, z, opts) -> tuple:
         for qat in (None, "int8"):
             times.append(_time_grid(mesh, z, f"sp_x_tp_flagship_{'qat' if qat else 'f32'}_step",
                                     "sp_tp", st_dims, z["grid_specs"], b, qat, opts))
+    for qat in (None, "int8"):
+        tag = "qat" if qat else "f32_layout"
+        for name, axis, dims in ((f"tp_flagship_{tag}_bf16_step", "model", tp_dims),
+                                 (f"sp_flagship_{tag}_bf16_step", "space", sp_dims[0]),
+                                 (f"sp_x_tp_flagship_{tag}_bf16_step", "sp_tp", st_dims)):
+            if dims is not None:
+                times.append(_time_grid(mesh, z, name, axis, dims, z["grid_specs"], b, qat, opts,
+                                        bf16=True))
     if z["deep"] is not None:
         times.append(_time_grid(mesh, z, "deep_sp_step", "space", sp_dims[-1], z["deep"], 0,
                                 None, opts, global_batch=z["deep_sp_global"]))
@@ -995,6 +1049,9 @@ def _rank_paths(mesh, opts) -> dict:
     rec = _fast_check(mesh, z, qat="int8")
     emit(mesh, {"path": "dp_qat_int8_train", **rec})
     paths.append("dp_qat_int8_train")
+    rec = _fast_check(mesh, z, qat="int8", bf16=True)
+    emit(mesh, {"path": "dp_qat_int8_train_bf16", "compute_dtype": "bfloat16", **rec})
+    paths.append("dp_qat_int8_train_bf16")
     rec, cores, sbs_cfg = _sbs_check(mesh, z)
     emit(mesh, {"path": "conv_sbs_dp_train(+sharded_score)", **rec})
     paths.append("conv_sbs_dp_train(+sharded_score)")
@@ -1094,46 +1151,55 @@ def _predict_paths(n: int, z, device: str, tmp: str) -> list:
                       lat["pipelined_throughput_img_per_s"]}), flush=True)
     out.append("dp_sharded_export_serving")
     if n >= 2:  # at the training steps' batch
-        out.append(_space_artifact_path(n, ckpt, specs, f32.x, z["time_b"], device, tmp))
+        for dtype in ("float32", "bfloat16"):
+            out.append(_space_artifact_path(n, ckpt, specs, f32.x, z["time_b"], device, tmp,
+                                            dtype))
     return out
 
 
-def _space_artifact_path(n: int, ckpt: str, specs, x_all, bs: int, device: str, tmp: str) -> str:
+def _space_artifact_path(n: int, ckpt: str, specs, x_all, bs: int, device: str, tmp: str,
+                         compute_dtype: str = "float32") -> str:
     """``sp_sharded_export_serving``: the flagship's height-sharded artifact
     (``export.run --space-devices S``, S = 2 and, from 4 cards, 4), served
     by bands of rows on S cards, against one card's artifact of the same
     npz in the same call: logits within ARTIFACT_TOL of the largest, one
     K1 node per EPS layer in the slab program, p50 at ``bs``; then
-    ``serve.ArtifactModel`` and ``predict.run`` from the S = 2 artifact."""
+    ``serve.ArtifactModel`` and ``predict.run`` from the S = 2 artifact.
+    ``compute_dtype`` "bfloat16" (``sp_sharded_export_serving_bf16``): both
+    artifacts with bf16 operands, each band's layers in the bf16 mode."""
     from .cli import export, predict, serve
 
-    one_art = os.path.join(tmp, "eps_one.zip")
-    export.run(checkpoint=ckpt, epses_specs=specs, batch_sizes=(bs,), device=device, out=one_art)
+    sfx = "" if compute_dtype == "float32" else "_bf16"
+    name = f"sp_sharded_export_serving{sfx}"
+    one_art = os.path.join(tmp, f"eps_one{sfx}.zip")
+    export.run(checkpoint=ckpt, epses_specs=specs, batch_sizes=(bs,), device=device,
+               compute_dtype=compute_dtype, out=one_art)
     one = export.load_artifact(one_art)[1][bs]
     x = x_all[:, :bs]
     with torch.inference_mode():
         want = one(x)
-    rec = {"path": "sp_sharded_export_serving", "batch": bs,
+    rec = {"path": name, "compute_dtype": compute_dtype, "batch": bs,
            "one_card_p50_ms": predict.latency_stats(one, x_all, bs)["p50_ms"], "bands": {}}
     for space in (2, 4):
         if space > n:
             continue
-        art = os.path.join(tmp, f"eps_space{space}.zip")
+        art = os.path.join(tmp, f"eps_space{space}{sfx}.zip")
         report = export.run(checkpoint=ckpt, epses_specs=specs, batch_sizes=(bs,),
-                            space_devices=space, device=device, out=art)
+                            space_devices=space, device=device, compute_dtype=compute_dtype,
+                            out=art)
         meta, fns = export.load_artifact(art)
+        check(meta["compute_dtype"] == compute_dtype, f"{name} S={space}: meta {meta}")
         fn = fns[bs]
         with torch.inference_mode():
             got = fn(x)
         gap = float((got - want).abs().max()) / float(want.abs().max())
-        check(gap <= ARTIFACT_TOL, f"sp_sharded_export_serving S={space}: logits {gap:.3e} of "
+        check(gap <= ARTIFACT_TOL, f"{name} S={space}: logits {gap:.3e} of "
                                    f"the largest from one card's artifact > {ARTIFACT_TOL}")
         nodes = export.op_nodes(fn.replicas[0])
-        check(nodes == {"eps_fwd": len(specs)},
-              f"sp_sharded_export_serving S={space}: operator nodes {nodes}")
+        check(nodes == {"eps_fwd": len(specs)}, f"{name} S={space}: operator nodes {nodes}")
         check(fn.devices == [torch.device(device, i) if device == "cuda" else torch.device("cpu")
                              for i in range(space)],
-              f"sp_sharded_export_serving S={space}: bands on {fn.devices}")
+              f"{name} S={space}: bands on {fn.devices}")
         lat = predict.latency_stats(fn, x_all, bs, devices=fn.devices)
         rec["bands"][space] = {"logit_gap": gap,
                                "slab_rows": meta["space_rows"] + meta["space_halo"],
@@ -1148,12 +1214,12 @@ def _space_artifact_path(n: int, ckpt: str, specs, x_all, bs: int, device: str, 
                                     for i in range(0, xs.shape[1] - bs + 1, bs)]).cpu().numpy()
             check(np.allclose(served[: direct.shape[0]], direct, rtol=0,
                               atol=1e-6 * float(np.abs(direct).max())),
-                  "sp_sharded_export_serving: served logits differ from direct calls")
+                  f"{name}: served logits differ from direct calls")
             preds = predict.run(checkpoint=art, ds_type="fashionmnist", ds_path="synthetic",
                                 batch_size=bs, device=device, synthetic_sizes=(64, 16, 2 * bs))
             rec["predict_accuracy"] = preds.accuracy
     print(json.dumps(rec), flush=True)
-    return "sp_sharded_export_serving"
+    return name
 
 
 def _sbs_artifact_path(n: int, cores, cfg, device: str, tmp: str) -> str:

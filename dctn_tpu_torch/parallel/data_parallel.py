@@ -31,7 +31,9 @@ each rank's saved-t arm on its own pixels; the QAT step decides it on the
 global pixel count (``pixel_scale``, eps_pallas_q8.py:383-416), so its STE
 gradient is the single-device one. The model's ``cfg.compute_dtype`` rides
 along: the steps and the sharded evals run every EPS layer in its operands
-(bf16: the kernels' bf16 mode), as one device does.
+(bf16: the kernels' bf16 mode; under QAT the int8 forward with a bf16 t,
+its arm decided at 2 bytes an entry on the global pixels), as one device
+does.
 """
 
 from __future__ import annotations

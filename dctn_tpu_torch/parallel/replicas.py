@@ -71,7 +71,8 @@ class RowShardedForward:
     device in card order and ``bias`` is added once. Where JAX exchanges
     each layer's K − 1 halo rows between neighbours, each card here
     computes the rows below its band that the later layers need: layer 0
-    runs Σ_{i≥1}(K_i − 1) more rows than a training slab."""
+    runs Σ_{i≥1}(K_i − 1) more rows than a training slab. A bf16 artifact's
+    slab programs round their cores inside the graph, as one card's do."""
 
     def __init__(self, replicas: Sequence[Callable], devices: Sequence[torch.device], weights,
                  bias: torch.Tensor, rows: int, halo: int):

@@ -39,7 +39,8 @@ transposed batch-minor layout, the last layer at ``out_size`` O / n_model
 on its cmt row block; f32 plans each layer's backward on the slab's own
 pixels, and ``qat="int8"`` (K8/K9) decides the saved-t arm on the whole O
 and the global valid pixels (``save_shapes``), so every rank and one card
-take the same STE backward.
+take the same STE backward. Both layouts run in ``cfg.compute_dtype``'s
+operands (sp_tp.py:159, :338-349), bf16 as on one card.
 
 Scope: last-core TP only. ``--tp-shard-all`` with ``--space-devices`` is
 refused by the runner, as in JAX (runner.py:477-486): its inter-layer
@@ -116,7 +117,8 @@ def sp_tp_forward(params3, x: torch.Tensor, cfg: EPSesPlusLinearConfig, mesh, ma
     h = x
     for core in epses:
         k = eps_mod._infer_kernel_size(core, h.shape[0])
-        h = eps_mod.eps(core, with_halo(h, k, mesh, row_axis=2), backend=backend)[None]
+        h = eps_mod.eps(core, with_halo(h, k, mesh, row_axis=2), backend=backend,
+                        compute_dtype=cfg.compute_dtype)[None]
     feats = h[0].permute(3, 1, 2, 0)  # (O_loc, Hl, W', B)
     partial = _partial_logits(feats, params3["linear"]["w3"], cfg, mesh)
     return psum_value_only(partial, mesh, PLANE) + params3["linear"]["b"]
@@ -148,6 +150,7 @@ def sp_tp_fast_forward(fast3, x: torch.Tensor, cfg: EPSesPlusLinearConfig, plans
         outT = eps_apply_t_cmt(
             cmt, xT, o_i, k, p["n1"], p["merge_pairs"], layer_index=i, kernels=kernels,
             save_shapes=None if qat is None else (out_full, b * mesh.size("data") * hg * ww),
+            mm_dtype=cfg.compute_dtype,
         )
         xT = outT[None]
     partial = _partial_logits(outT, fast3["linear"]["w3"], cfg, mesh)

@@ -35,7 +35,10 @@ The fast (cmt) layout runs the kernels on each slab (``sp_fast_forward``),
 the f32 path planning each layer's backward on the slab's own pixels, as
 JAX's ``plan_pallas_call`` does; under QAT (K8/K9) the saved-t arm is
 decided on the global shapes (the whole valid height, every data rank's
-batch), so that every rank and one card take the same STE backward.
+batch), so that every rank and one card take the same STE backward. Both
+layouts run in ``cfg.compute_dtype``'s operands (spatial_parallel.py:211,
+:367-377): bf16 is the kernels' bf16 mode on each slab (the plain ``eps``'s
+rounding on the xla backend), as on one card.
 
 Constraint: K−1 ≤ Hl for every layer (a halo comes from one neighbour):
 ``sp_check_config`` refuses the rest.
@@ -157,7 +160,8 @@ def sp_forward(params, x: torch.Tensor, cfg: EPSesPlusLinearConfig, mesh, masks=
     h = x
     for core in epses:
         k = eps_mod._infer_kernel_size(core, h.shape[0])
-        h = eps_mod.eps(core, with_halo(h, k, mesh, row_axis=2), backend=backend)[None]
+        h = eps_mod.eps(core, with_halo(h, k, mesh, row_axis=2), backend=backend,
+                        compute_dtype=cfg.compute_dtype)[None]
     feats = h[0]  # (B, Hl, W', O)
     b, hl, wl, o = feats.shape
     w_loc = _classifier_weight(params["linear"]["w"], cfg, mesh, hl, wl * o)
@@ -188,6 +192,7 @@ def sp_fast_forward(fast, x: torch.Tensor, cfg: EPSesPlusLinearConfig, plans, me
         outT = eps_apply_t_cmt(
             cmt, xT, out_size, k, p["n1"], p["merge_pairs"], layer_index=i, kernels=kernels,
             save_shapes=None if qat is None else (out_size, b * mesh.size("data") * hg * ww),
+            mm_dtype=cfg.compute_dtype,
         )
         xT = outT[None]
     o, hl, wl, b2 = outT.shape

@@ -24,7 +24,11 @@ the last cmt's rows, and the last layer runs the kernels with
 forward (K8, then K9); weights quantize per row, so a row block quantizes
 as the same rows of the whole core, and the saved-t arm is decided on the
 whole O and the global batch (``save_shapes``), so that every rank and one
-card take the same STE backward.
+card take the same STE backward. ``cfg.compute_dtype`` is every layer's
+operand dtype on every rank, as on one card (tensor_parallel.py:219,
+:484-495): bf16 runs the kernels' bf16 mode (under QAT: the int8 forward
+with a bf16 t, the bf16 backward) at the shard's shapes, and the plain
+``eps``'s rounding on the xla backend.
 
 The classifier's weight is kept as ``w3`` (H'·W', O, classes): the
 reference's rows are ordered (h, w, o) with o fastest, so an O-shard of
@@ -259,7 +263,7 @@ def tp_forward(params3, x: torch.Tensor, cfg: EPSesPlusLinearConfig, mesh,
         epses = _local_mask_epses(epses, masks, mesh, cfg.dropout_p, shard_all)
     h = x
     for i, core in enumerate(epses):
-        h = eps_mod.eps(core, h, backend=backend)
+        h = eps_mod.eps(core, h, backend=backend, compute_dtype=cfg.compute_dtype)
         if shard_all and i < n - 1:
             h = gather_along(h, h.ndim - 1, mesh, "model")  # the whole Q for the next layer
         h = h[None]
@@ -302,6 +306,7 @@ def tp_fast_forward(fast3, x: torch.Tensor, cfg: EPSesPlusLinearConfig, plans, m
         outT = eps_apply_t_cmt(
             cmt, xT, o_i, k, p["n1"], p["merge_pairs"], layer_index=i, kernels=kernels,
             save_shapes=None if qat is None else (out_full, b * hh * ww * mesh.size("data")),
+            mm_dtype=cfg.compute_dtype,
         )
         xT = outT[None]
     o_loc, hp, wp, b2 = outT.shape

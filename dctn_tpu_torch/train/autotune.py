@@ -94,7 +94,9 @@ def device_name(device) -> str:
 def objective_name(forward_only: bool, quantize: Optional[str], compute_dtype=None) -> str:
     """``train``, ``train-int8``, ``serve-f32`` or ``serve-int8``; with a
     bf16 ``compute_dtype`` (the kernels' bf16 mode) ``train-bf16`` or
-    ``serve-bf16``."""
+    ``serve-bf16``. The QAT step keeps its name, JAX's ``train-int8``, in
+    either dtype (the cache key carries the dtype apart); the functions
+    that price and check a split take the dtype beside it."""
     if quantize is None and compute_dtype is not None:
         return "serve-bf16" if forward_only else "train-bf16"
     if forward_only:
@@ -182,8 +184,14 @@ def _pad(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _bf16_backward(objective: str, compute_dtype) -> bool:
+    """Whether ``objective``'s backward runs the bf16 mode: the bf16
+    objectives', and the QAT step's under a bf16 ``compute_dtype``."""
+    return objective.endswith("bf16") or compute_dtype is not None
+
+
 def hopper_split_cost(c: int, q: int, kernel_size: int, n1: int, out_size: int, npix: int,
-                      layer_index: int, objective: str) -> float:
+                      layer_index: int, objective: str, compute_dtype=None) -> float:
     """Seconds one layer at split ``n1`` would take on an H100 under
     ``objective``, from the terms that depend on the split. It is not the
     JAX package's ``_split_cost``, which prices the TPU's 128-wide MXU and
@@ -201,12 +209,13 @@ def hopper_split_cost(c: int, q: int, kernel_size: int, n1: int, out_size: int, 
       4 GiB cap (saved t), or t computed again (recompute);
 
     each at the card's peak rate for its type (the bf16 objectives'
-    products at the dense bf16 rate)."""
+    products at the dense bf16 rate, and so the backward of ``train-int8``
+    under a bf16 ``compute_dtype``, its t at 2 bytes an entry)."""
     _, merge = EK.plan_call(c, q, kernel_size, n1)
     n_k, q_k, n1_k = EK._kernel_dims(c, q, kernel_size, n1, merge)
     a, b2 = q_k**n1_k, q_k ** (n_k - n1_k)
     z = out_size * b2
-    bf16 = objective.endswith("bf16")
+    bf16 = _bf16_backward(objective, compute_dtype)
     rate, tile, t_bytes = (_BF16_FLOPS, 64, 2) if bf16 else (_TF32X3_FLOPS, 128, 4)
     cost = npix * (a + b2 + 2 * z) / _F32_FLOPS
     if objective.endswith("int8"):
@@ -226,12 +235,13 @@ def hopper_split_cost(c: int, q: int, kernel_size: int, n1: int, out_size: int, 
 
 
 def kernels_take_split(c: int, q: int, kernel_size: int, n1: int, out_size: int, npix: int,
-                       layer_index: int, objective: str) -> bool:
+                       layer_index: int, objective: str, compute_dtype=None) -> bool:
     """Whether the kernels that ``objective`` launches take this layer at
     split ``n1``: the wrappers' own argument checks (``eps_fwd``'s or
     ``eps_fwd_q8``'s plan, and for training ``eps_dcore``'s and the arm's
     d_views kernel's), run on shape-only ``meta`` tensors; the bf16
-    objectives check the bf16 mode's plans."""
+    objectives check the bf16 mode's plans, and ``train-int8`` under a bf16
+    ``compute_dtype`` K8/K9's plan and the bf16 backward's."""
     n1_r, merge = EK.plan_call(c, q, kernel_size, n1)
     if n1_r != n1:
         return False
@@ -242,11 +252,17 @@ def kernels_take_split(c: int, q: int, kernel_size: int, n1: int, out_size: int,
         return torch.empty(shape, dtype=dtype, device="meta")
 
     views, cmt = meta(n_k, q_k, npix), meta(z, a)
-    if objective.endswith("bf16"):
+    int8 = objective.endswith("int8")
+    if _bf16_backward(objective, compute_dtype):
+        try:
+            if int8:
+                Q8._check_q8_args(views, meta(z, a, dtype=torch.int8), meta(z, 1), n1_k, out_size)
+        except ValueError:
+            return False
         return _bf16_kernels_take(views, meta(z, a, dtype=torch.bfloat16), meta, n1_k, out_size,
-                                  layer_index, objective)
+                                  layer_index, objective, forward=not int8)
     try:
-        if objective.endswith("int8"):
+        if int8:
             Q8._check_q8_args(views, meta(z, a, dtype=torch.int8), meta(z, 1), n1_k, out_size)
         else:
             EK._check_kernel_args(views, cmt, n1_k, out_size)
@@ -263,14 +279,16 @@ def kernels_take_split(c: int, q: int, kernel_size: int, n1: int, out_size: int,
     return True
 
 
-def _bf16_kernels_take(views, cmt, meta, n1_k, out_size, layer_index, objective) -> bool:
-    """``kernels_take_split`` for the bf16 objectives: the bf16 mode's own
-    checks of K1, and for training of ``eps_dcore`` and the arm's d_views
-    kernel (t in bf16)."""
+def _bf16_kernels_take(views, cmt, meta, n1_k, out_size, layer_index, objective,
+                       forward=True) -> bool:
+    """``kernels_take_split`` for the bf16 mode: its own checks of K1 (with
+    ``forward``; the QAT step's forward is K8/K9's), and for training of
+    ``eps_dcore`` and the arm's d_views kernel (t in bf16)."""
     n_k, q_k, npix = views.shape
     z = cmt.shape[0]
     try:
-        EK._check_fwd_bf16_args(views, cmt, n1_k, out_size)
+        if forward:
+            EK._check_fwd_bf16_args(views, cmt, n1_k, out_size)
         if objective.startswith("train"):
             g = meta(out_size, npix)
             EK._check_dcore_bf16_args(views, g, n1_k, out_size)
@@ -287,7 +305,7 @@ def _bf16_kernels_take(views, cmt, meta, n1_k, out_size, layer_index, objective)
 
 
 def legal_splits(c: int, q: int, kernel_size: int, out_size: int, npix: int, layer_index: int,
-                 objective: str, device) -> list:
+                 objective: str, device, compute_dtype=None) -> list:
     """The splits a layer can run at: ``split_candidates``, on a card only
     those its kernels take (``kernels_take_split``); the plain versions on
     the CPU take any."""
@@ -296,17 +314,20 @@ def legal_splits(c: int, q: int, kernel_size: int, out_size: int, npix: int, lay
     if torch.device(device).type != "cuda":
         return cands
     return [n1 for n1 in cands
-            if kernels_take_split(c, q, kernel_size, n1, out_size, npix, layer_index, objective)]
+            if kernels_take_split(c, q, kernel_size, n1, out_size, npix, layer_index, objective,
+                                  compute_dtype)]
 
 
 def candidate_splits(c: int, q: int, kernel_size: int, out_size: int, npix: int,
-                     layer_index: int, objective: str, max_candidates: int, device) -> list:
+                     layer_index: int, objective: str, max_candidates: int, device,
+                     compute_dtype=None) -> list:
     """The legal splits ranked by ``hopper_split_cost`` (ties to the
     smaller n1), cut to the ``max_candidates`` cheapest. The tuner adds the
     default split when it is not among them."""
-    legal = legal_splits(c, q, kernel_size, out_size, npix, layer_index, objective, device)
+    legal = legal_splits(c, q, kernel_size, out_size, npix, layer_index, objective, device,
+                         compute_dtype)
     legal.sort(key=lambda n1: (hopper_split_cost(c, q, kernel_size, n1, out_size, npix,
-                                                 layer_index, objective), n1))
+                                                 layer_index, objective, compute_dtype), n1))
     return legal[:max_candidates]
 
 
@@ -407,7 +428,7 @@ def _problem(cfg, batch_size, in_channels, device, reg_type, reg_coeff, forward_
     def legal(i, n1):
         c, q, h, w, k, o = dims[i]
         npix = batch_size * (h - k + 1) * (w - k + 1)
-        return n1 in legal_splits(c, q, k, o, npix, i, objective, device)
+        return n1 in legal_splits(c, q, k, o, npix, i, objective, device, cfg.compute_dtype)
 
     return base_plans, charge_reg, objective, legal
 
@@ -474,7 +495,7 @@ def autotune_splits(cfg, batch_size: int, in_channels: int = 1, *, device="cuda"
             zip(_layer_dims(cfg, in_channels), base_plans)):
         npix = batch_size * (h - kernel_size + 1) * (w - kernel_size + 1)
         cands = list(candidate_splits(c, q, kernel_size, out_size, npix, i, objective,
-                                      max_candidates, device))
+                                      max_candidates, device, cfg.compute_dtype))
         if base["n1"] not in cands:  # the default is always measured
             cands.append(base["n1"])
         rows = []

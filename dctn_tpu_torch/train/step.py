@@ -103,8 +103,9 @@ def make_fast_train_step(
     numerics of int8 serving, not the f32 trajectory. A caller that passes
     its own bundle (``eps_q8_kernels.QAT_PLAIN`` for the plain QAT path)
     passes no ``qat``. The model's ``cfg.compute_dtype`` is every EPS
-    layer's operand dtype (bf16 runs the kernels' bf16 mode); ``qat`` takes
-    none (float32).
+    layer's operand dtype (bf16 runs the kernels' bf16 mode); under ``qat``
+    a bf16 one is the JAX bf16 QAT step's: the int8 forward on the float32
+    cores, its saved t stored in bf16, the backward in the bf16 mode.
 
     ``with_probs`` adds ``probs_of_true_class`` (see the module docstring).
 
@@ -119,9 +120,6 @@ def make_fast_train_step(
         raise ValueError(f"grad_accum_steps must be at least 1, got {grad_accum_steps}")
     if qat not in (None, "int8"):
         raise ValueError(f"unsupported qat mode {qat!r}")
-    if qat is not None and model.cfg.compute_dtype is not None:
-        raise ValueError("qat with a bf16 compute dtype is not ported yet (ROADMAP item 14b: "
-                         "the int8 forward would write its t in bf16)")
     if reg_type not in REG_TYPES:
         raise ValueError(f"unknown reg_type {reg_type!r}")
     if kernels is None:

@@ -417,10 +417,16 @@ def test_reference_layout_forward_matches_jax_xla():
 
 
 def test_qat_refuses_the_bf16_mode():
-    _, _, np_params, cfg, _, _ = _model_setup(THREE)
+    """Once refused, now the mode: ``qat="int8"`` takes a bf16 model and
+    steps it, its parameters float32 and finite (its parity with the JAX
+    package: tests/test_torch_port_bf16_qat.py)."""
+    _, _, np_params, cfg, x, y = _model_setup(THREE)
     model = EPSesPlusLinear.from_reference(params_from_numpy(np_params), cfg)
-    with pytest.raises(ValueError, match="ROADMAP item 14b"):
-        make_fast_train_step(model, make_optimizer("adam", model.parameters(), 1e-3), qat="int8")
+    step = make_fast_train_step(model, make_optimizer("adam", model.parameters(), 1e-3),
+                                qat="int8")
+    m = step(torch.tensor(x), torch.tensor(y))
+    assert np.isfinite(float(m["loss"]))
+    assert all(p.dtype == torch.float32 and torch.isfinite(p).all() for p in model.parameters())
 
 
 # ---------------------------------------------------------------------------
@@ -513,10 +519,16 @@ def test_export_writes_a_bf16_artifact_equal_to_the_eager_forward(tmp_path, back
 
 
 def test_export_refuses_the_bf16_combinations(tmp_path):
+    """``--quantize int8`` with bf16 stays refused, in JAX's words;
+    ``--space-devices`` with bf16, once refused, exports a bf16
+    height-sharded artifact (its parity: tests/test_torch_port_export_sp.py)."""
     kw = dict(checkpoint=str(tmp_path / "none.npz"), epses_specs=((2, 4),), image_size=8,
               batch_sizes=(2,), device="cpu", compute_dtype="bfloat16",
               out=str(tmp_path / "bad.zip"))
     with pytest.raises(click.UsageError, match="mutually exclusive"):
         export.run(quantize="int8", **kw)
-    with pytest.raises(click.UsageError, match="ROADMAP, item 14b"):
-        export.run(space_devices=2, **kw)
+    _, _, np_params, _, _, _ = _model_setup(((2, 4),))
+    save_params_npz(np_params, kw["checkpoint"])
+    export.run(space_devices=2, **kw)
+    meta, _ = export.load_artifact(kw["out"])
+    assert meta["compute_dtype"] == "bfloat16" and meta["space_devices"] == 2

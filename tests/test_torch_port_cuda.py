@@ -481,6 +481,51 @@ def test_q8_kernel_matches_plain(cuda_device, n, q, n1, o, npix):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,q,n1,o,npix", _Q8_SHAPES)
+def test_q8_kernel_bf16_t_matches_plain(cuda_device, n, q, n1, o, npix):
+    """K9 storing t in bf16 (the bf16 QAT step's): t bit-equal to the plain
+    version's and to the float32 K9's t rounded to nearest even, out
+    bit-equal to the float32 K9's (both routes: the shapes span the wgmma
+    and the mma.sync kernels, ``_q8_plan``)."""
+    views, wq, sw = _q8_inputs(cuda_device, n, q, n1, o, npix)
+    before = (Q8.eps_fwd_q8.t_launches, Q8.eps_fwd_q8.bf16_t_launches)
+    out32, t32 = Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True)
+    out16, t16 = Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True, t_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (Q8.eps_fwd_q8.t_launches, Q8.eps_fwd_q8.bf16_t_launches) == (before[0] + 2,
+                                                                          before[1] + 1)
+    ref_out, ref_t = Q8.eps_fwd_q8_reference(views, wq, sw, n1, o, save_t=True,
+                                             t_dtype=torch.bfloat16)
+    assert t16.dtype == ref_t.dtype == torch.bfloat16
+    assert torch.equal(t16, ref_t)
+    assert torch.equal(t16, t32.to(torch.bfloat16))
+    assert torch.equal(out16, out32)
+    _assert_close(out16, ref_out)
+
+
+@pytest.mark.cuda
+def test_qat_bf16_layer_gradients_match_the_plain_path(cuda_device):
+    """The bf16 QAT layer (the int8 forward on the float32 cmt, t in bf16,
+    the bf16 backward) on the kernels against the same Function with the
+    plain backward fed the kernel's t, at the flagship's layer 1 (saved-t
+    arm): its output equals the float32 QAT layer's bit for bit."""
+    xT = torch.rand((1, 4, 9, 9, 3), device=cuda_device, requires_grad=True)
+    cmt = (torch.randn((6 * 256, 1024), device=cuda_device) * 4**-4.5).requires_grad_(True)
+    plain_bwd = K.EPSKernels(Q8.QAT_KERNELS.fwd, K.eps_dcore_reference, K.eps_dviews_t_reference,
+                             K.eps_dviews_recompute_reference, quantizes=True)
+    res, before = [], Q8.eps_fwd_q8.bf16_t_launches
+    for kernels in (Q8.QAT_KERNELS, plain_bwd):
+        out = K.eps_apply_t_cmt(cmt, xT, 6, 3, 5, False, layer_index=1, kernels=kernels,
+                                mm_dtype=torch.bfloat16)
+        res.append((out, *torch.autograd.grad(torch.sum(out * torch.cos(out)), (xT, cmt))))
+    assert Q8.eps_fwd_q8.bf16_t_launches - before == 2
+    for a, b in zip(*res):
+        _assert_close(a, b)
+    f32 = K.eps_apply_t_cmt(cmt, xT, 6, 3, 5, False, layer_index=1, kernels=Q8.QAT_KERNELS)
+    assert torch.equal(res[0][0], f32)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,q,n1,o,npix", [(9, 4, 5, 6, 20_000), (4, 6, 3, 12, 9000), (11, 2, 2, 2, 1000)])
 def test_q8_kernel_gives_the_same_bits_twice(cuda_device, n, q, n1, o, npix):
     """The register route (flagship layer 1, and B2 = 512 in two passes)
@@ -1553,7 +1598,7 @@ def test_bf16_layer_gradients_match_the_plain_path(cuda_device, layer_index, n1,
 def test_bf16_mode_refuses_what_its_plan_does_not_take(cuda_device):
     views, cmt, g = _inputs(cuda_device, 10, 2, 1, 2, 300)  # n - n1 = 9 factors of v
     cb = cmt.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="ROADMAP item 14b"):
+    with pytest.raises(ValueError, match="the bf16 plans' limits"):
         K.eps_dviews_recompute(views, cb, g, 1, 2)
     t = torch.zeros((cmt.shape[0], 300), device=cuda_device)  # a float32 t with a bf16 cmt
     with pytest.raises(ValueError, match="bfloat16"):

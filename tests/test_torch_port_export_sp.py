@@ -30,6 +30,7 @@ from dctn_tpu_torch.interop import params_from_numpy
 from dctn_tpu_torch.models import EPSesPlusLinearConfig
 from dctn_tpu_torch.parallel.replicas import RowShardedForward
 from dctn_tpu_torch.train import save_params_npz
+from torch_port_bf16_problem import unit_problem
 
 SPECS = ((2, 3), (2, 4))
 IMAGE, BATCH, SPACE = 6, 8, 3
@@ -94,6 +95,50 @@ def test_space_sharded_artifact_matches_jax(made, backend):
     assert got.shape == (BATCH, 10)
     _close(got, made["jax_sharded"])
     _close(got, made["jax_one"])
+
+
+@pytest.fixture(scope="module")
+def made_bf16(tmp_path_factory):
+    """A bf16 model of unit-scale layers (``torch_port_bf16_problem``), its
+    height-sharded artifacts with ``compute_dtype`` bf16 from both packages
+    and the port's float32 one of the same npz."""
+    tmp = tmp_path_factory.mktemp("export_sp_bf16")
+    jcfg, jparams, np_params, x, _ = unit_problem(SPECS, image=IMAGE, backend="xla",
+                                                  batch=BATCH)
+    ckpt = str(tmp / "ckpt.npz")
+    save_params_npz(np_params, ckpt)
+    common = dict(checkpoint=ckpt, epses_specs=SPECS, image_size=IMAGE, q0=2,
+                  batch_sizes=(BATCH,), space_devices=SPACE)
+    arts = {}
+    for backend, dtype in (("xla", "bfloat16"), ("pallas", "bfloat16"), ("pallas", "float32")):
+        arts[backend, dtype] = str(tmp / f"{backend}_{dtype}.zip")
+        export.run(**common, backend=backend, device="cpu", compute_dtype=dtype,
+                   out=arts[backend, dtype])
+    jart = str(tmp / "jax.dctnx")
+    jexport.run(**common, backend="xla", compute_dtype="bfloat16", out=jart)
+    _, jfns = jexport.load_artifact(jart)
+    return {"arts": arts, "x": x, "jax_sharded": np.asarray(jfns[BATCH](jnp.asarray(x))),
+            "jax_one": np.asarray(jm.eps_plus_linear_forward(jparams, jnp.asarray(x), jcfg,
+                                                             training=False))}
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_bf16_space_sharded_artifact_matches_jax(made_bf16, backend):
+    """``export --space-devices 3 --compute-dtype bfloat16`` on 3 CPU
+    replicas against JAX's bf16 height-sharded artifact and its one-device
+    bf16 forward, at the float32 bound (the layers' short sums land no bf16
+    operand a step apart); its meta says bf16. The port's float32 artifact
+    of the same npz misses the bound (the mode is on)."""
+    meta, fns = export.load_artifact(made_bf16["arts"][backend, "bfloat16"])
+    assert meta["compute_dtype"] == "bfloat16" and meta["space_devices"] == SPACE
+    _, fns32 = export.load_artifact(made_bf16["arts"]["pallas", "float32"])
+    x = torch.as_tensor(made_bf16["x"])
+    with torch.inference_mode():
+        got, got32 = fns[BATCH](x).numpy(), fns32[BATCH](x).numpy()
+    _close(got, made_bf16["jax_sharded"])
+    _close(got, made_bf16["jax_one"])
+    with pytest.raises(AssertionError):
+        _close(got32, made_bf16["jax_sharded"])
 
 
 @pytest.mark.parametrize("backend,want", [("xla", {}), ("pallas", {"eps_fwd": 2})])

@@ -512,7 +512,7 @@ def test_bench_qat_runs_on_cpu_and_reports_its_fields(capsys):
             "eps_fwd", "eps_fwd_t", "eps_dcore", "eps_dcore_sum", "eps_dviews_t",
             "eps_dviews_recompute", "eps_fwd_q8", "eps_fwd_q8_t", "eps_fwd_bf16",
             "eps_fwd_t_bf16", "eps_dcore_bf16", "eps_dcore_sum_bf16", "eps_dviews_t_bf16",
-            "eps_dviews_recompute_bf16",
+            "eps_dviews_recompute_bf16", "eps_fwd_q8_t_bf16",
         }
     assert recs[0]["first_loss"] == pytest.approx(recs[1]["first_loss"], rel=1e-6)
     assert len(capsys.readouterr().out.strip().splitlines()) == 2

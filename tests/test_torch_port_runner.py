@@ -487,22 +487,30 @@ def test_early_stopper_stops_where_jax_stops():
     assert stopped[0] == stopped[1] == (7, "early_stopping")
 
 
-_REFUSED_VALUES = {
-    "mesh_devices": 2, "model_devices": 2, "space_devices": 2, "tp_shard_all": True,
-    "distributed": "auto", "autotune_splits": True, "autotune_cache": True, "qat": "int8",
+# the flags that were refused beside --compute-dtype bfloat16 until ROADMAP
+# item 14b was ported, each with a value that uses it (a model axis of 2
+# needs an even last O)
+_ONCE_REFUSED = {
+    "qat": ("int8", SPECS), "model_devices": (2, ((2, 4), (2, 4))),
+    "space_devices": (2, SPECS),
 }
 
 
-@pytest.mark.parametrize("name,accepted,flag,where", trunner.REFUSED,
-                         ids=[r[0] for r in trunner.REFUSED])
-def test_unported_flags_are_refused(tmp_path, name, accepted, flag, where):
-    """Each flag the port does not run yet beside ``--compute-dtype
-    bfloat16`` is refused with it before the run starts, naming its ROADMAP
-    item."""
-    with pytest.raises(click.BadParameter, match=r"ROADMAP, .*(item|follow-up) \d+"):
-        trunner.run(experiments_dir=str(tmp_path), max_num_iters=1,
-                    **{**COMMON, "compute_dtype": "bfloat16", name: _REFUSED_VALUES[name]})
-    assert not os.listdir(tmp_path)
+@pytest.mark.parametrize("name", list(_ONCE_REFUSED), ids=list(_ONCE_REFUSED))
+def test_unported_flags_are_refused(tmp_path, name):
+    """Once refused beside ``--compute-dtype bfloat16``, now the mode: each
+    flag passes the runner's validation with it, and ``--qat int8`` trains
+    an iteration in bf16 here (the grids' bf16 runs and their parity:
+    tests/test_torch_port_{tp,sp,sp_tp}.py, the QAT step's:
+    tests/test_torch_port_bf16_qat.py)."""
+    from dctn_tpu_torch.cli.specs import fill_defaults
+
+    value, specs = _ONCE_REFUSED[name]
+    kw = {**COMMON, "epses_specs": specs, "compute_dtype": "bfloat16", name: value}
+    trunner._validate(fill_defaults(trunner.main, dict(kw, experiments_dir=str(tmp_path))))
+    if name == "qat":
+        state = trunner.run(experiments_dir=str(tmp_path), max_num_iters=1, **kw)
+        assert state.num_iters_done == 1 and state.extras["cfg"].compute_dtype == torch.bfloat16
 
 
 def test_flag_validation_and_the_device(tmp_path):

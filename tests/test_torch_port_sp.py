@@ -41,6 +41,7 @@ import torch
 from dctn_tpu_torch.cli import runner as trunner
 from dctn_tpu_torch.cli.specs import fill_defaults
 from dctn_tpu_torch.interop import params_from_numpy
+from dctn_tpu_torch.kernels import eps_kernels as K
 from dctn_tpu_torch.models import (
     EPSesPlusLinear,
     EPSesPlusLinearConfig,
@@ -61,6 +62,8 @@ from dctn_tpu_torch.parallel import (
 )
 from dctn_tpu_torch.parallel.mesh import Host, Job
 from dctn_tpu_torch.train import load_params_npz, make_optimizer
+from torch_port_bf16_problem import LR as BF16_LR
+from torch_port_bf16_problem import check_moves, one_device_f32, unit_problem
 from torch_port_rank_pool import RankPool
 
 F64_TOL = 1e-10
@@ -72,6 +75,8 @@ SPECS = ((2, 3), (2, 4))
 LR, REG = 0.05, 1e-3
 STEPS = 2
 TIMEOUT_S = 180
+# the saved-t threshold on A; the bf16 QAT case lowers it to 1 on both sides
+SAVE_T_MIN_A = K.SAVE_T_MIN_A
 
 
 def _np(tree):
@@ -95,21 +100,23 @@ def job_sp(mesh, grid, params, x, y, o):
     if g is None:
         return None
     cfg = EPSesPlusLinearConfig(epses_specs=o["specs"], image_size=x.shape[2], q0=x.shape[-1],
-                                dropout_p=o.get("dropout_p", 1.0))
+                                dropout_p=o.get("dropout_p", 1.0),
+                                compute_dtype=torch.bfloat16 if o.get("bf16") else None)
+    K.SAVE_T_MIN_A = o.get("min_a", SAVE_T_MIN_A)
     params = params_from_numpy(params)
     qat = o.get("qat")
     kw = dict(frozen_eps_indices=o.get("frozen", ()), with_probs=o.get("with_probs", False),
               grad_accum_steps=o.get("accum", 1))
     if o["fast"]:
         model = EPSesPlusLinear.from_reference(params, cfg)
-        opt = make_optimizer("sgd", model.parameters(), LR)
+        opt = make_optimizer("sgd", model.parameters(), o.get("lr", LR))
         step = make_sp_fast_train_step(model, opt, g, o["reg_type"], REG, qat=qat, **kw)
         forward = make_sp_forward(cfg, g, model.plans, qat)
         score = make_sp_score_fn(cfg, g, 3, model.plans, qat)
         now = model.fast_params
     else:
         model = EPSesPlusLinearReference(params, cfg)
-        opt = make_optimizer("sgd", model.parameters(), LR)
+        opt = make_optimizer("sgd", model.parameters(), o.get("lr", LR))
         step = make_sp_train_step(model, opt, g, o["reg_type"], REG, **kw)
         forward = make_sp_forward(cfg, g)
         score = make_sp_score_fn(cfg, g, 3)
@@ -202,7 +209,7 @@ def _jax_masks(shapes, p, accum):
 
 
 def _jax_sp(jcfg, jparams, x, y, grid, reg_type, fast=False, qat=None, frozen=(), accum=1,
-            with_probs=False):
+            with_probs=False, lr=LR):
     """The JAX package's SP forward, STEPS SGD steps and score on a
     ``make_sp_mesh(*grid)``; the reference params."""
     import jax
@@ -217,7 +224,7 @@ def _jax_sp(jcfg, jparams, x, y, grid, reg_type, fast=False, qat=None, frozen=()
 
     mesh = jsp.make_sp_mesh(*grid)
     xs, ys = jsp.sp_shard_batch(mesh, x, y)
-    opt = jopt_of("sgd", LR)
+    opt = jopt_of("sgd", lr)
     kw = dict(frozen_eps_indices=frozen, grad_accum_steps=accum, with_probs=with_probs)
     if fast:
         p, plans = jfast_from_ref(jparams, jcfg)
@@ -329,6 +336,31 @@ def test_sp_fast_layout_matches_jax_interpret(pool, qat, reg_type, dropout_p):
     _compare(got, _jax_sp(jcfg, jparams, x, y, (1, 4), reg_type, fast=True, qat=qat), tol=None)
 
 
+@pytest.mark.parametrize("kind", ["halo_xla", "fast", "qat"])
+def test_sp_bf16_matches_jax(pool, monkeypatch, kind):
+    """``compute_dtype`` bf16 on a (2 data, 2 space) grid against JAX's
+    ``make_sp_*`` with ``compute_dtype`` bf16, in float32, on the problem
+    of ``torch_port_bf16_problem``: the reference layout (xla), the fast
+    layout and QAT on ``pallas_interpret`` (the saved-t arm forced on both
+    sides: K9 stores a bf16 t). The forward, 2 SGD steps and the score at
+    the float32 bound, and each parameter's move within MOVE_RTOL of JAX's,
+    which the port's float32 run on one device misses."""
+    fast = kind != "halo_xla"
+    qat = "int8" if kind == "qat" else None
+    if qat:
+        monkeypatch.setenv("DCTN_TPU_SAVE_T_MIN_A", "1")
+    jcfg, jparams, params, x, y = unit_problem(
+        SPECS, backend="pallas_interpret" if fast else "xla")
+    got = pool.run(job_sp, (2, 2), params, x, y,
+                   {"specs": SPECS, "fast": fast, "qat": qat, "bf16": True, "lr": BF16_LR,
+                    "min_a": 1 if qat else SAVE_T_MIN_A, "reg_type": "epswise"},
+                   timeout=TIMEOUT_S)
+    want = _jax_sp(jcfg, jparams, x, y, (2, 2), "epswise", fast=fast, qat=qat, lr=BF16_LR)
+    want32 = one_device_f32(params, SPECS, x, y, kind, "epswise", REG, BF16_LR, STEPS)
+    _compare(got, want, tol=None)
+    check_moves(params, got["params"], want[3], want32)
+
+
 def test_sp_halo_constraint_raises(tmp_path):
     """A halo wider than a shard (``sp_check_config``,
     spatial_parallel.py:91-100) is refused: by the function, and by the
@@ -402,6 +434,27 @@ def test_runner_sp_beside_one_device(pool, one_device, tmp_path, extra, grid):
     with open(os.path.join(out["output_dir"], "log.log")) as f:
         assert re.search(rf"spatial parallelism: grid \(data={grid[0]}, space={grid[1]}\)",
                          f.read())
+
+
+def test_runner_sp_bf16_beside_one_device(pool, tmp_path):
+    """``--compute-dtype bfloat16 --space-devices 2 --mesh-devices 2 --qat
+    int8`` (K9's bf16 t under the threshold the runner keeps) from the same
+    seed as one device's bf16 QAT run (SGD 1e-3, 4 iterations): each
+    parameter's move within MOVE_L2_TOL of one device's in L2 (each pixel's
+    operands are one device's: read 3e-5, against 2e-2 for the float32
+    run); the parameters stay float32 and the log names the grid."""
+    kw = dict(QUICK, max_num_iters=4, compute_dtype="bfloat16", qat="int8",
+              optimizer_name="sgd", lr=1e-3, wd=0.0, keep_last_models=5)
+    one = pool.run(job_runner, None, dict(kw, experiments_dir=str(tmp_path / "one")),
+                   timeout=TIMEOUT_S)
+    out = pool.run(job_runner, (2, 2), dict(kw, experiments_dir=str(tmp_path / "sp"),
+                                            space_devices=2, mesh_devices=2), timeout=TIMEOUT_S)
+    assert out["iters"] == 4
+    init = load_params_npz(os.path.join(one["output_dir"], _ckpts(one["output_dir"])[0]))
+    assert all(a.dtype == np.float32 for a in _leaves(out["params"]))
+    _moves(init, out["params"], one["params"], "bf16 qat space2", l2=True)
+    with open(os.path.join(out["output_dir"], "log.log")) as f:
+        assert re.search(r"spatial parallelism: grid \(data=2, space=2\)", f.read())
 
 
 def test_runner_sp_resumes_bit_equal(pool, tmp_path):

@@ -42,6 +42,7 @@ import torch
 from dctn_tpu_torch.cli import runner as trunner
 from dctn_tpu_torch.cli.specs import fill_defaults
 from dctn_tpu_torch.interop import params_from_numpy
+from dctn_tpu_torch.kernels import eps_kernels as K
 from dctn_tpu_torch.models import EPSesPlusLinearConfig
 from dctn_tpu_torch.models.eps_plus_linear import fast_params_from_reference
 from dctn_tpu_torch.parallel import (
@@ -61,6 +62,8 @@ from dctn_tpu_torch.parallel import (
 )
 from dctn_tpu_torch.parallel.mesh import Host, Job
 from dctn_tpu_torch.train import load_params_npz, make_optimizer
+from torch_port_bf16_problem import LR as BF16_LR
+from torch_port_bf16_problem import check_moves, one_device_f32, unit_problem
 from torch_port_rank_pool import RankPool
 
 F64_TOL = 1e-10
@@ -71,6 +74,8 @@ SPECS = ((2, 3), (2, 4))
 LR, REG = 0.05, 1e-3
 STEPS = 2
 TIMEOUT_S = 180
+# the saved-t threshold on A; the bf16 QAT case lowers it to 1 on both sides
+SAVE_T_MIN_A = K.SAVE_T_MIN_A
 
 
 def _np(tree):
@@ -95,7 +100,9 @@ def job_sp_tp(mesh, grid, params, x, y, o):
     if g is None:
         return None
     cfg = EPSesPlusLinearConfig(epses_specs=o["specs"], image_size=x.shape[2], q0=x.shape[-1],
-                                dropout_p=o.get("dropout_p", 1.0))
+                                dropout_p=o.get("dropout_p", 1.0),
+                                compute_dtype=torch.bfloat16 if o.get("bf16") else None)
+    K.SAVE_T_MIN_A = o.get("min_a", SAVE_T_MIN_A)
     params = params_from_numpy(params)
     qat = o.get("qat")
     kw = dict(frozen_eps_indices=o.get("frozen", ()), with_probs=o.get("with_probs", False),
@@ -103,14 +110,14 @@ def job_sp_tp(mesh, grid, params, x, y, o):
     if o["fast"]:
         fast, plans = fast_params_from_reference(params, cfg)
         model = TPFastModel(make_tp_fast_params(fast, cfg, g), plans, cfg, g)
-        opt = make_optimizer("sgd", model.parameters(), LR)
+        opt = make_optimizer("sgd", model.parameters(), o.get("lr", LR))
         step = make_sp_tp_fast_train_step(model, opt, o["reg_type"], REG, qat=qat, **kw)
         forward = make_sp_tp_forward(cfg, g, plans, qat)
         score = make_sp_tp_score_fn(cfg, g, 3, plans, qat)
         now = model.fast_params3
     else:
         model = TPModel(make_tp_params(params, cfg, g), cfg, g)
-        opt = make_optimizer("sgd", model.parameters(), LR)
+        opt = make_optimizer("sgd", model.parameters(), o.get("lr", LR))
         step = make_sp_tp_train_step(model, opt, o["reg_type"], REG, **kw)
         forward = make_sp_tp_forward(cfg, g)
         score = make_sp_tp_score_fn(cfg, g, 3)
@@ -211,7 +218,7 @@ def _jax_masks(shapes, p, accum):
 
 
 def _jax_sp_tp(jcfg, jparams, x, y, grid, reg_type, fast=False, qat=None, frozen=(), accum=1,
-               with_probs=False):
+               with_probs=False, lr=LR):
     """The JAX package's SP×TP forward, STEPS SGD steps and score on a
     ``make_sp_tp_mesh(*grid)``; the merged reference params."""
     import jax
@@ -227,7 +234,7 @@ def _jax_sp_tp(jcfg, jparams, x, y, grid, reg_type, fast=False, qat=None, frozen
 
     mesh = jst.make_sp_tp_mesh(*grid)
     xs, ys = jst.sp_tp_shard_batch(mesh, x, y)
-    opt = jopt_of("sgd", LR)
+    opt = jopt_of("sgd", lr)
     kw = dict(frozen_eps_indices=frozen, grad_accum_steps=accum, with_probs=with_probs)
     if fast:
         f, plans = jfast_from_ref(jparams, jcfg)
@@ -338,6 +345,32 @@ def test_sp_tp_fast_layout_matches_jax_interpret(pool, qat, reg_type, dropout_p)
                     "reg_type": reg_type, "masks": masks}, timeout=TIMEOUT_S)
     _compare(got, _jax_sp_tp(jcfg, jparams, x, y, (1, 2, 2), reg_type, fast=True, qat=qat),
              tol=None)
+
+
+@pytest.mark.parametrize("kind", ["xla", "fast", "qat"])
+def test_sp_tp_bf16_matches_jax(pool, monkeypatch, kind):
+    """``compute_dtype`` bf16 on (1, 2, 2) against JAX's ``make_sp_tp_*``
+    with ``compute_dtype`` bf16, in float32, on the problem of
+    ``torch_port_bf16_problem``: the reference layout (xla), the fast layout
+    and QAT on ``pallas_interpret`` (the saved-t arm forced on both sides:
+    K9 stores a bf16 t). The forward, 2 SGD steps and the score at the
+    float32 bound, and each parameter's move within MOVE_RTOL of JAX's,
+    which the port's float32 run on one device misses."""
+    fast = kind != "xla"
+    qat = "int8" if kind == "qat" else None
+    if qat:
+        monkeypatch.setenv("DCTN_TPU_SAVE_T_MIN_A", "1")
+    jcfg, jparams, params, x, y = unit_problem(
+        SPECS, backend="pallas_interpret" if fast else "xla")
+    got = pool.run(job_sp_tp, (1, 2, 2), params, x, y,
+                   {"specs": SPECS, "fast": fast, "qat": qat, "bf16": True, "lr": BF16_LR,
+                    "min_a": 1 if qat else SAVE_T_MIN_A, "reg_type": "epswise"},
+                   timeout=TIMEOUT_S)
+    want = _jax_sp_tp(jcfg, jparams, x, y, (1, 2, 2), "epswise", fast=fast, qat=qat,
+                      lr=BF16_LR)
+    want32 = one_device_f32(params, SPECS, x, y, kind, "epswise", REG, BF16_LR, STEPS)
+    _compare(got, want, tol=None)
+    check_moves(params, got["params"], want[3], want32)
 
 
 def test_sp_tp_halo_and_model_axis_constraints_raise(tmp_path):

@@ -35,6 +35,7 @@ import torch
 from dctn_tpu_torch.cli import runner as trunner
 from dctn_tpu_torch.cli.specs import fill_defaults
 from dctn_tpu_torch.interop import params_from_numpy
+from dctn_tpu_torch.kernels import eps_kernels as K
 from dctn_tpu_torch.models import EPSesPlusLinearConfig
 from dctn_tpu_torch.models.eps_plus_linear import fast_params_from_reference
 from dctn_tpu_torch.parallel import (
@@ -57,6 +58,8 @@ from dctn_tpu_torch.parallel import (
 )
 from dctn_tpu_torch.parallel.mesh import Host, Job
 from dctn_tpu_torch.train import load_params_npz, make_optimizer
+from torch_port_bf16_problem import LR as BF16_LR
+from torch_port_bf16_problem import check_moves, one_device_f32, unit_problem
 from torch_port_rank_pool import RankPool
 
 F64_TOL = 1e-10
@@ -68,6 +71,9 @@ SPECS_ALL = ((2, 4), (2, 4))
 LR, REG = 0.05, 1e-3
 STEPS = 2
 TIMEOUT_S = 180
+# the saved-t threshold on A; the bf16 QAT cases lower it to 1 on both sides
+# so that K9 stores a bf16 t at these small layers
+SAVE_T_MIN_A = K.SAVE_T_MIN_A
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +97,9 @@ def job_tp(mesh, grid, params, x, y, o):
     if g is None:
         return None
     cfg = EPSesPlusLinearConfig(epses_specs=o["specs"], image_size=x.shape[2], q0=x.shape[-1],
-                                dropout_p=o.get("dropout_p", 1.0))
+                                dropout_p=o.get("dropout_p", 1.0),
+                                compute_dtype=torch.bfloat16 if o.get("bf16") else None)
+    K.SAVE_T_MIN_A = o.get("min_a", SAVE_T_MIN_A)
     params = params_from_numpy(params)
     qat, shard_all = o.get("qat"), o.get("shard_all", False)
     kw = dict(frozen_eps_indices=o.get("frozen", ()), with_probs=o.get("with_probs", False),
@@ -99,7 +107,7 @@ def job_tp(mesh, grid, params, x, y, o):
     if o["fast"]:
         fast, plans = fast_params_from_reference(params, cfg)
         model = TPFastModel(make_tp_fast_params(fast, cfg, g), plans, cfg, g)
-        opt = make_optimizer("sgd", model.parameters(), LR)
+        opt = make_optimizer("sgd", model.parameters(), o.get("lr", LR))
         step = make_tp_fast_train_step(model, opt, o["reg_type"], REG, qat=qat, **kw)
         forward = make_tp_fast_forward(cfg, plans, g, qat)
         score = make_tp_fast_score_fn(cfg, plans, g, 3, qat)
@@ -110,7 +118,7 @@ def job_tp(mesh, grid, params, x, y, o):
     else:
         backend = o.get("backend", "xla")
         model = TPModel(make_tp_params(params, cfg, g, shard_all), cfg, g, shard_all)
-        opt = make_optimizer("sgd", model.parameters(), LR)
+        opt = make_optimizer("sgd", model.parameters(), o.get("lr", LR))
         step = make_tp_train_step(model, opt, o["reg_type"], REG, backend=backend, **kw)
         forward = make_tp_forward(cfg, g, shard_all, backend)
         score = make_tp_score_fn(cfg, g, 3, shard_all, backend)
@@ -178,7 +186,7 @@ def _few_torch_threads():
 # the JAX side
 
 
-def _problem(specs, dtype=np.float64, dropout_p=1.0, backend="xla"):
+def _problem(specs, dtype=np.float64, dropout_p=1.0, backend="xla", compute_dtype=None):
     """The JAX config, its params (JAX's init) and the numpy copies, and a
     batch."""
     import jax
@@ -187,7 +195,7 @@ def _problem(specs, dtype=np.float64, dropout_p=1.0, backend="xla"):
     from dctn_tpu.models import init_eps_plus_linear
 
     jcfg = JCfg(epses_specs=specs, image_size=6, q0=2, dtype=dtype, dropout_p=dropout_p,
-                train_backend=backend, eval_backend=backend)
+                train_backend=backend, eval_backend=backend, compute_dtype=compute_dtype)
     jparams = jax.tree_util.tree_map(lambda a: a.astype(dtype),
                                      init_eps_plus_linear(jax.random.PRNGKey(0), jcfg))
     x = np.random.default_rng(1).uniform(size=(1, 8, 6, 6, 2)).astype(dtype)
@@ -217,7 +225,7 @@ def _jax_masks(shapes, p, accum):
 
 
 def _jax_tp(jcfg, jparams, x, y, grid, reg_type, fast=False, shard_all=False, qat=None,
-            frozen=(), accum=1, with_probs=False):
+            frozen=(), accum=1, with_probs=False, lr=LR):
     """The JAX package's TP forward, STEPS SGD steps and score on a
     ``make_tp_mesh(*grid)``; the merged reference params."""
     import jax
@@ -232,7 +240,7 @@ def _jax_tp(jcfg, jparams, x, y, grid, reg_type, fast=False, shard_all=False, qa
 
     mesh = jtp.make_tp_mesh(*grid)
     xj, yj = jnp.asarray(x), jnp.asarray(y)
-    opt = jopt_of("sgd", LR)
+    opt = jopt_of("sgd", lr)
     kw = dict(frozen_eps_indices=frozen, grad_accum_steps=accum, with_probs=with_probs)
     if fast:
         f, plans = jfast_from_ref(jparams, jcfg)
@@ -383,6 +391,55 @@ def test_tp_fast_layout_matches_jax_interpret(pool, qat, reg_type, dropout_p):
     np.testing.assert_allclose(got["logits"], np.asarray(ref), rtol=F32_RTOL, atol=1e-6)
 
 
+@pytest.mark.parametrize("kind", ["last_xla", "fast", "qat"])
+def test_tp_bf16_matches_jax(pool, monkeypatch, kind):
+    """``compute_dtype`` bf16 on a (2 data, 2 model) grid against JAX's
+    ``make_tp_*`` with ``compute_dtype`` bf16, in float32, on the problem
+    of ``torch_port_bf16_problem``: the reference layout (the last core
+    sharded, xla), the fast layout and QAT on ``pallas_interpret`` (the
+    QAT layers on the saved-t arm, the threshold on A set to 1 on both
+    sides: K9 stores a bf16 t). The forward, 2 SGD steps and the score at
+    the float32 bound (F32_RTOL, F32_ATOL: these short sums land no bf16
+    operand a step apart), and the logits against JAX's one-device bf16
+    forward; each parameter's move within MOVE_RTOL of JAX's, which JAX's
+    the port's float32 run on one device misses (the mode is on)."""
+    fast = kind != "last_xla"
+    qat = "int8" if kind == "qat" else None
+    backend = "pallas_interpret" if fast else "xla"
+    if qat:
+        monkeypatch.setenv("DCTN_TPU_SAVE_T_MIN_A", "1")
+    jcfg, jparams, params, x, y = unit_problem(SPECS, backend=backend)
+    got = pool.run(job_tp, (2, 2), params, x, y,
+                   {"specs": SPECS, "fast": fast, "qat": qat, "bf16": True, "lr": BF16_LR,
+                    "min_a": 1 if qat else SAVE_T_MIN_A, "reg_type": "epswise"},
+                   timeout=TIMEOUT_S)
+    np.testing.assert_allclose(got["logits"], _jax_tp_logits(jcfg, jparams, x, fast, qat),
+                               rtol=F32_RTOL, atol=1e-6)
+    want = _jax_tp(jcfg, jparams, x, y, (2, 2), "epswise", fast=fast, qat=qat, lr=BF16_LR)
+    want32 = one_device_f32(params, SPECS, x, y, kind, "epswise", REG, BF16_LR, STEPS)
+    _compare(got, want, tol=None)
+    check_moves(params, got["params"], want[3], want32)
+
+
+def _jax_tp_logits(jcfg, jparams, x, fast, qat):
+    """JAX's one-device forward of ``jcfg``: fast (QAT's with ``qat``) or
+    the reference layout."""
+    import jax.numpy as jnp
+
+    from dctn_tpu.models.eps_plus_linear import (
+        eps_plus_linear_forward,
+        eps_plus_linear_forward_fast,
+        fast_params_from_reference as jfast_from_ref,
+    )
+    from dctn_tpu.pallas.eps_pallas_q8 import forward_fast_q8train
+
+    if not fast:
+        return np.asarray(eps_plus_linear_forward(jparams, jnp.asarray(x), jcfg))
+    f, plans = jfast_from_ref(jparams, jcfg)
+    run = eps_plus_linear_forward_fast if qat is None else forward_fast_q8train
+    return np.asarray(run(f, jnp.asarray(x), jcfg, plans, training=False))
+
+
 def test_tp_refuses_a_model_axis_that_does_not_divide_o(tmp_path):
     """``make_tp_params``' check (tensor_parallel.py:88-92), and the runner's
     refusals before any rank starts: a model axis that does not divide the
@@ -461,6 +518,48 @@ def test_runner_tp_beside_one_device(pool, one_device, tmp_path, extra, grid):
     _moves(one_device["init"], out["params"], one_device["params"], str(extra))
     with open(os.path.join(out["output_dir"], "log.log")) as f:
         assert re.search(rf"tensor parallelism: grid \(data={grid[0]}, model=2\)", f.read())
+
+
+# the bf16 runner on the TP grid against one device in bf16, the L2 gap of
+# each parameter's move over 4 SGD iterations relative to one device's
+# move: with every core sharded the same operands are rounded (read 1.6e-5);
+# with the last core alone sharded each model rank rounds kr2 = g·v of its
+# partial cotangent of the replicated layers before the sum over ``model``,
+# where one device rounds the whole one, as JAX's TP step does too
+# (test_tp_bf16_matches_jax holds the step to JAX's at 1e-5): read 1.6e-3,
+# against 4e-3 to 1e-2 for the float32 run
+BF16_RUNNER_L2 = {"model2_qat": 3e-3, "model2_shard_all": 1e-4}
+
+
+@pytest.mark.parametrize("extra", [
+    {"model_devices": 2, "qat": "int8"}, {"model_devices": 2, "tp_shard_all": True},
+], ids=["model2_qat", "model2_shard_all"])
+def test_runner_tp_bf16_beside_one_device(pool, tmp_path, request, extra):
+    """``--compute-dtype bfloat16 --model-devices 2``, with ``--qat int8``
+    (K9's bf16 t under the threshold the runner keeps) and with
+    ``--tp-shard-all``, from the same seed as one device's bf16 run with
+    the same options (SGD 1e-3, 4 iterations): each parameter's move
+    within BF16_RUNNER_L2 of one device's in L2; the parameters stay
+    float32 and the log names the grid."""
+    kw = dict(QUICK, max_num_iters=4, reg_type="epswise", compute_dtype="bfloat16",
+              optimizer_name="sgd", lr=1e-3, wd=0.0, keep_last_models=5)
+    one_kw = {k: v for k, v in extra.items() if k == "qat"}
+    one = pool.run(job_runner, None, dict(kw, experiments_dir=str(tmp_path / "one"), **one_kw),
+                   timeout=TIMEOUT_S)
+    out = pool.run(job_runner, (1, 2), dict(kw, experiments_dir=str(tmp_path / "tp"), **extra),
+                   timeout=TIMEOUT_S)
+    assert out["iters"] == 4
+    names = sorted(f for f in os.listdir(one["output_dir"]) if f.startswith("model_nitd="))
+    init = load_params_npz(os.path.join(one["output_dir"], names[0]))
+    bound = BF16_RUNNER_L2[request.node.callspec.id]
+    for i, (s0, a, b) in enumerate(zip(_leaves(init), _leaves(out["params"]),
+                                       _leaves(one["params"]), strict=True)):
+        assert a.dtype == np.float32
+        mb = b.astype(np.float64) - s0
+        gap = float(np.linalg.norm(a.astype(np.float64) - s0 - mb) / np.linalg.norm(mb))
+        assert gap <= bound, (i, gap)
+    with open(os.path.join(out["output_dir"], "log.log")) as f:
+        assert re.search(r"tensor parallelism: grid \(data=1, model=2\)", f.read())
 
 
 def test_runner_tp_resumes_bit_equal_and_loads_one_device_states(pool, tmp_path):

@@ -405,7 +405,7 @@ def test_bench_runs_on_cpu_and_reports_its_fields(capsys):
             "eps_fwd", "eps_fwd_t", "eps_dcore", "eps_dcore_sum", "eps_dviews_t",
             "eps_dviews_recompute", "eps_fwd_q8", "eps_fwd_q8_t", "eps_fwd_bf16",
             "eps_fwd_t_bf16", "eps_dcore_bf16", "eps_dcore_sum_bf16", "eps_dviews_t_bf16",
-            "eps_dviews_recompute_bf16",
+            "eps_dviews_recompute_bf16", "eps_fwd_q8_t_bf16",
         }
         assert r["step_gflop"] > 0
     # both paths start from the same parameters and batch
