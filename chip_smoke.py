@@ -210,11 +210,16 @@ Run from the root of a checkout, with no arguments:
    layers 1 and 2 at batch 128, within REL_TOL (the saved bf16 t within one
    bf16 step), and against the float32 kernel on the same inputs, which
    must differ by more (the negative control), with kernel, plain, library
-   (``torch.matmul`` on bf16 operands) and bound times; (b) ``runner.run``
+   (``torch.matmul`` on bf16 operands) and bound times; the bf16 plans'
+   shared memory in Python against the sources' C queries; ``eps_dcore``'s
+   bf16 mode over 6 chunks of pixels (its operands' scratch capped small:
+   several slices, a short ragged last chunk) against its plain version,
+   the same bits twice; (b) ``runner.run``
    with ``--compute-dtype bfloat16`` (the README quick start, 10 iterations,
    launches exact, final logits against the plain bf16 forward), and the
    three-EPS bench step in bf16 (the recompute arm); (c) the deep model's
-   step at batch 2048 with ``grad_accum_steps="auto"`` (2 in bf16); (d) a
+   step at batch 2048 with ``grad_accum_steps="auto"`` (2 in bf16; its
+   layer 1's ``eps_dcore`` in 9 chunks of pixels, counted); (d) a
    bf16 artifact exported, loaded (one K1 node a layer, the bf16 mode's
    launches), its logits the eager bf16 model's bits, ``predict.run`` and
    a served request from it; (e) the flagship's f32 and bf16 step and
@@ -230,9 +235,17 @@ Run from the root of a checkout, with no arguments:
    at 1e-4 against it, its forward logits the float32 QAT forward's bits;
    (h) the flagship QAT step p50, f32 and bf16, in turns. One ``bf16`` JSON
    line (the bf16 QAT numbers under ``qat``).
-12. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
+12. Where the port falls back as the JAX package does: ``runner.run`` with
+   ``--epses-specs "(5,4)"`` (a layer outside the kernels' plans) trains 4
+   SGD steps at batch 16 on the reference layout, no EPS kernel launched,
+   both fallbacks in run_info.txt, its logits the plain path's; then
+   ``legacy_runner.run`` at bond 12 (outside the ConvSBS kernels' scope)
+   trains an epoch on the plain folds, no ConvSBS kernel launched, the
+   fallback in run_info.txt, the trained model's logits on the card within
+   REL_TOL of the CPU plain fold's.
+12b. With ``--profile DIR`` only: the device-time breakdown (``torch.profiler``)
    of the serving forward (f32 and int8) at batch 1 and 128 and of the
-   flagship training step (f32 and QAT) at batch 128, on the kernel and on
+   flagship training step (f32, QAT and bf16) at batch 128, on the kernel and on
    the plain path, and of the deep model's step at batch 2048 (accumulation
    1 and 4) on the kernels, and of the ConvSBS step at batch 100 (open, ring)
    and 512 (open, ring) on the kernel and the plain path, with the device's busy
@@ -256,6 +269,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import io
 import json
 import math
@@ -506,6 +520,12 @@ BF16_STEP = 2.0**-7
 # the runner in bf16 (phase 11 b): the README quick start, these many
 # iterations, one eval past the first
 BF16_RUN_ITERS = 10
+# phase 11 (a): the bf16 eps_dcore in chunks at the flagship's layer 1 at
+# 127 images (67,183 pixels, no multiple of 64), its operands' scratch
+# capped to chunks of 209 steps of 64 pixels: 6 chunks, the last of 303
+# pixels (5 steps, so the sixth slice has none of it)
+BF16_CHUNK_IMAGES = 127
+BF16_CHUNK_STEPS = 209
 # the f32 and bf16 flagship steps and forwards timed in turns (phase 11 e)
 BF16_TURN_STEPS = 20
 # phase 11 (f): K9 with a bf16 t at these shapes beside flagship layer 1 at
@@ -1333,7 +1353,8 @@ def launches_per_step(specs, batch, accum, qat, keys, image_size=28, q0=2, froze
     saved-t arm), ``eps_dcore`` (and its slice sum where its tiles are few;
     neither for a ``frozen`` layer), and the arm's d_views kernel (none for
     layer 0); ``accum`` microbatches. ``bf16``: the kernels' bf16 modes
-    (their ``*_bf16`` counters), t counted at 2 bytes by the saved-t cap;
+    (their ``*_bf16`` counters, ``eps_dcore``'s chunks of pixels too), t
+    counted at 2 bytes by the saved-t cap;
     under ``qat`` K8/K9's forward, a bf16 t also in ``eps_fwd_q8_t_bf16``."""
     from dctn_tpu_torch.kernels import eps_kernels as K
 
@@ -1353,6 +1374,9 @@ def launches_per_step(specs, batch, accum, qat, keys, image_size=28, q0=2, froze
             counts["eps_dcore" + sfx] += 1
             counts["eps_dcore_sum" + sfx] += slices(o * q ** (n - n1), q**n1, npix,
                                                     K._sm_count(torch.device("cuda", 0))) > 1
+            if bf16:  # its chunks of pixels, each the operands kernel then the product
+                counts["eps_dcore_chunks_bf16"] += -(-npix // K._dcore_bf16_chunk(
+                    o * q ** (n - n1), q**n1, npix))
         counts["eps_dviews_t" + sfx] += arm == "saved_t"
         counts["eps_dviews_recompute" + sfx] += arm == "recompute"
     return {k: v * accum for k, v in counts.items()}
@@ -3642,7 +3666,58 @@ def bf16_kernels_vs_plain(K, dev) -> dict:
                                                   bf16_flops=r_.pop("bf16_flops"))
         print(f"bf16 negative control: the closest float32 kernel result lay "
               f"{r_.pop('f32_gap'):.2e} of the largest entry away (> {REL_TOL:g})")
+    for label, (n, q, n1, o, _) in shapes.items():
+        mirrors = (K._dcore_bf16_smem_bytes(n, q, n1, o),
+                   K._dviews_bf16_smem_bytes(n, q, n1, o, False),
+                   K._dviews_bf16_smem_bytes(n, q, n1, o, True))
+        sources = (K._library("eps_dcore").dctn_eps_dcore_bf16_smem_bytes(n, q, n1, o),
+                   *(K._library("eps_dviews_t").dctn_eps_dviews_bf16_smem_bytes(n, q, n1, o, r)
+                     for r in (0, 1)))
+        check(mirrors == sources, f"bf16 plans [{label}]: the Python mirrors {mirrors} of "
+              f"shared memory are not the sources' {sources}")
+    bf16_dcore_chunks_vs_plain(K, dev, layer_dims(FLAGSHIP)[1])
     return res
+
+
+def bf16_dcore_chunks_vs_plain(K, dev, dims) -> None:
+    """Phase 11 (a): ``eps_dcore``'s bf16 mode over several chunks of
+    pixels, as the deep model's layer 1 runs it at 2048 (its operands'
+    scratch capped to BF16_CHUNK_STEPS steps of 64 pixels here): the
+    flagship's layer 1 at BF16_CHUNK_IMAGES images, so more than one pixel
+    slice, a short last chunk (some slices with no step of it) and a ragged
+    last step; against the plain version within REL_TOL, a chunk counted
+    once each, the same bits twice."""
+    n, q, n1, o, h = dims
+    npix = BF16_CHUNK_IMAGES * h * h
+    z, a = o * q ** (n - n1), q**n1
+    rows = K._pad_to(a, K._BF16_DCORE_TILE) + K._pad_to(z, K._BF16_DCORE_TILE)
+    cap = K._BF16_DCORE_OPS_BYTES
+    K._BF16_DCORE_OPS_BYTES = 2 * rows * 64 * BF16_CHUNK_STEPS
+    try:
+        chunk = K._dcore_bf16_chunk(z, a, npix)
+        slices = K._dcore_bf16_slices(z, a, npix, K._sm_count(dev))
+        g_ = torch.Generator(device=dev).manual_seed(SEED)
+        views = torch.rand((n, q, npix), generator=g_, device=dev)
+        g = torch.randn((o, npix), generator=g_, device=dev)
+        before = K.eps_dcore.bf16_chunk_launches
+        got = K.eps_dcore(views, g, n1, o, mm_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        chunks = K.eps_dcore.bf16_chunk_launches - before
+        again = K.eps_dcore(views, g, n1, o, mm_dtype=torch.bfloat16)
+    finally:
+        K._BF16_DCORE_OPS_BYTES = cap
+    ref = K.eps_dcore_reference(views, g, n1, o, torch.bfloat16)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    last = npix - (chunks - 1) * chunk
+    print(f"eps_dcore_bf16 in chunks [flagship layer 1, {BF16_CHUNK_IMAGES} images, npix={npix}]: "
+          f"{chunks} chunks of {chunk} pixels (the last {last}), {slices} slices: "
+          f"max|d|={err:.3e} tol={REL_TOL * scale:.3e}")
+    check(chunks == -(-npix // chunk) >= 3 and slices > 1 and npix % 64 != 0
+          and -(-last // 64) < slices, f"eps_dcore_bf16 chunk case: {chunks} chunks, {slices} "
+          "slices: not the case it should be")
+    check(torch.isfinite(got).all().item() and err <= REL_TOL * scale,
+          "eps_dcore_bf16 in chunks differs from plain")
+    check(torch.equal(got, again), "eps_dcore_bf16 in chunks: two runs differ")
 
 
 def bf16_phase(trunner, bench, K, params, cfg, dev, tmp) -> tuple:
@@ -3973,6 +4048,88 @@ def qat_bf16_phase(bench, K, Q8, params, cfg, tx, ty, dev) -> tuple:
           f"{record['qat_float32']['step_ms_p50']:.4f} ms, bf16 "
           f"{record['qat_bfloat16']['step_ms_p50']:.4f} ms")
     return counts, numbers, record
+
+
+# phase 12: where the port falls back as the JAX package does: an EPS model
+# with a layer outside the kernels' plans trained through the runner (the
+# reference layout, the plain path), and the legacy runner at a bond outside
+# the ConvSBS kernels' scope (every string on the plain folds)
+FALLBACK_SPECS = ((5, 4),)
+FALLBACK_BATCH = 16
+FALLBACK_ITERS = 4
+FALLBACK_SIZES = (256, 64, 64)
+FALLBACK_SBS_BOND = 12
+FALLBACK_SBS_SIZES = (200, 100)
+
+
+def fallback_phase(trunner, legacy_runner, bench, K, CSM, dev, tmp) -> list:
+    """Phase 12: ``runner.run`` with ``--epses-specs "(5,4)"`` (outside the
+    kernels' plans: JAX's ``pallas_forward_fits`` refuses it too) trains a
+    few steps on the reference layout: no EPS kernel launches, both
+    fallbacks (the layout's, the layer's) in run_info.txt, its logits on the
+    card the plain path's; then ``legacy_runner.run`` at bond 12 trains an
+    epoch on the plain folds with the fallback recorded, no ConvSBS kernel
+    launched, and the trained model's logits on the card equal the CPU
+    plain fold's within REL_TOL. Returns the runs' counts."""
+    from dctn_tpu_torch.data import io as data_io
+    from dctn_tpu_torch.models import EPSesPlusLinearReference, eps_plus_linear_forward
+
+    t0 = time.perf_counter()
+    state, counts, out = run_runner(
+        trunner, bench, tmp, "fallback_eps", ds_type="fashionmnist", ds_path="synthetic",
+        epses_specs=FALLBACK_SPECS, batch_size=FALLBACK_BATCH, optimizer_name="sgd", lr=1e-3,
+        init_epses_composition_unit_theoretical_output_std=True, max_num_iters=FALLBACK_ITERS,
+        synthetic_sizes=FALLBACK_SIZES, eval_schedule=((None, FALLBACK_ITERS),),
+        keep_last_models=1)
+    model = state.extras["model"]
+    check(state.num_iters_done == FALLBACK_ITERS, f"(5,4) run stopped at {state.num_iters_done}")
+    check(isinstance(model, EPSesPlusLinearReference) and model.backend == "pallas",
+          f"(5,4) trained {type(model).__name__}, not the reference layout on the pallas backend")
+    check(not any(counts.values()), f"(5,4) run launched EPS kernels {counts}")
+    with open(os.path.join(out, "run_info.txt")) as f:
+        info = f.read()
+    check("fast (cmt) parameter layout unavailable" in info and "outside the kernels' plans" in info,
+          "(5,4) run: the fallbacks are not in run_info.txt")
+    x = torch.rand((1, FALLBACK_BATCH, 28, 28, 2), generator=torch.Generator().manual_seed(SEED)).to(dev)
+    with torch.no_grad():
+        got = model(x)
+        ref = eps_plus_linear_forward(model.reference_params(), x, model.cfg)  # the xla backend
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= REL_TOL * scale,
+          f"(5,4) logits differ from the plain path by {err} (max|ref| {scale})")
+    print(f"phase 12 (5,4): {FALLBACK_ITERS} steps on the reference layout, launches {counts}, "
+          f"logits vs plain max|d|={err:.3e} tol={REL_TOL * scale:.3e}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    runs = [counts]
+
+    t0 = time.perf_counter()
+    bench.zero_counters()
+    sbs_dir = os.path.join(tmp, "fallback_sbs")
+    params, best_acc = legacy_runner.run(
+        ds_path="synthetic", models_dir=sbs_dir, num_sbs_layers=SBS_LAYERS,
+        bond_dim_size=FALLBACK_SBS_BOND, batch_size=100, epochs=1,
+        synthetic_sizes=FALLBACK_SBS_SIZES, optimizer_type="sgd", learning_rate=1e-3,
+        warmup_num_epochs=0, cos_sin_squared=True, make_input_window_std_one=True,
+        scale_layers_using_batch=100, seed=SEED, device="cuda", tb_log_every_n_epochs=0)
+    sbs_counts = bench.read_sbs_counters()
+    check(not any(sbs_counts.values()), f"bond-12 run launched ConvSBS kernels {sbs_counts}")
+    with open(os.path.join(sbs_dir, "run_info.txt")) as f:
+        info = f.read()
+    check("bonds up to 12" in info and "every string of the model" in info,
+          "bond-12 run: the fallback is not in run_info.txt")
+    images, _ = data_io.synthetic_mnist_like(100, seed=1234)
+    xs = torch.as_tensor(images)
+    cfg12 = dataclasses.replace(sbs_model_cfg(CSM, xs, False), bond_dim_size=FALLBACK_SBS_BOND)
+    with torch.no_grad():
+        got = CSM.ConvSBSModel(params, cfg12, device=dev)(xs.to(dev)).cpu()
+        ref = CSM.ConvSBSModel(params, cfg12, device="cpu")(xs)
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= REL_TOL * scale,
+          f"bond-12 logits on the card differ from the CPU plain fold's by {err} (max|ref| {scale})")
+    print(f"phase 12 bond {FALLBACK_SBS_BOND}: best val acc {best_acc:.4f}, ConvSBS launches "
+          f"{sbs_counts}, logits vs CPU plain fold max|d|={err:.3e} tol={REL_TOL * scale:.3e}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return runs + [sbs_counts]
 
 
 def main(argv=None) -> int:
@@ -4337,12 +4494,24 @@ def main(argv=None) -> int:
         bench, K, Q8, params, cfg, tx, ty, dev)
     bf16_counts += qat_counts
     print(json.dumps({"bf16": bf16_record}))
+    if args.profile:
+        profile_training(params, dataclasses.replace(cfg, compute_dtype=torch.bfloat16), tx, ty,
+                         dev, args.profile, tag="train_bf16")
     phase_done("bf16 operands (11)")
+
+    # phase 12: the fallbacks where JAX falls back (an EPS model outside the
+    # kernels' plans, a ConvSBS model outside their scope)
+    with tempfile.TemporaryDirectory() as tmp:
+        fallback_counts = fallback_phase(eps_runner, legacy_runner, bench, K, CSM, dev, tmp)
+    phase_done("fallbacks (12)")
     print(f"all phases: {time.perf_counter() - start:.1f} s")
 
     driven = [serving, serving_q8, exported, *trained.values(), *runner_runs, *sbs_runs, *sbs_bench_counts,
-              *dp_counts, *lme_launches, tuned_counts, *bf16_counts]
-    missing = [name for name in BF16_KERNELS if sum(c.get(name, 0) for c in bf16_counts) == 0]
+              *dp_counts, *lme_launches, tuned_counts, *bf16_counts, *fallback_counts]
+    # eps_dcore's bf16 mode launches its operands kernel and its product once
+    # a chunk of pixels: counted apart, and exact in each step's count
+    missing = [name for name in (*BF16_KERNELS, "eps_dcore_chunks_bf16")
+               if sum(c.get(name, 0) for c in bf16_counts) == 0]
     check(not missing, f"phase 11 launched no {missing}")
     launches = {name: sum(c.get(name, 0) for c in driven) for name in KERNELS}
     print(json.dumps({"kernels": [

@@ -8,7 +8,7 @@ directory that ``.gitignore`` lists (here HEAD, the parent of uncommitted
 changes):
 
     mkdir -p build/parent && git archive HEAD | tar -x -C build/parent
-    python3 compare_parent.py build/parent [--steps] [--families eps,q8,sbs,lme]
+    python3 compare_parent.py build/parent [--steps] [--families eps,bf16,ref,q8,sbs,lme]
 
 Each family's kernels are called from both checkouts on the same inputs and
 timed in turns:
@@ -20,6 +20,23 @@ timed in turns:
   kernel; both d_views forms where the layer has a v half, below batch
   2048), this checkout's result held within ``chip_smoke.REL_TOL`` of the
   other's (median CUDA-event ms);
+- ``bf16``: the bf16 operand mode of the same kernels at the same layers
+  (K1, with t where the layer saves it, as a control of a kernel no PR
+  changes; ``eps_dcore``; the arm's d_views form, both below batch 2048)
+  and at a grid rank's shapes (``chip_smoke.grid_shard_shapes``: K1 + t,
+  ``eps_dcore`` and both d_views forms at layer 1, K1 and ``eps_dcore`` at
+  layer 0), on the same float32 inputs, cmt rounded to bf16 once and the
+  saved bf16 t written once by this checkout's K1; each result within
+  ``chip_smoke.REL_TOL`` of the other's (a bf16 t within one bf16 step),
+  median CUDA-event ms in turns, the products' TFLOP/s and their bound at
+  the dense bf16 rate;
+- ``ref``: the reference layout's layers on the kernels' route
+  (``ops.eps.eps`` with ``backend="pallas"``, forward and backward, as the
+  TP and SP grids run the reference layout) at both flagship layers at
+  batch 128, held within ``chip_smoke.REL_TOL`` of each other (median
+  CUDA-event ms, the host's work included: this checkout asks the kernels'
+  gate at every call); and the gate's host µs per call, cached and
+  uncached;
 - ``q8``: the int8 forward without t (K8) and with it (K9) at every layer
   the int8 paths run at batch 128 (the flagship's serving and QAT layers,
   the three-EPS QAT layers) and at one shape of its mma.sync kernel
@@ -55,6 +72,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -72,10 +90,12 @@ from chip_smoke import (
     SBS_MCUT,
     SBS_TOL,
     SEED,
+    BF16_STEP,
     THREE,
     bound_ms,
     check,
     device_ms_per_call,
+    grid_shard_shapes,
     layer_dims,
     lme_limit_share,
     lme_operands,
@@ -120,7 +140,7 @@ STEP_KEYS = ("step_ms_p50", "images_per_s", "peak_extra_mib", "launches_per_step
              "forward_seconds_per_iteration", "forward_backward_seconds_per_iteration",
              "launches_per_forward", "launches_per_forward_backward", "step_ms", "val_acc",
              "logmatmulexp_launches_per_step")
-FAMILIES = ("eps", "q8", "sbs", "lme")
+FAMILIES = ("eps", "bf16", "ref", "q8", "sbs", "lme")
 # a shape of the int8 forward's mma.sync kernel: A = 81 is not a multiple of 4
 Q8_MMA_SHAPE = ("mma.sync: A = 81, n2 = 0", 4, 3, 4, 5, BATCH * 625)
 
@@ -188,6 +208,126 @@ def compare_kernels(K, OK, dev) -> None:
                     "max_abs_diff_vs_parent": err, "tol": REL_TOL * scale}), flush=True)
             del views, cmt, g
             torch.cuda.empty_cache()
+
+
+def bf16_close(x: torch.Tensor, r: torch.Tensor) -> bool:
+    """``x`` within REL_TOL of max|r| of ``r``; a bf16 tensor (a saved t,
+    rounded from sums in two orders) entry by entry within one bf16 step
+    more."""
+    bf16 = r.dtype == torch.bfloat16
+    x, r = x.float(), r.float()
+    limit = REL_TOL * float(r.abs().max()) + (BF16_STEP * r.abs() if bf16 else 0.0)
+    return bool(torch.isfinite(x).all()) and bool(((x - r).abs() <= limit).all())
+
+
+def bf16_layer_cases(K, i, n, q, n1, o, npix, both, views, cmt, g):
+    """(name, call on a kernels module, bf16 flops of its products) for
+    each bf16 kernel the layer's bf16 training step runs (with ``both``,
+    both d_views forms where the layer has a v half)."""
+    cb = cmt.to(torch.bfloat16)
+    z, a = cmt.shape
+    arm = K.plan_backward(i, n, n1, q, o, npix, 2)
+    both = both and i > 0 and n1 < n
+    saved = arm == "saved_t" or both
+    t = K.eps_fwd(views, cb, n1, o, save_t=True)[1] if saved else None
+    mm = 2.0 * z * a * npix
+    bf = torch.bfloat16
+    cases = [("eps_fwd_t bf16", lambda M: M.eps_fwd(views, cb, n1, o, save_t=True), mm)
+             if arm == "saved_t" else ("eps_fwd bf16", lambda M: M.eps_fwd(views, cb, n1, o), mm),
+             ("eps_dcore bf16", lambda M: M.eps_dcore(views, g, n1, o, mm_dtype=bf), mm)]
+    if saved:
+        cases.append(("eps_dviews_t bf16", lambda M: M.eps_dviews_t(views, cb, g, t, n1, o), mm))
+    if arm == "recompute" or both:
+        cases.append(("eps_dviews_recompute bf16",
+                      lambda M: M.eps_dviews_recompute(views, cb, g, n1, o),
+                      2 * mm if n1 < n else mm))
+    return cases
+
+
+def compare_bf16(K, OK, dev) -> None:
+    """The bf16 mode's kernels of both checkouts at the ``eps`` family's
+    layers and at a grid rank's shapes."""
+    g_ = torch.Generator(device=dev).manual_seed(SEED)
+    layers = [(path, i, n, q, n1, o, batch * h * h, batch < DEEP_BATCH)
+              for path, specs, batch in PATHS
+              for i, (n, q, n1, o, h) in enumerate(layer_dims(specs))]
+    layers += [(label, i, n, q, n1, o, npix, True)
+               for label, i, n, q, n1, o, npix in grid_shard_shapes()]
+    for path, i, n, q, n1, o, npix, both in layers:
+        views = torch.rand((n, q, npix), generator=g_, device=dev)
+        cmt = torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev) * q ** (-n / 2)
+        g = torch.randn((o, npix), generator=g_, device=dev)
+        for name, call, mm in bf16_layer_cases(K, i, n, q, n1, o, npix, both, views, cmt, g):
+            got, ref = call(K), call(OK)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            err = max(float((x.float() - r.float()).abs().max()) for x, r in zip(got, ref))
+            scale = max(float(r.float().abs().max()) for r in ref)
+            check(all(bf16_close(x, r) for x, r in zip(got, ref)),
+                  f"{name} [{path} layer {i}]: differs from the other checkout's by {err} "
+                  f"(max|ref| {scale})")
+            del got, ref
+            reps = 3 if npix > 500_000 else 10
+            t_other, t_this = median_ms([lambda: call(OK), lambda: call(K)], reps=reps)
+            print(json.dumps({
+                "metric": "bf16_kernel_vs_parent", "kernel": name, "path": path, "layer": i,
+                "shape": {"n": n, "q": q, "n1": n1, "O": o, "Z": cmt.shape[0],
+                          "A": cmt.shape[1], "npix": npix},
+                "parent_ms": t_other, "ms": t_this, "parent_over_change": t_other / t_this,
+                "products_tflops": mm / t_this / 1e9, "bound_ms": bound_ms(0.0, bf16_flops=mm)[0],
+                "max_abs_diff_vs_parent": err, "tol": REL_TOL * scale}), flush=True)
+        del views, cmt, g
+        torch.cuda.empty_cache()
+
+
+def compare_ref(E, OE, dev) -> None:
+    """The reference layout's flagship layers on the kernels' route in both
+    checkouts (``E``, ``OE``: their ``ops.eps``), then the gate's host time
+    per call at layer 1."""
+    from dctn_tpu_torch.kernels import eps_kernels as K
+
+    g_ = torch.Generator(device=dev).manual_seed(SEED)
+    h, q = 28, 2
+    for i, (k, o) in enumerate(FLAGSHIP):
+        n = k * k
+        core = torch.randn((q,) * n + (o,), generator=g_, device=dev) * q ** (-n / 2)
+        x = torch.rand((1, BATCH, h, h, q), generator=g_, device=dev)
+        h, q = h - k + 1, o
+        cot = torch.randn((BATCH, h, h, o), generator=g_, device=dev)
+
+        def call(M, core=core, x=x, cot=cot, i=i):
+            c, xx = core.detach().requires_grad_(True), x.detach().requires_grad_(i > 0)
+            out = M.eps(c, xx, backend="pallas")
+            return (out.detach(), *torch.autograd.grad(out, (c, xx) if i > 0 else (c,), cot))
+
+        got, ref = call(E), call(OE)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        check(all(float((a - b).abs().max()) <= REL_TOL * float(b.abs().max())
+                  for a, b in zip(got, ref)),
+              f"reference layout layer {i}: differs from the other checkout's by {err}")
+        del got, ref
+        t_other, t_this = median_ms([lambda: call(OE), lambda: call(E)], reps=20)
+        print(json.dumps({
+            "metric": "reference_layer_vs_parent", "path": "flagship", "layer": i,
+            "batch": BATCH, "parent_ms": t_other, "ms": t_this,
+            "parent_over_change": t_other / t_this, "max_abs_diff_vs_parent": err}), flush=True)
+    # the gate as ops.eps asks it at layer 1 (c, q, K, n1, O, pixels, layer,
+    # objective): a hit of its cache, and its checks run anew
+    args = (1, 4, 3, 5, 6, BATCH * h * h, 1, "train")
+    n_k, q_k, n1_k = K._kernel_dims(1, 4, 3, 5, False)
+    inner = (n_k, q_k, n1_k, 6, BATCH * h * h, "train", False,
+             K._arms(1, n_k, n1_k, q_k, 6, BATCH * h * h, 4))
+    calls = 2000
+    for label, fn, fargs in (("cached", K.kernels_take_split, args),
+                             ("checks", K._kernels_take.__wrapped__, inner)):
+        check(fn(*fargs), f"the gate refuses flagship layer 1 ({label})")
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn(*fargs)
+        print(json.dumps({"metric": "gate_host_us_per_call", "how": label,
+                          "us": 1e6 * (time.perf_counter() - start) / calls}), flush=True)
 
 
 def compare_q8(Q, OQ, dev) -> None:
@@ -383,7 +523,7 @@ def compare_steps(other_dir: str, families) -> None:
     trees = {"parent": os.path.abspath(other_dir), "change": os.path.dirname(os.path.abspath(__file__))}
     done = set()
     for family in families:
-        for label, extra in STEPS[family]:
+        for label, extra in STEPS.get(family, ()):
             if label in done:  # a step that two families share runs once
                 continue
             done.add(label)
@@ -401,7 +541,7 @@ def main(argv=None) -> int:
     ap.add_argument("other", metavar="DIR", help="root of the checkout to compare with")
     ap.add_argument("--steps", action="store_true", help="also the bench's steps in both checkouts")
     ap.add_argument("--families", default=",".join(FAMILIES),
-                    help="comma-separated kernel families: eps, q8, sbs, lme (default all)")
+                    help="comma-separated families: eps, bf16, ref, q8, sbs, lme (default all)")
     args = ap.parse_args(argv)
     families = [f for f in args.families.split(",") if f]
     if not families or any(f not in FAMILIES for f in families):
@@ -414,12 +554,14 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     other = load_other(args.other)
     dev = torch.device("cuda", 0)
-    mods = {"eps": "eps_kernels", "q8": "eps_q8_kernels", "sbs": "sbs_kernels",
-            "lme": "logmatmulexp_kernels"}
-    runs = {"eps": compare_kernels, "q8": compare_q8, "sbs": compare_sbs, "lme": compare_lme}
+    mods = {"eps": "kernels.eps_kernels", "bf16": "kernels.eps_kernels", "ref": "ops.eps",
+            "q8": "kernels.eps_q8_kernels", "sbs": "kernels.sbs_kernels",
+            "lme": "kernels.logmatmulexp_kernels"}
+    runs = {"eps": compare_kernels, "bf16": compare_bf16, "ref": compare_ref, "q8": compare_q8,
+            "sbs": compare_sbs, "lme": compare_lme}
     for family in families:
-        this = importlib.import_module(f"dctn_tpu_torch.kernels.{mods[family]}")
-        that = importlib.import_module(f"{other}.kernels.{mods[family]}")
+        this = importlib.import_module(f"dctn_tpu_torch.{mods[family]}")
+        that = importlib.import_module(f"{other}.{mods[family]}")
         runs[family](this, that, dev)
     if args.steps:
         compare_steps(args.other, families)

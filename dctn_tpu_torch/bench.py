@@ -127,6 +127,7 @@ COUNTERS = (
     ("eps_fwd_bf16", K.eps_fwd, "bf16_launches"),
     ("eps_fwd_t_bf16", K.eps_fwd, "bf16_t_launches"),
     ("eps_dcore_bf16", K.eps_dcore, "bf16_launches"),
+    ("eps_dcore_chunks_bf16", K.eps_dcore, "bf16_chunk_launches"),
     ("eps_dcore_sum_bf16", K.eps_dcore, "bf16_sum_launches"),
     ("eps_dviews_t_bf16", K.eps_dviews_t, "bf16_launches"),
     ("eps_dviews_recompute_bf16", K.eps_dviews_recompute, "bf16_launches"),

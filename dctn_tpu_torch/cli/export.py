@@ -52,6 +52,14 @@ visible cards and never puts two bands on one card. As in JAX, it refuses
 another family, ``--mesh-devices`` beside it, ``--quantize int8`` and a
 height that S does not divide.
 
+A model with a layer outside the kernels' plans has no fast layout
+(``FastLayoutUnavailable``): the ``pallas`` backend then traces the
+reference-layout forward, each layer the kernels take through the K1
+operator and the others through plain operations, with the fallback
+recorded (JAX export.py:172-195 and predict.py:98-135); ``--quantize int8``
+raises, and ``--autotune-splits`` is ignored. The height-sharded artifact
+does the same in each card's slab program.
+
 ``--autotune-splits`` measures each EPS layer's split candidates with the
 serving objective (the forward, f32 or int8) on ``--device`` at the largest
 batch size a card serves, and exports at the picks; ``--autotune-cache``
@@ -102,7 +110,7 @@ from torch import nn
 
 from ..interop import conv_sbs_params_from_numpy, params_from_numpy
 from ..kernels import ops  # registers the operators that pallas graphs name
-from ..kernels.eps_kernels import eps_apply_t_cmt
+from ..kernels.eps_kernels import eps_apply_t_cmt, objective_name
 from ..kernels.eps_q8_kernels import quantize_fast_params
 from ..models import (
     ConvSBSModel,
@@ -111,10 +119,12 @@ from ..models import (
     EPSesPlusLinearConfig,
     EPSesPlusLinearQ8,
     EPSesPlusLinearReference,
+    FastLayoutUnavailable,
+    check_fast_plans,
     conv_sbs_model_forward,
-    fast_layer_plans,
     fast_params_from_reference,
     init_conv_sbs_model,
+    layer_plans,
 )
 from ..ops import eps as eps_mod
 from ..train import load_conv_sbs_params_npz, load_params_npz
@@ -159,15 +169,17 @@ def _serialize(program: _Program, batch_sizes: Sequence[int], shape: Callable, d
     return serialized, seconds
 
 
-def _plans_at(cfg: EPSesPlusLinearConfig, channels: int, splits):
-    """``fast_layer_plans`` with each layer's n1 from ``splits`` (None: the
-    default splits)."""
-    plans = fast_layer_plans(cfg, channels)
-    if splits is None:
-        return plans
-    if len(splits) != len(plans):
-        raise ValueError(f"{len(splits)} splits for {len(plans)} EPS layers")
-    return tuple({**p, "n1": int(n1)} for p, n1 in zip(plans, splits))
+def _plans_at(cfg: EPSesPlusLinearConfig, channels: int, splits, quantize=None):
+    """The fast layout's plans with each layer's n1 from ``splits`` (None:
+    the default splits); raises ``FastLayoutUnavailable`` where the serving
+    kernels (K1, or K8 with ``quantize``) do not take a layer."""
+    plans = layer_plans(cfg, channels)
+    if splits is not None:
+        if len(splits) != len(plans):
+            raise ValueError(f"{len(splits)} splits for {len(plans)} EPS layers")
+        plans = tuple({**p, "n1": int(n1)} for p, n1 in zip(plans, splits))
+    check_fast_plans(cfg, plans, objective_name(True, quantize, cfg.compute_dtype))
+    return plans
 
 
 @torch.no_grad()
@@ -176,12 +188,21 @@ def _eps_program(params, cfg: EPSesPlusLinearConfig, channels: int, device, back
     """The serving model of ``backend`` on ``device``: the fast (cmt) model
     at ``splits`` through the operator bundles (K1, or K8 with
     ``quantize="int8"``), or the reference-layout model through plain
-    operations."""
+    operations; for a model without a fast layout the reference-layout
+    model through the K1 operator where it takes a layer (``quantize``
+    then raises ``FastLayoutUnavailable``)."""
     if backend == "xla":
         if quantize:
             raise ValueError("quantize needs the pallas backend (the int8 kernel's fast layout)")
         return _Program(EPSesPlusLinearReference(params, cfg).to(device), lambda m, x: m(x))
-    fast, plans = fast_params_from_reference(params, cfg, plans=_plans_at(cfg, channels, splits))
+    try:
+        plans = _plans_at(cfg, channels, splits, quantize)
+    except FastLayoutUnavailable:
+        if quantize:
+            raise
+        model = EPSesPlusLinearReference(params, cfg, backend="pallas").to(device)
+        return _Program(model, lambda m, x: m(x, kernels=ops.OP_KERNELS))
+    fast, plans = fast_params_from_reference(params, cfg, plans=plans)
     if quantize == "int8":
         model = EPSesPlusLinearQ8(quantize_fast_params(fast), plans, cfg).to(device)
         return _Program(model, lambda m, x: m(x, fwd=ops.eps_fwd_q8))
@@ -282,16 +303,19 @@ class _SlabProgram(nn.Module):
     (C, B, Hl + Σ(K−1), W, Q₀) through every EPS layer, then its partial
     logits (B, classes) against the classifier's h-slice ``w_loc``
     (Hl·W'·O, classes, rows ordered (h, w, o)). ``plans`` None: the
-    reference cores through the plain ``eps`` (xla); else the cmts through
-    the K1 operator (pallas). ``compute_dtype``: the products' operands,
-    None (float32) or bf16 (the float32 cores rounded inside the graph)."""
+    reference cores through ``eps`` on ``backend`` (xla: plain operations;
+    pallas, a model without a fast layout: the K1 operator where it takes
+    a layer); else the cmts through the K1 operator (pallas).
+    ``compute_dtype``: the products' operands, None (float32) or bf16 (the
+    float32 cores rounded inside the graph)."""
 
-    def __init__(self, cores, plans=None, compute_dtype=None):
+    def __init__(self, cores, plans=None, compute_dtype=None, backend="xla"):
         super().__init__()
         self.cores = nn.ParameterList(nn.Parameter(c.detach().clone().contiguous(),
                                                    requires_grad=False) for c in cores)
         self.plans = plans
         self.compute_dtype = compute_dtype
+        self.backend = backend
 
     def features(self, slab: torch.Tensor) -> torch.Tensor:
         """The last EPS layer's output on ``slab`` (or on a whole image):
@@ -300,7 +324,8 @@ class _SlabProgram(nn.Module):
         if self.plans is None:
             h = slab
             for core in self.cores:
-                h = eps_mod.eps(core, h, compute_dtype=self.compute_dtype)[None]
+                h = eps_mod.eps(core, h, backend=self.backend, compute_dtype=self.compute_dtype,
+                                kernels=ops.OP_KERNELS)[None]
             return h[0]
         xT = slab.permute(0, 4, 2, 3, 1)
         for i, (cmt, p) in enumerate(zip(self.cores, self.plans)):
@@ -354,8 +379,11 @@ def space_slab_program(params, cfg: EPSesPlusLinearConfig, channels: int = 1,
     cores = tuple(c.detach().cpu() for c in params["epses"])
     if backend == "xla":
         return _SlabProgram(cores, compute_dtype=cfg.compute_dtype)
-    fast, plans = fast_params_from_reference({"epses": cores, "linear": {}}, cfg,
-                                             plans=_plans_at(cfg, channels, splits))
+    try:
+        plans = _plans_at(cfg, channels, splits)
+    except FastLayoutUnavailable:
+        return _SlabProgram(cores, compute_dtype=cfg.compute_dtype, backend="pallas")
+    fast, plans = fast_params_from_reference({"epses": cores, "linear": {}}, cfg, plans=plans)
     return _SlabProgram(fast["epses_cmt"], plans, cfg.compute_dtype)
 
 
@@ -743,6 +771,15 @@ def run(*, checkpoint, model_family="eps", epses_specs=None, image_size=28, q0=2
         _check_params(params, cfg, channels)
         q = None if quantize == "none" else quantize
         splits = None
+        if backend == "pallas" and (autotune_splits or autotune_cache):
+            try:
+                _plans_at(cfg, channels, None, q)
+            except FastLayoutUnavailable as e:
+                if q:
+                    raise
+                click.echo(f"--autotune-splits ignored: the fast (cmt) layout is not in use ({e})",
+                           err=True)
+                autotune_splits = autotune_cache = False
         if backend == "pallas" and (autotune_splits or autotune_cache):
             splits = serving_splits(cfg, max(batch_sizes) // mesh_devices, channels, device, q,
                                     autotune_splits, autotune_cache,

@@ -16,9 +16,11 @@ and accuracy, the best-checkpoint npz (``dctn_epoch=…_vacc=….npz``, keys
 ``{layer}/{string}/{core}``, readable by the JAX package's ``load_pytree``)
 and epoch-patience early stopping. Every string runs through the ConvSBS
 kernels on ``--device cuda`` (the default) and their plain versions on
-``--device cpu``. On the CPU any bond size and ring bond trains, as in the
-JAX runner; on CUDA a string outside the kernels' scope (a ring bond over
-4, a bond over 8) is refused before training (ROADMAP item 16).
+``--device cpu``. Any bond size and ring bond trains: a model with a
+string outside the kernels' scope (a ring bond over 4, a bond over 8) runs
+every string on the plain folds on either device, as the JAX runner runs
+its XLA fold, and the fallback is logged and recorded in ``run_info.txt``
+before training (``models.conv_sbs_model.model_kernels``).
 
 The train state (``train_state_latest.npz``: the cores, the torch
 optimizer's state with the warmup's step, the epoch and step in it, the
@@ -99,10 +101,10 @@ from ..models.conv_sbs_model import (
     ConvSBSModel,
     ConvSBSModelConfig,
     calc_std_of_coordinates_of_windows,
-    check_kernel_scope,
     init_conv_sbs_model,
     make_legacy_optimizer,
     make_warmup_lr_schedule,
+    model_kernels,
     scale_layers_using_batch,
 )
 from ..ops import sbs
@@ -382,7 +384,7 @@ def _run(kw: dict, device: torch.device, mesh):
         trace_edge=kw["trace_edge"], cos_sin_squared=kw["cos_sin_squared"],
         input_multiplier=multiplier,
     )
-    check_kernel_scope(cfg, device.type == "cuda")
+    model_kernels(cfg)  # strings outside the kernels' scope: the plain folds, recorded now
     image_size = int(images.shape[1])
     world = 1 if mesh is None else mesh.world_size
     cfg = _tuned_config(kw, cfg, image_size, kw["batch_size"] // world, device, mesh,

@@ -5,7 +5,12 @@ The checkpoint is the JAX package's reference-layout npz; the model runs
 the fast (cmt) forward, whose EPS layers are the hand-written CUDA kernels
 on ``--device cuda`` and their plain PyTorch versions on ``--device cpu``.
 ``--quantize int8`` serves the int8 W8A8 model (cores quantized once at
-load, ``EPSesPlusLinearQ8``). An artifact of ``cli/export.py`` serves in
+load, ``EPSesPlusLinearQ8``). A model with a layer outside the kernels'
+plans has no fast layout (``FastLayoutUnavailable``): it is served by the
+reference-layout forward, through the kernels for each layer they take and
+the plain path for the others, with the fallback recorded, as JAX's
+``_resolve_forward`` does (predict.py:98-135); ``--quantize int8`` then
+raises. An artifact of ``cli/export.py`` serves in
 place of the checkpoint: the model config and weights come from it (no
 ``--epses-specs``), every batch size used needs its entry point, and a
 short last batch is padded with its first image and trimmed, since the
@@ -42,7 +47,16 @@ import torch
 
 from ..data import load_dataset
 from ..interop import params_from_numpy
-from ..models import EPSesPlusLinear, EPSesPlusLinearConfig, EPSesPlusLinearQ8, fast_layer_plans
+from ..kernels.eps_kernels import objective_name
+from ..models import (
+    EPSesPlusLinear,
+    EPSesPlusLinearConfig,
+    EPSesPlusLinearQ8,
+    EPSesPlusLinearReference,
+    FastLayoutUnavailable,
+    fast_layer_plans,
+    layer_plans,
+)
 from ..parallel.replicas import ShardedForward, replica_devices
 from ..train import load_params_npz
 from .specs import parse_epses_specs
@@ -60,7 +74,7 @@ def _is_artifact(path: str) -> bool:
 def _check_params(params, cfg: EPSesPlusLinearConfig, channels: int) -> None:
     """Every leaf has the shape ``cfg`` implies (the JAX loader checks the
     same against its template)."""
-    want = {f"epses/{i}": p["core_shape"] for i, p in enumerate(fast_layer_plans(cfg, channels))}
+    want = {f"epses/{i}": p["core_shape"] for i, p in enumerate(layer_plans(cfg, channels))}
     want["linear/w"] = (cfg.linear_in_features, cfg.num_classes)
     want["linear/b"] = (cfg.num_classes,)
     got = {f"epses/{i}": tuple(c.shape) for i, c in enumerate(params["epses"])}
@@ -68,6 +82,23 @@ def _check_params(params, cfg: EPSesPlusLinearConfig, channels: int) -> None:
     for key, shape in want.items():
         if got.get(key) != tuple(shape):
             raise ValueError(f"checkpoint leaf {key}: shape {got.get(key)} != model {tuple(shape)}")
+
+
+def serving_model_kind(cfg: EPSesPlusLinearConfig, channels: int, quantize=None):
+    """What builds the model that serves ``cfg`` from reference-layout
+    params, ``(params, cfg) → model``: ``EPSesPlusLinearQ8`` for int8,
+    ``EPSesPlusLinear`` where the kernels take every layer, else
+    ``EPSesPlusLinearReference`` on the pallas backend (each layer the
+    kernels take through them). Int8 without a fast layout raises
+    ``FastLayoutUnavailable`` (predict.py:118-123)."""
+    try:
+        plans = fast_layer_plans(cfg, channels, objective_name(True, quantize, cfg.compute_dtype))
+    except FastLayoutUnavailable:
+        if quantize:
+            raise
+        return lambda params, cfg: EPSesPlusLinearReference(params, cfg, backend="pallas")
+    kind = EPSesPlusLinearQ8 if quantize == "int8" else EPSesPlusLinear
+    return lambda params, cfg: kind.from_reference(params, cfg, plans=plans)
 
 
 def predict_split(forward, x: torch.Tensor, batch_size: int, pad: bool = False) -> np.ndarray:
@@ -262,12 +293,12 @@ def run(*, checkpoint, ds_type, ds_path, epses_specs=None, phi_multiplier=None,
             return fns[xb.shape[1]](xb)
     else:
         cfg = EPSesPlusLinearConfig(epses_specs=epses_specs, image_size=image_size, q0=q0)
-        kind = EPSesPlusLinearQ8 if quantize == "int8" else EPSesPlusLinear
+        kind = serving_model_kind(cfg, channels, None if quantize == "none" else quantize)
         if mesh_devices == 1:
             devices = [device]
             params = params_from_numpy(load_params_npz(checkpoint), device, cfg.dtype)
             _check_params(params, cfg, channels)
-            model = call = kind.from_reference(params, cfg)
+            model = call = kind(params, cfg)
         else:
             try:
                 devices = replica_devices(mesh_devices, device.type)
@@ -276,8 +307,7 @@ def run(*, checkpoint, ds_type, ds_path, epses_specs=None, phi_multiplier=None,
             loaded = load_params_npz(checkpoint)
             _check_params(params_from_numpy(loaded, "cpu", cfg.dtype), cfg, channels)
             # each replica made on its own device, as the one-device model is
-            model = [kind.from_reference(params_from_numpy(loaded, d, cfg.dtype), cfg)
-                     for d in devices]
+            model = [kind(params_from_numpy(loaded, d, cfg.dtype), cfg) for d in devices]
             call = ShardedForward(model, devices, batch_axis=1)
     forward_calls = 0
 

@@ -43,6 +43,17 @@ it (``make_train_step``; the init and the statistics at start run the plain
 ``eps`` too), and ``--eval-backend xla`` scores it, also for a run that
 trains the fast layout (through ``reference_params_from_fast``).
 
+A model with a layer outside the kernels' plans (``kernels_take_split``,
+JAX's ``pallas_forward_fits``; for example ``--epses-specs "(5,4)"``) has
+no fast layout (``FastLayoutUnavailable``): as the JAX runner does
+(runner.py:670-682), it trains and scores the reference layout instead,
+each layer the kernels take through them and the others on the plain path
+(``ops.eps``), logs the warning "fast (cmt) parameter layout unavailable
+(...); using the reference layout", records it and each layer's fallback in
+``run_info.txt`` (``utils.fallbacks``), and ignores ``--autotune-splits``;
+``--qat int8`` is then a usage error. The decision is the same on the CPU
+as on a card, so a config writes the same train state on both.
+
 ``--debug-nans`` turns on torch.autograd's anomaly detection with its NaN
 check: a backward that produces a NaN raises, with the traceback of the
 forward op behind it (the JAX runner's ``jax_debug_nans``; debugging only,
@@ -148,17 +159,20 @@ from ..interop import (
     load_torch_state_dict,
     params_from_numpy,
 )
-from ..kernels.eps_kernels import KERNELS
+from ..kernels.eps_kernels import KERNELS, objective_name
 from ..kernels.eps_q8_kernels import QAT_KERNELS
 from ..models.eps_plus_linear import (
     EPSesPlusLinear,
     EPSesPlusLinearConfig,
     EPSesPlusLinearReference,
+    FastLayoutUnavailable,
+    check_fast_plans,
     eps_plus_linear_forward,
     eps_plus_linear_forward_fast,
     fast_params_from_reference,
     init_eps_plus_linear,
     intermediate_reps_stats,
+    layer_plans,
     reference_params_from_fast,
     saved_t_capped_layers,
 )
@@ -285,7 +299,8 @@ def _tuned_plans(kw: dict, cfg, plans, channels: int, per_dev: int, device, mesh
     if not use_fast:
         if kw["autotune_splits"]:
             logger.warning("--autotune-splits ignored: the fast (cmt) layout is not in use "
-                           "(the xla backend, or --tp-shard-all)")
+                           "(the xla backend, --tp-shard-all, or a layer outside the kernels' "
+                           "plans)")
         return plans
     if not (kw["autotune_splits"] or kw["autotune_cache"]):
         return plans
@@ -824,7 +839,11 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
 
     # --- training assembly (new_runner.py:443-546): the fast (cmt) layout,
     # or the reference one for --train-backend xla ---
-    plans = fast_params_from_reference(params, cfg)[1]
+    k0 = specs[0][0]
+    channels = (params["epses"][0].ndim - 1) // (k0 * k0)
+    # the fast layout's plans: its shapes, and the conversions of train
+    # states and checkpoints, whichever layout trains
+    plans = layer_plans(cfg, channels)
     shard_all = tp and kw["tp_shard_all"]
     if grid is not None:
         from ..parallel import replicate
@@ -835,10 +854,27 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
         # exists (not --tp-shard-all: runner.py:663-667); else the reference
         # layout with each backend's eps (xla, or the kernels' route)
         train_ref = eval_ref = train_ref or eval_ref or shard_all
+    # the fast layout only where the kernels take every layer (runner.py:
+    # 670-682): else the reference layout, through the kernels where they
+    # take a layer
+    fast_fits = True
+    try:
+        check_fast_plans(cfg, plans, objective_name(False, qat, cfg.compute_dtype))
+    except FastLayoutUnavailable as e:
+        fast_fits = False
+        if not train_ref or not eval_ref:
+            if qat is not None:
+                # no silent f32 fallback when the user asked for QAT
+                raise click.UsageError(
+                    f"--qat int8 needs the fast (cmt) layout, which is unavailable for this "
+                    f"model: {e}") from None
+            logger.warning("fast (cmt) parameter layout unavailable (%s); using the reference "
+                           "layout", e)
+            fallbacks.record(f"fast (cmt) parameter layout unavailable ({e}); using the "
+                             "reference layout")
+            train_ref = eval_ref = True
     world = 1 if mesh is None else mesh.data_size
     per_dev = kw["batch_size"] // world  # each data rank's batch
-    k0 = specs[0][0]
-    channels = (params["epses"][0].ndim - 1) // (k0 * k0)
     # the splits the fast layout trains at: measured or looked up by rank 0
     # and broadcast, before any parameter of that layout is built
     plans = _tuned_plans(kw, cfg, plans, channels, per_dev, device, mesh, not train_ref,
@@ -854,7 +890,7 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
             model = TPFastModel(make_tp_fast_params(
                 fast_params_from_reference(params, cfg, plans)[0], cfg, grid), plans, cfg, grid)
     elif train_ref:
-        model = EPSesPlusLinearReference(params, cfg).to(device)
+        model = EPSesPlusLinearReference(params, cfg, backend=ref_backends[0]).to(device)
     else:
         model = EPSesPlusLinear.from_reference(params, cfg, device=device, plans=plans)
     del params
@@ -940,7 +976,7 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     def eval_forward(params, xb):
         """The eval backend's forward of params in its layout."""
         if eval_ref:
-            return eps_plus_linear_forward(params, xb, cfg)
+            return eps_plus_linear_forward(params, xb, cfg, backend=ref_backends[1])
         return eps_plus_linear_forward_fast(params, xb, cfg, plans, kernels=eval_kernels)
 
     if tp and sp:
@@ -982,9 +1018,12 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     logger.info(
         "%s parameter layout on %s: training through %s, evals through %s",
         "reference" if train_ref else "fast (cmt)", device,
-        "the plain eps (torch.matmul)" if train_ref
+        "the plain eps (torch.matmul)" if ref_backends[0] == "xla"
+        else "eps on the kernels where they take a layer" if train_ref
         else "the CUDA kernels" if device.type == "cuda" else "the kernels' plain versions",
-        "the plain eps (torch.matmul)" if eval_ref else "the fast layout's forward",
+        "the plain eps (torch.matmul)" if ref_backends[1] == "xla"
+        else "eps on the kernels where they take a layer" if eval_ref
+        else "the fast layout's forward",
     )
 
     n_eval_train = kw["eval_train_subset"] or len(splits.train)
@@ -1234,6 +1273,11 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
     if (writes_logs or tp) and kw["log_intermediate_outputs"]:
         probe = torch.as_tensor(splits.train.x[:, :64], device=device)
 
+        # the fast layout's outputs through the forward kernel (also for a
+        # tensor-parallel reference layout on the kernels), else the
+        # reference layout's through the plain eps
+        fast_logs = not train_ref or (tp and kw["train_backend"] != "xla" and fast_fits)
+
         def log_intermediates(state: TrainLoopState) -> None:
             """Each layer's output on the probe images (runner.py:1649-1678):
             the fast layout's through the forward kernel, the reference
@@ -1246,13 +1290,13 @@ def _run(kw: dict, device: torch.device, mesh) -> TrainLoopState:
                 params = params_view(params)
                 if not writes_logs:
                     return
-                if not train_ref or kw["train_backend"] != "xla":
+                if fast_logs:
                     params = fast_params_from_reference(params, cfg, plans)[0]
             with torch.no_grad():
-                if train_ref and not (tp and kw["train_backend"] != "xla"):
-                    named = eps_plus_linear_named_outputs(params, probe, cfg)
-                else:
+                if fast_logs:
                     named = eps_plus_linear_named_outputs_fast(params, probe, cfg, plans)
+                else:
+                    named = eps_plus_linear_named_outputs(params, probe, cfg)
             log_named_outputs(metrics_writer, named, state.num_iters_done, DEFAULT_TRANSFORMS)
             log_named_outputs(metrics_writer, named, state.num_iters_done,
                               (log_logits_as_probabilities,),

@@ -25,6 +25,10 @@
 // Accumulation. The tensor cores truncate as they add into a fragment
 // (tf32x3.cuh); the kernels sum one step of K (at most 128 values) in a
 // fragment and then add it into float32 totals with ordinary adds.
+//
+// K1 bf16 runs mma.sync; eps_dcore's and the d_views kernels' bf16 modes
+// run wgmma (below: m64n64k16 and m64n128k16 with both operands K-major in
+// shared memory, in the 128-byte swizzle of smem_desc_sw128).
 
 #pragma once
 
@@ -46,10 +50,6 @@ __host__ __device__ constexpr long long ipow(long long base, int exp) {
   for (int i = 0; i < exp; ++i) r *= base;
   return r;
 }
-
-// bf16 a row of an operand tile 32 K values deep (eps_dcore.cu's step)
-constexpr int kOpStride = 40;
-constexpr int kOpWords = kOpStride / 2;
 
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
@@ -79,14 +79,13 @@ __device__ __forceinline__ float widen(uint16_t h) {
 
 // the words a row of an operand tile staged kChunk K values deep takes: 4
 // more than the step's, so that (kChunk / 2 + 4) mod 32 is 4 and the eight
-// rows of a fragment fall on distinct banks (kChunk a multiple of 64, or
-// 32: kOpWords)
+// rows of a fragment fall on distinct banks (kChunk a multiple of 64)
 template <int kChunk>
 constexpr int op_words() { return kChunk / 2 + 4; }
 
 // the A fragment of the 16 rows at `rows` (row-major, K contiguous, kWords
 // words a row), K step at word `k2` (= K column / 2)
-template <int kWords = kOpWords>
+template <int kWords>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint32_t* rows, int k2) {
   const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
   const uint32_t* p = rows + g * kWords + k2 + tig;
@@ -98,7 +97,7 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint32_t* rows, i
 
 // the B fragment of the 8 columns at `cols` (one row of K values each, K
 // contiguous, kWords words a row), K step at word `k2`
-template <int kWords = kOpWords>
+template <int kWords>
 __device__ __forceinline__ void load_b(uint32_t (&b)[2], const uint32_t* cols, int k2) {
   const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
   const uint32_t* p = cols + g * kWords + k2 + tig;
@@ -135,6 +134,96 @@ __device__ __forceinline__ void stage_rows(uint32_t* tile, const uint16_t* __res
     }
   }
 }
+
+// --- wgmma (sm_90a) on bf16, both operands K-major in shared memory (the
+// fences, commit and wait are tf32x3.cuh's)
+
+// d (64 x 64 over the warpgroup, f32) (+)= a (64 x 16) * b (16 x 64, stored
+// as 64 rows of K), bf16 in, both K-major in shared memory (no transpose);
+// d = a * b where scale_d is 0. Thread (warp w of the warpgroup, g = lane /
+// 4, tig = lane % 4) holds d[4 j + e] at row 16 w + g (+8 for e >= 2),
+// column 8 j + 2 tig (+1 for odd e).
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a_desc, uint64_t b_desc,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+// d (64 x 128 over the warpgroup, f32) (+)= a (64 x 16) * b (16 x 128, stored
+// as 128 rows of K), bf16 in, both K-major in shared memory (no transpose);
+// d = a * b where scale_d is 0. Thread (warp w of the warpgroup, g = lane /
+// 4, tig = lane % 4) holds d[4 j + e] at row 16 w + g (+8 for e >= 2),
+// column 8 j + 2 tig (+1 for odd e).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a_desc, uint64_t b_desc,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+// The descriptor of a K-major bf16 tile in the 128-byte swizzle: row r's
+// 64 values (128 bytes) at 128 r, its 16-byte chunk c stored at chunk c ^
+// (r % 8); 8-row groups 1024 bytes apart (SBO; LBO is unused in a swizzled
+// K-major layout). The tile is 1024-byte aligned; its k16 step k starts 32 k
+// bytes in.
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
+  const uint64_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return ((a & 0x3FFFFu) >> 4) | (1ULL << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ULL << 62);
+}
+
+// where 16-byte chunk c of row r of a 128-byte swizzled tile lies
+__device__ __forceinline__ int sw128_offset(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// keeps the compiler from moving reads or writes of d across the
+// asynchronous products
+__device__ __forceinline__ void wgmma_pin(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// cp.async of 16 bytes from a 16-byte aligned src
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+// n / d for a runtime divisor d >= 1 and 0 <= n < 2^31 with one 64-bit
+// multiply (the round-up method of Granlund and Montgomery): m = ceil(2^p /
+// d), p = 31 + ceil(log2 d); m < 2^33, so n * m fits 64 bits, and the error
+// of m is below 2^(p - 31), so the floor is exact
+struct FastDiv {
+  unsigned long long m;
+  int p;
+  __host__ explicit FastDiv(long long d) {
+    int l = 0;
+    while ((1LL << l) < d) ++l;
+    p = 31 + l;
+    m = ((1ULL << p) + static_cast<unsigned long long>(d) - 1) / static_cast<unsigned long long>(d);
+  }
+  __device__ __forceinline__ int operator()(int n) const {
+    return static_cast<int>((static_cast<unsigned long long>(n) * m) >> p);
+  }
+};
 
 // lets `kernel` take up to 227 KB of dynamic shared memory (a host call of
 // about a microsecond, made before each launch)

@@ -479,196 +479,282 @@ extern "C" int dctn_eps_dcore(const void* views, const void* g, void* d_cmt,
 // The bf16 operand mode (dctn_eps_dcore_bf16): _dcore_kernel_factory and
 // the d_cmt half of K2/K4 with mm_dtype bf16 (eps_pallas.py:348-388, :303):
 // d_cmt[z, a] = sum_p bf16(kr2[z, p]) * bf16(u[a, p]), kr2 = g * v and u
-// formed in float32 as the plain version forms them (the JAX suffix chain)
-// and only then rounded; one bf16 product a pair, float32 sums (bf16.cuh);
-// d_cmt in float32.
+// formed in float32 as the plain version forms them (the JAX suffix chain,
+// f_{n1-1} first) and only then rounded; one bf16 product a pair, float32
+// sums (bf16.cuh); d_cmt in float32.
 //
 // What bounds it: the product, 2*Z*A flops per pixel at the dense bf16 rate
 // (989 TFLOP/s, H100 SXM at 700 W): 0.042 ms at the flagship's first layer
-// at batch 128. The operand build (n multiplies per entry of both operands,
-// once per (Z, A) tile and pixel) runs on the CUDA cores beside it.
+// and 0.215 ms at its second at batch 128.
 //
-// Design, a simple kernel first: a CTA of 4 warps owns a 64 x 64 (Z, A)
-// tile and one pixel slice; per step of 32 pixels it stages the factor
-// columns and the g rows its Z tile touches, and each thread builds one
-// row of each operand over 16 pixels from its row's factor-row offsets
-// (found once, kept in shared memory); each warp holds 16 rows of Z x 64 of
-// A, 8 fragments of mma.m16n8k16, added into float32 totals every step.
+// Design (wgmma), in chunks of pixels:
+// 1. eps_dcore_bf16_operands_kernel forms u (A rows) and kr2 (Z rows) of the
+//    chunk once and writes them to device memory in bf16, each row's pixels
+//    contiguous (the K-major layout of the product), rows and pixels padded
+//    with zeros to whole tiles and steps: a CTA stages 64 pixels' factor and
+//    g columns, and each warp writes whole rows, 2 pixels a lane, four rows'
+//    chains at a time, their digits by multiply-shift divisions.
+// 2. eps_dcore_bf16_kernel: d_cmt += kr2 . u^T over the chunk, M = Z, N = A,
+//    K = pixels; a CTA of two warpgroups owns a 128 x 128 (Z, A) tile and a
+//    pixel slice of the chunk; both operands' 128-row x 64-pixel step tiles
+//    come by cp.async (eight threads a row: 128 contiguous bytes) into a ring
+//    of 4 stages in the 128-byte swizzle; each warpgroup runs four
+//    wgmma.m64n128k16 a step, whose f32 sums are added into f32 totals (the
+//    tensor cores truncate as they add); a tile's first chunk writes its
+//    slice of d_cmt, later chunks add to it.
+// Why device memory: formed on chip, each operand entry was built once per
+// tile of the other operand (u 12 times and kr2 8 times at the flagship's
+// layer 1), and those builds, not the products, bounded the kernel (removing
+// them halved its time). Formed once, u and kr2 of the flagship's layer 1 at
+// batch 128 are 139 MB and 208 MB of bf16, written once and read by the
+// product through L2; a chunk holds at most OpsBytes of them (the wrapper's
+// scratch), so memory does not grow with the batch past that.
 // Pixel slices as the float32 kernel's: partial sums into scratch, then
-// sum_slices_kernel adds them in a fixed order; no atomics, the same bits
-// from run to run.
+// sum_slices_kernel adds them in a fixed order (dctn_eps_dcore_bf16_sum);
+// the wrapper launches the chunks in order, one call each; no atomics, the
+// same bits from run to run.
 
 #include "bf16.cuh"
 
 namespace {
 namespace dcore_bf16 {
 
-constexpr int kThreads = 128;     // 4 warps, 16 rows of Z each
-constexpr int kTile = 64;         // rows of Z and of A per CTA
-constexpr int kChunkP = 32;       // pixels per step: two k16 steps
-constexpr int kRow = kChunkP + 4;
-constexpr int kNj = kTile / 8;    // n8 fragments a warp holds
+constexpr int kThreads = 256;        // two warpgroups, 64 rows of Z each
+constexpr int kTile = 128;           // rows of Z and of A per CTA
+constexpr int kStepP = 64;           // pixels per step: four k16 products (a 128-byte row)
+constexpr int kStages = 4;           // the ring
+constexpr int kOpBytes = kTile * kStepP * 2;  // one operand's tile of a step
+constexpr int kBuildP = 64;          // pixels per CTA of the operands kernel
+constexpr int kBuildRows = 256;      // operand rows per CTA of the operands kernel
 
-// the g rows a Z tile touches at most
+// the g rows that kBuildRows rows of kr2 touch at most
 int g_rows(long long b2, int out_size) {
-  const long long r = (kTile - 1) / b2 + 2;
+  const long long r = (kBuildRows - 1) / b2 + 2;
   return static_cast<int>(r < out_size ? r : out_size);
 }
 
+// the larger of the product's ring and the operands kernel's staged factor
+// and g columns
 long long smem_bytes(int n, int q, long long b2, int out_size) {
-  return 4LL * (kRow * (n * q + g_rows(b2, out_size)) + kTile * n) +
-         2LL * 2 * kTile * bf16op::kOpStride;
+  const long long ring = 2LL * kStages * kOpBytes;
+  const long long cols = 4LL * kBuildP * (n * q + g_rows(b2, out_size));
+  return ring > cols ? ring : cols;
 }
 
+// rows [0, a_pad) of ops are u's, [a_pad, a_pad + z_pad) kr2's; pixel j of
+// the chunk (from c0, pc of them valid) at column j, ld columns a row
 __global__ void __launch_bounds__(kThreads)
-    eps_dcore_bf16_kernel(const float* __restrict__ views, const float* __restrict__ gcot,
-                          float* __restrict__ dst, int n, int q, int n1, int a_dim, int b2,
-                          int z_dim, long long npix, long long pix_per_slice, int g_cap) {
-  extern __shared__ __align__(16) float smem[];
+    eps_dcore_bf16_operands_kernel(const float* __restrict__ views, const float* __restrict__ gcot,
+                                   uint16_t* __restrict__ ops, int n, int q, int n1, int a_dim,
+                                   int a_pad, int b2, int z_dim, int rows, long long npix,
+                                   long long c0, int pc, long long ld, int g_cap,
+                                   bf16op::FastDiv div_q, bf16op::FastDiv div_b2) {
+  extern __shared__ __align__(16) float cols[];
   const int nq = n * q;
-  float* fac = smem;               // nq rows of the step's pixels
-  float* gs = fac + nq * kRow;     // the Z tile's g rows
-  int* offs = reinterpret_cast<int*>(gs + g_cap * kRow);  // kTile rows x n offsets
-  uint32_t* k_op = reinterpret_cast<uint32_t*>(offs + kTile * n);
-  uint32_t* u_op = k_op + kTile * bf16op::kOpWords;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
-  const int a0 = blockIdx.x * kTile, zt0 = blockIdx.y * kTile;
-  const int o_first = zt0 / b2;
-  const int g_used = (min(zt0 + kTile, z_dim) - 1) / b2 - o_first + 1;
-  // each thread builds row r of both operands over 16 pixels
-  const int r = tid / 2, jb = (tid % 2) * 16;
-  const int a = a0 + r, z = zt0 + r;
-  const bool ok_a = a < a_dim, ok_z = z < z_dim;
-  const int g_row = ok_z ? z / b2 - o_first : 0;
-  if (tid % 2 == 0) {
-    int rem = ok_a ? a : 0;
-    for (int k = n1 - 1; k >= 0; --k) {
-      offs[r * n + k] = (k * q + rem % q) * kRow;
-      rem /= q;
-    }
-    rem = ok_z ? z % b2 : 0;
-    for (int k = n - 1; k >= n1; --k) {
-      offs[r * n + k] = (k * q + rem % q) * kRow;
-      rem /= q;
-    }
+  float* fac = cols;                    // nq rows of 64 pixels
+  float* gs = fac + nq * kBuildP;       // the block's g rows
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int j0 = blockIdx.x * kBuildP;  // the chunk's pixels j0 ..
+  const int row0 = blockIdx.y * kBuildRows;
+  // the kr2 rows of this block: z from max(row0 - a_pad, 0)
+  const int zb = max(row0 - a_pad, 0), ze = min(row0 + kBuildRows - a_pad, z_dim);
+  const int o_first = zb / b2;
+  const int g_used = ze > zb ? (ze - 1) / b2 - o_first + 1 : 0;
+  for (int i = tid; i < nq * kBuildP; i += kThreads) {
+    const int r = i / kBuildP, j = i % kBuildP;
+    fac[i] = j0 + j < pc ? views[r * npix + c0 + j0 + j] : 0.f;
   }
-  const long long pb = blockIdx.z * pix_per_slice;
-  const long long pe = pb + pix_per_slice < npix ? pb + pix_per_slice : npix;
-  float tot[kNj][4];
+  for (int i = tid; i < g_used * kBuildP; i += kThreads) {
+    const int r = i / kBuildP, j = i % kBuildP;
+    gs[i] = j0 + j < pc ? gcot[(o_first + r) * npix + c0 + j0 + j] : 0.f;
+  }
+  __syncthreads();
+  // a warp forms 4 rows at a time (rows 4 (warp + 8 k) ..), their chains
+  // interleaved a factor at a time so that the loads of the four overlap;
+  // the rows of a group are all u's or all kr2's (a_pad is a multiple of 4)
+  const int j = 2 * lane;  // this lane's two pixels
+  for (int rg = 4 * warp; rg < kBuildRows && row0 + rg < rows; rg += 4 * (kThreads / 32)) {
+    const int r0 = row0 + rg;
+    const bool is_u = r0 < a_pad;
+    const int first = is_u ? n1 - 1 : n - 1, last = is_u ? 0 : n1;
+    int rem[4];
+    bool ok[4];
 #pragma unroll
-  for (int nj = 0; nj < kNj; ++nj)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) tot[nj][e] = 0.f;
-  for (long long pc = pb; pc < pe; pc += kChunkP) {
-    __syncthreads();  // the last step's operands are read
-    for (int i = tid; i < nq * kChunkP; i += kThreads) {
-      const int rr = i / kChunkP, j = i % kChunkP;
-      const long long p = pc + j;
-      fac[rr * kRow + j] = p < pe ? views[rr * npix + p] : 0.f;
+    for (int i = 0; i < 4; ++i) {
+      const int idx = is_u ? r0 + i : r0 + i - a_pad;  // a, or z
+      ok[i] = is_u ? idx < a_dim : idx < z_dim;
+      rem[i] = !ok[i] ? 0 : is_u ? idx : idx - div_b2(idx) * b2;
     }
-    for (int i = tid; i < g_used * kChunkP; i += kThreads) {
-      const int rr = i / kChunkP, j = i % kChunkP;
-      const long long p = pc + j;
-      gs[rr * kRow + j] = p < pe ? gcot[(o_first + rr) * npix + p] : 0.f;
-    }
-    __syncthreads();
-    float x[16];
-    // u[a] = f_0[d_0] * (f_1[d_1] * (... * f_{n1-1}[d_{n1-1}]))
+    float x0[4] = {1.f, 1.f, 1.f, 1.f}, x1[4] = {1.f, 1.f, 1.f, 1.f};
+    for (int k = first; k >= last; --k) {
+      float2 f[4];
 #pragma unroll
-    for (int jj = 0; jj < 16; ++jj) x[jj] = 1.f;
-    for (int k = n1 - 1; k >= 0; --k) {
-      const float* f = fac + offs[r * n + k] + jb;
+      for (int i = 0; i < 4; ++i) {
+        const int next = div_q(rem[i]);
+        f[i] = *reinterpret_cast<const float2*>(fac + (k * q + rem[i] - next * q) * kBuildP + j);
+        rem[i] = next;
+      }
 #pragma unroll
-      for (int jj = 0; jj < 16; ++jj) x[jj] = f[jj] * x[jj];
-    }
-#pragma unroll
-    for (int jj = 0; jj < 16; jj += 2)
-      u_op[r * bf16op::kOpWords + (jb + jj) / 2] =
-          ok_a ? bf16op::pack(x[jj], x[jj + 1]) : 0u;
-    // kr2[(o, b)] = g[o] * v[b], v the chain of the factors past n1 (g when n2 = 0)
-#pragma unroll
-    for (int jj = 0; jj < 16; ++jj) x[jj] = 1.f;
-    for (int k = n - 1; k >= n1; --k) {
-      const float* f = fac + offs[r * n + k] + jb;
-#pragma unroll
-      for (int jj = 0; jj < 16; ++jj) x[jj] = f[jj] * x[jj];
-    }
-    const float* gr = gs + g_row * kRow + jb;
-#pragma unroll
-    for (int jj = 0; jj < 16; jj += 2)
-      k_op[r * bf16op::kOpWords + (jb + jj) / 2] =
-          ok_z ? bf16op::pack(gr[jj] * x[jj], gr[jj + 1] * x[jj + 1]) : 0u;
-    __syncthreads();
-    float acc[kNj][4];
-#pragma unroll
-    for (int nj = 0; nj < kNj; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nj][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kChunkP / 16; ++ks) {
-      uint32_t af[4];
-      bf16op::load_a(af, k_op + warp * 16 * bf16op::kOpWords, ks * 8);
-#pragma unroll
-      for (int nj = 0; nj < kNj; ++nj) {
-        uint32_t bf[2];
-        bf16op::load_b(bf, u_op + nj * 8 * bf16op::kOpWords, ks * 8);
-        bf16op::mma(acc[nj], af, bf);
+      for (int i = 0; i < 4; ++i) {
+        x0[i] = f[i].x * x0[i];
+        x1[i] = f[i].y * x1[i];
       }
     }
 #pragma unroll
-    for (int nj = 0; nj < kNj; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) tot[nj][e] += acc[nj][e];
+    for (int i = 0; i < 4; ++i) {
+      if (!is_u) {  // kr2[z] = g[z / b2] * v[z % b2]
+        const int z = r0 + i - a_pad;
+        const float2 gv = ok[i] ? *reinterpret_cast<const float2*>(
+                                      gs + (div_b2(z) - o_first) * kBuildP + j)
+                                : make_float2(0.f, 0.f);
+        x0[i] = gv.x * x0[i];
+        x1[i] = gv.y * x1[i];
+      }
+      *reinterpret_cast<uint32_t*>(ops + (r0 + i) * ld + j0 + j) =
+          ok[i] ? bf16op::pack(x0[i], x1[i]) : 0u;
+    }
   }
-  float* d = dst + static_cast<long long>(blockIdx.z) * z_dim * a_dim;
+}
+
+// dst (Z x A, f32; the slice's part) = (accumulate ? dst : 0) + kr2 . u^T
+// over this slice's steps of the chunk
+__global__ void __launch_bounds__(kThreads, 1)
+    eps_dcore_bf16_kernel(const uint16_t* __restrict__ ops, float* __restrict__ dst, int a_dim,
+                          int a_pad, int z_dim, long long ld, int steps, int steps_per_slice,
+                          bool accumulate) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, wg = warp / 4;
+  const int a0 = blockIdx.x * kTile, z0 = blockIdx.y * kTile;
+  const int sb = blockIdx.z * steps_per_slice;
+  const int n_st = max(0, min(sb + steps_per_slice, steps) - sb);
+  const uint16_t* krows = ops + static_cast<long long>(a_pad + z0) * ld;
+  const uint16_t* urows = ops + static_cast<long long>(a0) * ld;
+  // step s's two tiles (kr2 then u) into ring stage s % kStages
+  const auto stage = [&](int s) {
+    unsigned char* d = smem + (s % kStages) * 2 * kOpBytes;
+    const long long col = static_cast<long long>(sb + s) * kStepP;
 #pragma unroll
-  for (int nj = 0; nj < kNj; ++nj)
+    for (int i = tid; i < 2 * kTile * 8; i += kThreads) {
+      const int half = i / (kTile * 8), r = (i / 8) % kTile, c = i % 8;
+      const uint16_t* src = (half ? urows : krows) + r * ld + col + 8 * c;
+      bf16op::cp_async16(d + half * kOpBytes + bf16op::sw128_offset(r, c), src);
+    }
+  };
+  float acc[64], tot[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_st) stage(s);
+    tf32x3::cp_async_commit();
+  }
+  for (int s = 0; s < n_st; ++s) {
+    tf32x3::cp_async_wait_group<kStages - 2>();  // this thread's copies of step s
+    tf32x3::fence_async_smem();
+    __syncthreads();  // step s is in; every product of step s - 1 is done
+    const unsigned char* st = smem + (s % kStages) * 2 * kOpBytes;
+    tf32x3::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kStepP / 16; ++ks) {
+      const uint64_t ad = bf16op::smem_desc_sw128(st + 64 * 128 * wg + 32 * ks);
+      const uint64_t bd = bf16op::smem_desc_sw128(st + kOpBytes + 32 * ks);
+      bf16op::wgmma_m64n128k16(acc, ad, bd, ks > 0);
+    }
+    tf32x3::wgmma_commit();
+    if (s + kStages - 1 < n_st) stage(s + kStages - 1);  // over step s - 1's stage
+    tf32x3::cp_async_commit();
+    tf32x3::wgmma_wait<0>();
+    tf32x3::wgmma_pin(acc);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+  }
+  tf32x3::cp_async_wait_group<0>();
+  float* d = dst + static_cast<long long>(blockIdx.z) * z_dim * a_dim;
+  const int g = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int jn = 0; jn < 16; ++jn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int zz = zt0 + warp * 16 + g + (e >= 2 ? 8 : 0);
-      const int aa = a0 + nj * 8 + 2 * tig + (e & 1);
-      if (zz < z_dim && aa < a_dim) d[static_cast<long long>(zz) * a_dim + aa] = tot[nj][e];
+      const int zz = z0 + 64 * wg + 16 * (warp % 4) + g + (e >= 2 ? 8 : 0);
+      const int aa = a0 + 8 * jn + 2 * tig + (e & 1);
+      if (zz < z_dim && aa < a_dim) {
+        float* out = d + static_cast<long long>(zz) * a_dim + aa;
+        *out = accumulate ? *out + tot[4 * jn + e] : tot[4 * jn + e];
+      }
     }
 }
 
 }  // namespace dcore_bf16
 }  // namespace
 
-// dctn_eps_dcore's bf16 mode: the same arguments but `sms` (the wrapper
-// picks `slices`); d_cmt and scratch float32.
-extern "C" int dctn_eps_dcore_bf16(const void* views, const void* g, void* d_cmt, void* scratch,
-                                   int n, int q, int n1, int out_size, long long npix, int slices,
-                                   void* stream) {
+// dctn_eps_dcore's bf16 mode, one chunk of pixels: views (n, q, npix) and
+// g (O, npix) float32; dst (slices, Z, A) float32, d_cmt itself where slices
+// is 1; ops the bf16 operands of a chunk of `chunk` pixels (a multiple of
+// 64): (A rounded up to 128 + Z rounded up to 128) x chunk values. Forms the
+// operands of pixels [c0, c0 + chunk) (c0 a multiple of chunk), then adds
+// their product into each slice's part of dst (writes it where c0 is 0).
+// The caller runs the chunks of npix in order, then
+// dctn_eps_dcore_bf16_sum where slices > 1.
+extern "C" int dctn_eps_dcore_bf16(const void* views, const void* g, void* dst, void* ops, int n,
+                                   int q, int n1, int out_size, long long npix, int slices,
+                                   long long c0, long long chunk, void* stream) {
   namespace db = dcore_bf16;
   if (n < 1 || q < 1 || n1 < 1 || n1 > n || out_size < 1 || npix < 1 ||
-      n * q > bf16op::kMaxFactorRows || slices < 1 || slices > kMaxSlices ||
-      (slices > 1 && scratch == nullptr))
+      n * q > bf16op::kMaxFactorRows || slices < 1 || slices > kMaxSlices || dst == nullptr ||
+      ops == nullptr || chunk < db::kStepP || chunk % db::kStepP != 0 || c0 < 0 || c0 >= npix ||
+      c0 % chunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long a_dim = bf16op::ipow(q, n1);
   const long long b2 = bf16op::ipow(q, n - n1);
   const long long z_dim = b2 * out_size;
-  if (a_dim > (1LL << 30) || z_dim > (1LL << 30) || (z_dim + db::kTile - 1) / db::kTile > 65535)
+  const long long a_pad = (a_dim + db::kTile - 1) / db::kTile * db::kTile;
+  const long long z_pad = (z_dim + db::kTile - 1) / db::kTile * db::kTile;
+  if (a_dim > (1LL << 30) || z_dim > (1LL << 30) || (z_dim + db::kTile - 1) / db::kTile > 65535 ||
+      (a_pad + z_pad) * chunk > (1LL << 40))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long bytes = db::smem_bytes(n, q, b2, out_size);
   if (bytes > bf16op::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = bf16op::allow_smem(db::eps_dcore_bf16_kernel);
+  cudaError_t err = bf16op::allow_smem(db::eps_dcore_bf16_kernel);
+  if (err == cudaSuccess) err = bf16op::allow_smem(db::eps_dcore_bf16_operands_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long chunks = (npix + db::kChunkP - 1) / db::kChunkP;
-  const long long pix_per_slice = (chunks + slices - 1) / slices * db::kChunkP;
-  const dim3 grid(static_cast<unsigned>((a_dim + db::kTile - 1) / db::kTile),
-                  static_cast<unsigned>((z_dim + db::kTile - 1) / db::kTile),
-                  static_cast<unsigned>(slices));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dst = slices > 1 ? static_cast<float*>(scratch) : static_cast<float*>(d_cmt);
-  db::eps_dcore_bf16_kernel<<<grid, db::kThreads, static_cast<size_t>(bytes), s>>>(
-      static_cast<const float*>(views), static_cast<const float*>(g), dst, n, q, n1,
-      static_cast<int>(a_dim), static_cast<int>(b2), static_cast<int>(z_dim), npix,
-      pix_per_slice, db::g_rows(b2, out_size));
-  if (slices > 1) {
-    const long long count = z_dim * a_dim;
-    const unsigned blocks = static_cast<unsigned>(std::min((count + 255) / 256, 4096LL));
-    sum_slices_kernel<<<blocks, 256, 0, s>>>(dst, static_cast<float*>(d_cmt), count, slices);
-  }
+  uint16_t* op = static_cast<uint16_t*>(ops);
+  const int g_cap = db::g_rows(b2, out_size);
+  const size_t build_bytes = 4 * db::kBuildP * (n * q + g_cap);
+  const size_t ring_bytes = 2 * db::kStages * db::kOpBytes;
+  const int pc = static_cast<int>(npix - c0 < chunk ? npix - c0 : chunk);
+  const int steps = (pc + db::kStepP - 1) / db::kStepP;
+  const dim3 bgrid(static_cast<unsigned>(steps * db::kStepP / db::kBuildP),
+                   static_cast<unsigned>((a_pad + z_pad) / db::kBuildRows +
+                                         ((a_pad + z_pad) % db::kBuildRows != 0)));
+  db::eps_dcore_bf16_operands_kernel<<<bgrid, db::kThreads, build_bytes, s>>>(
+      static_cast<const float*>(views), static_cast<const float*>(g), op, n, q, n1,
+      static_cast<int>(a_dim), static_cast<int>(a_pad), static_cast<int>(b2),
+      static_cast<int>(z_dim), static_cast<int>(a_pad + z_pad), npix, c0, pc, chunk, g_cap,
+      bf16op::FastDiv(q), bf16op::FastDiv(b2));
+  const int sps = (steps + slices - 1) / slices;
+  const dim3 grid(static_cast<unsigned>(a_pad / db::kTile), static_cast<unsigned>(z_pad / db::kTile),
+                  static_cast<unsigned>(slices));
+  db::eps_dcore_bf16_kernel<<<grid, db::kThreads, ring_bytes, s>>>(
+      op, static_cast<float*>(dst), static_cast<int>(a_dim), static_cast<int>(a_pad),
+      static_cast<int>(z_dim), chunk, steps, sps, c0 > 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 mode's fixed-order sum of the slices' parts (slices, count) into
+// d_cmt (count), after the last chunk.
+extern "C" int dctn_eps_dcore_bf16_sum(const void* parts, void* d_cmt, long long count,
+                                       int slices, void* stream) {
+  if (parts == nullptr || d_cmt == nullptr || count < 1 || slices < 2 || slices > kMaxSlices)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>(std::min((count + 255) / 256, 4096LL));
+  sum_slices_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(parts), static_cast<float*>(d_cmt), count, slices);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shared memory of one bf16 launch at this shape (dcore_bf16::smem_bytes;
+// the wrapper's plan mirrors it and its tests hold the two equal).
+extern "C" long long dctn_eps_dcore_bf16_smem_bytes(int n, int q, int n1, int out_size) {
+  return dcore_bf16::smem_bytes(n, q, bf16op::ipow(q, n - n1), out_size);
 }

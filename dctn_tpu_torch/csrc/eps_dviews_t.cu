@@ -661,132 +661,225 @@ extern "C" int dctn_eps_dviews_recompute(const void* views, const void* cmt,
 // the recompute arm) at the dense bf16 rate (989 TFLOP/s, H100 SXM at
 // 700 W): 0.215 ms (K2) at the flagship's second layer at batch 128.
 //
-// Design, a simple kernel first: a CTA of 8 warps owns 32 pixels; it
-// stages their factor columns, g and v in shared memory; d_u in tiles of
-// 128 rows of A, each over steps of 128 rows of Z (cmt's 128 x 128, read
-// from its transpose cmtT (A, Z), which the wrapper makes, as 16-byte
-// copies where Z is a multiple of 8; kr2's 128 x 32 built from g and v),
-// each warp 16 rows x 32 pixels, 4 fragments of mma.m16n8k16 over 8 k16
-// steps, added into float32 totals every step; a tile of d_u goes to shared
-// memory and a thread per (pixel, quarter of the tile's rows), of the first
-// 4 warps, adds its leave-one-out terms into that quarter's cotangent
-// rows. The recompute arm runs t the same way in tiles of 128 rows of Z
-// over steps of 128 columns of A (cmt's rows as 16-byte copies where A is
-// a multiple of 8), and a thread per (pixel, b mod 4) adds t * g into d_v;
-// the saved arm reads t (a thread per pixel and b mod 8). The four quarters' cotangents are added in a
-// fixed order at the end: no atomics, the same bits from run to run.
+// Design: GEMMs on wgmma.m64n64k16 (bf16) with N = the CTA's 64 pixels,
+// both operands K-major in the 128-byte swizzle. A CTA of two warpgroups
+// stages its pixels' factor columns and g, and forms v (every b) once, in
+// shared memory. Then d_u, a tile of 128 rows of A at a time (M = A, K = Z):
+// cmtT's 128 x 64 step tiles (from a zero-padded transposed copy the wrapper
+// makes, so every tile is whole and 16-byte aligned) come by cp.async, eight
+// threads a row (128 contiguous bytes), into a ring of 3 stages, two steps
+// ahead; the step's kr2 (64 pixels x 64 rows of Z, 8 consecutive z of a
+// pixel a thread: g[o] * v[b], one 16-byte store) is built into one of two
+// buffers while the tensor cores multiply the last step; each warpgroup owns
+// 64 rows of A, four wgmma a step, the sums in registers across the whole Z
+// loop (a step's product added into f32 totals: the tensor cores truncate as
+// they add). One barrier a step. A finished tile goes to shared memory (over
+// the ring) and every thread, a pixel and a quarter of the tile's rows, adds
+// its leave-one-out terms into that quarter's cotangent rows, each factor's
+// sum kept in a register while its digit stays (the digits stepped on, not
+// divided). The recompute arm runs t the same way, tiles of 128 rows of Z of
+// a padded copy of cmt over steps of 64 of A, u built as kr2 is: each entry a
+// table row of its last lt factors' chain (q^lt <= 160 rows, formed once per
+// CTA) times its leading factors, the chain's order; the saved arm's t comes
+// through the same ring in tiles of 128 rows. Either way each (b, pixel)'s
+// d_v = sum_o t * g is added by one thread, in the order of o, where v was.
+// The four quarters' cotangents are added in a fixed order at the end: no
+// atomics, the same bits from run to run.
+// Where the time goes (phase probes at the flagship's layer 1, batch 128:
+// scratch copies with one part removed, timed in turns): not the products
+// (removing them saves ~5%); the kr2 build ~30%, the leave-one-out ~20%, d_v
+// ~12%, the staging ~10% of the saved arm; the u build half of the recompute
+// arm. One CTA an SM (its shared memory) leaves 8 warps to hide the builds'
+// latencies.
 // Limits: n1 and n - n1 at most 8 (the leave-one-out products in
-// registers), B2 <= 512, n*q <= 256, shared memory 4 (36 (n q + O + 2 B2 +
-// 128) + 128 n q) + 43520 bytes (156 KB at the flagship's second layer).
+// registers), B2 <= 512, n*q <= 256, shared memory 65536 + 260 (n q + O +
+// B2 [+ q^lt]) + 1024 n q bytes (176 KB at the flagship's second layer).
 
 #include "bf16.cuh"
 
 namespace {
 namespace dviews_bf16 {
 
-constexpr int kThreads = 256;      // 8 warps, 16 rows of a product tile each
-constexpr int kTileP = 32;         // pixels per CTA
-constexpr int kTileM = 128;        // rows of A (d_u) or of Z (t) per product tile
-constexpr int kRoles = 4 * kTileP; // the threads that accumulate: a pixel and a quarter
-constexpr int kChunk = 128;        // K per step: eight k16 steps
-constexpr int kWords = bf16op::op_words<kChunk>();
-constexpr int kRow = kTileP + 4;   // floats a row of the factor, g, v, d_v and tile rows
-constexpr int kNj = kTileP / 8;    // n8 fragments a warp holds
+constexpr int kThreads = 256;      // two warpgroups
+constexpr int kTileP = 64;         // pixels per CTA (N)
+constexpr int kTileM = 128;        // rows of A (d_u) or of Z (t) per product tile, 64 a warpgroup
+constexpr int kStepK = 64;         // K (rows of Z, or of A) a step: four k16 products
+constexpr int kStages = 3;         // the cmt ring (and the saved t's tiles)
+constexpr int kRow = kTileP + 1;   // floats a row of the factors, g, v / d_v, the table and the
+                                   // tile: an odd stride, so rows 8 apart fall on other banks
 constexpr int kMaxChain = 8;       // factors of a half in the leave-one-out products
+constexpr int kMaxTable = 160;     // rows of the recompute arm's table of u's trailing factors
+// both operands K-major in the 128-byte swizzle (bf16op::smem_desc_sw128):
+// a step's row of 64 values is 128 bytes
+constexpr int kRingBytes = kTileM * kStepK * 2;
+constexpr int kOpBytes = kTileP * kStepK * 2;
 
-long long smem_bytes(int n, int q, long long b2, int out_size) {
-  return 4LL * (kRow * (n * q + out_size + 2 * b2 + kTileM) + 4LL * n * q * kTileP) +
-         4LL * (kTileM + kTileP) * kWords;
+// the trailing factors of u that the recompute arm tabulates: the most
+// with q^lt <= kMaxTable
+int table_factors(int q, int n1) {
+  int lt = 0;
+  long long rows = 1;
+  while (lt < n1 && rows * q <= kMaxTable) {
+    rows *= q;
+    ++lt;
+  }
+  return lt;
 }
 
-// adds d * prod_{j != i} f_{first + j}[digit j of idx] into dq's row of
-// factor first + i and idx's digit i, for each of the `count` factors
-// (digit 0 the slowest), at pixel pj
-__device__ __forceinline__ void add_leave_one_out(float* dq, const float* fac, int first,
-                                                  int count, int q, int idx, float d, int pj) {
-  int row[kMaxChain];
-  float fv[kMaxChain], suf[kMaxChain];
-  int rem = idx;
+long long smem_bytes(int n, int q, int n1, long long b2, int out_size, bool recompute) {
+  const long long table = recompute ? bf16op::ipow(q, table_factors(q, n1)) : 0;
+  return static_cast<long long>(kStages) * kRingBytes + 2LL * kOpBytes +
+         4LL * kRow * (n * q + out_size + b2 + table) + 4LL * 4 * n * q * kTileP;
+}
+
+// the digits (factor 0 slowest) of idx over `count` factors of q values
+__device__ __forceinline__ void digits_of(int (&dig)[kMaxChain], int idx, int count, int q) {
 #pragma unroll
   for (int i = kMaxChain - 1; i >= 0; --i)
     if (i < count) {
-      row[i] = (first + i) * q + rem % q;
-      rem /= q;
-      fv[i] = fac[row[i] * kRow + pj];
+      dig[i] = idx % q;
+      idx /= q;
     }
-  float s = 1.f;
-#pragma unroll
-  for (int i = kMaxChain - 1; i >= 0; --i)
-    if (i < count) {
-      suf[i] = s;
-      s *= fv[i];
-    }
-  float pre = 1.f;
+}
+
+// the leave-one-out sums of `rows` consecutive indices from idx0 over the
+// `count` factors from `first` (digit 0 the slowest), at pixel pj: index
+// idx0 + r (cotangent d_of(r)) adds d * prod_{j != i} f_{first + j}[its digit
+// j] into dq's row of factor first + i and its digit i. Each factor's sum
+// stays in a register while its digit does, and goes into dq when the digit
+// changes (the digits step on with the index, from the last, as a counter)
+template <typename D>
+__device__ __forceinline__ void leave_one_out_run(float* dq, const float* fac, int first,
+                                                  int count, int q, int idx0, int rows,
+                                                  const D& d_of, int pj) {
+  int dig[kMaxChain];
+  digits_of(dig, idx0, count, q);
+  float fv[kMaxChain], acc[kMaxChain];
 #pragma unroll
   for (int i = 0; i < kMaxChain; ++i)
     if (i < count) {
-      dq[row[i] * kTileP + pj] += d * (pre * suf[i]);
-      pre *= fv[i];
+      fv[i] = fac[((first + i) * q + dig[i]) * kRow + pj];
+      acc[i] = 0.f;
     }
-}
-
-// tot (this warp's 16 rows at `a_rows` x 32 pixels) += a_op . b_op over one step
-__device__ __forceinline__ void step_product(float (&tot)[kNj][4], const uint32_t* a_rows,
-                                             const uint32_t* b_op) {
-  float acc[kNj][4];
+  for (int r = 0; r < rows; ++r) {
+    const float d = d_of(r);
+    float suf[kMaxChain];
+    float s = 1.f;
 #pragma unroll
-  for (int nj = 0; nj < kNj; ++nj)
+    for (int i = kMaxChain - 1; i >= 0; --i)
+      if (i < count) {
+        suf[i] = s;
+        s *= fv[i];
+      }
+    float pre = 1.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nj][e] = 0.f;
+    for (int i = 0; i < kMaxChain; ++i)
+      if (i < count) {
+        acc[i] += d * (pre * suf[i]);
+        pre *= fv[i];
+      }
+    bool carry = true;  // the digits that change with the next index: their sums go out
 #pragma unroll
-  for (int ks = 0; ks < kChunk / 16; ++ks) {
-    uint32_t af[4];
-    bf16op::load_a<kWords>(af, a_rows, ks * 8);
-#pragma unroll
-    for (int nj = 0; nj < kNj; ++nj) {
-      uint32_t bf[2];
-      bf16op::load_b<kWords>(bf, b_op + nj * 8 * kWords, ks * 8);
-      bf16op::mma(acc[nj], af, bf);
-    }
+    for (int i = kMaxChain - 1; i >= 0; --i)
+      if (i < count && carry) {
+        float* row = dq + ((first + i) * q + dig[i]) * kTileP + pj;
+        *row += acc[i];
+        acc[i] = 0.f;
+        carry = ++dig[i] == q;
+        if (carry) dig[i] = 0;
+        fv[i] = fac[((first + i) * q + dig[i]) * kRow + pj];
+      }
   }
 #pragma unroll
-  for (int nj = 0; nj < kNj; ++nj)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) tot[nj][e] += acc[nj][e];
+  for (int i = 0; i < kMaxChain; ++i)
+    if (i < count) dq[((first + i) * q + dig[i]) * kTileP + pj] += acc[i];
 }
 
-// this warp's totals (rows 16 warp.., 32 pixels) into the shared tile
-__device__ __forceinline__ void totals_to_tile(float* ts, const float (&tot)[kNj][4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+// this warpgroup's 64 rows x 64 pixels of the M tile, summed over every K
+// step: the A rows m0.. of `src` (bf16, `ld` values a row, whole steps)
+// through the ring, the built operand from `build(s, dst)`; leaves the
+// ring and both built buffers free (every product done)
+template <typename Build>
+__device__ __forceinline__ void gemm_tile(float (&tot)[32], const uint16_t* __restrict__ src,
+                                          long long ld, int m0, int steps, unsigned char* ring,
+                                          unsigned char* bop, const Build& build) {
+  const int tid = threadIdx.x, wg = tid / 128;
+  const auto stage = [&](int s) {
+    unsigned char* d = ring + (s % kStages) * kRingBytes;
+    const uint16_t* base = src + static_cast<long long>(m0) * ld + static_cast<long long>(s) * kStepK;
 #pragma unroll
-  for (int nj = 0; nj < kNj; ++nj) {
-    const int r = warp * 16 + g, c = nj * 8 + 2 * tig;
-    ts[r * kRow + c] = tot[nj][0];
-    ts[r * kRow + c + 1] = tot[nj][1];
-    ts[(r + 8) * kRow + c] = tot[nj][2];
-    ts[(r + 8) * kRow + c + 1] = tot[nj][3];
+    for (int i = tid; i < kTileM * (kStepK / 8); i += kThreads) {
+      const int r = i / 8, c = i % 8;  // eight threads a row: 128 contiguous bytes
+      bf16op::cp_async16(d + bf16op::sw128_offset(r, c), base + r * ld + 8 * c);
+    }
+  };
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tot[i] = acc[i] = 0.f;
+  stage(0);
+  tf32x3::cp_async_commit();
+  if (steps > 1) stage(1);
+  tf32x3::cp_async_commit();
+  build(0, bop);
+  for (int s = 0; s < steps; ++s) {
+    tf32x3::cp_async_wait_group<1>();  // this thread's copies of step s
+    tf32x3::fence_async_smem();
+    __syncthreads();  // step s's stage and operand are in; step s - 1's products are done
+    const unsigned char* a_st = ring + (s % kStages) * kRingBytes;
+    const unsigned char* b_op = bop + (s & 1) * kOpBytes;
+    tf32x3::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kStepK / 16; ++ks) {
+      const uint64_t ad = bf16op::smem_desc_sw128(a_st + 64 * 128 * wg + 32 * ks);
+      const uint64_t bd = bf16op::smem_desc_sw128(b_op + 32 * ks);
+      bf16op::wgmma_m64n64k16(acc, ad, bd, ks > 0);
+    }
+    tf32x3::wgmma_commit();
+    if (s + 2 < steps) stage(s + 2);  // over step s - 1's stage
+    tf32x3::cp_async_commit();
+    if (s + 1 < steps) build(s + 1, bop + ((s + 1) & 1) * kOpBytes);
+    tf32x3::wgmma_wait<0>();
+    bf16op::wgmma_pin(acc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tot[i] += acc[i];
+  }
+  tf32x3::cp_async_wait_group<0>();
+  __syncthreads();  // every product is done: the ring and the buffers may be reused
+}
+
+// this warpgroup's totals (rows 64 wg + .., 64 pixels) into the shared tile
+__device__ __forceinline__ void totals_to_tile(float* ts, const float (&tot)[32]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int r = 16 * warp + g;  // 64 (warp / 4) + 16 (warp % 4) + g
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * tig;
+    ts[r * kRow + c] = tot[4 * j];
+    ts[r * kRow + c + 1] = tot[4 * j + 1];
+    ts[(r + 8) * kRow + c] = tot[4 * j + 2];
+    ts[(r + 8) * kRow + c + 1] = tot[4 * j + 3];
   }
 }
 
 template <bool kRecompute>
-__global__ void __launch_bounds__(kThreads)
-    eps_dviews_bf16_kernel(const float* __restrict__ views, const uint16_t* __restrict__ cmt,
-                           const uint16_t* __restrict__ cmt_t, const float* __restrict__ gcot,
+__global__ void __launch_bounds__(kThreads, 1)
+    eps_dviews_bf16_kernel(const float* __restrict__ views, const uint16_t* __restrict__ cmt_p,
+                           const uint16_t* __restrict__ cmt_tp, const float* __restrict__ gcot,
                            const uint16_t* __restrict__ t, float* __restrict__ dviews, int n,
                            int q, int n1, int a_dim, int b2, int z_dim, int out_size,
-                           long long npix, bool vec_a, bool vec_z) {
-  extern __shared__ __align__(16) float smem[];
+                           long long npix, int lt) {
+  extern __shared__ __align__(1024) unsigned char smem[];
   const int nq = n * q, n2 = n - n1;
-  float* fac = smem;                   // nq rows
-  float* gs = fac + nq * kRow;         // out_size rows
-  float* vs = gs + out_size * kRow;    // b2 rows
-  float* dv = vs + b2 * kRow;          // b2 rows
-  float* ts = dv + b2 * kRow;          // kTileM rows
-  float* dfac = ts + kTileM * kRow;    // 4 quarters x nq rows x kTileP
-  uint32_t* a_op = reinterpret_cast<uint32_t*>(dfac + 4 * nq * kTileP);
-  uint32_t* b_op = a_op + kTileM * kWords;
+  unsigned char* ring = smem;                       // kStages stages; a finished tile
+  unsigned char* bop = ring + kStages * kRingBytes;  // 2 built operands
+  float* fac = reinterpret_cast<float*>(bop + 2 * kOpBytes);  // nq rows
+  float* gs = fac + nq * kRow;                      // out_size rows
+  float* vd = gs + out_size * kRow;                 // b2 rows: v, then d_v
+  float* dfac = vd + b2 * kRow;                     // 4 quarters x nq rows x kTileP
+  float* tab = dfac + 4 * nq * kTileP;              // the recompute arm's q^lt rows
+  float* ts = reinterpret_cast<float*>(ring);       // kTileM rows
 
-  const int tid = threadIdx.x, warp = tid / 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long p0 = static_cast<long long>(blockIdx.x) * kTileP;
   for (int i = tid; i < nq * kTileP; i += kThreads) {
     const int r = i / kTileP, j = i % kTileP;
@@ -797,8 +890,8 @@ __global__ void __launch_bounds__(kThreads)
     gs[r * kRow + j] = p0 + j < npix ? gcot[r * npix + p0 + j] : 0.f;
   }
   for (int i = tid; i < 4 * nq * kTileP; i += kThreads) dfac[i] = 0.f;
-  for (int i = tid; i < b2 * kRow; i += kThreads) dv[i] = 0.f;
   __syncthreads();
+  // v[b] = f_{n1}[..] * (... * f_{n-1}[..]) (one row of ones when n2 = 0)
   for (int i = tid; i < b2 * kTileP; i += kThreads) {
     const int b = i / kTileP, j = i % kTileP;
     int rem = b;
@@ -807,111 +900,193 @@ __global__ void __launch_bounds__(kThreads)
       x = fac[(k * q + rem % q) * kRow + j] * x;
       rem /= q;
     }
-    vs[b * kRow + j] = x;
+    vd[b * kRow + j] = x;
   }
-  // the accumulating roles of the first kRoles threads: a pixel and a quarter
-  const bool role = tid < kRoles;
-  const int pj = tid % kTileP, qt = (tid / kTileP) % 4;
-  float* dq = dfac + qt * nq * kTileP;
-  // operand builds: a pair of K rows (2 kp, 2 kp + 1) over 8 pixels
-  const int kp = tid % (kChunk / 2), jb = (tid / (kChunk / 2)) * 8;
-
-  // d_u, tile by tile over A, and the cotangents of u's factors
-  for (int a0 = 0; a0 < a_dim; a0 += kTileM) {
-    float tot[kNj][4];
-#pragma unroll
-    for (int nj = 0; nj < kNj; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) tot[nj][e] = 0.f;
-    for (int zc = 0; zc < z_dim; zc += kChunk) {
-      __syncthreads();  // the last step's operands and tile are read (and v formed)
-      bf16op::stage_rows<kChunk, kWords, kThreads>(a_op, cmt_t, a0, kTileM, a_dim - a0, zc,
-                                                   z_dim, vec_z);
-      {
-        const int z = zc + 2 * kp;
-        const bool ok0 = z < z_dim, ok1 = z + 1 < z_dim;
-        const float* g0 = gs + (ok0 ? z / b2 : 0) * kRow + jb;
-        const float* v0 = vs + (ok0 ? z % b2 : 0) * kRow + jb;
-        const float* g1 = gs + (ok1 ? (z + 1) / b2 : 0) * kRow + jb;
-        const float* v1 = vs + (ok1 ? (z + 1) % b2 : 0) * kRow + jb;
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-          b_op[(jb + jj) * kWords + kp] = bf16op::pack(ok0 ? g0[jj] * v0[jj] : 0.f,
-                                                       ok1 ? g1[jj] * v1[jj] : 0.f);
+  // the recompute arm's table of u's last lt factors, in the chain's order
+  const int m_lead = n1 - lt;
+  int s_tab = 1;
+  for (int k = 0; k < lt; ++k) s_tab *= q;
+  if (kRecompute)
+    for (int i = tid; i < s_tab * kTileP; i += kThreads) {
+      const int r = i / kTileP, j = i % kTileP;
+      int rem = r;
+      float x = 1.f;
+      for (int k = n1 - 1; k >= m_lead; --k) {
+        x = fac[(k * q + rem % q) * kRow + j] * x;
+        rem /= q;
       }
-      __syncthreads();
-      step_product(tot, a_op + warp * 16 * kWords, b_op);
+      tab[r * kRow + j] = x;
     }
+  __syncthreads();
+  // the accumulating roles: a pixel and a quarter, every thread
+  const int pj = tid % kTileP, qt = tid / kTileP;
+  float* dq = dfac + qt * nq * kTileP;
+  // the built operands: pixel p = 8 warp + lane % 8, K chunks lane / 8 and
+  // lane / 8 + 4 of a step (8 values each, one 16-byte store)
+  const int bp = 8 * warp + lane % 8;
+  const auto store8 = [&](unsigned char* dst, int c, const float (&x)[8]) {
+    uint4 w;
+    w.x = bf16op::pack(x[0], x[1]);
+    w.y = bf16op::pack(x[2], x[3]);
+    w.z = bf16op::pack(x[4], x[5]);
+    w.w = bf16op::pack(x[6], x[7]);
+    *reinterpret_cast<uint4*>(dst + bf16op::sw128_offset(bp, c)) = w;
+  };
+  // kr2 of step s: z = 64 s + 8 c + j, g[o] * v[b], zero past Z
+  const auto build_kr2 = [&](int s, unsigned char* dst) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = lane / 8 + 4 * h;
+      const int z0 = s * kStepK + 8 * c;
+      int o = z0 / b2, b = z0 - o * b2;
+      float gv = z0 < z_dim ? gs[o * kRow + bp] : 0.f;
+      float x[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        x[j] = z0 + j < z_dim ? gv * vd[b * kRow + bp] : 0.f;
+        if (++b == b2) {
+          b = 0;
+          ++o;
+          if (z0 + j + 1 < z_dim) gv = gs[o * kRow + bp];
+        }
+      }
+      store8(dst, c, x);
+    }
+  };
+  // u of step s: a = 64 s + 8 c + j, f_0[..] * (... * (f_{m-1}[..] *
+  // tab[a % q^lt])), the chain's order; zero past A. A unit's 8 values of a
+  // take at most two leading indices where q^lt >= 8 (their factors loaded
+  // once), else one each.
+  const auto leading = [&](float (&lf)[kMaxChain], int lead) {
+    int dig[kMaxChain];
+    digits_of(dig, lead, m_lead, q);
+#pragma unroll
+    for (int i = 0; i < kMaxChain; ++i)
+      if (i < m_lead) lf[i] = fac[(i * q + dig[i]) * kRow + bp];
+  };
+  const auto build_u = [&](int s, unsigned char* dst) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = lane / 8 + 4 * h;
+      const int a_first = s * kStepK + 8 * c;
+      const int lead = a_first / s_tab, r0 = a_first - lead * s_tab;
+      float x[8];
+      if (s_tab >= 8) {
+        float lf0[kMaxChain], lf1[kMaxChain];
+        leading(lf0, lead);
+        if (r0 + 7 >= s_tab) leading(lf1, lead + 1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const bool next = r0 + j >= s_tab;
+          float y = tab[(next ? r0 + j - s_tab : r0 + j) * kRow + bp];
+#pragma unroll
+          for (int i = kMaxChain - 1; i >= 0; --i)
+            if (i < m_lead) y = (next ? lf1[i] : lf0[i]) * y;
+          x[j] = a_first + j < a_dim ? y : 0.f;
+        }
+      } else {
+        for (int j = 0; j < 8; ++j) {
+          float lf[kMaxChain];
+          const int lj = (a_first + j) / s_tab;
+          leading(lf, lj);
+          float y = tab[(a_first + j - lj * s_tab) * kRow + bp];
+#pragma unroll
+          for (int i = kMaxChain - 1; i >= 0; --i)
+            if (i < m_lead) y = lf[i] * y;
+          x[j] = a_first + j < a_dim ? y : 0.f;
+        }
+      }
+      store8(dst, c, x);
+    }
+  };
+
+  // d_u, tile by tile over A, and the cotangents of u's factors: a thread's
+  // 32 consecutive rows of each tile, their digits stepped on, not divided
+  const int z_steps = (z_dim + kStepK - 1) / kStepK;
+  const long long z_ld = static_cast<long long>(z_steps) * kStepK;
+  constexpr int kQuarter = kTileM / 4;
+  for (int a0 = 0; a0 < a_dim; a0 += kTileM) {
+    float tot[32];
+    gemm_tile(tot, cmt_tp, z_ld, a0, z_steps, ring, bop, build_kr2);
     totals_to_tile(ts, tot);
     __syncthreads();
-    constexpr int kQuarter = kTileM / 4;
-    if (role)
-      for (int r = qt * kQuarter; r < (qt + 1) * kQuarter && a0 + r < a_dim; ++r)
-        add_leave_one_out(dq, fac, 0, n1, q, a0 + r, ts[r * kRow + pj], pj);
+    const int r0 = qt * kQuarter;
+    leave_one_out_run(dq, fac, 0, n1, q, a0 + r0, max(0, min(kQuarter, a_dim - a0 - r0)),
+                      [&](int r) { return ts[(r0 + r) * kRow + pj]; }, pj);
+    __syncthreads();  // the tile is read: the ring may be refilled
   }
 
   if (n2 > 0) {
+    // d_v takes v's place: d_v[b] = sum_o t[(o, b)] * g[o], each (b, pixel)
+    // by one thread, the owner of b's quarter, over the rows of t in order
+    for (int i = tid; i < b2 * kRow; i += kThreads) vd[i] = 0.f;
+    const int blk = (b2 + 3) / 4, b_lo = qt * blk, b_hi = min(b_lo + blk, b2);
+    const auto accumulate = [&](int z0, const auto& row_value) {
+      int o = z0 / b2, b = z0 - o * b2;
+      for (int r = 0; r < kTileM && z0 + r < z_dim; ++r) {
+        if (b >= b_lo && b < b_hi) vd[b * kRow + pj] += row_value(r) * gs[o * kRow + pj];
+        if (++b == b2) {
+          b = 0;
+          ++o;
+        }
+      }
+    };
+    const int z_tiles = (z_dim + kTileM - 1) / kTileM;
     if (kRecompute) {
       // t = cmt . bf16(u), float32 and unrounded, tile by tile over Z
-      for (int zt = 0; zt < z_dim; zt += kTileM) {
-        float tot[kNj][4];
-#pragma unroll
-        for (int nj = 0; nj < kNj; ++nj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) tot[nj][e] = 0.f;
-        for (int ac = 0; ac < a_dim; ac += kChunk) {
-          __syncthreads();
-          bf16op::stage_rows<kChunk, kWords, kThreads>(a_op, cmt, zt, kTileM, z_dim - zt, ac,
-                                                       a_dim, vec_a);
-          {
-            const int a = ac + 2 * kp;
-            const bool ok0 = a < a_dim, ok1 = a + 1 < a_dim;
-            int rem0 = ok0 ? a : 0, rem1 = ok1 ? a + 1 : 0;
-            float x0[8], x1[8];
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj) x0[jj] = x1[jj] = 1.f;
-            for (int k = n1 - 1; k >= 0; --k) {
-              const float* f0 = fac + (k * q + rem0 % q) * kRow + jb;
-              const float* f1 = fac + (k * q + rem1 % q) * kRow + jb;
-              rem0 /= q;
-              rem1 /= q;
-#pragma unroll
-              for (int jj = 0; jj < 8; ++jj) {
-                x0[jj] = f0[jj] * x0[jj];
-                x1[jj] = f1[jj] * x1[jj];
-              }
-            }
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj)
-              b_op[(jb + jj) * kWords + kp] =
-                  bf16op::pack(ok0 ? x0[jj] : 0.f, ok1 ? x1[jj] : 0.f);
-          }
-          __syncthreads();
-          step_product(tot, a_op + warp * 16 * kWords, b_op);
-        }
+      const int a_steps = (a_dim + kStepK - 1) / kStepK;
+      const long long a_ld = static_cast<long long>(a_steps) * kStepK;
+      for (int zi = 0; zi < z_tiles; ++zi) {
+        float tot[32];
+        gemm_tile(tot, cmt_p, a_ld, zi * kTileM, a_steps, ring, bop, build_u);
         totals_to_tile(ts, tot);
         __syncthreads();
-        if (role)
-          for (int r = 0; r < kTileM && zt + r < z_dim; ++r) {
-            const int z = zt + r, b = z % b2;
-            if (b % 4 == qt) dv[b * kRow + pj] += ts[r * kRow + pj] * gs[(z / b2) * kRow + pj];
-          }
+        accumulate(zi * kTileM, [&](int r) { return ts[r * kRow + pj]; });
+        __syncthreads();
       }
     } else {
-      // the saved t, bf16 read as float32: every thread, a pixel and b mod
-      // 8, each (b, pixel)'s sum over o in order
-      constexpr int kGroups = kThreads / kTileP;
-      if (p0 + pj < npix)
-        for (int o = 0; o < out_size; ++o) {
-          const float go = gs[o * kRow + pj];
-          const uint16_t* to = t + static_cast<long long>(o) * b2 * npix + p0 + pj;
-          for (int b = tid / kTileP; b < b2; b += kGroups)
-            dv[b * kRow + pj] += bf16op::widen(to[static_cast<long long>(b) * npix]) * go;
+      // the saved t (bf16, read as float32) in tiles of 128 rows through
+      // the ring, two tiles ahead: rows of 64 pixels, by cp.async where
+      // they are whole and 16-byte aligned
+      const bool vec = npix % 8 == 0 && p0 + kTileP <= npix &&
+                       reinterpret_cast<uintptr_t>(t) % 16 == 0;
+      const auto stage_t = [&](int zi) {
+        unsigned char* d = ring + (zi % kStages) * kRingBytes;
+        const int z0 = zi * kTileM;
+        if (vec) {
+          for (int i = tid; i < kTileM * 8; i += kThreads) {
+            const int r = i / 8, c = i % 8;
+            if (z0 + r < z_dim)
+              bf16op::cp_async16(d + r * 128 + c * 16,
+                                 t + static_cast<long long>(z0 + r) * npix + p0 + 8 * c);
+          }
+        } else {
+          uint16_t* h = reinterpret_cast<uint16_t*>(d);
+          for (int i = tid; i < kTileM * kTileP; i += kThreads) {
+            const int r = i / kTileP, j = i % kTileP;
+            h[i] = z0 + r < z_dim && p0 + j < npix
+                       ? t[static_cast<long long>(z0 + r) * npix + p0 + j]
+                       : static_cast<uint16_t>(0);
+          }
         }
-      __syncthreads();
+      };
+      stage_t(0);
+      tf32x3::cp_async_commit();
+      if (z_tiles > 1) stage_t(1);
+      tf32x3::cp_async_commit();
+      for (int zi = 0; zi < z_tiles; ++zi) {
+        tf32x3::cp_async_wait_group<1>();
+        __syncthreads();  // tile zi is in; every thread is done with tile zi - 1
+        if (zi + 2 < z_tiles) stage_t(zi + 2);  // over tile zi - 1's stage
+        tf32x3::cp_async_commit();
+        const uint16_t* h = reinterpret_cast<const uint16_t*>(ring + (zi % kStages) * kRingBytes);
+        accumulate(zi * kTileM, [&](int r) { return bf16op::widen(h[r * kTileP + pj]); });
+      }
+      tf32x3::cp_async_wait_group<0>();
     }
-    for (int b = role ? qt : b2; b < b2; b += 4)
-      add_leave_one_out(dq, fac, n1, n2, q, b, dv[b * kRow + pj], pj);
+    __syncthreads();
+    leave_one_out_run(dq, fac, n1, n2, q, b_lo, max(0, b_hi - b_lo),
+                      [&](int r) { return vd[(b_lo + r) * kRow + pj]; }, pj);
   }
   __syncthreads();
   for (int i = tid; i < nq * kTileP; i += kThreads) {
@@ -924,52 +1099,62 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <bool kRecompute>
-int launch_bf16(const void* views, const void* cmt, const void* cmt_t, const void* g,
+int launch_bf16(const void* views, const void* cmt_p, const void* cmt_tp, const void* g,
                 const void* t, void* dviews, int n, int q, int n1, int out_size, long long npix,
                 void* stream) {
   if (n < 1 || q < 1 || n1 < 1 || n1 > n || out_size < 1 || npix < 1 ||
-      n * q > bf16op::kMaxFactorRows || n1 > kMaxChain || n - n1 > kMaxChain)
+      n * q > bf16op::kMaxFactorRows || n1 > kMaxChain || n - n1 > kMaxChain ||
+      cmt_tp == nullptr || (kRecompute && n1 < n && cmt_p == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long a_dim = bf16op::ipow(q, n1);
   const long long b2 = bf16op::ipow(q, n - n1);
   const long long z_dim = b2 * out_size;
   if (b2 > bf16op::kMaxB2 || a_dim > (1LL << 30) || z_dim > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long bytes = smem_bytes(n, q, b2, out_size);
+  const long long bytes = smem_bytes(n, q, n1, b2, out_size, kRecompute);
   if (bytes > bf16op::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = bf16op::allow_smem(eps_dviews_bf16_kernel<kRecompute>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec_a = a_dim % 8 == 0 && reinterpret_cast<uintptr_t>(cmt) % 16 == 0;
-  const bool vec_z = z_dim % 8 == 0 && reinterpret_cast<uintptr_t>(cmt_t) % 16 == 0;
   eps_dviews_bf16_kernel<kRecompute>
       <<<static_cast<unsigned>((npix + kTileP - 1) / kTileP), kThreads, static_cast<size_t>(bytes),
          static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(views), static_cast<const uint16_t*>(cmt),
-          static_cast<const uint16_t*>(cmt_t), static_cast<const float*>(g),
+          static_cast<const float*>(views), static_cast<const uint16_t*>(cmt_p),
+          static_cast<const uint16_t*>(cmt_tp), static_cast<const float*>(g),
           static_cast<const uint16_t*>(t), static_cast<float*>(dviews), n, q, n1,
           static_cast<int>(a_dim), static_cast<int>(b2), static_cast<int>(z_dim), out_size, npix,
-          vec_a, vec_z);
+          table_factors(q, n1));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace dviews_bf16
 }  // namespace
 
-// dctn_eps_dviews_t's bf16 mode: cmt (Z, A), its transpose cmt_t (A, Z) and
-// t (Z, npix) in bf16 (t null when n1 == n), views, g and dviews float32.
-extern "C" int dctn_eps_dviews_t_bf16(const void* views, const void* cmt, const void* cmt_t,
+// dctn_eps_dviews_t's bf16 mode: cmt_tp, the transposed cmt (A, Z) in bf16
+// zero-padded to (A rounded up to 128, Z rounded up to 64), t (Z, npix) in
+// bf16 (t null when n1 == n), views, g and dviews float32; cmt_p unused.
+extern "C" int dctn_eps_dviews_t_bf16(const void* views, const void* cmt_p, const void* cmt_tp,
                                       const void* g, const void* t, void* dviews, int n, int q,
                                       int n1, int out_size, long long npix, void* stream) {
   if ((n1 < n) != (t != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  return dviews_bf16::launch_bf16<false>(views, cmt, cmt_t, g, t, dviews, n, q, n1, out_size,
+  return dviews_bf16::launch_bf16<false>(views, cmt_p, cmt_tp, g, t, dviews, n, q, n1, out_size,
                                          npix, stream);
 }
 
-// dctn_eps_dviews_recompute's bf16 mode: t recomputed in float32, not rounded.
-extern "C" int dctn_eps_dviews_recompute_bf16(const void* views, const void* cmt,
-                                              const void* cmt_t, const void* g, void* dviews,
+// dctn_eps_dviews_recompute's bf16 mode: t recomputed in float32, not
+// rounded, from cmt_p, cmt (Z, A) in bf16 zero-padded to (Z rounded up to
+// 128, A rounded up to 64), and cmt_tp as above.
+extern "C" int dctn_eps_dviews_recompute_bf16(const void* views, const void* cmt_p,
+                                              const void* cmt_tp, const void* g, void* dviews,
                                               int n, int q, int n1, int out_size,
                                               long long npix, void* stream) {
-  return dviews_bf16::launch_bf16<true>(views, cmt, cmt_t, g, nullptr, dviews, n, q, n1,
+  return dviews_bf16::launch_bf16<true>(views, cmt_p, cmt_tp, g, nullptr, dviews, n, q, n1,
                                         out_size, npix, stream);
+}
+
+// The shared memory of one bf16 launch at this shape, either form
+// (dviews_bf16::smem_bytes; the wrapper's plan mirrors it and its tests hold
+// the two equal).
+extern "C" long long dctn_eps_dviews_bf16_smem_bytes(int n, int q, int n1, int out_size,
+                                                     int recompute) {
+  return dviews_bf16::smem_bytes(n, q, n1, bf16op::ipow(q, n - n1), out_size, recompute != 0);
 }

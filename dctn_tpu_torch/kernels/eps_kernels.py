@@ -338,7 +338,8 @@ _ENTRIES = {
     },
     "eps_dcore": {
         "dctn_eps_dcore": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _P],
-        "dctn_eps_dcore_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P],
+        "dctn_eps_dcore_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _LL, _LL, _P],
+        "dctn_eps_dcore_bf16_sum": [_P, _P, _LL, _I, _P],
     },
     "eps_dviews_t": {
         "dctn_eps_dviews_t": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
@@ -353,15 +354,25 @@ _ENTRIES = {
 }
 
 
+# the sources' queries of their plans (each returns a long long): the bf16
+# kernels' shared memory at a shape, which the Python plans mirror
+_QUERIES = {
+    "eps_dcore": {"dctn_eps_dcore_bf16_smem_bytes": [_I, _I, _I, _I]},
+    "eps_dviews_t": {"dctn_eps_dviews_bf16_smem_bytes": [_I, _I, _I, _I, _I]},
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/<name>.cu``, with its C
-    entries' signatures."""
+    entries' and queries' signatures."""
     lib = build.load_library(name)
-    for entry, argtypes in _ENTRIES[name].items():
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    for entries, restype in ((_ENTRIES[name], ctypes.c_int),
+                             (_QUERIES.get(name, {}), ctypes.c_longlong)):
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = restype
     return lib
 
 
@@ -444,10 +455,11 @@ def _check_kernel_args(views_t, cmt, n1, out_size):
 
 
 # The bf16 mode's kernels (csrc/bf16.cuh; the *_bf16 entries of eps_fwd.cu,
-# eps_dcore.cu and eps_dviews_t.cu): mma.sync.m16n8k16 on bf16 operands
-# staged in shared memory with rows of K / 2 + 4 words (a k16 step's
+# eps_dcore.cu and eps_dviews_t.cu): K1 on mma.sync.m16n8k16 with its bf16
+# operands staged in shared memory in rows of K / 2 + 4 words (a k16 step's
 # fragments then read without bank conflicts: ``op_words``), float32 rows 4
-# floats longer than their tile.
+# floats longer than their tile; eps_dcore and both d_views forms on wgmma,
+# their operands K-major in the 128-byte swizzle.
 
 
 def _op_words(chunk: int) -> int:
@@ -458,18 +470,32 @@ def _op_words(chunk: int) -> int:
 # pass, 64 columns of A per step
 _BF16_FWD_TILE = 64
 _BF16_FWD_CHUNK = 64
-# eps_dcore: 64 x 64 (Z, A) tiles over steps of 32 pixels, pixel slices as
-# the float32 kernel's, aiming at four CTAs per SM, each slice at least
-# this long
-_BF16_DCORE_TILE = 64
+# eps_dcore (wgmma): u and kr2 formed once a pixel into device memory (bf16,
+# rows padded to whole 128-row tiles), in chunks of at most this many bytes
+# of them, each a multiple of 64 pixels; then 128 x 128 (Z, A) tiles of two
+# warpgroups over steps of 64 pixels through a 4-stage ring, its pixel slices
+# as the float32 kernel's, aiming at four CTAs per SM, each slice at least
+# this long; the operands kernel's CTA stages 64 pixels' columns for 256
+# operand rows
+_BF16_DCORE_TILE = 128
+_BF16_DCORE_STEP = 64
+_BF16_DCORE_STAGES = 4
+_BF16_DCORE_BUILD_ROWS = 256
+_BF16_DCORE_OPS_BYTES = 512 << 20
 _BF16_DCORE_MIN_SLICE_PIXELS = 2048
-# d_views: a CTA takes 32 pixels; d_u in tiles of 128 rows of A and, on the
-# recompute arm, t in tiles of 128 rows of Z, both over steps of 128; the
-# factors' cotangents summed by four thread quarters apart; the
-# leave-one-out products over at most this many factors of a half
-_BF16_DVIEWS_TILE_P = 32
-_BF16_DVIEWS_CHUNK = 128
+# d_views (wgmma): a CTA takes 64 pixels; d_u in tiles of 128 rows of A and,
+# on the recompute arm, t in tiles of 128 rows of Z, both over steps of 64
+# through a ring of 3 stages of cmt (from copies zero-padded to whole tiles
+# and steps; the saved t's tiles take the same ring); the factors'
+# cotangents summed by four thread quarters apart; the leave-one-out
+# products over at most this many factors of a half
+_BF16_DVIEWS_TILE_P = 64
+_BF16_DVIEWS_TILE_M = 128
+_BF16_DVIEWS_STEP = 64
+_BF16_DVIEWS_STAGES = 3
 _BF16_MAX_CHAIN = 8
+# the recompute form tabulates u's trailing factors in at most this many rows
+_BF16_DVIEWS_MAX_TABLE = 160
 
 
 def _fwd_bf16_plan(n: int, q: int, n1: int, out_size: int, npix: int) -> dict:
@@ -493,12 +519,27 @@ def _fwd_bf16_plan(n: int, q: int, n1: int, out_size: int, npix: int) -> dict:
 
 def _dcore_bf16_smem_bytes(n: int, q: int, n1: int, out_size: int) -> int:
     """Shared memory of one bf16 ``eps_dcore`` launch (``smem_bytes`` in
-    csrc/eps_dcore.cu): a step's factor rows and the g rows a Z tile
-    touches (36 floats each), each tile row's factor-row offsets (n ints)
-    and the two operand tiles."""
-    tile = _BF16_DCORE_TILE
-    g_rows = min(out_size, (tile - 1) // q ** (n - n1) + 2)
-    return 4 * (36 * (n * q + g_rows) + tile * n) + 4 * 2 * tile * _op_words(32)
+    csrc/eps_dcore.cu): the larger of the product's ring (4 stages of two
+    128-row x 64-pixel bf16 tiles) and the operands kernel's staged columns
+    (64 pixels of every factor row and of the g rows 256 rows of kr2
+    touch)."""
+    ring = 2 * _BF16_DCORE_STAGES * _BF16_DCORE_TILE * _BF16_DCORE_STEP * 2
+    g_rows = min(out_size, (_BF16_DCORE_BUILD_ROWS - 1) // q ** (n - n1) + 2)
+    return max(ring, 4 * _BF16_DCORE_STEP * (n * q + g_rows))
+
+
+def _dcore_bf16_chunk(z: int, a: int, npix: int) -> int:
+    """Pixels a chunk of the bf16 ``eps_dcore`` forms its operands for: a
+    multiple of 64, at most ``_BF16_DCORE_OPS_BYTES`` of bf16 u and kr2
+    (rows padded to 128), at most npix rounded up."""
+    rows = _pad_to(a, _BF16_DCORE_TILE) + _pad_to(z, _BF16_DCORE_TILE)
+    step = _BF16_DCORE_STEP
+    fit = max(step, _BF16_DCORE_OPS_BYTES // (2 * rows) // step * step)
+    return min(_pad_to(npix, step), fit)
+
+
+def _pad_to(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def _dcore_bf16_slices(z: int, a: int, npix: int, sms: int) -> int:
@@ -508,15 +549,40 @@ def _dcore_bf16_slices(z: int, a: int, npix: int, sms: int) -> int:
                       _DCORE_MAX_SLICES))
 
 
-def _dviews_bf16_smem_bytes(n: int, q: int, n1: int, out_size: int) -> int:
-    """Shared memory of one bf16 d_views launch, either form
-    (``smem_bytes`` in csrc/eps_dviews_t.cu): the staged factor rows, g, v
-    and d_v (36 floats each), the four quarters' factor cotangents (32
-    floats a row), the 128-row product tile, and the two operand tiles."""
-    b2 = q ** (n - n1)
-    tile_p = _BF16_DVIEWS_TILE_P
-    return (4 * (36 * (n * q + out_size + 2 * b2 + 128) + 4 * n * q * tile_p)
-            + 4 * (128 + tile_p) * _op_words(_BF16_DVIEWS_CHUNK))
+def _dviews_bf16_table_rows(q: int, n1: int) -> int:
+    """Rows of the bf16 recompute form's table of u's trailing factors
+    (``table_factors`` in csrc/eps_dviews_t.cu): q^lt, lt the most factors
+    with q^lt <= 160."""
+    rows = 1
+    for _ in range(n1):
+        if rows * q > _BF16_DVIEWS_MAX_TABLE:
+            break
+        rows *= q
+    return rows
+
+
+def _dviews_bf16_smem_bytes(n: int, q: int, n1: int, out_size: int,
+                            recompute: bool = False) -> int:
+    """Shared memory of one bf16 d_views launch (``smem_bytes`` in
+    csrc/eps_dviews_t.cu): the ring of 3 stages of 128 rows x 64 bf16 (cmt
+    for the products, the saved t's tiles; a finished product tile reuses
+    it), two built operands (64 pixels x 64 bf16), the staged factor rows,
+    g and v (then d_v), and on the recompute arm the table of u's trailing
+    factors (65 floats a row), and the four quarters' factor cotangents (64
+    floats a row)."""
+    tile_p, step = _BF16_DVIEWS_TILE_P, _BF16_DVIEWS_STEP
+    table = _dviews_bf16_table_rows(q, n1) if recompute else 0
+    return (_BF16_DVIEWS_STAGES * _BF16_DVIEWS_TILE_M * step * 2 + 2 * tile_p * step * 2
+            + 4 * (tile_p + 1) * (n * q + out_size + q ** (n - n1) + table)
+            + 4 * 4 * n * q * tile_p)
+
+
+def _padded(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``x`` (2-D) zero-padded to whole ``rows`` x ``cols`` tiles, contiguous."""
+    r, c = x.shape
+    out = x.new_zeros((_pad_to(r, rows), _pad_to(c, cols)))
+    out[:r, :c] = x
+    return out
 
 
 def _check_bf16_plan(name: str, shape: str, smem: int, **limits) -> None:
@@ -692,7 +758,9 @@ def eps_dcore(
     ``eps_dcore.launches`` counts its calls, ``eps_dcore.sum_launches``
     those that also ran the fixed-order sum of pixel slices (a second
     device kernel of the same call). ``mm_dtype`` bf16 runs the bf16 mode,
-    counted in ``eps_dcore.bf16_launches`` (``bf16_sum_launches``)."""
+    counted in ``eps_dcore.bf16_launches``; its chunks of pixels (each the
+    operands kernel, then the product) in ``bf16_chunk_launches`` and its
+    slice sums in ``bf16_sum_launches``."""
     bf16 = operand_dtype(mm_dtype) == torch.bfloat16
     if views_t.device.type == "cpu":
         if bf16:
@@ -743,25 +811,37 @@ def _eps_dcore_bf16(views_t, g, n1, out_size):
     z, a = out_size * q ** (n - n1), q**n1
     dev = views_t.device
     slices = _dcore_bf16_slices(z, a, npix, _sm_count(dev))
+    chunk = _dcore_bf16_chunk(z, a, npix)
     d_cmt = torch.empty((z, a), dtype=torch.float32, device=dev)
     scratch = (
         torch.empty((slices, z, a), dtype=torch.float32, device=dev) if slices > 1 else None
     )
+    # one chunk's operands, u's rows then kr2's, each chunk pixels long
+    ops = torch.empty(((_pad_to(a, _BF16_DCORE_TILE) + _pad_to(z, _BF16_DCORE_TILE)) * chunk,),
+                      dtype=torch.bfloat16, device=dev)
+    dst = d_cmt if scratch is None else scratch
+    lib = _library("eps_dcore")
     with torch.cuda.device(dev):
-        err = _library("eps_dcore").dctn_eps_dcore_bf16(
-            views_t.data_ptr(), g.data_ptr(), d_cmt.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            n, q, n1, out_size, npix, slices, _stream(dev),
-        )
-    _raise_on_error("eps_dcore (bf16)", err)
+        for c0 in range(0, npix, chunk):  # in order: each adds into dst
+            err = lib.dctn_eps_dcore_bf16(
+                views_t.data_ptr(), g.data_ptr(), dst.data_ptr(), ops.data_ptr(),
+                n, q, n1, out_size, npix, slices, c0, chunk, _stream(dev),
+            )
+            _raise_on_error("eps_dcore (bf16)", err)
+            eps_dcore.bf16_chunk_launches += 1
+        if scratch is not None:
+            err = lib.dctn_eps_dcore_bf16_sum(scratch.data_ptr(), d_cmt.data_ptr(), z * a,
+                                              slices, _stream(dev))
+            _raise_on_error("eps_dcore (bf16 slice sum)", err)
+            eps_dcore.bf16_sum_launches += 1
     eps_dcore.bf16_launches += 1
-    eps_dcore.bf16_sum_launches += slices > 1
     return d_cmt
 
 
 eps_dcore.launches = 0
 eps_dcore.sum_launches = 0
 eps_dcore.bf16_launches = 0
+eps_dcore.bf16_chunk_launches = 0
 eps_dcore.bf16_sum_launches = 0
 
 
@@ -899,7 +979,8 @@ def _check_dviews_bf16_args(name, views_t, cmt, g, t, n1, out_size):
     z = out_size * q ** (n - n1)
     if tuple(cmt.shape) != (z, q**n1) or tuple(g.shape) != (out_size, npix):
         raise ValueError(f"{name}: cmt is not (O·q^(n-n1), q^n1) or g not (O, npix) ({shape})")
-    _check_bf16_plan(name, shape, _dviews_bf16_smem_bytes(n, q, n1, out_size), **{
+    smem = _dviews_bf16_smem_bytes(n, q, n1, out_size, name == "eps_dviews_recompute")
+    _check_bf16_plan(name, shape, smem, **{
         "q^(n-n1)": (q ** (n - n1), _MAX_B2), "n1": (n1, _BF16_MAX_CHAIN),
         "n-n1": (n - n1, _BF16_MAX_CHAIN)})
 
@@ -911,17 +992,24 @@ def _eps_dviews_bf16(name, views_t, cmt, g, t, n1, out_size):
     n, q, npix = views_t.shape
     dev = views_t.device
     dviews = torch.empty((n, q, npix), dtype=torch.float32, device=dev)
-    cmt_t = cmt.t().contiguous()  # d_u's operand rows: (A, Z), Z contiguous
+    m, k = _BF16_DVIEWS_TILE_M, _BF16_DVIEWS_STEP
+    # d_u's operand rows (A, Z), Z contiguous, and on the recompute arm t's
+    # (Z, A): zero-padded to whole tiles and steps, so the kernel's copies
+    # are whole, 16-byte aligned and need no bounds
+    cmt_tp = _padded(cmt.t(), m, k)
+    recompute = name == "eps_dviews_recompute"
+    cmt_p = _padded(cmt, m, k) if recompute and n1 < n else None
     lib = _library("eps_dviews_t")
     with torch.cuda.device(dev):
-        if name == "eps_dviews_recompute":
+        if recompute:
             err = lib.dctn_eps_dviews_recompute_bf16(
-                views_t.data_ptr(), cmt.data_ptr(), cmt_t.data_ptr(), g.data_ptr(),
+                views_t.data_ptr(), None if cmt_p is None else cmt_p.data_ptr(),
+                cmt_tp.data_ptr(), g.data_ptr(),
                 dviews.data_ptr(), n, q, n1, out_size, npix, _stream(dev),
             )
         else:
             err = lib.dctn_eps_dviews_t_bf16(
-                views_t.data_ptr(), cmt.data_ptr(), cmt_t.data_ptr(), g.data_ptr(),
+                views_t.data_ptr(), None, cmt_tp.data_ptr(), g.data_ptr(),
                 None if t is None else t.data_ptr(), dviews.data_ptr(),
                 n, q, n1, out_size, npix, _stream(dev),
             )
@@ -1065,3 +1153,104 @@ def eps_apply_t_cmt(
     )
     out = EPSApplyTCmt.apply(views_t, cmt, n1_k, out_size, save_t, kernels, mm_dtype)
     return out.reshape(out_size, hp, wp, b)
+
+
+# ---------------------------------------------------------------------------
+# the gate: which layers the kernels take (the port's pallas_forward_fits)
+
+
+def objective_name(forward_only: bool, quantize: Optional[str], compute_dtype=None) -> str:
+    """``train``, ``train-int8``, ``serve-f32`` or ``serve-int8``; with a
+    bf16 ``compute_dtype`` (the kernels' bf16 mode) ``train-bf16`` or
+    ``serve-bf16``. The QAT step keeps its name, JAX's ``train-int8``, in
+    either dtype (the autotuner's cache key carries the dtype apart); the
+    functions that price and check a split take the dtype beside it."""
+    if quantize is None and compute_dtype is not None:
+        return "serve-bf16" if forward_only else "train-bf16"
+    if forward_only:
+        return f"serve-{quantize or 'f32'}"
+    return "train" if quantize is None else f"train-{quantize}"
+
+
+def _bf16_backward(objective: str, compute_dtype) -> bool:
+    """Whether ``objective``'s backward runs the bf16 mode: the bf16
+    objectives', and the QAT step's under a bf16 ``compute_dtype``."""
+    return objective.endswith("bf16") or compute_dtype is not None
+
+
+def _arms(layer_index: int, n_k: int, n1_k: int, q_k: int, out_size: int,
+          npix: Optional[int], t_bytes: int) -> Tuple[str, ...]:
+    """The backward arms the layer takes at ``npix`` pixels; at any pixel
+    count (``npix`` None) every arm ``plan_backward`` can give it."""
+    if npix is not None:
+        return (plan_backward(layer_index, n_k, n1_k, q_k, out_size, npix, t_bytes),)
+    return tuple(dict.fromkeys(
+        plan_backward(layer_index, n_k, n1_k, q_k, out_size, p, t_bytes)
+        for p in (1, (SAVE_T_MAX_BYTES // t_bytes) + 1)))
+
+
+def kernels_take_split(c: int, q: int, kernel_size: int, n1: int, out_size: int,
+                       npix: Optional[int], layer_index: int, objective: str,
+                       compute_dtype=None) -> bool:
+    """Whether the kernels that ``objective`` launches take this layer at
+    split ``n1``: the wrappers' own argument checks (``eps_fwd``'s or
+    ``eps_fwd_q8``'s plan, and for training ``eps_dcore``'s and the arm's
+    d_views kernel's), run on shape-only ``meta`` tensors; the bf16
+    objectives check the bf16 mode's plans (``BF16_ITEM``), and
+    ``train-int8`` under a bf16 ``compute_dtype`` K8/K9's plan and the bf16
+    backward's. ``npix`` None checks the d_views kernel of every arm the
+    layer can take at some pixel count (a decision that holds at any batch
+    size). A pure function of its arguments: the same on the CPU as on a
+    card. The models, ``ops.eps`` and the CLIs fall back to the plain path
+    where it is False (JAX's ``pallas_forward_fits``, eps_pallas.py:168),
+    the autotuner skips such a split. The checks are cached by shape and
+    arms (``ops.eps`` asks at every forward of a layer)."""
+    n1_r, merge = plan_call(c, q, kernel_size, n1)
+    if n1_r != n1:
+        return False
+    n_k, q_k, n1_k = _kernel_dims(c, q, kernel_size, n1, merge)
+    bf16 = _bf16_backward(objective, compute_dtype)
+    arms = _arms(layer_index, n_k, n1_k, q_k, out_size, npix, 2 if bf16 else 4)
+    return _kernels_take(n_k, q_k, n1_k, out_size, 1 if npix is None else npix, objective,
+                         bf16, arms)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels_take(n_k: int, q_k: int, n1_k: int, out_size: int, npix: int, objective: str,
+                  bf16: bool, arms: Tuple[str, ...]) -> bool:
+    """``kernels_take_split``'s checks at the kernels' dims: the forward
+    ``objective`` runs (bf16 or not), and for training ``eps_dcore`` and
+    the d_views kernel of each of ``arms``."""
+    from . import eps_q8_kernels as Q8
+
+    z, a = out_size * q_k ** (n_k - n1_k), q_k**n1_k
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    views, g = meta(n_k, q_k, npix), meta(out_size, npix)
+    int8 = objective.endswith("int8")
+    train = objective.startswith("train")
+    cmt = meta(z, a, dtype=torch.bfloat16 if bf16 else torch.float32)
+    t = meta(z, npix, dtype=cmt.dtype)
+    try:
+        if int8:
+            Q8._check_q8_args(views, meta(z, a, dtype=torch.int8), meta(z, 1), n1_k, out_size)
+        elif bf16:
+            _check_fwd_bf16_args(views, cmt, n1_k, out_size)
+        else:
+            _check_kernel_args(views, cmt, n1_k, out_size)
+        if train:
+            if bf16:
+                _check_dcore_bf16_args(views, g, n1_k, out_size)
+            else:
+                _check_dcore_args(views, g, n1_k, out_size)
+            check = _check_dviews_bf16_args if bf16 else _check_dviews_args
+            for arm in arms:
+                if arm == "saved_t":
+                    check("eps_dviews_t", views, cmt, g, t, n1_k, out_size)
+                elif arm == "recompute":
+                    check("eps_dviews_recompute", views, cmt, g, None, n1_k, out_size)
+    except ValueError:
+        return False
+    return True

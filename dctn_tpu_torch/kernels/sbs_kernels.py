@@ -33,10 +33,15 @@ matricizes each core to (l·r·o, q^C) rows in (l, r, o) order
 
 On a CPU tensor each wrapper runs its plain PyTorch version (``*_reference``:
 the same folds as batched einsums, the backward by autograd through them);
-on a CUDA tensor it launches its kernel or raises. There is no fallback.
-``ConvSBSApply`` is the ``torch.autograd.Function`` around the pair, with the
-boundary of the JAX ``custom_vjp`` (sbs_pallas.py:674-764): (views, cores in
-(l·r·o, q^C)) ↔ (d_views, d_cores). The merge, the core permutation and the
+on a CUDA tensor it launches its kernel or raises. There is no fallback
+inside a wrapper: ``conv_sbs_t`` (and the model, for all its strings at
+once) decides before any launch to run a string outside the kernels'
+scope (``sbs_supported``) on the plain folds (``PLAIN``), and records that
+fallback (``utils.fallbacks``), as the JAX package runs such a string on
+its XLA fold (ops/sbs.py:279-305). ``ConvSBSApply`` is the
+``torch.autograd.Function`` around the pair, with the boundary of the JAX
+``custom_vjp`` (sbs_pallas.py:674-764): (views, cores in (l·r·o, q^C)) ↔
+(d_views, d_cores). The merge, the core permutation and the
 output reshape stay outside it, and autograd differentiates them. d_views is
 computed exactly when ``ctx.needs_input_grad`` asks for it: in the model
 that is every layer but the first, whose input is the untrained quantum map
@@ -62,6 +67,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils import fallbacks
 from . import build
 
 # the kernels' limits (csrc/sbs_plan.cuh)
@@ -79,7 +85,10 @@ _BWD_DM_ROWS = 16
 # two CTAs of 256 threads on an SM's 65,536)
 _BWD_REGISTERS = 128
 _SM_REGISTERS = 65536
-_SCOPE_ITEM = "ROADMAP Queue 1 item 16 (ConvSBS kernel scope)"
+# where widening the kernels' scope is written down (the wrappers' refusals
+# name it; a string outside the scope takes the plain folds before any
+# launch)
+_SCOPE_ITEM = "ROADMAP Queue 2 follow-up 8 (the ConvSBS kernels' scope)"
 # the forward's register route (csrc/sbs_fwd.cu, sbs_fwd_reg_kernel): the
 # padded shapes it is instantiated at (bond B, ring bond B0, q^C KQ)
 _REG_BONDS = (4, 8)
@@ -644,24 +653,33 @@ class ConvSBSApply(torch.autograd.Function):
         return (d_views, None, None, None) + tuple(d_cores)
 
 
+def record_plain_fold(spec, whole_model: bool = False) -> None:
+    """Records that ``spec``, outside the kernels' scope, runs on the plain
+    folds (with ``whole_model``, every string of its model does), in the
+    words of the JAX package's reason (ops/sbs.py:290-305)."""
+    olr, qc, _ = sbs_supported(spec)
+    fallbacks.record(
+        f"ConvSBS string ({len(olr)} cores, q^C={qc}, bonds up to "
+        f"{max(l for _, l, _ in olr)}): spec outside kernel scope (merged factor/bond too "
+        f"large) — running the plain bond fold"
+        + (" on every string of the model" if whole_model else "")
+    )
+
+
 @functools.lru_cache(maxsize=None)
-def _string_plan(spec, mim: Optional[bool], mcut: Optional[int], on_cuda: bool):
-    """(olr, q^C, merge position or None) of one string and fold family,
-    resolved once per spec and device type. On CUDA it raises for a spec
-    outside the kernels' support; on the CPU the plain folds take any spec."""
+def _string_plan(spec, mim: Optional[bool], mcut: Optional[int]):
+    """(olr, q^C, merge position or None, whether the kernels take the
+    spec) of one string and fold family, resolved once per spec: the route
+    is the kernels where ``sbs_supported``, else the plain folds, on any
+    device alike."""
     olr, qc, supported = sbs_supported(spec)
-    if on_cuda and not supported:
-        raise ValueError(
-            f"ConvSBS string with {spec.in_num_channels} channels, q^C = {qc}, bonds "
-            f"{spec.bond_sizes}: outside the kernels' scope ({_SCOPE_ITEM})"
-        )
     if mim is False:
         mcut = None
     elif mcut is None:
         mcut = _mim_cut(olr)
     else:
         _check_mcut(olr, mcut)
-    return olr, qc, mcut
+    return olr, qc, mcut, supported
 
 
 def conv_sbs_t(
@@ -674,9 +692,13 @@ def conv_sbs_t(
     meet-in-the-middle fold at ``mcut`` (by default ``_mim_cut``'s position,
     or the sequential fold where that is cheaper), False the sequential
     fold. ``kernels`` is ``KERNELS`` unless a caller runs the plain versions
-    on the card. On a CUDA ``xT`` it raises for a spec outside the kernels'
-    support; on the CPU it takes any spec."""
-    olr, qc, mcut = _string_plan(spec, mim, mcut, xT.device.type == "cuda")
+    on the card. A spec outside the kernels' scope (``sbs_supported``) runs
+    on ``PLAIN`` whatever ``kernels`` says, the fallback recorded, on any
+    device."""
+    olr, qc, mcut, supported = _string_plan(spec, mim, mcut)
+    if not supported and kernels is not PLAIN:
+        record_plain_fold(spec)
+        kernels = PLAIN
     views_t, npix, hp, wp = _merge_channel_views(xT, spec.positions, qc)
     cores_lro = tuple(_core_to_lro(c, o, l, r, qc) for c, (o, l, r) in zip(cores, olr))
     out = ConvSBSApply.apply(views_t, olr, mcut, kernels, *cores_lro)

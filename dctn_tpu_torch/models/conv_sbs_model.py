@@ -11,7 +11,9 @@ spatial positions.
 Two forwards: ``conv_sbs_model_forward_t``, the batch-minor pipeline of
 ``_pallas_model_forward`` (conv_sbs_model.py:147-193), every string through
 ``kernels.sbs_kernels.conv_sbs_t`` (the CUDA kernels on a CUDA tensor, their
-plain versions on the CPU); and ``conv_sbs_model_forward``, the plain
+plain versions on the CPU; a model with any string outside the kernels'
+scope runs every string on the plain folds, recorded as a fallback, as
+the JAX model runs its XLA fold, conv_sbs_model.py:155-166); and ``conv_sbs_model_forward``, the plain
 reference-layout forward (:196-210). ``ConvSBSModel`` holds the parameters
 under the reference's ``state_dict`` names
 (``conv_sbses.{l}.strings.{s}.cores.{c}``).
@@ -27,7 +29,14 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..kernels.sbs_kernels import KERNELS, SBSKernels, conv_sbs_t, sbs_supported
+from ..kernels.sbs_kernels import (
+    KERNELS,
+    PLAIN,
+    SBSKernels,
+    conv_sbs_t,
+    record_plain_fold,
+    sbs_supported,
+)
 from ..ops import sbs
 from ..ops.windows import make_windows
 from ..utils.pos2d import Pos2D
@@ -118,22 +127,29 @@ def calc_std_of_coordinates_of_windows(
 
 
 @functools.lru_cache(maxsize=None)
-def check_kernel_scope(
-    cfg: ConvSBSModelConfig, on_cuda: bool = True
-) -> Tuple[Tuple[sbs.SBSSpecString, ...], ...]:
-    """The model's layer specs, once per config and device type. On CUDA it
-    raises unless the kernels take every string; on the CPU the kernels'
-    plain versions take any spec, as the JAX package's XLA fold does."""
+def check_kernel_scope(cfg: ConvSBSModelConfig):
+    """(the model's layer specs, its route) once per config: the route is
+    ``"kernels"`` where the kernels take every string (``sbs_supported``),
+    else ``"plain"``: every string on the plain folds, as the JAX model
+    runs every string on its XLA fold unless each passes
+    ``sbs_pallas_profitable`` (conv_sbs_model.py:155-166). A pure function
+    of the config, the same on any device."""
     specs = cfg.layer_specs()
-    for li, layer in enumerate(specs if on_cuda else ()):
-        for spec in layer:
-            if not sbs_supported(spec)[2]:
-                raise ValueError(
-                    f"layer {li}: ConvSBS string with bonds {spec.bond_sizes} and "
-                    f"{spec.in_num_channels} channels is outside the kernels' scope "
-                    "(ROADMAP Queue 1 item 16, ConvSBS kernel scope)"
-                )
-    return specs
+    scope = all(sbs_supported(spec)[2] for layer in specs for spec in layer)
+    return specs, "kernels" if scope else "plain"
+
+
+def model_kernels(cfg: ConvSBSModelConfig, kernels: SBSKernels = KERNELS):
+    """(the layer specs, the bundle every string of the model runs on):
+    ``kernels``, or ``PLAIN`` where the route is ``"plain"``, the fallback
+    recorded (in run_info.txt under the runners). Decided before any
+    launch."""
+    specs, route = check_kernel_scope(cfg)
+    if route == "plain" and kernels is not PLAIN:
+        record_plain_fold(next(s for layer in specs for s in layer if not sbs_supported(s)[2]),
+                          whole_model=True)
+        kernels = PLAIN
+    return specs, kernels
 
 
 def _quantum_t(x: torch.Tensor, cfg: ConvSBSModelConfig) -> torch.Tensor:
@@ -168,8 +184,8 @@ def conv_sbs_model_forward_t(
     through ``conv_sbs_t``, the strings' outputs stacked as the next layer's
     channels, the mean over the (10, H', W', B) map's spatial dims."""
     xT = _quantum_t(x, cfg)
-    for li, (layer_spec, layer_params) in enumerate(zip(check_kernel_scope(cfg, xT.is_cuda),
-                                                        params)):
+    specs, kernels = model_kernels(cfg, kernels)
+    for li, (layer_spec, layer_params) in enumerate(zip(specs, params)):
         outsT = _layer_t(layer_spec, layer_params, xT, kernels, layer_tuning(cfg, li))
         xT = torch.stack(outsT, dim=0)
     return outsT[0].mean(dim=(1, 2)).T
@@ -199,8 +215,9 @@ def scale_layers_using_batch(
     layer again with the scaled cores before the next. Through the
     batch-minor pipeline; returns new params."""
     xT = _quantum_t(x, cfg)
+    specs, kernels = model_kernels(cfg, kernels)
     new_params = []
-    for layer_spec, layer_params in zip(check_kernel_scope(cfg, xT.is_cuda), params):
+    for layer_spec, layer_params in zip(specs, params):
         scaled = []
         for spec, cores, out in zip(layer_spec, layer_params,
                                     _layer_t(layer_spec, layer_params, xT, kernels)):

@@ -9,7 +9,12 @@ Parameters come in two layouts, as in the JAX package:
 - the reference layout, ``{"epses": (core_0, …), "linear": {"w": (in, 10),
   "b": (10,)}}``, which checkpoints use;
 - the fast layout, each core matricized to the kernel's (Z, A) "cmt" matrix
-  (``fast_params_from_reference``), which the forward runs on.
+  (``fast_params_from_reference``), which the forward runs on. It exists
+  only where the kernels take every layer (``fast_layer_plans``, gated on
+  ``eps_kernels.kernels_take_split``, JAX's ``pallas_forward_fits``);
+  elsewhere it raises ``FastLayoutUnavailable`` and the callers run the
+  reference layout, whose ``pallas`` backend (``ops.eps``) runs each layer
+  the kernels take through them and the others on the plain path.
 
 ``EPSesPlusLinear`` is the ``nn.Module`` that holds the fast layout on one
 device; its parameters require gradients, and serving runs it under
@@ -44,6 +49,8 @@ from ..kernels.eps_kernels import (
     _core_to_cmt_k,
     _kernel_dims,
     eps_apply_t_cmt,
+    kernels_take_split,
+    objective_name,
     operand_dtype,
     plan_backward,
     plan_call,
@@ -185,19 +192,23 @@ def dropout_epses(epses, p: float, masks) -> Tuple[torch.Tensor, ...]:
 
 
 def eps_plus_linear_forward(
-    params: Params, x: torch.Tensor, cfg: EPSesPlusLinearConfig, masks=None
+    params: Params, x: torch.Tensor, cfg: EPSesPlusLinearConfig, masks=None,
+    backend: str = "xla", kernels: EPSKernels = KERNELS,
 ):
-    """Reference-layout forward through the plain ``eps`` (its products
-    ``torch.matmul``; differentiable through ``eps``'s backward): ``x``
-    (C, B, H, W, Q₀) → logits (B, num_classes) (eps_plus_linear.py:248-293,
-    the xla backend). ``masks`` (one per core) applies parameter dropout
-    with ``cfg.dropout_p``."""
+    """Reference-layout forward through ``eps`` (differentiable through
+    ``eps``'s backward): ``x`` (C, B, H, W, Q₀) → logits (B, num_classes)
+    (eps_plus_linear.py:248-293). ``backend`` is ``eps``'s: ``"xla"`` the
+    plain path (its products ``torch.matmul``), ``"pallas"`` the kernels
+    (``kernels``) for each layer they take and the plain path with a
+    recorded fallback for the others. ``masks`` (one per core) applies
+    parameter dropout with ``cfg.dropout_p``."""
     epses = params["epses"]
     if masks is not None:
         epses = dropout_epses(epses, cfg.dropout_p, masks)
     intermediate = x
     for core in epses:
-        intermediate = eps_mod.eps(core, intermediate, compute_dtype=cfg.compute_dtype)[None]
+        intermediate = eps_mod.eps(core, intermediate, backend=backend,
+                                   compute_dtype=cfg.compute_dtype, kernels=kernels)[None]
     h = intermediate[0]  # (B, H', W', Q_out)
     return h.reshape(h.shape[0], -1) @ params["linear"]["w"] + params["linear"]["b"]
 
@@ -206,10 +217,19 @@ def eps_plus_linear_forward(
 # fast (cmt) parameter layout
 
 
-def fast_layer_plans(cfg: EPSesPlusLinearConfig, in_channels: int = 1):
+class FastLayoutUnavailable(ValueError):
+    """A layer is outside the kernels' plans, so the fast (cmt) parameter
+    layout, which exists only on the kernels' pipeline, cannot be used
+    (eps_plus_linear.py:319-324). A dedicated exception, so that the
+    runner's logged fallback to the reference layout survives ``python
+    -O``."""
+
+
+def layer_plans(cfg: EPSesPlusLinearConfig, in_channels: int = 1):
     """Per-layer plan of the fast layout, independent of the batch size:
     (kernel_size, n1, merge_pairs, out_size, core_shape, c, q) per layer, with
-    the JAX package's split and pair merge."""
+    the JAX package's split and pair merge. No gate: the shapes that
+    converting a train state between the layouts needs."""
     c, q = in_channels, cfg.q0
     plans = []
     for kernel_size, out_size in cfg.epses_specs:
@@ -228,6 +248,34 @@ def fast_layer_plans(cfg: EPSesPlusLinearConfig, in_channels: int = 1):
         )
         c, q = 1, out_size
     return tuple(plans)
+
+
+def check_fast_plans(cfg: EPSesPlusLinearConfig, plans, objective: Optional[str] = None) -> None:
+    """Raises ``FastLayoutUnavailable`` unless the kernels that
+    ``objective`` launches take every layer of ``plans``
+    (``kernels_take_split`` on each layer's shape and split, every backward
+    arm a layer can take at some batch size; default: the training step in
+    ``cfg.compute_dtype``). The decision holds at any batch size, on the
+    CPU as on a card."""
+    objective = objective or objective_name(False, None, cfg.compute_dtype)
+    for i, p in enumerate(plans):
+        if not kernels_take_split(p["c"], p["q"], p["kernel_size"], p["n1"], p["out_size"],
+                                  None, i, objective, cfg.compute_dtype):
+            raise FastLayoutUnavailable(
+                f"EPS layer (K={p['kernel_size']}, Q_in={p['q']}, O={p['out_size']}) exceeds "
+                "the kernels' plans — fast (cmt) params require the kernels to cover every "
+                "layer"
+            )
+
+
+def fast_layer_plans(cfg: EPSesPlusLinearConfig, in_channels: int = 1,
+                     objective: Optional[str] = None):
+    """``layer_plans``, where the kernels take every layer under
+    ``objective`` (``check_fast_plans``; default the training step); raises
+    ``FastLayoutUnavailable`` otherwise (eps_plus_linear.py:319-324)."""
+    plans = layer_plans(cfg, in_channels)
+    check_fast_plans(cfg, plans, objective)
+    return plans
 
 
 def _plan_dims(p):
@@ -277,8 +325,10 @@ def legacy_split_plans(plans):
 
 def fast_params_from_reference(params: Params, cfg: EPSesPlusLinearConfig, plans=None):
     """Reference parameters → (fast parameters, plans): each core matricized
-    to the kernel's (Z, A) layout. Explicit ``plans`` matricize under other
-    splits (a train state saved under another split rule)."""
+    to the kernel's (Z, A) layout, at ``fast_layer_plans``' splits (raising
+    ``FastLayoutUnavailable`` where the kernels of the training step do not
+    take a layer). Explicit ``plans`` matricize under them with no gate (a
+    conversion, or a train state saved under another split rule)."""
     if plans is None:
         k0 = cfg.epses_specs[0][0]
         plans = fast_layer_plans(cfg, (params["epses"][0].ndim - 1) // (k0 * k0))
@@ -478,13 +528,17 @@ class EPSesPlusLinear(nn.Module):
 
 class EPSesPlusLinearReference(nn.Module):
     """The model in the reference layout on one device, for the runners'
-    ``xla`` backend: every core as its (Q,)*(K²·C) + (O,) tensor, the layers
-    through the plain ``eps`` (``eps_plus_linear_forward``). It owns copies
-    of the tensors it is given."""
+    ``xla`` backend and for a model the kernels do not take whole
+    (``FastLayoutUnavailable``): every core as its (Q,)*(K²·C) + (O,)
+    tensor, the layers through ``eps`` on ``backend``
+    (``eps_plus_linear_forward``: ``"xla"`` the plain path, ``"pallas"`` the
+    kernels where they take a layer). It owns copies of the tensors it is
+    given."""
 
-    def __init__(self, params: Params, cfg: EPSesPlusLinearConfig):
+    def __init__(self, params: Params, cfg: EPSesPlusLinearConfig, backend: str = "xla"):
         super().__init__()
         self.cfg = cfg
+        self.backend = backend
 
         def param(t):
             return nn.Parameter(t.detach().clone())
@@ -496,8 +550,9 @@ class EPSesPlusLinearReference(nn.Module):
     def reference_params(self) -> Params:
         return {"epses": tuple(self.cores), "linear": {"w": self.linear_w, "b": self.linear_b}}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return eps_plus_linear_forward(self.reference_params(), x, self.cfg)
+    def forward(self, x: torch.Tensor, kernels: EPSKernels = KERNELS) -> torch.Tensor:
+        return eps_plus_linear_forward(self.reference_params(), x, self.cfg,
+                                       backend=self.backend, kernels=kernels)
 
 
 class EPSesPlusLinearQ8(nn.Module):

@@ -34,13 +34,18 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..kernels.eps_kernels import (
+    KERNELS,
+    EPSKernels,
     _core_to_cmt_k,
     _kernel_dims,
     _round,
     eps_apply_t_cmt,
+    kernels_take_split,
+    objective_name,
     operand_dtype,
     plan_call,
 )
+from ..utils import fallbacks
 from .windows import out_spatial, window_views
 
 
@@ -209,9 +214,19 @@ class EPSContract(torch.autograd.Function):
         return (d_cm.reshape(core.shape), None, None, *d_views)
 
 
+def _record_fallback(n: int, n1: int, q: int, o: int, core, x) -> None:
+    """The plain path in place of the kernels, said once per layer shape
+    (eps.py:331-338, in the port's words)."""
+    fallbacks.record(
+        f"EPS layer (n={n}, n1={n1}, q={q}, o={o}, dtype={core.dtype}/{x.dtype}) outside "
+        "the kernels' plans or non-f32 — running the plain path (torch.matmul; shrink the "
+        "layer or its split)"
+    )
+
+
 def eps(
     core: torch.Tensor, x: torch.Tensor, split: Optional[int] = None, custom_vjp: bool = True,
-    backend: str = "xla", compute_dtype=None,
+    backend: str = "xla", compute_dtype=None, kernels: EPSKernels = KERNELS,
 ) -> torch.Tensor:
     """Contract an EPS ``core`` (Q,)*(K²·C) + (O,) with all K×K windows of
     ``x`` (C, B, H, W, Q), giving (B, H', W', O): the reference-layout
@@ -220,13 +235,18 @@ def eps(
     ``backend="xla"`` (the default): plain torch ops on any device and float
     dtype, through ``EPSContract`` (the JAX package's backward), or with
     ``custom_vjp=False`` through autograd of the staged forward.
-    ``backend="pallas"`` (eps.py:308-330): the core turned into its cmt
+    ``backend="pallas"`` (eps.py:308-338): the core turned into its cmt
     (``_core_to_cmt_k``, differentiable) and the layer run by
-    ``eps_apply_t_cmt``: K1 (with t where the backward reads it), then
-    ``eps_dcore`` and the d_views kernel, on a CUDA tensor; their plain
-    versions on a CPU one. Its split is the same ``_balanced_split`` of
-    this core's O (a sharded core's local O), as the fast layout's; the
-    split is exact, so either route gives the same numbers.
+    ``eps_apply_t_cmt`` with ``kernels``: K1 (with t where the backward
+    reads it), then ``eps_dcore`` and the d_views kernel, on a CUDA tensor;
+    their plain versions on a CPU one. Its split is the same
+    ``_balanced_split`` of this core's O (a sharded core's local O), as the
+    fast layout's; the split is exact, so either route gives the same
+    numbers. Where the kernels do not take the layer at this call's pixel
+    count and objective (``kernels_take_split``: serving under no grad,
+    else training), or the core or input is not float32, the layer takes
+    the xla path and the fallback is recorded (``utils.fallbacks``), on any
+    device alike: a decision made before any launch.
 
     ``compute_dtype``: None (float32) or ``torch.bfloat16``, the operands of
     every product rounded to bf16 and summed in float32 (eps.py:292-293):
@@ -243,13 +263,23 @@ def eps(
     n1 = max(1, min(n, n1))
     if backend == "pallas":
         n1, merge_pairs = plan_call(num_channels, in_size, kernel_size, n1)
-        _, q_k, n1_k = _kernel_dims(num_channels, in_size, kernel_size, n1, merge_pairs)
-        outT = eps_apply_t_cmt(
-            _core_to_cmt_k(core, n1_k, q_k), x.permute(0, 4, 2, 3, 1), out_size, kernel_size,
-            n1, merge_pairs, layer_index=1 if x.requires_grad else 0, mm_dtype=compute_dtype,
-        )
-        return outT.permute(3, 1, 2, 0)
-    if backend != "xla":
+        layer_index = 1 if x.requires_grad else 0
+        train = torch.is_grad_enabled() and (core.requires_grad or x.requires_grad)
+        hp, wp = out_spatial(x.shape[2], x.shape[3], kernel_size)
+        if (core.dtype == torch.float32 and x.dtype == torch.float32
+                and kernels_take_split(num_channels, in_size, kernel_size, n1, out_size,
+                                       x.shape[1] * hp * wp, layer_index,
+                                       objective_name(not train, None, compute_dtype),
+                                       compute_dtype)):
+            _, q_k, n1_k = _kernel_dims(num_channels, in_size, kernel_size, n1, merge_pairs)
+            outT = eps_apply_t_cmt(
+                _core_to_cmt_k(core, n1_k, q_k), x.permute(0, 4, 2, 3, 1), out_size,
+                kernel_size, n1, merge_pairs, layer_index=layer_index, kernels=kernels,
+                mm_dtype=compute_dtype,
+            )
+            return outT.permute(3, 1, 2, 0)
+        _record_fallback(n, n1, in_size, out_size, core, x)
+    elif backend != "xla":
         raise ValueError(f"eps backend is xla or pallas, not {backend!r}")
     views = window_views(x, kernel_size)
     if custom_vjp:
@@ -337,20 +367,27 @@ def transform_in_slices(
     """Apply the EPS ``core`` to a whole dataset ``x`` (C, N, H, W, Q) in
     slices of ``batch_size`` images, without gradients: (1, N, H', W', O)
     (eps.py:454-470). On a CUDA tensor each slice runs the forward kernel
-    (K1, ``eps_apply_t_cmt`` on the core's cmt), as training does; on the
-    CPU, or with ``plain`` (the runners' xla backend), the reference-layout
-    ``eps``."""
+    (K1, ``eps_apply_t_cmt`` on the core's cmt), as training does, where
+    K1 takes the layer; on the CPU, with ``plain`` (the runners' xla
+    backend), or for a layer outside K1's plan (recorded as a fallback),
+    the reference-layout ``eps``."""
     num_channels, n_total, _, _, in_size = x.shape
     kernel_size = _infer_kernel_size(core, num_channels)
     out_size = core.shape[-1]
-    if plain or x.device.type == "cpu":
+    n = kernel_size**2 * num_channels
+    n1, merge_pairs = plan_call(
+        num_channels, in_size, kernel_size, _balanced_split(n, in_size, out_size)
+    )
+    kernel = not plain and x.device.type != "cpu"
+    if kernel and not (core.dtype == torch.float32 and x.dtype == torch.float32
+                       and kernels_take_split(num_channels, in_size, kernel_size, n1, out_size,
+                                              None, 0, "serve-f32")):
+        _record_fallback(n, n1, in_size, out_size, core, x)
+        kernel = False
+    if not kernel:
         def apply(xs):
             return eps(core, xs)
     else:
-        n = kernel_size**2 * num_channels
-        n1, merge_pairs = plan_call(
-            num_channels, in_size, kernel_size, _balanced_split(n, in_size, out_size)
-        )
         _, q_k, n1_k = _kernel_dims(num_channels, in_size, kernel_size, n1, merge_pairs)
         cmt = _core_to_cmt_k(core, n1_k, q_k)
 

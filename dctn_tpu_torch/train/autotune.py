@@ -62,6 +62,7 @@ import torch
 
 from ..kernels import eps_kernels as EK
 from ..kernels import eps_q8_kernels as Q8
+from ..kernels.eps_kernels import _bf16_backward, kernels_take_split, objective_name
 from ..ops import eps as eps_mod
 from ..utils import fallbacks
 from ..utils.benchmark import timed_ms
@@ -89,19 +90,6 @@ def device_name(device) -> str:
     """The measuring device's name in cache keys: the card's, or "cpu"."""
     device = torch.device(device)
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-
-
-def objective_name(forward_only: bool, quantize: Optional[str], compute_dtype=None) -> str:
-    """``train``, ``train-int8``, ``serve-f32`` or ``serve-int8``; with a
-    bf16 ``compute_dtype`` (the kernels' bf16 mode) ``train-bf16`` or
-    ``serve-bf16``. The QAT step keeps its name, JAX's ``train-int8``, in
-    either dtype (the cache key carries the dtype apart); the functions
-    that price and check a split take the dtype beside it."""
-    if quantize is None and compute_dtype is not None:
-        return "serve-bf16" if forward_only else "train-bf16"
-    if forward_only:
-        return f"serve-{quantize or 'f32'}"
-    return "train" if quantize is None else f"train-{quantize}"
 
 
 def _cache_key(cfg, batch_size, in_channels, *, device, max_candidates, charge_reg, reg_type,
@@ -184,12 +172,6 @@ def _pad(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _bf16_backward(objective: str, compute_dtype) -> bool:
-    """Whether ``objective``'s backward runs the bf16 mode: the bf16
-    objectives', and the QAT step's under a bf16 ``compute_dtype``."""
-    return objective.endswith("bf16") or compute_dtype is not None
-
-
 def hopper_split_cost(c: int, q: int, kernel_size: int, n1: int, out_size: int, npix: int,
                       layer_index: int, objective: str, compute_dtype=None) -> float:
     """Seconds one layer at split ``n1`` would take on an H100 under
@@ -232,76 +214,6 @@ def hopper_split_cost(c: int, q: int, kernel_size: int, n1: int, out_size: int, 
     elif arm == "recompute":
         cost += 2 * tile_mm + npix * z / _F32_FLOPS
     return cost
-
-
-def kernels_take_split(c: int, q: int, kernel_size: int, n1: int, out_size: int, npix: int,
-                       layer_index: int, objective: str, compute_dtype=None) -> bool:
-    """Whether the kernels that ``objective`` launches take this layer at
-    split ``n1``: the wrappers' own argument checks (``eps_fwd``'s or
-    ``eps_fwd_q8``'s plan, and for training ``eps_dcore``'s and the arm's
-    d_views kernel's), run on shape-only ``meta`` tensors; the bf16
-    objectives check the bf16 mode's plans, and ``train-int8`` under a bf16
-    ``compute_dtype`` K8/K9's plan and the bf16 backward's."""
-    n1_r, merge = EK.plan_call(c, q, kernel_size, n1)
-    if n1_r != n1:
-        return False
-    n_k, q_k, n1_k = EK._kernel_dims(c, q, kernel_size, n1, merge)
-    z, a = out_size * q_k ** (n_k - n1_k), q_k**n1_k
-
-    def meta(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device="meta")
-
-    views, cmt = meta(n_k, q_k, npix), meta(z, a)
-    int8 = objective.endswith("int8")
-    if _bf16_backward(objective, compute_dtype):
-        try:
-            if int8:
-                Q8._check_q8_args(views, meta(z, a, dtype=torch.int8), meta(z, 1), n1_k, out_size)
-        except ValueError:
-            return False
-        return _bf16_kernels_take(views, meta(z, a, dtype=torch.bfloat16), meta, n1_k, out_size,
-                                  layer_index, objective, forward=not int8)
-    try:
-        if int8:
-            Q8._check_q8_args(views, meta(z, a, dtype=torch.int8), meta(z, 1), n1_k, out_size)
-        else:
-            EK._check_kernel_args(views, cmt, n1_k, out_size)
-        if objective.startswith("train"):
-            g = meta(out_size, npix)
-            EK._check_dcore_args(views, g, n1_k, out_size)
-            arm = EK.plan_backward(layer_index, n_k, n1_k, q_k, out_size, npix)
-            if arm == "saved_t":
-                EK._check_dviews_args("eps_dviews_t", views, cmt, g, meta(z, npix), n1_k, out_size)
-            elif arm == "recompute":
-                EK._check_dviews_args("eps_dviews_recompute", views, cmt, g, None, n1_k, out_size)
-    except ValueError:
-        return False
-    return True
-
-
-def _bf16_kernels_take(views, cmt, meta, n1_k, out_size, layer_index, objective,
-                       forward=True) -> bool:
-    """``kernels_take_split`` for the bf16 mode: its own checks of K1 (with
-    ``forward``; the QAT step's forward is K8/K9's), and for training of
-    ``eps_dcore`` and the arm's d_views kernel (t in bf16)."""
-    n_k, q_k, npix = views.shape
-    z = cmt.shape[0]
-    try:
-        if forward:
-            EK._check_fwd_bf16_args(views, cmt, n1_k, out_size)
-        if objective.startswith("train"):
-            g = meta(out_size, npix)
-            EK._check_dcore_bf16_args(views, g, n1_k, out_size)
-            arm = EK.plan_backward(layer_index, n_k, n1_k, q_k, out_size, npix, 2)
-            if arm == "saved_t":
-                EK._check_dviews_bf16_args("eps_dviews_t", views, cmt, g,
-                                           meta(z, npix, dtype=torch.bfloat16), n1_k, out_size)
-            elif arm == "recompute":
-                EK._check_dviews_bf16_args("eps_dviews_recompute", views, cmt, g, None, n1_k,
-                                           out_size)
-    except ValueError:
-        return False
-    return True
 
 
 def legal_splits(c: int, q: int, kernel_size: int, out_size: int, npix: int, layer_index: int,

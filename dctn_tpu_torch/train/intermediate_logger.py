@@ -134,16 +134,14 @@ def conv_sbs_model_named_outputs(params, cfg, images: torch.Tensor) -> Dict[str,
     """{layer{i}.string{j}, logits} of the legacy ConvSBS model
     (intermediate_logger.py:120-135): every string through ``conv_sbs_t``
     (K10 on a card), its output relaid to (B, H', W', O)."""
-    from ..kernels.sbs_kernels import KERNELS
-    from ..models.conv_sbs_model import _layer_t, _quantum_t, check_kernel_scope
+    from ..models.conv_sbs_model import _layer_t, _quantum_t, model_kernels
 
     xT = _quantum_t(images, cfg)
     named: Dict[str, torch.Tensor] = {}
     outsT = None
-    for i, (layer_spec, layer_params) in enumerate(
-        zip(check_kernel_scope(cfg, xT.is_cuda), params)
-    ):
-        outsT = _layer_t(layer_spec, layer_params, xT, KERNELS)
+    specs, kernels = model_kernels(cfg)
+    for i, (layer_spec, layer_params) in enumerate(zip(specs, params)):
+        outsT = _layer_t(layer_spec, layer_params, xT, kernels)
         for j, outT in enumerate(outsT):
             named[f"layer{i}.string{j}"] = outT.permute(3, 1, 2, 0)
         xT = torch.stack(outsT, dim=0)

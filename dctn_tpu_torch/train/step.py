@@ -239,9 +239,11 @@ def make_train_step(
 ):
     """The step over the reference layout (``make_train_step``,
     train/step.py:116-206): ``model`` holds the cores as
-    (Q,)*(K²·C) + (O,) tensors and every layer runs through the plain
-    ``eps``, its products ``torch.matmul`` and its backward ``eps``'s
-    (``EPSContract``): the runners' xla backend. Returns the same ``step``
+    (Q,)*(K²·C) + (O,) tensors and every layer runs through ``eps`` on
+    ``model.backend``: ``"xla"``, the plain path (its products
+    ``torch.matmul``, its backward ``EPSContract``), the runners' xla
+    backend; ``"pallas"``, the kernels where they take a layer (a model
+    without a fast layout, ``FastLayoutUnavailable``). Returns the same ``step``
     as ``make_fast_train_step``, with the same options: dropout masks drawn
     over the reference shapes from the step's generator, frozen cores
     detached with their gradients zeroed, accumulation in contiguous
@@ -267,7 +269,7 @@ def make_train_step(
             params = {**params, "epses": tuple(
                 c.detach() if i in frozen else c for i, c in enumerate(params["epses"])
             )}
-        return eps_plus_linear_forward(params, xs, cfg, masks=masks_i)
+        return eps_plus_linear_forward(params, xs, cfg, masks=masks_i, backend=model.backend)
 
     def zero_frozen():
         for i in frozen:

@@ -899,25 +899,38 @@ def _wide_string(bonds, channels):
 )
 def test_repaired_sbs_scope_still_refuses_wide_strings_on_cuda(cuda_device, bonds, channels):
     """Strings outside the kernels' scope (a ring of bond 5, a bond of 9, 4
-    channels): on the CPU the plain folds take them (test_torch_port_sbs.py,
-    test_torch_port_conv_sbs.py); on the card ``conv_sbs_t`` refuses them,
-    naming the ROADMAP item that lifts the scope."""
+    channels): on the card ``conv_sbs_t`` decides before any launch to run
+    them on the plain folds, as the JAX package runs its XLA fold, and
+    records the fallback; no kernel launches, and the result is the plain
+    fold's on the same card, bit for bit."""
+    from dctn_tpu_torch.utils import fallbacks
+
     spec = _wide_string(bonds, channels)
     assert not S.sbs_supported(spec)[2]
     xT = torch.rand((channels, 2, 6, 6, 2), device=cuda_device)
     cores = [torch.randn(s.as_tuple(), device=cuda_device) for s in spec.shapes]
-    with pytest.raises(ValueError, match="item 16"):
-        S.conv_sbs_t(spec, cores, xT)
+    before = (S.sbs_fwd.mim_launches, S.sbs_fwd.seq_launches)
+    got = S.conv_sbs_t(spec, cores, xT)
+    assert (S.sbs_fwd.mim_launches, S.sbs_fwd.seq_launches) == before
+    assert any("outside kernel scope" in e for e in fallbacks.events())
+    torch.testing.assert_close(got, S.conv_sbs_t(spec, cores, xT, kernels=S.PLAIN), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
 def test_repaired_model_scope_still_refuses_ring_bond_5_on_cuda(cuda_device):
-    """The model with ring bond 5 trains on the CPU (test_torch_port_conv_sbs.py)
-    and is refused on the card, naming ROADMAP item 16."""
+    """The model with ring bond 5 (outside the kernels' scope) runs every
+    string on the plain folds on the card, the fallback recorded, no kernel
+    launched: its logits equal the CPU plain fold's within REL_TOL."""
+    from dctn_tpu_torch.utils import fallbacks
+
     cfg = CSM.ConvSBSModelConfig(2, 5, trace_edge=True)
     params = CSM.init_conv_sbs_model(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(ValueError, match="item 16"):
-        CSM.ConvSBSModel(params, cfg, device=cuda_device)(torch.rand((2, 28, 28), device=cuda_device))
+    x = torch.rand((2, 28, 28))
+    before = S.sbs_fwd.mim_launches + S.sbs_fwd.seq_launches
+    got = CSM.ConvSBSModel(params, cfg, device=cuda_device)(x.to(cuda_device))
+    assert S.sbs_fwd.mim_launches + S.sbs_fwd.seq_launches == before
+    assert any("every string of the model" in e for e in fallbacks.events())
+    _assert_close(got.cpu(), CSM.ConvSBSModel(params, cfg)(x))
 
 
 # ---------------------------------------------------------------------------
@@ -1540,6 +1553,36 @@ def test_bf16_kernels_match_plain_and_round(cuda_device, kernel, n, q, n1, o, np
         assert float((x.float() - f.float()).abs().max()) > REL_TOL * scale
 
 
+# the flagship's layers at a grid rank's shapes at batch 128 a data rank
+# (chip_smoke.grid_shard_shapes): layer 1 at O / 2 and O / 3 (TP), layers 0
+# and 1 on 14 and 7 rows (SP), layer 1 at O / 2 on 14 and 7 rows (SP x TP)
+_BF16_GRID_SHAPES = [
+    (9, 4, 5, 3, 128 * 529),
+    (9, 4, 5, 2, 128 * 529),
+    (8, 4, 4, 4, 128 * 14 * 25),
+    (9, 4, 5, 6, 128 * 14 * 23),
+    (8, 4, 4, 4, 128 * 7 * 25),
+    (9, 4, 5, 6, 128 * 7 * 23),
+    (9, 4, 5, 3, 128 * 14 * 23),
+    (9, 4, 5, 3, 128 * 7 * 23),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["eps_dcore", "eps_dviews_t", "eps_dviews_recompute"])
+@pytest.mark.parametrize("n,q,n1,o,npix", _BF16_GRID_SHAPES)
+def test_bf16_backward_kernels_at_grid_rank_shapes(cuda_device, kernel, n, q, n1, o, npix):
+    """The bf16 backward kernels (``eps_dcore``, both d_views forms) against
+    their plain versions at a grid rank's shapes, as at the whole layer's."""
+    if kernel != "eps_dcore" and n1 == n:
+        pytest.skip("no d_views at these shapes")
+    views, cmt, g = _inputs(cuda_device, n, q, n1, o, npix)
+    call, plain, _, _ = _bf16_cases(views, cmt, g, n1, o)[kernel]
+    got = call()
+    torch.cuda.synchronize()
+    _assert_close_bf16(got, plain())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["eps_fwd_t", "eps_dcore", "eps_dviews_t",
                                     "eps_dviews_recompute"])
@@ -1548,6 +1591,54 @@ def test_bf16_kernels_give_the_same_bits_twice(cuda_device, kernel):
     call = _bf16_cases(views, cmt, g, 5, 6)[kernel][0]
     for a, b in zip(_as_tuple(call()), _as_tuple(call())):
         assert torch.equal(a, b)
+
+
+# eps_dcore's bf16 mode in chunks of pixels (its operands' scratch capped
+# small): (n, q, n1, O, npix, steps of 64 pixels a chunk). Each has more than
+# one pixel slice; the last chunk is short (a few steps, some slices with no
+# step of it) and, where npix is no multiple of 64, ragged
+_BF16_DCORE_CHUNKS = [
+    (9, 4, 5, 6, 127 * 529, 209),  # flagship layer 1: 6 chunks, the last 5 steps, ragged
+    (9, 4, 5, 6, 128 * 529, 151),  # 8 chunks, the last one step: 5 of 6 slices empty
+    (9, 4, 5, 12, 40_000, 100),  # deep layer 1 (Z = 3072): 7 chunks
+    (4, 6, 3, 12, 30_001, 50),  # A = 216: 10 chunks, the last ragged
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,n1,o,npix,steps", _BF16_DCORE_CHUNKS)
+def test_bf16_dcore_in_chunks_matches_plain(cuda_device, monkeypatch, n, q, n1, o, npix, steps):
+    """``eps_dcore``'s bf16 mode over several chunks (later chunks add into
+    each slice's part, then the slice sum) against its plain version, one
+    operands kernel and product counted a chunk, the same bits twice."""
+    z, a = o * q ** (n - n1), q**n1
+    rows = K._pad_to(a, K._BF16_DCORE_TILE) + K._pad_to(z, K._BF16_DCORE_TILE)
+    monkeypatch.setattr(K, "_BF16_DCORE_OPS_BYTES", 2 * rows * 64 * steps)
+    chunk = K._dcore_bf16_chunk(z, a, npix)
+    assert chunk == 64 * steps and npix > 2 * chunk
+    assert K._dcore_bf16_slices(z, a, npix, K._sm_count(cuda_device)) > 1
+    views, _, g = _inputs(cuda_device, n, q, n1, o, npix)
+    chunks, sums = K.eps_dcore.bf16_chunk_launches, K.eps_dcore.bf16_sum_launches
+    got = K.eps_dcore(views, g, n1, o, mm_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert K.eps_dcore.bf16_chunk_launches - chunks == math.ceil(npix / chunk)
+    assert K.eps_dcore.bf16_sum_launches - sums == 1
+    _assert_close(got, K.eps_dcore_reference(views, g, n1, o, torch.bfloat16))
+    assert torch.equal(got, K.eps_dcore(views, g, n1, o, mm_dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,n1,o,npix", _BF16_SHAPES + _BF16_GRID_SHAPES)
+def test_bf16_plan_mirrors_equal_the_sources(cuda_device, n, q, n1, o, npix):
+    """The Python mirrors of the bf16 kernels' shared memory (the gate's and
+    the wrappers' checks) equal the sources' own ``smem_bytes``, asked
+    through their C queries."""
+    del cuda_device, npix
+    assert K._dcore_bf16_smem_bytes(n, q, n1, o) == K._library(
+        "eps_dcore").dctn_eps_dcore_bf16_smem_bytes(n, q, n1, o)
+    for recompute in (False, True):
+        assert K._dviews_bf16_smem_bytes(n, q, n1, o, recompute) == K._library(
+            "eps_dviews_t").dctn_eps_dviews_bf16_smem_bytes(n, q, n1, o, int(recompute))
 
 
 @pytest.mark.cuda

@@ -99,7 +99,8 @@ def _rank_slice(mesh, b):
 def job_fast_steps(mesh, params, specs, x, y, steps, accum, masks, frozen, qat=None, cap=None,
                    pixel_scale=None, reg=1e-3):
     """The DP fast step on this rank's slice of (x, y); returns the final
-    reference params, the losses and the arms ``plan_backward`` chose."""
+    reference params, the losses and the arms ``plan_backward`` chose in the
+    steps (recorded once the model is built: its gate asks too)."""
     from dctn_tpu_torch.kernels import eps_kernels
 
     arms, plan = [], eps_kernels.plan_backward
@@ -108,7 +109,6 @@ def job_fast_steps(mesh, params, specs, x, y, steps, accum, masks, frozen, qat=N
         arms.append(plan(*a))
         return arms[-1]
 
-    eps_kernels.plan_backward = recording
     cap0 = eps_kernels.SAVE_T_MAX_BYTES
     if cap is not None:
         eps_kernels.SAVE_T_MAX_BYTES = cap
@@ -116,6 +116,7 @@ def job_fast_steps(mesh, params, specs, x, y, steps, accum, masks, frozen, qat=N
         cfg = EPSesPlusLinearConfig(epses_specs=specs, image_size=x.shape[2], q0=x.shape[-1],
                                     dropout_p=0.9 if masks is not None else 1.0)
         model = EPSesPlusLinear.from_reference(params_from_numpy(params), cfg)
+        eps_kernels.plan_backward = recording
         opt = make_optimizer("adam", model.parameters(), 3e-3, 0.1)
         if pixel_scale is None:
             step = make_parallel_fast_train_step(model, opt, mesh, "epswise", reg,
