@@ -526,6 +526,9 @@ BF16_RUN_ITERS = 10
 # pixels (5 steps, so the sixth slice has none of it)
 BF16_CHUNK_IMAGES = 127
 BF16_CHUNK_STEPS = 209
+# and K1 bf16 +- t there in chunks of 100 tiles of 128 pixels (its u's
+# scratch capped): 6 chunks, the last of 3,183 pixels (a ragged last tile)
+BF16_FWD_CHUNK_TILES = 100
 # the f32 and bf16 flagship steps and forwards timed in turns (phase 11 e)
 BF16_TURN_STEPS = 20
 # phase 11 (f): K9 with a bf16 t at these shapes beside flagship layer 1 at
@@ -642,16 +645,33 @@ def median_ms(fns, reps: int):
 
 def tensor_core_instructions(path) -> dict:
     """The tensor-core instructions in a built library's SASS (``cuobjdump
-    -sass`` of the toolkit that built it): counts of HMMA (mma.sync on
-    f16/bf16/tf32), HGMMA (wgmma on them), IMMA (int8 mma.sync) and IGMMA
-    (int8 wgmma)."""
+    -sass`` of the toolkit that built it), per function (its mangled name):
+    counts of HMMA (mma.sync on f16/bf16/tf32), HGMMA (wgmma on them), IMMA
+    (int8 mma.sync) and IGMMA (int8 wgmma)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
+    return {name: count_tensor_core_ops(body)
+            for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S)}
+
+
+def count_tensor_core_ops(sass: str) -> dict:
     ops = re.findall(r"\b(HMMA|HGMMA|IMMA|IGMMA)\b", sass)
     return {op: ops.count(op) for op in ("HMMA", "HGMMA", "IMMA", "IGMMA")}
+
+
+def summed_ops(per_function: dict, fragment: str = "") -> dict:
+    """The tensor-core instructions of the functions whose mangled name
+    holds ``fragment`` (every function's where it is empty), summed."""
+    return {op: sum(c[op] for name, c in per_function.items() if fragment in name)
+            for op in ("HMMA", "HGMMA", "IMMA", "IGMMA")}
+
+
+# the bf16 forward's product kernels (csrc/eps_fwd.cu, both forms), whose
+# own SASS must hold HGMMA: the library also holds the float32 wgmma kernel
+BF16_FWD_FUNCTION = "eps_fwd_bf16_kernel"
 
 
 # the sources whose f32 products run on the tensor cores in 3xTF32
@@ -670,8 +690,14 @@ def build_all(build) -> None:
             log = build.library_path(name).with_suffix(".log")
             if log.exists():
                 print(log.read_text().strip())
-            counts = tensor_core_instructions(build.library_path(name))
+            per_function = tensor_core_instructions(build.library_path(name))
+            counts = summed_ops(per_function)
             print(f"{name}: tensor-core instructions in its SASS {counts}")
+            if name == "eps_fwd":
+                bf16_fwd = summed_ops(per_function, BF16_FWD_FUNCTION)
+                print(f"{name}: in its bf16 product kernels ({BF16_FWD_FUNCTION}) {bf16_fwd}")
+                check(bf16_fwd["HGMMA"] > 0 and bf16_fwd["HMMA"] == 0,
+                      f"{name}: the bf16 forward's own SASS holds no HGMMA (wgmma)")
             if name in TF32X3_SOURCES:
                 check(counts["HMMA"] + counts["HGMMA"] > 0,
                       f"{name}: no HMMA or HGMMA instruction in its SASS")
@@ -1353,8 +1379,8 @@ def launches_per_step(specs, batch, accum, qat, keys, image_size=28, q0=2, froze
     saved-t arm), ``eps_dcore`` (and its slice sum where its tiles are few;
     neither for a ``frozen`` layer), and the arm's d_views kernel (none for
     layer 0); ``accum`` microbatches. ``bf16``: the kernels' bf16 modes
-    (their ``*_bf16`` counters, ``eps_dcore``'s chunks of pixels too), t
-    counted at 2 bytes by the saved-t cap;
+    (their ``*_bf16`` counters, K1's and ``eps_dcore``'s chunks of pixels
+    too), t counted at 2 bytes by the saved-t cap;
     under ``qat`` K8/K9's forward, a bf16 t also in ``eps_fwd_q8_t_bf16``."""
     from dctn_tpu_torch.kernels import eps_kernels as K
 
@@ -1368,6 +1394,8 @@ def launches_per_step(specs, batch, accum, qat, keys, image_size=28, q0=2, froze
         arm = K.plan_backward(i, n, n1, q, o, npix, 2 if bf16 else 4)
         counts[fwd + fsfx] += 1
         counts[f"{fwd}_t{fsfx}"] += arm == "saved_t"
+        if bf16 and not qat:  # its chunks of pixels, each the operands kernel then the product
+            counts["eps_fwd_chunks_bf16"] += K._fwd_bf16_plan(n, q, n1, o, npix)["chunks"]
         if qat and bf16:
             counts["eps_fwd_q8_t_bf16"] += arm == "saved_t"
         if i not in frozen:
@@ -2670,8 +2698,10 @@ def grid_kernels_at_shard_shapes(K, Q8, dev, res) -> None:
                                                                  save_t=True)),
             })
         z, a = cmt.shape
+        fb = K._fwd_bf16_plan(n, q, n1, o, npix)
         print(f"grid shape [{label}] n={n} q={q} n1={n1} O={o} npix={npix}: K1 "
-              f"{K._fwd_plan(n, q, n1, o, npix)['kernel']}, K8 "
+              f"{K._fwd_plan(n, q, n1, o, npix)['kernel']} (bf16: {fb['outputs']} outputs, "
+              f"{fb['passes']} passes, {fb['chunks']} chunk(s)), K8 "
               f"{Q8._q8_plan(n, q, n1, o, npix)['form']}, eps_dcore "
               f"{K._dcore_slices(z, a, npix, sms)} pixel slice(s) of {math.ceil(z / 128)} x "
               f"{math.ceil(a / 128)} tiles")
@@ -2704,6 +2734,9 @@ def grid_kernels_at_shard_shapes(K, Q8, dev, res) -> None:
             t_k, t_p = median_ms([kern, plain], reps=5)
             print(f"  {name} vs plain [{label}]: {'; '.join(errs)}; kernel {t_k:.4f} ms, "
                   f"plain {t_p:.4f} ms")
+            if name.startswith("eps_fwd") and name.endswith("_bf16") and "q8" not in name:
+                check(t_k < t_p, f"{name} [{label}]: the kernel ({t_k:.4f} ms) is not faster "
+                                 f"than its plain version ({t_p:.4f} ms)")
         del views, cmt, g, t, wq, sw, cb, tb
 
 
@@ -3667,16 +3700,68 @@ def bf16_kernels_vs_plain(K, dev) -> dict:
         print(f"bf16 negative control: the closest float32 kernel result lay "
               f"{r_.pop('f32_gap'):.2e} of the largest entry away (> {REL_TOL:g})")
     for label, (n, q, n1, o, _) in shapes.items():
-        mirrors = (K._dcore_bf16_smem_bytes(n, q, n1, o),
+        mirrors = (K._fwd_bf16_plan(n, q, n1, o, 1)["smem_bytes"],
+                   K._dcore_bf16_smem_bytes(n, q, n1, o),
                    K._dviews_bf16_smem_bytes(n, q, n1, o, False),
                    K._dviews_bf16_smem_bytes(n, q, n1, o, True))
-        sources = (K._library("eps_dcore").dctn_eps_dcore_bf16_smem_bytes(n, q, n1, o),
+        sources = (K._library("eps_fwd").dctn_eps_fwd_bf16_smem_bytes(n, q, n1, o),
+                   K._library("eps_dcore").dctn_eps_dcore_bf16_smem_bytes(n, q, n1, o),
                    *(K._library("eps_dviews_t").dctn_eps_dviews_bf16_smem_bytes(n, q, n1, o, r)
                      for r in (0, 1)))
         check(mirrors == sources, f"bf16 plans [{label}]: the Python mirrors {mirrors} of "
               f"shared memory are not the sources' {sources}")
+        route = K._fwd_bf16_plan(n, q, n1, o, 1)["route"]
+        source_route = K._library("eps_fwd").dctn_eps_fwd_bf16_route(n, q, n1, o)
+        check(route == ("wgmma" if source_route else "mma.sync"),
+              f"K1 bf16 [{label}]: the plan's route {route} is not the source's")
+        print(f"K1 bf16 [{label}]: {route} route")
     bf16_dcore_chunks_vs_plain(K, dev, layer_dims(FLAGSHIP)[1])
+    bf16_fwd_chunks_vs_plain(K, dev, layer_dims(FLAGSHIP)[1])
     return res
+
+
+def bf16_fwd_chunks_vs_plain(K, dev, dims) -> None:
+    """Phase 11 (a): K1 bf16 with and without t over several chunks of
+    pixels, as the deep model's layer 1 runs it at 2048 (its u's scratch
+    capped to BF16_FWD_CHUNK_TILES tiles of 128 pixels here): the flagship's
+    layer 1 at BF16_CHUNK_IMAGES images, a short ragged last chunk; out
+    within REL_TOL of the plain version and t within a bf16 step, a chunk
+    counted once each, the same bits twice, and the serving out the save_t
+    out's bits."""
+    n, q, n1, o, h = dims
+    npix = BF16_CHUNK_IMAGES * h * h
+    cap = K._BF16_FWD_OPS_BYTES
+    K._BF16_FWD_OPS_BYTES = 2 * K._pad_to(q**n1, 64) * 128 * BF16_FWD_CHUNK_TILES
+    try:
+        plan = K._fwd_bf16_plan(n, q, n1, o, npix)
+        g_ = torch.Generator(device=dev).manual_seed(SEED)
+        views = torch.rand((n, q, npix), generator=g_, device=dev)
+        cb = (torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev)
+              * q ** (-n / 2)).to(torch.bfloat16)
+        before = K.eps_fwd.bf16_chunk_launches
+        out, t = K.eps_fwd(views, cb, n1, o, save_t=True)
+        torch.cuda.synchronize()
+        chunks = K.eps_fwd.bf16_chunk_launches - before
+        out2, t2 = K.eps_fwd(views, cb, n1, o, save_t=True)
+        served = K.eps_fwd(views, cb, n1, o)
+    finally:
+        K._BF16_FWD_OPS_BYTES = cap
+    ref, ref_t = K.eps_fwd_reference(views, cb, n1, o, save_t=True)
+    err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+    t_f, ref_tf = t.float(), ref_t.float()
+    excess = float(((t_f - ref_tf).abs() - BF16_STEP * ref_tf.abs()).max())
+    last = npix - (chunks - 1) * plan["chunk"]
+    print(f"eps_fwd_t_bf16 in chunks [flagship layer 1, {BF16_CHUNK_IMAGES} images, "
+          f"npix={npix}]: {chunks} chunks of {plan['chunk']} pixels (the last {last}): out "
+          f"max|d|={err:.3e} tol={REL_TOL * scale:.3e}, t past a bf16 step {excess:.3e}")
+    check(chunks == plan["chunks"] == -(-npix // plan["chunk"]) >= 3 and last % 128 != 0,
+          f"eps_fwd_bf16 chunk case: {chunks} chunks of {plan['chunk']}: not the case it "
+          "should be")
+    check(torch.isfinite(out).all().item() and err <= REL_TOL * scale
+          and excess <= REL_TOL * float(ref_tf.abs().max()),
+          "eps_fwd_bf16 in chunks differs from plain")
+    check(torch.equal(out, out2) and torch.equal(t, t2), "eps_fwd_bf16 in chunks: two runs differ")
+    check(torch.equal(out, served), "eps_fwd_bf16 in chunks: serving and save_t outs differ")
 
 
 def bf16_dcore_chunks_vs_plain(K, dev, dims) -> None:
@@ -3760,6 +3845,10 @@ def bf16_phase(trunner, bench, K, params, cfg, dev, tmp) -> tuple:
     want = {k: v * BF16_RUN_ITERS for k, v in per_step.items()}
     want["eps_fwd"] += runner_init_launches(sizes[0], BATCH, 2)  # the init runs in float32
     want["eps_fwd_bf16"] += 2 * runner_eval_launches(sizes, BATCH, 2)
+    # an eval batch holds at most BATCH images: one chunk of u a layer
+    check(all(K._fwd_bf16_plan(n, q, n1, o, BATCH * h * h)["chunks"] == 1
+              for n, q, n1, o, h in layer_dims(FLAGSHIP)), "a flagship forward over one chunk")
+    want["eps_fwd_chunks_bf16"] += 2 * runner_eval_launches(sizes, BATCH, 2)
     check(run_counts == want, f"bf16 runner launches {run_counts} != {want}")
     final = final_reference(state)
     model = EPSesPlusLinear.from_reference(final, state.extras["cfg"])
@@ -3833,7 +3922,8 @@ def bf16_phase(trunner, bench, K, params, cfg, dev, tmp) -> tuple:
             got = fns[bs](x[:, :bs])
             torch.cuda.synchronize()
             moved = {k: v - before[k] for k, v in bench.read_counters().items() if v != before[k]}
-            check(moved == {"eps_fwd_bf16": 2}, f"bf16 artifact bs {bs}: launches {moved}")
+            check(moved == {"eps_fwd_bf16": 2, "eps_fwd_chunks_bf16": 2},
+                  f"bf16 artifact bs {bs}: launches {moved}")
             want_l = eager(x[:, :bs])
             equal = bool(torch.equal(got, want_l))
             print(f"bf16 artifact vs eager bf16 model, batch {bs}: "
@@ -4508,9 +4598,10 @@ def main(argv=None) -> int:
 
     driven = [serving, serving_q8, exported, *trained.values(), *runner_runs, *sbs_runs, *sbs_bench_counts,
               *dp_counts, *lme_launches, tuned_counts, *bf16_counts, *fallback_counts]
-    # eps_dcore's bf16 mode launches its operands kernel and its product once
-    # a chunk of pixels: counted apart, and exact in each step's count
-    missing = [name for name in (*BF16_KERNELS, "eps_dcore_chunks_bf16")
+    # K1's (wgmma route) and eps_dcore's bf16 modes launch their operands
+    # kernel and their product once a chunk of pixels: counted apart, and
+    # exact in each step's count
+    missing = [name for name in (*BF16_KERNELS, "eps_fwd_chunks_bf16", "eps_dcore_chunks_bf16")
                if sum(c.get(name, 0) for c in bf16_counts) == 0]
     check(not missing, f"phase 11 launched no {missing}")
     launches = {name: sum(c.get(name, 0) for c in driven) for name in KERNELS}

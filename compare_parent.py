@@ -21,15 +21,16 @@ timed in turns:
   2048), this checkout's result held within ``chip_smoke.REL_TOL`` of the
   other's (median CUDA-event ms);
 - ``bf16``: the bf16 operand mode of the same kernels at the same layers
-  (K1, with t where the layer saves it, as a control of a kernel no PR
-  changes; ``eps_dcore``; the arm's d_views form, both below batch 2048)
+  (K1, and with t where the layer saves it; ``eps_dcore``; the arm's
+  d_views form, both below batch 2048)
   and at a grid rank's shapes (``chip_smoke.grid_shard_shapes``: K1 + t,
   ``eps_dcore`` and both d_views forms at layer 1, K1 and ``eps_dcore`` at
   layer 0), on the same float32 inputs, cmt rounded to bf16 once and the
   saved bf16 t written once by this checkout's K1; each result within
   ``chip_smoke.REL_TOL`` of the other's (a bf16 t within one bf16 step),
-  median CUDA-event ms in turns, the products' TFLOP/s and their bound at
-  the dense bf16 rate;
+  median CUDA-event ms in turns (K1's also by device time per call,
+  torch.profiler, below 500,000 pixels), the products' TFLOP/s and their
+  bound at the dense bf16 rate;
 - ``ref``: the reference layout's layers on the kernels' route
   (``ops.eps.eps`` with ``backend="pallas"``, forward and backward, as the
   TP and SP grids run the reference layout) at both flagship layers at
@@ -223,7 +224,8 @@ def bf16_close(x: torch.Tensor, r: torch.Tensor) -> bool:
 def bf16_layer_cases(K, i, n, q, n1, o, npix, both, views, cmt, g):
     """(name, call on a kernels module, bf16 flops of its products) for
     each bf16 kernel the layer's bf16 training step runs (with ``both``,
-    both d_views forms where the layer has a v half)."""
+    both d_views forms where the layer has a v half), and K1 without t (the
+    serving and eval forward) where the step saves t."""
     cb = cmt.to(torch.bfloat16)
     z, a = cmt.shape
     arm = K.plan_backward(i, n, n1, q, o, npix, 2)
@@ -232,9 +234,10 @@ def bf16_layer_cases(K, i, n, q, n1, o, npix, both, views, cmt, g):
     t = K.eps_fwd(views, cb, n1, o, save_t=True)[1] if saved else None
     mm = 2.0 * z * a * npix
     bf = torch.bfloat16
-    cases = [("eps_fwd_t bf16", lambda M: M.eps_fwd(views, cb, n1, o, save_t=True), mm)
-             if arm == "saved_t" else ("eps_fwd bf16", lambda M: M.eps_fwd(views, cb, n1, o), mm),
-             ("eps_dcore bf16", lambda M: M.eps_dcore(views, g, n1, o, mm_dtype=bf), mm)]
+    cases = [("eps_fwd bf16", lambda M: M.eps_fwd(views, cb, n1, o), mm)]
+    if arm == "saved_t":
+        cases.append(("eps_fwd_t bf16", lambda M: M.eps_fwd(views, cb, n1, o, save_t=True), mm))
+    cases.append(("eps_dcore bf16", lambda M: M.eps_dcore(views, g, n1, o, mm_dtype=bf), mm))
     if saved:
         cases.append(("eps_dviews_t bf16", lambda M: M.eps_dviews_t(views, cb, g, t, n1, o), mm))
     if arm == "recompute" or both:
@@ -270,13 +273,20 @@ def compare_bf16(K, OK, dev) -> None:
             del got, ref
             reps = 3 if npix > 500_000 else 10
             t_other, t_this = median_ms([lambda: call(OK), lambda: call(K)], reps=reps)
-            print(json.dumps({
+            rec = {
                 "metric": "bf16_kernel_vs_parent", "kernel": name, "path": path, "layer": i,
                 "shape": {"n": n, "q": q, "n1": n1, "O": o, "Z": cmt.shape[0],
                           "A": cmt.shape[1], "npix": npix},
                 "parent_ms": t_other, "ms": t_this, "parent_over_change": t_other / t_this,
                 "products_tflops": mm / t_this / 1e9, "bound_ms": bound_ms(0.0, bf16_flops=mm)[0],
-                "max_abs_diff_vs_parent": err, "tol": REL_TOL * scale}), flush=True)
+                "max_abs_diff_vs_parent": err, "tol": REL_TOL * scale}
+            if name.startswith("eps_fwd") and npix <= 500_000:
+                # K1 also by device time: at small shapes the host's work
+                # (the wrapper and its launches) is most of a call
+                dev_ms = turns_device_ms(lambda: call(OK), lambda: call(K), 10)
+                rec.update({"parent_device_ms": dev_ms["parent"], "device_ms": dev_ms["change"],
+                            "device_parent_over_change": dev_ms["parent"] / dev_ms["change"]})
+            print(json.dumps(rec), flush=True)
         del views, cmt, g
         torch.cuda.empty_cache()
 

@@ -126,6 +126,7 @@ COUNTERS = (
     ("eps_fwd_q8_t", Q8.eps_fwd_q8, "t_launches"),
     ("eps_fwd_bf16", K.eps_fwd, "bf16_launches"),
     ("eps_fwd_t_bf16", K.eps_fwd, "bf16_t_launches"),
+    ("eps_fwd_chunks_bf16", K.eps_fwd, "bf16_chunk_launches"),
     ("eps_dcore_bf16", K.eps_dcore, "bf16_launches"),
     ("eps_dcore_chunks_bf16", K.eps_dcore, "bf16_chunk_launches"),
     ("eps_dcore_sum_bf16", K.eps_dcore, "bf16_sum_launches"),

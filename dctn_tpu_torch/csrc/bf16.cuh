@@ -26,9 +26,12 @@
 // (tf32x3.cuh); the kernels sum one step of K (at most 128 values) in a
 // fragment and then add it into float32 totals with ordinary adds.
 //
-// K1 bf16 runs mma.sync; eps_dcore's and the d_views kernels' bf16 modes
-// run wgmma (below: m64n64k16 and m64n128k16 with both operands K-major in
-// shared memory, in the 128-byte swizzle of smem_desc_sw128).
+// Every bf16 mode runs wgmma (below: m64n64k16 and m64n128k16 with both
+// operands K-major in shared memory, in the 128-byte swizzle of
+// smem_desc_sw128). K1's and eps_dcore's form u (eps_dcore also kr2) once a
+// pixel into device memory, a chunk of pixels at a time, each entry's chain
+// by suffix_chains; the product kernels stream the rounded operands through
+// a cp.async ring. The d_views kernels build their operand per step.
 
 #pragma once
 
@@ -224,6 +227,34 @@ struct FastDiv {
     return static_cast<int>((static_cast<unsigned long long>(n) * m) >> p);
   }
 };
+
+// x0[i], x1[i] (pixels j and j + 1) times the chain of the factors `first`
+// down to `last` at the digits of rem[i] (the least significant digit is
+// factor first's), in the JAX suffix chain's order: f_last[..] * (... *
+// (f_first[..] * x)). Factor k's row for digit d lies at (k q + d) * stride
+// floats of fac. The rows' loads are interleaved a factor at a time, so that
+// their latencies overlap; rem is consumed. The operands kernels of K1 and
+// eps_dcore form their u (and kr2's v) by it.
+template <int kRows>
+__device__ __forceinline__ void suffix_chains(float (&x0)[kRows], float (&x1)[kRows],
+                                              int (&rem)[kRows], const float* fac, int stride,
+                                              int j, int first, int last, int q,
+                                              const FastDiv& div_q) {
+  for (int k = first; k >= last; --k) {
+    float2 f[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int next = div_q(rem[i]);
+      f[i] = *reinterpret_cast<const float2*>(fac + (k * q + rem[i] - next * q) * stride + j);
+      rem[i] = next;
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      x0[i] = f[i].x * x0[i];
+      x1[i] = f[i].y * x1[i];
+    }
+  }
+}
 
 // lets `kernel` take up to 227 KB of dynamic shared memory (a host call of
 // about a microsecond, made before each launch)

@@ -570,8 +570,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   // a warp forms 4 rows at a time (rows 4 (warp + 8 k) ..), their chains
-  // interleaved a factor at a time so that the loads of the four overlap;
-  // the rows of a group are all u's or all kr2's (a_pad is a multiple of 4)
+  // by bf16op::suffix_chains; the rows of a group are all u's or all kr2's
+  // (a_pad is a multiple of 4)
   const int j = 2 * lane;  // this lane's two pixels
   for (int rg = 4 * warp; rg < kBuildRows && row0 + rg < rows; rg += 4 * (kThreads / 32)) {
     const int r0 = row0 + rg;
@@ -586,20 +586,7 @@ __global__ void __launch_bounds__(kThreads)
       rem[i] = !ok[i] ? 0 : is_u ? idx : idx - div_b2(idx) * b2;
     }
     float x0[4] = {1.f, 1.f, 1.f, 1.f}, x1[4] = {1.f, 1.f, 1.f, 1.f};
-    for (int k = first; k >= last; --k) {
-      float2 f[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int next = div_q(rem[i]);
-        f[i] = *reinterpret_cast<const float2*>(fac + (k * q + rem[i] - next * q) * kBuildP + j);
-        rem[i] = next;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        x0[i] = f[i].x * x0[i];
-        x1[i] = f[i].y * x1[i];
-      }
-    }
+    bf16op::suffix_chains<4>(x0, x1, rem, fac, kBuildP, j, first, last, q, div_q);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (!is_u) {  // kr2[z] = g[z / b2] * v[z % b2]

@@ -711,28 +711,85 @@ extern "C" int dctn_eps_fwd(const void* views, const void* cmt, void* out,
 // What bounds it: the product, 2*Z*A flops per pixel at the dense bf16 rate
 // of an H100 SXM (989 TFLOP/s at 700 W): 0.042 ms for the flagship's first
 // layer at batch 128 and 0.215 ms for its second; bytes are fewer than in
-// the float32 mode (cmt and t at 2 bytes an entry).
+// the float32 mode (cmt and t at 2 bytes an entry, u written and read once).
 //
-// Design, a simple kernel first: a CTA of 4 warps owns 64 pixels and a Z
-// tile of whole outputs (G = floor(64 / B2) where B2 <= 64, else one output
-// walked in passes of 64 rows) and stages its factor columns in shared
-// memory once; per step of 64 columns of A it stages cmt's 64 x 64 bf16
-// (16-byte copies where A is a multiple of 8) and builds u's 64 x 64 (each
-// thread a pair of columns of A over 16 pixels, so every u entry is built
-// once per pass and step); each warp owns 16 rows x 64 pixels, 8 fragments
-// of mma.m16n8k16, summed per step into float32 totals. The epilogue puts
-// the pass's t in shared memory, writes it in bf16 when asked, and one
-// thread per (output, pixel) adds t times v (its chain formed again from
-// the staged factors, the plain version's order) over the output's rows
-// onto the earlier passes' sum: serving and save_t give the same bits.
-// Limits as the float32 kernel's (B2 <= 512, n*q <= 256, the Z tiles along
-// grid.y); shared memory 4 (68 (n q + 64) + 64 G) + 18432 bytes, 46 KB at
-// the flagship's second layer (four CTAs an SM).
+// Two routes, by Z = O * B2 (make_plan_bf16): the mma.sync route where Z <=
+// 128 (fwd_bf16::mma below: one Z tile, u formed on chip), else wgmma.
+// Design of the wgmma route, in chunks of pixels, as the bf16 eps_dcore
+// (eps_dcore.cu):
+// 1. eps_fwd_bf16_operands_kernel forms u of the chunk once a pixel and
+//    writes it to device memory in bf16, a row of A (rounded up to a whole
+//    step of 64, zeros past A) a pixel: the K-major layout of the product's
+//    N operand. A CTA stages 64 pixels' columns of u's factors; a lane forms
+//    8 consecutive values of A at two pixels (bf16op::suffix_chains) and
+//    writes them as two 16-byte units, eight lanes a pixel's 128 bytes.
+// 2. eps_fwd_bf16_kernel: t = cmt . u^T with M = Z, N = pixels, K = A. A CTA
+//    of two warpgroups owns 128 pixels and a Z tile of whole outputs (G =
+//    floor(128 / B2) where B2 <= 128, else one output walked in passes of
+//    128 rows), so the sum over b stays in the CTA. cmt's 128-row and u's
+//    128-pixel step tiles (64 values of A, 128 contiguous bytes a row) come
+//    by cp.async, eight threads a row, into a ring of 4 stages in the
+//    128-byte swizzle, two steps ahead; each warpgroup runs four
+//    wgmma.m64n128k16 a step on its 64 rows, leaves a step's group in flight
+//    while the CTA goes on to the next, and adds its accumulators into f32
+//    totals every two steps (128 values of A: the tensor cores truncate as
+//    they add). Where B2 > 128 a pass reads u's tiles again (from L2); it
+//    never forms them again.
+//    Epilogue, per pass, over the ring: each thread multiplies its t
+//    entries by v (f_{n1} * (... * f_{n-1}), the chain's order, from the
+//    staged v factors through a table of each row's digits) into a 128 x
+//    128 f32 tile and, with save_t, puts t rounded to bf16 in a second tile,
+//    which the CTA then stores in 16-byte units; one thread per (output,
+//    pixel) adds the output's rows in order onto the earlier passes' sum.
+//    The serving form and the save_t form run the same sums: their outputs
+//    are the same bits. No atomics: the same bits from run to run.
+// Why device memory: formed on chip per pass and per output tile, u was
+// built 24 times a pixel at the flagship's second layer, and those builds,
+// not the products, bounded the kernel. Formed once, u of the flagship's
+// layer 1 at batch 128 is 139 MB of bf16, written once and read through L2;
+// a chunk holds at most the wrapper's cap of it.
+// cmt is read with a row of A rounded up to 64 values (the wrapper's
+// zero-padded copy where A is not a multiple of 64); its rows past Z read
+// its last row, whose sums are never used. Limits: B2 <= 512, n*q <= 256,
+// pixel tiles of a chunk along grid.y (<= 65535). Shared memory 131072 +
+// 4 (132 n2 q + 128 n2) bytes (the ring and v's factors), at most 198 KB at
+// those limits (n2 q <= 128 where q^n2 <= 512 and n1 >= 1).
 
 #include "bf16.cuh"
 
 namespace {
 namespace fwd_bf16 {
+
+constexpr int kThreads = 256;                    // two warpgroups, 64 rows of a pass each
+constexpr int kTileZ = 128;                      // rows of Z a pass (M)
+constexpr int kTileP = 128;                      // pixels a CTA (N)
+constexpr int kStepA = 64;                       // A a step (K): four k16 products, 128 bytes
+constexpr int kStages = 4;                       // the ring
+constexpr int kOpBytes = kTileZ * kStepA * 2;    // one operand's tile of a step
+constexpr int kRingBytes = kStages * 2 * kOpBytes;
+constexpr int kRow = kTileP + 4;                 // floats a staged v factor row
+constexpr int kEpiRow = kTileP + 8;              // floats a row of the t*v tile
+constexpr int kTRow = kTileP + 8;                // bf16 a row of the t tile (16-byte rows)
+static_assert(kTileZ == kTileP, "one staging loop for both operands' tiles");
+static_assert(4 * kTileZ * kEpiRow + 2 * kTileZ * kTRow <= kRingBytes,
+              "the epilogue's tiles fit over the ring");
+constexpr int kBuildP = 64;                      // pixels a CTA of the operands kernel
+constexpr int kBuildRow = kBuildP + 8;           // floats a staged factor row there
+
+// The mma.sync route, for Z <= kTileZ (one Z tile of the wgmma route, so
+// its u would be used once: the three-EPS model's layers): the first bf16 kernel.
+// A CTA of 4 warps owns 64 pixels and a Z tile of whole outputs (G =
+// floor(64 / B2) where B2 <= 64, else one output in passes of 64 rows),
+// stages its factor columns once and, per step of 64 columns of A, stages
+// cmt's 64 x 64 bf16 and builds u's 64 x 64 on chip (each entry once per
+// pass and step; Z <= 128 makes that once or twice a pixel), each warp 16
+// rows x 64 pixels of mma.m16n8k16 summed per step into float32 totals;
+// the epilogue puts the pass's t in shared memory (bf16 to t when asked)
+// and one thread per (output, pixel) adds t times v over the output's rows
+// onto the earlier passes' sum. Its digits by multiply-shift divisions.
+// There the device-memory round trip of u and a second launch cost more
+// than they save (PERF.md, section 6).
+namespace mma {
 
 constexpr int kThreads = 128;     // 4 warps, 16 rows of a pass each
 constexpr int kTileZ = 64;        // rows of Z per pass
@@ -742,27 +799,14 @@ constexpr int kWords = bf16op::op_words<kChunkA>();
 constexpr int kRow = kTileP + 4;  // floats a row of the factor and t tiles
 constexpr int kNj = kTileP / 8;   // n8 fragments a warp holds
 
-struct Plan {
-  int outputs, passes;
-  long long bytes;
-};
-
-Plan make_plan_bf16(int n, int q, long long b2, int out_size) {
-  Plan p;
-  p.outputs = b2 <= kTileZ ? static_cast<int>(kTileZ / b2 < out_size ? kTileZ / b2 : out_size) : 1;
-  p.passes = static_cast<int>((p.outputs * b2 + kTileZ - 1) / kTileZ);
-  p.bytes = 4LL * (kRow * (n * q + kTileZ) + p.outputs * kTileP) + 4LL * 2 * kTileZ * kWords;
-  return p;
-}
-
 __global__ void __launch_bounds__(kThreads)
-    eps_fwd_bf16_kernel(const float* __restrict__ views, const uint16_t* __restrict__ cmt,
+    eps_fwd_bf16_mma_kernel(const float* __restrict__ views, const uint16_t* __restrict__ cmt,
                         float* __restrict__ out, uint16_t* __restrict__ t, int n, int q, int n1,
                         int a_dim, int b2, long long npix, int outputs, int passes,
-                        int out_size, bool vec) {
-  extern __shared__ __align__(16) float smem[];
+                        int out_size, bool vec, bf16op::FastDiv div_q) {
+  extern __shared__ __align__(16) float fsmem[];
   const int nq = n * q;
-  float* fac = smem;                  // nq rows
+  float* fac = fsmem;                 // nq rows
   float* ts = fac + nq * kRow;        // kTileZ rows
   float* osum = ts + kTileZ * kRow;   // outputs x kTileP
   uint32_t* cm_op = reinterpret_cast<uint32_t*>(osum + outputs * kTileP);
@@ -803,10 +847,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int jj = 0; jj < 16; ++jj) x0[jj] = x1[jj] = 1.f;
         for (int k = n1 - 1; k >= 0; --k) {
-          const float* f0 = fac + (k * q + rem0 % q) * kRow + jb;
-          const float* f1 = fac + (k * q + rem1 % q) * kRow + jb;
-          rem0 /= q;
-          rem1 /= q;
+          const int next0 = div_q(rem0), next1 = div_q(rem1);
+          const float* f0 = fac + (k * q + rem0 - next0 * q) * kRow + jb;
+          const float* f1 = fac + (k * q + rem1 - next1 * q) * kRow + jb;
+          rem0 = next0;
+          rem1 = next1;
 #pragma unroll
           for (int jj = 0; jj < 16; ++jj) {
             x0[jj] = f0[jj] * x0[jj];
@@ -866,8 +911,9 @@ __global__ void __launch_bounds__(kThreads)
         int rem = r - ol * b2;
         float v = 1.f;
         for (int k = n - 1; k >= n1; --k) {
-          v = fac[(k * q + rem % q) * kRow + j] * v;
-          rem /= q;
+          const int next = div_q(rem);
+          v = fac[(k * q + rem - next * q) * kRow + j] * v;
+          rem = next;
         }
         s += ts[(r - r0) * kRow + j] * v;
       }
@@ -881,32 +927,298 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+}  // namespace mma
+
+struct Plan {
+  bool wgmma;  // else the mma.sync route
+  int outputs, passes;
+  long long product_bytes, build_bytes, smem_bytes;
+};
+
+__host__ inline Plan make_plan_bf16(int n, int q, int n1, long long b2, int out_size) {
+  Plan p;
+  p.wgmma = b2 * out_size > kTileZ;
+  const long long tile = p.wgmma ? kTileZ : mma::kTileZ;
+  p.outputs = b2 <= tile ? static_cast<int>(tile / b2 < out_size ? tile / b2 : out_size) : 1;
+  p.passes = static_cast<int>((p.outputs * b2 + tile - 1) / tile);
+  const int n2 = n - n1;
+  if (p.wgmma) {
+    p.product_bytes = kRingBytes + 4LL * (static_cast<long long>(n2) * q * kRow + kTileZ * n2);
+    p.build_bytes = 4LL * n1 * q * kBuildRow;
+  } else {
+    p.product_bytes = 4LL * (mma::kRow * (n * q + mma::kTileZ) + p.outputs * mma::kTileP) +
+                      4LL * 2 * mma::kTileZ * mma::kWords;
+    p.build_bytes = 0;
+  }
+  p.smem_bytes = p.product_bytes > p.build_bytes ? p.product_bytes : p.build_bytes;
+  return p;
+}
+
+// u of the chunk's pixels [c0, c0 + pc) into ops, a row of a_pad values a
+// pixel (row 0: pixel c0), zero past A and past pc
+__global__ void __launch_bounds__(kThreads)
+    eps_fwd_bf16_operands_kernel(const float* __restrict__ views, uint16_t* __restrict__ ops,
+                                 int q, int n1, int a_dim, int a_pad, long long npix,
+                                 long long c0, int pc, bf16op::FastDiv div_q) {
+  extern __shared__ __align__(16) float fac[];  // n1*q rows of kBuildRow
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int j0 = blockIdx.x * kBuildP;
+  for (int i = tid; i < n1 * q * kBuildP; i += kThreads) {
+    const int r = i / kBuildP, j = i % kBuildP;
+    fac[r * kBuildRow + j] = j0 + j < pc ? views[r * npix + c0 + j0 + j] : 0.f;
+  }
+  __syncthreads();
+  // a warp's 8 pixels x 64 values of A a round: lane (pixels j, j + 1;
+  // values a .. a + 7)
+  const int j = 8 * warp + 2 * (lane % 4);
+  uint16_t* row0 = ops + static_cast<long long>(j0 + j) * a_pad;
+  for (int a = kStepA * blockIdx.y + 8 * (lane / 4); a < a_pad; a += kStepA * gridDim.y) {
+    int rem[8];
+    float x0[8], x1[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      rem[i] = a + i < a_dim ? a + i : 0;
+      x0[i] = x1[i] = 1.f;
+    }
+    bf16op::suffix_chains<8>(x0, x1, rem, fac, kBuildRow, j, n1 - 1, 0, q, div_q);
+    uint32_t w0[4], w1[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool lo = a + 2 * i < a_dim, hi = a + 2 * i + 1 < a_dim;
+      w0[i] = bf16op::pack(lo ? x0[2 * i] : 0.f, hi ? x0[2 * i + 1] : 0.f);
+      w1[i] = bf16op::pack(lo ? x1[2 * i] : 0.f, hi ? x1[2 * i + 1] : 0.f);
+    }
+    *reinterpret_cast<uint4*>(row0 + a) = make_uint4(w0[0], w0[1], w0[2], w0[3]);
+    *reinterpret_cast<uint4*>(row0 + a_pad + a) = make_uint4(w1[0], w1[1], w1[2], w1[3]);
+  }
+}
+
+// out (and, with kSaveT, t) at the chunk's pixels: the CTA's pixels
+// c0 + 128 blockIdx.y .., its Z tile of `outputs` outputs from blockIdx.x
+template <bool kSaveT>
+__global__ void __launch_bounds__(kThreads, 1)
+    eps_fwd_bf16_kernel(const float* __restrict__ views, const uint16_t* __restrict__ cmt,
+                        const uint16_t* __restrict__ ops, float* __restrict__ out,
+                        uint16_t* __restrict__ t, int n, int q, int n1, int a_pad, int b2,
+                        int z_dim, int out_size, int outputs, int passes, long long npix,
+                        long long c0, int pc, bool vec_t) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int n2 = n - n1;
+  unsigned char* ring = smem;                             // kStages x (cmt tile, u tile)
+  float* epi = reinterpret_cast<float*>(smem);            // kTileZ x kEpiRow, over the ring
+  uint16_t* ts = reinterpret_cast<uint16_t*>(epi + kTileZ * kEpiRow);  // kTileZ x kTRow
+  float* fs = reinterpret_cast<float*>(smem + kRingBytes);  // n2*q rows: v's factors
+  int* vtab = reinterpret_cast<int*>(fs + n2 * q * kRow);   // kTileZ x n2
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, wg = warp / 4;
+  const int g = lane / 4, tig = lane % 4;
+  const int pl = kTileP * blockIdx.y;  // the CTA's first pixel in the chunk
+  const long long p0 = c0 + pl;
+  const int o0 = blockIdx.x * outputs;
+  const int outs = min(outputs, out_size - o0);
+  const int cta_rows = outs * b2;
+  const long long z_cta = static_cast<long long>(o0) * b2;
+  const int steps = a_pad / kStepA;
+  const uint16_t* urows = ops + static_cast<long long>(pl) * a_pad;
+
+  for (int i = tid; i < n2 * q * kTileP; i += kThreads) {
+    const int r = i / kTileP, j = i % kTileP;
+    fs[r * kRow + j] = pl + j < pc ? views[(n1 * q + r) * npix + p0 + j] : 0.f;
+  }
+
+  float carry = 0.f;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int zp = pass * kTileZ;
+    const int rows = min(kTileZ, cta_rows - zp);
+    if (tid < kTileZ) {  // each pass row's v factors (digit 0 the slowest), as offsets into fs
+      int b = (zp + tid) % b2;
+      for (int k = n2 - 1; k >= 0; --k) {
+        vtab[tid * n2 + k] = (k * q + b % q) * kRow;
+        b /= q;
+      }
+    }
+    // step s's tiles (cmt's rows of the pass, then u's pixels) into ring
+    // stage s % kStages, eight threads a row
+    const auto stage = [&](int s) {
+      unsigned char* d = ring + (s % kStages) * 2 * kOpBytes;
+      const long long col = static_cast<long long>(s) * kStepA;
+#pragma unroll
+      for (int i = tid; i < 2 * kTileZ * 8; i += kThreads) {
+        const int half = i / (kTileZ * 8), r = (i / 8) % kTileZ, c = i % 8;
+        const long long zr = min(z_cta + zp + r, static_cast<long long>(z_dim) - 1);
+        const uint16_t* src = half ? urows + static_cast<long long>(r) * a_pad + col + 8 * c
+                                   : cmt + zr * a_pad + col + 8 * c;
+        bf16op::cp_async16(d + half * kOpBytes + bf16op::sw128_offset(r, c), src);
+      }
+    };
+    float acc[64], tot[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
+    stage(0);
+    tf32x3::cp_async_commit();
+    if (steps > 1) stage(1);
+    tf32x3::cp_async_commit();
+    for (int s = 0; s < steps; ++s) {
+      tf32x3::cp_async_wait_group<1>();  // this thread's copies of step s
+      tf32x3::fence_async_smem();
+      // step s is in; step s - 2's products are done in both warpgroups
+      // (each waits for all its groups at every odd step)
+      __syncthreads();
+      const unsigned char* st = ring + (s % kStages) * 2 * kOpBytes;
+      tf32x3::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kStepA / 16; ++ks) {
+        const uint64_t ad = bf16op::smem_desc_sw128(st + 64 * 128 * wg + 32 * ks);
+        const uint64_t bd = bf16op::smem_desc_sw128(st + kOpBytes + 32 * ks);
+        // an even step starts the accumulators anew: two steps, 128 values of A
+        bf16op::wgmma_m64n128k16(acc, ad, bd, (s & 1) | (ks > 0));
+      }
+      tf32x3::wgmma_commit();
+      if (s + 2 < steps) stage(s + 2);  // over step s - 2's stage
+      tf32x3::cp_async_commit();
+      if (s & 1) {
+        tf32x3::wgmma_wait<0>();
+        tf32x3::wgmma_pin(acc);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+      }
+    }
+    tf32x3::wgmma_wait<0>();
+    tf32x3::wgmma_pin(acc);
+    if (steps & 1) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+    }
+    tf32x3::cp_async_wait_group<0>();
+    __syncthreads();  // every product is done: the epilogue's tiles take the ring
+
+    // total 4 jn + e: row 64 wg + 16 (warp % 4) + g (+8 for e >= 2), pixel
+    // 8 jn + 2 tig (+1 for odd e)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * wg + 16 * (warp % 4) + g + 8 * h;
+      if (r >= rows) continue;
+      const int* vt = vtab + r * n2;
+#pragma unroll
+      for (int jn = 0; jn < kTileP / 8; ++jn) {
+        const int px = 8 * jn + 2 * tig;
+        const float t0 = tot[4 * jn + 2 * h], t1 = tot[4 * jn + 2 * h + 1];
+        float2 v = make_float2(1.f, 1.f);
+        for (int k = n2 - 1; k >= 0; --k) {
+          const float2 f = *reinterpret_cast<const float2*>(fs + vt[k] + px);
+          v.x = f.x * v.x;
+          v.y = f.y * v.y;
+        }
+        *reinterpret_cast<float2*>(epi + r * kEpiRow + px) = make_float2(t0 * v.x, t1 * v.y);
+        if (kSaveT) *reinterpret_cast<uint32_t*>(ts + r * kTRow + px) = bf16op::pack(t0, t1);
+      }
+    }
+    __syncthreads();
+    if (kSaveT) {  // the pass's t rows, 8 pixels (16 bytes) a unit
+      for (int i = tid; i < rows * (kTileP / 8); i += kThreads) {
+        const int r = i / (kTileP / 8), c = 8 * (i % (kTileP / 8));
+        uint16_t* dst = t + (z_cta + zp + r) * npix + p0 + c;
+        const uint16_t* src = ts + r * kTRow + c;
+        if (vec_t && pl + c + 8 <= pc) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int e = 0; e < 8 && pl + c + e < pc; ++e) dst[e] = src[e];
+        }
+      }
+    }
+    // out from the t*v tile: each output's rows in order, onto the earlier
+    // passes' sum (B2 > 128: one output, at most one (output, pixel) a
+    // thread, whose sum `carry` holds); written after the last pass
+    const int outs_here = passes > 1 ? 1 : outs;
+    for (int pair = tid; pair < outs_here * kTileP; pair += kThreads) {
+      const int ol = pair / kTileP, px = pair % kTileP;
+      const int r_begin = max(ol * b2 - zp, 0), r_end = min((ol + 1) * b2 - zp, rows);
+      float sum = pass > 0 ? carry : 0.f;
+      for (int r = r_begin; r < r_end; ++r) sum += epi[r * kEpiRow + px];
+      carry = sum;
+      if (pass == passes - 1 && pl + px < pc)
+        out[static_cast<long long>(o0 + ol) * npix + p0 + px] = sum;
+    }
+    __syncthreads();  // the ring and the table are free for the next pass
+  }
+}
+
 }  // namespace fwd_bf16
 }  // namespace
 
-// dctn_eps_fwd's bf16 mode: the same arguments, cmt (Z, A) and t (Z, npix)
-// in bf16 (t may be null), out (O, npix) float32.
-extern "C" int dctn_eps_fwd_bf16(const void* views, const void* cmt, void* out, void* t, int n,
-                                 int q, int n1, int out_size, long long npix, void* stream) {
+// dctn_eps_fwd's bf16 mode: views (n, q, npix) float32, out (O, npix)
+// float32, t (Z, npix) bf16 or null. On the wgmma route (Z > 128), one chunk
+// of pixels: cmt (Z, A rounded up to 64) bf16 (zero past A, 16-byte
+// aligned), ops the u of a chunk of `chunk` pixels (a multiple of 128):
+// chunk x (A rounded up to 64) bf16, 16-byte aligned; forms u of pixels
+// [c0, c0 + chunk) (c0 a multiple of chunk), then writes their out (and t);
+// the caller runs the chunks of npix in order. On the mma.sync route (Z <=
+// 128), all of npix in one call: cmt (Z, A) bf16; ops, c0 and chunk unused.
+// On `stream`; no synchronisation. Returns cudaGetLastError() (0 on
+// success).
+extern "C" int dctn_eps_fwd_bf16(const void* views, const void* cmt, void* out, void* t,
+                                 void* ops, int n, int q, int n1, int out_size, long long npix,
+                                 long long c0, long long chunk, void* stream) {
+  namespace fb = fwd_bf16;
   if (n < 1 || q < 1 || n1 < 1 || n1 > n || out_size < 1 || npix < 1 ||
       n * q > bf16op::kMaxFactorRows)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long a_dim = bf16op::ipow(q, n1);
   const long long b2 = bf16op::ipow(q, n - n1);
-  if (b2 > bf16op::kMaxB2 || a_dim > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
-  const fwd_bf16::Plan pl = fwd_bf16::make_plan_bf16(n, q, b2, out_size);
-  const long long grid_y = (out_size + pl.outputs - 1) / pl.outputs;
-  if (pl.bytes > bf16op::kMaxSmemBytes || grid_y > 65535)
+  if (b2 > bf16op::kMaxB2 || a_dim > (1LL << 30) || b2 * out_size > (1LL << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = bf16op::allow_smem(fwd_bf16::eps_fwd_bf16_kernel);
+  const fb::Plan pl = fb::make_plan_bf16(n, q, n1, b2, out_size);
+  if (pl.smem_bytes > bf16op::kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!pl.wgmma) {  // Z <= 128: at most 128 Z tiles along grid.y
+    const cudaError_t err = bf16op::allow_smem(fb::mma::eps_fwd_bf16_mma_kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool vec = a_dim % 8 == 0 && reinterpret_cast<uintptr_t>(cmt) % 16 == 0;
+    const dim3 grid(static_cast<unsigned>((npix + fb::mma::kTileP - 1) / fb::mma::kTileP),
+                    static_cast<unsigned>((out_size + pl.outputs - 1) / pl.outputs));
+    fb::mma::eps_fwd_bf16_mma_kernel<<<grid, fb::mma::kThreads,
+                                       static_cast<size_t>(pl.product_bytes), s>>>(
+        static_cast<const float*>(views), static_cast<const uint16_t*>(cmt),
+        static_cast<float*>(out), static_cast<uint16_t*>(t), n, q, n1, static_cast<int>(a_dim),
+        static_cast<int>(b2), npix, pl.outputs, pl.passes, out_size, vec, bf16op::FastDiv(q));
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (ops == nullptr || chunk < fb::kTileP || chunk % fb::kTileP != 0 ||
+      chunk / fb::kTileP > 65535 || c0 < 0 || c0 >= npix || c0 % chunk != 0 ||
+      reinterpret_cast<uintptr_t>(cmt) % 16 != 0 || reinterpret_cast<uintptr_t>(ops) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long a_pad = (a_dim + fb::kStepA - 1) / fb::kStepA * fb::kStepA;
+  const auto kernel = t != nullptr ? fb::eps_fwd_bf16_kernel<true> : fb::eps_fwd_bf16_kernel<false>;
+  cudaError_t err = bf16op::allow_smem(kernel);
+  if (err == cudaSuccess) err = bf16op::allow_smem(fb::eps_fwd_bf16_operands_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = a_dim % 8 == 0 && reinterpret_cast<uintptr_t>(cmt) % 16 == 0;
-  const dim3 grid(static_cast<unsigned>((npix + fwd_bf16::kTileP - 1) / fwd_bf16::kTileP),
-                  static_cast<unsigned>(grid_y));
-  fwd_bf16::eps_fwd_bf16_kernel<<<grid, fwd_bf16::kThreads, static_cast<size_t>(pl.bytes),
-                                  static_cast<cudaStream_t>(stream)>>>(
+  const int pc = static_cast<int>(npix - c0 < chunk ? npix - c0 : chunk);
+  const int tiles = (pc + fb::kTileP - 1) / fb::kTileP;
+  const long long a_blocks = a_pad / (4 * fb::kStepA);  // about four rounds a CTA
+  const dim3 bgrid(static_cast<unsigned>(tiles * (fb::kTileP / fb::kBuildP)),
+                   static_cast<unsigned>(a_blocks < 1 ? 1 : a_blocks > 65535 ? 65535 : a_blocks));
+  fb::eps_fwd_bf16_operands_kernel<<<bgrid, fb::kThreads, static_cast<size_t>(pl.build_bytes), s>>>(
+      static_cast<const float*>(views), static_cast<uint16_t*>(ops), q, n1,
+      static_cast<int>(a_dim), static_cast<int>(a_pad), npix, c0, pc, bf16op::FastDiv(q));
+  const dim3 grid(static_cast<unsigned>((out_size + pl.outputs - 1) / pl.outputs),
+                  static_cast<unsigned>(tiles));
+  const bool vec_t = npix % 8 == 0 && reinterpret_cast<uintptr_t>(t) % 16 == 0;
+  kernel<<<grid, fb::kThreads, static_cast<size_t>(pl.product_bytes), s>>>(
       static_cast<const float*>(views), static_cast<const uint16_t*>(cmt),
-      static_cast<float*>(out), static_cast<uint16_t*>(t), n, q, n1, static_cast<int>(a_dim),
-      static_cast<int>(b2), npix, pl.outputs, pl.passes, out_size, vec);
+      static_cast<const uint16_t*>(ops), static_cast<float*>(out), static_cast<uint16_t*>(t), n,
+      q, n1, static_cast<int>(a_pad), static_cast<int>(b2), static_cast<int>(b2 * out_size),
+      out_size, pl.outputs, pl.passes, npix, c0, pc, vec_t);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan of one bf16 launch at this shape (fwd_bf16::make_plan_bf16; the
+// wrapper's plan mirrors it and its tests hold the two equal): the shared
+// memory, the larger of the product kernel's and the operands kernel's, and
+// the route, 1 for wgmma and 0 for mma.sync.
+extern "C" long long dctn_eps_fwd_bf16_smem_bytes(int n, int q, int n1, int out_size) {
+  return fwd_bf16::make_plan_bf16(n, q, n1, bf16op::ipow(q, n - n1), out_size).smem_bytes;
+}
+
+extern "C" long long dctn_eps_fwd_bf16_route(int n, int q, int n1, int out_size) {
+  return fwd_bf16::make_plan_bf16(n, q, n1, bf16op::ipow(q, n - n1), out_size).wgmma ? 1 : 0;
 }

@@ -334,7 +334,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
     "eps_fwd": {
         "dctn_eps_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
-        "dctn_eps_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
+        "dctn_eps_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _P],
     },
     "eps_dcore": {
         "dctn_eps_dcore": [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _I, _P],
@@ -357,6 +357,8 @@ _ENTRIES = {
 # the sources' queries of their plans (each returns a long long): the bf16
 # kernels' shared memory at a shape, which the Python plans mirror
 _QUERIES = {
+    "eps_fwd": {"dctn_eps_fwd_bf16_smem_bytes": [_I, _I, _I, _I],
+                "dctn_eps_fwd_bf16_route": [_I, _I, _I, _I]},
     "eps_dcore": {"dctn_eps_dcore_bf16_smem_bytes": [_I, _I, _I, _I]},
     "eps_dviews_t": {"dctn_eps_dviews_bf16_smem_bytes": [_I, _I, _I, _I, _I]},
 }
@@ -455,21 +457,25 @@ def _check_kernel_args(views_t, cmt, n1, out_size):
 
 
 # The bf16 mode's kernels (csrc/bf16.cuh; the *_bf16 entries of eps_fwd.cu,
-# eps_dcore.cu and eps_dviews_t.cu): K1 on mma.sync.m16n8k16 with its bf16
-# operands staged in shared memory in rows of K / 2 + 4 words (a k16 step's
-# fragments then read without bank conflicts: ``op_words``), float32 rows 4
-# floats longer than their tile; eps_dcore and both d_views forms on wgmma,
-# their operands K-major in the 128-byte swizzle.
+# eps_dcore.cu and eps_dviews_t.cu), all on wgmma with their operands K-major
+# in the 128-byte swizzle.
 
-
-def _op_words(chunk: int) -> int:
-    return chunk // 2 + 4
-
-
-# K1: a CTA takes 64 pixels and a Z tile of whole outputs, 64 rows of Z per
-# pass, 64 columns of A per step
-_BF16_FWD_TILE = 64
-_BF16_FWD_CHUNK = 64
+# K1, where Z > 128 (wgmma): u formed once a pixel into device memory (bf16,
+# a row of A rounded up to a step of 64 a pixel), in chunks of at most this
+# many bytes of it, each a multiple of 128 pixels; then a CTA of two
+# warpgroups takes 128 pixels and a Z tile of whole outputs, 128 rows of Z a
+# pass, over steps of 64 of A through a 4-stage ring; v's factor rows 132
+# floats, the operands kernel's staged rows (64 pixels) 72. Where Z <= 128
+# (mma.sync): a CTA takes 64 pixels and a Z tile of whole outputs, 64 rows
+# a pass, 64 columns of A a step, u built on chip; its bf16 operand tiles
+# in rows of K / 2 + 4 words (a k16 step's fragments then read without bank
+# conflicts), its float32 rows 68 floats
+_BF16_FWD_TILE = 128
+_BF16_FWD_STEP = 64
+_BF16_FWD_STAGES = 4
+_BF16_FWD_BUILD_P = 64
+_BF16_FWD_OPS_BYTES = 256 << 20
+_BF16_FWD_MMA_TILE = 64
 # eps_dcore (wgmma): u and kr2 formed once a pixel into device memory (bf16,
 # rows padded to whole 128-row tiles), in chunks of at most this many bytes
 # of them, each a multiple of 64 pixels; then 128 x 128 (Z, A) tiles of two
@@ -499,22 +505,68 @@ _BF16_DVIEWS_MAX_TABLE = 160
 
 
 def _fwd_bf16_plan(n: int, q: int, n1: int, out_size: int, npix: int) -> dict:
-    """One bf16 ``eps_fwd`` launch (``make_plan_bf16`` in csrc/eps_fwd.cu):
-    ``outputs`` whole outputs a CTA (⌊64 / B2⌋ where B2 ≤ 64, else one),
-    walked in ``passes`` of 64 rows; shared memory: the staged factor rows
-    (68 floats each), the 64 x 68 t tile, the outputs' sums and the two
-    64-row operand tiles."""
-    tile = _BF16_FWD_TILE
-    b2 = q ** (n - n1)
-    outputs = min(tile // b2, out_size) if b2 <= tile else 1
-    rows = tile + 4
+    """One bf16 ``eps_fwd`` call: ``_fwd_bf16_plan_at`` under the current
+    cap on u's bytes (cached: the wrapper asks at every call)."""
+    return _fwd_bf16_plan_at(n, q, n1, out_size, npix, _BF16_FWD_OPS_BYTES)
+
+
+@functools.lru_cache(maxsize=1024)
+def _fwd_bf16_plan_at(n: int, q: int, n1: int, out_size: int, npix: int, cap: int) -> dict:
+    """One bf16 ``eps_fwd`` call (``make_plan_bf16`` in csrc/eps_fwd.cu).
+    ``route`` "wgmma" where Z = O·B2 > 128, else "mma.sync". The product's
+    CTA takes ``outputs`` whole outputs (⌊tile / B2⌋ where B2 ≤ tile, else
+    one), walked in ``passes`` of tile rows (128; mma.sync 64), so it runs
+    ``rows`` rows of Z (its Z tiles × passes × tile) over A rounded up to
+    ``a_pad`` (whole steps of 64). wgmma: u's rows of ``a_pad`` values for
+    ``chunk`` pixels a chunk, ``chunks`` of them; ``grid`` (Z tiles, pixel
+    tiles of 128 of a chunk); shared memory the larger of the product's (its
+    ring of 4 stages of two 128 x 64 bf16 tiles, which the epilogue's tiles
+    reuse; v's n2·q staged factor rows, 132 floats each; each pass row's n2
+    digit offsets) and the operands kernel's (u's n1·q factor rows of 64
+    pixels, 72 floats each). mma.sync: one launch for every pixel (no chunk,
+    ``chunks`` 0); ``grid`` (pixel tiles of 64, Z tiles); shared memory the
+    staged factor rows (68 floats each), the 64 x 68 t tile, the outputs'
+    sums and the two 64-row operand tiles."""
+    b2, n2 = q ** (n - n1), n - n1
+    a_pad = _pad_to(q**n1, _BF16_FWD_STEP)
+    if out_size * b2 > _BF16_FWD_TILE:
+        tile, step = _BF16_FWD_TILE, _BF16_FWD_STEP
+        outputs = min(tile // b2, out_size) if b2 <= tile else 1
+        chunk = _fwd_bf16_chunk(q**n1, npix, cap)
+        product = _BF16_FWD_STAGES * 2 * tile * step * 2 + 4 * (n2 * q * (tile + 4) + tile * n2)
+        build = 4 * n1 * q * (_BF16_FWD_BUILD_P + 8)
+        route, chunks, smem = "wgmma", math.ceil(npix / chunk), max(product, build)
+        grid = (math.ceil(out_size / outputs), math.ceil(min(npix, chunk) / tile))
+    else:
+        tile = _BF16_FWD_MMA_TILE
+        outputs = min(tile // b2, out_size) if b2 <= tile else 1
+        route, chunk, chunks = "mma.sync", None, 0
+        smem = (4 * ((tile + 4) * (n * q + tile) + outputs * tile)
+                + 4 * 2 * tile * (_BF16_FWD_STEP // 2 + 4))
+        grid = (math.ceil(npix / tile), math.ceil(out_size / outputs))
+    passes = math.ceil(outputs * b2 / tile)
     return {
+        "route": route,
         "outputs": outputs,
-        "passes": math.ceil(outputs * b2 / tile),
-        "grid": (math.ceil(npix / tile), math.ceil(out_size / outputs)),
-        "smem_bytes": 4 * (rows * (n * q + tile) + outputs * tile)
-        + 4 * 2 * tile * _op_words(_BF16_FWD_CHUNK),
+        "passes": passes,
+        "rows": math.ceil(out_size / outputs) * passes * tile,
+        "a_pad": a_pad,
+        "chunk": chunk,
+        "chunks": chunks,
+        "grid": grid,
+        "smem_bytes": smem,
     }
+
+
+def _fwd_bf16_chunk(a: int, npix: int, cap: Optional[int] = None) -> int:
+    """Pixels a chunk of the bf16 ``eps_fwd`` forms u for: a multiple of
+    128, at most ``cap`` (by default ``_BF16_FWD_OPS_BYTES``) bytes of bf16
+    u (rows of A rounded up to 64) but at least 128 pixels, at most npix
+    rounded up, and at most 65535 pixel tiles (the grid's y)."""
+    tile = _BF16_FWD_TILE
+    cap = _BF16_FWD_OPS_BYTES if cap is None else cap
+    fit = cap // (2 * _pad_to(a, _BF16_FWD_STEP)) // tile * tile
+    return min(_pad_to(npix, tile), max(tile, fit), 65535 * tile)
 
 
 def _dcore_bf16_smem_bytes(n: int, q: int, n1: int, out_size: int) -> int:
@@ -623,7 +675,9 @@ def eps_fwd(
     tensors run ``eps_fwd_reference``; CUDA tensors run the kernel:
     ``eps_fwd.launches`` counts its launches and ``eps_fwd.t_launches``
     those that wrote t. A bf16 cmt runs the bf16 mode (t in bf16), counted
-    in ``eps_fwd.bf16_launches`` and ``eps_fwd.bf16_t_launches``."""
+    in ``eps_fwd.bf16_launches`` and ``eps_fwd.bf16_t_launches``; its chunks
+    of pixels on its wgmma route (each the operands kernel, then the
+    product) in ``eps_fwd.bf16_chunk_launches``."""
     if views_t.device.type == "cpu":
         return eps_fwd_reference(views_t, cmt, n1, out_size, save_t)
     _check_device("eps_fwd", views_t)
@@ -647,9 +701,9 @@ def eps_fwd(
     return out
 
 
-def _check_fwd_bf16_args(views_t, cmt, n1, out_size):
+def _check_fwd_bf16_args(views_t, cmt, n1, out_size) -> dict:
     """The arguments of ``eps_fwd``'s bf16 mode: float32 views, bf16 cmt,
-    within ``_fwd_bf16_plan``."""
+    within ``_fwd_bf16_plan``, which it returns."""
     n, q, npix = views_t.shape
     shape = f"views {tuple(views_t.shape)}, cmt {tuple(cmt.shape)}, n1={n1}, O={out_size}"
     _check_tensors("eps_fwd", shape, views_t.device, views=views_t)
@@ -659,23 +713,46 @@ def _check_fwd_bf16_args(views_t, cmt, n1, out_size):
     if tuple(cmt.shape) != (out_size * b2, q**n1):
         raise ValueError(f"eps_fwd: cmt is not (O·q^(n-n1), q^n1) ({shape})")
     plan = _fwd_bf16_plan(n, q, n1, out_size, npix)
-    _check_bf16_plan("eps_fwd", shape, plan["smem_bytes"], **{
-        "q^(n-n1)": (b2, _MAX_B2), "Z tiles": (plan["grid"][1], _MAX_OUT_SIZE)})
+    _check_bf16_plan("eps_fwd", shape, plan["smem_bytes"], **{"q^(n-n1)": (b2, _MAX_B2)})
+    return plan
+
+
+def _fwd_bf16_cmt(cmt: torch.Tensor, a_pad: int) -> torch.Tensor:
+    """cmt as the bf16 forward reads it: rows of ``a_pad`` values (whole
+    steps of 64), 16-byte aligned; cmt itself where it is so, else a copy
+    zero-padded past A."""
+    if cmt.shape[1] == a_pad and cmt.data_ptr() % 16 == 0:
+        return cmt
+    return _padded(cmt, 1, a_pad)
 
 
 def _eps_fwd_bf16(views_t, cmt, n1, out_size, save_t):
-    """``eps_fwd``'s bf16 mode on CUDA tensors."""
-    _check_fwd_bf16_args(views_t, cmt, n1, out_size)
+    """``eps_fwd``'s bf16 mode on CUDA tensors: on the wgmma route the chunks
+    of pixels in order, each the operands kernel then the product; on the
+    mma.sync route one launch."""
+    plan = _check_fwd_bf16_args(views_t, cmt, n1, out_size)
     n, q, npix = views_t.shape
     dev = views_t.device
     out = torch.empty((out_size, npix), dtype=torch.float32, device=dev)
     t = torch.empty((cmt.shape[0], npix), dtype=torch.bfloat16, device=dev) if save_t else None
+    lib = _library("eps_fwd")
+    t_ptr = None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
-        err = _library("eps_fwd").dctn_eps_fwd_bf16(
-            views_t.data_ptr(), cmt.data_ptr(), out.data_ptr(),
-            None if t is None else t.data_ptr(), n, q, n1, out_size, npix, _stream(dev),
-        )
-    _raise_on_error("eps_fwd (bf16)", err)
+        if plan["route"] == "mma.sync":
+            err = lib.dctn_eps_fwd_bf16(views_t.data_ptr(), cmt.data_ptr(), out.data_ptr(), t_ptr,
+                                        None, n, q, n1, out_size, npix, 0, 0, _stream(dev))
+            _raise_on_error("eps_fwd (bf16)", err)
+        else:
+            cmt_p = _fwd_bf16_cmt(cmt, plan["a_pad"])
+            chunk = plan["chunk"]
+            ops = torch.empty((chunk * plan["a_pad"],), dtype=torch.bfloat16, device=dev)
+            for c0 in range(0, npix, chunk):  # in order: one scratch for u
+                err = lib.dctn_eps_fwd_bf16(
+                    views_t.data_ptr(), cmt_p.data_ptr(), out.data_ptr(), t_ptr, ops.data_ptr(),
+                    n, q, n1, out_size, npix, c0, chunk, _stream(dev),
+                )
+                _raise_on_error("eps_fwd (bf16)", err)
+                eps_fwd.bf16_chunk_launches += 1
     eps_fwd.bf16_launches += 1
     if save_t:
         eps_fwd.bf16_t_launches += 1
@@ -687,6 +764,7 @@ eps_fwd.launches = 0
 eps_fwd.t_launches = 0
 eps_fwd.bf16_launches = 0
 eps_fwd.bf16_t_launches = 0
+eps_fwd.bf16_chunk_launches = 0
 
 
 @functools.lru_cache(maxsize=None)

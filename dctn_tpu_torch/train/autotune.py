@@ -181,11 +181,15 @@ def hopper_split_cost(c: int, q: int, kernel_size: int, n1: int, out_size: int, 
     are the same at every n1. What n1 changes here:
 
     - the operand build: u's A and v's B2 entries a pixel and the sum over
-      b of Z = O·B2 products (float32, CUDA cores);
+      b of Z = O·B2 products (float32, CUDA cores); the bf16 forward also
+      writes u (A rounded up to 64 bf16 values a pixel) to device memory
+      and reads it back on its wgmma route (Z > 128);
     - the padding of the product to the kernels' tiles: A to the forward's
-      K step (32; int8: 64) and Z to its Z tile (128; int8: 256; bf16: 64),
-      and the backward's 128 × 128 (Z, A) tiles of d_cmt and d_u (bf16:
-      64 × 64);
+      K step (32; int8 and bf16: 64) and Z to its Z tile (128; int8: 256;
+      bf16: whole outputs, ⌊128 / B2⌋ a tile of 128 rows where B2 ≤ 128, else
+      one in passes of 128; 64 on its mma.sync route, Z ≤ 128:
+      ``_fwd_bf16_plan``'s ``rows``), and the backward's 128 × 128 (Z, A)
+      tiles of d_cmt and d_u (bf16: 64 × 64);
     - the backward's arm (``plan_backward``): t's Z·npix entries (float32,
       or bf16 under the bf16 objectives) written and read back under the
       4 GiB cap (saved t), or t computed again (recompute);
@@ -202,6 +206,11 @@ def hopper_split_cost(c: int, q: int, kernel_size: int, n1: int, out_size: int, 
     cost = npix * (a + b2 + 2 * z) / _F32_FLOPS
     if objective.endswith("int8"):
         cost += 2 * _pad(z, 256) * _pad(a, 64) * npix / _INT8_OPS
+    elif bf16:
+        plan = EK._fwd_bf16_plan(n_k, q_k, n1_k, out_size, npix)
+        cost += 2 * plan["rows"] * plan["a_pad"] * npix / rate
+        if plan["route"] == "wgmma":  # u through device memory
+            cost += 4 * plan["a_pad"] * npix / _HBM_BYTES
     else:
         cost += 2 * _pad(z, tile) * _pad(a, 32) * npix / rate
     if not objective.startswith("train"):

@@ -1551,6 +1551,8 @@ def test_bf16_kernels_match_plain_and_round(cuda_device, kernel, n, q, n1, o, np
         _assert_close_bf16(x, r)
         scale = float(r.float().abs().max())
         assert float((x.float() - f.float()).abs().max()) > REL_TOL * scale
+    if kernel == "eps_fwd_t":  # the serving form gives the save_t form's out bits
+        assert torch.equal(got[0], K.eps_fwd(views, cmt.to(torch.bfloat16), n1, o))
 
 
 # the flagship's layers at a grid rank's shapes at batch 128 a data rank
@@ -1584,7 +1586,100 @@ def test_bf16_backward_kernels_at_grid_rank_shapes(cuda_device, kernel, n, q, n1
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["eps_fwd_t", "eps_dcore", "eps_dviews_t",
+@pytest.mark.parametrize("kernel", ["eps_fwd", "eps_fwd_t"])
+@pytest.mark.parametrize("n,q,n1,o,npix", _BF16_GRID_SHAPES)
+def test_bf16_forward_at_grid_rank_shapes(cuda_device, kernel, n, q, n1, o, npix):
+    """K1 bf16 with and without t against its plain version at a grid
+    rank's shapes (small Z, many pixels), as at the whole layer's."""
+    if kernel == "eps_fwd_t" and n1 == n:
+        pytest.skip("no t to save when n2 = 0")
+    views, cmt, g = _inputs(cuda_device, n, q, n1, o, npix)
+    call, plain, _, _ = _bf16_cases(views, cmt, g, n1, o)[kernel]
+    got = _as_tuple(call())
+    torch.cuda.synchronize()
+    for x, r in zip(got, _as_tuple(plain())):
+        _assert_close_bf16(x, r)
+
+
+# K1 bf16 at the edges of its plan: (n, q, n1, O, npix); the wgmma route
+# where Z > 128, else the mma.sync one
+_BF16_FWD_EDGES = [
+    (4, 3, 4, 200, 1000),  # wgmma, A = 81 (cmt zero-padded to 128), n2 = 0
+    (6, 3, 4, 20, 1000),  # wgmma, A = 81 with B2 = 9: 14 outputs a Z tile, then 6
+    (3, 16, 1, 5, 129),  # wgmma, A = 16; B2 = 256 in 2 passes; one pixel past a tile
+    (10, 2, 1, 3, 333),  # wgmma, B2 = 512: four passes a CTA, A = 2; ragged npix
+    (9, 4, 5, 2, 777),  # wgmma, B2 = 256 past the Z tile: two passes; ragged npix
+    (4, 2, 2, 300, 2000),  # wgmma, B2 = 4: 32 outputs a Z tile, the last tile 12
+    (2, 128, 1, 2, 400),  # wgmma, q = 128: B2 = 128, v's 128 staged factor rows
+    (2, 4, 2, 4, 2 * 729),  # mma.sync: three-EPS layer 0, A = 16, n2 = 0
+    (4, 3, 4, 5, 1000),  # mma.sync: A = 81, no multiple of 8; n2 = 0
+    (6, 3, 4, 7, 1000),  # mma.sync: Z = 63, B2 = 9: 7 outputs a Z tile
+    (2, 128, 1, 1, 300),  # mma.sync: B2 = 128, one output in 2 passes of 64
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_t", [False, True])
+@pytest.mark.parametrize("n,q,n1,o,npix", _BF16_FWD_EDGES)
+def test_bf16_fwd_at_its_edges_matches_plain(cuda_device, n, q, n1, o, npix, save_t):
+    """K1 bf16 ± t against its plain version where its plan is tight, on
+    the route its plan names: out within REL_TOL, t within a bf16 step; one
+    launch counted and the plan's chunks (none on the mma.sync route); the
+    serving out the save_t out's bits."""
+    if save_t and n1 == n:
+        pytest.skip("no t to save when n2 = 0")
+    views, cmt, _ = _inputs(cuda_device, n, q, n1, o, npix)
+    cb = cmt.to(torch.bfloat16)
+    launches, chunks = K.eps_fwd.bf16_launches, K.eps_fwd.bf16_chunk_launches
+    got = _as_tuple(K.eps_fwd(views, cb, n1, o, save_t=save_t))
+    torch.cuda.synchronize()
+    assert K.eps_fwd.bf16_launches - launches == 1
+    plan = K._fwd_bf16_plan(n, q, n1, o, npix)
+    assert plan["route"] == ("wgmma" if cmt.shape[0] > 128 else "mma.sync")
+    assert K.eps_fwd.bf16_chunk_launches - chunks == plan["chunks"]
+    for x, r in zip(got, _as_tuple(K.eps_fwd_reference(views, cb, n1, o, save_t=save_t))):
+        _assert_close_bf16(x, r)
+    if save_t:
+        assert torch.equal(got[0], K.eps_fwd(views, cb, n1, o))
+
+
+# K1 bf16 in chunks of pixels (its u's scratch capped small): (n, q, n1, O,
+# npix, tiles of 128 pixels a chunk); the last chunk short and ragged
+_BF16_FWD_CHUNKS = [
+    (9, 4, 5, 6, 127 * 529, 100),  # flagship layer 1: 6 chunks, the last 3,183 pixels
+    (8, 4, 4, 4, 20_001, 30),  # flagship layer 0: 6 chunks, the last 801
+    (4, 6, 3, 24, 9_999, 7),  # A = 216, padded to 256: 12 chunks
+    (4, 3, 4, 200, 3_000, 2),  # A = 81, n2 = 0: 12 chunks
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,n1,o,npix,tiles", _BF16_FWD_CHUNKS)
+def test_bf16_fwd_in_chunks_matches_plain(cuda_device, monkeypatch, n, q, n1, o, npix, tiles):
+    """K1 bf16 ± t over several chunks of pixels against its plain version,
+    one chunk counted each and one launch a call, the same bits twice, and
+    the serving out the save_t out's bits."""
+    a_pad = K._pad_to(q**n1, 64)
+    monkeypatch.setattr(K, "_BF16_FWD_OPS_BYTES", 2 * a_pad * 128 * tiles)
+    plan = K._fwd_bf16_plan(n, q, n1, o, npix)
+    assert plan["chunk"] == 128 * tiles and plan["chunks"] == math.ceil(npix / plan["chunk"]) > 2
+    views, cmt, _ = _inputs(cuda_device, n, q, n1, o, npix)
+    cb = cmt.to(torch.bfloat16)
+    save_t = n1 < n
+    chunks, launches = K.eps_fwd.bf16_chunk_launches, K.eps_fwd.bf16_launches
+    got = _as_tuple(K.eps_fwd(views, cb, n1, o, save_t=save_t))
+    torch.cuda.synchronize()
+    assert K.eps_fwd.bf16_chunk_launches - chunks == plan["chunks"]
+    assert K.eps_fwd.bf16_launches - launches == 1
+    for x, r in zip(got, _as_tuple(K.eps_fwd_reference(views, cb, n1, o, save_t=save_t))):
+        _assert_close_bf16(x, r)
+    for a, b in zip(got, _as_tuple(K.eps_fwd(views, cb, n1, o, save_t=save_t))):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0], K.eps_fwd(views, cb, n1, o))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["eps_fwd", "eps_fwd_t", "eps_dcore", "eps_dviews_t",
                                     "eps_dviews_recompute"])
 def test_bf16_kernels_give_the_same_bits_twice(cuda_device, kernel):
     views, cmt, g = _inputs(cuda_device, 9, 4, 5, 6, 20_000)
@@ -1628,12 +1723,15 @@ def test_bf16_dcore_in_chunks_matches_plain(cuda_device, monkeypatch, n, q, n1, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,q,n1,o,npix", _BF16_SHAPES + _BF16_GRID_SHAPES)
+@pytest.mark.parametrize("n,q,n1,o,npix", _BF16_SHAPES + _BF16_GRID_SHAPES + _BF16_FWD_EDGES)
 def test_bf16_plan_mirrors_equal_the_sources(cuda_device, n, q, n1, o, npix):
     """The Python mirrors of the bf16 kernels' shared memory (the gate's and
     the wrappers' checks) equal the sources' own ``smem_bytes``, asked
     through their C queries."""
-    del cuda_device, npix
+    del cuda_device
+    plan, lib = K._fwd_bf16_plan(n, q, n1, o, npix), K._library("eps_fwd")
+    assert plan["smem_bytes"] == lib.dctn_eps_fwd_bf16_smem_bytes(n, q, n1, o)
+    assert plan["route"] == ("wgmma" if lib.dctn_eps_fwd_bf16_route(n, q, n1, o) else "mma.sync")
     assert K._dcore_bf16_smem_bytes(n, q, n1, o) == K._library(
         "eps_dcore").dctn_eps_dcore_bf16_smem_bytes(n, q, n1, o)
     for recompute in (False, True):

@@ -294,13 +294,14 @@ def test_legacy_runner_records_the_plain_fold(tmp_path):
 
 @pytest.mark.parametrize("name", [k for k in LAYERS if k not in OUT_OF_PLAN])
 def test_bf16_plan_mirrors_take_every_repo_layer(name):
-    """At each layer of the repo's models the bf16 ``eps_dcore`` and d_views
-    plans' Python mirrors fit 227 KB (tests/test_torch_port_cuda.py holds
-    them equal to the sources' own queries); the d_views limits (≤ 8
+    """At each layer of the repo's models the bf16 K1, ``eps_dcore`` and
+    d_views plans' Python mirrors fit 227 KB (tests/test_torch_port_cuda.py
+    holds them equal to the sources' own queries); the d_views limits (≤ 8
     factors a half, B2 ≤ 512) hold where a d_views kernel runs."""
     c, q, k, o, li = LAYERS[name]
     n1, merge = K.plan_call(c, q, k, teps._balanced_split(k * k * c, q, o))
     n, q_k, n1_k = K._kernel_dims(c, q, k, n1, merge)
+    assert K._fwd_bf16_plan(n, q_k, n1_k, o, 1)["smem_bytes"] <= K._MAX_SMEM_BYTES
     assert K._dcore_bf16_smem_bytes(n, q_k, n1_k, o) <= K._MAX_SMEM_BYTES
     for recompute in (False, True):
         dviews = K._dviews_bf16_smem_bytes(n, q_k, n1_k, o, recompute)
@@ -311,13 +312,27 @@ def test_bf16_plan_mirrors_take_every_repo_layer(name):
 
 
 def test_bf16_plans_at_the_flagship():
-    """The flagship layer 1's bf16 plans (a pin: a change is a plan change):
-    ``eps_dcore`` 131,072 B (its ring), 6 pixel slices on 132 SMs at batch
+    """The flagship's bf16 plans (a pin: a change is a plan change): K1 at
+    both layers on its wgmma route (B2 = 256: one output a CTA in 2 passes
+    of 128 rows) 141,568
+    B (its ring, 131,072 B, and v's 16 staged factor rows), u in rows of A
+    (256 and 1024) for the whole batch of 128 in one chunk (80,000 and 67,712
+    pixels: 41 and 139 MB), grids of 4 × 625 and 6 × 529 CTAs; the deep
+    model's layer 1 at batch 2048 in 9 chunks of 131,072 pixels (256 MiB of
+    u each). At layer 1 ``eps_dcore`` 131,072 B (its ring), 6 pixel slices on 132 SMs at batch
     128 (96 tiles of 128 x 128), its operands for the whole batch in one
     chunk (67,712 pixels, 347 MB of u and kr2) and for the deep
     model's layer 1 at batch 2048 in chunks of 65,536; d_views 179,880 B,
     the recompute form 196,520 B (its table of u's last 3 factors, 64
     rows)."""
+    assert K._fwd_bf16_plan(8, 4, 4, 4, 128 * 625) == {
+        "route": "wgmma", "outputs": 1, "passes": 2, "rows": 1024, "a_pad": 256, "chunk": 80000,
+        "chunks": 1, "grid": (4, 625), "smem_bytes": 141568}
+    assert K._fwd_bf16_plan(9, 4, 5, 6, 128 * 529) == {
+        "route": "wgmma", "outputs": 1, "passes": 2, "rows": 1536, "a_pad": 1024, "chunk": 67712,
+        "chunks": 1, "grid": (6, 529), "smem_bytes": 141568}
+    deep = K._fwd_bf16_plan(9, 4, 5, 12, 2048 * 529)
+    assert (deep["chunk"], deep["chunks"], deep["grid"]) == (131072, 9, (12, 1024))
     assert K._dcore_bf16_smem_bytes(9, 4, 5, 6) == 131072
     assert K._dcore_bf16_slices(1536, 1024, 128 * 529, 132) == 6
     assert K._dcore_bf16_chunk(1536, 1024, 128 * 529) == 67712
@@ -325,3 +340,95 @@ def test_bf16_plans_at_the_flagship():
     assert K._dviews_bf16_smem_bytes(9, 4, 5, 6) == 179880
     assert K._dviews_bf16_smem_bytes(9, 4, 5, 6, recompute=True) == 196520
     assert K._dviews_bf16_table_rows(4, 5) == 64
+
+
+# the bf16 forward's pure-Python pieces: its chunks of u, cmt's padding, its
+# plan over every shape the kernels' limits admit
+
+
+@pytest.mark.parametrize("a,npix,cap", [
+    (1024, 128 * 529, 256 << 20),  # flagship layer 1: one chunk
+    (1024, 2048 * 529, 256 << 20),  # deep layer 1 at 2048: 9 chunks
+    (16, 1, 256 << 20),  # one pixel: one tile
+    (81, 10_000, 2 * 128 * 128 * 7),  # A padded to 128; 7 tiles a chunk
+    (1 << 20, 5_000, 256 << 20),  # a row of u past the cap: one tile a chunk
+    (64, 10**9, 256 << 20),  # the grid's 65535 tiles bound the chunk
+])
+def test_bf16_fwd_chunks_of_u(monkeypatch, a, npix, cap):
+    """A chunk is a whole number of 128-pixel tiles (at least one), at
+    most the cap's bytes of u (rows of A rounded up to 64), at most npix
+    rounded up and 65535 tiles; the chunks cover npix."""
+    monkeypatch.setattr(K, "_BF16_FWD_OPS_BYTES", cap)
+    chunk = K._fwd_bf16_chunk(a, npix)
+    a_pad = -(-a // 64) * 64
+    assert chunk % 128 == 0 and 128 <= chunk <= 65535 * 128
+    assert chunk == 128 or 2 * chunk * a_pad <= cap
+    assert chunk <= -(-npix // 128) * 128
+    assert chunk == min(-(-npix // 128) * 128, 65535 * 128) or 2 * (chunk + 128) * a_pad > cap
+
+
+@pytest.mark.parametrize("a", [16, 64, 81, 216, 1024])
+def test_bf16_fwd_cmt_padding(a):
+    """cmt as the bf16 forward reads it: itself where its rows are whole
+    steps of 64 and 16-byte aligned, else a copy zero-padded past A."""
+    z = 12
+    cmt = torch.randn((z, a)).to(torch.bfloat16)
+    a_pad = -(-a // 64) * 64
+    got = K._fwd_bf16_cmt(cmt, a_pad)
+    assert (got is cmt) == (a == a_pad)
+    assert got.shape == (z, a_pad) and got.data_ptr() % 16 == 0
+    assert torch.equal(got[:, :a], cmt) and not got[:, a:].any()
+    base = torch.zeros(z * a + 1, dtype=torch.bfloat16)
+    shifted = base[1:].view(z, a)  # 2 bytes past an aligned start
+    shifted.copy_(cmt)
+    moved = K._fwd_bf16_cmt(shifted, a_pad)
+    assert moved is not shifted and moved.data_ptr() % 16 == 0
+    assert torch.equal(moved[:, :a], cmt)
+
+
+@pytest.mark.parametrize("n,q,n1,o", [
+    (2, 128, 1, 2),  # v's most staged factor rows: 128
+    (10, 2, 1, 3),  # B2 = 512, nine factors of v
+    (3, 8, 1, 1),  # q^2 = 64: B2 = 64, two outputs' worth of Z tile, O = 1
+    (3, 16, 1, 65535),  # B2 = 256, O at the old grid's limit
+    (4, 64, 3, 5),  # n*q = 256, B2 = 64
+    (2, 4, 2, 4),  # three-EPS layer 0: A = 16, n2 = 0; mma.sync
+    (4, 64, 3, 1),  # mma.sync at n*q = 256 (B2 = 64, Z = 64)
+    (2, 128, 1, 1),  # mma.sync with B2 = 128: one output in 2 passes of 64
+])
+def test_bf16_fwd_plan_takes_every_shape_within_the_limits(n, q, n1, o):
+    """Every shape within the bf16 mode's limits (n·q ≤ 256, B2 ≤ 512)
+    fits the forward's plan in 227 KB (the wgmma route: v's n2·q ≤ 128
+    staged rows beside the 128 KB ring; the mma.sync route: at most 122 KB
+    at n·q = 256), and the wrapper's check takes it on shape-only
+    tensors."""
+    z, a = o * q ** (n - n1), q**n1
+    plan = K._fwd_bf16_plan(n, q, n1, o, 1000)
+    assert plan["route"] == ("wgmma" if z > 128 else "mma.sync")
+    assert plan["smem_bytes"] <= K._MAX_SMEM_BYTES
+    views = torch.empty((n, q, 1000), device="meta")
+    cmt = torch.empty((z, a), dtype=torch.bfloat16, device="meta")
+    assert K._check_fwd_bf16_args(views, cmt, n1, o) == plan
+
+
+# the route each of the repo's layers takes (a pin: a change is a plan
+# change): wgmma where Z > 128, the mma.sync kernel for the three-EPS
+# model's small Z (4, 24 and 72 rows), where u's round trip through device
+# memory and a second launch cost more than they save
+_BF16_FWD_ROUTES = {
+    "flagship layer 0": "wgmma", "flagship layer 1": "wgmma", "three-EPS layer 0": "mma.sync",
+    "three-EPS layer 1": "mma.sync", "three-EPS layer 2": "mma.sync", "deep layer 1": "wgmma",
+    "deep layer 2": "wgmma",
+}
+
+
+@pytest.mark.parametrize("name", [k for k in LAYERS if k not in OUT_OF_PLAN])
+def test_bf16_fwd_route_of_every_repo_layer(name):
+    c, q, k, o, _ = LAYERS[name]
+    n1, merge = K.plan_call(c, q, k, teps._balanced_split(k * k * c, q, o))
+    n, q_k, n1_k = K._kernel_dims(c, q, k, n1, merge)
+    plan = K._fwd_bf16_plan(n, q_k, n1_k, o, 128 * 625)
+    z = o * q_k ** (n - n1_k)
+    assert plan["route"] == ("wgmma" if z > 128 else "mma.sync")
+    assert plan["route"] == _BF16_FWD_ROUTES.get(name, plan["route"])
+    assert (plan["chunks"] > 0) == (plan["route"] == "wgmma")
