@@ -255,8 +255,10 @@ Run from the root of a checkout, with no arguments:
    full profiler tables go to DIR.
 13. Prints one JSON line describing the kernels (each entry's ``timed_by``
    says whether its times are one call between CUDA events, the host's
-   work included, or device time per call under torch.profiler), then the
-   result line.
+   work included, or device time per call under torch.profiler; a shape
+   whose window shows no device time in PROFILE_TRIES tries is timed by
+   CUDA events, and an entry with shapes of both ways says
+   ``cuda_events+device_time``), then the result line.
 
 Every count of kernel launches is set to 0 just before a path is driven and
 read just after it.
@@ -532,10 +534,19 @@ BF16_FWD_CHUNK_TILES = 100
 # the f32 and bf16 flagship steps and forwards timed in turns (phase 11 e)
 BF16_TURN_STEPS = 20
 # phase 11 (f): K9 with a bf16 t at these shapes beside flagship layer 1 at
-# batch 128: a TP and an SP shard's layer 1 (``grid_shard_shapes``) and a
-# layer that only the mma.sync kernel takes (A = 676)
+# batch 128: a TP and an SP shard's layer 1 (``grid_shard_shapes``), layer
+# 1's dims at 1,058 pixels (npix % 8 = 2: t copied out of its staging in
+# 16-byte units, smem_vec) and at 1,000 (the TMA's last box clipped), a
+# layer on the staged route (B2 = 6) and one that only the mma.sync kernel
+# takes (A = 676): every store route of the bf16 t (``_q8_plan``'s t_store)
 BF16_Q8_SHARDS = ("TP layer 1, O=3 (model 2)", "SP layer 1, 14 rows (space 2)")
+BF16_Q8_EDGES = (
+    ("layer 1 dims, 1,058 pixels", 9, 4, 5, 6, 2 * 529),
+    ("layer 1 dims, 1,000 pixels", 9, 4, 5, 6, 1000),
+    ("staged route, B2 = 6", 3, 6, 2, 5, 4000),
+)
 BF16_Q8_MMA_SYNC = ("mma.sync route, A = 676", 2, 26, 2, 3, 4000)
+BF16_Q8_ROUTES = {"tma", "smem_vec", "staged_vec", "mma.sync"}
 # the flagship's bf16 QAT step (phase 11 g): its gradients on the kernels
 # against the plain bf16 QAT bundle's at batch 128. Both forwards are the
 # same int8 products and store the same bf16 t (K9's is the plain
@@ -997,18 +1008,47 @@ def kernels_at_deep_batch(K, dev, res) -> None:
 # device event; a window that shows none is taken again, at most this many
 # times
 PROFILE_TRIES = 3
+# windows the process's first profile took to show a device event (None
+# until then; 0 where none of PROFILE_TRIES did)
+_profiler_primed = None
 
 
-def device_ms_per_call(fn, calls: int, out_path: str) -> tuple:
+def prime_profiler() -> int:
+    """Opens torch.profiler windows over one small device op until one shows
+    a device event, at most PROFILE_TRIES, once a process, and prints how
+    many it took: on the card, a process's first windows have shown no
+    device event at all, three in a row. Returns that count (0: none did)."""
+    global _profiler_primed
+    if _profiler_primed is not None:
+        return _profiler_primed
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.zeros(1 << 20, device="cuda")
+    _profiler_primed = 0
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            x.add_(1.0)
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            _profiler_primed = tries
+            break
+    print(f"torch.profiler: the process's first device event showed in window "
+          f"{_profiler_primed} of at most {PROFILE_TRIES} (0: in none)")
+    return _profiler_primed
+
+
+def device_ms_per_call(fn, calls: int, out_path: str, required: bool = True) -> tuple:
     """torch.profiler over ``calls`` calls of ``fn``: (device ms per call,
     the top device kernels as (name, ms per call)). Writes the whole table
     to ``out_path``. Only the kernels' own rows are summed: a host op's row,
     and a user annotation's such as ``Optimizer.step#Adam.step``, repeat
-    the device time of the kernels they launched. Raises if no window shows
-    device time."""
+    the device time of the kernels they launched. Where no window shows
+    device time it raises, or with ``required`` False returns (None, [])."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    prime_profiler()
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -1023,10 +1063,32 @@ def device_ms_per_call(fn, calls: int, out_path: str) -> tuple:
         )
         if per_kernel:
             break
+    if not per_kernel and not required:
+        return None, []
     check(bool(per_kernel), f"torch.profiler showed no device time in {PROFILE_TRIES} windows")
     with open(out_path, "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=40))
     return sum(ms for _, ms in per_kernel), per_kernel[:8]
+
+
+def device_or_event_ms(fns, calls: int, label: str) -> tuple:
+    """Device time per call of each of ``fns`` (``device_ms_per_call``) and
+    DEVICE_TIME; where the profiler shows no device time for one of them,
+    the median CUDA-event time of one call of each, run in turns ``calls``
+    times, and CUDA_EVENTS, so that the times of one shape are taken one
+    way."""
+    times = [device_ms_per_call(fn, calls, os.devnull, required=False)[0] for fn in fns]
+    if None not in times:
+        return times, DEVICE_TIME
+    print(f"{label}: torch.profiler showed no device time in {PROFILE_TRIES} windows; "
+          f"timed by CUDA events instead")
+    return median_ms(fns, reps=calls), CUDA_EVENTS
+
+
+def timed_by_of(ways: set) -> str:
+    """The ``timed_by`` of a kernels-line entry whose shapes were timed in
+    ``ways``: one of them, or both joined by '+'."""
+    return "+".join(sorted(ways))
 
 
 def profile_serving(paths, x, latency_stats, out_dir: str, tag: str) -> None:
@@ -1613,8 +1675,9 @@ def runner_phase(trunner, bench, K, dev) -> list:
             step(*gather(idx), gen)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / RUN_PROFILE_STEPS
+        # None where the profiler showed no device time (not measured)
         busy_ms, top = device_ms_per_call(lambda: step(*gather(idx), gen), RUN_PROFILE_STEPS,
-                                          os.path.join(tmp, "runner_profile.txt"))
+                                          os.path.join(tmp, "runner_profile.txt"), required=False)
         timing = state.extras["timing"]
         print(json.dumps({
             "metric": "runner", "epses_specs": [list(s) for s in FLAGSHIP], "batch_size": BATCH,
@@ -1622,7 +1685,8 @@ def runner_phase(trunner, bench, K, dev) -> list:
             "ms_per_iteration": 1e3 * (timing["loop_s"] - timing["hooks_s"]) / timing["iters"],
             "evals": timing["evals"], "ms_per_eval": 1e3 * timing["eval_s"] / timing["evals"],
             "scheduled_hooks_s": timing["hooks_s"], "step_wall_ms": wall_ms,
-            "step_device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+            "step_device_busy_ms": busy_ms,
+            "device_idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
             "top_device_ops_ms": top,
         }))
         del model, state, gather, step
@@ -1986,6 +2050,7 @@ def sbs_kernels_vs_plain(S, CSM, dev):
                "timed_by": DEVICE_TIME if k.startswith("sbs_fwd") else CUDA_EVENTS,
                "bytes": 0.0, "flops": 0.0} for k in SBS_KERNELS}
     worst = {}
+    fwd_timed_by = {k: set() for k in SBS_KERNELS if k.startswith("sbs_fwd")}
 
     def held(name, label, got, ref):
         err, scale = float((got - ref).abs().max()), float(ref.abs().max())
@@ -2024,14 +2089,15 @@ def sbs_kernels_vs_plain(S, CSM, dev):
                     del ref
                     # device time per call: the kernel's launch takes a few µs of
                     # device time, less than the host's work around it
-                    t_k, t_p, t_l = (device_ms_per_call(fn, SBS_FWD_PROFILE_CALLS, os.devnull)[0]
-                                     for fn in (kern, plain, library))
+                    (t_k, t_p, t_l), way = device_or_event_ms(
+                        (kern, plain, library), SBS_FWD_PROFILE_CALLS, f"{name} [{label}]")
                     nbytes, flops = sbs_work(olr, qc, npix, mcut, False, False, reg_c)
                     print(f"{name} vs plain [{label}, {route} route]: max|d|/max|ref| {errs} "
-                          f"(tol {SBS_TOL:g}*max|ref|); device ms per call: kernel {t_k:.6f}, "
+                          f"(tol {SBS_TOL:g}*max|ref|); ms per call ({way}): kernel {t_k:.6f}, "
                           f"plain {t_p:.6f}, library (one torch.einsum) {t_l:.6f} (its "
                           f"max|d|/max|ref| {lib_err:.3e}); bound {bound_ms(nbytes, flops)[0]:.6f} ms")
                     if on_path:
+                        fwd_timed_by[name].add(way)
                         for _ in range(2 if layer == 0 else 1):
                             r = res[name]
                             r["ms"] += t_k
@@ -2106,6 +2172,8 @@ def sbs_kernels_vs_plain(S, CSM, dev):
     del views, cores
     print(f"ConvSBS kernels vs plain, largest max|d|/max|ref| per kernel: {worst} "
           f"(tolerance {SBS_TOL:g})")
+    for name, ways in fwd_timed_by.items():
+        res[name]["timed_by"] = timed_by_of(ways)
     for r in res.values():
         r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("flops"))
     return res
@@ -2188,6 +2256,7 @@ def lme_kernel_vs_plain(L, LSC, max_shifts, dev):
              "timed_by": DEVICE_TIME, "bytes": 0.0}
     on_path = {"chain link": 5, "classifier step": 1}
     worst = {}
+    ways, s_ways = set(), set()
     for label, theta, r, i, offset, neg_inf in LME_SHAPES:
         la, lb = lme_operands(LSC, dev, theta, r, i, offset, neg_inf)
         theta, r, i = la.shape[0], la.shape[1], lb.shape[1]
@@ -2236,22 +2305,27 @@ def lme_kernel_vs_plain(L, LSC, max_shifts, dev):
         res["max_abs_err"] = max(res["max_abs_err"], err)
         fns = [kern, plain, lambda: torch.matmul(ea, eb)]
         call_ms = median_ms(fns, reps=10)
-        t_k, t_p, t_l = (device_ms_per_call(fn, LME_PROFILE_CALLS, os.devnull)[0] for fn in fns)
-        s_k, s_p = (device_ms_per_call(fn, LME_PROFILE_CALLS, os.devnull)[0]
-                    for fn in (lambda: L.logmatmulexp_shifts(la, lb), lambda: max_shifts(la, lb)))
+        (t_k, t_p, t_l), way = device_or_event_ms(fns, LME_PROFILE_CALLS, tag)
+        (s_k, s_p), s_way = device_or_event_ms(
+            (lambda: L.logmatmulexp_shifts(la, lb), lambda: max_shifts(la, lb)),
+            LME_PROFILE_CALLS, f"{tag} shifts")
         nbytes, flops = 4.0 * (theta * r + r * i + theta * i), 2.0 * theta * r * i
         s_bytes = 4.0 * (theta * r + r * i + theta + i)
         b_ms, by = bound_ms(nbytes, mm_flops=flops)
         print(f"{tag}: max|d| {err:.3e}, {share:.4f} of the limit ({LME_WALK}*2^-24*sqrt(R) + "
               f"{LME_ULPS}*2^-24*max(|ref|, |amax|+|bmax|) per entry), {n_inf} "
               f"outputs exactly -inf as plain, no NaN, same bits twice; shifts kernel equal to "
-              f"max_shifts; a forward: device kernels {names}; device time per call: "
+              f"max_shifts; a forward: device kernels {names}; ms per call ({way}; the shifts "
+              f"{s_way}): "
               f"kernel {t_k:.4f} ms ({flops / t_k / 1e9:.2f} TFLOP/s), plain {t_p:.4f} ms, "
               f"library torch.matmul of the exponentials {t_l:.4f} ms, shifts kernel {s_k:.4f} "
               f"ms, max_shifts {s_p:.4f} ms; one call between CUDA "
               f"events (the host's launch included): kernel {call_ms[0]:.4f} ms, plain "
               f"{call_ms[1]:.4f} ms, library {call_ms[2]:.4f} ms; bound {b_ms:.4f} ms ({by}), "
               f"splits of R {L._splits(theta, r, i)}")
+        if label in on_path:
+            ways.add(way)
+            s_ways.add(s_way)
         for _ in range(on_path.get(label, 0)):
             res["ms"] += t_k
             res["plain_ms"] += t_p
@@ -2263,6 +2337,7 @@ def lme_kernel_vs_plain(L, LSC, max_shifts, dev):
             res_s["bytes"] += s_bytes
         del la, lb, amax, bmax, ea, eb, got, ref
     print(f"K13 vs plain, largest share of the per-entry limit by case: {worst}")
+    res["timed_by"], res_s["timed_by"] = timed_by_of(ways), timed_by_of(s_ways)
     res["bound_ms"], res["bound_by"] = bound_ms(res.pop("bytes"), mm_flops=res.pop("flops"))
     res_s["bound_ms"], res_s["bound_by"] = bound_ms(res_s.pop("bytes"))
     return {"logmatmulexp": res, "logmatmulexp_shifts": res_s}
@@ -3983,30 +4058,39 @@ def bf16_phase(trunner, bench, K, params, cfg, dev, tmp) -> tuple:
 def q8_bf16_t_vs_plain(K, Q8, dev) -> tuple:
     """Phase 11 (f): K9 storing t in bf16 (the bf16 QAT step's) against its
     plain version at flagship layer 1 at batch 128, at a TP and an SP
-    shard's layer 1 (BF16_Q8_SHARDS) and at a layer only the mma.sync kernel
-    takes (BF16_Q8_MMA_SYNC): t bit-equal to the plain version's and to the
-    float32 K9's t rounded to nearest even, out bit-equal to the float32
-    K9's (summed from the same float32 t) and within REL_TOL of the plain
-    version's; both kernels (wgmma and mma.sync) must run. Kernel, plain,
+    shard's layer 1 (BF16_Q8_SHARDS), at BF16_Q8_EDGES and at a layer only
+    the mma.sync kernel takes (BF16_Q8_MMA_SYNC): t bit-equal to the plain
+    version's and to the float32 K9's t rounded to nearest even, out
+    bit-equal to the float32 K9's (summed from the same float32 t) and
+    within REL_TOL of the plain version's; both kernels (wgmma and
+    mma.sync) and every store route of the bf16 t (BF16_Q8_ROUTES, as the
+    plan and the source's own plan name it) must run. Kernel, plain,
     library (``torch._int_mm``, as K9's entry) and bound times at flagship
-    layer 1, with the float32 K9 timed in the same turns. Returns the
+    layer 1, with the float32 K9 and K8 timed in the same turns. Returns the
     kernels line's numbers of ``eps_fwd_q8_t_bf16`` and the record."""
     bf = torch.bfloat16
     n, q, n1, o, h = layer_dims(FLAGSHIP)[1]
     shapes = [("flagship layer 1", n, q, n1, o, BATCH * h * h)]
     shapes += [(label, *dims) for label, _, *dims in grid_shard_shapes() if label in BF16_Q8_SHARDS]
-    shapes.append(BF16_Q8_MMA_SYNC)
-    check(len(shapes) == 4, f"K9 bf16 shapes {[s_[0] for s_ in shapes]}")
+    shapes += [*BF16_Q8_EDGES, BF16_Q8_MMA_SYNC]
+    check(len(shapes) == 7, f"K9 bf16 shapes {[s_[0] for s_ in shapes]}")
     num = {"max_abs_err": 0.0, "timed_by": CUDA_EVENTS}
-    record, forms = {}, set()
+    record, forms, routes = {}, set(), {}
+    lib = K._library("eps_fwd_q8")
     g_ = torch.Generator(device=dev).manual_seed(SEED)
     for label, n, q, n1, o, npix in shapes:
         views = torch.rand((n, q, npix), generator=g_, device=dev)
         cmt = torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev) * q ** (-n / 2)
         wq, sw = Q8.quantize_cmt(cmt)
         z, a = cmt.shape
-        form = Q8._q8_plan(n, q, n1, o, npix)["form"]
+        plan = Q8._q8_plan(n, q, n1, o, npix, "bf16")
+        form, route = plan["form"], plan["t_store"]
+        source_route = Q8._T_STORES[lib.dctn_eps_fwd_q8_t_store(n, q, n1, o, npix,
+                                                                Q8._T_KINDS["bf16"])]
+        check(route == source_route, f"K9 bf16 [{label}]: the plan's t store {route} is not the "
+                                     f"source's {source_route}")
         forms.add(form)
+        routes[label] = route
         kern = lambda: Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True, t_dtype=bf)  # noqa: E731
         k32 = lambda: Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True)  # noqa: E731
         plain = lambda: Q8.eps_fwd_q8_reference(views, wq, sw, n1, o, save_t=True,  # noqa: E731
@@ -4025,24 +4109,30 @@ def q8_bf16_t_vs_plain(K, Q8, dev) -> tuple:
               f"K9 bf16 [{label}]: out differs from plain by {err} (max|ref| {scale})")
         num["max_abs_err"] = max(num["max_abs_err"], err)
         print(f"eps_fwd_q8_t_bf16 vs plain [{label}] n={n} q={q} n1={n1} O={o} npix={npix} "
-              f"({form}): t bit-equal to plain and to the f32 K9's t rounded, out bit-equal to "
-              f"the f32 K9's, out max|d| vs plain {err:.3e} tol={REL_TOL * scale:.3e}")
+              f"({form}, t store {route}, {plan['stages']} ring stages): t bit-equal to plain and "
+              f"to the f32 K9's t rounded, out bit-equal to the f32 K9's, out max|d| vs plain "
+              f"{err:.3e} tol={REL_TOL * scale:.3e}")
         if label == "flagship layer 1":
             uq = Q8._quantize_columns(K._suffix_chain(views, 0, n1)[0])[0]
-            lib = lambda: torch._int_mm(wq, uq)  # noqa: E731
-            t_k, t_32, t_p, t_l = median_ms([kern, k32, plain, lib], reps=10)
+            lib_mm = lambda: torch._int_mm(wq, uq)  # noqa: E731
+            k8 = lambda: Q8.eps_fwd_q8(views, wq, sw, n1, o)  # noqa: E731
+            t_k, t_32, t_8, t_p, t_l = median_ms([kern, k32, k8, plain, lib_mm], reps=10)
             gemm = 2.0 * z * a * npix
             nbytes = 4.0 * (views.numel() + z + o * npix) + wq.numel() + 2.0 * z * npix
             num["bound_ms"], num["bound_by"] = bound_ms(nbytes, 4.0 * z * npix, int8_ops=gemm)
             num.update(ms=t_k, plain_ms=t_p, library_ms=t_l)
-            record = {"ms": t_k, "f32_t_ms": t_32, "plain_ms": t_p, "library_ms": t_l,
+            record = {"ms": t_k, "f32_t_ms": t_32, "k8_ms": t_8, "plain_ms": t_p, "library_ms": t_l,
                       "bound_ms": num["bound_ms"], "bound_by": num["bound_by"]}
-            print(f"  K9 at flagship layer 1: bf16 t {t_k:.4f} ms, f32 t {t_32:.4f} ms (in turns), "
-                  f"plain {t_p:.4f} ms, torch._int_mm {t_l:.4f} ms, bound {num['bound_ms']:.4f} ms "
-                  f"({num['bound_by']})")
+            print(f"  K9 at flagship layer 1: bf16 t {t_k:.4f} ms, f32 t {t_32:.4f} ms, K8 "
+                  f"{t_8:.4f} ms (in turns), plain {t_p:.4f} ms, torch._int_mm {t_l:.4f} ms, bound "
+                  f"{num['bound_ms']:.4f} ms ({num['bound_by']})")
         del views, cmt, wq, sw, out, t, out32, t32, rout, rt
     check(forms == {"wgmma", "mma.sync"}, f"K9 bf16 ran on {forms}, not both kernels")
+    check(set(routes.values()) == BF16_Q8_ROUTES,
+          f"K9 bf16 took the t stores {sorted(set(routes.values()))}, not {sorted(BF16_Q8_ROUTES)}")
+    print(f"K9 bf16 t store routes: {routes}")
     record["forms"] = sorted(forms)
+    record["t_stores"] = routes
     return num, record
 
 

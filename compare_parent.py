@@ -38,13 +38,16 @@ timed in turns:
   CUDA-event ms, the host's work included: this checkout asks the kernels'
   gate at every call); and the gate's host µs per call, cached and
   uncached;
-- ``q8``: the int8 forward without t (K8) and with it (K9) at every layer
-  the int8 paths run at batch 128 (the flagship's serving and QAT layers,
-  the three-EPS QAT layers) and at one shape of its mma.sync kernel
-  (``Q8_MMA_SHAPE``), this checkout's t equal to the other's bit for bit and
-  its output within ``chip_smoke.REL_TOL`` of the other's (device time per
-  call, torch.profiler, in turns; and the median CUDA-event time of one call,
-  the host's work included);
+- ``q8``: the int8 forward without t (K8) and with it (K9: t in float32,
+  and in bf16 as the bf16 QAT step stores it) at every layer the int8 paths
+  run at batch 128 (the flagship's serving and QAT layers, the three-EPS QAT
+  layers), at the flagship's layer 1 at a grid rank's shapes
+  (``chip_smoke.grid_shard_shapes``) and at one shape of its mma.sync
+  kernel (``Q8_MMA_SHAPE``), this checkout's t equal to the other's bit for
+  bit and its output within ``chip_smoke.REL_TOL`` of the other's (device
+  time per call, torch.profiler, in turns; and the median CUDA-event time of
+  one call, the host's work included), each reading with the plan's t store
+  route;
 - ``sbs``: the ConvSBS forward (K10 at the model's merge position, K12's
   with ``mcut=None``) and backward (the same families, d_views both ways)
   at chip_smoke's phase-2b shapes (both legacy layers, open and ring, batch
@@ -126,7 +129,8 @@ STEPS = {
             str(DEEP_REG[1]), "--grad-accum-steps", acc, "--steps", "3", "--warmup", "1"))
           for acc in ("1", "auto")),
     ),
-    "q8": (("flagship QAT", ("--qat", "int8")),),
+    "q8": (("flagship QAT", ("--qat", "int8")),
+           ("flagship QAT bf16", ("--qat", "int8", "--compute-dtype", "bfloat16"))),
     "sbs": tuple(
         (f"conv_sbs batch {b} {'ring' if ring else 'open'}",
          ("--model-family", "conv_sbs", "--batch-size", str(b)) + (("--trace-edge",) if ring else ()))
@@ -341,51 +345,56 @@ def compare_ref(E, OE, dev) -> None:
 
 
 def compare_q8(Q, OQ, dev) -> None:
-    """K8 and K9 of both checkouts at the int8 paths' layers at batch 128
-    and at one shape of the mma.sync kernel."""
-    cases = [(f"{model} layer {i}", n, q, n1, o, BATCH * h * h)
+    """K8 and K9 (t in float32 and in bf16) of both checkouts at the int8
+    paths' layers at batch 128, at the flagship's layer 1 at a grid rank's
+    shapes (K9 with a bf16 t only: the bf16 QAT step on a grid) and at one
+    shape of the mma.sync kernel."""
+    cases = [(f"{model} layer {i}", n, q, n1, o, BATCH * h * h, (None, "f32", "bf16"))
              for model, specs in (("flagship", FLAGSHIP), ("three-EPS", THREE))
-             for i, (n, q, n1, o, h) in enumerate(layer_dims(specs))] + [Q8_MMA_SHAPE]
+             for i, (n, q, n1, o, h) in enumerate(layer_dims(specs))]
+    cases += [(label, n, q, n1, o, npix, ("bf16",))
+              for label, layer, n, q, n1, o, npix in grid_shard_shapes() if layer == 1]
+    cases.append((*Q8_MMA_SHAPE, (None, "f32", "bf16")))
     g_ = torch.Generator(device=dev).manual_seed(SEED)
-    for label, n, q, n1, o, npix in cases:
+    for label, n, q, n1, o, npix, kinds in cases:
         views = torch.rand((n, q, npix), generator=g_, device=dev)
         cmt = torch.randn((o * q ** (n - n1), q**n1), generator=g_, device=dev) * q ** (-n / 2)
         wq, sw = Q.quantize_cmt(cmt)
         z, a = wq.shape
-        for save_t in (False, True):
+        for t_kind in kinds:
             def call(M):
-                return lambda: M.eps_fwd_q8(views, wq, sw, n1, o, save_t=save_t)
+                t_dtype = torch.bfloat16 if t_kind == "bf16" else None
+                return lambda: M.eps_fwd_q8(views, wq, sw, n1, o, save_t=t_kind is not None,
+                                            t_dtype=t_dtype)
 
             got, ref = call(Q)(), call(OQ)()
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
             err, scale = float((got[0] - ref[0]).abs().max()), float(ref[0].abs().max())
-            name = "eps_fwd_q8_t" if save_t else "eps_fwd_q8"
+            name = {None: "eps_fwd_q8", "f32": "eps_fwd_q8_t", "bf16": "eps_fwd_q8_t_bf16"}[t_kind]
             check(err <= REL_TOL * scale, f"{name} [{label}]: differs from the other checkout's by "
                   f"{err} (max|ref| {scale})")
-            check(not save_t or torch.equal(got[1], ref[1]),
+            check(t_kind is None or torch.equal(got[1], ref[1]),
                   f"{name} [{label}]: t is not the other checkout's bit for bit")
             del got, ref
-            dev_ms = {"parent": 0.0, "change": 0.0}
-            for tree in ("parent", "change", "change", "parent"):
-                fn = call(OQ if tree == "parent" else Q)
-                fn()
-                dev_ms[tree] += device_ms_per_call(fn, 10, os.devnull)[0] / 2
+            dev_ms = turns_device_ms(call(OQ), call(Q), 10)
             call_ms = median_ms([call(OQ), call(Q)], reps=10)
             ops = 2.0 * z * a * npix
-            nbytes = 4.0 * (views.numel() + z + o * npix + (z * npix if save_t else 0)) + wq.numel()
+            t_bytes = {None: 0, "f32": 4, "bf16": 2}[t_kind] * z * npix
+            nbytes = 4.0 * (views.numel() + z + o * npix) + t_bytes + wq.numel()
             b_ms, by = bound_ms(nbytes, 4.0 * z * npix, int8_ops=ops)
+            plan = Q._q8_plan(n, q, n1, o, npix, t_kind)
             print(json.dumps({
                 "metric": "kernel_vs_parent", "kernel": name, "path": label,
-                "form": Q._q8_plan(n, q, n1, o, npix)["form"],
+                "form": plan["form"], "t_store": plan["t_store"], "stages": plan["stages"],
                 "shape": {"n": n, "q": q, "n1": n1, "O": o, "Z": z, "A": a, "npix": npix},
                 "parent_ms": dev_ms["parent"], "ms": dev_ms["change"],
                 "parent_over_change": dev_ms["parent"] / dev_ms["change"],
                 "tops": ops / dev_ms["change"] / 1e9,
                 "call_ms": {"parent": call_ms[0], "change": call_ms[1]},
                 "bound_ms": b_ms, "bound_by": by, "max_abs_diff_vs_parent": err,
-                "tol": REL_TOL * scale, "t_bit_equal": save_t}), flush=True)
+                "tol": REL_TOL * scale, "t_bit_equal": t_kind is not None}), flush=True)
         del views, cmt, wq, sw
         torch.cuda.empty_cache()
 

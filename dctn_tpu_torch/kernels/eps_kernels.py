@@ -355,12 +355,16 @@ _ENTRIES = {
 
 
 # the sources' queries of their plans (each returns a long long): the bf16
-# kernels' shared memory at a shape, which the Python plans mirror
+# kernels' shared memory at a shape, the int8 forward's shared memory, ring
+# stages and t store route, which the Python plans mirror
 _QUERIES = {
     "eps_fwd": {"dctn_eps_fwd_bf16_smem_bytes": [_I, _I, _I, _I],
                 "dctn_eps_fwd_bf16_route": [_I, _I, _I, _I]},
     "eps_dcore": {"dctn_eps_dcore_bf16_smem_bytes": [_I, _I, _I, _I]},
     "eps_dviews_t": {"dctn_eps_dviews_bf16_smem_bytes": [_I, _I, _I, _I, _I]},
+    "eps_fwd_q8": {"dctn_eps_fwd_q8_smem_bytes": [_I, _I, _I, _I, _I],
+                   "dctn_eps_fwd_q8_stages": [_I, _I, _I, _I, _I],
+                   "dctn_eps_fwd_q8_t_store": [_I, _I, _I, _I, _LL, _I]},
 }
 
 

@@ -17,7 +17,10 @@ replacing ``_fwd_q8_kernel_factory``, eps_pallas_q8.py:98) on CUDA tensors
 and its plain version ``eps_fwd_q8_reference`` on CPU tensors; with
 ``save_t`` it also writes the dequantized t (K9), in float32 or, with
 ``t_dtype=torch.bfloat16``, in bf16 (the float32 t rounded to nearest even,
-as the JAX QAT step stores it in its operand dtype, eps_pallas_q8.py:297).
+as the JAX QAT step stores it in its operand dtype, eps_pallas_q8.py:297),
+by the store route ``_q8_plan`` names (``t_store``: on the wgmma kernel
+staged through shared memory and sent out by TMA bulk stores, or by
+16-byte stores where the TMA cannot take t).
 The quantizers of the weights stay torch ops on the card: they run outside
 the TPU kernel too.
 
@@ -80,14 +83,18 @@ from .eps_kernels import (
 # by zero (a black pixel's φ features are exact zeros)
 _EPS_SCALE = 1e-30
 # csrc/eps_fwd_q8.cu's tiling. The wgmma kernel: pixels per CTA (M), rows of
-# Z per N tile (N), A bytes per ring stage, ring stages, rows of t staged per
-# N tile (and their stride in floats), the most rows of u's suffix table T and
-# the most factors left of it. The mma.sync kernel: pixels per CTA, A columns
-# per step, rows of Z per block, staged rows per warp.
+# Z per N tile (N), A bytes per ring stage, ring stages (one fewer with a bf16
+# t, whose staging takes its room on the register route: 4 chunks of 16 rows
+# x 64 pixels of bf16 a warpgroup), rows of t staged per N tile (and their
+# stride in floats), the most rows of u's suffix table T and the most factors
+# left of it. The mma.sync kernel: pixels per CTA, A columns per step, rows of
+# Z per block, staged rows per warp.
 _WG_TILE_P = 128
 _WG_TILE_N = 256
 _WG_STEP_K = 64
 _WG_STAGES = 5
+_WG_BF16_T_STAGES = 4
+_WG_T_STAGE_BYTES = 2 * 4 * 16 * 128
 _WG_STAGED_ROWS = 128
 _WG_STAGED_STRIDE = _WG_TILE_P + 4
 _WG_MAX_T = 64
@@ -166,18 +173,36 @@ def _align128(x: int) -> int:
     return -(-x // 128) * 128
 
 
+# t's kinds: none (K8), float32 or bf16 (K9), as the C plan's kT; its t
+# store routes, by the C plan's codes (kStore*)
+_T_KINDS = {None: 0, "f32": 1, "bf16": 2}
+_T_STORES = (None, "direct", "tma", "smem_vec", "staged_vec", "mma.sync")
+
+
 @functools.lru_cache(maxsize=256)
-def _q8_plan(n: int, q: int, n1: int, out_size: int, npix: int) -> dict:
-    """One ``eps_fwd_q8`` launch (``make_plan`` in csrc/eps_fwd_q8.cu), from
-    the shape alone. ``form`` is "wgmma" where A is a multiple of 4, u has at
-    most 8 factors left of its suffix table, the sum over b has a route (in
-    registers where B2 is a multiple of 8 and v's trailing factors make 8 or
-    16 rows; else on a staged t tile, B2 ≤ 128) and the shared memory fits;
-    else "mma.sync". wgmma: ``grid`` 128-pixel tiles, ``tiles`` N tiles of
-    ``n`` = 256 rows along Z, each ``outputs`` whole outputs (or one output
-    in ``passes`` tiles), wq through a ring of ``stages``. mma.sync: 64-pixel
-    tiles, Z in blocks of ``n`` = 128 rows. ``smem_bytes``: the form's
-    shared memory."""
+def _q8_plan(n: int, q: int, n1: int, out_size: int, npix: int, t_kind=None) -> dict:
+    """One ``eps_fwd_q8`` launch (``make_plan`` in csrc/eps_fwd_q8.cu) with t
+    of ``t_kind`` (None: K8; "f32" or "bf16": K9), from the shape alone.
+    ``form`` is "wgmma" where A is a multiple of 4, u has at most 8 factors
+    left of its suffix table, the sum over b has a route (in registers where
+    B2 is a multiple of 8 and v's trailing factors make 8 or 16 rows; else
+    on a staged t tile, B2 ≤ 128) and the shared memory of the f32 layout
+    fits; else "mma.sync". The form does not depend on t, so the bf16 K9
+    sums the f32 K9's out. wgmma: ``grid`` 128-pixel tiles, ``tiles`` N
+    tiles of ``n`` = 256 rows along Z, each ``outputs`` whole outputs (or
+    one output in ``passes`` tiles), wq through a ring of ``stages`` (4 with
+    a bf16 t, else 5). mma.sync: 64-pixel tiles, Z in blocks of ``n`` = 128
+    rows. ``smem_bytes``: the form's shared memory. ``t_store``: how t goes
+    out: None (no t), "direct" (the f32 t from the registers), "tma" (the
+    bf16 t staged by stmatrix and stored by the TMA in boxes of 64 pixels x
+    ``t_box`` rows: the register route where npix is a multiple of 8),
+    "smem_vec" (the same staging, copied out in 16-byte units where t's
+    alignment allows: the register route's other shapes), "staged_vec"
+    (from the staged route's float32 tile, 8 pixels a thread), "mma.sync"
+    (the mma.sync kernel's store); for a t from the wrapper, 16-byte
+    aligned."""
+    if t_kind not in _T_KINDS:
+        raise ValueError(f"_q8_plan: t_kind is None, 'f32' or 'bf16', not {t_kind!r}")
     a, b2, n2 = q**n1, q ** (n - n1), n - n1
     a_pad = -(-a // _WG_STEP_K) * _WG_STEP_K
     lt = 1
@@ -195,25 +220,35 @@ def _q8_plan(n: int, q: int, n1: int, out_size: int, npix: int) -> dict:
     else:
         outs, passes = min((_WG_TILE_N if regs else _WG_STAGED_ROWS) // b2, out_size), 1
         tiles = -(-out_size // outs) if outs else 0
-    ring = _WG_STAGES * _WG_TILE_N * _WG_STEP_K
     staged = 0 if regs else 4 * _WG_STAGED_ROWS * _WG_STAGED_STRIDE
     row = 4 * _WG_TILE_P
     vrows = b2 // s2 + s2 if regs else (b2 if n2 else 0)
     t_rows = q**lt if lt >= 2 else 0  # the factor rows, T and their digit codes
     prologue = (n * q + t_rows) * row + 4 * (t_rows + vrows)
-    off_v = _align128(_align128(a_pad * _WG_TILE_P) + max(ring + staged, prologue))
-    # su, sw of two N tiles, the ring's full and empty barriers
-    wgmma_bytes = off_v + vrows * row + row + 2 * _WG_TILE_N * 4 + 2 * _WG_STAGES * 8
-    if a % 4 == 0 and n1 - lt <= _WG_MAX_LEAD and outs > 0 and wgmma_bytes <= _MAX_SMEM_BYTES:
+
+    def layout(stages: int, extra: int) -> int:
+        ring = stages * _WG_TILE_N * _WG_STEP_K
+        off_v = _align128(_align128(a_pad * _WG_TILE_P) + max(ring + extra + staged, prologue))
+        # su, sw of two N tiles, the ring's full and empty barriers
+        return off_v + vrows * row + row + 2 * _WG_TILE_N * 4 + 2 * stages * 8
+
+    if a % 4 == 0 and n1 - lt <= _WG_MAX_LEAD and outs > 0 and layout(_WG_STAGES, 0) <= _MAX_SMEM_BYTES:
+        stages = _WG_BF16_T_STAGES if t_kind == "bf16" else _WG_STAGES
+        if t_kind == "bf16":
+            t_store = ("tma" if npix % 8 == 0 and npix < 2**31 else "smem_vec") if regs else "staged_vec"
+        else:
+            t_store = t_kind and "direct"
         return {"form": "wgmma", "grid": (-(-npix // _WG_TILE_P),), "n": _WG_TILE_N,
-                "outputs": outs, "passes": passes, "tiles": tiles, "stages": _WG_STAGES,
-                "route": "registers" if regs else "staged", "smem_bytes": wgmma_bytes}
+                "outputs": outs, "passes": passes, "tiles": tiles, "stages": stages,
+                "route": "registers" if regs else "staged", "t_store": t_store,
+                "t_box": (16 if b2 % 16 == 0 else 8) if t_store == "tma" else None,
+                "smem_bytes": layout(stages, _WG_T_STAGE_BYTES if t_kind == "bf16" and regs else 0)}
     units = 8 if b2 % _ROWS_PER_WARP == 0 else _BLOCK_ROWS
     floats = n * q * _TILE_PIX + 3 * _TILE_PIX + units * (_TILE_PIX + 8)
     uq_offset = -(-4 * (floats + a + b2) // 16) * 16
     return {"form": "mma.sync", "grid": (-(-npix // _TILE_PIX),), "n": _BLOCK_ROWS,
             "outputs": None, "passes": None, "tiles": -(-out_size * b2 // _BLOCK_ROWS),
-            "stages": 1, "route": None,
+            "stages": 1, "route": None, "t_store": t_kind and "mma.sync", "t_box": None,
             "smem_bytes": uq_offset + _TILE_PIX * (-(-a // _STEP_K) * _STEP_K + 64)}
 
 

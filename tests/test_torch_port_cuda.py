@@ -456,6 +456,11 @@ _Q8_SHAPES = [
     (2, 24, 2, 3, 1000),  # A = 576, the largest the staged route holds
     (2, 26, 2, 3, 1000),  # A = 676, over it: the mma.sync kernel
     (14, 2, 11, 1, 300),  # A = 2048 with B2 = 8, over the register route's 1,024: mma.sync
+    # flagship layer 1 with a ragged last 128-pixel tile and npix % 8 = 0: the
+    # bf16 t by TMA stores, the last box clipped at npix; and npix % 8 = 4,
+    # where t's rows are 8-byte aligned and the TMA cannot take them
+    (9, 4, 5, 6, 1000),
+    (9, 4, 5, 6, 1004),
 ]
 
 
@@ -480,13 +485,23 @@ def test_q8_kernel_matches_plain(cuda_device, n, q, n1, o, npix):
     assert torch.equal(out_t, out)
 
 
+def _q8_source_t_store(n, q, n1, o, npix, t_kind):
+    """The t store route the source's own plan picks (its C query)."""
+    code = K._library("eps_fwd_q8").dctn_eps_fwd_q8_t_store(n, q, n1, o, npix, Q8._T_KINDS[t_kind])
+    return Q8._T_STORES[code]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,q,n1,o,npix", _Q8_SHAPES)
 def test_q8_kernel_bf16_t_matches_plain(cuda_device, n, q, n1, o, npix):
     """K9 storing t in bf16 (the bf16 QAT step's): t bit-equal to the plain
     version's and to the float32 K9's t rounded to nearest even, out
-    bit-equal to the float32 K9's (both routes: the shapes span the wgmma
-    and the mma.sync kernels, ``_q8_plan``)."""
+    bit-equal to the float32 K9's (every store route: the shapes span the
+    wgmma kernel's tma, smem_vec and staged_vec routes and the mma.sync
+    kernel, ``_q8_plan``'s ``t_store``, which the source's plan names too)."""
+    plan = Q8._q8_plan(n, q, n1, o, npix, "bf16")
+    assert plan["t_store"] == _q8_source_t_store(n, q, n1, o, npix, "bf16")
+    assert plan["form"] == Q8._q8_plan(n, q, n1, o, npix, "f32")["form"]
     views, wq, sw = _q8_inputs(cuda_device, n, q, n1, o, npix)
     before = (Q8.eps_fwd_q8.t_launches, Q8.eps_fwd_q8.bf16_t_launches)
     out32, t32 = Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True)
@@ -536,6 +551,66 @@ def test_q8_kernel_gives_the_same_bits_twice(cuda_device, n, q, n1, o, npix):
     second = Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,n1,o,npix,route", [
+    (9, 4, 5, 6, 128 * 529, "tma"),  # flagship layer 1 at batch 128
+    (9, 4, 5, 6, 1000, "tma"),  # a clipped last box
+    (9, 4, 5, 6, 2 * 529, "smem_vec"),  # npix % 8 = 2
+    (3, 6, 2, 5, 4000, "staged_vec"),
+])
+def test_q8_bf16_t_gives_the_same_bits_three_times(cuda_device, n, q, n1, o, npix, route):
+    """The bf16 t written through shared memory (stmatrix, then TMA bulk
+    stores or 16-byte copies) on three runs: every bit the plain version's
+    each time (a TMA read of a chunk before its stmatrix writes were visible
+    to the async proxy, or a buffer rewritten before its store had read it,
+    would show as stale t now and then); out the same bits each time."""
+    assert Q8._q8_plan(n, q, n1, o, npix, "bf16")["t_store"] == route
+    views, wq, sw = _q8_inputs(cuda_device, n, q, n1, o, npix, seed=5)
+    ref_t = Q8.eps_fwd_q8_reference(views, wq, sw, n1, o, save_t=True, t_dtype=torch.bfloat16)[1]
+    outs = []
+    for _ in range(3):
+        out, t = Q8.eps_fwd_q8(views, wq, sw, n1, o, save_t=True, t_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(t, ref_t)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+def test_q8_bf16_t_into_an_unaligned_t(cuda_device):
+    """A t (Z, npix) that starts 2 bytes past a 16-byte boundary: the TMA
+    cannot take it, so the launch takes the smem_vec store, as wide as each
+    unit's alignment allows (here no unit is even 4-byte aligned: single
+    values), and still gives the plain version's bits; out is K8's."""
+    n, q, n1, o, npix = 9, 4, 5, 6, 1000
+    views, wq, sw = _q8_inputs(cuda_device, n, q, n1, o, npix)
+    buf = torch.empty(o * 256 * npix + 8, dtype=torch.bfloat16, device=cuda_device)
+    t = buf[1:1 + o * 256 * npix].view(o * 256, npix)
+    assert t.data_ptr() % 16 == 2
+    out = Q8._launch_q8(views, wq, sw, n1, o, t=t)
+    ref_out, ref_t = Q8.eps_fwd_q8_reference(views, wq, sw, n1, o, save_t=True,
+                                             t_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(t, ref_t)
+    assert torch.equal(out, Q8.eps_fwd_q8(views, wq, sw, n1, o))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,n1,o,npix", _Q8_SHAPES)
+def test_q8_plan_mirror_equals_the_source(cuda_device, n, q, n1, o, npix):
+    """``_q8_plan`` (the wrapper's checks, the plan pins of
+    tests/test_torch_port_launch_plans.py) equals the source's own plan,
+    asked through its C queries, for every kind of t: shared memory, ring
+    stages and t store route."""
+    del cuda_device
+    lib = K._library("eps_fwd_q8")
+    for t_kind, code in Q8._T_KINDS.items():
+        plan = Q8._q8_plan(n, q, n1, o, npix, t_kind)
+        assert plan["smem_bytes"] == lib.dctn_eps_fwd_q8_smem_bytes(n, q, n1, o, code)
+        assert plan["stages"] == lib.dctn_eps_fwd_q8_stages(n, q, n1, o, code)
+        assert plan["t_store"] == _q8_source_t_store(n, q, n1, o, npix, t_kind)
 
 
 def _max_abs_u_scales(views, n1):

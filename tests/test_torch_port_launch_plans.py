@@ -516,6 +516,91 @@ def test_q8_flagship_tiles_are_one_output_each(layer, tiles):
         assert (plan["outputs"], plan["tiles"], plan["route"]) == (o, 1, "staged")
 
 
+# the f32 layout's shared memory (K8 and the f32 K9: 5 ring stages, as before
+# the bf16 t had its own route) at the flagship's layers at batch 128
+_Q8_F32_BYTES = {0: 133_712, 1: 232_016}
+
+
+@pytest.mark.parametrize("t_kind", [None, "f32"])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_q8_k8_and_f32_k9_plans_stay(layer, t_kind):
+    """K8's and the f32 K9's plans at the flagship's layers (a pin: a change
+    is a plan change): 5 ring stages, the f32 layout's bytes, t (K9) stored
+    straight from the registers."""
+    n, q, n1, o, h = chip_smoke.layer_dims(chip_smoke.FLAGSHIP)[layer]
+    plan = Q8._q8_plan(n, q, n1, o, chip_smoke.BATCH * h * h, t_kind)
+    assert (plan["form"], plan["stages"], plan["smem_bytes"]) == ("wgmma", 5, _Q8_F32_BYTES[layer])
+    assert plan["t_store"] == (t_kind and "direct") and plan["t_box"] is None
+
+
+_GRID_LAYER1 = [s for s in chip_smoke.grid_shard_shapes() if s[1] == 1]
+
+
+@pytest.mark.parametrize("label,layer,n,q,n1,o,npix",
+                         [("flagship layer 1", 1, 9, 4, 5, 6, 128 * 529)] + _GRID_LAYER1,
+                         ids=["flagship layer 1"] + [s[0] for s in _GRID_LAYER1])
+def test_q8_bf16_t_plans_at_the_flagship_and_grid_shards(label, layer, n, q, n1, o, npix):
+    """The bf16 K9 at the flagship's layer 1 and at every TP, SP and SP x TP
+    layer-1 shard (a pin): the wgmma kernel on its register route, t
+    through stmatrix and TMA stores in boxes of 64 pixels x 16 rows (npix a
+    multiple of 8 at each), a ring of 4 stages, 232,000 B (the f32 layout's
+    232,016 less one stage's 16 KB and its two mbarriers, plus the 16 KB of
+    t's staging); K8 and the f32 K9 at the same shape keep 5 stages and
+    232,016 B; the same form and N tiles for every kind of t."""
+    del label, layer
+    plans = {k: Q8._q8_plan(n, q, n1, o, npix, k) for k in (None, "f32", "bf16")}
+    bf = plans["bf16"]
+    assert (bf["form"], bf["route"], bf["t_store"], bf["t_box"], bf["stages"], bf["smem_bytes"]) == (
+        "wgmma", "registers", "tma", 16, 4, 232_000)
+    for k in (None, "f32"):
+        assert (plans[k]["stages"], plans[k]["smem_bytes"]) == (5, 232_016)
+    assert len({(p["form"], p["tiles"], p["outputs"], p["grid"]) for p in plans.values()}) == 1
+
+
+def test_q8_bf16_t_routes_are_each_taken_by_the_card_tests():
+    """Every store route of the bf16 t is taken by at least one shape of the
+    card tests (``_Q8_SHAPES``): tma, smem_vec, staged_vec and mma.sync."""
+    routes = {Q8._q8_plan(n, q, n1, o, npix, "bf16")["t_store"]
+              for n, q, n1, o, npix in _cuda_cases._Q8_SHAPES}
+    assert routes == {"tma", "smem_vec", "staged_vec", "mma.sync"}
+
+
+def test_q8_bf16_t_goes_by_tma_where_npix_is_a_multiple_of_8():
+    """On the register route the bf16 t's rows are whole 16-byte units only
+    where npix is a multiple of 8: the TMA's route there, smem_vec at every
+    other npix (t's global stride must be a multiple of 16 bytes)."""
+    for npix in range(1000, 1017):
+        route = Q8._q8_plan(9, 4, 5, 6, npix, "bf16")["t_store"]
+        assert route == ("tma" if npix % 8 == 0 else "smem_vec"), npix
+
+
+@pytest.mark.parametrize("q_range", [(1, 9), (9, 33), (33, 129)])
+def test_q8_bf16_t_plan_keeps_the_f32_form(q_range):
+    """On every shape the kernel takes (n up to 13, O of 1 to 40), the bf16
+    t's plan takes the f32 K9's form, N tiles and route, so its out is the
+    f32 K9's bit for bit, in no more shared memory; only the t store, the
+    ring's stages and the bytes differ (and those only on the wgmma
+    kernel)."""
+    seen = 0
+    for q in range(*q_range):
+        for n in range(1, 14):
+            for n1 in range(1, n + 1):
+                for o in (1, 6, 40):
+                    if not _q8_parent_takes(n, q, n1, o):
+                        continue
+                    seen += 1
+                    f32, bf = (Q8._q8_plan(n, q, n1, o, 1000, k) for k in ("f32", "bf16"))
+                    same = ("form", "grid", "n", "outputs", "passes", "tiles", "route")
+                    assert all(f32[k] == bf[k] for k in same)
+                    assert bf["smem_bytes"] <= f32["smem_bytes"] <= K._MAX_SMEM_BYTES
+                    if bf["form"] == "wgmma":
+                        assert (f32["stages"], bf["stages"]) == (5, 4)
+                        assert bf["t_store"] == ("tma" if bf["route"] == "registers" else "staged_vec")
+                    else:
+                        assert bf["t_store"] == f32["t_store"] == "mma.sync"
+    assert seen > 0
+
+
 def _q8_parent_takes(n, q, n1, o):
     """The rule the int8 forward had before its wgmma kernel: B2 <= 512,
     n*q <= 256, A*127^2 < 2^31, the digits of a and b in 32 bits, and its
